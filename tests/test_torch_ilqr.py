@@ -1,0 +1,294 @@
+"""The port's iLQR solvers vs the JAX package, float64 on CPU.
+
+Inputs are drawn with numpy from a seed and handed to both packages. The
+JAX side runs ``solve_batch(use_pallas=True)``: its Pallas kernels in
+interpret mode, as the JAX package's own tests run them on the CPU. On CPU
+tensors the port's kernel wrappers run their plain PyTorch versions.
+
+Tolerances: controls within 1e-6 of the JAX solve and identical
+converged/failed masks and iteration counts (the ROADMAP's slice-A
+target): the two packages compute the same float64 algorithm and differ
+only in rounding order (~1e-14 per step), far below both the controls'
+tolerance and the convergence threshold. The batch-vs-single and
+compacted-restart checks compare the port with itself at 1e-9, as the JAX
+package's tests do.
+"""
+
+import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from oracles import ilqr_navigation_oracle_np
+from tfmpc_tpu.models.navigation import make_navigation as jax_make_navigation
+from tfmpc_tpu.solvers import ilqr as jilqr
+from tfmpc_tpu.solvers import ilqr_batched as jbatched
+from tfmpc_tpu_torch import interop
+from tfmpc_tpu_torch.models.navigation import make_navigation
+from tfmpc_tpu_torch.ops import riccati, rollout
+from tfmpc_tpu_torch.solvers import ilqr, ilqr_batched
+
+GOAL = [8.0, -5.0]
+ZONE = {"center": [[3.0, -2.0]], "decay": [2.0]}
+T = 20
+HEADLINE = dict(atol=1e-4, max_iterations=50, use_pallas=True)
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def envs():
+    return (jax_make_navigation(GOAL, ZONE, dtype=jnp.float64),
+            make_navigation(GOAL, ZONE, dtype=torch.float64))
+
+
+def _x0(B, seed=0):
+    return np.random.default_rng(seed).uniform(-10.0, 10.0, (B, 2))
+
+
+def _assert_same_solve(res_t, res_j, atol=1e-6):
+    np.testing.assert_allclose(res_t.actions.numpy(), np.asarray(res_j.actions),
+                               rtol=0, atol=atol)
+    np.testing.assert_array_equal(res_t.converged.numpy(),
+                                  np.asarray(res_j.converged))
+    np.testing.assert_array_equal(res_t.failed.numpy(),
+                                  np.asarray(res_j.failed))
+    np.testing.assert_array_equal(res_t.iterations.numpy(),
+                                  np.asarray(res_j.iterations))
+
+
+@pytest.mark.parametrize("B", [128, 100])
+def test_solve_batch_matches_jax_kernel_path(envs, B):
+    """The slice end to end. B=100 is ragged: the JAX package pads it to
+    its 128-lane rule, the port runs it as it is."""
+    jenv, tenv = envs
+    x0 = _x0(B)
+    res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=T,
+                              config=jilqr.ILQRConfig(**HEADLINE))
+    plain = riccati.PLAIN_CALLS, rollout.COSTS_PLAIN_CALLS
+    launches = (riccati.LAUNCHES, rollout.COSTS_LAUNCHES,
+                rollout.ALPHA_LAUNCHES)
+    res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=T,
+                             config=ilqr.ILQRConfig(**HEADLINE))
+    _assert_same_solve(res_t, res_j)
+    assert bool(res_t.converged.all())
+    np.testing.assert_allclose(res_t.total_cost.numpy(),
+                               np.asarray(res_j.total_cost), rtol=1e-9)
+    np.testing.assert_allclose(res_t.states.numpy(), np.asarray(res_j.states),
+                               rtol=0, atol=1e-6)
+    # CPU tensors: the wrappers ran their plain versions, no kernel launched
+    assert riccati.PLAIN_CALLS > plain[0]
+    assert rollout.COSTS_PLAIN_CALLS > plain[1]
+    assert (riccati.LAUNCHES, rollout.COSTS_LAUNCHES,
+            rollout.ALPHA_LAUNCHES) == launches
+    # the plain PyTorch path (use_pallas=False) reaches the same solve
+    res_p = ilqr.solve_batch(
+        tenv, torch.as_tensor(x0), horizon=T,
+        config=ilqr.ILQRConfig(**{**HEADLINE, "use_pallas": False}))
+    _assert_same_solve(res_p, res_j)
+
+
+def test_batch_matches_single(envs):
+    _, tenv = envs
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-8, 8, (5, 2)))
+    config = ilqr.ILQRConfig(atol=1e-8, max_iterations=50, use_pallas=True)
+    resb = ilqr.solve_batch(tenv, x0, horizon=T, config=config)
+    for i in range(5):
+        res1 = ilqr.solve(tenv, x0[i], horizon=T, config=config)
+        np.testing.assert_allclose(resb.actions[i].numpy(),
+                                   res1.actions.numpy(), rtol=1e-9, atol=1e-9)
+        assert bool(resb.converged[i]) == bool(res1.converged)
+        assert int(resb.iterations[i]) == int(res1.iterations)
+
+
+@pytest.mark.parametrize("n_bad", [4, 150])
+def test_compacted_restart_loop_matches_full(envs, n_bad):
+    """B > 128 routes restarts through the compacted sub-batch loop; every
+    lane must see the escalation sequence of the single-scenario restart
+    loop, and the JAX package's compacted loop must agree. With 150 failing
+    lanes (> R = 128) some lanes wait a round."""
+    jenv, tenv = envs
+    B, Tb = 256, 8
+    rng = np.random.default_rng(7)
+    x0 = rng.uniform(-6, 6, (B, 2))
+    U = 0.2 * rng.standard_normal((B, Tb, 2))
+    X, _ = tenv.rollout(torch.as_tensor(x0), torch.as_tensor(U))
+    lin, quad, fin = ilqr.derivatives(tenv, X, torch.as_tensor(U))
+    bad = rng.choice(B, n_bad, replace=False)
+    l_uu = quad.l_uu.clone()
+    l_uu[bad] = -4.0 * torch.eye(2, dtype=torch.float64)
+    quad = dataclasses.replace(quad, l_uu=l_uu)
+    mu = torch.zeros(B, dtype=torch.float64)
+    delta = torch.ones(B, dtype=torch.float64)
+    cfg = ilqr.ILQRConfig(use_pallas=True)
+
+    ok_c, pol_c, dv1_c, dv2_c, mu_c, delta_c = \
+        ilqr_batched._backward_restarts_batched(lin, quad, fin, mu, delta, cfg)
+    assert int((mu_c > 0).sum()) >= n_bad  # the bad lanes did restart
+    for i in range(B):
+        row = lambda m: dataclasses.replace(  # noqa: E731
+            m, **{f: getattr(m, f)[i] for f in m.__dataclass_fields__})
+        ok, pol, dv1, dv2, mu_i, delta_i = ilqr.backward_with_restarts(
+            row(lin), row(quad), row(fin), mu[i], delta[i], cfg)
+        assert bool(ok) == bool(ok_c[i])
+        assert float(mu_i) == float(mu_c[i])
+        assert float(delta_i) == float(delta_c[i])
+        if bool(ok):
+            np.testing.assert_allclose(pol.K.numpy(), pol_c.K[i].numpy(),
+                                       rtol=1e-9, atol=1e-9)
+            np.testing.assert_allclose(pol.k.numpy(), pol_c.k[i].numpy(),
+                                       rtol=1e-9, atol=1e-9)
+            np.testing.assert_allclose(float(dv1), float(dv1_c[i]),
+                                       rtol=1e-9, atol=1e-12)
+            np.testing.assert_allclose(float(dv2), float(dv2_c[i]),
+                                       rtol=1e-9, atol=1e-12)
+
+    jlin, jquad, jfin = jbatched._derivatives_batched(jenv, jnp.asarray(X),
+                                                      jnp.asarray(U))
+    jquad = dataclasses.replace(jquad, l_uu=jnp.asarray(l_uu.numpy()))
+    ok_j, _, _, _, mu_j, delta_j = jax.jit(
+        lambda: jbatched._backward_restarts_batched(
+            jlin, jquad, jfin, jnp.zeros(B), jnp.ones(B),
+            jilqr.ILQRConfig(), None, jnp.asarray(U)))()
+    np.testing.assert_array_equal(ok_c.numpy(), np.asarray(ok_j))
+    np.testing.assert_array_equal(mu_c.numpy(), np.asarray(mu_j))
+    np.testing.assert_array_equal(delta_c.numpy(), np.asarray(delta_j))
+
+
+def test_resume_from_jax_state(envs):
+    """A JAX solve stopped after one iteration, carried over as numpy
+    arrays, resumes in the port exactly as it resumes in JAX."""
+    jenv, tenv = envs
+    x0 = jnp.asarray(_x0(128, seed=3))
+    first = jilqr.ILQRConfig(**{**HEADLINE, "max_iterations": 1})
+    jstate = jbatched.state_from_result(
+        jilqr.solve_batch(jenv, x0, horizon=T, config=first))
+    full = jilqr.ILQRConfig(**HEADLINE)
+    res_j = jbatched.resume(jenv, jstate, config=full)
+
+    state = interop.state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate._asdict().items()})
+    config = interop.config_from_dict(dataclasses.asdict(full))
+    res_t = ilqr_batched.resume(tenv, state, config=config)
+    _assert_same_solve(res_t, res_j)
+    assert int(res_t.iterations.max()) >= 2
+    with pytest.raises(ValueError, match="sizes"):
+        ilqr_batched.resume(
+            make_navigation([1.0, 2.0, 3.0], None, dtype=torch.float64),
+            state, config=config)
+
+
+def test_trace_mode_matches_jax(envs):
+    jenv, tenv = envs
+    x0 = _x0(8, seed=4)
+    cfg = dict(atol=1e-8, max_iterations=5)
+    res_j, tr_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=T,
+                                    config=jilqr.ILQRConfig(**cfg),
+                                    return_trace=True)
+    res_t, tr_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=T,
+                                   config=ilqr.ILQRConfig(**cfg),
+                                   return_trace=True)
+    _assert_same_solve(res_t, res_j)
+    for name in tr_t._fields:
+        ours, theirs = getattr(tr_t, name).numpy(), np.asarray(getattr(tr_j,
+                                                                       name))
+        assert ours.shape == theirs.shape == (5, 8), name
+        if ours.dtype == bool:
+            np.testing.assert_array_equal(ours, theirs, err_msg=name)
+        else:
+            np.testing.assert_allclose(ours, theirs, rtol=1e-9, atol=1e-9,
+                                       err_msg=name)
+    # the early-stopping loop ends in the same state
+    res_w = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=T,
+                             config=ilqr.ILQRConfig(**cfg))
+    assert torch.equal(res_w.actions, res_t.actions)
+
+
+ORACLE_CASES = [
+    # (goal, centers, decays, x0)
+    ([8.0, -5.0], [[3.0, -2.0]], [2.0], [0.0, 0.0]),
+    ([8.0, -5.0], [[3.0, -2.0], [6.0, -4.0]], [2.0, 1.5], [-1.0, 1.0]),
+    ([5.0, 5.0], [], [], [0.0, 0.0]),
+]
+
+
+@pytest.mark.parametrize("goal,centers,decays,x0", ORACLE_CASES)
+def test_controls_match_numpy_oracle(goal, centers, decays, x0):
+    """Against the independent float64 NumPy iLQR: the port converges to
+    the oracle's optimum (1e-6: both solve to atol=1e-10 in float64)."""
+    _, U_np, J_np = ilqr_navigation_oracle_np(goal, centers, decays, x0, T,
+                                              atol=1e-10)
+    env = make_navigation(
+        goal, {"center": centers, "decay": decays} if centers else None,
+        dtype=torch.float64)
+    res = ilqr.solve_batch(
+        env, torch.as_tensor([x0], dtype=torch.float64), horizon=T,
+        config=ilqr.ILQRConfig(atol=1e-10, max_iterations=200,
+                               use_pallas=True))
+    assert bool(res.converged.all())
+    np.testing.assert_allclose(res.actions[0].numpy(), U_np, rtol=0,
+                               atol=1e-6)
+    assert abs(float(res.total_cost[0]) - J_np) < 1e-9 * max(1.0, abs(J_np))
+
+
+def test_config_carries_over_and_refuses_unported_options(envs):
+    jcfg = jilqr.ILQRConfig(atol=1e-5, max_iterations=7, use_pallas=True,
+                            mu_min=1e-5)
+    cfg = interop.config_from_dict(dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert [f.name for f in dataclasses.fields(cfg)] == \
+        [f.name for f in dataclasses.fields(jcfg)]
+    for option in (dict(boxqp=True), dict(ddp=True),
+                   dict(parallel_backward=True), dict(fuse_derivatives=True),
+                   dict(linesearch_emit_trajectories=True),
+                   dict(time_axis="time")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ilqr.ILQRConfig(**option)
+    bounded = interop.navigation_from_numpy(
+        GOAL, ZONE["center"], ZONE["decay"], low=-1.0, high=1.0,
+        device="cpu", dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="KKT"):
+        ilqr.solve_batch(bounded, torch.zeros(2, 2, dtype=torch.float64),
+                         horizon=5)
+    # alphas follow the state's dtype
+    assert ilqr.ILQRConfig().alphas(torch.float32).dtype == torch.float32
+
+
+def test_package_never_imports_jax():
+    """``import tfmpc_tpu_torch`` and a tiny CPU solve with JAX blocked."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import torch
+        import tfmpc_tpu_torch
+        from tfmpc_tpu_torch import interop
+        from tfmpc_tpu_torch.models.navigation import make_navigation
+        from tfmpc_tpu_torch.solvers import ilqr
+        env = make_navigation([8.0, -5.0], {"center": [[3.0, -2.0]],
+                                            "decay": [2.0]})
+        res = ilqr.solve_batch(env, torch.zeros(3, 2), horizon=10,
+                               config=ilqr.ILQRConfig(use_pallas=True))
+        assert bool(res.converged.all())
+        loaded = [m for m in sys.modules if m == "jax" or
+                  m.startswith(("jax.", "tfmpc_tpu.")) or m == "tfmpc_tpu"]
+        assert loaded == ["jax"], loaded
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -1,0 +1,80 @@
+"""Plain dataclasses carrying the linearized models and policies of iLQR.
+
+Counterparts of ``tfmpc_tpu/core/types.py`` with the same field names and
+the same ``[..., T, ...]`` layouts: ``f_x`` of a batch of scenarios is
+``[B, T, n, n]``, of one scenario ``[T, n, n]``. Every field is a tensor;
+``map_fields`` applies one function to all of them (the counterpart of
+``jax.tree_util.tree_map`` for these records).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def map_fields(fn, *objs):
+    """Apply ``fn`` field-wise across dataclass records of one type."""
+    first = objs[0]
+    return dataclasses.replace(
+        first,
+        **{
+            f.name: fn(*(getattr(o, f.name) for o in objs))
+            for f in dataclasses.fields(first)
+        },
+    )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Bounds:
+    """Box bounds on controls, ``low <= u <= high`` elementwise."""
+
+    low: torch.Tensor
+    high: torch.Tensor
+
+    def clip(self, u: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(u, self.low, self.high)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LinearModel:
+    """Linearized dynamics: ``f [..., T, n]``, ``f_x [..., T, n, n]``,
+    ``f_u [..., T, n, m]``."""
+
+    f: torch.Tensor
+    f_x: torch.Tensor
+    f_u: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class QuadraticModel:
+    """Quadratized stage cost: ``l [..., T]``, ``l_x [..., T, n]``,
+    ``l_u [..., T, m]``, ``l_xx [..., T, n, n]``, ``l_uu [..., T, m, m]``,
+    ``l_ux [..., T, m, n]``."""
+
+    l: torch.Tensor
+    l_x: torch.Tensor
+    l_u: torch.Tensor
+    l_xx: torch.Tensor
+    l_uu: torch.Tensor
+    l_ux: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class QuadraticFinal:
+    """Quadratized final cost: ``l [...]``, ``l_x [..., n]``,
+    ``l_xx [..., n, n]``."""
+
+    l: torch.Tensor
+    l_x: torch.Tensor
+    l_xx: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Policy:
+    """Affine feedback ``u_t = ubar_t + alpha k_t + K_t (x_t - xbar_t)``:
+    ``K [..., T, m, n]``, ``k [..., T, m]``."""
+
+    K: torch.Tensor
+    k: torch.Tensor

@@ -1,0 +1,130 @@
+"""Build and load the CUDA kernels of ``ops/csrc``.
+
+Every ``.cu`` under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at the first launch, never at import, and is cached in
+``ops/_build/`` under a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once. Nothing is downloaded and no
+PyTorch header is compiled (such a build takes minutes instead of seconds).
+
+Each C entry launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+# C entry points of csrc/*.cu. Every pointer, host or device, and the stream
+# are c_void_p: a bare Python int would be passed as a 32-bit int.
+_SIGNATURES = {
+    # dtype, n, m, T, B, fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT,
+    # K, k, dV1, dV2, fail, block, stream
+    "tfmpc_riccati_backward": [_I] * 5 + [_P] * 15 + [_I, _P],
+    # dtype, env, n, m, T, B, xbar, ubar, K, k, alphas (host f64), A,
+    # params (host void*[]), n_params, int_params (host int[]), n_int,
+    # J, block, stream
+    "tfmpc_linesearch_costs": [_I] * 6 + [_P] * 5 + [_I, _P, _I, _P, _I]
+    + [_P, _I, _P],
+    # dtype, env, n, m, T, B, alpha, xbar, ubar, K, k, params, n_params,
+    # int_params, n_int, X, U, J, block, stream
+    "tfmpc_rollout_alpha": [_I] * 6 + [_P] * 6 + [_I, _P, _I]
+    + [_P] * 3 + [_I, _P],
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+
+def _nvcc() -> str:
+    candidates = [os.environ.get("NVCC"), shutil.which("nvcc")]
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home:
+        candidates.append(os.path.join(cuda_home, "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for cand in candidates:
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked at $NVCC, PATH, $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built"
+    )
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    sources, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libtfmpc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(so: Path) -> None:
+    sources, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
+            f"{proc.stderr}"
+        )
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if the sources changed."""
+    so = library_path()
+    if not so.exists():
+        _compile(so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tfmpc_error_string.argtypes = [ctypes.c_int]
+    lib.tfmpc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry returned a non-zero CUDA error code."""
+    if rc != 0:
+        msg = library().tfmpc_error_string(rc).decode()
+        raise RuntimeError(f"{what}: kernel launch failed ({rc}: {msg})")
+
+
+def stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream, as the kernels' launch stream."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

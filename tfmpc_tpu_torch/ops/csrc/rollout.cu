@@ -1,0 +1,215 @@
+// K2 and K3: the closed-loop rollouts of the iLQR line search.
+//
+// Replaces: tfmpc_tpu/ops/rollout_pallas.py:linesearch_costs_pallas (body
+// _costs_kernel) as K2, and rollout_pallas.py:rollout_alpha_pallas (body
+// _materialize_kernel) as K3.
+//
+// Both roll u_t = ubar_t + alpha k_t + K_t (x_t - xbar_t), x_{t+1} =
+// step(x_t, u_t), J += cost(x_t) from x_0 = xbar_0, and add the final cost
+// once at T. The env step is a functor from envs.cuh.
+//
+// What bounds them on this card: like K1, each rollout is a serial chain of
+// T dependent steps, so the kernels are latency-bound. Per step a thread
+// reads n + m + m*n + m inputs (10 scalars at n = m = 2); K2 writes only
+// J [A, B] (45,056 values at B=4096, A=11), K3 writes X, U and J. Total
+// traffic is a few MB, far below what HBM moves in the time of the chain.
+//
+// What the design does about it: one thread per (scenario, alpha) pair in
+// K2 (45,056 threads at B=4096, A=11: enough to fill the 132 SMs, which
+// hides part of the chain's latency behind other warps) and one thread per
+// scenario in K3, each holding its state in registers for the whole
+// horizon. The thread index runs over scenarios fastest, so a warp reads 32
+// consecutive addresses of the [T, entries, B] inputs (coalesced); the 11
+// alphas of a scenario read the same inputs and meet in L1/L2. The alphas
+// travel in the kernel's arguments. The policy arithmetic follows
+// _costs_kernel's order: (ubar + alpha k) + sum_i K_i dx_i.
+#include "envs.cuh"
+
+namespace tfmpc {
+namespace {
+
+constexpr int kMaxAlphas = 32;
+
+template <typename S>
+struct Alphas {
+  S v[kMaxAlphas];
+};
+
+template <typename S, int N, int M>
+__device__ __forceinline__ void policy_control(
+    const S* __restrict__ xbar, const S* __restrict__ ubar,
+    const S* __restrict__ K, const S* __restrict__ k, int t, int b, int B,
+    S alpha, const S (&x)[N], S (&u)[M]) {
+  S dx[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) dx[i] = x[i] - xbar[at(t, i, N, b, B)];
+#pragma unroll
+  for (int c = 0; c < M; ++c) {
+    const S base = ubar[at(t, c, M, b, B)] + alpha * k[at(t, c, M, b, B)];
+    S acc = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc += K[at(t, c * N + i, M * N, b, B)] * dx[i];
+    u[c] = base + acc;
+  }
+}
+
+template <typename S, int N, int M, class Env>
+__global__ void linesearch_costs_kernel(
+    const S* __restrict__ xbar, const S* __restrict__ ubar,
+    const S* __restrict__ K, const S* __restrict__ k, Alphas<S> alphas,
+    int A, Env env, S* __restrict__ J, int T, int B) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<int64_t>(A) * B) return;
+  const int b = static_cast<int>(idx % B);
+  const int a = static_cast<int>(idx / B);
+  const S alpha = alphas.v[a];
+
+  S x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = xbar[at(0, i, N, b, B)];
+  S total = 0;
+  for (int t = 0; t < T; ++t) {
+    S u[M], xn[N];
+    policy_control<S, N, M>(xbar, ubar, K, k, t, b, B, alpha, x, u);
+    total = total + env.template step<M>(x, u, xn);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = xn[i];
+  }
+  total = total + env.final_cost(x);
+  J[idx] = total;  // [A, B]
+}
+
+template <typename S, int N, int M, class Env>
+__global__ void rollout_alpha_kernel(
+    const S* __restrict__ alpha_in, const S* __restrict__ xbar,
+    const S* __restrict__ ubar, const S* __restrict__ K,
+    const S* __restrict__ k, Env env, S* __restrict__ X, S* __restrict__ U,
+    S* __restrict__ J, int T, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const S alpha = alpha_in[b];
+
+  S x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = xbar[at(0, i, N, b, B)];
+  S total = 0;
+  for (int t = 0; t < T; ++t) {
+    S u[M], xn[N];
+    policy_control<S, N, M>(xbar, ubar, K, k, t, b, B, alpha, x, u);
+    total = total + env.template step<M>(x, u, xn);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      X[at(t, i, N, b, B)] = xn[i];
+      x[i] = xn[i];
+    }
+#pragma unroll
+    for (int c = 0; c < M; ++c) U[at(t, c, M, b, B)] = u[c];
+  }
+  J[b] = total + env.final_cost(x);
+}
+
+template <typename S, int N>
+NavigationStep<S, N> navigation(const void* const* params,
+                                const int* int_params) {
+  return NavigationStep<S, N>{static_cast<const S*>(params[0]),
+                              static_cast<const S*>(params[1]),
+                              static_cast<const S*>(params[2]), int_params[0]};
+}
+
+template <typename S, int N, int M, class Env>
+int launch_costs(const Env& env, int T, int B, const void* xbar,
+                 const void* ubar, const void* K, const void* k,
+                 const double* alphas, int A, void* J, int block,
+                 cudaStream_t stream) {
+  Alphas<S> al{};
+  for (int a = 0; a < A; ++a) al.v[a] = static_cast<S>(alphas[a]);
+  linesearch_costs_kernel<S, N, M, Env>
+      <<<blocks_for(static_cast<int64_t>(A) * B, block), block, 0, stream>>>(
+          (const S*)xbar, (const S*)ubar, (const S*)K, (const S*)k, al, A, env,
+          (S*)J, T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S, int N, int M, class Env>
+int launch_alpha(const Env& env, int T, int B, const void* alpha,
+                 const void* xbar, const void* ubar, const void* K,
+                 const void* k, void* X, void* U, void* J, int block,
+                 cudaStream_t stream) {
+  rollout_alpha_kernel<S, N, M, Env>
+      <<<blocks_for(B, block), block, 0, stream>>>(
+          (const S*)alpha, (const S*)xbar, (const S*)ubar, (const S*)K,
+          (const S*)k, env, (S*)X, (S*)U, (S*)J, T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int costs_dtype(int env, int n, int m, int T, int B, const void* xbar,
+                const void* ubar, const void* K, const void* k,
+                const double* alphas, int A, const void* const* params,
+                int n_params, const int* int_params, int n_int_params,
+                void* J, int block, cudaStream_t stream) {
+  if (env == kNavigation && n == 2 && m == 2 && n_params == 3 &&
+      n_int_params == 1)
+    return launch_costs<S, 2, 2>(navigation<S, 2>(params, int_params), T, B,
+                                 xbar, ubar, K, k, alphas, A, J, block,
+                                 stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename S>
+int alpha_dtype(int env, int n, int m, int T, int B, const void* alpha,
+                const void* xbar, const void* ubar, const void* K,
+                const void* k, const void* const* params, int n_params,
+                const int* int_params, int n_int_params, void* X, void* U,
+                void* J, int block, cudaStream_t stream) {
+  if (env == kNavigation && n == 2 && m == 2 && n_params == 3 &&
+      n_int_params == 1)
+    return launch_alpha<S, 2, 2>(navigation<S, 2>(params, int_params), T, B,
+                                 alpha, xbar, ubar, K, k, X, U, J, block,
+                                 stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+}  // namespace tfmpc
+
+extern "C" int tfmpc_linesearch_costs(
+    int dtype, int env, int n, int m, int T, int B, const void* xbar,
+    const void* ubar, const void* K, const void* k, const double* alphas,
+    int A, const void* const* params, int n_params, const int* int_params,
+    int n_int_params, void* J, int block, void* stream) {
+  using namespace tfmpc;
+  if (A < 1 || A > kMaxAlphas || T < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return costs_dtype<float>(env, n, m, T, B, xbar, ubar, K, k, alphas, A,
+                              params, n_params, int_params, n_int_params, J,
+                              block, s);
+  if (dtype == kFloat64)
+    return costs_dtype<double>(env, n, m, T, B, xbar, ubar, K, k, alphas, A,
+                               params, n_params, int_params, n_int_params, J,
+                              block, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int tfmpc_rollout_alpha(
+    int dtype, int env, int n, int m, int T, int B, const void* alpha,
+    const void* xbar, const void* ubar, const void* K, const void* k,
+    const void* const* params, int n_params, const int* int_params,
+    int n_int_params, void* X, void* U, void* J, int block, void* stream) {
+  using namespace tfmpc;
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return alpha_dtype<float>(env, n, m, T, B, alpha, xbar, ubar, K, k,
+                              params, n_params, int_params, n_int_params, X,
+                              U, J, block, s);
+  if (dtype == kFloat64)
+    return alpha_dtype<double>(env, n, m, T, B, alpha, xbar, ubar, K, k,
+                               params, n_params, int_params, n_int_params, X,
+                              U, J, block, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

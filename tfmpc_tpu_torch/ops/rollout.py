@@ -1,0 +1,205 @@
+"""K2 and K3: the closed-loop rollouts of the iLQR line search.
+
+Counterpart of ``tfmpc_tpu/ops/rollout_pallas.py`` (the two-kernel line
+search). ``linesearch_costs`` rolls every (scenario, alpha) pair and keeps
+only the total costs; ``rollout_alpha`` re-rolls once at each scenario's
+accepted alpha to materialize the new trajectory. On CUDA tensors both
+launch the CUDA kernels of ``csrc/rollout.cu`` (the env step compiled in,
+selected by ``Env.device_step``) or raise; on CPU tensors they run the plain
+PyTorch versions ``linesearch_costs_ref`` / ``rollout_alpha_ref``. The
+module counts kernel launches and plain-version calls per wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from tfmpc_tpu_torch.ops import _build
+
+COSTS_LAUNCHES = 0
+COSTS_PLAIN_CALLS = 0
+ALPHA_LAUNCHES = 0
+ALPHA_PLAIN_CALLS = 0
+
+# (n, m) pairs the CUDA kernels are instantiated for (csrc/rollout.cu).
+KERNEL_DIMS = {(2, 2)}
+MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cu)
+BLOCK = 128
+
+
+def _finite_or_inf(J):
+    return torch.where(torch.isfinite(J), J, torch.full_like(J, torch.inf))
+
+
+def closed_loop_rollout(env, X, U, K, k, alpha):
+    """Plain PyTorch closed-loop rollout with step size ``alpha``.
+
+    ``X [..., T+1, n]`` and ``U [..., T, m]`` are the nominal trajectory,
+    ``K [..., T, m, n]`` / ``k [..., T, m]`` the policy; ``alpha``
+    broadcasts against the leading dims. The control law is
+    ``u = clip(ubar + alpha k + K (x - xbar))`` from ``x_0 = X[..., 0, :]``.
+    Returns ``(X_new [..., T+1, n], U_new [..., T, m], J [...])`` with
+    ``J = +inf`` wherever the rollout blew up, so a diverging candidate is
+    always rejected.
+    """
+    T = U.shape[-2]
+    batch = torch.broadcast_shapes(X.shape[:-2], alpha.shape)
+    alpha = alpha[..., None]
+    x = X[..., 0, :].expand(batch + X.shape[-1:])
+    xs, us, costs = [x], [], []
+    for t in range(T):
+        dx = x - X[..., t, :]
+        u = U[..., t, :] + alpha * k[..., t, :]
+        u = u + (K[..., t, :, :] * dx[..., None, :]).sum(dim=-1)
+        u = env.clip(u)
+        costs.append(env.cost(x, u))
+        x = env.transition(x, u)
+        xs.append(x)
+        us.append(u)
+    J = torch.stack(costs, dim=-1).sum(dim=-1) + env.final_cost(x)
+    return torch.stack(xs, dim=-2), torch.stack(us, dim=-2), _finite_or_inf(J)
+
+
+def linesearch_costs_ref(env, X, U, policy, alphas: Sequence[float]):
+    """Plain version of K2: ``J_all [B, A]`` for ``X [B, T+1, n]``,
+    ``U [B, T, m]``, ``policy`` ``[B, T, ...]`` and the alpha grid."""
+    a = torch.as_tensor(alphas, dtype=X.dtype, device=X.device)
+    return closed_loop_rollout(
+        env, X[:, None], U[:, None], policy.K[:, None], policy.k[:, None],
+        a[None, :],
+    )[2]
+
+
+def rollout_alpha_ref(env, X, U, policy, alpha_vec):
+    """Plain version of K3: the rollout at each scenario's ``alpha_vec [B]``.
+    Returns ``(X_new [B, T+1, n], U_new [B, T, m], J [B])``."""
+    return closed_loop_rollout(
+        env, X, U, policy.K, policy.k, alpha_vec.to(X.dtype)
+    )
+
+
+def kernel_args(env, X, U, policy):
+    """Check that the CUDA kernels cover this call (raises if not) and lay
+    its inputs out for them: ``[T, entries, B]`` tensors plus the env
+    step's id and parameters."""
+    if X.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {X.device}")
+    if X.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"the CUDA kernels take float32/float64, got {X.dtype}")
+    step = env.device_step()
+    if step is None:
+        raise NotImplementedError(
+            f"{type(env).__name__} has no device step compiled into the "
+            "rollout kernels; run with use_pallas=False"
+        )
+    if env.bounds is not None:
+        raise NotImplementedError(
+            "the rollout kernels do not clip controls yet (ROADMAP queue 1 "
+            "item 7, slice B); run bounded envs with use_pallas=False"
+        )
+    B, T, m = U.shape
+    n = X.shape[-1]
+    if (n, m) not in KERNEL_DIMS:
+        raise NotImplementedError(
+            f"the rollout kernels have no instantiation for (n, m) = "
+            f"{(n, m)} (compiled: {sorted(KERNEL_DIMS)}); run with "
+            "use_pallas=False"
+        )
+    params = [
+        p.to(dtype=X.dtype, device=X.device).contiguous() for p in step.params
+    ]
+    return dict(
+        dims=(B, T, n, m),
+        dtype=X.dtype,
+        env_id=step.env_id,
+        xbar=X[:, :-1].permute(1, 2, 0).contiguous(),           # [T, n, B]
+        ubar=U.permute(1, 2, 0).contiguous(),                   # [T, m, B]
+        K=policy.K.reshape(B, T, m * n).permute(1, 2, 0).contiguous(),
+        k=policy.k.permute(1, 2, 0).contiguous(),
+        params=params,
+        int_params=step.int_params,
+    )
+
+
+def _env_pointers(a):
+    params, ints = a["params"], a["int_params"]
+    return (
+        (ctypes.c_void_p * len(params))(*[p.data_ptr() for p in params]),
+        len(params),
+        (ctypes.c_int * len(ints))(*ints),
+        len(ints),
+    )
+
+
+def linesearch_costs_kernel(a, alphas: Sequence[float]):
+    """Launch K2 on ``kernel_args`` output: raw ``J [A, B]``."""
+    global COSTS_LAUNCHES
+    B, T, n, m = a["dims"]
+    A = len(alphas)
+    if not 1 <= A <= MAX_ALPHAS:
+        raise ValueError(f"linesearch_costs takes 1..{MAX_ALPHAS} alphas")
+    J = torch.empty((A, B), dtype=a["dtype"], device=a["xbar"].device)
+    rc = _build.library().tfmpc_linesearch_costs(
+        _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
+        *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
+        (ctypes.c_double * A)(*map(float, alphas)), A, *_env_pointers(a),
+        _build.ptr(J), BLOCK, _build.stream(),
+    )
+    _build.check(rc, "linesearch_costs")
+    COSTS_LAUNCHES += 1
+    return J
+
+
+def rollout_alpha_kernel(a, alpha):
+    """Launch K3 on ``kernel_args`` output and per-lane ``alpha [B]``:
+    raw ``(X [T, n, B], U [T, m, B], J [B])``."""
+    global ALPHA_LAUNCHES
+    B, T, n, m = a["dims"]
+    opts = dict(dtype=a["dtype"], device=a["xbar"].device)
+    if alpha.shape != (B,) or alpha.dtype != a["dtype"] \
+            or alpha.device != opts["device"] or not alpha.is_contiguous():
+        raise ValueError("alpha must be a contiguous [B] tensor of the "
+                         "trajectory's dtype and device")
+    X_out = torch.empty((T, n, B), **opts)
+    U_out = torch.empty((T, m, B), **opts)
+    J = torch.empty((B,), **opts)
+    rc = _build.library().tfmpc_rollout_alpha(
+        _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
+        _build.ptr(alpha),
+        *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
+        *_env_pointers(a),
+        _build.ptr(X_out), _build.ptr(U_out), _build.ptr(J),
+        BLOCK, _build.stream(),
+    )
+    _build.check(rc, "rollout_alpha")
+    ALPHA_LAUNCHES += 1
+    return X_out, U_out, J
+
+
+def linesearch_costs(env, X, U, policy, alphas: Sequence[float]):
+    """Total cost of the closed-loop rollout for every (scenario, alpha):
+    ``J_all [B, A]``. ``alphas`` are Python floats
+    (``ILQRConfig.alphas_static()``), passed to the kernel by value."""
+    global COSTS_PLAIN_CALLS
+    if X.device.type == "cpu":
+        COSTS_PLAIN_CALLS += 1
+        return linesearch_costs_ref(env, X, U, policy, alphas)
+    J = linesearch_costs_kernel(kernel_args(env, X, U, policy), alphas)
+    return _finite_or_inf(J).T
+
+
+def rollout_alpha(env, X, U, policy, alpha_vec):
+    """Materialize the closed-loop rollout at each scenario's own alpha
+    ``alpha_vec [B]``: ``(X_new [B, T+1, n], U_new [B, T, m], J [B])``."""
+    global ALPHA_PLAIN_CALLS
+    if X.device.type == "cpu":
+        ALPHA_PLAIN_CALLS += 1
+        return rollout_alpha_ref(env, X, U, policy, alpha_vec)
+    X_out, U_out, J = rollout_alpha_kernel(
+        kernel_args(env, X, U, policy), alpha_vec.to(X.dtype).contiguous()
+    )
+    X_new = torch.cat([X[:, :1], X_out.permute(2, 0, 1)], dim=1)
+    return X_new, U_out.permute(2, 0, 1), _finite_or_inf(J)

@@ -1,0 +1,424 @@
+"""Batch-explicit iLQR: the throughput path behind ``solve_batch``.
+
+Counterpart of ``tfmpc_tpu/solvers/ilqr_batched.py`` (its split pipeline).
+Semantically identical to solving each scenario with ``ilqr.solve``: the
+divergent per-scenario control flow (mu escalation, line-search acceptance,
+convergence) is masked arithmetic over the leading batch axis, and a
+scenario that is done freezes. One iteration is
+
+1. the closed-form linearization (``ilqr.derivatives``);
+2. the Riccati backward inside the per-lane restart loop, compacted to the
+   failing lanes when B > 128 (kernel K1 with ``use_pallas``);
+3. the 11-alpha line search (K2);
+4. acceptance and the mu schedule;
+5. the rollout at each scenario's accepted alpha (K3).
+
+The JAX package's ``lax.while_loop``s become host loops that read one flag
+per outer iteration and one per restart round. With ``use_pallas=True`` on
+CUDA tensors the three stages run the CUDA kernels or raise (an env without
+a device step, bounds, or dims without a kernel instantiation); nothing
+falls back to the plain path. ``use_pallas=False`` is the plain PyTorch
+path. Any batch size runs the kernels: they mask the ragged edge
+themselves, so there is no lane padding. The stages carry
+``torch.profiler.record_function`` ranges (``ilqr.derivatives``,
+``ilqr.backward``, ``ilqr.linesearch``, ``ilqr.materialize``), the JAX
+package's named scopes, so a profiler trace attributes time to them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch.profiler import record_function
+
+from tfmpc_tpu_torch.core.types import map_fields
+from tfmpc_tpu_torch.ops import riccati, rollout
+from tfmpc_tpu_torch.solvers.ilqr import (
+    ILQRConfig,
+    ILQRResult,
+    ILQRTrace,
+    _check_env,
+    _decrease_mu,
+    _increase_mu,
+    backward,
+    derivatives,
+    forward,
+)
+
+
+class SolverState(NamedTuple):
+    """Complete per-scenario solver state: the checkpoint/resume unit."""
+
+    X: torch.Tensor          # [B, T+1, n]
+    U: torch.Tensor          # [B, T, m]
+    J: torch.Tensor          # [B]
+    mu: torch.Tensor         # [B]
+    delta: torch.Tensor      # [B]
+    iteration: torch.Tensor  # [B] int32
+    converged: torch.Tensor  # [B] bool
+    failed: torch.Tensor     # [B] bool
+    residual: torch.Tensor   # [B]
+
+
+def state_from_result(result: ILQRResult) -> SolverState:
+    """Rebuild the resumable solver state from a batched solve result."""
+    return SolverState(
+        X=result.states,
+        U=result.actions,
+        J=result.total_cost,
+        mu=result.mu,
+        delta=result.delta,
+        iteration=result.iterations,
+        converged=result.converged,
+        failed=result.failed,
+        residual=result.residual,
+    )
+
+
+class _IterationAux(NamedTuple):
+    alpha: torch.Tensor      # [B] accepted step size (0 where none accepted)
+    accepted: torch.Tensor   # [B] bool
+
+
+def _backward_batched(lin, quad, final, mu, config: ILQRConfig):
+    """Batched regularized Riccati backward over [B] scenarios.
+
+    With ``use_pallas`` it goes through K1's wrapper, which launches the
+    CUDA kernel on CUDA tensors (raising for dims it has no instantiation
+    for; the JAX package's mid-dim kernel K7 is not ported yet) and runs
+    the plain version on CPU tensors.
+    """
+    if config.use_pallas:
+        return riccati.riccati_backward(lin, quad, final, mu)
+    return backward(lin, quad, final, mu, config)
+
+
+_RESTART_SUB_BATCH = 128  # gathered-retry width of the compacted restarts
+
+
+def _lane_needs(ok, mu, tries, config: ILQRConfig):
+    return (~ok) & (mu < config.mu_max) & (tries < config.max_backward_restarts)
+
+
+def _backward_restarts_batched(lin, quad, final, mu, delta,
+                               config: ILQRConfig):
+    """Per-scenario restart-on-non-PD loop, batch-wide.
+
+    For B > ``_RESTART_SUB_BATCH`` the retries run on a sub-batch of only
+    the failing lanes (``_restart_loop_compacted``); every lane sees the
+    same (escalate mu -> attempt) sequence as in the full-batch loop.
+    """
+
+    def attempt(mu_):
+        return _backward_batched(lin, quad, final, mu_, config)
+
+    R = _RESTART_SUB_BATCH
+    if mu.shape[0] <= R:
+        return _restart_loop(attempt, mu, delta, config)
+
+    def attempt_sub(idx, mu_sub):
+        sub = lambda a: a.index_select(0, idx)  # noqa: E731
+        return _backward_batched(
+            map_fields(sub, lin), map_fields(sub, quad),
+            map_fields(sub, final), mu_sub, config,
+        )
+
+    return _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R)
+
+
+def _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R):
+    """Restart loop re-running only (up to R) failing lanes per round.
+
+    A stable argsort of the needs mask gathers the failing lanes to the
+    front (the order the JAX package's ``jnp.argsort`` gives), the backward
+    re-runs on that sub-batch, and results scatter back to the rows that
+    retried. Lanes beyond R in a round wait, their mu and tries untouched.
+    """
+    ok, policy, dV1, dV2 = attempt(mu)
+    tries = torch.zeros_like(mu, dtype=torch.int32)
+    while True:
+        needs = _lane_needs(ok, mu, tries, config)
+        if not bool(needs.any()):
+            break
+        idx = torch.argsort((~needs).to(torch.uint8), stable=True)[:R]
+        sel = needs[idx]                        # which gathered rows retry
+        attempted = torch.zeros_like(needs)
+        attempted[idx] = sel
+
+        mu_inc, delta_inc = _increase_mu(mu, delta, config)
+        mu = torch.where(attempted, mu_inc, mu)
+        delta = torch.where(attempted, delta_inc, delta)
+        ok_s, policy_s, dV1_s, dV2_s = attempt_sub(idx, mu[idx])
+
+        def scatter(full, subv):
+            mask = sel.reshape((-1,) + (1,) * (subv.ndim - 1))
+            out = full.clone()
+            out[idx] = torch.where(mask, subv, full[idx])
+            return out
+
+        ok = scatter(ok, ok_s)
+        policy = map_fields(scatter, policy, policy_s)
+        dV1 = scatter(dV1, dV1_s)
+        dV2 = scatter(dV2, dV2_s)
+        tries = tries + attempted.to(torch.int32)
+    return ok, policy, dV1, dV2, mu, delta
+
+
+def _restart_loop(attempt, mu, delta, config: ILQRConfig):
+    ok, policy, dV1, dV2 = attempt(mu)
+    tries = torch.zeros_like(mu, dtype=torch.int32)
+    while True:
+        needs = _lane_needs(ok, mu, tries, config)
+        if not bool(needs.any()):
+            break
+        mu_inc, delta_inc = _increase_mu(mu, delta, config)
+        mu = torch.where(needs, mu_inc, mu)
+        delta = torch.where(needs, delta_inc, delta)
+        ok_n, policy_n, dV1_n, dV2_n = attempt(mu)
+
+        def sel(new, old):  # merge only the lanes that restarted
+            return torch.where(
+                needs.reshape((-1,) + (1,) * (new.ndim - 1)), new, old
+            )
+
+        ok = sel(ok_n, ok)
+        policy = map_fields(sel, policy_n, policy)
+        dV1 = sel(dV1_n, dV1)
+        dV2 = sel(dV2_n, dV2)
+        tries = tries + needs.to(torch.int32)
+    return ok, policy, dV1, dV2, mu, delta
+
+
+def _linesearch_batched(env, X, U, policy, alphas):
+    """[B, A] closed-loop rollouts: every scenario tries every alpha."""
+    return forward(
+        env, X[:, None], U[:, None], map_fields(lambda a: a[:, None], policy),
+        alphas[None, :],
+    )
+
+
+def _use_pallas_rollout(env, X, config: ILQRConfig) -> bool:
+    """Whether the line search runs through K2/K3's wrappers.
+
+    An env without a device step keeps the plain rollout on the CPU, as the
+    JAX package keeps the XLA path for an env without lane functions; on
+    CUDA with ``use_pallas`` that is an error, not a silent slow path.
+    """
+    if not config.use_pallas:
+        return False
+    if env.device_step() is None:
+        if X.device.type == "cuda":
+            raise NotImplementedError(
+                f"use_pallas=True on CUDA, but {type(env).__name__} has no "
+                "device step for the rollout kernels; pass use_pallas=False"
+            )
+        return False
+    return True
+
+
+def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
+    active = (
+        (state.iteration < config.max_iterations)
+        & ~state.converged
+        & ~state.failed
+    )
+
+    with record_function("ilqr.derivatives"):
+        lin, quad, final = derivatives(env, state.X, state.U)
+    with record_function("ilqr.backward"):
+        ok, policy, dV1, dV2, mu, delta = _backward_restarts_batched(
+            lin, quad, final, state.mu, state.delta, config
+        )
+
+    use_kernels = _use_pallas_rollout(env, state.X, config)
+    with record_function("ilqr.linesearch"):
+        if use_kernels:
+            J_all = rollout.linesearch_costs(
+                env, state.X, state.U, policy, config.alphas_static()
+            )
+        else:
+            X_all, U_all, J_all = _linesearch_batched(
+                env, state.X, state.U, policy, alphas
+            )
+
+    expected = -(alphas[None, :] * dV1[:, None]
+                 + alphas[None, :] ** 2 * dV2[:, None])
+    z = (state.J[:, None] - J_all) / torch.where(
+        expected > 0, expected, torch.ones_like(expected)
+    )
+    accepted = torch.where(
+        expected > 0.0, z > config.accept_ratio, J_all < state.J[:, None]
+    ) & ok[:, None]
+    at_optimum = ok & (-(dV1 + dV2) < config.atol)
+
+    any_accepted = accepted.any(dim=1)                          # [B]
+    # first True = largest accepted alpha; index 0 on an all-False row,
+    # which `upd` masks out below
+    best = torch.argmax(accepted.to(torch.uint8), dim=1)        # [B]
+    with record_function("ilqr.materialize"):
+        if use_kernels:
+            X_best, U_best, J_best = rollout.rollout_alpha(
+                env, state.X, state.U, policy, alphas[best]
+            )
+        else:
+            rows = torch.arange(best.shape[0], device=best.device)
+            X_best, U_best = X_all[rows, best], U_all[rows, best]
+            J_best = J_all[rows, best]
+
+    upd = active & any_accepted
+    X_new = torch.where(upd[:, None, None], X_best, state.X)
+    U_new = torch.where(upd[:, None, None], U_best, state.U)
+    J_new = torch.where(upd, J_best, state.J)
+
+    zero = torch.zeros_like(state.J)
+    residual = torch.where(
+        any_accepted, state.J - J_new,
+        torch.where(at_optimum, zero, zero + torch.inf),
+    )
+
+    mu_dec, delta_dec = _decrease_mu(mu, delta, config)
+    mu_inc, delta_inc = _increase_mu(mu, delta, config)
+    good = any_accepted | at_optimum
+    mu_next = torch.where(active, torch.where(good, mu_dec, mu_inc), state.mu)
+    delta_next = torch.where(
+        active, torch.where(good, delta_dec, delta_inc), state.delta
+    )
+    converged_now = at_optimum | (any_accepted & (residual.abs() < config.atol))
+    failed_now = (~any_accepted) & ~at_optimum & (mu_next >= config.mu_max)
+
+    new_state = SolverState(
+        X=X_new,
+        U=U_new,
+        J=J_new,
+        mu=mu_next,
+        delta=delta_next,
+        iteration=state.iteration + active.to(torch.int32),
+        converged=torch.where(active, converged_now, state.converged),
+        failed=torch.where(active, state.failed | failed_now, state.failed),
+        residual=torch.where(active, residual, state.residual),
+    )
+    aux = _IterationAux(
+        alpha=torch.where(upd, alphas[best], torch.zeros_like(J_new)),
+        accepted=upd,
+    )
+    return new_state, aux
+
+
+def _initial_state(env, x0, U0, horizon, config: ILQRConfig) -> SolverState:
+    B = x0.shape[0]
+    if U0 is None:
+        if horizon is None:
+            raise ValueError("provide either U0 or horizon")
+        U0 = torch.zeros((B, horizon, env.action_size), dtype=x0.dtype,
+                         device=x0.device)
+    U0 = env.clip(U0)
+    X0, costs0 = env.rollout(x0, U0)
+    full = lambda v, dtype=x0.dtype: torch.full(  # noqa: E731
+        (B,), v, dtype=dtype, device=x0.device
+    )
+    return SolverState(
+        X=X0,
+        U=U0,
+        J=costs0.sum(dim=1),
+        mu=full(config.mu_init),
+        delta=full(1.0),
+        iteration=full(0, torch.int32),
+        converged=full(False, torch.bool),
+        failed=full(False, torch.bool),
+        residual=full(torch.inf),
+    )
+
+
+def _solve_batch_impl(env, x0, U0, horizon, config: ILQRConfig,
+                      init_state: Optional[SolverState] = None,
+                      return_trace: bool = False):
+    if init_state is not None:
+        state = init_state
+        x0 = state.X[:, 0]
+    else:
+        state = _initial_state(env, x0, U0, horizon, config)
+    alphas = config.alphas(state.X.dtype, state.X.device)
+
+    def any_active(s: SolverState) -> bool:
+        active = (s.iteration < config.max_iterations) & ~s.converged \
+            & ~s.failed
+        return bool(active.any())  # the loop's one host sync per iteration
+
+    trace = None
+    if return_trace:
+        # exactly max_iterations rows; finished scenarios freeze
+        rows = []
+        for _ in range(config.max_iterations):
+            state, aux = _iteration_batched(env, state, config, alphas)
+            rows.append(ILQRTrace(
+                J=state.J, residual=state.residual, mu=state.mu,
+                alpha=aux.alpha, accepted=aux.accepted,
+                converged=state.converged,
+            ))
+        trace = ILQRTrace(*(torch.stack(col) for col in zip(*rows)))
+    else:
+        while any_active(state):
+            state = _iteration_batched(env, state, config, alphas)[0]
+
+    _, costs = env.rollout(x0, state.U)
+    result = ILQRResult(
+        states=state.X,
+        actions=state.U,
+        costs=costs,
+        total_cost=state.J,
+        iterations=state.iteration,
+        converged=state.converged,
+        residual=state.residual,
+        mu=state.mu,
+        delta=state.delta,
+        failed=state.failed,
+    )
+    if return_trace:
+        return result, trace
+    return result
+
+
+def solve_batch(env, x0, U0=None, *, horizon: Optional[int] = None,
+                config: ILQRConfig = ILQRConfig(),
+                init_state: Optional[SolverState] = None,
+                return_trace: bool = False):
+    """Batch-explicit iLQR solve over ``x0 [B, n]`` (optional ``U0 [B, T, m]``).
+
+    ``init_state``: resume from a previous solve's ``SolverState``
+    (``x0``/``U0`` are then ignored and may be None).
+    ``return_trace=True``: also return an ``ILQRTrace`` of per-iteration
+    ``[I, B]`` statistics over exactly ``I = config.max_iterations``
+    iterations (finished scenarios freeze, so the final state equals the
+    early-stopping loop's).
+    """
+    _check_env(env)
+    return _solve_batch_impl(env, x0, U0, horizon, config, init_state,
+                             return_trace)
+
+
+def _validate_state(state: SolverState, env) -> None:
+    n, m = state.X.shape[-1], state.U.shape[-1]
+    if n != env.state_size or m != env.action_size:
+        raise ValueError(
+            f"state was saved for state/action sizes ({n}, {m}) but env "
+            f"'{type(env).__name__}' has ({env.state_size}, "
+            f"{env.action_size})"
+        )
+    env_dtypes = {
+        v.dtype for v in vars(env).values()
+        if isinstance(v, torch.Tensor) and v.is_floating_point()
+    }
+    if env_dtypes and state.X.dtype not in env_dtypes:
+        raise ValueError(
+            f"state arrays are {state.X.dtype} but env "
+            f"'{type(env).__name__}' parameters are {sorted(map(str, env_dtypes))}"
+        )
+
+
+def resume(env, state: SolverState, *, config: ILQRConfig = ILQRConfig(),
+           return_trace: bool = False):
+    """Continue a saved solve until convergence or ``max_iterations``."""
+    _validate_state(state, env)
+    return solve_batch(env, None, None, config=config, init_state=state,
+                       return_trace=return_trace)
