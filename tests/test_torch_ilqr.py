@@ -53,7 +53,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def envs():
     return (jax_make_navigation(GOAL, ZONE, dtype=jnp.float64),
-            make_navigation(GOAL, ZONE, dtype=torch.float64))
+            make_navigation(GOAL, ZONE, dtype=torch.float64, device="cpu"))
 
 
 def _x0(B, seed=0):
@@ -181,14 +181,16 @@ def test_resume_from_jax_state(envs):
     res_j = jbatched.resume(jenv, jstate, config=full)
 
     state = interop.state_from_numpy(
-        {k: np.asarray(v) for k, v in jstate._asdict().items()})
+        {k: np.asarray(v) for k, v in jstate._asdict().items()},
+        device="cpu")
     config = interop.config_from_dict(dataclasses.asdict(full))
     res_t = ilqr_batched.resume(tenv, state, config=config)
     _assert_same_solve(res_t, res_j)
     assert int(res_t.iterations.max()) >= 2
     with pytest.raises(ValueError, match="sizes"):
         ilqr_batched.resume(
-            make_navigation([1.0, 2.0, 3.0], None, dtype=torch.float64),
+            make_navigation([1.0, 2.0, 3.0], None, dtype=torch.float64,
+                            device="cpu"),
             state, config=config)
 
 
@@ -234,7 +236,7 @@ def test_controls_match_numpy_oracle(goal, centers, decays, x0):
                                               atol=1e-10)
     env = make_navigation(
         goal, {"center": centers, "decay": decays} if centers else None,
-        dtype=torch.float64)
+        dtype=torch.float64, device="cpu")
     res = ilqr.solve_batch(
         env, torch.as_tensor([x0], dtype=torch.float64), horizon=T,
         config=ilqr.ILQRConfig(atol=1e-10, max_iterations=200,
@@ -252,18 +254,24 @@ def test_config_carries_over_and_refuses_unported_options(envs):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert [f.name for f in dataclasses.fields(cfg)] == \
         [f.name for f in dataclasses.fields(jcfg)]
-    for option in (dict(boxqp=True), dict(ddp=True),
+    for option in (dict(ddp=True),
                    dict(parallel_backward=True), dict(fuse_derivatives=True),
                    dict(linesearch_emit_trajectories=True),
                    dict(time_axis="time")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ilqr.ILQRConfig(**option)
+    # boxQP is ported: the option carries over, and a bounded env solves
+    # with its controls inside the box
+    jbox = jilqr.ILQRConfig(boxqp=True, boxqp_iters=5)
+    assert dataclasses.asdict(interop.config_from_dict(
+        dataclasses.asdict(jbox))) == dataclasses.asdict(jbox)
     bounded = interop.navigation_from_numpy(
         GOAL, ZONE["center"], ZONE["decay"], low=-1.0, high=1.0,
         device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="KKT"):
-        ilqr.solve_batch(bounded, torch.zeros(2, 2, dtype=torch.float64),
-                         horizon=5)
+    res = ilqr.solve_batch(bounded, torch.zeros(2, 2, dtype=torch.float64),
+                           horizon=5, config=ilqr.ILQRConfig(boxqp=True))
+    assert bool(torch.isfinite(res.actions).all())
+    assert float(res.actions.abs().max()) <= 1.0
     # alphas follow the state's dtype
     assert ilqr.ILQRConfig().alphas(torch.float32).dtype == torch.float32
 
@@ -279,7 +287,7 @@ def test_package_never_imports_jax():
         from tfmpc_tpu_torch.models.navigation import make_navigation
         from tfmpc_tpu_torch.solvers import ilqr
         env = make_navigation([8.0, -5.0], {"center": [[3.0, -2.0]],
-                                            "decay": [2.0]})
+                                            "decay": [2.0]}, device="cpu")
         res = ilqr.solve_batch(env, torch.zeros(3, 2), horizon=10,
                                config=ilqr.ILQRConfig(use_pallas=True))
         assert bool(res.converged.all())
@@ -292,3 +300,201 @@ def test_package_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# -- slice B: control limits (boxQP backward, clipped rollouts, KKT) ----------
+#
+# The port's solve_batch on bounded envs against the JAX package's
+# (use_pallas=False: its vmapped-scan boxQP backward and XLA line search,
+# the reference its own kernel tests pin), float64, B=8. Tolerances as
+# above: identical converged/failed masks and iteration counts, controls
+# within 1e-6 and total costs within 1e-9 relative.
+
+HVAC3 = dict(adj=[[0, 1, 0], [1, 0, 1], [0, 1, 0]],
+             is_out=[1, 0, 1], is_hall=[0, 1, 0])
+
+
+def _bounded_envs(name):
+    from tfmpc_tpu.models.hvac import make_hvac as jax_make_hvac
+    from tfmpc_tpu.models.reservoir import make_reservoir as jax_make_reservoir
+    from tfmpc_tpu_torch.models.hvac import make_hvac
+    from tfmpc_tpu_torch.models.reservoir import make_reservoir
+
+    if name == "hvac":
+        kw = dict(HVAC3)
+        adj = kw.pop("adj")
+        return (jax_make_hvac(adj, **kw, dtype=jnp.float64),
+                make_hvac(adj, **kw, dtype=torch.float64, device="cpu"),
+                (8.0, 18.0))
+    if name == "reservoir":
+        return (jax_make_reservoir(4, dtype=jnp.float64),
+                make_reservoir(4, dtype=torch.float64, device="cpu"),
+                (20.0, 95.0))
+    return (jax_make_navigation(GOAL, ZONE, low=-1.0, high=1.0,
+                                dtype=jnp.float64),
+            make_navigation(GOAL, ZONE, low=-1.0, high=1.0,
+                            dtype=torch.float64, device="cpu"),
+            (-10.0, 10.0))
+
+
+@pytest.mark.parametrize("name,boxqp,horizon", [
+    ("hvac", True, 10), ("reservoir", True, 10), ("navigation", False, 20),
+])
+def test_bounded_solve_batch_matches_jax(name, boxqp, horizon):
+    """The slice as a whole: boxQP on HVAC-3 and reservoir-4 (kernel K4's
+    plain version) and clip-only bounded navigation (K1's), each with the
+    clipped line search and the KKT test, against the JAX package."""
+    jenv, tenv, lohi = _bounded_envs(name)
+    x0 = np.random.default_rng(3).uniform(*lohi, (8, tenv.state_size))
+    cfg = dict(atol=1e-3, max_iterations=30, boxqp=boxqp)
+    res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=horizon,
+                              config=jilqr.ILQRConfig(**cfg))
+    counts = (riccati.BOXQP_PLAIN_CALLS, riccati.PLAIN_CALLS)
+    res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=horizon,
+                             config=ilqr.ILQRConfig(**cfg, use_pallas=True))
+    _assert_same_solve(res_t, res_j)
+    np.testing.assert_allclose(res_t.total_cost.numpy(),
+                               np.asarray(res_j.total_cost), rtol=1e-9)
+    assert bool(res_t.converged.any())
+    assert float(res_t.actions.min()) >= float(tenv.bounds.low.min())
+    assert float(res_t.actions.max()) <= float(tenv.bounds.high.max())
+    # the kernel wrappers ran their plain versions: K4's for boxqp, K1's
+    # for clip-only
+    if boxqp:
+        assert riccati.BOXQP_PLAIN_CALLS > counts[0]
+        assert riccati.PLAIN_CALLS == counts[1]
+    else:
+        assert riccati.BOXQP_PLAIN_CALLS == counts[0]
+        assert riccati.PLAIN_CALLS > counts[1]
+
+
+KKT_CASES = {
+    # (g, low, high) from tests/test_kkt_scaling.py
+    "normal": ([[50.0, -300.0]], [0.0, 0.0], [10.0, 10.0]),
+    "capped": ([[1e7, 1e7]], [0.0, 0.0], [10.0, 10.0]),
+    "infinite": ([[1e7, 1e7]], [-np.inf, -np.inf], [np.inf, np.inf]),
+    "one_sided": ([[1e7, 1e7]], [0.0, -2.0], [np.inf, 2.0]),
+    "small": ([[5e-4, -3e-3]], [0.0, 0.0], [10.0, 10.0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KKT_CASES))
+def test_kkt_scale_and_threshold_match_jax(case):
+    from tfmpc_tpu.core.types import Bounds as JBounds
+    from tfmpc_tpu.solvers.ilqr import _kkt_scale as j_scale
+    from tfmpc_tpu.solvers.ilqr import _kkt_threshold as j_threshold
+    from tfmpc_tpu_torch.core.types import Bounds
+
+    g, low, high = (np.asarray(a, float) for a in KKT_CASES[case])
+    jb = JBounds(low=jnp.asarray(low), high=jnp.asarray(high))
+    tb = Bounds(low=torch.as_tensor(low), high=torch.as_tensor(high))
+    cfg, jcfg = ilqr.ILQRConfig(), jilqr.ILQRConfig()
+    assert float(ilqr._kkt_scale(torch.as_tensor(g))) == float(
+        j_scale(jnp.asarray(g)))
+    assert float(ilqr._kkt_threshold(cfg, torch.as_tensor(g), tb)) == \
+        pytest.approx(float(j_threshold(jcfg, jnp.asarray(g), jb)),
+                      rel=1e-15)
+    # batched: per-lane scale over the trailing axes of [B, T, m]
+    gb = np.stack([g, 10.0 * g, 1e-3 * g])[:, None, :, 0]
+    np.testing.assert_allclose(
+        ilqr._kkt_threshold(cfg, torch.as_tensor(gb), tb, axes=(1, 2)),
+        np.asarray(j_threshold(jcfg, jnp.asarray(gb), jb, axes=(1, 2))),
+        rtol=1e-15)
+
+
+def test_kkt_stationarity_matches_jax():
+    """The gradient behind the KKT test (autograd of the summed batch
+    cost) equals the JAX package's per-scenario ``jax.grad`` of
+    ``total_cost``, and the test's verdict agrees, at random controls and
+    at a solved trajectory."""
+    from tfmpc_tpu.solvers.ilqr import _kkt_threshold as j_threshold
+
+    jenv, tenv, lohi = _bounded_envs("hvac")
+    rng = np.random.default_rng(8)
+    x0 = rng.uniform(*lohi, (4, 3))
+    solved = ilqr.solve_batch(
+        tenv, torch.as_tensor(x0), horizon=12,
+        config=ilqr.ILQRConfig(atol=1e-10, max_iterations=100, boxqp=True))
+    U_rand = np.clip(rng.uniform(-2.0, 12.0, (4, 12, 3)), 0.0, 10.0)
+    verdicts = []
+    for U in (U_rand, solved.actions.numpy()):
+        g_j = jax.vmap(jax.grad(jenv.total_cost, argnums=1))(
+            jnp.asarray(x0), jnp.asarray(U))
+        pg = U - np.asarray(jenv.clip(jnp.asarray(U) - g_j))
+        want = np.abs(pg).max(axis=(1, 2)) < np.asarray(j_threshold(
+            jilqr.ILQRConfig(), g_j, jenv.bounds, axes=(1, 2)))
+        got = ilqr._kkt_stationary(tenv, torch.as_tensor(x0),
+                                   torch.as_tensor(U), ilqr.ILQRConfig(),
+                                   axes=(1, 2))
+        np.testing.assert_array_equal(got.numpy(), want)
+        verdicts.append(want)
+    assert not verdicts[0].any() and verdicts[1].all()
+
+
+def test_bounded_batch_matches_single():
+    _, tenv, lohi = _bounded_envs("hvac")
+    x0 = torch.as_tensor(np.random.default_rng(4).uniform(*lohi, (3, 3)))
+    config = ilqr.ILQRConfig(atol=1e-8, max_iterations=40, boxqp=True,
+                             use_pallas=True)
+    resb = ilqr.solve_batch(tenv, x0, horizon=10, config=config)
+    for i in range(3):
+        res1 = ilqr.solve(tenv, x0[i], horizon=10, config=config)
+        np.testing.assert_allclose(resb.actions[i].numpy(),
+                                   res1.actions.numpy(), rtol=1e-9, atol=1e-9)
+        assert bool(resb.converged[i]) == bool(res1.converged)
+        assert int(resb.iterations[i]) == int(res1.iterations)
+
+
+@pytest.mark.parametrize("n_bad", [4, 150])
+def test_compacted_restart_loop_with_ubar_matches_full(n_bad):
+    """B > 128 routes the boxQP backward's restarts through the compacted
+    sub-batch loop, which must gather each retried lane's row of Ubar: every
+    lane sees the escalation sequence and the gains of the single-scenario
+    restart loop, and the JAX package's compacted loop agrees."""
+    jenv, tenv, lohi = _bounded_envs("hvac")
+    B, Tb = 256, 4
+    rng = np.random.default_rng(9)
+    x0 = torch.as_tensor(rng.uniform(*lohi, (B, 3)))
+    U = tenv.clip(torch.as_tensor(rng.uniform(0.0, 4.0, (B, Tb, 3))))
+    X, _ = tenv.rollout(x0, U)
+    lin, quad, fin = ilqr.derivatives(tenv, X, U)
+    bad = rng.choice(B, n_bad, replace=False)
+    l_uu = quad.l_uu.clone()
+    l_uu[bad] = -40.0 * torch.eye(3, dtype=torch.float64)
+    quad = dataclasses.replace(quad, l_uu=l_uu)
+    mu = torch.zeros(B, dtype=torch.float64)
+    delta = torch.ones(B, dtype=torch.float64)
+    cfg = ilqr.ILQRConfig(boxqp=True, use_pallas=True)
+
+    ok_c, pol_c, dv1_c, dv2_c, mu_c, delta_c = \
+        ilqr_batched._backward_restarts_batched(lin, quad, fin, mu, delta,
+                                                cfg, tenv.bounds, U)
+    assert int((mu_c > 0).sum()) >= n_bad
+    for i in sorted(set(bad[:6].tolist()) | set(range(0, B, 32))):
+        row = lambda m: dataclasses.replace(  # noqa: E731
+            m, **{f: getattr(m, f)[i] for f in m.__dataclass_fields__})
+        ok, pol, dv1, dv2, mu_i, delta_i = ilqr.backward_with_restarts(
+            row(lin), row(quad), row(fin), mu[i], delta[i], cfg,
+            tenv.bounds, U[i])
+        assert bool(ok) == bool(ok_c[i])
+        assert float(mu_i) == float(mu_c[i])
+        assert float(delta_i) == float(delta_c[i])
+        if bool(ok):
+            np.testing.assert_allclose(pol.K.numpy(), pol_c.K[i].numpy(),
+                                       rtol=1e-9, atol=1e-9)
+            np.testing.assert_allclose(pol.k.numpy(), pol_c.k[i].numpy(),
+                                       rtol=1e-9, atol=1e-9)
+            np.testing.assert_allclose(float(dv1), float(dv1_c[i]),
+                                       rtol=1e-9, atol=1e-12)
+
+    jlin, jquad, jfin = jbatched._derivatives_batched(
+        jenv, jnp.asarray(X.numpy()), jnp.asarray(U.numpy()))
+    jquad = dataclasses.replace(jquad, l_uu=jnp.asarray(l_uu.numpy()))
+    ok_j, _, _, _, mu_j, delta_j = jax.jit(
+        lambda: jbatched._backward_restarts_batched(
+            jlin, jquad, jfin, jnp.zeros(B), jnp.ones(B),
+            jilqr.ILQRConfig(boxqp=True), jenv.bounds,
+            jnp.asarray(U.numpy())))()
+    np.testing.assert_array_equal(ok_c.numpy(), np.asarray(ok_j))
+    np.testing.assert_array_equal(mu_c.numpy(), np.asarray(mu_j))
+    np.testing.assert_array_equal(delta_c.numpy(), np.asarray(delta_j))

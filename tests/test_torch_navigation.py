@@ -40,7 +40,8 @@ def _one_torch_thread():
 
 def _envs(zones):
     jenv = jax_make_navigation([8.0, -5.0], zones, dtype=jnp.float64)
-    tenv = make_navigation([8.0, -5.0], zones, dtype=torch.float64)
+    tenv = make_navigation([8.0, -5.0], zones, dtype=torch.float64,
+                           device="cpu")
     return jenv, tenv
 
 
@@ -156,7 +157,7 @@ def test_device_step_and_bounds():
     assert step.int_params == (2,)
     assert tenv.bounds is None
     boxed = make_navigation([8.0, -5.0], None, low=-1.0, high=0.5,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     u = torch.tensor([[-3.0, 3.0], [0.2, -0.7]], dtype=torch.float64)
     np.testing.assert_array_equal(boxed.clip(u).numpy(),
                                   [[-1.0, 0.5], [0.2, -0.7]])

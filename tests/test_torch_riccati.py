@@ -52,7 +52,8 @@ def _linearization(seed, indefinite=()):
     the three models' fields, plus per-lane mu. ``indefinite`` lanes get
     l_uu = -10 I and mu = 0, which makes their regularized Quu indefinite."""
     env = make_navigation([8.0, -5.0], {"center": [[3.0, -2.0]],
-                                        "decay": [2.0]}, dtype=torch.float64)
+                                        "decay": [2.0]}, dtype=torch.float64,
+                          device="cpu")
     rng = np.random.default_rng(seed)
     x0 = torch.as_tensor(rng.uniform(-5.0, 5.0, (B, 2)))
     U = torch.as_tensor(0.3 * rng.normal(size=(B, T, 2)))
@@ -156,3 +157,126 @@ def test_wrapper_runs_plain_version_on_cpu_only():
             *(args[k] for k in ("fx", "fu", "lx", "lu", "lxx", "luu", "lux",
                                 "mu", "VT", "vT")))
     assert riccati.LAUNCHES == launches
+
+
+# -- K4: the control-limited (boxQP) backward ---------------------------------
+#
+# ``riccati_backward_boxqp_ref`` (the plain version of K4) against the JAX
+# package's vmapped scan ``ilqr.backward(..., ILQRConfig(boxqp=True),
+# bounds, Ubar)``, the reference that tests/test_riccati_pallas.py::
+# TestBoxQPKernelParity pins the JAX K4 kernel to, on HVAC-3 and reservoir-4
+# in the setup of that test (clipped random nominals), float64. Tolerance
+# 1e-8: the same float64 algorithm on both sides, whose boxQP line search
+# only flips a candidate on a rounding difference near its 1e-12 margin,
+# which these small, well-scaled problems stay clear of.
+
+BOX_TOL = dict(rtol=1e-8, atol=1e-8)
+BOX_B, BOX_T = 16, 8
+
+
+def _bounded_setup(name, indefinite=()):
+    from tfmpc_tpu.models.hvac import make_hvac as jax_make_hvac
+    from tfmpc_tpu.models.reservoir import make_reservoir as jax_make_reservoir
+    from tfmpc_tpu_torch.models.hvac import make_hvac
+    from tfmpc_tpu_torch.models.reservoir import make_reservoir
+
+    if name == "hvac":
+        kw = dict(is_out=[1, 0, 1], is_hall=[0, 1, 0])
+        adj = [[0, 1, 0], [1, 0, 1], [0, 1, 0]]
+        jenv = jax_make_hvac(adj, **kw, dtype=jnp.float64)
+        tenv = make_hvac(adj, **kw, dtype=torch.float64, device="cpu")
+        lohi = (8.0, 18.0)
+    else:
+        jenv = jax_make_reservoir(4, dtype=jnp.float64)
+        tenv = make_reservoir(4, dtype=torch.float64, device="cpu")
+        lohi = (20.0, 95.0)
+    rng = np.random.default_rng(11)
+    n = tenv.state_size
+    x0 = torch.as_tensor(rng.uniform(*lohi, size=(BOX_B, n)))
+    U = tenv.clip(torch.as_tensor(rng.uniform(0.0, 4.0, (BOX_B, BOX_T, n))))
+    X, _ = tenv.rollout(x0, U)
+    lin, quad, fin = tenv.analytic_derivatives(X, U)
+    to_np = lambda m: {f: getattr(m, f).numpy().copy()  # noqa: E731
+                       for f in m.__dataclass_fields__}
+    lin, quad, fin = to_np(lin), to_np(quad), to_np(fin)
+    mu = rng.uniform(0.0, 0.5, BOX_B)
+    for lane in indefinite:
+        quad["l_uu"][lane] = -10.0 * np.eye(n)
+        mu[lane] = 0.0
+    return jenv, tenv, (lin, quad, fin), mu, U.numpy()
+
+
+@pytest.mark.parametrize("name", ["hvac", "reservoir"])
+@pytest.mark.parametrize("indefinite", [(), (2, 9)], ids=["pd", "indefinite"])
+def test_boxqp_ref_matches_jax_scan_backward(name, indefinite):
+    from tfmpc_tpu.solvers import ilqr as jilqr
+
+    jenv, tenv, models, mu, U = _bounded_setup(name, indefinite)
+    ok_t, pol_t, dv1_t, dv2_t = riccati.riccati_backward_boxqp_ref(
+        *_torch_models(*models), torch.as_tensor(mu), tenv.bounds,
+        torch.as_tensor(U))
+    cfg = jilqr.ILQRConfig(boxqp=True)
+    ok_j, pol_j, dv1_j, dv2_j = jax.jit(jax.vmap(
+        lambda l, q, f, m, u: jilqr.backward(l, q, f, m, cfg,
+                                             bounds=jenv.bounds, Ubar=u)))(
+        *_jax_models(*models), jnp.asarray(mu), jnp.asarray(U))
+    ok_t = ok_t.numpy()
+    np.testing.assert_array_equal(ok_t, np.asarray(ok_j))
+    assert (~ok_t).sum() == len(indefinite)
+    for ours, theirs in ((pol_t.K, pol_j.K), (pol_t.k, pol_j.k),
+                         (dv1_t, dv1_j), (dv2_t, dv2_j)):
+        np.testing.assert_allclose(ours.numpy()[ok_t],
+                                   np.asarray(theirs)[ok_t], **BOX_TOL)
+    # the box is active somewhere, and clamped rows of K are exactly zero
+    k, K = pol_t.k.numpy()[ok_t], pol_t.K.numpy()[ok_t]
+    ubar = U[ok_t]
+    lo = tenv.bounds.low.numpy() - ubar
+    hi = tenv.bounds.high.numpy() - ubar
+    at_bound = np.isclose(k, lo, rtol=0, atol=1e-12) \
+        | np.isclose(k, hi, rtol=0, atol=1e-12)
+    assert at_bound.any()
+    assert (np.abs(K).sum(axis=-1)[at_bound] == 0.0).mean() > 0.5
+    # ilqr.backward routes boxqp + bounds to the same plain version
+    ok_b, pol_b, _, _ = ilqr.backward(
+        *_torch_models(*models), torch.as_tensor(mu),
+        ilqr.ILQRConfig(boxqp=True), tenv.bounds, torch.as_tensor(U))
+    assert np.array_equal(ok_b.numpy(), ok_t)
+    assert torch.equal(pol_b.k[ok_t], pol_t.k[ok_t])
+
+
+def test_boxqp_kernel_layout_and_wrapper_on_cpu():
+    """K4's kernel layout (ubar [T, m, B], lo/hi [m]) matches the JAX
+    adapter's; on CPU tensors the wrapper runs the plain version, and the
+    launcher refuses to compute."""
+    from tfmpc_tpu.ops.riccati_pallas import (
+        _to_kernel_layout as jax_layout,
+    )
+
+    jenv, tenv, models, mu, U = _bounded_setup("hvac", (3,))
+    tmodels = _torch_models(*models)
+    a = riccati._to_kernel_layout(*tmodels, torch.as_tensor(mu), tenv.bounds,
+                                  torch.as_tensor(U))
+    theirs, _ = jax_layout(*_jax_models(*models), jnp.asarray(mu))
+    for key in theirs:
+        np.testing.assert_array_equal(
+            a[key].numpy(), np.asarray(theirs[key]).reshape(a[key].shape))
+    np.testing.assert_array_equal(a["ubar"].numpy(), U.transpose(1, 2, 0))
+    np.testing.assert_array_equal(a["lo"].numpy(), np.zeros(3))
+    np.testing.assert_array_equal(a["hi"].numpy(), np.full(3, 10.0))
+    assert set(riccati.K4_ARGS) == set(a)
+
+    counts = (riccati.BOXQP_LAUNCHES, riccati.BOXQP_PLAIN_CALLS,
+              riccati.LAUNCHES, riccati.PLAIN_CALLS)
+    args = (*tmodels, torch.as_tensor(mu), tenv.bounds, torch.as_tensor(U))
+    ok, pol, dv1, dv2 = riccati.riccati_backward_boxqp(*args)
+    ok_r, pol_r, _, dv2_r = riccati.riccati_backward_boxqp_ref(*args)
+    assert torch.equal(ok, ok_r) and not bool(ok[3])
+    assert torch.equal(pol.K[ok], pol_r.K[ok])
+    assert torch.equal(dv2[ok], dv2_r[ok])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        riccati.riccati_backward_boxqp_kernel(*(a[k] for k in
+                                                riccati.K4_ARGS))
+    assert (riccati.BOXQP_LAUNCHES, riccati.BOXQP_PLAIN_CALLS,
+            riccati.LAUNCHES, riccati.PLAIN_CALLS) == (
+        counts[0], counts[1] + 1, counts[2], counts[3])
+    assert riccati.BOXQP_KERNEL_DIMS == {(2, 2), (3, 3), (5, 5), (6, 6)}

@@ -121,9 +121,10 @@ class Navigation(Env):
 
 def make_navigation(goal, deceleration: Optional[dict] = None, low=None,
                     high=None, *, dtype=torch.float32,
-                    device="cpu") -> Navigation:
+                    device="cuda") -> Navigation:
     """Build a ``Navigation`` env from reference-style JSON config fields:
-    ``deceleration = {"center": [[...], ...], "decay": [...]}``."""
+    ``deceleration = {"center": [[...], ...], "decay": [...]}``. The env
+    lives on the card unless ``device="cpu"`` is passed."""
     goal = torch.as_tensor(goal, dtype=dtype, device=device).reshape(-1)
     n = goal.shape[0]
     if deceleration is not None:

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``ops/csrc``.
 
-Every ``.cu`` under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The build runs at the first launch, never at import, and is cached in
+Every ``.cu`` under ``csrc/`` is compiled by its own ``nvcc`` process for
+Hopper (``sm_90a``), all started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+build runs at the first launch, never at import, and is cached in
 ``ops/_build/`` under a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once. Nothing is downloaded and no
 PyTorch header is compiled (such a build takes minutes instead of seconds).
@@ -28,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,14 +40,17 @@ _SIGNATURES = {
     # dtype, n, m, T, B, fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT,
     # K, k, dV1, dV2, fail, block, stream
     "tfmpc_riccati_backward": [_I] * 5 + [_P] * 15 + [_I, _P],
-    # dtype, env, n, m, T, B, xbar, ubar, K, k, alphas (host f64), A,
-    # params (host void*[]), n_params, int_params (host int[]), n_int,
-    # J, block, stream
-    "tfmpc_linesearch_costs": [_I] * 6 + [_P] * 5 + [_I, _P, _I, _P, _I]
+    # dtype, n, m, T, B, newton_iters, fx, fu, lx, lu, lxx, luu, lux, mu,
+    # ubar, lo, hi, VT, vT, K, k, dV1, dV2, fail, block, stream
+    "tfmpc_riccati_backward_boxqp": [_I] * 6 + [_P] * 18 + [_I, _P],
+    # dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi (null: unbounded),
+    # alphas (host f64), A, params (host void*[]), n_params, int_params
+    # (host int[]), n_int, J, block, stream
+    "tfmpc_linesearch_costs": [_I] * 6 + [_P] * 7 + [_I, _P, _I, _P, _I]
     + [_P, _I, _P],
-    # dtype, env, n, m, T, B, alpha, xbar, ubar, K, k, params, n_params,
-    # int_params, n_int, X, U, J, block, stream
-    "tfmpc_rollout_alpha": [_I] * 6 + [_P] * 6 + [_I, _P, _I]
+    # dtype, env, n, m, T, B, alpha, xbar, ubar, K, k, lo, hi, params,
+    # n_params, int_params, n_int, X, U, J, block, stream
+    "tfmpc_rollout_alpha": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
     + [_P] * 3 + [_I, _P],
 }
 
@@ -82,19 +86,57 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtfmpc_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds, log_prefix: Path):
+    """Run the commands in parallel, each writing its output to a file
+    beside the build (no pipe to fill); raise naming the first that failed.
+    Returns their combined output, in command order."""
+    paths = [log_prefix.with_name(f"{log_prefix.name}.{i}.out")
+             for i in range(len(cmds))]
+    procs = []
+    try:
+        for cmd, path in zip(cmds, paths):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        for proc in procs:
+            proc.wait()
+        logs = [path.read_text() for path in paths]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}: "
+                    f"{' '.join(cmd)}\n{log}"
+                )
+        return "".join(logs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in paths:
+            path.unlink(missing_ok=True)
+
+
 def _compile(so: Path) -> None:
     sources, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    nvcc = _nvcc()
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources, objs)],
+                       BUILD_DIR / f"{tag}.compile")
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs)]], BUILD_DIR / f"{tag}.link")
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stderr}"
-        )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)
 
 

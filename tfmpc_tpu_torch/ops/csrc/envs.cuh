@@ -11,6 +11,14 @@ namespace tfmpc {
 
 // env_id values (tfmpc_tpu_torch/models/*.py device_step)
 constexpr int kNavigation = 0;
+constexpr int kHVAC = 1;
+constexpr int kReservoir = 2;
+
+// max(v, 0) that keeps NaN, as torch.clamp(v, min=0) does
+template <typename S>
+__device__ __forceinline__ S relu(S v) {
+  return v < S(0) ? S(0) : v;
+}
 
 // Navigation: x' = x + lambda(x) u,
 // lambda(x) = prod_z [2 / (1 + exp(-decay_z sqrt(|x - c_z|^2 + 1e-12))) - 1],
@@ -52,6 +60,129 @@ struct NavigationStep {
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) x_next[i] = x[i] + lam * u[i];
+    return cost;
+  }
+};
+
+// HVAC (models/hvac.py): forward-Euler room temperatures,
+//   x'_i = x_i + dt * (u_i Ka (Ta - x_i) + sum_j cond_ij x_j - x_i rowsum_i
+//                      + k_out_i (To - x_i) + k_hall_i (Th - x_i)) / C_i,
+// stage cost on the PRE-step state,
+//   cost_air * sum(u) + penalty * sum(relu(lo - x)^2 + relu(x - hi)^2)
+//                     + setpoint_weight * sum((x - mid)^2),
+// final cost the same at u = 0. Parameters (device pointers, the order of
+// HVAC_STEP_PARAMS): cond [N, N], cond_rowsum, k_out, k_hall, capacity,
+// temp_low, temp_high, temp_mid [N], then 0-d temp_out, temp_hall,
+// temp_air, air_cap, cost_air, penalty, setpoint_weight, time_delta.
+template <typename S, int N>
+struct HVACStep {
+  const S* __restrict__ cond;
+  const S* __restrict__ cond_rowsum;
+  const S* __restrict__ k_out;
+  const S* __restrict__ k_hall;
+  const S* __restrict__ capacity;
+  const S* __restrict__ temp_low;
+  const S* __restrict__ temp_high;
+  const S* __restrict__ temp_mid;
+  const S* __restrict__ temp_out;
+  const S* __restrict__ temp_hall;
+  const S* __restrict__ temp_air;
+  const S* __restrict__ air_cap;
+  const S* __restrict__ cost_air;
+  const S* __restrict__ penalty;
+  const S* __restrict__ setpoint_weight;
+  const S* __restrict__ time_delta;
+
+  __device__ __forceinline__ S final_cost(const S (&x)[N]) const {
+    S comfort = 0, setpoint = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const S below = relu(temp_low[i] - x[i]);
+      const S above = relu(x[i] - temp_high[i]);
+      comfort += below * below + above * above;
+      const S d = x[i] - temp_mid[i];
+      setpoint += d * d;
+    }
+    return *penalty * comfort + *setpoint_weight * setpoint;
+  }
+
+  // Returns the stage cost at x and writes the next state.
+  template <int M>
+  __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
+                                    S (&x_next)[N]) const {
+    static_assert(M == N, "HVAC has one control per room");
+    S air = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) air += u[i];
+    const S cost = *cost_air * air + final_cost(x);
+    const S ta = *temp_air, ka = *air_cap, to = *temp_out, th = *temp_hall;
+    const S dt = *time_delta;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const S heat = u[i] * ka * (ta - x[i]);
+      S exch = 0;
+#pragma unroll
+      for (int j = 0; j < N; ++j) exch += cond[i * N + j] * x[j];
+      exch = exch - x[i] * cond_rowsum[i];
+      const S leak_out = k_out[i] * (to - x[i]);
+      const S leak_hall = k_hall[i] * (th - x[i]);
+      const S dT = (heat + exch + leak_out + leak_hall) / capacity[i];
+      x_next[i] = x[i] + dt * dT;
+    }
+    return cost;
+  }
+};
+
+// Reservoir (models/reservoir.py): x'_i = x_i + rain_i - evap_i - u_i +
+// sum_j D_ji u_j with evap_i = evap_factor sin(x_i / cap_i) x_i; stage cost
+// on the PRE-step state and independent of u,
+//   sum(low_penalty relu(lb - x)^2 + high_penalty relu(x - ub)^2
+//       + setpoint_weight (x - mid)^2),
+// final cost the same. Parameters (the order of RESERVOIR_STEP_PARAMS):
+// downstream [N, N], max_capacity, rain [N], evap_factor (0-d),
+// lower_bound, upper_bound, mid [N], low_penalty, high_penalty,
+// setpoint_weight (0-d).
+template <typename S, int N>
+struct ReservoirStep {
+  const S* __restrict__ downstream;
+  const S* __restrict__ max_capacity;
+  const S* __restrict__ rain;
+  const S* __restrict__ evap_factor;
+  const S* __restrict__ lower_bound;
+  const S* __restrict__ upper_bound;
+  const S* __restrict__ mid;
+  const S* __restrict__ low_penalty;
+  const S* __restrict__ high_penalty;
+  const S* __restrict__ setpoint_weight;
+
+  __device__ __forceinline__ S final_cost(const S (&x)[N]) const {
+    const S lp = *low_penalty, hp = *high_penalty, sw = *setpoint_weight;
+    S c = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const S below = relu(lower_bound[i] - x[i]);
+      const S above = relu(x[i] - upper_bound[i]);
+      const S d = x[i] - mid[i];
+      c += lp * below * below + hp * above * above + sw * d * d;
+    }
+    return c;
+  }
+
+  // Returns the stage cost at x and writes the next state.
+  template <int M>
+  __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
+                                    S (&x_next)[N]) const {
+    static_assert(M == N, "one release per reservoir");
+    const S cost = final_cost(x);
+    const S e = *evap_factor;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const S evap = e * dsin(x[i] / max_capacity[i]) * x[i];
+      S inflow = 0;
+#pragma unroll
+      for (int j = 0; j < N; ++j) inflow += u[j] * downstream[j * N + i];
+      x_next[i] = x[i] + rain[i] - evap - u[i] + inflow;
+    }
     return cost;
   }
 };

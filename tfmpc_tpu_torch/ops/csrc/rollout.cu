@@ -4,15 +4,19 @@
 // _costs_kernel) as K2, and rollout_pallas.py:rollout_alpha_pallas (body
 // _materialize_kernel) as K3.
 //
-// Both roll u_t = ubar_t + alpha k_t + K_t (x_t - xbar_t), x_{t+1} =
+// Both roll u_t = clip(ubar_t + alpha k_t + K_t (x_t - xbar_t)), x_{t+1} =
 // step(x_t, u_t), J += cost(x_t) from x_0 = xbar_0, and add the final cost
-// once at T. The env step is a functor from envs.cuh.
+// once at T. The clip to [lo, hi] applies when the env has bounds (lo/hi
+// are null otherwise), after the affine law, as rollout_pallas.py's
+// has_bounds clip does; it keeps NaN. The env step is a functor from
+// envs.cuh, dispatched on env_id; (n, m) in {(2,2), (3,3), (5,5), (6,6)}.
 //
 // What bounds them on this card: like K1, each rollout is a serial chain of
 // T dependent steps, so the kernels are latency-bound. Per step a thread
-// reads n + m + m*n + m inputs (10 scalars at n = m = 2); K2 writes only
-// J [A, B] (45,056 values at B=4096, A=11), K3 writes X, U and J. Total
-// traffic is a few MB, far below what HBM moves in the time of the chain.
+// reads n + m + m*n + m inputs (10 scalars at n = m = 2, 54 at n = m = 6);
+// K2 writes only J [A, B] (45,056 values at B=4096, A=11), K3 writes X, U
+// and J. Total traffic is tens of MB, below what HBM moves in the time of
+// the chain.
 //
 // What the design does about it: one thread per (scenario, alpha) pair in
 // K2 (45,056 threads at B=4096, A=11: enough to fill the 132 SMs, which
@@ -23,6 +27,8 @@
 // alphas of a scenario read the same inputs and meet in L1/L2. The alphas
 // travel in the kernel's arguments. The policy arithmetic follows
 // _costs_kernel's order: (ubar + alpha k) + sum_i K_i dx_i.
+#include <utility>
+
 #include "envs.cuh"
 
 namespace tfmpc {
@@ -38,7 +44,8 @@ struct Alphas {
 template <typename S, int N, int M>
 __device__ __forceinline__ void policy_control(
     const S* __restrict__ xbar, const S* __restrict__ ubar,
-    const S* __restrict__ K, const S* __restrict__ k, int t, int b, int B,
+    const S* __restrict__ K, const S* __restrict__ k,
+    const S* __restrict__ lo, const S* __restrict__ hi, int t, int b, int B,
     S alpha, const S (&x)[N], S (&u)[M]) {
   S dx[N];
 #pragma unroll
@@ -50,13 +57,15 @@ __device__ __forceinline__ void policy_control(
 #pragma unroll
     for (int i = 0; i < N; ++i) acc += K[at(t, c * N + i, M * N, b, B)] * dx[i];
     u[c] = base + acc;
+    if (lo != nullptr) u[c] = clip(u[c], lo[c], hi[c]);
   }
 }
 
 template <typename S, int N, int M, class Env>
 __global__ void linesearch_costs_kernel(
     const S* __restrict__ xbar, const S* __restrict__ ubar,
-    const S* __restrict__ K, const S* __restrict__ k, Alphas<S> alphas,
+    const S* __restrict__ K, const S* __restrict__ k,
+    const S* __restrict__ lo, const S* __restrict__ hi, Alphas<S> alphas,
     int A, Env env, S* __restrict__ J, int T, int B) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<int64_t>(A) * B) return;
@@ -70,7 +79,7 @@ __global__ void linesearch_costs_kernel(
   S total = 0;
   for (int t = 0; t < T; ++t) {
     S u[M], xn[N];
-    policy_control<S, N, M>(xbar, ubar, K, k, t, b, B, alpha, x, u);
+    policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
     total = total + env.template step<M>(x, u, xn);
 #pragma unroll
     for (int i = 0; i < N; ++i) x[i] = xn[i];
@@ -83,7 +92,8 @@ template <typename S, int N, int M, class Env>
 __global__ void rollout_alpha_kernel(
     const S* __restrict__ alpha_in, const S* __restrict__ xbar,
     const S* __restrict__ ubar, const S* __restrict__ K,
-    const S* __restrict__ k, Env env, S* __restrict__ X, S* __restrict__ U,
+    const S* __restrict__ k, const S* __restrict__ lo,
+    const S* __restrict__ hi, Env env, S* __restrict__ X, S* __restrict__ U,
     S* __restrict__ J, int T, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -95,7 +105,7 @@ __global__ void rollout_alpha_kernel(
   S total = 0;
   for (int t = 0; t < T; ++t) {
     S u[M], xn[N];
-    policy_control<S, N, M>(xbar, ubar, K, k, t, b, B, alpha, x, u);
+    policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
     total = total + env.template step<M>(x, u, xn);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -108,66 +118,80 @@ __global__ void rollout_alpha_kernel(
   J[b] = total + env.final_cost(x);
 }
 
-template <typename S, int N>
-NavigationStep<S, N> navigation(const void* const* params,
-                                const int* int_params) {
-  return NavigationStep<S, N>{static_cast<const S*>(params[0]),
-                              static_cast<const S*>(params[1]),
-                              static_cast<const S*>(params[2]), int_params[0]};
+// The env's step functor from its parameter pointers (the order of the
+// env's device_step params), passed to f; an unknown env or a parameter
+// count that does not match is refused.
+template <typename S, int N, class F>
+int with_env(int env, const void* const* p, int n_params, const int* ints,
+             int n_ints, F&& f) {
+  auto P = [p](int i) { return static_cast<const S*>(p[i]); };
+  if (env == kNavigation && n_params == 3 && n_ints == 1)
+    return f(NavigationStep<S, N>{P(0), P(1), P(2), ints[0]});
+  if (env == kHVAC && n_params == 16 && n_ints == 0)
+    return f(HVACStep<S, N>{P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7),
+                            P(8), P(9), P(10), P(11), P(12), P(13), P(14),
+                            P(15)});
+  if (env == kReservoir && n_params == 10 && n_ints == 0)
+    return f(ReservoirStep<S, N>{P(0), P(1), P(2), P(3), P(4), P(5), P(6),
+                                 P(7), P(8), P(9)});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename S, int N, int M, class Env>
-int launch_costs(const Env& env, int T, int B, const void* xbar,
-                 const void* ubar, const void* K, const void* k,
-                 const double* alphas, int A, void* J, int block,
-                 cudaStream_t stream) {
-  Alphas<S> al{};
-  for (int a = 0; a < A; ++a) al.v[a] = static_cast<S>(alphas[a]);
-  linesearch_costs_kernel<S, N, M, Env>
-      <<<blocks_for(static_cast<int64_t>(A) * B, block), block, 0, stream>>>(
-          (const S*)xbar, (const S*)ubar, (const S*)K, (const S*)k, al, A, env,
-          (S*)J, T, B);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename S, int N, int M, class Env>
-int launch_alpha(const Env& env, int T, int B, const void* alpha,
-                 const void* xbar, const void* ubar, const void* K,
-                 const void* k, void* X, void* U, void* J, int block,
-                 cudaStream_t stream) {
-  rollout_alpha_kernel<S, N, M, Env>
-      <<<blocks_for(B, block), block, 0, stream>>>(
-          (const S*)alpha, (const S*)xbar, (const S*)ubar, (const S*)K,
-          (const S*)k, env, (S*)X, (S*)U, (S*)J, T, B);
-  return static_cast<int>(cudaGetLastError());
+// Calls f(std::integral_constant<int, N>) for n == m in {2, 3, 5, 6}.
+template <class F>
+int with_dims(int n, int m, F&& f) {
+  if (n != m) return static_cast<int>(cudaErrorInvalidValue);
+  switch (n) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename S>
 int costs_dtype(int env, int n, int m, int T, int B, const void* xbar,
                 const void* ubar, const void* K, const void* k,
-                const double* alphas, int A, const void* const* params,
-                int n_params, const int* int_params, int n_int_params,
-                void* J, int block, cudaStream_t stream) {
-  if (env == kNavigation && n == 2 && m == 2 && n_params == 3 &&
-      n_int_params == 1)
-    return launch_costs<S, 2, 2>(navigation<S, 2>(params, int_params), T, B,
-                                 xbar, ubar, K, k, alphas, A, J, block,
-                                 stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+                const void* lo, const void* hi, const double* alphas, int A,
+                const void* const* params, int n_params,
+                const int* int_params, int n_int_params, void* J, int block,
+                cudaStream_t stream) {
+  Alphas<S> al{};
+  for (int a = 0; a < A; ++a) al.v[a] = static_cast<S>(alphas[a]);
+  return with_dims(n, m, [&](auto dim) {
+    constexpr int N = decltype(dim)::value;
+    return with_env<S, N>(env, params, n_params, int_params, n_int_params,
+                          [&](auto step) {
+      linesearch_costs_kernel<S, N, N, decltype(step)>
+          <<<blocks_for(static_cast<int64_t>(A) * B, block), block, 0,
+             stream>>>((const S*)xbar, (const S*)ubar, (const S*)K,
+                       (const S*)k, (const S*)lo, (const S*)hi, al, A, step,
+                       (S*)J, T, B);
+      return static_cast<int>(cudaGetLastError());
+    });
+  });
 }
 
 template <typename S>
 int alpha_dtype(int env, int n, int m, int T, int B, const void* alpha,
                 const void* xbar, const void* ubar, const void* K,
-                const void* k, const void* const* params, int n_params,
+                const void* k, const void* lo, const void* hi,
+                const void* const* params, int n_params,
                 const int* int_params, int n_int_params, void* X, void* U,
                 void* J, int block, cudaStream_t stream) {
-  if (env == kNavigation && n == 2 && m == 2 && n_params == 3 &&
-      n_int_params == 1)
-    return launch_alpha<S, 2, 2>(navigation<S, 2>(params, int_params), T, B,
-                                 alpha, xbar, ubar, K, k, X, U, J, block,
-                                 stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dims(n, m, [&](auto dim) {
+    constexpr int N = decltype(dim)::value;
+    return with_env<S, N>(env, params, n_params, int_params, n_int_params,
+                          [&](auto step) {
+      rollout_alpha_kernel<S, N, N, decltype(step)>
+          <<<blocks_for(B, block), block, 0, stream>>>(
+              (const S*)alpha, (const S*)xbar, (const S*)ubar, (const S*)K,
+              (const S*)k, (const S*)lo, (const S*)hi, step, (S*)X, (S*)U,
+              (S*)J, T, B);
+      return static_cast<int>(cudaGetLastError());
+    });
+  });
 }
 
 }  // namespace
@@ -175,41 +199,44 @@ int alpha_dtype(int env, int n, int m, int T, int B, const void* alpha,
 
 extern "C" int tfmpc_linesearch_costs(
     int dtype, int env, int n, int m, int T, int B, const void* xbar,
-    const void* ubar, const void* K, const void* k, const double* alphas,
-    int A, const void* const* params, int n_params, const int* int_params,
-    int n_int_params, void* J, int block, void* stream) {
+    const void* ubar, const void* K, const void* k, const void* lo,
+    const void* hi, const double* alphas, int A, const void* const* params,
+    int n_params, const int* int_params, int n_int_params, void* J,
+    int block, void* stream) {
   using namespace tfmpc;
-  if (A < 1 || A > kMaxAlphas || T < 1)
+  if (A < 1 || A > kMaxAlphas || T < 1 || (lo == nullptr) != (hi == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return costs_dtype<float>(env, n, m, T, B, xbar, ubar, K, k, alphas, A,
-                              params, n_params, int_params, n_int_params, J,
-                              block, s);
+    return costs_dtype<float>(env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+                              alphas, A, params, n_params, int_params,
+                              n_int_params, J, block, s);
   if (dtype == kFloat64)
-    return costs_dtype<double>(env, n, m, T, B, xbar, ubar, K, k, alphas, A,
-                               params, n_params, int_params, n_int_params, J,
-                              block, s);
+    return costs_dtype<double>(env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+                               alphas, A, params, n_params, int_params,
+                               n_int_params, J, block, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int tfmpc_rollout_alpha(
     int dtype, int env, int n, int m, int T, int B, const void* alpha,
     const void* xbar, const void* ubar, const void* K, const void* k,
-    const void* const* params, int n_params, const int* int_params,
-    int n_int_params, void* X, void* U, void* J, int block, void* stream) {
+    const void* lo, const void* hi, const void* const* params, int n_params,
+    const int* int_params, int n_int_params, void* X, void* U, void* J,
+    int block, void* stream) {
   using namespace tfmpc;
-  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1 || (lo == nullptr) != (hi == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return alpha_dtype<float>(env, n, m, T, B, alpha, xbar, ubar, K, k,
-                              params, n_params, int_params, n_int_params, X,
-                              U, J, block, s);
+    return alpha_dtype<float>(env, n, m, T, B, alpha, xbar, ubar, K, k, lo,
+                              hi, params, n_params, int_params, n_int_params,
+                              X, U, J, block, s);
   if (dtype == kFloat64)
-    return alpha_dtype<double>(env, n, m, T, B, alpha, xbar, ubar, K, k,
-                               params, n_params, int_params, n_int_params, X,
-                              U, J, block, s);
+    return alpha_dtype<double>(env, n, m, T, B, alpha, xbar, ubar, K, k, lo,
+                               hi, params, n_params, int_params,
+                               n_int_params, X, U, J, block, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

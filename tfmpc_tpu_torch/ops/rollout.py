@@ -7,7 +7,9 @@ accepted alpha to materialize the new trajectory. On CUDA tensors both
 launch the CUDA kernels of ``csrc/rollout.cu`` (the env step compiled in,
 selected by ``Env.device_step``) or raise; on CPU tensors they run the plain
 PyTorch versions ``linesearch_costs_ref`` / ``rollout_alpha_ref``. The
-module counts kernel launches and plain-version calls per wrapper.
+module counts kernel launches and plain-version calls per wrapper. A
+bounded env's controls are clipped to its box after the affine law, in the
+kernels as in the plain versions.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ ALPHA_LAUNCHES = 0
 ALPHA_PLAIN_CALLS = 0
 
 # (n, m) pairs the CUDA kernels are instantiated for (csrc/rollout.cu).
-KERNEL_DIMS = {(2, 2)}
+KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
 MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cu)
 BLOCK = 128
 
@@ -83,10 +85,17 @@ def rollout_alpha_ref(env, X, U, policy, alpha_vec):
 
 def kernel_args(env, X, U, policy):
     """Check that the CUDA kernels cover this call (raises if not) and lay
-    its inputs out for them: ``[T, entries, B]`` tensors plus the env
-    step's id and parameters."""
+    its inputs out for them (``kernel_layout``)."""
     if X.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {X.device}")
+    return kernel_layout(env, X, U, policy)
+
+
+def kernel_layout(env, X, U, policy):
+    """The kernels' inputs, on the tensors' own device: ``[T, entries, B]``
+    trajectories and policy, the box ``lo``/``hi [m]`` (None for an
+    unbounded env), and the env step's id and parameters. Raises for a
+    dtype, env or dims the kernels do not cover."""
     if X.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"the CUDA kernels take float32/float64, got {X.dtype}")
     step = env.device_step()
@@ -94,11 +103,6 @@ def kernel_args(env, X, U, policy):
         raise NotImplementedError(
             f"{type(env).__name__} has no device step compiled into the "
             "rollout kernels; run with use_pallas=False"
-        )
-    if env.bounds is not None:
-        raise NotImplementedError(
-            "the rollout kernels do not clip controls yet (ROADMAP queue 1 "
-            "item 7, slice B); run bounded envs with use_pallas=False"
         )
     B, T, m = U.shape
     n = X.shape[-1]
@@ -111,6 +115,12 @@ def kernel_args(env, X, U, policy):
     params = [
         p.to(dtype=X.dtype, device=X.device).contiguous() for p in step.params
     ]
+    if env.bounds is None:
+        lo = hi = None
+    else:
+        lo, hi = (torch.broadcast_to(a.to(dtype=X.dtype, device=X.device),
+                                     (m,)).contiguous()
+                  for a in (env.bounds.low, env.bounds.high))
     return dict(
         dims=(B, T, n, m),
         dtype=X.dtype,
@@ -119,9 +129,18 @@ def kernel_args(env, X, U, policy):
         ubar=U.permute(1, 2, 0).contiguous(),                   # [T, m, B]
         K=policy.K.reshape(B, T, m * n).permute(1, 2, 0).contiguous(),
         k=policy.k.permute(1, 2, 0).contiguous(),
+        lo=lo,                                                  # [m] or None
+        hi=hi,
         params=params,
         int_params=step.int_params,
     )
+
+
+def _bound_pointers(a):
+    """Device pointers of ``lo``/``hi``, null for an unbounded env."""
+    if a["lo"] is None:
+        return ctypes.c_void_p(None), ctypes.c_void_p(None)
+    return _build.ptr(a["lo"]), _build.ptr(a["hi"])
 
 
 def _env_pointers(a):
@@ -145,6 +164,7 @@ def linesearch_costs_kernel(a, alphas: Sequence[float]):
     rc = _build.library().tfmpc_linesearch_costs(
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
         *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
+        *_bound_pointers(a),
         (ctypes.c_double * A)(*map(float, alphas)), A, *_env_pointers(a),
         _build.ptr(J), BLOCK, _build.stream(),
     )
@@ -170,7 +190,7 @@ def rollout_alpha_kernel(a, alpha):
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
         _build.ptr(alpha),
         *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
-        *_env_pointers(a),
+        *_bound_pointers(a), *_env_pointers(a),
         _build.ptr(X_out), _build.ptr(U_out), _build.ptr(J),
         BLOCK, _build.stream(),
     )

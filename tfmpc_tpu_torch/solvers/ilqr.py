@@ -4,10 +4,13 @@ solver.
 Counterpart of ``tfmpc_tpu/solvers/ilqr.py``: nominal rollout, then
 linearize -> regularized Riccati backward (restarted with a larger mu while
 a Cholesky PD probe fails) -> parallel line search over the alpha grid,
-until the cost decrease drops below ``atol``. The JAX package runs the loop
-as one compiled ``lax.while_loop``; here it is a host loop that reads one
-flag per iteration. ``solve`` is the semantics oracle of the batched solver
-in ``ilqr_batched.py``.
+until the cost decrease drops below ``atol``. Controls of a bounded env are
+clipped in the rollouts, and with ``ILQRConfig(boxqp=True)`` the backward
+pass solves the control-limited (boxQP) Q-minimization; a bounded env also
+gets the KKT stationarity test when the line search accepts nothing. The
+JAX package runs the loop as one compiled ``lax.while_loop``; here it is a
+host loop that reads one flag per iteration. ``solve`` is the semantics
+oracle of the batched solver in ``ilqr_batched.py``.
 """
 
 from __future__ import annotations
@@ -19,13 +22,15 @@ import torch
 from torch.func import vmap
 
 from tfmpc_tpu_torch.core.types import QuadraticFinal, map_fields
-from tfmpc_tpu_torch.ops.riccati import riccati_backward_ref
+from tfmpc_tpu_torch.ops.riccati import (
+    riccati_backward_boxqp_ref,
+    riccati_backward_ref,
+)
 from tfmpc_tpu_torch.ops.rollout import closed_loop_rollout
 
 # Options of the JAX ILQRConfig that this package does not implement yet,
 # with the value that keeps them off and the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "boxqp": (False, "queue 1 item 7 (boxQP backward, slice B)"),
     "ddp": (False, "queue 1 item 13 (full DDP, slice D)"),
     "parallel_backward": (False, "queue 1 item 11 (parallel scan, slice C)"),
     "fuse_derivatives": (False, "queue 1 item 19 (fused derivatives)"),
@@ -148,12 +153,41 @@ def _decrease_mu(mu, delta, config: ILQRConfig):
     return mu, delta
 
 
-def _check_env(env) -> None:
-    if env.bounds is not None:
-        raise NotImplementedError(
-            "bounded envs need the KKT stationarity test, not ported to "
-            "PyTorch yet: ROADMAP queue 1 item 8 (slice B)"
-        )
+def _absmax(a, axes):
+    a = a.abs()
+    return a.amax(dim=axes) if axes is not None else a.max()
+
+
+def _kkt_scale(g, axes=None):
+    """``max(1, ||g||_inf)`` over ``axes`` (None: the whole tensor;
+    ``(1, 2)``: per lane of a ``[B, T, m]`` gradient), the normalizer of
+    the relative KKT test (see the JAX package's ``ILQRConfig.kkt_atol``)."""
+    return torch.clamp(_absmax(g, axes), min=1.0)
+
+
+def _kkt_threshold(config, g, bounds, axes=None):
+    """Projected-gradient threshold ``kkt_atol * max(1, ||g||_inf)``,
+    capped at 10% of the narrowest finite box width so the test can never
+    pass vacuously everywhere in the box; all-infinite bounds leave it
+    uncapped."""
+    width = bounds.high - bounds.low
+    finite_w = torch.where(torch.isfinite(width), width,
+                           torch.full_like(width, torch.inf)).min()
+    return torch.minimum(config.kkt_atol * _kkt_scale(g, axes),
+                         0.1 * finite_w)
+
+
+def _kkt_stationary(env, x0, U, config, axes=None):
+    """KKT stationarity of the controls ``U`` of a bounded env:
+    ``||U - clip(U - dJ/dU)||_inf`` below ``_kkt_threshold``, per lane over
+    ``axes``. The gradient is ``torch.autograd.grad`` of the summed total
+    cost; scenarios are independent, so each lane's gradient is that of
+    its own cost (``jax.grad`` of ``env.total_cost`` in the JAX package)."""
+    with torch.enable_grad():
+        U_ = U.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(env.total_cost(x0.detach(), U_).sum(), U_)
+    pg = U - env.clip(U - g)
+    return _absmax(pg, axes) < _kkt_threshold(config, g, env.bounds, axes)
 
 
 def derivatives(env, X, U):
@@ -185,25 +219,36 @@ def derivatives(env, X, U):
     )
 
 
-def backward(lin, quad, final, mu, config: ILQRConfig):
+def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
+             Ubar=None):
     """Regularized Riccati backward pass (Tassa-style ``V + mu I``).
 
     Returns ``(ok, Policy, dV1, dV2)``; ``ok`` is False where a step's
-    regularized ``Quu`` failed the Cholesky PD probe. Works on any leading
-    batch dims (the plain version of kernel K1).
+    regularized ``Quu`` failed the Cholesky PD probe. With
+    ``config.boxqp`` and ``bounds``/``Ubar`` given, each step's ``k`` is the
+    boxQP minimizer within ``[low - ubar_t, high - ubar_t]`` and the clamped
+    rows of ``K`` are zero (control-limited DDP). Works on any leading batch
+    dims (the plain versions of kernels K1 and K4).
     """
+    if config.boxqp and bounds is not None and Ubar is not None:
+        return riccati_backward_boxqp_ref(lin, quad, final, mu, bounds, Ubar,
+                                          config.boxqp_iters)
     return riccati_backward_ref(lin, quad, final, mu)
 
 
-def backward_with_restarts(lin, quad, final, mu, delta, config: ILQRConfig):
+def backward_with_restarts(lin, quad, final, mu, delta, config: ILQRConfig,
+                           bounds=None, Ubar=None):
     """Backward pass restarted with a larger mu while the PD probe fails
     (one scenario)."""
-    ok, policy, dV1, dV2 = backward(lin, quad, final, mu, config)
+    def attempt(mu_):
+        return backward(lin, quad, final, mu_, config, bounds, Ubar)
+
+    ok, policy, dV1, dV2 = attempt(mu)
     tries = 0
     while (not bool(ok)) and bool(mu < config.mu_max) \
             and tries < config.max_backward_restarts:
         mu, delta = _increase_mu(mu, delta, config)
-        ok, policy, dV1, dV2 = backward(lin, quad, final, mu, config)
+        ok, policy, dV1, dV2 = attempt(mu)
         tries += 1
     return ok, policy, dV1, dV2, mu, delta
 
@@ -221,7 +266,7 @@ def _iteration(env, state: _LoopState, config: ILQRConfig, alphas):
     """One outer iteration: derivatives -> backward -> line search."""
     lin, quad, final = derivatives(env, state.X, state.U)
     ok, policy, dV1, dV2, mu, delta = backward_with_restarts(
-        lin, quad, final, state.mu, state.delta, config
+        lin, quad, final, state.mu, state.delta, config, env.bounds, state.U
     )
     # every alpha of the grid at once: leading dim [A]
     X_all, U_all, J_all = forward(env, state.X, state.U, policy, alphas)
@@ -240,6 +285,12 @@ def _iteration(env, state: _LoopState, config: ILQRConfig, alphas):
     X_new = torch.where(any_accepted, X_all[best], state.X)
     U_new = torch.where(any_accepted, U_all[best], state.U)
     J_new = torch.where(any_accepted, J_all[best], state.J)
+
+    # KKT stationarity (bounded envs), only where nothing was accepted: the
+    # only case in which it changes the outcome
+    if env.bounds is not None and not bool(any_accepted):
+        at_optimum = at_optimum | _kkt_stationary(env, state.X[0], U_new,
+                                                  config)
 
     zero = torch.zeros_like(state.J)
     residual = torch.where(
@@ -271,7 +322,6 @@ def solve(env, x0, U0=None, *, horizon: Optional[int] = None,
 
     ``x0 [n]``; ``U0 [T, m]`` defaults to zeros (pass ``horizon`` instead).
     """
-    _check_env(env)
     if U0 is None:
         if horizon is None:
             raise ValueError("provide either U0 or horizon")

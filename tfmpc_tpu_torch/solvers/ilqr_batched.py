@@ -8,21 +8,24 @@ scenario that is done freezes. One iteration is
 
 1. the closed-form linearization (``ilqr.derivatives``);
 2. the Riccati backward inside the per-lane restart loop, compacted to the
-   failing lanes when B > 128 (kernel K1 with ``use_pallas``);
-3. the 11-alpha line search (K2);
-4. acceptance and the mu schedule;
+   failing lanes when B > 128 (with ``use_pallas``: kernel K1, or K4 for
+   ``boxqp`` on a bounded env);
+3. the 11-alpha line search (K2), controls clipped to a bounded env's box;
+4. acceptance and the mu schedule, with the KKT stationarity test of a
+   bounded env where a lane accepted nothing;
 5. the rollout at each scenario's accepted alpha (K3).
 
 The JAX package's ``lax.while_loop``s become host loops that read one flag
-per outer iteration and one per restart round. With ``use_pallas=True`` on
-CUDA tensors the three stages run the CUDA kernels or raise (an env without
-a device step, bounds, or dims without a kernel instantiation); nothing
-falls back to the plain path. ``use_pallas=False`` is the plain PyTorch
-path. Any batch size runs the kernels: they mask the ragged edge
-themselves, so there is no lane padding. The stages carry
-``torch.profiler.record_function`` ranges (``ilqr.derivatives``,
-``ilqr.backward``, ``ilqr.linesearch``, ``ilqr.materialize``), the JAX
-package's named scopes, so a profiler trace attributes time to them.
+per outer iteration and one per restart round (and, for a bounded env, one
+for whether any lane stalled). With ``use_pallas=True`` on CUDA tensors the
+stages run the CUDA kernels or raise (an env without a device step, or
+dims without a kernel instantiation); nothing falls back to the plain path.
+``use_pallas=False`` is the plain PyTorch path. Any batch size runs the
+kernels: they mask the ragged edge themselves, so there is no lane
+padding. The stages carry ``torch.profiler.record_function`` ranges
+(``ilqr.derivatives``, ``ilqr.backward``, ``ilqr.linesearch``,
+``ilqr.materialize``, ``ilqr.kkt``), the JAX package's named scopes, so a
+profiler trace attributes time to them.
 """
 
 from __future__ import annotations
@@ -38,9 +41,9 @@ from tfmpc_tpu_torch.solvers.ilqr import (
     ILQRConfig,
     ILQRResult,
     ILQRTrace,
-    _check_env,
     _decrease_mu,
     _increase_mu,
+    _kkt_stationary,
     backward,
     derivatives,
     forward,
@@ -81,17 +84,22 @@ class _IterationAux(NamedTuple):
     accepted: torch.Tensor   # [B] bool
 
 
-def _backward_batched(lin, quad, final, mu, config: ILQRConfig):
+def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
+                      Ubar):
     """Batched regularized Riccati backward over [B] scenarios.
 
-    With ``use_pallas`` it goes through K1's wrapper, which launches the
-    CUDA kernel on CUDA tensors (raising for dims it has no instantiation
-    for; the JAX package's mid-dim kernel K7 is not ported yet) and runs
-    the plain version on CPU tensors.
+    With ``use_pallas`` it goes through K4's wrapper for ``boxqp`` on a
+    bounded env and K1's otherwise; a wrapper launches its CUDA kernel on
+    CUDA tensors (raising for dims it has no instantiation for; the JAX
+    package's mid-dim kernel K7 is not ported yet) and runs the plain
+    version on CPU tensors.
     """
     if config.use_pallas:
+        if config.boxqp and bounds is not None:
+            return riccati.riccati_backward_boxqp(
+                lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
         return riccati.riccati_backward(lin, quad, final, mu)
-    return backward(lin, quad, final, mu, config)
+    return backward(lin, quad, final, mu, config, bounds, Ubar)
 
 
 _RESTART_SUB_BATCH = 128  # gathered-retry width of the compacted restarts
@@ -102,16 +110,17 @@ def _lane_needs(ok, mu, tries, config: ILQRConfig):
 
 
 def _backward_restarts_batched(lin, quad, final, mu, delta,
-                               config: ILQRConfig):
+                               config: ILQRConfig, bounds=None, Ubar=None):
     """Per-scenario restart-on-non-PD loop, batch-wide.
 
     For B > ``_RESTART_SUB_BATCH`` the retries run on a sub-batch of only
-    the failing lanes (``_restart_loop_compacted``); every lane sees the
-    same (escalate mu -> attempt) sequence as in the full-batch loop.
+    the failing lanes (``_restart_loop_compacted``), with their rows of
+    ``Ubar`` gathered; every lane sees the same (escalate mu -> attempt)
+    sequence as in the full-batch loop.
     """
 
     def attempt(mu_):
-        return _backward_batched(lin, quad, final, mu_, config)
+        return _backward_batched(lin, quad, final, mu_, config, bounds, Ubar)
 
     R = _RESTART_SUB_BATCH
     if mu.shape[0] <= R:
@@ -121,7 +130,8 @@ def _backward_restarts_batched(lin, quad, final, mu, delta,
         sub = lambda a: a.index_select(0, idx)  # noqa: E731
         return _backward_batched(
             map_fields(sub, lin), map_fields(sub, quad),
-            map_fields(sub, final), mu_sub, config,
+            map_fields(sub, final), mu_sub, config, bounds,
+            None if Ubar is None else sub(Ubar),
         )
 
     return _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R)
@@ -228,7 +238,8 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
         lin, quad, final = derivatives(env, state.X, state.U)
     with record_function("ilqr.backward"):
         ok, policy, dV1, dV2, mu, delta = _backward_restarts_batched(
-            lin, quad, final, state.mu, state.delta, config
+            lin, quad, final, state.mu, state.delta, config, env.bounds,
+            state.U,
         )
 
     use_kernels = _use_pallas_rollout(env, state.X, config)
@@ -270,6 +281,16 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
     X_new = torch.where(upd[:, None, None], X_best, state.X)
     U_new = torch.where(upd[:, None, None], U_best, state.U)
     J_new = torch.where(upd, J_best, state.J)
+
+    # KKT stationarity on the updated controls (bounded envs), computed only
+    # when some active lane accepted nothing and applied only to lanes that
+    # accepted nothing: the only case in which it changes the outcome
+    if env.bounds is not None:
+        with record_function("ilqr.kkt"):
+            if bool((active & ~any_accepted).any()):
+                stationary = _kkt_stationary(env, state.X[:, 0], U_new,
+                                             config, axes=(1, 2))
+                at_optimum = at_optimum | (stationary & ~any_accepted)
 
     zero = torch.zeros_like(state.J)
     residual = torch.where(
@@ -392,7 +413,6 @@ def solve_batch(env, x0, U0=None, *, horizon: Optional[int] = None,
     iterations (finished scenarios freeze, so the final state equals the
     early-stopping loop's).
     """
-    _check_env(env)
     return _solve_batch_impl(env, x0, U0, horizon, config, init_state,
                              return_trace)
 
