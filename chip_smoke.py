@@ -39,11 +39,35 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
    and agreement with the plain path;
 8. solves/s of the navigation, HVAC-6 and reservoir-5 solves with the
    kernels (median of 5 windows after a warm-up) and of one plain solve
-   each; a ``torch.profiler`` trace of two HVAC-6 solves: host time per
-   ``ilqr.*`` range and the device's busy share.
+   each; a ``torch.profiler`` trace of one HVAC-6 solve: host time per
+   ``ilqr.*`` range and the device's busy share;
+9. slice C (long horizons), the reservoir-5 T=500 solve (suite config 4):
+   ``load_env("configs/reservoir.json")``, T=500, B=1024, f32,
+   ``ILQRConfig(atol=1e-3, max_iterations=30, boxqp=True, use_pallas=True,
+   linesearch_emit_trajectories=True)``, x0 ~ U(20, 95) from seed 0;
+   counters prove K4 and K5 ran and nothing else; >= 99% converged; the
+   same solve on the two-kernel layout (K4, K2, K3) has the identical
+   converged mask and every lane's cost within 1e-5 relative;
+10. long-horizon accuracy: reservoir-5 from x0 = (95, 80, 60, 40, 20),
+    T=500, f32, through K4 and K5 to atol=1e-8, against the float64 boxQP
+    oracle: cost relative deviation < 1e-5 and KKT residual < 2e-2 in the
+    fp64 model;
+11. the parallel backward: the same x0 with ``parallel_backward=True``
+    converges within 1e-4 relative of the sequential solve's cost;
+    ``backward_parallel`` against ``lqr.backward`` in f64 at T=500 (1e-8);
+    ms per solve of suite config 4's three latency variants;
+12. exact LQR (suite config 1): linear navigation, T=100, f64 on the card,
+    against the NumPy Riccati oracle (1e-9); solves/s single and batched;
+13. the emit A/B: solves/s with ``linesearch_emit_trajectories`` True and
+    False, in turns, at reservoir-5 T=500 and HVAC-6 T=100 (the A/B behind
+    the AUTO rule of ``ilqr_batched._resolve_emit_traj``);
+14. a ``torch.profiler`` trace of the reservoir-5 T=500 solve.
 
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+K5 (the emit-trajectories line search) is checked with the other kernels
+in phase 3, at the slice's shape and at the navigation headline's. Each
+phase prints its seconds. The second-to-last line is a JSON object
+describing each kernel; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -97,6 +121,22 @@ TOL = {"float32": (1e-3, 1e-3), "float64": (1e-9, 1e-9)}
 K4_F64_TOL, K4_F64_SHARE, K4_F64_ALL_TOL = (1e-8, 1e-8), 0.995, (1e-5, 1e-5)
 K4_F32_TOL = (1e-3, 1e-3)
 K4_F32_SHARE_SLACK = 0.01
+# slice C: suite config 4, reservoir-5 at T=500, B=1024
+T_LONG, B_LONG = 500, 1024
+LONG = dict(atol=1e-3, max_iterations=30, boxqp=True, use_pallas=True)
+X0_ACCURACY = [95.0, 80.0, 60.0, 40.0, 20.0]
+# K5 against K2 and K3 (the same arithmetic in another kernel): relative
+# error |got - want| / (|want| + 1). float64: 1e-12. float32: 1e-6, and the
+# script prints whether they are bitwise equal (nvcc may contract
+# multiply-adds differently in two kernels).
+K5_VS_K2K3_RTOL = {"float32": 1e-6, "float64": 1e-12}
+# K5 against its plain version: float64 as TOL. float32: over a T=500 chain
+# the two may drift apart on a lane whose rollout is unstable (rounding
+# grows step by step), so both are held against the plain version in
+# float64 on the same inputs, and the kernel's share of lanes within
+# 1e-3 + 1e-3 |ref| must be at least the plain version's, less one
+# percentage point (as K4's float32 gate).
+K5_F32_TOL = (1e-3, 1e-3)
 WINDOW_S = 1.0
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # bytes/s, and FLOP/s outside the tensor cores.
@@ -215,9 +255,22 @@ def rollout_work(Bn, Tn, n, m, itemsize, env_name, n_params, lanes, bounded,
     bytes_ = itemsize * (Bn * Tn * per_step_in + out + n_params
                          + (2 * m if bounded else 0)
                          + (Bn if writes_traj else 0))
-    per_step = n + m * (2 + 2 * n) + (2 * m if bounded else 0) \
+    return bytes_, Bn * lanes * Tn * rollout_step_flops(n, m, env_name,
+                                                        bounded)
+
+
+def rollout_step_flops(n, m, env_name, bounded):
+    return n + m * (2 + 2 * n) + (2 * m if bounded else 0) \
         + env_step_flops(env_name, n) + 1
-    return bytes_, Bn * lanes * Tn * per_step
+
+
+def traj_work(Bn, Tn, n, m, itemsize, env_name, n_params, A, bounded):
+    """K5: A rollouts per scenario, writing J [A, B] and every alpha's
+    trajectory, X [T, A*n, B] and U [T, A*m, B]."""
+    bytes_ = itemsize * (Bn * Tn * (n + m + m * n + m)
+                         + Bn * A * (Tn * (n + m) + 1) + n_params
+                         + (2 * m if bounded else 0))
+    return bytes_, Bn * A * Tn * rollout_step_flops(n, m, env_name, bounded)
 
 
 def bound(bytes_, flops, dtype_name="float32"):
@@ -263,11 +316,11 @@ def bounded_env(name, dtype):
     return load_env(ROOT / path, dtype=dtype, device="cuda")
 
 
-def boxqp_inputs(name, dtype):
-    """A bounded env (``hvac6`` or ``reservoir5``) at B=2048, T=100: a
-    random clipped nominal (x0 as its solve draws it, controls ~ U(0, 4)),
-    its linearization, per-lane mu ~ U(0, 0.5), and a small random feedback
-    policy, from a numpy seed."""
+def boxqp_inputs(name, dtype, Bn=B_BOX, Tn=T):
+    """A bounded env (``hvac6`` or ``reservoir5``), by default at B=2048,
+    T=100: a random clipped nominal (x0 as its solve draws it, controls ~
+    U(0, 4)), its linearization, per-lane mu ~ U(0, 0.5), and a small
+    random feedback policy, from a numpy seed."""
     import numpy as np
     import torch
 
@@ -278,13 +331,13 @@ def boxqp_inputs(name, dtype):
     lohi = (8.0, 18.0) if name == "hvac6" else (20.0, 95.0)
     rng = np.random.default_rng(11)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
-    x0 = t(rng.uniform(*lohi, (B_BOX, n)))
-    U = env.clip(t(rng.uniform(0.0, 4.0, (B_BOX, T, n))))
+    x0 = t(rng.uniform(*lohi, (Bn, n)))
+    U = env.clip(t(rng.uniform(0.0, 4.0, (Bn, Tn, n))))
     X, _ = env.rollout(x0, U)
     lin, quad, final = env.analytic_derivatives(X, U)
-    mu = t(rng.uniform(0.0, 0.5, B_BOX))
-    policy = Policy(K=t(0.05 * rng.standard_normal((B_BOX, T, n, n))),
-                    k=t(2.0 * rng.standard_normal((B_BOX, T, n))))
+    mu = t(rng.uniform(0.0, 0.5, Bn))
+    policy = Policy(K=t(0.05 * rng.standard_normal((Bn, Tn, n, n))),
+                    k=t(2.0 * rng.standard_normal((Bn, Tn, n))))
     return env, X, U, lin, quad, final, mu, policy
 
 
@@ -531,6 +584,136 @@ def check_clipped_rollouts(name, dtype, timings=None, errs=None):
     )
 
 
+def rel_err(got, want):
+    """Largest ``|got - want| / (|want| + 1)``."""
+    return float(((got.double() - want.double()).abs()
+                  / (want.double().abs() + 1.0)).max())
+
+
+def check_k5(case, dtype, timings=None, errs=None):
+    """K5 at the slice's shape (``reservoir5``: B=1024, T=500, bounded, the
+    random nominal and policy of ``boxqp_inputs``) or the navigation
+    headline's (B=4096, T=100, unbounded): against K2 and K3 on the same
+    inputs (its J is K2's; the trajectory selected at each lane's alpha is
+    K3's at that alpha), and against its plain version."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    dn = dname(dtype)
+    if case == "navigation":
+        env, X, U, _, _, _, _, policy = headline_inputs(dtype, "cuda")
+        label, env_name = "K5 navigation", "navigation"
+    else:
+        env, X, U, _, _, _, _, policy = boxqp_inputs(case, dtype, B_LONG,
+                                                     T_LONG)
+        label, env_name = f"K5 {case} T={T_LONG}", "reservoir"
+    Bn, Tn, n = U.shape
+    alphas = ILQRConfig().alphas_static()
+    J_k, X_k, U_k = rollout.linesearch_costs_traj(env, X, U, policy, alphas)
+    J_2 = rollout.linesearch_costs(env, X, U, policy, alphas)
+    best = torch.arange(Bn, device="cuda") % A
+    alpha_vec = ILQRConfig().alphas(dtype, device="cuda")[best]
+    sel = rollout.select_alpha_trajectory(X, X_k, U_k, J_k, best)
+    mat = rollout.rollout_alpha(env, X, U, policy, alpha_vec)
+    torch.cuda.synchronize()
+    rtol = K5_VS_K2K3_RTOL[dn]
+    for what, got, want in (("J vs K2", J_k, J_2),
+                            ("selected X vs K3", sel[0], mat[0]),
+                            ("selected U vs K3", sel[1], mat[1]),
+                            ("selected J vs K3", sel[2], mat[2])):
+        e = rel_err(got, want)
+        print(f"  {label} {what} [{dn}]: bitwise equal "
+              f"{torch.equal(got, want)}, max rel err {e:.3e} (gate "
+              f"{rtol:g})")
+        if not e <= rtol:
+            raise AssertionError(f"{label} {what} [{dn}]: outside {rtol:g}")
+
+    J_p, X_p, U_p = rollout.linesearch_costs_traj_ref(env, X, U, policy,
+                                                      alphas)
+    torch.cuda.synchronize()
+    outs_k, outs_p = (J_k, X_k, U_k), (J_p, X_p, U_p)
+    max_err = max(float((k - p).abs().max()) for k, p in zip(outs_k[1:],
+                                                              outs_p[1:]))
+    if dtype == torch.float64:
+        for what, k, p in zip(("J", "X", "U"), outs_k, outs_p):
+            compare(f"{label} {what}", k, p, dn)
+    else:
+        to64 = lambda m: dataclasses.replace(m, **{  # noqa: E731
+            f: getattr(m, f).double() for f in m.__dataclass_fields__})
+        env64 = (headline_inputs(torch.float64, "cuda")[0]
+                 if case == "navigation" else bounded_env(case,
+                                                          torch.float64))
+        outs_r = rollout.linesearch_costs_traj_ref(
+            env64, X.double(), U.double(), to64(policy), alphas)
+        # lanes first: J [B, A]; X, U [T, A, e, B] -> [B, ...]
+        lanes = lambda o: (o[0], o[1].permute(3, 0, 1, 2),  # noqa: E731
+                           o[2].permute(3, 0, 1, 2))
+        ok = torch.ones(Bn, dtype=torch.bool, device="cuda")
+        share_k = lane_share(lanes(outs_k), lanes(outs_r), ok, *K5_F32_TOL)
+        share_p = lane_share(lanes(outs_p), lanes(outs_r), ok, *K5_F32_TOL)
+        err_k = max(rel_err(a, b) for a, b in zip(outs_k, outs_r))
+        err_p = max(rel_err(a, b) for a, b in zip(outs_p, outs_r))
+        print(f"  {label} [{dn}]: max abs err vs the plain version "
+              f"{max_err:.3e}; vs the plain version in float64: max rel err "
+              f"kernel {err_k:.3e}, plain {err_p:.3e}; share of lanes within "
+              f"{K5_F32_TOL[0]:g} + {K5_F32_TOL[1]:g}*|ref|: kernel "
+              f"{share_k:.6f}, plain {share_p:.6f} (gate: kernel >= plain - "
+              f"{K4_F32_SHARE_SLACK})")
+        if share_k < share_p - K4_F32_SHARE_SLACK:
+            raise AssertionError(f"{label} [{dn}]: the kernel is less "
+                                 "accurate than the plain version")
+    if timings is None:
+        return
+    key = "linesearch_costs_traj" + ("_navigation" if case == "navigation"
+                                     else "")
+    errs[key] = max_err
+    ra = rollout.kernel_args(env, X, U, policy)
+    n_params = sum(p.numel() for p in ra["params"])
+    bounded = env.bounds is not None
+    reps, plain_reps = (20, 2) if case == "navigation" else (10, 1)
+    timings[key] = (
+        cuda_ms(lambda: rollout.linesearch_costs_traj_kernel(ra, alphas),
+                reps),
+        cuda_ms(lambda: rollout.linesearch_costs_traj(env, X, U, policy,
+                                                      alphas), reps),
+        cuda_ms(lambda: rollout.linesearch_costs_traj_ref(env, X, U, policy,
+                                                          alphas),
+                plain_reps),
+        bound(*traj_work(Bn, Tn, n, n, 4, env_name, n_params, A, bounded)),
+    )
+    select_ms = cuda_ms(lambda: rollout.select_alpha_trajectory(
+        X, X_k, U_k, J_k, best), reps)
+    print(f"  {label}: select_alpha_trajectory {select_ms:.4f} ms")
+    timings[key + "_select_ms"] = select_ms
+    if case == "navigation":
+        return
+    # K2 and K3 at the slice's shape, the two-kernel layout's line search
+    timings["linesearch_costs_t500"] = (
+        cuda_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), reps),
+        cuda_ms(lambda: rollout.linesearch_costs(env, X, U, policy, alphas),
+                reps),
+        cuda_ms(lambda: rollout.linesearch_costs_ref(env, X, U, policy,
+                                                     alphas), plain_reps),
+        bound(*rollout_work(Bn, Tn, n, n, 4, env_name, n_params, A, True,
+                            False)),
+    )
+    timings["rollout_alpha_t500"] = (
+        cuda_ms(lambda: rollout.rollout_alpha_kernel(ra, alpha_vec), reps),
+        cuda_ms(lambda: rollout.rollout_alpha(env, X, U, policy, alpha_vec),
+                reps),
+        cuda_ms(lambda: rollout.rollout_alpha_ref(env, X, U, policy,
+                                                  alpha_vec), plain_reps),
+        bound(*rollout_work(Bn, Tn, n, n, 4, env_name, n_params, 1, True,
+                            True)),
+    )
+    mat_p = rollout.rollout_alpha_ref(env, X, U, policy, alpha_vec)
+    errs["linesearch_costs_t500"] = float((J_2 - J_p).abs().max())
+    errs["rollout_alpha_t500"] = max(float((k - p).abs().max())
+                                     for k, p in zip(mat[:2], mat_p[:2]))
+
+
 # -- solves ------------------------------------------------------------------
 
 COUNTERS = {
@@ -539,7 +722,20 @@ COUNTERS = {
                                "BOXQP_PLAIN_CALLS"),
     "linesearch_costs": ("rollout", "COSTS_LAUNCHES", "COSTS_PLAIN_CALLS"),
     "rollout_alpha": ("rollout", "ALPHA_LAUNCHES", "ALPHA_PLAIN_CALLS"),
+    "linesearch_costs_traj": ("rollout", "TRAJ_LAUNCHES",
+                              "TRAJ_PLAIN_CALLS"),
 }
+
+
+def line_search_kernels(config, horizon, n):
+    """The rollout kernels a kernel-path solve runs: K5 on the
+    emit-trajectories layout, else K2 and K3 (AUTO resolved as the solver
+    resolves it)."""
+    from tfmpc_tpu_torch.solvers.ilqr_batched import _resolve_emit_traj
+
+    if _resolve_emit_traj(config, horizon, n, n):
+        return {"linesearch_costs_traj"}
+    return {"linesearch_costs", "rollout_alpha"}
 
 
 def counted(run):
@@ -582,10 +778,11 @@ def solver(env, x0, horizon, config):
     return run
 
 
-def check_result(label, res, Bn, n):
+def check_result(label, res, Bn, n, horizon=T):
     import torch
 
-    if res.actions.shape != (Bn, T, n) or res.states.shape != (Bn, T + 1, n):
+    if res.actions.shape != (Bn, horizon, n) \
+            or res.states.shape != (Bn, horizon + 1, n):
         raise AssertionError(f"{label}: wrong output shapes")
     if not bool(torch.isfinite(res.actions).all()) or not bool(
             torch.isfinite(res.total_cost[~res.failed]).all()):
@@ -675,11 +872,264 @@ def hvac3_accuracy():
     return cost_rel, kkt
 
 
+# -- slice C: long horizons --------------------------------------------------
+
+def reservoir_t500_solves(runs):
+    """The slice's main path, emit-trajectories layout (K4 + K5), then the
+    two-kernel layout (K4 + K2 + K3) on the same inputs: the same converged
+    mask and every lane's cost within 1e-5 relative (|a - b| / (|b| + 1),
+    the JAX release gate's criterion, benchmarks/release_check.py:591-619).
+    Returns the emit solve's launches and the two-kernel solve's."""
+    emit_run, two_run = runs
+    res, launches, plain = counted(emit_run)
+    require_path(f"reservoir-5 T={T_LONG} solve (emit trajectories)",
+                 launches, plain, {"riccati_backward_boxqp", "linesearch_costs_traj"})
+    conv = check_result(f"reservoir-5 T={T_LONG}", res, B_LONG, 5, T_LONG)
+    if conv < 0.99:
+        raise AssertionError(f"reservoir-5 T={T_LONG} converged only "
+                             f"{conv:.4f}")
+    res2, launches2, plain2 = counted(two_run)
+    require_path(f"reservoir-5 T={T_LONG} solve (two kernels)", launches2,
+                 plain2,
+                 {"riccati_backward_boxqp", "linesearch_costs",
+                  "rollout_alpha"})
+    same_mask = bool((res.converged == res2.converged).all())
+    dev = rel_err(res.total_cost, res2.total_cost)
+    print(f"  two-kernel layout: identical converged mask {same_mask}, "
+          f"per-lane cost max rel dev {dev:.3e} (gate 1e-5), identical "
+          f"controls {bool((res.actions == res2.actions).all())}")
+    if not same_mask or not dev < 1e-5:
+        raise AssertionError(f"reservoir-5 T={T_LONG}: the emit-trajectories "
+                             "and "
+                             "two-kernel solves disagree")
+    return launches, launches2
+
+
+def reservoir_t500_accuracy():
+    """Reservoir-5 from X0_ACCURACY at T=500, f32 through K4 and K5, to
+    atol=1e-8, against the float64 boxQP oracle with the JAX release gate's
+    criteria (benchmarks/release_check.py:552-589): the f32 controls rolled
+    out in the fp64 model within 1e-5 relative of the oracle's cost, and a
+    KKT residual < 2e-2."""
+    import numpy as np
+    import torch
+
+    from oracles import (_res_cost_np, _res_step_np,
+                         ilqr_reservoir_boxqp_oracle_np, reservoir_grad_np,
+                         reservoir_params_np)
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env = bounded_env("reservoir5", torch.float32)
+    config = ILQRConfig(atol=1e-8, max_iterations=100, boxqp=True,
+                        use_pallas=True, linesearch_emit_trajectories=True)
+    run = solver(env, torch.tensor([X0_ACCURACY], device="cuda"), T_LONG,
+                 config)
+    res, launches, plain = counted(run)
+    require_path(f"reservoir-5 T={T_LONG} accuracy solve", launches, plain,
+                 {"riccati_backward_boxqp", "linesearch_costs_traj"})
+    pr = reservoir_params_np(5)
+    _, _, J_o = ilqr_reservoir_boxqp_oracle_np(pr, X0_ACCURACY, T_LONG,
+                                               atol=1e-9)
+    U32 = res.actions[0].double().cpu().numpy()
+    x, J_s = np.asarray(X0_ACCURACY, float), 0.0
+    for t in range(T_LONG):
+        J_s += _res_cost_np(pr, x)
+        x = _res_step_np(pr, x, U32[t])
+    J_s += _res_cost_np(pr, x)
+    cost_rel = abs(J_s - J_o) / abs(J_o)
+    g = reservoir_grad_np(pr, X0_ACCURACY, U32)
+    kkt = float(np.abs(U32 - np.clip(U32 - g, pr["low"], pr["high"])).max())
+    print(f"  converged {bool(res.converged[0])} in "
+          f"{int(res.iterations[0])} iterations; cost {J_s:.10f} vs oracle "
+          f"{J_o:.10f}: rel dev {cost_rel:.3e} (gate < 1e-5); KKT residual "
+          f"{kkt:.3e} (gate < 2e-2)")
+    if not bool(res.converged[0]) or not cost_rel < 1e-5 or not kkt < 2e-2:
+        raise AssertionError(f"reservoir-5 T={T_LONG} accuracy gate failed")
+    return cost_rel, kkt
+
+
+def parallel_backward_checks():
+    """The O(log T) backward on the card: the reservoir-5 T=500 solve from
+    X0_ACCURACY with ``parallel_backward=True`` (rollouts on the kernels)
+    converges within 1e-4 relative of the sequential kernel solve's cost
+    (tests/test_ilqr_parallel_backward.py:167-184), and
+    ``backward_parallel`` equals ``lqr.backward`` in f64 at T=500 (1e-8)."""
+    import torch
+
+    from tfmpc_tpu_torch.models.problems import make_lqr_linear_navigation
+    from tfmpc_tpu_torch.solvers import lqr, lqr_parallel
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env = bounded_env("reservoir5", torch.float32)
+    x0 = torch.tensor([X0_ACCURACY], device="cuda")
+    base = dict(atol=1e-3, max_iterations=60, boxqp=True, use_pallas=True)
+    res_s = solver(env, x0, T_LONG, ILQRConfig(**base))()
+    par = ILQRConfig(**base, parallel_backward=True)
+    res_p, launches, plain = counted(solver(env, x0, T_LONG, par))
+    require_path(f"reservoir-5 T={T_LONG} parallel-backward solve", launches,
+                 plain, line_search_kernels(par, T_LONG, 5))
+    gap = abs(float(res_s.total_cost[0]) - float(res_p.total_cost[0])) \
+        / abs(float(res_s.total_cost[0]))
+    print(f"  parallel backward: converged {bool(res_p.converged[0])} in "
+          f"{int(res_p.iterations[0])} iterations (sequential "
+          f"{bool(res_s.converged[0])} in {int(res_s.iterations[0])}); cost "
+          f"rel gap {gap:.3e} (gate 1e-4)")
+    if not (bool(res_p.converged[0]) and bool(res_s.converged[0])
+            and gap <= 1e-4):
+        raise AssertionError("parallel backward: solve disagrees with the "
+                             "sequential one")
+    p = make_lqr_linear_navigation([8.0, -5.0], beta=0.5, horizon=T_LONG,
+                                   dtype=torch.float64, device="cuda")
+    pol_s, val_s = lqr.backward(p)
+    pol_p, val_p = lqr_parallel.backward_parallel(p)
+    torch.cuda.synchronize()
+    for what, a, b in (("K", pol_p.K, pol_s.K), ("k", pol_p.k, pol_s.k),
+                       ("V_xx", val_p.V_xx, val_s.V_xx)):
+        compare(f"backward_parallel {what} vs lqr.backward, T={T_LONG}", a, b,
+                "float64", tol=(1e-8, 1e-8))
+    return gap
+
+
+def latency_variants(x1):
+    """ms per solve of suite config 4's three single-scenario variants
+    (benchmarks/suite.py:272-291): the plain sequential boxQP backward, the
+    kernels (K4 and the line-search kernels), and the parallel-scan
+    backward with the plain rollouts; one solve of the first (tens of
+    seconds), the median of three of the others."""
+    import torch
+
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env = bounded_env("reservoir5", torch.float32)
+    base = dict(atol=1e-3, max_iterations=30, boxqp=True)
+    out = {}
+    for label, cfg, reps in (
+            ("fused-kernel boxQP", ILQRConfig(**base, use_pallas=True), 3),
+            ("parallel-scan boxQP",
+             ILQRConfig(**base, parallel_backward=True), 3),
+            ("sequential boxQP", ILQRConfig(**base), 1)):
+        run = solver(env, x1, T_LONG, cfg)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[label] = sorted(times)[len(times) // 2]
+        print(f"  reservoir-5 T={T_LONG} single-solve latency, {label} "
+              f"backward: {out[label]:.1f} ms (of {[round(x, 1) for x in times]})")
+    return out
+
+
+def lqr_config1(card):
+    """Suite config 1: exact LQR on linear navigation, T=100, from x0 = 0,
+    f64 on the card against the NumPy Riccati oracle (1e-9); then solves/s
+    in f32 (the suite's dtype) for the single instance and for a batch of
+    4096 initial states (one policy, rolled out for every row)."""
+    import numpy as np
+    import torch
+
+    from oracles import lqr_backward_np, lqr_rollout_np
+    from tfmpc_tpu_torch.models.problems import make_lqr_linear_navigation
+    from tfmpc_tpu_torch.solvers import lqr
+
+    p = make_lqr_linear_navigation(GOAL, beta=0.5, horizon=T,
+                                   dtype=torch.float64, device="cuda")
+    X, U, costs = lqr.solve(p, torch.zeros(2, dtype=torch.float64,
+                                           device="cuda"))
+    arrays = [a.cpu().numpy() for a in (p.F, p.f, p.C, p.c, p.C_f, p.c_f)]
+    K_np, k_np = lqr_backward_np(*arrays)
+    X_np, U_np, J_np = lqr_rollout_np(*arrays, np.zeros(2), K_np, k_np)
+    compare("LQR states vs the NumPy oracle", X.cpu(),
+            torch.as_tensor(X_np), "float64")
+    compare("LQR actions vs the NumPy oracle", U.cpu(),
+            torch.as_tensor(U_np), "float64")
+    J = float(costs.sum())
+    print(f"  LQR total cost {J:.12f} vs oracle {J_np:.12f}, final state "
+          f"{X[-1].tolist()}")
+    if not abs(J - J_np) <= 1e-9 * max(1.0, abs(J_np)):
+        raise AssertionError("LQR cost differs from the NumPy oracle")
+    p32 = make_lqr_linear_navigation(GOAL, beta=0.5, horizon=T,
+                                     device="cuda")
+    rates = {}
+    for label, x0 in (("single", torch.zeros(2, device="cuda")),
+                      ("batched_4096", torch.zeros(B, 2, device="cuda"))):
+        def run(x0=x0):
+            out = lqr.solve(p32, x0)
+            torch.cuda.synchronize()
+            return out
+        w = solves_per_s(run, 1 if x0.ndim == 1 else x0.shape[0])
+        rates[label] = sorted(w)[2]
+        print(f"LQR linear navigation T={T} f32, {label}: median "
+              f"{rates[label]:.1f} solves/s, windows "
+              f"{[round(x, 1) for x in w]} [{card}]")
+    return rates
+
+
+def emit_ab(label, env, x0, horizon, config, windows, card):
+    """Solves/s with ``linesearch_emit_trajectories`` True and False, one
+    window of whole solves (>= WINDOW_S seconds) of each in turns, the
+    order swapped every round; the first round is the warm-up. Returns
+    each arm's median and the relative spread (max - min) / median."""
+    runs = {flag: solver(env, x0, horizon, dataclasses.replace(
+        config, linesearch_emit_trajectories=flag)) for flag in (True, False)}
+    rates = {True: [], False: []}
+    for r in range(windows + 1):
+        for flag in ((True, False) if r % 2 == 0 else (False, True)):
+            reps, t0 = 0, time.perf_counter()
+            while reps == 0 or time.perf_counter() - t0 < WINDOW_S:
+                runs[flag]()
+                reps += 1
+            rates[flag].append(x0.shape[0] * reps
+                               / (time.perf_counter() - t0))
+    out = {}
+    for flag in (True, False):
+        w = sorted(rates[flag][1:])
+        med = w[len(w) // 2]
+        out[flag] = (med, (w[-1] - w[0]) / med)
+        print(f"emit A/B, {label}, linesearch_emit_trajectories={flag}: "
+              f"median {med:.1f} solves/s, windows "
+              f"{[round(x, 1) for x in rates[flag][1:]]}, spread "
+              f"{out[flag][1]:.4f} [{card}]")
+    print(f"  emit/two-kernel ratio of medians {out[True][0] / out[False][0]:.4f}")
+    return out
+
+
+class Phases:
+    """The seconds of each phase, printed as it ends."""
+
+    def __init__(self, t0):
+        self.t, self.seconds = t0, {}
+
+    def done(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
+        print(f"[phase {name}: {self.seconds[name]:.1f} s]", flush=True)
+
+
+def print_profile(label, run, card, n_solves=1):
+    """``profile_solve`` of ``n_solves`` solves, printed; returns its
+    figures."""
+    ranges, busy, per_solve, ms, top = profile_solve(run, n_solves)
+    print(f"profile, {label} solve with the kernels ({n_solves} solve): "
+          f"{ms:.2f} ms per solve on the trace's clock, device busy share "
+          f"{busy:.4f}, {per_solve:.0f} kernels per solve; host ms per solve "
+          f"by range: { {k: round(v, 3) for k, v in sorted(ranges.items())} }"
+          f" [{card}]")
+    for name, (k_ms, count) in top:
+        print(f"  device kernel {name[:90]}: {k_ms:.3f} ms and {count:.0f} "
+              "launches per solve")
+    return {"busy_share": busy, "host_ms_by_range": ranges,
+            "ms_per_solve": ms, "kernels_per_solve": per_solve}
+
+
 def profile_solve(run, n_solves=2):
     """Host time per ``ilqr.*`` range (per solve), the device's busy share,
     kernels per solve, the traced ms per solve, and the six device kernels
     with the most time (ms and launches per solve) over ``n_solves``
-    solves, from a torch.profiler trace."""
+    solves, from a torch.profiler trace. It reads the trace's raw events
+    (name, device, start, duration): turning a T=500 solve's ~2 million
+    events into ``FunctionEvent``s (``prof.events()``) takes minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -687,25 +1137,22 @@ def profile_solve(run, n_solves=2):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_solves):
             run()
-    events = prof.events()
-    ranges = {}
-    for e in events:
-        if e.name.startswith("ilqr.") and e.device_type == DeviceType.CPU:
-            ranges[e.name] = ranges.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / n_solves
-    # device-side events, without the ranges' own spans on the device
-    # timeline (the profiler mirrors record_function ranges there)
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith("ilqr.")]
-    kernels = sorted((e.time_range.start, e.time_range.end)
-                     for e in on_device)
-    by_name = {}
-    for e in on_device:
-        ms, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
-                           / 1e3 / n_solves, count + 1 / n_solves)
+    events = [(e.name(), e.device_type(), e.start_ns(), e.duration_ns())
+              for e in prof.profiler.kineto_results.events()]
+    ranges, by_name, kernels = {}, {}, []
+    for name, dev, start, dur in events:
+        if name.startswith("ilqr."):
+            # the profiler mirrors record_function ranges on the device
+            # timeline; only the host's span is the range's time
+            if dev == DeviceType.CPU:
+                ranges[name] = ranges.get(name, 0.0) + dur / 1e6 / n_solves
+        elif dev == DeviceType.CUDA:
+            kernels.append((start, start + dur))
+            ms, count = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + dur / 1e6 / n_solves, count + 1 / n_solves)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    busy, cur_s, cur_e = 0.0, None, None
+    kernels.sort()
+    busy, cur_s, cur_e = 0, None, None
     for s, e in kernels:
         if cur_e is None or s > cur_e:
             if cur_e is not None:
@@ -715,15 +1162,16 @@ def profile_solve(run, n_solves=2):
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy += cur_e - cur_s
-    span = max(e.time_range.end for e in events) - min(
-        e.time_range.start for e in events)
+    span = max(s + d for _, _, s, d in events) - min(s for _, _, s, _ in events)
     return (ranges, busy / span, len(kernels) / n_solves,
-            span / 1e3 / n_solves, top)
+            span / 1e6 / n_solves, top)
 
 
 def print_ptxas(log_text):
     """ptxas's registers, stack and spills: one line per Riccati kernel
-    instantiation (K1, K4), one summary line for the rollout kernels."""
+    instantiation (K1, K4), one summary line per rollout kernel (K2, K3,
+    K5) over its instantiations, and one line per K5 instantiation at the
+    slice's dims (n = m = 5)."""
     entry, rows = None, []
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
@@ -740,19 +1188,21 @@ def print_ptxas(log_text):
         names = subprocess.run([cxxfilt], input="\n".join(names),
                                capture_output=True, text=True,
                                check=True).stdout.splitlines()
-    rollout = []
+    rollout = {}
     for name, (_, regs, stack) in zip(names, rows):
-        short = name.replace("tfmpc::(anonymous namespace)::", "").split(
-            "(")[0]
+        short = name.replace("tfmpc::(anonymous namespace)::", "").replace(
+            "tfmpc::", "").split("(")[0]
         if "riccati" in short:
             print(f"  ptxas: {short}: {regs} registers; {stack}")
-        else:
-            rollout.append((regs, stack))
-    if rollout:
-        spills = sum(int(s.split(",")[1].split()[0]) for _, s in rollout)
-        stacks = max(int(s.split()[0]) for _, s in rollout)
-        print(f"  ptxas: {len(rollout)} rollout kernel instantiations: "
-              f"{min(r for r, _ in rollout)}-{max(r for r, _ in rollout)} "
+            continue
+        rollout.setdefault(short.split("<")[0], []).append((regs, stack))
+        if "traj" in short and ", 5, 5," in short:
+            print(f"  ptxas: {short}: {regs} registers; {stack}")
+    for kernel, insts in sorted(rollout.items()):
+        spills = sum(int(s.split(",")[1].split()[0]) for _, s in insts)
+        stacks = max(int(s.split()[0]) for _, s in insts)
+        print(f"  ptxas: {kernel}, {len(insts)} instantiations: "
+              f"{min(r for r, _ in insts)}-{max(r for r, _ in insts)} "
               f"registers, {spills} bytes of spill stores in all, largest "
               f"stack frame {stacks} bytes")
 
@@ -791,6 +1241,7 @@ def main() -> int:
 
     # -- 3. kernels vs plain versions ---------------------------------------
     timings, errs = {}, {}
+    phase = Phases(time.perf_counter())
     for dtype in (torch.float32, torch.float64):
         print(f"kernels vs plain versions, {dtype}:")
         check_nav_kernels(dtype, timings, errs)
@@ -799,8 +1250,11 @@ def main() -> int:
         check_clipped_rollouts("hvac6", dtype, *(
             (timings, errs) if dtype == torch.float32 else ()))
         check_clipped_rollouts("reservoir5", dtype)
+        for case in ("reservoir5", "navigation"):
+            check_k5(case, dtype, *((timings, errs)
+                                    if dtype == torch.float32 else ()))
     check_k4("reservoir5", torch.float32)
-    print(f"  (kernel checks done at {time.perf_counter() - t_start:.1f} s)")
+    phase.done("3. kernels vs plain versions")
 
     # -- 4. the navigation headline solve (slice A) ---------------------------
     from oracles import ilqr_navigation_oracle_np
@@ -817,7 +1271,7 @@ def main() -> int:
     res, launches, plain = counted(run_nav)
     launches_by_path["navigation"] = launches
     require_path("navigation headline solve", launches, plain,
-                 {"riccati_backward", "linesearch_costs", "rollout_alpha"})
+                 {"riccati_backward"} | line_search_kernels(config, T, N))
     if check_result("navigation headline", res, B, N) < 0.99:
         raise AssertionError("headline solve converged < 0.99")
     dev = 0.0
@@ -835,24 +1289,25 @@ def main() -> int:
                            dataclasses.replace(config, use_pallas=False))
     plain_s = {"navigation": agree_with_plain("navigation", res,
                                               run_nav_plain)}
+    phase.done("4. navigation headline")
 
     # -- 5. the HVAC-6 solve (slice B's main path) ----------------------------
     boxqp_config = ILQRConfig(**BOXQP)
+    box_kernels = {"riccati_backward_boxqp"} | line_search_kernels(
+        boxqp_config, T, 6)
     plain_box = dataclasses.replace(boxqp_config, use_pallas=False)
     runs = {}
     for name, lohi in (("hvac6", (8.0, 18.0)), ("reservoir5", (20.0, 95.0))):
         env = bounded_env(name, torch.float32)
         x0 = torch.as_tensor(np.random.default_rng(0).uniform(
             *lohi, (B_BOX, env.state_size)).astype("float32"), device="cuda")
-        runs[name] = (env, solver(env, x0, T, boxqp_config),
+        runs[name] = (env, x0, solver(env, x0, T, boxqp_config),
                       solver(env, x0, T, plain_box))
-    env, run_h, run_h_plain = runs["hvac6"]
+    env, x0_h, run_h, run_h_plain = runs["hvac6"]
     run_h()
     res, launches, plain = counted(run_h)
     launches_by_path["hvac6"] = launches
-    require_path("HVAC-6 solve", launches, plain,
-                 {"riccati_backward_boxqp", "linesearch_costs",
-                  "rollout_alpha"})
+    require_path("HVAC-6 solve", launches, plain, box_kernels)
     conv = check_result("HVAC-6", res, B_BOX, 6)
     print(f"  mean total cost {float(res.total_cost.double().mean()):.6f} "
           f"vs {JAX_HVAC6_MEAN_COST} recorded by the JAX package on a TPU "
@@ -860,19 +1315,19 @@ def main() -> int:
     if conv < 0.99:
         raise AssertionError(f"HVAC-6 solve converged only {conv:.4f}")
     plain_s["hvac6"] = agree_with_plain("HVAC-6", res, run_h_plain)
+    phase.done("5. HVAC-6")
 
     # -- 6. constrained accuracy vs the fp64 oracle ---------------------------
     print("HVAC-3 f64 through the kernels vs the fp64 boxQP oracle:")
     hvac3_accuracy()
+    phase.done("6. HVAC-3 accuracy")
 
     # -- 7. reservoir-5 and bounded navigation --------------------------------
-    env, run_r, run_r_plain = runs["reservoir5"]
+    env, _, run_r, run_r_plain = runs["reservoir5"]
     run_r()
     res, launches, plain = counted(run_r)
     launches_by_path["reservoir5"] = launches
-    require_path("reservoir-5 solve", launches, plain,
-                 {"riccati_backward_boxqp", "linesearch_costs",
-                  "rollout_alpha"})
+    require_path("reservoir-5 solve", launches, plain, box_kernels)
     if check_result("reservoir-5", res, B_BOX, 5) < 0.99:
         raise AssertionError("reservoir-5 solve converged < 0.99")
     plain_s["reservoir5"] = agree_with_plain("reservoir-5", res, run_r_plain)
@@ -880,19 +1335,18 @@ def main() -> int:
     nav_b = bounded_env("nav_bounded", torch.float32)
     x0 = torch.as_tensor(np.random.default_rng(0).uniform(
         -10.0, 10.0, (B_NAV_BOUNDED, N)).astype("float32"), device="cuda")
-    for boxqp, expect in (
-            (True, {"riccati_backward_boxqp", "linesearch_costs",
-                    "rollout_alpha"}),
-            (False, {"riccati_backward", "linesearch_costs",
-                     "rollout_alpha"})):
+    for boxqp, backward in ((True, "riccati_backward_boxqp"),
+                            (False, "riccati_backward")):
         cfg = ILQRConfig(**{**HEADLINE, "boxqp": boxqp})
         label = f"bounded navigation, boxqp={boxqp}"
         res, launches, plain = counted(solver(nav_b, x0, T, cfg))
         launches_by_path[f"nav_bounded_boxqp_{boxqp}"] = launches
-        require_path(label, launches, plain, expect)
+        require_path(label, launches, plain,
+                     {backward} | line_search_kernels(cfg, T, N))
         check_result(label, res, B_NAV_BOUNDED, N)
         agree_with_plain(label, res, solver(
             nav_b, x0, T, dataclasses.replace(cfg, use_pallas=False)))
+    phase.done("7. reservoir-5 and bounded navigation")
 
     # -- 8. timing and the profile --------------------------------------------
     rates = {}
@@ -905,44 +1359,92 @@ def main() -> int:
               f"{rates[label]:.1f}, windows {[round(x, 1) for x in w]}; one "
               f"plain solve {plain_s[label]:.2f} s ({Bn / plain_s[label]:.1f}"
               f" solves/s) [{card}]")
-    ranges, busy, kernels_per_solve, ms_per_solve, top = profile_solve(run_h)
-    print(f"profile, HVAC-6 solve with the kernels (2 solves): "
-          f"{ms_per_solve:.2f} ms per solve on the trace's clock, device "
-          f"busy share {busy:.4f}, {kernels_per_solve:.0f} kernels per "
-          f"solve; host ms per solve by range: "
-          f"{ {k: round(v, 3) for k, v in sorted(ranges.items())} } [{card}]")
-    for name, (ms, count) in top:
-        print(f"  device kernel {name[:90]}: {ms:.3f} ms and {count:.0f} "
-              "launches per solve")
-    for name, (k_ms, w_ms, p_ms, (b_ms, b_by)) in timings.items():
+    hvac6_profile = print_profile("HVAC-6", run_h, card)
+    phase.done("8. solves/s and the HVAC-6 profile")
+
+    # -- 9. slice C: the reservoir-5 T=500 solve (suite config 4) -------------
+    env_l = bounded_env("reservoir5", torch.float32)
+    x0_l = torch.as_tensor(np.random.default_rng(0).uniform(
+        20.0, 95.0, (B_LONG, 5)).astype("float32"), device="cuda")
+    long_cfg = ILQRConfig(**LONG, linesearch_emit_trajectories=True)
+    run_l = solver(env_l, x0_l, T_LONG, long_cfg)
+    print(f"reservoir-5 T={T_LONG} B={B_LONG} solve (slice C's main path):")
+    launches_by_path["reservoir5_t500"], \
+        launches_by_path["reservoir5_t500_two_kernel"] = \
+        reservoir_t500_solves((run_l, solver(
+            env_l, x0_l, T_LONG, dataclasses.replace(
+                long_cfg, linesearch_emit_trajectories=False))))
+    phase.done("9. reservoir-5 T=500")
+
+    # -- 10. long-horizon accuracy vs the fp64 oracle -------------------------
+    print(f"reservoir-5 T={T_LONG} f32 through K4 and K5 vs the fp64 boxQP "
+          "oracle:")
+    reservoir_t500_accuracy()
+    phase.done("10. reservoir-5 T=500 accuracy")
+
+    # -- 11. the parallel backward --------------------------------------------
+    print(f"parallel backward, reservoir-5 T={T_LONG}:")
+    parallel_backward_checks()
+    latency_ms = latency_variants(x0_l[:1])
+    phase.done("11. parallel backward and latency variants")
+
+    # -- 12. exact LQR (suite config 1) ---------------------------------------
+    print("exact LQR, linear navigation (suite config 1):")
+    lqr_rates = lqr_config1(card)
+    phase.done("12. LQR")
+
+    # -- 13. the emit A/B ------------------------------------------------------
+    ab = {
+        "reservoir5_t500": emit_ab(f"reservoir-5 T={T_LONG} B={B_LONG}",
+                                   env_l, x0_l, T_LONG, ILQRConfig(**LONG),
+                                   3, card),
+        "hvac6_t100": emit_ab(f"HVAC-6 T={T} B={B_BOX}", runs["hvac6"][0],
+                              x0_h, T, boxqp_config, 5, card),
+    }
+    phase.done("13. emit A/B")
+
+    # -- 14. where the time goes in the T=500 solve ---------------------------
+    t500_profile = print_profile(f"reservoir-5 T={T_LONG}", run_l, card)
+    phase.done("14. reservoir-5 T=500 profile")
+
+    for name, value in timings.items():
+        if name.endswith("_select_ms"):
+            continue
+        k_ms, w_ms, p_ms, (b_ms, b_by) = value
         print(f"{name} f32: kernel {k_ms:.4f} ms, wrapper with layout copies "
               f"{w_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}) [{card}]")
 
+    # name -> (source, TPU kernel it replaces, path, launch counter)
+    rollout_cu = "tfmpc_tpu_torch/ops/csrc/rollout.cu"
+    k2_tpu = "tfmpc_tpu/ops/rollout_pallas.py:647"
+    k3_tpu = "tfmpc_tpu/ops/rollout_pallas.py:804"
     sources = {
         "riccati_backward": ("tfmpc_tpu_torch/ops/csrc/riccati.cu",
                              "tfmpc_tpu/ops/riccati_pallas.py:462",
-                             "navigation"),
-        "linesearch_costs": ("tfmpc_tpu_torch/ops/csrc/rollout.cu",
-                             "tfmpc_tpu/ops/rollout_pallas.py:647",
-                             "navigation"),
-        "rollout_alpha": ("tfmpc_tpu_torch/ops/csrc/rollout.cu",
-                          "tfmpc_tpu/ops/rollout_pallas.py:804",
-                          "navigation"),
+                             "navigation", "riccati_backward"),
+        "linesearch_costs": (rollout_cu, k2_tpu, "navigation",
+                             "linesearch_costs"),
+        "rollout_alpha": (rollout_cu, k3_tpu, "navigation", "rollout_alpha"),
         "riccati_backward_boxqp": ("tfmpc_tpu_torch/ops/csrc/riccati_boxqp.cu",
                                    "tfmpc_tpu/ops/riccati_pallas.py:585",
-                                   "hvac6"),
-        "linesearch_costs_clipped": ("tfmpc_tpu_torch/ops/csrc/rollout.cu",
-                                     "tfmpc_tpu/ops/rollout_pallas.py:647",
-                                     "hvac6"),
-        "rollout_alpha_clipped": ("tfmpc_tpu_torch/ops/csrc/rollout.cu",
-                                  "tfmpc_tpu/ops/rollout_pallas.py:804",
-                                  "hvac6"),
+                                   "hvac6", "riccati_backward_boxqp"),
+        "linesearch_costs_clipped": (rollout_cu, k2_tpu, "hvac6",
+                                     "linesearch_costs"),
+        "rollout_alpha_clipped": (rollout_cu, k3_tpu, "hvac6",
+                                  "rollout_alpha"),
+        "linesearch_costs_traj": (rollout_cu,
+                                  "tfmpc_tpu/ops/rollout_pallas.py:713",
+                                  "reservoir5_t500", "linesearch_costs_traj"),
+        "linesearch_costs_t500": (rollout_cu, k2_tpu,
+                                  "reservoir5_t500_two_kernel",
+                                  "linesearch_costs"),
+        "rollout_alpha_t500": (rollout_cu, k3_tpu,
+                               "reservoir5_t500_two_kernel", "rollout_alpha"),
     }
     kernels = []
-    for name, (src, replaces, path) in sources.items():
+    for name, (src, replaces, path, counter) in sources.items():
         k_ms, w_ms, p_ms, (b_ms, b_by) = timings[name]
-        counter = name.replace("_clipped", "")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": path,
@@ -954,8 +1456,15 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "build_s": build_s,
                       "solves_per_s": rates, "plain_solve_s": plain_s,
                       "launches_by_path": launches_by_path,
-                      "hvac6_profile": {"busy_share": busy,
-                                        "host_ms_by_range": ranges},
+                      "select_ms": {k: v for k, v in timings.items()
+                                    if k.endswith("_select_ms")},
+                      "t500_latency_ms": latency_ms,
+                      "lqr_solves_per_s": lqr_rates,
+                      "emit_ab": {k: {str(f): v for f, v in d.items()}
+                                  for k, d in ab.items()},
+                      "hvac6_profile": hvac6_profile,
+                      "reservoir5_t500_profile": t500_profile,
+                      "phase_s": phase.seconds,
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -22,13 +22,19 @@ from tfmpc_tpu_torch import interop
 from tfmpc_tpu_torch.models import registry
 from tfmpc_tpu_torch.models.hvac import HVAC_STEP_ID, HVAC_STEP_PARAMS
 from tfmpc_tpu_torch.models.hvac import make_hvac
+from tfmpc_tpu_torch.models.linear import make_linear_system
 from tfmpc_tpu_torch.models.navigation import make_navigation
+from tfmpc_tpu_torch.models.problems import (
+    make_lqr,
+    make_lqr_linear_navigation,
+)
 from tfmpc_tpu_torch.models.reservoir import (
     RESERVOIR_STEP_ID,
     RESERVOIR_STEP_PARAMS,
     make_reservoir,
 )
 from tfmpc_tpu_torch.solvers import ilqr
+from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
@@ -170,9 +176,10 @@ def test_device_step_params_match_jax_lane_params(name):
 
 def test_registry_names_and_unported_linear():
     assert sorted(registry.registered()) == sorted(jregistry.registered())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        registry.make_env({"name": "linear", "A": [[1.0]], "B": [[1.0]]},
-                          device="cpu")
+    # linear is ported (models/linear.py): it builds instead of raising
+    env = registry.make_env({"name": "linear", "A": [[1.0]], "B": [[1.0]]},
+                            device="cpu")
+    assert (env.state_size, env.action_size) == (1, 1)
     with pytest.raises(ValueError, match="unknown env"):
         registry.make_env({"name": "pendulum"}, device="cpu")
     with pytest.raises(ValueError, match="'name' key"):
@@ -196,6 +203,14 @@ FACTORIES = {
          "J": np.zeros(1), "mu": np.zeros(1), "delta": np.ones(1),
          "iteration": np.zeros(1, np.int32), "converged": np.zeros(1, bool),
          "failed": np.zeros(1, bool), "residual": np.zeros(1)}),
+    "ILQRConfig.alphas": lambda: ILQRConfig().alphas(),
+    "make_linear_system": lambda: make_linear_system([[1.0]], [[1.0]]),
+    "make_lqr": lambda: make_lqr(torch.Generator().manual_seed(0), 2, 1, 3),
+    "make_lqr_linear_navigation": lambda: make_lqr_linear_navigation(
+        [1.0, 2.0], beta=0.5, horizon=3),
+    "lqr_problem_from_numpy": lambda: interop.lqr_problem_from_numpy(
+        np.zeros((3, 2, 3)), np.zeros((3, 2)), np.eye(3)[None].repeat(3, 0),
+        np.zeros((3, 3))),
 }
 
 
@@ -209,7 +224,10 @@ def test_factories_default_to_the_card(factory):
             FACTORIES[factory]()
         return
     obj = FACTORIES[factory]()
-    tensors = [v for v in (vars(obj) if not hasattr(obj, "_asdict")
-                           else obj._asdict()).values()
-               if isinstance(v, torch.Tensor)]
+    if isinstance(obj, torch.Tensor):
+        tensors = [obj]
+    else:
+        tensors = [v for v in (vars(obj) if not hasattr(obj, "_asdict")
+                               else obj._asdict()).values()
+                   if isinstance(v, torch.Tensor)]
     assert tensors and all(t.device.type == "cuda" for t in tensors)

@@ -254,12 +254,21 @@ def test_config_carries_over_and_refuses_unported_options(envs):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert [f.name for f in dataclasses.fields(cfg)] == \
         [f.name for f in dataclasses.fields(jcfg)]
-    for option in (dict(ddp=True),
-                   dict(parallel_backward=True), dict(fuse_derivatives=True),
-                   dict(linesearch_emit_trajectories=True),
-                   dict(time_axis="time")):
+    for option in (dict(ddp=True), dict(fuse_derivatives=True),
+                   dict(time_axis="time"),
+                   dict(time_axis="time", parallel_backward=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ilqr.ILQRConfig(**option)
+    # the associative-scan backward cannot carry the DDP terms
+    with pytest.raises(ValueError, match="parallel_backward"):
+        ilqr.ILQRConfig(ddp=True, parallel_backward=True)
+    # slice C's options are ported and carry over
+    for option in (dict(parallel_backward=True, parallel_mu_floor=1e-4),
+                   dict(linesearch_emit_trajectories=True),
+                   dict(linesearch_emit_trajectories=False)):
+        jc = jilqr.ILQRConfig(**option)
+        assert dataclasses.asdict(interop.config_from_dict(
+            dataclasses.asdict(jc))) == dataclasses.asdict(jc)
     # boxQP is ported: the option carries over, and a bounded env solves
     # with its controls inside the box
     jbox = jilqr.ILQRConfig(boxqp=True, boxqp_iters=5)
@@ -273,7 +282,8 @@ def test_config_carries_over_and_refuses_unported_options(envs):
     assert bool(torch.isfinite(res.actions).all())
     assert float(res.actions.abs().max()) <= 1.0
     # alphas follow the state's dtype
-    assert ilqr.ILQRConfig().alphas(torch.float32).dtype == torch.float32
+    assert ilqr.ILQRConfig().alphas(torch.float32,
+                                    device="cpu").dtype == torch.float32
 
 
 def test_package_never_imports_jax():
@@ -498,3 +508,112 @@ def test_compacted_restart_loop_with_ubar_matches_full(n_bad):
     np.testing.assert_array_equal(ok_c.numpy(), np.asarray(ok_j))
     np.testing.assert_array_equal(mu_c.numpy(), np.asarray(mu_j))
     np.testing.assert_array_equal(delta_c.numpy(), np.asarray(delta_j))
+
+
+# -- slice C: long horizons (emit-trajectories line search, parallel backward) --
+#
+# The port's solve_batch with the emit-trajectories line search (K5's and
+# K4's plain versions on CPU tensors, and the select) and with the O(log T)
+# parallel backward, against the JAX package (use_pallas=False: its XLA
+# line search and vmapped backward), float64. Tolerances as above:
+# identical masks and iterations, controls within 1e-6, costs within 1e-9
+# relative. The parallel backward composes in another tree than JAX's
+# associative scan, which moves its gains by rounding only (~1e-12).
+
+def _x0_of(tenv, lohi, B, seed):
+    return np.random.default_rng(seed).uniform(*lohi, (B, tenv.state_size))
+
+
+def test_emit_trajectories_solve_batch_matches_jax():
+    """The slice as a whole, at a small size: reservoir-4 boxQP with the
+    emit-trajectories line search, then the same solve on the two-kernel
+    layout, which must give the identical result."""
+    jenv, tenv, lohi = _bounded_envs("reservoir")
+    x0 = _x0_of(tenv, lohi, 8, seed=20)
+    cfg = dict(atol=1e-3, max_iterations=30, boxqp=True)
+    res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=30,
+                              config=jilqr.ILQRConfig(**cfg))
+    counts = (rollout.TRAJ_PLAIN_CALLS, rollout.COSTS_PLAIN_CALLS,
+              rollout.ALPHA_PLAIN_CALLS, riccati.BOXQP_PLAIN_CALLS)
+    res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=30,
+                             config=ilqr.ILQRConfig(
+                                 **cfg, use_pallas=True,
+                                 linesearch_emit_trajectories=True))
+    assert rollout.TRAJ_PLAIN_CALLS > counts[0]
+    assert (rollout.COSTS_PLAIN_CALLS, rollout.ALPHA_PLAIN_CALLS) \
+        == counts[1:3]
+    assert riccati.BOXQP_PLAIN_CALLS > counts[3]
+    _assert_same_solve(res_t, res_j)
+    np.testing.assert_allclose(res_t.total_cost.numpy(),
+                               np.asarray(res_j.total_cost), rtol=1e-9)
+    assert bool(res_t.converged.all())
+    res_2k = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=30,
+                              config=ilqr.ILQRConfig(
+                                  **cfg, use_pallas=True,
+                                  linesearch_emit_trajectories=False))
+    assert rollout.ALPHA_PLAIN_CALLS > counts[2]
+    for name in res_t._fields:
+        assert torch.equal(getattr(res_t, name), getattr(res_2k, name)), name
+
+
+@pytest.mark.parametrize("name,boxqp,horizon", [
+    ("reservoir", True, 24), ("navigation_free", False, 20),
+])
+def test_parallel_backward_solve_batch_matches_jax(name, boxqp, horizon):
+    if name == "navigation_free":
+        jenv, tenv = (jax_make_navigation(GOAL, ZONE, dtype=jnp.float64),
+                      make_navigation(GOAL, ZONE, dtype=torch.float64,
+                                      device="cpu"))
+        lohi = (-5.0, 5.0)
+    else:
+        jenv, tenv, lohi = _bounded_envs(name)
+    x0 = _x0_of(tenv, lohi, 6, seed=21)
+    cfg = dict(atol=1e-4, max_iterations=40, boxqp=boxqp,
+               parallel_backward=True)
+    res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=horizon,
+                              config=jilqr.ILQRConfig(**cfg))
+    plain = (riccati.PLAIN_CALLS, riccati.BOXQP_PLAIN_CALLS)
+    res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=horizon,
+                             config=ilqr.ILQRConfig(**cfg, use_pallas=True))
+    # the parallel pass owns the backward even with use_pallas
+    assert (riccati.PLAIN_CALLS, riccati.BOXQP_PLAIN_CALLS) == plain
+    _assert_same_solve(res_t, res_j)
+    np.testing.assert_allclose(res_t.total_cost.numpy(),
+                               np.asarray(res_j.total_cost), rtol=1e-9)
+    assert bool(res_t.converged.all())
+
+
+def test_parallel_backward_single_solve_matches_jax():
+    jenv, tenv, lohi = _bounded_envs("hvac")
+    x0 = [10.0, 12.0, 14.0]
+    cfg = dict(atol=1e-4, max_iterations=60, boxqp=True,
+               parallel_backward=True)
+    res_j = jilqr.solve(jenv, jnp.asarray(x0), horizon=12,
+                        config=jilqr.ILQRConfig(**cfg))
+    res_t = ilqr.solve(tenv, torch.tensor(x0, dtype=torch.float64),
+                       horizon=12, config=ilqr.ILQRConfig(**cfg))
+    assert bool(res_t.converged) == bool(res_j.converged)
+    assert int(res_t.iterations) == int(res_j.iterations)
+    np.testing.assert_allclose(res_t.actions.numpy(),
+                               np.asarray(res_j.actions), rtol=0, atol=1e-6)
+    assert float(res_t.total_cost) == pytest.approx(
+        float(res_j.total_cost), rel=1e-9)
+
+
+def test_emit_trajectories_auto_resolution():
+    """True and False pin the layout at any shape; AUTO (the default)
+    takes the two-kernel layout everywhere, the H100 A/B having found no
+    shape where the emit-trajectories one is faster beyond the windows'
+    spread (the port's version of
+    tests/test_rollout_pallas.py::test_emit_trajectories_auto_resolution,
+    whose TPU rule turns it on from T=250 up to max(n, m) = 12)."""
+    resolve = ilqr_batched._resolve_emit_traj
+    auto = ilqr.ILQRConfig()
+    assert auto.linesearch_emit_trajectories is None
+    on = ilqr.ILQRConfig(linesearch_emit_trajectories=True)
+    off = ilqr.ILQRConfig(linesearch_emit_trajectories=False)
+    for horizon, n, m in ((4, 2, 2), (100, 6, 6), (250, 2, 2), (500, 5, 5),
+                          (500, 12, 12), (500, 48, 48)):
+        assert not resolve(auto, horizon, n, m)
+        assert resolve(on, horizon, n, m)
+        assert not resolve(off, horizon, n, m)

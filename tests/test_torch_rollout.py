@@ -1,4 +1,4 @@
-"""K2 and K3: the port's line-search rollouts vs the JAX Pallas kernels.
+"""K2, K3 and K5: the port's line-search rollouts vs the JAX Pallas kernels.
 
 ``linesearch_costs_ref`` / ``rollout_alpha_ref`` (the plain PyTorch
 versions of the CUDA kernels) are held against ``tfmpc_tpu``'s
@@ -88,7 +88,7 @@ def test_materialize_reproduces_the_evaluated_alpha():
     _, t, rng = _setup(ZONES["one_zone"], seed=2)
     J_all = rollout.linesearch_costs_ref(*t, ALPHAS)
     best = torch.as_tensor(rng.integers(0, len(ALPHAS), B))
-    alphas = ILQRConfig().alphas(torch.float64)
+    alphas = ILQRConfig().alphas(torch.float64, device="cpu")
     _, _, J = rollout.rollout_alpha_ref(*t, alphas[best])
     np.testing.assert_allclose(J.numpy(), J_all[torch.arange(B), best].numpy(),
                                rtol=1e-14, atol=0)
@@ -208,3 +208,151 @@ def test_kernel_layout_of_a_bounded_env(name):
     null = rollout._bound_pointers(rollout.kernel_layout(*tn))
     assert [p.value for p in null] == [None, None]
     assert (n, n) in rollout.KERNEL_DIMS
+
+
+# -- K5: the emit-trajectories line search ----------------------------------------
+#
+# ``linesearch_costs_traj_ref`` against the JAX package's
+# ``linesearch_costs_traj_pallas`` in interpret mode (B=128, T=4, the size
+# of tests/test_rollout_pallas.py's parity tests) and against its XLA line
+# search at B=16, float64, tolerance as above. The layout: J [B, A],
+# X_all [T, A, n, B] (x_{t+1}), U_all [T, A, m, B].
+
+def _traj_setup(name, seed, Bb, Tb):
+    """Navigation (unbounded) or reservoir-5 (bounded, many controls on the
+    box's faces) with a random nominal and feedback policy."""
+    from tfmpc_tpu.models.reservoir import make_reservoir as jax_make_reservoir
+    from tfmpc_tpu_torch.models.reservoir import make_reservoir
+
+    if name == "navigation":
+        zone = ZONES["one_zone"]
+        jenv = jax_make_navigation([8.0, -5.0], zone, dtype=jnp.float64)
+        tenv = make_navigation([8.0, -5.0], zone, dtype=torch.float64,
+                               device="cpu")
+        lohi, ulohi, kscale = (-6.0, 6.0), (0.0, 2.0), 0.1
+    else:
+        jenv = jax_make_reservoir(5, dtype=jnp.float64)
+        tenv = make_reservoir(5, dtype=torch.float64, device="cpu")
+        lohi, ulohi, kscale = (20.0, 95.0), (0.0, 4.0), 3.0
+    n = tenv.state_size
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(*lohi, (Bb, n))
+    U = tenv.clip(torch.as_tensor(rng.uniform(*ulohi, (Bb, Tb, n)))).numpy()
+    X = tenv.rollout(torch.as_tensor(x0), torch.as_tensor(U))[0].numpy()
+    K = 0.05 * rng.standard_normal((Bb, Tb, n, n))
+    k = kscale * rng.standard_normal((Bb, Tb, n))
+    j = (jenv, jnp.asarray(X), jnp.asarray(U),
+         JPolicy(K=jnp.asarray(K), k=jnp.asarray(k)))
+    t = (tenv, torch.as_tensor(X), torch.as_tensor(U),
+         Policy(K=torch.as_tensor(K), k=torch.as_tensor(k)))
+    return j, t, rng
+
+
+@pytest.mark.parametrize("name", ["navigation", "reservoir"])
+def test_linesearch_costs_traj_ref_matches_jax_kernel(name):
+    from tfmpc_tpu.ops.rollout_pallas import linesearch_costs_traj_pallas
+
+    j, t, _ = _traj_setup(name, seed=11, Bb=128, Tb=4)
+    n = t[0].state_size
+    ours = rollout.linesearch_costs_traj_ref(*t, ALPHAS)
+    theirs = linesearch_costs_traj_pallas(*j, ALPHAS)
+    A = len(ALPHAS)
+    for got, shape in zip(ours, ((128, A), (4, A, n, 128), (4, A, n, 128))):
+        assert got.shape == shape
+    for got, want in zip(ours, theirs):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("name", ["navigation", "reservoir"])
+def test_linesearch_costs_traj_ref_matches_jax_linesearch(name):
+    """Against the JAX XLA line search (vmapped ``ilqr.forward``): every
+    alpha's cost and trajectory."""
+    from tfmpc_tpu.solvers.ilqr_batched import _linesearch_batched
+
+    j, t, _ = _traj_setup(name, seed=12, Bb=16, Tb=T)
+    X_j, U_j, J_j = _linesearch_batched(*j, jnp.asarray(ALPHAS))
+    J_t, X_t, U_t = rollout.linesearch_costs_traj_ref(*t, ALPHAS)
+    np.testing.assert_allclose(J_t.numpy(), np.asarray(J_j), **TOL)
+    # [B, A, T+1, n] -> the kernel layout [T, A, n, B] of x_1 .. x_T
+    np.testing.assert_allclose(
+        X_t.numpy(), np.asarray(X_j)[:, :, 1:].transpose(2, 1, 3, 0), **TOL)
+    np.testing.assert_allclose(
+        U_t.numpy(), np.asarray(U_j).transpose(2, 1, 3, 0), **TOL)
+
+
+@pytest.mark.parametrize("name", ["navigation", "reservoir"])
+def test_costs_traj_agrees_with_the_two_kernel_line_search(name):
+    """K5's J is K2's, and the trajectory selected at each lane's alpha is
+    K3's rollout at that alpha (the plain versions share one rollout); the
+    wrapper runs the plain version on CPU tensors."""
+    _, t, rng = _traj_setup(name, seed=13, Bb=16, Tb=T)
+    counts = (rollout.TRAJ_LAUNCHES, rollout.TRAJ_PLAIN_CALLS)
+    J_all, X_all, U_all = rollout.linesearch_costs_traj(*t, ALPHAS)
+    assert (rollout.TRAJ_LAUNCHES, rollout.TRAJ_PLAIN_CALLS) == (
+        counts[0], counts[1] + 1)
+    assert torch.equal(J_all, rollout.linesearch_costs_ref(*t, ALPHAS))
+    best = torch.as_tensor(rng.integers(0, len(ALPHAS), 16))
+    X_s, U_s, J_s = rollout.select_alpha_trajectory(t[1], X_all, U_all,
+                                                    J_all, best)
+    alphas = ILQRConfig().alphas(torch.float64, device="cpu")
+    X_m, U_m, J_m = rollout.rollout_alpha_ref(*t, alphas[best])
+    for got, want in ((X_s, X_m), (U_s, U_m), (J_s, J_m)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-14,
+                                   atol=0)
+
+
+def test_select_alpha_trajectory_matches_jax_and_is_nan_safe():
+    """The port's gather against the JAX where-chain on random blocks, and
+    a diverged (inf/NaN) candidate does not poison lanes that selected
+    another alpha (the port's version of
+    tests/test_rollout_pallas.py::test_select_alpha_trajectory_is_nan_safe)."""
+    from tfmpc_tpu.ops.rollout_pallas import select_alpha_trajectory
+
+    Tb, A, n, m, Bb = 3, 4, 2, 1, 5
+    rng = np.random.default_rng(14)
+    X = rng.standard_normal((Bb, Tb + 1, n))
+    X_all = rng.standard_normal((Tb, A, n, Bb))
+    U_all = rng.standard_normal((Tb, A, m, Bb))
+    J_all = rng.standard_normal((Bb, A))
+    X_all[:, 0] = np.nan                      # alpha 0 diverged everywhere
+    U_all[:, 0] = np.inf
+    J_all[:, 0] = np.inf
+    best = np.array([1, 3, 2, 1, 0])          # lane 4 picked the NaN one
+    ours = rollout.select_alpha_trajectory(
+        *(torch.as_tensor(a) for a in (X, X_all, U_all, J_all, best)))
+    theirs = select_alpha_trajectory(
+        *(jnp.asarray(a) for a in (X, X_all, U_all, J_all, best)))
+    for got, want in zip(ours, theirs):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    X_s, U_s, J_s = ours
+    assert bool(torch.isfinite(X_s[:4]).all() & torch.isfinite(U_s[:4]).all())
+    assert bool(torch.isnan(X_s[4, 1:]).all()) and float(J_s[4]) == np.inf
+    np.testing.assert_array_equal(X_s[:, 0].numpy(), X[:, 0])
+
+
+def test_kernel_layout_of_a_linear_env():
+    """A linear env reaches the kernels as the LinearStep functor: env id
+    kLinear (3), its ten parameters in order, no integer parameters."""
+    from tfmpc_tpu_torch.models.linear import (
+        LINEAR_STEP_ID,
+        make_linear_system,
+    )
+
+    env = make_linear_system([[1.0, 0.1], [0.0, 1.0]],
+                             [[0.005, 0.0], [0.1, 0.05]], q=[1.0, -1.0],
+                             low=-2.0, high=2.0, dtype=torch.float64,
+                             device="cpu")
+    rng = np.random.default_rng(15)
+    Bb, Tb = 3, 5
+    U = torch.as_tensor(rng.uniform(-1.0, 1.0, (Bb, Tb, 2)))
+    X = env.rollout(torch.zeros(Bb, 2, dtype=torch.float64), U)[0]
+    policy = Policy(K=torch.zeros(Bb, Tb, 2, 2, dtype=torch.float64),
+                    k=torch.zeros(Bb, Tb, 2, dtype=torch.float64))
+    a = rollout.kernel_layout(env, X, U, policy)
+    assert a["env_id"] == LINEAR_STEP_ID == 3
+    assert len(a["params"]) == 10 and a["int_params"] == ()
+    assert [p.shape for p in a["params"]] == [
+        (2, 2), (2, 2), (2,), (2, 2), (2, 2), (2, 2), (2,), (2,), (2, 2),
+        (2,)]
+    np.testing.assert_array_equal(a["params"][6].numpy(), [1.0, -1.0])
+    np.testing.assert_array_equal(a["lo"].numpy(), [-2.0, -2.0])

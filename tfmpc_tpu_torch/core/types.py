@@ -10,6 +10,7 @@ the same ``[..., T, ...]`` layouts: ``f_x`` of a batch of scenarios is
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -24,6 +25,36 @@ def map_fields(fn, *objs):
             for f in dataclasses.fields(first)
         },
     )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LQRProblem:
+    """Finite-horizon LQR problem in stacked ``z = [x; u]`` form: dynamics
+    ``x_{t+1} = F_t z_t + f_t``, stage cost ``1/2 z^T C_t z + z^T c_t``,
+    final cost ``1/2 x^T C_f x + x^T c_f`` (zeros where None).
+
+    ``F [..., T, n, n+m]``, ``f [..., T, n]``, ``C [..., T, n+m, n+m]``,
+    ``c [..., T, n+m]``, ``C_f [..., n, n]``, ``c_f [..., n]``.
+    """
+
+    F: torch.Tensor
+    f: torch.Tensor
+    C: torch.Tensor
+    c: torch.Tensor
+    C_f: Optional[torch.Tensor] = None
+    c_f: Optional[torch.Tensor] = None
+
+    @property
+    def horizon(self) -> int:
+        return self.F.shape[-3]
+
+    @property
+    def state_size(self) -> int:
+        return self.F.shape[-2]
+
+    @property
+    def action_size(self) -> int:
+        return self.F.shape[-1] - self.F.shape[-2]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -78,3 +109,13 @@ class Policy:
 
     K: torch.Tensor
     k: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ValueFunction:
+    """Quadratic value function ``V_t(x) = 1/2 x^T V_xx x + v_x^T x + v_0``:
+    ``V_xx [..., T+1, n, n]``, ``v_x [..., T+1, n]``, ``v_0 [..., T+1]``."""
+
+    V_xx: torch.Tensor
+    v_x: torch.Tensor
+    v_0: torch.Tensor

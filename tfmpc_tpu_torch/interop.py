@@ -14,15 +14,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from tfmpc_tpu_torch.core.types import Bounds
+from tfmpc_tpu_torch.core.types import Bounds, LQRProblem
 from tfmpc_tpu_torch.models.hvac import HVAC
+from tfmpc_tpu_torch.models.linear import LinearSystem
 from tfmpc_tpu_torch.models.navigation import Navigation
 from tfmpc_tpu_torch.models.reservoir import Reservoir
 from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
 from tfmpc_tpu_torch.solvers.ilqr_batched import SolverState
 
 _ENV_CLASSES = {"navigation": Navigation, "hvac": HVAC,
-                "reservoir": Reservoir}
+                "reservoir": Reservoir, "linear": LinearSystem}
 
 
 def env_from_numpy(name: str, arrays: dict, *, device="cuda",
@@ -57,6 +58,16 @@ def navigation_from_numpy(goal, centers, decays, low=None, high=None, *,
              decays=np.reshape(decays, (-1,)), low=low, high=high),
         device=device, dtype=dtype,
     )
+
+
+def lqr_problem_from_numpy(F, f, C, c, C_f=None, c_f=None, *,
+                          dtype=torch.float32, device="cuda") -> LQRProblem:
+    """An ``LQRProblem`` from the JAX problem's arrays (``C_f``/``c_f`` None:
+    no final cost)."""
+    t = lambda a: None if a is None else torch.tensor(  # noqa: E731
+        np.asarray(a), dtype=dtype, device=device)
+    return LQRProblem(F=t(F), f=t(f), C=t(C), c=t(c), C_f=t(C_f),
+                      c_f=t(c_f))
 
 
 def config_from_dict(d: dict) -> ILQRConfig:

@@ -15,6 +15,7 @@ import torch
 
 from tfmpc_tpu_torch.models.base import Env
 from tfmpc_tpu_torch.models.hvac import make_hvac
+from tfmpc_tpu_torch.models.linear import make_linear_system
 from tfmpc_tpu_torch.models.navigation import make_navigation
 from tfmpc_tpu_torch.models.reservoir import make_reservoir
 
@@ -69,10 +70,11 @@ def _make_reservoir_cfg(config: Dict[str, Any], dtype=torch.float32,
 @register("linear")
 def _make_linear_cfg(config: Dict[str, Any], dtype=torch.float32,
                      device="cuda") -> Env:
-    raise NotImplementedError(
-        "the linear env is not ported to PyTorch yet: ROADMAP queue 1 item 9 "
-        "(models/linear.py)"
-    )
+    kwargs = {
+        k: v for k, v in config.items() if k not in _NON_ENV_KEYS + ("A", "B")
+    }
+    return make_linear_system(config["A"], config["B"], dtype=dtype,
+                              device=device, **kwargs)
 
 
 def make_env(config: Dict[str, Any], dtype=torch.float32,

@@ -48,6 +48,9 @@ _SIGNATURES = {
     # (host int[]), n_int, J, block, stream
     "tfmpc_linesearch_costs": [_I] * 6 + [_P] * 7 + [_I, _P, _I, _P, _I]
     + [_P, _I, _P],
+    # as tfmpc_linesearch_costs, with J, X, U before block and stream
+    "tfmpc_linesearch_costs_traj": [_I] * 6 + [_P] * 7
+    + [_I, _P, _I, _P, _I] + [_P] * 3 + [_I, _P],
     # dtype, env, n, m, T, B, alpha, xbar, ubar, K, k, lo, hi, params,
     # n_params, int_params, n_int, X, U, J, block, stream
     "tfmpc_rollout_alpha": [_I] * 6 + [_P] * 8 + [_I, _P, _I]

@@ -13,6 +13,7 @@ namespace tfmpc {
 constexpr int kNavigation = 0;
 constexpr int kHVAC = 1;
 constexpr int kReservoir = 2;
+constexpr int kLinear = 3;
 
 // max(v, 0) that keeps NaN, as torch.clamp(v, min=0) does
 template <typename S>
@@ -182,6 +183,72 @@ struct ReservoirStep {
 #pragma unroll
       for (int j = 0; j < N; ++j) inflow += u[j] * downstream[j * N + i];
       x_next[i] = x[i] + rain[i] - evap - u[i] + inflow;
+    }
+    return cost;
+  }
+};
+
+// Linear system (models/linear.py): x' = A x + B u + c, stage cost
+// 1/2 x^T Q x + 1/2 u^T R u + x^T N u + q^T x + r^T u on the PRE-step state,
+// final cost 1/2 x^T Q_f x + q_f^T x. Term by term, in the summation order
+// of the JAX package's LinearSystem.lane_functions step_fn/final_fn
+// (tfmpc_tpu/models/linear.py:118-146). Parameters (the order of
+// LINEAR_STEP_PARAMS): A [N, N], B [N, M], c [N], Q [N, N], R [M, M],
+// N [N, M], q [N], r [M], Q_f [N, N], q_f [N], row-major.
+template <typename S, int N>
+struct LinearStep {
+  const S* __restrict__ A;
+  const S* __restrict__ B;
+  const S* __restrict__ c;
+  const S* __restrict__ Q;
+  const S* __restrict__ R;
+  const S* __restrict__ Nx;
+  const S* __restrict__ q;
+  const S* __restrict__ r;
+  const S* __restrict__ Q_f;
+  const S* __restrict__ q_f;
+
+  __device__ __forceinline__ S final_cost(const S (&x)[N]) const {
+    S cost = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      cost = cost + q_f[i] * x[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        cost = cost + S(0.5) * Q_f[i * N + j] * x[i] * x[j];
+    }
+    return cost;
+  }
+
+  // Returns the stage cost at (x, u) and writes the next state.
+  template <int M>
+  __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
+                                    S (&x_next)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      S xi = c[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j) xi = xi + A[i * N + j] * x[j];
+#pragma unroll
+      for (int a = 0; a < M; ++a) xi = xi + B[i * M + a] * u[a];
+      x_next[i] = xi;
+    }
+    S cost = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      cost = cost + q[i] * x[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        cost = cost + S(0.5) * Q[i * N + j] * x[i] * x[j];
+#pragma unroll
+      for (int a = 0; a < M; ++a) cost = cost + Nx[i * M + a] * x[i] * u[a];
+    }
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      cost = cost + r[a] * u[a];
+#pragma unroll
+      for (int b = 0; b < M; ++b)
+        cost = cost + S(0.5) * R[a * M + b] * u[a] * u[b];
     }
     return cost;
   }

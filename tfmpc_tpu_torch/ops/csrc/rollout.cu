@@ -1,15 +1,28 @@
-// K2 and K3: the closed-loop rollouts of the iLQR line search.
+// K2, K3 and K5: the closed-loop rollouts of the iLQR line search.
 //
 // Replaces: tfmpc_tpu/ops/rollout_pallas.py:linesearch_costs_pallas (body
-// _costs_kernel) as K2, and rollout_pallas.py:rollout_alpha_pallas (body
-// _materialize_kernel) as K3.
+// _costs_kernel) as K2, rollout_pallas.py:rollout_alpha_pallas (body
+// _materialize_kernel) as K3, and rollout_pallas.py:
+// linesearch_costs_traj_pallas (body _costs_traj_kernel) as K5.
 //
-// Both roll u_t = clip(ubar_t + alpha k_t + K_t (x_t - xbar_t)), x_{t+1} =
+// All roll u_t = clip(ubar_t + alpha k_t + K_t (x_t - xbar_t)), x_{t+1} =
 // step(x_t, u_t), J += cost(x_t) from x_0 = xbar_0, and add the final cost
 // once at T. The clip to [lo, hi] applies when the env has bounds (lo/hi
 // are null otherwise), after the affine law, as rollout_pallas.py's
 // has_bounds clip does; it keeps NaN. The env step is a functor from
 // envs.cuh, dispatched on env_id; (n, m) in {(2,2), (3,3), (5,5), (6,6)}.
+// K5 is K2 that also stores x_{t+1} and u_t of every alpha at rows a*n + i
+// and a*m + c of step t ([T, A*n, B], [T, A*m, B]); it shares K2's code
+// path (policy_control, the functor, the running sum), so its J is K2's and
+// its trajectory of any alpha is K3's at that alpha.
+//
+// The running cost J is summed in double for both dtypes and rounded once
+// to the output's: in float32 a sequential sum over T=500 steps drifts by
+// several ulps of J (one ulp is 0.0078 at reservoir-5's J of ~8.4e4), more
+// than the late iterations' cost decreases, and the line search then
+// rejects steps that a correctly rounded total accepts. (The plain versions
+// take torch's pairwise sum, whose error stays near one ulp.) In float64
+// the sum is the plain sequential one.
 //
 // What bounds them on this card: like K1, each rollout is a serial chain of
 // T dependent steps, so the kernels are latency-bound. Per step a thread
@@ -27,6 +40,15 @@
 // alphas of a scenario read the same inputs and meet in L1/L2. The alphas
 // travel in the kernel's arguments. The policy arithmetic follows
 // _costs_kernel's order: (ubar + alpha k) + sum_i K_i dx_i.
+//
+// K5 at reservoir-5, T=500, B=1024, A=11 reads ~82 MB and writes ~225 MB of
+// trajectories, so its bound is bytes (~0.09 ms), but like K2 it is a chain
+// of T dependent steps per thread and latency-bound far above that. The
+// design keeps K2's: one thread per (scenario, alpha), scenario index
+// fastest, so each warp's stores to the [T, A*n, B] outputs are 32
+// consecutive addresses; state in registers for the whole chain, no time
+// blocking (the TPU kernel's time blocks buffer stores in VMEM; here a
+// store is issued and the chain goes on).
 #include <utility>
 
 #include "envs.cuh"
@@ -76,16 +98,47 @@ __global__ void linesearch_costs_kernel(
   S x[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = xbar[at(0, i, N, b, B)];
-  S total = 0;
+  double total = 0;
   for (int t = 0; t < T; ++t) {
     S u[M], xn[N];
     policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
-    total = total + env.template step<M>(x, u, xn);
+    total += static_cast<double>(env.template step<M>(x, u, xn));
 #pragma unroll
     for (int i = 0; i < N; ++i) x[i] = xn[i];
   }
-  total = total + env.final_cost(x);
-  J[idx] = total;  // [A, B]
+  J[idx] = static_cast<S>(total + static_cast<double>(env.final_cost(x)));
+}
+
+template <typename S, int N, int M, class Env>
+__global__ void linesearch_costs_traj_kernel(
+    const S* __restrict__ xbar, const S* __restrict__ ubar,
+    const S* __restrict__ K, const S* __restrict__ k,
+    const S* __restrict__ lo, const S* __restrict__ hi, Alphas<S> alphas,
+    int A, Env env, S* __restrict__ J, S* __restrict__ X,
+    S* __restrict__ U, int T, int B) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<int64_t>(A) * B) return;
+  const int b = static_cast<int>(idx % B);
+  const int a = static_cast<int>(idx / B);
+  const S alpha = alphas.v[a];
+
+  S x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = xbar[at(0, i, N, b, B)];
+  double total = 0;
+  for (int t = 0; t < T; ++t) {
+    S u[M], xn[N];
+    policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
+    total += static_cast<double>(env.template step<M>(x, u, xn));
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      X[at(t, a * N + i, A * N, b, B)] = xn[i];
+      x[i] = xn[i];
+    }
+#pragma unroll
+    for (int c = 0; c < M; ++c) U[at(t, a * M + c, A * M, b, B)] = u[c];
+  }
+  J[idx] = static_cast<S>(total + static_cast<double>(env.final_cost(x)));
 }
 
 template <typename S, int N, int M, class Env>
@@ -102,11 +155,11 @@ __global__ void rollout_alpha_kernel(
   S x[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = xbar[at(0, i, N, b, B)];
-  S total = 0;
+  double total = 0;
   for (int t = 0; t < T; ++t) {
     S u[M], xn[N];
     policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
-    total = total + env.template step<M>(x, u, xn);
+    total += static_cast<double>(env.template step<M>(x, u, xn));
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       X[at(t, i, N, b, B)] = xn[i];
@@ -115,7 +168,7 @@ __global__ void rollout_alpha_kernel(
 #pragma unroll
     for (int c = 0; c < M; ++c) U[at(t, c, M, b, B)] = u[c];
   }
-  J[b] = total + env.final_cost(x);
+  J[b] = static_cast<S>(total + static_cast<double>(env.final_cost(x)));
 }
 
 // The env's step functor from its parameter pointers (the order of the
@@ -134,6 +187,9 @@ int with_env(int env, const void* const* p, int n_params, const int* ints,
   if (env == kReservoir && n_params == 10 && n_ints == 0)
     return f(ReservoirStep<S, N>{P(0), P(1), P(2), P(3), P(4), P(5), P(6),
                                  P(7), P(8), P(9)});
+  if (env == kLinear && n_params == 10 && n_ints == 0)
+    return f(LinearStep<S, N>{P(0), P(1), P(2), P(3), P(4), P(5), P(6),
+                              P(7), P(8), P(9)});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -150,27 +206,56 @@ int with_dims(int n, int m, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K2 when X is null, else K5 (writing X and U too).
 template <typename S>
 int costs_dtype(int env, int n, int m, int T, int B, const void* xbar,
                 const void* ubar, const void* K, const void* k,
                 const void* lo, const void* hi, const double* alphas, int A,
                 const void* const* params, int n_params,
-                const int* int_params, int n_int_params, void* J, int block,
-                cudaStream_t stream) {
+                const int* int_params, int n_int_params, void* J, void* X,
+                void* U, int block, cudaStream_t stream) {
   Alphas<S> al{};
   for (int a = 0; a < A; ++a) al.v[a] = static_cast<S>(alphas[a]);
+  const int grid = blocks_for(static_cast<int64_t>(A) * B, block);
   return with_dims(n, m, [&](auto dim) {
     constexpr int N = decltype(dim)::value;
     return with_env<S, N>(env, params, n_params, int_params, n_int_params,
                           [&](auto step) {
-      linesearch_costs_kernel<S, N, N, decltype(step)>
-          <<<blocks_for(static_cast<int64_t>(A) * B, block), block, 0,
-             stream>>>((const S*)xbar, (const S*)ubar, (const S*)K,
-                       (const S*)k, (const S*)lo, (const S*)hi, al, A, step,
-                       (S*)J, T, B);
+      if (X == nullptr)
+        linesearch_costs_kernel<S, N, N, decltype(step)>
+            <<<grid, block, 0, stream>>>(
+                (const S*)xbar, (const S*)ubar, (const S*)K, (const S*)k,
+                (const S*)lo, (const S*)hi, al, A, step, (S*)J, T, B);
+      else
+        linesearch_costs_traj_kernel<S, N, N, decltype(step)>
+            <<<grid, block, 0, stream>>>(
+                (const S*)xbar, (const S*)ubar, (const S*)K, (const S*)k,
+                (const S*)lo, (const S*)hi, al, A, step, (S*)J, (S*)X,
+                (S*)U, T, B);
       return static_cast<int>(cudaGetLastError());
     });
   });
+}
+
+int costs_entry(int dtype, int env, int n, int m, int T, int B,
+                const void* xbar, const void* ubar, const void* K,
+                const void* k, const void* lo, const void* hi,
+                const double* alphas, int A, const void* const* params,
+                int n_params, const int* int_params, int n_int_params,
+                void* J, void* X, void* U, int block, void* stream) {
+  if (A < 1 || A > kMaxAlphas || T < 1 || (lo == nullptr) != (hi == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return costs_dtype<float>(env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+                              alphas, A, params, n_params, int_params,
+                              n_int_params, J, X, U, block, s);
+  if (dtype == kFloat64)
+    return costs_dtype<double>(env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+                               alphas, A, params, n_params, int_params,
+                               n_int_params, J, X, U, block, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename S>
@@ -203,20 +288,22 @@ extern "C" int tfmpc_linesearch_costs(
     const void* hi, const double* alphas, int A, const void* const* params,
     int n_params, const int* int_params, int n_int_params, void* J,
     int block, void* stream) {
-  using namespace tfmpc;
-  if (A < 1 || A > kMaxAlphas || T < 1 || (lo == nullptr) != (hi == nullptr))
+  return tfmpc::costs_entry(dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+                            alphas, A, params, n_params, int_params,
+                            n_int_params, J, nullptr, nullptr, block, stream);
+}
+
+extern "C" int tfmpc_linesearch_costs_traj(
+    int dtype, int env, int n, int m, int T, int B, const void* xbar,
+    const void* ubar, const void* K, const void* k, const void* lo,
+    const void* hi, const double* alphas, int A, const void* const* params,
+    int n_params, const int* int_params, int n_int_params, void* J, void* X,
+    void* U, int block, void* stream) {
+  if (X == nullptr || U == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return costs_dtype<float>(env, n, m, T, B, xbar, ubar, K, k, lo, hi,
-                              alphas, A, params, n_params, int_params,
-                              n_int_params, J, block, s);
-  if (dtype == kFloat64)
-    return costs_dtype<double>(env, n, m, T, B, xbar, ubar, K, k, lo, hi,
-                               alphas, A, params, n_params, int_params,
-                               n_int_params, J, block, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tfmpc::costs_entry(dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+                            alphas, A, params, n_params, int_params,
+                            n_int_params, J, X, U, block, stream);
 }
 
 extern "C" int tfmpc_rollout_alpha(

@@ -1,15 +1,19 @@
-"""K2 and K3: the closed-loop rollouts of the iLQR line search.
+"""K2, K3 and K5: the closed-loop rollouts of the iLQR line search.
 
-Counterpart of ``tfmpc_tpu/ops/rollout_pallas.py`` (the two-kernel line
-search). ``linesearch_costs`` rolls every (scenario, alpha) pair and keeps
-only the total costs; ``rollout_alpha`` re-rolls once at each scenario's
-accepted alpha to materialize the new trajectory. On CUDA tensors both
-launch the CUDA kernels of ``csrc/rollout.cu`` (the env step compiled in,
-selected by ``Env.device_step``) or raise; on CPU tensors they run the plain
-PyTorch versions ``linesearch_costs_ref`` / ``rollout_alpha_ref``. The
-module counts kernel launches and plain-version calls per wrapper. A
-bounded env's controls are clipped to its box after the affine law, in the
-kernels as in the plain versions.
+Counterpart of ``tfmpc_tpu/ops/rollout_pallas.py``. The two-kernel line
+search: ``linesearch_costs`` (K2) rolls every (scenario, alpha) pair and
+keeps only the total costs; ``rollout_alpha`` (K3) re-rolls once at each
+scenario's accepted alpha to materialize the new trajectory. The
+emit-trajectories line search: ``linesearch_costs_traj`` (K5) is K2 that
+also writes every alpha's trajectory, and ``select_alpha_trajectory`` picks
+each scenario's accepted one, so an iteration runs one rollout chain
+instead of two. On CUDA tensors the wrappers launch the CUDA kernels of
+``csrc/rollout.cu`` (the env step compiled in, selected by
+``Env.device_step``) or raise; on CPU tensors they run the plain PyTorch
+versions ``linesearch_costs_ref`` / ``rollout_alpha_ref`` /
+``linesearch_costs_traj_ref``. The module counts kernel launches and
+plain-version calls per wrapper. A bounded env's controls are clipped to
+its box after the affine law, in the kernels as in the plain versions.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ COSTS_LAUNCHES = 0
 COSTS_PLAIN_CALLS = 0
 ALPHA_LAUNCHES = 0
 ALPHA_PLAIN_CALLS = 0
+TRAJ_LAUNCHES = 0
+TRAJ_PLAIN_CALLS = 0
 
 # (n, m) pairs the CUDA kernels are instantiated for (csrc/rollout.cu).
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
@@ -81,6 +87,33 @@ def rollout_alpha_ref(env, X, U, policy, alpha_vec):
     return closed_loop_rollout(
         env, X, U, policy.K, policy.k, alpha_vec.to(X.dtype)
     )
+
+
+def linesearch_costs_traj_ref(env, X, U, policy, alphas: Sequence[float]):
+    """Plain version of K5: ``(J_all [B, A], X_all [T, A, n, B], U_all [T,
+    A, m, B])``, the trajectories ``x_{t+1}`` and ``u_t`` of every alpha in
+    the kernel's layout."""
+    a = torch.as_tensor(alphas, dtype=X.dtype, device=X.device)
+    X_new, U_new, J = closed_loop_rollout(
+        env, X[:, None], U[:, None], policy.K[:, None], policy.k[:, None],
+        a[None, :],
+    )
+    return J, X_new[:, :, 1:].permute(2, 1, 3, 0), U_new.permute(2, 1, 3, 0)
+
+
+def select_alpha_trajectory(X, X_all, U_all, J_all, best):
+    """Each scenario's trajectory at its accepted alpha ``best [B]`` from the
+    all-alpha blocks of ``linesearch_costs_traj``: ``(X_new [B, T+1, n],
+    U_new [B, T, m], J_best [B])``, equal to ``rollout_alpha`` at
+    ``alphas[best]``. A gather on the alpha axis, not a one-hot product: a
+    diverged candidate may hold inf or NaN, and ``0 * inf`` is NaN."""
+    T, _, n, B = X_all.shape
+    m = U_all.shape[2]
+    pick = lambda a, e: a.gather(  # noqa: E731
+        1, best.view(1, 1, 1, B).expand(T, 1, e, B))[:, 0]   # [T, e, B]
+    X_new = torch.cat([X[:, :1], pick(X_all, n).permute(2, 0, 1)], dim=1)
+    J_best = J_all.gather(1, best[:, None])[:, 0]
+    return X_new, pick(U_all, m).permute(2, 0, 1), J_best
 
 
 def kernel_args(env, X, U, policy):
@@ -173,6 +206,33 @@ def linesearch_costs_kernel(a, alphas: Sequence[float]):
     return J
 
 
+def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
+    """Launch K5 on ``kernel_args`` output: raw ``(J [A, B], X [T, A*n, B],
+    U [T, A*m, B])``, row ``a*n + i`` of step t holding ``x_{t+1, i}`` of
+    alpha ``a`` (``a*m + c``: ``u_{t, c}``)."""
+    global TRAJ_LAUNCHES
+    B, T, n, m = a["dims"]
+    A = len(alphas)
+    if not 1 <= A <= MAX_ALPHAS:
+        raise ValueError(f"linesearch_costs_traj takes 1..{MAX_ALPHAS} "
+                         "alphas")
+    opts = dict(dtype=a["dtype"], device=a["xbar"].device)
+    J = torch.empty((A, B), **opts)
+    X_out = torch.empty((T, A * n, B), **opts)
+    U_out = torch.empty((T, A * m, B), **opts)
+    rc = _build.library().tfmpc_linesearch_costs_traj(
+        _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
+        *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
+        *_bound_pointers(a),
+        (ctypes.c_double * A)(*map(float, alphas)), A, *_env_pointers(a),
+        _build.ptr(J), _build.ptr(X_out), _build.ptr(U_out), BLOCK,
+        _build.stream(),
+    )
+    _build.check(rc, "linesearch_costs_traj")
+    TRAJ_LAUNCHES += 1
+    return J, X_out, U_out
+
+
 def rollout_alpha_kernel(a, alpha):
     """Launch K3 on ``kernel_args`` output and per-lane ``alpha [B]``:
     raw ``(X [T, n, B], U [T, m, B], J [B])``."""
@@ -209,6 +269,23 @@ def linesearch_costs(env, X, U, policy, alphas: Sequence[float]):
         return linesearch_costs_ref(env, X, U, policy, alphas)
     J = linesearch_costs_kernel(kernel_args(env, X, U, policy), alphas)
     return _finite_or_inf(J).T
+
+
+def linesearch_costs_traj(env, X, U, policy, alphas: Sequence[float]):
+    """``linesearch_costs`` that also returns every alpha's trajectory:
+    ``(J_all [B, A], X_all [T, A, n, B], U_all [T, A, m, B])``, the
+    trajectories in the kernel's layout (``select_alpha_trajectory`` picks
+    from them, then transposes once)."""
+    global TRAJ_PLAIN_CALLS
+    if X.device.type == "cpu":
+        TRAJ_PLAIN_CALLS += 1
+        return linesearch_costs_traj_ref(env, X, U, policy, alphas)
+    B, T, m = U.shape
+    n, A = X.shape[-1], len(alphas)
+    J, X_out, U_out = linesearch_costs_traj_kernel(
+        kernel_args(env, X, U, policy), alphas)
+    return (_finite_or_inf(J).T, X_out.view(T, A, n, B),
+            U_out.view(T, A, m, B))
 
 
 def rollout_alpha(env, X, U, policy, alpha_vec):

@@ -27,12 +27,15 @@ from tfmpc_tpu_torch.ops.riccati import (
     riccati_backward_ref,
 )
 from tfmpc_tpu_torch.ops.rollout import closed_loop_rollout
+from tfmpc_tpu_torch.solvers.lqr_parallel import (
+    ilqr_backward_parallel,
+    ilqr_backward_parallel_boxqp,
+)
 
 # Options of the JAX ILQRConfig that this package does not implement yet,
 # with the value that keeps them off and the ROADMAP item that ports them.
 _NOT_PORTED = {
     "ddp": (False, "queue 1 item 13 (full DDP, slice D)"),
-    "parallel_backward": (False, "queue 1 item 11 (parallel scan, slice C)"),
     "fuse_derivatives": (False, "queue 1 item 19 (fused derivatives)"),
     "time_axis": (None, "queue 1 item 18 (time-sharded solves)"),
 }
@@ -47,9 +50,16 @@ class ILQRConfig:
     kernels (``ops/``). Options this package does not implement yet raise
     ``NotImplementedError`` when set, naming the ROADMAP item that ports
     them; they are never silently ignored.
-    ``linesearch_emit_trajectories=None`` (AUTO) always runs the two-kernel
-    line search, which the JAX package pins semantically equal to the
-    emit-trajectories one.
+
+    ``parallel_backward=True`` runs the O(log T) associative-composition
+    backward (``lqr_parallel.py``, cost-regularized with
+    ``parallel_mu_floor``), with or without the kernels for the rollouts.
+    ``linesearch_emit_trajectories`` picks the line search's layout on the
+    kernel path: True runs K5, one rollout chain that writes every alpha's
+    trajectory, and selects each lane's accepted one; False runs K2 for the
+    costs and K3 to re-roll the accepted alpha; None (AUTO) takes the
+    two-kernel layout (``ilqr_batched._resolve_emit_traj`` says why). Both
+    layouts compute the same arithmetic, so the solve is the same.
     """
 
     atol: float = 1e-4
@@ -73,19 +83,21 @@ class ILQRConfig:
     kkt_atol: float = 1e-4
 
     def __post_init__(self):
+        if self.ddp and self.parallel_backward:
+            raise ValueError(
+                "ddp=True is incompatible with parallel_backward=True: the "
+                "associative-scan backward composes LINEAR value-recursion "
+                "elements, and the DDP tensor terms depend on v_x mid-"
+                "recursion"
+            )
         for name, (off, item) in _NOT_PORTED.items():
             if getattr(self, name) != off:
                 raise NotImplementedError(
                     f"ILQRConfig.{name}={getattr(self, name)!r} is not "
                     f"ported to PyTorch yet: ROADMAP {item}"
                 )
-        if self.linesearch_emit_trajectories:
-            raise NotImplementedError(
-                "ILQRConfig.linesearch_emit_trajectories=True is not ported "
-                "to PyTorch yet: ROADMAP queue 1 item 12 (with kernel K5)"
-            )
 
-    def alphas(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    def alphas(self, dtype=torch.float32, device="cuda") -> torch.Tensor:
         """Tassa's line-search schedule alpha_i = 1.1^(-i^2), computed in
         float64 and rounded once to ``dtype``: exactly the values the
         line-search kernel receives (``alphas_static``), so the accepted
@@ -229,8 +241,22 @@ def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
     boxQP minimizer within ``[low - ubar_t, high - ubar_t]`` and the clamped
     rows of ``K`` are zero (control-limited DDP). Works on any leading batch
     dims (the plain versions of kernels K1 and K4).
+
+    With ``config.parallel_backward`` the pass is the O(log T) composition
+    of ``lqr_parallel.py`` instead (its boxQP variant under the same
+    condition), regularized on the cost with ``mu`` floored at
+    ``config.parallel_mu_floor``.
     """
-    if config.boxqp and bounds is not None and Ubar is not None:
+    use_boxqp = config.boxqp and bounds is not None and Ubar is not None
+    if config.parallel_backward:
+        if use_boxqp:
+            return ilqr_backward_parallel_boxqp(
+                lin, quad, final, mu, bounds, Ubar,
+                mu_floor=config.parallel_mu_floor,
+                boxqp_iters=config.boxqp_iters)
+        return ilqr_backward_parallel(lin, quad, final, mu,
+                                      mu_floor=config.parallel_mu_floor)
+    if use_boxqp:
         return riccati_backward_boxqp_ref(lin, quad, final, mu, bounds, Ubar,
                                           config.boxqp_iters)
     return riccati_backward_ref(lin, quad, final, mu)

@@ -9,11 +9,16 @@ scenario that is done freezes. One iteration is
 1. the closed-form linearization (``ilqr.derivatives``);
 2. the Riccati backward inside the per-lane restart loop, compacted to the
    failing lanes when B > 128 (with ``use_pallas``: kernel K1, or K4 for
-   ``boxqp`` on a bounded env);
+   ``boxqp`` on a bounded env; with ``parallel_backward``: the O(log T)
+   composition of ``lqr_parallel.py``);
 3. the 11-alpha line search (K2), controls clipped to a bounded env's box;
 4. acceptance and the mu schedule, with the KKT stationarity test of a
    bounded env where a lane accepted nothing;
 5. the rollout at each scenario's accepted alpha (K3).
+
+With the emit-trajectories layout (``_resolve_emit_traj``), steps 3 and 5
+become one chain: K5 writes every alpha's cost and trajectory, and step 5
+selects each scenario's accepted one.
 
 The JAX package's ``lax.while_loop``s become host loops that read one flag
 per outer iteration and one per restart round (and, for a bounded env, one
@@ -88,13 +93,16 @@ def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
                       Ubar):
     """Batched regularized Riccati backward over [B] scenarios.
 
-    With ``use_pallas`` it goes through K4's wrapper for ``boxqp`` on a
-    bounded env and K1's otherwise; a wrapper launches its CUDA kernel on
-    CUDA tensors (raising for dims it has no instantiation for; the JAX
+    ``parallel_backward`` owns the backward pass even with ``use_pallas``
+    (the batched O(log T) composition of ``lqr_parallel.py``; the rollouts
+    stay on the kernels), as in the JAX package. Otherwise, with
+    ``use_pallas`` it goes through K4's wrapper for ``boxqp`` on a bounded
+    env and K1's otherwise; a wrapper launches its CUDA kernel on CUDA
+    tensors (raising for dims it has no instantiation for; the JAX
     package's mid-dim kernel K7 is not ported yet) and runs the plain
     version on CPU tensors.
     """
-    if config.use_pallas:
+    if config.use_pallas and not config.parallel_backward:
         if config.boxqp and bounds is not None:
             return riccati.riccati_backward_boxqp(
                 lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
@@ -227,6 +235,24 @@ def _use_pallas_rollout(env, X, config: ILQRConfig) -> bool:
     return True
 
 
+def _resolve_emit_traj(config: ILQRConfig, horizon: int, n: int,
+                       m: int) -> bool:
+    """The line-search layout of the kernel path: True and False pin it;
+    None (AUTO) takes the two-kernel layout (K2 + K3) at every shape.
+
+    The JAX package's AUTO rule (T >= 250, max(n, m) <= 12) was measured on
+    a TPU. On one H100 80GB HBM3 at 700 W, chip_smoke.py's emit A/B put
+    the emit-trajectories layout (K5 + select) within the spread of the
+    windows of the two-kernel one, at reservoir-5 T=500 B=1024 and at
+    HVAC-6 T=100 B=2048 (PERF.md): K5 saves ~2 ms of kernel time per
+    iteration of a solve that the host's KKT pass holds at ~12 s. So AUTO
+    keeps the layout that stores no per-alpha trajectories; ``horizon``,
+    ``n`` and ``m`` are the inputs a measured crossover would use.
+    """
+    flag = config.linesearch_emit_trajectories
+    return False if flag is None else bool(flag)
+
+
 def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
     active = (
         (state.iteration < config.max_iterations)
@@ -243,8 +269,14 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
         )
 
     use_kernels = _use_pallas_rollout(env, state.X, config)
+    emit_traj = use_kernels and _resolve_emit_traj(
+        config, state.U.shape[1], env.state_size, env.action_size)
     with record_function("ilqr.linesearch"):
-        if use_kernels:
+        if emit_traj:
+            J_all, X_alpha, U_alpha = rollout.linesearch_costs_traj(
+                env, state.X, state.U, policy, config.alphas_static()
+            )
+        elif use_kernels:
             J_all = rollout.linesearch_costs(
                 env, state.X, state.U, policy, config.alphas_static()
             )
@@ -268,7 +300,12 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
     # which `upd` masks out below
     best = torch.argmax(accepted.to(torch.uint8), dim=1)        # [B]
     with record_function("ilqr.materialize"):
-        if use_kernels:
+        if emit_traj:
+            X_best, U_best, J_best = rollout.select_alpha_trajectory(
+                state.X, X_alpha, U_alpha, J_all, best
+            )
+            del X_alpha, U_alpha  # A trajectories: free before the KKT pass
+        elif use_kernels:
             X_best, U_best, J_best = rollout.rollout_alpha(
                 env, state.X, state.U, policy, alphas[best]
             )
