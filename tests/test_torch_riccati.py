@@ -279,4 +279,4 @@ def test_boxqp_kernel_layout_and_wrapper_on_cpu():
     assert (riccati.BOXQP_LAUNCHES, riccati.BOXQP_PLAIN_CALLS,
             riccati.LAUNCHES, riccati.PLAIN_CALLS) == (
         counts[0], counts[1] + 1, counts[2], counts[3])
-    assert riccati.BOXQP_KERNEL_DIMS == {(2, 2), (3, 3), (5, 5), (6, 6)}
+    assert riccati.KERNEL_DIMS == {(2, 2), (3, 3), (5, 5), (6, 6)}

@@ -79,6 +79,20 @@ class LinearModel:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class SecondOrderModel:
+    """Second derivatives of the dynamics (full DDP), leading index the
+    transition's output component p:
+    ``f_xx [..., T, n, n, n]`` with ``f_xx[p, i, j] = d2 f_p / dx_i dx_j``,
+    ``f_ux [..., T, n, m, n]`` with ``f_ux[p, a, i] = d2 f_p / du_a dx_i``,
+    ``f_uu [..., T, n, m, m]`` with ``f_uu[p, a, c] = d2 f_p / du_a du_c``.
+    """
+
+    f_xx: torch.Tensor
+    f_ux: torch.Tensor
+    f_uu: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class QuadraticModel:
     """Quadratized stage cost: ``l [..., T]``, ``l_x [..., T, n]``,
     ``l_u [..., T, m]``, ``l_xx [..., T, n, n]``, ``l_uu [..., T, m, m]``,

@@ -24,6 +24,7 @@ from tfmpc_tpu_torch.core.types import (
     LinearModel,
     QuadraticFinal,
     QuadraticModel,
+    SecondOrderModel,
 )
 
 
@@ -95,6 +96,25 @@ class Env:
         """Second-order model of the stage cost at ``(x, u)``."""
         fn = vmap(self._quadratic) if batch else self._quadratic
         return QuadraticModel(*fn(x, u))
+
+    def _second_order(self, x, u):
+        jac_x = jacfwd(self.transition, argnums=0)
+        jac_u = jacfwd(self.transition, argnums=1)
+        return (
+            jacfwd(jac_x, argnums=0)(x, u),   # [n, n, n]
+            jacfwd(jac_u, argnums=0)(x, u),   # [n, m, n]
+            jacfwd(jac_u, argnums=1)(x, u),   # [n, m, m]
+        )
+
+    def get_second_order_transition(self, x, u,
+                                    batch: bool = False) -> SecondOrderModel:
+        """Second derivatives of the dynamics at ``(x, u)`` (full DDP), by
+        forward-over-forward autodiff; ``batch=True`` maps over a leading
+        axis."""
+        fn = vmap(self._second_order) if batch else self._second_order
+        # torch.func returns a lazy ZeroTensor for a derivative that is zero
+        # everywhere (f_uu of every shipped env); clone() materializes it
+        return SecondOrderModel(*(a.clone() for a in fn(x, u)))
 
     def get_quadratic_final_cost(self, x) -> QuadraticFinal:
         """Second-order model of the final cost at ``x``."""

@@ -43,6 +43,10 @@ _SIGNATURES = {
     # dtype, n, m, T, B, newton_iters, fx, fu, lx, lu, lxx, luu, lux, mu,
     # ubar, lo, hi, VT, vT, K, k, dV1, dV2, fail, block, stream
     "tfmpc_riccati_backward_boxqp": [_I] * 6 + [_P] * 18 + [_I, _P],
+    # as tfmpc_riccati_backward, with fxx, fux, fuu after mu
+    "tfmpc_riccati_backward_ddp": [_I] * 5 + [_P] * 18 + [_I, _P],
+    # as tfmpc_riccati_backward_boxqp, with fxx, fux, fuu after hi
+    "tfmpc_riccati_backward_ddp_boxqp": [_I] * 6 + [_P] * 21 + [_I, _P],
     # dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi (null: unbounded),
     # alphas (host f64), A, params (host void*[]), n_params, int_params
     # (host int[]), n_int, J, block, stream

@@ -1,8 +1,8 @@
-// One Riccati timestep of one scenario, shared by K1 (riccati.cu) and K4
-// (riccati_boxqp.cu): the Q blocks, the small Cholesky factorizations and
-// solves, and the value update. Every loop runs over the template dims, so
-// it unrolls and the matrices stay in registers (or spill to local memory
-// when they do not fit).
+// One Riccati timestep of one scenario, shared by K1, K4, K6a and K6b
+// (riccati_kernel.cuh): the Q blocks, the full-DDP terms, the small
+// Cholesky factorizations and solves, and the value update. Every loop runs
+// over the template dims, so it unrolls and the matrices stay in registers
+// (or spill to local memory when they do not fit).
 //
 // Arithmetic mirrors tfmpc_tpu/ops/riccati_pallas.py::_riccati_step_math,
 // _chol_unrolled and _chol_solve_unrolled op for op.
@@ -135,6 +135,53 @@ __device__ __forceinline__ void q_blocks(
   }
 }
 
+// The full-DDP terms (the sec branch of _riccati_step_math): the dynamics
+// Hessians contracted with the value gradient v,
+//   t_xx[i][j] = sum_p v[p] fxx[p][i][j], t_ux[a][i], t_uu[a][c] alike,
+// added to Qxx, Qux, Quu and to QuxR, and QuuR = (QuuR + t_uu) + mu I_m
+// (the combined regularization, in the JAX order of additions). Each
+// Hessian entry is read once from global memory straight into its sum
+// ([T, entries, B] layout, entry (p*N + i)*N + j etc.: a warp reads 32
+// consecutive addresses), and each sum is folded into its Q block at once,
+// so no n^3 array is held.
+template <typename S, int N, int M>
+__device__ __forceinline__ void ddp_terms(
+    const S* __restrict__ fxx, const S* __restrict__ fux,
+    const S* __restrict__ fuu, int t, int b, int B, const S (&v)[N], S mu,
+    QBlocks<S, N, M>& q) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      S acc = 0;
+#pragma unroll
+      for (int p = 0; p < N; ++p)
+        acc += v[p] * fxx[at(t, (p * N + i) * N + j, N * N * N, b, B)];
+      q.Qxx[i][j] = q.Qxx[i][j] + acc;
+    }
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      S acc = 0;
+#pragma unroll
+      for (int p = 0; p < N; ++p)
+        acc += v[p] * fux[at(t, (p * M + a) * N + i, N * M * N, b, B)];
+      q.Qux[a][i] = q.Qux[a][i] + acc;
+      q.QuxR[a][i] = q.QuxR[a][i] + acc;
+    }
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      S acc = 0;
+#pragma unroll
+      for (int p = 0; p < N; ++p)
+        acc += v[p] * fuu[at(t, (p * M + a) * M + c, N * M * M, b, B)];
+      q.Quu[a][c] = q.Quu[a][c] + acc;
+      q.QuuR[a][c] = (q.QuuR[a][c] + acc) + (a == c ? mu : S(0));
+    }
+  }
+}
+
 // Cholesky with the per-lane PD probe (_chol_unrolled with ``fail``): a
 // pivot <= 0 or non-finite sets ``fail``; the sqrt is clamped at 1e-30 so
 // the factor stays finite, and a NaN pivot stays NaN.
@@ -180,6 +227,28 @@ __device__ __forceinline__ void chol_solve(const S (&L)[M][M],
 #pragma unroll
     for (int r = a + 1; r < M; ++r) acc += L[r][a] * x[r];
     x[a] = (y[a] - acc) / L[a][a];
+  }
+}
+
+// K1's gains: the Cholesky of QuuR with the PD probe, then
+// k = -QuuR^-1 Qu and column i of K = -QuuR^-1 QuxR[:, i].
+template <typename S, int N, int M>
+__device__ __forceinline__ void chol_gains(const QBlocks<S, N, M>& q,
+                                           bool& fail, S (&kv)[M],
+                                           S (&Kt)[M][N]) {
+  S L[M][M];
+  chol_probe<S, M>(q.QuuR, L, fail);
+#pragma unroll
+  for (int col = 0; col <= N; ++col) {
+    S rhs[M], xs[M];
+#pragma unroll
+    for (int a = 0; a < M; ++a) rhs[a] = (col == N) ? q.Qu[a] : q.QuxR[a][col];
+    chol_solve<S, M>(L, rhs, xs);
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      if (col == N) kv[a] = -xs[a];
+      else Kt[a][col] = -xs[a];
+    }
   }
 }
 

@@ -1,22 +1,28 @@
-"""K1 and K4: the batched regularized Riccati backward pass of iLQR.
+"""K1, K4, K6a and K6b: the batched regularized Riccati backward pass.
 
-Counterpart of ``tfmpc_tpu/ops/riccati_pallas.py`` (unconstrained and
-control-limited variants). ``riccati_backward`` (K1) and
-``riccati_backward_boxqp`` (K4) are the solver's entries: on a CUDA tensor
-they launch the CUDA kernel (``csrc/riccati.cu``, ``csrc/riccati_boxqp.cu``)
-or raise; on a CPU tensor they run the plain PyTorch versions
-``riccati_backward_ref`` / ``riccati_backward_boxqp_ref``. ``LAUNCHES`` /
-``BOXQP_LAUNCHES`` count kernel launches and ``PLAIN_CALLS`` /
-``BOXQP_PLAIN_CALLS`` the calls that took the plain version.
+Counterpart of ``tfmpc_tpu/ops/riccati_pallas.py`` (its unconstrained,
+control-limited and full-DDP variants). The solver's entries are
+``riccati_backward`` (K1), ``riccati_backward_boxqp`` (K4),
+``riccati_backward_ddp`` (K6a) and ``riccati_backward_ddp_boxqp`` (K6b): on
+a CUDA tensor they launch the CUDA kernel (``csrc/riccati.cu``,
+``riccati_boxqp.cu``, ``riccati_ddp.cu``, ``riccati_ddp_boxqp.cu``) or
+raise; on a CPU
+tensor they run the plain PyTorch versions ``riccati_backward_ref``,
+``riccati_backward_boxqp_ref``, ``riccati_backward_ddp_ref`` and
+``riccati_backward_ddp_boxqp_ref``. ``LAUNCHES``, ``BOXQP_LAUNCHES``,
+``DDP_LAUNCHES`` and ``DDP_BOXQP_LAUNCHES`` count kernel launches and the
+matching ``*PLAIN_CALLS`` the calls that took the plain version.
 
-Both compute, per scenario and for t = T-1 .. 0, the Q blocks from the
+All compute, per scenario and for t = T-1 .. 0, the Q blocks from the
 linearization and the carried value function, the regularized
 ``Quu + f_u^T mu f_u`` (Tassa's ``V + mu I``), its Cholesky factor with a
 per-lane PD probe, the gains, the expected improvement ``dV1``/``dV2`` from
 the unregularized Q terms, and the symmetrized value update. K1's gains are
 ``k = -QuuR^-1 Q_u``, ``K = -QuuR^-1 QuxR``; K4's ``k`` is the boxQP
 minimizer within the control box shifted by the nominal control, and its
-``K`` rows come from the final free set (clamped rows zero).
+``K`` rows come from the final free set (clamped rows zero). K6a and K6b
+are K1 and K4 with the full-DDP terms: the dynamics Hessians contracted
+with the value gradient in every Q block, and ``mu I_m`` on QuuR.
 """
 
 from __future__ import annotations
@@ -31,21 +37,56 @@ LAUNCHES = 0
 PLAIN_CALLS = 0
 BOXQP_LAUNCHES = 0
 BOXQP_PLAIN_CALLS = 0
+DDP_LAUNCHES = 0
+DDP_PLAIN_CALLS = 0
+DDP_BOXQP_LAUNCHES = 0
+DDP_BOXQP_PLAIN_CALLS = 0
 
-# (n, m) pairs the CUDA kernels are instantiated for (csrc/riccati.cu,
-# csrc/riccati_boxqp.cu).
-KERNEL_DIMS = {(2, 2)}
-BOXQP_KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
-# Threads per block: at B=4096, 32 gives 128 blocks, which spread over 128
-# of the H100's 132 SMs (one thread per scenario, see csrc/riccati.cu).
+# (n, m) pairs the four CUDA kernels are instantiated for (csrc/riccati*.cu,
+# one template in riccati_kernel.cuh): bounded navigation (2), the HVAC-3
+# oracle problem (3), reservoir-5 (5) and HVAC-6 (6), the rollout kernels'
+# dims.
+KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
+# Threads per block. One thread owns one scenario and there are only B
+# threads, so small blocks spread them over the H100's 132 SMs: at B=4096
+# (the navigation headline: K1, K6a) 32 give 128 blocks on 128 SMs; at
+# B=2048 (HVAC-6, reservoir-5: K4, K6b) 16 give 128 blocks. K6a and K6b add
+# the Hessians' loads to K1's and K4's chain and keep their launch shape.
 BLOCK = 32
-# K4 at B=2048 (HVAC-6): 16 threads per block give 128 blocks on 128 SMs
-# (csrc/riccati_boxqp.cu).
 BOXQP_BLOCK = 16
+DDP_BLOCK = 32
+DDP_BOXQP_BLOCK = 16
 
 
 def _mv(A, x):
     return (A @ x[..., None])[..., 0]
+
+
+def _cholesky_gains(t, Q_u, Quu_reg, Qux_reg, chol):
+    """K1's gains: ``k = -QuuR^-1 Q_u``, ``K = -QuuR^-1 QuxR``."""
+    K = -torch.cholesky_solve(Qux_reg, chol)
+    k = -torch.cholesky_solve(Q_u[..., None], chol)[..., 0]
+    return K, k, None
+
+
+def _boxqp_gains(bounds, Ubar, boxqp_iters, stats):
+    """K4's gains: ``k`` the boxQP minimizer of (QuuR, Q_u) within
+    ``[low - ubar_t, high - ubar_t]``, ``K`` from its final masked free
+    system (clamped rows exactly zero); a lane also fails where that free
+    system is not PD."""
+    low, high = bounds.low, bounds.high
+
+    def gains(t, Q_u, Quu_reg, Qux_reg, chol):
+        ubar = Ubar[..., t, :]
+        res = boxqp(Quu_reg, Q_u, low - ubar, high - ubar,
+                    max_iters=boxqp_iters)
+        if stats is not None:
+            stats["newton_iterations"] = stats.get("newton_iterations", 0) \
+                + int(res.iterations.sum())
+        K = -solve_free_system(res, Qux_reg)
+        return K, res.x, ~torch.isfinite(res.chol_free).all(dim=(-2, -1))
+
+    return gains
 
 
 def riccati_backward_ref(lin, quad, final, mu):
@@ -57,12 +98,7 @@ def riccati_backward_ref(lin, quad, final, mu):
     fails when any step's Cholesky reports a non-PD pivot or a non-finite
     factor (its outputs are then meaningless and discarded by the caller).
     """
-    def gains(t, Q_u, Quu_reg, Qux_reg, chol):
-        K = -torch.cholesky_solve(Qux_reg, chol)
-        k = -torch.cholesky_solve(Q_u[..., None], chol)[..., 0]
-        return K, k, None
-
-    return _backward_scan(lin, quad, final, mu, gains)
+    return _backward_scan(lin, quad, final, mu, _cholesky_gains)
 
 
 def riccati_backward_boxqp_ref(lin, quad, final, mu, bounds, Ubar,
@@ -79,31 +115,52 @@ def riccati_backward_boxqp_ref(lin, quad, final, mu, bounds, Ubar,
     iterations run over all lanes and steps (a work count for the kernel's
     bound).
     """
-    low, high = bounds.low, bounds.high
-
-    def gains(t, Q_u, Quu_reg, Qux_reg, chol):
-        ubar = Ubar[..., t, :]
-        res = boxqp(Quu_reg, Q_u, low - ubar, high - ubar,
-                    max_iters=boxqp_iters)
-        if stats is not None:
-            stats["newton_iterations"] = stats.get("newton_iterations", 0) \
-                + int(res.iterations.sum())
-        K = -solve_free_system(res, Qux_reg)
-        return K, res.x, ~torch.isfinite(res.chol_free).all(dim=(-2, -1))
-
-    return _backward_scan(lin, quad, final, mu, gains)
+    return _backward_scan(lin, quad, final, mu,
+                          _boxqp_gains(bounds, Ubar, boxqp_iters, stats))
 
 
-def _backward_scan(lin, quad, final, mu, gains):
-    """The reverse loop shared by both plain versions: Q blocks with the
-    regularized ``V + mu I``, the PD probe of QuuR, ``gains(t, Q_u, QuuR,
-    QuxR, chol) -> (K, k, extra_fail or None)``, dV1/dV2 from the
-    unregularized terms and the symmetrized value update."""
+def riccati_backward_ddp_ref(lin, quad, final, mu, second):
+    """Plain PyTorch full-DDP backward pass (the plain version of K6a):
+    ``riccati_backward_ref`` with the dynamics Hessians ``second`` (a
+    ``SecondOrderModel``, ``[..., T]``-leading) contracted with the value
+    gradient into every Q block, and ``mu I_m`` added to QuuR."""
+    return _backward_scan(lin, quad, final, mu, _cholesky_gains, second)
+
+
+def riccati_backward_ddp_boxqp_ref(lin, quad, final, mu, bounds, Ubar,
+                                   second, boxqp_iters: int = 8,
+                                   stats=None):
+    """Plain PyTorch full-DDP control-limited backward pass (the plain
+    version of K6b): ``riccati_backward_boxqp_ref`` with the DDP terms of
+    ``riccati_backward_ddp_ref``."""
+    return _backward_scan(lin, quad, final, mu,
+                          _boxqp_gains(bounds, Ubar, boxqp_iters, stats),
+                          second)
+
+
+def _backward_scan(lin, quad, final, mu, gains, second=None):
+    """The reverse loop shared by the plain versions: Q blocks with the
+    regularized ``V + mu I``, the full-DDP terms when ``second`` is given,
+    the PD probe of QuuR, ``gains(t, Q_u, QuuR, QuxR, chol) -> (K, k,
+    extra_fail or None)``, dV1/dV2 from the unregularized terms and the
+    symmetrized value update.
+
+    The DDP terms (Tassa et al. 2012, eqs. 5c-5e, as the JAX package's
+    ``ilqr.backward``): ``t_xx = sum_p v_p f_xx[p]``, ``t_ux``, ``t_uu``
+    alike, added to Qxx, Quu and Qux and to QuuR and QuxR; the
+    regularization is combined, QuuR becoming ``(QuuR + t_uu) + mu I_m``
+    (``v . f_uu`` does not shrink with mu, and ``f_u`` can vanish, so the
+    state regularization alone cannot restore PD). dV1, dV2 and the value
+    update keep the unregularized blocks."""
     f_x, f_u = lin.f_x, lin.f_u
     T, n = f_x.shape[-3], f_x.shape[-1]
+    m = f_u.shape[-1]
     batch = mu.shape
     eye = torch.eye(n, dtype=f_x.dtype, device=f_x.device)
     mu_eye = mu[..., None, None] * eye
+    if second is not None:
+        mu_eye_m = mu[..., None, None] * torch.eye(m, dtype=f_x.dtype,
+                                                   device=f_x.device)
     V, v = final.l_xx, final.l_x
     dV1 = torch.zeros(batch, dtype=f_x.dtype, device=f_x.device)
     dV2 = torch.zeros_like(dV1)
@@ -123,6 +180,16 @@ def _backward_scan(lin, quad, final, mu, gains):
         Quu_reg = quad.l_uu[..., t, :, :] + fuT_Vreg @ fu
         Qux_reg = quad.l_ux[..., t, :, :] + fuT_Vreg @ fx
 
+        if second is not None:
+            t_xx, t_ux, t_uu = (
+                torch.einsum("...p,...pij->...ij", v, h[..., t, :, :, :])
+                for h in (second.f_xx, second.f_ux, second.f_uu))
+            Q_xx = Q_xx + t_xx
+            Q_uu = Q_uu + t_uu
+            Q_ux = Q_ux + t_ux
+            Quu_reg = Quu_reg + t_uu + mu_eye_m
+            Qux_reg = Qux_reg + t_ux
+
         chol, info = torch.linalg.cholesky_ex(Quu_reg)
         fail = fail | (info != 0) | ~torch.isfinite(chol).all(dim=(-2, -1))
         K, k, extra_fail = gains(t, Q_u, Quu_reg, Qux_reg, chol)
@@ -141,6 +208,11 @@ def _backward_scan(lin, quad, final, mu, gains):
     return ~fail, policy, dV1, dV2
 
 
+def _to_k(a, B, T, e):
+    """``[B, T, ...]`` -> ``[T, e, B]``, contiguous."""
+    return a.reshape(B, T, e).permute(1, 2, 0).contiguous()
+
+
 def _to_kernel_layout(lin, quad, final, mu, bounds=None, Ubar=None):
     """Solver layout ``[B, T, ...]`` -> kernel layout ``[T, entries, B]``;
     with ``bounds`` and ``Ubar`` also K4's ``ubar [T, m, B]`` and
@@ -148,18 +220,14 @@ def _to_kernel_layout(lin, quad, final, mu, bounds=None, Ubar=None):
     B, T, n, _ = lin.f_x.shape
     m = lin.f_u.shape[-1]
     dtype = lin.f_x.dtype
-
-    def to_k(a, e):
-        return a.reshape(B, T, e).permute(1, 2, 0).contiguous()
-
     args = dict(
-        fx=to_k(lin.f_x, n * n),
-        fu=to_k(lin.f_u, n * m),
-        lx=to_k(quad.l_x, n),
-        lu=to_k(quad.l_u, m),
-        lxx=to_k(quad.l_xx, n * n),
-        luu=to_k(quad.l_uu, m * m),
-        lux=to_k(quad.l_ux, m * n),
+        fx=_to_k(lin.f_x, B, T, n * n),
+        fu=_to_k(lin.f_u, B, T, n * m),
+        lx=_to_k(quad.l_x, B, T, n),
+        lu=_to_k(quad.l_u, B, T, m),
+        lxx=_to_k(quad.l_xx, B, T, n * n),
+        luu=_to_k(quad.l_uu, B, T, m * m),
+        lux=_to_k(quad.l_ux, B, T, m * n),
         mu=mu.to(dtype).contiguous(),
         VT=final.l_xx.reshape(B, n * n).T.contiguous(),
         vT=final.l_x.T.contiguous(),
@@ -167,14 +235,29 @@ def _to_kernel_layout(lin, quad, final, mu, bounds=None, Ubar=None):
     if bounds is not None:
         side = lambda a: torch.broadcast_to(  # noqa: E731
             a.to(dtype), (m,)).contiguous()
-        args.update(ubar=to_k(Ubar.to(dtype), m), lo=side(bounds.low),
+        args.update(ubar=_to_k(Ubar.to(dtype), B, T, m), lo=side(bounds.low),
                     hi=side(bounds.high))
     return args
 
 
+def _second_to_kernel_layout(second):
+    """A ``SecondOrderModel`` over ``[B, T]`` -> ``fxx [T, n*n*n, B]``,
+    ``fux [T, n*m*n, B]`` and ``fuu [T, n*m*m, B]``, entry indices
+    ``(p*n + i)*n + j``, ``(p*m + a)*n + i`` and ``(p*m + a)*m + c``
+    (output component p major, as the JAX kernel's)."""
+    B, T, n, m, _ = second.f_ux.shape
+    return dict(fxx=_to_k(second.f_xx, B, T, n * n * n),
+                fux=_to_k(second.f_ux, B, T, n * m * n),
+                fuu=_to_k(second.f_uu, B, T, n * m * m))
+
+
+# Argument order of the launchers, and of the C entries after their ints
+# (the JAX kernel's input order: first order, boxQP, DDP, final value).
 K1_ARGS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux", "mu", "VT", "vT")
 K4_ARGS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux", "mu", "ubar", "lo",
            "hi", "VT", "vT")
+K6A_ARGS = K1_ARGS[:8] + ("fxx", "fux", "fuu") + K1_ARGS[8:]
+K6B_ARGS = K4_ARGS[:11] + ("fxx", "fux", "fuu") + K4_ARGS[11:]
 
 
 def _outputs(T, n, m, B, like):
@@ -185,6 +268,40 @@ def _outputs(T, n, m, B, like):
     return K, k, dV1, dV2, fail
 
 
+def _launch(entry, first, box, second, final, block, boxqp_iters=None):
+    """Check kernel-layout inputs, allocate the outputs and launch the C
+    entry ``entry``: ``first`` = (fx, fu, lx, lu, lxx, luu, lux, mu),
+    ``box`` = (ubar, lo, hi) or (), ``second`` = (fxx, fux, fuu) or (),
+    ``final`` = (VT, vT). Returns ``(K [T, m*n, B], k [T, m, B], dV1 [B],
+    dV2 [B], fail [B])``, ``fail`` 1.0 on lanes whose PD probe failed."""
+    fx, lx, lu = first[0], first[2], first[3]
+    T, nn, B = fx.shape
+    n, m = lx.shape[1], lu.shape[1]
+    shapes_ok = nn == n * n
+    if box:
+        ubar, lo, hi = box
+        shapes_ok &= ubar.shape == (T, m, B) and lo.shape == hi.shape == (m,)
+    if second:
+        shapes_ok &= tuple(a.shape for a in second) == (
+            (T, n * n * n, B), (T, n * m * n, B), (T, n * m * m, B))
+    inputs = first + box + second + final
+    _check_inputs(entry, inputs, (n, m), shapes_ok)
+    ints = (n, m, T, B)
+    if boxqp_iters is not None:
+        if boxqp_iters < 0:
+            raise ValueError("boxqp_iters must be >= 0")
+        ints += (boxqp_iters,)
+    out = _outputs(T, n, m, B, fx)
+    rc = getattr(_build.library(), "tfmpc_" + entry)(
+        _build.DTYPE_CODES[fx.dtype], *ints,
+        *(_build.ptr(a) for a in inputs),
+        *(_build.ptr(a) for a in out),
+        block, _build.stream(),
+    )
+    _build.check(rc, entry)
+    return out
+
+
 def riccati_backward_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT):
     """Launch K1 on kernel-layout tensors ``[T, entries, B]``.
 
@@ -192,20 +309,8 @@ def riccati_backward_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT):
     with ``fail`` 1.0 on lanes whose Cholesky probe failed.
     """
     global LAUNCHES
-    T, nn, B = fx.shape
-    n = lx.shape[1]
-    m = lu.shape[1]
-    inputs = (fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT)
-    _check_inputs("riccati_backward", KERNEL_DIMS, inputs, (n, m),
-                  nn == n * n)
-    out = _outputs(T, n, m, B, fx)
-    rc = _build.library().tfmpc_riccati_backward(
-        _build.DTYPE_CODES[fx.dtype], n, m, T, B,
-        *(_build.ptr(a) for a in inputs),
-        *(_build.ptr(a) for a in out),
-        BLOCK, _build.stream(),
-    )
-    _build.check(rc, "riccati_backward")
+    out = _launch("riccati_backward", (fx, fu, lx, lu, lxx, luu, lux, mu),
+                  (), (), (VT, vT), BLOCK)
     LAUNCHES += 1
     return out
 
@@ -216,37 +321,49 @@ def riccati_backward_boxqp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, ubar,
     B]`` and bounds ``lo``/``hi [m]``; outputs as
     ``riccati_backward_kernel``."""
     global BOXQP_LAUNCHES
-    T, nn, B = fx.shape
-    n = lx.shape[1]
-    m = lu.shape[1]
-    inputs = (fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, VT, vT)
-    _check_inputs("riccati_backward_boxqp", BOXQP_KERNEL_DIMS, inputs,
-                  (n, m), nn == n * n and ubar.shape == (T, m, B)
-                  and lo.shape == hi.shape == (m,))
-    if boxqp_iters < 0:
-        raise ValueError("boxqp_iters must be >= 0")
-    out = _outputs(T, n, m, B, fx)
-    rc = _build.library().tfmpc_riccati_backward_boxqp(
-        _build.DTYPE_CODES[fx.dtype], n, m, T, B, boxqp_iters,
-        *(_build.ptr(a) for a in inputs),
-        *(_build.ptr(a) for a in out),
-        BOXQP_BLOCK, _build.stream(),
-    )
-    _build.check(rc, "riccati_backward_boxqp")
+    out = _launch("riccati_backward_boxqp",
+                  (fx, fu, lx, lu, lxx, luu, lux, mu), (ubar, lo, hi), (),
+                  (VT, vT), BOXQP_BLOCK, boxqp_iters)
     BOXQP_LAUNCHES += 1
     return out
 
 
-def _check_inputs(name, kernel_dims, inputs, dims, shapes_ok):
+def riccati_backward_ddp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, fxx, fux,
+                                fuu, VT, vT):
+    """Launch K6a on kernel-layout tensors ``[T, entries, B]`` with the
+    dynamics Hessians ``fxx [T, n*n*n, B]``, ``fux [T, n*m*n, B]``, ``fuu
+    [T, n*m*m, B]``; outputs as ``riccati_backward_kernel``."""
+    global DDP_LAUNCHES
+    out = _launch("riccati_backward_ddp",
+                  (fx, fu, lx, lu, lxx, luu, lux, mu), (), (fxx, fux, fuu),
+                  (VT, vT), DDP_BLOCK)
+    DDP_LAUNCHES += 1
+    return out
+
+
+def riccati_backward_ddp_boxqp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu,
+                                      ubar, lo, hi, fxx, fux, fuu, VT, vT,
+                                      boxqp_iters: int = 8):
+    """Launch K6b: K4's inputs plus K6a's Hessians; outputs as
+    ``riccati_backward_kernel``."""
+    global DDP_BOXQP_LAUNCHES
+    out = _launch("riccati_backward_ddp_boxqp",
+                  (fx, fu, lx, lu, lxx, luu, lux, mu), (ubar, lo, hi),
+                  (fxx, fux, fuu), (VT, vT), DDP_BOXQP_BLOCK, boxqp_iters)
+    DDP_BOXQP_LAUNCHES += 1
+    return out
+
+
+def _check_inputs(name, inputs, dims, shapes_ok):
     dev, dtype = inputs[0].device, inputs[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if dtype not in _build.DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32/float64, got {dtype}")
-    if dims not in kernel_dims:
+    if dims not in KERNEL_DIMS:
         raise NotImplementedError(
             f"{name} has no CUDA instantiation for (n, m) = {dims} "
-            f"(compiled: {sorted(kernel_dims)}); run with use_pallas=False"
+            f"(compiled: {sorted(KERNEL_DIMS)}); run with use_pallas=False"
         )
     if not shapes_ok or any(
         a.device != dev or a.dtype != dtype or not a.is_contiguous()
@@ -302,4 +419,41 @@ def riccati_backward_boxqp(lin, quad, final, mu, bounds, Ubar,
     a = _to_kernel_layout(lin, quad, final, mu, bounds, Ubar)
     out = riccati_backward_boxqp_kernel(*(a[k] for k in K4_ARGS),
                                         boxqp_iters=boxqp_iters)
+    return _from_kernel_layout(out, B, T, n, lin.f_u.shape[-1])
+
+
+def riccati_backward_ddp(lin, quad, final, mu, second):
+    """K6a's wrapper: the full-DDP backward pass over ``[B, T, ...]``
+    linearizations and dynamics Hessians ``second``, ``mu [B]``. Returns
+    what ``riccati_backward`` returns. CUDA tensors go through the CUDA
+    kernel; CPU tensors through the plain version.
+    """
+    global DDP_PLAIN_CALLS
+    if lin.f_x.device.type == "cpu":
+        DDP_PLAIN_CALLS += 1
+        return riccati_backward_ddp_ref(lin, quad, final, mu, second)
+    B, T, n, _ = lin.f_x.shape
+    a = _to_kernel_layout(lin, quad, final, mu)
+    a.update(_second_to_kernel_layout(second))
+    out = riccati_backward_ddp_kernel(*(a[k] for k in K6A_ARGS))
+    return _from_kernel_layout(out, B, T, n, lin.f_u.shape[-1])
+
+
+def riccati_backward_ddp_boxqp(lin, quad, final, mu, bounds, Ubar, second,
+                               boxqp_iters: int = 8):
+    """K6b's wrapper: the full-DDP control-limited backward pass (K4's
+    inputs plus ``second``). Returns what ``riccati_backward`` returns. CUDA
+    tensors go through the CUDA kernel; CPU tensors through the plain
+    version.
+    """
+    global DDP_BOXQP_PLAIN_CALLS
+    if lin.f_x.device.type == "cpu":
+        DDP_BOXQP_PLAIN_CALLS += 1
+        return riccati_backward_ddp_boxqp_ref(lin, quad, final, mu, bounds,
+                                              Ubar, second, boxqp_iters)
+    B, T, n, _ = lin.f_x.shape
+    a = _to_kernel_layout(lin, quad, final, mu, bounds, Ubar)
+    a.update(_second_to_kernel_layout(second))
+    out = riccati_backward_ddp_boxqp_kernel(*(a[k] for k in K6B_ARGS),
+                                            boxqp_iters=boxqp_iters)
     return _from_kernel_layout(out, B, T, n, lin.f_u.shape[-1])

@@ -7,7 +7,9 @@ a Cholesky PD probe fails) -> parallel line search over the alpha grid,
 until the cost decrease drops below ``atol``. Controls of a bounded env are
 clipped in the rollouts, and with ``ILQRConfig(boxqp=True)`` the backward
 pass solves the control-limited (boxQP) Q-minimization; a bounded env also
-gets the KKT stationarity test when the line search accepts nothing. The
+gets the KKT stationarity test when the line search accepts nothing. With
+``ILQRConfig(ddp=True)`` the backward pass is full second-order DDP: the
+dynamics Hessians enter the Q blocks. The
 JAX package runs the loop as one compiled ``lax.while_loop``; here it is a
 host loop that reads one flag per iteration. ``solve`` is the semantics
 oracle of the batched solver in ``ilqr_batched.py``.
@@ -24,6 +26,8 @@ from torch.func import vmap
 from tfmpc_tpu_torch.core.types import QuadraticFinal, map_fields
 from tfmpc_tpu_torch.ops.riccati import (
     riccati_backward_boxqp_ref,
+    riccati_backward_ddp_boxqp_ref,
+    riccati_backward_ddp_ref,
     riccati_backward_ref,
 )
 from tfmpc_tpu_torch.ops.rollout import closed_loop_rollout
@@ -35,7 +39,6 @@ from tfmpc_tpu_torch.solvers.lqr_parallel import (
 # Options of the JAX ILQRConfig that this package does not implement yet,
 # with the value that keeps them off and the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "ddp": (False, "queue 1 item 13 (full DDP, slice D)"),
     "fuse_derivatives": (False, "queue 1 item 19 (fused derivatives)"),
     "time_axis": (None, "queue 1 item 18 (time-sharded solves)"),
 }
@@ -60,6 +63,13 @@ class ILQRConfig:
     costs and K3 to re-roll the accepted alpha; None (AUTO) takes the
     two-kernel layout (``ilqr_batched._resolve_emit_traj`` says why). Both
     layouts compute the same arithmetic, so the solve is the same.
+
+    ``ddp=True`` is full second-order DDP: each iteration also computes the
+    dynamics Hessians (``Env.get_second_order_transition``), which the
+    backward pass contracts with the value gradient (the JAX package's
+    ``ILQRConfig.ddp``; on the kernel path K6a, or K6b with ``boxqp``). Far
+    from the optimum it restarts more than iLQR; the JAX package's recipe
+    is a few iLQR iterations, then ``resume`` with ``ddp=True``.
     """
 
     atol: float = 1e-4
@@ -231,16 +241,31 @@ def derivatives(env, X, U):
     )
 
 
+def second_derivatives(env, X, U):
+    """The dynamics Hessians (full DDP) along ``X [..., T+1, n]``, ``U [...,
+    T, m]`` (any leading batch dims): ``get_second_order_transition``
+    mapped over the flattened ``[..., T]`` points, as ``derivatives``
+    maps the linearization."""
+    n, m = X.shape[-1], U.shape[-1]
+    lead = U.shape[:-1]
+    second = env.get_second_order_transition(
+        X[..., :-1, :].reshape(-1, n), U.reshape(-1, m), batch=True)
+    return map_fields(lambda a: a.reshape(lead + a.shape[1:]), second)
+
+
 def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
-             Ubar=None):
+             Ubar=None, second=None):
     """Regularized Riccati backward pass (Tassa-style ``V + mu I``).
 
     Returns ``(ok, Policy, dV1, dV2)``; ``ok`` is False where a step's
     regularized ``Quu`` failed the Cholesky PD probe. With
     ``config.boxqp`` and ``bounds``/``Ubar`` given, each step's ``k`` is the
     boxQP minimizer within ``[low - ubar_t, high - ubar_t]`` and the clamped
-    rows of ``K`` are zero (control-limited DDP). Works on any leading batch
-    dims (the plain versions of kernels K1 and K4).
+    rows of ``K`` are zero (control-limited DDP). With ``second`` (a
+    ``SecondOrderModel``) the pass is full DDP: the dynamics Hessians
+    contracted with the value gradient enter every Q block and QuuR gets
+    ``mu I_m`` (``ops/riccati.py::_backward_scan``). Works on any leading
+    batch dims (the plain versions of kernels K1, K4, K6a and K6b).
 
     With ``config.parallel_backward`` the pass is the O(log T) composition
     of ``lqr_parallel.py`` instead (its boxQP variant under the same
@@ -249,6 +274,11 @@ def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
     """
     use_boxqp = config.boxqp and bounds is not None and Ubar is not None
     if config.parallel_backward:
+        if second is not None:
+            raise ValueError(
+                "ddp=True is incompatible with parallel_backward=True: the "
+                "associative-scan backward composes LINEAR value-recursion "
+                "elements")
         if use_boxqp:
             return ilqr_backward_parallel_boxqp(
                 lin, quad, final, mu, bounds, Ubar,
@@ -256,6 +286,12 @@ def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
                 boxqp_iters=config.boxqp_iters)
         return ilqr_backward_parallel(lin, quad, final, mu,
                                       mu_floor=config.parallel_mu_floor)
+    if second is not None:
+        if use_boxqp:
+            return riccati_backward_ddp_boxqp_ref(
+                lin, quad, final, mu, bounds, Ubar, second,
+                config.boxqp_iters)
+        return riccati_backward_ddp_ref(lin, quad, final, mu, second)
     if use_boxqp:
         return riccati_backward_boxqp_ref(lin, quad, final, mu, bounds, Ubar,
                                           config.boxqp_iters)
@@ -263,11 +299,11 @@ def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
 
 
 def backward_with_restarts(lin, quad, final, mu, delta, config: ILQRConfig,
-                           bounds=None, Ubar=None):
+                           bounds=None, Ubar=None, second=None):
     """Backward pass restarted with a larger mu while the PD probe fails
     (one scenario)."""
     def attempt(mu_):
-        return backward(lin, quad, final, mu_, config, bounds, Ubar)
+        return backward(lin, quad, final, mu_, config, bounds, Ubar, second)
 
     ok, policy, dV1, dV2 = attempt(mu)
     tries = 0
@@ -291,8 +327,11 @@ def forward(env, X, U, policy, alpha):
 def _iteration(env, state: _LoopState, config: ILQRConfig, alphas):
     """One outer iteration: derivatives -> backward -> line search."""
     lin, quad, final = derivatives(env, state.X, state.U)
+    second = second_derivatives(env, state.X, state.U) if config.ddp \
+        else None
     ok, policy, dV1, dV2, mu, delta = backward_with_restarts(
-        lin, quad, final, state.mu, state.delta, config, env.bounds, state.U
+        lin, quad, final, state.mu, state.delta, config, env.bounds, state.U,
+        second,
     )
     # every alpha of the grid at once: leading dim [A]
     X_all, U_all, J_all = forward(env, state.X, state.U, policy, alphas)

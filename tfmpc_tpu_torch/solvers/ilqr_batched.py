@@ -9,8 +9,9 @@ scenario that is done freezes. One iteration is
 1. the closed-form linearization (``ilqr.derivatives``);
 2. the Riccati backward inside the per-lane restart loop, compacted to the
    failing lanes when B > 128 (with ``use_pallas``: kernel K1, or K4 for
-   ``boxqp`` on a bounded env; with ``parallel_backward``: the O(log T)
-   composition of ``lqr_parallel.py``);
+   ``boxqp`` on a bounded env, and with ``ddp`` K6a or K6b, which also take
+   the dynamics Hessians of step 1; with ``parallel_backward``: the
+   O(log T) composition of ``lqr_parallel.py``);
 3. the 11-alpha line search (K2), controls clipped to a bounded env's box;
 4. acceptance and the mu schedule, with the KKT stationarity test of a
    bounded env where a lane accepted nothing;
@@ -52,6 +53,7 @@ from tfmpc_tpu_torch.solvers.ilqr import (
     backward,
     derivatives,
     forward,
+    second_derivatives,
 )
 
 
@@ -90,24 +92,33 @@ class _IterationAux(NamedTuple):
 
 
 def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
-                      Ubar):
+                      Ubar, second=None):
     """Batched regularized Riccati backward over [B] scenarios.
 
     ``parallel_backward`` owns the backward pass even with ``use_pallas``
     (the batched O(log T) composition of ``lqr_parallel.py``; the rollouts
-    stay on the kernels), as in the JAX package. Otherwise, with
-    ``use_pallas`` it goes through K4's wrapper for ``boxqp`` on a bounded
-    env and K1's otherwise; a wrapper launches its CUDA kernel on CUDA
-    tensors (raising for dims it has no instantiation for; the JAX
-    package's mid-dim kernel K7 is not ported yet) and runs the plain
-    version on CPU tensors.
+    stay on the kernels), as in the JAX package; it cannot carry the DDP
+    terms. Otherwise, with ``use_pallas`` it goes through K4's wrapper for
+    ``boxqp`` on a bounded env and K1's otherwise, or, with the dynamics
+    Hessians ``second`` (``ddp``), K6b's and K6a's; a wrapper launches its
+    CUDA kernel on CUDA tensors (raising for dims it has no instantiation
+    for; the JAX package's mid-dim kernel K7 is not ported yet, and where
+    the JAX package drops mid-dim DDP to the scan the port raises too) and
+    runs the plain version on CPU tensors.
     """
     if config.use_pallas and not config.parallel_backward:
-        if config.boxqp and bounds is not None:
+        box = config.boxqp and bounds is not None
+        if second is not None:
+            if box:
+                return riccati.riccati_backward_ddp_boxqp(
+                    lin, quad, final, mu, bounds, Ubar, second,
+                    config.boxqp_iters)
+            return riccati.riccati_backward_ddp(lin, quad, final, mu, second)
+        if box:
             return riccati.riccati_backward_boxqp(
                 lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
         return riccati.riccati_backward(lin, quad, final, mu)
-    return backward(lin, quad, final, mu, config, bounds, Ubar)
+    return backward(lin, quad, final, mu, config, bounds, Ubar, second)
 
 
 _RESTART_SUB_BATCH = 128  # gathered-retry width of the compacted restarts
@@ -118,17 +129,20 @@ def _lane_needs(ok, mu, tries, config: ILQRConfig):
 
 
 def _backward_restarts_batched(lin, quad, final, mu, delta,
-                               config: ILQRConfig, bounds=None, Ubar=None):
+                               config: ILQRConfig, bounds=None, Ubar=None,
+                               second=None):
     """Per-scenario restart-on-non-PD loop, batch-wide.
 
     For B > ``_RESTART_SUB_BATCH`` the retries run on a sub-batch of only
     the failing lanes (``_restart_loop_compacted``), with their rows of
-    ``Ubar`` gathered; every lane sees the same (escalate mu -> attempt)
-    sequence as in the full-batch loop.
+    ``Ubar`` and of the dynamics Hessians ``second`` gathered; every lane
+    sees the same (escalate mu -> attempt) sequence as in the full-batch
+    loop.
     """
 
     def attempt(mu_):
-        return _backward_batched(lin, quad, final, mu_, config, bounds, Ubar)
+        return _backward_batched(lin, quad, final, mu_, config, bounds, Ubar,
+                                 second)
 
     R = _RESTART_SUB_BATCH
     if mu.shape[0] <= R:
@@ -140,6 +154,7 @@ def _backward_restarts_batched(lin, quad, final, mu, delta,
             map_fields(sub, lin), map_fields(sub, quad),
             map_fields(sub, final), mu_sub, config, bounds,
             None if Ubar is None else sub(Ubar),
+            None if second is None else map_fields(sub, second),
         )
 
     return _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R)
@@ -262,11 +277,14 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
 
     with record_function("ilqr.derivatives"):
         lin, quad, final = derivatives(env, state.X, state.U)
+        second = second_derivatives(env, state.X, state.U) if config.ddp \
+            else None
     with record_function("ilqr.backward"):
         ok, policy, dV1, dV2, mu, delta = _backward_restarts_batched(
             lin, quad, final, state.mu, state.delta, config, env.bounds,
-            state.U,
+            state.U, second,
         )
+        del second  # the Hessians: free before the line search
 
     use_kernels = _use_pallas_rollout(env, state.X, config)
     emit_traj = use_kernels and _resolve_emit_traj(
