@@ -80,7 +80,27 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     1e-4 of the fp64 oracle at the JAX release claim's case (x0 = 0, f32)
     and at D2's first 4 scenarios in f64 (``ddp_oracle_checks``);
 18. HVAC-3 f64 through K6b against the fp64 boxQP oracle (cost < 1e-5);
-19. solves/s of D1 and D2, and ``torch.profiler`` traces of both.
+19. solves/s of D1 and D2, and ``torch.profiler`` traces of both;
+20. slice E (mid dims): K7, both variants, against its plain versions at
+    E1's shapes (HVAC-16, B=512, T=50) and E2's (the 12-room ring, B=1024,
+    T=100) and on synthetic inputs at (14, 13), (24, 24), (32, 32) and
+    (48, 48) (B=128, T=6, box +-0.4, 4 boxQP iterations), five lanes
+    forced indefinite each: identical ok masks and the ok lanes within
+    tolerance in float64, against the float64 plain version in float32;
+    the clipped K2/K3 at E1's and E2's shapes; K7 against K4 on phase 3's
+    HVAC-6 inputs (the lane/mid boundary: both times); P1 against its plain
+    version at d in {16, 24, 32, 48}, B=1024, beside ``torch.bmm``, and the
+    probe's chain of dependent contractions;
+21. E1, suite config 3b: ``load_env("configs/hvac16.json")``, T=50,
+    B=512, f32, ``ILQRConfig(atol=1e-2, max_iterations=20, boxqp=True,
+    use_pallas=True)``, x0 ~ U(8, 18) from seed 0; counters prove
+    K7-boxQP/K2/K3 ran and nothing else; >= 0.98 converged and 0 failed
+    (the JAX release gate); agreement with the plain path; the same solve
+    clip-only runs K7's iLQR variant/K2/K3;
+22. E2, suite config 3c: the 12-room ring, T=100, B=1024,
+    ``ILQRConfig(atol=1e-3, max_iterations=30, boxqp=True,
+    use_pallas=True)``: K7-boxQP/K2/K3 only, >= 0.99 converged;
+23. solves/s of E1 and E2 and a ``torch.profiler`` trace of E1.
 
 K5 (the emit-trajectories line search) is checked with the other kernels
 in phase 3, at the slice's shape and at the navigation headline's. Each
@@ -167,6 +187,25 @@ DDP_HEADLINE = dict(HEADLINE, ddp=True)
 # 78% (K6b) of the navigation inputs' lanes pass the PD probe, and 90% and
 # 91% of HVAC-6's, so the ok masks and the ok lanes are both compared.
 DDP_SYNTHETIC_SCALE = {"synthetic2": 3e-3, "synthetic6": 2e-5}
+# slice E: suite config 3b (HVAC-16, configs/hvac16.json: T=50, B=512) and
+# 3c (the 12-room HVAC ring: T=100, B=1024), benchmarks/suite.py:140-197
+B_E1, T_E1 = 512, 50
+B_E2, T_E2 = 1024, 100
+E1_CONFIG = dict(atol=1e-2, max_iterations=20, boxqp=True, use_pallas=True)
+E2_CONFIG = dict(atol=1e-3, max_iterations=30, boxqp=True, use_pallas=True)
+# the JAX release gate of E1 (benchmarks/release_check.py:528-550): its
+# unconverged tail is lanes still iterating at the cap of 20, not mu_max
+# failures (PARITY.md:200-209), so >= 0.98 converged and 0 failed
+E1_MIN_CONVERGED = 0.98
+# E2's: the JAX suite records 1.0 (docs/sweeps/r5.md:36)
+E2_MIN_CONVERGED = 0.99
+# K7 on synthetic inputs: the JAX release gate's cases
+# (release_check.py:342-388: B=128, T=6, box +-0.4, 4 boxQP iterations),
+# and one rectangular pair of tests/test_riccati_mid.py
+MID_SYNTHETIC_DIMS = ((14, 13), (24, 24), (32, 32), (48, 48))
+# P1: the JAX probe's dims and batch (benchmarks/mxu_probe.py), and the
+# length of its chain of dependent contractions
+P1_DIMS, P1_B, P1_CHAIN = (16, 24, 32, 48), 1024, 128
 WINDOW_S = 1.0
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # bytes/s, and FLOP/s outside the tensor cores.
@@ -360,19 +399,30 @@ def headline_inputs(dtype, device):
 
 
 def bounded_env(name, dtype):
+    from tfmpc_tpu_torch.models.hvac import make_hvac
     from tfmpc_tpu_torch.models.registry import load_env
 
+    if name == "hvac12":
+        # suite config 3c's ring (benchmarks/suite.py:168-183)
+        R = 12
+        adj = [[1 if abs(i - j) in (1, R - 1) else 0 for j in range(R)]
+               for i in range(R)]
+        return make_hvac(adj, is_out=[1 if i % 4 == 0 else 0
+                                      for i in range(R)],
+                         is_hall=[1 if i % 4 == 2 else 0 for i in range(R)],
+                         dtype=dtype, device="cuda")
     path = {"hvac6": "configs/hvac.json",
+            "hvac16": "configs/hvac16.json",
             "reservoir5": "configs/reservoir.json",
             "nav_bounded": "configs/navigation_bounded.json"}[name]
     return load_env(ROOT / path, dtype=dtype, device="cuda")
 
 
 def boxqp_inputs(name, dtype, Bn=B_BOX, Tn=T):
-    """A bounded env (``hvac6`` or ``reservoir5``), by default at B=2048,
-    T=100: a random clipped nominal (x0 as its solve draws it, controls ~
-    U(0, 4)), its linearization, per-lane mu ~ U(0, 0.5), and a small
-    random feedback policy, from a numpy seed."""
+    """A bounded env (``hvac6``, ``reservoir5``, ``hvac16``, ``hvac12``),
+    by default at B=2048, T=100: a random clipped nominal (x0 as its solve
+    draws it, controls ~ U(0, 4)), its linearization, per-lane mu ~ U(0,
+    0.5), and a small random feedback policy, from a numpy seed."""
     import numpy as np
     import torch
 
@@ -380,7 +430,7 @@ def boxqp_inputs(name, dtype, Bn=B_BOX, Tn=T):
 
     env = bounded_env(name, dtype)
     n = env.state_size
-    lohi = (8.0, 18.0) if name == "hvac6" else (20.0, 95.0)
+    lohi = (8.0, 18.0) if name.startswith("hvac") else (20.0, 95.0)
     rng = np.random.default_rng(11)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
     x0 = t(rng.uniform(*lohi, (Bn, n)))
@@ -585,23 +635,27 @@ def check_k4(name, dtype, timings=None, errs=None):
     )
 
 
-def check_clipped_rollouts(name, dtype, timings=None, errs=None):
+def check_clipped_rollouts(name, dtype, timings=None, errs=None, Bn=B_BOX,
+                           Tn=T, suffix=""):
     """The clipped K2 and K3 against their plain versions at a bounded
     env's solve shapes (the random policy drives many controls into the
-    box's faces)."""
+    box's faces); with ``timings``, timed under the names
+    ``linesearch_costs_clipped`` + ``suffix`` and ``rollout_alpha_clipped``
+    + ``suffix``."""
     import torch
 
     from tfmpc_tpu_torch.ops import rollout
     from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
 
     dn = dname(dtype)
-    env, X, U, _, _, _, _, policy = boxqp_inputs(name, dtype)
+    env, X, U, _, _, _, _, policy = boxqp_inputs(name, dtype, Bn, Tn)
     n = env.state_size
+    env_name = "hvac" if name.startswith("hvac") else "reservoir"
     alphas = ILQRConfig().alphas_static()
     J_k = rollout.linesearch_costs(env, X, U, policy, alphas)
     J_p = rollout.linesearch_costs_ref(env, X, U, policy, alphas)
     alpha_vec = torch.as_tensor(alphas, dtype=dtype, device="cuda")[
-        torch.arange(B_BOX, device="cuda") % A]
+        torch.arange(Bn, device="cuda") % A]
     X_k, U_k, Jm_k = rollout.rollout_alpha(env, X, U, policy, alpha_vec)
     X_p, U_p, Jm_p = rollout.rollout_alpha_ref(env, X, U, policy, alpha_vec)
     torch.cuda.synchronize()
@@ -614,25 +668,27 @@ def check_clipped_rollouts(name, dtype, timings=None, errs=None):
     compare(f"K3 {name} J", Jm_k, Jm_p, dn)
     if timings is None:
         return
-    errs.update(linesearch_costs_clipped=e2, rollout_alpha_clipped=e3)
+    costs, alpha = "linesearch_costs_clipped" + suffix, \
+        "rollout_alpha_clipped" + suffix
+    errs.update({costs: e2, alpha: e3})
     ra = rollout.kernel_args(env, X, U, policy)
     n_params = sum(p.numel() for p in ra["params"])
-    timings["linesearch_costs_clipped"] = (
+    timings[costs] = (
         cuda_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), 20),
         cuda_ms(lambda: rollout.linesearch_costs(env, X, U, policy, alphas),
                 20),
         cuda_ms(lambda: rollout.linesearch_costs_ref(env, X, U, policy,
                                                      alphas), 3),
-        bound(*rollout_work(B_BOX, T, n, n, 4, "hvac", n_params, A, True,
+        bound(*rollout_work(Bn, Tn, n, n, 4, env_name, n_params, A, True,
                             False)),
     )
-    timings["rollout_alpha_clipped"] = (
+    timings[alpha] = (
         cuda_ms(lambda: rollout.rollout_alpha_kernel(ra, alpha_vec), 20),
         cuda_ms(lambda: rollout.rollout_alpha(env, X, U, policy, alpha_vec),
                 20),
         cuda_ms(lambda: rollout.rollout_alpha_ref(env, X, U, policy,
                                                   alpha_vec), 3),
-        bound(*rollout_work(B_BOX, T, n, n, 4, "hvac", n_params, 1, True,
+        bound(*rollout_work(Bn, Tn, n, n, 4, env_name, n_params, 1, True,
                             True)),
     )
 
@@ -828,7 +884,8 @@ def force_indefinite(quad, mu, n):
     return dataclasses.replace(quad, l_uu=luu), mu, bad
 
 
-def hold_backward(label, dtype, run, run_plain, run_ref64, boxqp, bad=None):
+def hold_backward(label, dtype, run, run_plain, run_ref64, boxqp, bad=None,
+                  run_plain_cpu=None):
     """A Riccati kernel against its plain version on the same inputs.
 
     float64: identical ok masks, at least half the lanes ok, and on the ok
@@ -837,8 +894,13 @@ def hold_backward(label, dtype, run, run_plain, run_ref64, boxqp, bad=None):
     flips, counted and printed). float32: the kernel and the float32 plain
     version both against the plain version in float64 (``run_ref64``), the
     kernel's share of lanes within K4_F32_TOL at least the plain version's
-    less K4_F32_SHARE_SLACK, mask differences printed. Returns the largest
-    K/k error against the plain version on the lanes ok in both."""
+    less K4_F32_SHARE_SLACK, mask differences printed. With
+    ``run_plain_cpu`` (the plain version on CPU copies of the inputs), where
+    the plain version's own share across the two devices falls below
+    K4_F64_SHARE, the float64 boxQP share gate is that share less
+    K4_F32_SHARE_SLACK: on an ill-conditioned boxQP the plain version does
+    not reproduce itself to 1e-8 across two rounding orders either. Returns the largest K/k error
+    against the plain version on the lanes ok in both."""
     import torch
 
     dn = dname(dtype)
@@ -875,12 +937,29 @@ def hold_backward(label, dtype, run, run_plain, run_ref64, boxqp, bad=None):
             share = lane_share(outs_k, outs_p, ok_k, *K4_F64_TOL)
             share_all = lane_share(outs_k, outs_p, ok_k, *K4_F64_ALL_TOL)
             flips = round((1.0 - share) * int(ok_k.sum()))
+            gate = K4_F64_SHARE
+            if run_plain_cpu is not None:
+                ok_c, pol_c, dv1_c, dv2_c = (
+                    a.cuda() if torch.is_tensor(a) else dataclasses.replace(
+                        a, K=a.K.cuda(), k=a.k.cuda())
+                    for a in run_plain_cpu())
+                if not torch.equal(ok_c, ok_p):
+                    raise AssertionError(f"{label}: the plain version's ok "
+                                         "masks differ across devices")
+                base = lane_share((pol_p.K, pol_p.k, dv1_p, dv2_p),
+                                  (pol_c.K, pol_c.k, dv1_c, dv2_c), ok_p,
+                                  *K4_F64_TOL)
+                if base < K4_F64_SHARE:
+                    gate = base - K4_F32_SHARE_SLACK
+                print(f"  {label} [{dn}]: the plain version on the card vs on "
+                      f"the CPU: share of ok lanes within {K4_F64_TOL[0]:g} + "
+                      f"{K4_F64_TOL[1]:g}*|plain| {base:.6f}")
             print(f"  {label} [{dn}]: share of ok lanes within "
                   f"{K4_F64_TOL[0]:g} + {K4_F64_TOL[1]:g}*|plain| "
-                  f"{share:.6f} (gate >= {K4_F64_SHARE}; {flips} near-tie "
+                  f"{share:.6f} (gate >= {gate:.6f}; {flips} near-tie "
                   f"lanes), within {K4_F64_ALL_TOL[0]:g} + "
                   f"{K4_F64_ALL_TOL[1]:g}*|plain| {share_all:.6f} (gate 1)")
-            if share < K4_F64_SHARE or share_all < 1.0:
+            if share < gate or share_all < 1.0:
                 raise AssertionError(f"{label} [{dn}]: lanes outside "
                                      "tolerance")
         return max_err, stats
@@ -1050,6 +1129,233 @@ def ddp_oracle_checks(nav32, x0s):
                                  f"oracle ({label})")
 
 
+# -- slice E: K7, P1 and the mid-dim rollouts ----------------------------------
+
+def synthetic_mid_inputs(n, m, dtype, Bn=128, Tn=6):
+    """A random well-posed batched linearization at (n, m) (stable
+    dynamics, PSD costs; ``tests/test_riccati_mid.py::_synthetic``), per-lane
+    mu (half 0), the box +-0.4 and a nominal ``Ubar`` ~ 0.2 N(0, 1), from a
+    numpy seed."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.core.types import (Bounds, LinearModel,
+                                            QuadraticFinal, QuadraticModel)
+
+    rng = np.random.default_rng(100 * n + m)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+
+    def psd(k, scale):
+        a = rng.standard_normal((Bn, Tn, k, k)) * scale
+        return t(np.einsum("btij,btkj->btik", a, a) + 0.5 * np.eye(k))
+
+    lin = LinearModel(
+        f=t(np.zeros((Bn, Tn, n))),
+        f_x=t(0.9 * np.eye(n) + 0.1 * rng.standard_normal((Bn, Tn, n, n))),
+        f_u=t(0.3 * rng.standard_normal((Bn, Tn, n, m))))
+    quad = QuadraticModel(
+        l=t(np.zeros((Bn, Tn))), l_x=t(rng.standard_normal((Bn, Tn, n))),
+        l_u=t(rng.standard_normal((Bn, Tn, m))), l_xx=psd(n, 0.3),
+        l_uu=psd(m, 0.3),
+        l_ux=t(0.1 * rng.standard_normal((Bn, Tn, m, n))))
+    final = QuadraticFinal(l=t(np.zeros(Bn)),
+                           l_x=t(rng.standard_normal((Bn, n))),
+                           l_xx=psd(n, 0.3)[:, 0])
+    mu = t(np.where(rng.uniform(size=Bn) < 0.5, 0.0,
+                    rng.uniform(0.0, 0.3, Bn)))
+    bounds = Bounds(low=t(np.full(m, -0.4)), high=t(np.full(m, 0.4)))
+    Ubar = t(0.2 * rng.standard_normal((Bn, Tn, m)))
+    return lin, quad, final, mu, bounds, Ubar
+
+
+def to_cpu(a):
+    """A tensor, or a dataclass record of tensors, on the CPU."""
+    if hasattr(a, "cpu"):
+        return a.cpu()
+    return dataclasses.replace(a, **{f: getattr(a, f).cpu()
+                                     for f in a.__dataclass_fields__})
+
+
+def mid_case(case, dtype):
+    """K7's inputs: ``hvac16`` (E1's shapes) and ``hvac12`` (E2's), the
+    env's linearization at a random nominal (``boxqp_inputs``) with 8 boxQP
+    iterations, or an (n, m) pair's synthetic inputs with 4. Returns
+    (label, lin, quad, final, mu, bounds, Ubar, boxqp_iters)."""
+    if isinstance(case, str):
+        Bn, Tn = (B_E1, T_E1) if case == "hvac16" else (B_E2, T_E2)
+        env, _, U, lin, quad, final, mu, _ = boxqp_inputs(case, dtype, Bn, Tn)
+        return case, lin, quad, final, mu, env.bounds, U, 8
+    n, m = case
+    return (f"synthetic ({n}, {m})", *synthetic_mid_inputs(n, m, dtype), 4)
+
+
+def check_k7(case, dtype, timings=None, errs=None):
+    """K7, both variants, against its plain versions on ``mid_case(case)``
+    with five lanes forced indefinite (``hold_backward``: identical ok
+    masks and the ok lanes within tolerance in float64, the boxQP's share
+    gate set by the plain version's own agreement across the card and the
+    CPU; the float32 share rule against the float64 plain version). With
+    ``timings``: the kernel,
+    wrapper and plain times and the bounds at these shapes, on the
+    unforced inputs."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    label, lin, quad, final, mu, bounds, U, iters = mid_case(case, dtype)
+    Bn, Tn, n, m = lin.f_u.shape
+    quad_b, mu_b, bad = force_indefinite(quad, mu, m)
+    args = (lin, quad_b, final, mu_b)
+    args64 = (to64(lin), to64(quad_b), to64(final), mu_b.double())
+    box, box64 = (bounds, U), (to64(bounds), U.double())
+    for variant in ("ilqr", "boxqp"):
+        if variant == "ilqr":
+            run = lambda: rm.riccati_backward_mid(*args)  # noqa: E731
+            plain = lambda st: rm.riccati_backward_mid_ref(*args)  # noqa: E731
+            ref64 = lambda: rm.riccati_backward_mid_ref(*args64)  # noqa: E731
+        else:
+            run = lambda: rm.riccati_backward_mid_boxqp(  # noqa: E731
+                *args, *box, iters)
+            plain = lambda st: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+                *args, *box, iters, stats=st)
+            ref64 = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+                *args64, *box64, iters)
+        plain_cpu = None
+        if variant == "boxqp" and dtype == torch.float64:
+            plain_cpu = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa
+                *(to_cpu(a) for a in args + box), iters)
+        err, _ = hold_backward(f"K7-{variant} {label}", dtype, run, plain,
+                               ref64, variant == "boxqp", bad, plain_cpu)
+        if timings is None:
+            continue
+        a = rm.mid_layout(lin, quad, final, mu, bounds, U)
+        if variant == "ilqr":
+            name, work = "riccati_backward_mid", k1_work(Bn, Tn, n, m, 4)
+            kargs = [a[k] for k in rm.MID_ARGS]
+            launch = lambda: rm.riccati_backward_mid_kernel(*kargs)  # noqa
+            wrap = lambda: rm.riccati_backward_mid(lin, quad, final, mu)  # noqa
+            ref = lambda: rm.riccati_backward_mid_ref(  # noqa: E731
+                lin, quad, final, mu)
+        else:
+            stats = {}
+            rm.riccati_backward_mid_boxqp_ref(lin, quad, final, mu, bounds, U,
+                                              iters, stats=stats)
+            name = "riccati_backward_mid_boxqp"
+            work = k4_work(Bn, Tn, n, m, 4, stats["newton_iterations"])
+            kargs = [a[k] for k in rm.MID_BOXQP_ARGS]
+            launch = lambda: rm.riccati_backward_mid_boxqp_kernel(  # noqa
+                *kargs, boxqp_iters=iters)
+            wrap = lambda: rm.riccati_backward_mid_boxqp(  # noqa: E731
+                lin, quad, final, mu, bounds, U, iters)
+            ref = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+                lin, quad, final, mu, bounds, U, iters)
+        errs[name] = err
+        timings[name] = (cuda_ms(launch, 20), cuda_ms(wrap, 20),
+                         cuda_ms(ref, 2), bound(*work))
+
+
+def k7_vs_k4(card):
+    """K7 and K4 on phase 3's HVAC-6 inputs (n = m = 6, B=2048, T=100):
+    the same contract, so in float64 identical ok masks and K4's share
+    gates between the two kernels; in float32 both kernels' times, the
+    lane/mid boundary's measurement. Returns the times."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati, riccati_mid as rm
+
+    env, _, U, lin, quad, final, mu, _ = boxqp_inputs("hvac6", torch.float64)
+    args = (lin, quad, final, mu, env.bounds, U)
+    ok4, pol4, a4, b4 = riccati.riccati_backward_boxqp(*args)
+    ok7, pol7, a7, b7 = rm.riccati_backward_mid_boxqp(*args)
+    torch.cuda.synchronize()
+    outs4, outs7 = (pol4.K, pol4.k, a4, b4), (pol7.K, pol7.k, a7, b7)
+    share = lane_share(outs7, outs4, ok4, *K4_F64_TOL)
+    share_all = lane_share(outs7, outs4, ok4, *K4_F64_ALL_TOL)
+    print(f"  K7 vs K4 on HVAC-6 [float64]: ok masks identical "
+          f"{bool(torch.equal(ok4, ok7))} ({int((~ok4).sum())} failing); "
+          f"share of ok lanes within {K4_F64_TOL[0]:g} + {K4_F64_TOL[1]:g}*"
+          f"|K4| {share:.6f} (gate >= {K4_F64_SHARE}), within "
+          f"{K4_F64_ALL_TOL[0]:g} + {K4_F64_ALL_TOL[1]:g}*|K4| "
+          f"{share_all:.6f} (gate 1)")
+    if not torch.equal(ok4, ok7) or share < K4_F64_SHARE or share_all < 1.0:
+        raise AssertionError("K7 disagrees with K4 on HVAC-6")
+    env, _, U, lin, quad, final, mu, _ = boxqp_inputs("hvac6", torch.float32)
+    a = riccati._to_kernel_layout(lin, quad, final, mu, env.bounds, U)
+    k4_args = [a[k] for k in riccati.K4_ARGS]
+    a = rm.mid_layout(lin, quad, final, mu, env.bounds, U)
+    k7_args = [a[k] for k in rm.MID_BOXQP_ARGS]
+    times = {}
+    for rnd in range(2):  # in turns: K4, K7, K7, K4
+        order = ("K4", "K7") if rnd == 0 else ("K7", "K4")
+        for k in order:
+            fn = (lambda: riccati.riccati_backward_boxqp_kernel(*k4_args)) \
+                if k == "K4" else \
+                (lambda: rm.riccati_backward_mid_boxqp_kernel(*k7_args))
+            times.setdefault(k, []).append(cuda_ms(fn, 10))
+    out = {k: min(v) for k, v in times.items()}
+    print(f"  lane/mid boundary at HVAC-6 (n = m = 6, B={B_BOX}, T={T}, f32):"
+          f" K4 {out['K4']:.4f} ms, K7 {out['K7']:.4f} ms per backward "
+          f"(best of two turns; K7/K4 {out['K7'] / out['K4']:.3f}) [{card}]")
+    return out
+
+
+def check_p1(d, timings, errs, card):
+    """P1 against ``row_matmul_ref`` at d, B=1024 (float32 and float64);
+    in float32 the kernel, wrapper and plain times, the bound and
+    ``torch.bmm`` on ``[B, d, d]`` (the library call computing the same
+    function, timed as a yardstick only), then the probe's own chain of
+    P1_CHAIN dependent contractions through the wrapper (each rescaled, as
+    ``mxu_probe._chained``) with the launch counter set to 0 just before.
+    Returns the chain's launches."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    for dtype in (torch.float64, torch.float32):
+        dn = dname(dtype)
+        rng = np.random.default_rng(d)
+        A = torch.as_tensor(rng.standard_normal((P1_B, d, d)), dtype=dtype,
+                            device="cuda")
+        M = torch.as_tensor(rng.standard_normal((P1_B, d, d)), dtype=dtype,
+                            device="cuda")
+        rows = lambda X: X.reshape(P1_B, d * d).T.contiguous()  # noqa: E731
+        A_rows, M_rows = rows(A), rows(M)
+        err = compare(f"P1 d={d}", rm.row_matmul(A_rows, M_rows, d),
+                      rm.row_matmul_ref(A_rows, M_rows, d), dn,
+                      tol=(1e-5, 1e-5) if dtype == torch.float32 else None)
+    name = f"row_matmul_d{d}"
+    errs[name] = err
+    A, M = A.contiguous(), M.contiguous()
+    bytes_ = 3 * d * d * P1_B * 4
+    timings[name] = (
+        cuda_ms(lambda: rm.row_matmul_kernel(A_rows, M_rows, d), 50),
+        cuda_ms(lambda: rm.row_matmul(A_rows, M_rows, d), 50),
+        cuda_ms(lambda: rm.row_matmul_ref(A_rows, M_rows, d), 50),
+        bound(bytes_, 2 * d ** 3 * P1_B),
+        cuda_ms(lambda: torch.bmm(A, M), 50),
+    )
+    rm.ROW_MATMUL_LAUNCHES = 0
+    C = A_rows
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(P1_CHAIN):
+        C = rm.row_matmul(C, M_rows, d)
+        C = C * torch.rsqrt((C * C).mean() + 1e-6)
+    end.record()
+    torch.cuda.synchronize()
+    launches = rm.ROW_MATMUL_LAUNCHES
+    if launches != P1_CHAIN or not bool(torch.isfinite(C).all()):
+        raise AssertionError(f"P1 chain d={d}: {launches} launches")
+    k_ms, _, p_ms, (b_ms, b_by), lib_ms = timings[name]
+    print(f"  P1 d={d} B={P1_B} f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+          f"ms, torch.bmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"chain of {P1_CHAIN}: {start.elapsed_time(end) / P1_CHAIN:.4f} ms "
+          f"per contraction with its rescale, {launches} launches [{card}]")
+    return launches
+
+
 # -- solves ------------------------------------------------------------------
 
 COUNTERS = {
@@ -1063,6 +1369,10 @@ COUNTERS = {
     "riccati_backward_ddp": ("riccati", "DDP_LAUNCHES", "DDP_PLAIN_CALLS"),
     "riccati_backward_ddp_boxqp": ("riccati", "DDP_BOXQP_LAUNCHES",
                                    "DDP_BOXQP_PLAIN_CALLS"),
+    "riccati_backward_mid": ("riccati_mid", "MID_LAUNCHES",
+                             "MID_PLAIN_CALLS"),
+    "riccati_backward_mid_boxqp": ("riccati_mid", "MID_BOXQP_LAUNCHES",
+                                   "MID_BOXQP_PLAIN_CALLS"),
 }
 
 
@@ -1080,9 +1390,10 @@ def line_search_kernels(config, horizon, n):
 def counted(run):
     """Run ``run()`` with every launch and plain-call counter set to 0 just
     before it; returns (result, launches, plain calls) read just after."""
-    from tfmpc_tpu_torch.ops import riccati, rollout
+    from tfmpc_tpu_torch.ops import riccati, riccati_mid, rollout
 
-    mods = {"riccati": riccati, "rollout": rollout}
+    mods = {"riccati": riccati, "riccati_mid": riccati_mid,
+            "rollout": rollout}
     for mod, launches, plain in COUNTERS.values():
         setattr(mods[mod], launches, 0)
         setattr(mods[mod], plain, 0)
@@ -1522,10 +1833,11 @@ def profile_solve(run, n_solves=2):
 
 def print_ptxas(log_text):
     """ptxas's registers, stack and spills: one line per Riccati kernel
-    instantiation (variants Ilqr: K1, Boxqp: K4, Ddp: K6a, DdpBoxqp: K6b),
-    one summary line per rollout kernel (K2, K3,
-    K5) over its instantiations, and one line per K5 instantiation at the
-    slice's dims (n = m = 5)."""
+    instantiation (variants Ilqr: K1, Boxqp: K4, Ddp: K6a, DdpBoxqp: K6b;
+    K7's riccati_mid_kernel), one summary line per rollout kernel (K2, K3,
+    K5) and for P1 over its instantiations, and one line per K5
+    instantiation at n = m = 5 and per HVAC rollout instantiation at
+    n = m = 12 and 16."""
     entry, rows = None, []
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
@@ -1550,7 +1862,9 @@ def print_ptxas(log_text):
             print(f"  ptxas: {short}: {regs} registers; {stack}")
             continue
         rollout.setdefault(short.split("<")[0], []).append((regs, stack))
-        if "traj" in short and ", 5, 5," in short:
+        if ("traj" in short and ", 5, 5," in short) or (
+                "HVACStep" in short and (", 12, 12," in short
+                                         or ", 16, 16," in short)):
             print(f"  ptxas: {short}: {regs} registers; {stack}")
     for kernel, insts in sorted(rollout.items()):
         spills = sum(int(s.split(",")[1].split()[0]) for _, s in insts)
@@ -1559,6 +1873,99 @@ def print_ptxas(log_text):
               f"{min(r for r, _ in insts)}-{max(r for r, _ in insts)} "
               f"registers, {spills} bytes of spill stores in all, largest "
               f"stack frame {stacks} bytes")
+
+
+def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
+    """Phases 20-23 (slice E): K7, P1 and the mid-dim K2/K3 against their
+    plain versions, the E1 and E2 solves, their rates and the E1 profile.
+    Fills the dicts it is given; returns (e1, e2, the K7/K4 times at
+    HVAC-6, the E1 profile)."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    # -- 20. slice E: K7, P1 and the mid-dim K2/K3 vs plain versions ---------
+    for dtype in (torch.float32, torch.float64):
+        print(f"slice E kernels vs plain versions, {dtype}:")
+        f32 = (timings, errs) if dtype == torch.float32 else ()
+        check_k7("hvac16", dtype, *f32)
+        check_k7("hvac12", dtype)
+        for dims in MID_SYNTHETIC_DIMS:
+            check_k7(dims, dtype)
+        check_clipped_rollouts("hvac16", dtype, *f32, Bn=B_E1, Tn=T_E1,
+                               suffix="_hvac16")
+        check_clipped_rollouts("hvac12", dtype, Bn=B_E2, Tn=T_E2)
+    k7_k4 = k7_vs_k4(card)
+    for d in P1_DIMS:
+        launches_by_path[f"p1_chain_d{d}"] = {
+            "row_matmul": check_p1(d, timings, errs, card)}
+    phase.done("20. K7, P1 and the mid-dim K2/K3 vs plain versions")
+
+    # -- 21. E1: HVAC-16 (suite config 3b, slice E's main path) --------------
+    mid_kernels = {"linesearch_costs", "rollout_alpha"}
+    env16 = bounded_env("hvac16", torch.float32)
+    x0_16 = torch.as_tensor(np.random.default_rng(0).uniform(
+        8.0, 18.0, (B_E1, 16)).astype("float32"), device="cuda")
+    e1_cfg = ILQRConfig(**E1_CONFIG)
+    run_e1 = solver(env16, x0_16, T_E1, e1_cfg)
+    run_e1()
+    print(f"E1, HVAC-16 T={T_E1} B={B_E1} solve (slice E's main path):")
+    res, launches, plain = counted(run_e1)
+    launches_by_path["e1_hvac16"] = launches
+    require_path("E1 solve", launches, plain,
+                 {"riccati_backward_mid_boxqp"} | mid_kernels)
+    e1 = {"converged": check_result("E1", res, B_E1, 16, T_E1),
+          "failed": int(res.failed.sum()),
+          "mean_cost": float(res.total_cost.double().mean())}
+    print(f"  E1 gate (release_check.py:528-550): converged >= "
+          f"{E1_MIN_CONVERGED} and 0 failed: {e1}")
+    if e1["converged"] < E1_MIN_CONVERGED or e1["failed"]:
+        raise AssertionError("E1 solve below the release gate")
+    plain_s["e1_hvac16"] = agree_with_plain("E1", res, solver(
+        env16, x0_16, T_E1, dataclasses.replace(e1_cfg, use_pallas=False)))
+    # K7's iLQR variant: the same solve clip-only (boxqp=False), whose
+    # convergence is printed, not gated (clip-only is the weaker algorithm)
+    res, launches, plain = counted(solver(
+        env16, x0_16, T_E1, dataclasses.replace(e1_cfg, boxqp=False)))
+    launches_by_path["e1_hvac16_clip"] = launches
+    require_path("E1 clip-only solve", launches, plain,
+                 {"riccati_backward_mid"} | mid_kernels)
+    check_result("E1 clip-only", res, B_E1, 16, T_E1)
+    phase.done("21. E1 HVAC-16")
+
+    # -- 22. E2: the 12-room HVAC ring (suite config 3c) ----------------------
+    env12 = bounded_env("hvac12", torch.float32)
+    x0_12 = torch.as_tensor(np.random.default_rng(0).uniform(
+        8.0, 18.0, (B_E2, 12)).astype("float32"), device="cuda")
+    run_e2 = solver(env12, x0_12, T_E2, ILQRConfig(**E2_CONFIG))
+    run_e2()
+    print(f"E2, HVAC-12 ring T={T_E2} B={B_E2} solve:")
+    res, launches, plain = counted(run_e2)
+    launches_by_path["e2_hvac12"] = launches
+    require_path("E2 solve", launches, plain,
+                 {"riccati_backward_mid_boxqp"} | mid_kernels)
+    e2 = {"converged": check_result("E2", res, B_E2, 12, T_E2),
+          "failed": int(res.failed.sum()),
+          "mean_cost": float(res.total_cost.double().mean())}
+    if e2["converged"] < E2_MIN_CONVERGED:
+        raise AssertionError(f"E2 solve converged only {e2['converged']:.4f}")
+    phase.done("22. E2 HVAC-12")
+
+    # -- 23. slice E timing and the E1 profile --------------------------------
+    for label, run, Bn in (("e1_hvac16", run_e1, B_E1),
+                           ("e2_hvac12", run_e2, B_E2)):
+        w = solves_per_s(run, Bn)
+        rates[label] = sorted(w)[2]
+        plain_txt = (f"; one plain solve {plain_s[label]:.2f} s "
+                     f"({Bn / plain_s[label]:.1f} solves/s)"
+                     if label in plain_s else "")
+        print(f"solves/s, {label}, kernels, f32, B={Bn}: median "
+              f"{rates[label]:.1f}, windows {[round(x, 1) for x in w]}"
+              f"{plain_txt} [{card}]")
+    e1_profile = print_profile("E1 HVAC-16", run_e1, card)
+    phase.done("23. slice E solves/s and the E1 profile")
+    return e1, e2, k7_k4, e1_profile
 
 
 def main() -> int:
@@ -1592,6 +1999,10 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({_build.library_path().name})")
     print_ptxas(_build.library_path().with_suffix(".log").read_text())
+    lib = _build.library()
+    print("  K7 dynamic shared memory per block (doubles, both dtypes): "
+          + ", ".join(f"{dims} {lib.tfmpc_riccati_mid_smem_bytes(*dims)} B"
+                      for dims in ((12, 12), (16, 16), (14, 13), (48, 48))))
 
     # -- 3. kernels vs plain versions ---------------------------------------
     timings, errs = {}, {}
@@ -1842,16 +2253,23 @@ def main() -> int:
     d2_profile = print_profile("D2 navigation DDP", run_d2, card)
     phase.done("19. slice D solves/s and the D1 and D2 profiles")
 
+    e1, e2, k7_k4, e1_profile = slice_e(phase, timings, errs,
+                                        launches_by_path, plain_s, rates,
+                                        card)
+
     for name, value in timings.items():
         if name.endswith("_select_ms"):
             continue
-        k_ms, w_ms, p_ms, (b_ms, b_by) = value
+        k_ms, w_ms, p_ms, (b_ms, b_by), *lib = value
         print(f"{name} f32: kernel {k_ms:.4f} ms, wrapper with layout copies "
               f"{w_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}) [{card}]")
+              f"({b_by})" + (f", library {lib[0]:.4f} ms" if lib else "")
+              + f" [{card}]")
 
     # name -> (source, TPU kernel it replaces, path, launch counter)
-    rollout_cu = "tfmpc_tpu_torch/ops/csrc/rollout.cu"
+    rollout_cu = "tfmpc_tpu_torch/ops/csrc/rollout.cuh"
+    mid_cu = "tfmpc_tpu_torch/ops/csrc/riccati_mid.cu"
+    k7_tpu = "tfmpc_tpu/ops/riccati_mid_pallas.py:462"
     k2_tpu = "tfmpc_tpu/ops/rollout_pallas.py:647"
     k3_tpu = "tfmpc_tpu/ops/rollout_pallas.py:804"
     sources = {
@@ -1883,17 +2301,29 @@ def main() -> int:
             "tfmpc_tpu_torch/ops/csrc/riccati_ddp_boxqp.cu",
             "tfmpc_tpu/ops/riccati_pallas.py:564", "d1_reservoir5_ddp",
             "riccati_backward_ddp_boxqp"),
+        "riccati_backward_mid": (mid_cu, k7_tpu, "e1_hvac16_clip",
+                                 "riccati_backward_mid"),
+        "riccati_backward_mid_boxqp": (mid_cu, k7_tpu, "e1_hvac16",
+                                       "riccati_backward_mid_boxqp"),
+        "linesearch_costs_clipped_hvac16": (rollout_cu, k2_tpu, "e1_hvac16",
+                                            "linesearch_costs"),
+        "rollout_alpha_clipped_hvac16": (rollout_cu, k3_tpu, "e1_hvac16",
+                                         "rollout_alpha"),
+        **{f"row_matmul_d{d}": ("tfmpc_tpu_torch/ops/csrc/row_matmul.cu",
+                                "benchmarks/mxu_probe.py:82",
+                                f"p1_chain_d{d}", "row_matmul")
+           for d in P1_DIMS},
     }
     kernels = []
     for name, (src, replaces, path, counter) in sources.items():
-        k_ms, w_ms, p_ms, (b_ms, b_by) = timings[name]
+        k_ms, w_ms, p_ms, (b_ms, b_by), *lib = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": path,
             "launches": launches_by_path[path][counter],
             "max_abs_err": errs[name], "ms": k_ms, "wrapper_ms": w_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": lib[0] if lib else None,
         })
     print(json.dumps({"kernels": kernels, "build_s": build_s,
                       "solves_per_s": rates, "plain_solve_s": plain_s,
@@ -1910,6 +2340,9 @@ def main() -> int:
                       "d2_profile": d2_profile,
                       "d1_vs_ilqr": ddp_vs_ilqr,
                       "d2_converged": d2_converged,
+                      "e1_profile": e1_profile,
+                      "e1": e1, "e2": e2,
+                      "k7_vs_k4_hvac6_ms": k7_k4,
                       "phase_s": phase.seconds,
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))

@@ -1,7 +1,8 @@
 """The port's HVAC and reservoir envs and its registry vs the JAX package.
 
 Both envs are built from the repo's configs (``configs/hvac.json``, six
-rooms; ``configs/reservoir.json``, five reservoirs) by each package's
+rooms, and ``configs/hvac16.json``, sixteen, the mid-dim slice's env;
+``configs/reservoir.json``, five reservoirs) by each package's
 ``load_env`` in float64, and the same inputs, drawn with numpy from a seed,
 go through both. Tolerance: 1e-12 relative and absolute; both evaluate the
 same float64 formulas, and only the order of a few sums and the sin
@@ -39,7 +40,9 @@ from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
 TOL = dict(rtol=1e-12, atol=1e-12)
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 ENVS = {"hvac": ("hvac.json", (8.0, 24.0), (0.0, 10.0)),
+        "hvac16": ("hvac16.json", (8.0, 24.0), (0.0, 10.0)),
         "reservoir": ("reservoir.json", (5.0, 98.0), (0.0, 50.0))}
+SIZES = {"hvac": 6, "hvac16": 16, "reservoir": 5}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -58,7 +61,7 @@ def _envs(name):
 
 def _points(name, shape, seed):
     _, xr, ur = ENVS[name]
-    n = 6 if name == "hvac" else 5
+    n = SIZES[name]
     rng = np.random.default_rng(seed)
     return (rng.uniform(*xr, shape + (n,)), rng.uniform(*ur, shape + (n,)))
 
@@ -72,7 +75,7 @@ def test_dynamics_and_costs_match_jax(name):
     jenv, tenv = _envs(name)
     x, u = _points(name, (64,), 0)
     # points exactly on the hinges of the comfort / level costs
-    if name == "hvac":
+    if name.startswith("hvac"):
         x[0, :3], x[1, :3] = 20.0, 23.5
     else:
         x[0, :3], x[1, :3] = 10.0, 90.0
@@ -122,7 +125,8 @@ def test_analytic_derivatives_match_jax_and_autodiff(name):
                 getattr(a, f).numpy(), err_msg=f, **TOL)
 
 
-@pytest.mark.parametrize("config", ["hvac.json", "reservoir.json",
+@pytest.mark.parametrize("config", ["hvac.json", "hvac16.json",
+                                    "reservoir.json",
                                     "navigation_bounded.json"])
 def test_load_env_matches_jax_registry(config):
     jenv = jregistry.load_env(str(CONFIGS / config), dtype=jnp.float64)
@@ -140,7 +144,7 @@ def test_load_env_matches_jax_registry(config):
     np.testing.assert_array_equal(tenv.bounds.high.numpy(),
                                   _np(jenv.bounds.high))
     # the same env carried over as numpy arrays
-    name = config.split(".")[0].replace("_bounded", "")
+    name = config.split(".")[0].replace("_bounded", "").replace("16", "")
     arrays = {f.name: _np(getattr(jenv, f.name))
               for f in dataclasses.fields(jenv) if f.name != "bounds"}
     carried = interop.env_from_numpy(
@@ -159,7 +163,7 @@ def test_device_step_params_match_jax_lane_params(name):
     jenv, tenv = _envs(name)
     step = tenv.device_step()
     jparams = jenv.lane_functions()[0]
-    if name == "hvac":
+    if name.startswith("hvac"):
         assert step.env_id == HVAC_STEP_ID and step.int_params == ()
         names = HVAC_STEP_PARAMS
     else:

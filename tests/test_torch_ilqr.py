@@ -32,7 +32,7 @@ from tfmpc_tpu.solvers import ilqr as jilqr
 from tfmpc_tpu.solvers import ilqr_batched as jbatched
 from tfmpc_tpu_torch import interop
 from tfmpc_tpu_torch.models.navigation import make_navigation
-from tfmpc_tpu_torch.ops import riccati, rollout
+from tfmpc_tpu_torch.ops import riccati, riccati_mid, rollout
 from tfmpc_tpu_torch.solvers import ilqr, ilqr_batched
 
 GOAL = [8.0, -5.0]
@@ -352,14 +352,16 @@ def _bounded_envs(name):
 ])
 def test_bounded_solve_batch_matches_jax(name, boxqp, horizon):
     """The slice as a whole: boxQP on HVAC-3 and reservoir-4 (kernel K4's
-    plain version) and clip-only bounded navigation (K1's), each with the
-    clipped line search and the KKT test, against the JAX package."""
+    plain version; at reservoir-4's dims (4, 4), outside K4's
+    instantiations, K7's, the same function) and clip-only bounded
+    navigation (K1's), each with the clipped line search and the KKT test,
+    against the JAX package."""
     jenv, tenv, lohi = _bounded_envs(name)
     x0 = np.random.default_rng(3).uniform(*lohi, (8, tenv.state_size))
     cfg = dict(atol=1e-3, max_iterations=30, boxqp=boxqp)
     res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=horizon,
                               config=jilqr.ILQRConfig(**cfg))
-    counts = (riccati.BOXQP_PLAIN_CALLS, riccati.PLAIN_CALLS)
+    counts = _backward_plain_calls()
     res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=horizon,
                              config=ilqr.ILQRConfig(**cfg, use_pallas=True))
     _assert_same_solve(res_t, res_j)
@@ -368,14 +370,22 @@ def test_bounded_solve_batch_matches_jax(name, boxqp, horizon):
     assert bool(res_t.converged.any())
     assert float(res_t.actions.min()) >= float(tenv.bounds.low.min())
     assert float(res_t.actions.max()) <= float(tenv.bounds.high.max())
-    # the kernel wrappers ran their plain versions: K4's for boxqp, K1's
-    # for clip-only
+    # the kernel wrappers ran their plain versions: K4's (or K7's boxQP
+    # variant) for boxqp, K1's (or K7's iLQR variant) for clip-only
+    box, plain = _backward_plain_calls()
     if boxqp:
-        assert riccati.BOXQP_PLAIN_CALLS > counts[0]
-        assert riccati.PLAIN_CALLS == counts[1]
+        assert box > counts[0]
+        assert plain == counts[1]
     else:
-        assert riccati.BOXQP_PLAIN_CALLS == counts[0]
-        assert riccati.PLAIN_CALLS > counts[1]
+        assert box == counts[0]
+        assert plain > counts[1]
+
+
+def _backward_plain_calls():
+    """Plain-version calls of the boxQP backward wrappers (K4's and K7's)
+    and of the iLQR ones (K1's and K7's)."""
+    return (riccati.BOXQP_PLAIN_CALLS + riccati_mid.MID_BOXQP_PLAIN_CALLS,
+            riccati.PLAIN_CALLS + riccati_mid.MID_PLAIN_CALLS)
 
 
 KKT_CASES = {
@@ -534,7 +544,7 @@ def test_emit_trajectories_solve_batch_matches_jax():
     res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=30,
                               config=jilqr.ILQRConfig(**cfg))
     counts = (rollout.TRAJ_PLAIN_CALLS, rollout.COSTS_PLAIN_CALLS,
-              rollout.ALPHA_PLAIN_CALLS, riccati.BOXQP_PLAIN_CALLS)
+              rollout.ALPHA_PLAIN_CALLS, _backward_plain_calls()[0])
     res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=30,
                              config=ilqr.ILQRConfig(
                                  **cfg, use_pallas=True,
@@ -542,7 +552,7 @@ def test_emit_trajectories_solve_batch_matches_jax():
     assert rollout.TRAJ_PLAIN_CALLS > counts[0]
     assert (rollout.COSTS_PLAIN_CALLS, rollout.ALPHA_PLAIN_CALLS) \
         == counts[1:3]
-    assert riccati.BOXQP_PLAIN_CALLS > counts[3]
+    assert _backward_plain_calls()[0] > counts[3]
     _assert_same_solve(res_t, res_j)
     np.testing.assert_allclose(res_t.total_cost.numpy(),
                                np.asarray(res_j.total_cost), rtol=1e-9)

@@ -47,6 +47,12 @@ _SIGNATURES = {
     "tfmpc_riccati_backward_ddp": [_I] * 5 + [_P] * 18 + [_I, _P],
     # as tfmpc_riccati_backward_boxqp, with fxx, fux, fuu after hi
     "tfmpc_riccati_backward_ddp_boxqp": [_I] * 6 + [_P] * 21 + [_I, _P],
+    # K7 (riccati_mid.cu), the solver's [B, T, ...] layout: as
+    # tfmpc_riccati_backward and tfmpc_riccati_backward_boxqp
+    "tfmpc_riccati_backward_mid": [_I] * 5 + [_P] * 15 + [_I, _P],
+    "tfmpc_riccati_backward_mid_boxqp": [_I] * 6 + [_P] * 18 + [_I, _P],
+    # P1 (row_matmul.cu): dtype, d, B, A, M, C, block, stream
+    "tfmpc_row_matmul": [_I] * 3 + [_P] * 3 + [_I, _P],
     # dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi (null: unbounded),
     # alphas (host f64), A, params (host void*[]), n_params, int_params
     # (host int[]), n_int, J, block, stream
@@ -160,6 +166,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tfmpc_error_string.argtypes = [ctypes.c_int]
     lib.tfmpc_error_string.restype = ctypes.c_char_p
+    lib.tfmpc_riccati_mid_smem_bytes.argtypes = [_I] * 2
+    lib.tfmpc_riccati_mid_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

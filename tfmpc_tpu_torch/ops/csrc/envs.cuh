@@ -1,4 +1,4 @@
-// Env step functors compiled into the rollout kernels (rollout.cu).
+// Env step functors compiled into the rollout kernels (rollout.cuh).
 //
 // Each functor mirrors its env's public transition/cost/final_cost exactly
 // (and the JAX package's lane_functions, e.g. navigation.py:182-214), and is

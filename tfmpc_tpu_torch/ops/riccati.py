@@ -44,8 +44,8 @@ DDP_BOXQP_PLAIN_CALLS = 0
 
 # (n, m) pairs the four CUDA kernels are instantiated for (csrc/riccati*.cu,
 # one template in riccati_kernel.cuh): bounded navigation (2), the HVAC-3
-# oracle problem (3), reservoir-5 (5) and HVAC-6 (6), the rollout kernels'
-# dims.
+# oracle problem (3), reservoir-5 (5) and HVAC-6 (6). The solver routes
+# other dims up to 48 to K7 (ops/riccati_mid.py), DDP excepted.
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
 # Threads per block. One thread owns one scenario and there are only B
 # threads, so small blocks spread them over the H100's 132 SMs: at B=4096
@@ -363,7 +363,8 @@ def _check_inputs(name, inputs, dims, shapes_ok):
     if dims not in KERNEL_DIMS:
         raise NotImplementedError(
             f"{name} has no CUDA instantiation for (n, m) = {dims} "
-            f"(compiled: {sorted(KERNEL_DIMS)}); run with use_pallas=False"
+            f"(compiled: {sorted(KERNEL_DIMS)}); other dims up to 48 run "
+            "through K7 (ops/riccati_mid.py), or run with use_pallas=False"
         )
     if not shapes_ok or any(
         a.device != dev or a.dtype != dtype or not a.is_contiguous()

@@ -8,7 +8,7 @@ emit-trajectories line search: ``linesearch_costs_traj`` (K5) is K2 that
 also writes every alpha's trajectory, and ``select_alpha_trajectory`` picks
 each scenario's accepted one, so an iteration runs one rollout chain
 instead of two. On CUDA tensors the wrappers launch the CUDA kernels of
-``csrc/rollout.cu`` (the env step compiled in, selected by
+``csrc/rollout.cuh`` (the env step compiled in, selected by
 ``Env.device_step``) or raise; on CPU tensors they run the plain PyTorch
 versions ``linesearch_costs_ref`` / ``rollout_alpha_ref`` /
 ``linesearch_costs_traj_ref``. The module counts kernel launches and
@@ -23,6 +23,7 @@ from typing import Sequence
 
 import torch
 
+from tfmpc_tpu_torch.models.hvac import HVAC_STEP_ID
 from tfmpc_tpu_torch.ops import _build
 
 COSTS_LAUNCHES = 0
@@ -32,9 +33,12 @@ ALPHA_PLAIN_CALLS = 0
 TRAJ_LAUNCHES = 0
 TRAJ_PLAIN_CALLS = 0
 
-# (n, m) pairs the CUDA kernels are instantiated for (csrc/rollout.cu).
-KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
-MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cu)
+# (n, m) pairs the CUDA kernels are instantiated for (csrc/rollout.cuh):
+# every env's step at the small dims (rollout.cu), the HVAC step alone at
+# the mid dims (rollout_n12.cu, rollout_n16.cu: HVAC-12 and HVAC-16).
+KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6), (12, 12), (16, 16)}
+HVAC_ONLY_DIMS = {(12, 12), (16, 16)}
+MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cuh)
 BLOCK = 128
 
 
@@ -143,6 +147,12 @@ def kernel_layout(env, X, U, policy):
         raise NotImplementedError(
             f"the rollout kernels have no instantiation for (n, m) = "
             f"{(n, m)} (compiled: {sorted(KERNEL_DIMS)}); run with "
+            "use_pallas=False"
+        )
+    if (n, m) in HVAC_ONLY_DIMS and step.env_id != HVAC_STEP_ID:
+        raise NotImplementedError(
+            f"the rollout kernels run only the HVAC step at (n, m) = "
+            f"{(n, m)}, not {type(env).__name__}'s; run with "
             "use_pallas=False"
         )
     params = [

@@ -10,8 +10,9 @@ scenario that is done freezes. One iteration is
 2. the Riccati backward inside the per-lane restart loop, compacted to the
    failing lanes when B > 128 (with ``use_pallas``: kernel K1, or K4 for
    ``boxqp`` on a bounded env, and with ``ddp`` K6a or K6b, which also take
-   the dynamics Hessians of step 1; with ``parallel_backward``: the
-   O(log T) composition of ``lqr_parallel.py``);
+   the dynamics Hessians of step 1, at the lane kernels' dims; K7 at other
+   dims up to 48; with ``parallel_backward``: the O(log T) composition of
+   ``lqr_parallel.py``);
 3. the 11-alpha line search (K2), controls clipped to a bounded env's box;
 4. acceptance and the mu schedule, with the KKT stationarity test of a
    bounded env where a lane accepted nothing;
@@ -42,7 +43,7 @@ import torch
 from torch.profiler import record_function
 
 from tfmpc_tpu_torch.core.types import map_fields
-from tfmpc_tpu_torch.ops import riccati, rollout
+from tfmpc_tpu_torch.ops import riccati, riccati_mid, rollout
 from tfmpc_tpu_torch.solvers.ilqr import (
     ILQRConfig,
     ILQRResult,
@@ -91,23 +92,50 @@ class _IterationAux(NamedTuple):
     accepted: torch.Tensor   # [B] bool
 
 
+def _riccati_kernel_mode(n: int, m: int, config: ILQRConfig, device):
+    """Which Riccati kernel family a batch at dims (n, m) runs on ``device``.
+
+    None: the plain backward (``use_pallas=False``, or
+    ``parallel_backward``, which owns the backward pass even with
+    ``use_pallas``, as in the JAX package). "lane": K1/K4/K6a/K6b, for the
+    dims they are instantiated at (``riccati.KERNEL_DIMS``). "mid": K7, for
+    any other dims within ``riccati_mid.mid_kernel_supported`` and without
+    ``ddp`` (K7 has no DDP terms). Anything else raises
+    ``NotImplementedError`` naming the dims on a CUDA device, where the JAX
+    package drops mid-dim DDP to the vmapped scan with no signal; on the
+    CPU it is the plain backward, which every wrapper would run there
+    anyway. The lane/mid boundary is the port's own (the kernels'
+    instantiations), not the JAX package's TPU lane limit of 12.
+    """
+    if not config.use_pallas or config.parallel_backward:
+        return None
+    if (n, m) in riccati.KERNEL_DIMS:
+        return "lane"
+    if not config.ddp and riccati_mid.mid_kernel_supported(n, m):
+        return "mid"
+    if torch.device(device).type == "cuda":
+        what = "full DDP (ddp=True)" if config.ddp else "iLQR"
+        raise NotImplementedError(
+            f"use_pallas=True on CUDA, but no Riccati kernel runs {what} at "
+            f"(n, m) = {(n, m)}: the lane kernels take "
+            f"{sorted(riccati.KERNEL_DIMS)}, K7 any 1 <= n, m <= "
+            f"{riccati_mid.MID_DIM_MAX} without ddp; pass use_pallas=False")
+    return None
+
+
 def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
                       Ubar, second=None):
-    """Batched regularized Riccati backward over [B] scenarios.
-
-    ``parallel_backward`` owns the backward pass even with ``use_pallas``
-    (the batched O(log T) composition of ``lqr_parallel.py``; the rollouts
-    stay on the kernels), as in the JAX package; it cannot carry the DDP
-    terms. Otherwise, with ``use_pallas`` it goes through K4's wrapper for
-    ``boxqp`` on a bounded env and K1's otherwise, or, with the dynamics
-    Hessians ``second`` (``ddp``), K6b's and K6a's; a wrapper launches its
-    CUDA kernel on CUDA tensors (raising for dims it has no instantiation
-    for; the JAX package's mid-dim kernel K7 is not ported yet, and where
-    the JAX package drops mid-dim DDP to the scan the port raises too) and
-    runs the plain version on CPU tensors.
+    """Batched regularized Riccati backward over [B] scenarios, routed by
+    ``_riccati_kernel_mode``: the lane kernels' wrappers (K4 for ``boxqp``
+    on a bounded env and K1 otherwise, or with the dynamics Hessians
+    ``second`` (``ddp``) K6b and K6a), K7's (its boxQP variant under the
+    same condition), or the plain ``backward``. A wrapper launches its CUDA
+    kernel on CUDA tensors and runs its plain version on CPU tensors.
     """
-    if config.use_pallas and not config.parallel_backward:
-        box = config.boxqp and bounds is not None
+    n, m = lin.f_x.shape[-1], lin.f_u.shape[-1]
+    mode = _riccati_kernel_mode(n, m, config, lin.f_x.device)
+    box = config.boxqp and bounds is not None
+    if mode == "lane":
         if second is not None:
             if box:
                 return riccati.riccati_backward_ddp_boxqp(
@@ -118,6 +146,11 @@ def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
             return riccati.riccati_backward_boxqp(
                 lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
         return riccati.riccati_backward(lin, quad, final, mu)
+    if mode == "mid":
+        if box:
+            return riccati_mid.riccati_backward_mid_boxqp(
+                lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
+        return riccati_mid.riccati_backward_mid(lin, quad, final, mu)
     return backward(lin, quad, final, mu, config, bounds, Ubar, second)
 
 
