@@ -61,9 +61,8 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
 12. exact LQR (suite config 1): linear navigation, T=100, f64 on the card,
     against the NumPy Riccati oracle (1e-9); solves/s single and batched;
 13. the emit A/B: solves/s with ``linesearch_emit_trajectories`` True and
-    False, in turns, at reservoir-5 T=500 (2 windows each) and HVAC-6 T=100
-    (3 each) (the A/B behind the AUTO rule of
-    ``ilqr_batched._resolve_emit_traj``);
+    False, in turns, at HVAC-6 T=100 (3 windows each) (the A/B behind the
+    AUTO rule of ``ilqr_batched._resolve_emit_traj``);
 14. a ``torch.profiler`` trace of the reservoir-5 T=500 solve;
 15. slice D (full DDP): K6a at the navigation headline's shapes and K6b at
     reservoir-5 and HVAC-6 (B=2048), on the envs' dynamics Hessians (five
@@ -100,7 +99,29 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
 22. E2, suite config 3c: the 12-room ring, T=100, B=1024,
     ``ILQRConfig(atol=1e-3, max_iterations=30, boxqp=True,
     use_pallas=True)``: K7-boxQP/K2/K3 only, >= 0.99 converged;
-23. solves/s of E1 and E2 and a ``torch.profiler`` trace of E1.
+23. solves/s of E1 and E2 and a ``torch.profiler`` trace of E1;
+24. slice F (the fused iteration): K8, the materialize rollout that also
+    writes the linearization, against its plain version (X, U, J and the
+    seven blocks within ``TOL``) and against K3 on the same inputs (within
+    ``K5_VS_K2K3_RTOL``, printing whether bitwise equal), in float32 and
+    float64, at the navigation headline's shapes and bounded navigation's
+    (``configs/navigation_bounded.json``, B=256, T=50), lane 0 on the zone
+    center; timed;
+25. G1, the headline with ``fuse_derivatives=True``: counters prove K1, K2
+    and K8 ran and nothing else, and one derivatives pass per solve;
+    controls of 4 scenarios within 1e-4 of the float64 oracle; agreement
+    with phase 4's split-kernel solve;
+26. G2, bounded navigation (T=50, B=256) with ``boxqp=True`` and
+    ``fuse_derivatives=True``: K4, K2 and K8 only; agreement with the
+    split-kernel solve;
+27. G3, the MPC fleet: ``configs/navigation.json`` (two zones), the JAX
+    CLI's ``mpc`` defaults (50 steps, plan horizon 20, atol 1e-4, 15
+    iterations a re-plan), x0 + N(0, 1) from ``default_rng(0)``, B=1024,
+    f32, fused: K1, K2 and K8 only; realized total costs within 1e-4
+    relative of the split-kernel MPC on >= 99% of lanes, and of the plain
+    MPC on its first 64 x0 for 10 steps; then solves/s of G1 and the split
+    headline and control steps/s of G3 fused and split, in turns, and a
+    ``torch.profiler`` trace of one G1 solve.
 
 K5 (the emit-trajectories line search) is checked with the other kernels
 in phase 3, at the slice's shape and at the navigation headline's. Each
@@ -206,6 +227,14 @@ MID_SYNTHETIC_DIMS = ((14, 13), (24, 24), (32, 32), (48, 48))
 # P1: the JAX probe's dims and batch (benchmarks/mxu_probe.py), and the
 # length of its chain of dependent contractions
 P1_DIMS, P1_B, P1_CHAIN = (16, 24, 32, 48), 1024, 128
+# slice F: G3, the MPC fleet: configs/navigation.json (two zones) with the
+# JAX CLI's mpc defaults (tfmpc_tpu/cli.py:402-409) and its fleet draw
+# x0 + N(0, 1) from default_rng(seed) (cli.py:466-468), B=1024, f32; the
+# plain MPC it is held against runs its first 64 x0 for 10 steps
+B_G3, G3_STEPS, G3_PLAN_HORIZON, G3_SEED = 1024, 50, 20, 0
+G3_CONFIG = dict(atol=1e-4, max_iterations=15, use_pallas=True,
+                 fuse_derivatives=True)
+G3_PLAIN_B, G3_PLAIN_STEPS = 64, 10
 WINDOW_S = 1.0
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # bytes/s, and FLOP/s outside the tensor cores.
@@ -823,6 +852,134 @@ def check_k5(case, dtype, timings=None, errs=None):
                                      for k, p in zip(mat[:2], mat_p[:2]))
 
 
+# -- slice F: K8 (materialize plus derivatives) -------------------------------
+
+def nav_derivs_flops(n: int, zones: int = 1) -> int:
+    """Operations of navigation's ``derivatives`` at one step (envs.cuh):
+    lam, then per zone the distance, g, g' and the ratio, dlam, f_x and
+    l_x."""
+    return zones * (3 * n + 8) + zones * (3 * n + 8 + 7 + 2 * n) \
+        + 2 * n * n + 2 * n
+
+
+def k8_work(Bn, Tn, n, m, itemsize, n_params, bounded, zones=1):
+    """K8: K3's bytes and operations plus the seven linearization blocks
+    written at every step and their operations."""
+    bytes_, flops = rollout_work(Bn, Tn, n, m, itemsize, "navigation",
+                                 n_params, 1, bounded, True)
+    entries = 2 * n * n + n * m + n + m + m * m + m * n
+    return (bytes_ + itemsize * Bn * Tn * entries,
+            flops + Bn * Tn * nav_derivs_flops(n, zones))
+
+
+def k8_inputs(case, dtype):
+    """K8's inputs: the navigation headline's (``headline_inputs``) or
+    bounded navigation's (``configs/navigation_bounded.json``, B=256, T=50:
+    x0 ~ U(-10, 10), controls ~ 0.5 N(0, 1) clipped, a feedback policy
+    with k ~ N(0, 1) that drives many controls to the box), lane 0 started
+    on the zone's center, each lane's alpha from the grid."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.core.types import Policy
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    if case == "navigation":
+        env, X, U, _, _, _, _, policy = headline_inputs(dtype, "cuda")
+    else:
+        env = bounded_env("nav_bounded", dtype)
+        Bn, Tn = B_NAV_BOUNDED, T_NAV_BOUNDED
+        rng = np.random.default_rng(5)
+        t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                      device="cuda")
+        U = env.clip(t(0.5 * rng.standard_normal((Bn, Tn, N))))
+        X, _ = env.rollout(t(rng.uniform(-10.0, 10.0, (Bn, N))), U)
+        policy = Policy(K=t(0.05 * rng.standard_normal((Bn, Tn, N, N))),
+                        k=t(rng.standard_normal((Bn, Tn, N))))
+    # lane 0 starts on the zone's center, where the distance is the 1e-12
+    # inside the norm's square root
+    x0 = X[:, 0].clone()
+    x0[0] = env.centers[0]
+    X, _ = env.rollout(x0, U)
+    Bn = U.shape[0]
+    alpha_vec = ILQRConfig().alphas(dtype, device="cuda")[
+        torch.arange(Bn, device="cuda") % A]
+    return env, X, U, policy, alpha_vec
+
+
+def check_k8(case, dtype, timings=None, errs=None):
+    """K8 at the navigation headline's shapes (``navigation``: B=4096,
+    T=100, one zone) or bounded navigation's (``nav_bounded``: B=256, T=50,
+    box +-1): X, U, J and the seven linearization blocks against its plain
+    version within ``TOL``; X, U and J against K3 on the same inputs (the
+    same arithmetic in another kernel) within ``K5_VS_K2K3_RTOL``, printing
+    whether they are bitwise equal; the kernel-layout policy (the fused
+    iteration's ``policy_lane``) gives the same outputs bit for bit."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+
+    dn = dname(dtype)
+    env, X, U, policy, alpha_vec = k8_inputs(case, dtype)
+    Bn, Tn, n = U.shape
+    label = f"K8 {case}"
+    out_k = rollout.rollout_alpha_derivs(env, X, U, policy, alpha_vec)
+    out_p = rollout.rollout_alpha_derivs_ref(env, X, U, policy, alpha_vec)
+    out_3 = rollout.rollout_alpha(env, X, U, policy, alpha_vec)
+    lane = rollout.kernel_layout(env, X, U, policy)
+    pol_lane = (lane["K"], lane["k"])
+    out_l = rollout.rollout_alpha_derivs(env, X, U, None, alpha_vec,
+                                         policy_lane=pol_lane)
+    torch.cuda.synchronize()
+    if env.bounds is not None:
+        clipped = float(((out_p[1] == env.bounds.low)
+                         | (out_p[1] == env.bounds.high)).float().mean())
+        print(f"  {label}: {clipped:.3f} of the controls on a face of the "
+              "box")
+    max_err = 0.0
+    for what, got, want in zip(("X", "U", "J"), out_k[:3], out_p[:3]):
+        max_err = max(max_err, compare(f"{label} {what}", got, want, dn))
+    for key in rollout.D_KEYS:
+        max_err = max(max_err, compare(f"{label} {key}", out_k[3][key],
+                                       out_p[3][key], dn))
+    rtol = K5_VS_K2K3_RTOL[dn]
+    for what, got, want in zip(("X", "U", "J"), out_k[:3], out_3):
+        e = rel_err(got, want)
+        print(f"  {label} {what} vs K3 [{dn}]: bitwise equal "
+              f"{torch.equal(got, want)}, max rel err {e:.3e} (gate "
+              f"{rtol:g})")
+        if not e <= rtol:
+            raise AssertionError(f"{label} {what} vs K3 [{dn}]: outside "
+                                 f"{rtol:g}")
+    same = all(torch.equal(a, b) for a, b in zip(out_k[:3], out_l[:3])) \
+        and all(torch.equal(out_k[3][key], out_l[3][key])
+                for key in rollout.D_KEYS)
+    print(f"  {label} [{dn}]: the kernel-layout policy gives the same "
+          f"outputs bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{label} [{dn}]: policy_lane changes K8's "
+                             "outputs")
+    if timings is None:
+        return
+    key = "rollout_alpha_derivs" + ("" if case == "navigation"
+                                    else "_bounded")
+    errs[key] = max_err
+    a = rollout.kernel_args(env, X, U, None, pol_lane, derivatives=True)
+    n_params = sum(p.numel() for p in a["params"])
+    reps, plain_reps = (50, 5) if case == "navigation" else (50, 3)
+    timings[key] = (
+        cuda_ms(lambda: rollout.rollout_alpha_derivs_kernel(a, alpha_vec),
+                reps),
+        cuda_ms(lambda: rollout.rollout_alpha_derivs(
+            env, X, U, None, alpha_vec, policy_lane=pol_lane), reps),
+        cuda_ms(lambda: rollout.rollout_alpha_derivs_ref(
+            env, X, U, policy, alpha_vec), plain_reps),
+        bound(*k8_work(Bn, Tn, n, n, X.element_size(), n_params,
+                       env.bounds is not None,
+                       zones=env.centers.shape[0])),
+    )
+
+
 # -- slice D: K6a and K6b (full DDP) ---------------------------------------------
 
 def to64(model):
@@ -1254,11 +1411,13 @@ def check_k7(case, dtype, timings=None, errs=None):
                          cuda_ms(ref, 2), bound(*work))
 
 
-def k7_vs_k4(card):
+def k7_vs_k4(card, k4_bound):
     """K7 and K4 on phase 3's HVAC-6 inputs (n = m = 6, B=2048, T=100):
     the same contract, so in float64 identical ok masks and K4's share
     gates between the two kernels; in float32 both kernels' times, the
-    lane/mid boundary's measurement. Returns the times."""
+    lane/mid boundary's measurement, K7's wrapper time and the bound of
+    this work (``k4_bound``, phase 3's K4 bound on the same inputs: the
+    two kernels do the same work). Returns the times and the bound."""
     import torch
 
     from tfmpc_tpu_torch.ops import riccati, riccati_mid as rm
@@ -1293,9 +1452,14 @@ def k7_vs_k4(card):
                 (lambda: rm.riccati_backward_mid_boxqp_kernel(*k7_args))
             times.setdefault(k, []).append(cuda_ms(fn, 10))
     out = {k: min(v) for k, v in times.items()}
+    out["K7_wrapper"] = cuda_ms(lambda: rm.riccati_backward_mid_boxqp(
+        lin, quad, final, mu, env.bounds, U), 10)
+    out["bound"], out["bound_by"] = k4_bound
     print(f"  lane/mid boundary at HVAC-6 (n = m = 6, B={B_BOX}, T={T}, f32):"
           f" K4 {out['K4']:.4f} ms, K7 {out['K7']:.4f} ms per backward "
-          f"(best of two turns; K7/K4 {out['K7'] / out['K4']:.3f}) [{card}]")
+          f"(best of two turns; K7/K4 {out['K7'] / out['K4']:.3f}), K7's "
+          f"wrapper {out['K7_wrapper']:.4f} ms, bound {out['bound']:.4f} ms "
+          f"({out['bound_by']}) [{card}]")
     return out
 
 
@@ -1373,6 +1537,8 @@ COUNTERS = {
                              "MID_PLAIN_CALLS"),
     "riccati_backward_mid_boxqp": ("riccati_mid", "MID_BOXQP_LAUNCHES",
                                    "MID_BOXQP_PLAIN_CALLS"),
+    "rollout_alpha_derivs": ("rollout", "DERIVS_LAUNCHES",
+                             "DERIVS_PLAIN_CALLS"),
 }
 
 
@@ -1445,12 +1611,14 @@ def check_result(label, res, Bn, n, horizon=T):
     return conv
 
 
-def agree_with_plain(label, res, run_plain, cost_rtol=1e-4, share=0.99):
-    """One solve on the plain path: same converged mask on >= ``share`` of
-    lanes, and mean cost within ``cost_rtol`` over the lanes converged in
-    both (a lane that ran out of iterations stopped at an arbitrary
-    iterate; in float32 full DDP on navigation such a lane ends far apart
-    on the two paths). Returns its seconds."""
+def agree_with_plain(label, res, run_plain, cost_rtol=1e-4, share=0.99,
+                     what="plain path (use_pallas=False)"):
+    """One solve on the plain path (or on the path ``what`` that
+    ``run_plain`` runs): same converged mask on >= ``share`` of lanes, and
+    mean cost within ``cost_rtol`` over the lanes converged in both (a lane
+    that ran out of iterations stopped at an arbitrary iterate; in float32
+    full DDP on navigation such a lane ends far apart on the two paths).
+    Returns its seconds."""
     t0 = time.perf_counter()
     res_p = run_plain()
     secs = time.perf_counter() - t0
@@ -1459,7 +1627,7 @@ def agree_with_plain(label, res, run_plain, cost_rtol=1e-4, share=0.99):
     c_k, c_p = res.total_cost.double()[both], res_p.total_cost.double()[both]
     rel = abs(float(c_k.mean()) - float(c_p.mean())) / abs(float(c_p.mean()))
     lane_rel = float(((c_k - c_p).abs() / c_p.abs()).max())
-    print(f"  plain path (use_pallas=False): {secs:.2f} s, converged "
+    print(f"  {what}: {secs:.2f} s, converged "
           f"{float(res_p.converged.float().mean()):.4f}, same converged mask "
           f"on {same:.4f} of lanes; over the {int(both.sum())} lanes "
           f"converged in both: mean cost {float(c_p.mean()):.6f} (rel diff "
@@ -1468,7 +1636,7 @@ def agree_with_plain(label, res, run_plain, cost_rtol=1e-4, share=0.99):
           f"{float((res_p.actions - res.actions).abs().max()):.3e}")
     if same < share or not rel <= cost_rtol:
         raise AssertionError(f"{label}: the kernel solve disagrees with the "
-                             "plain path")
+                             f"{what}")
     return secs
 
 
@@ -1896,7 +2064,7 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
         check_clipped_rollouts("hvac16", dtype, *f32, Bn=B_E1, Tn=T_E1,
                                suffix="_hvac16")
         check_clipped_rollouts("hvac12", dtype, Bn=B_E2, Tn=T_E2)
-    k7_k4 = k7_vs_k4(card)
+    k7_k4 = k7_vs_k4(card, timings["riccati_backward_boxqp"][3])
     for d in P1_DIMS:
         launches_by_path[f"p1_chain_d{d}"] = {
             "row_matmul": check_p1(d, timings, errs, card)}
@@ -1966,6 +2134,200 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
     e1_profile = print_profile("E1 HVAC-16", run_e1, card)
     phase.done("23. slice E solves/s and the E1 profile")
     return e1, e2, k7_k4, e1_profile
+
+
+def mpc_runner(env, x0, steps, config):
+    """A closed-loop MPC run of ``steps`` control steps, plan horizon
+    ``G3_PLAN_HORIZON``, synchronized."""
+    import torch
+
+    from tfmpc_tpu_torch.solvers import mpc
+
+    def run():
+        res = mpc.run(env, x0, steps=steps, plan_horizon=G3_PLAN_HORIZON,
+                      config=config)
+        torch.cuda.synchronize()
+        return res
+
+    return run
+
+
+def cost_share(label, got, want, rtol, share):
+    """Share of lanes whose realized total cost lies within ``rtol``
+    relative of ``want``'s; raises below ``share``."""
+    got, want = got.double(), want.double()
+    rel = (got - want).abs() / want.abs()
+    within = float((rel <= rtol).double().mean())
+    print(f"  {label}: {within:.4f} of lanes within {rtol:g} relative "
+          f"(gate >= {share}), largest rel diff {float(rel.max()):.3e}")
+    if within < share:
+        raise AssertionError(f"{label}: realized costs disagree")
+    return within
+
+
+def slice_f(phase, timings, errs, launches_by_path, rates, card, nav_split):
+    """Phases 24-27 (slice F): K8 against its plain version and K3, the G1
+    and G2 fused solves against the split-kernel ones, the G3 MPC fleet,
+    their rates and a G1 profile. ``nav_split`` is phase 4's
+    ``(run, result, x0 numpy)`` of the split-kernel headline. Fills the
+    dicts it is given; returns the slice's figures for the JSON line."""
+    import numpy as np
+    import torch
+
+    from oracles import ilqr_navigation_oracle_np
+    from tfmpc_tpu_torch.models.navigation import make_navigation
+    from tfmpc_tpu_torch.models.registry import load_env
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    # -- 24. K8 vs its plain version and K3 ----------------------------------
+    for dtype in (torch.float32, torch.float64):
+        print(f"slice F kernel K8 vs its plain version and K3, {dtype}:")
+        f32 = (timings, errs) if dtype == torch.float32 else ()
+        check_k8("navigation", dtype, *f32)
+        check_k8("nav_bounded", dtype, *f32)
+    phase.done("24. K8 vs its plain version and K3")
+
+    # -- 25. G1: the headline with fuse_derivatives (slice F's main path) ----
+    fused_kernels = {"riccati_backward", "linesearch_costs",
+                     "rollout_alpha_derivs"}
+    run_nav, res_nav, x0_np = nav_split
+    nav = make_navigation(GOAL, ZONES, dtype=torch.float32, device="cuda")
+    x0 = torch.as_tensor(x0_np, device="cuda")
+    run_g1 = solver(nav, x0, T, ILQRConfig(**HEADLINE,
+                                           fuse_derivatives=True))
+    run_g1()
+    print(f"G1, navigation headline T={T} B={B} with fuse_derivatives=True "
+          "(slice F's main path):")
+    passes = []
+    derivatives = ilqr_batched.derivatives
+    ilqr_batched.derivatives = lambda *a: (passes.append(1),
+                                           derivatives(*a))[1]
+    try:
+        res, launches, plain = counted(run_g1)
+    finally:
+        ilqr_batched.derivatives = derivatives
+    launches_by_path["g1_navigation_fused"] = launches
+    require_path("G1 solve", launches, plain, fused_kernels)
+    print(f"  derivatives passes in the solve: {len(passes)} (expected 1)")
+    if len(passes) != 1:
+        raise AssertionError("G1: the derivatives pass ran more than once")
+    g1 = {"converged": check_result("G1", res, B, N, T)}
+    if g1["converged"] < 0.99:
+        raise AssertionError("G1 solve converged < 0.99")
+    dev = 0.0
+    for i in range(4):
+        _, U_np, _ = ilqr_navigation_oracle_np(
+            GOAL, ZONES["center"], ZONES["decay"], x0_np[i].astype(float), T,
+            atol=1e-10,
+        )
+        dev = max(dev, float(np.abs(res.actions[i].cpu().numpy()
+                                    - U_np).max()))
+    print(f"  controls vs fp64 NumPy oracle (4 scenarios): max-abs "
+          f"{dev:.3e} (target < 1e-4)")
+    if dev >= 1e-4:
+        raise AssertionError("G1 controls deviate from the fp64 oracle")
+    g1["oracle_dev"] = dev
+    agree_with_plain("G1", res, lambda: res_nav,
+                     what="phase 4's split-kernel solve")
+    phase.done("25. G1 navigation fused")
+
+    # -- 26. G2: fused bounded navigation with boxQP -------------------------
+    nav_b = bounded_env("nav_bounded", torch.float32)
+    x0_b = torch.as_tensor(np.random.default_rng(0).uniform(
+        -10.0, 10.0, (B_NAV_BOUNDED, N)).astype("float32"), device="cuda")
+    g2_cfg = ILQRConfig(**HEADLINE, boxqp=True, fuse_derivatives=True)
+    res, launches, plain = counted(solver(nav_b, x0_b, T_NAV_BOUNDED,
+                                          g2_cfg))
+    print(f"G2, bounded navigation T={T_NAV_BOUNDED} B={B_NAV_BOUNDED}, "
+          "boxqp=True, fuse_derivatives=True:")
+    launches_by_path["g2_nav_bounded_fused"] = launches
+    require_path("G2 solve", launches, plain,
+                 {"riccati_backward_boxqp", "linesearch_costs",
+                  "rollout_alpha_derivs"})
+    g2 = {"converged": check_result("G2", res, B_NAV_BOUNDED, N,
+                                    T_NAV_BOUNDED)}
+    agree_with_plain("G2", res, solver(
+        nav_b, x0_b, T_NAV_BOUNDED,
+        dataclasses.replace(g2_cfg, fuse_derivatives=False)),
+        what="split-kernel solve (fuse_derivatives=False)")
+    phase.done("26. G2 bounded navigation fused")
+
+    # -- 27. G3: the MPC fleet -------------------------------------------------
+    env3 = load_env(ROOT / "configs/navigation.json", dtype=torch.float32,
+                    device="cuda")
+    x0_cfg = np.asarray(json.loads((ROOT / "configs/navigation.json")
+                                   .read_text())["x0"], dtype=np.float32)
+    x0_fleet = x0_cfg[None, :] + np.random.default_rng(G3_SEED).normal(
+        size=(B_G3, N)).astype(np.float32)
+    x0_3 = torch.as_tensor(x0_fleet, device="cuda")
+    g3_cfg = ILQRConfig(**G3_CONFIG)
+    run_g3 = mpc_runner(env3, x0_3, G3_STEPS, g3_cfg)
+    run_g3()
+    print(f"G3, MPC fleet (configs/navigation.json, two zones), B={B_G3}, "
+          f"{G3_STEPS} steps, plan horizon {G3_PLAN_HORIZON}, "
+          "fuse_derivatives=True:")
+    res, launches, plain = counted(run_g3)
+    launches_by_path["g3_mpc_fused"] = launches
+    require_path("G3 MPC", launches, plain, fused_kernels)
+    if res.states.shape != (B_G3, G3_STEPS + 1, N) or not bool(
+            torch.isfinite(res.total_cost).all()):
+        raise AssertionError("G3: wrong shapes or non-finite costs")
+    goal = torch.as_tensor(GOAL, device="cuda")
+    g3 = {
+        "mean_final_distance": float((res.states[:, -1] - goal).norm(dim=1)
+                                     .double().mean()),
+        "mean_total_cost": float(res.total_cost.double().mean()),
+        "mean_iterations_per_replan": float(res.iterations.double().mean()),
+        "converged_share": float(res.converged.double().mean()),
+    }
+    print(f"  {g3}")
+    run_g3_split = mpc_runner(env3, x0_3, G3_STEPS, dataclasses.replace(
+        g3_cfg, fuse_derivatives=False))
+    res_s = run_g3_split()
+    g3["vs_split"] = cost_share("G3 vs the split-kernel MPC",
+                                res.total_cost, res_s.total_cost, 1e-4,
+                                0.99)
+    x0_64 = x0_3[:G3_PLAIN_B]
+    res_k = mpc_runner(env3, x0_64, G3_PLAIN_STEPS, g3_cfg)()
+    t0 = time.perf_counter()
+    res_p = mpc_runner(env3, x0_64, G3_PLAIN_STEPS, dataclasses.replace(
+        g3_cfg, use_pallas=False))()
+    print(f"  plain MPC (use_pallas=False), first {G3_PLAIN_B} x0, "
+          f"{G3_PLAIN_STEPS} steps: {time.perf_counter() - t0:.2f} s; "
+          "actions max-abs diff to the kernel MPC "
+          f"{float((res_p.actions - res_k.actions).abs().max()):.3e}")
+    g3["vs_plain"] = cost_share("G3 kernel MPC vs the plain MPC",
+                                res_k.total_cost, res_p.total_cost, 1e-4,
+                                0.99)
+    phase.done("27. G3 MPC fleet")
+
+    # rates, in turns on one card
+    windows = {"navigation_split": [], "g1_navigation_fused": []}
+    for label in ("navigation_split", "g1_navigation_fused",
+                  "g1_navigation_fused", "navigation_split"):
+        run = run_nav if label == "navigation_split" else run_g1
+        windows[label] += solves_per_s(run, B)
+    for label, w in windows.items():
+        rates[label] = float(np.median(w))
+        print(f"solves/s, {label}, kernels, T={T} B={B} f32, in turns: "
+              f"median {rates[label]:.1f}, windows "
+              f"{[round(x, 1) for x in w]} [{card}]")
+    steps_s = {"g3_mpc_fused": [], "g3_mpc_split": []}
+    for label in ("g3_mpc_fused", "g3_mpc_split", "g3_mpc_split",
+                  "g3_mpc_fused"):
+        run = run_g3 if label == "g3_mpc_fused" else run_g3_split
+        t0 = time.perf_counter()
+        run()
+        steps_s[label].append(B_G3 * G3_STEPS / (time.perf_counter() - t0))
+    for label, w in steps_s.items():
+        rates[label + "_steps_per_s"] = float(np.median(w))
+        print(f"closed-loop control steps/s, {label}, B={B_G3}, "
+              f"{G3_STEPS} steps, in turns: {[round(x, 1) for x in w]} "
+              f"[{card}]")
+    g1_profile = print_profile("G1 navigation fused", run_g1, card)
+    phase.done("27b. slice F rates and the G1 profile")
+    return {"g1": g1, "g2": g2, "g3": g3, "g1_profile": g1_profile}
 
 
 def main() -> int:
@@ -2054,6 +2416,7 @@ def main() -> int:
                            dataclasses.replace(config, use_pallas=False))
     plain_s = {"navigation": agree_with_plain("navigation", res,
                                               run_nav_plain)}
+    nav_split = (run_nav, res, x0_np)
     phase.done("4. navigation headline")
 
     # -- 5. the HVAC-6 solve (slice B's main path) ----------------------------
@@ -2162,10 +2525,10 @@ def main() -> int:
     phase.done("12. LQR")
 
     # -- 13. the emit A/B ------------------------------------------------------
+    # the T=500 arm (four whole solves of ~20 s) is left out to keep the
+    # script's time: its verdict, two-kernel within the spread, held in
+    # every earlier run (PERF.md)
     ab = {
-        "reservoir5_t500": emit_ab(f"reservoir-5 T={T_LONG} B={B_LONG}",
-                                   env_l, x0_l, T_LONG, ILQRConfig(**LONG),
-                                   2, card),
         "hvac6_t100": emit_ab(f"HVAC-6 T={T} B={B_BOX}", runs["hvac6"][0],
                               x0_h, T, boxqp_config, 3, card),
     }
@@ -2256,6 +2619,8 @@ def main() -> int:
     e1, e2, k7_k4, e1_profile = slice_e(phase, timings, errs,
                                         launches_by_path, plain_s, rates,
                                         card)
+    f_figures = slice_f(phase, timings, errs, launches_by_path, rates, card,
+                        nav_split)
 
     for name, value in timings.items():
         if name.endswith("_select_ms"):
@@ -2272,6 +2637,8 @@ def main() -> int:
     k7_tpu = "tfmpc_tpu/ops/riccati_mid_pallas.py:462"
     k2_tpu = "tfmpc_tpu/ops/rollout_pallas.py:647"
     k3_tpu = "tfmpc_tpu/ops/rollout_pallas.py:804"
+    derivs_cu = "tfmpc_tpu_torch/ops/csrc/rollout_derivs.cu"
+    k8_tpu = "tfmpc_tpu/ops/rollout_pallas.py:544"
     sources = {
         "riccati_backward": ("tfmpc_tpu_torch/ops/csrc/riccati.cu",
                              "tfmpc_tpu/ops/riccati_pallas.py:462",
@@ -2313,6 +2680,11 @@ def main() -> int:
                                 "benchmarks/mxu_probe.py:82",
                                 f"p1_chain_d{d}", "row_matmul")
            for d in P1_DIMS},
+        "rollout_alpha_derivs": (derivs_cu, k8_tpu, "g1_navigation_fused",
+                                 "rollout_alpha_derivs"),
+        "rollout_alpha_derivs_bounded": (derivs_cu, k8_tpu,
+                                         "g2_nav_bounded_fused",
+                                         "rollout_alpha_derivs"),
     }
     kernels = []
     for name, (src, replaces, path, counter) in sources.items():
@@ -2343,6 +2715,7 @@ def main() -> int:
                       "e1_profile": e1_profile,
                       "e1": e1, "e2": e2,
                       "k7_vs_k4_hvac6_ms": k7_k4,
+                      **f_figures,
                       "phase_s": phase.seconds,
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))

@@ -254,18 +254,19 @@ def test_config_carries_over_and_refuses_unported_options(envs):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert [f.name for f in dataclasses.fields(cfg)] == \
         [f.name for f in dataclasses.fields(jcfg)]
-    for option in (dict(fuse_derivatives=True), dict(time_axis="time"),
+    for option in (dict(time_axis="time"),
                    dict(time_axis="time", parallel_backward=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ilqr.ILQRConfig(**option)
     # the associative-scan backward cannot carry the DDP terms
     with pytest.raises(ValueError, match="parallel_backward"):
         ilqr.ILQRConfig(ddp=True, parallel_backward=True)
-    # slice C's and slice D's options are ported and carry over
+    # slice C's, D's and F's options are ported and carry over
     for option in (dict(parallel_backward=True, parallel_mu_floor=1e-4),
                    dict(linesearch_emit_trajectories=True),
                    dict(linesearch_emit_trajectories=False),
-                   dict(ddp=True), dict(ddp=True, boxqp=True)):
+                   dict(ddp=True), dict(ddp=True, boxqp=True),
+                   dict(use_pallas=True, fuse_derivatives=True)):
         jc = jilqr.ILQRConfig(**option)
         assert dataclasses.asdict(interop.config_from_dict(
             dataclasses.asdict(jc))) == dataclasses.asdict(jc)

@@ -16,8 +16,11 @@ import torch
 
 
 def map_fields(fn, *objs):
-    """Apply ``fn`` field-wise across dataclass records of one type."""
+    """Apply ``fn`` field-wise across dataclass records of one type (or
+    across plain tuples, element-wise)."""
     first = objs[0]
+    if type(first) is tuple:
+        return tuple(map(fn, *objs))
     return dataclasses.replace(
         first,
         **{

@@ -10,6 +10,7 @@ closed-form ``analytic_derivatives``.
 ``device_step`` replaces the JAX package's ``lane_functions`` hook: an env
 whose step is compiled into the CUDA rollout kernels (``ops/csrc/envs.cuh``)
 names it there, and every other env keeps the plain PyTorch rollout.
+``device_derivatives`` replaces ``lane_derivatives`` in the same way.
 """
 
 from __future__ import annotations
@@ -156,4 +157,13 @@ class Env:
     def device_step(self) -> Optional[DeviceStep]:
         """The env's step compiled into the CUDA rollout kernels, or None
         (then the rollout kernels are not eligible for this env)."""
+        return None
+
+    def device_derivatives(self) -> Optional[DeviceStep]:
+        """The env's step functor that also has a closed-form device
+        linearization (``derivatives`` in ``ops/csrc/envs.cuh``, matching
+        ``analytic_derivatives``), compiled into K8, the materialize
+        rollout of the fused iteration (``ILQRConfig.fuse_derivatives``);
+        or None (then that iteration is not eligible for this env). The
+        counterpart of the JAX package's ``Env.lane_derivatives``."""
         return None

@@ -118,6 +118,11 @@ class Navigation(Env):
             int_params=(self.centers.shape[0],),
         )
 
+    def device_derivatives(self) -> DeviceStep:
+        """The step functor of ``device_step``, whose ``derivatives``
+        computes ``analytic_derivatives`` at one step in K8."""
+        return self.device_step()
+
 
 def make_navigation(goal, deceleration: Optional[dict] = None, low=None,
                     high=None, *, dtype=torch.float32,

@@ -65,6 +65,10 @@ _SIGNATURES = {
     # n_params, int_params, n_int, X, U, J, block, stream
     "tfmpc_rollout_alpha": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
     + [_P] * 3 + [_I, _P],
+    # K8 (rollout_derivs.cu): as tfmpc_rollout_alpha, with lin (host
+    # void*[7]: fx, fu, lx, lu, lxx, luu, lux) after J
+    "tfmpc_rollout_alpha_derivs": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
+    + [_P] * 4 + [_I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}

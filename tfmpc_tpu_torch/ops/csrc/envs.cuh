@@ -2,7 +2,10 @@
 //
 // Each functor mirrors its env's public transition/cost/final_cost exactly
 // (and the JAX package's lane_functions, e.g. navigation.py:182-214), and is
-// selected by the env_id that the env's device_step() returns.
+// selected by the env_id that the env's device_step() returns. A functor
+// that also has derivatives() (navigation's, named by the env's
+// device_derivatives()) runs in K8, the rollout that writes the
+// linearization of its trajectory.
 #pragma once
 
 #include "common.cuh"
@@ -20,6 +23,20 @@ template <typename S>
 __device__ __forceinline__ S relu(S v) {
   return v < S(0) ? S(0) : v;
 }
+
+// The seven linearization blocks K8 writes ([T, entries, B] each, the
+// Riccati kernels' input layout): f_x [N*N], f_u [N*M], l_x [N], l_u [M],
+// l_xx [N*N], l_uu [M*M], l_ux [M*N], row-major entries.
+template <typename S>
+struct LinOut {
+  S* fx;
+  S* fu;
+  S* lx;
+  S* lu;
+  S* lxx;
+  S* luu;
+  S* lux;
+};
 
 // Navigation: x' = x + lambda(x) u,
 // lambda(x) = prod_z [2 / (1 + exp(-decay_z sqrt(|x - c_z|^2 + 1e-12))) - 1],
@@ -49,19 +66,72 @@ struct NavigationStep {
     static_assert(M == N, "navigation actions have the state's size");
     const S cost = final_cost(x);
     S lam = 1;
-    for (int z = 0; z < zones; ++z) {
-      S d2 = 0;
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const S d = x[i] - centers[z * N + i];
-        d2 += d * d;
-      }
-      const S dist = dsqrt(d2 + S(1e-12));
-      lam = lam * (S(2) / (S(1) + dexp(-decays[z] * dist)) - S(1));
-    }
+    for (int z = 0; z < zones; ++z) lam = lam * factor(x, z);
 #pragma unroll
     for (int i = 0; i < N; ++i) x_next[i] = x[i] + lam * u[i];
     return cost;
+  }
+
+  // The closed-form linearization at (x, u), written to step t of lane b
+  // of the [T, entries, B] blocks of `out` (models/navigation.py
+  // analytic_derivatives, one step; the JAX package's lane_derivatives):
+  //   f_x = I + u dlam^T (entry i*N + j), f_u = lam I, l_x = 2 (x - goal),
+  //   l_xx = 2 I, l_u = l_uu = l_ux = 0, with
+  //   dlam = sum_z [lam / g_z if g_z != 0 else 0] g'_z / dist_z (x - c_z),
+  //   g'_z = decay_z (1 - g_z^2) / 2.
+  // lam and each zone's g_z and dist_z repeat step()'s arithmetic; the
+  // zones are a runtime loop, so the second pass recomputes them.
+  template <int M>
+  __device__ __forceinline__ void derivatives(const S (&x)[N],
+                                              const S (&u)[M],
+                                              const LinOut<S>& out, int t,
+                                              int b, int B) const {
+    static_assert(M == N, "navigation actions have the state's size");
+    S lam = 1;
+    for (int z = 0; z < zones; ++z) lam = lam * factor(x, z);
+    S dlam[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) dlam[i] = 0;
+    for (int z = 0; z < zones; ++z) {
+      S d[N], d2 = 0;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        d[i] = x[i] - centers[z * N + i];
+        d2 += d[i] * d[i];
+      }
+      const S dist = dsqrt(d2 + S(1e-12));
+      const S g = S(2) / (S(1) + dexp(-decays[z] * dist)) - S(1);
+      const S gp = decays[z] * (S(1) - g * g) / S(2);
+      const S coef = (g != S(0) ? lam / g : S(0)) * gp / dist;
+#pragma unroll
+      for (int i = 0; i < N; ++i) dlam[i] += coef * d[i];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int e = i * N + j;
+        out.fx[at(t, e, N * N, b, B)] = u[i] * dlam[j] + S(i == j ? 1 : 0);
+        out.fu[at(t, e, N * N, b, B)] = i == j ? lam : S(0);
+        out.lxx[at(t, e, N * N, b, B)] = S(i == j ? 2 : 0);
+        out.luu[at(t, e, N * N, b, B)] = S(0);
+        out.lux[at(t, e, N * N, b, B)] = S(0);
+      }
+      out.lx[at(t, i, N, b, B)] = S(2) * (x[i] - goal[i]);
+      out.lu[at(t, i, N, b, B)] = S(0);
+    }
+  }
+
+  // Zone z's deceleration factor 2 / (1 + exp(-decay_z dist_z)) - 1.
+  __device__ __forceinline__ S factor(const S (&x)[N], int z) const {
+    S d2 = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const S d = x[i] - centers[z * N + i];
+      d2 += d * d;
+    }
+    const S dist = dsqrt(d2 + S(1e-12));
+    return S(2) / (S(1) + dexp(-decays[z] * dist)) - S(1);
   }
 };
 

@@ -3,7 +3,9 @@
 // Replaces: tfmpc_tpu/ops/rollout_pallas.py:linesearch_costs_pallas (body
 // _costs_kernel) as K2, rollout_pallas.py:rollout_alpha_pallas (body
 // _materialize_kernel) as K3, and rollout_pallas.py:
-// linesearch_costs_traj_pallas (body _costs_traj_kernel) as K5.
+// linesearch_costs_traj_pallas (body _costs_traj_kernel) as K5, and
+// rollout_pallas.py:rollout_alpha_derivs_pallas (body
+// _materialize_derivs_kernel) as K8.
 //
 // All roll u_t = clip(ubar_t + alpha k_t + K_t (x_t - xbar_t)), x_{t+1} =
 // step(x_t, u_t), J += cost(x_t) from x_0 = xbar_0, and add the final cost
@@ -51,11 +53,24 @@
 // blocking (the TPU kernel's time blocks buffer stores in VMEM; here a
 // store is issued and the chain goes on).
 //
+// K8 (the fused iteration's materialize) is K3 that also writes the env's
+// closed-form linearization at each step's (x_t, clipped u_t): 7 blocks of
+// n^2 + n m + n + m + n^2 + m^2 + m n entries, 26 values a step at n = m =
+// 2 besides K3's 4 outputs and 10 inputs, ~62 MB at the navigation
+// headline (B=4096, T=100, f32), so its bound is bytes (~0.019 ms). Like
+// K3 it is a chain of T dependent steps per thread and latency-bound above
+// that. The design keeps K3's (one thread per scenario, state in
+// registers) and writes each entry as soon as it is computed, scenario
+// index fastest, so every store of a warp is 32 consecutive addresses; the
+// constant entries (l_xx = 2I, the zero blocks) are stores with no loads.
+// Blocks of 32 threads spread B=4096 scenarios over 128 SMs, as K1.
+//
 // This header holds the kernels and their dispatch; each .cu instantiates
 // its own dims so the parallel build compiles them side by side:
 // rollout.cu n = m in {2, 3, 5, 6} for every env (and the C entries),
 // rollout_n12.cu and rollout_n16.cu the HVAC step at n = m = 12 and 16
-// (HVAC-12, HVAC-16).
+// (HVAC-12, HVAC-16), rollout_derivs.cu K8 with the navigation step at
+// n = m in {2, 3, 5, 6} (and its C entry).
 #pragma once
 
 #include <utility>
@@ -168,6 +183,42 @@ __global__ void rollout_alpha_kernel(
   for (int t = 0; t < T; ++t) {
     S u[M], xn[N];
     policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
+    total += static_cast<double>(env.template step<M>(x, u, xn));
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      X[at(t, i, N, b, B)] = xn[i];
+      x[i] = xn[i];
+    }
+#pragma unroll
+    for (int c = 0; c < M; ++c) U[at(t, c, M, b, B)] = u[c];
+  }
+  J[b] = static_cast<S>(total + static_cast<double>(env.final_cost(x)));
+}
+
+// K8: K3 that also writes, at every step, the env's closed-form
+// linearization at the pre-step state and the clipped control
+// (Env::derivatives, envs.cuh) into the seven [T, entries, B] blocks of
+// `lin`, the Riccati kernels' input layout. X, U and J are K3's arithmetic
+// (the same policy_control and step).
+template <typename S, int N, int M, class Env>
+__global__ void rollout_alpha_derivs_kernel(
+    const S* __restrict__ alpha_in, const S* __restrict__ xbar,
+    const S* __restrict__ ubar, const S* __restrict__ K,
+    const S* __restrict__ k, const S* __restrict__ lo,
+    const S* __restrict__ hi, Env env, S* __restrict__ X, S* __restrict__ U,
+    S* __restrict__ J, LinOut<S> lin, int T, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const S alpha = alpha_in[b];
+
+  S x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = xbar[at(0, i, N, b, B)];
+  double total = 0;
+  for (int t = 0; t < T; ++t) {
+    S u[M], xn[N];
+    policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
+    env.template derivatives<M>(x, u, lin, t, b, B);
     total += static_cast<double>(env.template step<M>(x, u, xn));
 #pragma unroll
     for (int i = 0; i < N; ++i) {

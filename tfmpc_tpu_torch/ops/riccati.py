@@ -9,7 +9,9 @@ a CUDA tensor they launch the CUDA kernel (``csrc/riccati.cu``,
 raise; on a CPU
 tensor they run the plain PyTorch versions ``riccati_backward_ref``,
 ``riccati_backward_boxqp_ref``, ``riccati_backward_ddp_ref`` and
-``riccati_backward_ddp_boxqp_ref``. ``LAUNCHES``, ``BOXQP_LAUNCHES``,
+``riccati_backward_ddp_boxqp_ref``. The fused iteration's entry,
+``riccati_backward_lanes``, takes and returns the kernels' own ``[T,
+entries, B]`` layout and launches K1 or K4. ``LAUNCHES``, ``BOXQP_LAUNCHES``,
 ``DDP_LAUNCHES`` and ``DDP_BOXQP_LAUNCHES`` count kernel launches and the
 matching ``*PLAIN_CALLS`` the calls that took the plain version.
 
@@ -29,7 +31,13 @@ from __future__ import annotations
 
 import torch
 
-from tfmpc_tpu_torch.core.types import Policy
+from tfmpc_tpu_torch.core.types import (
+    Bounds,
+    LinearModel,
+    Policy,
+    QuadraticFinal,
+    QuadraticModel,
+)
 from tfmpc_tpu_torch.ops import _build
 from tfmpc_tpu_torch.ops.boxqp import boxqp, solve_free_system
 
@@ -458,3 +466,49 @@ def riccati_backward_ddp_boxqp(lin, quad, final, mu, bounds, Ubar, second,
     out = riccati_backward_ddp_boxqp_kernel(*(a[k] for k in K6B_ARGS),
                                             boxqp_iters=boxqp_iters)
     return _from_kernel_layout(out, B, T, n, lin.f_u.shape[-1])
+
+
+def riccati_backward_lanes(ka, VT, vT, mu, box=None, boxqp_iters: int = 8):
+    """The fused iteration's backward pass on kernel-layout tensors: ``ka``
+    the linearization blocks ``fx, fu, lx, lu, lxx, luu, lux`` ``[T,
+    entries, B]`` (K8's output), the final value ``VT [n*n, B]``, ``vT [n,
+    B]`` and ``mu [B]``; with ``box = (ubar [T, m, B], lo [m], hi [m])``
+    K4's control-limited pass, else K1's. Returns ``(ok [B], (K [T, m*n,
+    B], k [T, m, B]), dV1 [B], dV2 [B])``, the policy in the layout K2 and
+    K8 take as it is. CUDA tensors launch K1 or K4; CPU tensors run the
+    plain version through the solver layout and back (counted as the plain
+    calls of K1's or K4's wrapper).
+    """
+    global PLAIN_CALLS, BOXQP_PLAIN_CALLS
+    first = tuple(ka[key] for key in K1_ARGS[:7]) + (
+        mu.to(ka["fx"].dtype).contiguous(),)
+    if ka["fx"].device.type != "cpu":
+        if box is None:
+            out = riccati_backward_kernel(*first, VT, vT)
+        else:
+            out = riccati_backward_boxqp_kernel(*first, *box, VT, vT,
+                                                boxqp_iters=boxqp_iters)
+        K, k, dV1, dV2, fail = out
+        return fail == 0.0, (K, k), dV1, dV2
+    T, _, B = ka["fx"].shape
+    n, m = ka["lx"].shape[1], ka["lu"].shape[1]
+
+    def lanes(key, *shape):  # [T, e, B] -> [B, T, *shape]
+        return ka[key].permute(2, 0, 1).reshape(B, T, *shape)
+
+    lin = LinearModel(f=None, f_x=lanes("fx", n, n), f_u=lanes("fu", n, m))
+    quad = QuadraticModel(l=None, l_x=lanes("lx", n), l_u=lanes("lu", m),
+                          l_xx=lanes("lxx", n, n), l_uu=lanes("luu", m, m),
+                          l_ux=lanes("lux", m, n))
+    final = QuadraticFinal(l=None, l_x=vT.T, l_xx=VT.T.reshape(B, n, n))
+    if box is None:
+        PLAIN_CALLS += 1
+        ok, policy, dV1, dV2 = riccati_backward_ref(lin, quad, final, mu)
+    else:
+        BOXQP_PLAIN_CALLS += 1
+        ubar, lo, hi = box
+        ok, policy, dV1, dV2 = riccati_backward_boxqp_ref(
+            lin, quad, final, mu, Bounds(low=lo, high=hi),
+            ubar.permute(2, 0, 1), boxqp_iters)
+    return ok, (_to_k(policy.K, B, T, m * n), _to_k(policy.k, B, T, m)), \
+        dV1, dV2

@@ -1,4 +1,4 @@
-"""K2, K3 and K5: the closed-loop rollouts of the iLQR line search.
+"""K2, K3, K5 and K8: the closed-loop rollouts of the iLQR line search.
 
 Counterpart of ``tfmpc_tpu/ops/rollout_pallas.py``. The two-kernel line
 search: ``linesearch_costs`` (K2) rolls every (scenario, alpha) pair and
@@ -7,13 +7,19 @@ scenario's accepted alpha to materialize the new trajectory. The
 emit-trajectories line search: ``linesearch_costs_traj`` (K5) is K2 that
 also writes every alpha's trajectory, and ``select_alpha_trajectory`` picks
 each scenario's accepted one, so an iteration runs one rollout chain
-instead of two. On CUDA tensors the wrappers launch the CUDA kernels of
-``csrc/rollout.cuh`` (the env step compiled in, selected by
-``Env.device_step``) or raise; on CPU tensors they run the plain PyTorch
-versions ``linesearch_costs_ref`` / ``rollout_alpha_ref`` /
-``linesearch_costs_traj_ref``. The module counts kernel launches and
-plain-version calls per wrapper. A bounded env's controls are clipped to
-its box after the affine law, in the kernels as in the plain versions.
+instead of two. The fused iteration (``ILQRConfig.fuse_derivatives``):
+``rollout_alpha_derivs`` (K8) is K3 that also writes the env's closed-form
+linearization of the new trajectory in the Riccati kernels' ``[T,
+entries, B]`` layout, and K2 and K8 take the Riccati kernels' policy in
+that layout as it is (``policy_lane``). On CUDA tensors the wrappers
+launch the CUDA kernels of ``csrc/rollout.cuh`` (the env step compiled in,
+selected by ``Env.device_step``; K8's by ``Env.device_derivatives``) or
+raise; on CPU tensors they run the plain PyTorch versions
+``linesearch_costs_ref`` / ``rollout_alpha_ref`` /
+``linesearch_costs_traj_ref`` / ``rollout_alpha_derivs_ref``. The module
+counts kernel launches and plain-version calls per wrapper. A bounded
+env's controls are clipped to its box after the affine law, in the
+kernels as in the plain versions.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import Sequence
 import torch
 
 from tfmpc_tpu_torch.models.hvac import HVAC_STEP_ID
-from tfmpc_tpu_torch.ops import _build
+from tfmpc_tpu_torch.core.types import Policy
+from tfmpc_tpu_torch.ops import _build, riccati
 
 COSTS_LAUNCHES = 0
 COSTS_PLAIN_CALLS = 0
@@ -32,14 +39,22 @@ ALPHA_LAUNCHES = 0
 ALPHA_PLAIN_CALLS = 0
 TRAJ_LAUNCHES = 0
 TRAJ_PLAIN_CALLS = 0
+DERIVS_LAUNCHES = 0
+DERIVS_PLAIN_CALLS = 0
 
 # (n, m) pairs the CUDA kernels are instantiated for (csrc/rollout.cuh):
 # every env's step at the small dims (rollout.cu), the HVAC step alone at
 # the mid dims (rollout_n12.cu, rollout_n16.cu: HVAC-12 and HVAC-16).
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6), (12, 12), (16, 16)}
 HVAC_ONLY_DIMS = {(12, 12), (16, 16)}
+# (n, m) pairs K8 is instantiated for (csrc/rollout_derivs.cu), with the
+# navigation step, the only env with a device linearization
+DERIVS_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
 MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cuh)
 BLOCK = 128
+DERIVS_BLOCK = 32  # K8: one thread per scenario, spread as K1 (rollout.cuh)
+# K8's linearization blocks, in the order of its C entry
+D_KEYS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux")
 
 
 def _finite_or_inf(J):
@@ -120,29 +135,49 @@ def select_alpha_trajectory(X, X_all, U_all, J_all, best):
     return X_new, pick(U_all, m).permute(2, 0, 1), J_best
 
 
-def kernel_args(env, X, U, policy):
+def policy_from_lanes(policy_lane):
+    """The solver-layout ``Policy`` of a kernel-layout one ``(K [T, m*n,
+    B], k [T, m, B])``."""
+    K, k = policy_lane
+    T, mn, B = K.shape
+    m = k.shape[1]
+    return Policy(K=K.permute(2, 0, 1).reshape(B, T, m, mn // m),
+                  k=k.permute(2, 0, 1))
+
+
+def kernel_args(env, X, U, policy, policy_lane=None, derivatives=False):
     """Check that the CUDA kernels cover this call (raises if not) and lay
     its inputs out for them (``kernel_layout``)."""
     if X.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {X.device}")
-    return kernel_layout(env, X, U, policy)
+    return kernel_layout(env, X, U, policy, policy_lane, derivatives)
 
 
-def kernel_layout(env, X, U, policy):
+def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False):
     """The kernels' inputs, on the tensors' own device: ``[T, entries, B]``
     trajectories and policy, the box ``lo``/``hi [m]`` (None for an
-    unbounded env), and the env step's id and parameters. Raises for a
-    dtype, env or dims the kernels do not cover."""
+    unbounded env), and the env step's id and parameters. A kernel-layout
+    ``policy_lane = (K [T, m*n, B], k [T, m, B])`` is taken as it is
+    (``policy`` is then unused). With ``derivatives``, K8's: the env's
+    ``device_derivatives`` functor at ``DERIVS_DIMS``. Raises for a dtype,
+    env or dims the kernels do not cover."""
     if X.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"the CUDA kernels take float32/float64, got {X.dtype}")
-    step = env.device_step()
+    step = env.device_derivatives() if derivatives else env.device_step()
     if step is None:
+        what = ("device derivatives compiled into K8" if derivatives
+                else "device step compiled into the rollout kernels")
         raise NotImplementedError(
-            f"{type(env).__name__} has no device step compiled into the "
-            "rollout kernels; run with use_pallas=False"
+            f"{type(env).__name__} has no {what}; run with "
+            "use_pallas=False"
         )
     B, T, m = U.shape
     n = X.shape[-1]
+    if derivatives and (n, m) not in DERIVS_DIMS:
+        raise NotImplementedError(
+            f"K8 has no instantiation for (n, m) = {(n, m)} (compiled: "
+            f"{sorted(DERIVS_DIMS)}); run with fuse_derivatives=False"
+        )
     if (n, m) not in KERNEL_DIMS:
         raise NotImplementedError(
             f"the rollout kernels have no instantiation for (n, m) = "
@@ -158,6 +193,11 @@ def kernel_layout(env, X, U, policy):
     params = [
         p.to(dtype=X.dtype, device=X.device).contiguous() for p in step.params
     ]
+    if policy_lane is None:
+        K = policy.K.reshape(B, T, m * n).permute(1, 2, 0)
+        k = policy.k.permute(1, 2, 0)
+    else:
+        K, k = policy_lane
     if env.bounds is None:
         lo = hi = None
     else:
@@ -170,8 +210,8 @@ def kernel_layout(env, X, U, policy):
         env_id=step.env_id,
         xbar=X[:, :-1].permute(1, 2, 0).contiguous(),           # [T, n, B]
         ubar=U.permute(1, 2, 0).contiguous(),                   # [T, m, B]
-        K=policy.K.reshape(B, T, m * n).permute(1, 2, 0).contiguous(),
-        k=policy.k.permute(1, 2, 0).contiguous(),
+        K=K.contiguous(),                                       # [T, m*n, B]
+        k=k.contiguous(),                                       # [T, m, B]
         lo=lo,                                                  # [m] or None
         hi=hi,
         params=params,
@@ -269,15 +309,21 @@ def rollout_alpha_kernel(a, alpha):
     return X_out, U_out, J
 
 
-def linesearch_costs(env, X, U, policy, alphas: Sequence[float]):
+def linesearch_costs(env, X, U, policy, alphas: Sequence[float],
+                     policy_lane=None):
     """Total cost of the closed-loop rollout for every (scenario, alpha):
     ``J_all [B, A]``. ``alphas`` are Python floats
-    (``ILQRConfig.alphas_static()``), passed to the kernel by value."""
+    (``ILQRConfig.alphas_static()``), passed to the kernel by value. The
+    policy is ``policy`` or, in the Riccati kernels' layout, ``policy_lane
+    = (K [T, m*n, B], k [T, m, B])``."""
     global COSTS_PLAIN_CALLS
     if X.device.type == "cpu":
         COSTS_PLAIN_CALLS += 1
+        if policy_lane is not None:
+            policy = policy_from_lanes(policy_lane)
         return linesearch_costs_ref(env, X, U, policy, alphas)
-    J = linesearch_costs_kernel(kernel_args(env, X, U, policy), alphas)
+    J = linesearch_costs_kernel(kernel_args(env, X, U, policy, policy_lane),
+                                alphas)
     return _finite_or_inf(J).T
 
 
@@ -310,3 +356,67 @@ def rollout_alpha(env, X, U, policy, alpha_vec):
     )
     X_new = torch.cat([X[:, :1], X_out.permute(2, 0, 1)], dim=1)
     return X_new, U_out.permute(2, 0, 1), _finite_or_inf(J)
+
+
+def rollout_alpha_derivs_ref(env, X, U, policy, alpha_vec):
+    """Plain version of K8: ``rollout_alpha_ref``, then
+    ``env.analytic_derivatives`` of the rolled trajectory in the Riccati
+    kernels' layout (``riccati._to_kernel_layout``). Returns ``(X_new [B,
+    T+1, n], U_new [B, T, m], J [B], kargs)``, ``kargs`` the dict of the
+    ``D_KEYS`` blocks ``[T, entries, B]``."""
+    X_new, U_new, J = rollout_alpha_ref(env, X, U, policy, alpha_vec)
+    lin, quad, final = env.analytic_derivatives(X_new, U_new)
+    a = riccati._to_kernel_layout(lin, quad, final, torch.zeros_like(J))
+    return X_new, U_new, J, {key: a[key] for key in D_KEYS}
+
+
+def rollout_alpha_derivs_kernel(a, alpha):
+    """Launch K8 on ``kernel_args(..., derivatives=True)`` output and per-lane
+    ``alpha [B]``: raw ``(X [T, n, B], U [T, m, B], J [B], kargs)``."""
+    global DERIVS_LAUNCHES
+    B, T, n, m = a["dims"]
+    opts = dict(dtype=a["dtype"], device=a["xbar"].device)
+    if alpha.shape != (B,) or alpha.dtype != a["dtype"] \
+            or alpha.device != opts["device"] or not alpha.is_contiguous():
+        raise ValueError("alpha must be a contiguous [B] tensor of the "
+                         "trajectory's dtype and device")
+    X_out = torch.empty((T, n, B), **opts)
+    U_out = torch.empty((T, m, B), **opts)
+    J = torch.empty((B,), **opts)
+    entries = dict(fx=n * n, fu=n * m, lx=n, lu=m, lxx=n * n, luu=m * m,
+                   lux=m * n)
+    kargs = {key: torch.empty((T, entries[key], B), **opts)
+             for key in D_KEYS}
+    rc = _build.library().tfmpc_rollout_alpha_derivs(
+        _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
+        _build.ptr(alpha),
+        *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
+        *_bound_pointers(a), *_env_pointers(a),
+        _build.ptr(X_out), _build.ptr(U_out), _build.ptr(J),
+        (ctypes.c_void_p * len(D_KEYS))(*[kargs[key].data_ptr()
+                                           for key in D_KEYS]),
+        DERIVS_BLOCK, _build.stream(),
+    )
+    _build.check(rc, "rollout_alpha_derivs")
+    DERIVS_LAUNCHES += 1
+    return X_out, U_out, J, kargs
+
+
+def rollout_alpha_derivs(env, X, U, policy, alpha_vec, policy_lane=None):
+    """``rollout_alpha`` that also returns the env's closed-form
+    linearization of the new trajectory, at each step's pre-step state and
+    clipped control: ``(X_new [B, T+1, n], U_new [B, T, m], J [B],
+    kargs)``, ``kargs`` the ``D_KEYS`` blocks ``[T, entries, B]`` that the
+    Riccati kernels take (entries ``i*n + j`` of f_x, ``i*m + c`` of f_u,
+    ``c*n + i`` of l_ux). The policy as in ``linesearch_costs``."""
+    global DERIVS_PLAIN_CALLS
+    if X.device.type == "cpu":
+        DERIVS_PLAIN_CALLS += 1
+        if policy_lane is not None:
+            policy = policy_from_lanes(policy_lane)
+        return rollout_alpha_derivs_ref(env, X, U, policy, alpha_vec)
+    X_out, U_out, J, kargs = rollout_alpha_derivs_kernel(
+        kernel_args(env, X, U, policy, policy_lane, derivatives=True),
+        alpha_vec.to(X.dtype).contiguous())
+    X_new = torch.cat([X[:, :1], X_out.permute(2, 0, 1)], dim=1)
+    return X_new, U_out.permute(2, 0, 1), _finite_or_inf(J), kargs

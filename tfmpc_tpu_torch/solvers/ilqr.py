@@ -39,8 +39,8 @@ from tfmpc_tpu_torch.solvers.lqr_parallel import (
 # Options of the JAX ILQRConfig that this package does not implement yet,
 # with the value that keeps them off and the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "fuse_derivatives": (False, "queue 1 item 19 (fused derivatives)"),
-    "time_axis": (None, "queue 1 item 18 (time-sharded solves)"),
+    "time_axis": (None, "queue 1 item 2 (parallel/mesh.py: time-sharded "
+                  "solves)"),
 }
 
 
@@ -63,6 +63,16 @@ class ILQRConfig:
     costs and K3 to re-roll the accepted alpha; None (AUTO) takes the
     two-kernel layout (``ilqr_batched._resolve_emit_traj`` says why). Both
     layouts compute the same arithmetic, so the solve is the same.
+
+    ``fuse_derivatives=True`` (with ``use_pallas``) runs the fully-fused
+    iteration of ``ilqr_batched._iteration_fused``: the accepted-alpha
+    rollout (K8) also writes the linearization of the new trajectory in
+    the Riccati kernels' layout, so the loop has no derivatives stage and
+    no layout copies. It needs an env with a device linearization
+    (``Env.device_derivatives``: navigation) at the lane kernels' dims and
+    neither ``ddp`` nor ``parallel_backward``; on CUDA anything else raises
+    (``ilqr_batched._use_fused_derivs``). Its semantics are the split
+    iteration's.
 
     ``ddp=True`` is full second-order DDP: each iteration also computes the
     dynamics Hessians (``Env.get_second_order_transition``), which the

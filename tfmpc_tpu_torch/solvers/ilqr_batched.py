@@ -22,6 +22,15 @@ With the emit-trajectories layout (``_resolve_emit_traj``), steps 3 and 5
 become one chain: K5 writes every alpha's cost and trajectory, and step 5
 selects each scenario's accepted one.
 
+The fully-fused iteration (``ILQRConfig.fuse_derivatives``, the JAX
+package's ``_iteration_fused``; routed by ``_use_fused_derivs``) drops step
+1 from the loop: step 5 runs K8, which also writes the linearization of
+the new trajectory in the Riccati kernels' ``[T, entries, B]`` layout, and
+the loop carries those blocks (``kargs``) into the next backward (K1, or K4
+for ``boxqp``), whose policy goes to K2 and K8 in that layout as it is. A
+solve linearizes once, along its initial (or resumed) trajectory
+(``_initial_kargs``).
+
 The JAX package's ``lax.while_loop``s become host loops that read one flag
 per outer iteration and one per restart round (and, for a bounded env, one
 for whether any lane stalled). With ``use_pallas=True`` on CUDA tensors the
@@ -40,6 +49,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.func import vmap
 from torch.profiler import record_function
 
 from tfmpc_tpu_torch.core.types import map_fields
@@ -193,13 +203,16 @@ def _backward_restarts_batched(lin, quad, final, mu, delta,
     return _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R)
 
 
-def _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R):
+def _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R,
+                            policy_batch_last=False):
     """Restart loop re-running only (up to R) failing lanes per round.
 
     A stable argsort of the needs mask gathers the failing lanes to the
     front (the order the JAX package's ``jnp.argsort`` gives), the backward
     re-runs on that sub-batch, and results scatter back to the rows that
     retried. Lanes beyond R in a round wait, their mu and tries untouched.
+    ``policy_batch_last``: the policy's fields carry the batch on their
+    last axis (the kernel layout of the fused iteration).
     """
     ok, policy, dV1, dV2 = attempt(mu)
     tries = torch.zeros_like(mu, dtype=torch.int32)
@@ -217,21 +230,27 @@ def _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R):
         delta = torch.where(attempted, delta_inc, delta)
         ok_s, policy_s, dV1_s, dV2_s = attempt_sub(idx, mu[idx])
 
-        def scatter(full, subv):
-            mask = sel.reshape((-1,) + (1,) * (subv.ndim - 1))
+        def scatter(full, subv, batch_last=False):
             out = full.clone()
-            out[idx] = torch.where(mask, subv, full[idx])
+            if batch_last:
+                mask = sel.reshape((1,) * (subv.ndim - 1) + (-1,))
+                out[..., idx] = torch.where(mask, subv, full[..., idx])
+            else:
+                mask = sel.reshape((-1,) + (1,) * (subv.ndim - 1))
+                out[idx] = torch.where(mask, subv, full[idx])
             return out
 
         ok = scatter(ok, ok_s)
-        policy = map_fields(scatter, policy, policy_s)
+        policy = map_fields(lambda f, v: scatter(f, v, policy_batch_last),
+                            policy, policy_s)
         dV1 = scatter(dV1, dV1_s)
         dV2 = scatter(dV2, dV2_s)
         tries = tries + attempted.to(torch.int32)
     return ok, policy, dV1, dV2, mu, delta
 
 
-def _restart_loop(attempt, mu, delta, config: ILQRConfig):
+def _restart_loop(attempt, mu, delta, config: ILQRConfig,
+                  policy_batch_last=False):
     ok, policy, dV1, dV2 = attempt(mu)
     tries = torch.zeros_like(mu, dtype=torch.int32)
     while True:
@@ -243,13 +262,14 @@ def _restart_loop(attempt, mu, delta, config: ILQRConfig):
         delta = torch.where(needs, delta_inc, delta)
         ok_n, policy_n, dV1_n, dV2_n = attempt(mu)
 
-        def sel(new, old):  # merge only the lanes that restarted
-            return torch.where(
-                needs.reshape((-1,) + (1,) * (new.ndim - 1)), new, old
-            )
+        def sel(new, old, batch_last=False):  # merge the lanes that restarted
+            shape = ((1,) * (new.ndim - 1) + (-1,) if batch_last
+                     else (-1,) + (1,) * (new.ndim - 1))
+            return torch.where(needs.reshape(shape), new, old)
 
         ok = sel(ok_n, ok)
-        policy = map_fields(sel, policy_n, policy)
+        policy = map_fields(lambda n_, o: sel(n_, o, policy_batch_last),
+                            policy_n, policy)
         dV1 = sel(dV1_n, dV1)
         dV2 = sel(dV2_n, dV2)
         tries = tries + needs.to(torch.int32)
@@ -301,41 +321,18 @@ def _resolve_emit_traj(config: ILQRConfig, horizon: int, n: int,
     return False if flag is None else bool(flag)
 
 
-def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
-    active = (
-        (state.iteration < config.max_iterations)
-        & ~state.converged
+def _active(state: SolverState, config: ILQRConfig):
+    return (state.iteration < config.max_iterations) & ~state.converged \
         & ~state.failed
-    )
 
-    with record_function("ilqr.derivatives"):
-        lin, quad, final = derivatives(env, state.X, state.U)
-        second = second_derivatives(env, state.X, state.U) if config.ddp \
-            else None
-    with record_function("ilqr.backward"):
-        ok, policy, dV1, dV2, mu, delta = _backward_restarts_batched(
-            lin, quad, final, state.mu, state.delta, config, env.bounds,
-            state.U, second,
-        )
-        del second  # the Hessians: free before the line search
 
-    use_kernels = _use_pallas_rollout(env, state.X, config)
-    emit_traj = use_kernels and _resolve_emit_traj(
-        config, state.U.shape[1], env.state_size, env.action_size)
-    with record_function("ilqr.linesearch"):
-        if emit_traj:
-            J_all, X_alpha, U_alpha = rollout.linesearch_costs_traj(
-                env, state.X, state.U, policy, config.alphas_static()
-            )
-        elif use_kernels:
-            J_all = rollout.linesearch_costs(
-                env, state.X, state.U, policy, config.alphas_static()
-            )
-        else:
-            X_all, U_all, J_all = _linesearch_batched(
-                env, state.X, state.U, policy, alphas
-            )
-
+def _acceptance(state: SolverState, config: ILQRConfig, alphas, ok, dV1,
+                dV2, J_all):
+    """The line search's verdict per lane: whether it accepted an alpha
+    (the z-test of the actual against the expected reduction), whether the
+    backward pass predicts no further decrease (``at_optimum``), and the
+    index of the largest accepted alpha: ``(any_accepted, at_optimum,
+    best)``, each ``[B]``."""
     expected = -(alphas[None, :] * dV1[:, None]
                  + alphas[None, :] ** 2 * dV2[:, None])
     z = (state.J[:, None] - J_all) / torch.where(
@@ -345,26 +342,20 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
         expected > 0.0, z > config.accept_ratio, J_all < state.J[:, None]
     ) & ok[:, None]
     at_optimum = ok & (-(dV1 + dV2) < config.atol)
-
-    any_accepted = accepted.any(dim=1)                          # [B]
     # first True = largest accepted alpha; index 0 on an all-False row,
-    # which `upd` masks out below
-    best = torch.argmax(accepted.to(torch.uint8), dim=1)        # [B]
-    with record_function("ilqr.materialize"):
-        if emit_traj:
-            X_best, U_best, J_best = rollout.select_alpha_trajectory(
-                state.X, X_alpha, U_alpha, J_all, best
-            )
-            del X_alpha, U_alpha  # A trajectories: free before the KKT pass
-        elif use_kernels:
-            X_best, U_best, J_best = rollout.rollout_alpha(
-                env, state.X, state.U, policy, alphas[best]
-            )
-        else:
-            rows = torch.arange(best.shape[0], device=best.device)
-            X_best, U_best = X_all[rows, best], U_all[rows, best]
-            J_best = J_all[rows, best]
+    # which `upd` masks out in _advance
+    best = torch.argmax(accepted.to(torch.uint8), dim=1)
+    return accepted.any(dim=1), at_optimum, best
 
+
+def _advance(env, state: SolverState, config: ILQRConfig, alphas, active,
+             any_accepted, at_optimum, best, mu, delta, X_best, U_best,
+             J_best):
+    """The rest of an iteration once each lane's accepted-alpha trajectory
+    is materialized: the update of the lanes that accepted, the KKT test of
+    a bounded env, the residual, the mu schedule and the convergence and
+    failure flags. Returns ``(new_state, aux)``; ``aux.accepted`` marks the
+    lanes that took the new trajectory."""
     upd = active & any_accepted
     X_new = torch.where(upd[:, None, None], X_best, state.X)
     U_new = torch.where(upd[:, None, None], U_best, state.U)
@@ -414,6 +405,192 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
     return new_state, aux
 
 
+def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
+    active = _active(state, config)
+
+    with record_function("ilqr.derivatives"):
+        lin, quad, final = derivatives(env, state.X, state.U)
+        second = second_derivatives(env, state.X, state.U) if config.ddp \
+            else None
+    with record_function("ilqr.backward"):
+        ok, policy, dV1, dV2, mu, delta = _backward_restarts_batched(
+            lin, quad, final, state.mu, state.delta, config, env.bounds,
+            state.U, second,
+        )
+        del second  # the Hessians: free before the line search
+
+    use_kernels = _use_pallas_rollout(env, state.X, config)
+    emit_traj = use_kernels and _resolve_emit_traj(
+        config, state.U.shape[1], env.state_size, env.action_size)
+    with record_function("ilqr.linesearch"):
+        if emit_traj:
+            J_all, X_alpha, U_alpha = rollout.linesearch_costs_traj(
+                env, state.X, state.U, policy, config.alphas_static()
+            )
+        elif use_kernels:
+            J_all = rollout.linesearch_costs(
+                env, state.X, state.U, policy, config.alphas_static()
+            )
+        else:
+            X_all, U_all, J_all = _linesearch_batched(
+                env, state.X, state.U, policy, alphas
+            )
+
+    any_accepted, at_optimum, best = _acceptance(state, config, alphas, ok,
+                                                 dV1, dV2, J_all)
+    with record_function("ilqr.materialize"):
+        if emit_traj:
+            X_best, U_best, J_best = rollout.select_alpha_trajectory(
+                state.X, X_alpha, U_alpha, J_all, best
+            )
+            del X_alpha, U_alpha  # A trajectories: free before the KKT pass
+        elif use_kernels:
+            X_best, U_best, J_best = rollout.rollout_alpha(
+                env, state.X, state.U, policy, alphas[best]
+            )
+        else:
+            rows = torch.arange(best.shape[0], device=best.device)
+            X_best, U_best = X_all[rows, best], U_all[rows, best]
+            J_best = J_all[rows, best]
+
+    return _advance(env, state, config, alphas, active, any_accepted,
+                    at_optimum, best, mu, delta, X_best, U_best, J_best)
+
+
+def _use_fused_derivs(env, config: ILQRConfig, device) -> bool:
+    """Whether a solve runs the fully-fused iteration (``_iteration_fused``).
+
+    The JAX package's configuration rule: ``use_pallas`` and
+    ``fuse_derivatives``, and neither ``parallel_backward`` nor ``ddp``
+    (K8 writes first-order blocks only); with those, the split iteration
+    runs. Then the fused iteration needs the env's device step and device
+    linearization (``Env.device_derivatives``: navigation's) and K8 and
+    the lane Riccati kernels at the env's dims. Where one is missing, a
+    CUDA ``device`` raises ``NotImplementedError`` naming it; on the CPU,
+    where every wrapper runs its plain version, the split iteration runs,
+    as it would for such an env in the JAX package. The JAX package's TPU
+    rules (B % 128, dims <= 8 or 12) are not copied: the kernels mask any
+    batch and are instantiated at their own dims.
+    """
+    if not (config.use_pallas and config.fuse_derivatives) \
+            or config.parallel_backward or config.ddp:
+        return False
+    n, m = env.state_size, env.action_size
+    missing = []
+    if env.device_step() is None:
+        missing.append("no device step (Env.device_step)")
+    if env.device_derivatives() is None:
+        missing.append("no device linearization for K8 "
+                       "(Env.device_derivatives)")
+    if (n, m) not in rollout.DERIVS_DIMS:
+        missing.append(f"no K8 instantiation at (n, m) = {(n, m)} "
+                       f"(compiled: {sorted(rollout.DERIVS_DIMS)})")
+    if (n, m) not in riccati.KERNEL_DIMS:
+        missing.append(f"no lane Riccati kernel at (n, m) = {(n, m)} "
+                       f"(compiled: {sorted(riccati.KERNEL_DIMS)})")
+    if not missing:
+        return True
+    if torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            f"fuse_derivatives=True with use_pallas=True on CUDA, but "
+            f"{type(env).__name__} has {'; '.join(missing)}; pass "
+            "fuse_derivatives=False")
+    return False
+
+
+def _backward_restarts_klayout(env, kargs, x_last, mu, delta,
+                               config: ILQRConfig, Ubar):
+    """The fused iteration's backward pass with the per-lane restarts, on
+    the kernel-layout blocks ``kargs`` (``[T, entries, B]``): K1, or K4 for
+    ``boxqp`` on a bounded env, through ``riccati.riccati_backward_lanes``.
+    The final value is ``get_quadratic_final_cost`` at ``x_last [B, n]``
+    (autodiff, as the JAX package's; range ``ilqr.backward.final``).
+    Returns ``_backward_restarts_batched``'s tuple with the policy ``(K [T,
+    m*n, B], k [T, m, B])`` in the layout K2 and K8 take; the compacted
+    restarts (B > ``_RESTART_SUB_BATCH``) gather the failing lanes on the
+    last axis."""
+    n, m = env.state_size, env.action_size
+    dtype = kargs["fx"].dtype
+
+    def final_fields(x):
+        f = env.get_quadratic_final_cost(x)
+        return f.l_x, f.l_xx
+
+    with record_function("ilqr.backward.final"):
+        l_x, l_xx = vmap(final_fields)(x_last)
+    VT = l_xx.reshape(-1, n * n).T.contiguous()
+    vT = l_x.T.contiguous()
+    box = None
+    if config.boxqp and env.bounds is not None:
+        side = lambda a: torch.broadcast_to(  # noqa: E731
+            a.to(dtype), (m,)).contiguous()
+        box = (Ubar.permute(1, 2, 0).to(dtype).contiguous(),
+               side(env.bounds.low), side(env.bounds.high))
+
+    def attempt(mu_):
+        return riccati.riccati_backward_lanes(kargs, VT, vT, mu_, box,
+                                              config.boxqp_iters)
+
+    R = _RESTART_SUB_BATCH
+    if mu.shape[0] <= R:
+        return _restart_loop(attempt, mu, delta, config,
+                             policy_batch_last=True)
+
+    def attempt_sub(idx, mu_sub):
+        sub = lambda a: a.index_select(-1, idx)  # noqa: E731
+        return riccati.riccati_backward_lanes(
+            {key: sub(v) for key, v in kargs.items()}, sub(VT), sub(vT),
+            mu_sub, None if box is None else (sub(box[0]),) + box[1:],
+            config.boxqp_iters)
+
+    return _restart_loop_compacted(attempt, attempt_sub, mu, delta, config,
+                                   R, policy_batch_last=True)
+
+
+def _iteration_fused(env, state: SolverState, kargs, config: ILQRConfig,
+                     alphas):
+    """One fully-fused iteration: the backward on the carried
+    linearization blocks ``kargs``, K2 and K8 fed the kernel-layout policy,
+    and K8's blocks of the new trajectory carried to the next iteration
+    (a lane that keeps its trajectory keeps its blocks). Its semantics
+    are ``_iteration_batched``'s. Returns ``(new_state, kargs_new,
+    aux)``."""
+    active = _active(state, config)
+    with record_function("ilqr.backward"):
+        ok, pol_lane, dV1, dV2, mu, delta = _backward_restarts_klayout(
+            env, kargs, state.X[:, -1], state.mu, state.delta, config,
+            state.U,
+        )
+    with record_function("ilqr.linesearch"):
+        J_all = rollout.linesearch_costs(
+            env, state.X, state.U, None, config.alphas_static(),
+            policy_lane=pol_lane,
+        )
+    any_accepted, at_optimum, best = _acceptance(state, config, alphas, ok,
+                                                 dV1, dV2, J_all)
+    with record_function("ilqr.materialize"):
+        X_best, U_best, J_best, kargs_cand = rollout.rollout_alpha_derivs(
+            env, state.X, state.U, None, alphas[best], policy_lane=pol_lane
+        )
+    new_state, aux = _advance(env, state, config, alphas, active,
+                              any_accepted, at_optimum, best, mu, delta,
+                              X_best, U_best, J_best)
+    kargs_new = {key: torch.where(aux.accepted, kargs_cand[key], kargs[key])
+                 for key in kargs}
+    return new_state, kargs_new, aux
+
+
+def _initial_kargs(env, X, U):
+    """The linearization blocks of the stored trajectory ``X``, ``U``, in
+    the kernel layout: one ``derivatives`` pass (as the split iteration's)
+    and the layout change. A resumed state whose ``X`` deviates from
+    ``rollout(x0, U)`` is linearized along its stored ``X``. Runs once per
+    solve; K8 writes every later iteration's blocks."""
+    lin, quad, final = derivatives(env, X, U)
+    a = riccati._to_kernel_layout(lin, quad, final, X.new_zeros(X.shape[0]))
+    return {key: a[key] for key in rollout.D_KEYS}
+
+
 def _initial_state(env, x0, U0, horizon, config: ILQRConfig) -> SolverState:
     B = x0.shape[0]
     if U0 is None:
@@ -448,18 +625,23 @@ def _solve_batch_impl(env, x0, U0, horizon, config: ILQRConfig,
     else:
         state = _initial_state(env, x0, U0, horizon, config)
     alphas = config.alphas(state.X.dtype, state.X.device)
+    kargs = None
+    if _use_fused_derivs(env, config, state.X.device):
+        with record_function("ilqr.derivatives"):
+            kargs = _initial_kargs(env, state.X, state.U)
 
-    def any_active(s: SolverState) -> bool:
-        active = (s.iteration < config.max_iterations) & ~s.converged \
-            & ~s.failed
-        return bool(active.any())  # the loop's one host sync per iteration
+    def iterate(s, kargs):
+        if kargs is not None:
+            return _iteration_fused(env, s, kargs, config, alphas)
+        new_state, aux = _iteration_batched(env, s, config, alphas)
+        return new_state, None, aux
 
     trace = None
     if return_trace:
         # exactly max_iterations rows; finished scenarios freeze
         rows = []
         for _ in range(config.max_iterations):
-            state, aux = _iteration_batched(env, state, config, alphas)
+            state, kargs, aux = iterate(state, kargs)
             rows.append(ILQRTrace(
                 J=state.J, residual=state.residual, mu=state.mu,
                 alpha=aux.alpha, accepted=aux.accepted,
@@ -467,8 +649,9 @@ def _solve_batch_impl(env, x0, U0, horizon, config: ILQRConfig,
             ))
         trace = ILQRTrace(*(torch.stack(col) for col in zip(*rows)))
     else:
-        while any_active(state):
-            state = _iteration_batched(env, state, config, alphas)[0]
+        # the loop's one host sync per iteration
+        while bool(_active(state, config).any()):
+            state, kargs, _ = iterate(state, kargs)
 
     _, costs = env.rollout(x0, state.U)
     result = ILQRResult(
