@@ -235,6 +235,14 @@ B_G3, G3_STEPS, G3_PLAN_HORIZON, G3_SEED = 1024, 50, 20, 0
 G3_CONFIG = dict(atol=1e-4, max_iterations=15, use_pallas=True,
                  fuse_derivatives=True)
 G3_PLAIN_B, G3_PLAIN_STEPS = 64, 10
+# G3's actions against the split and the plain MPC: max-abs difference.
+# The realized cost is |x - goal|^2 on the pre-step state and the fleet
+# reaches the goal in about one step, so the cost alone would pass a
+# step-1 position error up to ~0.09; the actions are gated as well.
+G3_ACTIONS_ATOL = 1e-4
+# K8 at G3's shape: the least share of (lane, step) points inside both
+# zones (g_z < 0.99 for each), so the multi-zone linearization is exercised
+K8_TWO_ZONE_SHARE = 0.05
 WINDOW_S = 1.0
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # bytes/s, and FLOP/s outside the tensor cores.
@@ -873,33 +881,47 @@ def k8_work(Bn, Tn, n, m, itemsize, n_params, bounded, zones=1):
 
 
 def k8_inputs(case, dtype):
-    """K8's inputs: the navigation headline's (``headline_inputs``) or
+    """K8's inputs: the navigation headline's (``headline_inputs``),
     bounded navigation's (``configs/navigation_bounded.json``, B=256, T=50:
     x0 ~ U(-10, 10), controls ~ 0.5 N(0, 1) clipped, a feedback policy
-    with k ~ N(0, 1) that drives many controls to the box), lane 0 started
-    on the zone's center, each lane's alpha from the grid."""
+    with k ~ N(0, 1) that drives many controls to the box) or G3's
+    (``configs/navigation.json``, two zones, B=1024, T=20: x0 ~ U over the
+    box [1, 8] x [-6, 0] that holds both zones, controls ~ 0.5 N(0, 1), a
+    feedback policy with k ~ 0.5 N(0, 1), so u stays non-zero and the
+    trajectories cross both zones); lane z started on zone z's center,
+    each lane's alpha from the grid."""
     import numpy as np
     import torch
 
     from tfmpc_tpu_torch.core.types import Policy
+    from tfmpc_tpu_torch.models.registry import load_env
     from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
 
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
     if case == "navigation":
         env, X, U, _, _, _, _, policy = headline_inputs(dtype, "cuda")
-    else:
+    elif case == "nav_bounded":
         env = bounded_env("nav_bounded", dtype)
         Bn, Tn = B_NAV_BOUNDED, T_NAV_BOUNDED
         rng = np.random.default_rng(5)
-        t = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
-                                      device="cuda")
         U = env.clip(t(0.5 * rng.standard_normal((Bn, Tn, N))))
         X, _ = env.rollout(t(rng.uniform(-10.0, 10.0, (Bn, N))), U)
         policy = Policy(K=t(0.05 * rng.standard_normal((Bn, Tn, N, N))),
                         k=t(rng.standard_normal((Bn, Tn, N))))
-    # lane 0 starts on the zone's center, where the distance is the 1e-12
+    else:
+        env = load_env(ROOT / "configs/navigation.json", dtype=dtype,
+                       device="cuda")
+        Bn, Tn = B_G3, G3_PLAN_HORIZON
+        rng = np.random.default_rng(6)
+        U = t(0.5 * rng.standard_normal((Bn, Tn, N)))
+        X, _ = env.rollout(t(rng.uniform((1.0, -6.0), (8.0, 0.0),
+                                         (Bn, N))), U)
+        policy = Policy(K=t(0.05 * rng.standard_normal((Bn, Tn, N, N))),
+                        k=t(0.5 * rng.standard_normal((Bn, Tn, N))))
+    # lane z starts on zone z's center, where the distance is the 1e-12
     # inside the norm's square root
     x0 = X[:, 0].clone()
-    x0[0] = env.centers[0]
+    x0[:env.centers.shape[0]] = env.centers
     X, _ = env.rollout(x0, U)
     Bn = U.shape[0]
     alpha_vec = ILQRConfig().alphas(dtype, device="cuda")[
@@ -909,8 +931,11 @@ def k8_inputs(case, dtype):
 
 def check_k8(case, dtype, timings=None, errs=None):
     """K8 at the navigation headline's shapes (``navigation``: B=4096,
-    T=100, one zone) or bounded navigation's (``nav_bounded``: B=256, T=50,
-    box +-1): X, U, J and the seven linearization blocks against its plain
+    T=100, one zone), bounded navigation's (``nav_bounded``: B=256, T=50,
+    box +-1) or G3's (``g3``: two zones, B=1024, T=20; it prints and gates
+    the share of steps at which both zones slow the agent, g_z < 0.99,
+    where the product over the other zones and the per-zone sum into
+    d lambda / dx matter): X, U, J and the seven linearization blocks against its plain
     version within ``TOL``; X, U and J against K3 on the same inputs (the
     same arithmetic in another kernel) within ``K5_VS_K2K3_RTOL``, printing
     whether they are bitwise equal; the kernel-layout policy (the fused
@@ -936,6 +961,14 @@ def check_k8(case, dtype, timings=None, errs=None):
                          | (out_p[1] == env.bounds.high)).float().mean())
         print(f"  {label}: {clipped:.3f} of the controls on a face of the "
               "box")
+    if env.centers.shape[0] > 1:
+        d = out_p[0][:, :-1, None, :] - env.centers
+        g = torch.tanh(env.decays * (d * d).sum(-1).sqrt() / 2)
+        both = float(((g < 0.99).sum(-1) >= 2).double().mean())
+        print(f"  {label}: {both:.3f} of the steps inside both zones "
+              f"(g_z < 0.99; gate >= {K8_TWO_ZONE_SHARE})")
+        if both < K8_TWO_ZONE_SHARE:
+            raise AssertionError(f"{label}: too few steps in both zones")
     max_err = 0.0
     for what, got, want in zip(("X", "U", "J"), out_k[:3], out_p[:3]):
         max_err = max(max_err, compare(f"{label} {what}", got, want, dn))
@@ -2165,6 +2198,17 @@ def cost_share(label, got, want, rtol, share):
     return within
 
 
+def actions_gate(label, got, want):
+    """Max-abs difference of two MPC runs' actions; raises past
+    ``G3_ACTIONS_ATOL``."""
+    err = float((got.double() - want.double()).abs().max())
+    print(f"  {label}: actions max-abs diff {err:.3e} (gate "
+          f"{G3_ACTIONS_ATOL:g})")
+    if not err <= G3_ACTIONS_ATOL:
+        raise AssertionError(f"{label}: actions disagree")
+    return err
+
+
 def slice_f(phase, timings, errs, launches_by_path, rates, card, nav_split):
     """Phases 24-27 (slice F): K8 against its plain version and K3, the G1
     and G2 fused solves against the split-kernel ones, the G3 MPC fleet,
@@ -2186,6 +2230,7 @@ def slice_f(phase, timings, errs, launches_by_path, rates, card, nav_split):
         f32 = (timings, errs) if dtype == torch.float32 else ()
         check_k8("navigation", dtype, *f32)
         check_k8("nav_bounded", dtype, *f32)
+        check_k8("g3", dtype)
     phase.done("24. K8 vs its plain version and K3")
 
     # -- 25. G1: the headline with fuse_derivatives (slice F's main path) ----
@@ -2288,18 +2333,20 @@ def slice_f(phase, timings, errs, launches_by_path, rates, card, nav_split):
     g3["vs_split"] = cost_share("G3 vs the split-kernel MPC",
                                 res.total_cost, res_s.total_cost, 1e-4,
                                 0.99)
+    g3["actions_vs_split"] = actions_gate("G3 vs the split-kernel MPC",
+                                          res.actions, res_s.actions)
     x0_64 = x0_3[:G3_PLAIN_B]
     res_k = mpc_runner(env3, x0_64, G3_PLAIN_STEPS, g3_cfg)()
     t0 = time.perf_counter()
     res_p = mpc_runner(env3, x0_64, G3_PLAIN_STEPS, dataclasses.replace(
         g3_cfg, use_pallas=False))()
     print(f"  plain MPC (use_pallas=False), first {G3_PLAIN_B} x0, "
-          f"{G3_PLAIN_STEPS} steps: {time.perf_counter() - t0:.2f} s; "
-          "actions max-abs diff to the kernel MPC "
-          f"{float((res_p.actions - res_k.actions).abs().max()):.3e}")
+          f"{G3_PLAIN_STEPS} steps: {time.perf_counter() - t0:.2f} s")
     g3["vs_plain"] = cost_share("G3 kernel MPC vs the plain MPC",
                                 res_k.total_cost, res_p.total_cost, 1e-4,
                                 0.99)
+    g3["actions_vs_plain"] = actions_gate("G3 kernel MPC vs the plain MPC",
+                                          res_k.actions, res_p.actions)
     phase.done("27. G3 MPC fleet")
 
     # rates, in turns on one card

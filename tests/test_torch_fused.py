@@ -226,6 +226,30 @@ def test_compacted_kernel_layout_restarts_match_split(n_bad):
                                    rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_final_value_matches_autodiff_bit_for_bit(case, dtype):
+    """The fused backward's final value (``_final_klayout``, the env's
+    closed form) equals ``get_quadratic_final_cost`` under ``vmap``
+    (autodiff, as the JAX package's fused path takes it) bit for bit, in
+    the kernel layout."""
+    goal, zones = CASES[case]
+    env = make_navigation(goal, zones, dtype=dtype, device="cpu")
+    n = env.state_size
+    x = torch.as_tensor(np.random.default_rng(11).uniform(-6, 6, (64, n)),
+                        dtype=dtype)
+    VT, vT = ilqr_batched._final_klayout(env, x)
+    def final_fields(xi):
+        f = env.get_quadratic_final_cost(xi)
+        return f.l_x, f.l_xx
+
+    l_x, l_xx = torch.func.vmap(final_fields)(x)
+    assert VT.dtype == vT.dtype == dtype
+    assert torch.equal(VT, l_xx.reshape(-1, n * n).T)
+    assert torch.equal(vT, l_x.T)
+
+
 def test_use_fused_derivs_routing():
     """The JAX package's configuration rule, then the env and dims: on the
     CPU an env the fused iteration cannot run takes the split iteration,

@@ -49,7 +49,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.func import vmap
 from torch.profiler import record_function
 
 from tfmpc_tpu_torch.core.types import map_fields
@@ -498,13 +497,25 @@ def _use_fused_derivs(env, config: ILQRConfig, device) -> bool:
     return False
 
 
+def _final_klayout(env, x_last):
+    """The final value's quadratic at ``x_last [B, n]`` in the kernel
+    layout, ``(l_xx [n*n, B], l_x [n, B])``: the env's closed form
+    (``analytic_derivatives`` of the one-point trajectory; an env with
+    ``device_derivatives`` has it). Range ``ilqr.backward.final``."""
+    n, m = env.state_size, env.action_size
+    with record_function("ilqr.backward.final"):
+        final = env.analytic_derivatives(
+            x_last[:, None], x_last.new_zeros(x_last.shape[0], 0, m))[2]
+        return (final.l_xx.reshape(-1, n * n).T.contiguous(),
+                final.l_x.T.contiguous())
+
+
 def _backward_restarts_klayout(env, kargs, x_last, mu, delta,
                                config: ILQRConfig, Ubar):
     """The fused iteration's backward pass with the per-lane restarts, on
     the kernel-layout blocks ``kargs`` (``[T, entries, B]``): K1, or K4 for
     ``boxqp`` on a bounded env, through ``riccati.riccati_backward_lanes``.
-    The final value is ``get_quadratic_final_cost`` at ``x_last [B, n]``
-    (autodiff, as the JAX package's; range ``ilqr.backward.final``).
+    The final value is ``_final_klayout``'s at ``x_last [B, n]``.
     Returns ``_backward_restarts_batched``'s tuple with the policy ``(K [T,
     m*n, B], k [T, m, B])`` in the layout K2 and K8 take; the compacted
     restarts (B > ``_RESTART_SUB_BATCH``) gather the failing lanes on the
@@ -512,14 +523,7 @@ def _backward_restarts_klayout(env, kargs, x_last, mu, delta,
     n, m = env.state_size, env.action_size
     dtype = kargs["fx"].dtype
 
-    def final_fields(x):
-        f = env.get_quadratic_final_cost(x)
-        return f.l_x, f.l_xx
-
-    with record_function("ilqr.backward.final"):
-        l_x, l_xx = vmap(final_fields)(x_last)
-    VT = l_xx.reshape(-1, n * n).T.contiguous()
-    vT = l_x.T.contiguous()
+    VT, vT = _final_klayout(env, x_last)
     box = None
     if config.boxqp and env.bounds is not None:
         side = lambda a: torch.broadcast_to(  # noqa: E731
