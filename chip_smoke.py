@@ -82,14 +82,21 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
 19. solves/s of D1 and D2, and ``torch.profiler`` traces of both;
 20. slice E (mid dims): K7, both variants, against its plain versions at
     E1's shapes (HVAC-16, B=512, T=50) and E2's (the 12-room ring, B=1024,
-    T=100) and on synthetic inputs at (14, 13), (24, 24), (32, 32) and
-    (48, 48) (B=128, T=6, box +-0.4, 4 boxQP iterations), five lanes
-    forced indefinite each: identical ok masks and the ok lanes within
-    tolerance in float64, against the float64 plain version in float32;
-    the clipped K2/K3 at E1's and E2's shapes; K7 against K4 on phase 3's
-    HVAC-6 inputs (the lane/mid boundary: both times); P1 against its plain
-    version at d in {16, 24, 32, 48}, B=1024, beside ``torch.bmm``, and the
-    probe's chain of dependent contractions;
+    T=100) and on synthetic inputs at (14, 13), (24, 24), (32, 32),
+    (48, 48), (40, 33), (7, 9) and (1, 1) (B=128, T=6, box +-0.4, 4 boxQP
+    iterations), five lanes forced indefinite each: identical ok masks and
+    the ok lanes within tolerance in float64, against the float64 plain
+    version in float32; K7 timed at each of those shapes; K7-boxQP with
+    1, 2 and 4 warps a scenario at E1's shape and at (24, 24), (32, 32),
+    (48, 48) (the launch plan's table); K7-boxQP with float32 arithmetic at
+    E1's shape, timed in turns with the double kernel and held against the
+    float64 plain version; the clipped K2/K3 at E1's and E2's shapes; K7
+    against K4 on phase 3's HVAC-6 inputs (the lane/mid boundary: both
+    times); P1 against its plain version at d in {16, 24, 32, 48},
+    B=1024, its device time beside ``torch.bmm``'s (CUDA graph replays,
+    in turns), every instantiated plan timed, and the probe's chain of
+    dependent contractions. The build phase prints each K7 plan beside
+    the kernel's own shared-memory sum;
 21. E1, suite config 3b: ``load_env("configs/hvac16.json")``, T=50,
     B=512, f32, ``ILQRConfig(atol=1e-2, max_iterations=20, boxqp=True,
     use_pallas=True)``, x0 ~ U(8, 18) from seed 0; counters prove
@@ -222,8 +229,13 @@ E1_MIN_CONVERGED = 0.98
 E2_MIN_CONVERGED = 0.99
 # K7 on synthetic inputs: the JAX release gate's cases
 # (release_check.py:342-388: B=128, T=6, box +-0.4, 4 boxQP iterations),
-# and one rectangular pair of tests/test_riccati_mid.py
-MID_SYNTHETIC_DIMS = ((14, 13), (24, 24), (32, 32), (48, 48))
+# one rectangular pair of tests/test_riccati_mid.py, m > 32 with n != m
+# (a lane holds two rows), a small rectangular pair and the smallest dims
+MID_SYNTHETIC_DIMS = ((14, 13), (24, 24), (32, 32), (48, 48), (40, 33),
+                      (7, 9), (1, 1))
+# K7's warps per scenario, timed at these dims (the plan's MID_WARPS
+# table is set from them)
+MID_WARPS_SWEEP = ((16, 16), (24, 24), (32, 32), (48, 48))
 # P1: the JAX probe's dims and batch (benchmarks/mxu_probe.py), and the
 # length of its chain of dependent contractions
 P1_DIMS, P1_B, P1_CHAIN = (16, 24, 32, 48), 1024, 128
@@ -270,6 +282,30 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls captured in
+    one CUDA graph and replayed (after a warm-up call and a warm-up
+    replay): the time of the launches themselves, without the ~10-20 us of
+    host work a Python call adds, which an eager loop of microsecond
+    kernels would measure instead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -1379,15 +1415,15 @@ def mid_case(case, dtype):
     return (f"synthetic ({n}, {m})", *synthetic_mid_inputs(n, m, dtype), 4)
 
 
-def check_k7(case, dtype, timings=None, errs=None):
+def check_k7(case, dtype, timings=None, errs=None, suffix=""):
     """K7, both variants, against its plain versions on ``mid_case(case)``
     with five lanes forced indefinite (``hold_backward``: identical ok
     masks and the ok lanes within tolerance in float64, the boxQP's share
     gate set by the plain version's own agreement across the card and the
     CPU; the float32 share rule against the float64 plain version). With
-    ``timings``: the kernel,
-    wrapper and plain times and the bounds at these shapes, on the
-    unforced inputs."""
+    ``timings``: the kernel, wrapper and plain times and the bounds at
+    these shapes, on the unforced inputs, under the kernels' names plus
+    ``suffix``."""
     import torch
 
     from tfmpc_tpu_torch.ops import riccati_mid as rm
@@ -1439,9 +1475,117 @@ def check_k7(case, dtype, timings=None, errs=None):
                 lin, quad, final, mu, bounds, U, iters)
             ref = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
                 lin, quad, final, mu, bounds, U, iters)
-        errs[name] = err
-        timings[name] = (cuda_ms(launch, 20), cuda_ms(wrap, 20),
-                         cuda_ms(ref, 2), bound(*work))
+        errs[name + suffix] = err
+        timings[name + suffix] = (cuda_ms(launch, 20), cuda_ms(wrap, 20),
+                                  cuda_ms(ref, 2), bound(*work))
+        # the kernel computes in double: its bound at the FP64 peak too
+        # (at the 67 TFLOP/s of the FP64 tensor cores it is the f32 one)
+        b64, by64 = bound(*work, "float64")
+        k_ms = timings[name + suffix][0]
+        print(f"  {name}{suffix}: {k_ms:.4f} ms; bound {bound(*work)[0]:.4f}"
+              f" ms at the f32 peak, {b64:.4f} ms ({by64}) at the FP64 "
+              f"peak: {b64 / k_ms:.4f} of it")
+
+
+def print_mid_plans(lib):
+    """K7's launch plan at each shape phase 20 runs, beside the shared
+    bytes the kernel computes for it (``tfmpc_riccati_mid_smem_bytes``),
+    which must agree."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    shapes = [((12, 12), B_E2), ((16, 16), B_E1)] + [
+        (dims, 128) for dims in MID_SYNTHETIC_DIMS]
+    for (n, m), Bn in shapes:
+        for dtype in (torch.float32, torch.float64):
+            p = rm.mid_plan(n, m, Bn, dtype)
+            lib_bytes = lib.tfmpc_riccati_mid_smem_bytes(
+                0 if dtype == torch.float32 else 1, 0, n, m, p.scenarios,
+                int(p.stage_l))
+            print(f"  K7 plan ({n}, {m}) B={Bn} {dname(dtype)}: {p.threads} "
+                  f"threads, {p.warps} warp(s) a scenario, {p.scenarios} "
+                  f"scenarios a block, l blocks "
+                  f"{'staged' if p.stage_l else 'read in place'}, "
+                  f"{p.smem_bytes} B shared (kernel: {lib_bytes} B)")
+            if lib_bytes != p.smem_bytes:
+                raise AssertionError(f"K7 plan at {(n, m)}: shared bytes "
+                                     "disagree with the kernel's")
+
+
+def k7_warps_sweep(card):
+    """K7-boxQP's time (f32 inputs) with 1, 2 and 4 warps a scenario at
+    E1's shape (HVAC-16, B=512, T=50) and on the synthetic inputs at
+    (24, 24), (32, 32) and (48, 48): the measurement behind
+    ``riccati_mid.MID_WARPS``. Returns {dims: {warps: ms}}."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    out = {}
+    for dims in MID_WARPS_SWEEP:
+        case = "hvac16" if dims == (16, 16) else dims
+        label, lin, quad, final, mu, bounds, U, iters = mid_case(
+            case, torch.float32)
+        Bn, Tn, n, m = lin.f_u.shape
+        a = rm.mid_layout(lin, quad, final, mu, bounds, U)
+        kargs = [a[k] for k in rm.MID_BOXQP_ARGS]
+        row = {}
+        for warps in (1, 2, 4):
+            plan = rm.mid_plan(n, m, Bn, torch.float32, warps=warps)
+            row[warps] = cuda_ms(lambda: rm.riccati_backward_mid_boxqp_kernel(
+                *kargs, boxqp_iters=iters, plan=plan), 10)
+        out[f"{n}x{m}"] = row
+        print(f"  K7-boxQP {label} (B={Bn}, T={Tn}) by warps a scenario: "
+              + ", ".join(f"{w}: {ms:.4f} ms" for w, ms in row.items())
+              + f"; the plan takes {rm.mid_warps(n, m)} [{card}]")
+    return out
+
+
+def k7_float_arith(card):
+    """K7-boxQP with float32 arithmetic (reached by no solver route) at
+    E1's shape: its time beside the double-arithmetic kernel's, in turns,
+    and both against the float64 plain version on the same float32 inputs
+    (share of ok lanes within K4_F32_TOL, lanes whose ok differs)."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    label, lin, quad, final, mu, bounds, U, iters = mid_case(
+        "hvac16", torch.float32)
+    a = rm.mid_layout(lin, quad, final, mu, bounds, U)
+    kargs = [a[k] for k in rm.MID_BOXQP_ARGS]
+    ref = rm.riccati_backward_mid_boxqp_ref(
+        to64(lin), to64(quad), to64(final), mu.double(), to64(bounds),
+        U.double(), iters)
+    out = {}
+    for arith in (torch.float64, torch.float32):
+        K, k, dv1, dv2, fail = rm.riccati_backward_mid_boxqp_kernel(
+            *kargs, boxqp_iters=iters, arith=arith)
+        ok = fail == 0
+        both = ok & ref[0]
+        share = lane_share((K, k, dv1, dv2), (ref[1].K, ref[1].k, ref[2],
+                                              ref[3]), both, *K4_F32_TOL)
+        err = max(float((x.double()[both] - y[both]).abs().max())
+                  for x, y in ((K, ref[1].K), (k, ref[1].k)))
+        out[dname(arith)] = {"share": share, "ok_differs": int(
+            (ok != ref[0]).sum()), "max_abs_err": err}
+    times = {}
+    for rnd in range(2):  # in turns: double, float, float, double
+        for arith in ((torch.float64, torch.float32) if rnd == 0 else
+                      (torch.float32, torch.float64)):
+            times.setdefault(dname(arith), []).append(cuda_ms(
+                lambda: rm.riccati_backward_mid_boxqp_kernel(
+                    *kargs, boxqp_iters=iters, arith=arith), 10))
+    for key, row in out.items():
+        row["ms"] = min(times[key])
+        print(f"  K7-boxQP {label} with {key} arithmetic: {row['ms']:.4f} ms "
+              f"(best of two turns); against the float64 plain version: "
+              f"share of ok lanes within {K4_F32_TOL[0]:g} + "
+              f"{K4_F32_TOL[1]:g}*|ref| {row['share']:.6f}, ok differs on "
+              f"{row['ok_differs']} lanes, max K/k err "
+              f"{row['max_abs_err']:.3e} [{card}]")
+    return out
 
 
 def k7_vs_k4(card, k4_bound):
@@ -1525,12 +1669,19 @@ def check_p1(d, timings, errs, card):
     errs[name] = err
     A, M = A.contiguous(), M.contiguous()
     bytes_ = 3 * d * d * P1_B * 4
+    # kernel and library: device times of graph replays (in turns: kernel,
+    # bmm, bmm, kernel, the best of each); wrapper and plain: eager loops
+    turns = {"k": [], "lib": []}
+    for key in ("k", "lib", "lib", "k"):
+        turns[key].append(graph_ms(
+            (lambda: rm.row_matmul_kernel(A_rows, M_rows, d)) if key == "k"
+            else (lambda: torch.bmm(A, M)), 100))
     timings[name] = (
-        cuda_ms(lambda: rm.row_matmul_kernel(A_rows, M_rows, d), 50),
+        min(turns["k"]),
         cuda_ms(lambda: rm.row_matmul(A_rows, M_rows, d), 50),
         cuda_ms(lambda: rm.row_matmul_ref(A_rows, M_rows, d), 50),
         bound(bytes_, 2 * d ** 3 * P1_B),
-        cuda_ms(lambda: torch.bmm(A, M), 50),
+        min(turns["lib"]),
     )
     rm.ROW_MATMUL_LAUNCHES = 0
     C = A_rows
@@ -1545,12 +1696,52 @@ def check_p1(d, timings, errs, card):
     launches = rm.ROW_MATMUL_LAUNCHES
     if launches != P1_CHAIN or not bool(torch.isfinite(C).all()):
         raise AssertionError(f"P1 chain d={d}: {launches} launches")
-    k_ms, _, p_ms, (b_ms, b_by), lib_ms = timings[name]
-    print(f"  P1 d={d} B={P1_B} f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
-          f"ms, torch.bmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+    k_ms, w_ms, p_ms, (b_ms, b_by), lib_ms = timings[name]
+    plan = rm.row_plan(d, dtype)
+    print(f"  P1 d={d} B={P1_B} f32: kernel {k_ms:.4f} ms ({plan.scenarios} "
+          f"scenarios a block, {plan.rows} x {plan.cols} tiles), torch.bmm "
+          f"{lib_ms:.4f} ms (both device times of graph replays, best of "
+          f"two turns; P1/bmm {k_ms / lib_ms:.3f}), wrapper {w_ms:.4f} ms "
+          f"and plain {p_ms:.4f} ms (eager), bound {b_ms:.4f} ms ({b_by}); "
           f"chain of {P1_CHAIN}: {start.elapsed_time(end) / P1_CHAIN:.4f} ms "
           f"per contraction with its rescale, {launches} launches [{card}]")
     return launches
+
+
+def p1_tiles(d, card):
+    """P1's device time (f32, B=1024, graph replays) with each instantiated
+    register tile that fits at d, beside ``torch.bmm``'s: the measurement
+    behind ``riccati_mid.ROW_PLANS``. Returns {"rows x cols": ms} and
+    "bmm"."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    rng = np.random.default_rng(d)
+    A = torch.as_tensor(rng.standard_normal((P1_B, d, d)),
+                        dtype=torch.float32, device="cuda")
+    M = torch.as_tensor(rng.standard_normal((P1_B, d, d)),
+                        dtype=torch.float32, device="cuda")
+    rows = lambda X: X.reshape(P1_B, d * d).T.contiguous()  # noqa: E731
+    A_rows, M_rows = rows(A), rows(M)
+    want = rm.row_matmul_ref(A_rows, M_rows, d)
+    out = {}
+    for tile in rm.ROW_TILES:
+        try:
+            plan = rm.row_plan(d, torch.float32, tile)
+        except ValueError:
+            continue
+        key = "{} x {}".format(*tile)
+        compare(f"P1 d={d} {key}", rm.row_matmul_kernel(
+            A_rows, M_rows, d, plan), want, "float32", tol=(1e-5, 1e-5))
+        out[key] = graph_ms(
+            lambda: rm.row_matmul_kernel(A_rows, M_rows, d, plan), 100)
+    out["bmm"] = graph_ms(lambda: torch.bmm(A, M), 100)
+    print(f"  P1 d={d} B={P1_B} f32 by register tile (rows x cols): "
+          + ", ".join(f"{t}: {ms:.4f} ms" for t, ms in out.items())
+          + f" [{card}]")
+    return out
 
 
 # -- solves ------------------------------------------------------------------
@@ -2080,7 +2271,8 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
     """Phases 20-23 (slice E): K7, P1 and the mid-dim K2/K3 against their
     plain versions, the E1 and E2 solves, their rates and the E1 profile.
     Fills the dicts it is given; returns (e1, e2, the K7/K4 times at
-    HVAC-6, the E1 profile)."""
+    HVAC-6, the E1 profile, K7's warps sweep, its float32-arithmetic
+    figures and P1's tile sweep)."""
     import numpy as np
     import torch
 
@@ -2091,16 +2283,20 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
         print(f"slice E kernels vs plain versions, {dtype}:")
         f32 = (timings, errs) if dtype == torch.float32 else ()
         check_k7("hvac16", dtype, *f32)
-        check_k7("hvac12", dtype)
-        for dims in MID_SYNTHETIC_DIMS:
-            check_k7(dims, dtype)
+        check_k7("hvac12", dtype, *f32, suffix="_hvac12")
+        for n, m in MID_SYNTHETIC_DIMS:
+            check_k7((n, m), dtype, *f32, suffix=f"_{n}x{m}")
         check_clipped_rollouts("hvac16", dtype, *f32, Bn=B_E1, Tn=T_E1,
                                suffix="_hvac16")
         check_clipped_rollouts("hvac12", dtype, Bn=B_E2, Tn=T_E2)
+    extra = {"k7_warps_ms": k7_warps_sweep(card),
+             "k7_float_arithmetic": k7_float_arith(card),
+             "p1_tiles_ms": {}}
     k7_k4 = k7_vs_k4(card, timings["riccati_backward_boxqp"][3])
     for d in P1_DIMS:
         launches_by_path[f"p1_chain_d{d}"] = {
             "row_matmul": check_p1(d, timings, errs, card)}
+        extra["p1_tiles_ms"][d] = p1_tiles(d, card)
     phase.done("20. K7, P1 and the mid-dim K2/K3 vs plain versions")
 
     # -- 21. E1: HVAC-16 (suite config 3b, slice E's main path) --------------
@@ -2166,7 +2362,7 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
               f"{plain_txt} [{card}]")
     e1_profile = print_profile("E1 HVAC-16", run_e1, card)
     phase.done("23. slice E solves/s and the E1 profile")
-    return e1, e2, k7_k4, e1_profile
+    return e1, e2, k7_k4, e1_profile, extra
 
 
 def mpc_runner(env, x0, steps, config):
@@ -2409,9 +2605,7 @@ def main() -> int:
     print(f"build: {build_s:.1f} s ({_build.library_path().name})")
     print_ptxas(_build.library_path().with_suffix(".log").read_text())
     lib = _build.library()
-    print("  K7 dynamic shared memory per block (doubles, both dtypes): "
-          + ", ".join(f"{dims} {lib.tfmpc_riccati_mid_smem_bytes(*dims)} B"
-                      for dims in ((12, 12), (16, 16), (14, 13), (48, 48))))
+    print_mid_plans(lib)
 
     # -- 3. kernels vs plain versions ---------------------------------------
     timings, errs = {}, {}
@@ -2663,9 +2857,8 @@ def main() -> int:
     d2_profile = print_profile("D2 navigation DDP", run_d2, card)
     phase.done("19. slice D solves/s and the D1 and D2 profiles")
 
-    e1, e2, k7_k4, e1_profile = slice_e(phase, timings, errs,
-                                        launches_by_path, plain_s, rates,
-                                        card)
+    e1, e2, k7_k4, e1_profile, e_extra = slice_e(
+        phase, timings, errs, launches_by_path, plain_s, rates, card)
     f_figures = slice_f(phase, timings, errs, launches_by_path, rates, card,
                         nav_split)
 
@@ -2719,6 +2912,8 @@ def main() -> int:
                                  "riccati_backward_mid"),
         "riccati_backward_mid_boxqp": (mid_cu, k7_tpu, "e1_hvac16",
                                        "riccati_backward_mid_boxqp"),
+        "riccati_backward_mid_boxqp_hvac12": (mid_cu, k7_tpu, "e2_hvac12",
+                                              "riccati_backward_mid_boxqp"),
         "linesearch_costs_clipped_hvac16": (rollout_cu, k2_tpu, "e1_hvac16",
                                             "linesearch_costs"),
         "rollout_alpha_clipped_hvac16": (rollout_cu, k3_tpu, "e1_hvac16",
@@ -2762,6 +2957,13 @@ def main() -> int:
                       "e1_profile": e1_profile,
                       "e1": e1, "e2": e2,
                       "k7_vs_k4_hvac6_ms": k7_k4,
+                      **e_extra,
+                      "k7_synthetic": {
+                          k: {"ms": v[0], "plain_ms": v[2],
+                              "bound_ms": v[3][0], "max_abs_err": errs[k]}
+                          for k, v in timings.items()
+                          if k.startswith("riccati_backward_mid")
+                          and k not in sources},
                       **f_figures,
                       "phase_s": phase.seconds,
                       "total_s": time.perf_counter() - t_start,

@@ -237,6 +237,79 @@ def test_row_matmul_ref_matches_jax_probe(d):
                                rtol=1e-12, atol=1e-12)
 
 
+# -- the launch plans ---------------------------------------------------------------
+
+PLAN_BATCHES = (1, 2, 31, 33, 128, 130, 512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", range(1, riccati_mid.MID_DIM_MAX + 1))
+def test_mid_plan_fits_and_covers_each_scenario_once(n, dtype):
+    """K7's plan at every (n, m): the block's shared memory fits
+    ``SMEM_LIMIT``, its threads are whole warps, at most 1024, and the
+    blocks' teams take each scenario of the batch exactly once (ragged
+    batches of the compacted restarts included); float32 inputs also with
+    float32 arithmetic."""
+    ariths = (torch.float64, torch.float32) if dtype == torch.float32 \
+        else (torch.float64,)
+    for m in range(1, riccati_mid.MID_DIM_MAX + 1):
+        for arith in ariths:
+            for B in PLAN_BATCHES:
+                plan = riccati_mid.mid_plan(n, m, B, dtype, arith)
+                assert plan.smem_bytes <= riccati_mid.SMEM_LIMIT
+                assert plan.smem_bytes == plan.scenarios * \
+                    riccati_mid.mid_scenario_bytes(n, m, dtype, arith,
+                                                   plan.stage_l)
+                assert plan.threads % 32 == 0 and plan.threads <= 1024
+                assert plan.warps == riccati_mid.mid_warps(n, m, B)
+                got = riccati_mid.mid_plan_scenarios(plan, B)
+                np.testing.assert_array_equal(np.sort(got), np.arange(B))
+
+
+def test_mid_plan_shared_bytes_and_staging():
+    """The per-scenario sums the kernel's source note states, and the l
+    blocks left in place only where staging them would not fit."""
+    f32, f64 = torch.float32, torch.float64
+    assert riccati_mid.mid_scenario_bytes(16, 16, f32) == 26064
+    assert riccati_mid.mid_scenario_bytes(48, 48, f64, stage_l=False) \
+        == 198288
+    assert not riccati_mid.mid_plan(48, 48, 128, f64).stage_l
+    assert riccati_mid.mid_plan(48, 48, 128, f32).stage_l
+    assert riccati_mid.mid_plan(16, 16, 512, f32).stage_l
+    # a small batch spreads over the SMs; a large one packs teams, with
+    # fewer warps each where an SM would not hold them in one wave
+    assert riccati_mid.mid_plan(16, 16, 128, f32).scenarios == 1
+    p512 = riccati_mid.mid_plan(16, 16, 512, f32)
+    assert (p512.scenarios, p512.warps) == (4, 2)
+    p1024 = riccati_mid.mid_plan(12, 12, 1024, f32)
+    assert (p1024.scenarios, p1024.warps) == (4, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", range(1, riccati_mid.MID_DIM_MAX + 1))
+def test_row_plan_covers_each_entry_once(d, dtype):
+    """P1's plan (and every instantiated plan that fits at d): whole warps,
+    within the kernel's thread bound and the shared-memory limit, and the
+    threads store each (entry, scenario) of C exactly once, B = 1, 33 (a
+    ragged last block) and 1024."""
+    plans = [riccati_mid.row_plan(d, dtype)]
+    for tile in riccati_mid.ROW_TILES:
+        try:
+            plans.append(riccati_mid.row_plan(d, dtype, tile))
+        except ValueError:
+            plan = riccati_mid.RowPlan(*tile, plans[0].scenarios)
+            assert plan.threads(d) > plan.max_threads or \
+                plan.smem_bytes(d, dtype) > riccati_mid.SMEM_LIMIT
+    for plan in plans:
+        assert plan.threads(d) % 32 == 0
+        assert plan.threads(d) <= plan.max_threads <= 1024
+        assert plan.smem_bytes(d, dtype) <= riccati_mid.SMEM_LIMIT
+        for B in (1, 33, 1024):
+            cover = riccati_mid.row_matmul_cover(plan, d, B)
+            assert cover.shape == (d * d, B)
+            assert (cover == 1).all(), (plan, B)
+
+
 # -- the routing rule -------------------------------------------------------------
 
 def test_kernel_mode_routes_lane_mid_and_raises():

@@ -25,270 +25,551 @@
 // What bounds it on this card: at HVAC-16 (B = 512, T = 50, n = m = 16,
 // f32) a step reads ~1,330 values per scenario and writes 272 (~164 MB over
 // the backward, ~0.05 ms at 3.35 TB/s) and does ~1.5e5 operations with the
-// boxQP (~3.8 GFLOP, ~0.06 ms at 67 TFLOP/s): operations, barely. But each
+// boxQP (~3.8 GFLOP, ~0.06 ms at 67 TFLOP/s, or ~0.11 ms at the 34 TFLOP/s
+// of double outside the tensor cores): operations, barely. But each
 // scenario's T steps are a serial chain, and inside a step the Cholesky
-// and the triangular solves are chains of m dependent column steps, so
-// the kernel is bound by that chain's latency far above both.
+// and the triangular solves are chains of m dependent column steps (up to
+// five factorizations a step at ~3 Newton iterations), so the kernel is
+// bound by the latency of that chain: shared-memory loads, shuffles,
+// double sqrt and division one after another, far above both bounds.
 //
-// Precision: the block computes in double for both dtypes (its shared
-// arrays are double; float32 inputs are widened as they are read and the
-// outputs rounded once). The boxQP backward is ill-conditioned in float32
-// (a rounding change flips free sets: the float32 plain version is more
-// than 1e-3 + 1e-3 |k| from its own float64 result on 23% of HVAC-12's
-// lanes on an H100, and a float32 K7 landed 1.3 points below it), so K7
-// stays as accurate as its float64 self on float32 inputs; the chain is
-// bound by barriers and latency, not by the double rate.
+// What the design does about it: a TEAM of one warp (or a few, from the
+// launch plan of ops/riccati_mid.py) per scenario, several scenarios per
+// block, each team with its own slice of shared memory and its own
+// barrier: __syncwarp for one warp, a named barrier (bar.sync 1 + slot)
+// for more; no barrier spans two scenarios, so a block's tail teams of a
+// ragged batch just return. The dependent chains run on the team's first
+// warp with no block barrier at all:
+// - the Cholesky goes column by column: lane r (and r + 32) forms its row's
+//   entry as a dot product over the earlier columns of the scaled factor
+//   (loads only), the pivot comes by shuffle, and the scaled factor
+//   Ls = L / diag(L) goes to shared memory, so the substitutions multiply
+//   by it directly; __syncwarp between columns;
+// - the Newton step's substitutions keep the right-hand side in registers
+//   (lane a holds entry a), broadcast each solved entry by shuffle, and
+//   load the factor unconditionally (clamped rows, selects), so no branch
+//   holds a load back;
+// - the boxQP's free set is a ballot (a 64-bit mask in registers), its
+//   free-gradient norm and dV are warp sums broadcast from lane 0, and the
+//   nine candidates' objectives are summed one per lane in ascending order
+//   and picked by a ballot, so every branch is taken alike by the warp;
+// - the probe, each Newton iteration and the final set share one call of
+//   the factorization, which reuses the factor it holds when asked for the
+//   same free set again (bit for bit what a new one would be).
+// The gains' many right-hand sides (K's n columns, and k) are solved by
+// the whole team, a column per thread, each entry a dot product over the
+// entries solved before it. The products (W, W_u, Q_x, Q_u, the Q blocks,
+// Q_uu K, V', v') give each thread a column of up to four rows at once
+// (four independent sums reading each column operand once); rows are
+// padded to an odd length, so a warp reading one entry of each of 32 rows
+// hits 32 banks. Each step's inputs (f_x, f_u, l_x, l_u, ubar and, where
+// they fit, l_xx, l_uu, l_ux) are copied into the team's staging slot with
+// cp.async (16-byte copies where aligned), issued as soon as the step
+// before has read its own, so the copy of step t-1 runs under step t's
+// boxQP, solves and value update. Each thread maps to its column once per
+// product, not by a division per entry. The kernel may take 255 registers
+// a thread (it needs ~190-245 and spills at 128), so an SM holds 8 warps:
+// the plan gives a scenario fewer warps where the batch would not fit one
+// wave (HVAC-16, B = 512: 2; HVAC-12, B = 1024: 1).
 //
-// What the design does about it, simple and right first: one thread block
-// per scenario (no lane padding: any B, the ragged sub-batches of the
-// compacted restarts too), 128 or 256 threads taking the entries of each
-// small product, the trailing update of each right-looking Cholesky column
-// and the right-hand sides of each substitution row; __syncthreads between
-// the dependent phases. The value function, the staged f_x and f_u, W, the
-// Q blocks, the factor, the gains and the boxQP's vectors live in dynamic
-// shared memory across the T loop; l_x, l_u, l_xx, l_uu, l_ux and ubar are
-// read once, where they are used. Layout: the solver's own [B, T, ...]
-// (scenario-major), not the lane kernels' [T, entries, B]: a block reads
-// its scenario's contiguous n*n entries with neighbouring threads on
-// neighbouring addresses, so the loads are coalesced with no permute in
-// the wrapper, and K [B, T, m, n], k [B, T, m] come out in the solver's
-// layout too.
+// Every sum keeps the order of _mid_step and of the block version before
+// this design: each entry of each product in ascending index order, each
+// factor and solve entry with the right-looking terms of _chol_rows and
+// _chol_solve_rows in their order; only dV's and the free-gradient norm's
+// warp sums are reduced as a tree.
 //
-// Shared memory, in doubles (mid_smem_elems below): 4 n^2
-// (V, f_x then the unsymmetrized V', W, Q_xx) + 4 n m (f_u then Q_uu K,
-// W_u, Q_ux, QuxR then K) + 3 m^2 (Q_uu, QuuR, the factor) + 2 n + 27 m +
-// 16 (v, Q_x; Q_u, 1/diag, k, Q_uu k, the boxQP's x, gradient, step, box,
-// free set, 8 candidates and their H x). At n = m = 48 that is 214,016
-// bytes, under the 232,448 a block may have; at HVAC-16 26,368. Above 48 KB
-// the launch raises the kernel's dynamic limit first.
+// Precision: the team computes in the arithmetic type C, double for both
+// dtypes on the solver's path (float32 inputs are widened as they are read
+// and the outputs rounded once). The boxQP backward is ill-conditioned in
+// float32 (a rounding change flips free sets: the float32 plain version is
+// more than 1e-3 + 1e-3 |k| from its own float64 result on 23% of HVAC-12's
+// lanes on an H100), so K7 stays as accurate as its float64 self on float32
+// inputs. The float32-arithmetic instantiation (arith = 1) is reached by
+// no solver route; chip_smoke.py times it and holds it against the
+// float64 plain version.
+//
+// Shared memory per scenario (mid_scenario_bytes below), with ln = n | 1,
+// lm = m | 1: in C, 2 n ln (V, which holds Q_xx once W is formed, and W,
+// which holds the unsymmetrized V') + max(n lm, m ln) (W_u, then Q_uu K)
+// + 2 m ln (Q_ux, QuxR then K) + 3 m lm (Q_uu, QuuR, the scaled factor) +
+// 2 n + 5 m (v, Q_x; Q_u, 1/diag, k, Q_uu k, the boxQP's x) + 18 lm (the
+// nine candidates and their H c); in the input type S, the staging slot,
+// n^2 + n m + n + 2 m (f_x, f_u, l_x, l_u, ubar) plus n^2 + m^2 + m n
+// (l_xx, l_uu, l_ux) where the plan stages them; each part rounded up to
+// 16 bytes. At HVAC-16, float32 inputs, double arithmetic: 20,752 + 5,312
+// = 26,064 bytes a scenario; at n = m = 48 in float64, 160,272 + 38,016
+// (l blocks read in place) = 198,288 bytes, under the 232,448 a block may
+// have. Above 48 KB the launch raises the kernel's dynamic limit first.
+//
+// Layout: the solver's own [B, T, ...] (scenario-major), not the lane
+// kernels' [T, entries, B]: a scenario's n*n entries of a step are
+// contiguous, so the team's copies are coalesced with no permute in the
+// wrapper, and K [B, T, m, n], k [B, T, m] come out in the solver's layout.
 #include "common.cuh"
+#include "warp.cuh"
 
 namespace tfmpc {
 namespace {
 
 constexpr int kMidMaxDim = 48;       // ops/riccati_mid.py MID_DIM_MAX
 constexpr int kMidAlphas = 8;        // ops/boxqp.py LS_ALPHAS
+constexpr int kMaxThreads = 256;     // ops/riccati_mid.py MID_MAX_THREADS
+constexpr int kMaxTeamsNamed = 15;   // named barriers 1..15
 constexpr size_t kMaxSmemBytes = 232448;
 
-#define TFMPC_FOR_TID(e, count) \
-  for (int e = threadIdx.x; e < (count); e += blockDim.x)
-
-size_t mid_smem_elems(int n, int m) {
-  return 4 * static_cast<size_t>(n) * n + 4 * static_cast<size_t>(n) * m +
-         3 * static_cast<size_t>(m) * m + 2 * static_cast<size_t>(n) +
-         27 * static_cast<size_t>(m) + 16;
+__host__ __device__ constexpr int odd(int d) { return d | 1; }
+__host__ __device__ constexpr size_t align16(size_t b) {
+  return (b + 15) / 16 * 16;
 }
 
-// The block's shared arrays (row-major matrices).
-template <typename S>
-struct MidSmem {
-  S *V, *v, *Fx, *W, *Qxx;          // [n n] (Fx later the unsymmetrized V')
-  S *Fu, *Wu, *Qux, *QuxR;          // [n m] / [m n] (Fu later Q_uu K,
-                                    // QuxR later K)
-  S *Quu, *QuuR, *L;                // [m m]
-  S *Qx, *Qu, *invd, *k, *Quu_k;    // vectors
-  S *x, *gm, *lo, *hi, *fr, *cand, *Hc, *obj;  // boxQP
+// Elements of the arithmetic type a scenario keeps in shared memory.
+__host__ __device__ inline size_t mid_work_elems(int n, int m) {
+  const size_t ln = odd(n), lm = odd(m);
+  const size_t nm = n * lm, mn = m * ln;
+  return 2 * n * ln + (nm > mn ? nm : mn) + 2 * mn + 3 * m * lm + 2 * n +
+         5 * static_cast<size_t>(m) + 2 * (kMidAlphas + 1) * lm;
+}
+
+// Elements of the input type in a scenario's staging slot.
+size_t mid_stage_elems(int n, int m, bool stage_l) {
+  const size_t nn = static_cast<size_t>(n) * n, nm = static_cast<size_t>(n) * m;
+  size_t e = nn + nm + n + 2 * static_cast<size_t>(m);
+  if (stage_l) e += nn + static_cast<size_t>(m) * m + nm;
+  return e;
+}
+
+size_t mid_scenario_bytes(int n, int m, size_t s_bytes, size_t c_bytes,
+                          bool stage_l) {
+  return align16(mid_work_elems(n, m) * c_bytes) +
+         align16(mid_stage_elems(n, m, stage_l) * s_bytes);
+}
+
+// One scenario's threads: tid in [0, nt), nt = 32 * warps; the team's first
+// warp runs the dependent chains.
+struct Team {
+  int tid, nt, barrier;  // barrier 0: one warp, __syncwarp
+  __device__ __forceinline__ void sync() const {
+    if (barrier == 0)
+      __syncwarp();
+    else
+      named_barrier(barrier, nt);
+  }
+  __device__ __forceinline__ bool lead() const { return tid < 32; }
 };
 
-template <typename S>
-__device__ MidSmem<S> carve(S* p, int n, int m) {
-  MidSmem<S> s;
-  auto take = [&p](int count) { S* q = p; p += count; return q; };
-  s.V = take(n * n);
-  s.Fx = take(n * n);
-  s.W = take(n * n);
-  s.Qxx = take(n * n);
-  s.Fu = take(n * m);
-  s.Wu = take(n * m);
-  s.Qux = take(m * n);
-  s.QuxR = take(m * n);
-  s.Quu = take(m * m);
-  s.QuuR = take(m * m);
-  s.L = take(m * m);
+// Calls f(i, j) for the entries of an I x J output this thread owns: for
+// J <= nt, thread t takes column t % J of rows t / J, t / J + nt / J, ...
+// (one division per product); for J > nt, columns t, t + nt, ... of every
+// row.
+template <typename F>
+__device__ __forceinline__ void for_entries(const Team& tm, int I, int J,
+                                            F f) {
+  if (J <= tm.nt) {
+    const int G = tm.nt / J, g = tm.tid / J;
+    if (g >= G) return;
+    const int j = tm.tid - g * J;
+    for (int i = g; i < I; i += G) f(i, j);
+  } else {
+    for (int j = tm.tid; j < J; j += tm.nt)
+      for (int i = 0; i < I; ++i) f(i, j);
+  }
+}
+
+// Calls f(rows, count, j) for the row tiles of the I x J output this thread
+// owns, mapped as for_entries: column j and up to kTile of its rows, rows[t]
+// for t < count (the rest repeat a valid row, computed and not stored), so
+// a product runs kTile independent sums at once and reads each column
+// operand once for all of them.
+constexpr int kTile = 4;
+
+template <typename F>
+__device__ __forceinline__ void for_tiles(const Team& tm, int I, int J,
+                                          F f) {
+  int g = 0, G = 1, j0 = tm.tid, js = tm.nt;
+  if (J <= tm.nt) {
+    G = tm.nt / J;
+    g = tm.tid / J;
+    if (g >= G) return;
+    j0 = tm.tid - g * J;
+    js = J;
+  }
+  for (int j = j0; j < J; j += js)
+    for (int i0 = g; i0 < I; i0 += kTile * G) {
+      int rows[kTile];
+      int count = 0;
+#pragma unroll
+      for (int t = 0; t < kTile; ++t) {
+        const int i = i0 + t * G;
+        rows[t] = i < I ? i : i0;
+        count += i < I ? 1 : 0;
+      }
+      f(rows, count, j);
+    }
+}
+
+// The team's shared arrays (row-major, rows padded to ln = n | 1 or
+// lm = m | 1 elements) and its staging slot.
+template <typename C, typename S>
+struct MidSmem {
+  C *V, *Wt;         // [n, ln]: V, then Q_xx; W, then the unsymmetrized V'
+  C *Wu;             // W_u [n, lm], then A1 = Q_uu K [m, ln]
+  C *Qux, *QuxR;     // [m, ln] (QuxR later K)
+  C *Quu, *QuuR, *L; // [m, lm]
+  C *v, *Qx, *Qu, *invd, *k, *Quuk, *x;
+  C *cand, *Hc;      // [9, lm]
+  S *stage;          // f_x, f_u, l_x, l_u, ubar [, l_xx, l_uu, l_ux]
+};
+
+template <typename C, typename S>
+__device__ MidSmem<C, S> carve(unsigned char* base, int n, int m) {
+  MidSmem<C, S> s;
+  const int ln = odd(n), lm = odd(m);
+  C* p = reinterpret_cast<C*>(base);
+  auto take = [&p](int count) { C* q = p; p += count; return q; };
+  s.V = take(n * ln);
+  s.Wt = take(n * ln);
+  s.Wu = take(n * lm > m * ln ? n * lm : m * ln);
+  s.Qux = take(m * ln);
+  s.QuxR = take(m * ln);
+  s.Quu = take(m * lm);
+  s.QuuR = take(m * lm);
+  s.L = take(m * lm);
   s.v = take(n);
   s.Qx = take(n);
   s.Qu = take(m);
   s.invd = take(m);
   s.k = take(m);
-  s.Quu_k = take(m);
+  s.Quuk = take(m);
   s.x = take(m);
-  s.gm = take(m);
-  s.lo = take(m);
-  s.hi = take(m);
-  s.fr = take(m);
-  s.cand = take((kMidAlphas + 1) * m);  // 8 candidates, then x
-  s.Hc = take((kMidAlphas + 1) * m);
-  s.obj = take(kMidAlphas + 1);
+  s.cand = take((kMidAlphas + 1) * lm);
+  s.Hc = take((kMidAlphas + 1) * lm);
+  s.stage = reinterpret_cast<S*>(
+      base + align16(mid_work_elems(n, m) * sizeof(C)));
   return s;
 }
 
-// Right-looking block Cholesky of the m x m matrix A, in place: on return
-// column c below the diagonal holds the factor's column before its scaling,
-// L[r][c] = A[r][c] * invd[c], and L[c][c] = 1 / invd[c]. A pivot <= 0 or
-// non-finite sets ``fail``; sqrt(max(s, 1e-30)) keeps the factor finite,
-// and a NaN pivot stays NaN (_chol_rows). Only the lower triangle is
-// updated and read. Every thread reads the same pivots, so ``fail`` is the
-// same in all of them.
+// Issue the copies of step bt's inputs into the staging slot (the team's
+// threads take neighbouring elements, so each warp's copies are coalesced).
 template <typename S>
-__device__ void chol_block(S* A, S* invd, int m, bool& fail) {
-  for (int a = 0; a < m; ++a) {
-    const S s = A[a * m + a];
-    if (!(s > S(0)) || !dfinite(s)) fail = true;
-    const S sc = (s != s) ? s : (s > S(1e-30) ? s : S(1e-30));
-    const S inv = S(1) / dsqrt(sc);
-    if (threadIdx.x == 0) invd[a] = inv;
-    const int r0 = a + 1, w = m - r0;
-    TFMPC_FOR_TID(e, w * w) {
-      const int r = r0 + e / w, c = r0 + e % w;
-      if (c <= r) A[r * m + c] -= (A[r * m + a] * inv) * (A[c * m + a] * inv);
+__device__ void stage_step(const Team& tm, S* st, int n, int m, bool box,
+                           bool stage_l, int64_t bt, const S* fx,
+                           const S* fu, const S* lx, const S* lu,
+                           const S* ubar, const S* lxx, const S* luu,
+                           const S* lux) {
+  const int nn = n * n, nm = n * m, mm = m * m;
+  // 16-byte copies where both ends are aligned and the count divides
+  // (HVAC-12, HVAC-16), else one element a copy
+  auto copy = [&tm](S* dst, const S* src, int count) {
+    constexpr int kVec = 16 / sizeof(S);
+    if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) &
+         15) == 0 &&
+        count % kVec == 0) {
+      for (int e = tm.tid * kVec; e < count; e += tm.nt * kVec)
+        cp_async<16>(dst + e, src + e);
+    } else {
+      for (int e = tm.tid; e < count; e += tm.nt)
+        cp_async<sizeof(S)>(dst + e, src + e);
     }
-    __syncthreads();
+  };
+  copy(st, fx + bt * nn, nn);
+  copy(st + nn, fu + bt * nm, nm);
+  copy(st + nn + nm, lx + bt * n, n);
+  copy(st + nn + nm + n, lu + bt * m, m);
+  if (box) copy(st + nn + nm + n + m, ubar + bt * m, m);
+  if (stage_l) {
+    S* l = st + nn + nm + n + 2 * m;
+    copy(l, lxx + bt * nn, nn);
+    copy(l + nn, luu + bt * mm, mm);
+    copy(l + nn + mm, lux + bt * nm, nm);
   }
+  cp_async_commit();
 }
 
-// Column j of the right-hand sides: X [m, R] row-major, then y [m] as
-// column R when given.
-template <typename S>
-__device__ __forceinline__ S& rhs_at(S* X, S* y, int R, int a, int j) {
-  return j < R ? X[a * R + j] : y[a];
+// The Cholesky of the masked free system of H (H on free x free, 1 on
+// the clamped diagonal; fm = all rows free is H itself, the PD probe) by
+// one warp, column by column: lane r (and r + 32) forms its row's entry
+// of column c as a dot product over the columns before it, with loads
+// only, then the pivot comes from lane c by shuffle. On return Ls[r][c] =
+// L[r][c] / L[c][c] for c < r (the scaled factor the substitutions
+// multiply by) and invd[c] = 1 / L[c][c]. Each entry's terms are those of
+// the right-looking update of _chol_rows in the same (ascending) order:
+// a[r][c] - sum_k (a[r][k] invd[k]) (a[c][k] invd[k]). A pivot <= 0 or
+// non-finite returns true (the same in every lane: they shuffle the same
+// pivot); sqrt(max(s, 1e-30)) keeps the factor finite, and a NaN pivot
+// stays NaN.
+template <typename C>
+__device__ bool chol_warp(const C* H, int lh, C* Ls, C* invd, int m,
+                          int lane, uint64_t fm) {
+  bool fail = false;
+  const int r0 = lane, r1 = lane + 32;
+  auto entry = [&](int r, int c) {
+    C acc = ((fm >> r) & (fm >> c) & 1) ? H[r * lh + c]
+                                         : (r == c ? C(1) : C(0));
+    const C* lr = Ls + r * lh;
+    const C* lc = Ls + c * lh;
+#pragma unroll 4
+    for (int k = 0; k < c; ++k) acc -= lr[k] * lc[k];
+    return acc;
+  };
+  for (int c = 0; c < m; ++c) {
+    const C a0 = (r0 >= c && r0 < m) ? entry(r0, c) : C(0);
+    const C a1 = (r1 >= c && r1 < m) ? entry(r1, c) : C(0);
+    const C s = __shfl_sync(kFullMask, c < 32 ? a0 : a1, c & 31);
+    if (!(s > C(0)) || !dfinite(s)) fail = true;
+    const C sc = (s != s) ? s : (s > C(1e-30) ? s : C(1e-30));
+    const C inv = C(1) / dsqrt(sc);
+    if (lane == 0) invd[c] = inv;
+    if (r0 > c && r0 < m) Ls[r0 * lh + c] = a0 * inv;
+    if (r1 > c && r1 < m) Ls[r1 * lh + c] = a1 * inv;
+    __syncwarp();
+  }
+  return fail;
 }
 
-// Solve (L L^T) Z = RHS in place for the factor of chol_block, all right-
-// hand sides of a row at once (forward, then back substitution, right-
-// looking); Z is multiplied by -1 when ``neg`` (the gains' sign).
-template <typename S>
-__device__ void chol_solve_block(const S* A, const S* invd, int m, S* X,
-                                 S* y, int R, bool neg) {
-  const int C = R + (y != nullptr ? 1 : 0);
+// Solve (L L^T) y = y in place for the factor of chol_warp, one right-hand
+// side held in registers (lane a: y0 = y[a], y1 = y[a + 32]); each solved
+// entry is broadcast by shuffle. The result is multiplied by -1 when
+// ``neg``. Each entry's terms are the column solve's below.
+template <typename C>
+__device__ void solve_vec_warp(const C* Ls, int la, const C* invd, int m,
+                               int lane, C& y0, C& y1, bool neg) {
+  // rows clamped into the matrix: every lane loads, the selects keep the
+  // entries each row really takes, and no branch holds a load back
+  const int r0 = lane, r1 = lane + 32;
+  const int c0 = r0 < m ? r0 : m - 1, c1 = r1 < m ? r1 : m - 1;
   for (int k = 0; k + 1 < m; ++k) {
-    const S ik = invd[k];
-    const int w = m - k - 1;
-    TFMPC_FOR_TID(e, w * C) {
-      const int r = k + 1 + e / C, j = e % C;
-      rhs_at(X, y, R, r, j) -=
-          (A[r * m + k] * ik) * (rhs_at(X, y, R, k, j) * ik);
-    }
-    __syncthreads();
+    const C l0 = Ls[c0 * la + k], l1 = Ls[c1 * la + k], ik = invd[k];
+    const C t = __shfl_sync(kFullMask, k < 32 ? y0 : y1, k & 31) * ik;
+    const C u0 = y0 - l0 * t, u1 = y1 - l1 * t;
+    y0 = (r0 > k && r0 < m) ? u0 : y0;
+    y1 = (r1 > k && r1 < m) ? u1 : y1;
   }
-  TFMPC_FOR_TID(e, m * C) {
-    const int a = e / C, j = e % C;
-    rhs_at(X, y, R, a, j) *= invd[a];
-  }
-  __syncthreads();
+  y0 = r0 < m ? y0 * invd[c0] : y0;
+  y1 = r1 < m ? y1 * invd[c1] : y1;
   for (int a = m - 1; a > 0; --a) {
-    const S ia = invd[a];
-    TFMPC_FOR_TID(e, a * C) {
-      const int r = e / C, j = e % C;
-      rhs_at(X, y, R, r, j) -=
-          (A[a * m + r] * invd[r]) * (rhs_at(X, y, R, a, j) * ia);
-    }
-    __syncthreads();
+    const C l0 = Ls[a * la + c0], l1 = Ls[a * la + c1], ia = invd[a];
+    const C t = __shfl_sync(kFullMask, a < 32 ? y0 : y1, a & 31) * ia;
+    const C u0 = y0 - l0 * t, u1 = y1 - l1 * t;
+    y0 = r0 < a ? u0 : y0;
+    y1 = r1 < a ? u1 : y1;
   }
-  TFMPC_FOR_TID(e, m * C) {
-    const int a = e / C, j = e % C;
-    rhs_at(X, y, R, a, j) *= neg ? -invd[a] : invd[a];
-  }
-  __syncthreads();
+  y0 = r0 < m ? y0 * (neg ? -invd[c0] : invd[c0]) : y0;
+  y1 = r1 < m ? y1 * (neg ? -invd[c1] : invd[c1]) : y1;
 }
 
-// g = q + H x at the block's x, the free set (1/0) and the free gradient.
-template <typename S>
-__device__ void gradient_free_block(const MidSmem<S>& s, int m) {
-  TFMPC_FOR_TID(a, m) {
-    S acc = 0;
-    for (int c = 0; c < m; ++c) acc += s.QuuR[a * m + c] * s.x[c];
-    const S g = s.Qu[a] + acc;
-    const bool free = !((s.x[a] <= s.lo[a] && g > S(0)) ||
-                        (s.x[a] >= s.hi[a] && g < S(0)));
-    s.fr[a] = free ? S(1) : S(0);
-    s.gm[a] = free ? g : S(0);
+// Solve (L L^T) Z = RHS in place for the factor of chol_warp, a column per
+// thread of the team: X [m, R] (row stride lx), then y [m] as column R
+// when given; Z is multiplied by -1 when ``neg`` (the gains' sign). Each
+// entry is a dot product over the entries solved before it (loads only,
+// no store in the inner loop), with the terms of the right-looking
+// substitutions of _chol_solve_rows in their order: forward t[r] = (b[r] -
+// sum_{k<r} Ls[r][k] t[k]) invd[r]; back t[r] = (t[r] - sum_{a>r,
+// descending} Ls[a][r] t[a]) invd[r]; the column holds t as it goes, and
+// the result is -t (exact).
+template <typename C>
+__device__ void solve_columns(const Team& tm, const C* Ls, int la,
+                              const C* invd, int m, C* X, int lx, int R,
+                              C* y, bool neg) {
+  const int cols = R + (y != nullptr ? 1 : 0);
+  for (int j = tm.tid; j < cols; j += tm.nt) {
+    C* col = j < R ? X + j : y;
+    const int s = j < R ? lx : 1;
+    for (int r = 0; r < m; ++r) {
+      C acc = col[r * s];
+      const C* lr = Ls + r * la;
+#pragma unroll 4
+      for (int k = 0; k < r; ++k) acc -= lr[k] * col[k * s];
+      col[r * s] = acc * invd[r];
+    }
+    for (int r = m - 1; r >= 0; --r) {
+      C acc = col[r * s];
+#pragma unroll 4
+      for (int a = m - 1; a > r; --a) acc -= Ls[a * la + r] * col[a * s];
+      col[r * s] = acc * invd[r];
+    }
+    if (neg)
+      for (int r = 0; r < m; ++r) col[r * s] = -col[r * s];
   }
-  __syncthreads();
 }
 
-// The masked free system into L: QuuR on free x free, 1 on the clamped
-// diagonal.
-template <typename S>
-__device__ void masked_system_block(const MidSmem<S>& s, int m) {
-  TFMPC_FOR_TID(e, m * m) {
-    const int a = e / m, c = e % m;
-    s.L[e] = (s.fr[a] != S(0) && s.fr[c] != S(0))
-                 ? s.QuuR[e]
-                 : (a == c ? S(1) : S(0));
+// The lead warp's view of the boxQP's own entries: lane a holds entries a
+// and a + 32 of x and of the box.
+template <typename C>
+struct BoxLane {
+  C x0, x1, lo0, hi0, lo1, hi1;
+};
+
+// g = q + H x at the lane's entries (x read from shared), the free set as
+// a 64-bit mask (the same in every lane) and the free gradient.
+template <typename C>
+__device__ uint64_t free_set(const C* H, int lh, const C* q, const C* x,
+                             int m, int lane, const BoxLane<C>& bx, C& gm0,
+                             C& gm1) {
+  bool f0 = false, f1 = false;
+  gm0 = C(0);
+  gm1 = C(0);
+  const int r0 = lane, r1 = lane + 32;
+  if (r0 < m) {
+    C acc = 0;
+    for (int c = 0; c < m; ++c) acc += H[r0 * lh + c] * x[c];
+    const C g = q[r0] + acc;
+    f0 = !((bx.x0 <= bx.lo0 && g > C(0)) || (bx.x0 >= bx.hi0 && g < C(0)));
+    gm0 = f0 ? g : C(0);
   }
+  if (r1 < m) {
+    C acc = 0;
+    for (int c = 0; c < m; ++c) acc += H[r1 * lh + c] * x[c];
+    const C g = q[r1] + acc;
+    f1 = !((bx.x1 <= bx.lo1 && g > C(0)) || (bx.x1 >= bx.hi1 && g < C(0)));
+    gm1 = f1 ? g : C(0);
+  }
+  return static_cast<uint64_t>(__ballot_sync(kFullMask, f0)) |
+         (static_cast<uint64_t>(__ballot_sync(kFullMask, f1)) << 32);
 }
 
-// Projected-Newton boxQP on (QuuR, Q_u) within [lo, hi] (_boxqp_rows, ops/
-// boxqp.py); leaves the minimizer in s.x. Every decision is taken on
-// shared values that all threads read alike, so the breaks are uniform.
-template <typename S>
-__device__ void boxqp_block(const MidSmem<S>& s, int m, int iters) {
-  TFMPC_FOR_TID(a, m) s.x[a] = clip(S(0), s.lo[a], s.hi[a]);
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    gradient_free_block(s, m);
-    S gfree2 = 0;
-    int nfree = 0;
-    for (int a = 0; a < m; ++a) {
-      gfree2 += s.gm[a] * s.gm[a];
-      nfree += s.fr[a] != S(0) ? 1 : 0;
-    }
-    if (gfree2 < S(1e-16) || nfree == 0) break;  // converged: x stays
+// The lead warp's factor of a masked free system of QuuR and the free set
+// it was formed for: asking for the same set again (the probe's all-free
+// set, or a Newton iteration's set repeated) reuses it, bit for bit the
+// factor a new Cholesky would form, and its PD-probe result.
+template <typename C>
+struct LeadFactor {
+  uint64_t mask = ~0ull;  // no set: a free set has no bit at m or above
+  bool fail = false;
 
-    masked_system_block(s, m);
-    __syncthreads();
-    bool unused = false;  // the Newton systems' probe is not a lane failure
-    chol_block(s.L, s.invd, m, unused);
-    // the Newton step d = -(H_ff)^-1 g_free, in place in gm
-    chol_solve_block(s.L, s.invd, m, static_cast<S*>(nullptr), s.gm, 0,
-                     true);
+  template <typename S>
+  __device__ void form(const MidSmem<C, S>& s, int m, int lane,
+                       uint64_t fm) {
+    if (fm == mask) return;
+    fail = chol_warp(s.QuuR, odd(m), s.L, s.invd, m, lane, fm);
+    mask = fm;
+  }
+};
 
-    // candidates clip(x + 2^-i d), i < 8, and x itself in slot 8; their
-    // objectives 1/2 c^T H c + q^T c
-    TFMPC_FOR_TID(e, (kMidAlphas + 1) * m) {
-      const int i = e / m, a = e % m;
-      S alpha = 1;
-      for (int j = 0; j < i; ++j) alpha *= S(0.5);
-      s.cand[e] = i < kMidAlphas
-                      ? clip(s.x[a] + alpha * s.gm[a], s.lo[a], s.hi[a])
-                      : s.x[a];
-    }
-    __syncthreads();
-    TFMPC_FOR_TID(e, (kMidAlphas + 1) * m) {
-      const int i = e / m, a = e % m;
-      S acc = 0;
-      for (int c = 0; c < m; ++c) acc += s.QuuR[a * m + c] * s.cand[i * m + c];
-      s.Hc[e] = acc;
-    }
-    __syncthreads();
-    TFMPC_FOR_TID(i, kMidAlphas + 1) {
-      S xhx = 0, qx = 0;
-      for (int a = 0; a < m; ++a) xhx += s.cand[i * m + a] * s.Hc[i * m + a];
-      for (int a = 0; a < m; ++a) qx += s.Qu[a] * s.cand[i * m + a];
-      s.obj[i] = S(0.5) * xhx + qx;
-    }
-    __syncthreads();
-    const S obj_now = s.obj[kMidAlphas];
-    int best = -1;
-    for (int i = 0; i < kMidAlphas; ++i)
-      if (s.obj[i] < obj_now - S(1e-12)) {
-        best = i;
+// The gains of step t. The lead warp runs the PD probe of QuuR and (kBox)
+// the projected-Newton boxQP on (QuuR, Q_u) within [lo, hi] (_boxqp_rows,
+// ops/boxqp.py) and the final free set's factor and right-hand sides; then
+// the team solves K = -(QuxR solved) and, for iLQR, k = -QuuR^-1 Q_u
+// (solve_columns). The lead warp's passes share one call of the
+// factorization (the probe's all-free set, each Newton iteration's set, the
+// final set). Returns the lead warp's fail bit of this step.
+template <typename C, typename S, bool kBox>
+__device__ bool gains(const Team& tm, const MidSmem<C, S>& s, int n, int m,
+                      int iters, BoxLane<C>& bx) {
+  const int lane = tm.tid & 31, lm = odd(m), ln = odd(n);
+  const int r0 = lane, r1 = lane + 32;
+  bool fail = false;
+  if (tm.lead()) {
+    LeadFactor<C> f;
+    bool frozen = false;  // converged, or no candidate improved
+    for (int it = -1;; ++it) {
+      // pass -1: the probe; then the free set at x: a Newton iteration's,
+      // or, once the iterations are spent or frozen, the final one
+      uint64_t fm = (1ull << m) - 1;
+      C d0 = 0, d1 = 0;
+      bool newton = false;
+      if (it >= 0) {
+        fm = free_set(s.QuuR, lm, s.Qu, s.x, m, lane, bx, d0, d1);
+        const C gfree2 = warp_sum(d0 * d0 + d1 * d1);
+        frozen = frozen || gfree2 < C(1e-16) || fm == 0;
+        newton = !frozen && it < iters;
+      }
+      f.form(s, m, lane, fm);
+      if (it < 0) {
+        fail = f.fail;  // the PD probe, both variants
+        if (!kBox) break;
+        bx.x0 = clip(C(0), bx.lo0, bx.hi0);
+        bx.x1 = clip(C(0), bx.lo1, bx.hi1);
+        if (r0 < m) s.x[r0] = bx.x0;
+        if (r1 < m) s.x[r1] = bx.x1;
+        __syncwarp();
+        continue;
+      }
+      if (!newton) {
+        // the final free set's factor and the K rows' right-hand sides
+        // free[a] * QuxR[a][:] (clamped rows exactly 0); k = x
+        fail |= f.fail;
+        for (int r = lane; r < m; r += 32)
+          if (!((fm >> r) & 1))
+            for (int j = 0; j < n; ++j) s.QuxR[r * ln + j] = C(0);
+        if (r0 < m) s.k[r0] = bx.x0;
+        if (r1 < m) s.k[r1] = bx.x1;
         break;
       }
-    if (best < 0) break;  // no improvement: x stays, frozen
-    TFMPC_FOR_TID(a, m) s.x[a] = s.cand[best * m + a];
-    __syncthreads();
+      // the Newton step d = -(H_ff)^-1 g_free, in registers
+      solve_vec_warp(s.L, lm, s.invd, m, lane, d0, d1, true);
+      // candidates clip(x + 2^-i d), i < 8, and x itself in slot 8
+      C alpha = 1;
+      for (int i = 0; i <= kMidAlphas; ++i) {
+        if (r0 < m)
+          s.cand[i * lm + r0] = i < kMidAlphas
+                                    ? clip(bx.x0 + alpha * d0, bx.lo0, bx.hi0)
+                                    : bx.x0;
+        if (r1 < m)
+          s.cand[i * lm + r1] = i < kMidAlphas
+                                    ? clip(bx.x1 + alpha * d1, bx.lo1, bx.hi1)
+                                    : bx.x1;
+        alpha *= C(0.5);
+      }
+      __syncwarp();
+      // H c for the nine candidates, lane a row a
+      for (int r = lane; r < m; r += 32) {
+        C acc[kMidAlphas + 1];
+#pragma unroll
+        for (int i = 0; i <= kMidAlphas; ++i) acc[i] = C(0);
+#pragma unroll 1
+        for (int c = 0; c < m; ++c) {
+          const C h = s.QuuR[r * lm + c];
+#pragma unroll
+          for (int i = 0; i <= kMidAlphas; ++i)
+            acc[i] += h * s.cand[i * lm + c];
+        }
+#pragma unroll
+        for (int i = 0; i <= kMidAlphas; ++i) s.Hc[i * lm + r] = acc[i];
+      }
+      __syncwarp();
+      // objectives 1/2 c^T H c + q^T c, candidate i summed by lane i in
+      // ascending order; the first that improves on x by more than 1e-12
+      C obj = 0;
+      if (lane <= kMidAlphas) {
+        C xhx = 0, qx = 0;
+#pragma unroll 1
+        for (int a = 0; a < m; ++a) {
+          const C c = s.cand[lane * lm + a];
+          xhx += c * s.Hc[lane * lm + a];
+          qx += s.Qu[a] * c;
+        }
+        obj = C(0.5) * xhx + qx;
+      }
+      const C obj_now = __shfl_sync(kFullMask, obj, kMidAlphas);
+      const unsigned better = __ballot_sync(
+          kFullMask, lane < kMidAlphas && obj < obj_now - C(1e-12));
+      if (better == 0) {
+        frozen = true;  // no improvement: x stays
+        continue;
+      }
+      const int best = __ffs(better) - 1;
+      if (r0 < m) bx.x0 = s.cand[best * lm + r0];
+      if (r1 < m) bx.x1 = s.cand[best * lm + r1];
+      __syncwarp();
+      if (r0 < m) s.x[r0] = bx.x0;
+      if (r1 < m) s.x[r1] = bx.x1;
+      __syncwarp();
+    }
   }
-  __syncthreads();
+  tm.sync();
+  solve_columns(tm, s.L, lm, s.invd, m, s.QuxR, ln, n,
+                kBox ? static_cast<C*>(nullptr) : s.k, true);
+  return fail;
 }
 
 // ubar, lo_in, hi_in are null unless kBox. Inputs and outputs in the
 // solver's layout: fx [B, T, n, n], fu [B, T, n, m], lx [B, T, n], lu
 // [B, T, m], lxx [B, T, n, n], luu [B, T, m, m], lux [B, T, m, n], mu [B],
 // ubar [B, T, m], lo/hi [m], VT [B, n, n], vT [B, n]; K [B, T, m, n],
-// k [B, T, m], dV1, dV2, fail [B].
-template <typename S, bool kBox>
-__global__ void riccati_mid_kernel(
+// k [B, T, m], dV1, dV2, fail [B]. Team ``slot`` of block blockIdx.x takes
+// scenario blockIdx.x * spb + slot.
+template <typename S, typename C, bool kBox>
+__global__ void __launch_bounds__(kMaxThreads, 1) riccati_mid_kernel(
     const S* __restrict__ fx, const S* __restrict__ fu,
     const S* __restrict__ lx, const S* __restrict__ lu,
     const S* __restrict__ lxx, const S* __restrict__ luu,
@@ -297,194 +578,270 @@ __global__ void riccati_mid_kernel(
     const S* __restrict__ hi_in, const S* __restrict__ VT,
     const S* __restrict__ vT, S* __restrict__ K_out, S* __restrict__ k_out,
     S* __restrict__ dV1_out, S* __restrict__ dV2_out,
-    S* __restrict__ fail_out, int n, int m, int T, int newton_iters) {
-  using C = double;  // the block's arithmetic, for both dtypes
-  extern __shared__ unsigned char smem_raw[];
-  const MidSmem<C> s = carve(reinterpret_cast<C*>(smem_raw), n, m);
-  const int b = blockIdx.x;
-  const int nn = n * n, nm = n * m, mm = m * m;
+    S* __restrict__ fail_out, int n, int m, int T, int B, int newton_iters,
+    int warps, int spb, int stage_l, int scenario_bytes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = 32 * warps;
+  const int slot = static_cast<int>(threadIdx.x) / nt;
+  const int b = blockIdx.x * spb + slot;
+  if (b >= B) return;  // the whole team: no barrier spans two teams
+  const Team tm{static_cast<int>(threadIdx.x) - slot * nt, nt,
+                warps > 1 ? 1 + slot : 0};
+  const int lane = tm.tid & 31;
+  const MidSmem<C, S> s =
+      carve<C, S>(smem_raw + static_cast<size_t>(slot) * scenario_bytes, n, m);
+  const int nn = n * n, nm = n * m, mm = m * m, ln = odd(n), lm = odd(m);
+  // the staging slot's arrays
+  const S* sfx = s.stage;
+  const S* sfu = sfx + nn;
+  const S* slx = sfu + nm;
+  const S* slu = slx + n;
+  const S* subar = slu + m;
+  const S* sl = subar + m;  // l_xx, l_uu, l_ux when staged
 
-  TFMPC_FOR_TID(e, nn) s.V[e] = VT[static_cast<int64_t>(b) * nn + e];
-  TFMPC_FOR_TID(i, n) s.v[i] = vT[static_cast<int64_t>(b) * n + i];
-  const C mu = mu_in[b];
-  C dV1 = 0, dV2 = 0;  // thread 0's
-  bool fail = false;   // the same in every thread
-  __syncthreads();
+  for_entries(tm, n, n, [&](int i, int j) {
+    s.V[i * ln + j] = C(VT[static_cast<int64_t>(b) * nn + i * n + j]);
+  });
+  for (int i = tm.tid; i < n; i += tm.nt)
+    s.v[i] = C(vT[static_cast<int64_t>(b) * n + i]);
+  const C mu = C(mu_in[b]);
+  C dV1 = 0, dV2 = 0;  // the lead warp's (every lane alike)
+  bool fail = false;   // the lead warp's
+  stage_step(tm, s.stage, n, m, kBox, stage_l != 0,
+             static_cast<int64_t>(b) * T + T - 1, fx, fu, lx, lu, ubar, lxx,
+             luu, lux);
 
   for (int t = T - 1; t >= 0; --t) {
     const int64_t bt = static_cast<int64_t>(b) * T + t;
-    // stage f_x, f_u (and the step's box)
-    TFMPC_FOR_TID(e, nn) s.Fx[e] = fx[bt * nn + e];
-    TFMPC_FOR_TID(e, nm) s.Fu[e] = fu[bt * nm + e];
-    if (kBox) {
-      TFMPC_FOR_TID(a, m) {
-        const C u = ubar[bt * m + a];
-        s.lo[a] = C(lo_in[a]) - u;
-        s.hi[a] = C(hi_in[a]) - u;
-      }
-    }
-    __syncthreads();
+    cp_async_wait_all();
+    tm.sync();
+    const S* lxx_t = stage_l ? sl : lxx + bt * nn;
+    const S* luu_t = stage_l ? sl + nn : luu + bt * mm;
+    const S* lux_t = stage_l ? sl + nn + mm : lux + bt * nm;
 
     // W = V f_x, W_u = V f_u, Q_x = l_x + f_x^T v, Q_u = l_u + f_u^T v
-    TFMPC_FOR_TID(e, nn + nm + n + m) {
-      if (e < nn) {
-        const int p = e / n, j = e % n;
-        C acc = 0;
-        for (int r = 0; r < n; ++r) acc += s.V[p * n + r] * s.Fx[r * n + j];
-        s.W[e] = acc;
-      } else if (e < nn + nm) {
-        const int f = e - nn, p = f / m, c = f % m;
-        C acc = 0;
-        for (int r = 0; r < n; ++r) acc += s.V[p * n + r] * s.Fu[r * m + c];
-        s.Wu[f] = acc;
-      } else if (e < nn + nm + n) {
-        const int i = e - nn - nm;
-        C acc = 0;
-        for (int p = 0; p < n; ++p) acc += s.Fx[p * n + i] * s.v[p];
-        s.Qx[i] = lx[bt * n + i] + acc;
-      } else {
-        const int a = e - nn - nm - n;
-        C acc = 0;
-        for (int p = 0; p < n; ++p) acc += s.Fu[p * m + a] * s.v[p];
-        s.Qu[a] = lu[bt * m + a] + acc;
+    for_tiles(tm, n, n, [&](const int (&ri)[kTile], int cnt, int j) {
+      C acc[kTile] = {};
+      for (int r = 0; r < n; ++r) {
+        const C b = C(sfx[r * n + j]);
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) acc[t] += s.V[ri[t] * ln + r] * b;
       }
-    }
-    __syncthreads();
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        if (t < cnt) s.Wt[ri[t] * ln + j] = acc[t];
+    });
+    for_tiles(tm, n, m, [&](const int (&ri)[kTile], int cnt, int c) {
+      C acc[kTile] = {};
+      for (int r = 0; r < n; ++r) {
+        const C b = C(sfu[r * m + c]);
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) acc[t] += s.V[ri[t] * ln + r] * b;
+      }
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        if (t < cnt) s.Wu[ri[t] * lm + c] = acc[t];
+    });
+    for_entries(tm, 1, n, [&](int, int i) {
+      C acc = 0;
+      for (int p = 0; p < n; ++p) acc += C(sfx[p * n + i]) * s.v[p];
+      s.Qx[i] = C(slx[i]) + acc;
+    });
+    for_entries(tm, 1, m, [&](int, int a) {
+      C acc = 0;
+      for (int p = 0; p < n; ++p) acc += C(sfu[p * m + a]) * s.v[p];
+      s.Qu[a] = C(slu[a]) + acc;
+    });
+    tm.sync();
 
-    // Q_xx = l_xx + f_x^T W; Q_uu, QuuR = l_uu + f_u^T (W_u [+ mu f_u]) (and
-    // the factor's copy); Q_ux, QuxR = l_ux + f_u^T (W [+ mu f_x]); k = Q_u
-    // as the iLQR solve's right-hand side
-    TFMPC_FOR_TID(e, nn + mm + nm + (kBox ? 0 : m)) {
-      if (e < nn) {
-        const int i = e / n, j = e % n;
-        C acc = 0;
-        for (int p = 0; p < n; ++p) acc += s.Fx[p * n + i] * s.W[p * n + j];
-        s.Qxx[e] = lxx[bt * nn + e] + acc;
-      } else if (e < nn + mm) {
-        const int f = e - nn, a = f / m, c = f % m;
-        C acc = 0, accR = 0;
-        for (int p = 0; p < n; ++p) {
-          const C fpa = s.Fu[p * m + a], wu = s.Wu[p * m + c];
-          acc += fpa * wu;
-          accR += fpa * (wu + mu * s.Fu[p * m + c]);
+    // Q_xx = l_xx + f_x^T W (into V's slot); Q_uu, QuuR = l_uu + f_u^T
+    // (W_u [+ mu f_u]); Q_ux, QuxR = l_ux + f_u^T
+    // (W [+ mu f_x]); k = Q_u as the iLQR solve's right-hand side
+    for_tiles(tm, n, n, [&](const int (&ri)[kTile], int cnt, int j) {
+      C acc[kTile] = {};
+      for (int p = 0; p < n; ++p) {
+        const C w = s.Wt[p * ln + j];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) acc[t] += C(sfx[p * n + ri[t]]) * w;
+      }
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        if (t < cnt)
+          s.V[ri[t] * ln + j] = C(lxx_t[ri[t] * n + j]) + acc[t];
+    });
+    for_tiles(tm, m, m, [&](const int (&ri)[kTile], int cnt, int c) {
+      C acc[kTile] = {}, accR[kTile] = {};
+      for (int p = 0; p < n; ++p) {
+        const C wu = s.Wu[p * lm + c];
+        const C wuR = wu + mu * C(sfu[p * m + c]);
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) {
+          const C fpa = C(sfu[p * m + ri[t]]);
+          acc[t] += fpa * wu;
+          accR[t] += fpa * wuR;
         }
-        const C l = luu[bt * mm + f];
-        s.Quu[f] = l + acc;
-        s.QuuR[f] = l + accR;
-        s.L[f] = l + accR;
-      } else if (e < nn + mm + nm) {
-        const int f = e - nn - mm, a = f / n, i = f % n;
-        C acc = 0, accR = 0;
-        for (int p = 0; p < n; ++p) {
-          const C fpa = s.Fu[p * m + a], w = s.W[p * n + i];
-          acc += fpa * w;
-          accR += fpa * (w + mu * s.Fx[p * n + i]);
+      }
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        if (t < cnt) {
+          const int a = ri[t];
+          const C l = C(luu_t[a * m + c]);
+          s.Quu[a * lm + c] = l + acc[t];
+          s.QuuR[a * lm + c] = l + accR[t];
         }
-        const C l = lux[bt * nm + f];
-        s.Qux[f] = l + acc;
-        s.QuxR[f] = l + accR;
-      } else {
-        const int a = e - nn - mm - nm;
-        s.k[a] = s.Qu[a];
-      }
-    }
-    __syncthreads();
-
-    // the PD probe of QuuR (both variants), factor in L
-    chol_block(s.L, s.invd, m, fail);
-
-    if (kBox) {
-      boxqp_block(s, m, newton_iters);
-      // the final free set, its masked system and the K rows' right-hand
-      // sides free[a] * QuxR[a][:] (clamped rows exactly 0); k = x
-      gradient_free_block(s, m);
-      masked_system_block(s, m);
-      TFMPC_FOR_TID(e, nm) {
-        if (s.fr[e / n] == C(0)) s.QuxR[e] = C(0);
-      }
-      TFMPC_FOR_TID(a, m) s.k[a] = s.x[a];
-      __syncthreads();
-      chol_block(s.L, s.invd, m, fail);
-      chol_solve_block(s.L, s.invd, m, s.QuxR, static_cast<C*>(nullptr), n,
-                       true);
-    } else {
-      // K = -QuuR^-1 QuxR and k = -QuuR^-1 Q_u, in place
-      chol_solve_block(s.L, s.invd, m, s.QuxR, s.k, n, true);
-    }
-    const C* Kg = s.QuxR;  // the gains K [m, n]
-
-    // Q_uu k and A1 = Q_uu K (into f_u's slot); store the gains
-    C* A1 = s.Fu;
-    TFMPC_FOR_TID(e, m + nm) {
-      if (e < m) {
-        C acc = 0;
-        for (int c = 0; c < m; ++c) acc += s.Quu[e * m + c] * s.k[c];
-        s.Quu_k[e] = acc;
-        k_out[bt * m + e] = static_cast<S>(s.k[e]);
-      } else {
-        const int f = e - m, a = f / n, j = f % n;
-        C acc = 0;
-        for (int c = 0; c < m; ++c) acc += s.Quu[a * m + c] * Kg[c * n + j];
-        A1[f] = acc;
-        K_out[bt * nm + f] = static_cast<S>(Kg[f]);
-      }
-    }
-    __syncthreads();
-
-    // dV1, dV2 (thread 0); V' = ((Q_xx + K^T A1) + K^T Q_ux) + Q_ux^T K
-    // into f_x's slot; v' = ((Q_x + K^T Q_uu k) + K^T Q_u) + Q_ux^T k
-    if (threadIdx.x == 0) {
-      C a1 = 0, a2 = 0;
-      for (int a = 0; a < m; ++a) a1 += s.k[a] * s.Qu[a];
-      for (int a = 0; a < m; ++a) a2 += s.k[a] * s.Quu_k[a];
-      dV1 = dV1 + a1;
-      dV2 = dV2 + C(0.5) * a2;
-    }
-    C* Vt = s.Fx;
-    TFMPC_FOR_TID(e, nn + n) {
-      if (e < nn) {
-        const int i = e / n, j = e % n;
-        C s1 = 0, s2 = 0, s3 = 0;
-        for (int a = 0; a < m; ++a) {
-          const C kai = Kg[a * n + i];
-          s1 += kai * A1[a * n + j];
-          s2 += kai * s.Qux[a * n + j];
-          s3 += s.Qux[a * n + i] * Kg[a * n + j];
+    });
+    for_tiles(tm, m, n, [&](const int (&ri)[kTile], int cnt, int i) {
+      C acc[kTile] = {}, accR[kTile] = {};
+      for (int p = 0; p < n; ++p) {
+        const C w = s.Wt[p * ln + i];
+        const C wR = w + mu * C(sfx[p * n + i]);
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) {
+          const C fpa = C(sfu[p * m + ri[t]]);
+          acc[t] += fpa * w;
+          accR[t] += fpa * wR;
         }
-        Vt[e] = ((s.Qxx[e] + s1) + s2) + s3;
-      } else {
-        const int i = e - nn;
-        C s1 = 0, s2 = 0, s3 = 0;
-        for (int a = 0; a < m; ++a) {
-          const C kai = Kg[a * n + i];
-          s1 += kai * s.Quu_k[a];
-          s2 += kai * s.Qu[a];
-          s3 += s.Qux[a * n + i] * s.k[a];
+      }
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        if (t < cnt) {
+          const int a = ri[t];
+          const C l = C(lux_t[a * n + i]);
+          s.Qux[a * ln + i] = l + acc[t];
+          s.QuxR[a * ln + i] = l + accR[t];
         }
-        s.v[i] = ((s.Qx[i] + s1) + s2) + s3;
+    });
+    if (!kBox)
+      for (int a = tm.tid; a < m; a += tm.nt) s.k[a] = s.Qu[a];
+    BoxLane<C> bx{};
+    if (kBox && tm.lead()) {
+      if (lane < m) {
+        const C u = C(subar[lane]);
+        bx.lo0 = C(lo_in[lane]) - u;
+        bx.hi0 = C(hi_in[lane]) - u;
+      }
+      if (lane + 32 < m) {
+        const C u = C(subar[lane + 32]);
+        bx.lo1 = C(lo_in[lane + 32]) - u;
+        bx.hi1 = C(hi_in[lane + 32]) - u;
       }
     }
-    __syncthreads();
-    TFMPC_FOR_TID(e, nn) {
-      const int i = e / n, j = e % n;
-      s.V[e] = C(0.5) * (Vt[e] + Vt[j * n + i]);
+    tm.sync();
+    // the slot is read: copy step t-1's inputs under the rest of step t
+    if (t > 0)
+      stage_step(tm, s.stage, n, m, kBox, stage_l != 0, bt - 1, fx, fu, lx,
+                 lu, ubar, lxx, luu, lux);
+
+    // the gains: the PD probe, the boxQP, the final factor and the solves
+    fail |= gains<C, S, kBox>(tm, s, n, m, newton_iters, bx);
+    tm.sync();
+    const C* Kg = s.QuxR;  // the gains K [m, ln]
+
+    // Q_uu k and A1 = Q_uu K (into W_u's slot); store the gains
+    C* A1 = s.Wu;
+    for_entries(tm, 1, m, [&](int, int a) {
+      C acc = 0;
+      for (int c = 0; c < m; ++c) acc += s.Quu[a * lm + c] * s.k[c];
+      s.Quuk[a] = acc;
+      k_out[bt * m + a] = static_cast<S>(s.k[a]);
+    });
+    for_tiles(tm, m, n, [&](const int (&ri)[kTile], int cnt, int j) {
+      C acc[kTile] = {};
+      for (int c = 0; c < m; ++c) {
+        const C kc = Kg[c * ln + j];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) acc[t] += s.Quu[ri[t] * lm + c] * kc;
+      }
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        if (t < cnt) {
+          const int a = ri[t];
+          A1[a * ln + j] = acc[t];
+          K_out[bt * nm + a * n + j] = static_cast<S>(Kg[a * ln + j]);
+        }
+    });
+    tm.sync();
+
+    // dV1, dV2 (lead warp); V' = ((Q_xx + K^T A1) + K^T Q_ux) + Q_ux^T K
+    // into W's slot; v' = ((Q_x + K^T Q_uu k) + K^T Q_u) + Q_ux^T k
+    if (tm.lead()) {
+      C p1 = 0, p2 = 0;
+      for (int a = lane; a < m; a += 32) {
+        p1 += s.k[a] * s.Qu[a];
+        p2 += s.k[a] * s.Quuk[a];
+      }
+      dV1 = dV1 + warp_sum(p1);
+      dV2 = dV2 + C(0.5) * warp_sum(p2);
     }
-    __syncthreads();
+    for_tiles(tm, n, n, [&](const int (&ri)[kTile], int cnt, int j) {
+      C s1[kTile] = {}, s2[kTile] = {}, s3[kTile] = {};
+      for (int a = 0; a < m; ++a) {
+        const C a1 = A1[a * ln + j], qj = s.Qux[a * ln + j],
+                kj = Kg[a * ln + j];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) {
+          const C kai = Kg[a * ln + ri[t]];
+          s1[t] += kai * a1;
+          s2[t] += kai * qj;
+          s3[t] += s.Qux[a * ln + ri[t]] * kj;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        if (t < cnt) {
+          const int i = ri[t];
+          s.Wt[i * ln + j] = ((s.V[i * ln + j] + s1[t]) + s2[t]) + s3[t];
+        }
+    });
+    for_entries(tm, 1, n, [&](int, int i) {
+      C s1 = 0, s2 = 0, s3 = 0;
+      for (int a = 0; a < m; ++a) {
+        const C kai = Kg[a * ln + i];
+        s1 += kai * s.Quuk[a];
+        s2 += kai * s.Qu[a];
+        s3 += s.Qux[a * ln + i] * s.k[a];
+      }
+      s.v[i] = ((s.Qx[i] + s1) + s2) + s3;
+    });
+    tm.sync();
+    for_entries(tm, n, n, [&](int i, int j) {
+      s.V[i * ln + j] = C(0.5) * (s.Wt[i * ln + j] + s.Wt[j * ln + i]);
+    });
+    // the next step's wait and barrier order these writes before its reads
   }
 
-  if (threadIdx.x == 0) {
+  if (tm.tid == 0) {
     dV1_out[b] = static_cast<S>(dV1);
     dV2_out[b] = static_cast<S>(dV2);
     fail_out[b] = fail ? S(1) : S(0);
   }
 }
 
-template <typename S, bool kBox>
+// A launch plan (ops/riccati_mid.py mid_plan): warps per scenario,
+// scenarios per block, whether l_xx, l_uu, l_ux are staged, and the
+// dynamic shared bytes of a block, which must equal what this source
+// computes for it.
+struct MidPlan {
+  int warps, spb, stage_l;
+  long long smem_bytes;
+};
+
+template <typename S, typename C>
+long long plan_bytes(int n, int m, const MidPlan& p) {
+  return static_cast<long long>(
+             mid_scenario_bytes(n, m, sizeof(S), sizeof(C), p.stage_l != 0)) *
+         p.spb;
+}
+
+template <typename S, typename C, bool kBox>
 int launch(int n, int m, int T, int B, int iters, const void* const* in,
-           void* const* out, int block, cudaStream_t stream) {
-  const size_t bytes = mid_smem_elems(n, m) * sizeof(double);
-  if (bytes > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = riccati_mid_kernel<S, kBox>;
+           void* const* out, const MidPlan& p, cudaStream_t stream) {
+  const size_t scenario =
+      mid_scenario_bytes(n, m, sizeof(S), sizeof(C), p.stage_l != 0);
+  const long long bytes = plan_bytes<S, C>(n, m, p);
+  if (bytes != p.smem_bytes || bytes > static_cast<long long>(kMaxSmemBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = riccati_mid_kernel<S, C, kBox>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -492,63 +849,87 @@ int launch(int n, int m, int T, int B, int iters, const void* const* in,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   auto P = [in](int i) { return static_cast<const S*>(in[i]); };
-  kernel<<<B, block, bytes, stream>>>(
+  kernel<<<blocks_for(B, p.spb), 32 * p.warps * p.spb,
+           static_cast<size_t>(bytes), stream>>>(
       P(0), P(1), P(2), P(3), P(4), P(5), P(6), P(7), P(8), P(9), P(10),
       P(11), P(12), static_cast<S*>(out[0]), static_cast<S*>(out[1]),
       static_cast<S*>(out[2]), static_cast<S*>(out[3]),
-      static_cast<S*>(out[4]), n, m, T, iters);
+      static_cast<S*>(out[4]), n, m, T, B, iters, p.warps, p.spb, p.stage_l,
+      static_cast<int>(scenario));
   return static_cast<int>(cudaGetLastError());
 }
 
+bool plan_ok(const MidPlan& p) {
+  const int threads = 32 * p.warps * p.spb;
+  return p.warps >= 1 && p.spb >= 1 && threads <= kMaxThreads &&
+         (p.warps == 1 || p.spb <= kMaxTeamsNamed) &&
+         (p.stage_l == 0 || p.stage_l == 1);
+}
+
 // in: fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, VT, vT (ubar, lo, hi
-// null for the iLQR variant); out: K, k, dV1, dV2, fail.
+// null for the iLQR variant); out: K, k, dV1, dV2, fail. arith 0: double
+// arithmetic (both dtypes), 1: float (float32 inputs only).
 template <bool kBox>
-int entry(int dtype, int n, int m, int T, int B, int iters,
-          const void* const* in, void* const* out, int block, void* stream) {
+int entry(int dtype, int arith, int n, int m, int T, int B, int iters,
+          const void* const* in, void* const* out, const MidPlan& p,
+          void* stream) {
   if (n < 1 || m < 1 || n > kMidMaxDim || m > kMidMaxDim || T < 1 ||
-      iters < 0 || block < 32 || block > 1024 || block % 32 != 0)
+      iters < 0 || !plan_ok(p) || arith < 0 || arith > 1 ||
+      (arith == 1 && dtype != kFloat32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (kBox && (in[8] == nullptr || in[9] == nullptr || in[10] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32 && arith == 1)
+    return launch<float, float, kBox>(n, m, T, B, iters, in, out, p, s);
   if (dtype == kFloat32)
-    return launch<float, kBox>(n, m, T, B, iters, in, out, block, s);
+    return launch<float, double, kBox>(n, m, T, B, iters, in, out, p, s);
   if (dtype == kFloat64)
-    return launch<double, kBox>(n, m, T, B, iters, in, out, block, s);
+    return launch<double, double, kBox>(n, m, T, B, iters, in, out, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 }  // namespace tfmpc
 
-// The shared-memory bytes one block takes at (n, m) (the same for both
-// dtypes: the block computes in double), so the wrapper can refuse a
-// launch that would not fit.
-extern "C" long long tfmpc_riccati_mid_smem_bytes(int n, int m) {
-  return static_cast<long long>(tfmpc::mid_smem_elems(n, m)) *
-         static_cast<long long>(sizeof(double));
+// The dynamic shared bytes of a block of ``spb`` scenarios at (n, m), for
+// the input dtype and arithmetic (0 double, 1 float) and whether the l
+// blocks are staged: what the launch requires of the plan, so the wrapper
+// can check its own sum and refuse a launch that would not fit.
+extern "C" long long tfmpc_riccati_mid_smem_bytes(int dtype, int arith, int n,
+                                                  int m, int spb,
+                                                  int stage_l) {
+  const size_t s_bytes = dtype == tfmpc::kFloat64 ? 8 : 4;
+  const size_t c_bytes = arith == 1 ? 4 : 8;
+  return static_cast<long long>(tfmpc::mid_scenario_bytes(
+             n, m, s_bytes, c_bytes, stage_l != 0)) *
+         spb;
 }
 
 extern "C" int tfmpc_riccati_backward_mid(
-    int dtype, int n, int m, int T, int B, const void* fx, const void* fu,
-    const void* lx, const void* lu, const void* lxx, const void* luu,
-    const void* lux, const void* mu, const void* VT, const void* vT, void* K,
-    void* k, void* dV1, void* dV2, void* fail, int block, void* stream) {
+    int dtype, int arith, int n, int m, int T, int B, const void* fx,
+    const void* fu, const void* lx, const void* lu, const void* lxx,
+    const void* luu, const void* lux, const void* mu, const void* VT,
+    const void* vT, void* K, void* k, void* dV1, void* dV2, void* fail,
+    int warps, int spb, int stage_l, long long smem_bytes, void* stream) {
   const void* in[] = {fx,  fu,      lx,      lu,      lxx, luu, lux,
                       mu,  nullptr, nullptr, nullptr, VT,  vT};
   void* out[] = {K, k, dV1, dV2, fail};
-  return tfmpc::entry<false>(dtype, n, m, T, B, 0, in, out, block, stream);
+  const tfmpc::MidPlan p{warps, spb, stage_l, smem_bytes};
+  return tfmpc::entry<false>(dtype, arith, n, m, T, B, 0, in, out, p, stream);
 }
 
 extern "C" int tfmpc_riccati_backward_mid_boxqp(
-    int dtype, int n, int m, int T, int B, int newton_iters, const void* fx,
-    const void* fu, const void* lx, const void* lu, const void* lxx,
-    const void* luu, const void* lux, const void* mu, const void* ubar,
-    const void* lo, const void* hi, const void* VT, const void* vT, void* K,
-    void* k, void* dV1, void* dV2, void* fail, int block, void* stream) {
+    int dtype, int arith, int n, int m, int T, int B, int newton_iters,
+    const void* fx, const void* fu, const void* lx, const void* lu,
+    const void* lxx, const void* luu, const void* lux, const void* mu,
+    const void* ubar, const void* lo, const void* hi, const void* VT,
+    const void* vT, void* K, void* k, void* dV1, void* dV2, void* fail,
+    int warps, int spb, int stage_l, long long smem_bytes, void* stream) {
   const void* in[] = {fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, VT, vT};
   void* out[] = {K, k, dV1, dV2, fail};
-  return tfmpc::entry<true>(dtype, n, m, T, B, newton_iters, in, out, block,
-                            stream);
+  const tfmpc::MidPlan p{warps, spb, stage_l, smem_bytes};
+  return tfmpc::entry<true>(dtype, arith, n, m, T, B, newton_iters, in, out,
+                            p, stream);
 }
