@@ -581,11 +581,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1) riccati_mid_kernel(
     S* __restrict__ fail_out, int n, int m, int T, int B, int newton_iters,
     int warps, int spb, int stage_l, int scenario_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // team ``slot`` takes the block's warps slot, slot + spb, ...: warp w
+  // runs on the SM's sub-partition w % 4, so the teams' first warps,
+  // which carry the dependent chains, are on different ones
   const int nt = 32 * warps;
-  const int slot = static_cast<int>(threadIdx.x) / nt;
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int slot = warp % spb;
   const int b = blockIdx.x * spb + slot;
   if (b >= B) return;  // the whole team: no barrier spans two teams
-  const Team tm{static_cast<int>(threadIdx.x) - slot * nt, nt,
+  const Team tm{(warp / spb) * 32 + static_cast<int>(threadIdx.x) % 32, nt,
                 warps > 1 ? 1 + slot : 0};
   const int lane = tm.tid & 31;
   const MidSmem<C, S> s =
