@@ -84,13 +84,13 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     E1's shapes (HVAC-16, B=512, T=50) and E2's (the 12-room ring, B=1024,
     T=100) and on synthetic inputs at (14, 13), (24, 24), (32, 32),
     (48, 48), (40, 33), (7, 9) and (1, 1) (B=128, T=6, box +-0.4, 4 boxQP
-    iterations), five lanes forced indefinite each: identical ok masks and
+    iterations) and at block-ragged batches of HVAC-12 (B=1023) and HVAC-16
+    (B=513), T=20, five lanes forced indefinite each: identical ok masks and
     the ok lanes within tolerance in float64, against the float64 plain
     version in float32; K7 timed at each of those shapes; K7-boxQP with
     1, 2 and 4 warps a scenario at E1's shape and at (24, 24), (32, 32),
-    (48, 48) (the launch plan's table); K7-boxQP with float32 arithmetic at
-    E1's shape, timed in turns with the double kernel and held against the
-    float64 plain version; the clipped K2/K3 at E1's and E2's shapes; K7
+    (48, 48) (the launch plan's table); the clipped K2/K3 at E1's and
+    E2's shapes; K7
     against K4 on phase 3's HVAC-6 inputs (the lane/mid boundary: both
     times); P1 against its plain version at d in {16, 24, 32, 48},
     B=1024, its device time beside ``torch.bmm``'s (CUDA graph replays,
@@ -233,6 +233,13 @@ E2_MIN_CONVERGED = 0.99
 # (a lane holds two rows), a small rectangular pair and the smallest dims
 MID_SYNTHETIC_DIMS = ((14, 13), (24, 24), (32, 32), (48, 48), (40, 33),
                       (7, 9), (1, 1))
+# K7 at block-ragged batches, where a block's tail teams return while its
+# other teams run on: HVAC-12 at B=1023 (teams of one warp, four a block,
+# three in the last) and HVAC-16 at B=513 (teams of two warps on named
+# barriers, four a block, one in the last); T_RAGGED steps (the
+# scenario-to-team map does not depend on T)
+MID_RAGGED = (("hvac12", 1023), ("hvac16", 513))
+T_RAGGED = 20
 # K7's warps per scenario, timed at these dims (the plan's MID_WARPS
 # table is set from them)
 MID_WARPS_SWEEP = ((16, 16), (24, 24), (32, 32), (48, 48))
@@ -1403,16 +1410,23 @@ def to_cpu(a):
 
 
 def mid_case(case, dtype):
-    """K7's inputs: ``hvac16`` (E1's shapes) and ``hvac12`` (E2's), the
-    env's linearization at a random nominal (``boxqp_inputs``) with 8 boxQP
+    """K7's inputs: ``hvac16`` (E1's shapes) and ``hvac12`` (E2's), or one
+    of ``MID_RAGGED``'s (env, B) pairs at T_RAGGED steps, the env's
+    linearization at a random nominal (``boxqp_inputs``) with 8 boxQP
     iterations, or an (n, m) pair's synthetic inputs with 4. Returns
     (label, lin, quad, final, mu, bounds, Ubar, boxqp_iters)."""
     if isinstance(case, str):
+        name, label = case, case
         Bn, Tn = (B_E1, T_E1) if case == "hvac16" else (B_E2, T_E2)
-        env, _, U, lin, quad, final, mu, _ = boxqp_inputs(case, dtype, Bn, Tn)
-        return case, lin, quad, final, mu, env.bounds, U, 8
-    n, m = case
-    return (f"synthetic ({n}, {m})", *synthetic_mid_inputs(n, m, dtype), 4)
+    elif isinstance(case[0], str):
+        (name, Bn), Tn = case, T_RAGGED
+        label = f"{name} B={Bn}"
+    else:
+        n, m = case
+        return (f"synthetic ({n}, {m})", *synthetic_mid_inputs(n, m, dtype),
+                4)
+    env, _, U, lin, quad, final, mu, _ = boxqp_inputs(name, dtype, Bn, Tn)
+    return label, lin, quad, final, mu, env.bounds, U, 8
 
 
 def check_k7(case, dtype, timings=None, errs=None, suffix=""):
@@ -1487,6 +1501,24 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
               f"peak: {b64 / k_ms:.4f} of it")
 
 
+def check_k7_ragged(case, dtype):
+    """``check_k7`` on one of ``MID_RAGGED``'s batches, after checking that
+    its plan has more than one team a block and a last block that is not
+    full (the lane forced indefinite last, ``force_indefinite``, is there)."""
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    name, Bn = case
+    n = 16 if name == "hvac16" else 12
+    plan = rm.mid_plan(n, n, Bn, dtype)
+    tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
+    print(f"  K7 {name} B={Bn} {dname(dtype)}: {plan.warps} warp(s) a team, "
+          f"{plan.scenarios} teams a block, {tail} in the last block")
+    if plan.scenarios < 2 or tail == plan.scenarios:
+        raise AssertionError(f"K7 {name} B={Bn}: the batch is not "
+                             "block-ragged under the plan")
+    check_k7(case, dtype)
+
+
 def print_mid_plans(lib):
     """K7's launch plan at each shape phase 20 runs, beside the shared
     bytes the kernel computes for it (``tfmpc_riccati_mid_smem_bytes``),
@@ -1496,12 +1528,14 @@ def print_mid_plans(lib):
     from tfmpc_tpu_torch.ops import riccati_mid as rm
 
     shapes = [((12, 12), B_E2), ((16, 16), B_E1)] + [
-        (dims, 128) for dims in MID_SYNTHETIC_DIMS]
+        (dims, 128) for dims in MID_SYNTHETIC_DIMS] + [
+        ((12, 12) if name == "hvac12" else (16, 16), Bn)
+        for name, Bn in MID_RAGGED]
     for (n, m), Bn in shapes:
         for dtype in (torch.float32, torch.float64):
             p = rm.mid_plan(n, m, Bn, dtype)
             lib_bytes = lib.tfmpc_riccati_mid_smem_bytes(
-                0 if dtype == torch.float32 else 1, 0, n, m, p.scenarios,
+                0 if dtype == torch.float32 else 1, n, m, p.scenarios,
                 int(p.stage_l))
             print(f"  K7 plan ({n}, {m}) B={Bn} {dname(dtype)}: {p.threads} "
                   f"threads, {p.warps} warp(s) a scenario, {p.scenarios} "
@@ -1539,52 +1573,6 @@ def k7_warps_sweep(card):
         print(f"  K7-boxQP {label} (B={Bn}, T={Tn}) by warps a scenario: "
               + ", ".join(f"{w}: {ms:.4f} ms" for w, ms in row.items())
               + f"; the plan takes {rm.mid_warps(n, m)} [{card}]")
-    return out
-
-
-def k7_float_arith(card):
-    """K7-boxQP with float32 arithmetic (reached by no solver route) at
-    E1's shape: its time beside the double-arithmetic kernel's, in turns,
-    and both against the float64 plain version on the same float32 inputs
-    (share of ok lanes within K4_F32_TOL, lanes whose ok differs)."""
-    import torch
-
-    from tfmpc_tpu_torch.ops import riccati_mid as rm
-
-    label, lin, quad, final, mu, bounds, U, iters = mid_case(
-        "hvac16", torch.float32)
-    a = rm.mid_layout(lin, quad, final, mu, bounds, U)
-    kargs = [a[k] for k in rm.MID_BOXQP_ARGS]
-    ref = rm.riccati_backward_mid_boxqp_ref(
-        to64(lin), to64(quad), to64(final), mu.double(), to64(bounds),
-        U.double(), iters)
-    out = {}
-    for arith in (torch.float64, torch.float32):
-        K, k, dv1, dv2, fail = rm.riccati_backward_mid_boxqp_kernel(
-            *kargs, boxqp_iters=iters, arith=arith)
-        ok = fail == 0
-        both = ok & ref[0]
-        share = lane_share((K, k, dv1, dv2), (ref[1].K, ref[1].k, ref[2],
-                                              ref[3]), both, *K4_F32_TOL)
-        err = max(float((x.double()[both] - y[both]).abs().max())
-                  for x, y in ((K, ref[1].K), (k, ref[1].k)))
-        out[dname(arith)] = {"share": share, "ok_differs": int(
-            (ok != ref[0]).sum()), "max_abs_err": err}
-    times = {}
-    for rnd in range(2):  # in turns: double, float, float, double
-        for arith in ((torch.float64, torch.float32) if rnd == 0 else
-                      (torch.float32, torch.float64)):
-            times.setdefault(dname(arith), []).append(cuda_ms(
-                lambda: rm.riccati_backward_mid_boxqp_kernel(
-                    *kargs, boxqp_iters=iters, arith=arith), 10))
-    for key, row in out.items():
-        row["ms"] = min(times[key])
-        print(f"  K7-boxQP {label} with {key} arithmetic: {row['ms']:.4f} ms "
-              f"(best of two turns); against the float64 plain version: "
-              f"share of ok lanes within {K4_F32_TOL[0]:g} + "
-              f"{K4_F32_TOL[1]:g}*|ref| {row['share']:.6f}, ok differs on "
-              f"{row['ok_differs']} lanes, max K/k err "
-              f"{row['max_abs_err']:.3e} [{card}]")
     return out
 
 
@@ -2271,8 +2259,7 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
     """Phases 20-23 (slice E): K7, P1 and the mid-dim K2/K3 against their
     plain versions, the E1 and E2 solves, their rates and the E1 profile.
     Fills the dicts it is given; returns (e1, e2, the K7/K4 times at
-    HVAC-6, the E1 profile, K7's warps sweep, its float32-arithmetic
-    figures and P1's tile sweep)."""
+    HVAC-6, the E1 profile, K7's warps sweep and P1's tile sweep)."""
     import numpy as np
     import torch
 
@@ -2286,12 +2273,12 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
         check_k7("hvac12", dtype, *f32, suffix="_hvac12")
         for n, m in MID_SYNTHETIC_DIMS:
             check_k7((n, m), dtype, *f32, suffix=f"_{n}x{m}")
+        for case in MID_RAGGED:
+            check_k7_ragged(case, dtype)
         check_clipped_rollouts("hvac16", dtype, *f32, Bn=B_E1, Tn=T_E1,
                                suffix="_hvac16")
         check_clipped_rollouts("hvac12", dtype, Bn=B_E2, Tn=T_E2)
-    extra = {"k7_warps_ms": k7_warps_sweep(card),
-             "k7_float_arithmetic": k7_float_arith(card),
-             "p1_tiles_ms": {}}
+    extra = {"k7_warps_ms": k7_warps_sweep(card), "p1_tiles_ms": {}}
     k7_k4 = k7_vs_k4(card, timings["riccati_backward_boxqp"][3])
     for d in P1_DIMS:
         launches_by_path[f"p1_chain_d{d}"] = {

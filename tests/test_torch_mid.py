@@ -242,28 +242,34 @@ def test_row_matmul_ref_matches_jax_probe(d):
 PLAN_BATCHES = (1, 2, 31, 33, 128, 130, 512)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", range(1, riccati_mid.MID_DIM_MAX + 1))
-def test_mid_plan_fits_and_covers_each_scenario_once(n, dtype):
-    """K7's plan at every (n, m): the block's shared memory fits
-    ``SMEM_LIMIT``, its threads are whole warps, at most 1024, and the
-    blocks' teams take each scenario of the batch exactly once (ragged
-    batches of the compacted restarts included); float32 inputs also with
-    float32 arithmetic."""
-    ariths = (torch.float64, torch.float32) if dtype == torch.float32 \
-        else (torch.float64,)
-    for m in range(1, riccati_mid.MID_DIM_MAX + 1):
-        for arith in ariths:
-            for B in PLAN_BATCHES:
-                plan = riccati_mid.mid_plan(n, m, B, dtype, arith)
-                assert plan.smem_bytes <= riccati_mid.SMEM_LIMIT
-                assert plan.smem_bytes == plan.scenarios * \
-                    riccati_mid.mid_scenario_bytes(n, m, dtype, arith,
-                                                   plan.stage_l)
-                assert plan.threads % 32 == 0 and plan.threads <= 1024
-                assert plan.warps == riccati_mid.mid_warps(n, m, B)
-                got = riccati_mid.mid_plan_scenarios(plan, B)
-                np.testing.assert_array_equal(np.sort(got), np.arange(B))
+def test_mid_plan_fits_and_covers_each_scenario_once():
+    """K7's plan at every (n, m) and both dtypes: the block's shared memory
+    fits ``SMEM_LIMIT``, its threads are whole warps, at most 1024, and
+    under the kernel's warp-to-team map (warp w of a block is warp w //
+    scenarios of team w % scenarios, which takes scenario block *
+    scenarios + w % scenarios; teams past the batch return) every scenario
+    gets each of its team's warps exactly once, ragged batches of the
+    compacted restarts included."""
+    for dtype in (torch.float32, torch.float64):
+        for n in range(1, riccati_mid.MID_DIM_MAX + 1):
+            for m in range(1, riccati_mid.MID_DIM_MAX + 1):
+                for B in PLAN_BATCHES:
+                    plan = riccati_mid.mid_plan(n, m, B, dtype)
+                    assert plan.smem_bytes <= riccati_mid.SMEM_LIMIT
+                    assert plan.smem_bytes == plan.scenarios * \
+                        riccati_mid.mid_scenario_bytes(n, m, dtype,
+                                                       plan.stage_l)
+                    assert plan.threads % 32 == 0 and plan.threads <= 1024
+                    assert plan.warps == riccati_mid.mid_warps(n, m, B)
+                    warp = np.arange(plan.threads // 32)
+                    blocks = np.arange(plan.blocks(B))[:, None]
+                    b = (blocks * plan.scenarios
+                         + warp % plan.scenarios).ravel()
+                    rank = np.broadcast_to(warp // plan.scenarios,
+                                           (blocks.size, warp.size)).ravel()
+                    cover = np.zeros((B, plan.warps), dtype=int)
+                    np.add.at(cover, (b[b < B], rank[b < B]), 1)
+                    assert (cover == 1).all(), (n, m, B, dtype, plan)
 
 
 def test_mid_plan_shared_bytes_and_staging():

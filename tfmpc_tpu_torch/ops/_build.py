@@ -47,13 +47,13 @@ _SIGNATURES = {
     "tfmpc_riccati_backward_ddp": [_I] * 5 + [_P] * 18 + [_I, _P],
     # as tfmpc_riccati_backward_boxqp, with fxx, fux, fuu after hi
     "tfmpc_riccati_backward_ddp_boxqp": [_I] * 6 + [_P] * 21 + [_I, _P],
-    # K7 (riccati_mid.cu), the solver's [B, T, ...] layout: dtype, arith,
-    # then as tfmpc_riccati_backward and tfmpc_riccati_backward_boxqp up to
-    # fail; then the plan (warps, scenarios per block, stage_l, shared
+    # K7 (riccati_mid.cu), the solver's [B, T, ...] layout: as
+    # tfmpc_riccati_backward and tfmpc_riccati_backward_boxqp up to fail;
+    # then the plan (warps, scenarios per block, stage_l, shared
     # bytes) and the stream
-    "tfmpc_riccati_backward_mid": [_I] * 6 + [_P] * 15 + [_I] * 3
+    "tfmpc_riccati_backward_mid": [_I] * 5 + [_P] * 15 + [_I] * 3
     + [_LL, _P],
-    "tfmpc_riccati_backward_mid_boxqp": [_I] * 7 + [_P] * 18 + [_I] * 3
+    "tfmpc_riccati_backward_mid_boxqp": [_I] * 6 + [_P] * 18 + [_I] * 3
     + [_LL, _P],
     # P1 (row_matmul.cu): dtype, d, B, A, M, C, tile rows, tile columns,
     # stream
@@ -175,8 +175,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tfmpc_error_string.argtypes = [ctypes.c_int]
     lib.tfmpc_error_string.restype = ctypes.c_char_p
-    # dtype, arith, n, m, scenarios per block, stage_l
-    lib.tfmpc_riccati_mid_smem_bytes.argtypes = [_I] * 6
+    # dtype, n, m, scenarios per block, stage_l
+    lib.tfmpc_riccati_mid_smem_bytes.argtypes = [_I] * 5
     lib.tfmpc_riccati_mid_smem_bytes.restype = ctypes.c_longlong
     return lib
 

@@ -44,7 +44,11 @@
 //   entry as a dot product over the earlier columns of the scaled factor
 //   (loads only), the pivot comes by shuffle, and the scaled factor
 //   Ls = L / diag(L) goes to shared memory, so the substitutions multiply
-//   by it directly; __syncwarp between columns;
+//   by it directly; __syncwarp between columns. A right-looking factor
+//   held in registers (lane a updating row a, up to m = 16) needs 255
+//   registers and spills ~650 bytes in this kernel: on an H100 at
+//   HVAC-16 it was 1.15x (iLQR) and 1.57x (boxQP) this kernel's time
+//   (tools/kernel_versions.py), so the factor stays in shared memory;
 // - the Newton step's substitutions keep the right-hand side in registers
 //   (lane a holds entry a), broadcast each solved entry by shuffle, and
 //   load the factor unconditionally (clamped rows, selects), so no branch
@@ -78,15 +82,14 @@
 // _chol_solve_rows in their order; only dV's and the free-gradient norm's
 // warp sums are reduced as a tree.
 //
-// Precision: the team computes in the arithmetic type C, double for both
-// dtypes on the solver's path (float32 inputs are widened as they are read
-// and the outputs rounded once). The boxQP backward is ill-conditioned in
-// float32 (a rounding change flips free sets: the float32 plain version is
-// more than 1e-3 + 1e-3 |k| from its own float64 result on 23% of HVAC-12's
-// lanes on an H100), so K7 stays as accurate as its float64 self on float32
-// inputs. The float32-arithmetic instantiation (arith = 1) is reached by
-// no solver route; chip_smoke.py times it and holds it against the
-// float64 plain version.
+// Precision: the team computes in double (C below) for both dtypes
+// (float32 inputs are widened as they are read and the outputs rounded
+// once). The boxQP backward is ill-conditioned in float32 (a rounding
+// change flips free sets: the float32 plain version is more than 1e-3 +
+// 1e-3 |k| from its own float64 result on 23% of HVAC-12's lanes on an
+// H100), so K7 stays as accurate as its float64 self on float32 inputs.
+// Float arithmetic was measured no faster at HVAC-16 (the chain is latency,
+// not the double rate) and far less accurate, so it is not instantiated.
 //
 // Shared memory per scenario (mid_scenario_bytes below), with ln = n | 1,
 // lm = m | 1: in C, 2 n ln (V, which holds Q_xx once W is formed, and W,
@@ -138,9 +141,8 @@ size_t mid_stage_elems(int n, int m, bool stage_l) {
   return e;
 }
 
-size_t mid_scenario_bytes(int n, int m, size_t s_bytes, size_t c_bytes,
-                          bool stage_l) {
-  return align16(mid_work_elems(n, m) * c_bytes) +
+size_t mid_scenario_bytes(int n, int m, size_t s_bytes, bool stage_l) {
+  return align16(mid_work_elems(n, m) * sizeof(double)) +
          align16(mid_stage_elems(n, m, stage_l) * s_bytes);
 }
 
@@ -567,8 +569,8 @@ __device__ bool gains(const Team& tm, const MidSmem<C, S>& s, int n, int m,
 // [B, T, m], lxx [B, T, n, n], luu [B, T, m, m], lux [B, T, m, n], mu [B],
 // ubar [B, T, m], lo/hi [m], VT [B, n, n], vT [B, n]; K [B, T, m, n],
 // k [B, T, m], dV1, dV2, fail [B]. Team ``slot`` of block blockIdx.x takes
-// scenario blockIdx.x * spb + slot.
-template <typename S, typename C, bool kBox>
+// scenario blockIdx.x * spb + slot. C, the arithmetic type, is double.
+template <typename S, bool kBox, typename C = double>
 __global__ void __launch_bounds__(kMaxThreads, 1) riccati_mid_kernel(
     const S* __restrict__ fx, const S* __restrict__ fu,
     const S* __restrict__ lx, const S* __restrict__ lu,
@@ -830,22 +832,22 @@ struct MidPlan {
   long long smem_bytes;
 };
 
-template <typename S, typename C>
+template <typename S>
 long long plan_bytes(int n, int m, const MidPlan& p) {
   return static_cast<long long>(
-             mid_scenario_bytes(n, m, sizeof(S), sizeof(C), p.stage_l != 0)) *
+             mid_scenario_bytes(n, m, sizeof(S), p.stage_l != 0)) *
          p.spb;
 }
 
-template <typename S, typename C, bool kBox>
+template <typename S, bool kBox>
 int launch(int n, int m, int T, int B, int iters, const void* const* in,
            void* const* out, const MidPlan& p, cudaStream_t stream) {
   const size_t scenario =
-      mid_scenario_bytes(n, m, sizeof(S), sizeof(C), p.stage_l != 0);
-  const long long bytes = plan_bytes<S, C>(n, m, p);
+      mid_scenario_bytes(n, m, sizeof(S), p.stage_l != 0);
+  const long long bytes = plan_bytes<S>(n, m, p);
   if (bytes != p.smem_bytes || bytes > static_cast<long long>(kMaxSmemBytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = riccati_mid_kernel<S, C, kBox>;
+  auto kernel = riccati_mid_kernel<S, kBox>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -871,26 +873,22 @@ bool plan_ok(const MidPlan& p) {
 }
 
 // in: fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, VT, vT (ubar, lo, hi
-// null for the iLQR variant); out: K, k, dV1, dV2, fail. arith 0: double
-// arithmetic (both dtypes), 1: float (float32 inputs only).
+// null for the iLQR variant); out: K, k, dV1, dV2, fail.
 template <bool kBox>
-int entry(int dtype, int arith, int n, int m, int T, int B, int iters,
+int entry(int dtype, int n, int m, int T, int B, int iters,
           const void* const* in, void* const* out, const MidPlan& p,
           void* stream) {
   if (n < 1 || m < 1 || n > kMidMaxDim || m > kMidMaxDim || T < 1 ||
-      iters < 0 || !plan_ok(p) || arith < 0 || arith > 1 ||
-      (arith == 1 && dtype != kFloat32))
+      iters < 0 || !plan_ok(p))
     return static_cast<int>(cudaErrorInvalidValue);
   if (kBox && (in[8] == nullptr || in[9] == nullptr || in[10] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && arith == 1)
-    return launch<float, float, kBox>(n, m, T, B, iters, in, out, p, s);
   if (dtype == kFloat32)
-    return launch<float, double, kBox>(n, m, T, B, iters, in, out, p, s);
+    return launch<float, kBox>(n, m, T, B, iters, in, out, p, s);
   if (dtype == kFloat64)
-    return launch<double, double, kBox>(n, m, T, B, iters, in, out, p, s);
+    return launch<double, kBox>(n, m, T, B, iters, in, out, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -898,21 +896,19 @@ int entry(int dtype, int arith, int n, int m, int T, int B, int iters,
 }  // namespace tfmpc
 
 // The dynamic shared bytes of a block of ``spb`` scenarios at (n, m), for
-// the input dtype and arithmetic (0 double, 1 float) and whether the l
-// blocks are staged: what the launch requires of the plan, so the wrapper
-// can check its own sum and refuse a launch that would not fit.
-extern "C" long long tfmpc_riccati_mid_smem_bytes(int dtype, int arith, int n,
-                                                  int m, int spb,
-                                                  int stage_l) {
+// the input dtype and whether the l blocks are staged: what the launch
+// requires of the plan, so the wrapper can check its own sum and refuse a
+// launch that would not fit.
+extern "C" long long tfmpc_riccati_mid_smem_bytes(int dtype, int n, int m,
+                                                  int spb, int stage_l) {
   const size_t s_bytes = dtype == tfmpc::kFloat64 ? 8 : 4;
-  const size_t c_bytes = arith == 1 ? 4 : 8;
   return static_cast<long long>(tfmpc::mid_scenario_bytes(
-             n, m, s_bytes, c_bytes, stage_l != 0)) *
+             n, m, s_bytes, stage_l != 0)) *
          spb;
 }
 
 extern "C" int tfmpc_riccati_backward_mid(
-    int dtype, int arith, int n, int m, int T, int B, const void* fx,
+    int dtype, int n, int m, int T, int B, const void* fx,
     const void* fu, const void* lx, const void* lu, const void* lxx,
     const void* luu, const void* lux, const void* mu, const void* VT,
     const void* vT, void* K, void* k, void* dV1, void* dV2, void* fail,
@@ -921,11 +917,11 @@ extern "C" int tfmpc_riccati_backward_mid(
                       mu,  nullptr, nullptr, nullptr, VT,  vT};
   void* out[] = {K, k, dV1, dV2, fail};
   const tfmpc::MidPlan p{warps, spb, stage_l, smem_bytes};
-  return tfmpc::entry<false>(dtype, arith, n, m, T, B, 0, in, out, p, stream);
+  return tfmpc::entry<false>(dtype, n, m, T, B, 0, in, out, p, stream);
 }
 
 extern "C" int tfmpc_riccati_backward_mid_boxqp(
-    int dtype, int arith, int n, int m, int T, int B, int newton_iters,
+    int dtype, int n, int m, int T, int B, int newton_iters,
     const void* fx, const void* fu, const void* lx, const void* lu,
     const void* lxx, const void* luu, const void* lux, const void* mu,
     const void* ubar, const void* lo, const void* hi, const void* VT,
@@ -934,6 +930,6 @@ extern "C" int tfmpc_riccati_backward_mid_boxqp(
   const void* in[] = {fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, VT, vT};
   void* out[] = {K, k, dV1, dV2, fail};
   const tfmpc::MidPlan p{warps, spb, stage_l, smem_bytes};
-  return tfmpc::entry<true>(dtype, arith, n, m, T, B, newton_iters, in, out,
-                            p, stream);
+  return tfmpc::entry<true>(dtype, n, m, T, B, newton_iters, in, out, p,
+                            stream);
 }

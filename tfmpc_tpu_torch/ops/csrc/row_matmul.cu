@@ -24,9 +24,13 @@
 // column (its reads of M are broadcasts), and A's shared rows are padded
 // so the tile rows of a warp fall in different banks. The tile comes from
 // ops/riccati_mid.py per d, measured; at d = 48 in float32 (6 x 12 tiles)
-// a block is 256 threads and 2 x 25,344 bytes of shared memory. Each entry is a d-term sum in ascending k; ragged edges
-// are masked (a block past B stages and stores only its scenarios, tiles
-// past d compute nothing).
+// a block is 256 threads and 2 x 25,344 bytes of shared memory. Each
+// entry is a d-term sum in ascending k; ragged edges are masked (a block
+// past B stages and stores only its scenarios, tiles past d compute
+// nothing). A version with no shared memory (a thread a scenario and a
+// square register tile, A and M read from device memory) was 1.3-2.6x
+// slower than this one on an H100 at every d of 16-48, best tile each
+// (tools/kernel_versions.py), so both operands are staged.
 #include "common.cuh"
 #include "warp.cuh"
 
@@ -187,8 +191,8 @@ int launch(int d, int B, const void* A, const void* M, void* C,
 }
 
 // The instantiated tiles (ops/riccati_mid.py ROW_TILES), R x Cc: 2 x 4,
-// 3 x 6, 4 x 8, 6 x 6 and 6 x 12; 32 bytes of scenarios a block (8 in
-// float32, 4 in float64: one sector of each entry).
+// 3 x 6, 4 x 8 and 6 x 12; 32 bytes of scenarios a block (8 in float32, 4
+// in float64: one sector of each entry).
 template <typename S>
 int launch_tile(int rows, int cols, int d, int B, const void* A,
                 const void* M, void* C, cudaStream_t stream) {
@@ -196,7 +200,6 @@ int launch_tile(int rows, int cols, int d, int B, const void* A,
   if (rows == 2 && cols == 4) return launch<S, SB, 2, 4>(d, B, A, M, C, stream);
   if (rows == 3 && cols == 6) return launch<S, SB, 3, 6>(d, B, A, M, C, stream);
   if (rows == 4 && cols == 8) return launch<S, SB, 4, 8>(d, B, A, M, C, stream);
-  if (rows == 6 && cols == 6) return launch<S, SB, 6, 6>(d, B, A, M, C, stream);
   if (rows == 6 && cols == 12)
     return launch<S, SB, 6, 12>(d, B, A, M, C, stream);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -25,8 +25,7 @@ float32 result is the less accurate one.
 K7's raw launchers take the solver's own layout (``[B, T, ...]``,
 contiguous): a team reads its scenario's contiguous entries, so no permute
 into the lane kernels' ``[T, entries, B]`` is needed. They also take a
-``plan`` (``mid_plan``'s by default) and the arithmetic type (double by
-default; float, for float32 inputs only, is reached by no solver route).
+``plan`` (``mid_plan``'s by default).
 
 P1, ``row_matmul``, computes ``C[b] = A[b] M[b]`` for d x d matrices in the
 JAX probe's row layout ``[d*d, B]``: K7's core operation alone, on no
@@ -35,9 +34,8 @@ memory in k-slabs and each thread keeps a register tile of one
 scenario's C (``row_plan``).
 ``row_matmul_ref`` is its plain version.
 
-``mid_plan_scenarios`` and ``row_matmul_cover`` repeat the kernels' index
-maps (which team takes which scenario; which thread stores which entry),
-so the plans can be checked on the CPU.
+``row_matmul_cover`` repeats P1's index map (which thread stores which
+entry), so its plans can be checked on the CPU.
 
 ``MID_LAUNCHES``, ``MID_BOXQP_LAUNCHES`` and ``ROW_MATMUL_LAUNCHES`` count
 kernel launches; the matching ``*_PLAIN_CALLS`` the calls that took the
@@ -86,10 +84,9 @@ MID_WARPS_PER_SM = 8
 # csrc/row_matmul.cu instantiates ROW_TILES, with ROW_SLAB k values a
 # stage and 32 bytes of scenarios a block (8 in float32, 4 in float64).
 ROW_PLANS = ((16, 2, 4), (24, 3, 6), (32, 4, 8), (MID_DIM_MAX, 6, 12))
-ROW_TILES = ((2, 4), (3, 6), (4, 8), (6, 6), (6, 12))
+ROW_TILES = ((2, 4), (3, 6), (4, 8), (6, 12))
 ROW_SLAB = 8
 _ITEMSIZE = {torch.float32: 4, torch.float64: 8}
-_ARITH_CODES = {torch.float64: 0, torch.float32: 1}
 _LS_ALPHAS = 8  # ops/boxqp.py LS_ALPHAS: the candidates, and x
 
 # The plain versions: K1's and K4's, general in (n, m).
@@ -132,18 +129,17 @@ def _align16(b: int) -> int:
     return -(-b // 16) * 16
 
 
-def mid_scenario_bytes(n: int, m: int, dtype, arith=torch.float64,
-                       stage_l: bool = True) -> int:
+def mid_scenario_bytes(n: int, m: int, dtype, stage_l: bool = True) -> int:
     """One team's shared bytes (csrc/riccati_mid.cu ``mid_scenario_bytes``):
-    its matrices, rows padded to an odd length, and vectors in the
-    arithmetic type; its staging slot in the input dtype."""
+    its matrices, rows padded to an odd length, and vectors in double; its
+    staging slot in the input dtype."""
     ln, lm = n | 1, m | 1
     work = (2 * n * ln + max(n * lm, m * ln) + 2 * m * ln + 3 * m * lm
             + 2 * n + 5 * m + 2 * (_LS_ALPHAS + 1) * lm)
     stage = n * n + n * m + n + 2 * m
     if stage_l:
         stage += n * n + m * m + m * n
-    return (_align16(work * _ITEMSIZE[arith])
+    return (_align16(work * 8)
             + _align16(stage * _ITEMSIZE[dtype]))
 
 
@@ -155,8 +151,8 @@ def mid_warps(n: int, m: int, B: int = 1, sms: int = SMS) -> int:
     return max(1, min(w, MID_WARPS_PER_SM // -(-B // sms)))
 
 
-def mid_plan(n: int, m: int, B: int, dtype, arith=torch.float64,
-             warps: int | None = None, sms: int = SMS) -> MidPlan:
+def mid_plan(n: int, m: int, B: int, dtype, warps: int | None = None,
+             sms: int = SMS) -> MidPlan:
     """K7's launch plan at (n, m) for B scenarios: ``warps`` per scenario
     (``mid_warps`` by default), the l blocks staged where a team's shared
     memory still fits ``SMEM_LIMIT`` with them, and as many teams per block
@@ -170,7 +166,7 @@ def mid_plan(n: int, m: int, B: int, dtype, arith=torch.float64,
         raise ValueError(f"{warps} warps per scenario: a block holds at most "
                          f"{MID_MAX_THREADS} threads")
     for stage_l in (True, False):
-        per = mid_scenario_bytes(n, m, dtype, arith, stage_l)
+        per = mid_scenario_bytes(n, m, dtype, stage_l)
         if per <= SMEM_LIMIT:
             break
     else:
@@ -181,15 +177,6 @@ def mid_plan(n: int, m: int, B: int, dtype, arith=torch.float64,
     spb = max(1, min(cap, -(-B // sms)))
     return MidPlan(warps=warps, scenarios=spb, stage_l=stage_l,
                    smem_bytes=per * spb)
-
-
-def mid_plan_scenarios(plan: MidPlan, B: int) -> np.ndarray:
-    """The scenario each (block, team) of ``plan`` takes, as the kernel
-    maps them (``b = blockIdx.x * scenarios + slot``, teams with ``b >= B``
-    return): one entry per team that runs."""
-    b = (np.arange(plan.blocks(B))[:, None] * plan.scenarios
-         + np.arange(plan.scenarios)[None, :]).ravel()
-    return b[b < B]
 
 
 def mid_layout(lin, quad, final, mu, bounds=None, Ubar=None):
@@ -208,12 +195,10 @@ def mid_layout(lin, quad, final, mu, bounds=None, Ubar=None):
     return args
 
 
-def _launch(entry, inputs, box, boxqp_iters=None, plan=None,
-            arith=torch.float64):
+def _launch(entry, inputs, box, boxqp_iters=None, plan=None):
     """Check K7's inputs (``MID_ARGS`` order, ``MID_BOXQP_ARGS`` with
     ``box``), allocate the outputs and launch the C entry with ``plan``
-    (``mid_plan``'s for these dims, batch and dtypes by default) in the
-    arithmetic ``arith``. Returns ``(K [B, T, m, n], k [B, T, m], dV1 [B],
+    (``mid_plan``'s for these dims, batch and dtype by default). Returns ``(K [B, T, m, n], k [B, T, m], dV1 [B],
     dV2 [B], fail [B])``, ``fail`` 1.0 on lanes whose PD probe failed."""
     fx, fu = inputs[0], inputs[1]
     dev, dtype = fx.device, fx.dtype
@@ -239,22 +224,17 @@ def _launch(entry, inputs, box, boxqp_iters=None, plan=None,
         raise ValueError(
             "K7's inputs must share one device and dtype, be contiguous and "
             "have the solver's [B, T, ...] shapes")
-    if arith not in _ARITH_CODES or (arith == torch.float32
-                                     and dtype != torch.float32):
-        raise TypeError(f"K7 computes in float64, or in float32 on float32 "
-                        f"inputs; got {arith} on {dtype}")
     if plan is None:
-        plan = mid_plan(n, m, B, dtype, arith, sms=_sm_count(dev))
+        plan = mid_plan(n, m, B, dtype, sms=_sm_count(dev))
     lib = _build.library()
-    code, acode = _build.DTYPE_CODES[dtype], _ARITH_CODES[arith]
-    smem = lib.tfmpc_riccati_mid_smem_bytes(code, acode, n, m,
-                                            plan.scenarios,
+    code = _build.DTYPE_CODES[dtype]
+    smem = lib.tfmpc_riccati_mid_smem_bytes(code, n, m, plan.scenarios,
                                             int(plan.stage_l))
     if smem != plan.smem_bytes or smem > SMEM_LIMIT:
         raise ValueError(f"{entry}: the plan's {plan.smem_bytes} bytes of "
                          f"shared memory at {(n, m)} are not the kernel's "
                          f"{smem}, or exceed a block's {SMEM_LIMIT}")
-    ints = (code, acode, n, m, T, B)
+    ints = (code, n, m, T, B)
     if boxqp_iters is not None:
         if boxqp_iters < 0:
             raise ValueError("boxqp_iters must be >= 0")
@@ -275,15 +255,14 @@ def _sm_count(dev) -> int:
 
 
 def riccati_backward_mid_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT,
-                                plan: MidPlan | None = None,
-                                arith=torch.float64):
+                                plan: MidPlan | None = None):
     """Launch K7's iLQR variant on the solver-layout tensors of
     ``mid_layout``. Returns ``(K [B, T, m, n], k [B, T, m], dV1 [B], dV2
     [B], fail [B])``, ``fail`` 1.0 on lanes whose PD probe failed."""
     global MID_LAUNCHES
     out = _launch("riccati_backward_mid",
                   (fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT), False,
-                  plan=plan, arith=arith)
+                  plan=plan)
     MID_LAUNCHES += 1
     return out
 
@@ -291,15 +270,14 @@ def riccati_backward_mid_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT,
 def riccati_backward_mid_boxqp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu,
                                       ubar, lo, hi, VT, vT,
                                       boxqp_iters: int = 8,
-                                      plan: MidPlan | None = None,
-                                      arith=torch.float64):
+                                      plan: MidPlan | None = None):
     """Launch K7's boxQP variant: the inputs of the iLQR variant plus
     ``ubar [B, T, m]`` and the box ``lo``/``hi [m]``; outputs as
     ``riccati_backward_mid_kernel``."""
     global MID_BOXQP_LAUNCHES
     out = _launch("riccati_backward_mid_boxqp",
                   (fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, VT, vT),
-                  True, boxqp_iters, plan=plan, arith=arith)
+                  True, boxqp_iters, plan=plan)
     MID_BOXQP_LAUNCHES += 1
     return out
 
