@@ -11,14 +11,20 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
    float32 matmuls;
 2. build: compile ``tfmpc_tpu_torch/ops/csrc/*.cu`` with nvcc, one process
    per source, all started together (timed); print ptxas's registers and
-   spills per kernel instantiation;
+   spills per kernel instantiation (each lane kernel's per G), and each
+   lane kernel's launch plan beside the shared bytes the kernel computes
+   for it;
 3. each kernel against its plain PyTorch version on the card, in float32
    and float64: K1 Riccati backward, K2 line-search costs and K3
    accepted-alpha rollout at the navigation headline shapes (B=4096,
    T=100, n=m=2, A=11); K4 boxQP Riccati backward at HVAC-6 (B=2048,
    T=100, n=m=6, 8 boxQP iterations) and once at reservoir-5 (n=m=5); the
    clipped K2/K3 at HVAC-6 and reservoir-5 shapes. K1 and K4 get lanes
-   forced indefinite (fail masks must be identical). Timed;
+   forced indefinite (fail masks must be identical). Timed (the lane
+   kernels K1, K4, K6a, K6b as device times of CUDA graph replays: an eager
+   loop of their launches measures the host's Python launch path at the
+   headline's shapes); K4 at HVAC-6 with 1, 2, 4 and 8 lanes a scenario,
+   each held to K4's float32 gate, timed in turns;
 4. the navigation headline solve (slice A): ``solve_batch``, T=100,
    B=4096, f32, ``ILQRConfig(atol=1e-4, max_iterations=50,
    use_pallas=True)``; launch counters prove K1/K2/K3 ran and no plain
@@ -69,7 +75,11 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     lanes forced indefinite) and on synthetic ones (f_uu != 0) at n = m = 2
     and 6, against their plain versions: identical ok masks and the ok
     lanes within tolerance in float64, against the float64 plain version in
-    float32; K6a's gains differ from K1's; K1 at n = m = 5;
+    float32; K6a's gains differ from K1's; K1 at n = m = 5; K4 and K6b at
+    HVAC-6 B=2047 and K1 and K6a at the headline's B=4095, T=20
+    (block-ragged under their plans, which is checked first), five lanes
+    forced indefinite, under the same gates; K6a at the headline with 1,
+    2, 4 and 8 lanes a scenario, timed in turns;
 16. D1, suite config 4c: the reservoir-5 solve of phase 7 with
     ``ddp=True``; counters prove K6b/K2/K3 ran and nothing else; >= 99%
     converged; agreement with the plain path; its mean iterations and cost
@@ -240,6 +250,14 @@ MID_SYNTHETIC_DIMS = ((14, 13), (24, 24), (32, 32), (48, 48), (40, 33),
 # scenario-to-team map does not depend on T)
 MID_RAGGED = (("hvac12", 1023), ("hvac16", 513))
 T_RAGGED = 20
+# the lane kernels (K1/K4/K6a/K6b) at block-ragged batches, where the last
+# block's tail groups idle while its other groups run: HVAC-6 at B=2047
+# (K4, K6b) and the headline at B=4095 (K1, K6a), T_RAGGED steps, five lanes
+# forced indefinite each
+LANE_RAGGED = (("hvac6", 2047), ("navigation", 4095))
+# the lanes a scenario the G sweep times (K4 at HVAC-6, K6a at the
+# headline; ops/riccati.py LANE_PLANS is set from such sweeps)
+LANE_SWEEP_G = (1, 2, 4, 8)
 # K7's warps per scenario, timed at these dims (the plan's MID_WARPS
 # table is set from them)
 MID_WARPS_SWEEP = ((16, 16), (24, 24), (32, 32), (48, 48))
@@ -582,7 +600,7 @@ def check_nav_kernels(dtype, timings, errs):
     a = riccati._to_kernel_layout(lin, quad, final, mu)
     k1_args = [a[k] for k in riccati.K1_ARGS]
     timings["riccati_backward"] = (
-        cuda_ms(lambda: riccati.riccati_backward_kernel(*k1_args), 50),
+        graph_ms(lambda: riccati.riccati_backward_kernel(*k1_args), 50),
         cuda_ms(lambda: riccati.riccati_backward(lin, quad, final, mu), 50),
         cuda_ms(lambda: riccati.riccati_backward_ref(lin, quad, final, mu),
                 5),
@@ -706,7 +724,8 @@ def check_k4(name, dtype, timings=None, errs=None):
     riccati.riccati_backward_boxqp_ref(lin, quad, final, mu, env.bounds, U,
                                        stats=stats_main)
     timings["riccati_backward_boxqp"] = (
-        cuda_ms(lambda: riccati.riccati_backward_boxqp_kernel(*k4_args), 20),
+        graph_ms(lambda: riccati.riccati_backward_boxqp_kernel(*k4_args),
+                 20),
         cuda_ms(lambda: riccati.riccati_backward_boxqp(
             lin, quad, final, mu, env.bounds, U), 20),
         cuda_ms(lambda: riccati.riccati_backward_boxqp_ref(
@@ -1265,7 +1284,7 @@ def check_k6(kernel, case, dtype, timings=None, errs=None):
         work = k6b_work(Bn, Tn, n, n, 4, stats["newton_iterations"])
     errs[name] = err
     timings[name] = (
-        cuda_ms(launch, reps),
+        graph_ms(launch, reps),
         cuda_ms(lambda: call(fns[0], *args), reps),
         cuda_ms(lambda: call(fns[1], *args), 2),
         bound(*work),
@@ -1306,6 +1325,168 @@ def check_k1_dims(dtype):
                   lambda: riccati.riccati_backward_ref(
                       to64(lin), to64(quad), to64(final), mu.double()),
                   False, bad)
+
+
+def print_lane_plans(lib):
+    """Each lane kernel's launch plan at the shapes this script runs (K1
+    and K6a at the headline's B, K4 and K6b at B_BOX, and LANE_RAGGED's
+    batches), beside the shared bytes the kernel computes for it
+    (``tfmpc_riccati_lane_smem_bytes``), which must agree."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for variant, (box, ddp) in riccati.VARIANTS.items():
+        Bs = (B_BOX, 2047) if box else (B, 4095)
+        for n in (2, 3, 5, 6):
+            for dtype in (torch.float32, torch.float64):
+                for Bn in Bs:
+                    p = riccati.lane_plan(variant, n, n, Bn, dtype, sms=sms)
+                    lib_bytes = lib.tfmpc_riccati_lane_smem_bytes(
+                        int(box), int(ddp),
+                        0 if dtype == torch.float32 else 1, n, n,
+                        p.scenarios)
+                    print(f"  lane plan {variant} n=m={n} B={Bn} "
+                          f"{dname(dtype)}: {p.groups} lane(s) a scenario, "
+                          f"{p.scenarios} scenarios ({p.threads} threads) a "
+                          f"block, {p.blocks(Bn)} blocks, {p.smem_bytes} B "
+                          f"shared (kernel: {lib_bytes} B)")
+                    if lib_bytes != p.smem_bytes:
+                        raise AssertionError(f"lane plan {variant} n={n}: "
+                                             "shared bytes disagree with "
+                                             "the kernel's")
+
+
+def lane_g_sweep(kernel, card):
+    """K4 at HVAC-6 (``kernel="K4"``) or K6a at the headline (``"K6a"``),
+    f32, with each of LANE_SWEEP_G lanes a scenario (the block's scenarios
+    as ``lane_plan`` gives them for that G): every G held to the kernel's
+    float32 gate (its share of lanes within K4_F32_TOL of the float64 plain
+    version at least the float32 plain version's, less K4_F32_SHARE_SLACK;
+    ok-mask differences printed), then all timed in turns (every G, then
+    again in reverse; the best of the two), as device times of CUDA graph
+    replays. Returns {G: ms}."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati
+
+    f32 = torch.float32
+    if kernel == "K4":
+        env, _, U, lin, quad, final, mu, _ = boxqp_inputs("hvac6", f32)
+        variant, keys, n = "boxqp", riccati.K4_ARGS, env.state_size
+        a = riccati._to_kernel_layout(lin, quad, final, mu, env.bounds, U)
+        launch = riccati.riccati_backward_boxqp_kernel
+        plain = lambda *x: riccati.riccati_backward_boxqp_ref(  # noqa: E731
+            *x[:4], env.bounds if x[0].f_x.dtype == f32 else to64(
+                env.bounds), x[4])
+        ins, ins64 = (lin, quad, final, mu, U), (to64(lin), to64(quad),
+                                                  to64(final), mu.double(),
+                                                  U.double())
+    else:
+        _, U, lin, quad, final, mu, _, second = ddp_inputs("navigation", f32)
+        variant, keys, n = "ddp", riccati.K6A_ARGS, N
+        a = riccati._to_kernel_layout(lin, quad, final, mu)
+        a.update(riccati._second_to_kernel_layout(second))
+        launch = riccati.riccati_backward_ddp_kernel
+        plain = riccati.riccati_backward_ddp_ref
+        ins = (lin, quad, final, mu, second)
+        ins64 = (to64(lin), to64(quad), to64(final), mu.double(),
+                 to64(second))
+    Bn, Tn = U.shape[:2]
+    kargs = [a[k] for k in keys]
+    ok_r, pol_r, dv1_r, dv2_r = plain(*ins64)
+    ok_p, pol_p, dv1_p, dv2_p = plain(*ins)
+    outs_r = (pol_r.K, pol_r.k, dv1_r, dv2_r)
+    share_p = lane_share((pol_p.K, pol_p.k, dv1_p, dv2_p), outs_r,
+                         ok_p & ok_r, *K4_F32_TOL)
+    fns = {}
+    for G in LANE_SWEEP_G:
+        plan = riccati.lane_plan(variant, n, n, Bn, f32, groups=G,
+                                 sms=torch.cuda.get_device_properties(
+                                     0).multi_processor_count)
+        fn = lambda plan=plan: launch(*kargs, plan=plan)  # noqa: E731
+        ok_k, pol_k, dv1_k, dv2_k = riccati._from_kernel_layout(
+            fn(), Bn, Tn, n, n)
+        share_k = lane_share((pol_k.K, pol_k.k, dv1_k, dv2_k), outs_r,
+                             ok_k & ok_r, *K4_F32_TOL)
+        print(f"  {kernel} G={G} ({plan.scenarios} scenarios a block) "
+              f"[float32]: ok differs from the float64 plain version on "
+              f"{int((ok_k != ok_r).sum())} of {Bn} lanes; share of lanes "
+              f"within {K4_F32_TOL[0]:g} + {K4_F32_TOL[1]:g}*|ref| "
+              f"{share_k:.6f} (gate >= plain {share_p:.6f} - "
+              f"{K4_F32_SHARE_SLACK})")
+        if share_k < share_p - K4_F32_SHARE_SLACK:
+            raise AssertionError(f"{kernel} G={G}: less accurate than the "
+                                 "plain version")
+        fns[G] = fn
+    times = {}
+    for order in (list(fns), list(fns)[::-1]):
+        for G in order:
+            times.setdefault(G, []).append(graph_ms(fns[G], 10))
+    out = {G: min(v) for G, v in times.items()}
+    print(f"  {kernel} (B={Bn}, T={Tn}, n=m={n}, f32) by lanes a scenario, "
+          "device ms, best of two turns: " + ", ".join(
+              f"G={G} {ms:.4f}" for G, ms in out.items())
+          + f"; the plan takes G={riccati.LANE_PLANS[variant][n][0]} "
+          f"[{card}]")
+    return out
+
+
+def check_lane_ragged(dtype):
+    """K1/K4/K6a/K6b at LANE_RAGGED's block-ragged batches (T_RAGGED steps,
+    five lanes forced indefinite, ``force_indefinite``; the last of them
+    in the last block), after checking that each plan leaves the last block
+    part-full: ``hold_backward``'s gates (identical ok masks and TOL, or
+    K4's share gates, in float64; against the float64 plain version in
+    float32)."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for case, Bn in LANE_RAGGED:
+        env, U, lin, quad, final, mu, bounds, second = ddp_inputs(case,
+                                                                  dtype)
+        cut = lambda r: dataclasses.replace(r, **{  # noqa: E731
+            f: (getattr(r, f)[:Bn, :T_RAGGED] if getattr(r, f).ndim > 1
+                and r is not final else getattr(r, f)[:Bn])
+            for f in r.__dataclass_fields__ if getattr(r, f) is not None})
+        lin, quad, final, second = cut(lin), cut(quad), cut(final), \
+            cut(second)
+        mu, U = mu[:Bn], U[:Bn, :T_RAGGED]
+        n = U.shape[-1]
+        quad, mu, bad = force_indefinite(quad, mu, n)
+        box_case = case != "navigation"
+        pairs = (("K4", "boxqp"), ("K6b", "ddp_boxqp")) if box_case else \
+            (("K1", "ilqr"), ("K6a", "ddp"))
+        for kernel, variant in pairs:
+            plan = riccati.lane_plan(variant, n, n, Bn, dtype, sms=sms)
+            tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
+            print(f"  {kernel} {case} B={Bn} T={T_RAGGED} {dname(dtype)}: "
+                  f"{plan.groups} lane(s) a scenario, {plan.scenarios} a "
+                  f"block, {tail} in the last block")
+            if plan.scenarios < 2 or tail == plan.scenarios:
+                raise AssertionError(f"{kernel} {case} B={Bn}: the batch is "
+                                     "not block-ragged under the plan")
+            box, ddp = riccati.VARIANTS[variant]
+            name = "riccati_backward" + ("_ddp" if ddp else "") + (
+                "_boxqp" if box else "")
+            wrap, ref = (getattr(riccati, name),
+                         getattr(riccati, name + "_ref"))
+
+            def call(fn, lin, quad, final, mu, bounds, U, second, **st):
+                args = (lin, quad, final, mu) + ((bounds, U) if box else ())
+                args += (second,) if ddp else ()
+                return fn(*args, **(st if box else {}))
+
+            args = (lin, quad, final, mu, bounds, U, second)
+            args64 = (to64(lin), to64(quad), to64(final), mu.double(),
+                      to64(bounds), U.double(), to64(second))
+            hold_backward(f"{kernel} {case} B={Bn}", dtype,
+                          lambda: call(wrap, *args),
+                          lambda st: call(ref, *args, stats=st),
+                          lambda: call(ref, *args64), box, bad)
 
 
 def ddp_oracle_devs(res, x0s, horizon=T):
@@ -2593,6 +2774,7 @@ def main() -> int:
     print_ptxas(_build.library_path().with_suffix(".log").read_text())
     lib = _build.library()
     print_mid_plans(lib)
+    print_lane_plans(lib)
 
     # -- 3. kernels vs plain versions ---------------------------------------
     timings, errs = {}, {}
@@ -2609,6 +2791,7 @@ def main() -> int:
             check_k5(case, dtype, *((timings, errs)
                                     if dtype == torch.float32 else ()))
     check_k4("reservoir5", torch.float32)
+    lane_sweeps = {"K4_hvac6": lane_g_sweep("K4", card)}
     phase.done("3. kernels vs plain versions")
 
     # -- 4. the navigation headline solve (slice A) ---------------------------
@@ -2777,7 +2960,9 @@ def main() -> int:
             for kernel in ("K6a", "K6b"):
                 check_k6(kernel, case, dtype)
         check_k1_dims(dtype)
+        check_lane_ragged(dtype)
     check_ddp_terms_enter()
+    lane_sweeps["K6a_navigation"] = lane_g_sweep("K6a", card)
     phase.done("15. K6a and K6b vs plain versions")
 
     # -- 16. D1: full DDP on reservoir-5 (suite config 4c) --------------------
@@ -2944,6 +3129,7 @@ def main() -> int:
                       "e1_profile": e1_profile,
                       "e1": e1, "e2": e2,
                       "k7_vs_k4_hvac6_ms": k7_k4,
+                      "lane_g_sweep_ms": lane_sweeps,
                       **e_extra,
                       "k7_synthetic": {
                           k: {"ms": v[0], "plain_ms": v[2],

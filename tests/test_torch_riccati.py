@@ -10,6 +10,7 @@ batched matmul and LAPACK, which reorders the rounding of a T-step chain.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -280,3 +281,49 @@ def test_boxqp_kernel_layout_and_wrapper_on_cpu():
             riccati.LAUNCHES, riccati.PLAIN_CALLS) == (
         counts[0], counts[1] + 1, counts[2], counts[3])
     assert riccati.KERNEL_DIMS == {(2, 2), (3, 3), (5, 5), (6, 6)}
+
+
+LANE_SOURCES = {"ilqr": "riccati.cu", "boxqp": "riccati_boxqp.cu",
+                "ddp": "riccati_ddp.cu", "ddp_boxqp": "riccati_ddp_boxqp.cu"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("variant", sorted(riccati.VARIANTS))
+def test_lane_plan_covers_each_scenario_once(variant, dtype):
+    """``lane_plan`` at every lane dim and at batches that fill their last
+    block or leave it ragged: the kernel's thread-to-scenario map (group
+    ``tid // G`` of block ``blk``, lane ``tid % G``) gives every scenario
+    each of its G lanes exactly once, and its copy map (scenario column
+    ``tid % spb``, entries ``tid // spb``, ``+ G``, ...) stages every entry
+    of every scenario of a block once; G is 1 or a power of two >= max(n,
+    m), instantiated in the variant's source; a block fits the H100's
+    threads and shared memory."""
+    source = (Path(riccati.__file__).parent / "csrc"
+              / LANE_SOURCES[variant]).read_text()
+    box, ddp = riccati.VARIANTS[variant]
+    for n in (2, 3, 5, 6):
+        entries = (2 * n * n + n * n + 2 * n + 2 * n * n + (n if box else 0)
+                   + (3 * n ** 3 if ddp else 0))
+        for B in (1, 31, 2047, 2048, 4095, 4096):
+            plan = riccati.lane_plan(variant, n, n, B, dtype)
+            G, spb = plan.groups, plan.scenarios
+            assert G == 1 or (G & (G - 1) == 0 and G >= n)
+            assert f"NG<{n}, {G}>" in source
+            assert plan.threads <= riccati.LANE_MAX_THREADS
+            assert plan.smem_bytes <= riccati.SMEM_LIMIT
+            assert plan.smem_bytes == riccati.lane_smem_bytes(
+                variant, n, n, spb, dtype)
+            tid = np.arange(plan.threads)
+            blk = np.arange(plan.blocks(B))[:, None]
+            b = blk * spb + tid // G
+            lanes = np.zeros((B, G), dtype=int)
+            np.add.at(lanes, (b[b < B], np.broadcast_to(tid % G, b.shape)[
+                b < B]), 1)
+            assert (lanes == 1).all(), (n, B)
+            staged = np.zeros((B, entries), dtype=int)
+            for ce in range(G):
+                cols = tid[tid // spb == ce] % spb
+                sc = blk * spb + cols
+                for e in range(ce, entries, G):
+                    np.add.at(staged[:, e], sc[sc < B], 1)
+            assert (staged == 1).all(), (n, B)

@@ -38,15 +38,18 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # are c_void_p: a bare Python int would be passed as a 32-bit int.
 _SIGNATURES = {
     # dtype, n, m, T, B, fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT,
-    # K, k, dV1, dV2, fail, block, stream
-    "tfmpc_riccati_backward": [_I] * 5 + [_P] * 15 + [_I, _P],
+    # K, k, dV1, dV2, fail, then the lane plan (lanes a scenario, scenarios
+    # a block, shared bytes) and the stream
+    "tfmpc_riccati_backward": [_I] * 5 + [_P] * 15 + [_I, _I, _LL, _P],
     # dtype, n, m, T, B, newton_iters, fx, fu, lx, lu, lxx, luu, lux, mu,
-    # ubar, lo, hi, VT, vT, K, k, dV1, dV2, fail, block, stream
-    "tfmpc_riccati_backward_boxqp": [_I] * 6 + [_P] * 18 + [_I, _P],
+    # ubar, lo, hi, VT, vT, K, k, dV1, dV2, fail, plan, stream
+    "tfmpc_riccati_backward_boxqp": [_I] * 6 + [_P] * 18
+    + [_I, _I, _LL, _P],
     # as tfmpc_riccati_backward, with fxx, fux, fuu after mu
-    "tfmpc_riccati_backward_ddp": [_I] * 5 + [_P] * 18 + [_I, _P],
+    "tfmpc_riccati_backward_ddp": [_I] * 5 + [_P] * 18 + [_I, _I, _LL, _P],
     # as tfmpc_riccati_backward_boxqp, with fxx, fux, fuu after hi
-    "tfmpc_riccati_backward_ddp_boxqp": [_I] * 6 + [_P] * 21 + [_I, _P],
+    "tfmpc_riccati_backward_ddp_boxqp": [_I] * 6 + [_P] * 21
+    + [_I, _I, _LL, _P],
     # K7 (riccati_mid.cu), the solver's [B, T, ...] layout: as
     # tfmpc_riccati_backward and tfmpc_riccati_backward_boxqp up to fail;
     # then the plan (warps, scenarios per block, stage_l, shared
@@ -178,6 +181,9 @@ def library() -> ctypes.CDLL:
     # dtype, n, m, scenarios per block, stage_l
     lib.tfmpc_riccati_mid_smem_bytes.argtypes = [_I] * 5
     lib.tfmpc_riccati_mid_smem_bytes.restype = ctypes.c_longlong
+    # box, ddp, dtype, n, m, scenarios per block
+    lib.tfmpc_riccati_lane_smem_bytes.argtypes = [_I] * 6
+    lib.tfmpc_riccati_lane_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

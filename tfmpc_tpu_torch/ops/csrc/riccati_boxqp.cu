@@ -14,30 +14,47 @@
 //
 // What bounds it on this card: at HVAC-6 (n = m = 6, B = 2048, T = 100) a
 // step reads 198 values per scenario and writes 42 (~196 MB in f32, ~0.06
-// ms of HBM time at 3.35 TB/s); the arithmetic is up to ~15k FLOPs per step
-// and scenario with all 8 Newton x 8 line-search iterations (~3 GFLOP,
-// ~0.05 ms at 67 TFLOP/s). But like K1 the T steps of a scenario form a
-// serial chain, and the boxQP loop inside a step is itself serial, so the
-// kernel is bound by the latency of one thread's dependent arithmetic.
+// ms of HBM time at the H100's 3.35 TB/s); the arithmetic is up to ~15k
+// FLOPs per step and scenario with all 8 Newton x 8 line-search iterations.
+// But the T steps of a scenario form a serial chain, and the boxQP loop
+// inside a step is itself serial, so the kernel is bound by the latency of
+// dependent arithmetic.
 //
-// What the design does about it, simple and right first: one thread per
-// scenario, walking T; the [T, entries, B] layout keeps every load and
-// store coalesced across a warp. The small-matrix loops unroll through the
-// template dims; the Newton and line-search loops stay rolled. At
-// n = m = 6 the working set (V, the five Q blocks, the factors, the boxQP
-// vectors: ~300 values) exceeds the 255-register limit, so it spills to
-// local memory (ptxas -v in chip_smoke.py reports how much). Splitting a
-// scenario over several threads is later work.
+// What the design does about it (riccati_kernel.cuh): a group of G lanes a
+// scenario. At n = m = 6 one thread a scenario needed ~300 values (V, five
+// Q blocks, two factors, the boxQP vectors) and spilled past 255
+// registers; with G = 8 a lane holds one column of each Q block and the
+// exchanged blocks sit in the scenario's shared workspace. The Newton
+// iterations run alike on every lane of the group, and the line search
+// tries the eight step sizes side by side, one a lane, where one thread
+// tried them one after another. The inputs of the next step are staged in
+// shared memory while a step computes.
 #include "riccati_kernel.cuh"
+
+namespace {
+using tfmpc::Insts;
+using tfmpc::NG;
+// (n, G) instantiated: ops/riccati.py LANE_PLANS' K4 row, and every G at
+// n = 6 for chip_smoke.py's sweep at HVAC-6
+using Plan = Insts<NG<2, 8>, NG<3, 8>, NG<5, 8>, NG<6, 8>>;
+#ifdef TFMPC_LANE_ALL_G
+using F32 = tfmpc::AllLaneG;
+#else
+using F32 = tfmpc::Cat<Plan, Insts<NG<6, 1>, NG<6, 2>, NG<6, 4>>>::type;
+#endif
+using F64 = Plan;
+}  // namespace
 
 extern "C" int tfmpc_riccati_backward_boxqp(
     int dtype, int n, int m, int T, int B, int newton_iters, const void* fx,
     const void* fu, const void* lx, const void* lu, const void* lxx,
     const void* luu, const void* lux, const void* mu, const void* ubar,
     const void* lo, const void* hi, const void* VT, const void* vT, void* K,
-    void* k, void* dV1, void* dV2, void* fail, int block, void* stream) {
+    void* k, void* dV1, void* dV2, void* fail, int groups, int spb,
+    long long smem_bytes, void* stream) {
   const void* in[] = {fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, VT, vT};
   void* out[] = {K, k, dV1, dV2, fail};
-  return tfmpc::launch_riccati<tfmpc::Boxqp>(dtype, n, m, T, B, newton_iters,
-                                             in, out, block, stream);
+  return tfmpc::launch_riccati<tfmpc::Boxqp, F32, F64>(
+      dtype, n, m, T, B, newton_iters, in, out, groups, spb, smem_bytes,
+      stream);
 }

@@ -9,7 +9,9 @@ a CUDA tensor they launch the CUDA kernel (``csrc/riccati.cu``,
 raise; on a CPU
 tensor they run the plain PyTorch versions ``riccati_backward_ref``,
 ``riccati_backward_boxqp_ref``, ``riccati_backward_ddp_ref`` and
-``riccati_backward_ddp_boxqp_ref``. The fused iteration's entry,
+``riccati_backward_ddp_boxqp_ref``. The four kernels are one template run
+with a launch plan (``lane_plan``: the lanes a scenario, the scenarios a
+block, the shared bytes). The fused iteration's entry,
 ``riccati_backward_lanes``, takes and returns the kernels' own ``[T,
 entries, B]`` layout and launches K1 or K4. ``LAUNCHES``, ``BOXQP_LAUNCHES``,
 ``DDP_LAUNCHES`` and ``DDP_BOXQP_LAUNCHES`` count kernel launches and the
@@ -28,6 +30,9 @@ with the value gradient in every Q block, and ``mu I_m`` on QuuR.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -55,15 +60,100 @@ DDP_BOXQP_PLAIN_CALLS = 0
 # oracle problem (3), reservoir-5 (5) and HVAC-6 (6). The solver routes
 # other dims up to 48 to K7 (ops/riccati_mid.py), DDP excepted.
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
-# Threads per block. One thread owns one scenario and there are only B
-# threads, so small blocks spread them over the H100's 132 SMs: at B=4096
-# (the navigation headline: K1, K6a) 32 give 128 blocks on 128 SMs; at
-# B=2048 (HVAC-6, reservoir-5: K4, K6b) 16 give 128 blocks. K6a and K6b add
-# the Hessians' loads to K1's and K4's chain and keep their launch shape.
-BLOCK = 32
-BOXQP_BLOCK = 16
-DDP_BLOCK = 32
-DDP_BOXQP_BLOCK = 16
+# The launch plans (``lane_plan``). A group of G lanes owns a scenario
+# (csrc/riccati_kernel.cuh): lane l computes the columns l, l + G, ... of
+# the step's products, so G >= n gives each lane about one column of each
+# Q block; G = 1 is one thread a scenario. LANE_PLANS gives, per variant
+# and dim, G and the most scenarios a block: the fastest pair of G = 1 or
+# a power of two >= n and 4, 8, 16 or 32 scenarios a block, as timed on
+# one H100 by ``tools/kernel_versions.py lane --sweep`` at the paths'
+# batches (PERF.md section 6). Fewer scenarios a block wait for fewer slow
+# boxQPs at each step's barrier and leave more blocks an SM; more share
+# the staged copies. Each C source instantiates exactly these (n, G)
+# pairs (and, at f32, the Gs that chip_smoke.py sweeps), so a G outside
+# them raises at launch.
+LANE_PLANS = {
+    "ilqr": {2: (1, 16), 3: (4, 16), 5: (8, 8), 6: (8, 16)},
+    "boxqp": {2: (8, 4), 3: (8, 4), 5: (8, 4), 6: (8, 16)},
+    "ddp": {2: (2, 8), 3: (8, 16), 5: (8, 16), 6: (8, 16)},
+    "ddp_boxqp": {2: (8, 8), 3: (8, 8), 5: (8, 8), 6: (8, 16)},
+}
+# whether each variant takes the box and the dynamics Hessians
+VARIANTS = {"ilqr": (False, False), "boxqp": (True, False),
+            "ddp": (False, True), "ddp_boxqp": (True, True)}
+LANE_MAX_THREADS = 256  # csrc/riccati_kernel.cuh kLaneMaxThreads
+SMEM_LIMIT = 232448  # a block's shared memory on the H100
+SMS = 132  # the H100's SMs: the scenarios of a block spread B over them
+_ITEMSIZE = {torch.float32: 4, torch.float64: 8}
+
+
+@dataclasses.dataclass(frozen=True)
+class LanePlan:
+    """A lane kernel's launch: ``groups`` lanes a scenario, ``scenarios``
+    a block, and the block's dynamic shared bytes, which the C side
+    recomputes and must equal. Scenario b runs on block ``b //
+    scenarios``, threads ``(b % scenarios) * groups`` to ``+ groups -
+    1``."""
+
+    groups: int
+    scenarios: int
+    smem_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return self.groups * self.scenarios
+
+    def blocks(self, B: int) -> int:
+        return -(-B // self.scenarios)
+
+
+def lane_smem_bytes(variant: str, n: int, m: int, spb: int, dtype) -> int:
+    """A block's shared bytes (csrc/riccati_step.cuh ``lane_smem_bytes``):
+    three steps' staged inputs, ``[3][entries][spb | 1]``, and ``spb``
+    workspaces of the value function, the exchanged and parked blocks and
+    the box, an odd number of values each."""
+    box, ddp = VARIANTS[variant]
+    entries = (2 * n * n + n * m + n + m + m * m + m * n + (m if box else 0)
+               + (n * n * n + n * m * n + n * m * m if ddp else 0))
+    ws = (2 * n * n + n + 2 * m * m + 3 * m * n + 6 * m) | 1
+    return (3 * entries * (spb | 1) + spb * ws) * _ITEMSIZE[dtype]
+
+
+@functools.cache
+def lane_plan(variant: str, n: int, m: int, B: int, dtype,
+              groups: int | None = None, sms: int = SMS) -> LanePlan:
+    """The launch plan of a lane kernel (``variant`` one of ``VARIANTS``)
+    at (n, m) for B scenarios: ``groups`` lanes a scenario (``LANE_PLANS``'
+    by default) and as many scenarios a block as B spread over ``sms``
+    SMs asks for, at most ``LANE_PLANS``', ``LANE_MAX_THREADS`` threads
+    and ``SMEM_LIMIT`` shared bytes a block."""
+    if (n, m) not in KERNEL_DIMS:
+        raise NotImplementedError(
+            f"the lane kernels take (n, m) in {sorted(KERNEL_DIMS)}, got "
+            f"{(n, m)}")
+    G_plan, spb_max = LANE_PLANS[variant][n]
+    G = groups or G_plan
+    if G not in (1, 2, 4, 8):
+        raise ValueError(f"{G} lanes a scenario: G is 1, 2, 4 or 8")
+    cap = LANE_MAX_THREADS // G
+    while cap > 1 and lane_smem_bytes(variant, n, m, cap, dtype) > SMEM_LIMIT:
+        cap -= 1
+    spb = max(1, min(cap, spb_max, -(-B // sms)))
+    return LanePlan(groups=G, scenarios=spb,
+                    smem_bytes=lane_smem_bytes(variant, n, m, spb, dtype))
+
+
+@functools.cache
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.cache
+def _kernel_smem_bytes(variant, code, n, m, spb) -> int:
+    """The shared bytes the C side computes for a block of ``spb``
+    scenarios (``tfmpc_riccati_lane_smem_bytes``)."""
+    return _build.library().tfmpc_riccati_lane_smem_bytes(
+        *map(int, VARIANTS[variant]), code, n, m, spb)
 
 
 def _mv(A, x):
@@ -276,12 +366,15 @@ def _outputs(T, n, m, B, like):
     return K, k, dV1, dV2, fail
 
 
-def _launch(entry, first, box, second, final, block, boxqp_iters=None):
+def _launch(entry, variant, first, box, second, final, boxqp_iters=None,
+            plan=None):
     """Check kernel-layout inputs, allocate the outputs and launch the C
-    entry ``entry``: ``first`` = (fx, fu, lx, lu, lxx, luu, lux, mu),
-    ``box`` = (ubar, lo, hi) or (), ``second`` = (fxx, fux, fuu) or (),
-    ``final`` = (VT, vT). Returns ``(K [T, m*n, B], k [T, m, B], dV1 [B],
-    dV2 [B], fail [B])``, ``fail`` 1.0 on lanes whose PD probe failed."""
+    entry ``entry`` with ``plan`` (``lane_plan``'s for ``variant``, these
+    dims, batch and dtype by default): ``first`` = (fx, fu, lx, lu, lxx,
+    luu, lux, mu), ``box`` = (ubar, lo, hi) or (), ``second`` = (fxx, fux,
+    fuu) or (), ``final`` = (VT, vT). Returns ``(K [T, m*n, B], k [T, m,
+    B], dV1 [B], dV2 [B], fail [B])``, ``fail`` 1.0 on lanes whose PD probe
+    failed."""
     fx, lx, lu = first[0], first[2], first[3]
     T, nn, B = fx.shape
     n, m = lx.shape[1], lu.shape[1]
@@ -299,65 +392,80 @@ def _launch(entry, first, box, second, final, block, boxqp_iters=None):
         if boxqp_iters < 0:
             raise ValueError("boxqp_iters must be >= 0")
         ints += (boxqp_iters,)
+    if plan is None:
+        plan = lane_plan(variant, n, m, B, fx.dtype, sms=_sm_count(fx.device))
+    code = _build.DTYPE_CODES[fx.dtype]
+    smem = _kernel_smem_bytes(variant, code, n, m, plan.scenarios)
+    if smem != plan.smem_bytes or smem > SMEM_LIMIT:
+        raise ValueError(f"{entry}: the plan's {plan.smem_bytes} bytes of "
+                         f"shared memory at {(n, m)} are not the kernel's "
+                         f"{smem}, or exceed a block's {SMEM_LIMIT}")
     out = _outputs(T, n, m, B, fx)
     rc = getattr(_build.library(), "tfmpc_" + entry)(
-        _build.DTYPE_CODES[fx.dtype], *ints,
+        code, *ints,
         *(_build.ptr(a) for a in inputs),
         *(_build.ptr(a) for a in out),
-        block, _build.stream(),
+        plan.groups, plan.scenarios, plan.smem_bytes, _build.stream(),
     )
-    _build.check(rc, entry)
+    if rc != 0:
+        _build.check(rc, f"{entry} with {plan.groups} lanes a scenario at "
+                     f"{(n, m)} {fx.dtype}")
     return out
 
 
-def riccati_backward_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT):
-    """Launch K1 on kernel-layout tensors ``[T, entries, B]``.
+def riccati_backward_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, VT, vT,
+                            plan: LanePlan | None = None):
+    """Launch K1 on kernel-layout tensors ``[T, entries, B]`` (with
+    ``plan``, or ``lane_plan``'s).
 
     Returns ``(K [T, m*n, B], k [T, m, B], dV1 [B], dV2 [B], fail [B])``
     with ``fail`` 1.0 on lanes whose Cholesky probe failed.
     """
     global LAUNCHES
-    out = _launch("riccati_backward", (fx, fu, lx, lu, lxx, luu, lux, mu),
-                  (), (), (VT, vT), BLOCK)
+    out = _launch("riccati_backward", "ilqr",
+                  (fx, fu, lx, lu, lxx, luu, lux, mu), (), (), (VT, vT),
+                  plan=plan)
     LAUNCHES += 1
     return out
 
 
 def riccati_backward_boxqp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, ubar,
-                                  lo, hi, VT, vT, boxqp_iters: int = 8):
+                                  lo, hi, VT, vT, boxqp_iters: int = 8,
+                                  plan: LanePlan | None = None):
     """Launch K4 on kernel-layout tensors ``[T, entries, B]``, ``ubar [T, m,
     B]`` and bounds ``lo``/``hi [m]``; outputs as
     ``riccati_backward_kernel``."""
     global BOXQP_LAUNCHES
-    out = _launch("riccati_backward_boxqp",
+    out = _launch("riccati_backward_boxqp", "boxqp",
                   (fx, fu, lx, lu, lxx, luu, lux, mu), (ubar, lo, hi), (),
-                  (VT, vT), BOXQP_BLOCK, boxqp_iters)
+                  (VT, vT), boxqp_iters, plan)
     BOXQP_LAUNCHES += 1
     return out
 
 
 def riccati_backward_ddp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, fxx, fux,
-                                fuu, VT, vT):
+                                fuu, VT, vT, plan: LanePlan | None = None):
     """Launch K6a on kernel-layout tensors ``[T, entries, B]`` with the
     dynamics Hessians ``fxx [T, n*n*n, B]``, ``fux [T, n*m*n, B]``, ``fuu
     [T, n*m*m, B]``; outputs as ``riccati_backward_kernel``."""
     global DDP_LAUNCHES
-    out = _launch("riccati_backward_ddp",
+    out = _launch("riccati_backward_ddp", "ddp",
                   (fx, fu, lx, lu, lxx, luu, lux, mu), (), (fxx, fux, fuu),
-                  (VT, vT), DDP_BLOCK)
+                  (VT, vT), plan=plan)
     DDP_LAUNCHES += 1
     return out
 
 
 def riccati_backward_ddp_boxqp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu,
                                       ubar, lo, hi, fxx, fux, fuu, VT, vT,
-                                      boxqp_iters: int = 8):
+                                      boxqp_iters: int = 8,
+                                      plan: LanePlan | None = None):
     """Launch K6b: K4's inputs plus K6a's Hessians; outputs as
     ``riccati_backward_kernel``."""
     global DDP_BOXQP_LAUNCHES
-    out = _launch("riccati_backward_ddp_boxqp",
+    out = _launch("riccati_backward_ddp_boxqp", "ddp_boxqp",
                   (fx, fu, lx, lu, lxx, luu, lux, mu), (ubar, lo, hi),
-                  (fxx, fux, fuu), (VT, vT), DDP_BOXQP_BLOCK, boxqp_iters)
+                  (fxx, fux, fuu), (VT, vT), boxqp_iters, plan)
     DDP_BOXQP_LAUNCHES += 1
     return out
 
