@@ -11,20 +11,23 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
    float32 matmuls;
 2. build: compile ``tfmpc_tpu_torch/ops/csrc/*.cu`` with nvcc, one process
    per source, all started together (timed); print ptxas's registers and
-   spills per kernel instantiation (each lane kernel's per G), and each
-   lane kernel's launch plan beside the shared bytes the kernel computes
-   for it;
+   spills per kernel instantiation (each lane kernel's per G; K2 and K3 at
+   n = m = 5, 6 and 16), and each lane kernel's and each K2 and K3 launch
+   plan beside the shared bytes the kernel computes for it;
 3. each kernel against its plain PyTorch version on the card, in float32
    and float64: K1 Riccati backward, K2 line-search costs and K3
    accepted-alpha rollout at the navigation headline shapes (B=4096,
    T=100, n=m=2, A=11); K4 boxQP Riccati backward at HVAC-6 (B=2048,
    T=100, n=m=6, 8 boxQP iterations) and once at reservoir-5 (n=m=5); the
-   clipped K2/K3 at HVAC-6 and reservoir-5 shapes. K1 and K4 get lanes
-   forced indefinite (fail masks must be identical). Timed (the lane
-   kernels K1, K4, K6a, K6b as device times of CUDA graph replays: an eager
-   loop of their launches measures the host's Python launch path at the
-   headline's shapes); K4 at HVAC-6 with 1, 2, 4 and 8 lanes a scenario,
-   each held to K4's float32 gate, timed in turns;
+   clipped K2/K3 at HVAC-6 and reservoir-5 shapes, and at the
+   block-ragged batches reservoir-5 B=1023 (T=100) and HVAC-16 B=513
+   (T=50), after checking that their plans leave the last block
+   part-full. K1 and K4 get lanes forced indefinite (fail masks must be
+   identical). Timed (the lane kernels K1, K4, K6a, K6b and K2, K3 as
+   device times of CUDA graph replays: an eager loop of their launches
+   measures the host's Python launch path at the headline's shapes); K4 at
+   HVAC-6 with 1, 2, 4 and 8 lanes a scenario, each held to K4's float32
+   gate, timed in turns;
 4. the navigation headline solve (slice A): ``solve_batch``, T=100,
    B=4096, f32, ``ILQRConfig(atol=1e-4, max_iterations=50,
    use_pallas=True)``; launch counters prove K1/K2/K3 ran and no plain
@@ -119,8 +122,8 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
 23. solves/s of E1 and E2 and a ``torch.profiler`` trace of E1;
 24. slice F (the fused iteration): K8, the materialize rollout that also
     writes the linearization, against its plain version (X, U, J and the
-    seven blocks within ``TOL``) and against K3 on the same inputs (within
-    ``K5_VS_K2K3_RTOL``, printing whether bitwise equal), in float32 and
+    seven blocks within ``TOL``) and against K3 on the same inputs (bit
+    for bit), in float32 and
     float64, at the navigation headline's shapes and bounded navigation's
     (``configs/navigation_bounded.json``, B=256, T=50), lane 0 on the zone
     center; timed;
@@ -141,7 +144,9 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     ``torch.profiler`` trace of one G1 solve.
 
 K5 (the emit-trajectories line search) is checked with the other kernels
-in phase 3, at the slice's shape and at the navigation headline's. Each
+in phase 3, at the slice's shape and at the navigation headline's, and,
+as the bitwise witness of K2 and K3 (its J equal to K2's, its trajectory
+at each lane's alpha equal to K3's), also at HVAC-6's and E1's shapes. Each
 phase prints its seconds. The second-to-last line is a JSON object
 describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -204,11 +209,17 @@ K4_F32_SHARE_SLACK = 0.01
 T_LONG, B_LONG = 500, 1024
 LONG = dict(atol=1e-3, max_iterations=30, boxqp=True, use_pallas=True)
 X0_ACCURACY = [95.0, 80.0, 60.0, 40.0, 20.0]
-# K5 against K2 and K3 (the same arithmetic in another kernel): relative
-# error |got - want| / (|want| + 1). float64: 1e-12. float32: 1e-6, and the
-# script prints whether they are bitwise equal (nvcc may contract
-# multiply-adds differently in two kernels).
-K5_VS_K2K3_RTOL = {"float32": 1e-6, "float64": 1e-12}
+# K5 against K2 and K3, and K8 against K3: the same arithmetic in other
+# kernels (the same policy row, env rows and double sum, in the same
+# order), so their outputs must be bitwise equal in both dtypes; the
+# largest |got - want| / (|want| + 1) is printed beside.
+# K5's witness shapes: phase 3's K5 cases and, for the pairing alone,
+# HVAC-6 (B=2048, T=100) and E1's HVAC-16 (B=512, T=50)
+K5_WITNESS_ONLY = (("hvac6", B_BOX, T), ("hvac16", 512, 50))
+# K2 and K3 at block-ragged batches under their plans (the last block
+# part-full, the copies element by element): reservoir-5 B=1023 at T=100
+# and HVAC-16 B=513 at T=50
+ROLLOUT_RAGGED = (("reservoir5", 1023, 100), ("hvac16", 513, 50))
 # K5 against its plain version: float64 as TOL. float32: over a T=500 chain
 # the two may drift apart on a lane whose rollout is unstable (rounding
 # grows step by step), so both are held against the plain version in
@@ -609,7 +620,7 @@ def check_nav_kernels(dtype, timings, errs):
     ra = rollout.kernel_args(env, X, U, policy)
     n_params = sum(p.numel() for p in ra["params"])
     timings["linesearch_costs"] = (
-        cuda_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), 50),
+        graph_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), 50),
         cuda_ms(lambda: rollout.linesearch_costs(env, X, U, policy, alphas),
                 50),
         cuda_ms(lambda: rollout.linesearch_costs_ref(env, X, U, policy,
@@ -618,7 +629,7 @@ def check_nav_kernels(dtype, timings, errs):
                             False)),
     )
     timings["rollout_alpha"] = (
-        cuda_ms(lambda: rollout.rollout_alpha_kernel(ra, alpha_vec), 50),
+        graph_ms(lambda: rollout.rollout_alpha_kernel(ra, alpha_vec), 50),
         cuda_ms(lambda: rollout.rollout_alpha(env, X, U, policy, alpha_vec),
                 50),
         cuda_ms(lambda: rollout.rollout_alpha_ref(env, X, U, policy,
@@ -773,7 +784,7 @@ def check_clipped_rollouts(name, dtype, timings=None, errs=None, Bn=B_BOX,
     ra = rollout.kernel_args(env, X, U, policy)
     n_params = sum(p.numel() for p in ra["params"])
     timings[costs] = (
-        cuda_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), 20),
+        graph_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), 20),
         cuda_ms(lambda: rollout.linesearch_costs(env, X, U, policy, alphas),
                 20),
         cuda_ms(lambda: rollout.linesearch_costs_ref(env, X, U, policy,
@@ -782,7 +793,7 @@ def check_clipped_rollouts(name, dtype, timings=None, errs=None, Bn=B_BOX,
                             False)),
     )
     timings[alpha] = (
-        cuda_ms(lambda: rollout.rollout_alpha_kernel(ra, alpha_vec), 20),
+        graph_ms(lambda: rollout.rollout_alpha_kernel(ra, alpha_vec), 20),
         cuda_ms(lambda: rollout.rollout_alpha(env, X, U, policy, alpha_vec),
                 20),
         cuda_ms(lambda: rollout.rollout_alpha_ref(env, X, U, policy,
@@ -798,12 +809,15 @@ def rel_err(got, want):
                   / (want.double().abs() + 1.0)).max())
 
 
-def check_k5(case, dtype, timings=None, errs=None):
+def check_k5(case, dtype, timings=None, errs=None, Bn=B_LONG, Tn=T_LONG,
+             witness_only=False):
     """K5 at the slice's shape (``reservoir5``: B=1024, T=500, bounded, the
-    random nominal and policy of ``boxqp_inputs``) or the navigation
-    headline's (B=4096, T=100, unbounded): against K2 and K3 on the same
-    inputs (its J is K2's; the trajectory selected at each lane's alpha is
-    K3's at that alpha), and against its plain version."""
+    random nominal and policy of ``boxqp_inputs``), the navigation
+    headline's (B=4096, T=100, unbounded) or, with ``witness_only``, a
+    bounded env's at (Bn, Tn): against K2 and K3 on the same inputs (its J
+    is K2's; the trajectory selected at each lane's alpha is K3's at that
+    alpha), bit for bit, and (not ``witness_only``) against its plain
+    version."""
     import torch
 
     from tfmpc_tpu_torch.ops import rollout
@@ -814,9 +828,9 @@ def check_k5(case, dtype, timings=None, errs=None):
         env, X, U, _, _, _, _, policy = headline_inputs(dtype, "cuda")
         label, env_name = "K5 navigation", "navigation"
     else:
-        env, X, U, _, _, _, _, policy = boxqp_inputs(case, dtype, B_LONG,
-                                                     T_LONG)
-        label, env_name = f"K5 {case} T={T_LONG}", "reservoir"
+        env, X, U, _, _, _, _, policy = boxqp_inputs(case, dtype, Bn, Tn)
+        label = f"K5 {case} B={Bn} T={Tn}"
+        env_name = "hvac" if case.startswith("hvac") else "reservoir"
     Bn, Tn, n = U.shape
     alphas = ILQRConfig().alphas_static()
     J_k, X_k, U_k = rollout.linesearch_costs_traj(env, X, U, policy, alphas)
@@ -826,17 +840,17 @@ def check_k5(case, dtype, timings=None, errs=None):
     sel = rollout.select_alpha_trajectory(X, X_k, U_k, J_k, best)
     mat = rollout.rollout_alpha(env, X, U, policy, alpha_vec)
     torch.cuda.synchronize()
-    rtol = K5_VS_K2K3_RTOL[dn]
     for what, got, want in (("J vs K2", J_k, J_2),
                             ("selected X vs K3", sel[0], mat[0]),
                             ("selected U vs K3", sel[1], mat[1]),
                             ("selected J vs K3", sel[2], mat[2])):
-        e = rel_err(got, want)
-        print(f"  {label} {what} [{dn}]: bitwise equal "
-              f"{torch.equal(got, want)}, max rel err {e:.3e} (gate "
-              f"{rtol:g})")
-        if not e <= rtol:
-            raise AssertionError(f"{label} {what} [{dn}]: outside {rtol:g}")
+        same = torch.equal(got, want)
+        print(f"  {label} {what} [{dn}]: bitwise equal {same} (gate), max "
+              f"rel err {rel_err(got, want):.3e}")
+        if not same:
+            raise AssertionError(f"{label} {what} [{dn}]: not bitwise equal")
+    if witness_only:
+        return
 
     J_p, X_p, U_p = rollout.linesearch_costs_traj_ref(env, X, U, policy,
                                                       alphas)
@@ -899,7 +913,7 @@ def check_k5(case, dtype, timings=None, errs=None):
         return
     # K2 and K3 at the slice's shape, the two-kernel layout's line search
     timings["linesearch_costs_t500"] = (
-        cuda_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), reps),
+        graph_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), reps),
         cuda_ms(lambda: rollout.linesearch_costs(env, X, U, policy, alphas),
                 reps),
         cuda_ms(lambda: rollout.linesearch_costs_ref(env, X, U, policy,
@@ -908,7 +922,7 @@ def check_k5(case, dtype, timings=None, errs=None):
                             False)),
     )
     timings["rollout_alpha_t500"] = (
-        cuda_ms(lambda: rollout.rollout_alpha_kernel(ra, alpha_vec), reps),
+        graph_ms(lambda: rollout.rollout_alpha_kernel(ra, alpha_vec), reps),
         cuda_ms(lambda: rollout.rollout_alpha(env, X, U, policy, alpha_vec),
                 reps),
         cuda_ms(lambda: rollout.rollout_alpha_ref(env, X, U, policy,
@@ -999,8 +1013,8 @@ def check_k8(case, dtype, timings=None, errs=None):
     where the product over the other zones and the per-zone sum into
     d lambda / dx matter): X, U, J and the seven linearization blocks against its plain
     version within ``TOL``; X, U and J against K3 on the same inputs (the
-    same arithmetic in another kernel) within ``K5_VS_K2K3_RTOL``, printing
-    whether they are bitwise equal; the kernel-layout policy (the fused
+    same arithmetic in another kernel), bit for bit; the kernel-layout
+    policy (the fused
     iteration's ``policy_lane``) gives the same outputs bit for bit."""
     import torch
 
@@ -1037,15 +1051,13 @@ def check_k8(case, dtype, timings=None, errs=None):
     for key in rollout.D_KEYS:
         max_err = max(max_err, compare(f"{label} {key}", out_k[3][key],
                                        out_p[3][key], dn))
-    rtol = K5_VS_K2K3_RTOL[dn]
     for what, got, want in zip(("X", "U", "J"), out_k[:3], out_3):
-        e = rel_err(got, want)
-        print(f"  {label} {what} vs K3 [{dn}]: bitwise equal "
-              f"{torch.equal(got, want)}, max rel err {e:.3e} (gate "
-              f"{rtol:g})")
-        if not e <= rtol:
-            raise AssertionError(f"{label} {what} vs K3 [{dn}]: outside "
-                                 f"{rtol:g}")
+        same = torch.equal(got, want)
+        print(f"  {label} {what} vs K3 [{dn}]: bitwise equal {same} (gate), "
+              f"max rel err {rel_err(got, want):.3e}")
+        if not same:
+            raise AssertionError(f"{label} {what} vs K3 [{dn}]: not bitwise "
+                                 "equal")
     same = all(torch.equal(a, b) for a, b in zip(out_k[:3], out_l[:3])) \
         and all(torch.equal(out_k[3][key], out_l[3][key])
                 for key in rollout.D_KEYS)
@@ -1431,6 +1443,86 @@ def lane_g_sweep(kernel, card):
           + f"; the plan takes G={riccati.LANE_PLANS[variant][n][0]} "
           f"[{card}]")
     return out
+
+
+def rollout_plan_cases():
+    """(label, env, B, T) of every K2/K3 launch shape this script runs,
+    block-ragged ones included."""
+    return [("navigation", None, B, T), ("hvac6", "hvac6", B_BOX, T),
+            ("reservoir5", "reservoir5", B_BOX, T),
+            ("reservoir5 T=500", "reservoir5", B_LONG, T_LONG),
+            ("nav_bounded", "nav_bounded", B_NAV_BOUNDED, T_NAV_BOUNDED),
+            ("e1_hvac16", "hvac16", B_E1, T_E1),
+            ("e2_hvac12", "hvac12", B_E2, T_E2),
+            *((f"{case} B={Bn} (ragged)", case, Bn, Tn)
+              for case, Bn, Tn in ROLLOUT_RAGGED)]
+
+
+def plan_layout(env, Bn, dtype):
+    """What ``rollout.launch_plan`` reads of ``kernel_args`` output, for
+    ``env`` at Bn scenarios."""
+    step, n = env.device_step(), env.state_size
+    return {"dims": (Bn, 1, n, n), "dtype": dtype, "env_id": step.env_id,
+            "params": [p.to(dtype=dtype, device="cuda").contiguous()
+                       for p in step.params],
+            "int_params": step.int_params}
+
+
+def print_rollout_plans(lib):
+    """K2's and K3's launch plans at ``rollout_plan_cases``, beside the
+    shared bytes the kernel computes for them
+    (``tfmpc_rollout_smem_bytes``), which must agree, and the most threads
+    a block of the kernel can launch with."""
+    import torch
+
+    from tfmpc_tpu_torch.models.navigation import make_navigation
+    from tfmpc_tpu_torch.ops import rollout
+
+    for label, case, Bn, _ in rollout_plan_cases():
+        for dtype in (torch.float32, torch.float64):
+            env = (make_navigation(GOAL, ZONES, dtype=dtype, device="cuda")
+                   if case is None else bounded_env(case, dtype))
+            a = plan_layout(env, Bn, dtype)
+            n = env.state_size
+            pe = sum(p.numel() for p in a["params"])
+            for kernel, per in (("costs", A), ("alpha", 1)):
+                p = rollout.launch_plan(a, kernel, A)
+                lib_bytes = lib.tfmpc_rollout_smem_bytes(
+                    0 if dtype == torch.float32 else 1, n, n, p.groups,
+                    p.scenarios, p.depth, pe)
+                print(f"  rollout plan {'K2' if per > 1 else 'K3'} {label} "
+                      f"n=m={n} B={Bn} {dname(dtype)}: {p.groups} lane(s) a "
+                      f"rollout, {p.scenarios} scenario(s) a block "
+                      f"({p.threads(per)} threads of at most "
+                      f"{rollout.kernel_max_threads(kernel, a)}), {p.depth} "
+                      f"step(s) ahead, {p.blocks(Bn)} blocks, "
+                      f"{p.smem_bytes} B shared (kernel: {lib_bytes} B)")
+                if lib_bytes != p.smem_bytes:
+                    raise AssertionError(f"rollout plan {kernel} {label}: "
+                                         "shared bytes disagree with the "
+                                         "kernel's")
+
+
+def check_rollout_ragged(dtype):
+    """K2 and K3 at ``ROLLOUT_RAGGED``'s block-ragged batches, after checking
+    that each plan leaves the last block part-full: against their plain
+    versions within ``TOL`` (``check_clipped_rollouts``)."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+
+    for case, Bn, Tn in ROLLOUT_RAGGED:
+        a = plan_layout(bounded_env(case, dtype), Bn, dtype)
+        for kernel, name in (("costs", "K2"), ("alpha", "K3")):
+            plan = rollout.launch_plan(a, kernel, A)
+            tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
+            print(f"  {name} {case} B={Bn} T={Tn} {dname(dtype)}: "
+                  f"{plan.scenarios} scenarios a block, {tail} in the last "
+                  "block")
+            if plan.scenarios < 2 or tail == plan.scenarios:
+                raise AssertionError(f"{name} {case} B={Bn}: the batch is not "
+                                     "block-ragged under the plan")
+        check_clipped_rollouts(case, dtype, Bn=Bn, Tn=Tn)
 
 
 def check_lane_ragged(dtype):
@@ -2392,13 +2484,15 @@ def profile_solve(run, n_solves=2):
             span / 1e6 / n_solves, top)
 
 
-def print_ptxas(log_text):
+def print_ptxas(log_text, every_rollout=False):
     """ptxas's registers, stack and spills: one line per Riccati kernel
     instantiation (variants Ilqr: K1, Boxqp: K4, Ddp: K6a, DdpBoxqp: K6b;
-    K7's riccati_mid_kernel), one summary line per rollout kernel (K2, K3,
-    K5) and for P1 over its instantiations, and one line per K5
-    instantiation at n = m = 5 and per HVAC rollout instantiation at
-    n = m = 12 and 16."""
+    K7's riccati_mid_kernel), one summary line per rollout kernel
+    (rollout_tile_kernel: K2 where its last argument is true, K3 where
+    false; K5, K8) and for P1 over its instantiations, and one line per K2
+    and K3 instantiation at n = m = 5 and 6, per K5 instantiation at
+    n = m = 5 and per HVAC rollout instantiation at n = m = 12 and 16
+    (``every_rollout``: per rollout instantiation)."""
     entry, rows = None, []
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
@@ -2423,9 +2517,11 @@ def print_ptxas(log_text):
             print(f"  ptxas: {short}: {regs} registers; {stack}")
             continue
         rollout.setdefault(short.split("<")[0], []).append((regs, stack))
-        if ("traj" in short and ", 5, 5," in short) or (
+        if every_rollout or ("traj" in short and ", 5, 5," in short) or (
                 "HVACStep" in short and (", 12, 12," in short
-                                         or ", 16, 16," in short)):
+                                         or ", 16, 16," in short)) or (
+                "tile" in short and (", 5, 5," in short
+                                     or ", 6, 6," in short)):
             print(f"  ptxas: {short}: {regs} registers; {stack}")
     for kernel, insts in sorted(rollout.items()):
         spills = sum(int(s.split(",")[1].split()[0]) for _, s in insts)
@@ -2775,6 +2871,7 @@ def main() -> int:
     lib = _build.library()
     print_mid_plans(lib)
     print_lane_plans(lib)
+    print_rollout_plans(lib)
 
     # -- 3. kernels vs plain versions ---------------------------------------
     timings, errs = {}, {}
@@ -2790,6 +2887,9 @@ def main() -> int:
         for case in ("reservoir5", "navigation"):
             check_k5(case, dtype, *((timings, errs)
                                     if dtype == torch.float32 else ()))
+        for case, Bn, Tn in K5_WITNESS_ONLY:
+            check_k5(case, dtype, Bn=Bn, Tn=Tn, witness_only=True)
+        check_rollout_ragged(dtype)
     check_k4("reservoir5", torch.float32)
     lane_sweeps = {"K4_hvac6": lane_g_sweep("K4", card)}
     phase.done("3. kernels vs plain versions")

@@ -356,3 +356,160 @@ def test_kernel_layout_of_a_linear_env():
         (2,)]
     np.testing.assert_array_equal(a["params"][6].numpy(), [1.0, -1.0])
     np.testing.assert_array_equal(a["lo"].numpy(), [-2.0, -2.0])
+
+
+# -- the launch plans of K2 and K3 -------------------------------------------------
+#
+# ``rollout_plan`` at every kernel dim, both dtypes and batches that fill
+# their last block or leave it ragged, held to a mirror of
+# csrc/rollout.cuh rollout_tile_kernel's index maps: compute thread tid is
+# lane tid % G of rollout tid // G, scenario r % spb at alpha r // spb;
+# lane l computes the rows l, l + G, ... < n; the copies of a step are the
+# last warp's: its thread p puts chunk q = p % cpr of rows p // cpr,
+# + 32 // cpr, ... of the block's tile.
+
+PLAN_BATCHES = (1, 513, 1023, 512, 1024, 2048, 4096)
+PLAN_ENV_PARAMS = {  # (env id, parameter values) of an env at each dim
+    2: (0, 2 + 2 * 2 + 2),       # navigation, two zones
+    3: (1, 3 * 3 + 7 * 3 + 8),   # HVAC-3
+    5: (2, 5 * 5 + 5 * 5 + 4),   # reservoir-5
+    6: (1, 6 * 6 + 7 * 6 + 8),   # HVAC-6
+    12: (1, 12 * 12 + 7 * 12 + 8),
+    16: (1, 16 * 16 + 7 * 16 + 8),
+}
+
+
+def _vec_bytes(spb, B, item):
+    """csrc/rollout.cuh tile_vec_bytes for aligned pointers."""
+    for vb in (16, 8, 4):
+        if item <= vb <= spb * item and B * item % vb == 0:
+            return vb
+    return item
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("n", sorted(n for n, _ in rollout.KERNEL_DIMS))
+@pytest.mark.parametrize("kernel", ["costs", "alpha"])
+def test_rollout_plan_covers_each_row_once(kernel, n, dtype):
+    """Every (scenario, alpha, row) is computed by exactly one lane, every
+    staged (scenario, entry) is copied once into the block's tile and read
+    inside it; the threads and shared bytes fit the H100 and equal the
+    plan's sums; G is the one the sources instantiate."""
+    import re
+    from pathlib import Path
+
+    source = (Path(rollout.__file__).parent / "csrc"
+              / "rollout.cuh").read_text()
+    env_id, params = PLAN_ENV_PARAMS[n]
+    A = len(ALPHAS)
+    per = A if kernel == "costs" else 1
+    item = 4 if dtype == torch.float32 else 8
+    entries = n + 2 * n + n * n
+    for Bb in PLAN_BATCHES:
+        plan = rollout.rollout_plan(kernel, env_id, n, n, Bb, A, dtype,
+                                    params)
+        G, spb = plan.groups, plan.scenarios
+        assert f"{{{'true' if kernel == 'costs' else 'false'}, {n}, {G}}}" \
+            in re.sub(r"\s+", " ", source)
+        assert spb & (spb - 1) == 0 and 1 <= spb <= rollout.TILE_MAX_SPB
+        # the largest power of two at most B over the table's blocks, or
+        # the largest that fits the block's threads and shared memory
+        blocks = rollout.ROLLOUT_PLANS[kernel][n][1]
+        capped = spb == rollout.TILE_MAX_SPB or -(
+            -2 * spb * per * G // 32) * 32 + 32 > rollout.TILE_MAX_THREADS \
+            or rollout.rollout_smem_bytes(n, n, G, 2 * spb, plan.depth,
+                                          params, dtype) > rollout.SMEM_LIMIT
+        assert spb <= -(-Bb // blocks) and (2 * spb > -(-Bb // blocks)
+                                            or capped)
+        threads = plan.threads(per)
+        assert threads % 32 == 0 and threads <= rollout.TILE_MAX_THREADS
+        assert plan.smem_bytes <= rollout.SMEM_LIMIT
+        assert plan.smem_bytes == rollout.rollout_smem_bytes(
+            n, n, G, spb, plan.depth, params, dtype)
+        st = rollout.tile_stride(spb, G, item)
+        assert st >= spb
+        tid = np.arange(threads - 32)  # the compute warps
+        lane, roll = tid % G, tid // G
+        s, ai = roll % spb, roll // spb
+        blk = np.arange(plan.blocks(Bb))[:, None]
+        b = blk * spb + s
+        live = (ai < per) & (b < Bb)
+        rows = np.zeros((Bb, per, n), dtype=int)
+        for r in range(-(-n // G)):
+            i = np.broadcast_to(lane + G * r, b.shape)
+            ok = live & (i < n)
+            np.add.at(rows, (b[ok], np.broadcast_to(ai, b.shape)[ok], i[ok]),
+                      1)
+        assert (rows == 1).all(), (kernel, n, Bb)
+        ve = _vec_bytes(spb, Bb, item) // item
+        cpr = spb // ve
+        tid = np.arange(32)  # the copying warp
+        q = tid % cpr
+        # thread tid copies entries e = tid // cpr + k * (32 // cpr)
+        e = tid[:, None] // cpr + np.arange(entries)[None, :] * (32 // cpr)
+        mine = e < entries
+        ek = e - 3 * n
+        row = np.where(e < 3 * n, e, 3 * n + ek % n * n + ek // n)
+        assert (row[mine] < entries).all() and (q * ve + ve <= st).all()
+        assert sorted(row[mine]) == sorted(e[mine])  # a permutation
+        staged = np.zeros((plan.blocks(Bb) * spb, entries), dtype=int)
+        bq = blk * spb + q * ve                        # [blocks, threads]
+        for j in range(ve):                            # a chunk's values
+            cols = np.broadcast_to((bq + j)[:, :, None], bq.shape
+                                   + (entries,))
+            ents = np.broadcast_to(e[None], cols.shape)
+            take = np.broadcast_to(mine[None], cols.shape) \
+                & np.broadcast_to((bq < Bb)[:, :, None], cols.shape)
+            np.add.at(staged, (cols[take], ents[take]), 1)
+        assert (staged[:Bb] == 1).all() and not staged[Bb:].any(), (
+            kernel, n, Bb)
+
+
+def test_a_rollout_plan_exists_for_every_kernel_dim():
+    """``rollout_plan`` gives a plan for every (n, m) that ``kernel_layout``
+    accepts (the HVAC step alone at the mid dims) and refuses the rest."""
+    for n, m in sorted(rollout.KERNEL_DIMS):
+        env_id, params = PLAN_ENV_PARAMS[n]
+        for kernel in ("costs", "alpha"):
+            for dtype in (torch.float32, torch.float64):
+                assert rollout.rollout_plan(kernel, env_id, n, m, 1024,
+                                            len(ALPHAS), dtype, params)
+    with pytest.raises(NotImplementedError):
+        rollout.rollout_plan("costs", 2, 16, 16, 1024, 11, torch.float32, 400)
+    with pytest.raises(NotImplementedError):
+        rollout.rollout_plan("alpha", 1, 4, 4, 1024, 11, torch.float32, 52)
+
+
+@pytest.mark.parametrize("name", ["navigation", "hvac", "reservoir",
+                                  "linear"])
+def test_rollout_param_elems_match_the_env(name):
+    """The parameter values a tile block copies into shared memory
+    (csrc/envs.cuh ``param_elems``) are the env's device_step parameters,
+    element for element: the plan's shared bytes count them."""
+    from tfmpc_tpu_torch.models.hvac import make_hvac
+    from tfmpc_tpu_torch.models.linear import make_linear_system
+    from tfmpc_tpu_torch.models.reservoir import make_reservoir
+
+    kw = dict(dtype=torch.float64, device="cpu")
+    if name == "navigation":
+        env = make_navigation([8.0, -5.0], {"center": [[3.0, -2.0],
+                                                       [1.0, 1.0]],
+                                            "decay": [2.0, 1.0]}, **kw)
+        n, zones = 2, 2
+        want = n + zones * n + zones
+    elif name == "hvac":
+        env = make_hvac([[0, 1, 0], [1, 0, 1], [0, 1, 0]], **kw)
+        n = 3
+        want = n * n + 7 * n + 8
+    elif name == "reservoir":
+        env = make_reservoir(5, **kw)
+        n = 5
+        want = n * n + 5 * n + 4
+    else:
+        env = make_linear_system([[1.0, 0.1], [0.0, 1.0]],
+                                 [[0.005, 0.0], [0.1, 0.05]], **kw)
+        n = 2
+        want = 3 * n * n + 2 * n * n + n * n + 3 * n + n
+    step = env.device_step()
+    assert sum(p.numel() for p in step.params) == want

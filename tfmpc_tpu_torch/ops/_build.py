@@ -61,18 +61,19 @@ _SIGNATURES = {
     # P1 (row_matmul.cu): dtype, d, B, A, M, C, tile rows, tile columns,
     # stream
     "tfmpc_row_matmul": [_I] * 3 + [_P] * 3 + [_I, _I, _P],
-    # dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi (null: unbounded),
-    # alphas (host f64), A, params (host void*[]), n_params, int_params
-    # (host int[]), n_int, J, block, stream
+    # K2: dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi (null:
+    # unbounded), alphas (host f64), A, params (host void*[]), n_params,
+    # int_params (host int[]), n_int, J, then the plan (lanes a rollout,
+    # scenarios a block, steps staged ahead, shared bytes) and the stream
     "tfmpc_linesearch_costs": [_I] * 6 + [_P] * 7 + [_I, _P, _I, _P, _I]
-    + [_P, _I, _P],
-    # as tfmpc_linesearch_costs, with J, X, U before block and stream
+    + [_P, _I, _I, _I, _LL, _P],
+    # K5: as K2 up to J, then X, U, block and stream
     "tfmpc_linesearch_costs_traj": [_I] * 6 + [_P] * 7
     + [_I, _P, _I, _P, _I] + [_P] * 3 + [_I, _P],
-    # dtype, env, n, m, T, B, alpha, xbar, ubar, K, k, lo, hi, params,
-    # n_params, int_params, n_int, X, U, J, block, stream
+    # K3: dtype, env, n, m, T, B, alpha, xbar, ubar, K, k, lo, hi, params,
+    # n_params, int_params, n_int, X, U, J, the plan as K2's, stream
     "tfmpc_rollout_alpha": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
-    + [_P] * 3 + [_I, _P],
+    + [_P] * 3 + [_I, _I, _I, _LL, _P],
     # K8 (rollout_derivs.cu): as tfmpc_rollout_alpha, with lin (host
     # void*[7]: fx, fu, lx, lu, lxx, luu, lux) after J
     "tfmpc_rollout_alpha_derivs": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
@@ -184,6 +185,13 @@ def library() -> ctypes.CDLL:
     # box, ddp, dtype, n, m, scenarios per block
     lib.tfmpc_riccati_lane_smem_bytes.argtypes = [_I] * 6
     lib.tfmpc_riccati_lane_smem_bytes.restype = ctypes.c_longlong
+    # dtype, n, m, lanes a rollout, scenarios a block, depth, param values
+    lib.tfmpc_rollout_smem_bytes.argtypes = [_I] * 7
+    lib.tfmpc_rollout_smem_bytes.restype = ctypes.c_longlong
+    # costs, dtype, env, n, m, lanes a rollout, params, n_params,
+    # int_params, n_int
+    lib.tfmpc_rollout_max_threads.argtypes = [_I] * 6 + [_P, _I, _P, _I]
+    lib.tfmpc_rollout_max_threads.restype = ctypes.c_int
     return lib
 
 

@@ -30,6 +30,15 @@ __device__ __forceinline__ double dnan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
+template <typename S>
+__device__ __forceinline__ S dinf();
+template <>
+__device__ __forceinline__ float dinf<float>() { return __int_as_float(0x7f800000); }
+template <>
+__device__ __forceinline__ double dinf<double>() {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
 // clip that keeps NaN, as jnp.clip and torch.clamp do (fminf/fmaxf would
 // return the bound for a NaN value)
 template <typename S>

@@ -6,6 +6,15 @@
 // that also has derivatives() (navigation's, named by the env's
 // device_derivatives()) runs in K8, the rollout that writes the
 // linearization of its trajectory.
+//
+// Each functor's step is split for the rollout tile kernels (rollout.cuh),
+// which spread a step's rows over a group of lanes: stage_cost(x, u) (the
+// cost at the PRE-step state), prep(x) (what every row shares, computed
+// alike by every lane) and row(pre, i, x, u, x_i, u_i) (row i of the next
+// state). step() is the loop of row() over i after stage_cost() and
+// prep(), the same arithmetic in the same order. param_elems() and
+// each_param() list the parameter arrays, so a kernel can copy them into
+// shared memory once a block and point the functor at the copy.
 #pragma once
 
 #include "common.cuh"
@@ -44,6 +53,7 @@ struct LinOut {
 // Parameters (device pointers): goal [N], centers [Z, N], decays [Z].
 template <typename S, int N>
 struct NavigationStep {
+  static constexpr int kId = kNavigation;
   const S* __restrict__ goal;
   const S* __restrict__ centers;
   const S* __restrict__ decays;
@@ -59,16 +69,48 @@ struct NavigationStep {
     return c;
   }
 
+  template <int M>
+  __host__ __device__ int param_elems() const {
+    return N + zones * N + zones;
+  }
+  template <int M, class F>
+  __device__ __forceinline__ void each_param(F&& f) {
+    f(goal, N);
+    f(centers, zones * N);
+    f(decays, zones);
+  }
+
+  template <int M>
+  __device__ __forceinline__ S stage_cost(const S (&x)[N],
+                                          const S (&)[M]) const {
+    return final_cost(x);
+  }
+
+  // the deceleration lam(x), shared by every row
+  struct Pre {
+    S lam;
+  };
+  __device__ __forceinline__ Pre prep(const S (&x)[N]) const {
+    S lam = 1;
+    for (int z = 0; z < zones; ++z) lam = lam * factor(x, z);
+    return Pre{lam};
+  }
+
+  template <int M>
+  __device__ __forceinline__ S row(const Pre& p, int, const S (&)[N],
+                                   const S (&)[M], S xi, S ui) const {
+    return xi + p.lam * ui;
+  }
+
   // Returns the stage cost at x and writes the next state.
   template <int M>
   __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
                                     S (&x_next)[N]) const {
     static_assert(M == N, "navigation actions have the state's size");
-    const S cost = final_cost(x);
-    S lam = 1;
-    for (int z = 0; z < zones; ++z) lam = lam * factor(x, z);
+    const S cost = stage_cost<M>(x, u);
+    const Pre p = prep(x);
 #pragma unroll
-    for (int i = 0; i < N; ++i) x_next[i] = x[i] + lam * u[i];
+    for (int i = 0; i < N; ++i) x_next[i] = row<M>(p, i, x, u, x[i], u[i]);
     return cost;
   }
 
@@ -147,6 +189,7 @@ struct NavigationStep {
 // temp_air, air_cap, cost_air, penalty, setpoint_weight, time_delta.
 template <typename S, int N>
 struct HVACStep {
+  static constexpr int kId = kHVAC;
   const S* __restrict__ cond;
   const S* __restrict__ cond_rowsum;
   const S* __restrict__ k_out;
@@ -177,29 +220,70 @@ struct HVACStep {
     return *penalty * comfort + *setpoint_weight * setpoint;
   }
 
+  template <int M>
+  __host__ __device__ int param_elems() const {
+    return N * N + 7 * N + 8;
+  }
+  template <int M, class F>
+  __device__ __forceinline__ void each_param(F&& f) {
+    f(cond, N * N);
+    f(cond_rowsum, N);
+    f(k_out, N);
+    f(k_hall, N);
+    f(capacity, N);
+    f(temp_low, N);
+    f(temp_high, N);
+    f(temp_mid, N);
+    f(temp_out, 1);
+    f(temp_hall, 1);
+    f(temp_air, 1);
+    f(air_cap, 1);
+    f(cost_air, 1);
+    f(penalty, 1);
+    f(setpoint_weight, 1);
+    f(time_delta, 1);
+  }
+
+  template <int M>
+  __device__ __forceinline__ S stage_cost(const S (&x)[N],
+                                          const S (&u)[M]) const {
+    S air = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) air += u[i];
+    return *cost_air * air + final_cost(x);
+  }
+
+  // the scalar temperatures and rates every row reads
+  struct Pre {
+    S ta, ka, to, th, dt;
+  };
+  __device__ __forceinline__ Pre prep(const S (&)[N]) const {
+    return Pre{*temp_air, *air_cap, *temp_out, *temp_hall, *time_delta};
+  }
+
+  template <int M>
+  __device__ __forceinline__ S row(const Pre& p, int i, const S (&x)[N],
+                                   const S (&)[M], S xi, S ui) const {
+    const S heat = ui * p.ka * (p.ta - xi);
+    S exch = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) exch += cond[i * N + j] * x[j];
+    exch = exch - xi * cond_rowsum[i];
+    const S leak_out = k_out[i] * (p.to - xi);
+    const S leak_hall = k_hall[i] * (p.th - xi);
+    const S dT = (heat + exch + leak_out + leak_hall) / capacity[i];
+    return xi + p.dt * dT;
+  }
+
   // Returns the stage cost at x and writes the next state.
   template <int M>
   __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
                                     S (&x_next)[N]) const {
     static_assert(M == N, "HVAC has one control per room");
-    S air = 0;
+    const S cost = stage_cost<M>(x, u);
+    const Pre p = prep(x);
 #pragma unroll
-    for (int i = 0; i < N; ++i) air += u[i];
-    const S cost = *cost_air * air + final_cost(x);
-    const S ta = *temp_air, ka = *air_cap, to = *temp_out, th = *temp_hall;
-    const S dt = *time_delta;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const S heat = u[i] * ka * (ta - x[i]);
-      S exch = 0;
-#pragma unroll
-      for (int j = 0; j < N; ++j) exch += cond[i * N + j] * x[j];
-      exch = exch - x[i] * cond_rowsum[i];
-      const S leak_out = k_out[i] * (to - x[i]);
-      const S leak_hall = k_hall[i] * (th - x[i]);
-      const S dT = (heat + exch + leak_out + leak_hall) / capacity[i];
-      x_next[i] = x[i] + dt * dT;
-    }
+    for (int i = 0; i < N; ++i) x_next[i] = row<M>(p, i, x, u, x[i], u[i]);
     return cost;
   }
 };
@@ -215,6 +299,7 @@ struct HVACStep {
 // setpoint_weight (0-d).
 template <typename S, int N>
 struct ReservoirStep {
+  static constexpr int kId = kReservoir;
   const S* __restrict__ downstream;
   const S* __restrict__ max_capacity;
   const S* __restrict__ rain;
@@ -239,21 +324,56 @@ struct ReservoirStep {
     return c;
   }
 
+  template <int M>
+  __host__ __device__ int param_elems() const {
+    return N * N + 5 * N + 4;
+  }
+  template <int M, class F>
+  __device__ __forceinline__ void each_param(F&& f) {
+    f(downstream, N * N);
+    f(max_capacity, N);
+    f(rain, N);
+    f(evap_factor, 1);
+    f(lower_bound, N);
+    f(upper_bound, N);
+    f(mid, N);
+    f(low_penalty, 1);
+    f(high_penalty, 1);
+    f(setpoint_weight, 1);
+  }
+
+  template <int M>
+  __device__ __forceinline__ S stage_cost(const S (&x)[N],
+                                          const S (&)[M]) const {
+    return final_cost(x);
+  }
+
+  struct Pre {
+    S e;
+  };
+  __device__ __forceinline__ Pre prep(const S (&)[N]) const {
+    return Pre{*evap_factor};
+  }
+
+  template <int M>
+  __device__ __forceinline__ S row(const Pre& p, int i, const S (&)[N],
+                                   const S (&u)[M], S xi, S ui) const {
+    const S evap = p.e * dsin(xi / max_capacity[i]) * xi;
+    S inflow = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) inflow += u[j] * downstream[j * N + i];
+    return xi + rain[i] - evap - ui + inflow;
+  }
+
   // Returns the stage cost at x and writes the next state.
   template <int M>
   __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
                                     S (&x_next)[N]) const {
     static_assert(M == N, "one release per reservoir");
-    const S cost = final_cost(x);
-    const S e = *evap_factor;
+    const S cost = stage_cost<M>(x, u);
+    const Pre p = prep(x);
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const S evap = e * dsin(x[i] / max_capacity[i]) * x[i];
-      S inflow = 0;
-#pragma unroll
-      for (int j = 0; j < N; ++j) inflow += u[j] * downstream[j * N + i];
-      x_next[i] = x[i] + rain[i] - evap - u[i] + inflow;
-    }
+    for (int i = 0; i < N; ++i) x_next[i] = row<M>(p, i, x, u, x[i], u[i]);
     return cost;
   }
 };
@@ -267,6 +387,7 @@ struct ReservoirStep {
 // N [N, M], q [N], r [M], Q_f [N, N], q_f [N], row-major.
 template <typename S, int N>
 struct LinearStep {
+  static constexpr int kId = kLinear;
   const S* __restrict__ A;
   const S* __restrict__ B;
   const S* __restrict__ c;
@@ -290,19 +411,51 @@ struct LinearStep {
     return cost;
   }
 
+  template <int M>
+  __host__ __device__ int param_elems() const {
+    return 3 * N * N + 2 * N * M + M * M + 3 * N + M;
+  }
+  template <int M, class F>
+  __device__ __forceinline__ void each_param(F&& f) {
+    f(A, N * N);
+    f(B, N * M);
+    f(c, N);
+    f(Q, N * N);
+    f(R, M * M);
+    f(Nx, N * M);
+    f(q, N);
+    f(r, M);
+    f(Q_f, N * N);
+    f(q_f, N);
+  }
+
+  struct Pre {};
+  __device__ __forceinline__ Pre prep(const S (&)[N]) const { return Pre{}; }
+
+  template <int M>
+  __device__ __forceinline__ S row(const Pre&, int i, const S (&x)[N],
+                                   const S (&u)[M], S, S) const {
+    S xi = c[i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) xi = xi + A[i * N + j] * x[j];
+#pragma unroll
+    for (int a = 0; a < M; ++a) xi = xi + B[i * M + a] * u[a];
+    return xi;
+  }
+
   // Returns the stage cost at (x, u) and writes the next state.
   template <int M>
   __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
                                     S (&x_next)[N]) const {
+    const Pre p = prep(x);
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      S xi = c[i];
-#pragma unroll
-      for (int j = 0; j < N; ++j) xi = xi + A[i * N + j] * x[j];
-#pragma unroll
-      for (int a = 0; a < M; ++a) xi = xi + B[i * M + a] * u[a];
-      x_next[i] = xi;
-    }
+    for (int i = 0; i < N; ++i) x_next[i] = row<M>(p, i, x, u, x[i], u[i]);
+    return stage_cost<M>(x, u);
+  }
+
+  template <int M>
+  __device__ __forceinline__ S stage_cost(const S (&x)[N],
+                                          const S (&u)[M]) const {
     S cost = 0;
 #pragma unroll
     for (int i = 0; i < N; ++i) {

@@ -6,66 +6,111 @@
 namespace tfmpc {
 namespace {
 
-int costs_entry(int dtype, int env, int n, int m, int T, int B,
-                const void* xbar, const void* ubar, const void* K,
-                const void* k, const void* lo, const void* hi,
-                const double* alphas, int A, const void* const* params,
-                int n_params, const int* int_params, int n_int_params,
-                void* J, void* X, void* U, int block, void* stream) {
-  if (A < 1 || A > kMaxAlphas || T < 1 || (lo == nullptr) != (hi == nullptr))
+bool valid_plan(const TilePlan& p) {
+  return p.spb >= 1 && p.spb <= kTileMaxSpb && (p.spb & (p.spb - 1)) == 0 &&
+         p.depth >= 1 && p.depth <= kTileMaxDepth;
+}
+
+int rollout_entry(const RolloutCall& c) {
+  if (c.T < 1 || (c.lo == nullptr) != (c.hi == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = n != m     ? &costs_dims<SmallDims>
-             : n == 12  ? &costs_n12
-             : n == 16  ? &costs_n16
-                        : &costs_dims<SmallDims>;
-  return run(dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi, alphas, A,
-             params, n_params, int_params, n_int_params, J, X, U, block, s);
+  if (c.kind != kAlphaK3 && (c.A < 1 || c.A > kMaxAlphas))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (c.kind != kTrajK5 && !valid_plan(c.plan))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (c.B <= 0 && c.max_threads == nullptr) return 0;
+  auto run = c.n != c.m     ? &rollout_dims<SmallDims>
+             : c.n == 12    ? &rollout_n12
+             : c.n == 16    ? &rollout_n16
+                            : &rollout_dims<SmallDims>;
+  return run(c);
 }
 
 }  // namespace
 }  // namespace tfmpc
 
+using tfmpc::RolloutCall;
+using tfmpc::TilePlan;
+
+// K2: J [A, B] with the launch plan (groups, spb, depth, shared bytes).
 extern "C" int tfmpc_linesearch_costs(
     int dtype, int env, int n, int m, int T, int B, const void* xbar,
     const void* ubar, const void* K, const void* k, const void* lo,
     const void* hi, const double* alphas, int A, const void* const* params,
     int n_params, const int* int_params, int n_int_params, void* J,
-    int block, void* stream) {
-  return tfmpc::costs_entry(dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
-                            alphas, A, params, n_params, int_params,
-                            n_int_params, J, nullptr, nullptr, block, stream);
+    int groups, int spb, int depth, long long smem_bytes, void* stream) {
+  return tfmpc::rollout_entry(RolloutCall{
+      tfmpc::kCostsK2, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+      alphas, A, nullptr, params, n_params, int_params, n_int_params, J,
+      nullptr, nullptr, TilePlan{groups, spb, depth, smem_bytes}, 0,
+      static_cast<cudaStream_t>(stream), nullptr});
 }
 
+// K5: J [A, B], X [T, A*n, B], U [T, A*m, B], ``block`` threads a block.
 extern "C" int tfmpc_linesearch_costs_traj(
     int dtype, int env, int n, int m, int T, int B, const void* xbar,
     const void* ubar, const void* K, const void* k, const void* lo,
     const void* hi, const double* alphas, int A, const void* const* params,
     int n_params, const int* int_params, int n_int_params, void* J, void* X,
     void* U, int block, void* stream) {
-  if (X == nullptr || U == nullptr)
+  if (X == nullptr || U == nullptr || block < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return tfmpc::costs_entry(dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
-                            alphas, A, params, n_params, int_params,
-                            n_int_params, J, X, U, block, stream);
+  return tfmpc::rollout_entry(RolloutCall{
+      tfmpc::kTrajK5, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+      alphas, A, nullptr, params, n_params, int_params, n_int_params, J, X,
+      U, TilePlan{}, block, static_cast<cudaStream_t>(stream), nullptr});
 }
 
+// K3: X [T, n, B], U [T, m, B], J [B] at each scenario's alpha [B], with
+// the launch plan.
 extern "C" int tfmpc_rollout_alpha(
     int dtype, int env, int n, int m, int T, int B, const void* alpha,
     const void* xbar, const void* ubar, const void* K, const void* k,
     const void* lo, const void* hi, const void* const* params, int n_params,
     const int* int_params, int n_int_params, void* X, void* U, void* J,
-    int block, void* stream) {
-  using namespace tfmpc;
-  if (T < 1 || (lo == nullptr) != (hi == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = n != m     ? &alpha_dims<SmallDims>
-             : n == 12  ? &alpha_n12
-             : n == 16  ? &alpha_n16
-                        : &alpha_dims<SmallDims>;
-  return run(dtype, env, n, m, T, B, alpha, xbar, ubar, K, k, lo, hi, params,
-             n_params, int_params, n_int_params, X, U, J, block, s);
+    int groups, int spb, int depth, long long smem_bytes, void* stream) {
+  if (alpha == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return tfmpc::rollout_entry(RolloutCall{
+      tfmpc::kAlphaK3, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+      nullptr, 1, alpha, params, n_params, int_params, n_int_params, J, X, U,
+      TilePlan{groups, spb, depth, smem_bytes}, 0,
+      static_cast<cudaStream_t>(stream), nullptr});
+}
+
+// The most threads a K2 (costs != 0) or K3 block can launch with at the
+// env's step, dims, dtype and G: the kernel's registers bound it (at most
+// 1024), so the plan keeps its blocks within it. A negative value is an
+// error code (an unknown env or dims, or a G not instantiated).
+extern "C" int tfmpc_rollout_max_threads(int costs, int dtype, int env,
+                                         int n, int m, int groups,
+                                         const void* const* params,
+                                         int n_params, const int* int_params,
+                                         int n_int_params) {
+  int max_threads = 0;
+  const int rc = tfmpc::rollout_entry(RolloutCall{
+      costs ? tfmpc::kCostsK2 : tfmpc::kAlphaK3, dtype, env, n, m, 1, 1,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
+      nullptr, params, n_params, int_params, n_int_params, nullptr, nullptr,
+      nullptr, TilePlan{groups, 1, 1, 0}, 0, nullptr, &max_threads});
+  return rc != 0 ? -rc : max_threads;
+}
+
+#ifdef TFMPC_ROLLOUT_CLOCKS
+unsigned long long* tfmpc::tile_clocks = nullptr;
+
+// Where the tile kernels add their phase clocks (device, 8 counters;
+// null: nowhere). Only in the TFMPC_ROLLOUT_CLOCKS build.
+extern "C" void tfmpc_rollout_clocks_buffer(void* clocks) {
+  tfmpc::tile_clocks = static_cast<unsigned long long*>(clocks);
+}
+#endif
+
+// The dynamic shared bytes of a K2 or K3 block (rollout.cuh
+// tile_smem_bytes) for an env with ``param_elems`` parameter values: what
+// a launch requires of its plan, so the wrapper can check its own sum.
+extern "C" long long tfmpc_rollout_smem_bytes(int dtype, int n, int m,
+                                              int groups, int spb, int depth,
+                                              int param_elems) {
+  return tfmpc::tile_smem_bytes(dtype == tfmpc::kFloat64 ? 8 : 4, n, m,
+                                groups, spb, depth, param_elems);
 }

@@ -1,6 +1,7 @@
-// Warp-level helpers of the kernels that give each scenario a team of one
-// or a few warps (riccati_mid.cu): asynchronous element copies into shared
-// memory, a named barrier over a team, and warp reductions.
+// Warp-level helpers of the kernels that give a scenario several lanes or
+// warps (riccati_mid.cu, riccati_kernel.cuh, rollout.cuh): asynchronous
+// copies into shared memory, a named barrier over a team, and warp
+// reductions.
 #pragma once
 
 #include "common.cuh"
@@ -9,8 +10,8 @@ namespace tfmpc {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Copy one element of kBytes (4 or 8) from device to shared memory without
-// holding a register; completes at cp_async_wait_all.
+// Copy kBytes (4, 8 or 16, aligned to it) from device to shared memory
+// without holding a register; completes at cp_async_wait_all.
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -33,6 +34,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // latest): the group before it has landed.
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Wait until at most ``pending`` (0..7) groups of this thread's copies
+// are in flight: the groups committed before them have landed.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
 }
 
 // Barrier ``id`` (1..15; 0 is __syncthreads') over ``threads`` threads,

@@ -19,12 +19,16 @@ raise; on CPU tensors they run the plain PyTorch versions
 ``linesearch_costs_traj_ref`` / ``rollout_alpha_derivs_ref``. The module
 counts kernel launches and plain-version calls per wrapper. A bounded
 env's controls are clipped to its box after the affine law, in the
-kernels as in the plain versions.
+kernels as in the plain versions. K2 and K3 launch with a plan
+(``rollout_plan``: the lanes a rollout, the scenarios a block, the steps
+staged ahead and the shared bytes); K5 and K8 with a block size.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Sequence
 
 import torch
@@ -51,10 +55,158 @@ HVAC_ONLY_DIMS = {(12, 12), (16, 16)}
 # navigation step, the only env with a device linearization
 DERIVS_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
 MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cuh)
-BLOCK = 128
+TRAJ_BLOCK = 128  # K5: one thread per (scenario, alpha)
 DERIVS_BLOCK = 32  # K8: one thread per scenario, spread as K1 (rollout.cuh)
+# The launch plans of K2 ("costs") and K3 ("alpha"), ``rollout_plan``. A
+# block holds ``spb`` scenarios (K2: each with all A alphas) and a rollout
+# runs on G consecutive lanes (csrc/rollout.cuh rollout_tile_kernel): lane
+# l computes the control and next-state rows l, l + G, ...; one more warp
+# copies D steps of inputs ahead into shared memory. ROLLOUT_PLANS gives,
+# per kernel and dim, (G, the blocks a launch aims at, D): the fastest
+# plan of ``tools/kernel_versions.py rollout --sweep`` on one H100 at the
+# paths' shapes (PERF.md section 6), its blocks kept at other batches.
+# The G of each entry is the one the sources instantiate (csrc/rollout.cuh
+# kPlanGroups), so another G raises at launch.
+ROLLOUT_PLANS = {
+    "costs": {2: (1, 512, 2), 3: (1, 512, 2), 5: (4, 128, 2),
+              6: (2, 512, 2), 12: (4, 256, 2), 16: (2, 128, 2)},
+    "alpha": {2: (2, 512, 2), 3: (4, 512, 2), 5: (8, 256, 2),
+              6: (8, 512, 2), 12: (4, 256, 2), 16: (16, 128, 2)},
+}
+TILE_MAX_THREADS = 1024  # csrc/rollout.cuh kTileMaxThreads
+TILE_MAX_SPB = 32
+TILE_MAX_DEPTH = 6
+SMEM_LIMIT = 232448  # a block's shared memory on the H100
+_ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 # K8's linearization blocks, in the order of its C entry
 D_KEYS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux")
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutPlan:
+    """A K2 or K3 launch: ``groups`` lanes a rollout, ``scenarios`` a
+    block, ``depth`` steps staged ahead, and the block's dynamic shared
+    bytes, which the C side recomputes and must equal. Rollout r of a block
+    is scenario ``r % scenarios`` at alpha ``r // scenarios`` (K2; K3 has
+    one rollout a scenario) on threads ``r * groups`` to ``+ groups - 1``;
+    the compute threads are whole warps, and one more warp copies the
+    inputs."""
+
+    groups: int
+    scenarios: int
+    depth: int
+    smem_bytes: int
+
+    def threads(self, rollouts_per_scenario: int = 1) -> int:
+        return -(-self.scenarios * rollouts_per_scenario * self.groups
+                 // 32) * 32 + 32
+
+    def blocks(self, B: int) -> int:
+        return -(-B // self.scenarios)
+
+
+def tile_stride(spb: int, groups: int, itemsize: int) -> int:
+    """The ring's row stride in values (csrc/rollout.cuh tile_stride): spb,
+    or an odd multiple of the rollouts a warp where that keeps a group's
+    reads of consecutive rows on distinct banks and the 16-byte copies
+    aligned."""
+    w = 32 // groups
+    vmax = min(spb, 16 // itemsize)
+    if groups == 1 or spb <= w or w % vmax:
+        return spb
+    return spb + w
+
+
+def rollout_smem_bytes(n: int, m: int, groups: int, spb: int, depth: int,
+                       param_elems: int, dtype) -> int:
+    """A K2/K3 block's shared bytes (csrc/rollout.cuh tile_smem_bytes): the
+    env's ``param_elems`` parameter values and the box, rounded to 16
+    bytes, then ``depth + 2`` staged steps of ``n + 2m + nm`` rows."""
+    item = _ITEMSIZE[dtype]
+    chunk = 16 // item
+    par = -(-(param_elems + 2 * m) // chunk) * chunk
+    rows = n + 2 * m + n * m
+    return (par + (depth + 2) * rows * tile_stride(spb, groups, item)) * item
+
+
+@functools.cache
+def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
+                 dtype, param_elems: int, groups: int | None = None,
+                 scenarios: int | None = None, depth: int | None = None,
+                 max_threads: int = TILE_MAX_THREADS) -> RolloutPlan:
+    """The launch plan of K2 (``kernel="costs"``, A alphas) or K3
+    (``"alpha"``) at (n, m) for B scenarios of the env ``env_id`` with
+    ``param_elems`` parameter values: ``ROLLOUT_PLANS``' G and depth and
+    the largest power of two of scenarios a block that does not exceed B
+    over the table's blocks, at most ``TILE_MAX_SPB``, ``max_threads``
+    threads (``kernel_max_threads``: the kernel's registers bound it) and
+    ``SMEM_LIMIT`` shared bytes. ``groups``, ``scenarios`` and ``depth``
+    override the table (the sweep's plans)."""
+    if (n, m) not in KERNEL_DIMS:
+        raise NotImplementedError(
+            f"the rollout kernels take (n, m) in {sorted(KERNEL_DIMS)}, got "
+            f"{(n, m)}")
+    if (n, m) in HVAC_ONLY_DIMS and env_id != HVAC_STEP_ID:
+        raise NotImplementedError(
+            f"the rollout kernels run only the HVAC step at (n, m) = {(n, m)}")
+    G, blocks, D = ROLLOUT_PLANS[kernel][n]
+    G, D = groups or G, depth or D
+    if G not in (1, 2, 4, 8, 16) or not 1 <= D <= TILE_MAX_DEPTH:
+        raise ValueError(f"plan G={G}, D={D}: G is a power of two <= 16, "
+                         f"1 <= D <= {TILE_MAX_DEPTH}")
+    per = A if kernel == "costs" else 1
+    if scenarios is None:
+        spb = 1
+        while (2 * spb <= min(-(-B // blocks), TILE_MAX_SPB)
+               and -(-2 * spb * per * G // 32) * 32 + 32 <= max_threads
+               and rollout_smem_bytes(n, m, G, 2 * spb, D, param_elems,
+                                      dtype) <= SMEM_LIMIT):
+            spb *= 2
+    else:
+        spb = scenarios
+    if spb & (spb - 1) or not 1 <= spb <= TILE_MAX_SPB:
+        raise ValueError(f"{spb} scenarios a block: a power of two <= "
+                         f"{TILE_MAX_SPB}")
+    return RolloutPlan(groups=G, scenarios=spb, depth=D,
+                       smem_bytes=rollout_smem_bytes(n, m, G, spb, D,
+                                                     param_elems, dtype))
+
+
+_MAX_THREADS: dict = {}
+
+
+def kernel_max_threads(kernel: str, a) -> int:
+    """The most threads a block of K2 (``kernel="costs"``) or K3 can launch
+    with at the plan's G for ``kernel_args`` output ``a``: the kernel's
+    registers bound it (at most ``TILE_MAX_THREADS``). Asked of the
+    library once per kernel, dtype, env and dims."""
+    B, T, n, m = a["dims"]
+    G = ROLLOUT_PLANS[kernel][n][0]
+    key = (kernel, a["dtype"], a["env_id"], n, m, G)
+    if key not in _MAX_THREADS:
+        params, n_params, ints, n_ints = _env_pointers(a)
+        got = _build.library().tfmpc_rollout_max_threads(
+            int(kernel == "costs"), _build.DTYPE_CODES[a["dtype"]],
+            a["env_id"], n, m, G, params, n_params, ints, n_ints)
+        if got <= 0:
+            _build.check(-got, "rollout_max_threads")
+        _MAX_THREADS[key] = got
+    return _MAX_THREADS[key]
+
+
+def launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
+    """The plan of a K2 or K3 launch on ``kernel_args`` output ``a``."""
+    B, T, n, m = a["dims"]
+    return rollout_plan(kernel, a["env_id"], n, m, B, A, a["dtype"],
+                        sum(p.numel() for p in a["params"]),
+                        max_threads=kernel_max_threads(kernel, a))
+
+
+def _plan_args(a, kernel, A=1):
+    """The plan of a ``kernel_args`` launch, as the C entries take it."""
+    plan = launch_plan(a, kernel, A)
+    return (plan.groups, plan.scenarios, plan.depth,
+            ctypes.c_longlong(plan.smem_bytes))
 
 
 def _finite_or_inf(J):
@@ -249,7 +401,7 @@ def linesearch_costs_kernel(a, alphas: Sequence[float]):
         *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
         *_bound_pointers(a),
         (ctypes.c_double * A)(*map(float, alphas)), A, *_env_pointers(a),
-        _build.ptr(J), BLOCK, _build.stream(),
+        _build.ptr(J), *_plan_args(a, "costs", A), _build.stream(),
     )
     _build.check(rc, "linesearch_costs")
     COSTS_LAUNCHES += 1
@@ -275,7 +427,7 @@ def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
         *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
         *_bound_pointers(a),
         (ctypes.c_double * A)(*map(float, alphas)), A, *_env_pointers(a),
-        _build.ptr(J), _build.ptr(X_out), _build.ptr(U_out), BLOCK,
+        _build.ptr(J), _build.ptr(X_out), _build.ptr(U_out), TRAJ_BLOCK,
         _build.stream(),
     )
     _build.check(rc, "linesearch_costs_traj")
@@ -302,7 +454,7 @@ def rollout_alpha_kernel(a, alpha):
         *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
         *_bound_pointers(a), *_env_pointers(a),
         _build.ptr(X_out), _build.ptr(U_out), _build.ptr(J),
-        BLOCK, _build.stream(),
+        *_plan_args(a, "alpha"), _build.stream(),
     )
     _build.check(rc, "rollout_alpha")
     ALPHA_LAUNCHES += 1

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Time other versions of K7, P1 or the lane Riccati kernels (K1, K4, K6a,
-K6b) beside the checkout's own, on one GPU.
+"""Time other versions of K7, P1, the lane Riccati kernels (K1, K4, K6a,
+K6b) or the rollout kernels K2 and K3 beside the checkout's own, on one
+GPU.
 
     python3 tools/kernel_versions.py p1 LABEL=PATH [LABEL=PATH ...]
     python3 tools/kernel_versions.py k7 LABEL=PATH [LABEL=PATH ...]
     python3 tools/kernel_versions.py lane LABEL=REV|DIR [LABEL=REV|DIR ...]
     python3 tools/kernel_versions.py lane --sweep
+    python3 tools/kernel_versions.py rollout LABEL=REV|DIR [...] [--clocks]
+    python3 tools/kernel_versions.py rollout --sweep
 
 Each PATH is another version of ``ops/csrc/row_matmul.cu`` (``p1``) or of
 ``ops/csrc/riccati_mid.cu`` (``k7``), for example an earlier one taken
@@ -58,6 +61,30 @@ every G and 4, 8, 16 and 32 scenarios a block, in float32, as device times
 of graph replays (K1 and K6a at the headline's B, K4 and K6b at B=2048; n = 2
 navigation, 5 reservoir-5, 6 HVAC-6, 3 HVAC-3, T=100): the measurement
 behind ``ops/riccati.py`` LANE_PLANS.
+
+``rollout`` takes the rollout sources (``ROLLOUT_FILES``) and
+``ops/rollout.py`` of commit REV with ``git show`` into
+``ops/_build/versions/rollout/LABEL/`` (as ``lane`` does: extract where
+there is a checkout, then run where there is a GPU), builds its three
+rollout sources (one nvcc each, in parallel) and prints their ptxas
+lines; at ``ROLLOUT_CASES`` (the navigation headline, HVAC-6,
+reservoir-5 T=500 and E1's HVAC-16 shape, with ``chip_smoke.py``'s
+inputs), in float32 and float64, it requires the checkout's K2 and K3
+outputs to be bitwise equal to the version's, then times both in float32
+in turns as device times of graph replays of 10 calls (and eager loops).
+A version whose C entries take ``block`` launches with its own
+``ops/rollout.py`` BLOCK; one whose entries take a plan with the
+checkout's ``rollout_plan``. ``--clocks`` also builds
+``tools/rollout_clocks.cu`` (the one-thread K2/K3 loop of commit 0bac190
+with clock64() between its phases) and prints, at each case, the SM
+cycles a step of load wait,
+policy, env step and stores; then the checkout's sources with their own
+phase clocks (``-DTFMPC_ROLLOUT_CLOCKS``, csrc/rollout.cuh), the same.
+``rollout --sweep`` builds the checkout's rollout sources with every G
+at each dim's swept env (``-DTFMPC_ROLLOUT_ALL_G``) and times K2 and K3
+at ``SWEEP_CASES`` with every G, 1-32 scenarios a block and 1, 2 or 4
+steps staged ahead, in float32, as device times of graph replays: the
+measurement behind ``ops/rollout.py`` ROLLOUT_PLANS.
 """
 
 from __future__ import annotations
@@ -515,12 +542,361 @@ def env_case(env, Bn, dtype):
     return lin, quad, final, mu, U, second_derivatives(env, X, U)
 
 
+# -- the rollout kernels K2 and K3 --------------------------------------------
+
+ROLLOUT_FILES = ("rollout.cuh", "envs.cuh", "common.cuh", "warp.cuh",
+                 "rollout.cu", "rollout_n12.cu", "rollout_n16.cu")
+ROLLOUT_SOURCES = ("rollout.cu", "rollout_n12.cu", "rollout_n16.cu")
+# label -> chip_smoke.py inputs: the table's shapes
+ROLLOUT_CASES = {
+    "headline": ("navigation", None, None),          # B=4096, T=100
+    "hvac6": ("hvac6", None, None),                  # B=2048, T=100
+    "reservoir5_t500": ("reservoir5", 1024, 500),
+    "e1_hvac16": ("hvac16", 512, 50),
+}
+# the sweep's shapes, one a dim (the env each dim's TFMPC_ROLLOUT_ALL_G
+# build sweeps): the headline, HVAC-3 and HVAC-6 at B=2048, reservoir-5 at
+# T=500, E2's HVAC-12 and E1's HVAC-16
+SWEEP_CASES = {
+    2: ("navigation", None, None),
+    3: ("hvac3", 2048, 100),
+    5: ("reservoir5", 1024, 500),
+    6: ("hvac6", None, None),
+    12: ("hvac12", 1024, 100),
+    16: ("hvac16", 512, 50),
+}
+
+
+def extract_rollout(label: str, rev: str) -> Path:
+    """The rollout sources and ops/rollout.py of ``rev`` in
+    ``OUT/rollout/label/`` (taken with git show where the directory is
+    missing; a file the commit lacks is left out)."""
+    dest = OUT / "rollout" / label
+    if dest.is_dir():
+        return dest
+    tmp = dest.with_name(label + ".tmp")
+    tmp.mkdir(parents=True, exist_ok=True)
+    for name in ROLLOUT_FILES + ("rollout.py",):
+        path = ("tfmpc_tpu_torch/ops/" + name if name.endswith(".py")
+                else "tfmpc_tpu_torch/ops/csrc/" + name)
+        out = subprocess.run(["git", "show", f"{rev}:{path}"], cwd=ROOT,
+                             capture_output=True, text=True)
+        if out.returncode == 0:
+            (tmp / name).write_text(out.stdout)
+    tmp.rename(dest)
+    return dest
+
+
+def build_rollout(label: str, src: Path, defines=(),
+                  sources=ROLLOUT_SOURCES) -> ctypes.CDLL:
+    """The rollout sources of ``src`` (headers first from ``src``, then the
+    checkout's), one nvcc each in parallel, linked into one library;
+    ptxas's lines printed, one per K2/K3 instantiation."""
+    from tfmpc_tpu_torch.ops import _build
+
+    objs = [OUT / f"rollout_{label}_{i}.o" for i in range(len(sources))]
+    so = OUT / f"rollout_{label}.so"
+    log = _build._run_all(
+        [[_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-I", str(src), "-I",
+          str(CSRC), "-c", "-o", str(o), str(src / cu)]
+         for cu, o in zip(sources, objs)], OUT / f"rollout_{label}.compile")
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                      str(so), *map(str, objs)]], OUT / f"rollout_{label}.link")
+    print(f"{label} ({src}):")
+    cs.print_ptxas(log, every_rollout=True)
+    return ctypes.CDLL(str(so))
+
+
+def rollout_case(case, dtype):
+    """(env, X, U, policy, kernel_args) of ``chip_smoke.py``'s inputs at a
+    case of ``ROLLOUT_CASES`` or ``SWEEP_CASES``."""
+    from tfmpc_tpu_torch.ops import rollout
+
+    name, Bn, Tn = case
+    if name == "navigation":
+        env, X, U, _, _, _, _, policy = cs.headline_inputs(dtype, "cuda")
+    elif name == "hvac3":
+        from tfmpc_tpu_torch.models.hvac import make_hvac
+        import numpy as np
+        import torch
+        from tfmpc_tpu_torch.core.types import Policy
+
+        env = make_hvac([[0, 1, 0], [1, 0, 1], [0, 1, 0]], is_out=[1, 0, 0],
+                        is_hall=[0, 1, 0], dtype=dtype, device="cuda")
+        rng = np.random.default_rng(11)
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa
+        U = env.clip(t(rng.uniform(0.0, 4.0, (Bn, Tn, 3))))
+        X, _ = env.rollout(t(rng.uniform(8.0, 18.0, (Bn, 3))), U)
+        policy = Policy(K=t(0.05 * rng.standard_normal((Bn, Tn, 3, 3))),
+                        k=t(2.0 * rng.standard_normal((Bn, Tn, 3))))
+    else:
+        env, X, U, _, _, _, _, policy = cs.boxqp_inputs(
+            name, dtype, *((Bn, Tn) if Bn else ()))
+    return env, X, U, policy, rollout.kernel_args(env, X, U, policy)
+
+
+def rollout_launchers(lib, source_dir, a, alphas, alpha_vec, plans=None):
+    """{"K2": call, "K3": call} launching ``lib``'s kernels (its sources in
+    ``source_dir``) on ``kernel_args`` output ``a``, each writing into its
+    own outputs (``call.outputs``); ``plans`` (K2's, K3's) overrides the
+    checkout's ``rollout_plan`` for a version whose entries take a plan.
+    A launch the entry refuses is left out."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import _build, rollout
+
+    B, T, n, m = a["dims"]
+    A = len(alphas)
+    opts = dict(dtype=a["dtype"], device=a["xbar"].device)
+    code = _build.DTYPE_CODES[a["dtype"]]
+    params = entry_params((source_dir / "rollout.cu").read_text(),
+                          "tfmpc_linesearch_costs")
+    head = [code, a["env_id"], n, m, T, B]
+    inputs = [_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")]
+    bounds = list(rollout._bound_pointers(a))
+    env_ptrs = list(rollout._env_pointers(a))
+    al = (ctypes.c_double * A)(*map(float, alphas))
+    if "block" in params:
+        m_ = re.search(r"^BLOCK = (\d+)",
+                       (source_dir / "rollout.py").read_text(), re.M)
+        tails = {k: ((int(m_.group(1)),), [_I]) for k in ("K2", "K3")}
+    else:
+        plans = plans or (rollout.launch_plan(a, "costs", A),
+                          rollout.launch_plan(a, "alpha"))
+        tails = {k: ((p.groups, p.scenarios, p.depth, p.smem_bytes),
+                     [_I, _I, _I, _LL]) for k, p in zip(("K2", "K3"), plans)}
+    out = {}
+    J2 = torch.empty((A, B), **opts)
+    k2 = lib.tfmpc_linesearch_costs
+    k2.argtypes = [_I] * 6 + [_P] * 7 + [_I, _P, _I, _P, _I, _P] \
+        + tails["K2"][1] + [_P]
+    k2.restype = ctypes.c_int
+
+    def call2():
+        return k2(*head, *inputs, *bounds, al, A, *env_ptrs, _build.ptr(J2),
+                  *tails["K2"][0], _build.stream())
+
+    call2.outputs = (J2,)
+    X3 = torch.empty((T, n, B), **opts)
+    U3 = torch.empty((T, m, B), **opts)
+    J3 = torch.empty((B,), **opts)
+    k3 = lib.tfmpc_rollout_alpha
+    k3.argtypes = [_I] * 6 + [_P] * 8 + [_I, _P, _I] + [_P] * 3 \
+        + tails["K3"][1] + [_P]
+    k3.restype = ctypes.c_int
+
+    def call3():
+        return k3(*head, _build.ptr(alpha_vec), *inputs, *bounds, *env_ptrs,
+                  _build.ptr(X3), _build.ptr(U3), _build.ptr(J3),
+                  *tails["K3"][0], _build.stream())
+
+    call3.outputs = (X3, U3, J3)
+    for key, call in (("K2", call2), ("K3", call3)):
+        if call() == 0:
+            torch.cuda.synchronize()
+            out[key] = call
+    return out
+
+
+def rollout_inputs(case, dtype):
+    import torch
+
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env, X, U, policy, a = rollout_case(case, dtype)
+    alphas = ILQRConfig().alphas_static()
+    B = a["dims"][0]
+    dev = a["xbar"].device
+    alpha_vec = torch.as_tensor(alphas, dtype=dtype, device=dev)[
+        torch.arange(B, device=dev) % len(alphas)].contiguous()
+    return a, alphas, alpha_vec
+
+
+def run_rollout(versions, card, clocks=False):
+    import torch
+
+    dirs = {label: Path(rev) if Path(rev).is_dir()
+            else extract_rollout(label, rev) for label, rev in versions}
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_versions.py rollout: extracted "
+                         f"{sorted(dirs)}; timing needs a CUDA device")
+    libs = {label: build_rollout(label, d) for label, d in dirs.items()}
+    checkout = build_rollout("checkout", CSRC)
+    for label, case in ROLLOUT_CASES.items():
+        for dtype in (torch.float64, torch.float32):
+            a, alphas, alpha_vec = rollout_inputs(case, dtype)
+            mine = rollout_launchers(checkout, CSRC, a, alphas, alpha_vec)
+            if set(mine) != {"K2", "K3"}:
+                raise AssertionError(f"checkout refused a launch at {label}")
+            fns = {("checkout", k): f for k, f in mine.items()}
+            for v, lib in libs.items():
+                theirs = rollout_launchers(lib, dirs[v], a, alphas,
+                                           alpha_vec)
+                for k, f in theirs.items():
+                    same = all(torch.equal(x, y) for x, y in zip(
+                        mine[k].outputs, f.outputs))
+                    print(f"  {v} {k} {label} [{cs.dname(dtype)}]: bitwise "
+                          f"equal to the checkout's: {same}")
+                    if not same:
+                        raise AssertionError(f"{v} {k} {label}: outputs "
+                                             "differ from the checkout's")
+                    fns[v, k] = f
+            if dtype == torch.float32:
+                B, T, n, _ = a["dims"]
+                for k in ("K2", "K3"):
+                    pick = {v: f for (v, kk), f in fns.items() if kk == k}
+                    dev = in_turns(pick, lambda f: cs.graph_ms(f, 10))
+                    eager = in_turns(pick, lambda f: cs.cuda_ms(f, 10))
+                    print(f"{k} {label} (B={B}, T={T}, n=m={n}, f32), device "
+                          "ms (graph replays) / eager ms, best of two turns "
+                          f"[{card}]: " + ", ".join(
+                              f"{v} {dev[v]:.4f} / {eager[v]:.4f}"
+                              for v in pick))
+    if clocks:
+        run_rollout_clocks(card)
+
+
+def run_rollout_clocks(card):
+    """The one-thread K2/K3 loop with phase clocks
+    (tools/rollout_clocks.cu) at each of ``ROLLOUT_CASES``, float32, 128
+    threads a block."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import _build, rollout
+
+    lib = build(f"rollout_clocks", ROOT / "tools" / "rollout_clocks.cu")
+    fn = lib.tfmpc_rollout_clocks
+    fn.argtypes = [_I] * 4 + [_P] * 7 + [_I, _P, _P, _I, _P, _I] + [_P] * 4 \
+        + [_I, _P]
+    fn.restype = ctypes.c_int
+    names = ("load wait", "policy", "env step", "stores")
+    for label, case in ROLLOUT_CASES.items():
+        a, alphas, alpha_vec = rollout_inputs(case, torch.float32)
+        B, T, n, m = a["dims"]
+        A = len(alphas)
+        ref2 = rollout.linesearch_costs_kernel(a, alphas)
+        ref3 = rollout.rollout_alpha_kernel(a, alpha_vec)
+        for kernel, costs in (("K2", True), ("K3", False)):
+            opts = dict(dtype=torch.float32, device="cuda")
+            X = torch.empty((T, n, B), **opts)
+            U = torch.empty((T, m, B), **opts)
+            J = torch.empty((A, B) if costs else (B,), **opts)
+            clk = torch.zeros(6, dtype=torch.int64, device="cuda")
+            rc = fn(a["env_id"], n, T, B,
+                    *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K",
+                                                     "k")),
+                    *rollout._bound_pointers(a),
+                    (ctypes.c_double * A)(*map(float, alphas)), A,
+                    ctypes.c_void_p(None) if costs else _build.ptr(alpha_vec),
+                    *rollout._env_pointers(a), _build.ptr(X), _build.ptr(U),
+                    _build.ptr(J), _build.ptr(clk), 128, _build.stream())
+            _build.check(rc, f"rollout clocks {kernel} {label}")
+            torch.cuda.synchronize()
+            same = torch.equal(J, ref2) if costs else (
+                torch.equal(J, ref3[2]) and torch.equal(X, ref3[0]))
+            c = clk.tolist()
+            per = [x / c[4] / T for x in c[:4]]
+            print(f"{kernel} {label} (B={B}, T={T}, n=m={n}, f32, the "
+                  "one-thread loop with phase clocks, 128 threads a block): "
+                  "SM cycles "
+                  f"a step, mean over {c[4]} threads: " + ", ".join(
+                      f"{nm} {x:.0f}" for nm, x in zip(names, per))
+                  + f", total {sum(per):.0f}; outputs equal to the "
+                  f"checkout's kernel: {same} [{card}]")
+    # the checkout's tile kernels, built with their phase clocks
+    tiles = build_rollout("tile_clocks", CSRC, ("-DTFMPC_ROLLOUT_CLOCKS",))
+    tiles.tfmpc_rollout_clocks_buffer.argtypes = [_P]
+    tiles.tfmpc_rollout_clocks_buffer.restype = None
+    names = ("barrier", "policy rows", "u exchange and env rows",
+             "cost, stores, x exchange")
+    for label, case in ROLLOUT_CASES.items():
+        a, alphas, alpha_vec = rollout_inputs(case, torch.float32)
+        B, T, n, _ = a["dims"]
+        calls = rollout_launchers(tiles, CSRC, a, alphas, alpha_vec)
+        for kernel, call in calls.items():
+            clk = torch.zeros(8, dtype=torch.int64, device="cuda")
+            tiles.tfmpc_rollout_clocks_buffer(_build.ptr(clk))
+            _build.check(call(), f"clocked {kernel} {label}")
+            torch.cuda.synchronize()
+            tiles.tfmpc_rollout_clocks_buffer(ctypes.c_void_p(None))
+            c = clk.tolist()
+            per = [x / c[7] / T for x in c[1:5]]
+            print(f"{kernel} {label} (B={B}, T={T}, n=m={n}, f32, the tile "
+                  "kernel with phase clocks, its plan): SM cycles a step, "
+                  f"mean over {c[7]} compute threads: " + ", ".join(
+                      f"{nm} {x:.0f}" for nm, x in zip(names, per))
+                  + f", total {sum(per):.0f}; the copying warp: issuing "
+                  f"{c[0] / c[5] / T:.0f}, waiting for the step and the "
+                  f"barrier {c[6] / c[5] / T:.0f} [{card}]")
+
+
+def run_rollout_sweep(card):
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+
+    lib = build_rollout("sweep", CSRC, ("-DTFMPC_ROLLOUT_ALL_G",))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, case in SWEEP_CASES.items():
+        a, alphas, alpha_vec = rollout_inputs(case, torch.float32)
+        B, T, _, _ = a["dims"]
+        A = len(alphas)
+        pe = sum(p.numel() for p in a["params"])
+        for kind, key in (("costs", "K2"), ("alpha", "K3")):
+            per = A if kind == "costs" else 1
+            fns = {}
+            G = 1
+            while G <= min(16, max(1, 1 << (n - 1).bit_length())):
+                for spb in (1, 2, 4, 8, 16, 32):
+                    for D in (1, 2, 4):
+                        plan = rollout.rollout_plan(
+                            kind, a["env_id"], n, n, B, A, torch.float32, pe,
+                            groups=G, scenarios=spb, depth=D)
+                        if plan.threads(per) > rollout.TILE_MAX_THREADS or \
+                                plan.smem_bytes > rollout.SMEM_LIMIT:
+                            continue
+                        other = rollout.launch_plan(
+                            a, "alpha" if kind == "costs" else "costs", A)
+                        plans = (plan, other) if kind == "costs" else \
+                            (other, plan)
+                        got = rollout_launchers(lib, CSRC, a, alphas,
+                                                alpha_vec, plans)
+                        if key in got:
+                            fns[G, spb, D] = got[key]
+                G *= 2
+            times = in_turns(fns, lambda f: cs.graph_ms(f, 10))
+            best = min(times, key=times.get)
+            spread = [k for k in times if -(-B // k[1]) >= sms]
+            best_spread = min(spread, key=times.get) if spread else None
+            table = rollout.ROLLOUT_PLANS[kind][n]
+            print(f"{key} {case[0]} (B={B}, T={T}, n=m={n}, f32), device ms "
+                  "by G/scenarios a block/depth, best of two turns: "
+                  + ", ".join(f"{G}/{spb}/{D} {t:.4f}"
+                              for (G, spb, D), t in sorted(times.items()))
+                  + f"; fastest {'/'.join(map(str, best))} "
+                  f"{times[best]:.4f}; fastest with >= {sms} blocks "
+                  + (f"{'/'.join(map(str, best_spread))} "
+                     f"{times[best_spread]:.4f}" if best_spread else "none")
+                  + f"; ROLLOUT_PLANS {table} [{card}]")
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) < 3 or sys.argv[1] not in ("p1", "k7", "lane"):
+    if len(sys.argv) < 3 or sys.argv[1] not in ("p1", "k7", "lane",
+                                                 "rollout"):
         print(__doc__)
         return 2
+    if sys.argv[1] == "rollout" and sys.argv[2] != "--sweep":
+        args = [arg for arg in sys.argv[2:] if arg != "--clocks"]
+        versions = [tuple(arg.partition("=")[::2]) for arg in args]
+        if torch.cuda.is_available():
+            card = cs.card_line()
+            print(card)
+        else:
+            card = None
+        run_rollout(versions, card, clocks="--clocks" in sys.argv)
+        return 0
     if sys.argv[1] == "lane" and sys.argv[2] != "--sweep":
         versions = [tuple(arg.partition("=")[::2]) for arg in sys.argv[2:]]
         if torch.cuda.is_available():
@@ -539,6 +915,9 @@ def main() -> int:
     print(card)
     if sys.argv[1] == "lane":
         run_lane_sweep(card)
+        return 0
+    if sys.argv[1] == "rollout":
+        run_rollout_sweep(card)
         return 0
     versions = []
     for arg in sys.argv[2:]:
