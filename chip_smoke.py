@@ -10,20 +10,22 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
    ``nvidia-smi --query-gpu=name,power.limit`` gives), turn TF32 off for
    float32 matmuls;
 2. build: compile ``tfmpc_tpu_torch/ops/csrc/*.cu`` with nvcc, one process
-   per source, all started together (timed); print ptxas's registers and
-   spills per kernel instantiation (each lane kernel's per G; K2 and K3 at
-   n = m = 5, 6 and 16), and each lane kernel's and each K2 and K3 launch
-   plan beside the shared bytes the kernel computes for it;
+   per source, all started together (timed, and nvcc's wall time per
+   source); print ptxas's registers and spills per kernel instantiation
+   (each lane kernel's per G; K2 and K3 at n = m = 5, 6 and 16; every K5
+   and K8 instantiation), and each lane kernel's and each K2, K3, K5 and
+   K8 launch plan beside the shared bytes the kernel computes for it;
 3. each kernel against its plain PyTorch version on the card, in float32
    and float64: K1 Riccati backward, K2 line-search costs and K3
    accepted-alpha rollout at the navigation headline shapes (B=4096,
    T=100, n=m=2, A=11); K4 boxQP Riccati backward at HVAC-6 (B=2048,
    T=100, n=m=6, 8 boxQP iterations) and once at reservoir-5 (n=m=5); the
-   clipped K2/K3 at HVAC-6 and reservoir-5 shapes, and at the
+   clipped K2/K3 at HVAC-6 and reservoir-5 shapes, and K2/K3/K5 at the
    block-ragged batches reservoir-5 B=1023 (T=100) and HVAC-16 B=513
-   (T=50), after checking that their plans leave the last block
-   part-full. K1 and K4 get lanes forced indefinite (fail masks must be
-   identical). Timed (the lane kernels K1, K4, K6a, K6b and K2, K3 as
+   (T=50) and K8 at the headline's env at B=1023 (T=50), after checking
+   that their plans leave the last block part-full. K1 and K4 get lanes
+   forced indefinite (fail masks must be identical). Timed (the lane
+   kernels K1, K4, K6a, K6b and the rollout kernels K2, K3, K5, K8 as
    device times of CUDA graph replays: an eager loop of their launches
    measures the host's Python launch path at the headline's shapes); K4 at
    HVAC-6 with 1, 2, 4 and 8 lanes a scenario, each held to K4's float32
@@ -123,10 +125,10 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
 24. slice F (the fused iteration): K8, the materialize rollout that also
     writes the linearization, against its plain version (X, U, J and the
     seven blocks within ``TOL``) and against K3 on the same inputs (bit
-    for bit), in float32 and
-    float64, at the navigation headline's shapes and bounded navigation's
-    (``configs/navigation_bounded.json``, B=256, T=50), lane 0 on the zone
-    center; timed;
+    for bit), in float32 and float64, at the navigation headline's shapes,
+    bounded navigation's (``configs/navigation_bounded.json``, B=256,
+    T=50) and G3's (two zones, B=1024, T=20), lane 0 on the zone center;
+    timed at each;
 25. G1, the headline with ``fuse_derivatives=True``: counters prove K1, K2
     and K8 ran and nothing else, and one derivatives pass per solve;
     controls of 4 scenarios within 1e-4 of the float64 oracle; agreement
@@ -291,6 +293,10 @@ G3_ACTIONS_ATOL = 1e-4
 # K8 at G3's shape: the least share of (lane, step) points inside both
 # zones (g_z < 0.99 for each), so the multi-zone linearization is exercised
 K8_TWO_ZONE_SHARE = 0.05
+# K8 at a block-ragged batch of the headline's env (B, T); the n-dim
+# navigation cases of K8's plan sweep (tools/kernel_versions.py)
+K8_RAGGED = (1023, 50)
+K8_DIM_CASES = {"nav3": 3, "nav5": 5, "nav6": 6}
 WINDOW_S = 1.0
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # bytes/s, and FLOP/s outside the tensor cores.
@@ -896,8 +902,8 @@ def check_k5(case, dtype, timings=None, errs=None, Bn=B_LONG, Tn=T_LONG,
     bounded = env.bounds is not None
     reps, plain_reps = (20, 2) if case == "navigation" else (10, 1)
     timings[key] = (
-        cuda_ms(lambda: rollout.linesearch_costs_traj_kernel(ra, alphas),
-                reps),
+        graph_ms(lambda: rollout.linesearch_costs_traj_kernel(ra, alphas),
+                 reps),
         cuda_ms(lambda: rollout.linesearch_costs_traj(env, X, U, policy,
                                                       alphas), reps),
         cuda_ms(lambda: rollout.linesearch_costs_traj_ref(env, X, U, policy,
@@ -964,18 +970,34 @@ def k8_inputs(case, dtype):
     (``configs/navigation.json``, two zones, B=1024, T=20: x0 ~ U over the
     box [1, 8] x [-6, 0] that holds both zones, controls ~ 0.5 N(0, 1), a
     feedback policy with k ~ 0.5 N(0, 1), so u stays non-zero and the
-    trajectories cross both zones); lane z started on zone z's center,
-    each lane's alpha from the grid."""
+    trajectories cross both zones), the headline's env at the block-ragged
+    ``K8_RAGGED`` (``nav_ragged``) or its n-dim extension at the
+    headline's B and T (``K8_DIM_CASES``, the plan sweep's); lane z
+    started on zone z's center, each lane's alpha from the grid."""
     import numpy as np
     import torch
 
     from tfmpc_tpu_torch.core.types import Policy
+    from tfmpc_tpu_torch.models.navigation import make_navigation
     from tfmpc_tpu_torch.models.registry import load_env
     from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
 
     t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
     if case == "navigation":
         env, X, U, _, _, _, _, policy = headline_inputs(dtype, "cuda")
+    elif case == "nav_ragged" or case in K8_DIM_CASES:
+        # the headline's env at a block-ragged batch, or its n-dim
+        # extension (goal and center padded with 2 and 0) at its B and T
+        n = K8_DIM_CASES.get(case, N)
+        env = make_navigation(GOAL + [2.0] * (n - N), {
+            "center": [ZONES["center"][0] + [0.0] * (n - N)],
+            "decay": ZONES["decay"]}, dtype=dtype, device="cuda")
+        Bn, Tn = K8_RAGGED if case == "nav_ragged" else (B, T)
+        rng = np.random.default_rng(7)
+        U = t(0.1 * rng.standard_normal((Bn, Tn, n)))
+        X, _ = env.rollout(t(rng.uniform(-10.0, 10.0, (Bn, n))), U)
+        policy = Policy(K=t(0.05 * rng.standard_normal((Bn, Tn, n, n))),
+                        k=t(0.1 * rng.standard_normal((Bn, Tn, n))))
     elif case == "nav_bounded":
         env = bounded_env("nav_bounded", dtype)
         Bn, Tn = B_NAV_BOUNDED, T_NAV_BOUNDED
@@ -1008,13 +1030,13 @@ def k8_inputs(case, dtype):
 def check_k8(case, dtype, timings=None, errs=None):
     """K8 at the navigation headline's shapes (``navigation``: B=4096,
     T=100, one zone), bounded navigation's (``nav_bounded``: B=256, T=50,
-    box +-1) or G3's (``g3``: two zones, B=1024, T=20; it prints and gates
+    box +-1), G3's (``g3``: two zones, B=1024, T=20; it prints and gates
     the share of steps at which both zones slow the agent, g_z < 0.99,
     where the product over the other zones and the per-zone sum into
-    d lambda / dx matter): X, U, J and the seven linearization blocks against its plain
-    version within ``TOL``; X, U and J against K3 on the same inputs (the
-    same arithmetic in another kernel), bit for bit; the kernel-layout
-    policy (the fused
+    d lambda / dx matter) or the block-ragged ``nav_ragged``: X, U, J and
+    the seven linearization blocks against its plain version within
+    ``TOL``; X, U and J against K3 on the same inputs (the same arithmetic
+    in another kernel), bit for bit; the kernel-layout policy (the fused
     iteration's ``policy_lane``) gives the same outputs bit for bit."""
     import torch
 
@@ -1068,15 +1090,15 @@ def check_k8(case, dtype, timings=None, errs=None):
                              "outputs")
     if timings is None:
         return
-    key = "rollout_alpha_derivs" + ("" if case == "navigation"
-                                    else "_bounded")
+    key = "rollout_alpha_derivs" + {"navigation": "", "nav_bounded":
+                                    "_bounded", "g3": "_g3"}[case]
     errs[key] = max_err
     a = rollout.kernel_args(env, X, U, None, pol_lane, derivatives=True)
     n_params = sum(p.numel() for p in a["params"])
     reps, plain_reps = (50, 5) if case == "navigation" else (50, 3)
     timings[key] = (
-        cuda_ms(lambda: rollout.rollout_alpha_derivs_kernel(a, alpha_vec),
-                reps),
+        graph_ms(lambda: rollout.rollout_alpha_derivs_kernel(a, alpha_vec),
+                 reps),
         cuda_ms(lambda: rollout.rollout_alpha_derivs(
             env, X, U, None, alpha_vec, policy_lane=pol_lane), reps),
         cuda_ms(lambda: rollout.rollout_alpha_derivs_ref(
@@ -1446,7 +1468,7 @@ def lane_g_sweep(kernel, card):
 
 
 def rollout_plan_cases():
-    """(label, env, B, T) of every K2/K3 launch shape this script runs,
+    """(label, env, B, T) of every K2/K3/K5 launch shape this script runs,
     block-ragged ones included."""
     return [("navigation", None, B, T), ("hvac6", "hvac6", B_BOX, T),
             ("reservoir5", "reservoir5", B_BOX, T),
@@ -1468,29 +1490,49 @@ def plan_layout(env, Bn, dtype):
             "int_params": step.int_params}
 
 
+# K8's launch shapes: (label, k8_inputs case, B): the headline, bounded
+# navigation, G3 and the block-ragged batch
+K8_PLAN_CASES = (("navigation", "navigation", B),
+                 ("nav_bounded", "nav_bounded", B_NAV_BOUNDED),
+                 ("g3", "g3", B_G3), ("nav B=1023 (ragged)", "nav_ragged",
+                                      K8_RAGGED[0]))
+KERNEL_NAMES = {"costs": "K2", "alpha": "K3", "traj": "K5", "derivs": "K8"}
+
+
 def print_rollout_plans(lib):
-    """K2's and K3's launch plans at ``rollout_plan_cases``, beside the
-    shared bytes the kernel computes for them
-    (``tfmpc_rollout_smem_bytes``), which must agree, and the most threads
-    a block of the kernel can launch with."""
+    """The tile kernel's launch plans: K2's, K3's and K5's at
+    ``rollout_plan_cases``, K8's at ``K8_PLAN_CASES``, beside the shared
+    bytes the kernel computes for them (``tfmpc_rollout_smem_bytes``),
+    which must agree, and the most threads a block of the kernel can
+    launch with."""
     import torch
 
     from tfmpc_tpu_torch.models.navigation import make_navigation
+    from tfmpc_tpu_torch.models.registry import load_env
     from tfmpc_tpu_torch.ops import rollout
 
-    for label, case, Bn, _ in rollout_plan_cases():
+    shapes = [(label, case, Bn, ("costs", "alpha", "traj"))
+              for label, case, Bn, _ in rollout_plan_cases()] + [
+        (label, case, Bn, ("derivs",)) for label, case, Bn in K8_PLAN_CASES]
+    for label, case, Bn, kinds in shapes:
         for dtype in (torch.float32, torch.float64):
-            env = (make_navigation(GOAL, ZONES, dtype=dtype, device="cuda")
-                   if case is None else bounded_env(case, dtype))
+            if case in (None, "navigation", "nav_ragged"):
+                env = make_navigation(GOAL, ZONES, dtype=dtype, device="cuda")
+            elif case == "g3":
+                env = load_env(ROOT / "configs/navigation.json", dtype=dtype,
+                               device="cuda")
+            else:
+                env = bounded_env(case, dtype)
             a = plan_layout(env, Bn, dtype)
             n = env.state_size
             pe = sum(p.numel() for p in a["params"])
-            for kernel, per in (("costs", A), ("alpha", 1)):
+            for kernel in kinds:
+                per = A if kernel in rollout.EVERY_ALPHA else 1
                 p = rollout.launch_plan(a, kernel, A)
                 lib_bytes = lib.tfmpc_rollout_smem_bytes(
                     0 if dtype == torch.float32 else 1, n, n, p.groups,
                     p.scenarios, p.depth, pe)
-                print(f"  rollout plan {'K2' if per > 1 else 'K3'} {label} "
+                print(f"  rollout plan {KERNEL_NAMES[kernel]} {label} "
                       f"n=m={n} B={Bn} {dname(dtype)}: {p.groups} lane(s) a "
                       f"rollout, {p.scenarios} scenario(s) a block "
                       f"({p.threads(per)} threads of at most "
@@ -1503,26 +1545,39 @@ def print_rollout_plans(lib):
                                          "kernel's")
 
 
-def check_rollout_ragged(dtype):
-    """K2 and K3 at ``ROLLOUT_RAGGED``'s block-ragged batches, after checking
-    that each plan leaves the last block part-full: against their plain
-    versions within ``TOL`` (``check_clipped_rollouts``)."""
-    import torch
-
+def require_ragged(a, kernel, label):
+    """Raise unless ``kernel``'s plan for ``kernel_args``-like ``a`` leaves
+    the last block part-full."""
     from tfmpc_tpu_torch.ops import rollout
 
+    Bn = a["dims"][0]
+    plan = rollout.launch_plan(a, kernel, A)
+    tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
+    name = KERNEL_NAMES[kernel]
+    print(f"  {name} {label} {dname(a['dtype'])}: {plan.scenarios} scenarios "
+          f"a block, {tail} in the last block")
+    if plan.scenarios < 2 or tail == plan.scenarios:
+        raise AssertionError(f"{name} {label}: the batch is not block-ragged "
+                             "under the plan")
+
+
+def check_rollout_ragged(dtype):
+    """K2, K3 and K5 at ``ROLLOUT_RAGGED``'s block-ragged batches and K8 at
+    ``K8_RAGGED``'s (the headline's env), after checking that each plan
+    leaves the last block part-full: K2 and K3 against their plain versions
+    within ``TOL`` (``check_clipped_rollouts``), K5 against K2 and K3 bit
+    for bit and against its plain version (``check_k5``), K8 against its
+    plain version and K3 (``check_k8``)."""
     for case, Bn, Tn in ROLLOUT_RAGGED:
         a = plan_layout(bounded_env(case, dtype), Bn, dtype)
-        for kernel, name in (("costs", "K2"), ("alpha", "K3")):
-            plan = rollout.launch_plan(a, kernel, A)
-            tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
-            print(f"  {name} {case} B={Bn} T={Tn} {dname(dtype)}: "
-                  f"{plan.scenarios} scenarios a block, {tail} in the last "
-                  "block")
-            if plan.scenarios < 2 or tail == plan.scenarios:
-                raise AssertionError(f"{name} {case} B={Bn}: the batch is not "
-                                     "block-ragged under the plan")
+        for kernel in ("costs", "alpha", "traj"):
+            require_ragged(a, kernel, f"{case} B={Bn} T={Tn}")
         check_clipped_rollouts(case, dtype, Bn=Bn, Tn=Tn)
+        check_k5(case, dtype, Bn=Bn, Tn=Tn)
+    env, X, U, policy, _ = k8_inputs("nav_ragged", dtype)
+    require_ragged(plan_layout(env, U.shape[0], dtype), "derivs",
+                   f"navigation B={U.shape[0]} T={U.shape[1]}")
+    check_k8("nav_ragged", dtype)
 
 
 def check_lane_ragged(dtype):
@@ -2484,15 +2539,20 @@ def profile_solve(run, n_solves=2):
             span / 1e6 / n_solves, top)
 
 
+# rollout_tile_kernel's last template argument, its kind (csrc/rollout.cuh
+# RolloutKind), as the kernel it is
+TILE_KINDS = {"0": "K2", "1": "K3", "2": "K5", "3": "K8"}
+
+
 def print_ptxas(log_text, every_rollout=False):
     """ptxas's registers, stack and spills: one line per Riccati kernel
     instantiation (variants Ilqr: K1, Boxqp: K4, Ddp: K6a, DdpBoxqp: K6b;
     K7's riccati_mid_kernel), one summary line per rollout kernel
-    (rollout_tile_kernel: K2 where its last argument is true, K3 where
-    false; K5, K8) and for P1 over its instantiations, and one line per K2
-    and K3 instantiation at n = m = 5 and 6, per K5 instantiation at
-    n = m = 5 and per HVAC rollout instantiation at n = m = 12 and 16
-    (``every_rollout``: per rollout instantiation)."""
+    (rollout_tile_kernel by kind: K2, K3, K5, K8) and for P1 over its
+    instantiations, and one line per K2 and K3 instantiation at n = m = 5
+    and 6, per K5 and K8 instantiation and per HVAC rollout instantiation
+    at n = m = 12 and 16 (``every_rollout``: per rollout
+    instantiation)."""
     entry, rows = None, []
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
@@ -2516,13 +2576,17 @@ def print_ptxas(log_text, every_rollout=False):
         if "riccati" in short:
             print(f"  ptxas: {short}: {regs} registers; {stack}")
             continue
-        rollout.setdefault(short.split("<")[0], []).append((regs, stack))
-        if every_rollout or ("traj" in short and ", 5, 5," in short) or (
+        kind = TILE_KINDS.get(short[-2:-1], "") if "tile" in short else ""
+        rollout.setdefault(f"{short.split('<')[0]} {kind}".strip(),
+                           []).append((regs, stack))
+        if every_rollout or kind in ("K5", "K8") or (
                 "HVACStep" in short and (", 12, 12," in short
                                          or ", 16, 16," in short)) or (
                 "tile" in short and (", 5, 5," in short
                                      or ", 6, 6," in short)):
-            print(f"  ptxas: {short}: {regs} registers; {stack}")
+            print(f"  ptxas: {short} ({kind}): {regs} registers; {stack}"
+                  if kind else f"  ptxas: {short}: {regs} registers; "
+                  f"{stack}")
     for kernel, insts in sorted(rollout.items()):
         spills = sum(int(s.split(",")[1].split()[0]) for _, s in insts)
         stacks = max(int(s.split()[0]) for _, s in insts)
@@ -2530,6 +2594,14 @@ def print_ptxas(log_text, every_rollout=False):
               f"{min(r for r, _ in insts)}-{max(r for r, _ in insts)} "
               f"registers, {spills} bytes of spill stores in all, largest "
               f"stack frame {stacks} bytes")
+
+
+def print_build_times(log_text):
+    """nvcc's wall time per source, from the build log's ``nvcc wall s``
+    lines (ops/_build.py ``_run_all``)."""
+    walls = [line.split("nvcc wall s ")[1] for line in log_text.splitlines()
+             if line.startswith("nvcc wall s ")]
+    print("  nvcc wall time per source, s: " + ", ".join(walls))
 
 
 def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
@@ -2690,7 +2762,7 @@ def slice_f(phase, timings, errs, launches_by_path, rates, card, nav_split):
         f32 = (timings, errs) if dtype == torch.float32 else ()
         check_k8("navigation", dtype, *f32)
         check_k8("nav_bounded", dtype, *f32)
-        check_k8("g3", dtype)
+        check_k8("g3", dtype, *f32)
     phase.done("24. K8 vs its plain version and K3")
 
     # -- 25. G1: the headline with fuse_derivatives (slice F's main path) ----
@@ -2867,7 +2939,9 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({_build.library_path().name})")
-    print_ptxas(_build.library_path().with_suffix(".log").read_text())
+    build_log = _build.library_path().with_suffix(".log").read_text()
+    print_ptxas(build_log)
+    print_build_times(build_log)
     lib = _build.library()
     print_mid_plans(lib)
     print_lane_plans(lib)
@@ -3199,6 +3273,8 @@ def main() -> int:
         "rollout_alpha_derivs_bounded": (derivs_cu, k8_tpu,
                                          "g2_nav_bounded_fused",
                                          "rollout_alpha_derivs"),
+        "rollout_alpha_derivs_g3": (derivs_cu, k8_tpu, "g3_mpc_fused",
+                                    "rollout_alpha_derivs"),
     }
     kernels = []
     for name, (src, replaces, path, counter) in sources.items():

@@ -358,15 +358,15 @@ def test_kernel_layout_of_a_linear_env():
     np.testing.assert_array_equal(a["lo"].numpy(), [-2.0, -2.0])
 
 
-# -- the launch plans of K2 and K3 -------------------------------------------------
+# -- the launch plans of the tile kernel (K2, K3, K5, K8) ----------------------
 #
 # ``rollout_plan`` at every kernel dim, both dtypes and batches that fill
 # their last block or leave it ragged, held to a mirror of
 # csrc/rollout.cuh rollout_tile_kernel's index maps: compute thread tid is
 # lane tid % G of rollout tid // G, scenario r % spb at alpha r // spb;
-# lane l computes the rows l, l + G, ... < n; the copies of a step are the
-# last warp's: its thread p puts chunk q = p % cpr of rows p // cpr,
-# + 32 // cpr, ... of the block's tile.
+# lane l computes and stores the rows l, l + G, ... < n; the copies of a
+# step are the last warp's: its thread p puts chunk q = p % cpr of rows
+# p // cpr, + 32 // cpr, ... of the block's tile.
 
 PLAN_BATCHES = (1, 513, 1023, 512, 1024, 2048, 4096)
 PLAN_ENV_PARAMS = {  # (env id, parameter values) of an env at each dim
@@ -379,6 +379,33 @@ PLAN_ENV_PARAMS = {  # (env id, parameter values) of an env at each dim
 }
 
 
+# (kind, n) of every plan: K2, K3 and K5 at every kernel dim, K8 at its own
+PLAN_KINDS = [(kernel, n) for kernel in ("costs", "alpha", "traj")
+              for n in sorted(n for n, _ in rollout.KERNEL_DIMS)] \
+    + [("derivs", n) for n in sorted(n for n, _ in rollout.DERIVS_DIMS)]
+KIND_NAMES = {"costs": "kCosts", "alpha": "kAlpha", "traj": "kTraj",
+              "derivs": "kDerivs"}
+
+
+def _plan_env(kernel, n):
+    """(env id, parameter values) of the env a kind runs at n: K8's is
+    navigation (two zones)."""
+    return (0, n + 2 * n + 2) if kernel == "derivs" else PLAN_ENV_PARAMS[n]
+
+
+def _rollout_lanes(plan, Bb, per):
+    """The mirror's compute threads of every block: ``(b, ai, lane, live)``,
+    each ``[blocks, compute threads]``."""
+    G, spb = plan.groups, plan.scenarios
+    tid = np.arange(plan.threads(per) - 32)  # the compute warps
+    lane, roll = tid % G, tid // G
+    s, ai = roll % spb, roll // spb
+    b = np.arange(plan.blocks(Bb))[:, None] * spb + s
+    live = (ai < per) & (b < Bb)
+    return b, np.broadcast_to(ai, b.shape), np.broadcast_to(lane, b.shape), \
+        live
+
+
 def _vec_bytes(spb, B, item):
     """csrc/rollout.cuh tile_vec_bytes for aligned pointers."""
     for vb in (16, 8, 4):
@@ -389,8 +416,7 @@ def _vec_bytes(spb, B, item):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("n", sorted(n for n, _ in rollout.KERNEL_DIMS))
-@pytest.mark.parametrize("kernel", ["costs", "alpha"])
+@pytest.mark.parametrize("kernel, n", PLAN_KINDS)
 def test_rollout_plan_covers_each_row_once(kernel, n, dtype):
     """Every (scenario, alpha, row) is computed by exactly one lane, every
     staged (scenario, entry) is copied once into the block's tile and read
@@ -401,16 +427,16 @@ def test_rollout_plan_covers_each_row_once(kernel, n, dtype):
 
     source = (Path(rollout.__file__).parent / "csrc"
               / "rollout.cuh").read_text()
-    env_id, params = PLAN_ENV_PARAMS[n]
+    env_id, params = _plan_env(kernel, n)
     A = len(ALPHAS)
-    per = A if kernel == "costs" else 1
+    per = A if kernel in rollout.EVERY_ALPHA else 1
     item = 4 if dtype == torch.float32 else 8
     entries = n + 2 * n + n * n
     for Bb in PLAN_BATCHES:
         plan = rollout.rollout_plan(kernel, env_id, n, n, Bb, A, dtype,
                                     params)
         G, spb = plan.groups, plan.scenarios
-        assert f"{{{'true' if kernel == 'costs' else 'false'}, {n}, {G}}}" \
+        assert f"{{{KIND_NAMES[kernel]}, {n}, {G}}}" \
             in re.sub(r"\s+", " ", source)
         assert spb & (spb - 1) == 0 and 1 <= spb <= rollout.TILE_MAX_SPB
         # the largest power of two at most B over the table's blocks, or
@@ -429,18 +455,13 @@ def test_rollout_plan_covers_each_row_once(kernel, n, dtype):
             n, n, G, spb, plan.depth, params, dtype)
         st = rollout.tile_stride(spb, G, item)
         assert st >= spb
-        tid = np.arange(threads - 32)  # the compute warps
-        lane, roll = tid % G, tid // G
-        s, ai = roll % spb, roll // spb
+        b, ai, lane, live = _rollout_lanes(plan, Bb, per)
         blk = np.arange(plan.blocks(Bb))[:, None]
-        b = blk * spb + s
-        live = (ai < per) & (b < Bb)
         rows = np.zeros((Bb, per, n), dtype=int)
         for r in range(-(-n // G)):
-            i = np.broadcast_to(lane + G * r, b.shape)
+            i = lane + G * r
             ok = live & (i < n)
-            np.add.at(rows, (b[ok], np.broadcast_to(ai, b.shape)[ok], i[ok]),
-                      1)
+            np.add.at(rows, (b[ok], ai[ok], i[ok]), 1)
         assert (rows == 1).all(), (kernel, n, Bb)
         ve = _vec_bytes(spb, Bb, item) // item
         cpr = spb // ve
@@ -468,17 +489,107 @@ def test_rollout_plan_covers_each_row_once(kernel, n, dtype):
 
 def test_a_rollout_plan_exists_for_every_kernel_dim():
     """``rollout_plan`` gives a plan for every (n, m) that ``kernel_layout``
-    accepts (the HVAC step alone at the mid dims) and refuses the rest."""
-    for n, m in sorted(rollout.KERNEL_DIMS):
-        env_id, params = PLAN_ENV_PARAMS[n]
-        for kernel in ("costs", "alpha"):
-            for dtype in (torch.float32, torch.float64):
-                assert rollout.rollout_plan(kernel, env_id, n, m, 1024,
-                                            len(ALPHAS), dtype, params)
+    accepts (the HVAC step alone at the mid dims), K2, K3 and K5 at
+    ``KERNEL_DIMS`` and K8 at ``DERIVS_DIMS``, and refuses the rest."""
+    for kernel, n in PLAN_KINDS:
+        env_id, params = _plan_env(kernel, n)
+        for dtype in (torch.float32, torch.float64):
+            assert rollout.rollout_plan(kernel, env_id, n, n, 1024,
+                                        len(ALPHAS), dtype, params)
+    assert set(rollout.ROLLOUT_PLANS) == set(rollout.KIND_CODES)
+    for kernel in ("costs", "alpha", "traj"):
+        assert set(rollout.ROLLOUT_PLANS[kernel]) \
+            == {n for n, _ in rollout.KERNEL_DIMS}
+    assert set(rollout.ROLLOUT_PLANS["derivs"]) \
+        == {n for n, _ in rollout.DERIVS_DIMS}
     with pytest.raises(NotImplementedError):
         rollout.rollout_plan("costs", 2, 16, 16, 1024, 11, torch.float32, 400)
     with pytest.raises(NotImplementedError):
         rollout.rollout_plan("alpha", 1, 4, 4, 1024, 11, torch.float32, 52)
+    for kernel in ("traj", "derivs"):
+        with pytest.raises(NotImplementedError):
+            rollout.rollout_plan(kernel, 0, 12, 12, 1024, 11,
+                                 torch.float32, 38)
+    with pytest.raises(NotImplementedError):
+        rollout.rollout_plan("derivs", 1, 16, 16, 1024, 11, torch.float32,
+                             384)
+
+
+# The stores of K5 and K8: output -> its entries a step. In the step loop
+# (every step the same entries) a lane stores its rows i: K5's of alpha ai
+# at ai*n + i of X [T, A*n, B] and U [T, A*m, B], K8's at row i of X and
+# U. K8's linearization blocks are the tail's (csrc/rollout.cuh
+# derivs_tail): thread tid of a block writes every entry of scenario
+# tid % spb at the steps tid // spb, + threads // spb, ...
+def _store_map(kernel, n, A):
+    if kernel == "traj":
+        return {"X": A * n, "U": A * n}
+    return {"X": n, "U": n}
+
+
+TAIL_T = 7  # steps of the tail's mirror (not a multiple of its stride)
+
+
+def _derivs_row_entries(key, n):
+    """The entries derivs_row (csrc/envs.cuh) writes of block ``key`` over
+    its rows i < n: i*n + j of the square blocks, i of l_x and l_u."""
+    if key in ("lx", "lu"):
+        return list(range(n))
+    return [i * n + j for i in range(n) for j in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel, n", [kn for kn in PLAN_KINDS
+                                       if kn[0] in ("traj", "derivs")])
+def test_rollout_plan_stores_each_output_once(kernel, n, dtype):
+    """K5's and K8's stores under their plans at the ragged and full
+    batches of the plan test: every entry of a step of K5's ``X_all`` /
+    ``U_all`` ``[T, A*n, B]`` and of K8's X and U is written by exactly one
+    (block, compute thread), and each (step, scenario) of K8's seven
+    ``D_KEYS`` blocks by exactly one (block, thread) of its tail; no entry
+    past B is written; under a mirror of rollout_tile_kernel's store maps
+    (the lane's rows l, l + G, ... < n of its live rollout) and of
+    derivs_tail's."""
+    env_id, params = _plan_env(kernel, n)
+    A = len(ALPHAS)
+    per = A if kernel in rollout.EVERY_ALPHA else 1
+    for Bb in PLAN_BATCHES:
+        plan = rollout.rollout_plan(kernel, env_id, n, n, Bb, A, dtype,
+                                    params)
+        b, ai, lane, live = _rollout_lanes(plan, Bb, per)
+        padded = plan.blocks(Bb) * plan.scenarios
+        writers = {key: np.zeros((E, padded), dtype=int)
+                   for key, E in _store_map(kernel, n, A).items()}
+
+        def store(key, e, ok):  # one store of each (block, thread) on ok
+            np.add.at(writers[key], (e[ok], b[ok]), 1)
+
+        for r in range(-(-n // plan.groups)):
+            i = lane + plan.groups * r
+            ok = live & (i < n)
+            row = ai * n + i if kernel == "traj" else i
+            store("X", row, ok)
+            store("U", row, ok)
+        for key, count in writers.items():
+            assert (count[:, :Bb] == 1).all(), (kernel, n, Bb, key)
+            assert not count[:, Bb:].any(), (kernel, n, Bb, key)
+        if kernel != "derivs":
+            continue
+        nthr, spb = plan.threads(per), plan.scenarios
+        assert nthr % spb == 0
+        tid = np.arange(nthr)  # every thread of the block
+        bt = np.arange(plan.blocks(Bb))[:, None] * spb + tid % spb
+        steps = np.zeros((TAIL_T, padded), dtype=int)
+        for t in range(TAIL_T):
+            mine = (t >= tid // spb) & ((t - tid // spb) % (nthr // spb) == 0)
+            ok = np.broadcast_to(mine, bt.shape) & (bt < Bb)
+            np.add.at(steps[t], bt[ok], 1)
+        for key in rollout.D_KEYS:  # a (step, scenario) writes its entries
+            cover = np.bincount(_derivs_row_entries(key, n))
+            lin = steps[:, None, :] * cover[None, :, None]
+            assert (lin[:, :, :Bb] == 1).all(), (kernel, n, Bb, key)
+            assert not lin[:, :, Bb:].any(), (kernel, n, Bb, key)
 
 
 @pytest.mark.parametrize("name", ["navigation", "hvac", "reservoir",

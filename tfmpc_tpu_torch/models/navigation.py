@@ -119,8 +119,9 @@ class Navigation(Env):
         )
 
     def device_derivatives(self) -> DeviceStep:
-        """The step functor of ``device_step``, whose ``derivatives``
-        computes ``analytic_derivatives`` at one step in K8."""
+        """The step functor of ``device_step``, whose ``derivs_prep`` and
+        ``derivs_row`` compute ``analytic_derivatives`` at one step in
+        K8."""
         return self.device_step()
 
 

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -67,9 +68,9 @@ _SIGNATURES = {
     # scenarios a block, steps staged ahead, shared bytes) and the stream
     "tfmpc_linesearch_costs": [_I] * 6 + [_P] * 7 + [_I, _P, _I, _P, _I]
     + [_P, _I, _I, _I, _LL, _P],
-    # K5: as K2 up to J, then X, U, block and stream
+    # K5: as K2 up to J, then X, U, the plan and the stream
     "tfmpc_linesearch_costs_traj": [_I] * 6 + [_P] * 7
-    + [_I, _P, _I, _P, _I] + [_P] * 3 + [_I, _P],
+    + [_I, _P, _I, _P, _I] + [_P] * 3 + [_I, _I, _I, _LL, _P],
     # K3: dtype, env, n, m, T, B, alpha, xbar, ubar, K, k, lo, hi, params,
     # n_params, int_params, n_int, X, U, J, the plan as K2's, stream
     "tfmpc_rollout_alpha": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
@@ -77,7 +78,7 @@ _SIGNATURES = {
     # K8 (rollout_derivs.cu): as tfmpc_rollout_alpha, with lin (host
     # void*[7]: fx, fu, lx, lu, lxx, luu, lux) after J
     "tfmpc_rollout_alpha_derivs": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
-    + [_P] * 4 + [_I, _P],
+    + [_P] * 4 + [_I, _I, _I, _LL, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -115,17 +116,23 @@ def library_path() -> Path:
 def _run_all(cmds, log_prefix: Path):
     """Run the commands in parallel, each writing its output to a file
     beside the build (no pipe to fill); raise naming the first that failed.
-    Returns their combined output, in command order."""
+    Returns their combined output, in command order, then one line a
+    command, ``nvcc wall s <its last argument>: <seconds>``."""
     paths = [log_prefix.with_name(f"{log_prefix.name}.{i}.out")
              for i in range(len(cmds))]
     procs = []
     try:
+        start = time.perf_counter()
         for cmd, path in zip(cmds, paths):
             with open(path, "w") as f:
                 procs.append(subprocess.Popen(cmd, stdout=f,
                                               stderr=subprocess.STDOUT))
-        for proc in procs:
-            proc.wait()
+        walls = [None] * len(procs)
+        while None in walls:
+            for i, proc in enumerate(procs):
+                if walls[i] is None and proc.poll() is not None:
+                    walls[i] = time.perf_counter() - start
+            time.sleep(0.05)
         logs = [path.read_text() for path in paths]
         for cmd, proc, log in zip(cmds, procs, logs):
             if proc.returncode != 0:
@@ -133,7 +140,9 @@ def _run_all(cmds, log_prefix: Path):
                     f"nvcc failed with exit code {proc.returncode}: "
                     f"{' '.join(cmd)}\n{log}"
                 )
-        return "".join(logs)
+        return "".join(logs) + "".join(
+            f"nvcc wall s {Path(cmd[-1]).name}: {wall:.1f}\n"
+            for cmd, wall in zip(cmds, walls))
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -188,8 +197,8 @@ def library() -> ctypes.CDLL:
     # dtype, n, m, lanes a rollout, scenarios a block, depth, param values
     lib.tfmpc_rollout_smem_bytes.argtypes = [_I] * 7
     lib.tfmpc_rollout_smem_bytes.restype = ctypes.c_longlong
-    # costs, dtype, env, n, m, lanes a rollout, params, n_params,
-    # int_params, n_int
+    # kind (ops/rollout.py KIND_CODES), dtype, env, n, m, lanes a rollout,
+    # params, n_params, int_params, n_int
     lib.tfmpc_rollout_max_threads.argtypes = [_I] * 6 + [_P, _I, _P, _I]
     lib.tfmpc_rollout_max_threads.restype = ctypes.c_int
     return lib

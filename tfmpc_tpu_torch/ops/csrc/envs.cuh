@@ -3,8 +3,8 @@
 // Each functor mirrors its env's public transition/cost/final_cost exactly
 // (and the JAX package's lane_functions, e.g. navigation.py:182-214), and is
 // selected by the env_id that the env's device_step() returns. A functor
-// that also has derivatives() (navigation's, named by the env's
-// device_derivatives()) runs in K8, the rollout that writes the
+// that also has derivs_prep() and derivs_row() (navigation's, named by the
+// env's device_derivatives()) runs in K8, the rollout that writes the
 // linearization of its trajectory.
 //
 // Each functor's step is split for the rollout tile kernels (rollout.cuh),
@@ -114,26 +114,28 @@ struct NavigationStep {
     return cost;
   }
 
-  // The closed-form linearization at (x, u), written to step t of lane b
-  // of the [T, entries, B] blocks of `out` (models/navigation.py
+  // The closed-form linearization at (x, u) (models/navigation.py
   // analytic_derivatives, one step; the JAX package's lane_derivatives):
   //   f_x = I + u dlam^T (entry i*N + j), f_u = lam I, l_x = 2 (x - goal),
   //   l_xx = 2 I, l_u = l_uu = l_ux = 0, with
   //   dlam = sum_z [lam / g_z if g_z != 0 else 0] g'_z / dist_z (x - c_z),
-  //   g'_z = decay_z (1 - g_z^2) / 2.
-  // lam and each zone's g_z and dist_z repeat step()'s arithmetic; the
-  // zones are a runtime loop, so the second pass recomputes them.
-  template <int M>
-  __device__ __forceinline__ void derivatives(const S (&x)[N],
-                                              const S (&u)[M],
-                                              const LinOut<S>& out, int t,
-                                              int b, int B) const {
-    static_assert(M == N, "navigation actions have the state's size");
-    S lam = 1;
-    for (int z = 0; z < zones; ++z) lam = lam * factor(x, z);
+  //   g'_z = decay_z (1 - g_z^2) / 2,
+  // split as step() is: derivs_prep (lam, from prep(), and dlam; the
+  // zones are a runtime loop, so it recomputes each zone's g_z and dist_z
+  // as factor() does) and derivs_row (row i of f_x, f_u, l_xx, l_uu and
+  // l_ux and entry i of l_x and l_u, stored to step t of lane b of the
+  // [T, entries, B] blocks of ``out``). K8 runs them (rollout.cuh
+  // derivs_tail).
+  struct DerivsPre {
+    S lam;
     S dlam[N];
+  };
+  __device__ __forceinline__ DerivsPre derivs_prep(const Pre& p,
+                                                   const S (&x)[N]) const {
+    DerivsPre q;
+    q.lam = p.lam;
 #pragma unroll
-    for (int i = 0; i < N; ++i) dlam[i] = 0;
+    for (int i = 0; i < N; ++i) q.dlam[i] = 0;
     for (int z = 0; z < zones; ++z) {
       S d[N], d2 = 0;
 #pragma unroll
@@ -144,24 +146,30 @@ struct NavigationStep {
       const S dist = dsqrt(d2 + S(1e-12));
       const S g = S(2) / (S(1) + dexp(-decays[z] * dist)) - S(1);
       const S gp = decays[z] * (S(1) - g * g) / S(2);
-      const S coef = (g != S(0) ? lam / g : S(0)) * gp / dist;
+      const S coef = (g != S(0) ? q.lam / g : S(0)) * gp / dist;
 #pragma unroll
-      for (int i = 0; i < N; ++i) dlam[i] += coef * d[i];
+      for (int i = 0; i < N; ++i) q.dlam[i] += coef * d[i];
     }
+    return q;
+  }
+
+  // Row i of the linearization at (x_i, u_i), the lane's own entries.
+  template <int M>
+  __device__ __forceinline__ void derivs_row(const DerivsPre& q, int i, S xi,
+                                             S ui, const LinOut<S>& out,
+                                             int t, int b, int B) const {
+    static_assert(M == N, "navigation actions have the state's size");
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const int e = i * N + j;
-        out.fx[at(t, e, N * N, b, B)] = u[i] * dlam[j] + S(i == j ? 1 : 0);
-        out.fu[at(t, e, N * N, b, B)] = i == j ? lam : S(0);
-        out.lxx[at(t, e, N * N, b, B)] = S(i == j ? 2 : 0);
-        out.luu[at(t, e, N * N, b, B)] = S(0);
-        out.lux[at(t, e, N * N, b, B)] = S(0);
-      }
-      out.lx[at(t, i, N, b, B)] = S(2) * (x[i] - goal[i]);
-      out.lu[at(t, i, N, b, B)] = S(0);
+    for (int j = 0; j < N; ++j) {
+      const int64_t e = at(t, i * N + j, N * N, b, B);
+      out.fx[e] = ui * q.dlam[j] + S(i == j ? 1 : 0);
+      out.fu[e] = i == j ? q.lam : S(0);
+      out.lxx[e] = S(i == j ? 2 : 0);
+      out.luu[e] = S(0);
+      out.lux[e] = S(0);
     }
+    out.lx[at(t, i, N, b, B)] = S(2) * (xi - goal[i]);
+    out.lu[at(t, i, N, b, B)] = S(0);
   }
 
   // Zone z's deceleration factor 2 / (1 + exp(-decay_z dist_z)) - 1.

@@ -1,6 +1,7 @@
-// K2, K3 and K5 at n = m in {2, 3, 5, 6}, and the C entries of all three
-// (rollout.cuh says what they compute and how; rollout_n12.cu and
-// rollout_n16.cu hold the HVAC instantiations at n = m = 12 and 16).
+// K2, K3 and K5 at n = m in {2, 3, 5, 6}, and the C entries of the rollout
+// kernels (rollout.cuh says what they compute and how; rollout_n12.cu and
+// rollout_n16.cu hold the HVAC instantiations at n = m = 12 and 16,
+// rollout_derivs.cu K8's).
 #include "rollout.cuh"
 
 namespace tfmpc {
@@ -11,22 +12,34 @@ bool valid_plan(const TilePlan& p) {
          p.depth >= 1 && p.depth <= kTileMaxDepth;
 }
 
+}  // namespace
+
 int rollout_entry(const RolloutCall& c) {
-  if (c.T < 1 || (c.lo == nullptr) != (c.hi == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (c.kind != kAlphaK3 && (c.A < 1 || c.A > kMaxAlphas))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (c.kind != kTrajK5 && !valid_plan(c.plan))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (c.B <= 0 && c.max_threads == nullptr) return 0;
-  auto run = c.n != c.m     ? &rollout_dims<SmallDims>
-             : c.n == 12    ? &rollout_n12
-             : c.n == 16    ? &rollout_n16
-                            : &rollout_dims<SmallDims>;
+  const auto invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (c.kind < kCosts || c.kind > kDerivs || !valid_plan(c.plan) ||
+      c.T < 1 || (c.lo == nullptr) != (c.hi == nullptr))
+    return invalid;
+  if (every_alpha(c.kind) ? c.A < 1 || c.A > kMaxAlphas : c.A != 1)
+    return invalid;
+  if (c.max_threads == nullptr) {
+    if (c.kind != kCosts && (c.X == nullptr || c.U == nullptr))
+      return invalid;
+    if (!every_alpha(c.kind) && c.alpha == nullptr) return invalid;
+    if (c.kind == kDerivs) {
+      if (c.lin == nullptr) return invalid;
+      for (int i = 0; i < 7; ++i)
+        if (c.lin[i] == nullptr) return invalid;
+    }
+    if (c.B <= 0) return 0;
+  }
+  auto run = c.kind == kDerivs ? &rollout_derivs
+             : c.n != c.m      ? &rollout_dims<SmallDims, StepKinds>
+             : c.n == 12       ? &rollout_n12
+             : c.n == 16       ? &rollout_n16
+                               : &rollout_dims<SmallDims, StepKinds>;
   return run(c);
 }
 
-}  // namespace
 }  // namespace tfmpc
 
 using tfmpc::RolloutCall;
@@ -40,25 +53,25 @@ extern "C" int tfmpc_linesearch_costs(
     int n_params, const int* int_params, int n_int_params, void* J,
     int groups, int spb, int depth, long long smem_bytes, void* stream) {
   return tfmpc::rollout_entry(RolloutCall{
-      tfmpc::kCostsK2, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+      tfmpc::kCosts, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
       alphas, A, nullptr, params, n_params, int_params, n_int_params, J,
-      nullptr, nullptr, TilePlan{groups, spb, depth, smem_bytes}, 0,
+      nullptr, nullptr, nullptr, TilePlan{groups, spb, depth, smem_bytes},
       static_cast<cudaStream_t>(stream), nullptr});
 }
 
-// K5: J [A, B], X [T, A*n, B], U [T, A*m, B], ``block`` threads a block.
+// K5: J [A, B], X [T, A*n, B], U [T, A*m, B], with the launch plan.
 extern "C" int tfmpc_linesearch_costs_traj(
     int dtype, int env, int n, int m, int T, int B, const void* xbar,
     const void* ubar, const void* K, const void* k, const void* lo,
     const void* hi, const double* alphas, int A, const void* const* params,
     int n_params, const int* int_params, int n_int_params, void* J, void* X,
-    void* U, int block, void* stream) {
-  if (X == nullptr || U == nullptr || block < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+    void* U, int groups, int spb, int depth, long long smem_bytes,
+    void* stream) {
   return tfmpc::rollout_entry(RolloutCall{
-      tfmpc::kTrajK5, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+      tfmpc::kTraj, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
       alphas, A, nullptr, params, n_params, int_params, n_int_params, J, X,
-      U, TilePlan{}, block, static_cast<cudaStream_t>(stream), nullptr});
+      U, nullptr, TilePlan{groups, spb, depth, smem_bytes},
+      static_cast<cudaStream_t>(stream), nullptr});
 }
 
 // K3: X [T, n, B], U [T, m, B], J [B] at each scenario's alpha [B], with
@@ -69,29 +82,29 @@ extern "C" int tfmpc_rollout_alpha(
     const void* lo, const void* hi, const void* const* params, int n_params,
     const int* int_params, int n_int_params, void* X, void* U, void* J,
     int groups, int spb, int depth, long long smem_bytes, void* stream) {
-  if (alpha == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return tfmpc::rollout_entry(RolloutCall{
-      tfmpc::kAlphaK3, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+      tfmpc::kAlpha, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
       nullptr, 1, alpha, params, n_params, int_params, n_int_params, J, X, U,
-      TilePlan{groups, spb, depth, smem_bytes}, 0,
+      nullptr, TilePlan{groups, spb, depth, smem_bytes},
       static_cast<cudaStream_t>(stream), nullptr});
 }
 
-// The most threads a K2 (costs != 0) or K3 block can launch with at the
-// env's step, dims, dtype and G: the kernel's registers bound it (at most
-// 1024), so the plan keeps its blocks within it. A negative value is an
-// error code (an unknown env or dims, or a G not instantiated).
-extern "C" int tfmpc_rollout_max_threads(int costs, int dtype, int env,
+// The most threads a block of ``kind`` (RolloutKind: 0 K2, 1 K3, 2 K5,
+// 3 K8) can launch with at the env's step, dims, dtype and G: the
+// kernel's registers bound it (at most 1024), so the plan keeps its blocks
+// within it. A negative value is an error code (an unknown kind, env or
+// dims, or a G not instantiated).
+extern "C" int tfmpc_rollout_max_threads(int kind, int dtype, int env,
                                          int n, int m, int groups,
                                          const void* const* params,
                                          int n_params, const int* int_params,
                                          int n_int_params) {
   int max_threads = 0;
   const int rc = tfmpc::rollout_entry(RolloutCall{
-      costs ? tfmpc::kCostsK2 : tfmpc::kAlphaK3, dtype, env, n, m, 1, 1,
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
-      nullptr, params, n_params, int_params, n_int_params, nullptr, nullptr,
-      nullptr, TilePlan{groups, 1, 1, 0}, 0, nullptr, &max_threads});
+      kind, dtype, env, n, m, 1, 1, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, 1, nullptr, params, n_params, int_params,
+      n_int_params, nullptr, nullptr, nullptr, nullptr,
+      TilePlan{groups, 1, 1, 0}, nullptr, &max_threads});
   return rc != 0 ? -rc : max_threads;
 }
 
@@ -105,7 +118,7 @@ extern "C" void tfmpc_rollout_clocks_buffer(void* clocks) {
 }
 #endif
 
-// The dynamic shared bytes of a K2 or K3 block (rollout.cuh
+// The dynamic shared bytes of a tile block of any kind (rollout.cuh
 // tile_smem_bytes) for an env with ``param_elems`` parameter values: what
 // a launch requires of its plan, so the wrapper can check its own sum.
 extern "C" long long tfmpc_rollout_smem_bytes(int dtype, int n, int m,

@@ -1,8 +1,8 @@
-// K2, K3 and K5: the closed-loop rollouts of the iLQR line search.
+// K2, K3, K5 and K8: the closed-loop rollouts of the iLQR line search.
 //
 // Replaces: tfmpc_tpu/ops/rollout_pallas.py:linesearch_costs_pallas (body
 // _costs_kernel) as K2, rollout_pallas.py:rollout_alpha_pallas (body
-// _materialize_kernel) as K3, and rollout_pallas.py:
+// _materialize_kernel) as K3, rollout_pallas.py:
 // linesearch_costs_traj_pallas (body _costs_traj_kernel) as K5, and
 // rollout_pallas.py:rollout_alpha_derivs_pallas (body
 // _materialize_derivs_kernel) as K8.
@@ -13,13 +13,15 @@
 // are null otherwise), after the affine law, as rollout_pallas.py's
 // has_bounds clip does; it keeps NaN. The env step is a functor from
 // envs.cuh, dispatched on env_id; n = m in {2, 3, 5, 6}, and 12 and 16
-// for HVAC.
-// K5 is K2 that also stores x_{t+1} and u_t of every alpha at rows a*n + i
-// and a*m + c of step t ([T, A*n, B], [T, A*m, B]). It keeps the
-// one-thread code (policy_control and the functor's step()); K2 and K3
-// compute the same expressions row by row (policy_row and the functor's
-// row(), which step() loops over), so K5's J is K2's and its trajectory
-// of any alpha K3's at that alpha, bit for bit.
+// for HVAC. K2 rolls every (scenario, alpha) of an alpha grid and writes
+// J [A, B]; K3 rolls each scenario at its own alpha [B] and writes X [T, n,
+// B], U [T, m, B] and J [B]; K5 is K2 that also stores x_{t+1} and u_t of
+// every alpha at rows a*n + i and a*m + c of step t ([T, A*n, B], [T, A*m,
+// B]); K8 is K3 that also writes the env's closed-form linearization at
+// each step's (x_t, clipped u_t): the seven [T, entries, B] blocks of the
+// Riccati kernels' input layout, n^2 + n m + n + m + n^2 + m^2 + m n
+// entries, 24 values a step at n = m = 2 besides K3's 4 outputs
+// (navigation only: its functor's derivs_prep and derivs_row).
 //
 // The running cost J is summed in double for both dtypes and rounded once
 // to the output's: in float32 a sequential sum over T=500 steps drifts by
@@ -29,68 +31,61 @@
 // take torch's pairwise sum, whose error stays near one ulp.) In float64
 // the sum is the plain sequential one.
 //
-// What bounds them on this card: like K1, each rollout is a serial chain of
-// T dependent steps, so the kernels are latency-bound. Per step a thread
+// What bounds them on this card: each rollout is a serial chain of T
+// dependent steps, so the kernels are latency-bound. Per step a rollout
 // reads n + m + m*n + m inputs (10 scalars at n = m = 2, 54 at n = m = 6);
 // K2 writes only J [A, B] (45,056 values at B=4096, A=11), K3 writes X, U
-// and J. Total traffic is tens of MB, below what HBM moves in the time of
-// the chain.
+// and J. Their traffic is tens of MB, below what HBM moves in the time of
+// the chain. K5 at reservoir-5, T=500, B=1024, A=11 reads ~82 MB and
+// writes ~225 MB of trajectories, and K8 at the navigation headline
+// (B=4096, T=100, f32) moves ~62 MB: their bounds are bytes (~0.09 ms,
+// ~0.019 ms), but they too are chains of T dependent steps.
 //
-// What the design does about it (K2 and K3, the tile kernels below): a
-// block holds ``spb`` scenarios and, for K2, all A alphas of each (the TPU
-// kernel's one staged tile for every alpha of a lane block), so the A
-// rollouts of a scenario read one copy of its inputs. The block's last
-// warp only copies: it brings the inputs of steps t+1 .. t+D into a ring
-// of D+2 buffers in shared memory with cp.async while the compute warps
-// work on step t (16- or 8-byte copies where the batch and the pointers
-// are aligned, element copies otherwise), one block barrier a step. A
-// block's rows are segments of spb values spaced B apart, so the copies
-// are many short requests; issued by the compute warps they took 16-65%
-// of a step (phase clocks, PERF.md). The env's parameters and the box
-// (-inf, +inf for an unbounded env) are copied into shared memory once a
-// block and the step functor reads that copy. A rollout runs on a group
-// of G consecutive lanes of a warp: lane l computes the control rows c =
-// l, l + G, ... and the next-state rows i = l, l + G, ... (the env's
-// row(), envs.cuh), and the group exchanges u and x_{t+1} by shuffles, so
-// every lane holds the whole state; the stage cost is computed alike on
-// every lane. The plan (G, spb, D and the block's shared bytes,
-// ops/rollout.py rollout_plan) spreads B over the SMs; the C side
-// recomputes the shared bytes and refuses a plan that disagrees. Each
-// thread takes its alpha once: K2's from the kernel's argument by constant
-// indices (no local-memory copy of the array), K3's from alpha [B].
+// What the design does about it: the four are one tile kernel,
+// rollout_tile_kernel, of four kinds (RolloutKind: kCosts K2, kAlpha K3,
+// kTraj K5, kDerivs K8). A block holds ``spb`` scenarios and, for K2 and
+// K5, all A alphas of each (the TPU kernel's one staged tile for every
+// alpha of a lane block), so the A rollouts of a scenario read one copy of
+// its inputs. The block's last warp only copies: it brings the inputs of
+// steps t+1 .. t+D into a ring of D+2 buffers in shared memory with
+// cp.async while the compute warps work on step t (16- or 8-byte copies
+// where the batch and the pointers are aligned, element copies otherwise),
+// one block barrier a step. A block's rows are segments of spb values
+// spaced B apart, so the copies are many short requests; issued by the
+// compute warps they took 16-65% of a step (phase clocks, PERF.md). The
+// env's parameters and the box (-inf, +inf for an unbounded env) are
+// copied into shared memory once a block and the step functor reads that
+// copy. A rollout runs on a group of G consecutive lanes of a warp: lane l
+// computes the control rows c = l, l + G, ... and the next-state rows i =
+// l, l + G, ... (the env's row(), envs.cuh), and the group exchanges u
+// and x_{t+1} by shuffles, so every lane holds the whole state; the stage
+// cost is computed alike on every lane. Each lane stores its own rows of
+// X and U (K3, K8; K5 at its alpha's rows), so a warp's store of a row is
+// a segment of consecutive scenarios (32 / G where spb allows). K8's
+// linearization is off the chain: after the rollouts, the whole block
+// reads its scenarios' x_t and u_t back from its own stores and writes
+// the seven blocks, a (step, scenario) a thread (derivs_tail); written
+// inside the step loop by each lane (derivs_prep and derivs_row on the
+// chain, PERF.md), they took 70% of a step.
+// The plan (G, spb, D and the block's shared bytes, ops/rollout.py
+// rollout_plan, one table row per kind and dim) spreads B over the SMs;
+// the C side recomputes the shared bytes and refuses a plan that
+// disagrees. Each thread takes its alpha once: K2's and K5's from the
+// kernel's argument by constant indices (no local-memory copy of the
+// array), K3's and K8's from alpha [B].
 // The arithmetic is that of the one-thread kernels they replaced (commit
-// 0bac190), bit for bit: the policy row (ubar + alpha k) + sum_i K_ci
-// dx_i in ascending i, each env row in its order, the stage cost summed
-// over i in order, the running sum in double rounded once; only the
-// mapping and the data movement changed.
+// 0bac190 for K2 and K3, 5ff9ffd for K5 and K8), bit for bit: the policy
+// row (ubar + alpha k) + sum_i K_ci dx_i in ascending i, each env row in
+// its order, the stage cost summed over i in order, the running sum in
+// double rounded once, the linearization's expressions as they were; only
+// the mapping and the data movement changed.
 //
-// K5 at reservoir-5, T=500, B=1024, A=11 reads ~82 MB and writes ~225 MB of
-// trajectories, so its bound is bytes (~0.09 ms), but like K2 it is a chain
-// of T dependent steps per thread and latency-bound far above that. The
-// design keeps K2's: one thread per (scenario, alpha), scenario index
-// fastest, so each warp's stores to the [T, A*n, B] outputs are 32
-// consecutive addresses; state in registers for the whole chain, no time
-// blocking (the TPU kernel's time blocks buffer stores in VMEM; here a
-// store is issued and the chain goes on).
-//
-// K8 (the fused iteration's materialize) is K3 that also writes the env's
-// closed-form linearization at each step's (x_t, clipped u_t): 7 blocks of
-// n^2 + n m + n + m + n^2 + m^2 + m n entries, 26 values a step at n = m =
-// 2 besides K3's 4 outputs and 10 inputs, ~62 MB at the navigation
-// headline (B=4096, T=100, f32), so its bound is bytes (~0.019 ms). Like
-// K3 it is a chain of T dependent steps per thread and latency-bound above
-// that. The design keeps K3's (one thread per scenario, state in
-// registers) and writes each entry as soon as it is computed, scenario
-// index fastest, so every store of a warp is 32 consecutive addresses; the
-// constant entries (l_xx = 2I, the zero blocks) are stores with no loads.
-// Blocks of 32 threads spread B=4096 scenarios over 128 SMs, as K1.
-//
-// This header holds the kernels and their dispatch; each .cu instantiates
-// its own dims so the parallel build compiles them side by side:
-// rollout.cu n = m in {2, 3, 5, 6} for every env (and the C entries),
-// rollout_n12.cu and rollout_n16.cu the HVAC step at n = m = 12 and 16
-// (HVAC-12, HVAC-16), rollout_derivs.cu K8 with the navigation step at
-// n = m in {2, 3, 5, 6} (and its C entry).
+// This header holds the kernel and its dispatch; each .cu instantiates
+// its own kinds and dims so the parallel build compiles them side by
+// side: rollout.cu K2, K3 and K5 at n = m in {2, 3, 5, 6} for every env
+// (and the C entries), rollout_n12.cu and rollout_n16.cu those three with
+// the HVAC step at n = m = 12 and 16 (HVAC-12, HVAC-16), rollout_derivs.cu
+// K8 with the navigation step at n = m in {2, 3, 5, 6} (and its C entry).
 #pragma once
 
 #include <utility>
@@ -108,95 +103,7 @@ struct Alphas {
   S v[kMaxAlphas];
 };
 
-template <typename S, int N, int M>
-__device__ __forceinline__ void policy_control(
-    const S* __restrict__ xbar, const S* __restrict__ ubar,
-    const S* __restrict__ K, const S* __restrict__ k,
-    const S* __restrict__ lo, const S* __restrict__ hi, int t, int b, int B,
-    S alpha, const S (&x)[N], S (&u)[M]) {
-  S dx[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) dx[i] = x[i] - xbar[at(t, i, N, b, B)];
-#pragma unroll
-  for (int c = 0; c < M; ++c) {
-    const S base = ubar[at(t, c, M, b, B)] + alpha * k[at(t, c, M, b, B)];
-    S acc = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc += K[at(t, c * N + i, M * N, b, B)] * dx[i];
-    u[c] = base + acc;
-    if (lo != nullptr) u[c] = clip(u[c], lo[c], hi[c]);
-  }
-}
-
-template <typename S, int N, int M, class Env>
-__global__ void linesearch_costs_traj_kernel(
-    const S* __restrict__ xbar, const S* __restrict__ ubar,
-    const S* __restrict__ K, const S* __restrict__ k,
-    const S* __restrict__ lo, const S* __restrict__ hi, Alphas<S> alphas,
-    int A, Env env, S* __restrict__ J, S* __restrict__ X,
-    S* __restrict__ U, int T, int B) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(A) * B) return;
-  const int b = static_cast<int>(idx % B);
-  const int a = static_cast<int>(idx / B);
-  const S alpha = alphas.v[a];
-
-  S x[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = xbar[at(0, i, N, b, B)];
-  double total = 0;
-  for (int t = 0; t < T; ++t) {
-    S u[M], xn[N];
-    policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
-    total += static_cast<double>(env.template step<M>(x, u, xn));
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      X[at(t, a * N + i, A * N, b, B)] = xn[i];
-      x[i] = xn[i];
-    }
-#pragma unroll
-    for (int c = 0; c < M; ++c) U[at(t, a * M + c, A * M, b, B)] = u[c];
-  }
-  J[idx] = static_cast<S>(total + static_cast<double>(env.final_cost(x)));
-}
-
-// K8: K3 that also writes, at every step, the env's closed-form
-// linearization at the pre-step state and the clipped control
-// (Env::derivatives, envs.cuh) into the seven [T, entries, B] blocks of
-// `lin`, the Riccati kernels' input layout. X, U and J are K3's arithmetic
-// (the same policy_control and step).
-template <typename S, int N, int M, class Env>
-__global__ void rollout_alpha_derivs_kernel(
-    const S* __restrict__ alpha_in, const S* __restrict__ xbar,
-    const S* __restrict__ ubar, const S* __restrict__ K,
-    const S* __restrict__ k, const S* __restrict__ lo,
-    const S* __restrict__ hi, Env env, S* __restrict__ X, S* __restrict__ U,
-    S* __restrict__ J, LinOut<S> lin, int T, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const S alpha = alpha_in[b];
-
-  S x[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = xbar[at(0, i, N, b, B)];
-  double total = 0;
-  for (int t = 0; t < T; ++t) {
-    S u[M], xn[N];
-    policy_control<S, N, M>(xbar, ubar, K, k, lo, hi, t, b, B, alpha, x, u);
-    env.template derivatives<M>(x, u, lin, t, b, B);
-    total += static_cast<double>(env.template step<M>(x, u, xn));
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      X[at(t, i, N, b, B)] = xn[i];
-      x[i] = xn[i];
-    }
-#pragma unroll
-    for (int c = 0; c < M; ++c) U[at(t, c, M, b, B)] = u[c];
-  }
-  J[b] = static_cast<S>(total + static_cast<double>(env.final_cost(x)));
-}
-
-// -- K2 and K3: the tile kernels ---------------------------------------------
+// -- the tile kernel -----------------------------------------------------------
 
 constexpr int kTileMaxThreads = 1024;       // ops/rollout.py TILE_MAX_THREADS
 constexpr int kWarp = 32;                   // the producer warp's threads
@@ -238,13 +145,25 @@ inline long long tile_smem_bytes(int itemsize, int n, int m, int groups,
          itemsize;
 }
 
+// The kinds of the tile kernel, and of a rollout C call.
+enum RolloutKind { kCosts = 0, kAlpha = 1, kTraj = 2, kDerivs = 3 };
+
+// The kinds that roll A alphas of each scenario (the others one, at the
+// scenario's own alpha).
+__host__ __device__ constexpr bool every_alpha(int kind) {
+  return kind == kCosts || kind == kTraj;
+}
+
 template <typename S>
 struct TileArgs {
   const S *xbar, *ubar, *K, *k, *lo, *hi;
-  const S* alpha;  // K3: each scenario's alpha [B]
-  S *X, *U, *J;    // K3: X [T, n, B], U [T, m, B], J [B]; K2: J [A, B]
+  const S* alpha;  // K3, K8: each scenario's alpha [B]
+  // K3, K8: X [T, n, B], U [T, m, B], J [B]; K2: J [A, B]; K5: J [A, B],
+  // X [T, A*n, B], U [T, A*m, B]
+  S *X, *U, *J;
+  LinOut<S> lin;  // K8
   int T, B, A, spb, depth, stride, vec_bytes;
-  Alphas<S> alphas;  // K2
+  Alphas<S> alphas;  // K2, K5
 #ifdef TFMPC_ROLLOUT_CLOCKS
   unsigned long long* clocks;
 #endif
@@ -364,14 +283,103 @@ __device__ __forceinline__ S from_lane(S v, int src) {
     return __shfl_sync(kFullMask, v, src, G);
 }
 
-// K2 (kCosts: the block's spb scenarios times A alphas, J [A, B]) and K3
-// (one rollout a scenario at its own alpha, X, U and J). Compute thread
-// tid is lane tid % G of rollout tid / G; rollout r is scenario b0 + r %
-// spb at alpha r / spb. The threads past the last rollout (the compute
-// threads are whole warps) and the scenarios past B run the steps on
-// staged values that nobody reads and store nothing. The last warp copies
-// the inputs (see the producer branch).
-template <typename S, int N, int M, int G, class Env, bool kCosts>
+#ifdef TFMPC_ROLLOUT_BULK_STORES
+// An experiment (tools/kernel_versions.py rollout, PERF.md): K5 stages a
+// step's X and U rows of the block in shared memory (two buffers of 2 A n
+// rows of spb values) and, after the next step's barrier, compute thread
+// j copies row j, j + ncomp, ... to device memory with one bulk copy
+// (cp.async.bulk) each, in place of the lanes' direct stores; blocks whose
+// rows are not whole 16-byte segments store directly.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          gmem),
+      "r"(s), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Issue step t's staged rows (buffer t & 1) of this thread.
+template <typename S, int N>
+__device__ __forceinline__ void bulk_issue(const TileArgs<S>& a,
+                                           const S* stage, int t, int b0,
+                                           int tid, int ncomp) {
+  const int rows = a.A * N;
+  const S* buf = stage + (t & 1) * 2 * rows * a.spb;
+  bool any = false;
+  for (int r = tid; r < 2 * rows; r += ncomp) {
+    S* out = r < rows ? a.X + at(t, r, rows, b0, a.B)
+                      : a.U + at(t, r - rows, rows, b0, a.B);
+    bulk_store(out, buf + r * a.spb, a.spb * static_cast<int>(sizeof(S)));
+    any = true;
+  }
+  if (any) bulk_commit();
+}
+
+// The staging buffers' shared bytes (after the ring, 16-byte aligned).
+template <typename S, int N>
+inline long long bulk_stage_bytes(int A, int spb) {
+  return 16 + 2LL * 2 * A * N * spb * static_cast<long long>(sizeof(S));
+}
+#endif
+
+// K8's linearization of the block's scenarios, after their rollouts (every
+// thread of the block, the producer warp's too): step t of scenario b at
+// its pre-step state and clipped control, read back from the block's own
+// stores (x_t from X [t-1], x_0 from xbar, u_t from U [t]), which the
+// barrier makes visible to the block. Thread tid takes scenario b0 + tid %
+// spb at the steps tid / spb, + nthr / spb, ... (nthr is a multiple of
+// spb): the steps are independent, so the work runs at the block's width
+// instead of on the rollout's serial chain. The values are the registers
+// the rollout stored, so the expressions (prep, derivs_prep, derivs_row)
+// give the bits they give there.
+template <typename S, int N, int M, class Env>
+__device__ __forceinline__ void derivs_tail(const TileArgs<S>& a,
+                                            const Env& env, int b0, int tid,
+                                            int nthr) {
+  __syncthreads();  // the block's X and U stores are visible
+  const int b = b0 + (tid & (a.spb - 1));
+  if (b >= a.B) return;
+  const int64_t B = a.B;
+#pragma unroll 1
+  for (int t = tid / a.spb; t < a.T; t += nthr / a.spb) {
+    const S* xs = t == 0 ? a.xbar : a.X + at(t - 1, 0, N, 0, a.B);
+    S x[N], u[M];
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = xs[i * B + b];
+#pragma unroll
+    for (int c = 0; c < M; ++c) u[c] = a.U[at(t, c, M, b, a.B)];
+    const auto dpre = env.derivs_prep(env.prep(x), x);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      env.template derivs_row<M>(dpre, i, x[i], u[i], a.lin, t, b, a.B);
+  }
+}
+
+// The tile kernel of kind kKind: K2 (kCosts: the block's spb scenarios
+// times A alphas, J [A, B]), K5 (kTraj: K2's rollouts, also every alpha's
+// X and U), K3 (kAlpha: one rollout a scenario at its own alpha, X, U and
+// J) or K8 (kDerivs: K3's rollouts, then the linearization,
+// derivs_tail). Compute
+// thread tid is lane tid % G of rollout tid / G; rollout r is scenario b0
+// + r % spb at alpha r / spb. The threads past the last rollout (the
+// compute threads are whole warps) and the scenarios past B run the steps
+// on staged values that nobody reads and store nothing. The last warp
+// copies the inputs (see the producer branch).
+template <typename S, int N, int M, int G, class Env, int kKind>
 __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
   static_assert(N == M, "the rollout kernels run n = m");
   static_assert(G == 1 || G == 2 || G == 4 || G == 8 || G == 16,
@@ -402,15 +410,24 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
   const int bufs = a.depth + 2;
 
   const int ncomp = nthr - kWarp;       // the compute warps' threads
+#ifdef TFMPC_ROLLOUT_BULK_STORES
+  S* stage = reinterpret_cast<S*>(
+      (reinterpret_cast<uintptr_t>(ring + bufs * step_elems) + 15) /
+      16 * 16);
+  const bool bulk = kKind == kTraj && a.vec_bytes == 16 &&
+                    a.spb * static_cast<int>(sizeof(S)) % 16 == 0 &&
+                    b0 + a.spb <= a.B;
+#endif
   const bool producer = tid >= ncomp;  // the copying warp
   const int lane = tid & (G - 1);
   const int roll = tid / G;
   const int s = roll % a.spb;
   const int ai = roll / a.spb;
   const int b = b0 + s;
-  const bool live = !producer && ai < (kCosts ? a.A : 1) && b < a.B;
+  constexpr bool kEvery = every_alpha(kKind);
+  const bool live = !producer && ai < (kEvery ? a.A : 1) && b < a.B;
   S alpha = 0;
-  if constexpr (kCosts) {
+  if constexpr (kEvery) {
 #pragma unroll
     for (int j = 0; j < kMaxAlphas; ++j)
       if (j == ai) alpha = a.alphas.v[j];
@@ -448,6 +465,7 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
       next = next + 1 == bufs ? 0 : next + 1;
     }
     TFMPC_TILE_CLOCKS_END(5)
+    if constexpr (kKind == kDerivs) derivs_tail<S, N, M>(a, env, b0, tid, nthr);
     return;
   }
 
@@ -476,6 +494,9 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
   for (int t = 0; t < a.T; ++t) {
     __syncthreads();  // step t's inputs have landed
     TFMPC_TILE_PHASE(1)
+#ifdef TFMPC_ROLLOUT_BULK_STORES
+    if (bulk && t > 0) bulk_issue<S, N>(a, stage, t - 1, b0, tid, ncomp);
+#endif
     const S* in = ring + cur * step_elems + s;
     const int st = a.stride;
     S dx[N];
@@ -504,14 +525,33 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
     }
     TFMPC_TILE_PHASE(3)
     const S cost = env.template stage_cost<M>(x, u);
-    if constexpr (!kCosts) {
-      if (live) {
+    if constexpr (kKind != kCosts) {
+      const int row0 = kKind == kTraj ? ai * N : 0;
+      const int rows = kKind == kTraj ? a.A * N : N;
+#ifdef TFMPC_ROLLOUT_BULK_STORES
+      if (bulk) {
+        S* buf = stage + (t & 1) * 2 * rows * a.spb;
+        if (live) {
+#pragma unroll
+          for (int r = 0; r < RN; ++r) {
+            const int i = lane + G * r;
+            if (G * (r + 1) <= N || i < N) {
+              buf[(row0 + i) * a.spb + s] = xn[r];
+              buf[(rows + row0 + i) * a.spb + s] = uo[r];
+            }
+          }
+        }
+        fence_proxy_async();
+        bulk_wait_read();  // step t - 1's copies have read their buffer
+      } else
+#endif
+      if (live) {  // K5: alpha ai's rows of [T, A*n, B] and [T, A*m, B]
 #pragma unroll
         for (int r = 0; r < RN; ++r) {
           const int i = lane + G * r;
           if (G * (r + 1) <= N || i < N) {
-            a.X[at(t, i, N, b, a.B)] = xn[r];
-            a.U[at(t, i, M, b, a.B)] = uo[r];
+            a.X[at(t, row0 + i, rows, b, a.B)] = xn[r];
+            a.U[at(t, row0 + i, rows, b, a.B)] = uo[r];
           }
         }
       }
@@ -525,9 +565,17 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
     TFMPC_TILE_PHASE(4)
   }
   TFMPC_TILE_CLOCKS_END(7)
+#ifdef TFMPC_ROLLOUT_BULK_STORES
+  if (bulk) {
+    named_barrier(1, ncomp);  // the last step's rows are staged
+    bulk_issue<S, N>(a, stage, a.T - 1, b0, tid, ncomp);
+    bulk_wait();
+  }
+#endif
   if (live && lane == 0)
-    a.J[kCosts ? static_cast<int64_t>(ai) * a.B + b : b] =
+    a.J[kEvery ? static_cast<int64_t>(ai) * a.B + b : b] =
         static_cast<S>(total + static_cast<double>(env.final_cost(x)));
+  if constexpr (kKind == kDerivs) derivs_tail<S, N, M>(a, env, b0, tid, nthr);
 }
 
 // The copy width: the widest of 16, 8 and 4 bytes that a block's row of
@@ -564,46 +612,46 @@ struct TilePlan {
 extern unsigned long long* tile_clocks;
 #endif
 
-// One call of a rollout C entry: K2 (kind kCostsK2), K3 (kAlphaK3) or K5
-// (kTrajK5, the one-thread kernel with ``block`` threads a block).
-enum RolloutKind { kCostsK2 = 0, kAlphaK3 = 1, kTrajK5 = 2 };
-
+// One call of a rollout C entry, of kind RolloutKind.
 struct RolloutCall {
   int kind, dtype, env, n, m, T, B;
   const void *xbar, *ubar, *K, *k, *lo, *hi;
   const double* alphas;  // K2, K5 (host)
   int A;
-  const void* alpha;  // K3 (device, [B])
+  const void* alpha;  // K3, K8 (device, [B])
   const void* const* params;
   int n_params;
   const int* int_params;
   int n_int_params;
   void *J, *X, *U;
-  TilePlan plan;  // K2, K3
-  int block;      // K5
+  void* const* lin;  // K8: fx, fu, lx, lu, lxx, luu, lux (host array)
+  TilePlan plan;
   cudaStream_t stream;
-  // K2, K3: where non-null, receives the most threads a block of the
-  // plan's G can launch with (its registers bound it), and nothing runs
+  // where non-null, receives the most threads a block of the plan's G can
+  // launch with (its registers bound it), and nothing runs
   int* max_threads;
 };
 
 namespace {
 
-// The G of ops/rollout.py ROLLOUT_PLANS, per kernel and dim: the G each
-// source instantiates (with TFMPC_ROLLOUT_ALL_G, the sweep's build, every
-// G at each dim's swept env too).
+// The G of ops/rollout.py ROLLOUT_PLANS, per kind and dim: the G each
+// source instantiates (with TFMPC_ROLLOUT_ALL_G, the sweep's build, a mask
+// of kinds, bit k for kind k: every G of those kinds at each dim's swept
+// env too).
 struct PlanGroups {
-  bool costs;
-  int n, groups;
+  int kind, n, groups;
 };
 constexpr PlanGroups kPlanGroups[] = {
-    {true, 2, 1},  {true, 3, 1},  {true, 5, 4},  {true, 6, 2},
-    {true, 12, 4}, {true, 16, 2}, {false, 2, 2}, {false, 3, 4},
-    {false, 5, 8}, {false, 6, 8}, {false, 12, 4}, {false, 16, 16}};
+    {kCosts, 2, 1},   {kCosts, 3, 1},   {kCosts, 5, 4},    {kCosts, 6, 2},
+    {kCosts, 12, 4},  {kCosts, 16, 2},  {kAlpha, 2, 2},    {kAlpha, 3, 4},
+    {kAlpha, 5, 8},   {kAlpha, 6, 8},   {kAlpha, 12, 4},   {kAlpha, 16, 16},
+    {kTraj, 2, 1},    {kTraj, 3, 1},    {kTraj, 5, 4},     {kTraj, 6, 2},
+    {kTraj, 12, 2},   {kTraj, 16, 4},   {kDerivs, 2, 2},   {kDerivs, 3, 1},
+    {kDerivs, 5, 2},  {kDerivs, 6, 2}};
 
-constexpr int plan_groups(bool costs, int n) {
+constexpr int plan_groups(int kind, int n) {
   for (const PlanGroups& p : kPlanGroups)
-    if (p.costs == costs && p.n == n) return p.groups;
+    if (p.kind == kind && p.n == n) return p.groups;
   return 0;
 }
 
@@ -626,25 +674,29 @@ int with_group_upto(int groups, F&& f) {
 }
 
 // Calls f(std::integral_constant<int, G>) for the plan's G, if instantiated.
-template <bool kCosts, int N, class Env, class F>
+template <int kKind, int N, class Env, class F>
 int with_groups(int groups, F&& f) {
 #ifdef TFMPC_ROLLOUT_ALL_G
   // the sweep's env at each dim: navigation at 2, reservoir at 5, HVAC at
-  // 3, 6, 12 and 16 (tools/kernel_versions.py rollout --sweep)
-  constexpr int swept = N == 2 ? kNavigation : N == 5 ? kReservoir : kHVAC;
-  if constexpr (Env::kId == swept)
+  // 3, 6, 12 and 16 (tools/kernel_versions.py rollout --sweep); K8's,
+  // navigation at every dim
+  constexpr int swept = kKind == kDerivs ? kNavigation
+                        : N == 2         ? kNavigation
+                        : N == 5         ? kReservoir
+                                         : kHVAC;
+  if constexpr (Env::kId == swept && ((TFMPC_ROLLOUT_ALL_G) >> kKind & 1))
     return with_group_upto<N, 1>(groups, static_cast<F&&>(f));
 #endif
-  constexpr int G = plan_groups(kCosts, N);
-  static_assert(G > 0, "a rollout dim without a plan");
+  constexpr int G = plan_groups(kKind, N);
+  static_assert(G > 0, "a rollout kind and dim without a plan");
   if (groups == G) return f(std::integral_constant<int, G>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename S, int N, int G, bool kCosts, class Env>
+template <typename S, int N, int G, int kKind, class Env>
 int launch_tile(TileArgs<S> a, const Env& env, const TilePlan& plan,
                 cudaStream_t stream, int* max_threads) {
-  auto kernel = rollout_tile_kernel<S, N, N, G, Env, kCosts>;
+  auto kernel = rollout_tile_kernel<S, N, N, G, Env, kKind>;
   static int kernel_max_threads = 0;  // this instantiation's, by registers
   if (kernel_max_threads == 0) {
     cudaFuncAttributes attr;
@@ -658,23 +710,31 @@ int launch_tile(TileArgs<S> a, const Env& env, const TilePlan& plan,
     return 0;
   }
   const int threads =
-      (a.spb * (kCosts ? a.A : 1) * G + kWarp - 1) / kWarp * kWarp + kWarp;
+      (a.spb * (every_alpha(kKind) ? a.A : 1) * G + kWarp - 1) / kWarp *
+          kWarp +
+      kWarp;
   const long long bytes =
       tile_smem_bytes(sizeof(S), N, N, G, a.spb, a.depth,
                       env.template param_elems<N>());
   if (bytes != plan.smem_bytes || bytes > kTileMaxSmem ||
       threads > kTileMaxThreads || threads > kernel_max_threads)
     return static_cast<int>(cudaErrorInvalidValue);
+#ifdef TFMPC_ROLLOUT_BULK_STORES
+  const long long launch_bytes =
+      bytes + (kKind == kTraj ? bulk_stage_bytes<S, N>(a.A, a.spb) : 0);
+#else
+  const long long launch_bytes = bytes;
+#endif
   a.stride = tile_stride(a.spb, G, sizeof(S));
   a.vec_bytes = tile_vec_bytes(a);
-  if (bytes > 48 * 1024) {
+  if (launch_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        static_cast<int>(launch_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<blocks_for(a.B, a.spb), threads, static_cast<size_t>(bytes),
-           stream>>>(a, env);
+  kernel<<<blocks_for(a.B, a.spb), threads,
+           static_cast<size_t>(launch_bytes), stream>>>(a, env);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -736,20 +796,29 @@ int with_dims(DimList<N0, Ns...>, int n, int m, F&& f) {
   return with_dims(DimList<Ns...>{}, n, m, static_cast<F&&>(f));
 }
 
-// K2, K3 or K5 at dim N with the env's functor.
+template <int... Ks>
+struct KindList {};
+
+// The call's kind, if in the list, at dim N with the env's functor.
 template <typename S, int N, class Env>
-int launch_kind(const RolloutCall& c, const Env& step) {
-  if (c.kind == kTrajK5) {
-    Alphas<S> al{};
-    for (int a = 0; a < c.A; ++a) al.v[a] = static_cast<S>(c.alphas[a]);
-    linesearch_costs_traj_kernel<S, N, N, Env>
-        <<<blocks_for(static_cast<int64_t>(c.A) * c.B, c.block), c.block, 0,
-           c.stream>>>(
-            (const S*)c.xbar, (const S*)c.ubar, (const S*)c.K, (const S*)c.k,
-            (const S*)c.lo, (const S*)c.hi, al, c.A, step, (S*)c.J, (S*)c.X,
-            (S*)c.U, c.T, c.B);
-    return static_cast<int>(cudaGetLastError());
-  }
+int launch_kind(KindList<>, const RolloutCall&, const TileArgs<S>&,
+                const Env&) {
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+template <typename S, int N, class Env, int K0, int... Ks>
+int launch_kind(KindList<K0, Ks...>, const RolloutCall& c,
+                const TileArgs<S>& a, const Env& step) {
+  if (c.kind != K0)
+    return launch_kind<S, N>(KindList<Ks...>{}, c, a, step);
+  return with_groups<K0, N, Env>(c.plan.groups, [&](auto g) {
+    return launch_tile<S, N, decltype(g)::value, K0>(a, step, c.plan,
+                                                     c.stream, c.max_threads);
+  });
+}
+
+// The tile kernel's arguments of a call.
+template <typename S>
+TileArgs<S> tile_args(const RolloutCall& c) {
   TileArgs<S> a{};
   a.xbar = static_cast<const S*>(c.xbar);
   a.ubar = static_cast<const S*>(c.ubar);
@@ -761,6 +830,10 @@ int launch_kind(const RolloutCall& c, const Env& step) {
   a.X = static_cast<S*>(c.X);
   a.U = static_cast<S*>(c.U);
   a.J = static_cast<S*>(c.J);
+  if (c.lin != nullptr) {
+    auto L = [&c](int i) { return static_cast<S*>(c.lin[i]); };
+    a.lin = LinOut<S>{L(0), L(1), L(2), L(3), L(4), L(5), L(6)};
+  }
 #ifdef TFMPC_ROLLOUT_CLOCKS
   a.clocks = tile_clocks;
 #endif
@@ -769,45 +842,44 @@ int launch_kind(const RolloutCall& c, const Env& step) {
   a.A = c.A;
   a.spb = c.plan.spb;
   a.depth = c.plan.depth;
-  if (c.kind == kCostsK2) {
-    for (int j = 0; j < c.A && c.alphas != nullptr; ++j)
-      a.alphas.v[j] = static_cast<S>(c.alphas[j]);
-    return with_groups<true, N, Env>(c.plan.groups, [&](auto g) {
-      return launch_tile<S, N, decltype(g)::value, true>(
-          a, step, c.plan, c.stream, c.max_threads);
-    });
-  }
-  return with_groups<false, N, Env>(c.plan.groups, [&](auto g) {
-    return launch_tile<S, N, decltype(g)::value, false>(
-        a, step, c.plan, c.stream, c.max_threads);
-  });
+  for (int j = 0; j < c.A && c.alphas != nullptr; ++j)
+    a.alphas.v[j] = static_cast<S>(c.alphas[j]);
+  return a;
 }
 
-template <typename S, class Dims>
+// The kinds ``Kinds`` of the call at the dims ``Dims``, every env's step
+// (the HVAC step alone at the mid dims).
+template <typename S, class Dims, class Kinds>
 int rollout_dtype(const RolloutCall& c) {
+  const TileArgs<S> a = tile_args<S>(c);
   return with_dims(Dims{}, c.n, c.m, [&](auto dim) {
     constexpr int N = decltype(dim)::value;
     return with_env_at<S, N>(c.env, c.params, c.n_params, c.int_params,
                              c.n_int_params, [&](auto step) {
-                               return launch_kind<S, N>(c, step);
+                               return launch_kind<S, N>(Kinds{}, c, a, step);
                              });
   });
 }
 
 }  // namespace
 
-// The dtype dispatch over the dims ``Dims``.
-template <class Dims>
+// The dtype dispatch over the dims ``Dims`` and kinds ``Kinds``.
+template <class Dims, class Kinds>
 int rollout_dims(const RolloutCall& c) {
-  if (c.dtype == kFloat32) return rollout_dtype<float, Dims>(c);
-  if (c.dtype == kFloat64) return rollout_dtype<double, Dims>(c);
+  if (c.dtype == kFloat32) return rollout_dtype<float, Dims, Kinds>(c);
+  if (c.dtype == kFloat64) return rollout_dtype<double, Dims, Kinds>(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// rollout.cu's dims; rollout_n12.cu and rollout_n16.cu define the two mid
-// dims' entries, so the parallel build compiles them side by side.
+// rollout.cu's dims and kinds; rollout_n12.cu and rollout_n16.cu define
+// the two mid dims' entries and rollout_derivs.cu K8's, so the parallel
+// build compiles them side by side. rollout_entry (rollout.cu) checks a
+// call and sends it to the one that instantiates its kind and dims.
 using SmallDims = DimList<2, 3, 5, 6>;
+using StepKinds = KindList<kCosts, kAlpha, kTraj>;
 int rollout_n12(const RolloutCall& c);
 int rollout_n16(const RolloutCall& c);
+int rollout_derivs(const RolloutCall& c);
+int rollout_entry(const RolloutCall& c);
 
 }  // namespace tfmpc

@@ -8,54 +8,41 @@ namespace tfmpc {
 namespace {
 
 template <typename S>
-int derivs_dtype(int env, int n, int m, int T, int B, const void* alpha,
-                 const void* xbar, const void* ubar, const void* K,
-                 const void* k, const void* lo, const void* hi,
-                 const void* const* params, int n_params,
-                 const int* int_params, int n_int_params, void* X, void* U,
-                 void* J, void* const* lin, int block, cudaStream_t stream) {
-  if (env != kNavigation || n_params != 3 || n_int_params != 1)
+int derivs_dtype(const RolloutCall& c) {
+  if (c.env != kNavigation || c.n_params != 3 || c.n_int_params != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto P = [params](int i) { return static_cast<const S*>(params[i]); };
-  auto L = [lin](int i) { return static_cast<S*>(lin[i]); };
-  const LinOut<S> out{L(0), L(1), L(2), L(3), L(4), L(5), L(6)};
-  return with_dims(SmallDims{}, n, m, [&](auto dim) {
+  const TileArgs<S> a = tile_args<S>(c);
+  auto P = [&c](int i) { return static_cast<const S*>(c.params[i]); };
+  return with_dims(SmallDims{}, c.n, c.m, [&](auto dim) {
     constexpr int N = decltype(dim)::value;
-    const NavigationStep<S, N> step{P(0), P(1), P(2), int_params[0]};
-    rollout_alpha_derivs_kernel<S, N, N, NavigationStep<S, N>>
-        <<<blocks_for(B, block), block, 0, stream>>>(
-            (const S*)alpha, (const S*)xbar, (const S*)ubar, (const S*)K,
-            (const S*)k, (const S*)lo, (const S*)hi, step, (S*)X, (S*)U,
-            (S*)J, out, T, B);
-    return static_cast<int>(cudaGetLastError());
+    const NavigationStep<S, N> step{P(0), P(1), P(2), c.int_params[0]};
+    return launch_kind<S, N>(KindList<kDerivs>{}, c, a, step);
   });
 }
 
 }  // namespace
+
+int rollout_derivs(const RolloutCall& c) {
+  if (c.dtype == kFloat32) return derivs_dtype<float>(c);
+  if (c.dtype == kFloat64) return derivs_dtype<double>(c);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace tfmpc
 
-// lin: the seven output blocks fx, fu, lx, lu, lxx, luu, lux (host array
-// of device pointers), each [T, entries, B].
+// K8: X [T, n, B], U [T, m, B], J [B] at each scenario's alpha [B] and
+// lin, the seven output blocks fx, fu, lx, lu, lxx, luu, lux (host array
+// of device pointers), each [T, entries, B]; with the launch plan.
 extern "C" int tfmpc_rollout_alpha_derivs(
     int dtype, int env, int n, int m, int T, int B, const void* alpha,
     const void* xbar, const void* ubar, const void* K, const void* k,
     const void* lo, const void* hi, const void* const* params, int n_params,
     const int* int_params, int n_int_params, void* X, void* U, void* J,
-    void* const* lin, int block, void* stream) {
-  using namespace tfmpc;
-  if (T < 1 || (lo == nullptr) != (hi == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  for (int i = 0; i < 7; ++i)
-    if (lin[i] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return derivs_dtype<float>(env, n, m, T, B, alpha, xbar, ubar, K, k, lo,
-                               hi, params, n_params, int_params, n_int_params,
-                               X, U, J, lin, block, s);
-  if (dtype == kFloat64)
-    return derivs_dtype<double>(env, n, m, T, B, alpha, xbar, ubar, K, k, lo,
-                                hi, params, n_params, int_params,
-                                n_int_params, X, U, J, lin, block, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    void* const* lin, int groups, int spb, int depth, long long smem_bytes,
+    void* stream) {
+  return tfmpc::rollout_entry(tfmpc::RolloutCall{
+      tfmpc::kDerivs, dtype, env, n, m, T, B, xbar, ubar, K, k, lo, hi,
+      nullptr, 1, alpha, params, n_params, int_params, n_int_params, J, X, U,
+      lin, tfmpc::TilePlan{groups, spb, depth, smem_bytes},
+      static_cast<cudaStream_t>(stream), nullptr});
 }

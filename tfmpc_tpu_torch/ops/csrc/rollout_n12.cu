@@ -1,10 +1,12 @@
 // K2, K3 and K5 with the HVAC step at n = m = 12 (rollout.cuh), a source
 // of its own so that nvcc compiles it in parallel with the other dims;
-// rollout.cu's C entries call rollout_n12.
+// rollout.cu's rollout_entry calls rollout_n12.
 #include "rollout.cuh"
 
 namespace tfmpc {
 
-int rollout_n12(const RolloutCall& c) { return rollout_dims<DimList<12>>(c); }
+int rollout_n12(const RolloutCall& c) {
+  return rollout_dims<DimList<12>, StepKinds>(c);
+}
 
 }  // namespace tfmpc

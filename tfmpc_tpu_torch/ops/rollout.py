@@ -19,9 +19,10 @@ raise; on CPU tensors they run the plain PyTorch versions
 ``linesearch_costs_traj_ref`` / ``rollout_alpha_derivs_ref``. The module
 counts kernel launches and plain-version calls per wrapper. A bounded
 env's controls are clipped to its box after the affine law, in the
-kernels as in the plain versions. K2 and K3 launch with a plan
-(``rollout_plan``: the lanes a rollout, the scenarios a block, the steps
-staged ahead and the shared bytes); K5 and K8 with a block size.
+kernels as in the plain versions. The four kernels are one tile kernel of
+four kinds, each launched with a plan (``rollout_plan``: the lanes a
+rollout, the scenarios a block, the steps staged ahead and the shared
+bytes).
 """
 
 from __future__ import annotations
@@ -55,24 +56,32 @@ HVAC_ONLY_DIMS = {(12, 12), (16, 16)}
 # navigation step, the only env with a device linearization
 DERIVS_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
 MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cuh)
-TRAJ_BLOCK = 128  # K5: one thread per (scenario, alpha)
-DERIVS_BLOCK = 32  # K8: one thread per scenario, spread as K1 (rollout.cuh)
-# The launch plans of K2 ("costs") and K3 ("alpha"), ``rollout_plan``. A
-# block holds ``spb`` scenarios (K2: each with all A alphas) and a rollout
-# runs on G consecutive lanes (csrc/rollout.cuh rollout_tile_kernel): lane
-# l computes the control and next-state rows l, l + G, ...; one more warp
-# copies D steps of inputs ahead into shared memory. ROLLOUT_PLANS gives,
-# per kernel and dim, (G, the blocks a launch aims at, D): the fastest
-# plan of ``tools/kernel_versions.py rollout --sweep`` on one H100 at the
-# paths' shapes (PERF.md section 6), its blocks kept at other batches.
-# The G of each entry is the one the sources instantiate (csrc/rollout.cuh
+# The launch plans of the tile kernel's kinds, ``rollout_plan``: K2
+# ("costs"), K3 ("alpha"), K5 ("traj") and K8 ("derivs"). A block holds
+# ``spb`` scenarios (K2, K5: each with all A alphas) and a rollout runs on
+# G consecutive lanes (csrc/rollout.cuh rollout_tile_kernel): lane l
+# computes the control and next-state rows l, l + G, ... and stores its
+# own rows of the outputs; one more warp copies D steps of inputs ahead
+# into shared memory. ROLLOUT_PLANS gives, per kind and dim, (G, the
+# blocks a launch aims at, D): the fastest plan of
+# ``tools/kernel_versions.py rollout --sweep`` on one H100 at the paths'
+# shapes (PERF.md section 6), its blocks kept at other batches. The G of
+# each entry is the one the sources instantiate (csrc/rollout.cuh
 # kPlanGroups), so another G raises at launch.
 ROLLOUT_PLANS = {
     "costs": {2: (1, 512, 2), 3: (1, 512, 2), 5: (4, 128, 2),
               6: (2, 512, 2), 12: (4, 256, 2), 16: (2, 128, 2)},
     "alpha": {2: (2, 512, 2), 3: (4, 512, 2), 5: (8, 256, 2),
               6: (8, 512, 2), 12: (4, 256, 2), 16: (16, 128, 2)},
+    "traj": {2: (1, 512, 2), 3: (1, 256, 2), 5: (4, 128, 2),
+             6: (2, 256, 2), 12: (2, 128, 2), 16: (4, 128, 2)},
+    "derivs": {2: (2, 512, 2), 3: (1, 512, 2), 5: (2, 256, 2),
+               6: (2, 256, 2)},
 }
+# the kinds' codes in the C entries (csrc/rollout.cuh RolloutKind)
+KIND_CODES = {"costs": 0, "alpha": 1, "traj": 2, "derivs": 3}
+# the kinds that roll every alpha of the grid (the others one a scenario)
+EVERY_ALPHA = ("costs", "traj")
 TILE_MAX_THREADS = 1024  # csrc/rollout.cuh kTileMaxThreads
 TILE_MAX_SPB = 32
 TILE_MAX_DEPTH = 6
@@ -84,13 +93,13 @@ D_KEYS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux")
 
 @dataclasses.dataclass(frozen=True)
 class RolloutPlan:
-    """A K2 or K3 launch: ``groups`` lanes a rollout, ``scenarios`` a
-    block, ``depth`` steps staged ahead, and the block's dynamic shared
-    bytes, which the C side recomputes and must equal. Rollout r of a block
-    is scenario ``r % scenarios`` at alpha ``r // scenarios`` (K2; K3 has
-    one rollout a scenario) on threads ``r * groups`` to ``+ groups - 1``;
-    the compute threads are whole warps, and one more warp copies the
-    inputs."""
+    """A tile launch: ``groups`` lanes a rollout, ``scenarios`` a block,
+    ``depth`` steps staged ahead, and the block's dynamic shared bytes,
+    which the C side recomputes and must equal. Rollout r of a block is
+    scenario ``r % scenarios`` at alpha ``r // scenarios`` (K2, K5; K3 and
+    K8 have one rollout a scenario) on threads ``r * groups`` to ``+ groups
+    - 1``; the compute threads are whole warps, and one more warp copies
+    the inputs."""
 
     groups: int
     scenarios: int
@@ -119,7 +128,7 @@ def tile_stride(spb: int, groups: int, itemsize: int) -> int:
 
 def rollout_smem_bytes(n: int, m: int, groups: int, spb: int, depth: int,
                        param_elems: int, dtype) -> int:
-    """A K2/K3 block's shared bytes (csrc/rollout.cuh tile_smem_bytes): the
+    """A tile block's shared bytes (csrc/rollout.cuh tile_smem_bytes): the
     env's ``param_elems`` parameter values and the box, rounded to 16
     bytes, then ``depth + 2`` staged steps of ``n + 2m + nm`` rows."""
     item = _ITEMSIZE[dtype]
@@ -134,9 +143,10 @@ def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
                  dtype, param_elems: int, groups: int | None = None,
                  scenarios: int | None = None, depth: int | None = None,
                  max_threads: int = TILE_MAX_THREADS) -> RolloutPlan:
-    """The launch plan of K2 (``kernel="costs"``, A alphas) or K3
-    (``"alpha"``) at (n, m) for B scenarios of the env ``env_id`` with
-    ``param_elems`` parameter values: ``ROLLOUT_PLANS``' G and depth and
+    """The launch plan of K2 (``kernel="costs"``, A alphas), K3
+    (``"alpha"``), K5 (``"traj"``, A alphas) or K8 (``"derivs"``) at (n, m)
+    for B scenarios of the env ``env_id`` with ``param_elems`` parameter
+    values: ``ROLLOUT_PLANS``' G and depth and
     the largest power of two of scenarios a block that does not exceed B
     over the table's blocks, at most ``TILE_MAX_SPB``, ``max_threads``
     threads (``kernel_max_threads``: the kernel's registers bound it) and
@@ -149,12 +159,15 @@ def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
     if (n, m) in HVAC_ONLY_DIMS and env_id != HVAC_STEP_ID:
         raise NotImplementedError(
             f"the rollout kernels run only the HVAC step at (n, m) = {(n, m)}")
+    if kernel == "derivs" and (n, m) not in DERIVS_DIMS:
+        raise NotImplementedError(
+            f"K8 takes (n, m) in {sorted(DERIVS_DIMS)}, got {(n, m)}")
     G, blocks, D = ROLLOUT_PLANS[kernel][n]
     G, D = groups or G, depth or D
     if G not in (1, 2, 4, 8, 16) or not 1 <= D <= TILE_MAX_DEPTH:
         raise ValueError(f"plan G={G}, D={D}: G is a power of two <= 16, "
                          f"1 <= D <= {TILE_MAX_DEPTH}")
-    per = A if kernel == "costs" else 1
+    per = A if kernel in EVERY_ALPHA else 1
     if scenarios is None:
         spb = 1
         while (2 * spb <= min(-(-B // blocks), TILE_MAX_SPB)
@@ -176,17 +189,18 @@ _MAX_THREADS: dict = {}
 
 
 def kernel_max_threads(kernel: str, a) -> int:
-    """The most threads a block of K2 (``kernel="costs"``) or K3 can launch
-    with at the plan's G for ``kernel_args`` output ``a``: the kernel's
-    registers bound it (at most ``TILE_MAX_THREADS``). Asked of the
-    library once per kernel, dtype, env and dims."""
+    """The most threads a block of the kind ``kernel`` (a key of
+    ``ROLLOUT_PLANS``) can launch with at the plan's G for ``kernel_args``
+    output ``a``: the kernel's registers bound it (at most
+    ``TILE_MAX_THREADS``). Asked of the library once per kind, dtype, env
+    and dims."""
     B, T, n, m = a["dims"]
     G = ROLLOUT_PLANS[kernel][n][0]
     key = (kernel, a["dtype"], a["env_id"], n, m, G)
     if key not in _MAX_THREADS:
         params, n_params, ints, n_ints = _env_pointers(a)
         got = _build.library().tfmpc_rollout_max_threads(
-            int(kernel == "costs"), _build.DTYPE_CODES[a["dtype"]],
+            KIND_CODES[kernel], _build.DTYPE_CODES[a["dtype"]],
             a["env_id"], n, m, G, params, n_params, ints, n_ints)
         if got <= 0:
             _build.check(-got, "rollout_max_threads")
@@ -195,7 +209,8 @@ def kernel_max_threads(kernel: str, a) -> int:
 
 
 def launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
-    """The plan of a K2 or K3 launch on ``kernel_args`` output ``a``."""
+    """The plan of a launch of the kind ``kernel`` on ``kernel_args``
+    output ``a``."""
     B, T, n, m = a["dims"]
     return rollout_plan(kernel, a["env_id"], n, m, B, A, a["dtype"],
                         sum(p.numel() for p in a["params"]),
@@ -427,8 +442,8 @@ def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
         *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
         *_bound_pointers(a),
         (ctypes.c_double * A)(*map(float, alphas)), A, *_env_pointers(a),
-        _build.ptr(J), _build.ptr(X_out), _build.ptr(U_out), TRAJ_BLOCK,
-        _build.stream(),
+        _build.ptr(J), _build.ptr(X_out), _build.ptr(U_out),
+        *_plan_args(a, "traj", A), _build.stream(),
     )
     _build.check(rc, "linesearch_costs_traj")
     TRAJ_LAUNCHES += 1
@@ -547,7 +562,7 @@ def rollout_alpha_derivs_kernel(a, alpha):
         _build.ptr(X_out), _build.ptr(U_out), _build.ptr(J),
         (ctypes.c_void_p * len(D_KEYS))(*[kargs[key].data_ptr()
                                            for key in D_KEYS]),
-        DERIVS_BLOCK, _build.stream(),
+        *_plan_args(a, "derivs"), _build.stream(),
     )
     _build.check(rc, "rollout_alpha_derivs")
     DERIVS_LAUNCHES += 1

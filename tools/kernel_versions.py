@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time other versions of K7, P1, the lane Riccati kernels (K1, K4, K6a,
-K6b) or the rollout kernels K2 and K3 beside the checkout's own, on one
-GPU.
+K6b) or the rollout kernels K2, K3, K5 and K8 beside the checkout's own,
+on one GPU.
 
     python3 tools/kernel_versions.py p1 LABEL=PATH [LABEL=PATH ...]
     python3 tools/kernel_versions.py k7 LABEL=PATH [LABEL=PATH ...]
     python3 tools/kernel_versions.py lane LABEL=REV|DIR [LABEL=REV|DIR ...]
     python3 tools/kernel_versions.py lane --sweep
-    python3 tools/kernel_versions.py rollout LABEL=REV|DIR [...] [--clocks]
-    python3 tools/kernel_versions.py rollout --sweep
+    python3 tools/kernel_versions.py rollout LABEL=REV|DIR[,-DNAME] [...]
+        [--clocks]
+    python3 tools/kernel_versions.py rollout --sweep [KIND ...]
 
 Each PATH is another version of ``ops/csrc/row_matmul.cu`` (``p1``) or of
 ``ops/csrc/riccati_mid.cu`` (``k7``), for example an earlier one taken
@@ -65,26 +66,35 @@ behind ``ops/riccati.py`` LANE_PLANS.
 ``rollout`` takes the rollout sources (``ROLLOUT_FILES``) and
 ``ops/rollout.py`` of commit REV with ``git show`` into
 ``ops/_build/versions/rollout/LABEL/`` (as ``lane`` does: extract where
-there is a checkout, then run where there is a GPU), builds its three
-rollout sources (one nvcc each, in parallel) and prints their ptxas
-lines; at ``ROLLOUT_CASES`` (the navigation headline, HVAC-6,
+there is a checkout, then run where there is a GPU), builds its rollout
+sources (one nvcc each, in parallel; ``,-DNAME`` after REV or DIR adds
+that define to its build) and prints their ptxas lines and nvcc's wall
+time per source; at ``ROLLOUT_CASES`` (the navigation headline, HVAC-6,
 reservoir-5 T=500 and E1's HVAC-16 shape, with ``chip_smoke.py``'s
-inputs), in float32 and float64, it requires the checkout's K2 and K3
-outputs to be bitwise equal to the version's, then times both in float32
-in turns as device times of graph replays of 10 calls (and eager loops).
-A version whose C entries take ``block`` launches with its own
-``ops/rollout.py`` BLOCK; one whose entries take a plan with the
-checkout's ``rollout_plan``. ``--clocks`` also builds
+inputs) K2, K3 and K5, and at ``DERIVS_CASES`` (the headline, bounded
+navigation and G3's two-zone shape) K8, in float32 and float64, it
+requires the checkout's outputs to be bitwise equal to the version's
+(K5's J, X and U; K8's X, U, J and all seven linearization blocks), then
+times both in float32 in turns as device times of graph replays of 10
+calls (and eager loops). A version whose C entries take ``block``
+launches with its own ``ops/rollout.py`` BLOCK (K5: TRAJ_BLOCK, K8:
+DERIVS_BLOCK); one whose entries take a plan with the checkout's
+``rollout_plan``. Then, at ``EMIT_CASES``, the checkout's two line-search
+layouts as the solver runs them, K5 + ``select_alpha_trajectory`` against
+K2 + K3, as device times of graph replays in turns (the measurement
+behind ``ilqr_batched._resolve_emit_traj``). ``--clocks`` also builds
 ``tools/rollout_clocks.cu`` (the one-thread K2/K3 loop of commit 0bac190
 with clock64() between its phases) and prints, at each case, the SM
-cycles a step of load wait,
-policy, env step and stores; then the checkout's sources with their own
-phase clocks (``-DTFMPC_ROLLOUT_CLOCKS``, csrc/rollout.cuh), the same.
-``rollout --sweep`` builds the checkout's rollout sources with every G
-at each dim's swept env (``-DTFMPC_ROLLOUT_ALL_G``) and times K2 and K3
-at ``SWEEP_CASES`` with every G, 1-32 scenarios a block and 1, 2 or 4
-steps staged ahead, in float32, as device times of graph replays: the
-measurement behind ``ops/rollout.py`` ROLLOUT_PLANS.
+cycles a step of load wait, policy, env step and stores; then the
+checkout's sources with their own phase clocks
+(``-DTFMPC_ROLLOUT_CLOCKS``, csrc/rollout.cuh), the same for every kind.
+``rollout --sweep`` builds the checkout's rollout sources with every G of
+the kinds named (``costs``, ``alpha``, ``traj``, ``derivs``; all by
+default) at each dim's swept env (``-DTFMPC_ROLLOUT_ALL_G``, a mask of
+kinds) and times them at ``SWEEP_CASES`` (K8: ``DERIVS_SWEEP_CASES``) with
+every G, 1-32 scenarios a block and 1, 2 or 4 steps staged ahead, in
+float32, as device times of graph replays: the measurement behind
+``ops/rollout.py`` ROLLOUT_PLANS.
 """
 
 from __future__ import annotations
@@ -542,21 +552,34 @@ def env_case(env, Bn, dtype):
     return lin, quad, final, mu, U, second_derivatives(env, X, U)
 
 
-# -- the rollout kernels K2 and K3 --------------------------------------------
+# -- the rollout kernels K2, K3, K5 and K8 -----------------------------------
 
 ROLLOUT_FILES = ("rollout.cuh", "envs.cuh", "common.cuh", "warp.cuh",
-                 "rollout.cu", "rollout_n12.cu", "rollout_n16.cu")
-ROLLOUT_SOURCES = ("rollout.cu", "rollout_n12.cu", "rollout_n16.cu")
-# label -> chip_smoke.py inputs: the table's shapes
+                 "rollout.cu", "rollout_n12.cu", "rollout_n16.cu",
+                 "rollout_derivs.cu")
+ROLLOUT_SOURCES = ("rollout.cu", "rollout_n12.cu", "rollout_n16.cu",
+                   "rollout_derivs.cu")
+# label -> chip_smoke.py inputs: the table's shapes of K2, K3 and K5
 ROLLOUT_CASES = {
     "headline": ("navigation", None, None),          # B=4096, T=100
     "hvac6": ("hvac6", None, None),                  # B=2048, T=100
     "reservoir5_t500": ("reservoir5", 1024, 500),
     "e1_hvac16": ("hvac16", 512, 50),
 }
+# label -> inputs of the emit-layout A/B (``emit_layouts``): the table's
+# shapes, HVAC-3 and G3's re-plan (two-zone navigation, B=1024, T=20)
+EMIT_CASES = {**ROLLOUT_CASES, "hvac3": ("hvac3", 2048, 100),
+              "g3": ("g3", None, None)}
+# label -> chip_smoke.k8_inputs case: K8's shapes (G1, G2, G3)
+DERIVS_CASES = {
+    "headline": "navigation",        # B=4096, T=100, one zone
+    "g2_nav_bounded": "nav_bounded",  # B=256, T=50, box +-1
+    "g3": "g3",                      # B=1024, T=20, two zones
+}
 # the sweep's shapes, one a dim (the env each dim's TFMPC_ROLLOUT_ALL_G
 # build sweeps): the headline, HVAC-3 and HVAC-6 at B=2048, reservoir-5 at
-# T=500, E2's HVAC-12 and E1's HVAC-16
+# T=500, E2's HVAC-12 and E1's HVAC-16; K8's: DERIVS_CASES at n = 2 and
+# the headline's n-dim navigation at 3, 5 and 6
 SWEEP_CASES = {
     2: ("navigation", None, None),
     3: ("hvac3", 2048, 100),
@@ -564,6 +587,15 @@ SWEEP_CASES = {
     6: ("hvac6", None, None),
     12: ("hvac12", 1024, 100),
     16: ("hvac16", 512, 50),
+}
+DERIVS_SWEEP_CASES = {2: tuple(DERIVS_CASES.values()),
+                      **{n: (case,) for case, n in cs.K8_DIM_CASES.items()}}
+# kind -> (key, C entry, the old block-size name in ops/rollout.py)
+ROLLOUT_KINDS = {
+    "costs": ("K2", "tfmpc_linesearch_costs", "BLOCK"),
+    "alpha": ("K3", "tfmpc_rollout_alpha", "BLOCK"),
+    "traj": ("K5", "tfmpc_linesearch_costs_traj", "TRAJ_BLOCK"),
+    "derivs": ("K8", "tfmpc_rollout_alpha_derivs", "DERIVS_BLOCK"),
 }
 
 
@@ -587,13 +619,14 @@ def extract_rollout(label: str, rev: str) -> Path:
     return dest
 
 
-def build_rollout(label: str, src: Path, defines=(),
-                  sources=ROLLOUT_SOURCES) -> ctypes.CDLL:
-    """The rollout sources of ``src`` (headers first from ``src``, then the
-    checkout's), one nvcc each in parallel, linked into one library;
-    ptxas's lines printed, one per K2/K3 instantiation."""
+def build_rollout(label: str, src: Path, defines=()) -> ctypes.CDLL:
+    """The rollout sources of ``src`` that it has (headers first from
+    ``src``, then the checkout's), one nvcc each in parallel, linked into
+    one library; ptxas's lines printed, one per rollout instantiation, and
+    nvcc's wall time per source."""
     from tfmpc_tpu_torch.ops import _build
 
+    sources = [cu for cu in ROLLOUT_SOURCES if (src / cu).exists()]
     objs = [OUT / f"rollout_{label}_{i}.o" for i in range(len(sources))]
     so = OUT / f"rollout_{label}.so"
     log = _build._run_all(
@@ -604,17 +637,20 @@ def build_rollout(label: str, src: Path, defines=(),
                       str(so), *map(str, objs)]], OUT / f"rollout_{label}.link")
     print(f"{label} ({src}):")
     cs.print_ptxas(log, every_rollout=True)
+    cs.print_build_times(log)
     return ctypes.CDLL(str(so))
 
 
 def rollout_case(case, dtype):
     """(env, X, U, policy, kernel_args) of ``chip_smoke.py``'s inputs at a
-    case of ``ROLLOUT_CASES`` or ``SWEEP_CASES``."""
+    case of ``ROLLOUT_CASES``, ``EMIT_CASES`` or ``SWEEP_CASES``."""
     from tfmpc_tpu_torch.ops import rollout
 
     name, Bn, Tn = case
     if name == "navigation":
         env, X, U, _, _, _, _, policy = cs.headline_inputs(dtype, "cuda")
+    elif name == "g3":
+        env, X, U, policy, _ = cs.k8_inputs("g3", dtype)
     elif name == "hvac3":
         from tfmpc_tpu_torch.models.hvac import make_hvac
         import numpy as np
@@ -635,12 +671,28 @@ def rollout_case(case, dtype):
     return env, X, U, policy, rollout.kernel_args(env, X, U, policy)
 
 
-def rollout_launchers(lib, source_dir, a, alphas, alpha_vec, plans=None):
-    """{"K2": call, "K3": call} launching ``lib``'s kernels (its sources in
-    ``source_dir``) on ``kernel_args`` output ``a``, each writing into its
-    own outputs (``call.outputs``); ``plans`` (K2's, K3's) overrides the
-    checkout's ``rollout_plan`` for a version whose entries take a plan.
-    A launch the entry refuses is left out."""
+def _entry_tail(source_dir, kind, plan):
+    """(values, argtypes) of the launch tail of ``kind``'s C entry in the
+    version in ``source_dir``: its own block size where the entry takes
+    ``block``, else ``plan``."""
+    _, entry, block = ROLLOUT_KINDS[kind]
+    source = "rollout_derivs.cu" if kind == "derivs" else "rollout.cu"
+    if "block" in entry_params((source_dir / source).read_text(), entry):
+        m_ = re.search(rf"^{block} = (\d+)",
+                       (source_dir / "rollout.py").read_text(), re.M)
+        return (int(m_.group(1)),), [_I]
+    return ((plan.groups, plan.scenarios, plan.depth, plan.smem_bytes),
+            [_I, _I, _I, _LL])
+
+
+def rollout_launchers(lib, source_dir, a, alphas, alpha_vec, plans=None,
+                      kinds=("costs", "alpha", "traj")):
+    """{"K2": call, "K3": call, "K5": call} (the keys of ``kinds``)
+    launching ``lib``'s kernels (its sources in ``source_dir``) on
+    ``kernel_args`` output ``a``, each writing into its own outputs
+    (``call.outputs``); ``plans`` ({kind: plan}) overrides the checkout's
+    ``rollout_plan`` for a version whose entries take a plan. A launch the
+    entry refuses is left out."""
     import torch
 
     from tfmpc_tpu_torch.ops import _build, rollout
@@ -648,54 +700,87 @@ def rollout_launchers(lib, source_dir, a, alphas, alpha_vec, plans=None):
     B, T, n, m = a["dims"]
     A = len(alphas)
     opts = dict(dtype=a["dtype"], device=a["xbar"].device)
-    code = _build.DTYPE_CODES[a["dtype"]]
-    params = entry_params((source_dir / "rollout.cu").read_text(),
-                          "tfmpc_linesearch_costs")
-    head = [code, a["env_id"], n, m, T, B]
+    head = [_build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B]
     inputs = [_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")]
     bounds = list(rollout._bound_pointers(a))
     env_ptrs = list(rollout._env_pointers(a))
     al = (ctypes.c_double * A)(*map(float, alphas))
-    if "block" in params:
-        m_ = re.search(r"^BLOCK = (\d+)",
-                       (source_dir / "rollout.py").read_text(), re.M)
-        tails = {k: ((int(m_.group(1)),), [_I]) for k in ("K2", "K3")}
-    else:
-        plans = plans or (rollout.launch_plan(a, "costs", A),
-                          rollout.launch_plan(a, "alpha"))
-        tails = {k: ((p.groups, p.scenarios, p.depth, p.smem_bytes),
-                     [_I, _I, _I, _LL]) for k, p in zip(("K2", "K3"), plans)}
+    plans = plans or {}
     out = {}
-    J2 = torch.empty((A, B), **opts)
-    k2 = lib.tfmpc_linesearch_costs
-    k2.argtypes = [_I] * 6 + [_P] * 7 + [_I, _P, _I, _P, _I, _P] \
-        + tails["K2"][1] + [_P]
-    k2.restype = ctypes.c_int
+    for kind in kinds:
+        key, entry, _ = ROLLOUT_KINDS[kind]
+        tail, tail_types = _entry_tail(
+            source_dir, kind, plans.get(kind)
+            or rollout.launch_plan(a, kind, A))
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        if kind == "alpha":
+            outs = (torch.empty((T, n, B), **opts),
+                    torch.empty((T, m, B), **opts),
+                    torch.empty((B,), **opts))
+            fn.argtypes = [_I] * 6 + [_P] * 8 + [_I, _P, _I] + [_P] * 3 \
+                + tail_types + [_P]
+            args = [*head, _build.ptr(alpha_vec), *inputs, *bounds,
+                    *env_ptrs, *map(_build.ptr, outs)]
+        else:
+            outs = (torch.empty((A, B), **opts),) if kind == "costs" else (
+                torch.empty((A, B), **opts),
+                torch.empty((T, A * n, B), **opts),
+                torch.empty((T, A * m, B), **opts))
+            fn.argtypes = [_I] * 6 + [_P] * 7 + [_I, _P, _I, _P, _I] \
+                + [_P] * len(outs) + tail_types + [_P]
+            args = [*head, *inputs, *bounds, al, A, *env_ptrs,
+                    *map(_build.ptr, outs)]
 
-    def call2():
-        return k2(*head, *inputs, *bounds, al, A, *env_ptrs, _build.ptr(J2),
-                  *tails["K2"][0], _build.stream())
+        def call(fn=fn, args=args, tail=tail):
+            return fn(*args, *tail, _build.stream())
 
-    call2.outputs = (J2,)
-    X3 = torch.empty((T, n, B), **opts)
-    U3 = torch.empty((T, m, B), **opts)
-    J3 = torch.empty((B,), **opts)
-    k3 = lib.tfmpc_rollout_alpha
-    k3.argtypes = [_I] * 6 + [_P] * 8 + [_I, _P, _I] + [_P] * 3 \
-        + tails["K3"][1] + [_P]
-    k3.restype = ctypes.c_int
-
-    def call3():
-        return k3(*head, _build.ptr(alpha_vec), *inputs, *bounds, *env_ptrs,
-                  _build.ptr(X3), _build.ptr(U3), _build.ptr(J3),
-                  *tails["K3"][0], _build.stream())
-
-    call3.outputs = (X3, U3, J3)
-    for key, call in (("K2", call2), ("K3", call3)):
+        call.outputs = outs
+        call.inputs = (a, alpha_vec)  # alive while the call may run
         if call() == 0:
             torch.cuda.synchronize()
             out[key] = call
     return out
+
+
+def derivs_launchers(lib, source_dir, a, alpha_vec, plan=None):
+    """{"K8": call} launching ``lib``'s K8 on ``kernel_args(...,
+    derivatives=True)`` output ``a`` into its own outputs (X, U, J and the
+    seven ``D_KEYS`` blocks, ``call.outputs``); ``plan`` as in
+    ``rollout_launchers``. Empty where the entry refuses the launch."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import _build, rollout
+
+    B, T, n, m = a["dims"]
+    opts = dict(dtype=a["dtype"], device=a["xbar"].device)
+    entries = dict(fx=n * n, fu=n * m, lx=n, lu=m, lxx=n * n, luu=m * m,
+                   lux=m * n)
+    outs = (torch.empty((T, n, B), **opts), torch.empty((T, m, B), **opts),
+            torch.empty((B,), **opts),
+            *(torch.empty((T, entries[key], B), **opts)
+              for key in rollout.D_KEYS))
+    lin = (ctypes.c_void_p * 7)(*[o.data_ptr() for o in outs[3:]])
+    tail, tail_types = _entry_tail(source_dir, "derivs",
+                                   plan or rollout.launch_plan(a, "derivs"))
+    fn = lib.tfmpc_rollout_alpha_derivs
+    fn.argtypes = [_I] * 6 + [_P] * 8 + [_I, _P, _I] + [_P] * 4 \
+        + tail_types + [_P]
+    fn.restype = ctypes.c_int
+
+    def call():
+        return fn(_build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
+                  _build.ptr(alpha_vec),
+                  *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
+                  *rollout._bound_pointers(a), *rollout._env_pointers(a),
+                  *map(_build.ptr, outs[:3]), lin, *tail, _build.stream())
+
+    call.outputs = outs
+    call.inputs = (a, alpha_vec)  # alive while the call may run
+    if call() != 0:
+        return {}
+    torch.cuda.synchronize()
+    return {"K8": call}
 
 
 def rollout_inputs(case, dtype):
@@ -712,46 +797,130 @@ def rollout_inputs(case, dtype):
     return a, alphas, alpha_vec
 
 
+def derivs_inputs(case, dtype):
+    """(kernel_args(..., derivatives=True), alpha_vec) of
+    ``chip_smoke.k8_inputs``."""
+    from tfmpc_tpu_torch.ops import rollout
+
+    env, X, U, policy, alpha_vec = cs.k8_inputs(case, dtype)
+    return (rollout.kernel_args(env, X, U, policy, derivatives=True),
+            alpha_vec.contiguous())
+
+
+def hold_and_time(label, shape, mine, theirs_by_version, dtype, card):
+    """Each version's kernels bitwise equal to the checkout's (raises if
+    not); in float32, each kernel timed in turns across the versions as
+    device times of graph replays of 10 calls and eager loops of 10."""
+    import torch
+
+    fns = {("checkout", k): f for k, f in mine.items()}
+    for v, theirs in theirs_by_version.items():
+        for k, f in theirs.items():
+            same = all(torch.equal(x, y) for x, y in zip(
+                mine[k].outputs, f.outputs))
+            print(f"  {v} {k} {label} [{cs.dname(dtype)}]: bitwise equal "
+                  f"to the checkout's ({len(f.outputs)} outputs): {same}")
+            if not same:
+                raise AssertionError(f"{v} {k} {label}: outputs differ from "
+                                     "the checkout's")
+            fns[v, k] = f
+    if dtype != torch.float32:
+        return
+    for k in mine:
+        pick = {v: f for (v, kk), f in fns.items() if kk == k}
+        dev = in_turns(pick, lambda f: cs.graph_ms(f, 10))
+        eager = in_turns(pick, lambda f: cs.cuda_ms(f, 10))
+        print(f"{k} {label} ({shape}, f32), device ms (graph replays) / "
+              f"eager ms, best of two turns [{card}]: " + ", ".join(
+                  f"{v} {dev[v]:.4f} / {eager[v]:.4f}" for v in pick))
+
+
+def emit_layouts(label, case, card):
+    """The line search's two layouts at a case of ``EMIT_CASES``, f32,
+    as ``ilqr_batched._iteration_batched`` runs them: K5 +
+    ``select_alpha_trajectory`` (emit) against K2 + K3 (two-kernel), the
+    wrappers with their layout copies and, beside, the kernels alone;
+    device times of graph replays of 10 iterations, in turns."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env, X, U, policy, a = rollout_case(case, torch.float32)
+    alphas = ILQRConfig().alphas_static()
+    B, T, n, _ = a["dims"]
+    best = torch.arange(B, device="cuda") % len(alphas)
+    alpha_vec = ILQRConfig().alphas(torch.float32, device="cuda")[best]
+
+    def emit():
+        J, X_a, U_a = rollout.linesearch_costs_traj(env, X, U, policy,
+                                                    alphas)
+        return rollout.select_alpha_trajectory(X, X_a, U_a, J, best)
+
+    def two_kernel():
+        rollout.linesearch_costs(env, X, U, policy, alphas)
+        return rollout.rollout_alpha(env, X, U, policy, alpha_vec)
+
+    a_vec = alpha_vec.contiguous()
+
+    def emit_kernels():
+        J, X_a, U_a = rollout.linesearch_costs_traj_kernel(a, alphas)
+        return rollout.select_alpha_trajectory(
+            X, X_a.view(T, len(alphas), n, B), U_a.view(T, len(alphas), n, B),
+            J.T, best)
+
+    def two_kernels():
+        rollout.linesearch_costs_kernel(a, alphas)
+        return rollout.rollout_alpha_kernel(a, a_vec)
+
+    ms = in_turns({"emit": emit, "two_kernel": two_kernel,
+                   "emit_kernels": emit_kernels,
+                   "two_kernels": two_kernels},
+                  lambda f: cs.graph_ms(f, 10))
+    print(f"emit layouts {label} (B={B}, T={T}, n=m={n}, f32), device ms a "
+          "line search + materialize, graph replays, best of two turns: "
+          f"K5 + select {ms['emit']:.4f} vs K2 + K3 {ms['two_kernel']:.4f} "
+          f"(ratio {ms['emit'] / ms['two_kernel']:.3f}); kernels alone: K5 "
+          f"+ select {ms['emit_kernels']:.4f} vs K2 + K3 "
+          f"{ms['two_kernels']:.4f} [{card}]")
+
+
 def run_rollout(versions, card, clocks=False):
     import torch
 
+    # LABEL=REV|DIR[,-DNAME...]: the version built with those defines
+    specs = {label: rev.split(",") for label, rev in versions}
     dirs = {label: Path(rev) if Path(rev).is_dir()
-            else extract_rollout(label, rev) for label, rev in versions}
+            else extract_rollout(label, rev)
+            for label, (rev, *_) in specs.items()}
     if not torch.cuda.is_available():
         raise SystemExit("kernel_versions.py rollout: extracted "
                          f"{sorted(dirs)}; timing needs a CUDA device")
-    libs = {label: build_rollout(label, d) for label, d in dirs.items()}
+    libs = {label: build_rollout(label, d, tuple(specs[label][1:]))
+            for label, d in dirs.items()}
     checkout = build_rollout("checkout", CSRC)
     for label, case in ROLLOUT_CASES.items():
         for dtype in (torch.float64, torch.float32):
             a, alphas, alpha_vec = rollout_inputs(case, dtype)
             mine = rollout_launchers(checkout, CSRC, a, alphas, alpha_vec)
-            if set(mine) != {"K2", "K3"}:
+            if set(mine) != {"K2", "K3", "K5"}:
                 raise AssertionError(f"checkout refused a launch at {label}")
-            fns = {("checkout", k): f for k, f in mine.items()}
-            for v, lib in libs.items():
-                theirs = rollout_launchers(lib, dirs[v], a, alphas,
-                                           alpha_vec)
-                for k, f in theirs.items():
-                    same = all(torch.equal(x, y) for x, y in zip(
-                        mine[k].outputs, f.outputs))
-                    print(f"  {v} {k} {label} [{cs.dname(dtype)}]: bitwise "
-                          f"equal to the checkout's: {same}")
-                    if not same:
-                        raise AssertionError(f"{v} {k} {label}: outputs "
-                                             "differ from the checkout's")
-                    fns[v, k] = f
-            if dtype == torch.float32:
-                B, T, n, _ = a["dims"]
-                for k in ("K2", "K3"):
-                    pick = {v: f for (v, kk), f in fns.items() if kk == k}
-                    dev = in_turns(pick, lambda f: cs.graph_ms(f, 10))
-                    eager = in_turns(pick, lambda f: cs.cuda_ms(f, 10))
-                    print(f"{k} {label} (B={B}, T={T}, n=m={n}, f32), device "
-                          "ms (graph replays) / eager ms, best of two turns "
-                          f"[{card}]: " + ", ".join(
-                              f"{v} {dev[v]:.4f} / {eager[v]:.4f}"
-                              for v in pick))
+            B, T, n, _ = a["dims"]
+            hold_and_time(label, f"B={B}, T={T}, n=m={n}", mine, {
+                v: rollout_launchers(lib, dirs[v], a, alphas, alpha_vec)
+                for v, lib in libs.items()}, dtype, card)
+    for label, case in DERIVS_CASES.items():
+        for dtype in (torch.float64, torch.float32):
+            a, alpha_vec = derivs_inputs(case, dtype)
+            mine = derivs_launchers(checkout, CSRC, a, alpha_vec)
+            if not mine:
+                raise AssertionError(f"checkout refused K8 at {label}")
+            B, T, n, _ = a["dims"]
+            hold_and_time(label, f"B={B}, T={T}, n=m={n}", mine, {
+                v: derivs_launchers(lib, dirs[v], a, alpha_vec)
+                for v, lib in libs.items()}, dtype, card)
+    for label, case in EMIT_CASES.items():
+        emit_layouts(label, case, card)
     if clocks:
         run_rollout_clocks(card)
 
@@ -759,7 +928,8 @@ def run_rollout(versions, card, clocks=False):
 def run_rollout_clocks(card):
     """The one-thread K2/K3 loop with phase clocks
     (tools/rollout_clocks.cu) at each of ``ROLLOUT_CASES``, float32, 128
-    threads a block."""
+    threads a block; then the checkout's tile kernel with its own, every
+    kind at its cases."""
     import torch
 
     from tfmpc_tpu_torch.ops import _build, rollout
@@ -809,11 +979,18 @@ def run_rollout_clocks(card):
     tiles.tfmpc_rollout_clocks_buffer.restype = None
     names = ("barrier", "policy rows", "u exchange and env rows",
              "cost, stores, x exchange")
+    runs = []
     for label, case in ROLLOUT_CASES.items():
         a, alphas, alpha_vec = rollout_inputs(case, torch.float32)
-        B, T, n, _ = a["dims"]
-        calls = rollout_launchers(tiles, CSRC, a, alphas, alpha_vec)
+        runs.append((label, rollout_launchers(tiles, CSRC, a, alphas,
+                                              alpha_vec), a["dims"][1]))
+    for label, case in DERIVS_CASES.items():
+        a, alpha_vec = derivs_inputs(case, torch.float32)
+        runs.append((label, derivs_launchers(tiles, CSRC, a, alpha_vec),
+                     a["dims"][1]))
+    for label, calls, T in runs:
         for kernel, call in calls.items():
+            B = call.outputs[0].shape[-1]
             clk = torch.zeros(8, dtype=torch.int64, device="cuda")
             tiles.tfmpc_rollout_clocks_buffer(_build.ptr(clk))
             _build.check(call(), f"clocked {kernel} {label}")
@@ -821,7 +998,7 @@ def run_rollout_clocks(card):
             tiles.tfmpc_rollout_clocks_buffer(ctypes.c_void_p(None))
             c = clk.tolist()
             per = [x / c[7] / T for x in c[1:5]]
-            print(f"{kernel} {label} (B={B}, T={T}, n=m={n}, f32, the tile "
+            print(f"{kernel} {label} (B={B}, T={T}, f32, the tile "
                   "kernel with phase clocks, its plan): SM cycles a step, "
                   f"mean over {c[7]} compute threads: " + ", ".join(
                       f"{nm} {x:.0f}" for nm, x in zip(names, per))
@@ -830,54 +1007,81 @@ def run_rollout_clocks(card):
                   f"barrier {c[6] / c[5] / T:.0f} [{card}]")
 
 
-def run_rollout_sweep(card):
+def sweep_plans(kind, n, B, A, dtype, param_elems, env_id):
+    """Every plan of ``kind`` at n the sweep tries: each G up to the
+    dim's largest, 1-32 scenarios a block, 1, 2 or 4 steps ahead, within
+    the block's threads and shared memory."""
+    from tfmpc_tpu_torch.ops import rollout
+
+    per = A if kind in rollout.EVERY_ALPHA else 1
+    G = 1
+    while G <= min(16, max(1, 1 << (n - 1).bit_length())):
+        for spb in (1, 2, 4, 8, 16, 32):
+            for D in (1, 2, 4):
+                plan = rollout.rollout_plan(kind, env_id, n, n, B, A, dtype,
+                                            param_elems, groups=G,
+                                            scenarios=spb, depth=D)
+                if plan.threads(per) <= rollout.TILE_MAX_THREADS and \
+                        plan.smem_bytes <= rollout.SMEM_LIMIT:
+                    yield (G, spb, D), plan
+        G *= 2
+
+
+def print_sweep(kind, label, B, T, n, times, sms, card):
+    from tfmpc_tpu_torch.ops import rollout
+
+    best = min(times, key=times.get)
+    spread = [k for k in times if -(-B // k[1]) >= sms]
+    best_spread = min(spread, key=times.get) if spread else None
+    print(f"{ROLLOUT_KINDS[kind][0]} {label} (B={B}, T={T}, n=m={n}, f32), "
+          "device ms by G/scenarios a block/depth, best of two turns: "
+          + ", ".join(f"{G}/{spb}/{D} {t:.4f}"
+                      for (G, spb, D), t in sorted(times.items()))
+          + f"; fastest {'/'.join(map(str, best))} {times[best]:.4f}; "
+          f"fastest with >= {sms} blocks "
+          + (f"{'/'.join(map(str, best_spread))} {times[best_spread]:.4f}"
+             if best_spread else "none")
+          + f"; ROLLOUT_PLANS {rollout.ROLLOUT_PLANS[kind][n]} [{card}]")
+
+
+def run_rollout_sweep(card, kinds):
     import torch
 
     from tfmpc_tpu_torch.ops import rollout
 
-    lib = build_rollout("sweep", CSRC, ("-DTFMPC_ROLLOUT_ALL_G",))
+    mask = sum(1 << rollout.KIND_CODES[kind] for kind in kinds)
+    lib = build_rollout("sweep", CSRC, (f"-DTFMPC_ROLLOUT_ALL_G={mask}",))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, case in SWEEP_CASES.items():
         a, alphas, alpha_vec = rollout_inputs(case, torch.float32)
         B, T, _, _ = a["dims"]
         A = len(alphas)
         pe = sum(p.numel() for p in a["params"])
-        for kind, key in (("costs", "K2"), ("alpha", "K3")):
-            per = A if kind == "costs" else 1
+        for kind in kinds:
+            if kind == "derivs":
+                continue
             fns = {}
-            G = 1
-            while G <= min(16, max(1, 1 << (n - 1).bit_length())):
-                for spb in (1, 2, 4, 8, 16, 32):
-                    for D in (1, 2, 4):
-                        plan = rollout.rollout_plan(
-                            kind, a["env_id"], n, n, B, A, torch.float32, pe,
-                            groups=G, scenarios=spb, depth=D)
-                        if plan.threads(per) > rollout.TILE_MAX_THREADS or \
-                                plan.smem_bytes > rollout.SMEM_LIMIT:
-                            continue
-                        other = rollout.launch_plan(
-                            a, "alpha" if kind == "costs" else "costs", A)
-                        plans = (plan, other) if kind == "costs" else \
-                            (other, plan)
-                        got = rollout_launchers(lib, CSRC, a, alphas,
-                                                alpha_vec, plans)
-                        if key in got:
-                            fns[G, spb, D] = got[key]
-                G *= 2
+            for key, plan in sweep_plans(kind, n, B, A, torch.float32, pe,
+                                         a["env_id"]):
+                got = rollout_launchers(lib, CSRC, a, alphas, alpha_vec,
+                                        {kind: plan}, kinds=(kind,))
+                fns.update({key: f for f in got.values()})
             times = in_turns(fns, lambda f: cs.graph_ms(f, 10))
-            best = min(times, key=times.get)
-            spread = [k for k in times if -(-B // k[1]) >= sms]
-            best_spread = min(spread, key=times.get) if spread else None
-            table = rollout.ROLLOUT_PLANS[kind][n]
-            print(f"{key} {case[0]} (B={B}, T={T}, n=m={n}, f32), device ms "
-                  "by G/scenarios a block/depth, best of two turns: "
-                  + ", ".join(f"{G}/{spb}/{D} {t:.4f}"
-                              for (G, spb, D), t in sorted(times.items()))
-                  + f"; fastest {'/'.join(map(str, best))} "
-                  f"{times[best]:.4f}; fastest with >= {sms} blocks "
-                  + (f"{'/'.join(map(str, best_spread))} "
-                     f"{times[best_spread]:.4f}" if best_spread else "none")
-                  + f"; ROLLOUT_PLANS {table} [{card}]")
+            print_sweep(kind, case[0], B, T, n, times, sms, card)
+    if "derivs" not in kinds:
+        return
+    for n, cases in DERIVS_SWEEP_CASES.items():
+        for case in cases:
+            a, alpha_vec = derivs_inputs(case, torch.float32)
+            B, T, _, _ = a["dims"]
+            pe = sum(p.numel() for p in a["params"])
+            fns = {}
+            for key, plan in sweep_plans("derivs", n, B, 1, torch.float32,
+                                         pe, a["env_id"]):
+                fns.update({key: f for f in derivs_launchers(
+                    lib, CSRC, a, alpha_vec, plan).values()})
+            times = in_turns(fns, lambda f: cs.graph_ms(f, 10))
+            print_sweep("derivs", case, B, T, n, times, sms, card)
 
 
 def main() -> int:
@@ -917,7 +1121,8 @@ def main() -> int:
         run_lane_sweep(card)
         return 0
     if sys.argv[1] == "rollout":
-        run_rollout_sweep(card)
+        run_rollout_sweep(card, sys.argv[3:] or ("costs", "alpha", "traj",
+                                                 "derivs"))
         return 0
     versions = []
     for arg in sys.argv[2:]:
