@@ -32,15 +32,19 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
    gate, timed in turns;
 4. the navigation headline solve (slice A): ``solve_batch``, T=100,
    B=4096, f32, ``ILQRConfig(atol=1e-4, max_iterations=50,
-   use_pallas=True)``; launch counters prove K1/K2/K3 ran and no plain
-   version did; controls of 4 scenarios within 1e-4 of the float64 NumPy
-   oracle (``tests/oracles.py``);
+   use_pallas=True)``; launch counters prove K1 and AUTO's line search (K5
+   on the emit-trajectories layout) ran and no plain version did; controls
+   of 4 scenarios within 1e-4 of the float64 NumPy oracle
+   (``tests/oracles.py``); the same solve on the two-kernel layout (K1,
+   K2, K3) has the identical converged mask and every lane's cost within
+   1e-5 relative;
 5. the HVAC-6 solve (slice B's main path): ``load_env("configs/hvac.json")``,
    T=100, B=2048, f32, ``ILQRConfig(atol=1e-3, max_iterations=30,
    boxqp=True, use_pallas=True)``, x0 ~ U(8, 18) from seed 0; counters
-   prove K4/K2/K3 ran, K1 did not and no plain version did; >= 99%
+   prove K4 and K5 ran, K1 did not and no plain version did; >= 99%
    converged; the plain path (``use_pallas=False``) reaches the same
    converged mask on >= 99% of lanes and the same mean cost within 1e-4;
+   the two-kernel layout (K4, K2, K3) agrees as in phase 4;
 6. constrained accuracy: HVAC-3, x0 = (8, 12, 16), T=100, f64, through the
    kernels, against the float64 boxQP oracle: cost relative deviation
    < 1e-5 and KKT residual < 5e-3 in the fp64 model;
@@ -72,8 +76,9 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
 12. exact LQR (suite config 1): linear navigation, T=100, f64 on the card,
     against the NumPy Riccati oracle (1e-9); solves/s single and batched;
 13. the emit A/B: solves/s with ``linesearch_emit_trajectories`` True and
-    False, in turns, at HVAC-6 T=100 (3 windows each) (the A/B behind the
-    AUTO rule of ``ilqr_batched._resolve_emit_traj``);
+    False, in turns, at HVAC-6 T=100 (3 windows each): the end-to-end
+    side of AUTO's rule (``ilqr_batched._resolve_emit_traj``, decided on
+    device times by ``tools/kernel_versions.py rollout``);
 14. a ``torch.profiler`` trace of the reservoir-5 T=500 solve;
 15. slice D (full DDP): K6a at the navigation headline's shapes and K6b at
     reservoir-5 and HVAC-6 (B=2048), on the envs' dynamics Hessians (five
@@ -86,10 +91,10 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     forced indefinite, under the same gates; K6a at the headline with 1,
     2, 4 and 8 lanes a scenario, timed in turns;
 16. D1, suite config 4c: the reservoir-5 solve of phase 7 with
-    ``ddp=True``; counters prove K6b/K2/K3 ran and nothing else; >= 99%
+    ``ddp=True``; counters prove K6b/K5 ran and nothing else; >= 99%
     converged; agreement with the plain path; its mean iterations and cost
     printed beside phase 7's iLQR solve;
-17. D2, the navigation headline with ``ddp=True``: counters prove K6a/K2/K3;
+17. D2, the navigation headline with ``ddp=True``: counters prove K6a/K5;
     agreement with the plain path; DDP controls through the kernels within
     1e-4 of the fp64 oracle at the JAX release claim's case (x0 = 0, f32)
     and at D2's first 4 scenarios in f64 (``ddp_oracle_checks``);
@@ -115,12 +120,13 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
 21. E1, suite config 3b: ``load_env("configs/hvac16.json")``, T=50,
     B=512, f32, ``ILQRConfig(atol=1e-2, max_iterations=20, boxqp=True,
     use_pallas=True)``, x0 ~ U(8, 18) from seed 0; counters prove
-    K7-boxQP/K2/K3 ran and nothing else; >= 0.98 converged and 0 failed
-    (the JAX release gate); agreement with the plain path; the same solve
-    clip-only runs K7's iLQR variant/K2/K3;
+    K7-boxQP/K5 ran and nothing else; >= 0.98 converged and 0 failed
+    (the JAX release gate); agreement with the plain path and with the
+    two-kernel layout (K7-boxQP, K2, K3) as in phase 4; the same solve
+    clip-only runs K7's iLQR variant/K5;
 22. E2, suite config 3c: the 12-room ring, T=100, B=1024,
     ``ILQRConfig(atol=1e-3, max_iterations=30, boxqp=True,
-    use_pallas=True)``: K7-boxQP/K2/K3 only, >= 0.99 converged;
+    use_pallas=True)``: K7-boxQP/K5 only, >= 0.99 converged;
 23. solves/s of E1 and E2 and a ``torch.profiler`` trace of E1;
 24. slice F (the fused iteration): K8, the materialize rollout that also
     writes the linearization, against its plain version (X, U, J and the
@@ -145,11 +151,12 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     headline and control steps/s of G3 fused and split, in turns, and a
     ``torch.profiler`` trace of one G1 solve.
 
-K5 (the emit-trajectories line search) is checked with the other kernels
-in phase 3, at the slice's shape and at the navigation headline's, and,
-as the bitwise witness of K2 and K3 (its J equal to K2's, its trajectory
-at each lane's alpha equal to K3's), also at HVAC-6's and E1's shapes. Each
-phase prints its seconds. The second-to-last line is a JSON object
+K5 (the emit-trajectories line search, AUTO's layout) is checked with
+the other kernels in phase 3 at the shapes of the paths that run it
+(reservoir-5 T=500, the navigation headline, HVAC-6 and E1): against its
+plain version and against K2 and K3 bit for bit (its J equal to K2's,
+its trajectory at each lane's alpha equal to K3's). Each phase prints its
+seconds. The second-to-last line is a JSON object
 describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -215,9 +222,10 @@ X0_ACCURACY = [95.0, 80.0, 60.0, 40.0, 20.0]
 # kernels (the same policy row, env rows and double sum, in the same
 # order), so their outputs must be bitwise equal in both dtypes; the
 # largest |got - want| / (|want| + 1) is printed beside.
-# K5's witness shapes: phase 3's K5 cases and, for the pairing alone,
-# HVAC-6 (B=2048, T=100) and E1's HVAC-16 (B=512, T=50)
-K5_WITNESS_ONLY = (("hvac6", B_BOX, T), ("hvac16", 512, 50))
+# K5's shapes besides phase 3's reservoir-5 T=500 and navigation cases: the
+# HVAC-6 (B=2048, T=100) and E1 (HVAC-16, B=512, T=50) paths', where AUTO
+# now runs it
+K5_PATH_SHAPES = (("hvac6", B_BOX, T), ("hvac16", 512, 50))
 # K2 and K3 at block-ragged batches under their plans (the last block
 # part-full, the copies element by element): reservoir-5 B=1023 at T=100
 # and HVAC-16 B=513 at T=50
@@ -815,15 +823,15 @@ def rel_err(got, want):
                   / (want.double().abs() + 1.0)).max())
 
 
-def check_k5(case, dtype, timings=None, errs=None, Bn=B_LONG, Tn=T_LONG,
-             witness_only=False):
+def check_k5(case, dtype, timings=None, errs=None, Bn=B_LONG, Tn=T_LONG):
     """K5 at the slice's shape (``reservoir5``: B=1024, T=500, bounded, the
     random nominal and policy of ``boxqp_inputs``), the navigation
-    headline's (B=4096, T=100, unbounded) or, with ``witness_only``, a
-    bounded env's at (Bn, Tn): against K2 and K3 on the same inputs (its J
-    is K2's; the trajectory selected at each lane's alpha is K3's at that
-    alpha), bit for bit, and (not ``witness_only``) against its plain
-    version."""
+    headline's (B=4096, T=100, unbounded) or a bounded env's at (Bn, Tn):
+    against K2 and K3 on the same inputs (its J is K2's; the trajectory
+    selected at each lane's alpha is K3's at that alpha), bit for bit, and
+    against its plain version; with ``timings``, timed under
+    ``linesearch_costs_traj`` (reservoir-5 T=500), ``_navigation`` or
+    ``_<case>``."""
     import torch
 
     from tfmpc_tpu_torch.ops import rollout
@@ -855,8 +863,6 @@ def check_k5(case, dtype, timings=None, errs=None, Bn=B_LONG, Tn=T_LONG,
               f"rel err {rel_err(got, want):.3e}")
         if not same:
             raise AssertionError(f"{label} {what} [{dn}]: not bitwise equal")
-    if witness_only:
-        return
 
     J_p, X_p, U_p = rollout.linesearch_costs_traj_ref(env, X, U, policy,
                                                       alphas)
@@ -894,13 +900,13 @@ def check_k5(case, dtype, timings=None, errs=None, Bn=B_LONG, Tn=T_LONG,
                                  "accurate than the plain version")
     if timings is None:
         return
-    key = "linesearch_costs_traj" + ("_navigation" if case == "navigation"
-                                     else "")
+    key = "linesearch_costs_traj" + ("" if case == "reservoir5"
+                                     else f"_{case}")
     errs[key] = max_err
     ra = rollout.kernel_args(env, X, U, policy)
     n_params = sum(p.numel() for p in ra["params"])
     bounded = env.bounds is not None
-    reps, plain_reps = (20, 2) if case == "navigation" else (10, 1)
+    reps, plain_reps = (10, 1) if case == "reservoir5" else (20, 2)
     timings[key] = (
         graph_ms(lambda: rollout.linesearch_costs_traj_kernel(ra, alphas),
                  reps),
@@ -915,7 +921,7 @@ def check_k5(case, dtype, timings=None, errs=None, Bn=B_LONG, Tn=T_LONG,
         X, X_k, U_k, J_k, best), reps)
     print(f"  {label}: select_alpha_trajectory {select_ms:.4f} ms")
     timings[key + "_select_ms"] = select_ms
-    if case == "navigation":
+    if case != "reservoir5":
         return
     # K2 and K3 at the slice's shape, the two-kernel layout's line search
     timings["linesearch_costs_t500"] = (
@@ -1678,8 +1684,8 @@ def ddp_oracle_checks(nav32, x0s):
         x0_t = torch.as_tensor(x0, dtype=env.goal.dtype, device="cuda")
         res, launches, plain = counted(solver(env, x0_t, T, cfg))
         require_path(f"DDP oracle solve, {label}", launches, plain,
-                     {"riccati_backward_ddp", "linesearch_costs",
-                      "rollout_alpha"})
+                     {"riccati_backward_ddp"}
+                     | line_search_kernels(cfg, T, N))
         devs = ddp_oracle_devs(res, x0)
         print(f"  DDP controls vs the fp64 NumPy oracle, {label}: converged "
               f"{res.converged.tolist()}, iterations "
@@ -2219,8 +2225,8 @@ def hvac3_accuracy(ddp=False):
     res, launches, plain = counted(run)
     require_path(f"HVAC-3 f64 accuracy solve, ddp={ddp}", launches, plain,
                  {"riccati_backward_ddp_boxqp" if ddp
-                  else "riccati_backward_boxqp", "linesearch_costs",
-                  "rollout_alpha"})
+                  else "riccati_backward_boxqp"}
+                 | line_search_kernels(config, T, 3))
     U_s = res.actions[0].cpu().numpy()
     x, J_s = np.asarray(x0_3, float), 0.0
     for t in range(T):
@@ -2243,9 +2249,7 @@ def hvac3_accuracy(ddp=False):
 
 def reservoir_t500_solves(runs):
     """The slice's main path, emit-trajectories layout (K4 + K5), then the
-    two-kernel layout (K4 + K2 + K3) on the same inputs: the same converged
-    mask and every lane's cost within 1e-5 relative (|a - b| / (|b| + 1),
-    the JAX release gate's criterion, benchmarks/release_check.py:591-619).
+    two-kernel layout (K4 + K2 + K3) on the same inputs (``layouts_agree``).
     Returns the emit solve's launches and the two-kernel solve's."""
     emit_run, two_run = runs
     res, launches, plain = counted(emit_run)
@@ -2255,21 +2259,28 @@ def reservoir_t500_solves(runs):
     if conv < 0.99:
         raise AssertionError(f"reservoir-5 T={T_LONG} converged only "
                              f"{conv:.4f}")
+    return launches, layouts_agree(f"reservoir-5 T={T_LONG}", res, two_run,
+                                   "riccati_backward_boxqp")
+
+
+def layouts_agree(label, res, two_run, backward):
+    """The solve ``two_run`` on the two-kernel layout (``backward``, K2 and
+    K3 only) against ``res``, the same solve on the emit-trajectories
+    layout: the same converged mask and every lane's cost within 1e-5
+    relative (|a - b| / (|b| + 1), the JAX release gate's criterion,
+    benchmarks/release_check.py:591-619). Returns its launches."""
     res2, launches2, plain2 = counted(two_run)
-    require_path(f"reservoir-5 T={T_LONG} solve (two kernels)", launches2,
-                 plain2,
-                 {"riccati_backward_boxqp", "linesearch_costs",
-                  "rollout_alpha"})
+    require_path(f"{label} solve (two kernels)", launches2, plain2,
+                 {backward, "linesearch_costs", "rollout_alpha"})
     same_mask = bool((res.converged == res2.converged).all())
     dev = rel_err(res.total_cost, res2.total_cost)
-    print(f"  two-kernel layout: identical converged mask {same_mask}, "
-          f"per-lane cost max rel dev {dev:.3e} (gate 1e-5), identical "
-          f"controls {bool((res.actions == res2.actions).all())}")
+    print(f"  {label}, two-kernel layout: identical converged mask "
+          f"{same_mask}, per-lane cost max rel dev {dev:.3e} (gate 1e-5), "
+          f"identical controls {bool((res.actions == res2.actions).all())}")
     if not same_mask or not dev < 1e-5:
-        raise AssertionError(f"reservoir-5 T={T_LONG}: the emit-trajectories "
-                             "and "
-                             "two-kernel solves disagree")
-    return launches, launches2
+        raise AssertionError(f"{label}: the emit-trajectories and two-kernel "
+                             "solves disagree")
+    return launches2
 
 
 def reservoir_t500_accuracy():
@@ -2636,11 +2647,11 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
     phase.done("20. K7, P1 and the mid-dim K2/K3 vs plain versions")
 
     # -- 21. E1: HVAC-16 (suite config 3b, slice E's main path) --------------
-    mid_kernels = {"linesearch_costs", "rollout_alpha"}
     env16 = bounded_env("hvac16", torch.float32)
     x0_16 = torch.as_tensor(np.random.default_rng(0).uniform(
         8.0, 18.0, (B_E1, 16)).astype("float32"), device="cuda")
     e1_cfg = ILQRConfig(**E1_CONFIG)
+    mid_kernels = line_search_kernels(e1_cfg, T_E1, 16)
     run_e1 = solver(env16, x0_16, T_E1, e1_cfg)
     run_e1()
     print(f"E1, HVAC-16 T={T_E1} B={B_E1} solve (slice E's main path):")
@@ -2657,6 +2668,10 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
         raise AssertionError("E1 solve below the release gate")
     plain_s["e1_hvac16"] = agree_with_plain("E1", res, solver(
         env16, x0_16, T_E1, dataclasses.replace(e1_cfg, use_pallas=False)))
+    launches_by_path["e1_hvac16_two_kernel"] = layouts_agree(
+        "E1", res, solver(env16, x0_16, T_E1, dataclasses.replace(
+            e1_cfg, linesearch_emit_trajectories=False)),
+        "riccati_backward_mid_boxqp")
     # K7's iLQR variant: the same solve clip-only (boxqp=False), whose
     # convergence is printed, not gated (clip-only is the weaker algorithm)
     res, launches, plain = counted(solver(
@@ -2961,8 +2976,10 @@ def main() -> int:
         for case in ("reservoir5", "navigation"):
             check_k5(case, dtype, *((timings, errs)
                                     if dtype == torch.float32 else ()))
-        for case, Bn, Tn in K5_WITNESS_ONLY:
-            check_k5(case, dtype, Bn=Bn, Tn=Tn, witness_only=True)
+        for case, Bn, Tn in K5_PATH_SHAPES:
+            check_k5(case, dtype, *((timings, errs)
+                                    if dtype == torch.float32 else ()),
+                     Bn=Bn, Tn=Tn)
         check_rollout_ragged(dtype)
     check_k4("reservoir5", torch.float32)
     lane_sweeps = {"K4_hvac6": lane_g_sweep("K4", card)}
@@ -2997,6 +3014,11 @@ def main() -> int:
           "(target < 1e-4)")
     if dev >= 1e-4:
         raise AssertionError("controls deviate from the fp64 oracle")
+    launches_by_path["navigation_two_kernel"] = layouts_agree(
+        "navigation headline", res, solver(
+            nav, torch.as_tensor(x0_np, device="cuda"), T,
+            dataclasses.replace(config, linesearch_emit_trajectories=False)),
+        "riccati_backward")
     run_nav_plain = solver(nav, torch.as_tensor(x0_np, device="cuda"), T,
                            dataclasses.replace(config, use_pallas=False))
     plain_s = {"navigation": agree_with_plain("navigation", res,
@@ -3028,6 +3050,10 @@ def main() -> int:
     if conv < 0.99:
         raise AssertionError(f"HVAC-6 solve converged only {conv:.4f}")
     plain_s["hvac6"] = agree_with_plain("HVAC-6", res, run_h_plain)
+    launches_by_path["hvac6_two_kernel"] = layouts_agree(
+        "HVAC-6", res, solver(env, x0_h, T, dataclasses.replace(
+            boxqp_config, linesearch_emit_trajectories=False)),
+        "riccati_backward_boxqp")
     phase.done("5. HVAC-6")
 
     # -- 6. constrained accuracy vs the fp64 oracle ---------------------------
@@ -3149,8 +3175,8 @@ def main() -> int:
     res, launches, plain = counted(run_d1)
     launches_by_path["d1_reservoir5_ddp"] = launches
     require_path("D1 solve", launches, plain,
-                 {"riccati_backward_ddp_boxqp", "linesearch_costs",
-                  "rollout_alpha"})
+                 {"riccati_backward_ddp_boxqp"}
+                 | line_search_kernels(ddp_box, T, 5))
     if check_result("D1", res, B_BOX, 5) < 0.99:
         raise AssertionError("D1 solve converged < 0.99")
     plain_s["d1_reservoir5_ddp"] = agree_with_plain(
@@ -3175,7 +3201,7 @@ def main() -> int:
     res, launches, plain = counted(run_d2)
     launches_by_path["d2_navigation_ddp"] = launches
     require_path("D2 solve", launches, plain,
-                 {"riccati_backward_ddp", "linesearch_costs", "rollout_alpha"})
+                 {"riccati_backward_ddp"} | line_search_kernels(ddp_nav, T, N))
     d2_converged = check_result("D2", res, B, N)
     plain_s["d2_navigation_ddp"] = agree_with_plain(
         "D2", res, solver(nav, x0_nav, T, dataclasses.replace(
@@ -3223,25 +3249,32 @@ def main() -> int:
     k7_tpu = "tfmpc_tpu/ops/riccati_mid_pallas.py:462"
     k2_tpu = "tfmpc_tpu/ops/rollout_pallas.py:647"
     k3_tpu = "tfmpc_tpu/ops/rollout_pallas.py:804"
+    k5_tpu = "tfmpc_tpu/ops/rollout_pallas.py:713"
     derivs_cu = "tfmpc_tpu_torch/ops/csrc/rollout_derivs.cu"
     k8_tpu = "tfmpc_tpu/ops/rollout_pallas.py:544"
     sources = {
         "riccati_backward": ("tfmpc_tpu_torch/ops/csrc/riccati.cu",
                              "tfmpc_tpu/ops/riccati_pallas.py:462",
                              "navigation", "riccati_backward"),
-        "linesearch_costs": (rollout_cu, k2_tpu, "navigation",
+        "linesearch_costs": (rollout_cu, k2_tpu, "navigation_two_kernel",
                              "linesearch_costs"),
-        "rollout_alpha": (rollout_cu, k3_tpu, "navigation", "rollout_alpha"),
+        "rollout_alpha": (rollout_cu, k3_tpu, "navigation_two_kernel",
+                          "rollout_alpha"),
         "riccati_backward_boxqp": ("tfmpc_tpu_torch/ops/csrc/riccati_boxqp.cu",
                                    "tfmpc_tpu/ops/riccati_pallas.py:585",
                                    "hvac6", "riccati_backward_boxqp"),
-        "linesearch_costs_clipped": (rollout_cu, k2_tpu, "hvac6",
+        "linesearch_costs_clipped": (rollout_cu, k2_tpu, "hvac6_two_kernel",
                                      "linesearch_costs"),
-        "rollout_alpha_clipped": (rollout_cu, k3_tpu, "hvac6",
+        "rollout_alpha_clipped": (rollout_cu, k3_tpu, "hvac6_two_kernel",
                                   "rollout_alpha"),
-        "linesearch_costs_traj": (rollout_cu,
-                                  "tfmpc_tpu/ops/rollout_pallas.py:713",
-                                  "reservoir5_t500", "linesearch_costs_traj"),
+        "linesearch_costs_traj": (rollout_cu, k5_tpu, "reservoir5_t500",
+                                  "linesearch_costs_traj"),
+        "linesearch_costs_traj_navigation": (rollout_cu, k5_tpu, "navigation",
+                                             "linesearch_costs_traj"),
+        "linesearch_costs_traj_hvac6": (rollout_cu, k5_tpu, "hvac6",
+                                        "linesearch_costs_traj"),
+        "linesearch_costs_traj_hvac16": (rollout_cu, k5_tpu, "e1_hvac16",
+                                         "linesearch_costs_traj"),
         "linesearch_costs_t500": (rollout_cu, k2_tpu,
                                   "reservoir5_t500_two_kernel",
                                   "linesearch_costs"),
@@ -3260,9 +3293,11 @@ def main() -> int:
                                        "riccati_backward_mid_boxqp"),
         "riccati_backward_mid_boxqp_hvac12": (mid_cu, k7_tpu, "e2_hvac12",
                                               "riccati_backward_mid_boxqp"),
-        "linesearch_costs_clipped_hvac16": (rollout_cu, k2_tpu, "e1_hvac16",
+        "linesearch_costs_clipped_hvac16": (rollout_cu, k2_tpu,
+                                            "e1_hvac16_two_kernel",
                                             "linesearch_costs"),
-        "rollout_alpha_clipped_hvac16": (rollout_cu, k3_tpu, "e1_hvac16",
+        "rollout_alpha_clipped_hvac16": (rollout_cu, k3_tpu,
+                                         "e1_hvac16_two_kernel",
                                          "rollout_alpha"),
         **{f"row_matmul_d{d}": ("tfmpc_tpu_torch/ops/csrc/row_matmul.cu",
                                 "benchmarks/mxu_probe.py:82",

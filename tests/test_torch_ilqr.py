@@ -79,9 +79,9 @@ def test_solve_batch_matches_jax_kernel_path(envs, B):
     x0 = _x0(B)
     res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=T,
                               config=jilqr.ILQRConfig(**HEADLINE))
-    plain = riccati.PLAIN_CALLS, rollout.COSTS_PLAIN_CALLS
+    plain = riccati.PLAIN_CALLS, rollout.TRAJ_PLAIN_CALLS
     launches = (riccati.LAUNCHES, rollout.COSTS_LAUNCHES,
-                rollout.ALPHA_LAUNCHES)
+                rollout.ALPHA_LAUNCHES, rollout.TRAJ_LAUNCHES)
     res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=T,
                              config=ilqr.ILQRConfig(**HEADLINE))
     _assert_same_solve(res_t, res_j)
@@ -90,11 +90,12 @@ def test_solve_batch_matches_jax_kernel_path(envs, B):
                                np.asarray(res_j.total_cost), rtol=1e-9)
     np.testing.assert_allclose(res_t.states.numpy(), np.asarray(res_j.states),
                                rtol=0, atol=1e-6)
-    # CPU tensors: the wrappers ran their plain versions, no kernel launched
+    # CPU tensors: the wrappers ran their plain versions (the line search
+    # on AUTO's emit-trajectories layout), no kernel launched
     assert riccati.PLAIN_CALLS > plain[0]
-    assert rollout.COSTS_PLAIN_CALLS > plain[1]
+    assert rollout.TRAJ_PLAIN_CALLS > plain[1]
     assert (riccati.LAUNCHES, rollout.COSTS_LAUNCHES,
-            rollout.ALPHA_LAUNCHES) == launches
+            rollout.ALPHA_LAUNCHES, rollout.TRAJ_LAUNCHES) == launches
     # the plain PyTorch path (use_pallas=False) reaches the same solve
     res_p = ilqr.solve_batch(
         tenv, torch.as_tensor(x0), horizon=T,
@@ -613,9 +614,9 @@ def test_parallel_backward_single_solve_matches_jax():
 
 def test_emit_trajectories_auto_resolution():
     """True and False pin the layout at any shape; AUTO (the default)
-    takes the two-kernel layout everywhere, the H100 A/B having found no
-    shape where the emit-trajectories one is faster beyond the windows'
-    spread (the port's version of
+    takes the emit-trajectories layout everywhere, the H100 A/B of device
+    times having found it faster by more than 10% at every shape measured,
+    T from 20 to 500 and n = m from 2 to 16 (the port's version of
     tests/test_rollout_pallas.py::test_emit_trajectories_auto_resolution,
     whose TPU rule turns it on from T=250 up to max(n, m) = 12)."""
     resolve = ilqr_batched._resolve_emit_traj
@@ -623,8 +624,8 @@ def test_emit_trajectories_auto_resolution():
     assert auto.linesearch_emit_trajectories is None
     on = ilqr.ILQRConfig(linesearch_emit_trajectories=True)
     off = ilqr.ILQRConfig(linesearch_emit_trajectories=False)
-    for horizon, n, m in ((4, 2, 2), (100, 6, 6), (250, 2, 2), (500, 5, 5),
-                          (500, 12, 12), (500, 48, 48)):
-        assert not resolve(auto, horizon, n, m)
+    for horizon, n, m in ((4, 2, 2), (20, 2, 2), (100, 6, 6), (250, 2, 2),
+                          (500, 5, 5), (500, 12, 12), (500, 48, 48)):
+        assert resolve(auto, horizon, n, m)
         assert resolve(on, horizon, n, m)
         assert not resolve(off, horizon, n, m)

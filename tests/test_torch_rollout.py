@@ -358,7 +358,7 @@ def test_kernel_layout_of_a_linear_env():
     np.testing.assert_array_equal(a["lo"].numpy(), [-2.0, -2.0])
 
 
-# -- the launch plans of the tile kernel (K2, K3, K5, K8) ----------------------
+# -- the launch plans of the tile kernel (K2, K3, K5, K8) ---------------------
 #
 # ``rollout_plan`` at every kernel dim, both dtypes and batches that fill
 # their last block or leave it ragged, held to a mirror of

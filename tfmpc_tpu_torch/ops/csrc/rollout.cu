@@ -1,7 +1,7 @@
-// K2, K3 and K5 at n = m in {2, 3, 5, 6}, and the C entries of the rollout
-// kernels (rollout.cuh says what they compute and how; rollout_n12.cu and
-// rollout_n16.cu hold the HVAC instantiations at n = m = 12 and 16,
-// rollout_derivs.cu K8's).
+// K2 and K3 at n = m in {2, 3, 5, 6}, and the C entries of the rollout
+// kernels (rollout.cuh says what they compute and how; rollout_traj.cu
+// holds K5 at those dims, rollout_n12.cu and rollout_n16.cu the HVAC
+// instantiations at n = m = 12 and 16, rollout_derivs.cu K8's).
 #include "rollout.cuh"
 
 namespace tfmpc {
@@ -32,12 +32,11 @@ int rollout_entry(const RolloutCall& c) {
     }
     if (c.B <= 0) return 0;
   }
-  auto run = c.kind == kDerivs ? &rollout_derivs
-             : c.n != c.m      ? &rollout_dims<SmallDims, StepKinds>
-             : c.n == 12       ? &rollout_n12
-             : c.n == 16       ? &rollout_n16
-                               : &rollout_dims<SmallDims, StepKinds>;
-  return run(c);
+  if (c.kind == kDerivs) return rollout_derivs(c);
+  if (c.n == c.m && c.n == 12) return rollout_n12(c);
+  if (c.n == c.m && c.n == 16) return rollout_n16(c);
+  if (c.kind == kTraj) return rollout_traj(c);
+  return rollout_dims<SmallDims, KindList<kCosts, kAlpha>>(c);
 }
 
 }  // namespace tfmpc

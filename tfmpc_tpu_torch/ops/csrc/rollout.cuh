@@ -82,10 +82,11 @@
 //
 // This header holds the kernel and its dispatch; each .cu instantiates
 // its own kinds and dims so the parallel build compiles them side by
-// side: rollout.cu K2, K3 and K5 at n = m in {2, 3, 5, 6} for every env
-// (and the C entries), rollout_n12.cu and rollout_n16.cu those three with
-// the HVAC step at n = m = 12 and 16 (HVAC-12, HVAC-16), rollout_derivs.cu
-// K8 with the navigation step at n = m in {2, 3, 5, 6} (and its C entry).
+// side: rollout.cu K2 and K3 at n = m in {2, 3, 5, 6} for every env (and
+// the C entries), rollout_traj.cu K5 there, rollout_n12.cu and
+// rollout_n16.cu those three with the HVAC step at n = m = 12 and 16
+// (HVAC-12, HVAC-16), rollout_derivs.cu K8 with the navigation step at
+// n = m in {2, 3, 5, 6} (and its C entry).
 #pragma once
 
 #include <utility>
@@ -103,7 +104,7 @@ struct Alphas {
   S v[kMaxAlphas];
 };
 
-// -- the tile kernel -----------------------------------------------------------
+// -- the tile kernel ----------------------------------------------------------
 
 constexpr int kTileMaxThreads = 1024;       // ops/rollout.py TILE_MAX_THREADS
 constexpr int kWarp = 32;                   // the producer warp's threads
@@ -283,59 +284,6 @@ __device__ __forceinline__ S from_lane(S v, int src) {
     return __shfl_sync(kFullMask, v, src, G);
 }
 
-#ifdef TFMPC_ROLLOUT_BULK_STORES
-// An experiment (tools/kernel_versions.py rollout, PERF.md): K5 stages a
-// step's X and U rows of the block in shared memory (two buffers of 2 A n
-// rows of spb values) and, after the next step's barrier, compute thread
-// j copies row j, j + ncomp, ... to device memory with one bulk copy
-// (cp.async.bulk) each, in place of the lanes' direct stores; blocks whose
-// rows are not whole 16-byte segments store directly.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
-                                           int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          gmem),
-      "r"(s), "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Issue step t's staged rows (buffer t & 1) of this thread.
-template <typename S, int N>
-__device__ __forceinline__ void bulk_issue(const TileArgs<S>& a,
-                                           const S* stage, int t, int b0,
-                                           int tid, int ncomp) {
-  const int rows = a.A * N;
-  const S* buf = stage + (t & 1) * 2 * rows * a.spb;
-  bool any = false;
-  for (int r = tid; r < 2 * rows; r += ncomp) {
-    S* out = r < rows ? a.X + at(t, r, rows, b0, a.B)
-                      : a.U + at(t, r - rows, rows, b0, a.B);
-    bulk_store(out, buf + r * a.spb, a.spb * static_cast<int>(sizeof(S)));
-    any = true;
-  }
-  if (any) bulk_commit();
-}
-
-// The staging buffers' shared bytes (after the ring, 16-byte aligned).
-template <typename S, int N>
-inline long long bulk_stage_bytes(int A, int spb) {
-  return 16 + 2LL * 2 * A * N * spb * static_cast<long long>(sizeof(S));
-}
-#endif
-
 // K8's linearization of the block's scenarios, after their rollouts (every
 // thread of the block, the producer warp's too): step t of scenario b at
 // its pre-step state and clipped control, read back from the block's own
@@ -410,14 +358,7 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
   const int bufs = a.depth + 2;
 
   const int ncomp = nthr - kWarp;       // the compute warps' threads
-#ifdef TFMPC_ROLLOUT_BULK_STORES
-  S* stage = reinterpret_cast<S*>(
-      (reinterpret_cast<uintptr_t>(ring + bufs * step_elems) + 15) /
-      16 * 16);
-  const bool bulk = kKind == kTraj && a.vec_bytes == 16 &&
-                    a.spb * static_cast<int>(sizeof(S)) % 16 == 0 &&
-                    b0 + a.spb <= a.B;
-#endif
+
   const bool producer = tid >= ncomp;  // the copying warp
   const int lane = tid & (G - 1);
   const int roll = tid / G;
@@ -494,9 +435,7 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
   for (int t = 0; t < a.T; ++t) {
     __syncthreads();  // step t's inputs have landed
     TFMPC_TILE_PHASE(1)
-#ifdef TFMPC_ROLLOUT_BULK_STORES
-    if (bulk && t > 0) bulk_issue<S, N>(a, stage, t - 1, b0, tid, ncomp);
-#endif
+
     const S* in = ring + cur * step_elems + s;
     const int st = a.stride;
     S dx[N];
@@ -528,23 +467,6 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
     if constexpr (kKind != kCosts) {
       const int row0 = kKind == kTraj ? ai * N : 0;
       const int rows = kKind == kTraj ? a.A * N : N;
-#ifdef TFMPC_ROLLOUT_BULK_STORES
-      if (bulk) {
-        S* buf = stage + (t & 1) * 2 * rows * a.spb;
-        if (live) {
-#pragma unroll
-          for (int r = 0; r < RN; ++r) {
-            const int i = lane + G * r;
-            if (G * (r + 1) <= N || i < N) {
-              buf[(row0 + i) * a.spb + s] = xn[r];
-              buf[(rows + row0 + i) * a.spb + s] = uo[r];
-            }
-          }
-        }
-        fence_proxy_async();
-        bulk_wait_read();  // step t - 1's copies have read their buffer
-      } else
-#endif
       if (live) {  // K5: alpha ai's rows of [T, A*n, B] and [T, A*m, B]
 #pragma unroll
         for (int r = 0; r < RN; ++r) {
@@ -565,13 +487,6 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
     TFMPC_TILE_PHASE(4)
   }
   TFMPC_TILE_CLOCKS_END(7)
-#ifdef TFMPC_ROLLOUT_BULK_STORES
-  if (bulk) {
-    named_barrier(1, ncomp);  // the last step's rows are staged
-    bulk_issue<S, N>(a, stage, a.T - 1, b0, tid, ncomp);
-    bulk_wait();
-  }
-#endif
   if (live && lane == 0)
     a.J[kEvery ? static_cast<int64_t>(ai) * a.B + b : b] =
         static_cast<S>(total + static_cast<double>(env.final_cost(x)));
@@ -719,22 +634,17 @@ int launch_tile(TileArgs<S> a, const Env& env, const TilePlan& plan,
   if (bytes != plan.smem_bytes || bytes > kTileMaxSmem ||
       threads > kTileMaxThreads || threads > kernel_max_threads)
     return static_cast<int>(cudaErrorInvalidValue);
-#ifdef TFMPC_ROLLOUT_BULK_STORES
-  const long long launch_bytes =
-      bytes + (kKind == kTraj ? bulk_stage_bytes<S, N>(a.A, a.spb) : 0);
-#else
-  const long long launch_bytes = bytes;
-#endif
+
   a.stride = tile_stride(a.spb, G, sizeof(S));
   a.vec_bytes = tile_vec_bytes(a);
-  if (launch_bytes > 48 * 1024) {
+  if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(launch_bytes));
+        static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<blocks_for(a.B, a.spb), threads,
-           static_cast<size_t>(launch_bytes), stream>>>(a, env);
+  kernel<<<blocks_for(a.B, a.spb), threads, static_cast<size_t>(bytes),
+           stream>>>(a, env);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -871,12 +781,14 @@ int rollout_dims(const RolloutCall& c) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// rollout.cu's dims and kinds; rollout_n12.cu and rollout_n16.cu define
-// the two mid dims' entries and rollout_derivs.cu K8's, so the parallel
-// build compiles them side by side. rollout_entry (rollout.cu) checks a
-// call and sends it to the one that instantiates its kind and dims.
+// rollout.cu's dims (K2 and K3 there); rollout_traj.cu defines K5's entry
+// at them, rollout_n12.cu and rollout_n16.cu the two mid dims' (K2, K3 and
+// K5) and rollout_derivs.cu K8's, so the parallel build compiles them side
+// by side. rollout_entry (rollout.cu) checks a call and sends it to the
+// one that instantiates its kind and dims.
 using SmallDims = DimList<2, 3, 5, 6>;
 using StepKinds = KindList<kCosts, kAlpha, kTraj>;
+int rollout_traj(const RolloutCall& c);
 int rollout_n12(const RolloutCall& c);
 int rollout_n16(const RolloutCall& c);
 int rollout_derivs(const RolloutCall& c);

@@ -48,8 +48,9 @@ DERIVS_LAUNCHES = 0
 DERIVS_PLAIN_CALLS = 0
 
 # (n, m) pairs the CUDA kernels are instantiated for (csrc/rollout.cuh):
-# every env's step at the small dims (rollout.cu), the HVAC step alone at
-# the mid dims (rollout_n12.cu, rollout_n16.cu: HVAC-12 and HVAC-16).
+# every env's step at the small dims (rollout.cu, K5's rollout_traj.cu),
+# the HVAC step alone at the mid dims (rollout_n12.cu, rollout_n16.cu:
+# HVAC-12 and HVAC-16).
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6), (12, 12), (16, 16)}
 HVAC_ONLY_DIMS = {(12, 12), (16, 16)}
 # (n, m) pairs K8 is instantiated for (csrc/rollout_derivs.cu), with the

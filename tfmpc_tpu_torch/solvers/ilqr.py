@@ -61,8 +61,9 @@ class ILQRConfig:
     kernel path: True runs K5, one rollout chain that writes every alpha's
     trajectory, and selects each lane's accepted one; False runs K2 for the
     costs and K3 to re-roll the accepted alpha; None (AUTO) takes the
-    two-kernel layout (``ilqr_batched._resolve_emit_traj`` says why). Both
-    layouts compute the same arithmetic, so the solve is the same.
+    emit-trajectories layout (``ilqr_batched._resolve_emit_traj`` says
+    why). Both layouts compute the same arithmetic, so the solve is the
+    same.
 
     ``fuse_derivatives=True`` (with ``use_pallas``) runs the fully-fused
     iteration of ``ilqr_batched._iteration_fused``: the accepted-alpha

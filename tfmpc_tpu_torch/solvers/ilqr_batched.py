@@ -305,19 +305,26 @@ def _use_pallas_rollout(env, X, config: ILQRConfig) -> bool:
 def _resolve_emit_traj(config: ILQRConfig, horizon: int, n: int,
                        m: int) -> bool:
     """The line-search layout of the kernel path: True and False pin it;
-    None (AUTO) takes the two-kernel layout (K2 + K3) at every shape.
+    None (AUTO) takes the emit-trajectories layout (K5 +
+    ``select_alpha_trajectory``) at every shape.
 
     The JAX package's AUTO rule (T >= 250, max(n, m) <= 12) was measured on
-    a TPU. On one H100 80GB HBM3 at 700 W, chip_smoke.py's emit A/B put
-    the emit-trajectories layout (K5 + select) within the spread of the
-    windows of the two-kernel one, at reservoir-5 T=500 B=1024 and at
-    HVAC-6 T=100 B=2048 (PERF.md): K5 saves ~2 ms of kernel time per
-    iteration of a solve that the host's KKT pass holds at ~12 s. So AUTO
-    keeps the layout that stores no per-alpha trajectories; ``horizon``,
-    ``n`` and ``m`` are the inputs a measured crossover would use.
+    a TPU. On one H100 80GB HBM3 at 700 W, ``tools/kernel_versions.py
+    rollout`` timed a line search and its materialize as
+    ``_iteration_batched`` runs them (wrappers and layout copies, device
+    time of graph replays, in turns), K5 + select against K2 + K3, in ms:
+    the navigation headline (B=4096, T=100) 0.1522 vs 0.1871; HVAC-3
+    (B=2048, T=100) 0.1554 vs 0.2180; HVAC-6 (B=2048, T=100) 0.2910 vs
+    0.3895; reservoir-5 (B=1024, T=500) 0.7468 vs 0.9839; HVAC-16 (B=512,
+    T=50) 0.2062 vs 0.3294; two-zone navigation (B=1024, T=20) 0.0486 vs
+    0.0574. The emit layout was faster by more than 10% at every measured
+    shape (one rollout chain and one layout copy instead of two), so AUTO
+    takes it everywhere; it holds every alpha's trajectory, A (n + m)
+    values a step and scenario, until the select. ``horizon``, ``n`` and
+    ``m`` are the inputs a measured crossover would use.
     """
     flag = config.linesearch_emit_trajectories
-    return False if flag is None else bool(flag)
+    return True if flag is None else bool(flag)
 
 
 def _active(state: SolverState, config: ILQRConfig):

@@ -554,11 +554,10 @@ def env_case(env, Bn, dtype):
 
 # -- the rollout kernels K2, K3, K5 and K8 -----------------------------------
 
+ROLLOUT_SOURCES = ("rollout.cu", "rollout_traj.cu", "rollout_n12.cu",
+                   "rollout_n16.cu", "rollout_derivs.cu")
 ROLLOUT_FILES = ("rollout.cuh", "envs.cuh", "common.cuh", "warp.cuh",
-                 "rollout.cu", "rollout_n12.cu", "rollout_n16.cu",
-                 "rollout_derivs.cu")
-ROLLOUT_SOURCES = ("rollout.cu", "rollout_n12.cu", "rollout_n16.cu",
-                   "rollout_derivs.cu")
+                 *ROLLOUT_SOURCES)
 # label -> chip_smoke.py inputs: the table's shapes of K2, K3 and K5
 ROLLOUT_CASES = {
     "headline": ("navigation", None, None),          # B=4096, T=100
