@@ -149,7 +149,25 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     relative of the split-kernel MPC on >= 99% of lanes, and of the plain
     MPC on its first 64 x0 for 10 steps; then solves/s of G1 and the split
     headline and control steps/s of G3 fused and split, in turns, and a
-    ``torch.profiler`` trace of one G1 solve.
+    ``torch.profiler`` trace of one G1 solve;
+28. slice G, the user surface: the command line in this process
+    (``cli.main``), every launch counter zeroed just before each command:
+    ``ilqr`` on ``configs/navigation.json`` with 1024 samples (K1, K5),
+    held against its ``--no-pallas`` run (the same converged mask on >=
+    99% of lanes, mean cost within 1e-4); ``ilqr`` on ``configs/hvac.json``
+    with 256 samples, T=50 and ``--logdir`` (K4, K5; 256 CSVs);
+    ``ilqr`` on ``configs/hvac16.json`` with ``--ddp``, 128 samples, T=20,
+    10 iterations (the plain DDP backward, counted, and K5; no Riccati
+    kernel), against ``--no-pallas``; ``mpc`` on the navigation fleet of
+    256 for 10 steps (K1, K5), realized costs within 1e-4 of the
+    ``--no-pallas`` fleet on >= 99% of lanes; ``lqr --num-samples 8``; one
+    subprocess ``python -m tfmpc_tpu_torch ilqr --env
+    configs/reservoir.json --num-samples 256 -T 50``; a two-process gloo
+    group, both ranks on this card, each solving 128 of 256 navigation
+    scenarios through ``mesh.solve_ilqr_sharded`` (K1, K5 counted in each
+    rank): every lane equal to the one-process solve's and ``summarize``
+    within 1e-12; and ``-v ilqr`` on the navigation config, the B=1 trace
+    through the kernels.
 
 K5 (the emit-trajectories line search, AUTO's layout) is checked with
 the other kernels in phase 3 at the shapes of the paths that run it
@@ -2924,6 +2942,340 @@ def slice_f(phase, timings, errs, launches_by_path, rates, card, nav_split):
     return {"g1": g1, "g2": g2, "g3": g3, "g1_profile": g1_profile}
 
 
+# -- slice G: the user surface ----------------------------------------------
+
+# phase 28: the command line's batch sizes, and the two-process group's
+G_NAV_B, G_HVAC_B, G_HVAC16_B, G_MPC_B, G_RESERVOIR_B = 1024, 256, 128, 256, 256
+G_GLOO_B, G_GLOO_WORLD, G_GLOO_DEADLINE_S = 256, 2, 180.0
+G_CLI_TIMEOUT_S = 300
+
+
+def cli_call(argv, capture=()):
+    """``cli.main(argv)`` in this process, its output captured; with
+    ``capture`` (names of ``parallel/mesh.py`` functions), the result of
+    each such call the command makes. Returns (exit code, output, {name:
+    result})."""
+    import contextlib
+    import io
+
+    from tfmpc_tpu_torch import cli
+    from tfmpc_tpu_torch.parallel import mesh
+
+    got, real = {}, {name: getattr(mesh, name) for name in capture}
+
+    def keep(name):
+        def call(*args, **kwargs):
+            got[name] = real[name](*args, **kwargs)
+            return got[name]
+        return call
+
+    for name in capture:
+        setattr(mesh, name, keep(name))
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+    finally:
+        for name, fn in real.items():
+            setattr(mesh, name, fn)
+    out = buf.getvalue()
+    print(f"  $ tfmpc-tpu-torch {' '.join(argv)}: exit {rc}; "
+          + " | ".join(out.splitlines()[-2:]))
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit code {rc}")
+    return rc, out, got
+
+
+def cli_line(pattern, out, what):
+    import re
+
+    m = re.search(pattern, out)
+    if m is None:
+        raise AssertionError(f"{what}: no line matching {pattern!r}")
+    return m
+
+
+def counted_cli(argv, capture=()):
+    """``cli_call`` with every launch and plain-call counter set to 0 just
+    before it and read just after."""
+    (rc, out, got), launches, plain = counted(lambda: cli_call(argv, capture))
+    return out, got, launches, plain
+
+
+def cli_agree(label, res, res_p, share=0.99, cost_rtol=1e-4):
+    """A command's solve against its ``--no-pallas`` run, ``PERF.md`` §2's
+    gate: the same converged mask on >= ``share`` of lanes and the mean
+    cost within ``cost_rtol`` over the lanes converged in both, or over
+    every lane where none converged in both (both runs then stopped at the
+    iteration cap)."""
+    import torch
+
+    same = float((res.converged == res_p.converged).float().mean())
+    both = res.converged & res_p.converged
+    lanes = both if bool(both.any()) else torch.ones_like(both)
+    c_k = res.total_cost.double()[lanes]
+    c_p = res_p.total_cost.double()[lanes]
+    rel = abs(float(c_k.mean()) - float(c_p.mean())) / abs(float(c_p.mean()))
+    which = "converged in both" if bool(both.any()) \
+        else "(none converged in both: all)"
+    print(f"  {label} vs --no-pallas: converged "
+          f"{float(res.converged.float().mean()):.4f} vs "
+          f"{float(res_p.converged.float().mean()):.4f}, same mask on "
+          f"{same:.4f} of lanes; mean cost over {int(lanes.sum())} lanes "
+          f"{which} {float(c_k.mean()):.6f} vs {float(c_p.mean()):.6f} (rel "
+          f"diff {rel:.3e}, gate {cost_rtol:g})")
+    if same < share or not rel <= cost_rtol:
+        raise AssertionError(f"{label}: disagrees with --no-pallas")
+    return {"same_mask": same, "mean_cost_rel": rel}
+
+
+def gloo_rank(rank, world, port, x0, horizon, config, results):
+    """One process of phase 28's two-process gloo group, on the one card:
+    joins the group, solves its rows of ``x0`` through
+    ``mesh.solve_ilqr_sharded`` (the kernels, counted), ``summarize``s
+    over the group, and puts its lanes, statistics and counters on
+    ``results``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        import torch
+        import torch.distributed as dist
+
+        from tfmpc_tpu_torch.models.registry import load_env
+        from tfmpc_tpu_torch.parallel import mesh
+        from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+        device = mesh.init_multihost(
+            device="cuda", backend="gloo", rank=rank, world_size=world,
+            init_method=f"tcp://127.0.0.1:{port}")
+        try:
+            m = mesh.make_mesh(devices=device)
+            env = load_env(ROOT / "configs/navigation.json", device=device)
+            rows = x0.shape[0] // world
+            local = x0[rank * rows:(rank + 1) * rows]
+
+            def run():
+                res = mesh.solve_ilqr_sharded(env, local, horizon=horizon,
+                                              config=ILQRConfig(**config),
+                                              mesh=m)
+                torch.cuda.synchronize()
+                return res
+
+            res, launches, plain = counted(run)
+            stats = mesh.summarize(res, m)
+            results.put((rank, True, {
+                "result": {f: v.cpu().numpy()
+                           for f, v in zip(res._fields, res)},
+                "stats": stats, "launches": launches, "plain": plain,
+                "device": str(m.device), "backend": dist.get_backend()}))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: B902 - the parent reports it and fails
+        results.put((rank, False, traceback.format_exc()))
+
+
+def gloo_group(x0, horizon, config):
+    """Phase 28's two processes (spawned, a free localhost port, both on
+    card 0) run ``gloo_rank``; returns their reports by rank. Past
+    ``G_GLOO_DEADLINE_S`` the children are killed and this raises."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=gloo_rank, args=(
+        rank, G_GLOO_WORLD, port, x0, horizon, config, results))
+        for rank in range(G_GLOO_WORLD)]
+    for p in procs:
+        p.start()
+    end, outs = time.monotonic() + G_GLOO_DEADLINE_S, {}
+    try:
+        while len(outs) < G_GLOO_WORLD:
+            if time.monotonic() > end:
+                raise AssertionError("the gloo group passed its deadline")
+            try:
+                rank, ok, out = results.get(timeout=1.0)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError("a gloo rank died before reporting")
+                continue
+            if not ok:
+                raise AssertionError(f"gloo rank {rank} failed:\n{out}")
+            outs[rank] = out
+        for p in procs:
+            p.join(timeout=max(end - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [outs[r] for r in range(G_GLOO_WORLD)]
+
+
+def slice_g(phase, launches_by_path, card):
+    """Phase 28 (slice G): the command line in this process through
+    ``cli.main`` with the launch counters, one ``python -m
+    tfmpc_tpu_torch`` subprocess, and a two-process gloo group on the one
+    card. Returns its figures."""
+    import logging
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+
+    batched = (r"solved (\d+) scenarios on 1 device\(s\): (\d+)/\d+ "
+               r"converged, mean_cost=(\S+) mean_iterations=(\S+)")
+    figures = {}
+    nav = ["--env", str(ROOT / "configs/navigation.json")]
+    nav_kernels = {"riccati_backward", "linesearch_costs_traj"}
+
+    def with_plain(label, argv, capture, expect):
+        """The command with the kernels (counted: ``expect`` ran, and
+        nothing else) and with ``--no-pallas``: both outputs and the
+        results of their ``mesh.<capture>`` calls."""
+        out, got, launches, plain = counted_cli(argv, (capture,))
+        launches_by_path[label] = launches
+        require_path(label, launches, plain, expect)
+        out_p, got_p, _, _ = counted_cli([*argv, "--no-pallas"], (capture,))
+        return out, got[capture], got_p[capture], out_p
+
+    # ilqr, the navigation batch: K1 and K5 + select
+    argv = ["ilqr", *nav, "--num-samples", str(G_NAV_B)]
+    out, res, res_p, _ = with_plain("cli_ilqr_navigation", argv,
+                                    "solve_ilqr_sharded", nav_kernels)
+    cli_line(batched, out, "ilqr navigation")
+    check_result("CLI ilqr navigation", res, G_NAV_B, N)
+    cli_agree("CLI ilqr navigation", res, res_p)
+
+    # ilqr, HVAC-6 with boxQP by default and trajectory CSVs: K4 and K5
+    with tempfile.TemporaryDirectory() as logdir:
+        argv = ["ilqr", "--env", str(ROOT / "configs/hvac.json"),
+                "--num-samples", str(G_HVAC_B), "-T", "50",
+                "--logdir", logdir]
+        out, got, launches, plain = counted_cli(argv)
+        launches_by_path["cli_ilqr_hvac6"] = launches
+        require_path("CLI ilqr HVAC-6", launches, plain,
+                     {"riccati_backward_boxqp", "linesearch_costs_traj"})
+        cli_line(batched, out, "ilqr hvac")
+        csvs = sorted(Path(logdir).glob("trajectory_*.csv"))
+        print(f"  {len(csvs)} trajectory CSVs written")
+        if len(csvs) != G_HVAC_B:
+            raise AssertionError("CLI ilqr HVAC-6: wrong number of CSVs")
+        figures["hvac6_csvs"] = len(csvs)
+
+    # ilqr, HVAC-16 with full DDP: the repaired route, the plain DDP
+    # backward (counted here: no kernel wrapper runs it) and K5 + select
+    real_backward, plain_backward = ilqr_batched.backward, [0]
+
+    def counting_backward(*args, **kwargs):
+        plain_backward[0] += 1
+        return real_backward(*args, **kwargs)
+
+    argv = ["ilqr", "--env", str(ROOT / "configs/hvac16.json"), "--ddp",
+            "--num-samples", str(G_HVAC16_B), "-T", "20",
+            "--max-iterations", "10"]
+    ilqr_batched.backward = counting_backward
+    try:
+        out, res, res_p, _ = with_plain("cli_ilqr_hvac16_ddp", argv,
+                                        "solve_ilqr_sharded",
+                                        {"linesearch_costs_traj"})
+    finally:
+        ilqr_batched.backward = real_backward
+    print(f"  plain DDP backward calls, kernel and --no-pallas runs: "
+          f"{plain_backward[0]}")
+    if plain_backward[0] == 0:
+        raise AssertionError("CLI ilqr HVAC-16 --ddp: the plain backward "
+                             "did not run")
+    cli_line(batched, out, "ilqr hvac16 ddp")
+    check_result("CLI ilqr HVAC-16 DDP", res, G_HVAC16_B, 16, 20)
+    cli_agree("CLI ilqr HVAC-16 DDP", res, res_p)
+    figures["hvac16_ddp_plain_backward_calls"] = plain_backward[0]
+
+    # mpc, the navigation fleet: K1 and K5 + select each re-plan
+    argv = ["mpc", *nav, "--num-samples", str(G_MPC_B), "--steps", "10"]
+    out, res, res_p, _ = with_plain("cli_mpc_navigation", argv,
+                                    "mpc_sharded", nav_kernels)
+    cli_line(r"closed-loop fleet of \d+ on 1 device\(s\): mean_total_cost="
+             r"(\S+) replans_converged=(\d+)/(\d+)", out, "mpc fleet")
+    figures["mpc_vs_plain"] = cost_share(
+        "CLI mpc fleet vs --no-pallas", res.total_cost, res_p.total_cost,
+        1e-4, 0.99)
+
+    # lqr, plain torch (no kernel, as in the JAX package)
+    out, _, launches, plain = counted_cli(["lqr", "--num-samples", "8"])
+    cli_line(r"solved 8 initial states: mean_cost=\S+ max_cost=\S+", out,
+             "lqr")
+    require_path("CLI lqr", launches, plain, set())
+
+    # one subprocess: python -m tfmpc_tpu_torch (its own build cache hit)
+    argv = [sys.executable, "-m", "tfmpc_tpu_torch", "ilqr", "--env",
+            str(ROOT / "configs/reservoir.json"), "--num-samples",
+            str(G_RESERVOIR_B), "-T", "50"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=G_CLI_TIMEOUT_S)
+    print(f"  $ python -m tfmpc_tpu_torch ilqr --env configs/reservoir.json "
+          f"--num-samples {G_RESERVOIR_B} -T 50: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {proc.stdout.strip()[-200:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m tfmpc_tpu_torch failed:\n"
+                             f"{proc.stderr[-2000:]}")
+    cli_line(batched, proc.stdout, "python -m tfmpc_tpu_torch")
+
+    # a two-process gloo group, both ranks on this card, against one process
+    x0 = np.random.default_rng(0).uniform(-10.0, 10.0, (G_GLOO_B, N)).astype(
+        "float32")
+    t0 = time.perf_counter()
+    outs = gloo_group(x0, T, HEADLINE)
+    print(f"  gloo group of {G_GLOO_WORLD} on {outs[0]['device']} "
+          f"({outs[0]['backend']}): {time.perf_counter() - t0:.1f} s")
+    from tfmpc_tpu_torch.models.registry import load_env
+    from tfmpc_tpu_torch.parallel import mesh
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env = load_env(ROOT / "configs/navigation.json", device="cuda")
+    one = mesh.make_mesh(devices="cuda")
+    whole = mesh.solve_ilqr_sharded(env, x0, horizon=T,
+                                    config=ILQRConfig(**HEADLINE), mesh=one)
+    stats = mesh.summarize(whole, one)
+    rows = G_GLOO_B // G_GLOO_WORLD
+    for rank, out in enumerate(outs):
+        launches_by_path[f"gloo_rank{rank}"] = out["launches"]
+        require_path(f"gloo rank {rank}", out["launches"], out["plain"],
+                     nav_kernels)
+        for name, value in out["result"].items():
+            want = getattr(whole, name)[rank * rows:(rank + 1) * rows]
+            if not np.array_equal(value, want.cpu().numpy(),
+                                  equal_nan=value.dtype.kind == "f"):
+                raise AssertionError(f"gloo rank {rank}: lanes of {name} "
+                                     "differ from the one-process solve")
+        for key, value in stats.items():
+            if abs(out["stats"][key] - value) > 1e-12 * abs(value):
+                raise AssertionError(f"gloo rank {rank}: summarize {key} "
+                                     f"{out['stats'][key]} vs {value}")
+    print(f"  both ranks' lanes identical to the one-process solve of "
+          f"{G_GLOO_B}; summarize equal within 1e-12: {stats}")
+    figures["gloo_summarize"] = stats
+
+    # -v: the trace path of a single solve (B=1 through the kernels)
+    out, _, launches, plain = counted_cli(["-v", "ilqr", *nav])
+    logging.getLogger("tfmpc_tpu_torch").setLevel(logging.WARNING)
+    launches_by_path["cli_ilqr_verbose_b1"] = launches
+    require_path("CLI -v ilqr (B=1 trace)", launches, plain, nav_kernels)
+    cli_line(r"converged=True iterations=\d+", out, "-v ilqr")
+    phase.done("28. slice G: the user surface")
+    figures["seconds"] = phase.seconds["28. slice G: the user surface"]
+    return figures
+
+
 def main() -> int:
     if not (ROOT / "tfmpc_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: tfmpc_tpu_torch/ not found beside "
@@ -3233,6 +3585,7 @@ def main() -> int:
         phase, timings, errs, launches_by_path, plain_s, rates, card)
     f_figures = slice_f(phase, timings, errs, launches_by_path, rates, card,
                         nav_split)
+    g_figures = slice_g(phase, launches_by_path, card)
 
     for name, value in timings.items():
         if name.endswith("_select_ms"):
@@ -3349,6 +3702,7 @@ def main() -> int:
                           if k.startswith("riccati_backward_mid")
                           and k not in sources},
                       **f_figures,
+                      "slice_g": g_figures,
                       "phase_s": phase.seconds,
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))

@@ -1,0 +1,74 @@
+"""Split a scenario batch over processes, one per device, with the PyTorch
+port.
+
+The port of ``examples/distributed_solve.py``. ``solve_ilqr_sharded``
+solves this process's rows of the batch with ``ilqr.solve_batch`` on its
+device (the CUDA kernels on a card), and ``summarize`` all-reduces the
+batch's seven statistics: the only communication. Run alone, the process
+is a mesh of one device. Launched by ``torchrun``, every process joins the
+group (``init_multihost``: NCCL on cards, gloo with ``--device cpu``) and
+takes its share of the rows:
+
+    python examples/torch_distributed_solve.py            (one card)
+    python examples/torch_distributed_solve.py --device cpu
+    torchrun --nproc-per-node 4 examples/torch_distributed_solve.py
+
+The JAX example's data x time block (the horizon sharded over a second
+mesh axis) waits for the time-sharded solves: ROADMAP queue 1 item 1.
+"""
+
+import argparse
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tfmpc_tpu_torch import ILQRConfig, make_navigation
+from tfmpc_tpu_torch.parallel import mesh as pmesh
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    device = torch.device(ap.parse_args(argv).device)
+    joined = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if joined:
+        device = pmesh.init_multihost(device=device)
+    try:
+        mesh = pmesh.make_mesh(devices=device)
+        cpu = device.type == "cpu"
+        env = make_navigation(
+            goal=[8.0, -5.0],
+            deceleration={"center": [[3.0, -2.0]], "decay": [2.0]},
+            device=device,
+        )
+        B = (128 if cpu else 1024) // mesh.size * mesh.size
+        T = 12 if cpu else 50
+        x0 = np.random.default_rng(0).uniform(-10, 10, size=(B, 2)).astype(
+            "f4")
+        rows = B // mesh.size
+        local = x0 if mesh.group is None \
+            else x0[mesh.rank * rows:(mesh.rank + 1) * rows]
+        result = pmesh.solve_ilqr_sharded(
+            env, local, horizon=T, mesh=mesh,
+            config=ILQRConfig(atol=1e-4, max_iterations=30, use_pallas=True),
+        )
+        stats = pmesh.summarize(result, mesh)
+        if mesh.rank == 0:
+            print(f"{B} scenarios over {mesh.size} device(s): "
+                  f"{stats['num_converged']} converged, "
+                  f"mean cost {stats['mean_cost']:.4f}, "
+                  f"mean iterations {stats['mean_iterations']:.1f}")
+        # each process's trajectories stay on its own device: nothing gathered
+        print(f"rank {mesh.rank}: {result.states.shape[0]} trajectories on "
+              f"{result.states.device}")
+        print("data x time (the horizon sharded too): not ported yet, "
+              "ROADMAP queue 1 item 1")
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

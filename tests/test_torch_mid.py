@@ -328,12 +328,17 @@ def test_kernel_mode_routes_lane_mid_and_raises():
     for dims in ((12, 12), (16, 16), (14, 13), (48, 48), (4, 4), (2, 1)):
         assert mode(*dims, cfg, "cuda") == "mid"
         assert mode(*dims, cfg, "cpu") == "mid"
+    # full DDP at n, m <= 12 without a lane instantiation: the JAX lane
+    # kernel runs it, this package has no kernel there (ROADMAP queue 2)
     with pytest.raises(NotImplementedError, match=r"\(12, 12\).*ddp"):
         mode(12, 12, ddp, "cuda")
-    with pytest.raises(NotImplementedError, match=r"\(49, 49\)"):
-        mode(49, 49, cfg, "cuda")
+    # where the JAX package runs its vmapped scan by design (DDP above 12,
+    # any dims above 48), the plain backward runs on the card too
+    assert mode(16, 16, ddp, "cuda") is None
+    assert mode(49, 49, cfg, "cuda") is None
     # on the CPU those run the plain backward
     assert mode(12, 12, ddp, "cpu") is None
+    assert mode(16, 16, ddp, "cpu") is None
     assert mode(49, 49, cfg, "cpu") is None
     # no kernel without use_pallas, and the parallel backward owns it
     assert mode(16, 16, dataclasses.replace(cfg, use_pallas=False),

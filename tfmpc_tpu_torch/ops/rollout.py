@@ -349,14 +349,14 @@ def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False):
     if (n, m) not in KERNEL_DIMS:
         raise NotImplementedError(
             f"the rollout kernels have no instantiation for (n, m) = "
-            f"{(n, m)} (compiled: {sorted(KERNEL_DIMS)}); run with "
-            "use_pallas=False"
+            f"{(n, m)} (compiled: {sorted(KERNEL_DIMS)}; ROADMAP queue 2 "
+            "item 1); run with use_pallas=False"
         )
     if (n, m) in HVAC_ONLY_DIMS and step.env_id != HVAC_STEP_ID:
         raise NotImplementedError(
             f"the rollout kernels run only the HVAC step at (n, m) = "
-            f"{(n, m)}, not {type(env).__name__}'s; run with "
-            "use_pallas=False"
+            f"{(n, m)}, not {type(env).__name__}'s (ROADMAP queue 2 item "
+            "1); run with use_pallas=False"
         )
     params = [
         p.to(dtype=X.dtype, device=X.device).contiguous() for p in step.params

@@ -39,7 +39,7 @@ from tfmpc_tpu_torch.solvers.lqr_parallel import (
 # Options of the JAX ILQRConfig that this package does not implement yet,
 # with the value that keeps them off and the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "time_axis": (None, "queue 1 item 2 (parallel/mesh.py: time-sharded "
+    "time_axis": (None, "queue 1 item 1 (parallel/mesh.py: time-sharded "
                   "solves)"),
 }
 

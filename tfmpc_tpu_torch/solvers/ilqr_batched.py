@@ -36,6 +36,9 @@ per outer iteration and one per restart round (and, for a bounded env, one
 for whether any lane stalled). With ``use_pallas=True`` on CUDA tensors the
 stages run the CUDA kernels or raise (an env without a device step, or
 dims without a kernel instantiation); nothing falls back to the plain path.
+Where the JAX package runs its XLA route by design, the plain stages are
+the route on every device: the backward of full DDP above 12 and every
+stage above 48 (``_riccati_kernel_mode``, ``_rollout_dims_supported``).
 ``use_pallas=False`` is the plain PyTorch path. Any batch size runs the
 kernels: they mask the ragged edge themselves, so there is no lane
 padding. The stages carry ``torch.profiler.record_function`` ranges
@@ -96,6 +99,11 @@ def state_from_result(result: ILQRResult) -> SolverState:
     )
 
 
+# The JAX package's lane kernel runs full DDP up to this dim on the TPU;
+# above it the JAX package runs its vmapped scan, and so does this one.
+DDP_LANE_DIM_MAX = 12
+
+
 class _IterationAux(NamedTuple):
     alpha: torch.Tensor      # [B] accepted step size (0 where none accepted)
     accepted: torch.Tensor   # [B] bool
@@ -109,17 +117,27 @@ def _riccati_kernel_mode(n: int, m: int, config: ILQRConfig, device):
     ``use_pallas``, as in the JAX package). "lane": K1/K4/K6a/K6b, for the
     dims they are instantiated at (``riccati.KERNEL_DIMS``). "mid": K7, for
     any other dims within ``riccati_mid.mid_kernel_supported`` and without
-    ``ddp`` (K7 has no DDP terms). Anything else raises
-    ``NotImplementedError`` naming the dims on a CUDA device, where the JAX
-    package drops mid-dim DDP to the vmapped scan with no signal; on the
-    CPU it is the plain backward, which every wrapper would run there
-    anyway. The lane/mid boundary is the port's own (the kernels'
-    instantiations), not the JAX package's TPU lane limit of 12.
+    ``ddp`` (K7 has no DDP terms).
+
+    Where the JAX package runs its vmapped scan by design, the plain
+    backward runs on every device too: full DDP at max(n, m) > 12 (its
+    lane kernel stops at 12 and its mid kernel has no DDP terms) and any
+    max(n, m) > ``riccati_mid.MID_DIM_MAX``. What is left raises
+    ``NotImplementedError`` naming the dims on a CUDA device, because the
+    JAX package has a kernel there and this package has none: full DDP at
+    n, m <= 12 outside ``riccati.KERNEL_DIMS``, e.g. (12, 12) or (4, 4)
+    (ROADMAP queue 2 item 2). On the CPU that is the plain backward, which
+    every wrapper would run there anyway. The lane/mid boundary is the
+    port's own (the kernels' instantiations), not the JAX package's TPU
+    lane limit of 12.
     """
     if not config.use_pallas or config.parallel_backward:
         return None
     if (n, m) in riccati.KERNEL_DIMS:
         return "lane"
+    if max(n, m) > riccati_mid.MID_DIM_MAX \
+            or (config.ddp and max(n, m) > DDP_LANE_DIM_MAX):
+        return None
     if not config.ddp and riccati_mid.mid_kernel_supported(n, m):
         return "mid"
     if torch.device(device).type == "cuda":
@@ -128,7 +146,9 @@ def _riccati_kernel_mode(n: int, m: int, config: ILQRConfig, device):
             f"use_pallas=True on CUDA, but no Riccati kernel runs {what} at "
             f"(n, m) = {(n, m)}: the lane kernels take "
             f"{sorted(riccati.KERNEL_DIMS)}, K7 any 1 <= n, m <= "
-            f"{riccati_mid.MID_DIM_MAX} without ddp; pass use_pallas=False")
+            f"{riccati_mid.MID_DIM_MAX} without ddp (ROADMAP queue 2 item 2 "
+            "ports the JAX lane kernel's DDP at n, m <= "
+            f"{DDP_LANE_DIM_MAX}); pass use_pallas=False")
     return None
 
 
@@ -283,17 +303,29 @@ def _linesearch_batched(env, X, U, policy, alphas):
     )
 
 
-def _use_pallas_rollout(env, X, config: ILQRConfig) -> bool:
-    """Whether the line search runs through K2/K3's wrappers.
+def _rollout_dims_supported(n: int, m: int) -> bool:
+    """Whether the rollout kernels may run at dims (n, m): the JAX
+    package's ``_rollout_dims_supported``, max(n, m) <= ``MID_DIM_MAX``.
+    Above it the backward already runs plain, and the line search and
+    materialize run plain on every device as the JAX package runs its XLA
+    rollout there. Below it, dims without an instantiation raise on CUDA
+    (``rollout.kernel_layout``; ROADMAP queue 2 item 1)."""
+    return max(n, m) <= riccati_mid.MID_DIM_MAX
 
+
+def _use_pallas_rollout(env, config: ILQRConfig, device) -> bool:
+    """Whether the line search runs through K2/K3/K5's wrappers.
+
+    No with ``use_pallas=False`` or dims past ``_rollout_dims_supported``.
     An env without a device step keeps the plain rollout on the CPU, as the
     JAX package keeps the XLA path for an env without lane functions; on
     CUDA with ``use_pallas`` that is an error, not a silent slow path.
     """
-    if not config.use_pallas:
+    if not config.use_pallas \
+            or not _rollout_dims_supported(env.state_size, env.action_size):
         return False
     if env.device_step() is None:
-        if X.device.type == "cuda":
+        if torch.device(device).type == "cuda":
             raise NotImplementedError(
                 f"use_pallas=True on CUDA, but {type(env).__name__} has no "
                 "device step for the rollout kernels; pass use_pallas=False"
@@ -425,7 +457,7 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
         )
         del second  # the Hessians: free before the line search
 
-    use_kernels = _use_pallas_rollout(env, state.X, config)
+    use_kernels = _use_pallas_rollout(env, config, state.X.device)
     emit_traj = use_kernels and _resolve_emit_traj(
         config, state.U.shape[1], env.state_size, env.action_size)
     with record_function("ilqr.linesearch"):

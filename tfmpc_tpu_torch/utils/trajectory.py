@@ -3,8 +3,9 @@
 Counterpart of ``tfmpc_tpu/utils/trajectory.py``, with the same table and
 the same CSV: a ``timestep`` index column, ``state_j``, ``action_j`` (empty
 at the final step) and ``cost``, each number as numpy prints it, which is
-the text that ``pandas.DataFrame.to_csv`` writes. Tensors are copied to the
-host once, at construction.
+the text that ``pandas.DataFrame.to_csv`` writes, without pandas.
+``to_dataframe`` gives the same columns as a DataFrame. Tensors are copied
+to the host once, at construction.
 """
 
 from __future__ import annotations
@@ -80,6 +81,13 @@ class Trajectory:
             cols[f"action_{j}"] = col
         cols["cost"] = self.costs
         return cols
+
+    def to_dataframe(self):
+        """Per-timestep DataFrame of the CSV's columns (pandas is imported
+        here, on first use: nothing else in this package needs it)."""
+        import pandas as pd
+
+        return pd.DataFrame(self._columns())
 
     def save(self, path: str) -> str:
         """Write the trajectory as CSV; returns the path written."""
