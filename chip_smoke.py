@@ -13,8 +13,10 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
    per source, all started together (timed, and nvcc's wall time per
    source); print ptxas's registers and spills per kernel instantiation
    (each lane kernel's per G; K2 and K3 at n = m = 5, 6 and 16; every K5
-   and K8 instantiation), and each lane kernel's and each K2, K3, K5 and
-   K8 launch plan beside the shared bytes the kernel computes for it;
+   and K8 instantiation, every instantiation of the generic form), and
+   each lane kernel's and each K2, K3, K5 and K8 launch plan (the generic
+   form's at phase 29's shapes) beside the shared bytes the kernel
+   computes for it;
 3. each kernel against its plain PyTorch version on the card, in float32
    and float64: K1 Riccati backward, K2 line-search costs and K3
    accepted-alpha rollout at the navigation headline shapes (B=4096,
@@ -167,7 +169,24 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     scenarios through ``mesh.solve_ilqr_sharded`` (K1, K5 counted in each
     rank): every lane equal to the one-process solve's and ``summarize``
     within 1e-12; and ``-v ilqr`` on the navigation config, the B=1 trace
-    through the kernels.
+    through the kernels;
+29. the generic form of K2, K3 and K5 (``csrc/rollout_generic.cuh``,
+    every 1 <= n, m <= 48 no unrolled instantiation covers): each kind
+    against its plain version in float32 and float64 (phase 3's
+    tolerances, identical fail masks in float64, K5 against K2 and K3 bit
+    for bit) and timed, at each path's shape below and at a rectangular
+    (24, 6) linear system (B=1024, T=100); then five f32 ``solve_batch``
+    paths on AUTO, counted (the routed Riccati kernel, K7 at these dims,
+    and the generic rollouts only), each against its ``use_pallas=False``
+    run (the same converged mask on >= 99% of lanes, mean cost within
+    1e-4) and on the other line-search layout (same mask, costs within
+    1e-5): the double integrator (n=2, m=1, B=4096, T=100; its controls
+    also within 1e-4 of the exact LQR in float64, ``solvers/lqr.py``),
+    reservoir-4 with boxQP (B=1024, T=100), navigation in four dims (one
+    zone, B=4096, T=100), the 24-room HVAC ring with boxQP (E1's config,
+    B=512, T=50) and a random stable linear system at (48, 48) (B=512,
+    T=50); and the generic form beside the unrolled kernel, in turns, at
+    HVAC-6 and E1's shape (the price of generality).
 
 K5 (the emit-trajectories line search, AUTO's layout) is checked with
 the other kernels in phase 3 at the shapes of the paths that run it
@@ -323,6 +342,34 @@ K8_TWO_ZONE_SHARE = 0.05
 # navigation cases of K8's plan sweep (tools/kernel_versions.py)
 K8_RAGGED = (1023, 50)
 K8_DIM_CASES = {"nav3": 3, "nav5": 5, "nav6": 6}
+# phase 29: the generic form of K2, K3 and K5 (csrc/rollout_generic.cuh)
+# on the paths it opens, each an f32 solve_batch on AUTO held against its
+# plain path and its other line-search layout. The double integrator
+# (tests/test_torch_linear.py DOUBLE_INTEGRATOR, n=2, m=1: the JAX kernels'
+# rectangular case) from x0 ~ U(-3, 3); reservoir-4 (configs/reservoir.json
+# with n_reservoirs=4, x0 its first four entries plus N(0, 1), the CLI's
+# ``--num-samples`` draw); navigation in four dims (one zone, the
+# headline's config); the 24-room HVAC ring (``hvac_ring``, E1's config);
+# a random stable linear system at (48, 48), the JAX kernels' ceiling.
+# label -> (B, T, config)
+GENERIC_PATHS = {
+    "double_integrator": (4096, 100, HEADLINE),
+    "reservoir4": (1024, 100, BOXQP),
+    "nav4": (4096, 100, HEADLINE),
+    "hvac24": (512, 50, E1_CONFIG),
+    "linear48": (512, 50, HEADLINE),
+}
+# the kernels alone, besides the paths' shapes: a rectangular (24, 6)
+# linear system
+GENERIC_KERNEL_CASES = {**{k: v[:2] for k, v in GENERIC_PATHS.items()},
+                        "linear24x6": (1024, 100)}
+DOUBLE_INTEGRATOR = dict(A=[[1.0, 0.1], [0.0, 1.0]], B=[[0.005], [0.1]],
+                         Q=[[1.0, 0.0], [0.0, 0.1]], R=[[0.01]])
+GOAL4 = [8.0, -5.0, 4.0, -2.0]
+ZONES4 = {"center": [[3.0, -2.0, 1.0, 0.0]], "decay": [2.0]}
+# the double integrator's controls against the exact LQR in float64
+# (solvers/lqr.py) on its first scenarios, through the kernels in f64
+DI_LQR_ATOL, DI_LQR_B = 1e-4, 64
 WINDOW_S = 1.0
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # bytes/s, and FLOP/s outside the tensor cores.
@@ -470,11 +517,16 @@ def k6b_work(Bn, Tn, n, m, itemsize, newton_iterations):
         ddp_extra(Bn, Tn, n, m, itemsize)))
 
 
-def env_step_flops(env_name: str, n: int, zones: int = 1) -> int:
+def env_step_flops(env_name: str, n: int, zones: int = 1,
+                   m: int | None = None) -> int:
     if env_name == "navigation":
         return 3 * n + zones * (3 * n + 8) + 2 * n
     if env_name == "hvac":
         return (n + 2) + 8 * n + 2 + n * (9 + 2 * n + 2)
+    if env_name == "linear":  # the rows, then the cost's terms
+        m = n if m is None else m
+        return 2 * n * (n + m) + 2 * n + 4 * n * n + 4 * n * m + 2 * m \
+            + 4 * m * m
     return 10 * n + n * (7 + 2 * n)            # reservoir
 
 
@@ -493,7 +545,7 @@ def rollout_work(Bn, Tn, n, m, itemsize, env_name, n_params, lanes, bounded,
 
 def rollout_step_flops(n, m, env_name, bounded):
     return n + m * (2 + 2 * n) + (2 * m if bounded else 0) \
-        + env_step_flops(env_name, n) + 1
+        + env_step_flops(env_name, n, m=m) + 1
 
 
 def traj_work(Bn, Tn, n, m, itemsize, env_name, n_params, A, bounded):
@@ -557,6 +609,117 @@ def bounded_env(name, dtype):
             "reservoir5": "configs/reservoir.json",
             "nav_bounded": "configs/navigation_bounded.json"}[name]
     return load_env(ROOT / path, dtype=dtype, device="cuda")
+
+
+def hvac_ring(R, dtype, device="cuda"):
+    """Suite config 3c's ring (benchmarks/suite.py:168-183) of R rooms:
+    each room joined to its two neighbours, every fourth room outside and
+    every fourth (offset 2) on the hall."""
+    from tfmpc_tpu_torch.models.hvac import make_hvac
+
+    adj = [[1 if abs(i - j) in (1, R - 1) else 0 for j in range(R)]
+           for i in range(R)]
+    return make_hvac(adj, is_out=[1 if i % 4 == 0 else 0 for i in range(R)],
+                     is_hall=[1 if i % 4 == 2 else 0 for i in range(R)],
+                     dtype=dtype, device=device)
+
+
+def stable_linear(n, m, seed, dtype, device="cuda"):
+    """A random linear system at (n, m) with every cost term: A = V diag(s)
+    V^T (V orthogonal, s ~ U(0.9, 0.99), so stable), B ~ 0.1 N(0, 1), Q and
+    Q_f symmetric positive definite, R = I, small N, q, r, c, q_f; from
+    ``default_rng(seed)``."""
+    import numpy as np
+
+    from tfmpc_tpu_torch.models.linear import make_linear_system
+
+    rng = np.random.default_rng(seed)
+    V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    L = rng.standard_normal((n, n)) / np.sqrt(n)
+    return make_linear_system(
+        (V * rng.uniform(0.9, 0.99, n)) @ V.T, 0.1 * rng.standard_normal(
+            (n, m)), c=0.01 * rng.standard_normal(n),
+        Q=0.5 * (L @ L.T) + 0.5 * np.eye(n), R=np.eye(m),
+        N=0.01 * rng.standard_normal((n, m)), q=0.1 * rng.standard_normal(n),
+        r=0.1 * rng.standard_normal(m), Q_f=np.eye(n),
+        q_f=0.1 * rng.standard_normal(n), dtype=dtype, device=device)
+
+
+def generic_env(case, dtype, device="cuda"):
+    """The env of a ``GENERIC_KERNEL_CASES`` case."""
+    import json
+
+    from tfmpc_tpu_torch.models.linear import make_linear_system
+    from tfmpc_tpu_torch.models.navigation import make_navigation
+    from tfmpc_tpu_torch.models.registry import make_env
+
+    if case == "double_integrator":
+        kw = dict(DOUBLE_INTEGRATOR)
+        return make_linear_system(kw.pop("A"), kw.pop("B"), **kw, dtype=dtype,
+                                  device=device)
+    if case.startswith("reservoir"):  # reservoir<k>: k reservoirs
+        cfg = json.loads((ROOT / "configs/reservoir.json").read_text())
+        cfg.update(n_reservoirs=int(case[len("reservoir"):]))
+        cfg.pop("x0")
+        return make_env(cfg, dtype=dtype, device=device)
+    if case == "nav4":
+        return make_navigation(GOAL4, ZONES4, dtype=dtype, device=device)
+    if case == "hvac24":
+        return hvac_ring(24, dtype, device)
+    if case == "linear48":
+        return stable_linear(48, 48, 48, dtype, device)
+    if case == "linear24x6":
+        return stable_linear(24, 6, 24, dtype, device)
+    raise ValueError(case)
+
+
+def generic_x0(case, Bn, dtype, device="cuda"):
+    """The solve's initial states of a ``GENERIC_KERNEL_CASES`` case [Bn,
+    n], from ``default_rng(0)``."""
+    import json
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    n = generic_env(case, dtype, "cpu").state_size
+    if case == "reservoir4":
+        x0 = np.asarray(json.loads((ROOT / "configs/reservoir.json")
+                                   .read_text())["x0"][:4])
+        x0 = x0[None] + rng.normal(size=(Bn, 4))
+    else:
+        lohi = {"double_integrator": (-3.0, 3.0), "nav4": (-10.0, 10.0),
+                "hvac24": (8.0, 18.0)}.get(
+            case, (20.0, 95.0) if case.startswith("reservoir")
+            else (-1.0, 1.0))
+        x0 = rng.uniform(*lohi, (Bn, n))
+    return torch.as_tensor(x0.astype("float32"), dtype=dtype, device=device)
+
+
+def generic_inputs(case, dtype, Bn, Tn, device="cuda"):
+    """A random nominal of a ``GENERIC_KERNEL_CASES`` case at (Bn, Tn) (its
+    solve's x0, controls ~ U(0, 4) clipped where bounded, else 0.1 N(0, 1))
+    and a small random feedback policy (K ~ 0.05 N(0, 1) / sqrt(n), k ~
+    N(0, 1), 2 N(0, 1) where bounded so that many controls reach the box),
+    from a numpy seed: (env, X, U, policy)."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.core.types import Policy
+
+    env = generic_env(case, dtype, device)
+    n, m = env.state_size, env.action_size
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    x0 = generic_x0(case, Bn, dtype, device)
+    bounded = env.bounds is not None
+    U = env.clip(t(rng.uniform(0.0, 4.0, (Bn, Tn, m)))) if bounded \
+        else t(0.1 * rng.standard_normal((Bn, Tn, m)))
+    X, _ = env.rollout(x0, U)
+    policy = Policy(
+        K=t(0.05 / np.sqrt(n) * rng.standard_normal((Bn, Tn, m, n))),
+        k=t((2.0 if bounded else 1.0) * rng.standard_normal((Bn, Tn, m))))
+    return env, X, U, policy
 
 
 def boxqp_inputs(name, dtype, Bn=B_BOX, Tn=T):
@@ -1569,6 +1732,45 @@ def print_rollout_plans(lib):
                                          "kernel's")
 
 
+def print_generic_plans(lib):
+    """The generic form's launch plans of K2, K3 and K5 at
+    ``GENERIC_KERNEL_CASES``' shapes in both dtypes, beside the shared
+    bytes the kernel computes for them
+    (``tfmpc_rollout_generic_smem_bytes``), which must agree, and the most
+    threads a block of the kernel can launch with."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+
+    for case, (Bn, _) in GENERIC_KERNEL_CASES.items():
+        for dtype in (torch.float32, torch.float64):
+            env = generic_env(case, dtype)
+            step, n, m = env.device_step(), env.state_size, env.action_size
+            a = {"dims": (Bn, 1, n, m), "dtype": dtype,
+                 "env_id": step.env_id,
+                 "params": [p.to(dtype=dtype, device="cuda").contiguous()
+                            for p in step.params],
+                 "int_params": step.int_params}
+            pe = sum(p.numel() for p in a["params"])
+            for kernel in ("costs", "alpha", "traj"):
+                per = A if kernel in rollout.EVERY_ALPHA else 1
+                p = rollout.launch_plan(a, kernel, A)
+                lib_bytes = lib.tfmpc_rollout_generic_smem_bytes(
+                    0 if dtype == torch.float32 else 1, n, m, p.groups,
+                    p.scenarios, p.depth, pe, p.scenarios * per)
+                print(f"  generic plan {KERNEL_NAMES[kernel]} {case} (n, m) "
+                      f"= ({n}, {m}) B={Bn} {dname(dtype)}: {p.groups} "
+                      f"lane(s) a rollout, {p.scenarios} scenario(s) a block "
+                      f"({p.threads(per)} threads of at most "
+                      f"{rollout.kernel_max_threads(kernel, a)}), {p.depth} "
+                      f"step(s) ahead, {p.blocks(Bn)} blocks, {p.smem_bytes}"
+                      f" B shared (kernel: {lib_bytes} B)")
+                if not p.generic or lib_bytes != p.smem_bytes:
+                    raise AssertionError(f"generic plan {kernel} {case}: not "
+                                         "the generic form's, or its shared "
+                                         "bytes disagree with the kernel's")
+
+
 def require_ragged(a, kernel, label):
     """Raise unless ``kernel``'s plan for ``kernel_args``-like ``a`` leaves
     the last block part-full."""
@@ -2103,6 +2305,13 @@ COUNTERS = {
                                    "MID_BOXQP_PLAIN_CALLS"),
     "rollout_alpha_derivs": ("rollout", "DERIVS_LAUNCHES",
                              "DERIVS_PLAIN_CALLS"),
+    # the generic form of K2, K3 and K5 (its plain versions are theirs)
+    "linesearch_costs_generic": ("rollout", "COSTS_GENERIC_LAUNCHES",
+                                 "COSTS_PLAIN_CALLS"),
+    "rollout_alpha_generic": ("rollout", "ALPHA_GENERIC_LAUNCHES",
+                              "ALPHA_PLAIN_CALLS"),
+    "linesearch_costs_traj_generic": ("rollout", "TRAJ_GENERIC_LAUNCHES",
+                                      "TRAJ_PLAIN_CALLS"),
 }
 
 
@@ -2158,10 +2367,10 @@ def solver(env, x0, horizon, config):
     return run
 
 
-def check_result(label, res, Bn, n, horizon=T):
+def check_result(label, res, Bn, n, horizon=T, m=None):
     import torch
 
-    if res.actions.shape != (Bn, horizon, n) \
+    if res.actions.shape != (Bn, horizon, n if m is None else m) \
             or res.states.shape != (Bn, horizon + 1, n):
         raise AssertionError(f"{label}: wrong output shapes")
     if not bool(torch.isfinite(res.actions).all()) or not bool(
@@ -2281,23 +2490,26 @@ def reservoir_t500_solves(runs):
                                    "riccati_backward_boxqp")
 
 
-def layouts_agree(label, res, two_run, backward):
+def layouts_agree(label, res, two_run, backward,
+                  line_search=("linesearch_costs", "rollout_alpha"),
+                  what="two kernels"):
     """The solve ``two_run`` on the two-kernel layout (``backward``, K2 and
-    K3 only) against ``res``, the same solve on the emit-trajectories
-    layout: the same converged mask and every lane's cost within 1e-5
-    relative (|a - b| / (|b| + 1), the JAX release gate's criterion,
+    K3 only; ``line_search`` names their counters) against ``res``, the
+    same solve on the emit-trajectories layout (or, with ``what``, the
+    other way round): the same converged mask and every lane's cost within
+    1e-5 relative (|a - b| / (|b| + 1), the JAX release gate's criterion,
     benchmarks/release_check.py:591-619). Returns its launches."""
     res2, launches2, plain2 = counted(two_run)
-    require_path(f"{label} solve (two kernels)", launches2, plain2,
-                 {backward, "linesearch_costs", "rollout_alpha"})
+    require_path(f"{label} solve ({what})", launches2, plain2,
+                 {backward, *line_search})
     same_mask = bool((res.converged == res2.converged).all())
     dev = rel_err(res.total_cost, res2.total_cost)
-    print(f"  {label}, two-kernel layout: identical converged mask "
+    print(f"  {label}, {what}: identical converged mask "
           f"{same_mask}, per-lane cost max rel dev {dev:.3e} (gate 1e-5), "
           f"identical controls {bool((res.actions == res2.actions).all())}")
     if not same_mask or not dev < 1e-5:
         raise AssertionError(f"{label}: the emit-trajectories and two-kernel "
-                             "solves disagree")
+                             "layouts disagree")
     return launches2
 
 
@@ -2579,8 +2791,9 @@ def print_ptxas(log_text, every_rollout=False):
     K7's riccati_mid_kernel), one summary line per rollout kernel
     (rollout_tile_kernel by kind: K2, K3, K5, K8) and for P1 over its
     instantiations, and one line per K2 and K3 instantiation at n = m = 5
-    and 6, per K5 and K8 instantiation and per HVAC rollout instantiation
-    at n = m = 12 and 16 (``every_rollout``: per rollout
+    and 6, per K5 and K8 instantiation, per HVAC rollout instantiation
+    at n = m = 12 and 16 and per instantiation of the generic form
+    (rollout_generic_kernel; ``every_rollout``: per rollout
     instantiation)."""
     entry, rows = None, []
     for line in log_text.splitlines():
@@ -2605,10 +2818,12 @@ def print_ptxas(log_text, every_rollout=False):
         if "riccati" in short:
             print(f"  ptxas: {short}: {regs} registers; {stack}")
             continue
-        kind = TILE_KINDS.get(short[-2:-1], "") if "tile" in short else ""
+        generic = "rollout_generic" in short
+        kind = TILE_KINDS.get(short[-2:-1], "") \
+            if "tile" in short or generic else ""
         rollout.setdefault(f"{short.split('<')[0]} {kind}".strip(),
                            []).append((regs, stack))
-        if every_rollout or kind in ("K5", "K8") or (
+        if every_rollout or generic or kind in ("K5", "K8") or (
                 "HVACStep" in short and (", 12, 12," in short
                                          or ", 16, 16," in short)) or (
                 "tile" in short and (", 5, 5," in short
@@ -3276,6 +3491,320 @@ def slice_g(phase, launches_by_path, card):
     return figures
 
 
+# -- phase 29: the generic form of K2, K3 and K5 -----------------------------
+
+GENERIC_ENV_NAMES = {"double_integrator": "linear", "reservoir4": "reservoir",
+                     "nav4": "navigation", "hvac24": "hvac",
+                     "linear48": "linear", "linear24x6": "linear",
+                     "reservoir12": "reservoir"}
+
+
+def generic_kinds(config, horizon, n, m):
+    """The rollout kernels a kernel-path solve at dims without an unrolled
+    instantiation runs: the generic K5 on the emit-trajectories layout,
+    else the generic K2 and K3 (AUTO resolved as the solver resolves
+    it)."""
+    from tfmpc_tpu_torch.solvers.ilqr_batched import _resolve_emit_traj
+
+    if _resolve_emit_traj(config, horizon, n, m):
+        return {"linesearch_costs_traj_generic"}
+    return {"linesearch_costs_generic", "rollout_alpha_generic"}
+
+
+def check_generic_kernels(case, dtype, Bn, Tn, timings=None, errs=None):
+    """The generic K2, K3 and K5 at a ``GENERIC_KERNEL_CASES`` shape
+    (``generic_inputs``), through the wrappers, which must launch the
+    generic form: K5 against K2 and K3 bit for bit (as ``check_k5``), each
+    against its plain version (K2 and K3 within ``TOL``; K5 within ``TOL``
+    in float64 and by ``check_k5``'s share gate against the float64 plain
+    version in float32), the fail masks (lanes whose J is not finite)
+    identical in float64. With ``timings``, timed under
+    ``<wrapper>_generic_<case>``."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    dn = dname(dtype)
+    env, X, U, policy = generic_inputs(case, dtype, Bn, Tn)
+    n, m = env.state_size, env.action_size
+    label = f"generic {case} (n, m) = ({n}, {m}) B={Bn} T={Tn}"
+    alphas = ILQRConfig().alphas_static()
+    best = torch.arange(Bn, device="cuda") % A
+    alpha_vec = ILQRConfig().alphas(dtype, device="cuda")[best]
+    counts = lambda: (rollout.COSTS_GENERIC_LAUNCHES,  # noqa: E731
+                      rollout.ALPHA_GENERIC_LAUNCHES,
+                      rollout.TRAJ_GENERIC_LAUNCHES)
+    before = counts()
+    J2 = rollout.linesearch_costs(env, X, U, policy, alphas)
+    X3, U3, J3 = rollout.rollout_alpha(env, X, U, policy, alpha_vec)
+    J5, X5, U5 = rollout.linesearch_costs_traj(env, X, U, policy, alphas)
+    if [a - b for a, b in zip(counts(), before)] != [1, 1, 1]:
+        raise AssertionError(f"{label}: the wrappers did not launch the "
+                             "generic form")
+    sel = rollout.select_alpha_trajectory(X, X5, U5, J5, best)
+    torch.cuda.synchronize()
+    for what, got, want in (("K5 J vs K2", J5, J2),
+                            ("K5 selected X vs K3", sel[0], X3),
+                            ("K5 selected U vs K3", sel[1], U3),
+                            ("K5 selected J vs K3", sel[2], J3)):
+        same = torch.equal(got, want)
+        print(f"  {label} {what} [{dn}]: bitwise equal {same} (gate)")
+        if not same:
+            raise AssertionError(f"{label} {what} [{dn}]: not bitwise equal")
+    J2p = rollout.linesearch_costs_ref(env, X, U, policy, alphas)
+    X3p, U3p, J3p = rollout.rollout_alpha_ref(env, X, U, policy, alpha_vec)
+    J5p, X5p, U5p = rollout.linesearch_costs_traj_ref(env, X, U, policy,
+                                                      alphas)
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        for what, k, p in (("K2", J2, J2p), ("K3", J3, J3p), ("K5", J5, J5p)):
+            same = torch.equal(torch.isfinite(k), torch.isfinite(p))
+            print(f"  {label} {what} fail mask (J not finite on "
+                  f"{int((~torch.isfinite(p)).sum())} of {p.numel()}) [{dn}]: "
+                  f"identical {same} (gate)")
+            if not same:
+                raise AssertionError(f"{label} {what}: fail masks differ")
+    e2 = compare(f"{label} K2 J", J2, J2p, dn)
+    e3 = max(compare(f"{label} K3 X", X3, X3p, dn),
+             compare(f"{label} K3 U", U3, U3p, dn))
+    compare(f"{label} K3 J", J3, J3p, dn)
+    outs_k, outs_p = (J5, X5, U5), (J5p, X5p, U5p)
+    e5 = max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p))
+    if dtype == torch.float64:
+        for what, k, p in zip(("J", "X", "U"), outs_k, outs_p):
+            compare(f"{label} K5 {what}", k, p, dn)
+    else:
+        outs_r = rollout.linesearch_costs_traj_ref(
+            generic_env(case, torch.float64), X.double(), U.double(),
+            to64(policy), alphas)
+        lanes = lambda o: (o[0], o[1].permute(3, 0, 1, 2),  # noqa: E731
+                           o[2].permute(3, 0, 1, 2))
+        ok = torch.ones(Bn, dtype=torch.bool, device="cuda")
+        share_k = lane_share(lanes(outs_k), lanes(outs_r), ok, *K5_F32_TOL)
+        share_p = lane_share(lanes(outs_p), lanes(outs_r), ok, *K5_F32_TOL)
+        print(f"  {label} K5 [{dn}]: max abs err vs the plain version "
+              f"{e5:.3e}; share of lanes within {K5_F32_TOL[0]:g} + "
+              f"{K5_F32_TOL[1]:g}*|ref| of the float64 plain version: kernel "
+              f"{share_k:.6f}, plain {share_p:.6f} (gate: kernel >= plain - "
+              f"{K4_F32_SHARE_SLACK})")
+        if share_k < share_p - K4_F32_SHARE_SLACK:
+            raise AssertionError(f"{label} K5 [{dn}]: the kernel is less "
+                                 "accurate than the plain version")
+    if timings is None:
+        return
+    ra = rollout.kernel_args(env, X, U, policy)
+    n_params = sum(p.numel() for p in ra["params"])
+    bounded = env.bounds is not None
+    env_name = GENERIC_ENV_NAMES[case]
+    costs, alpha, traj = (f"{w}_generic_{case}" for w in (
+        "linesearch_costs", "rollout_alpha", "linesearch_costs_traj"))
+    errs.update({costs: e2, alpha: e3, traj: e5})
+    a_vec = alpha_vec.contiguous()
+    timings[costs] = (
+        graph_ms(lambda: rollout.linesearch_costs_kernel(ra, alphas), 10),
+        cuda_ms(lambda: rollout.linesearch_costs(env, X, U, policy, alphas),
+                10),
+        cuda_ms(lambda: rollout.linesearch_costs_ref(env, X, U, policy,
+                                                     alphas), 2),
+        bound(*rollout_work(Bn, Tn, n, m, 4, env_name, n_params, A, bounded,
+                            False)),
+    )
+    timings[alpha] = (
+        graph_ms(lambda: rollout.rollout_alpha_kernel(ra, a_vec), 10),
+        cuda_ms(lambda: rollout.rollout_alpha(env, X, U, policy, alpha_vec),
+                10),
+        cuda_ms(lambda: rollout.rollout_alpha_ref(env, X, U, policy,
+                                                  alpha_vec), 2),
+        bound(*rollout_work(Bn, Tn, n, m, 4, env_name, n_params, 1, bounded,
+                            True)),
+    )
+    timings[traj] = (
+        graph_ms(lambda: rollout.linesearch_costs_traj_kernel(ra, alphas),
+                 10),
+        cuda_ms(lambda: rollout.linesearch_costs_traj(env, X, U, policy,
+                                                      alphas), 10),
+        cuda_ms(lambda: rollout.linesearch_costs_traj_ref(env, X, U, policy,
+                                                          alphas), 2),
+        bound(*traj_work(Bn, Tn, n, m, 4, env_name, n_params, A, bounded)),
+    )
+    plans = {k: rollout.launch_plan(ra, k, A) for k in ("costs", "alpha",
+                                                        "traj")}
+    for (key, k), p in zip(((costs, "costs"), (alpha, "alpha"),
+                            (traj, "traj")), plans.values()):
+        k_ms, w_ms, p_ms, (b_ms, b_by) = timings[key]
+        print(f"  {label} {KERNEL_NAMES[k]} f32, plan G={p.groups}, "
+              f"{p.scenarios} a block, D={p.depth}: kernel {k_ms:.4f} ms "
+              f"(graph replays), wrapper {w_ms:.4f} ms, plain {p_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def di_lqr_check(res32, x0, horizon):
+    """The double integrator's controls against the exact LQR
+    (``solvers/lqr.py``) in float64 on its first ``DI_LQR_B`` scenarios:
+    the same solve through the kernels in float64 (K7 and the generic
+    rollouts, counted) and the f32 solve's, each within ``DI_LQR_ATOL``
+    max-abs. Returns both deviations."""
+    import torch
+
+    from tfmpc_tpu_torch.solvers import ilqr, lqr
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env64 = generic_env("double_integrator", torch.float64)
+    x0_64 = x0[:DI_LQR_B].double()
+    _, U_l, _ = lqr.solve(env64.to_lqr_problem(horizon), x0_64)
+    config = ILQRConfig(**{**HEADLINE, "atol": 1e-10})
+    res64, launches, plain = counted(lambda: ilqr.solve_batch(
+        env64, x0_64, horizon=horizon, config=config))
+    require_path("double integrator f64 solve", launches, plain,
+                 {"riccati_backward_mid"}
+                 | generic_kinds(config, horizon, 2, 1))
+    dev64 = float((res64.actions - U_l).abs().max())
+    dev32 = float((res32.actions[:DI_LQR_B].double() - U_l).abs().max())
+    print(f"  double integrator controls vs the exact LQR in float64 "
+          f"({DI_LQR_B} scenarios): f64 kernel solve max-abs {dev64:.3e}, "
+          f"f32 kernel solve {dev32:.3e} (gates < {DI_LQR_ATOL:g})")
+    if not (dev64 < DI_LQR_ATOL and dev32 < DI_LQR_ATOL):
+        raise AssertionError("double integrator: controls deviate from the "
+                             "exact LQR")
+    return {"f64": dev64, "f32": dev32}
+
+
+def generic_vs_unrolled(card):
+    """The price of generality: the generic form beside the unrolled
+    instantiation that runs there, K2, K3 and K5 at HVAC-6 (B=2048, T=100)
+    and E1's shape (HVAC-16, B=512, T=50), f32, ``boxqp_inputs``; the same
+    outputs (within ``TOL``, and whether bit for bit), device times of
+    graph replays, in turns (unrolled, generic, generic, unrolled; best of
+    two). The unrolled kernel stays the route there."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import _build, rollout
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    out = {}
+    for case, Bn, Tn in (("hvac6", B_BOX, T), ("hvac16", B_E1, T_E1)):
+        env, X, U, _, _, _, _, policy = boxqp_inputs(case, torch.float32,
+                                                     Bn, Tn)
+        a = rollout.kernel_args(env, X, U, policy)
+        n = env.state_size
+        alphas = ILQRConfig().alphas_static()
+        a_vec = ILQRConfig().alphas(torch.float32, device="cuda")[
+            torch.arange(Bn, device="cuda") % A].contiguous()
+        opts = dict(dtype=torch.float32, device="cuda")
+        for kind in ("costs", "alpha", "traj"):
+            per = A if kind in rollout.EVERY_ALPHA else 1
+            plan = rollout.generic_launch_plan(a, kind, per)
+            if kind == "costs":
+                outs = (torch.empty((A, Bn), **opts),)
+                unrolled = lambda: rollout.linesearch_costs_kernel(  # noqa
+                    a, alphas)
+                generic = lambda: rollout._launch_generic(  # noqa: E731
+                    a, "costs", plan, outs[0], alphas=alphas)
+            elif kind == "alpha":
+                outs = (torch.empty((Tn, n, Bn), **opts),
+                        torch.empty((Tn, n, Bn), **opts),
+                        torch.empty((Bn,), **opts))    # X, U, J
+                unrolled = lambda: rollout.rollout_alpha_kernel(  # noqa
+                    a, a_vec)
+                generic = lambda: rollout._launch_generic(  # noqa: E731
+                    a, "alpha", plan, outs[2], outs[0], outs[1],
+                    alpha=a_vec)
+            else:
+                outs = (torch.empty((A, Bn), **opts),
+                        torch.empty((Tn, A * n, Bn), **opts),
+                        torch.empty((Tn, A * n, Bn), **opts))
+                unrolled = lambda: rollout.linesearch_costs_traj_kernel(  # noqa
+                    a, alphas)
+                generic = lambda: rollout._launch_generic(  # noqa: E731
+                    a, "traj", plan, *outs, alphas=alphas)
+            want = unrolled()
+            want = want if isinstance(want, tuple) else (want,)
+            _build.check(generic(), "generic " + kind)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(outs, want))
+            err = max(compare(f"generic vs unrolled {KERNEL_NAMES[kind]} "
+                              f"{case} output {i}", g, w, "float32")
+                      for i, (g, w) in enumerate(zip(outs, want)))
+            t_u = [graph_ms(unrolled, 10)]
+            t_g = [graph_ms(generic, 10), graph_ms(generic, 10)]
+            t_u.append(graph_ms(unrolled, 10))
+            u_plan = rollout.launch_plan(a, kind, per)
+            key = f"{KERNEL_NAMES[kind]}_{case}"
+            out[key] = {"unrolled_ms": min(t_u), "generic_ms": min(t_g),
+                        "bitwise_equal": same, "max_abs_err": err,
+                        "generic_plan": [plan.groups, plan.scenarios,
+                                         plan.depth],
+                        "unrolled_plan": [u_plan.groups, u_plan.scenarios,
+                                          u_plan.depth]}
+            print(f"  {KERNEL_NAMES[kind]} {case} (B={Bn}, T={Tn}, n=m={n}, "
+                  f"f32): unrolled {min(t_u):.4f} ms (G={u_plan.groups}, "
+                  f"{u_plan.scenarios} a block), generic {min(t_g):.4f} ms "
+                  f"(G={plan.groups}, {plan.scenarios} a block, "
+                  f"D={plan.depth}), ratio {min(t_g) / min(t_u):.2f}; "
+                  f"outputs bitwise equal {same} [{card}]")
+    return out
+
+
+def slice_generic(phase, timings, errs, launches_by_path, plain_s, card):
+    """Phase 29: the generic form of K2, K3 and K5 (csrc/
+    rollout_generic.cuh) at ``GENERIC_KERNEL_CASES``' shapes against its
+    plain versions in float32 and float64 (``check_generic_kernels``,
+    timed in f32), then each ``GENERIC_PATHS`` solve on AUTO (counted: the
+    routed Riccati kernel and the generic rollouts, nothing else, no plain
+    version) against its plain path and on the other line-search layout,
+    the double integrator against the exact LQR; then the generic form
+    beside the unrolled one at HVAC-6 and E1's shape. Returns its
+    figures."""
+    import torch
+
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    figures = {"paths": {}}
+    for case, (Bn, Tn) in GENERIC_KERNEL_CASES.items():
+        for dtype in (torch.float32, torch.float64):
+            f32 = (timings, errs) if dtype == torch.float32 else ()
+            check_generic_kernels(case, dtype, Bn, Tn, *f32)
+    for label, (Bn, Tn, cfg) in GENERIC_PATHS.items():
+        env = generic_env(label, torch.float32)
+        n, m = env.state_size, env.action_size
+        x0 = generic_x0(label, Bn, torch.float32)
+        config = ILQRConfig(**cfg)
+        mode = ilqr_batched._riccati_kernel_mode(n, m, config, "cuda")
+        backward = {"lane": "riccati_backward",
+                    "mid": "riccati_backward_mid"}[mode] + (
+            "_boxqp" if config.boxqp and env.bounds is not None else "")
+        emit = ilqr_batched._resolve_emit_traj(config, Tn, n, m)
+        layout, other = ("emit", "two_kernel") if emit else ("two_kernel",
+                                                             "emit")
+        print(f"generic path {label}, (n, m) = ({n}, {m}), B={Bn}, T={Tn}, "
+              f"f32, AUTO's layout {layout}:")
+        res, launches, plain = counted(solver(env, x0, Tn, config))
+        launches_by_path[f"generic_{label}_{layout}"] = launches
+        require_path(f"{label} solve", launches, plain,
+                     {backward} | generic_kinds(config, Tn, n, m))
+        conv = check_result(label, res, Bn, n, Tn, m)
+        plain_s[f"generic_{label}"] = agree_with_plain(label, res, solver(
+            env, x0, Tn, dataclasses.replace(config, use_pallas=False)))
+        other_cfg = dataclasses.replace(config,
+                                        linesearch_emit_trajectories=not emit)
+        launches_by_path[f"generic_{label}_{other}"] = layouts_agree(
+            label, res, solver(env, x0, Tn, other_cfg), backward,
+            line_search=tuple(generic_kinds(other_cfg, Tn, n, m)),
+            what=f"the {other} layout")
+        figures["paths"][label] = {
+            "converged": conv, "failed": float(res.failed.float().mean()),
+            "mean_iterations": float(res.iterations.float().mean()),
+            "mean_cost": float(res.total_cost.double().mean()),
+            "auto_layout": layout}
+        if label == "double_integrator":
+            figures["double_integrator_vs_lqr"] = di_lqr_check(res, x0, Tn)
+    figures["generic_vs_unrolled"] = generic_vs_unrolled(card)
+    phase.done("29. the generic form of K2, K3 and K5")
+    return figures
+
+
 def main() -> int:
     if not (ROOT / "tfmpc_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: tfmpc_tpu_torch/ not found beside "
@@ -3313,6 +3842,7 @@ def main() -> int:
     print_mid_plans(lib)
     print_lane_plans(lib)
     print_rollout_plans(lib)
+    print_generic_plans(lib)
 
     # -- 3. kernels vs plain versions ---------------------------------------
     timings, errs = {}, {}
@@ -3586,6 +4116,8 @@ def main() -> int:
     f_figures = slice_f(phase, timings, errs, launches_by_path, rates, card,
                         nav_split)
     g_figures = slice_g(phase, launches_by_path, card)
+    generic_figures = slice_generic(phase, timings, errs, launches_by_path,
+                                    plain_s, card)
 
     for name, value in timings.items():
         if name.endswith("_select_ms"):
@@ -3664,6 +4196,17 @@ def main() -> int:
         "rollout_alpha_derivs_g3": (derivs_cu, k8_tpu, "g3_mpc_fused",
                                     "rollout_alpha_derivs"),
     }
+    # the generic form at each path's shape: K5 counted in the path's emit
+    # solve, K2 and K3 in its two-kernel solve (one of the two is AUTO's)
+    generic_cu = "tfmpc_tpu_torch/ops/csrc/rollout_generic.cuh"
+    for label in GENERIC_PATHS:
+        for wrapper, tpu, layout in (
+                ("linesearch_costs_traj", k5_tpu, "emit"),
+                ("linesearch_costs", k2_tpu, "two_kernel"),
+                ("rollout_alpha", k3_tpu, "two_kernel")):
+            sources[f"{wrapper}_generic_{label}"] = (
+                generic_cu, tpu, f"generic_{label}_{layout}",
+                f"{wrapper}_generic")
     kernels = []
     for name, (src, replaces, path, counter) in sources.items():
         k_ms, w_ms, p_ms, (b_ms, b_by), *lib = timings[name]
@@ -3703,6 +4246,12 @@ def main() -> int:
                           and k not in sources},
                       **f_figures,
                       "slice_g": g_figures,
+                      "generic": {**generic_figures, "linear24x6": {
+                          k: {"ms": v[0], "wrapper_ms": v[1],
+                              "plain_ms": v[2], "bound_ms": v[3][0],
+                              "max_abs_err": errs[k]}
+                          for k, v in timings.items()
+                          if k.endswith("_generic_linear24x6")}},
                       "phase_s": phase.seconds,
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))

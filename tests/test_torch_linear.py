@@ -155,8 +155,10 @@ def test_ilqr_on_the_double_integrator_reaches_the_lqr_optimum(batched):
 
 def test_rectangular_env_has_no_kernel_instantiation():
     """n=2, m=1: with use_pallas on CPU tensors the solve runs the plain
-    versions; the kernels' layout check, which makes a CUDA solve raise,
-    refuses the dims without a launch."""
+    versions; the kernels' layout, which a CUDA solve launches on, is built
+    for the rectangular dims (u [T, 1, B], K [T, 1*2, B]), and K2, K3 and
+    K5 take the generic form's plan there (no unrolled instantiation has
+    m != n)."""
     _, env = _envs(DOUBLE_INTEGRATOR)
     x0 = torch.as_tensor(np.random.default_rng(0).uniform(-3, 3, (4, 2)))
     res = ilqr.solve_batch(env, x0, horizon=12, config=ilqr.ILQRConfig(
@@ -164,5 +166,17 @@ def test_rectangular_env_has_no_kernel_instantiation():
     assert bool(res.converged.all())
     policy = Policy(K=torch.zeros(4, 12, 1, 2, dtype=torch.float64),
                     k=torch.zeros(4, 12, 1, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match=r"\(n, m\) = \(2, 1\)"):
-        rollout.kernel_layout(env, res.states, res.actions, policy)
+    a = rollout.kernel_layout(env, res.states, res.actions, policy)
+    assert a["dims"] == (4, 12, 2, 1) and a["env_id"] == LINEAR_STEP_ID
+    assert a["ubar"].shape == (12, 1, 4) and a["K"].shape == (12, 2, 4)
+    assert a["xbar"].shape == (12, 2, 4)
+    assert not rollout.unrolled_dims(LINEAR_STEP_ID, 2, 1)
+    pe = sum(p.numel() for p in a["params"])
+    for kernel in ("costs", "alpha", "traj"):
+        for dtype in (torch.float32, torch.float64):
+            plan = rollout.rollout_plan(kernel, LINEAR_STEP_ID, 2, 1, 4096,
+                                        11, dtype, pe)
+            assert plan.generic
+            assert plan.smem_bytes == rollout.generic_smem_bytes(
+                2, 1, plan.groups, plan.scenarios, plan.depth, pe, dtype,
+                plan.scenarios * (11 if kernel != "alpha" else 1))

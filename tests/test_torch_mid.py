@@ -172,27 +172,44 @@ def test_mid_launchers_refuse_cpu_tensors_and_big_dims():
     assert not riccati_mid.mid_kernel_supported(0, 3)
 
 
-def test_rollout_kernels_take_the_hvac_step_at_mid_dims():
-    """K2/K3/K5 are instantiated at n = m = 12 and 16 for the HVAC step
-    alone: its kernel layout builds, another env of those dims is refused
-    before any launch."""
+@pytest.mark.parametrize("n", [12, 16])
+def test_rollout_kernels_take_the_hvac_step_at_mid_dims(n):
+    """K2/K3/K5 are instantiated unrolled at n = m = 12 and 16 for the HVAC
+    step alone; every other env of those dims takes the generic form: the
+    kernel layout builds for each of the four envs, and the plan is the
+    unrolled one for HVAC and the generic one for the rest."""
     from tfmpc_tpu_torch.core.types import Policy
+    from tfmpc_tpu_torch.models.hvac import make_hvac
+    from tfmpc_tpu_torch.models.linear import make_linear_system
+    from tfmpc_tpu_torch.models.navigation import make_navigation
     from tfmpc_tpu_torch.models.reservoir import make_reservoir
     from tfmpc_tpu_torch.ops import rollout
 
-    for env in (load_env(HVAC16, dtype=torch.float64, device="cpu"),
-                make_reservoir(12, dtype=torch.float64, device="cpu")):
-        n = env.state_size
+    adj = [[1 if abs(i - j) in (1, n - 1) else 0 for j in range(n)]
+           for i in range(n)]
+    hvac = load_env(HVAC16, dtype=torch.float64, device="cpu") if n == 16 \
+        else make_hvac(adj, dtype=torch.float64, device="cpu")
+    envs = {
+        "hvac": hvac,
+        "reservoir": make_reservoir(n, dtype=torch.float64, device="cpu"),
+        "navigation": make_navigation([1.0] * n, {"center": [[0.0] * n],
+                                                  "decay": [2.0]},
+                                      dtype=torch.float64, device="cpu"),
+        "linear": make_linear_system(np.eye(n), np.eye(n),
+                                     dtype=torch.float64, device="cpu"),
+    }
+    for name, env in envs.items():
         U = torch.zeros(2, 3, n, dtype=torch.float64)
         X, _ = env.rollout(torch.full((2, n), 15.0, dtype=torch.float64), U)
         policy = Policy(K=torch.zeros(2, 3, n, n, dtype=torch.float64),
                         k=torch.zeros(2, 3, n, dtype=torch.float64))
-        if n == 16:
-            assert rollout.kernel_layout(env, X, U, policy)["dims"] == (
-                2, 3, 16, 16)
-        else:
-            with pytest.raises(NotImplementedError, match="HVAC step"):
-                rollout.kernel_layout(env, X, U, policy)
+        a = rollout.kernel_layout(env, X, U, policy)
+        assert a["dims"] == (2, 3, n, n)
+        pe = sum(p.numel() for p in a["params"])
+        for kernel in ("costs", "alpha", "traj"):
+            plan = rollout.rollout_plan(kernel, a["env_id"], n, n, 512, 11,
+                                        torch.float32, pe)
+            assert plan.generic == (name != "hvac"), (name, kernel)
 
 
 # -- P1 -----------------------------------------------------------------------

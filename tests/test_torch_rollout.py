@@ -489,30 +489,53 @@ def test_rollout_plan_covers_each_row_once(kernel, n, dtype):
 
 def test_a_rollout_plan_exists_for_every_kernel_dim():
     """``rollout_plan`` gives a plan for every (n, m) that ``kernel_layout``
-    accepts (the HVAC step alone at the mid dims), K2, K3 and K5 at
-    ``KERNEL_DIMS`` and K8 at ``DERIVS_DIMS``, and refuses the rest."""
+    accepts: the unrolled table's at the instantiated dims (K2, K3 and K5
+    at ``KERNEL_DIMS``, the HVAC step alone at the mid dims, K8 at
+    ``DERIVS_DIMS``), and K2, K3 and K5 at every other 1 <= n, m <= 48 in
+    both dtypes the generic form's, within ``SMEM_LIMIT`` and the block's
+    threads at the largest env's parameters (the linear step's); it
+    refuses K8 elsewhere and every dim above 48."""
     for kernel, n in PLAN_KINDS:
         env_id, params = _plan_env(kernel, n)
         for dtype in (torch.float32, torch.float64):
-            assert rollout.rollout_plan(kernel, env_id, n, n, 1024,
-                                        len(ALPHAS), dtype, params)
+            assert not rollout.rollout_plan(kernel, env_id, n, n, 1024,
+                                            len(ALPHAS), dtype,
+                                            params).generic
     assert set(rollout.ROLLOUT_PLANS) == set(rollout.KIND_CODES)
     for kernel in ("costs", "alpha", "traj"):
         assert set(rollout.ROLLOUT_PLANS[kernel]) \
             == {n for n, _ in rollout.KERNEL_DIMS}
     assert set(rollout.ROLLOUT_PLANS["derivs"]) \
         == {n for n, _ in rollout.DERIVS_DIMS}
-    with pytest.raises(NotImplementedError):
-        rollout.rollout_plan("costs", 2, 16, 16, 1024, 11, torch.float32, 400)
-    with pytest.raises(NotImplementedError):
-        rollout.rollout_plan("alpha", 1, 4, 4, 1024, 11, torch.float32, 52)
-    for kernel in ("traj", "derivs"):
-        with pytest.raises(NotImplementedError):
-            rollout.rollout_plan(kernel, 0, 12, 12, 1024, 11,
+    A = len(ALPHAS)
+    for dtype in (torch.float32, torch.float64):
+        for n in range(1, 49):
+            for m in range(1, 49):
+                pe = 3 * n * n + 2 * n * m + m * m + 3 * n + m
+                for kernel in ("costs", "alpha", "traj"):
+                    per = A if kernel in rollout.EVERY_ALPHA else 1
+                    plan = rollout.rollout_plan(kernel, 3, n, m, 1024, A,
+                                                dtype, pe)
+                    assert plan.generic == ((n, m) not in
+                                            rollout.KERNEL_DIMS
+                                            or (n, m) in
+                                            rollout.HVAC_ONLY_DIMS)
+                    assert plan.smem_bytes <= rollout.SMEM_LIMIT
+                    assert plan.threads(per) <= rollout.TILE_MAX_THREADS
+    # the reservoir at 16 and navigation at 4: the generic form
+    assert rollout.rollout_plan("costs", 2, 16, 16, 1024, 11, torch.float32,
+                                400).generic
+    assert rollout.rollout_plan("alpha", 0, 4, 4, 1024, 11, torch.float32,
+                                10).generic
+    for kernel in ("costs", "alpha", "traj"):
+        for dims in ((49, 49), (2, 49), (0, 3)):
+            with pytest.raises(NotImplementedError):
+                rollout.rollout_plan(kernel, 3, *dims, 1024, 11,
+                                     torch.float32, 400)
+    for dims in ((12, 12), (4, 4), (16, 16)):
+        with pytest.raises(NotImplementedError, match="queue 2 item 4"):
+            rollout.rollout_plan("derivs", 0, *dims, 1024, 11,
                                  torch.float32, 38)
-    with pytest.raises(NotImplementedError):
-        rollout.rollout_plan("derivs", 1, 16, 16, 1024, 11, torch.float32,
-                             384)
 
 
 # The stores of K5 and K8: output -> its entries a step. In the step loop

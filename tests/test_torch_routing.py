@@ -3,7 +3,8 @@ PyTorch on every device, the card included: the Riccati backward of full
 DDP at max(n, m) > 12 and every stage at max(n, m) > 48. Where the JAX
 package has a kernel and the port has none, the port raises on CUDA,
 naming ROADMAP queue 2: full DDP at n, m <= 12 outside the lane kernels'
-dims, and rollouts at dims without an instantiation.
+dims. The rollout kernels take every dim up to 48, in the generic form
+where no unrolled instantiation runs.
 
 No CUDA tensor exists on the CPU, so the rules are tested as functions of
 the dims, the config and the device; the solves run on CPU tensors, where
@@ -79,20 +80,52 @@ def test_rollout_rule_at_the_dim_ceiling():
     assert use(_NoStep(6), cfg, "cpu") is False
 
 
+def _env_at(kind, n, dtype=torch.float64):
+    """An env of ``kind`` (with a device step) at n states and controls."""
+    from tfmpc_tpu_torch.models.hvac import make_hvac
+    from tfmpc_tpu_torch.models.navigation import make_navigation
+    from tfmpc_tpu_torch.models.reservoir import make_reservoir
+
+    if kind == "linear":
+        return _linear(n, n, dtype)
+    if kind == "reservoir":
+        return make_reservoir(n, dtype=dtype, device="cpu")
+    if kind == "navigation":
+        return make_navigation([1.0] * n, {"center": [[0.0] * n],
+                                           "decay": [2.0]},
+                               dtype=dtype, device="cpu")
+    adj = [[1 if abs(i - j) in (1, n - 1) else 0 for j in range(n)]
+           for i in range(n)]
+    return make_hvac(adj, dtype=dtype, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["linear", "reservoir", "navigation",
+                                  "hvac"])
 @pytest.mark.parametrize("n", [8, 12, 48])
-def test_uncovered_rollout_dims_raise_naming_queue_2(n):
-    """Dims 7-48 that no rollout instantiation covers: ``kernel_layout``
-    (what every launch goes through) raises, naming the ROADMAP item. (12
-    is built for the HVAC step only, not for the linear env's.)"""
-    env = _linear(n, n)
+def test_uncovered_rollout_dims_raise_naming_queue_2(n, kind):
+    """Dims 7-48 that no unrolled rollout instantiation covers (12 is built
+    for the HVAC step alone) no longer raise: ``kernel_layout`` (what every
+    launch goes through) builds the layout for every env with a device
+    step, and K2, K3 and K5 take the generic form's plan there (the
+    unrolled one for HVAC-12). Above 48 the layout still raises."""
+    env = _env_at(kind, n)
     B, T = 2, 3
     X = torch.zeros(B, T + 1, n, dtype=torch.float64)
     U = torch.zeros(B, T, n, dtype=torch.float64)
     policy = ilqr.backward(*ilqr.derivatives(env, X, U),
                            torch.zeros(B, dtype=torch.float64),
                            ilqr.ILQRConfig())[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 1"):
-        rollout.kernel_layout(env, X, U, policy)
+    a = rollout.kernel_layout(env, X, U, policy)
+    assert a["dims"] == (B, T, n, n)
+    pe = sum(p.numel() for p in a["params"])
+    for kernel in ("costs", "alpha", "traj"):
+        plan = rollout.rollout_plan(kernel, a["env_id"], n, n, B, 11,
+                                    torch.float64, pe)
+        assert plan.generic == (not (kind == "hvac" and n == 12))
+        assert plan.smem_bytes <= rollout.SMEM_LIMIT
+    with pytest.raises(NotImplementedError, match="1 <= n, m <= 48"):
+        rollout.kernel_layout(_linear(49, 49), torch.zeros(B, T + 1, 49),
+                              torch.zeros(B, T, 49), policy)
 
 
 def test_ddp_at_lane_dims_without_a_kernel_raises_naming_queue_2():

@@ -79,6 +79,12 @@ _SIGNATURES = {
     # void*[7]: fx, fu, lx, lu, lxx, luu, lux) after J
     "tfmpc_rollout_alpha_derivs": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
     + [_P] * 4 + [_I, _I, _I, _LL, _P],
+    # K2/K3/K5 in the generic form (rollout_generic.cu): kind, dtype, env,
+    # n, m, T, B, xbar, ubar, K, k, lo, hi, alphas (host f64 or null), A,
+    # alpha (device or null), params, n_params, int_params, n_int, J, X,
+    # U (null for K2), the plan as K2's and the stream
+    "tfmpc_rollout_generic": [_I] * 7 + [_P] * 7 + [_I, _P, _P, _I, _P, _I]
+    + [_P] * 3 + [_I, _I, _I, _LL, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -201,6 +207,14 @@ def library() -> ctypes.CDLL:
     # params, n_params, int_params, n_int
     lib.tfmpc_rollout_max_threads.argtypes = [_I] * 6 + [_P, _I, _P, _I]
     lib.tfmpc_rollout_max_threads.restype = ctypes.c_int
+    # the generic form's: dtype, n, m, lanes a rollout, scenarios a block,
+    # depth, param values, rollouts a block
+    lib.tfmpc_rollout_generic_smem_bytes.argtypes = [_I] * 8
+    lib.tfmpc_rollout_generic_smem_bytes.restype = ctypes.c_longlong
+    # kind, dtype, env, n, m, params, n_params, int_params, n_int
+    lib.tfmpc_rollout_generic_max_threads.argtypes = [_I] * 5 + [_P, _I, _P,
+                                                                 _I]
+    lib.tfmpc_rollout_generic_max_threads.restype = ctypes.c_int
     return lib
 
 

@@ -14,7 +14,9 @@
 // state). step() is the loop of row() over i after stage_cost() and
 // prep(), the same arithmetic in the same order. param_elems() and
 // each_param() list the parameter arrays, so a kernel can copy them into
-// shared memory once a block and point the functor at the copy.
+// shared memory once a block and point the functor at the copy. Each
+// functor also has a run-time-dim form (the kAnyDim specializations at the
+// end of this file) for the generic form of K2, K3 and K5.
 #pragma once
 
 #include "common.cuh"
@@ -480,6 +482,295 @@ struct LinearStep {
 #pragma unroll
       for (int b = 0; b < M; ++b)
         cost = cost + S(0.5) * R[a * M + b] * u[a] * u[b];
+    }
+    return cost;
+  }
+};
+
+// -- the run-time-dim forms ---------------------------------------------------
+//
+// Each functor above at any dims: NavigationStep<S, kAnyDim> and the others
+// take n and m from the launch (members set by the C call) instead of
+// template arguments, and read x and u through a Column (a rollout's
+// vector in shared memory, element i at p[i * s]). They run in the rollout
+// kernels' generic form (rollout_generic.cuh), at every 1 <= n, m <= 48
+// that no unrolled instantiation covers. Each keeps its unrolled twin's
+// arithmetic in the same order (the same loops, not unrolled). Only the
+// linear step has m != n; the others' launch refuses m != n (the
+// static_asserts of their unrolled step()).
+constexpr int kAnyDim = 0;
+
+template <typename S>
+struct Column {
+  const S* p;
+  int s;
+  __device__ __forceinline__ S operator[](int i) const { return p[i * s]; }
+};
+
+template <typename S>
+struct NavigationStep<S, kAnyDim> {
+  static constexpr int kId = kNavigation;
+  const S* __restrict__ goal;
+  const S* __restrict__ centers;
+  const S* __restrict__ decays;
+  int zones;
+  int n, m;
+
+  __device__ __forceinline__ S final_cost(Column<S> x) const {
+    S c = 0;
+    for (int i = 0; i < n; ++i) {
+      const S d = x[i] - goal[i];
+      c += d * d;
+    }
+    return c;
+  }
+
+  __host__ __device__ int param_elems() const {
+    return n + zones * n + zones;
+  }
+  template <class F>
+  __device__ __forceinline__ void each_param(F&& f) {
+    f(goal, n);
+    f(centers, zones * n);
+    f(decays, zones);
+  }
+
+  __device__ __forceinline__ S stage_cost(Column<S> x, Column<S>) const {
+    return final_cost(x);
+  }
+
+  struct Pre {
+    S lam;
+  };
+  __device__ __forceinline__ Pre prep(Column<S> x) const {
+    S lam = 1;
+    for (int z = 0; z < zones; ++z) lam = lam * factor(x, z);
+    return Pre{lam};
+  }
+
+  __device__ __forceinline__ S row(const Pre& p, int, Column<S>, Column<S>,
+                                   S xi, S ui) const {
+    return xi + p.lam * ui;
+  }
+
+  __device__ __forceinline__ S factor(Column<S> x, int z) const {
+    S d2 = 0;
+    for (int i = 0; i < n; ++i) {
+      const S d = x[i] - centers[z * n + i];
+      d2 += d * d;
+    }
+    const S dist = dsqrt(d2 + S(1e-12));
+    return S(2) / (S(1) + dexp(-decays[z] * dist)) - S(1);
+  }
+};
+
+template <typename S>
+struct HVACStep<S, kAnyDim> {
+  static constexpr int kId = kHVAC;
+  const S* __restrict__ cond;
+  const S* __restrict__ cond_rowsum;
+  const S* __restrict__ k_out;
+  const S* __restrict__ k_hall;
+  const S* __restrict__ capacity;
+  const S* __restrict__ temp_low;
+  const S* __restrict__ temp_high;
+  const S* __restrict__ temp_mid;
+  const S* __restrict__ temp_out;
+  const S* __restrict__ temp_hall;
+  const S* __restrict__ temp_air;
+  const S* __restrict__ air_cap;
+  const S* __restrict__ cost_air;
+  const S* __restrict__ penalty;
+  const S* __restrict__ setpoint_weight;
+  const S* __restrict__ time_delta;
+  int n, m;
+
+  __device__ __forceinline__ S final_cost(Column<S> x) const {
+    S comfort = 0, setpoint = 0;
+    for (int i = 0; i < n; ++i) {
+      const S below = relu(temp_low[i] - x[i]);
+      const S above = relu(x[i] - temp_high[i]);
+      comfort += below * below + above * above;
+      const S d = x[i] - temp_mid[i];
+      setpoint += d * d;
+    }
+    return *penalty * comfort + *setpoint_weight * setpoint;
+  }
+
+  __host__ __device__ int param_elems() const { return n * n + 7 * n + 8; }
+  template <class F>
+  __device__ __forceinline__ void each_param(F&& f) {
+    f(cond, n * n);
+    f(cond_rowsum, n);
+    f(k_out, n);
+    f(k_hall, n);
+    f(capacity, n);
+    f(temp_low, n);
+    f(temp_high, n);
+    f(temp_mid, n);
+    f(temp_out, 1);
+    f(temp_hall, 1);
+    f(temp_air, 1);
+    f(air_cap, 1);
+    f(cost_air, 1);
+    f(penalty, 1);
+    f(setpoint_weight, 1);
+    f(time_delta, 1);
+  }
+
+  __device__ __forceinline__ S stage_cost(Column<S> x, Column<S> u) const {
+    S air = 0;
+    for (int i = 0; i < n; ++i) air += u[i];
+    return *cost_air * air + final_cost(x);
+  }
+
+  struct Pre {
+    S ta, ka, to, th, dt;
+  };
+  __device__ __forceinline__ Pre prep(Column<S>) const {
+    return Pre{*temp_air, *air_cap, *temp_out, *temp_hall, *time_delta};
+  }
+
+  __device__ __forceinline__ S row(const Pre& p, int i, Column<S> x,
+                                   Column<S>, S xi, S ui) const {
+    const S heat = ui * p.ka * (p.ta - xi);
+    S exch = 0;
+    for (int j = 0; j < n; ++j) exch += cond[i * n + j] * x[j];
+    exch = exch - xi * cond_rowsum[i];
+    const S leak_out = k_out[i] * (p.to - xi);
+    const S leak_hall = k_hall[i] * (p.th - xi);
+    const S dT = (heat + exch + leak_out + leak_hall) / capacity[i];
+    return xi + p.dt * dT;
+  }
+};
+
+template <typename S>
+struct ReservoirStep<S, kAnyDim> {
+  static constexpr int kId = kReservoir;
+  const S* __restrict__ downstream;
+  const S* __restrict__ max_capacity;
+  const S* __restrict__ rain;
+  const S* __restrict__ evap_factor;
+  const S* __restrict__ lower_bound;
+  const S* __restrict__ upper_bound;
+  const S* __restrict__ mid;
+  const S* __restrict__ low_penalty;
+  const S* __restrict__ high_penalty;
+  const S* __restrict__ setpoint_weight;
+  int n, m;
+
+  __device__ __forceinline__ S final_cost(Column<S> x) const {
+    const S lp = *low_penalty, hp = *high_penalty, sw = *setpoint_weight;
+    S c = 0;
+    for (int i = 0; i < n; ++i) {
+      const S below = relu(lower_bound[i] - x[i]);
+      const S above = relu(x[i] - upper_bound[i]);
+      const S d = x[i] - mid[i];
+      c += lp * below * below + hp * above * above + sw * d * d;
+    }
+    return c;
+  }
+
+  __host__ __device__ int param_elems() const { return n * n + 5 * n + 4; }
+  template <class F>
+  __device__ __forceinline__ void each_param(F&& f) {
+    f(downstream, n * n);
+    f(max_capacity, n);
+    f(rain, n);
+    f(evap_factor, 1);
+    f(lower_bound, n);
+    f(upper_bound, n);
+    f(mid, n);
+    f(low_penalty, 1);
+    f(high_penalty, 1);
+    f(setpoint_weight, 1);
+  }
+
+  __device__ __forceinline__ S stage_cost(Column<S> x, Column<S>) const {
+    return final_cost(x);
+  }
+
+  struct Pre {
+    S e;
+  };
+  __device__ __forceinline__ Pre prep(Column<S>) const {
+    return Pre{*evap_factor};
+  }
+
+  __device__ __forceinline__ S row(const Pre& p, int i, Column<S>,
+                                   Column<S> u, S xi, S ui) const {
+    const S evap = p.e * dsin(xi / max_capacity[i]) * xi;
+    S inflow = 0;
+    for (int j = 0; j < n; ++j) inflow += u[j] * downstream[j * n + i];
+    return xi + rain[i] - evap - ui + inflow;
+  }
+};
+
+template <typename S>
+struct LinearStep<S, kAnyDim> {
+  static constexpr int kId = kLinear;
+  const S* __restrict__ A;
+  const S* __restrict__ B;
+  const S* __restrict__ c;
+  const S* __restrict__ Q;
+  const S* __restrict__ R;
+  const S* __restrict__ Nx;
+  const S* __restrict__ q;
+  const S* __restrict__ r;
+  const S* __restrict__ Q_f;
+  const S* __restrict__ q_f;
+  int n, m;
+
+  __device__ __forceinline__ S final_cost(Column<S> x) const {
+    S cost = 0;
+    for (int i = 0; i < n; ++i) {
+      cost = cost + q_f[i] * x[i];
+      for (int j = 0; j < n; ++j)
+        cost = cost + S(0.5) * Q_f[i * n + j] * x[i] * x[j];
+    }
+    return cost;
+  }
+
+  __host__ __device__ int param_elems() const {
+    return 3 * n * n + 2 * n * m + m * m + 3 * n + m;
+  }
+  template <class F>
+  __device__ __forceinline__ void each_param(F&& f) {
+    f(A, n * n);
+    f(B, n * m);
+    f(c, n);
+    f(Q, n * n);
+    f(R, m * m);
+    f(Nx, n * m);
+    f(q, n);
+    f(r, m);
+    f(Q_f, n * n);
+    f(q_f, n);
+  }
+
+  struct Pre {};
+  __device__ __forceinline__ Pre prep(Column<S>) const { return Pre{}; }
+
+  __device__ __forceinline__ S row(const Pre&, int i, Column<S> x,
+                                   Column<S> u, S, S) const {
+    S xi = c[i];
+    for (int j = 0; j < n; ++j) xi = xi + A[i * n + j] * x[j];
+    for (int a = 0; a < m; ++a) xi = xi + B[i * m + a] * u[a];
+    return xi;
+  }
+
+  __device__ __forceinline__ S stage_cost(Column<S> x, Column<S> u) const {
+    S cost = 0;
+    for (int i = 0; i < n; ++i) {
+      cost = cost + q[i] * x[i];
+      for (int j = 0; j < n; ++j)
+        cost = cost + S(0.5) * Q[i * n + j] * x[i] * x[j];
+      for (int a = 0; a < m; ++a) cost = cost + Nx[i * m + a] * x[i] * u[a];
+    }
+    for (int a = 0; a < m; ++a) {
+      cost = cost + r[a] * u[a];
+      for (int b = 0; b < m; ++b)
+        cost = cost + S(0.5) * R[a * m + b] * u[a] * u[b];
     }
     return cost;
   }

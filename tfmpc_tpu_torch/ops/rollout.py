@@ -22,7 +22,10 @@ env's controls are clipped to its box after the affine law, in the
 kernels as in the plain versions. The four kernels are one tile kernel of
 four kinds, each launched with a plan (``rollout_plan``: the lanes a
 rollout, the scenarios a block, the steps staged ahead and the shared
-bytes).
+bytes), unrolled at the dims it is instantiated for (``unrolled_dims``).
+K2, K3 and K5 run every other 1 <= n, m <= ``GENERIC_DIM_MAX`` in the
+generic form (``csrc/rollout_generic.cuh``: n, m and the lanes a rollout
+at run time), counted under ``*_GENERIC_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Sequence
 import torch
 
 from tfmpc_tpu_torch.models.hvac import HVAC_STEP_ID
+from tfmpc_tpu_torch.models.linear import LINEAR_STEP_ID
 from tfmpc_tpu_torch.core.types import Policy
 from tfmpc_tpu_torch.ops import _build, riccati
 
@@ -46,16 +50,25 @@ TRAJ_LAUNCHES = 0
 TRAJ_PLAIN_CALLS = 0
 DERIVS_LAUNCHES = 0
 DERIVS_PLAIN_CALLS = 0
+# launches of the generic form (csrc/rollout_generic.cuh), K2, K3 and K5
+# at the dims no unrolled instantiation covers; their plain versions count
+# in the *_PLAIN_CALLS above
+COSTS_GENERIC_LAUNCHES = 0
+ALPHA_GENERIC_LAUNCHES = 0
+TRAJ_GENERIC_LAUNCHES = 0
 
-# (n, m) pairs the CUDA kernels are instantiated for (csrc/rollout.cuh):
-# every env's step at the small dims (rollout.cu, K5's rollout_traj.cu),
-# the HVAC step alone at the mid dims (rollout_n12.cu, rollout_n16.cu:
-# HVAC-12 and HVAC-16).
+# (n, m) pairs the unrolled CUDA kernels are instantiated for
+# (csrc/rollout.cuh): every env's step at the small dims (rollout.cu, K5's
+# rollout_traj.cu), the HVAC step alone at the mid dims (rollout_n12.cu,
+# rollout_n16.cu: HVAC-12 and HVAC-16). K2, K3 and K5 run every other
+# 1 <= n, m <= GENERIC_DIM_MAX in the generic form
+# (csrc/rollout_generic.cuh), the JAX rollout kernels' dims.
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6), (12, 12), (16, 16)}
 HVAC_ONLY_DIMS = {(12, 12), (16, 16)}
 # (n, m) pairs K8 is instantiated for (csrc/rollout_derivs.cu), with the
 # navigation step, the only env with a device linearization
 DERIVS_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
+GENERIC_DIM_MAX = 48  # csrc/rollout_generic.cuh kGenericMaxDim
 MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cuh)
 # The launch plans of the tile kernel's kinds, ``rollout_plan``: K2
 # ("costs"), K3 ("alpha"), K5 ("traj") and K8 ("derivs"). A block holds
@@ -79,6 +92,34 @@ ROLLOUT_PLANS = {
     "derivs": {2: (2, 512, 2), 3: (1, 512, 2), 5: (2, 256, 2),
                6: (2, 256, 2)},
 }
+# The generic form's plans, by kind and env family: (the largest max(n, m)
+# a row takes, (G, the blocks a launch aims at, D)), rows in ascending
+# order. G is a run-time value there (any power of two up to 32). The
+# linear step's stage cost, n^2 + nm + m^2 terms summed on lane 0 of a
+# rollout's group, is most of its step, so it runs best on few lanes a
+# rollout; the other envs' rows are most of theirs, so they take more
+# lanes as n grows. The fastest plan of ``tools/kernel_versions.py rollout
+# --generic-sweep`` on one H100 at the shapes of chip_smoke.py's phase 29
+# (the double integrator for the linear rows at 2, (24, 6) at 24, (48, 48)
+# at 48; reservoir-4 and navigation-4 at 4, reservoir-12 at 12, HVAC-24
+# for the rest; PERF.md section 6), its blocks kept at other batches.
+# ``rollout_plan`` lowers D where one scenario a block does not fit the
+# shared memory (the linear env's parameters at n = m = 48 in float64 take
+# 113 KB).
+GENERIC_PLANS = {
+    "costs": {"linear": ((2, (1, 512, 1)), (48, (4, 128, 1))),
+              "other": ((4, (2, 256, 1)), (12, (4, 128, 1)),
+                        (48, (8, 128, 1)))},
+    "alpha": {"linear": ((2, (2, 128, 1)), (24, (8, 128, 1)),
+                         (48, (16, 128, 1))),
+              "other": ((4, (4, 256, 1)), (12, (16, 512, 1)),
+                        (48, (16, 128, 1)))},
+    "traj": {"linear": ((2, (1, 128, 1)), (24, (4, 128, 1)),
+                        (48, (2, 128, 1))),
+             "other": ((4, (2, 256, 1)), (12, (4, 128, 1)),
+                       (48, (8, 128, 1)))},
+}
+GENERIC_GROUPS = (1, 2, 4, 8, 16, 32)
 # the kinds' codes in the C entries (csrc/rollout.cuh RolloutKind)
 KIND_CODES = {"costs": 0, "alpha": 1, "traj": 2, "derivs": 3}
 # the kinds that roll every alpha of the grid (the others one a scenario)
@@ -106,6 +147,7 @@ class RolloutPlan:
     scenarios: int
     depth: int
     smem_bytes: int
+    generic: bool = False  # the generic form (csrc/rollout_generic.cuh)
 
     def threads(self, rollouts_per_scenario: int = 1) -> int:
         return -(-self.scenarios * rollouts_per_scenario * self.groups
@@ -139,6 +181,82 @@ def rollout_smem_bytes(n: int, m: int, groups: int, spb: int, depth: int,
     return (par + (depth + 2) * rows * tile_stride(spb, groups, item)) * item
 
 
+def generic_smem_bytes(n: int, m: int, groups: int, spb: int, depth: int,
+                       param_elems: int, dtype, rollouts: int) -> int:
+    """A generic block's shared bytes (csrc/rollout_generic.cuh
+    generic_smem_bytes): ``rollout_smem_bytes``, then the state of every
+    compute group, x_t and x_{t+1} [n] and u_t [m] a group, for
+    ``rollouts`` rollouts a block (spb, times A for K2 and K5)."""
+    lanes = -(-rollouts * groups // 32) * 32
+    return (rollout_smem_bytes(n, m, groups, spb, depth, param_elems, dtype)
+            + (2 * n + m) * (lanes // groups) * _ITEMSIZE[dtype])
+
+
+def unrolled_dims(env_id: int, n: int, m: int) -> bool:
+    """Whether an unrolled instantiation runs the env ``env_id`` at (n, m):
+    every env at the small ``KERNEL_DIMS``, the HVAC step alone at
+    ``HVAC_ONLY_DIMS``. The generic form takes every other dim."""
+    return (n, m) in KERNEL_DIMS and (
+        (n, m) not in HVAC_ONLY_DIMS or env_id == HVAC_STEP_ID)
+
+
+def generic_row(kernel: str, env_id: int, n: int, m: int):
+    """``GENERIC_PLANS``' (G, blocks, D) of ``kernel`` for the env
+    ``env_id`` at (n, m)."""
+    family = "linear" if env_id == LINEAR_STEP_ID else "other"
+    for ceiling, row in GENERIC_PLANS[kernel][family]:
+        if max(n, m) <= ceiling:
+            return row
+    raise NotImplementedError(
+        f"the rollout kernels take 1 <= n, m <= {GENERIC_DIM_MAX}, got "
+        f"{(n, m)}")
+
+
+def _generic_plan(kernel, env_id, n, m, B, A, dtype, param_elems, groups,
+                  scenarios, depth, max_threads) -> RolloutPlan:
+    """``rollout_plan`` of the generic form: ``GENERIC_PLANS``' G and D, D
+    lowered (to 1 at the least) until one scenario a block fits the shared
+    memory, then the largest power of two of scenarios a block as the
+    unrolled rule takes it."""
+    G, blocks, D = generic_row(kernel, env_id, n, m)
+    G = groups or G
+    per = A if kernel in EVERY_ALPHA else 1
+    if G not in GENERIC_GROUPS:
+        raise ValueError(f"plan G={G}: G is a power of two <= 32")
+
+    def fits(spb, D):
+        return (-(-spb * per * G // 32) * 32 + 32 <= max_threads
+                and generic_smem_bytes(n, m, G, spb, D, param_elems, dtype,
+                                       spb * per) <= SMEM_LIMIT)
+
+    if depth is None:
+        while D > 1 and not fits(1, D):
+            D -= 1
+    else:
+        D = depth
+    if not 1 <= D <= TILE_MAX_DEPTH:
+        raise ValueError(f"plan D={D}: 1 <= D <= {TILE_MAX_DEPTH}")
+    if scenarios is None:
+        spb = 1
+        while 2 * spb <= min(-(-B // blocks), TILE_MAX_SPB) \
+                and fits(2 * spb, D):
+            spb *= 2
+    else:
+        spb = scenarios
+    if spb & (spb - 1) or not 1 <= spb <= TILE_MAX_SPB:
+        raise ValueError(f"{spb} scenarios a block: a power of two <= "
+                         f"{TILE_MAX_SPB}")
+    if not fits(spb, D):
+        raise ValueError(
+            f"no generic {kernel} plan fits at (n, m) = {(n, m)}: G={G}, "
+            f"{spb} scenario(s) a block, D={D} exceed {max_threads} threads "
+            f"or {SMEM_LIMIT} shared bytes")
+    return RolloutPlan(groups=G, scenarios=spb, depth=D,
+                       smem_bytes=generic_smem_bytes(
+                           n, m, G, spb, D, param_elems, dtype, spb * per),
+                       generic=True)
+
+
 @functools.cache
 def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
                  dtype, param_elems: int, groups: int | None = None,
@@ -147,22 +265,26 @@ def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
     """The launch plan of K2 (``kernel="costs"``, A alphas), K3
     (``"alpha"``), K5 (``"traj"``, A alphas) or K8 (``"derivs"``) at (n, m)
     for B scenarios of the env ``env_id`` with ``param_elems`` parameter
-    values: ``ROLLOUT_PLANS``' G and depth and
+    values. Where an unrolled instantiation runs (``unrolled_dims``):
+    ``ROLLOUT_PLANS``' G and depth and
     the largest power of two of scenarios a block that does not exceed B
     over the table's blocks, at most ``TILE_MAX_SPB``, ``max_threads``
     threads (``kernel_max_threads``: the kernel's registers bound it) and
-    ``SMEM_LIMIT`` shared bytes. ``groups``, ``scenarios`` and ``depth``
-    override the table (the sweep's plans)."""
-    if (n, m) not in KERNEL_DIMS:
-        raise NotImplementedError(
-            f"the rollout kernels take (n, m) in {sorted(KERNEL_DIMS)}, got "
-            f"{(n, m)}")
-    if (n, m) in HVAC_ONLY_DIMS and env_id != HVAC_STEP_ID:
-        raise NotImplementedError(
-            f"the rollout kernels run only the HVAC step at (n, m) = {(n, m)}")
+    ``SMEM_LIMIT`` shared bytes. Elsewhere up to ``GENERIC_DIM_MAX``, K2,
+    K3 and K5 take the generic form's plan (``generic=True``,
+    ``_generic_plan``). ``groups``, ``scenarios`` and ``depth`` override
+    the table (the sweep's plans)."""
     if kernel == "derivs" and (n, m) not in DERIVS_DIMS:
         raise NotImplementedError(
-            f"K8 takes (n, m) in {sorted(DERIVS_DIMS)}, got {(n, m)}")
+            f"K8 takes (n, m) in {sorted(DERIVS_DIMS)}, got {(n, m)} "
+            "(ROADMAP queue 2 item 4)")
+    if not unrolled_dims(env_id, n, m):
+        if not (1 <= n <= GENERIC_DIM_MAX and 1 <= m <= GENERIC_DIM_MAX):
+            raise NotImplementedError(
+                f"the rollout kernels take 1 <= n, m <= {GENERIC_DIM_MAX}, "
+                f"got {(n, m)}")
+        return _generic_plan(kernel, env_id, n, m, B, A, dtype, param_elems,
+                             groups, scenarios, depth, max_threads)
     G, blocks, D = ROLLOUT_PLANS[kernel][n]
     G, D = groups or G, depth or D
     if G not in (1, 2, 4, 8, 16) or not 1 <= D <= TILE_MAX_DEPTH:
@@ -189,13 +311,27 @@ def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
 _MAX_THREADS: dict = {}
 
 
-def kernel_max_threads(kernel: str, a) -> int:
+def kernel_max_threads(kernel: str, a, generic: bool | None = None) -> int:
     """The most threads a block of the kind ``kernel`` (a key of
     ``ROLLOUT_PLANS``) can launch with at the plan's G for ``kernel_args``
     output ``a``: the kernel's registers bound it (at most
     ``TILE_MAX_THREADS``). Asked of the library once per kind, dtype, env
-    and dims."""
+    and dims (the generic form's, once per kind, dtype and env: its G is a
+    run-time value). ``generic`` picks the form (by default the one that
+    runs at the dims)."""
     B, T, n, m = a["dims"]
+    if generic is None:
+        generic = not unrolled_dims(a["env_id"], n, m)
+    if generic:
+        key = (kernel, a["dtype"], a["env_id"], "generic")
+        if key not in _MAX_THREADS:
+            got = _build.library().tfmpc_rollout_generic_max_threads(
+                KIND_CODES[kernel], _build.DTYPE_CODES[a["dtype"]],
+                a["env_id"], n, m, *_env_pointers(a))
+            if got <= 0:
+                _build.check(-got, "rollout_generic_max_threads")
+            _MAX_THREADS[key] = got
+        return _MAX_THREADS[key]
     G = ROLLOUT_PLANS[kernel][n][0]
     key = (kernel, a["dtype"], a["env_id"], n, m, G)
     if key not in _MAX_THREADS:
@@ -216,6 +352,17 @@ def launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
     return rollout_plan(kernel, a["env_id"], n, m, B, A, a["dtype"],
                         sum(p.numel() for p in a["params"]),
                         max_threads=kernel_max_threads(kernel, a))
+
+
+def generic_launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
+    """The generic form's plan of ``kernel`` (K2, K3, K5) on
+    ``kernel_args`` output ``a`` at any dims up to ``GENERIC_DIM_MAX``,
+    those of an unrolled instantiation included (where ``launch_plan``
+    takes the unrolled one): to hold and time the generic form there."""
+    B, T, n, m = a["dims"]
+    return _generic_plan(kernel, a["env_id"], n, m, B, A, a["dtype"],
+                         sum(p.numel() for p in a["params"]), None, None,
+                         None, kernel_max_threads(kernel, a, generic=True))
 
 
 def _plan_args(a, kernel, A=1):
@@ -328,7 +475,10 @@ def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False):
     ``policy_lane = (K [T, m*n, B], k [T, m, B])`` is taken as it is
     (``policy`` is then unused). With ``derivatives``, K8's: the env's
     ``device_derivatives`` functor at ``DERIVS_DIMS``. Raises for a dtype,
-    env or dims the kernels do not cover."""
+    env or dims the kernels do not cover: an env without a device step, K8
+    outside ``DERIVS_DIMS`` and any dim above ``GENERIC_DIM_MAX`` (K2, K3
+    and K5 take every 1 <= n, m <= 48, in the generic form where no
+    unrolled instantiation runs)."""
     if X.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"the CUDA kernels take float32/float64, got {X.dtype}")
     step = env.device_derivatives() if derivatives else env.device_step()
@@ -336,27 +486,22 @@ def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False):
         what = ("device derivatives compiled into K8" if derivatives
                 else "device step compiled into the rollout kernels")
         raise NotImplementedError(
-            f"{type(env).__name__} has no {what}; run with "
-            "use_pallas=False"
+            f"{type(env).__name__} has no {what}"
+            f"{'' if derivatives else ' (ROADMAP queue 2 item 3)'}; run "
+            "with use_pallas=False"
         )
     B, T, m = U.shape
     n = X.shape[-1]
     if derivatives and (n, m) not in DERIVS_DIMS:
         raise NotImplementedError(
             f"K8 has no instantiation for (n, m) = {(n, m)} (compiled: "
-            f"{sorted(DERIVS_DIMS)}); run with fuse_derivatives=False"
+            f"{sorted(DERIVS_DIMS)}; ROADMAP queue 2 item 4); run with "
+            "fuse_derivatives=False"
         )
-    if (n, m) not in KERNEL_DIMS:
+    if not (1 <= n <= GENERIC_DIM_MAX and 1 <= m <= GENERIC_DIM_MAX):
         raise NotImplementedError(
-            f"the rollout kernels have no instantiation for (n, m) = "
-            f"{(n, m)} (compiled: {sorted(KERNEL_DIMS)}; ROADMAP queue 2 "
-            "item 1); run with use_pallas=False"
-        )
-    if (n, m) in HVAC_ONLY_DIMS and step.env_id != HVAC_STEP_ID:
-        raise NotImplementedError(
-            f"the rollout kernels run only the HVAC step at (n, m) = "
-            f"{(n, m)}, not {type(env).__name__}'s (ROADMAP queue 2 item "
-            "1); run with use_pallas=False"
+            f"the rollout kernels take 1 <= n, m <= {GENERIC_DIM_MAX}, got "
+            f"{(n, m)}; the solver runs the plain rollout above it"
         )
     params = [
         p.to(dtype=X.dtype, device=X.device).contiguous() for p in step.params
@@ -404,14 +549,41 @@ def _env_pointers(a):
     )
 
 
+def _launch_generic(a, kernel, plan, J, X=None, U=None, alphas=(),
+                    alpha=None):
+    """Launch the generic form's ``kernel`` (K2, K3 or K5) with ``plan``
+    on ``kernel_args`` output ``a``; returns the C entry's code."""
+    B, T, n, m = a["dims"]
+    null = ctypes.c_void_p(None)
+    A = len(alphas) or 1
+    return _build.library().tfmpc_rollout_generic(
+        KIND_CODES[kernel], _build.DTYPE_CODES[a["dtype"]], a["env_id"], n,
+        m, T, B, *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
+        *_bound_pointers(a),
+        (ctypes.c_double * A)(*map(float, alphas)) if alphas else None, A,
+        null if alpha is None else _build.ptr(alpha), *_env_pointers(a),
+        _build.ptr(J), null if X is None else _build.ptr(X),
+        null if U is None else _build.ptr(U), plan.groups, plan.scenarios,
+        plan.depth, ctypes.c_longlong(plan.smem_bytes), _build.stream())
+
+
 def linesearch_costs_kernel(a, alphas: Sequence[float]):
-    """Launch K2 on ``kernel_args`` output: raw ``J [A, B]``."""
-    global COSTS_LAUNCHES
+    """Launch K2 on ``kernel_args`` output: raw ``J [A, B]``. The unrolled
+    instantiation runs where one covers the env and dims
+    (``COSTS_LAUNCHES``), the generic form elsewhere
+    (``COSTS_GENERIC_LAUNCHES``)."""
+    global COSTS_LAUNCHES, COSTS_GENERIC_LAUNCHES
     B, T, n, m = a["dims"]
     A = len(alphas)
     if not 1 <= A <= MAX_ALPHAS:
         raise ValueError(f"linesearch_costs takes 1..{MAX_ALPHAS} alphas")
     J = torch.empty((A, B), dtype=a["dtype"], device=a["xbar"].device)
+    plan = launch_plan(a, "costs", A)
+    if plan.generic:
+        _build.check(_launch_generic(a, "costs", plan, J, alphas=alphas),
+                     "linesearch_costs (generic)")
+        COSTS_GENERIC_LAUNCHES += 1
+        return J
     rc = _build.library().tfmpc_linesearch_costs(
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
         *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
@@ -427,8 +599,9 @@ def linesearch_costs_kernel(a, alphas: Sequence[float]):
 def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
     """Launch K5 on ``kernel_args`` output: raw ``(J [A, B], X [T, A*n, B],
     U [T, A*m, B])``, row ``a*n + i`` of step t holding ``x_{t+1, i}`` of
-    alpha ``a`` (``a*m + c``: ``u_{t, c}``)."""
-    global TRAJ_LAUNCHES
+    alpha ``a`` (``a*m + c``: ``u_{t, c}``). The generic form where no
+    unrolled instantiation runs (``TRAJ_GENERIC_LAUNCHES``)."""
+    global TRAJ_LAUNCHES, TRAJ_GENERIC_LAUNCHES
     B, T, n, m = a["dims"]
     A = len(alphas)
     if not 1 <= A <= MAX_ALPHAS:
@@ -438,6 +611,13 @@ def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
     J = torch.empty((A, B), **opts)
     X_out = torch.empty((T, A * n, B), **opts)
     U_out = torch.empty((T, A * m, B), **opts)
+    plan = launch_plan(a, "traj", A)
+    if plan.generic:
+        _build.check(_launch_generic(a, "traj", plan, J, X_out, U_out,
+                                     alphas=alphas),
+                     "linesearch_costs_traj (generic)")
+        TRAJ_GENERIC_LAUNCHES += 1
+        return J, X_out, U_out
     rc = _build.library().tfmpc_linesearch_costs_traj(
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
         *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
@@ -453,8 +633,9 @@ def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
 
 def rollout_alpha_kernel(a, alpha):
     """Launch K3 on ``kernel_args`` output and per-lane ``alpha [B]``:
-    raw ``(X [T, n, B], U [T, m, B], J [B])``."""
-    global ALPHA_LAUNCHES
+    raw ``(X [T, n, B], U [T, m, B], J [B])``. The generic form where no
+    unrolled instantiation runs (``ALPHA_GENERIC_LAUNCHES``)."""
+    global ALPHA_LAUNCHES, ALPHA_GENERIC_LAUNCHES
     B, T, n, m = a["dims"]
     opts = dict(dtype=a["dtype"], device=a["xbar"].device)
     if alpha.shape != (B,) or alpha.dtype != a["dtype"] \
@@ -464,6 +645,13 @@ def rollout_alpha_kernel(a, alpha):
     X_out = torch.empty((T, n, B), **opts)
     U_out = torch.empty((T, m, B), **opts)
     J = torch.empty((B,), **opts)
+    plan = launch_plan(a, "alpha")
+    if plan.generic:
+        _build.check(_launch_generic(a, "alpha", plan, J, X_out, U_out,
+                                     alpha=alpha),
+                     "rollout_alpha (generic)")
+        ALPHA_GENERIC_LAUNCHES += 1
+        return X_out, U_out, J
     rc = _build.library().tfmpc_rollout_alpha(
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
         _build.ptr(alpha),

@@ -308,8 +308,9 @@ def _rollout_dims_supported(n: int, m: int) -> bool:
     package's ``_rollout_dims_supported``, max(n, m) <= ``MID_DIM_MAX``.
     Above it the backward already runs plain, and the line search and
     materialize run plain on every device as the JAX package runs its XLA
-    rollout there. Below it, dims without an instantiation raise on CUDA
-    (``rollout.kernel_layout``; ROADMAP queue 2 item 1)."""
+    rollout there. Below it K2, K3 and K5 run at every dim: an unrolled
+    instantiation where one covers the env and dims, the generic form
+    (``csrc/rollout_generic.cuh``) elsewhere (``rollout.rollout_plan``)."""
     return max(n, m) <= riccati_mid.MID_DIM_MAX
 
 
@@ -328,7 +329,8 @@ def _use_pallas_rollout(env, config: ILQRConfig, device) -> bool:
         if torch.device(device).type == "cuda":
             raise NotImplementedError(
                 f"use_pallas=True on CUDA, but {type(env).__name__} has no "
-                "device step for the rollout kernels; pass use_pallas=False"
+                "device step for the rollout kernels (ROADMAP queue 2 item "
+                "3); pass use_pallas=False"
             )
         return False
     return True
@@ -352,8 +354,19 @@ def _resolve_emit_traj(config: ILQRConfig, horizon: int, n: int,
     0.0574. The emit layout was faster by more than 10% at every measured
     shape (one rollout chain and one layout copy instead of two), so AUTO
     takes it everywhere; it holds every alpha's trajectory, A (n + m)
-    values a step and scenario, until the select. ``horizon``, ``n`` and
-    ``m`` are the inputs a measured crossover would use.
+    values a step and scenario, until the select. At the dims the generic
+    form of K2, K3 and K5 runs, ``tools/kernel_versions.py rollout
+    --generic-sweep`` timed the same on one H100 80GB HBM3 at 700 W, in
+    ms: the double integrator (B=4096, T=100) 0.2128 vs 0.3009;
+    reservoir-4 (B=1024, T=100) 0.2262 vs 0.3145; navigation-4 (B=4096,
+    T=100) 0.4814 vs 0.4907; reservoir-12 (B=1024, T=100) 0.5552 vs 0.7947;
+    the 24-room HVAC ring (B=512, T=50) 0.5008 vs 0.7960; linear (24, 6)
+    (B=1024, T=100) 2.1774 vs 3.6115; linear (48, 48) (B=512, T=50) 5.0091
+    vs 9.3999. The emit layout is faster there too, so AUTO has no dim
+    ceiling, unlike the JAX package's (max(n, m) <= 12, set on a TPU for
+    the footprint): at (48, 48), B=4096, T=500 the trajectories take
+    8.65 GB in float32, a ninth of the card. ``horizon``, ``n`` and ``m``
+    are the inputs a measured crossover would use.
     """
     flag = config.linesearch_emit_trajectories
     return True if flag is None else bool(flag)
@@ -522,7 +535,8 @@ def _use_fused_derivs(env, config: ILQRConfig, device) -> bool:
                        "(Env.device_derivatives)")
     if (n, m) not in rollout.DERIVS_DIMS:
         missing.append(f"no K8 instantiation at (n, m) = {(n, m)} "
-                       f"(compiled: {sorted(rollout.DERIVS_DIMS)})")
+                       f"(compiled: {sorted(rollout.DERIVS_DIMS)}; ROADMAP "
+                       "queue 2 item 4)")
     if (n, m) not in riccati.KERNEL_DIMS:
         missing.append(f"no lane Riccati kernel at (n, m) = {(n, m)} "
                        f"(compiled: {sorted(riccati.KERNEL_DIMS)})")

@@ -10,6 +10,7 @@ on one GPU.
     python3 tools/kernel_versions.py rollout LABEL=REV|DIR[,-DNAME] [...]
         [--clocks]
     python3 tools/kernel_versions.py rollout --sweep [KIND ...]
+    python3 tools/kernel_versions.py rollout --generic-sweep
 
 Each PATH is another version of ``ops/csrc/row_matmul.cu`` (``p1``) or of
 ``ops/csrc/riccati_mid.cu`` (``k7``), for example an earlier one taken
@@ -94,7 +95,13 @@ default) at each dim's swept env (``-DTFMPC_ROLLOUT_ALL_G``, a mask of
 kinds) and times them at ``SWEEP_CASES`` (K8: ``DERIVS_SWEEP_CASES``) with
 every G, 1-32 scenarios a block and 1, 2 or 4 steps staged ahead, in
 float32, as device times of graph replays: the measurement behind
-``ops/rollout.py`` ROLLOUT_PLANS.
+``ops/rollout.py`` ROLLOUT_PLANS. ``rollout --generic-sweep`` times every
+plan of the generic form of K2, K3 and K5 (``csrc/rollout_generic.cuh``;
+G, 1-32 scenarios a block, 1, 2 or 4 steps ahead) at
+``GENERIC_SWEEP_CASES`` with the checkout's library, in float32, as device
+times of graph replays in turns (the measurement behind ``ops/rollout.py``
+GENERIC_PLANS), then its two line-search layouts at each case with K5's
+footprint (behind ``ilqr_batched._resolve_emit_traj`` there).
 """
 
 from __future__ import annotations
@@ -1083,6 +1090,171 @@ def run_rollout_sweep(card, kinds):
             print_sweep("derivs", case, B, T, n, times, sms, card)
 
 
+# -- the generic form of K2, K3 and K5 ---------------------------------------
+
+# the generic sweep's shapes: chip_smoke.py's phase 29 cases (its paths'
+# shapes and the rectangular (24, 6)) and reservoir-12 (B=1024, T=100), so
+# that a row of ops/rollout.py GENERIC_PLANS is measured at each of
+# max(n, m) = 2, 4, 12, 24 and 48
+GENERIC_SWEEP_CASES = {**cs.GENERIC_KERNEL_CASES, "reservoir12": (1024, 100)}
+
+
+def generic_launcher(a, kind, plan, alphas, alpha_vec):
+    """A call launching the generic ``kind`` with ``plan`` on
+    ``kernel_args`` output ``a`` into its own outputs."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+
+    B, T, n, m = a["dims"]
+    A = len(alphas)
+    opts = dict(dtype=a["dtype"], device=a["xbar"].device)
+    if kind == "costs":
+        outs = (torch.empty((A, B), **opts),)
+        kw = dict(alphas=alphas)
+    elif kind == "alpha":
+        outs = (torch.empty((B,), **opts), torch.empty((T, n, B), **opts),
+                torch.empty((T, m, B), **opts))
+        kw = dict(alpha=alpha_vec)
+    else:
+        outs = (torch.empty((A, B), **opts),
+                torch.empty((T, A * n, B), **opts),
+                torch.empty((T, A * m, B), **opts))
+        kw = dict(alphas=alphas)
+
+    def call():
+        return rollout._launch_generic(a, kind, plan, *outs, **kw)
+
+    call.outputs = outs
+    return call
+
+
+def generic_sweep_plans(kind, env_id, n, m, B, A, dtype, param_elems,
+                        max_threads):
+    """Every generic plan of ``kind`` at (n, m) the sweep tries: each G up
+    to twice the larger dim's power of two (at most 32), 1-32 scenarios a
+    block, 1, 2 or 4 steps ahead, within the block's threads and shared
+    memory."""
+    from tfmpc_tpu_torch.ops import rollout
+
+    top = min(32, 2 * (1 << (max(n, m) - 1).bit_length()))
+    for G in (g for g in rollout.GENERIC_GROUPS if g <= top):
+        for spb in (1, 2, 4, 8, 16, 32):
+            for D in (1, 2, 4):
+                try:
+                    yield (G, spb, D), rollout._generic_plan(
+                        kind, env_id, n, m, B, A, dtype, param_elems, G,
+                        spb, D, max_threads)
+                except ValueError:
+                    continue
+
+
+def generic_emit_layouts(label, case, card):
+    """The line search's two layouts on the generic form at a
+    ``GENERIC_SWEEP_CASES`` case, f32, as ``emit_layouts`` times them (the
+    wrappers with their layout copies, then the kernels alone), and the
+    emit layout's footprint: the A (n + m) T B values K5 holds until the
+    select."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    Bn, Tn = GENERIC_SWEEP_CASES[case]
+    env, X, U, policy = cs.generic_inputs(case, torch.float32, Bn, Tn)
+    a = rollout.kernel_args(env, X, U, policy)
+    alphas = ILQRConfig().alphas_static()
+    A = len(alphas)
+    B, T, n, m = a["dims"]
+    best = torch.arange(B, device="cuda") % A
+    alpha_vec = ILQRConfig().alphas(torch.float32, device="cuda")[best]
+    a_vec = alpha_vec.contiguous()
+
+    def emit():
+        J, X_a, U_a = rollout.linesearch_costs_traj(env, X, U, policy,
+                                                    alphas)
+        return rollout.select_alpha_trajectory(X, X_a, U_a, J, best)
+
+    def two_kernel():
+        rollout.linesearch_costs(env, X, U, policy, alphas)
+        return rollout.rollout_alpha(env, X, U, policy, alpha_vec)
+
+    def emit_kernels():
+        J, X_a, U_a = rollout.linesearch_costs_traj_kernel(a, alphas)
+        return rollout.select_alpha_trajectory(
+            X, X_a.view(T, A, n, B), U_a.view(T, A, m, B), J.T, best)
+
+    def two_kernels():
+        rollout.linesearch_costs_kernel(a, alphas)
+        return rollout.rollout_alpha_kernel(a, a_vec)
+
+    ms = in_turns({"emit": emit, "two_kernel": two_kernel,
+                   "emit_kernels": emit_kernels,
+                   "two_kernels": two_kernels},
+                  lambda f: cs.graph_ms(f, 5))
+    held = A * (n + m) * T * B * 4
+    print(f"generic emit layouts {label} (B={B}, T={T}, (n, m) = ({n}, {m}),"
+          f" f32), device ms a line search + materialize, graph replays, "
+          f"best of two turns: K5 + select {ms['emit']:.4f} vs K2 + K3 "
+          f"{ms['two_kernel']:.4f} (ratio {ms['emit'] / ms['two_kernel']:.3f}"
+          f"); kernels alone: K5 + select {ms['emit_kernels']:.4f} vs K2 + "
+          f"K3 {ms['two_kernels']:.4f}; K5's trajectories {held} bytes "
+          f"({held / 1e9:.3f} GB; at B=4096, T=500: "
+          f"{A * (n + m) * 500 * 4096 * 4 / 1e9:.2f} GB) [{card}]")
+
+
+def run_generic_sweep(card):
+    """Every generic plan of K2, K3 and K5 at ``GENERIC_SWEEP_CASES``, f32,
+    as device times of graph replays of 5 calls in turns (the measurement
+    behind ops/rollout.py GENERIC_PLANS), then the two line-search layouts
+    on the generic form at each case (``generic_emit_layouts``: the
+    measurement behind ``ilqr_batched._resolve_emit_traj`` at those
+    dims)."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    alphas = ILQRConfig().alphas_static()
+    A = len(alphas)
+    for case, (Bn, Tn) in GENERIC_SWEEP_CASES.items():
+        env, X, U, policy = cs.generic_inputs(case, torch.float32, Bn, Tn)
+        a = rollout.kernel_args(env, X, U, policy)
+        n, m = env.state_size, env.action_size
+        pe = sum(p.numel() for p in a["params"])
+        alpha_vec = torch.as_tensor(alphas, dtype=torch.float32,
+                                    device="cuda")[
+            torch.arange(Bn, device="cuda") % A].contiguous()
+        for kind in ("costs", "alpha", "traj"):
+            fns = {}
+            for key, plan in generic_sweep_plans(
+                    kind, a["env_id"], n, m, Bn, A, torch.float32, pe,
+                    rollout.kernel_max_threads(kind, a, generic=True)):
+                call = generic_launcher(a, kind, plan, alphas, alpha_vec)
+                if call() == 0:
+                    torch.cuda.synchronize()
+                    fns[key] = call
+            times = in_turns(fns, lambda f: cs.graph_ms(f, 5))
+            best = min(times, key=times.get)
+            spread = [k for k in times if -(-Bn // k[1]) >= sms]
+            best_spread = min(spread, key=times.get) if spread else None
+            plan = rollout.launch_plan(a, kind, A)
+            print(f"generic {ROLLOUT_KINDS[kind][0]} {case} (B={Bn}, T={Tn}, "
+                  f"(n, m) = ({n}, {m}), f32), device ms by G/scenarios a "
+                  "block/depth, best of two turns: " + ", ".join(
+                      f"{G}/{spb}/{D} {t:.4f}"
+                      for (G, spb, D), t in sorted(times.items()))
+                  + f"; fastest {'/'.join(map(str, best))} "
+                  f"{times[best]:.4f}; fastest with >= {sms} blocks "
+                  + (f"{'/'.join(map(str, best_spread))} "
+                     f"{times[best_spread]:.4f}" if best_spread else "none")
+                  + f"; GENERIC_PLANS' plan {plan.groups}/{plan.scenarios}/"
+                  f"{plan.depth} [{card}]")
+    for case in GENERIC_SWEEP_CASES:
+        generic_emit_layouts(case, case, card)
+
+
 def main() -> int:
     import torch
 
@@ -1090,7 +1262,8 @@ def main() -> int:
                                                  "rollout"):
         print(__doc__)
         return 2
-    if sys.argv[1] == "rollout" and sys.argv[2] != "--sweep":
+    if sys.argv[1] == "rollout" and sys.argv[2] not in ("--sweep",
+                                                        "--generic-sweep"):
         args = [arg for arg in sys.argv[2:] if arg != "--clocks"]
         versions = [tuple(arg.partition("=")[::2]) for arg in args]
         if torch.cuda.is_available():
@@ -1118,6 +1291,9 @@ def main() -> int:
     print(card)
     if sys.argv[1] == "lane":
         run_lane_sweep(card)
+        return 0
+    if sys.argv[1] == "rollout" and sys.argv[2] == "--generic-sweep":
+        run_generic_sweep(card)
         return 0
     if sys.argv[1] == "rollout":
         run_rollout_sweep(card, sys.argv[3:] or ("costs", "alpha", "traj",
