@@ -523,10 +523,12 @@ def env_step_flops(env_name: str, n: int, zones: int = 1,
         return 3 * n + zones * (3 * n + 8) + 2 * n
     if env_name == "hvac":
         return (n + 2) + 8 * n + 2 + n * (9 + 2 * n + 2)
-    if env_name == "linear":  # the rows, then the cost's terms
+    if env_name == "linear":
+        # the rows A x + B u + c, then the cost at its least: Q x, N u and
+        # R u, each then a dot product, and q.x, r.u
         m = n if m is None else m
-        return 2 * n * (n + m) + 2 * n + 4 * n * n + 4 * n * m + 2 * m \
-            + 4 * m * m
+        return 2 * n * (n + m) + n + 2 * n * n + 2 * n * m + 2 * m * m \
+            + 6 * n + 4 * m + 6
     return 10 * n + n * (7 + 2 * n)            # reservoir
 
 

@@ -1,4 +1,5 @@
-// Env step functors compiled into the rollout kernels (rollout.cuh).
+// Env step functors compiled into the rollout kernels (rollout.cuh and its
+// generic form, rollout_generic.cuh).
 //
 // Each functor mirrors its env's public transition/cost/final_cost exactly
 // (and the JAX package's lane_functions, e.g. navigation.py:182-214), and is
@@ -7,16 +8,20 @@
 // env's device_derivatives()) runs in K8, the rollout that writes the
 // linearization of its trajectory.
 //
-// Each functor's step is split for the rollout tile kernels (rollout.cuh),
-// which spread a step's rows over a group of lanes: stage_cost(x, u) (the
-// cost at the PRE-step state), prep(x) (what every row shares, computed
-// alike by every lane) and row(pre, i, x, u, x_i, u_i) (row i of the next
-// state). step() is the loop of row() over i after stage_cost() and
-// prep(), the same arithmetic in the same order. param_elems() and
-// each_param() list the parameter arrays, so a kernel can copy them into
-// shared memory once a block and point the functor at the copy. Each
-// functor also has a run-time-dim form (the kAnyDim specializations at the
-// end of this file) for the generic form of K2, K3 and K5.
+// Each functor's step is split for the rollout tile kernels, which spread a
+// step's rows over a group of lanes: stage_cost(x, u) (the cost at the
+// PRE-step state), prep(x) (what every row shares, computed alike by every
+// lane) and row(pre, i, x, u, x_i, u_i) (row i of the next state).
+// param_elems() and each_param() list the parameter arrays, so a kernel can
+// copy them into shared memory once a block and point the functor at the
+// copy.
+//
+// Each functor is written once over its dims (Dims): at a compile-time N,
+// n = m = N and its loops unroll (the unrolled tile kernel); at N =
+// kAnyDim, n and m are set at launch (the generic form, at any 1 <= n, m <=
+// 48). Both run the same arithmetic in the same order. x and u are read
+// through whatever indexes them: a register array in the unrolled kernel, a
+// column of shared memory in the generic form.
 #pragma once
 
 #include "common.cuh"
@@ -35,6 +40,21 @@ __device__ __forceinline__ S relu(S v) {
   return v < S(0) ? S(0) : v;
 }
 
+// A functor's dims: n = m = N at a compile-time N (the unrolled kernels run
+// n = m); at N = kAnyDim, n and m set at launch. Only the linear step has
+// m != n: the generic launch refuses it for the others.
+constexpr int kAnyDim = 0;
+
+template <int N>
+struct Dims {
+  static constexpr int n = N;
+  static constexpr int m = N;
+};
+template <>
+struct Dims<kAnyDim> {
+  int n, m;
+};
+
 // The seven linearization blocks K8 writes ([T, entries, B] each, the
 // Riccati kernels' input layout): f_x [N*N], f_u [N*M], l_x [N], l_u [M],
 // l_xx [N*N], l_uu [M*M], l_ux [M*N], row-major entries.
@@ -52,7 +72,7 @@ struct LinOut {
 // Navigation: x' = x + lambda(x) u,
 // lambda(x) = prod_z [2 / (1 + exp(-decay_z sqrt(|x - c_z|^2 + 1e-12))) - 1],
 // stage cost |x - goal|^2 on the PRE-step state, final cost the same.
-// Parameters (device pointers): goal [N], centers [Z, N], decays [Z].
+// Parameters (device pointers): goal [n], centers [Z, n], decays [Z].
 template <typename S, int N>
 struct NavigationStep {
   static constexpr int kId = kNavigation;
@@ -60,31 +80,32 @@ struct NavigationStep {
   const S* __restrict__ centers;
   const S* __restrict__ decays;
   int zones;
+  Dims<N> dims;
 
-  __device__ __forceinline__ S final_cost(const S (&x)[N]) const {
+  template <class X>
+  __device__ __forceinline__ S final_cost(const X& x) const {
+    const int n = dims.n;
     S c = 0;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < n; ++i) {
       const S d = x[i] - goal[i];
       c += d * d;
     }
     return c;
   }
 
-  template <int M>
   __host__ __device__ int param_elems() const {
-    return N + zones * N + zones;
+    return dims.n + zones * dims.n + zones;
   }
-  template <int M, class F>
+  template <class F>
   __device__ __forceinline__ void each_param(F&& f) {
-    f(goal, N);
-    f(centers, zones * N);
+    f(goal, dims.n);
+    f(centers, zones * dims.n);
     f(decays, zones);
   }
 
-  template <int M>
-  __device__ __forceinline__ S stage_cost(const S (&x)[N],
-                                          const S (&)[M]) const {
+  template <class X, class U>
+  __device__ __forceinline__ S stage_cost(const X& x, const U&) const {
     return final_cost(x);
   }
 
@@ -92,28 +113,17 @@ struct NavigationStep {
   struct Pre {
     S lam;
   };
-  __device__ __forceinline__ Pre prep(const S (&x)[N]) const {
+  template <class X>
+  __device__ __forceinline__ Pre prep(const X& x) const {
     S lam = 1;
     for (int z = 0; z < zones; ++z) lam = lam * factor(x, z);
     return Pre{lam};
   }
 
-  template <int M>
-  __device__ __forceinline__ S row(const Pre& p, int, const S (&)[N],
-                                   const S (&)[M], S xi, S ui) const {
+  template <class X, class U>
+  __device__ __forceinline__ S row(const Pre& p, int, const X&, const U&,
+                                   S xi, S ui) const {
     return xi + p.lam * ui;
-  }
-
-  // Returns the stage cost at x and writes the next state.
-  template <int M>
-  __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
-                                    S (&x_next)[N]) const {
-    static_assert(M == N, "navigation actions have the state's size");
-    const S cost = stage_cost<M>(x, u);
-    const Pre p = prep(x);
-#pragma unroll
-    for (int i = 0; i < N; ++i) x_next[i] = row<M>(p, i, x, u, x[i], u[i]);
-    return cost;
   }
 
   // The closed-form linearization at (x, u) (models/navigation.py
@@ -122,18 +132,19 @@ struct NavigationStep {
   //   l_xx = 2 I, l_u = l_uu = l_ux = 0, with
   //   dlam = sum_z [lam / g_z if g_z != 0 else 0] g'_z / dist_z (x - c_z),
   //   g'_z = decay_z (1 - g_z^2) / 2,
-  // split as step() is: derivs_prep (lam, from prep(), and dlam; the
+  // split as the step is: derivs_prep (lam, from prep(), and dlam; the
   // zones are a runtime loop, so it recomputes each zone's g_z and dist_z
   // as factor() does) and derivs_row (row i of f_x, f_u, l_xx, l_uu and
   // l_ux and entry i of l_x and l_u, stored to step t of lane b of the
   // [T, entries, B] blocks of ``out``). K8 runs them (rollout.cuh
-  // derivs_tail).
+  // derivs_tail), at compile-time dims only.
   struct DerivsPre {
     S lam;
     S dlam[N];
   };
+  template <class X>
   __device__ __forceinline__ DerivsPre derivs_prep(const Pre& p,
-                                                   const S (&x)[N]) const {
+                                                   const X& x) const {
     DerivsPre q;
     q.lam = p.lam;
 #pragma unroll
@@ -156,11 +167,9 @@ struct NavigationStep {
   }
 
   // Row i of the linearization at (x_i, u_i), the lane's own entries.
-  template <int M>
   __device__ __forceinline__ void derivs_row(const DerivsPre& q, int i, S xi,
                                              S ui, const LinOut<S>& out,
                                              int t, int b, int B) const {
-    static_assert(M == N, "navigation actions have the state's size");
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const int64_t e = at(t, i * N + j, N * N, b, B);
@@ -175,11 +184,13 @@ struct NavigationStep {
   }
 
   // Zone z's deceleration factor 2 / (1 + exp(-decay_z dist_z)) - 1.
-  __device__ __forceinline__ S factor(const S (&x)[N], int z) const {
+  template <class X>
+  __device__ __forceinline__ S factor(const X& x, int z) const {
+    const int n = dims.n;
     S d2 = 0;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const S d = x[i] - centers[z * N + i];
+    for (int i = 0; i < n; ++i) {
+      const S d = x[i] - centers[z * n + i];
       d2 += d * d;
     }
     const S dist = dsqrt(d2 + S(1e-12));
@@ -193,10 +204,11 @@ struct NavigationStep {
 // stage cost on the PRE-step state,
 //   cost_air * sum(u) + penalty * sum(relu(lo - x)^2 + relu(x - hi)^2)
 //                     + setpoint_weight * sum((x - mid)^2),
-// final cost the same at u = 0. Parameters (device pointers, the order of
-// HVAC_STEP_PARAMS): cond [N, N], cond_rowsum, k_out, k_hall, capacity,
-// temp_low, temp_high, temp_mid [N], then 0-d temp_out, temp_hall,
-// temp_air, air_cap, cost_air, penalty, setpoint_weight, time_delta.
+// final cost the same at u = 0. One control per room (m = n). Parameters
+// (device pointers, the order of HVAC_STEP_PARAMS): cond [n, n],
+// cond_rowsum, k_out, k_hall, capacity, temp_low, temp_high, temp_mid [n],
+// then 0-d temp_out, temp_hall, temp_air, air_cap, cost_air, penalty,
+// setpoint_weight, time_delta.
 template <typename S, int N>
 struct HVACStep {
   static constexpr int kId = kHVAC;
@@ -216,377 +228,13 @@ struct HVACStep {
   const S* __restrict__ penalty;
   const S* __restrict__ setpoint_weight;
   const S* __restrict__ time_delta;
+  Dims<N> dims;
 
-  __device__ __forceinline__ S final_cost(const S (&x)[N]) const {
+  template <class X>
+  __device__ __forceinline__ S final_cost(const X& x) const {
+    const int n = dims.n;
     S comfort = 0, setpoint = 0;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const S below = relu(temp_low[i] - x[i]);
-      const S above = relu(x[i] - temp_high[i]);
-      comfort += below * below + above * above;
-      const S d = x[i] - temp_mid[i];
-      setpoint += d * d;
-    }
-    return *penalty * comfort + *setpoint_weight * setpoint;
-  }
-
-  template <int M>
-  __host__ __device__ int param_elems() const {
-    return N * N + 7 * N + 8;
-  }
-  template <int M, class F>
-  __device__ __forceinline__ void each_param(F&& f) {
-    f(cond, N * N);
-    f(cond_rowsum, N);
-    f(k_out, N);
-    f(k_hall, N);
-    f(capacity, N);
-    f(temp_low, N);
-    f(temp_high, N);
-    f(temp_mid, N);
-    f(temp_out, 1);
-    f(temp_hall, 1);
-    f(temp_air, 1);
-    f(air_cap, 1);
-    f(cost_air, 1);
-    f(penalty, 1);
-    f(setpoint_weight, 1);
-    f(time_delta, 1);
-  }
-
-  template <int M>
-  __device__ __forceinline__ S stage_cost(const S (&x)[N],
-                                          const S (&u)[M]) const {
-    S air = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) air += u[i];
-    return *cost_air * air + final_cost(x);
-  }
-
-  // the scalar temperatures and rates every row reads
-  struct Pre {
-    S ta, ka, to, th, dt;
-  };
-  __device__ __forceinline__ Pre prep(const S (&)[N]) const {
-    return Pre{*temp_air, *air_cap, *temp_out, *temp_hall, *time_delta};
-  }
-
-  template <int M>
-  __device__ __forceinline__ S row(const Pre& p, int i, const S (&x)[N],
-                                   const S (&)[M], S xi, S ui) const {
-    const S heat = ui * p.ka * (p.ta - xi);
-    S exch = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) exch += cond[i * N + j] * x[j];
-    exch = exch - xi * cond_rowsum[i];
-    const S leak_out = k_out[i] * (p.to - xi);
-    const S leak_hall = k_hall[i] * (p.th - xi);
-    const S dT = (heat + exch + leak_out + leak_hall) / capacity[i];
-    return xi + p.dt * dT;
-  }
-
-  // Returns the stage cost at x and writes the next state.
-  template <int M>
-  __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
-                                    S (&x_next)[N]) const {
-    static_assert(M == N, "HVAC has one control per room");
-    const S cost = stage_cost<M>(x, u);
-    const Pre p = prep(x);
-#pragma unroll
-    for (int i = 0; i < N; ++i) x_next[i] = row<M>(p, i, x, u, x[i], u[i]);
-    return cost;
-  }
-};
-
-// Reservoir (models/reservoir.py): x'_i = x_i + rain_i - evap_i - u_i +
-// sum_j D_ji u_j with evap_i = evap_factor sin(x_i / cap_i) x_i; stage cost
-// on the PRE-step state and independent of u,
-//   sum(low_penalty relu(lb - x)^2 + high_penalty relu(x - ub)^2
-//       + setpoint_weight (x - mid)^2),
-// final cost the same. Parameters (the order of RESERVOIR_STEP_PARAMS):
-// downstream [N, N], max_capacity, rain [N], evap_factor (0-d),
-// lower_bound, upper_bound, mid [N], low_penalty, high_penalty,
-// setpoint_weight (0-d).
-template <typename S, int N>
-struct ReservoirStep {
-  static constexpr int kId = kReservoir;
-  const S* __restrict__ downstream;
-  const S* __restrict__ max_capacity;
-  const S* __restrict__ rain;
-  const S* __restrict__ evap_factor;
-  const S* __restrict__ lower_bound;
-  const S* __restrict__ upper_bound;
-  const S* __restrict__ mid;
-  const S* __restrict__ low_penalty;
-  const S* __restrict__ high_penalty;
-  const S* __restrict__ setpoint_weight;
-
-  __device__ __forceinline__ S final_cost(const S (&x)[N]) const {
-    const S lp = *low_penalty, hp = *high_penalty, sw = *setpoint_weight;
-    S c = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const S below = relu(lower_bound[i] - x[i]);
-      const S above = relu(x[i] - upper_bound[i]);
-      const S d = x[i] - mid[i];
-      c += lp * below * below + hp * above * above + sw * d * d;
-    }
-    return c;
-  }
-
-  template <int M>
-  __host__ __device__ int param_elems() const {
-    return N * N + 5 * N + 4;
-  }
-  template <int M, class F>
-  __device__ __forceinline__ void each_param(F&& f) {
-    f(downstream, N * N);
-    f(max_capacity, N);
-    f(rain, N);
-    f(evap_factor, 1);
-    f(lower_bound, N);
-    f(upper_bound, N);
-    f(mid, N);
-    f(low_penalty, 1);
-    f(high_penalty, 1);
-    f(setpoint_weight, 1);
-  }
-
-  template <int M>
-  __device__ __forceinline__ S stage_cost(const S (&x)[N],
-                                          const S (&)[M]) const {
-    return final_cost(x);
-  }
-
-  struct Pre {
-    S e;
-  };
-  __device__ __forceinline__ Pre prep(const S (&)[N]) const {
-    return Pre{*evap_factor};
-  }
-
-  template <int M>
-  __device__ __forceinline__ S row(const Pre& p, int i, const S (&)[N],
-                                   const S (&u)[M], S xi, S ui) const {
-    const S evap = p.e * dsin(xi / max_capacity[i]) * xi;
-    S inflow = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) inflow += u[j] * downstream[j * N + i];
-    return xi + rain[i] - evap - ui + inflow;
-  }
-
-  // Returns the stage cost at x and writes the next state.
-  template <int M>
-  __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
-                                    S (&x_next)[N]) const {
-    static_assert(M == N, "one release per reservoir");
-    const S cost = stage_cost<M>(x, u);
-    const Pre p = prep(x);
-#pragma unroll
-    for (int i = 0; i < N; ++i) x_next[i] = row<M>(p, i, x, u, x[i], u[i]);
-    return cost;
-  }
-};
-
-// Linear system (models/linear.py): x' = A x + B u + c, stage cost
-// 1/2 x^T Q x + 1/2 u^T R u + x^T N u + q^T x + r^T u on the PRE-step state,
-// final cost 1/2 x^T Q_f x + q_f^T x. Term by term, in the summation order
-// of the JAX package's LinearSystem.lane_functions step_fn/final_fn
-// (tfmpc_tpu/models/linear.py:118-146). Parameters (the order of
-// LINEAR_STEP_PARAMS): A [N, N], B [N, M], c [N], Q [N, N], R [M, M],
-// N [N, M], q [N], r [M], Q_f [N, N], q_f [N], row-major.
-template <typename S, int N>
-struct LinearStep {
-  static constexpr int kId = kLinear;
-  const S* __restrict__ A;
-  const S* __restrict__ B;
-  const S* __restrict__ c;
-  const S* __restrict__ Q;
-  const S* __restrict__ R;
-  const S* __restrict__ Nx;
-  const S* __restrict__ q;
-  const S* __restrict__ r;
-  const S* __restrict__ Q_f;
-  const S* __restrict__ q_f;
-
-  __device__ __forceinline__ S final_cost(const S (&x)[N]) const {
-    S cost = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      cost = cost + q_f[i] * x[i];
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        cost = cost + S(0.5) * Q_f[i * N + j] * x[i] * x[j];
-    }
-    return cost;
-  }
-
-  template <int M>
-  __host__ __device__ int param_elems() const {
-    return 3 * N * N + 2 * N * M + M * M + 3 * N + M;
-  }
-  template <int M, class F>
-  __device__ __forceinline__ void each_param(F&& f) {
-    f(A, N * N);
-    f(B, N * M);
-    f(c, N);
-    f(Q, N * N);
-    f(R, M * M);
-    f(Nx, N * M);
-    f(q, N);
-    f(r, M);
-    f(Q_f, N * N);
-    f(q_f, N);
-  }
-
-  struct Pre {};
-  __device__ __forceinline__ Pre prep(const S (&)[N]) const { return Pre{}; }
-
-  template <int M>
-  __device__ __forceinline__ S row(const Pre&, int i, const S (&x)[N],
-                                   const S (&u)[M], S, S) const {
-    S xi = c[i];
-#pragma unroll
-    for (int j = 0; j < N; ++j) xi = xi + A[i * N + j] * x[j];
-#pragma unroll
-    for (int a = 0; a < M; ++a) xi = xi + B[i * M + a] * u[a];
-    return xi;
-  }
-
-  // Returns the stage cost at (x, u) and writes the next state.
-  template <int M>
-  __device__ __forceinline__ S step(const S (&x)[N], const S (&u)[M],
-                                    S (&x_next)[N]) const {
-    const Pre p = prep(x);
-#pragma unroll
-    for (int i = 0; i < N; ++i) x_next[i] = row<M>(p, i, x, u, x[i], u[i]);
-    return stage_cost<M>(x, u);
-  }
-
-  template <int M>
-  __device__ __forceinline__ S stage_cost(const S (&x)[N],
-                                          const S (&u)[M]) const {
-    S cost = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      cost = cost + q[i] * x[i];
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        cost = cost + S(0.5) * Q[i * N + j] * x[i] * x[j];
-#pragma unroll
-      for (int a = 0; a < M; ++a) cost = cost + Nx[i * M + a] * x[i] * u[a];
-    }
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      cost = cost + r[a] * u[a];
-#pragma unroll
-      for (int b = 0; b < M; ++b)
-        cost = cost + S(0.5) * R[a * M + b] * u[a] * u[b];
-    }
-    return cost;
-  }
-};
-
-// -- the run-time-dim forms ---------------------------------------------------
-//
-// Each functor above at any dims: NavigationStep<S, kAnyDim> and the others
-// take n and m from the launch (members set by the C call) instead of
-// template arguments, and read x and u through a Column (a rollout's
-// vector in shared memory, element i at p[i * s]). They run in the rollout
-// kernels' generic form (rollout_generic.cuh), at every 1 <= n, m <= 48
-// that no unrolled instantiation covers. Each keeps its unrolled twin's
-// arithmetic in the same order (the same loops, not unrolled). Only the
-// linear step has m != n; the others' launch refuses m != n (the
-// static_asserts of their unrolled step()).
-constexpr int kAnyDim = 0;
-
-template <typename S>
-struct Column {
-  const S* p;
-  int s;
-  __device__ __forceinline__ S operator[](int i) const { return p[i * s]; }
-};
-
-template <typename S>
-struct NavigationStep<S, kAnyDim> {
-  static constexpr int kId = kNavigation;
-  const S* __restrict__ goal;
-  const S* __restrict__ centers;
-  const S* __restrict__ decays;
-  int zones;
-  int n, m;
-
-  __device__ __forceinline__ S final_cost(Column<S> x) const {
-    S c = 0;
-    for (int i = 0; i < n; ++i) {
-      const S d = x[i] - goal[i];
-      c += d * d;
-    }
-    return c;
-  }
-
-  __host__ __device__ int param_elems() const {
-    return n + zones * n + zones;
-  }
-  template <class F>
-  __device__ __forceinline__ void each_param(F&& f) {
-    f(goal, n);
-    f(centers, zones * n);
-    f(decays, zones);
-  }
-
-  __device__ __forceinline__ S stage_cost(Column<S> x, Column<S>) const {
-    return final_cost(x);
-  }
-
-  struct Pre {
-    S lam;
-  };
-  __device__ __forceinline__ Pre prep(Column<S> x) const {
-    S lam = 1;
-    for (int z = 0; z < zones; ++z) lam = lam * factor(x, z);
-    return Pre{lam};
-  }
-
-  __device__ __forceinline__ S row(const Pre& p, int, Column<S>, Column<S>,
-                                   S xi, S ui) const {
-    return xi + p.lam * ui;
-  }
-
-  __device__ __forceinline__ S factor(Column<S> x, int z) const {
-    S d2 = 0;
-    for (int i = 0; i < n; ++i) {
-      const S d = x[i] - centers[z * n + i];
-      d2 += d * d;
-    }
-    const S dist = dsqrt(d2 + S(1e-12));
-    return S(2) / (S(1) + dexp(-decays[z] * dist)) - S(1);
-  }
-};
-
-template <typename S>
-struct HVACStep<S, kAnyDim> {
-  static constexpr int kId = kHVAC;
-  const S* __restrict__ cond;
-  const S* __restrict__ cond_rowsum;
-  const S* __restrict__ k_out;
-  const S* __restrict__ k_hall;
-  const S* __restrict__ capacity;
-  const S* __restrict__ temp_low;
-  const S* __restrict__ temp_high;
-  const S* __restrict__ temp_mid;
-  const S* __restrict__ temp_out;
-  const S* __restrict__ temp_hall;
-  const S* __restrict__ temp_air;
-  const S* __restrict__ air_cap;
-  const S* __restrict__ cost_air;
-  const S* __restrict__ penalty;
-  const S* __restrict__ setpoint_weight;
-  const S* __restrict__ time_delta;
-  int n, m;
-
-  __device__ __forceinline__ S final_cost(Column<S> x) const {
-    S comfort = 0, setpoint = 0;
     for (int i = 0; i < n; ++i) {
       const S below = relu(temp_low[i] - x[i]);
       const S above = relu(x[i] - temp_high[i]);
@@ -597,9 +245,12 @@ struct HVACStep<S, kAnyDim> {
     return *penalty * comfort + *setpoint_weight * setpoint;
   }
 
-  __host__ __device__ int param_elems() const { return n * n + 7 * n + 8; }
+  __host__ __device__ int param_elems() const {
+    return dims.n * dims.n + 7 * dims.n + 8;
+  }
   template <class F>
   __device__ __forceinline__ void each_param(F&& f) {
+    const int n = dims.n;
     f(cond, n * n);
     f(cond_rowsum, n);
     f(k_out, n);
@@ -618,23 +269,31 @@ struct HVACStep<S, kAnyDim> {
     f(time_delta, 1);
   }
 
-  __device__ __forceinline__ S stage_cost(Column<S> x, Column<S> u) const {
+  template <class X, class U>
+  __device__ __forceinline__ S stage_cost(const X& x, const U& u) const {
+    const int n = dims.n;
     S air = 0;
+#pragma unroll
     for (int i = 0; i < n; ++i) air += u[i];
     return *cost_air * air + final_cost(x);
   }
 
+  // the scalar temperatures and rates every row reads
   struct Pre {
     S ta, ka, to, th, dt;
   };
-  __device__ __forceinline__ Pre prep(Column<S>) const {
+  template <class X>
+  __device__ __forceinline__ Pre prep(const X&) const {
     return Pre{*temp_air, *air_cap, *temp_out, *temp_hall, *time_delta};
   }
 
-  __device__ __forceinline__ S row(const Pre& p, int i, Column<S> x,
-                                   Column<S>, S xi, S ui) const {
+  template <class X, class U>
+  __device__ __forceinline__ S row(const Pre& p, int i, const X& x,
+                                   const U&, S xi, S ui) const {
+    const int n = dims.n;
     const S heat = ui * p.ka * (p.ta - xi);
     S exch = 0;
+#pragma unroll
     for (int j = 0; j < n; ++j) exch += cond[i * n + j] * x[j];
     exch = exch - xi * cond_rowsum[i];
     const S leak_out = k_out[i] * (p.to - xi);
@@ -644,8 +303,17 @@ struct HVACStep<S, kAnyDim> {
   }
 };
 
-template <typename S>
-struct ReservoirStep<S, kAnyDim> {
+// Reservoir (models/reservoir.py): x'_i = x_i + rain_i - evap_i - u_i +
+// sum_j D_ji u_j with evap_i = evap_factor sin(x_i / cap_i) x_i; stage cost
+// on the PRE-step state and independent of u,
+//   sum(low_penalty relu(lb - x)^2 + high_penalty relu(x - ub)^2
+//       + setpoint_weight (x - mid)^2),
+// final cost the same. One release per reservoir (m = n). Parameters (the
+// order of RESERVOIR_STEP_PARAMS): downstream [n, n], max_capacity, rain
+// [n], evap_factor (0-d), lower_bound, upper_bound, mid [n], low_penalty,
+// high_penalty, setpoint_weight (0-d).
+template <typename S, int N>
+struct ReservoirStep {
   static constexpr int kId = kReservoir;
   const S* __restrict__ downstream;
   const S* __restrict__ max_capacity;
@@ -657,11 +325,14 @@ struct ReservoirStep<S, kAnyDim> {
   const S* __restrict__ low_penalty;
   const S* __restrict__ high_penalty;
   const S* __restrict__ setpoint_weight;
-  int n, m;
+  Dims<N> dims;
 
-  __device__ __forceinline__ S final_cost(Column<S> x) const {
+  template <class X>
+  __device__ __forceinline__ S final_cost(const X& x) const {
+    const int n = dims.n;
     const S lp = *low_penalty, hp = *high_penalty, sw = *setpoint_weight;
     S c = 0;
+#pragma unroll
     for (int i = 0; i < n; ++i) {
       const S below = relu(lower_bound[i] - x[i]);
       const S above = relu(x[i] - upper_bound[i]);
@@ -671,9 +342,12 @@ struct ReservoirStep<S, kAnyDim> {
     return c;
   }
 
-  __host__ __device__ int param_elems() const { return n * n + 5 * n + 4; }
+  __host__ __device__ int param_elems() const {
+    return dims.n * dims.n + 5 * dims.n + 4;
+  }
   template <class F>
   __device__ __forceinline__ void each_param(F&& f) {
+    const int n = dims.n;
     f(downstream, n * n);
     f(max_capacity, n);
     f(rain, n);
@@ -686,28 +360,40 @@ struct ReservoirStep<S, kAnyDim> {
     f(setpoint_weight, 1);
   }
 
-  __device__ __forceinline__ S stage_cost(Column<S> x, Column<S>) const {
+  template <class X, class U>
+  __device__ __forceinline__ S stage_cost(const X& x, const U&) const {
     return final_cost(x);
   }
 
   struct Pre {
     S e;
   };
-  __device__ __forceinline__ Pre prep(Column<S>) const {
+  template <class X>
+  __device__ __forceinline__ Pre prep(const X&) const {
     return Pre{*evap_factor};
   }
 
-  __device__ __forceinline__ S row(const Pre& p, int i, Column<S>,
-                                   Column<S> u, S xi, S ui) const {
+  template <class X, class U>
+  __device__ __forceinline__ S row(const Pre& p, int i, const X&,
+                                   const U& u, S xi, S ui) const {
+    const int n = dims.n;
     const S evap = p.e * dsin(xi / max_capacity[i]) * xi;
     S inflow = 0;
+#pragma unroll
     for (int j = 0; j < n; ++j) inflow += u[j] * downstream[j * n + i];
     return xi + rain[i] - evap - ui + inflow;
   }
 };
 
-template <typename S>
-struct LinearStep<S, kAnyDim> {
+// Linear system (models/linear.py): x' = A x + B u + c, stage cost
+// 1/2 x^T Q x + 1/2 u^T R u + x^T N u + q^T x + r^T u on the PRE-step state,
+// final cost 1/2 x^T Q_f x + q_f^T x. Term by term, in the summation order
+// of the JAX package's LinearSystem.lane_functions step_fn/final_fn
+// (tfmpc_tpu/models/linear.py:118-146). Parameters (the order of
+// LINEAR_STEP_PARAMS): A [n, n], B [n, m], c [n], Q [n, n], R [m, m],
+// N [n, m], q [n], r [m], Q_f [n, n], q_f [n], row-major.
+template <typename S, int N>
+struct LinearStep {
   static constexpr int kId = kLinear;
   const S* __restrict__ A;
   const S* __restrict__ B;
@@ -719,12 +405,16 @@ struct LinearStep<S, kAnyDim> {
   const S* __restrict__ r;
   const S* __restrict__ Q_f;
   const S* __restrict__ q_f;
-  int n, m;
+  Dims<N> dims;
 
-  __device__ __forceinline__ S final_cost(Column<S> x) const {
+  template <class X>
+  __device__ __forceinline__ S final_cost(const X& x) const {
+    const int n = dims.n;
     S cost = 0;
+#pragma unroll
     for (int i = 0; i < n; ++i) {
       cost = cost + q_f[i] * x[i];
+#pragma unroll
       for (int j = 0; j < n; ++j)
         cost = cost + S(0.5) * Q_f[i * n + j] * x[i] * x[j];
     }
@@ -732,10 +422,12 @@ struct LinearStep<S, kAnyDim> {
   }
 
   __host__ __device__ int param_elems() const {
+    const int n = dims.n, m = dims.m;
     return 3 * n * n + 2 * n * m + m * m + 3 * n + m;
   }
   template <class F>
   __device__ __forceinline__ void each_param(F&& f) {
+    const int n = dims.n, m = dims.m;
     f(A, n * n);
     f(B, n * m);
     f(c, n);
@@ -749,26 +441,40 @@ struct LinearStep<S, kAnyDim> {
   }
 
   struct Pre {};
-  __device__ __forceinline__ Pre prep(Column<S>) const { return Pre{}; }
+  template <class X>
+  __device__ __forceinline__ Pre prep(const X&) const {
+    return Pre{};
+  }
 
-  __device__ __forceinline__ S row(const Pre&, int i, Column<S> x,
-                                   Column<S> u, S, S) const {
+  template <class X, class U>
+  __device__ __forceinline__ S row(const Pre&, int i, const X& x,
+                                   const U& u, S, S) const {
+    const int n = dims.n, m = dims.m;
     S xi = c[i];
+#pragma unroll
     for (int j = 0; j < n; ++j) xi = xi + A[i * n + j] * x[j];
+#pragma unroll
     for (int a = 0; a < m; ++a) xi = xi + B[i * m + a] * u[a];
     return xi;
   }
 
-  __device__ __forceinline__ S stage_cost(Column<S> x, Column<S> u) const {
+  template <class X, class U>
+  __device__ __forceinline__ S stage_cost(const X& x, const U& u) const {
+    const int n = dims.n, m = dims.m;
     S cost = 0;
+#pragma unroll
     for (int i = 0; i < n; ++i) {
       cost = cost + q[i] * x[i];
+#pragma unroll
       for (int j = 0; j < n; ++j)
         cost = cost + S(0.5) * Q[i * n + j] * x[i] * x[j];
+#pragma unroll
       for (int a = 0; a < m; ++a) cost = cost + Nx[i * m + a] * x[i] * u[a];
     }
+#pragma unroll
     for (int a = 0; a < m; ++a) {
       cost = cost + r[a] * u[a];
+#pragma unroll
       for (int b = 0; b < m; ++b)
         cost = cost + S(0.5) * R[a * m + b] * u[a] * u[b];
     }

@@ -313,7 +313,7 @@ __device__ __forceinline__ void derivs_tail(const TileArgs<S>& a,
     const auto dpre = env.derivs_prep(env.prep(x), x);
 #pragma unroll
     for (int i = 0; i < N; ++i)
-      env.template derivs_row<M>(dpre, i, x[i], u[i], a.lin, t, b, a.B);
+      env.derivs_row(dpre, i, x[i], u[i], a.lin, t, b, a.B);
   }
 }
 
@@ -342,7 +342,7 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
   // copy (the first step's barrier orders these stores before any read)
   S* par = reinterpret_cast<S*>(tile_smem);
   int off = 0;
-  env.template each_param<M>([&](auto& ptr, int len) {
+  env.each_param([&](auto& ptr, int len) {
     for (int j = tid; j < len; j += nthr) par[off + j] = ptr[j];
     ptr = par + off;
     off += len;
@@ -459,11 +459,11 @@ __global__ void rollout_tile_kernel(const TileArgs<S> a, Env env) {
     for (int r = 0; r < RN; ++r) {
       const int i = lane + G * r;
       xn[r] = G * (r + 1) <= N || i < N
-                  ? env.template row<M>(pre, i, x, u, xo[r], uo[r])
+                  ? env.row(pre, i, x, u, xo[r], uo[r])
                   : S(0);
     }
     TFMPC_TILE_PHASE(3)
-    const S cost = env.template stage_cost<M>(x, u);
+    const S cost = env.stage_cost(x, u);
     if constexpr (kKind != kCosts) {
       const int row0 = kKind == kTraj ? ai * N : 0;
       const int rows = kKind == kTraj ? a.A * N : N;
@@ -630,7 +630,7 @@ int launch_tile(TileArgs<S> a, const Env& env, const TilePlan& plan,
       kWarp;
   const long long bytes =
       tile_smem_bytes(sizeof(S), N, N, G, a.spb, a.depth,
-                      env.template param_elems<N>());
+                      env.param_elems());
   if (bytes != plan.smem_bytes || bytes > kTileMaxSmem ||
       threads > kTileMaxThreads || threads > kernel_max_threads)
     return static_cast<int>(cudaErrorInvalidValue);

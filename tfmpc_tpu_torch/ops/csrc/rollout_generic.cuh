@@ -8,7 +8,7 @@
 // included. It computes what rollout.cuh's kinds kCosts, kAlpha and kTraj
 // compute: u_t = clip(ubar_t + alpha k_t + K_t (x_t - xbar_t)) (the clip
 // where the env is bounded), x_{t+1} = step(x_t, u_t), the running cost
-// summed in double and rounded once, with the env's run-time-dim step
+// summed in double and rounded once, with the env's step at run-time dims
 // (envs.cuh, NavigationStep<S, kAnyDim> and the others).
 //
 // The unrolled kernel holds a rollout's state x [N] and its control u [M]
@@ -47,6 +47,15 @@ namespace {
 
 constexpr int kGenericMaxDim = 48;     // ops/rollout.py GENERIC_DIM_MAX
 constexpr int kGenericMaxGroups = 32;  // lanes a rollout: 1, 2, .., 32
+
+// A rollout's vector in shared memory, element i at p[i * s]: how the env
+// steps read x and u here.
+template <typename S>
+struct Column {
+  const S* p;
+  int s;
+  __device__ __forceinline__ S operator[](int i) const { return p[i * s]; }
+};
 
 // The rows of a staged step at run-time dims, TileRows' order: xbar [n],
 // ubar [m], k [m], then K transposed (row K + i*m + c holds K_ci).
@@ -112,7 +121,7 @@ __device__ __forceinline__ void stage_generic_step(const TileArgs<S>& a,
 template <typename S, class Env, int kKind>
 __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
                                        Env env) {
-  const int n = env.n, m = env.m;
+  const int n = env.dims.n, m = env.dims.m;
   const GenericRows R(n, m);
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -212,8 +221,8 @@ __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
     }
     __syncwarp();  // the group's u_t is whole
     const auto pre = env.prep(x);
-    for (int i = lane; i < n; i += groups) {
-      const S xi = env.row(pre, i, x, u, x[i], u[i]);
+    for (int i = lane; i < n; i += groups) {  // no u_i past m (linear, m < n)
+      const S xi = env.row(pre, i, x, u, x[i], i < m ? u[i] : S(0));
       xn[i * rp] = xi;
       if (stores) a.X[at(t, xrow0 + i, xrows, b, a.B)] = xi;
     }
@@ -247,9 +256,9 @@ int launch_generic(TileArgs<S> a, const Env& env, const TilePlan& plan,
   const int G = plan.groups;
   const int rollouts = a.spb * (every_alpha(kKind) ? a.A : 1);
   const int threads = generic_compute_threads(rollouts, G) + kWarp;
-  const long long bytes = generic_smem_bytes(
-      sizeof(S), env.n, env.m, G, a.spb, a.depth, env.param_elems(),
-      rollouts);
+  const long long bytes =
+      generic_smem_bytes(sizeof(S), env.dims.n, env.dims.m, G, a.spb,
+                         a.depth, env.param_elems(), rollouts);
   if (bytes != plan.smem_bytes || bytes > kTileMaxSmem ||
       threads > kTileMaxThreads || threads > kernel_max_threads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -266,27 +275,28 @@ int launch_generic(TileArgs<S> a, const Env& env, const TilePlan& plan,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The env's run-time-dim step functor of a call, passed to f; an unknown
-// env, a parameter count that does not match, or m != n for an env with
-// one control per state row is refused.
+// The env's step functor at the call's dims, passed to f; an unknown env,
+// a parameter count that does not match, or m != n for an env with one
+// control per state row is refused.
 template <typename S, class F>
 int with_generic_env(const RolloutCall& c, F&& f) {
   auto P = [&c](int i) { return static_cast<const S*>(c.params[i]); };
   const int np = c.n_params, ni = c.n_int_params;
+  const Dims<kAnyDim> d{c.n, c.m};
   if (c.env == kLinear && np == 10 && ni == 0)
     return f(LinearStep<S, kAnyDim>{P(0), P(1), P(2), P(3), P(4), P(5),
-                                    P(6), P(7), P(8), P(9), c.n, c.m});
+                                    P(6), P(7), P(8), P(9), d});
   if (c.n != c.m) return static_cast<int>(cudaErrorInvalidValue);
   if (c.env == kNavigation && np == 3 && ni == 1)
     return f(NavigationStep<S, kAnyDim>{P(0), P(1), P(2), c.int_params[0],
-                                        c.n, c.m});
+                                        d});
   if (c.env == kHVAC && np == 16 && ni == 0)
     return f(HVACStep<S, kAnyDim>{P(0), P(1), P(2), P(3), P(4), P(5), P(6),
                                   P(7), P(8), P(9), P(10), P(11), P(12),
-                                  P(13), P(14), P(15), c.n, c.m});
+                                  P(13), P(14), P(15), d});
   if (c.env == kReservoir && np == 10 && ni == 0)
     return f(ReservoirStep<S, kAnyDim>{P(0), P(1), P(2), P(3), P(4), P(5),
-                                       P(6), P(7), P(8), P(9), c.n, c.m});
+                                       P(6), P(7), P(8), P(9), d});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
