@@ -17,11 +17,13 @@
 // copy.
 //
 // Each functor is written once over its dims (Dims): at a compile-time N,
-// n = m = N and its loops unroll (the unrolled tile kernel); at N =
+// n = m = N and its loops unroll whole (the unrolled tile kernel); at N =
 // kAnyDim, n and m are set at launch (the generic form, at any 1 <= n, m <=
-// 48). Both run the same arithmetic in the same order. x and u are read
-// through whatever indexes them: a register array in the unrolled kernel, a
-// column of shared memory in the generic form.
+// 48) and nvcc ignores ``#pragma unroll (N)``, an unroll count of 0, so it
+// unrolls those loops by its own rule. Both run the same arithmetic in the
+// same order. x and u are read through whatever indexes them: a register
+// array in the unrolled kernel, a column of shared memory in the generic
+// form.
 #pragma once
 
 #include "common.cuh"
@@ -86,7 +88,7 @@ struct NavigationStep {
   __device__ __forceinline__ S final_cost(const X& x) const {
     const int n = dims.n;
     S c = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int i = 0; i < n; ++i) {
       const S d = x[i] - goal[i];
       c += d * d;
@@ -188,7 +190,7 @@ struct NavigationStep {
   __device__ __forceinline__ S factor(const X& x, int z) const {
     const int n = dims.n;
     S d2 = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int i = 0; i < n; ++i) {
       const S d = x[i] - centers[z * n + i];
       d2 += d * d;
@@ -234,7 +236,7 @@ struct HVACStep {
   __device__ __forceinline__ S final_cost(const X& x) const {
     const int n = dims.n;
     S comfort = 0, setpoint = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int i = 0; i < n; ++i) {
       const S below = relu(temp_low[i] - x[i]);
       const S above = relu(x[i] - temp_high[i]);
@@ -273,7 +275,7 @@ struct HVACStep {
   __device__ __forceinline__ S stage_cost(const X& x, const U& u) const {
     const int n = dims.n;
     S air = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int i = 0; i < n; ++i) air += u[i];
     return *cost_air * air + final_cost(x);
   }
@@ -293,7 +295,7 @@ struct HVACStep {
     const int n = dims.n;
     const S heat = ui * p.ka * (p.ta - xi);
     S exch = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int j = 0; j < n; ++j) exch += cond[i * n + j] * x[j];
     exch = exch - xi * cond_rowsum[i];
     const S leak_out = k_out[i] * (p.to - xi);
@@ -332,7 +334,7 @@ struct ReservoirStep {
     const int n = dims.n;
     const S lp = *low_penalty, hp = *high_penalty, sw = *setpoint_weight;
     S c = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int i = 0; i < n; ++i) {
       const S below = relu(lower_bound[i] - x[i]);
       const S above = relu(x[i] - upper_bound[i]);
@@ -379,7 +381,7 @@ struct ReservoirStep {
     const int n = dims.n;
     const S evap = p.e * dsin(xi / max_capacity[i]) * xi;
     S inflow = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int j = 0; j < n; ++j) inflow += u[j] * downstream[j * n + i];
     return xi + rain[i] - evap - ui + inflow;
   }
@@ -411,10 +413,10 @@ struct LinearStep {
   __device__ __forceinline__ S final_cost(const X& x) const {
     const int n = dims.n;
     S cost = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int i = 0; i < n; ++i) {
       cost = cost + q_f[i] * x[i];
-#pragma unroll
+#pragma unroll (N)
       for (int j = 0; j < n; ++j)
         cost = cost + S(0.5) * Q_f[i * n + j] * x[i] * x[j];
     }
@@ -451,9 +453,9 @@ struct LinearStep {
                                    const U& u, S, S) const {
     const int n = dims.n, m = dims.m;
     S xi = c[i];
-#pragma unroll
+#pragma unroll (N)
     for (int j = 0; j < n; ++j) xi = xi + A[i * n + j] * x[j];
-#pragma unroll
+#pragma unroll (N)
     for (int a = 0; a < m; ++a) xi = xi + B[i * m + a] * u[a];
     return xi;
   }
@@ -462,19 +464,19 @@ struct LinearStep {
   __device__ __forceinline__ S stage_cost(const X& x, const U& u) const {
     const int n = dims.n, m = dims.m;
     S cost = 0;
-#pragma unroll
+#pragma unroll (N)
     for (int i = 0; i < n; ++i) {
       cost = cost + q[i] * x[i];
-#pragma unroll
+#pragma unroll (N)
       for (int j = 0; j < n; ++j)
         cost = cost + S(0.5) * Q[i * n + j] * x[i] * x[j];
-#pragma unroll
+#pragma unroll (N)
       for (int a = 0; a < m; ++a) cost = cost + Nx[i * m + a] * x[i] * u[a];
     }
-#pragma unroll
+#pragma unroll (N)
     for (int a = 0; a < m; ++a) {
       cost = cost + r[a] * u[a];
-#pragma unroll
+#pragma unroll (N)
       for (int b = 0; b < m; ++b)
         cost = cost + S(0.5) * R[a * m + b] * u[a] * u[b];
     }
