@@ -101,8 +101,11 @@ ROLLOUT_PLANS = {
 # lanes as n grows. The fastest plan of ``tools/kernel_versions.py rollout
 # --generic-sweep`` on one H100 at the shapes of chip_smoke.py's phase 29
 # (the double integrator for the linear rows at 2, (24, 6) at 24, (48, 48)
-# at 48; reservoir-4 and navigation-4 at 4, reservoir-12 at 12, HVAC-24
-# for the rest; PERF.md section 6), its blocks kept at other batches.
+# at 48; reservoir-12 at 12, HVAC-24 for the rest; PERF.md section 6),
+# its blocks kept at other batches. The other envs' row at 4 serves
+# reservoir-4 and navigation-4, whose fastest plans differ: it is within
+# 2.1% of the fastest for both envs' K3 and navigation-4's K2, and
+# 1.28-1.38x off for reservoir-4's K2 and K5 and navigation-4's K5.
 # ``rollout_plan`` lowers D where one scenario a block does not fit the
 # shared memory (the linear env's parameters at n = m = 48 in float64 take
 # 113 KB).

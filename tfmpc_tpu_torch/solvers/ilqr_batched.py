@@ -357,12 +357,12 @@ def _resolve_emit_traj(config: ILQRConfig, horizon: int, n: int,
     values a step and scenario, until the select. At the dims the generic
     form of K2, K3 and K5 runs, ``tools/kernel_versions.py rollout
     --generic-sweep`` timed the same on one H100 80GB HBM3 at 700 W, in
-    ms: the double integrator (B=4096, T=100) 0.2128 vs 0.3009;
-    reservoir-4 (B=1024, T=100) 0.2262 vs 0.3145; navigation-4 (B=4096,
-    T=100) 0.4814 vs 0.4907; reservoir-12 (B=1024, T=100) 0.5552 vs 0.7947;
-    the 24-room HVAC ring (B=512, T=50) 0.5008 vs 0.7960; linear (24, 6)
-    (B=1024, T=100) 2.1774 vs 3.6115; linear (48, 48) (B=512, T=50) 5.0091
-    vs 9.3999. The emit layout is faster there too, so AUTO has no dim
+    ms: the double integrator (B=4096, T=100) 0.2192 vs 0.3114;
+    reservoir-4 (B=1024, T=100) 0.2285 vs 0.3163; navigation-4 (B=4096,
+    T=100) 0.4906 vs 0.4974; reservoir-12 (B=1024, T=100) 0.5601 vs 0.7962;
+    the 24-room HVAC ring (B=512, T=50) 0.4731 vs 0.7984; linear (24, 6)
+    (B=1024, T=100) 2.1901 vs 3.6354; linear (48, 48) (B=512, T=50) 5.0456
+    vs 9.4657. The emit layout is faster there too, so AUTO has no dim
     ceiling, unlike the JAX package's (max(n, m) <= 12, set on a TPU for
     the footprint): at (48, 48), B=4096, T=500 the trajectories take
     8.65 GB in float32, a ninth of the card. ``horizon``, ``n`` and ``m``
