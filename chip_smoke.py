@@ -56,7 +56,7 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
    boxqp=False (K1 with the clipped K2/K3): counters, converged fractions,
    and agreement with the plain path;
 8. solves/s of the navigation, HVAC-6 and reservoir-5 solves with the
-   kernels (median of 5 windows after a warm-up) and of one plain solve
+   kernels (median of 3 windows after a warm-up) and of one plain solve
    each; a ``torch.profiler`` trace of one HVAC-6 solve: host time per
    ``ilqr.*`` range and the device's busy share;
 9. slice C (long horizons), the reservoir-5 T=500 solve (suite config 4):
@@ -81,7 +81,9 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     False, in turns, at HVAC-6 T=100 (3 windows each): the end-to-end
     side of AUTO's rule (``ilqr_batched._resolve_emit_traj``, decided on
     device times by ``tools/kernel_versions.py rollout``);
-14. a ``torch.profiler`` trace of the reservoir-5 T=500 solve;
+14. none: the trace of the reservoir-5 T=500 solve (2 million events,
+    68-84 s on one H100) left the script to keep it inside its time limit
+    with phase 30 (its last figures are PERF.md's);
 15. slice D (full DDP): K6a at the navigation headline's shapes and K6b at
     reservoir-5 and HVAC-6 (B=2048), on the envs' dynamics Hessians (five
     lanes forced indefinite) and on synthetic ones (f_uu != 0) at n = m = 2
@@ -186,7 +188,31 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     zone, B=4096, T=100), the 24-room HVAC ring with boxQP (E1's config,
     B=512, T=50) and a random stable linear system at (48, 48) (B=512,
     T=50); and the generic form beside the unrolled kernel, in turns, at
-    HVAC-6 and E1's shape (the price of generality).
+    HVAC-6 and E1's shape (the price of generality);
+30. full DDP and K8 at every dim up to 12: K7's full-DDP variants (both,
+    ``csrc/riccati_mid_ddp.cu``) against their plain versions (K6a's and
+    K6b's) on the dynamics Hessians of reservoir-4, the 12-room ring,
+    navigation in 12 dims and the double integrator and on synthetic ones
+    at (4, 4), (12, 12), (7, 3) and (2, 1), at the block-ragged B=401,
+    T=6, five lanes forced indefinite each (phase 15's
+    gates: identical f64 ok masks); the generic K8 (kind kDerivs,
+    ``csrc/rollout_generic_derivs.cu``) against its plain version and the
+    generic K3 (bit for bit) at navigation in 1, 4, 7 and 12 dims, one
+    and two zones (>= 5% of the steps inside both), B=401, T=20; all
+    timed at their paths' shapes, K7 also in the fused iteration's layout
+    round trip (``riccati.riccati_backward_lanes``, bit for bit K7's own
+    wrapper); then six f32 solves, counted (launches of the kernels each
+    should run, no plain version): D3 reservoir-4 with full DDP and boxQP
+    (B=2048, T=100), D5 navigation in 12 dims with full DDP (B=1024,
+    T=50; its first 4 scenarios also in f64 against the fp64 NumPy
+    oracle, 1e-4) and the double integrator with full DDP (B=4096, T=100;
+    its controls within 1e-4 of the exact LQR), each against its plain
+    path; D4 the 12-room ring with full DDP and boxQP (B=512, T=50, E1's
+    release gate: its plain solve takes minutes, ``NO_PLAIN_CHECK``); G4
+    navigation in 4 dims fused (B=4096, T=100) and G5 navigation in 12
+    dims in the box +-1, fused with boxQP (B=1024, T=50), each against
+    its split-kernel solve (one derivatives pass a fused solve); the
+    solves/s of each.
 
 K5 (the emit-trajectories line search, AUTO's layout) is checked with
 the other kernels in phase 3 at the shapes of the paths that run it
@@ -371,6 +397,9 @@ ZONES4 = {"center": [[3.0, -2.0, 1.0, 0.0]], "decay": [2.0]}
 # (solvers/lqr.py) on its first scenarios, through the kernels in f64
 DI_LQR_ATOL, DI_LQR_B = 1e-4, 64
 WINDOW_S = 1.0
+# the windows of a solves/s median (5 until PR 13; 3 keep the script
+# inside its time limit with phase 30)
+RATE_WINDOWS = 3
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # bytes/s, and FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1216,23 +1245,27 @@ def k8_inputs(case, dtype):
     return env, X, U, policy, alpha_vec
 
 
-def check_k8(case, dtype, timings=None, errs=None):
+def check_k8(case, dtype, timings=None, errs=None, inputs=None, key=None,
+             reps=(50, 3)):
     """K8 at the navigation headline's shapes (``navigation``: B=4096,
     T=100, one zone), bounded navigation's (``nav_bounded``: B=256, T=50,
     box +-1), G3's (``g3``: two zones, B=1024, T=20; it prints and gates
     the share of steps at which both zones slow the agent, g_z < 0.99,
     where the product over the other zones and the per-zone sum into
-    d lambda / dx matter) or the block-ragged ``nav_ragged``: X, U, J and
-    the seven linearization blocks against its plain version within
-    ``TOL``; X, U and J against K3 on the same inputs (the same arithmetic
-    in another kernel), bit for bit; the kernel-layout policy (the fused
-    iteration's ``policy_lane``) gives the same outputs bit for bit."""
+    d lambda / dx matter) or the block-ragged ``nav_ragged`` (or on
+    ``inputs``, ``k8_inputs``' tuple): X, U, J and the seven linearization
+    blocks against its plain version within ``TOL``; X, U and J against K3
+    on the same inputs (the same arithmetic in another kernel), bit for
+    bit; the kernel-layout policy (the fused iteration's ``policy_lane``)
+    gives the same outputs bit for bit. With ``timings``, timed under
+    ``key`` (by default the case's), ``reps`` the kernel's and the plain
+    version's repetitions."""
     import torch
 
     from tfmpc_tpu_torch.ops import rollout
 
     dn = dname(dtype)
-    env, X, U, policy, alpha_vec = k8_inputs(case, dtype)
+    env, X, U, policy, alpha_vec = inputs or k8_inputs(case, dtype)
     Bn, Tn, n = U.shape
     label = f"K8 {case}"
     out_k = rollout.rollout_alpha_derivs(env, X, U, policy, alpha_vec)
@@ -1259,9 +1292,9 @@ def check_k8(case, dtype, timings=None, errs=None):
     max_err = 0.0
     for what, got, want in zip(("X", "U", "J"), out_k[:3], out_p[:3]):
         max_err = max(max_err, compare(f"{label} {what}", got, want, dn))
-    for key in rollout.D_KEYS:
-        max_err = max(max_err, compare(f"{label} {key}", out_k[3][key],
-                                       out_p[3][key], dn))
+    for k in rollout.D_KEYS:
+        max_err = max(max_err, compare(f"{label} {k}", out_k[3][k],
+                                       out_p[3][k], dn))
     for what, got, want in zip(("X", "U", "J"), out_k[:3], out_3):
         same = torch.equal(got, want)
         print(f"  {label} {what} vs K3 [{dn}]: bitwise equal {same} (gate), "
@@ -1270,8 +1303,8 @@ def check_k8(case, dtype, timings=None, errs=None):
             raise AssertionError(f"{label} {what} vs K3 [{dn}]: not bitwise "
                                  "equal")
     same = all(torch.equal(a, b) for a, b in zip(out_k[:3], out_l[:3])) \
-        and all(torch.equal(out_k[3][key], out_l[3][key])
-                for key in rollout.D_KEYS)
+        and all(torch.equal(out_k[3][k], out_l[3][k])
+                for k in rollout.D_KEYS)
     print(f"  {label} [{dn}]: the kernel-layout policy gives the same "
           f"outputs bit for bit: {same}")
     if not same:
@@ -1279,12 +1312,12 @@ def check_k8(case, dtype, timings=None, errs=None):
                              "outputs")
     if timings is None:
         return
-    key = "rollout_alpha_derivs" + {"navigation": "", "nav_bounded":
-                                    "_bounded", "g3": "_g3"}[case]
+    key = key or "rollout_alpha_derivs" + {
+        "navigation": "", "nav_bounded": "_bounded", "g3": "_g3"}[case]
     errs[key] = max_err
     a = rollout.kernel_args(env, X, U, None, pol_lane, derivatives=True)
     n_params = sum(p.numel() for p in a["params"])
-    reps, plain_reps = (50, 5) if case == "navigation" else (50, 3)
+    reps, plain_reps = (50, 5) if case == "navigation" else reps
     timings[key] = (
         graph_ms(lambda: rollout.rollout_alpha_derivs_kernel(a, alpha_vec),
                  reps),
@@ -2314,6 +2347,14 @@ COUNTERS = {
                               "ALPHA_PLAIN_CALLS"),
     "linesearch_costs_traj_generic": ("rollout", "TRAJ_GENERIC_LAUNCHES",
                                       "TRAJ_PLAIN_CALLS"),
+    # K7's full-DDP variants and the generic K8 (phase 30)
+    "riccati_backward_mid_ddp": ("riccati_mid", "MID_DDP_LAUNCHES",
+                                 "MID_DDP_PLAIN_CALLS"),
+    "riccati_backward_mid_ddp_boxqp": ("riccati_mid",
+                                       "MID_DDP_BOXQP_LAUNCHES",
+                                       "MID_DDP_BOXQP_PLAIN_CALLS"),
+    "rollout_alpha_derivs_generic": ("rollout", "DERIVS_GENERIC_LAUNCHES",
+                                     "DERIVS_PLAIN_CALLS"),
 }
 
 
@@ -2416,10 +2457,10 @@ def agree_with_plain(label, res, run_plain, cost_rtol=1e-4, share=0.99,
 
 
 def solves_per_s(run, Bn) -> list:
-    """Five timing windows after one warm-up window; each window repeats
-    whole solves for at least WINDOW_S seconds."""
+    """RATE_WINDOWS timing windows after one warm-up window; each window
+    repeats whole solves for at least WINDOW_S seconds."""
     windows = []
-    for _ in range(6):
+    for _ in range(RATE_WINDOWS + 1):
         reps, t0 = 0, time.perf_counter()
         while reps == 0 or time.perf_counter() - t0 < WINDOW_S:
             run()
@@ -2672,7 +2713,7 @@ def lqr_config1(card):
             torch.cuda.synchronize()
             return out
         w = solves_per_s(run, 1 if x0.ndim == 1 else x0.shape[0])
-        rates[label] = sorted(w)[2]
+        rates[label] = sorted(w)[len(w) // 2]
         print(f"LQR linear navigation T={T} f32, {label}: median "
               f"{rates[label]:.1f} solves/s, windows "
               f"{[round(x, 1) for x in w]} [{card}]")
@@ -2939,7 +2980,7 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
     for label, run, Bn in (("e1_hvac16", run_e1, B_E1),
                            ("e2_hvac12", run_e2, B_E2)):
         w = solves_per_s(run, Bn)
-        rates[label] = sorted(w)[2]
+        rates[label] = sorted(w)[len(w) // 2]
         plain_txt = (f"; one plain solve {plain_s[label]:.2f} s "
                      f"({Bn / plain_s[label]:.1f} solves/s)"
                      if label in plain_s else "")
@@ -3641,12 +3682,13 @@ def check_generic_kernels(case, dtype, Bn, Tn, timings=None, errs=None):
               f"ms, bound {b_ms:.4f} ms ({b_by})")
 
 
-def di_lqr_check(res32, x0, horizon):
+def di_lqr_check(res32, x0, horizon, cfg=HEADLINE,
+                 backward="riccati_backward_mid"):
     """The double integrator's controls against the exact LQR
     (``solvers/lqr.py``) in float64 on its first ``DI_LQR_B`` scenarios:
-    the same solve through the kernels in float64 (K7 and the generic
-    rollouts, counted) and the f32 solve's, each within ``DI_LQR_ATOL``
-    max-abs. Returns both deviations."""
+    the same solve (``cfg``, at atol 1e-10) through the kernels in float64
+    (``backward`` and the generic rollouts, counted) and the f32 solve's,
+    each within ``DI_LQR_ATOL`` max-abs. Returns both deviations."""
     import torch
 
     from tfmpc_tpu_torch.solvers import ilqr, lqr
@@ -3655,12 +3697,11 @@ def di_lqr_check(res32, x0, horizon):
     env64 = generic_env("double_integrator", torch.float64)
     x0_64 = x0[:DI_LQR_B].double()
     _, U_l, _ = lqr.solve(env64.to_lqr_problem(horizon), x0_64)
-    config = ILQRConfig(**{**HEADLINE, "atol": 1e-10})
+    config = ILQRConfig(**{**cfg, "atol": 1e-10})
     res64, launches, plain = counted(lambda: ilqr.solve_batch(
         env64, x0_64, horizon=horizon, config=config))
     require_path("double integrator f64 solve", launches, plain,
-                 {"riccati_backward_mid"}
-                 | generic_kinds(config, horizon, 2, 1))
+                 {backward} | generic_kinds(config, horizon, 2, 1))
     dev64 = float((res64.actions - U_l).abs().max())
     dev32 = float((res32.actions[:DI_LQR_B].double() - U_l).abs().max())
     print(f"  double integrator controls vs the exact LQR in float64 "
@@ -3804,6 +3845,565 @@ def slice_generic(phase, timings, errs, launches_by_path, plain_s, card):
             figures["double_integrator_vs_lqr"] = di_lqr_check(res, x0, Tn)
     figures["generic_vs_unrolled"] = generic_vs_unrolled(card)
     phase.done("29. the generic form of K2, K3 and K5")
+    return figures
+
+
+# -- phase 30: full DDP and K8 at every dim up to 12 ---------------------------
+
+# K7's full-DDP variants against their plain versions: on envs' dynamics
+# Hessians along a random nominal (reservoir-4, the 12-room ring, navigation
+# in 12 dims, the double integrator, whose Hessians are 0) and on seeded
+# synthetic ones at (4, 4), (12, 12), (7, 3) and (2, 1), T=6 (as K7's
+# synthetic checks), at the scale that leaves 64-99% of the lanes PD
+# in the plain versions in float64 (set on the CPU from
+# ``synthetic_mid_inputs``' linearization; five more lanes forced
+# indefinite each), at a batch K7's plan leaves block-ragged (four teams a
+# block, one in the last)
+DDP_MID_ENV_CASES = (("reservoir4", (4, 4)), ("hvac12ring", (12, 12)),
+                     ("nav12", (12, 12)), ("double_integrator", (2, 1)))
+DDP_MID_SYNTHETIC_SCALE = {(4, 4): 0.05, (12, 12): 0.03, (7, 3): 0.05,
+                           (2, 1): 0.2}
+DDP_MID_RAGGED = (401, 6)
+# the generic K8 against its plain version and the generic K3: navigation
+# in these dims (the headline's goal and zone, or configs/navigation.json's
+# two, padded with 2.0 and 0.0), at a block-ragged batch under its plan
+K8_GENERIC_DIMS = (1, 4, 7, 12)
+K8_GENERIC_RAGGED = (401, 20)
+# the paths, f32: label -> (env, B, T, config). D3: suite config 4c at four
+# reservoirs; D4: the 12-room ring (E2's env) with full DDP and boxQP, at
+# full DDP's iteration cap (50, the DDP headline's; at E2's 30 a share of
+# the lanes stops at the cap, where the f32 plain path and the kernels
+# stop at different iterates); D5: navigation
+# in 12 dims (one zone) with full DDP; the double integrator with full DDP
+# (linear dynamics: its controls are the exact LQR's); G4: navigation in 4
+# dims, fused; G5: navigation in 12 dims in the box +-1, fused with boxQP
+DDP_MID_PATHS = {
+    "d3_reservoir4_ddp": ("reservoir4", 2048, 100, DDP_BOXQP),
+    "d4_hvac12_ddp": ("hvac12ring", 512, 50,
+                      dict(E2_CONFIG, ddp=True, max_iterations=50)),
+    "d5_nav12_ddp": ("nav12", 1024, 50, DDP_HEADLINE),
+    "double_integrator_ddp": ("double_integrator", 4096, 100, DDP_HEADLINE),
+}
+FUSED_MID_PATHS = {
+    "g4_nav4_fused": ("nav4", 4096, 100,
+                      dict(HEADLINE, fuse_derivatives=True)),
+    "g5_nav12_box_fused": ("nav12_box", 1024, 50,
+                           dict(HEADLINE, boxqp=True,
+                                fuse_derivatives=True)),
+}
+# D5's first scenarios in float64 against the fp64 navigation oracle
+D5_ORACLE_B = 4
+# D4 is not held against its plain path here: the f32 plain DDP + boxQP
+# backward at n = 12 takes ~1 s an attempt at T=50 and D4 makes ~7 attempts
+# an iteration (its restarts gather at most 128 failing lanes a round), so
+# the plain solve took 237 s on one H100 (PR 13 call 3: the same converged
+# mask on every lane, mean cost within 2.3e-7) and 69 s on its first 128
+# scenarios (call 6: every lane, 1.4e-6), a fifth of the script's time
+# limit; a shorter horizon leaves other lanes unconverged at the cap on
+# each path (calls 4, 5). It is held to E1's release gate instead (>= 0.98
+# converged, 0 failed), and its backward to its plain version at these
+# dims in 30a (the ring's Hessians, both dtypes).
+NO_PLAIN_CHECK = ("d4_hvac12_ddp",)
+# D4's solve takes ~6 s, longer than a rate window: its rate is its
+# counted solve's
+SOLVE_RATE = ("d4_hvac12_ddp",)
+
+
+def phase30_env(case, dtype, device="cuda"):
+    """The env of a phase-30 case: ``generic_env``'s (``reservoir4``,
+    ``double_integrator``, ``nav4``), the 12-room ring (``hvac12ring``) or
+    navigation in k dims, ``nav<k>`` (one zone), ``nav<k>_2z`` (two) or
+    ``nav<k>_box`` (one, in the box +-1): the headline's goal and zone, or
+    configs/navigation.json's two zones, padded to k dims with 2.0 (goal)
+    and 0.0 (centers), cut at k = 1."""
+    from tfmpc_tpu_torch.models.navigation import make_navigation
+
+    if case == "hvac12ring":
+        return hvac_ring(12, dtype, device)
+    if not case.startswith("nav") or case == "nav4":
+        return generic_env(case, dtype, device)
+    k, _, kind = case[3:].partition("_")
+    k = int(k)
+    pad = lambda v, fill: (list(v) + [fill] * k)[:k]  # noqa: E731
+    centers = [[3.0, -2.0], [6.0, -4.0]] if kind == "2z" else [[3.0, -2.0]]
+    decays = [2.0, 1.5] if kind == "2z" else [2.0]
+    box = dict(low=-1.0, high=1.0) if kind == "box" else {}
+    return make_navigation(pad(GOAL, 2.0), {
+        "center": [pad(c, 0.0) for c in centers], "decay": decays}, **box,
+        dtype=dtype, device=device)
+
+
+def phase30_x0(case, Bn, dtype, device="cuda"):
+    """A phase-30 solve's initial states [Bn, n] from ``default_rng(0)``:
+    ``generic_x0``'s, U(8, 18) for the ring, U(-10, 10) for navigation."""
+    import numpy as np
+    import torch
+
+    if case in ("reservoir4", "double_integrator", "nav4"):
+        return generic_x0(case, Bn, dtype, device)
+    n = phase30_env(case, dtype, "cpu").state_size
+    lohi = (8.0, 18.0) if case == "hvac12ring" else (-10.0, 10.0)
+    x0 = np.random.default_rng(0).uniform(*lohi, (Bn, n))
+    return torch.as_tensor(x0.astype("float32"), dtype=dtype, device=device)
+
+
+def ddp_mid_inputs(case, dims, dtype, Bn, Tn):
+    """The inputs of a K7 full-DDP check: (label, lin, quad, final, mu,
+    bounds, Ubar, second, boxqp_iters). An env case: a random nominal of
+    ``phase30_env(case)`` from its solve's x0 (controls ~ U(0, 4) clipped
+    where bounded, else 0.1 N(0, 1)), its linearization and dynamics
+    Hessians, mu ~ U(0, 0.5), its box (navigation and the double
+    integrator: +-1), 8 boxQP iterations. ``"synthetic"``:
+    ``synthetic_mid_inputs`` at ``dims`` with seeded random Hessians at
+    ``DDP_MID_SYNTHETIC_SCALE`` (symmetric in their derivative indices), 4
+    boxQP iterations."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.core.types import Bounds, SecondOrderModel
+    from tfmpc_tpu_torch.solvers.ilqr import second_derivatives
+
+    n, m = dims
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    if case == "synthetic":
+        lin, quad, final, mu, bounds, U = synthetic_mid_inputs(n, m, dtype,
+                                                               Bn, Tn)
+        c = DDP_MID_SYNTHETIC_SCALE[dims]
+        rng = np.random.default_rng(13 * n + m)
+        sym = lambda a: 0.5 * (a + a.transpose(-1, -2))  # noqa: E731
+        second = SecondOrderModel(
+            f_xx=sym(t(c * rng.standard_normal((Bn, Tn, n, n, n)))),
+            f_ux=t(c * rng.standard_normal((Bn, Tn, n, m, n))),
+            f_uu=sym(t(c * rng.standard_normal((Bn, Tn, n, m, m)))))
+        return (f"synthetic ({n}, {m})", lin, quad, final, mu, bounds, U,
+                second, 4)
+    env = phase30_env(case, dtype)
+    rng = np.random.default_rng(14)
+    bounded = env.bounds is not None
+    U = env.clip(t(rng.uniform(0.0, 4.0, (Bn, Tn, m)))) if bounded \
+        else t(0.1 * rng.standard_normal((Bn, Tn, m)))
+    X, _ = env.rollout(phase30_x0(case, Bn, dtype), U)
+    lin, quad, final = env.analytic_derivatives(X, U)
+    one = torch.ones(m, dtype=dtype, device="cuda")
+    bounds = env.bounds if bounded else Bounds(low=-one, high=one)
+    return (case, lin, quad, final, t(rng.uniform(0.0, 0.5, Bn)), bounds, U,
+            second_derivatives(env, X, U), 8)
+
+
+def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
+                 errs=None, name_suffix="", timed=("ddp", "ddp_boxqp")):
+    """K7's full-DDP variants (K6a's and K6b's contracts) through their
+    wrappers, which must launch them, against their plain versions on
+    ``ddp_mid_inputs(case, dims)`` (``DDP_MID_RAGGED`` by default, the
+    plan checked to leave the last block part-full) with five lanes
+    forced indefinite: ``hold_backward``'s gates (identical ok masks and
+    the ok lanes within tolerance in float64, the boxQP variant's share
+    gate on an env's inputs set by the plain version's own agreement
+    across the card and the CPU; the float32 share rule against the
+    float64 plain version). With
+    ``timings``: kernel (graph replays), wrapper and plain times and the
+    bounds (the Hessians' bytes counted) of the ``timed`` variants on the
+    unforced inputs, under ``riccati_backward_mid_ddp[_boxqp]`` +
+    ``name_suffix``."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    n, m = dims
+    Bn, Tn = (Bn, Tn) if Bn else DDP_MID_RAGGED
+    plan = rm.mid_plan(n, m, Bn, dtype)
+    tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
+    label, lin, quad, final, mu, bounds, U, second, iters = ddp_mid_inputs(
+        case, dims, dtype, Bn, Tn)
+    label = f"K7-DDP {label} (n, m) = {dims} B={Bn} T={Tn}"
+    print(f"  {label} {dname(dtype)}: plan {plan.warps} warp(s) a team, "
+          f"{plan.scenarios} teams a block, {tail} in the last block")
+    if timings is None and tail == plan.scenarios:
+        raise AssertionError(f"{label}: the batch is not block-ragged")
+    quad_b, mu_b, bad = force_indefinite(quad, mu, m)
+    args = (lin, quad_b, final, mu_b)
+    args64 = (to64(lin), to64(quad_b), to64(final), mu_b.double())
+    box, box64 = (bounds, U), (to64(bounds), U.double())
+    sec64 = to64(second)
+    for variant in ("ddp", "ddp_boxqp"):
+        counter = "MID_DDP_LAUNCHES" if variant == "ddp" \
+            else "MID_DDP_BOXQP_LAUNCHES"
+        before = getattr(rm, counter)
+        if variant == "ddp":
+            run = lambda: rm.riccati_backward_mid_ddp(  # noqa: E731
+                *args, second)
+            plain = lambda st: rm.riccati_backward_mid_ddp_ref(  # noqa
+                *args, second)
+            ref64 = lambda: rm.riccati_backward_mid_ddp_ref(  # noqa: E731
+                *args64, sec64)
+            plain_cpu = None
+        else:
+            run = lambda: rm.riccati_backward_mid_ddp_boxqp(  # noqa: E731
+                *args, *box, second, iters)
+            plain = lambda st: rm.riccati_backward_mid_ddp_boxqp_ref(  # noqa
+                *args, *box, second, iters, stats=st)
+            ref64 = lambda: rm.riccati_backward_mid_ddp_boxqp_ref(  # noqa
+                *args64, *box64, sec64, iters)
+            plain_cpu = None
+            if dtype == torch.float64 and case != "synthetic":
+                plain_cpu = lambda: rm.riccati_backward_mid_ddp_boxqp_ref(  # noqa
+                    *(to_cpu(a) for a in args + box + (second,)), iters)
+        err, _ = hold_backward(f"{label} {variant}", dtype, run, plain, ref64,
+                               variant == "ddp_boxqp", bad, plain_cpu)
+        if getattr(rm, counter) != before + 1:
+            raise AssertionError(f"{label} {variant}: the wrapper did not "
+                                 "launch K7's DDP variant")
+        if timings is None or variant not in timed:
+            continue
+        a = rm.mid_layout(lin, quad, final, mu, bounds, U, second)
+        if variant == "ddp":
+            name = "riccati_backward_mid_ddp"
+            work = k6a_work(Bn, Tn, n, m, 4)
+            kargs = [a[k] for k in rm.MID_DDP_ARGS]
+            launch = lambda: rm.riccati_backward_mid_ddp_kernel(  # noqa
+                *kargs)
+            wrap = lambda: rm.riccati_backward_mid_ddp(  # noqa: E731
+                lin, quad, final, mu, second)
+            ref = lambda: rm.riccati_backward_mid_ddp_ref(  # noqa: E731
+                lin, quad, final, mu, second)
+        else:
+            stats = {}
+            rm.riccati_backward_mid_ddp_boxqp_ref(lin, quad, final, mu,
+                                                  bounds, U, second, iters,
+                                                  stats=stats)
+            name = "riccati_backward_mid_ddp_boxqp"
+            work = k6b_work(Bn, Tn, n, m, 4, stats["newton_iterations"])
+            kargs = [a[k] for k in rm.MID_DDP_BOXQP_ARGS]
+            launch = lambda: rm.riccati_backward_mid_ddp_boxqp_kernel(  # noqa
+                *kargs, boxqp_iters=iters)
+            wrap = lambda: rm.riccati_backward_mid_ddp_boxqp(  # noqa: E731
+                lin, quad, final, mu, bounds, U, second, iters)
+            ref = lambda: rm.riccati_backward_mid_ddp_boxqp_ref(  # noqa
+                lin, quad, final, mu, bounds, U, second, iters)
+        key = name + name_suffix
+        errs[key] = err
+        timings[key] = (graph_ms(launch, 5), cuda_ms(wrap, 5),
+                        cuda_ms(ref, 1), bound(*work))
+        b64, by64 = bound(*work, "float64")
+        k_ms = timings[key][0]
+        b_ms, b_by = timings[key][3]
+        print(f"  {key} (B={Bn}, T={Tn}, f32, plan {plan.warps} warp(s) x "
+              f"{rm.mid_plan(n, m, Bn, torch.float32).scenarios}): kernel "
+              f"{k_ms:.4f} ms (graph replays), wrapper {timings[key][1]:.4f}"
+              f" ms, plain {timings[key][2]:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}) at the f32 peak, {b64:.4f} ms ({by64}) at the FP64 "
+              f"peak: {b64 / k_ms:.4f} of it")
+
+
+def k8_generic_inputs(case, dtype, Bn, Tn):
+    """Generic K8's inputs: navigation ``phase30_env(case)`` from x0 ~
+    U((1, -6), (8, 0)) in its first two dims (the box that holds both
+    zones; U(1, 8) at n = 1) and U(-0.2, 0.2) in the others, controls ~
+    0.5 N(0, 1) (0.1 N(0, 1) past the first two dims, where the zones'
+    centers are 0; clipped where bounded), a feedback policy with K ~ 0.05
+    N(0, 1) / sqrt(n) and k ~ the controls' law, lane z started on zone
+    z's center, each lane's alpha from the grid; ``k8_inputs``' tuple."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.core.types import Policy
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env = phase30_env(case, dtype)
+    n = env.state_size
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    rng = np.random.default_rng(15 + n)
+    lo = ([1.0, -6.0] + [-0.2] * n)[:n]
+    hi = ([8.0, 0.0] + [0.2] * n)[:n]
+    scale = np.asarray(([0.5, 0.5] + [0.1] * n)[:n])
+    x0 = t(rng.uniform(lo, hi, (Bn, n)))
+    x0[:env.centers.shape[0]] = env.centers
+    U = env.clip(t(scale * rng.standard_normal((Bn, Tn, n))))
+    X, _ = env.rollout(x0, U)
+    policy = Policy(K=t(0.05 / np.sqrt(n)
+                        * rng.standard_normal((Bn, Tn, n, n))),
+                    k=t(scale * rng.standard_normal((Bn, Tn, n))))
+    alpha_vec = ILQRConfig().alphas(dtype, device="cuda")[
+        torch.arange(Bn, device="cuda") % A]
+    return env, X, U, policy, alpha_vec
+
+
+def check_k8_generic(case, dtype, Bn=None, Tn=None, timings=None,
+                     errs=None, key=None):
+    """``check_k8`` of the generic K8 on ``k8_generic_inputs(case)``
+    (``K8_GENERIC_RAGGED`` by default, the plan checked to leave the last
+    block part-full), which must launch the generic form (K8 and its K3)
+    and no unrolled kernel; the K3 it is held against bit for bit is the
+    generic one. With ``timings``: timed under ``key``."""
+    from tfmpc_tpu_torch.ops import rollout
+
+    Bn, Tn = (Bn, Tn) if Bn else K8_GENERIC_RAGGED
+    inputs = k8_generic_inputs(case, dtype, Bn, Tn)
+    env, X, U, policy, _ = inputs
+    plan = rollout.launch_plan(
+        rollout.kernel_args(env, X, U, policy, derivatives=True), "derivs")
+    tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
+    print(f"  generic K8 {case} B={Bn} T={Tn} [{dname(dtype)}]: plan "
+          f"G={plan.groups}, {plan.scenarios} a block, D={plan.depth}, "
+          f"{tail} in the last block")
+    if not plan.generic or (timings is None and tail == plan.scenarios):
+        raise AssertionError(f"generic K8 {case}: not the generic form, or "
+                             "the batch is not block-ragged")
+    counts = lambda: (rollout.DERIVS_GENERIC_LAUNCHES,  # noqa: E731
+                      rollout.ALPHA_GENERIC_LAUNCHES,
+                      rollout.DERIVS_LAUNCHES, rollout.ALPHA_LAUNCHES)
+    before = counts()
+    check_k8(f"{case} (generic) B={Bn} T={Tn}", dtype, timings, errs,
+             inputs, key, (20, 2))
+    launched = [x - y for x, y in zip(counts(), before)]
+    if not (launched[0] >= 2 and launched[1] >= 1 and launched[2:] == [0, 0]):
+        raise AssertionError(f"generic K8 {case}: launches {launched} (the "
+                             "generic K8 and K3, no unrolled kernel)")
+
+
+def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
+    """K7 (iLQR, or boxQP) as the fused iteration runs it at a G4/G5
+    shape, on the blocks of a random nominal of ``phase30_env(case)`` in
+    the kernel layout: ``riccati.riccati_backward_lanes`` (K7 through the
+    layout round trip) must give K7's own wrapper's outputs on the same
+    values in the solver layout bit for bit; its largest K/k difference
+    from the plain version in float64 (K7 computes in double) on the lanes
+    ok in both is printed. Timed under ``key``: the raw launch (graph
+    replays), the kernel-layout wrapper and the plain version."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati, riccati_mid as rm, rollout
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+
+    env, X, U, policy, alpha_vec = k8_generic_inputs(case, torch.float32, Bn,
+                                                     Tn)
+    n, m = env.state_size, env.action_size
+    ka = ilqr_batched._initial_kargs(env, X, U)
+    VT, vT = ilqr_batched._final_klayout(env, X[:, -1])
+    mu = torch.full((Bn,), 0.1, device="cuda")
+    box = None
+    if boxqp:
+        box = (U.permute(1, 2, 0).contiguous(),
+               env.bounds.low.contiguous(), env.bounds.high.contiguous())
+    lin, quad, final = env.analytic_derivatives(X, U)
+    a = rm.mid_layout(lin, quad, final, mu, env.bounds if boxqp else None,
+                      U if boxqp else None)
+    args64 = (to64(lin), to64(quad), to64(final), mu.double())
+    if boxqp:
+        launch = lambda: rm.riccati_backward_mid_boxqp_kernel(  # noqa: E731
+            *(a[k] for k in rm.MID_BOXQP_ARGS))
+        ref = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+            lin, quad, final, mu, env.bounds, U)
+        ref64 = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+            *args64, to64(env.bounds), U.double())
+        stats = {}
+        rm.riccati_backward_mid_boxqp_ref(lin, quad, final, mu, env.bounds,
+                                          U, stats=stats)
+        work = k4_work(Bn, Tn, n, m, 4, stats["newton_iterations"])
+    else:
+        launch = lambda: rm.riccati_backward_mid_kernel(  # noqa: E731
+            *(a[k] for k in rm.MID_ARGS))
+        ref = lambda: rm.riccati_backward_mid_ref(lin, quad, final, mu)  # noqa
+        ref64 = lambda: rm.riccati_backward_mid_ref(*args64)  # noqa: E731
+        work = k1_work(Bn, Tn, n, m, 4)
+    wrap = lambda: riccati.riccati_backward_lanes(ka, VT, vT, mu, box)  # noqa
+    ok_k, pol_lane, dv1_k, dv2_k = wrap()
+    pol_k = rollout.policy_from_lanes(pol_lane)
+    if boxqp:
+        ok_s, pol_s, dv1_s, dv2_s = rm.riccati_backward_mid_boxqp(
+            lin, quad, final, mu, env.bounds, U)
+    else:
+        ok_s, pol_s, dv1_s, dv2_s = rm.riccati_backward_mid(lin, quad, final,
+                                                            mu)
+    ok_p, pol_p, _, _ = ref64()
+    torch.cuda.synchronize()
+    same = torch.equal(ok_k, ok_s) and all(torch.equal(x, y) for x, y in (
+        (pol_k.K, pol_s.K), (pol_k.k, pol_s.k), (dv1_k, dv1_s),
+        (dv2_k, dv2_s)))
+    both = ok_k & ok_p
+    err = max(float((pol_k.K.double() - pol_p.K)[both].abs().max()),
+              float((pol_k.k.double() - pol_p.k)[both].abs().max()))
+    what = f"K7-{'boxQP' if boxqp else 'iLQR'} in the kernel layout"
+    print(f"  {what}, {case} B={Bn} T={Tn} f32: equal to K7's wrapper on the "
+          f"solver layout bit for bit {same} (gate); ok on {int(ok_k.sum())}"
+          f" lanes (plain f64 {int(ok_p.sum())}), max K/k difference from "
+          f"the float64 plain version on lanes ok in both {err:.3e}")
+    if not same:
+        raise AssertionError(f"{what}, {case}: not K7's own outputs")
+    errs[key] = err
+    timings[key] = (graph_ms(launch, 5), cuda_ms(wrap, 5), cuda_ms(ref, 1),
+                    bound(*work))
+    k_ms, w_ms, p_ms, (b_ms, b_by) = timings[key]
+    print(f"  {key}: kernel {k_ms:.4f} ms (graph replays), wrapper with the "
+          f"layout round trip {w_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+
+
+def phase30_kinds(env, config, horizon):
+    """The kernels a phase-30 solve runs, as the solver routes them: the
+    Riccati kernel (``_riccati_kernel_mode``: lane or K7, with ``ddp`` its
+    DDP variant, with boxQP on a bounded env its boxQP one), then the
+    fused iteration's K2 and K8, or the split iteration's line search (K5
+    on AUTO), each unrolled or generic."""
+    from tfmpc_tpu_torch.ops import rollout
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+
+    n, m = env.state_size, env.action_size
+    mode = ilqr_batched._riccati_kernel_mode(n, m, config, "cuda")
+    backward = {"lane": "riccati_backward",
+                "mid": "riccati_backward_mid"}[mode] \
+        + ("_ddp" if config.ddp else "") \
+        + ("_boxqp" if config.boxqp and env.bounds is not None else "")
+    if ilqr_batched._use_fused_derivs(env, config, "cuda"):
+        g = "" if (n, m) in rollout.DERIVS_DIMS else "_generic"
+        return {backward, "linesearch_costs" + g, "rollout_alpha_derivs" + g}
+    if rollout.unrolled_dims(env.device_step().env_id, n, m):
+        return {backward} | line_search_kernels(config, horizon, n)
+    return {backward} | generic_kinds(config, horizon, n, m)
+
+
+def d5_oracle_check(horizon):
+    """D5's first ``D5_ORACLE_B`` scenarios in float64 through K7's DDP
+    variant and the generic rollouts (counted) against the fp64 NumPy
+    navigation oracle: converged, controls within 1e-4 max-abs."""
+    import numpy as np
+    import torch
+
+    from oracles import ilqr_navigation_oracle_np
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    env = phase30_env("nav12", torch.float64)
+    x0 = phase30_x0("nav12", D5_ORACLE_B, torch.float64)
+    config = ILQRConfig(**DDP_HEADLINE)
+    res, launches, plain = counted(solver(env, x0, horizon, config))
+    require_path("D5 f64 oracle solve", launches, plain,
+                 phase30_kinds(env, config, horizon))
+    devs = []
+    for i in range(D5_ORACLE_B):
+        _, U_np, _ = ilqr_navigation_oracle_np(
+            env.goal.tolist(), env.centers.tolist(), env.decays.tolist(),
+            x0[i].cpu().numpy(), horizon, atol=1e-10)
+        devs.append(float(np.abs(res.actions[i].cpu().numpy()
+                                 - U_np).max()))
+    print(f"  D5 f64, first {D5_ORACLE_B} scenarios, DDP controls vs the "
+          f"fp64 NumPy oracle: converged {res.converged.tolist()}, max-abs "
+          f"by scenario {[f'{d:.3e}' for d in devs]} (gate < 1e-4)")
+    if not bool(res.converged.all()) or max(devs) >= 1e-4:
+        raise AssertionError("D5: DDP controls deviate from the fp64 oracle")
+    return max(devs)
+
+
+def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
+    """Phase 30: K7's full-DDP variants (``check_k7_ddp``) and the generic
+    K8 (``check_k8_generic``, also against the generic K3) against their
+    plain versions in float32 and float64, then timed at the paths'
+    shapes (f32), K7 at G4's and G5's shapes in the kernel layout; then
+    each ``DDP_MID_PATHS`` solve against its plain path and each
+    ``FUSED_MID_PATHS`` solve against its split-kernel solve (the same
+    converged mask on >= 99% of lanes, mean cost within 1e-4), counted
+    (launches > 0 for the kernels it should run, every other 0, no plain
+    version); D5's f64 lanes against the fp64 oracle, the double
+    integrator's controls against the exact LQR; each path's solves/s.
+    Returns its figures."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    figures = {"paths": {}}
+    for dtype in (torch.float32, torch.float64):
+        print(f"K7's full-DDP variants vs their plain versions, {dtype}:")
+        for case, dims in DDP_MID_ENV_CASES:
+            check_k7_ddp(case, dims, dtype)
+        for dims in DDP_MID_SYNTHETIC_SCALE:
+            check_k7_ddp("synthetic", dims, dtype)
+        print(f"the generic K8 vs its plain version and the generic K3, "
+              f"{dtype}:")
+        for n in K8_GENERIC_DIMS:
+            for kind in ("", "_2z"):
+                check_k8_generic(f"nav{n}{kind}", dtype)
+    print("phase 30's kernels at the paths' shapes, f32:")
+    for label, (case, Bn, Tn, cfg) in DDP_MID_PATHS.items():
+        env = phase30_env(case, torch.float32, "cpu")
+        box = cfg.get("boxqp") and env.bounds is not None
+        check_k7_ddp(case, (env.state_size, env.action_size), torch.float32,
+                     Bn, Tn, timings, errs, "_" + label,
+                     ("ddp_boxqp",) if box else ("ddp",))
+    for label, (case, Bn, Tn, _) in FUSED_MID_PATHS.items():
+        check_k8_generic(case, torch.float32, Bn, Tn, timings, errs,
+                         "rollout_alpha_derivs_generic_" + label)
+        time_k7_lanes(case, Bn, Tn, case.endswith("_box"), timings, errs,
+                      "riccati_backward_mid" + ("_boxqp" if case.endswith(
+                          "_box") else "") + "_" + label)
+    phase.done("30a. K7's DDP variants and the generic K8 vs plain versions")
+
+    runs = {}
+    for label, (case, Bn, Tn, cfg) in {**DDP_MID_PATHS,
+                                       **FUSED_MID_PATHS}.items():
+        env = phase30_env(case, torch.float32)
+        n, m = env.state_size, env.action_size
+        x0 = phase30_x0(case, Bn, torch.float32)
+        config = ILQRConfig(**cfg)
+        fused = ilqr_batched._use_fused_derivs(env, config, "cuda")
+        print(f"phase 30 path {label}, (n, m) = ({n}, {m}), B={Bn}, T={Tn}, "
+              f"f32, {'fused' if fused else 'split'} iteration:")
+        run = solver(env, x0, Tn, config)
+        passes = []
+        derivatives = ilqr_batched.derivatives
+        ilqr_batched.derivatives = lambda *a: (passes.append(1),
+                                               derivatives(*a))[1]
+        t0 = time.perf_counter()
+        try:
+            res, launches, plain = counted(run)
+        finally:
+            ilqr_batched.derivatives = derivatives
+        solve_s = time.perf_counter() - t0
+        launches_by_path[label] = launches
+        require_path(f"{label} solve", launches, plain,
+                     phase30_kinds(env, config, Tn))
+        if fused and len(passes) != 1:
+            raise AssertionError(f"{label}: {len(passes)} derivatives passes"
+                                 " in a fused solve (expected 1)")
+        conv = check_result(label, res, Bn, n, Tn, m)
+        if fused:
+            other = dataclasses.replace(config, fuse_derivatives=False)
+            what = "split-kernel solve (fuse_derivatives=False)"
+        else:
+            other = dataclasses.replace(config, use_pallas=False)
+            what = "plain path (use_pallas=False)"
+        if label in NO_PLAIN_CHECK:
+            print(f"  {label}: converged {conv:.4f} (gate >= "
+                  f"{E1_MIN_CONVERGED}), failed "
+                  f"{float(res.failed.float().mean()):.4f} (gate 0); not "
+                  "held against the plain path (NO_PLAIN_CHECK)")
+            if conv < E1_MIN_CONVERGED or bool(res.failed.any()):
+                raise AssertionError(f"{label}: converged < "
+                                     f"{E1_MIN_CONVERGED} or a lane failed")
+        else:
+            plain_s[label] = agree_with_plain(label, res, solver(
+                env, x0, Tn, other), what=what)
+        figures["paths"][label] = {
+            "converged": conv, "failed": float(res.failed.float().mean()),
+            "mean_iterations": float(res.iterations.float().mean()),
+            "mean_cost": float(res.total_cost.double().mean()),
+            "iteration": "fused" if fused else "split"}
+        if label == "double_integrator_ddp":
+            figures["double_integrator_ddp_vs_lqr"] = di_lqr_check(
+                res, x0, Tn, DDP_HEADLINE, "riccati_backward_mid_ddp")
+        if label == "d5_nav12_ddp":
+            figures["d5_oracle_dev"] = d5_oracle_check(Tn)
+        runs[label] = (run, Bn, Tn, solve_s)
+    phase.done("30b. phase 30's solves")
+    for label, (run, Bn, Tn, solve_s) in runs.items():
+        w = [Bn / solve_s] if label in SOLVE_RATE else solves_per_s(run, Bn)
+        rates[label] = float(np.median(w))
+        other = "split" if "fused" in label else "plain"
+        print(f"solves/s, {label}, kernels, T={Tn} B={Bn} f32: median "
+              f"{rates[label]:.1f}, windows {[round(x, 1) for x in w]}"
+              + (f"; one {other} solve {plain_s[label]:.2f} s"
+                 if label in plain_s else "") + f" [{card}]")
+    phase.done("30c. phase 30's solves/s")
     return figures
 
 
@@ -3980,7 +4580,7 @@ def main() -> int:
                            ("hvac6", run_h, B_BOX),
                            ("reservoir5", run_r, B_BOX)):
         w = solves_per_s(run, Bn)
-        rates[label] = sorted(w)[2]
+        rates[label] = sorted(w)[len(w) // 2]
         print(f"solves/s, {label}, kernels, T={T} B={Bn} f32: median "
               f"{rates[label]:.1f}, windows {[round(x, 1) for x in w]}; one "
               f"plain solve {plain_s[label]:.2f} s ({Bn / plain_s[label]:.1f}"
@@ -4029,9 +4629,6 @@ def main() -> int:
     }
     phase.done("13. emit A/B")
 
-    # -- 14. where the time goes in the T=500 solve ---------------------------
-    t500_profile = print_profile(f"reservoir-5 T={T_LONG}", run_l, card)
-    phase.done("14. reservoir-5 T=500 profile")
 
     # -- 15. slice D: K6a and K6b against their plain versions ---------------
     for dtype in (torch.float32, torch.float64):
@@ -4104,7 +4701,7 @@ def main() -> int:
     for label, run, Bn in (("d1_reservoir5_ddp", run_d1, B_BOX),
                            ("d2_navigation_ddp", run_d2, B)):
         w = solves_per_s(run, Bn)
-        rates[label] = sorted(w)[2]
+        rates[label] = sorted(w)[len(w) // 2]
         print(f"solves/s, {label}, kernels, T={T} B={Bn} f32: median "
               f"{rates[label]:.1f}, windows {[round(x, 1) for x in w]}; one "
               f"plain solve {plain_s[label]:.2f} s ({Bn / plain_s[label]:.1f}"
@@ -4120,6 +4717,8 @@ def main() -> int:
     g_figures = slice_g(phase, launches_by_path, card)
     generic_figures = slice_generic(phase, timings, errs, launches_by_path,
                                     plain_s, card)
+    h_figures = slice_h(phase, timings, errs, launches_by_path, plain_s,
+                        rates, card)
 
     for name, value in timings.items():
         if name.endswith("_select_ms"):
@@ -4132,7 +4731,7 @@ def main() -> int:
 
     # name -> (source, TPU kernel it replaces, path, launch counter)
     rollout_cu = "tfmpc_tpu_torch/ops/csrc/rollout.cuh"
-    mid_cu = "tfmpc_tpu_torch/ops/csrc/riccati_mid.cu"
+    mid_cu = "tfmpc_tpu_torch/ops/csrc/riccati_mid.cuh"
     k7_tpu = "tfmpc_tpu/ops/riccati_mid_pallas.py:462"
     k2_tpu = "tfmpc_tpu/ops/rollout_pallas.py:647"
     k3_tpu = "tfmpc_tpu/ops/rollout_pallas.py:804"
@@ -4209,6 +4808,22 @@ def main() -> int:
             sources[f"{wrapper}_generic_{label}"] = (
                 generic_cu, tpu, f"generic_{label}_{layout}",
                 f"{wrapper}_generic")
+    # phase 30: K7's DDP variants (K6a's and K6b's contracts) on the DDP
+    # paths, and on the fused ones the generic K8 and K7 in the kernel
+    # layout
+    for label, (case, _, _, cfg) in DDP_MID_PATHS.items():
+        box = cfg.get("boxqp") and phase30_env(case, torch.float32,
+                                               "cpu").bounds is not None
+        name = "riccati_backward_mid_ddp" + ("_boxqp" if box else "")
+        sources[f"{name}_{label}"] = (
+            mid_cu, "tfmpc_tpu/ops/riccati_pallas.py:"
+            + ("564" if box else "545"), label, name)
+    for label, (case, _, _, cfg) in FUSED_MID_PATHS.items():
+        sources[f"rollout_alpha_derivs_generic_{label}"] = (
+            generic_cu, k8_tpu, label, "rollout_alpha_derivs_generic")
+        name = "riccati_backward_mid" + ("_boxqp" if case.endswith("_box")
+                                         else "")
+        sources[f"{name}_{label}"] = (mid_cu, k7_tpu, label, name)
     kernels = []
     for name, (src, replaces, path, counter) in sources.items():
         k_ms, w_ms, p_ms, (b_ms, b_by), *lib = timings[name]
@@ -4230,7 +4845,6 @@ def main() -> int:
                       "emit_ab": {k: {str(f): v for f, v in d.items()}
                                   for k, d in ab.items()},
                       "hvac6_profile": hvac6_profile,
-                      "reservoir5_t500_profile": t500_profile,
                       "d1_profile": d1_profile,
                       "d2_profile": d2_profile,
                       "d1_vs_ilqr": ddp_vs_ilqr,
@@ -4254,6 +4868,7 @@ def main() -> int:
                               "max_abs_err": errs[k]}
                           for k, v in timings.items()
                           if k.endswith("_generic_linear24x6")}},
+                      "phase30": h_figures,
                       "phase_s": phase.seconds,
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))

@@ -251,9 +251,11 @@ def test_final_value_matches_autodiff_bit_for_bit(case, dtype):
 
 
 def test_use_fused_derivs_routing():
-    """The JAX package's configuration rule, then the env and dims: on the
-    CPU an env the fused iteration cannot run takes the split iteration,
-    on CUDA it raises naming what is missing."""
+    """The JAX package's rule on both devices: the configuration, then the
+    split iteration for an env without a device linearization (HVAC) and
+    above 12 dims; navigation fuses at every n <= 12 (K8 unrolled or
+    generic, the backward on the lane kernels or K7). K8's argument
+    preparation refuses what it cannot run."""
     _, nav = _envs("n2", False)
     fused = ilqr.ILQRConfig(use_pallas=True, fuse_derivatives=True)
     for device in ("cpu", "cuda"):
@@ -266,17 +268,19 @@ def test_use_fused_derivs_routing():
                      dtype=torch.float64, device="cpu")
     nav4 = make_navigation([1.0, 2.0, 3.0, 4.0], None, dtype=torch.float64,
                            device="cpu")
-    for env, what in ((hvac, "device linearization"), (nav4, r"\(4, 4\)")):
-        assert not ilqr_batched._use_fused_derivs(env, fused, "cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            ilqr_batched._use_fused_derivs(env, fused, "cuda")
+    nav13 = make_navigation(list(range(13)), None, dtype=torch.float64,
+                            device="cpu")
+    for device in ("cpu", "cuda"):
+        assert ilqr_batched._use_fused_derivs(nav4, fused, device)
+        assert not ilqr_batched._use_fused_derivs(hvac, fused, device)
+        assert not ilqr_batched._use_fused_derivs(nav13, fused, device)
     # K8's argument preparation refuses what it cannot run
-    X = torch.zeros(4, 3, 4, dtype=torch.float64)
-    U = torch.zeros(4, 2, 4, dtype=torch.float64)
+    X = torch.zeros(4, 3, 13, dtype=torch.float64)
+    U = torch.zeros(4, 2, 13, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="K8"):
-        rollout.kernel_layout(nav4, X, U, Policy(
-            K=torch.zeros(4, 2, 4, 4, dtype=torch.float64),
-            k=torch.zeros(4, 2, 4, dtype=torch.float64)), derivatives=True)
+        rollout.kernel_layout(nav13, X, U, Policy(
+            K=torch.zeros(4, 2, 13, 13, dtype=torch.float64),
+            k=torch.zeros(4, 2, 13, dtype=torch.float64)), derivatives=True)
     with pytest.raises(NotImplementedError, match="device derivatives"):
         rollout.kernel_layout(hvac, X[..., :2], U[..., :2], Policy(
             K=torch.zeros(4, 2, 2, 2, dtype=torch.float64),

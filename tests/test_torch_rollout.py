@@ -493,8 +493,9 @@ def test_a_rollout_plan_exists_for_every_kernel_dim():
     at ``KERNEL_DIMS``, the HVAC step alone at the mid dims, K8 at
     ``DERIVS_DIMS``), and K2, K3 and K5 at every other 1 <= n, m <= 48 in
     both dtypes the generic form's, within ``SMEM_LIMIT`` and the block's
-    threads at the largest env's parameters (the linear step's); it
-    refuses K8 elsewhere and every dim above 48."""
+    threads at the largest env's parameters (the linear step's), and K8's
+    at every other n = m <= 12; it refuses K8 elsewhere and every dim
+    above 48."""
     for kernel, n in PLAN_KINDS:
         env_id, params = _plan_env(kernel, n)
         for dtype in (torch.float32, torch.float64):
@@ -532,8 +533,13 @@ def test_a_rollout_plan_exists_for_every_kernel_dim():
             with pytest.raises(NotImplementedError):
                 rollout.rollout_plan(kernel, 3, *dims, 1024, 11,
                                      torch.float32, 400)
-    for dims in ((12, 12), (4, 4), (16, 16)):
-        with pytest.raises(NotImplementedError, match="queue 2 item 4"):
+    # K8: the generic form at every other n = m <= 12, refused elsewhere
+    for n in range(1, 13):
+        plan = rollout.rollout_plan("derivs", 0, n, n, 1024, 11,
+                                    torch.float32, 2 * n + 1)
+        assert plan.generic == ((n, n) not in rollout.DERIVS_DIMS)
+    for dims in ((13, 13), (16, 16), (2, 3)):
+        with pytest.raises(NotImplementedError, match="n = m <= 12"):
             rollout.rollout_plan("derivs", 0, *dims, 1024, 11,
                                  torch.float32, 38)
 

@@ -1,10 +1,10 @@
 """Where the JAX package runs its XLA route by design, the port runs plain
 PyTorch on every device, the card included: the Riccati backward of full
 DDP at max(n, m) > 12 and every stage at max(n, m) > 48. Where the JAX
-package has a kernel and the port has none, the port raises on CUDA,
-naming ROADMAP queue 2: full DDP at n, m <= 12 outside the lane kernels'
-dims. The rollout kernels take every dim up to 48, in the generic form
-where no unrolled instantiation runs.
+package has a kernel, so has the port: full DDP at n, m <= 12 outside the
+lane kernels' dims runs K7's full-DDP variants, and the rollout kernels
+take every dim up to 48, in the generic form where no unrolled
+instantiation runs.
 
 No CUDA tensor exists on the CPU, so the rules are tested as functions of
 the dims, the config and the device; the solves run on CPU tensors, where
@@ -129,11 +129,16 @@ def test_uncovered_rollout_dims_raise_naming_queue_2(n, kind):
 
 
 def test_ddp_at_lane_dims_without_a_kernel_raises_naming_queue_2():
+    """Full DDP at n, m <= 12 outside the lane kernels' dims, where the JAX
+    lane kernel runs it and the port raised until it had K7's full-DDP
+    variants (ROADMAP queue 2 item 2, done): it routes to them on a card,
+    every such dim; above 12 the plain backward, the JAX scan's route."""
     ddp = ilqr.ILQRConfig(use_pallas=True, ddp=True)
-    for dims in ((12, 12), (4, 4), (12, 2)):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 2 item 2"):
-            ilqr_batched._riccati_kernel_mode(*dims, ddp, "cuda")
+    for n in range(1, 13):
+        for m in range(1, 13):
+            want = "lane" if (n, m) in riccati.KERNEL_DIMS else "mid"
+            assert ilqr_batched._riccati_kernel_mode(n, m, ddp,
+                                                     "cuda") == want
     for dims in ((13, 2), (16, 16), (48, 48), (60, 3)):
         assert ilqr_batched._riccati_kernel_mode(*dims, ddp, "cuda") is None
 

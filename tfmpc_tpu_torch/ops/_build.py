@@ -59,6 +59,12 @@ _SIGNATURES = {
     + [_LL, _P],
     "tfmpc_riccati_backward_mid_boxqp": [_I] * 6 + [_P] * 18 + [_I] * 3
     + [_LL, _P],
+    # K7's full-DDP variants (riccati_mid_ddp.cu): as the two above, with
+    # fxx, fux, fuu after mu (after hi for boxQP)
+    "tfmpc_riccati_backward_mid_ddp": [_I] * 5 + [_P] * 18 + [_I] * 3
+    + [_LL, _P],
+    "tfmpc_riccati_backward_mid_ddp_boxqp": [_I] * 6 + [_P] * 21 + [_I] * 3
+    + [_LL, _P],
     # P1 (row_matmul.cu): dtype, d, B, A, M, C, tile rows, tile columns,
     # stream
     "tfmpc_row_matmul": [_I] * 3 + [_P] * 3 + [_I, _I, _P],
@@ -79,12 +85,13 @@ _SIGNATURES = {
     # void*[7]: fx, fu, lx, lu, lxx, luu, lux) after J
     "tfmpc_rollout_alpha_derivs": [_I] * 6 + [_P] * 8 + [_I, _P, _I]
     + [_P] * 4 + [_I, _I, _I, _LL, _P],
-    # K2/K3/K5 in the generic form (rollout_generic.cu): kind, dtype, env,
-    # n, m, T, B, xbar, ubar, K, k, lo, hi, alphas (host f64 or null), A,
-    # alpha (device or null), params, n_params, int_params, n_int, J, X,
-    # U (null for K2), the plan as K2's and the stream
+    # K2/K3/K5/K8 in the generic form (rollout_generic.cu): kind, dtype,
+    # env, n, m, T, B, xbar, ubar, K, k, lo, hi, alphas (host f64 or null),
+    # A, alpha (device or null), params, n_params, int_params, n_int, J, X,
+    # U (null for K2), lin (K8's, as tfmpc_rollout_alpha_derivs'; else
+    # null), the plan as K2's and the stream
     "tfmpc_rollout_generic": [_I] * 7 + [_P] * 7 + [_I, _P, _P, _I, _P, _I]
-    + [_P] * 3 + [_I, _I, _I, _LL, _P],
+    + [_P] * 4 + [_I, _I, _I, _LL, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}

@@ -57,6 +57,11 @@ struct Dims<kAnyDim> {
   int n, m;
 };
 
+// The largest n = m K8 runs at: the JAX package's fused-iteration ceiling
+// (ops/rollout.py DERIVS_DIM_MAX). At kAnyDim, K8's per-dim arrays
+// (NavigationStep::DerivsPre) are sized by it.
+constexpr int kDerivsMaxDim = 12;
+
 // The seven linearization blocks K8 writes ([T, entries, B] each, the
 // Riccati kernels' input layout): f_x [N*N], f_u [N*M], l_x [N], l_u [M],
 // l_xx [N*N], l_uu [M*M], l_ux [M*N], row-major entries.
@@ -139,31 +144,38 @@ struct NavigationStep {
   // as factor() does) and derivs_row (row i of f_x, f_u, l_xx, l_uu and
   // l_ux and entry i of l_x and l_u, stored to step t of lane b of the
   // [T, entries, B] blocks of ``out``). K8 runs them (rollout.cuh
-  // derivs_tail), at compile-time dims only.
+  // derivs_tail, rollout_generic.cuh generic_derivs_tail). Their loops
+  // run to kDl, N at a compile-time N and kDerivsMaxDim at kAnyDim, each
+  // entry guarded by i < n (always true at a compile-time N), so the
+  // per-dim arrays stay in registers at run-time dims too.
+  static constexpr int kDl = N == kAnyDim ? kDerivsMaxDim : N;
   struct DerivsPre {
     S lam;
-    S dlam[N];
+    S dlam[kDl];
   };
   template <class X>
   __device__ __forceinline__ DerivsPre derivs_prep(const Pre& p,
                                                    const X& x) const {
+    const int n = dims.n;
     DerivsPre q;
     q.lam = p.lam;
 #pragma unroll
-    for (int i = 0; i < N; ++i) q.dlam[i] = 0;
+    for (int i = 0; i < kDl; ++i) q.dlam[i] = 0;
     for (int z = 0; z < zones; ++z) {
-      S d[N], d2 = 0;
+      S d[kDl], d2 = 0;
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        d[i] = x[i] - centers[z * N + i];
-        d2 += d[i] * d[i];
-      }
+      for (int i = 0; i < kDl; ++i)
+        if (i < n) {
+          d[i] = x[i] - centers[z * n + i];
+          d2 += d[i] * d[i];
+        }
       const S dist = dsqrt(d2 + S(1e-12));
       const S g = S(2) / (S(1) + dexp(-decays[z] * dist)) - S(1);
       const S gp = decays[z] * (S(1) - g * g) / S(2);
       const S coef = (g != S(0) ? q.lam / g : S(0)) * gp / dist;
 #pragma unroll
-      for (int i = 0; i < N; ++i) q.dlam[i] += coef * d[i];
+      for (int i = 0; i < kDl; ++i)
+        if (i < n) q.dlam[i] += coef * d[i];
     }
     return q;
   }
@@ -172,17 +184,19 @@ struct NavigationStep {
   __device__ __forceinline__ void derivs_row(const DerivsPre& q, int i, S xi,
                                              S ui, const LinOut<S>& out,
                                              int t, int b, int B) const {
+    const int n = dims.n;
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int64_t e = at(t, i * N + j, N * N, b, B);
-      out.fx[e] = ui * q.dlam[j] + S(i == j ? 1 : 0);
-      out.fu[e] = i == j ? q.lam : S(0);
-      out.lxx[e] = S(i == j ? 2 : 0);
-      out.luu[e] = S(0);
-      out.lux[e] = S(0);
-    }
-    out.lx[at(t, i, N, b, B)] = S(2) * (xi - goal[i]);
-    out.lu[at(t, i, N, b, B)] = S(0);
+    for (int j = 0; j < kDl; ++j)
+      if (j < n) {
+        const int64_t e = at(t, i * n + j, n * n, b, B);
+        out.fx[e] = ui * q.dlam[j] + S(i == j ? 1 : 0);
+        out.fu[e] = i == j ? q.lam : S(0);
+        out.lxx[e] = S(i == j ? 2 : 0);
+        out.luu[e] = S(0);
+        out.lux[e] = S(0);
+      }
+    out.lx[at(t, i, n, b, B)] = S(2) * (xi - goal[i]);
+    out.lu[at(t, i, n, b, B)] = S(0);
   }
 
   // Zone z's deceleration factor 2 / (1 + exp(-decay_z dist_z)) - 1.

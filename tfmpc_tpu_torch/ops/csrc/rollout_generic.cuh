@@ -1,12 +1,17 @@
-// K2, K3 and K5 at any dims: the generic form of the rollout tile kernel.
+// K2, K3, K5 and K8 at any dims: the generic form of the rollout tile
+// kernel.
 //
 // Replaces, at every 1 <= n, m <= 48 that no unrolled instantiation of
 // rollout.cuh covers: tfmpc_tpu/ops/rollout_pallas.py:
 // linesearch_costs_pallas (body _costs_kernel) as K2, rollout_alpha_pallas
 // (body _materialize_kernel) as K3 and linesearch_costs_traj_pallas as K5,
 // which the JAX package runs at any max(n, m) <= 48, rectangular dims
-// included. It computes what rollout.cuh's kinds kCosts, kAlpha and kTraj
-// compute: u_t = clip(ubar_t + alpha k_t + K_t (x_t - xbar_t)) (the clip
+// included; and rollout_alpha_derivs_pallas (body
+// _materialize_derivs_kernel) as K8 at navigation's n = m <= 12
+// (kDerivsMaxDim) outside K8's unrolled dims, which the JAX package's
+// fused iteration runs at any dims <= 12. It computes what rollout.cuh's
+// kinds kCosts, kAlpha, kTraj and kDerivs compute: u_t = clip(ubar_t +
+// alpha k_t + K_t (x_t - xbar_t)) (the clip
 // where the env is bounded), x_{t+1} = step(x_t, u_t), the running cost
 // summed in double and rounded once, with the env's step at run-time dims
 // (envs.cuh, NavigationStep<S, kAnyDim> and the others).
@@ -35,9 +40,16 @@
 // sum; ops/rollout.py generic_smem_bytes mirrors it and the launch refuses
 // a plan that disagrees.
 //
+// K8 (kDerivs) runs K3's rollout, then the linearization as the unrolled
+// kernel's derivs_tail does (generic_derivs_tail): after a block barrier
+// every thread of the block, the producer warp's too, writes the seven
+// [T, entries, B] blocks of a (step, scenario), reading x_t and u_t back
+// from the block's own X and U stores through a Column (stride B), with
+// navigation's derivs_prep and derivs_row at run-time dims.
+//
 // One instantiation per (dtype, env, kind): rollout_generic.cu holds K2 and
-// K3 and the C entries, rollout_generic_traj.cu K5, so the parallel build
-// compiles them side by side.
+// K3 and the C entries, rollout_generic_traj.cu K5, rollout_generic_derivs.cu
+// K8 (navigation only), so the parallel build compiles them side by side.
 #pragma once
 
 #include "rollout.cuh"
@@ -111,7 +123,32 @@ __device__ __forceinline__ void stage_generic_step(const TileArgs<S>& a,
   }
 }
 
-// The generic tile kernel of kind kKind (kCosts K2, kAlpha K3, kTraj K5)
+// K8's linearization of the block's scenarios after their rollouts
+// (rollout.cuh derivs_tail at run-time dims): thread tid takes scenario b0
+// + tid % spb at the steps tid / spb, + nthr / spb, ...; x_t from X [t-1]
+// (x_0 from xbar) and u_t from U [t], read in place.
+template <typename S, class Env>
+__device__ __forceinline__ void generic_derivs_tail(const TileArgs<S>& a,
+                                                    const Env& env, int b0,
+                                                    int tid, int nthr) {
+  __syncthreads();  // the block's X and U stores are visible
+  const int n = env.dims.n, m = env.dims.m;
+  const int b = b0 + (tid & (a.spb - 1));
+  if (b >= a.B) return;
+#pragma unroll 1
+  for (int t = tid / a.spb; t < a.T; t += nthr / a.spb) {
+    const S* xs = t == 0 ? a.xbar : a.X + at(t - 1, 0, n, 0, a.B);
+    const Column<S> x{xs + b, a.B};
+    const Column<S> u{a.U + at(t, 0, m, b, a.B), a.B};
+    const auto dpre = env.derivs_prep(env.prep(x), x);
+#pragma unroll 1
+    for (int i = 0; i < n; ++i)
+      env.derivs_row(dpre, i, x[i], u[i], a.lin, t, b, a.B);
+  }
+}
+
+// The generic tile kernel of kind kKind (kCosts K2, kAlpha K3, kTraj K5,
+// kDerivs K8)
 // with the env's run-time-dim step ``env`` (its n and m) and G = ``groups``
 // lanes a rollout. Compute thread tid is lane tid % G of rollout tid / G;
 // rollout r is scenario b0 + r % spb at alpha r / spb. Rollouts past the
@@ -169,6 +206,8 @@ __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
       __syncthreads();                 // for the compute warps
       next = next + 1 == bufs ? 0 : next + 1;
     }
+    if constexpr (kKind == kDerivs)
+      generic_derivs_tail(a, env, b0, tid, nthr);
     return;
   }
 
@@ -235,6 +274,7 @@ __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
     a.J[kEvery ? static_cast<int64_t>(ai) * a.B + b : b] =
         static_cast<S>(total + static_cast<double>(env.final_cost(x)));
   }
+  if constexpr (kKind == kDerivs) generic_derivs_tail(a, env, b0, tid, nthr);
 }
 
 template <typename S, int kKind, class Env>
@@ -323,9 +363,11 @@ int rollout_generic_kinds(const RolloutCall& c) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// rollout_generic_traj.cu's K5; rollout_generic_entry (rollout_generic.cu)
-// checks a call and sends it to the source of its kind.
+// rollout_generic_traj.cu's K5 and rollout_generic_derivs.cu's K8;
+// rollout_generic_entry (rollout_generic.cu) checks a call and sends it to
+// the source of its kind.
 int rollout_generic_traj(const RolloutCall& c);
+int rollout_generic_derivs(const RolloutCall& c);
 int rollout_generic_entry(const RolloutCall& c);
 
 }  // namespace tfmpc

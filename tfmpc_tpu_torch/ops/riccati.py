@@ -13,7 +13,8 @@ tensor they run the plain PyTorch versions ``riccati_backward_ref``,
 with a launch plan (``lane_plan``: the lanes a scenario, the scenarios a
 block, the shared bytes). The fused iteration's entry,
 ``riccati_backward_lanes``, takes and returns the kernels' own ``[T,
-entries, B]`` layout and launches K1 or K4. ``LAUNCHES``, ``BOXQP_LAUNCHES``,
+entries, B]`` layout and launches K1 or K4 (K7 at dims without a lane
+instantiation). ``LAUNCHES``, ``BOXQP_LAUNCHES``,
 ``DDP_LAUNCHES`` and ``DDP_BOXQP_LAUNCHES`` count kernel launches and the
 matching ``*PLAIN_CALLS`` the calls that took the plain version.
 
@@ -58,7 +59,8 @@ DDP_BOXQP_PLAIN_CALLS = 0
 # (n, m) pairs the four CUDA kernels are instantiated for (csrc/riccati*.cu,
 # one template in riccati_kernel.cuh): bounded navigation (2), the HVAC-3
 # oracle problem (3), reservoir-5 (5) and HVAC-6 (6). The solver routes
-# other dims up to 48 to K7 (ops/riccati_mid.py), DDP excepted.
+# other dims up to 48 to K7 (ops/riccati_mid.py), and full DDP at other
+# dims up to 12 to K7's DDP variants.
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
 # The launch plans (``lane_plan``). A group of G lanes owns a scenario
 # (csrc/riccati_kernel.cuh): lane l computes the columns l, l + G, ... of
@@ -576,6 +578,34 @@ def riccati_backward_ddp_boxqp(lin, quad, final, mu, bounds, Ubar, second,
     return _from_kernel_layout(out, B, T, n, lin.f_u.shape[-1])
 
 
+def _mid_lanes(ka, VT, vT, mu, box, boxqp_iters):
+    """K7 (iLQR, or boxQP with ``box``) on ``riccati_backward_lanes``'
+    kernel-layout tensors at dims without a lane instantiation: the blocks
+    to the solver's ``[B, T, ...]`` layout K7 takes and its policy back to
+    ``(K [T, m*n, B], k [T, m, B])``; counted as K7's launches."""
+    from tfmpc_tpu_torch.ops import riccati_mid
+
+    T, _, B = ka["fx"].shape
+    n, m = ka["lx"].shape[1], ka["lu"].shape[1]
+
+    def lanes(a, *shape):  # [T, e, B] -> [B, T, *shape], contiguous
+        return a.permute(2, 0, 1).reshape(B, T, *shape).contiguous()
+
+    ins = (lanes(ka["fx"], n, n), lanes(ka["fu"], n, m), lanes(ka["lx"], n),
+           lanes(ka["lu"], m), lanes(ka["lxx"], n, n),
+           lanes(ka["luu"], m, m), lanes(ka["lux"], m, n),
+           mu.to(ka["fx"].dtype).contiguous())
+    final = (VT.T.reshape(B, n, n).contiguous(), vT.T.contiguous())
+    if box is None:
+        out = riccati_mid.riccati_backward_mid_kernel(*ins, *final)
+    else:
+        ubar, lo, hi = box
+        out = riccati_mid.riccati_backward_mid_boxqp_kernel(
+            *ins, lanes(ubar, m), lo, hi, *final, boxqp_iters=boxqp_iters)
+    K, k, dV1, dV2, fail = out
+    return fail == 0.0, (_to_k(K, B, T, m * n), _to_k(k, B, T, m)), dV1, dV2
+
+
 def riccati_backward_lanes(ka, VT, vT, mu, box=None, boxqp_iters: int = 8):
     """The fused iteration's backward pass on kernel-layout tensors: ``ka``
     the linearization blocks ``fx, fu, lx, lu, lxx, luu, lux`` ``[T,
@@ -583,14 +613,20 @@ def riccati_backward_lanes(ka, VT, vT, mu, box=None, boxqp_iters: int = 8):
     B]`` and ``mu [B]``; with ``box = (ubar [T, m, B], lo [m], hi [m])``
     K4's control-limited pass, else K1's. Returns ``(ok [B], (K [T, m*n,
     B], k [T, m, B]), dV1 [B], dV2 [B])``, the policy in the layout K2 and
-    K8 take as it is. CUDA tensors launch K1 or K4; CPU tensors run the
-    plain version through the solver layout and back (counted as the plain
-    calls of K1's or K4's wrapper).
+    K8 take as it is. CUDA tensors launch K1 or K4 at ``KERNEL_DIMS`` and
+    K7's iLQR or boxQP variant at other dims (through the solver layout
+    and back, ``_mid_lanes``); CPU tensors run the plain version through
+    the solver layout and back (counted as the plain calls of K1's or K4's
+    wrapper).
     """
     global PLAIN_CALLS, BOXQP_PLAIN_CALLS
-    first = tuple(ka[key] for key in K1_ARGS[:7]) + (
-        mu.to(ka["fx"].dtype).contiguous(),)
+    T, _, B = ka["fx"].shape
+    n, m = ka["lx"].shape[1], ka["lu"].shape[1]
     if ka["fx"].device.type != "cpu":
+        if (n, m) not in KERNEL_DIMS:
+            return _mid_lanes(ka, VT, vT, mu, box, boxqp_iters)
+        first = tuple(ka[key] for key in K1_ARGS[:7]) + (
+            mu.to(ka["fx"].dtype).contiguous(),)
         if box is None:
             out = riccati_backward_kernel(*first, VT, vT)
         else:
@@ -598,8 +634,6 @@ def riccati_backward_lanes(ka, VT, vT, mu, box=None, boxqp_iters: int = 8):
                                                 boxqp_iters=boxqp_iters)
         K, k, dV1, dV2, fail = out
         return fail == 0.0, (K, k), dV1, dV2
-    T, _, B = ka["fx"].shape
-    n, m = ka["lx"].shape[1], ka["lu"].shape[1]
 
     def lanes(key, *shape):  # [T, e, B] -> [B, T, *shape]
         return ka[key].permute(2, 0, 1).reshape(B, T, *shape)

@@ -6,13 +6,23 @@ of K1 and K4 (``ops/riccati.py``) for any ``1 <= n, m <= 48``, n != m
 included: ``riccati_backward_mid`` (plain iLQR gains) and
 ``riccati_backward_mid_boxqp`` (control-limited, boxQP gains) return ``(ok
 [B], Policy(K [B, T, m, n], k [B, T, m]), dV1 [B], dV2 [B])``. On a CUDA
-tensor they launch the CUDA kernel of ``csrc/riccati_mid.cu`` (a team of
+tensor they launch the CUDA kernel of ``csrc/riccati_mid.cuh`` (a team of
 one warp or a few per scenario, several scenarios per block, the matrices
 in shared memory; ``mid_plan`` is its launch plan) or raise; on a CPU
 tensor they run the plain versions ``riccati_backward_mid_ref`` and
 ``riccati_backward_mid_boxqp_ref``, which are ``ops/riccati.py``'s plain
 versions of K1 and K4: they hold for any (n, m), and the JAX package pins
 its mid kernel to the same contract (``tests/test_riccati_mid.py``).
+
+K7's full-DDP variants run K6a's and K6b's contract (``ops/riccati.py``)
+at any ``n, m <= MID_DDP_DIM_MAX`` (12, the JAX lane kernel's DDP
+ceiling): ``riccati_backward_mid_ddp`` and ``riccati_backward_mid_ddp_boxqp``
+take the dynamics Hessians ``second`` as well, and their plain versions
+are ``riccati.riccati_backward_ddp_ref`` and
+``riccati_backward_ddp_boxqp_ref``. They are a compile-time variant of the
+same kernel (``csrc/riccati_mid_ddp.cu``) with the same launch plan: the
+Hessians are streamed from global memory, so the shared bytes do not
+change.
 
 The kernel clamps every Cholesky pivot at 1e-30, its boxQP's Newton
 systems included (``_chol_rows``), where the plain version lets NaN
@@ -37,9 +47,10 @@ scenario's C (``row_plan``).
 ``row_matmul_cover`` repeats P1's index map (which thread stores which
 entry), so its plans can be checked on the CPU.
 
-``MID_LAUNCHES``, ``MID_BOXQP_LAUNCHES`` and ``ROW_MATMUL_LAUNCHES`` count
-kernel launches; the matching ``*_PLAIN_CALLS`` the calls that took the
-plain version.
+``MID_LAUNCHES``, ``MID_BOXQP_LAUNCHES``, ``MID_DDP_LAUNCHES``,
+``MID_DDP_BOXQP_LAUNCHES`` and ``ROW_MATMUL_LAUNCHES`` count kernel
+launches; the matching ``*_PLAIN_CALLS`` the calls that took the plain
+version.
 """
 
 from __future__ import annotations
@@ -53,6 +64,8 @@ from tfmpc_tpu_torch.core.types import Policy
 from tfmpc_tpu_torch.ops import _build
 from tfmpc_tpu_torch.ops.riccati import (
     riccati_backward_boxqp_ref,
+    riccati_backward_ddp_boxqp_ref,
+    riccati_backward_ddp_ref,
     riccati_backward_ref,
 )
 
@@ -60,16 +73,24 @@ MID_LAUNCHES = 0
 MID_PLAIN_CALLS = 0
 MID_BOXQP_LAUNCHES = 0
 MID_BOXQP_PLAIN_CALLS = 0
+MID_DDP_LAUNCHES = 0
+MID_DDP_PLAIN_CALLS = 0
+MID_DDP_BOXQP_LAUNCHES = 0
+MID_DDP_BOXQP_PLAIN_CALLS = 0
 ROW_MATMUL_LAUNCHES = 0
 ROW_MATMUL_PLAIN_CALLS = 0
 
 # The kernel's envelope: every (n, m) with 1 <= n, m <= MID_DIM_MAX; at
 # (48, 48) in float64 a scenario takes 198,288 bytes of shared memory, of
-# the 232,448 a block may have (csrc/riccati_mid.cu: the team computes in
+# the 232,448 a block may have (csrc/riccati_mid.cuh: the team computes in
 # double for both dtypes, and l_xx, l_uu, l_ux are read in place there).
 MID_DIM_MAX = 48
+# The DDP variants' envelope (csrc/riccati_mid.cuh kMidDdpMaxDim): the JAX
+# lane kernel's DDP ceiling; above it the JAX package runs its scan, and so
+# does the solver here.
+MID_DDP_DIM_MAX = 12
 SMEM_LIMIT = 232448
-# A block's threads at most (csrc/riccati_mid.cu kMaxThreads), teams per
+# A block's threads at most (csrc/riccati_mid.cuh kMaxThreads), teams per
 # block at most, and the card's SMs (an H100 SXM's 132; the launch reads
 # the device's own count).
 MID_MAX_THREADS = 256
@@ -89,13 +110,19 @@ ROW_SLAB = 8
 _ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 _LS_ALPHAS = 8  # ops/boxqp.py LS_ALPHAS: the candidates, and x
 
-# The plain versions: K1's and K4's, general in (n, m).
+# The plain versions: K1's, K4's, K6a's and K6b's, general in (n, m).
 riccati_backward_mid_ref = riccati_backward_ref
 riccati_backward_mid_boxqp_ref = riccati_backward_boxqp_ref
+riccati_backward_mid_ddp_ref = riccati_backward_ddp_ref
+riccati_backward_mid_ddp_boxqp_ref = riccati_backward_ddp_boxqp_ref
 
-# Argument order of the launchers and of the C entries (the JAX kernel's).
+# Argument order of the launchers and of the C entries (the JAX kernel's:
+# first order, boxQP, DDP, final value).
 MID_ARGS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux", "mu", "VT", "vT")
 MID_BOXQP_ARGS = MID_ARGS[:8] + ("ubar", "lo", "hi") + MID_ARGS[8:]
+MID_DDP_ARGS = MID_ARGS[:8] + ("fxx", "fux", "fuu") + MID_ARGS[8:]
+MID_DDP_BOXQP_ARGS = MID_BOXQP_ARGS[:11] + ("fxx", "fux", "fuu") \
+    + MID_BOXQP_ARGS[11:]
 
 
 def mid_kernel_supported(n: int, m: int) -> bool:
@@ -130,7 +157,7 @@ def _align16(b: int) -> int:
 
 
 def mid_scenario_bytes(n: int, m: int, dtype, stage_l: bool = True) -> int:
-    """One team's shared bytes (csrc/riccati_mid.cu ``mid_scenario_bytes``):
+    """One team's shared bytes (csrc/riccati_mid.cuh ``mid_scenario_bytes``):
     its matrices, rows padded to an odd length, and vectors in double; its
     staging slot in the input dtype."""
     ln, lm = n | 1, m | 1
@@ -179,10 +206,12 @@ def mid_plan(n: int, m: int, B: int, dtype, warps: int | None = None,
                    smem_bytes=per * spb)
 
 
-def mid_layout(lin, quad, final, mu, bounds=None, Ubar=None):
+def mid_layout(lin, quad, final, mu, bounds=None, Ubar=None, second=None):
     """The solver's tensors as K7 takes them: contiguous, in the
     linearization's dtype; with ``bounds`` and ``Ubar`` also ``ubar [B, T,
-    m]`` and the box ``lo``/``hi [m]``."""
+    m]`` and the box ``lo``/``hi [m]``; with the dynamics Hessians
+    ``second`` (a ``SecondOrderModel``) also ``fxx [B, T, n, n, n]``,
+    ``fux [B, T, n, m, n]`` and ``fuu [B, T, n, m, m]``."""
     dtype = lin.f_x.dtype
     c = lambda a: a.to(dtype).contiguous()  # noqa: E731
     args = dict(fx=c(lin.f_x), fu=c(lin.f_u), lx=c(quad.l_x), lu=c(quad.l_u),
@@ -192,13 +221,17 @@ def mid_layout(lin, quad, final, mu, bounds=None, Ubar=None):
         m = lin.f_u.shape[-1]
         side = lambda a: c(torch.broadcast_to(a.to(dtype), (m,)))  # noqa: E731
         args.update(ubar=c(Ubar), lo=side(bounds.low), hi=side(bounds.high))
+    if second is not None:
+        args.update(fxx=c(second.f_xx), fux=c(second.f_ux),
+                    fuu=c(second.f_uu))
     return args
 
 
-def _launch(entry, inputs, box, boxqp_iters=None, plan=None):
+def _launch(entry, inputs, box, boxqp_iters=None, plan=None, ddp=False):
     """Check K7's inputs (``MID_ARGS`` order, ``MID_BOXQP_ARGS`` with
-    ``box``), allocate the outputs and launch the C entry with ``plan``
-    (``mid_plan``'s for these dims, batch and dtype by default). Returns ``(K [B, T, m, n], k [B, T, m], dV1 [B],
+    ``box``, the DDP orders with ``ddp``), allocate the outputs and launch
+    the C entry with ``plan`` (``mid_plan``'s for these dims, batch and
+    dtype by default). Returns ``(K [B, T, m, n], k [B, T, m], dV1 [B],
     dV2 [B], fail [B])``, ``fail`` 1.0 on lanes whose PD probe failed."""
     fx, fu = inputs[0], inputs[1]
     dev, dtype = fx.device, fx.dtype
@@ -209,14 +242,18 @@ def _launch(entry, inputs, box, boxqp_iters=None, plan=None):
     if fx.ndim != 4 or fu.ndim != 4:
         raise ValueError("K7 takes [B, T, ...] inputs")
     B, T, n, m = fu.shape
-    if not mid_kernel_supported(n, m):
+    top = MID_DDP_DIM_MAX if ddp else MID_DIM_MAX
+    if not mid_kernel_supported(n, m) or max(n, m) > top:
         raise NotImplementedError(
             f"{entry}: no CUDA kernel for (n, m) = {(n, m)} (K7 takes "
-            f"1 <= n, m <= {MID_DIM_MAX}); run with use_pallas=False")
+            f"1 <= n, m <= {top}{' with ddp' if ddp else ''}); run with "
+            "use_pallas=False")
     shapes = [(B, T, n, n), (B, T, n, m), (B, T, n), (B, T, m),
               (B, T, n, n), (B, T, m, m), (B, T, m, n), (B,)]
     if box:
         shapes += [(B, T, m), (m,), (m,)]
+    if ddp:
+        shapes += [(B, T, n, n, n), (B, T, n, m, n), (B, T, n, m, m)]
     shapes += [(B, n, n), (B, n)]
     if tuple(a.shape for a in inputs) != tuple(shapes) or any(
             a.device != dev or a.dtype != dtype or not a.is_contiguous()
@@ -282,6 +319,36 @@ def riccati_backward_mid_boxqp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu,
     return out
 
 
+def riccati_backward_mid_ddp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, fxx,
+                                    fux, fuu, VT, vT,
+                                    plan: MidPlan | None = None):
+    """Launch K7's full-DDP variant (K6a's contract) on ``mid_layout``'s
+    tensors with the Hessians ``fxx [B, T, n, n, n]``, ``fux [B, T, n, m,
+    n]``, ``fuu [B, T, n, m, m]``, n, m <= ``MID_DDP_DIM_MAX``; outputs as
+    ``riccati_backward_mid_kernel``."""
+    global MID_DDP_LAUNCHES
+    out = _launch("riccati_backward_mid_ddp",
+                  (fx, fu, lx, lu, lxx, luu, lux, mu, fxx, fux, fuu, VT, vT),
+                  False, plan=plan, ddp=True)
+    MID_DDP_LAUNCHES += 1
+    return out
+
+
+def riccati_backward_mid_ddp_boxqp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu,
+                                          ubar, lo, hi, fxx, fux, fuu, VT,
+                                          vT, boxqp_iters: int = 8,
+                                          plan: MidPlan | None = None):
+    """Launch K7's full-DDP boxQP variant (K6b's contract): the boxQP
+    variant's inputs plus the Hessians; outputs as
+    ``riccati_backward_mid_kernel``."""
+    global MID_DDP_BOXQP_LAUNCHES
+    out = _launch("riccati_backward_mid_ddp_boxqp",
+                  (fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, fxx, fux,
+                   fuu, VT, vT), True, boxqp_iters, plan=plan, ddp=True)
+    MID_DDP_BOXQP_LAUNCHES += 1
+    return out
+
+
 def _result(out):
     K, k, dV1, dV2, fail = out
     return fail == 0.0, Policy(K=K, k=k), dV1, dV2
@@ -314,6 +381,35 @@ def riccati_backward_mid_boxqp(lin, quad, final, mu, bounds, Ubar,
     a = mid_layout(lin, quad, final, mu, bounds, Ubar)
     return _result(riccati_backward_mid_boxqp_kernel(
         *(a[k] for k in MID_BOXQP_ARGS), boxqp_iters=boxqp_iters))
+
+
+def riccati_backward_mid_ddp(lin, quad, final, mu, second):
+    """K7's full-DDP wrapper: the contract of ``riccati.riccati_backward_ddp``
+    at any n, m <= ``MID_DDP_DIM_MAX``. CUDA tensors go through the CUDA
+    kernel; CPU tensors through the plain version."""
+    global MID_DDP_PLAIN_CALLS
+    if lin.f_x.device.type == "cpu":
+        MID_DDP_PLAIN_CALLS += 1
+        return riccati_backward_mid_ddp_ref(lin, quad, final, mu, second)
+    a = mid_layout(lin, quad, final, mu, second=second)
+    return _result(riccati_backward_mid_ddp_kernel(
+        *(a[k] for k in MID_DDP_ARGS)))
+
+
+def riccati_backward_mid_ddp_boxqp(lin, quad, final, mu, bounds, Ubar,
+                                   second, boxqp_iters: int = 8):
+    """K7's full-DDP boxQP wrapper: the contract of
+    ``riccati.riccati_backward_ddp_boxqp`` at any n, m <=
+    ``MID_DDP_DIM_MAX``. CUDA tensors go through the CUDA kernel; CPU
+    tensors through the plain version."""
+    global MID_DDP_BOXQP_PLAIN_CALLS
+    if lin.f_x.device.type == "cpu":
+        MID_DDP_BOXQP_PLAIN_CALLS += 1
+        return riccati_backward_mid_ddp_boxqp_ref(
+            lin, quad, final, mu, bounds, Ubar, second, boxqp_iters)
+    a = mid_layout(lin, quad, final, mu, bounds, Ubar, second)
+    return _result(riccati_backward_mid_ddp_boxqp_kernel(
+        *(a[k] for k in MID_DDP_BOXQP_ARGS), boxqp_iters=boxqp_iters))
 
 
 # -- P1 ------------------------------------------------------------------------

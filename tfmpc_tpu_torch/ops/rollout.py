@@ -25,7 +25,8 @@ rollout, the scenarios a block, the steps staged ahead and the shared
 bytes), unrolled at the dims it is instantiated for (``unrolled_dims``).
 K2, K3 and K5 run every other 1 <= n, m <= ``GENERIC_DIM_MAX`` in the
 generic form (``csrc/rollout_generic.cuh``: n, m and the lanes a rollout
-at run time), counted under ``*_GENERIC_LAUNCHES``.
+at run time), and K8 every other n = m <= ``DERIVS_DIM_MAX``, counted
+under ``*_GENERIC_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ DERIVS_PLAIN_CALLS = 0
 COSTS_GENERIC_LAUNCHES = 0
 ALPHA_GENERIC_LAUNCHES = 0
 TRAJ_GENERIC_LAUNCHES = 0
+DERIVS_GENERIC_LAUNCHES = 0
 
 # (n, m) pairs the unrolled CUDA kernels are instantiated for
 # (csrc/rollout.cuh): every env's step at the small dims (rollout.cu, K5's
@@ -65,9 +67,13 @@ TRAJ_GENERIC_LAUNCHES = 0
 # (csrc/rollout_generic.cuh), the JAX rollout kernels' dims.
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6), (12, 12), (16, 16)}
 HVAC_ONLY_DIMS = {(12, 12), (16, 16)}
-# (n, m) pairs K8 is instantiated for (csrc/rollout_derivs.cu), with the
-# navigation step, the only env with a device linearization
+# (n, m) pairs K8 is instantiated for unrolled (csrc/rollout_derivs.cu),
+# with the navigation step, the only env with a device linearization; the
+# generic form (csrc/rollout_generic_derivs.cu) runs every other n = m up
+# to DERIVS_DIM_MAX (csrc/envs.cuh kDerivsMaxDim), the JAX package's
+# fused-iteration ceiling
 DERIVS_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
+DERIVS_DIM_MAX = 12
 GENERIC_DIM_MAX = 48  # csrc/rollout_generic.cuh kGenericMaxDim
 MAX_ALPHAS = 32  # size of the alpha array passed by value (csrc/rollout.cuh)
 # The launch plans of the tile kernel's kinds, ``rollout_plan``: K2
@@ -121,6 +127,10 @@ GENERIC_PLANS = {
                         (48, (2, 128, 1))),
              "other": ((4, (2, 256, 1)), (12, (4, 128, 1)),
                        (48, (8, 128, 1)))},
+    # K8, navigation only, n = m <= DERIVS_DIM_MAX: the fastest plans of
+    # ``--generic-sweep derivs`` at chip_smoke.py phase 30's G4 (n = 4,
+    # B=4096, T=100) and G5 (n = 12, B=1024, T=50) shapes
+    "derivs": {"other": ((4, (8, 256, 1)), (12, (16, 128, 1)))},
 }
 GENERIC_GROUPS = (1, 2, 4, 8, 16, 32)
 # the kinds' codes in the C entries (csrc/rollout.cuh RolloutKind)
@@ -195,10 +205,19 @@ def generic_smem_bytes(n: int, m: int, groups: int, spb: int, depth: int,
             + (2 * n + m) * (lanes // groups) * _ITEMSIZE[dtype])
 
 
-def unrolled_dims(env_id: int, n: int, m: int) -> bool:
-    """Whether an unrolled instantiation runs the env ``env_id`` at (n, m):
-    every env at the small ``KERNEL_DIMS``, the HVAC step alone at
-    ``HVAC_ONLY_DIMS``. The generic form takes every other dim."""
+def derivs_dims(n: int, m: int) -> bool:
+    """Whether K8 runs at (n, m): n = m <= ``DERIVS_DIM_MAX`` (unrolled at
+    ``DERIVS_DIMS``, the generic form elsewhere)."""
+    return n == m and 1 <= n <= DERIVS_DIM_MAX
+
+
+def unrolled_dims(env_id: int, n: int, m: int, kernel: str = "costs") -> bool:
+    """Whether an unrolled instantiation of ``kernel`` runs the env
+    ``env_id`` at (n, m): every env at the small ``KERNEL_DIMS``, the HVAC
+    step alone at ``HVAC_ONLY_DIMS``; K8 (``"derivs"``) at ``DERIVS_DIMS``.
+    The generic form takes every other dim."""
+    if kernel == "derivs":
+        return (n, m) in DERIVS_DIMS
     return (n, m) in KERNEL_DIMS and (
         (n, m) not in HVAC_ONLY_DIMS or env_id == HVAC_STEP_ID)
 
@@ -268,20 +287,21 @@ def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
     """The launch plan of K2 (``kernel="costs"``, A alphas), K3
     (``"alpha"``), K5 (``"traj"``, A alphas) or K8 (``"derivs"``) at (n, m)
     for B scenarios of the env ``env_id`` with ``param_elems`` parameter
-    values. Where an unrolled instantiation runs (``unrolled_dims``):
-    ``ROLLOUT_PLANS``' G and depth and
+    values. Where an unrolled instantiation runs (``unrolled_dims``; K8's
+    at ``DERIVS_DIMS``): ``ROLLOUT_PLANS``' G and depth and
     the largest power of two of scenarios a block that does not exceed B
     over the table's blocks, at most ``TILE_MAX_SPB``, ``max_threads``
     threads (``kernel_max_threads``: the kernel's registers bound it) and
-    ``SMEM_LIMIT`` shared bytes. Elsewhere up to ``GENERIC_DIM_MAX``, K2,
-    K3 and K5 take the generic form's plan (``generic=True``,
+    ``SMEM_LIMIT`` shared bytes. Elsewhere up to ``GENERIC_DIM_MAX`` (K8:
+    n = m <= ``DERIVS_DIM_MAX``) the generic form's plan (``generic=True``,
     ``_generic_plan``). ``groups``, ``scenarios`` and ``depth`` override
     the table (the sweep's plans)."""
-    if kernel == "derivs" and (n, m) not in DERIVS_DIMS:
+    if kernel == "derivs" and not derivs_dims(n, m):
         raise NotImplementedError(
-            f"K8 takes (n, m) in {sorted(DERIVS_DIMS)}, got {(n, m)} "
-            "(ROADMAP queue 2 item 4)")
-    if not unrolled_dims(env_id, n, m):
+            f"K8 takes n = m <= {DERIVS_DIM_MAX}, got {(n, m)} (the JAX "
+            "package's fused-iteration ceiling; the solver takes the split "
+            "iteration above it)")
+    if not unrolled_dims(env_id, n, m, kernel):
         if not (1 <= n <= GENERIC_DIM_MAX and 1 <= m <= GENERIC_DIM_MAX):
             raise NotImplementedError(
                 f"the rollout kernels take 1 <= n, m <= {GENERIC_DIM_MAX}, "
@@ -324,7 +344,7 @@ def kernel_max_threads(kernel: str, a, generic: bool | None = None) -> int:
     runs at the dims)."""
     B, T, n, m = a["dims"]
     if generic is None:
-        generic = not unrolled_dims(a["env_id"], n, m)
+        generic = not unrolled_dims(a["env_id"], n, m, kernel)
     if generic:
         key = (kernel, a["dtype"], a["env_id"], "generic")
         if key not in _MAX_THREADS:
@@ -358,7 +378,7 @@ def launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
 
 
 def generic_launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
-    """The generic form's plan of ``kernel`` (K2, K3, K5) on
+    """The generic form's plan of ``kernel`` (K2, K3, K5, K8) on
     ``kernel_args`` output ``a`` at any dims up to ``GENERIC_DIM_MAX``,
     those of an unrolled instantiation included (where ``launch_plan``
     takes the unrolled one): to hold and time the generic form there."""
@@ -477,11 +497,12 @@ def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False):
     unbounded env), and the env step's id and parameters. A kernel-layout
     ``policy_lane = (K [T, m*n, B], k [T, m, B])`` is taken as it is
     (``policy`` is then unused). With ``derivatives``, K8's: the env's
-    ``device_derivatives`` functor at ``DERIVS_DIMS``. Raises for a dtype,
-    env or dims the kernels do not cover: an env without a device step, K8
-    outside ``DERIVS_DIMS`` and any dim above ``GENERIC_DIM_MAX`` (K2, K3
-    and K5 take every 1 <= n, m <= 48, in the generic form where no
-    unrolled instantiation runs)."""
+    ``device_derivatives`` functor at n = m <= ``DERIVS_DIM_MAX``. Raises
+    for a dtype, env or dims the kernels do not cover: an env without a
+    device step, K8 outside ``derivs_dims`` and any dim above
+    ``GENERIC_DIM_MAX`` (K2, K3 and K5 take every 1 <= n, m <= 48, and K8
+    every n = m <= 12, in the generic form where no unrolled instantiation
+    runs)."""
     if X.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"the CUDA kernels take float32/float64, got {X.dtype}")
     step = env.device_derivatives() if derivatives else env.device_step()
@@ -495,10 +516,10 @@ def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False):
         )
     B, T, m = U.shape
     n = X.shape[-1]
-    if derivatives and (n, m) not in DERIVS_DIMS:
+    if derivatives and not derivs_dims(n, m):
         raise NotImplementedError(
-            f"K8 has no instantiation for (n, m) = {(n, m)} (compiled: "
-            f"{sorted(DERIVS_DIMS)}; ROADMAP queue 2 item 4); run with "
+            f"K8 takes n = m <= {DERIVS_DIM_MAX}, got {(n, m)} (the JAX "
+            "package's fused-iteration ceiling); run with "
             "fuse_derivatives=False"
         )
     if not (1 <= n <= GENERIC_DIM_MAX and 1 <= m <= GENERIC_DIM_MAX):
@@ -553,12 +574,15 @@ def _env_pointers(a):
 
 
 def _launch_generic(a, kernel, plan, J, X=None, U=None, alphas=(),
-                    alpha=None):
-    """Launch the generic form's ``kernel`` (K2, K3 or K5) with ``plan``
-    on ``kernel_args`` output ``a``; returns the C entry's code."""
+                    alpha=None, kargs=None):
+    """Launch the generic form's ``kernel`` (K2, K3, K5, or K8 with its
+    ``D_KEYS`` output blocks ``kargs``) with ``plan`` on ``kernel_args``
+    output ``a``; returns the C entry's code."""
     B, T, n, m = a["dims"]
     null = ctypes.c_void_p(None)
     A = len(alphas) or 1
+    lin = None if kargs is None else (ctypes.c_void_p * len(D_KEYS))(
+        *[kargs[key].data_ptr() for key in D_KEYS])
     return _build.library().tfmpc_rollout_generic(
         KIND_CODES[kernel], _build.DTYPE_CODES[a["dtype"]], a["env_id"], n,
         m, T, B, *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
@@ -566,8 +590,9 @@ def _launch_generic(a, kernel, plan, J, X=None, U=None, alphas=(),
         (ctypes.c_double * A)(*map(float, alphas)) if alphas else None, A,
         null if alpha is None else _build.ptr(alpha), *_env_pointers(a),
         _build.ptr(J), null if X is None else _build.ptr(X),
-        null if U is None else _build.ptr(U), plan.groups, plan.scenarios,
-        plan.depth, ctypes.c_longlong(plan.smem_bytes), _build.stream())
+        null if U is None else _build.ptr(U), lin, plan.groups,
+        plan.scenarios, plan.depth, ctypes.c_longlong(plan.smem_bytes),
+        _build.stream())
 
 
 def linesearch_costs_kernel(a, alphas: Sequence[float]):
@@ -731,8 +756,9 @@ def rollout_alpha_derivs_ref(env, X, U, policy, alpha_vec):
 
 def rollout_alpha_derivs_kernel(a, alpha):
     """Launch K8 on ``kernel_args(..., derivatives=True)`` output and per-lane
-    ``alpha [B]``: raw ``(X [T, n, B], U [T, m, B], J [B], kargs)``."""
-    global DERIVS_LAUNCHES
+    ``alpha [B]``: raw ``(X [T, n, B], U [T, m, B], J [B], kargs)``. The
+    generic form outside ``DERIVS_DIMS`` (``DERIVS_GENERIC_LAUNCHES``)."""
+    global DERIVS_LAUNCHES, DERIVS_GENERIC_LAUNCHES
     B, T, n, m = a["dims"]
     opts = dict(dtype=a["dtype"], device=a["xbar"].device)
     if alpha.shape != (B,) or alpha.dtype != a["dtype"] \
@@ -746,6 +772,13 @@ def rollout_alpha_derivs_kernel(a, alpha):
                    lux=m * n)
     kargs = {key: torch.empty((T, entries[key], B), **opts)
              for key in D_KEYS}
+    plan = launch_plan(a, "derivs")
+    if plan.generic:
+        _build.check(_launch_generic(a, "derivs", plan, J, X_out, U_out,
+                                     alpha=alpha, kargs=kargs),
+                     "rollout_alpha_derivs (generic)")
+        DERIVS_GENERIC_LAUNCHES += 1
+        return X_out, U_out, J, kargs
     rc = _build.library().tfmpc_rollout_alpha_derivs(
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
         _build.ptr(alpha),

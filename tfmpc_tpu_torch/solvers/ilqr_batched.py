@@ -11,8 +11,8 @@ scenario that is done freezes. One iteration is
    failing lanes when B > 128 (with ``use_pallas``: kernel K1, or K4 for
    ``boxqp`` on a bounded env, and with ``ddp`` K6a or K6b, which also take
    the dynamics Hessians of step 1, at the lane kernels' dims; K7 at other
-   dims up to 48; with ``parallel_backward``: the O(log T) composition of
-   ``lqr_parallel.py``);
+   dims up to 48, and its full-DDP variants at other dims up to 12; with
+   ``parallel_backward``: the O(log T) composition of ``lqr_parallel.py``);
 3. the 11-alpha line search (K2), controls clipped to a bounded env's box;
 4. acceptance and the mu schedule, with the KKT stationarity test of a
    bounded env where a lane accepted nothing;
@@ -27,9 +27,11 @@ package's ``_iteration_fused``; routed by ``_use_fused_derivs``) drops step
 1 from the loop: step 5 runs K8, which also writes the linearization of
 the new trajectory in the Riccati kernels' ``[T, entries, B]`` layout, and
 the loop carries those blocks (``kargs``) into the next backward (K1, or K4
-for ``boxqp``), whose policy goes to K2 and K8 in that layout as it is. A
-solve linearizes once, along its initial (or resumed) trajectory
-(``_initial_kargs``).
+for ``boxqp``; K7 at dims without a lane instantiation), whose policy goes
+to K2 and K8 in that layout as it is. A solve linearizes once, along its
+initial (or resumed) trajectory (``_initial_kargs``). Where the JAX
+package takes its split iteration by design (an env without a device
+linearization, dims above 12), so does this one, on every device.
 
 The JAX package's ``lax.while_loop``s become host loops that read one flag
 per outer iteration and one per restart round (and, for a bounded env, one
@@ -38,7 +40,9 @@ stages run the CUDA kernels or raise (an env without a device step, or
 dims without a kernel instantiation); nothing falls back to the plain path.
 Where the JAX package runs its XLA route by design, the plain stages are
 the route on every device: the backward of full DDP above 12 and every
-stage above 48 (``_riccati_kernel_mode``, ``_rollout_dims_supported``).
+stage above 48 (``_riccati_kernel_mode``, ``_rollout_dims_supported``);
+where it takes its split iteration, so does this package
+(``_use_fused_derivs``).
 ``use_pallas=False`` is the plain PyTorch path. Any batch size runs the
 kernels: they mask the ragged edge themselves, so there is no lane
 padding. The stages carry ``torch.profiler.record_function`` ranges
@@ -100,8 +104,14 @@ def state_from_result(result: ILQRResult) -> SolverState:
 
 
 # The JAX package's lane kernel runs full DDP up to this dim on the TPU;
-# above it the JAX package runs its vmapped scan, and so does this one.
-DDP_LANE_DIM_MAX = 12
+# above it the JAX package runs its vmapped scan, and so does this one
+# (riccati_mid.MID_DDP_DIM_MAX, K7's DDP variants' ceiling, is the same).
+DDP_LANE_DIM_MAX = riccati_mid.MID_DDP_DIM_MAX
+# The JAX package's dims rule for the fused iteration
+# (tfmpc_tpu/solvers/ilqr_batched.py:_use_fused_derivs): above it, the
+# split iteration. A rule of the reference's, not a tuning constant of
+# this card.
+FUSED_DIM_MAX = 12
 
 
 class _IterationAux(NamedTuple):
@@ -116,40 +126,25 @@ def _riccati_kernel_mode(n: int, m: int, config: ILQRConfig, device):
     ``parallel_backward``, which owns the backward pass even with
     ``use_pallas``, as in the JAX package). "lane": K1/K4/K6a/K6b, for the
     dims they are instantiated at (``riccati.KERNEL_DIMS``). "mid": K7, for
-    any other dims within ``riccati_mid.mid_kernel_supported`` and without
-    ``ddp`` (K7 has no DDP terms).
+    any other dims within ``riccati_mid.mid_kernel_supported``, and with
+    ``ddp`` its full-DDP variants at max(n, m) <= ``DDP_LANE_DIM_MAX``.
 
     Where the JAX package runs its vmapped scan by design, the plain
     backward runs on every device too: full DDP at max(n, m) > 12 (its
     lane kernel stops at 12 and its mid kernel has no DDP terms) and any
-    max(n, m) > ``riccati_mid.MID_DIM_MAX``. What is left raises
-    ``NotImplementedError`` naming the dims on a CUDA device, because the
-    JAX package has a kernel there and this package has none: full DDP at
-    n, m <= 12 outside ``riccati.KERNEL_DIMS``, e.g. (12, 12) or (4, 4)
-    (ROADMAP queue 2 item 2). On the CPU that is the plain backward, which
-    every wrapper would run there anyway. The lane/mid boundary is the
+    max(n, m) > ``riccati_mid.MID_DIM_MAX``. The lane/mid boundary is the
     port's own (the kernels' instantiations), not the JAX package's TPU
-    lane limit of 12.
+    lane limit of 12. The route is the same on every ``device``: on the
+    CPU each wrapper runs its plain version.
     """
     if not config.use_pallas or config.parallel_backward:
         return None
     if (n, m) in riccati.KERNEL_DIMS:
         return "lane"
-    if max(n, m) > riccati_mid.MID_DIM_MAX \
+    if not riccati_mid.mid_kernel_supported(n, m) \
             or (config.ddp and max(n, m) > DDP_LANE_DIM_MAX):
         return None
-    if not config.ddp and riccati_mid.mid_kernel_supported(n, m):
-        return "mid"
-    if torch.device(device).type == "cuda":
-        what = "full DDP (ddp=True)" if config.ddp else "iLQR"
-        raise NotImplementedError(
-            f"use_pallas=True on CUDA, but no Riccati kernel runs {what} at "
-            f"(n, m) = {(n, m)}: the lane kernels take "
-            f"{sorted(riccati.KERNEL_DIMS)}, K7 any 1 <= n, m <= "
-            f"{riccati_mid.MID_DIM_MAX} without ddp (ROADMAP queue 2 item 2 "
-            "ports the JAX lane kernel's DDP at n, m <= "
-            f"{DDP_LANE_DIM_MAX}); pass use_pallas=False")
-    return None
+    return "mid"
 
 
 def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
@@ -158,8 +153,9 @@ def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
     ``_riccati_kernel_mode``: the lane kernels' wrappers (K4 for ``boxqp``
     on a bounded env and K1 otherwise, or with the dynamics Hessians
     ``second`` (``ddp``) K6b and K6a), K7's (its boxQP variant under the
-    same condition), or the plain ``backward``. A wrapper launches its CUDA
-    kernel on CUDA tensors and runs its plain version on CPU tensors.
+    same condition, its full-DDP variants with ``second``), or the plain
+    ``backward``. A wrapper launches its CUDA kernel on CUDA tensors and
+    runs its plain version on CPU tensors.
     """
     n, m = lin.f_x.shape[-1], lin.f_u.shape[-1]
     mode = _riccati_kernel_mode(n, m, config, lin.f_x.device)
@@ -176,6 +172,13 @@ def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
                 lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
         return riccati.riccati_backward(lin, quad, final, mu)
     if mode == "mid":
+        if second is not None:
+            if box:
+                return riccati_mid.riccati_backward_mid_ddp_boxqp(
+                    lin, quad, final, mu, bounds, Ubar, second,
+                    config.boxqp_iters)
+            return riccati_mid.riccati_backward_mid_ddp(lin, quad, final, mu,
+                                                        second)
         if box:
             return riccati_mid.riccati_backward_mid_boxqp(
                 lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
@@ -511,41 +514,33 @@ def _iteration_batched(env, state: SolverState, config: ILQRConfig, alphas):
 def _use_fused_derivs(env, config: ILQRConfig, device) -> bool:
     """Whether a solve runs the fully-fused iteration (``_iteration_fused``).
 
-    The JAX package's configuration rule: ``use_pallas`` and
-    ``fuse_derivatives``, and neither ``parallel_backward`` nor ``ddp``
-    (K8 writes first-order blocks only); with those, the split iteration
-    runs. Then the fused iteration needs the env's device step and device
-    linearization (``Env.device_derivatives``: navigation's) and K8 and
-    the lane Riccati kernels at the env's dims. Where one is missing, a
-    CUDA ``device`` raises ``NotImplementedError`` naming it; on the CPU,
-    where every wrapper runs its plain version, the split iteration runs,
-    as it would for such an env in the JAX package. The JAX package's TPU
-    rules (B % 128, dims <= 8 or 12) are not copied: the kernels mask any
-    batch and are instantiated at their own dims.
+    The JAX package's rule (``tfmpc_tpu/solvers/ilqr_batched.py``
+    ``_use_fused_derivs``), on every device: ``use_pallas`` and
+    ``fuse_derivatives``, neither ``parallel_backward`` nor ``ddp`` (K8
+    writes first-order blocks only), max(n, m) <= ``FUSED_DIM_MAX`` and a
+    device linearization (``Env.device_derivatives``, the counterpart of
+    ``lane_derivatives``: navigation's); else the split iteration runs.
+    Its TPU rule B % 128 is not copied: the kernels mask any batch. Where
+    the JAX rule fuses, K8 (unrolled or generic) and the backward (the
+    lane kernels, or K7 through ``riccati.riccati_backward_lanes``) run at
+    every such dim; an env with a device linearization but no device step
+    (a user env) raises ``NotImplementedError`` on a CUDA ``device``
+    (ROADMAP queue 2 item 3) and takes the split iteration on the CPU,
+    where every wrapper runs its plain version.
     """
     if not (config.use_pallas and config.fuse_derivatives) \
             or config.parallel_backward or config.ddp:
         return False
-    n, m = env.state_size, env.action_size
-    missing = []
-    if env.device_step() is None:
-        missing.append("no device step (Env.device_step)")
-    if env.device_derivatives() is None:
-        missing.append("no device linearization for K8 "
-                       "(Env.device_derivatives)")
-    if (n, m) not in rollout.DERIVS_DIMS:
-        missing.append(f"no K8 instantiation at (n, m) = {(n, m)} "
-                       f"(compiled: {sorted(rollout.DERIVS_DIMS)}; ROADMAP "
-                       "queue 2 item 4)")
-    if (n, m) not in riccati.KERNEL_DIMS:
-        missing.append(f"no lane Riccati kernel at (n, m) = {(n, m)} "
-                       f"(compiled: {sorted(riccati.KERNEL_DIMS)})")
-    if not missing:
+    if max(env.state_size, env.action_size) > FUSED_DIM_MAX \
+            or env.device_derivatives() is None:
+        return False
+    if env.device_step() is not None:
         return True
     if torch.device(device).type == "cuda":
         raise NotImplementedError(
             f"fuse_derivatives=True with use_pallas=True on CUDA, but "
-            f"{type(env).__name__} has {'; '.join(missing)}; pass "
+            f"{type(env).__name__} has no device step (Env.device_step) "
+            "for the rollout kernels (ROADMAP queue 2 item 3); pass "
             "fuse_derivatives=False")
     return False
 
@@ -567,7 +562,8 @@ def _backward_restarts_klayout(env, kargs, x_last, mu, delta,
                                config: ILQRConfig, Ubar):
     """The fused iteration's backward pass with the per-lane restarts, on
     the kernel-layout blocks ``kargs`` (``[T, entries, B]``): K1, or K4 for
-    ``boxqp`` on a bounded env, through ``riccati.riccati_backward_lanes``.
+    ``boxqp`` on a bounded env (K7's variants at dims without a lane
+    instantiation), through ``riccati.riccati_backward_lanes``.
     The final value is ``_final_klayout``'s at ``x_last [B, n]``.
     Returns ``_backward_restarts_batched``'s tuple with the policy ``(K [T,
     m*n, B], k [T, m, B])`` in the layout K2 and K8 take; the compacted

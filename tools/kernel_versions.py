@@ -10,7 +10,7 @@ on one GPU.
     python3 tools/kernel_versions.py rollout LABEL=REV|DIR[,-DNAME] [...]
         [--clocks]
     python3 tools/kernel_versions.py rollout --sweep [KIND ...]
-    python3 tools/kernel_versions.py rollout --generic-sweep
+    python3 tools/kernel_versions.py rollout --generic-sweep [KIND ...]
 
 Each PATH is another version of ``ops/csrc/row_matmul.cu`` (``p1``) or of
 ``ops/csrc/riccati_mid.cu`` (``k7``), for example an earlier one taken
@@ -96,12 +96,14 @@ kinds) and times them at ``SWEEP_CASES`` (K8: ``DERIVS_SWEEP_CASES``) with
 every G, 1-32 scenarios a block and 1, 2 or 4 steps staged ahead, in
 float32, as device times of graph replays: the measurement behind
 ``ops/rollout.py`` ROLLOUT_PLANS. ``rollout --generic-sweep`` times every
-plan of the generic form of K2, K3 and K5 (``csrc/rollout_generic.cuh``;
-G, 1-32 scenarios a block, 1, 2 or 4 steps ahead) at
-``GENERIC_SWEEP_CASES`` with the checkout's library, in float32, as device
-times of graph replays in turns (the measurement behind ``ops/rollout.py``
-GENERIC_PLANS), then its two line-search layouts at each case with K5's
-footprint (behind ``ilqr_batched._resolve_emit_traj`` there).
+plan of the generic form of the kinds named (``costs``, ``alpha``,
+``traj``: K2, K3 and K5 by default; ``derivs``: K8) (``csrc/
+rollout_generic.cuh``; G, 1-32 scenarios a block, 1, 2 or 4 steps ahead)
+at ``GENERIC_SWEEP_CASES`` (K8: ``DERIVS_GENERIC_SWEEP_CASES``) with the
+checkout's library, in float32, as device times of graph replays in turns
+(the measurement behind ``ops/rollout.py`` GENERIC_PLANS), then, with K2,
+K3 or K5, its two line-search layouts at each case with K5's footprint
+(behind ``ilqr_batched._resolve_emit_traj`` there).
 """
 
 from __future__ import annotations
@@ -247,6 +249,15 @@ def run_k7(versions, card):
     Bn, Tn, n, m = lin.f_u.shape
     a = rm.mid_layout(lin, quad, final, mu, bounds, U)
     plan = rm.mid_plan(n, m, Bn, torch.float32)
+    log = _build.library_path().with_suffix(".log").read_text()
+    print("checkout (its K7 instantiations, from the library's build log):")
+    keep, lines = False, []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = "riccati_mid_kernel" in line
+        if keep:
+            lines.append(line)
+    cs.print_ptxas("\n".join(lines))
     libs = {v: (build(v, path), entry_params(
         path.read_text(), "tfmpc_riccati_backward_mid")) for v, path in
         versions}
@@ -279,11 +290,13 @@ def run_k7(versions, card):
             _build.check(call(), f"{v} K7")
             torch.cuda.synchronize()
             ok, ok_ref = out[4] == 0, ref[4] == 0
+            same = all(torch.equal(x, y) for x, y in zip(out, ref))
             both = ok & ok_ref
             share = cs.lane_share(out[:4], ref[:4], both, *cs.K4_F32_TOL)
             err = max(float((x.double()[both] - y.double()[both])
                             .abs().max()) for x, y in zip(out[:2], ref[:2]))
-            print(f"  {v} K7-{'boxQP' if box else 'iLQR'} {label}: ok masks "
+            print(f"  {v} K7-{'boxQP' if box else 'iLQR'} {label}: outputs "
+                  f"bitwise equal to the checkout's {same}; ok masks "
                   f"identical {bool(torch.equal(ok, ok_ref))}, share of ok "
                   f"lanes within {cs.K4_F32_TOL[0]:g} + "
                   f"{cs.K4_F32_TOL[1]:g}*|checkout| {share:.6f}, max K/k "
@@ -1097,6 +1110,10 @@ def run_rollout_sweep(card, kinds):
 # that a row of ops/rollout.py GENERIC_PLANS is measured at each of
 # max(n, m) = 2, 4, 12, 24 and 48
 GENERIC_SWEEP_CASES = {**cs.GENERIC_KERNEL_CASES, "reservoir12": (1024, 100)}
+# the generic K8's: chip_smoke.py's phase 30 G4 (navigation in 4 dims) and
+# G5 (12 dims, box +-1) shapes, one for each row of GENERIC_PLANS["derivs"]
+DERIVS_GENERIC_SWEEP_CASES = {
+    case: (Bn, Tn) for case, Bn, Tn, _ in cs.FUSED_MID_PATHS.values()}
 
 
 def generic_launcher(a, kind, plan, alphas, alpha_vec):
@@ -1112,6 +1129,15 @@ def generic_launcher(a, kind, plan, alphas, alpha_vec):
     if kind == "costs":
         outs = (torch.empty((A, B), **opts),)
         kw = dict(alphas=alphas)
+    elif kind == "derivs":
+        entries = dict(fx=n * n, fu=n * m, lx=n, lu=m, lxx=n * n, luu=m * m,
+                       lux=m * n)
+        kargs = {key: torch.empty((T, entries[key], B), **opts)
+                 for key in rollout.D_KEYS}
+        outs = (torch.empty((B,), **opts), torch.empty((T, n, B), **opts),
+                torch.empty((T, m, B), **opts),
+                *(kargs[key] for key in rollout.D_KEYS))
+        kw = dict(alpha=alpha_vec, kargs=kargs)
     elif kind == "alpha":
         outs = (torch.empty((B,), **opts), torch.empty((T, n, B), **opts),
                 torch.empty((T, m, B), **opts))
@@ -1123,7 +1149,7 @@ def generic_launcher(a, kind, plan, alphas, alpha_vec):
         kw = dict(alphas=alphas)
 
     def call():
-        return rollout._launch_generic(a, kind, plan, *outs, **kw)
+        return rollout._launch_generic(a, kind, plan, *outs[:3], **kw)
 
     call.outputs = outs
     return call
@@ -1203,11 +1229,12 @@ def generic_emit_layouts(label, case, card):
           f"{A * (n + m) * 500 * 4096 * 4 / 1e9:.2f} GB) [{card}]")
 
 
-def run_generic_sweep(card):
-    """Every generic plan of K2, K3 and K5 at ``GENERIC_SWEEP_CASES``, f32,
-    as device times of graph replays of 5 calls in turns (the measurement
-    behind ops/rollout.py GENERIC_PLANS), then the two line-search layouts
-    on the generic form at each case (``generic_emit_layouts``: the
+def run_generic_sweep(card, kinds=("costs", "alpha", "traj")):
+    """Every generic plan of ``kinds`` at ``GENERIC_SWEEP_CASES`` (K8:
+    ``DERIVS_GENERIC_SWEEP_CASES``), f32, as device times of graph replays
+    of 5 calls in turns (the measurement behind ops/rollout.py
+    GENERIC_PLANS), then, for K2, K3 or K5, the two line-search layouts on
+    the generic form at each case (``generic_emit_layouts``: the
     measurement behind ``ilqr_batched._resolve_emit_traj`` at those
     dims)."""
     import torch
@@ -1218,15 +1245,28 @@ def run_generic_sweep(card):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     alphas = ILQRConfig().alphas_static()
     A = len(alphas)
-    for case, (Bn, Tn) in GENERIC_SWEEP_CASES.items():
-        env, X, U, policy = cs.generic_inputs(case, torch.float32, Bn, Tn)
-        a = rollout.kernel_args(env, X, U, policy)
+    cases = [(case, Bn, Tn, [k for k in kinds if k != "derivs"])
+             for case, (Bn, Tn) in GENERIC_SWEEP_CASES.items()]
+    if "derivs" in kinds:
+        cases += [(case, Bn, Tn, ["derivs"])
+                  for case, (Bn, Tn) in DERIVS_GENERIC_SWEEP_CASES.items()]
+    for case, Bn, Tn, case_kinds in cases:
+        if not case_kinds:
+            continue
+        if case_kinds == ["derivs"]:
+            env, X, U, policy, _ = cs.k8_generic_inputs(case, torch.float32,
+                                                        Bn, Tn)
+        else:
+            env, X, U, policy = cs.generic_inputs(case, torch.float32, Bn,
+                                                  Tn)
+        a = rollout.kernel_args(env, X, U, policy,
+                                derivatives=case_kinds == ["derivs"])
         n, m = env.state_size, env.action_size
         pe = sum(p.numel() for p in a["params"])
         alpha_vec = torch.as_tensor(alphas, dtype=torch.float32,
                                     device="cuda")[
             torch.arange(Bn, device="cuda") % A].contiguous()
-        for kind in ("costs", "alpha", "traj"):
+        for kind in case_kinds:
             fns = {}
             for key, plan in generic_sweep_plans(
                     kind, a["env_id"], n, m, Bn, A, torch.float32, pe,
@@ -1251,8 +1291,9 @@ def run_generic_sweep(card):
                      f"{times[best_spread]:.4f}" if best_spread else "none")
                   + f"; GENERIC_PLANS' plan {plan.groups}/{plan.scenarios}/"
                   f"{plan.depth} [{card}]")
-    for case in GENERIC_SWEEP_CASES:
-        generic_emit_layouts(case, case, card)
+    if set(kinds) - {"derivs"}:
+        for case in GENERIC_SWEEP_CASES:
+            generic_emit_layouts(case, case, card)
 
 
 def main() -> int:
@@ -1293,7 +1334,7 @@ def main() -> int:
         run_lane_sweep(card)
         return 0
     if sys.argv[1] == "rollout" and sys.argv[2] == "--generic-sweep":
-        run_generic_sweep(card)
+        run_generic_sweep(card, sys.argv[3:] or ("costs", "alpha", "traj"))
         return 0
     if sys.argv[1] == "rollout":
         run_rollout_sweep(card, sys.argv[3:] or ("costs", "alpha", "traj",
