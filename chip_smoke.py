@@ -212,7 +212,26 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     navigation in 4 dims fused (B=4096, T=100) and G5 navigation in 12
     dims in the box +-1, fused with boxQP (B=1024, T=50), each against
     its split-kernel solve (one derivatives pass a fused solve); the
-    solves/s of each.
+    solves/s of each;
+31. user envs on the generated step functor (``ops/env_codegen.py``,
+    ``csrc/rollout_user.cuh``): the user libraries of the custom-env
+    example's ``DampedChain`` at d = 6 and d = 48 and of a rectangular
+    (8, 3) twin of the fuzz tests' env (f32 and f64), and of the generated
+    functors of navigation (two zones), HVAC-6 and reservoir-5 (f32),
+    built by one nvcc each, all started together; the generated K2, K3
+    and K5 against their plain versions at each path's shape in float32
+    and float64 (phase 29's gates) and timed, and against the
+    hand-written functors of navigation, HVAC-6 and reservoir-5 at the
+    same shapes and plans (bit for bit where the order matches, else
+    within ``TOL``); then three f32 ``solve_batch`` paths on AUTO,
+    counted (the routed Riccati kernel and the generated-step rollouts
+    only), each against its plain path and its other line-search layout:
+    the example at its own size (d = 6, box +-1, boxQP, B=512, T=40; K4
+    and K5), the chain at d = 48 (unbounded, B=512, T=50; K7-iLQR and K5;
+    >= 0.99 converged) and the fuzz env (B=1024, T=50); then
+    ``examples/torch_custom_env.py`` itself, an MPC run of its env (256
+    x0, 10 steps) and its solve through the one-process data-parallel
+    mesh (``mesh.solve_ilqr_sharded``), counted.
 
 K5 (the emit-trajectories line search, AUTO's layout) is checked with
 the other kernels in phase 3 at the shapes of the paths that run it
@@ -227,6 +246,7 @@ describing each kernel; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import shutil
 import subprocess
@@ -558,6 +578,17 @@ def env_step_flops(env_name: str, n: int, zones: int = 1,
         m = n if m is None else m
         return 2 * n * (n + m) + n + 2 * n * n + 2 * n * m + 2 * m * m \
             + 6 * n + 4 * m + 6
+    if env_name == "chain":
+        # the generated step of the custom-env example's DampedChain: each
+        # row's dot product, x^3, scalings and sums; the cost's two sums of
+        # squares, a scaling and a sum
+        return n * (2 * n + 8) + 4 * n + 2
+    if env_name == "fuzz":
+        # the fuzz env's: each row's two dot products, tanh, scalings and
+        # sums; the cost's two quadratic forms, the tanh term and the sums
+        m = n if m is None else m
+        return n * (2 * n + 2 * m + 7) + 2 * n * n + 2 * m * m + 6 * n \
+            + 2 * m + 2
     return 10 * n + n * (7 + 2 * n)            # reservoir
 
 
@@ -677,13 +708,16 @@ def stable_linear(n, m, seed, dtype, device="cuda"):
 
 
 def generic_env(case, dtype, device="cuda"):
-    """The env of a ``GENERIC_KERNEL_CASES`` case."""
+    """The env of a ``GENERIC_KERNEL_CASES`` case (or of a user env's,
+    ``chain<d>`` or ``fuzz8x3``: ``user_env``)."""
     import json
 
     from tfmpc_tpu_torch.models.linear import make_linear_system
     from tfmpc_tpu_torch.models.navigation import make_navigation
     from tfmpc_tpu_torch.models.registry import make_env
 
+    if case.startswith(("chain", "fuzz")):
+        return user_env(case, dtype, device)
     if case == "double_integrator":
         kw = dict(DOUBLE_INTEGRATOR)
         return make_linear_system(kw.pop("A"), kw.pop("B"), **kw, dtype=dtype,
@@ -706,12 +740,14 @@ def generic_env(case, dtype, device="cuda"):
 
 def generic_x0(case, Bn, dtype, device="cuda"):
     """The solve's initial states of a ``GENERIC_KERNEL_CASES`` case [Bn,
-    n], from ``default_rng(0)``."""
+    n], from ``default_rng(0)`` (a user env's: ``user_x0``)."""
     import json
 
     import numpy as np
     import torch
 
+    if case.startswith(("chain", "fuzz")):
+        return user_x0(case, Bn, dtype, device)
     rng = np.random.default_rng(0)
     n = generic_env(case, dtype, "cpu").state_size
     if case == "reservoir4":
@@ -1767,33 +1803,44 @@ def print_rollout_plans(lib):
                                          "kernel's")
 
 
-def print_generic_plans(lib):
+def print_generic_plans(lib, user=False):
     """The generic form's launch plans of K2, K3 and K5 at
     ``GENERIC_KERNEL_CASES``' shapes in both dtypes, beside the shared
     bytes the kernel computes for them
     (``tfmpc_rollout_generic_smem_bytes``), which must agree, and the most
-    threads a block of the kernel can launch with."""
+    threads a block of the kernel can launch with; with ``user``, those of
+    ``USER_PATHS``' generated steps beside their user libraries' own sum
+    (``tfmpc_rollout_user_smem_bytes``)."""
     import torch
 
-    from tfmpc_tpu_torch.ops import rollout
+    from tfmpc_tpu_torch.ops import _build, rollout
 
-    for case, (Bn, _) in GENERIC_KERNEL_CASES.items():
+    cases = {case: v[:2] for case, v in USER_PATHS.items()} if user \
+        else GENERIC_KERNEL_CASES
+    for case, (Bn, _) in cases.items():
         for dtype in (torch.float32, torch.float64):
             env = generic_env(case, dtype)
-            step, n, m = env.device_step(), env.state_size, env.action_size
+            step = env.generic_device_step(dtype, "cuda") if user \
+                else env.device_step()
+            n, m = env.state_size, env.action_size
             a = {"dims": (Bn, 1, n, m), "dtype": dtype,
                  "env_id": step.env_id,
                  "params": [p.to(dtype=dtype, device="cuda").contiguous()
                             for p in step.params],
-                 "int_params": step.int_params}
+                 "int_params": step.int_params, "source": step.source,
+                 "work": step.work}
             pe = sum(p.numel() for p in a["params"])
+            smem_bytes = (_build.user_library(step.source)
+                          .tfmpc_rollout_user_smem_bytes if user
+                          else lib.tfmpc_rollout_generic_smem_bytes)
             for kernel in ("costs", "alpha", "traj"):
                 per = A if kernel in rollout.EVERY_ALPHA else 1
                 p = rollout.launch_plan(a, kernel, A)
-                lib_bytes = lib.tfmpc_rollout_generic_smem_bytes(
+                lib_bytes = smem_bytes(
                     0 if dtype == torch.float32 else 1, n, m, p.groups,
                     p.scenarios, p.depth, pe, p.scenarios * per)
-                print(f"  generic plan {KERNEL_NAMES[kernel]} {case} (n, m) "
+                print(f"  {'user' if user else 'generic'} plan "
+                      f"{KERNEL_NAMES[kernel]} {case} (n, m) "
                       f"= ({n}, {m}) B={Bn} {dname(dtype)}: {p.groups} "
                       f"lane(s) a rollout, {p.scenarios} scenario(s) a block "
                       f"({p.threads(per)} threads of at most "
@@ -2355,6 +2402,13 @@ COUNTERS = {
                                        "MID_DDP_BOXQP_PLAIN_CALLS"),
     "rollout_alpha_derivs_generic": ("rollout", "DERIVS_GENERIC_LAUNCHES",
                                      "DERIVS_PLAIN_CALLS"),
+    # K2, K3 and K5 on a user env's generated step functor (phase 31)
+    "linesearch_costs_user": ("rollout", "COSTS_USER_LAUNCHES",
+                              "COSTS_PLAIN_CALLS"),
+    "rollout_alpha_user": ("rollout", "ALPHA_USER_LAUNCHES",
+                           "ALPHA_PLAIN_CALLS"),
+    "linesearch_costs_traj_user": ("rollout", "TRAJ_USER_LAUNCHES",
+                                   "TRAJ_PLAIN_CALLS"),
 }
 
 
@@ -3554,15 +3608,17 @@ def generic_kinds(config, horizon, n, m):
     return {"linesearch_costs_generic", "rollout_alpha_generic"}
 
 
-def check_generic_kernels(case, dtype, Bn, Tn, timings=None, errs=None):
+def check_generic_kernels(case, dtype, Bn, Tn, timings=None, errs=None,
+                          form="generic"):
     """The generic K2, K3 and K5 at a ``GENERIC_KERNEL_CASES`` shape
     (``generic_inputs``), through the wrappers, which must launch the
-    generic form: K5 against K2 and K3 bit for bit (as ``check_k5``), each
+    generic form (``form="user"``: a ``USER_PATHS`` env's, on its generated
+    step): K5 against K2 and K3 bit for bit (as ``check_k5``), each
     against its plain version (K2 and K3 within ``TOL``; K5 within ``TOL``
     in float64 and by ``check_k5``'s share gate against the float64 plain
     version in float32), the fail masks (lanes whose J is not finite)
     identical in float64. With ``timings``, timed under
-    ``<wrapper>_generic_<case>``."""
+    ``<wrapper>_<form>_<case>``."""
     import torch
 
     from tfmpc_tpu_torch.ops import rollout
@@ -3571,20 +3627,20 @@ def check_generic_kernels(case, dtype, Bn, Tn, timings=None, errs=None):
     dn = dname(dtype)
     env, X, U, policy = generic_inputs(case, dtype, Bn, Tn)
     n, m = env.state_size, env.action_size
-    label = f"generic {case} (n, m) = ({n}, {m}) B={Bn} T={Tn}"
+    label = f"{form} {case} (n, m) = ({n}, {m}) B={Bn} T={Tn}"
     alphas = ILQRConfig().alphas_static()
     best = torch.arange(Bn, device="cuda") % A
     alpha_vec = ILQRConfig().alphas(dtype, device="cuda")[best]
-    counts = lambda: (rollout.COSTS_GENERIC_LAUNCHES,  # noqa: E731
-                      rollout.ALPHA_GENERIC_LAUNCHES,
-                      rollout.TRAJ_GENERIC_LAUNCHES)
+    counts = lambda: tuple(  # noqa: E731
+        getattr(rollout, f"{k}_{form.upper()}_LAUNCHES")
+        for k in ("COSTS", "ALPHA", "TRAJ"))
     before = counts()
     J2 = rollout.linesearch_costs(env, X, U, policy, alphas)
     X3, U3, J3 = rollout.rollout_alpha(env, X, U, policy, alpha_vec)
     J5, X5, U5 = rollout.linesearch_costs_traj(env, X, U, policy, alphas)
     if [a - b for a, b in zip(counts(), before)] != [1, 1, 1]:
         raise AssertionError(f"{label}: the wrappers did not launch the "
-                             "generic form")
+                             f"{form} form")
     sel = rollout.select_alpha_trajectory(X, X5, U5, J5, best)
     torch.cuda.synchronize()
     for what, got, want in (("K5 J vs K2", J5, J2),
@@ -3639,8 +3695,8 @@ def check_generic_kernels(case, dtype, Bn, Tn, timings=None, errs=None):
     ra = rollout.kernel_args(env, X, U, policy)
     n_params = sum(p.numel() for p in ra["params"])
     bounded = env.bounds is not None
-    env_name = GENERIC_ENV_NAMES[case]
-    costs, alpha, traj = (f"{w}_generic_{case}" for w in (
+    env_name = {**GENERIC_ENV_NAMES, **USER_ENV_NAMES}[case]
+    costs, alpha, traj = (f"{w}_{form}_{case}" for w in (
         "linesearch_costs", "rollout_alpha", "linesearch_costs_traj"))
     errs.update({costs: e2, alpha: e3, traj: e5})
     a_vec = alpha_vec.contiguous()
@@ -4407,6 +4463,379 @@ def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
     return figures
 
 
+# -- phase 31: user envs on the generated step functor ---------------------------
+
+# The user envs of phase 31, with only transition/cost/final_cost in torch:
+# the custom-env example's DampedChain at its own TPU size (d = 6, the box
+# at +-1, examples/custom_env.py) and at the dim ceiling (d = 48,
+# unbounded), and a rectangular twin of tests/test_fuzz_envs.py's
+# RandomSmoothEnv at (8, 3). Their rollouts run K2, K3 and K5 in the
+# generic form on a step functor generated from their torch step
+# (ops/env_codegen.py, csrc/rollout_user.cuh); (B, T, ILQRConfig kwargs)
+# of each path's solve.
+USER_PATHS = {
+    "chain6": (512, 40, dict(atol=1e-6, max_iterations=30, boxqp=True,
+                             use_pallas=True)),
+    "chain48": (512, 50, dict(atol=1e-6, max_iterations=30,
+                              use_pallas=True)),
+    "fuzz8x3": (1024, 50, dict(atol=1e-5, max_iterations=30,
+                               use_pallas=True)),
+}
+USER_MIN_CONVERGED = {"chain6": 0.99, "chain48": 0.99}
+USER_ENV_NAMES = {"chain6": "chain", "chain48": "chain", "fuzz8x3": "fuzz"}
+# shipped envs whose generated functor is held against the hand-written
+# one at the same shapes and plans: (B, T)
+GENERATED_VS_HANDWRITTEN = {"navigation2z": (1024, 100),
+                            "hvac6": (B_BOX, T), "reservoir5": (B_BOX, T)}
+USER_MPC_B, USER_MPC_STEPS = 256, 10
+
+
+@functools.cache
+def user_env_class(name):
+    """The example's ``DampedChain``, or a twin of
+    ``tests/test_fuzz_envs.py``'s ``RandomSmoothEnv`` over ``[..., n]``
+    (the port's env contract): x' = x + dt (A x + B u + s tanh(x)), a
+    quadratic plus tanh cost."""
+    import runpy
+    from typing import Optional
+
+    import torch
+
+    from tfmpc_tpu_torch import Bounds, Env
+
+    if name == "chain":
+        return runpy.run_path(str(ROOT / "examples" /
+                                  "torch_custom_env.py"))["DampedChain"]
+
+    @dataclasses.dataclass(frozen=True, eq=False)
+    class RandomSmoothEnv(Env):
+        A: torch.Tensor
+        B: torch.Tensor
+        s: torch.Tensor
+        Q: torch.Tensor
+        R: torch.Tensor
+        q: torch.Tensor
+        bounds: Optional[Bounds] = None
+
+        @property
+        def state_size(self):
+            return self.A.shape[0]
+
+        @property
+        def action_size(self):
+            return self.B.shape[1]
+
+        def transition(self, x, u):
+            return x + 0.1 * (x @ self.A.mT + u @ self.B.mT
+                              + self.s * torch.tanh(x))
+
+        def cost(self, x, u):
+            return (((x @ self.Q) * x).sum(-1) + ((u @ self.R) * u).sum(-1)
+                    + (self.q * torch.tanh(x)).sum(-1))
+
+        def final_cost(self, x):
+            return 2.0 * ((x @ self.Q) * x).sum(-1)
+
+    return RandomSmoothEnv
+
+
+def user_env(case, dtype, device="cuda"):
+    """The env of a ``USER_PATHS`` case: ``chain<d>`` the example's chain
+    (the box at +-1 at d = 6, as the example), ``fuzz8x3`` the fuzz twin
+    with ``test_fuzz_envs._make_env``'s values at seed 88."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch import Bounds, interop
+
+    if case.startswith("chain"):
+        d = int(case[len("chain"):])
+        C = (-2.0 * np.eye(d) + np.eye(d, k=1) + np.eye(d, k=-1)) * 0.3
+        env = interop.user_env_from_numpy(user_env_class("chain"),
+                                          {"coupling": C}, device=device,
+                                          dtype=dtype)
+        if d == 6:
+            box = torch.ones(d, dtype=dtype, device=device)
+            env = dataclasses.replace(env, bounds=Bounds(low=-box, high=box))
+        return env
+    n, m = 8, 3
+    rng = np.random.default_rng(88)
+    A = (0.2 * rng.standard_normal((n, n)) - 0.3 * np.eye(n)).astype("f4")
+    Bm = (0.8 * rng.standard_normal((n, m))).astype("f4")
+    MQ = rng.standard_normal((n, n)).astype("f4")
+    MR = rng.standard_normal((m, m)).astype("f4")
+    arrays = dict(A=A, B=Bm, s=0.3 * rng.standard_normal(n).astype("f4"),
+                  Q=MQ @ MQ.T / n + 0.1 * np.eye(n, dtype="f4"),
+                  R=MR @ MR.T / m + 0.2 * np.eye(m, dtype="f4"),
+                  q=0.5 * rng.standard_normal(n).astype("f4"))
+    return interop.user_env_from_numpy(user_env_class("fuzz"), arrays,
+                                       device=device, dtype=dtype)
+
+
+def user_kinds(config, horizon, n, m):
+    """The generated-step rollout kernels a kernel-path solve of a user env
+    runs (AUTO resolved as the solver resolves it)."""
+    from tfmpc_tpu_torch.solvers.ilqr_batched import _resolve_emit_traj
+
+    if _resolve_emit_traj(config, horizon, n, m):
+        return {"linesearch_costs_traj_user"}
+    return {"linesearch_costs_user", "rollout_alpha_user"}
+
+
+def user_x0(case, Bn, dtype, device="cuda"):
+    """A solve's initial states, ``default_rng(0)``: U(-2, 2) for the
+    chain (the example's), U(-1.5, 1.5) for the fuzz env."""
+    import numpy as np
+    import torch
+
+    n = 8 if case == "fuzz8x3" else int(case[len("chain"):])
+    lo = 1.5 if case == "fuzz8x3" else 2.0
+    x0 = np.random.default_rng(0).uniform(-lo, lo, (Bn, n)).astype("f4")
+    return torch.as_tensor(x0, dtype=dtype, device=device)
+
+
+def handwritten_inputs(case, dtype, Bn, Tn):
+    """A shipped env with a hand-written functor and a random nominal and
+    policy at (Bn, Tn): navigation with two zones (``configs/
+    navigation.json``, x0 ~ U(-10, 10)) or ``boxqp_inputs``' HVAC-6 and
+    reservoir-5."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.core.types import Policy
+    from tfmpc_tpu_torch.models.registry import load_env
+
+    if case != "navigation2z":
+        env, X, U, _, _, _, _, policy = boxqp_inputs(case, dtype, Bn, Tn)
+        return env, X, U, policy
+    env = load_env(ROOT / "configs" / "navigation.json", dtype=dtype,
+                   device="cuda")
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa
+    U = t(0.1 * rng.standard_normal((Bn, Tn, N)))
+    X, _ = env.rollout(t(rng.uniform(-10.0, 10.0, (Bn, N))), U)
+    policy = Policy(K=t(0.05 * rng.standard_normal((Bn, Tn, N, N))),
+                    k=t(0.1 * rng.standard_normal((Bn, Tn, N))))
+    return env, X, U, policy
+
+
+def generated_vs_handwritten(card):
+    """The generated functor of a shipped env's public step against its
+    hand-written functor (``envs.cuh``), both in the generic form with the
+    hand-written step's plan (G, scenarios a block, D), K2, K3 and K5 at
+    ``GENERATED_VS_HANDWRITTEN``'s shapes, f32: the outputs bit for bit
+    where the arithmetic's order matches, else within ``TOL``, printed
+    with the largest error; device times of graph replays, in turns
+    (hand-written, generated, generated, hand-written; best of two)."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import _build, rollout
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    out = {}
+    alphas = ILQRConfig().alphas_static()
+    for case, (Bn, Tn) in GENERATED_VS_HANDWRITTEN.items():
+        env, X, U, policy = handwritten_inputs(case, torch.float32, Bn, Tn)
+        n, m = env.state_size, env.action_size
+        hand = rollout.kernel_args(env, X, U, policy)
+        gen = rollout.kernel_args(env, X, U, policy,
+                                  step=env.generic_device_step(
+                                      torch.float32, "cuda"))
+        a_vec = ILQRConfig().alphas(torch.float32, device="cuda")[
+            torch.arange(Bn, device="cuda") % A].contiguous()
+        opts = dict(dtype=torch.float32, device="cuda")
+        for kind in ("costs", "alpha", "traj"):
+            per = A if kind in rollout.EVERY_ALPHA else 1
+            # the hand-written step's plan, which both instantiations can
+            # launch (their registers bound their threads apart)
+            threads = min(rollout.kernel_max_threads(kind, a, generic=True)
+                          for a in (hand, gen))
+            ph = rollout._generic_plan(
+                kind, hand["env_id"], n, m, Bn, per, torch.float32,
+                sum(p.numel() for p in hand["params"]), None, None, None,
+                threads)
+            pg = rollout._generic_plan(
+                kind, gen["env_id"], n, m, Bn, per, torch.float32,
+                sum(p.numel() for p in gen["params"]), ph.groups,
+                ph.scenarios, ph.depth, threads)
+
+            def launcher(a, plan):
+                if kind == "costs":
+                    outs = (torch.empty((A, Bn), **opts),)
+                    return outs, lambda: rollout._launch_generic(
+                        a, kind, plan, outs[0], alphas=alphas)
+                if kind == "alpha":
+                    outs = (torch.empty((Tn, n, Bn), **opts),
+                            torch.empty((Tn, m, Bn), **opts),
+                            torch.empty((Bn,), **opts))
+                    return outs, lambda: rollout._launch_generic(
+                        a, kind, plan, outs[2], outs[0], outs[1],
+                        alpha=a_vec)
+                outs = (torch.empty((A, Bn), **opts),
+                        torch.empty((Tn, A * n, Bn), **opts),
+                        torch.empty((Tn, A * m, Bn), **opts))
+                return outs, lambda: rollout._launch_generic(
+                    a, kind, plan, *outs, alphas=alphas)
+
+            outs_h, run_h = launcher(hand, ph)
+            outs_g, run_g = launcher(gen, pg)
+            _build.check(run_h(), f"hand-written {kind}")
+            rollout._check_generic(run_g(), f"generated {kind}", gen)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, h) for g, h in zip(outs_g, outs_h))
+            err = max(compare(f"generated vs hand-written "
+                              f"{KERNEL_NAMES[kind]} {case} output {i}", g,
+                              h, "float32")
+                      for i, (g, h) in enumerate(zip(outs_g, outs_h)))
+            t_h = [graph_ms(run_h, 10)]
+            t_g = [graph_ms(run_g, 10), graph_ms(run_g, 10)]
+            t_h.append(graph_ms(run_h, 10))
+            out[f"{KERNEL_NAMES[kind]}_{case}"] = {
+                "handwritten_ms": min(t_h), "generated_ms": min(t_g),
+                "bitwise_equal": same, "max_abs_err": err,
+                "plan": [pg.groups, pg.scenarios, pg.depth],
+                "param_values": [sum(p.numel() for p in a["params"])
+                                 for a in (hand, gen)]}
+            print(f"  {KERNEL_NAMES[kind]} {case} (B={Bn}, T={Tn}, (n, m) = "
+                  f"({n}, {m}), f32, G={pg.groups}, {pg.scenarios} a block, "
+                  f"D={pg.depth}): hand-written {min(t_h):.4f} ms, "
+                  f"generated {min(t_g):.4f} ms, ratio "
+                  f"{min(t_g) / min(t_h):.2f}; outputs bitwise equal {same},"
+                  f" max abs err {err:.3e} [{card}]")
+    return out
+
+
+def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
+    """Phase 31: user envs on the generated step functor. Builds the user
+    libraries of ``USER_PATHS``' envs (f32 and f64) and of the generated
+    functors of navigation, HVAC-6 and reservoir-5 (f32), one nvcc each,
+    all started together; holds the generated K2, K3 and K5 against their
+    plain versions at each path's shape (``check_user_kernels``, timed in
+    f32) and against the hand-written functors
+    (``generated_vs_handwritten``); then each ``USER_PATHS`` solve on AUTO,
+    counted (the routed Riccati kernel and the generated-step rollouts
+    only, no plain version), against its plain path and on the other
+    line-search layout; then the example script itself, an MPC run of the
+    example's env and its solve through the one-process data-parallel
+    mesh, counted. Returns its figures."""
+    import runpy
+
+    import torch
+
+    from tfmpc_tpu_torch.ops import _build, rollout
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    figures = {"paths": {}}
+    sources = {(case, dname(dtype)): user_env(case, dtype, "cpu")
+               .generic_device_step(dtype, "cpu").source
+               for case in USER_PATHS
+               for dtype in (torch.float32, torch.float64)}
+    for case in GENERATED_VS_HANDWRITTEN:
+        env = handwritten_inputs(case, torch.float32, 2, 2)[0]
+        sources[case, "float32"] = env.generic_device_step(
+            torch.float32, "cuda").source
+    for (case, dn), source in sources.items():
+        print(f"  user library of {case} [{dn}]: "
+              f"{_build.user_library_path(source).parent.name}")
+    sources = list(sources.values())
+    t0 = time.perf_counter()
+    log = _build.build_user_libraries(sources)
+    figures["build_s"] = time.perf_counter() - t0
+    print(f"user libraries: {len(sources)} built in {figures['build_s']:.1f}"
+          " s")
+    print_ptxas(log)
+    print_build_times(log)
+    print_generic_plans(None, user=True)
+    for case, (Bn, Tn, _) in USER_PATHS.items():
+        for dtype in (torch.float32, torch.float64):
+            f32 = (timings, errs) if dtype == torch.float32 else ()
+            check_generic_kernels(case, dtype, Bn, Tn, *f32, form="user")
+    print("generated vs hand-written functors, f32:")
+    figures["generated_vs_handwritten"] = generated_vs_handwritten(card)
+    phase.done("31a. the generated-step kernels vs plain versions")
+
+    for label, (Bn, Tn, cfg) in USER_PATHS.items():
+        env = user_env(label, torch.float32)
+        n, m = env.state_size, env.action_size
+        x0 = user_x0(label, Bn, torch.float32)
+        config = ILQRConfig(**cfg)
+        mode = ilqr_batched._riccati_kernel_mode(n, m, config, "cuda")
+        backward = {"lane": "riccati_backward",
+                    "mid": "riccati_backward_mid"}[mode] + (
+            "_boxqp" if config.boxqp and env.bounds is not None else "")
+        emit = ilqr_batched._resolve_emit_traj(config, Tn, n, m)
+        layout, other = ("emit", "two_kernel") if emit else ("two_kernel",
+                                                             "emit")
+        print(f"user path {label}, (n, m) = ({n}, {m}), B={Bn}, T={Tn}, "
+              f"f32, AUTO's layout {layout}:")
+        run = solver(env, x0, Tn, config)
+        run()
+        res, launches, plain = counted(run)
+        launches_by_path[f"user_{label}_{layout}"] = launches
+        require_path(f"{label} solve", launches, plain,
+                     {backward} | user_kinds(config, Tn, n, m))
+        conv = check_result(label, res, Bn, n, Tn, m)
+        floor = USER_MIN_CONVERGED.get(label)
+        if floor is not None and conv < floor:
+            raise AssertionError(f"{label}: converged {conv:.4f} < {floor}")
+        plain_s[f"user_{label}"] = agree_with_plain(label, res, solver(
+            env, x0, Tn, dataclasses.replace(config, use_pallas=False)))
+        other_cfg = dataclasses.replace(config,
+                                        linesearch_emit_trajectories=not emit)
+        launches_by_path[f"user_{label}_{other}"] = layouts_agree(
+            label, res, solver(env, x0, Tn, other_cfg), backward,
+            line_search=tuple(user_kinds(other_cfg, Tn, n, m)),
+            what=f"the {other} layout")
+        if env.bounds is not None:
+            lo, hi = env.bounds.low, env.bounds.high
+            inside = bool(((res.actions >= lo) & (res.actions <= hi)).all())
+            print(f"  {label}: every control inside the box {inside} (gate)")
+            if not inside:
+                raise AssertionError(f"{label}: a control left the box")
+        figures["paths"][label] = {
+            "converged": conv, "failed": float(res.failed.float().mean()),
+            "mean_iterations": float(res.iterations.float().mean()),
+            "mean_cost": float(res.total_cost.double().mean()),
+            "auto_layout": layout}
+
+    example = runpy.run_path(str(ROOT / "examples" / "torch_custom_env.py"))
+    print("examples/torch_custom_env.py on the card:")
+    _, launches, _ = counted(lambda: example["main"]([]))
+    launches_by_path["user_example_script"] = launches
+    if not (launches["linesearch_costs_traj_user"] > 0
+            and launches["riccati_backward_boxqp"] > 0):
+        raise AssertionError(f"the example did not run K4 and the generated "
+                             f"K5: {launches}")
+    print(f"  launches {launches}")
+    from tfmpc_tpu_torch.solvers import mpc
+
+    env = user_env("chain6", torch.float32)
+    config = ILQRConfig(**USER_PATHS["chain6"][2])
+    x0 = user_x0("chain6", USER_MPC_B, torch.float32)
+    res, launches, plain = counted(lambda: mpc.run(
+        env, x0, steps=USER_MPC_STEPS, plan_horizon=20, config=config))
+    launches_by_path["user_chain6_mpc"] = launches
+    require_path(f"chain6 MPC ({USER_MPC_B} x0, {USER_MPC_STEPS} steps)",
+                 launches, plain, {"riccati_backward_boxqp"}
+                 | user_kinds(config, 20, 6, 6))
+    if not bool(torch.isfinite(res.total_cost).all()):
+        raise AssertionError("chain6 MPC: non-finite realized cost")
+    figures["mpc_mean_cost"] = float(res.total_cost.double().mean())
+    print(f"  realized mean cost {figures['mpc_mean_cost']:.6f}")
+    from tfmpc_tpu_torch.parallel import mesh
+
+    res, launches, plain = counted(lambda: mesh.solve_ilqr_sharded(
+        env, x0, horizon=20, config=config))
+    launches_by_path["user_chain6_mesh"] = launches
+    require_path(f"chain6 one-process mesh ({USER_MPC_B} x0, T=20)",
+                 launches, plain, {"riccati_backward_boxqp"}
+                 | user_kinds(config, 20, 6, 6))
+    check_result("chain6 mesh", res, USER_MPC_B, 6, 20)
+    phase.done("31b. user env solves, the example, MPC and the mesh")
+    return figures
+
+
 def main() -> int:
     if not (ROOT / "tfmpc_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: tfmpc_tpu_torch/ not found beside "
@@ -4719,6 +5148,8 @@ def main() -> int:
                                     plain_s, card)
     h_figures = slice_h(phase, timings, errs, launches_by_path, plain_s,
                         rates, card)
+    user_figures = slice_user(phase, timings, errs, launches_by_path,
+                              plain_s, card)
 
     for name, value in timings.items():
         if name.endswith("_select_ms"):
@@ -4824,6 +5255,16 @@ def main() -> int:
         name = "riccati_backward_mid" + ("_boxqp" if case.endswith("_box")
                                          else "")
         sources[f"{name}_{label}"] = (mid_cu, k7_tpu, label, name)
+    # phase 31: the generated-step K2, K3 and K5 at each user path's shape:
+    # K5 counted in its AUTO solve, K2 and K3 in its two-kernel solve
+    user_cu = "tfmpc_tpu_torch/ops/csrc/rollout_user.cuh"
+    for label in USER_PATHS:
+        for wrapper, tpu, layout in (
+                ("linesearch_costs_traj", k5_tpu, "emit"),
+                ("linesearch_costs", k2_tpu, "two_kernel"),
+                ("rollout_alpha", k3_tpu, "two_kernel")):
+            sources[f"{wrapper}_user_{label}"] = (
+                user_cu, tpu, f"user_{label}_{layout}", f"{wrapper}_user")
     kernels = []
     for name, (src, replaces, path, counter) in sources.items():
         k_ms, w_ms, p_ms, (b_ms, b_by), *lib = timings[name]
@@ -4869,6 +5310,7 @@ def main() -> int:
                           for k, v in timings.items()
                           if k.endswith("_generic_linear24x6")}},
                       "phase30": h_figures,
+                      "phase31": user_figures,
                       "phase_s": phase.seconds,
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))

@@ -2,14 +2,12 @@
 
 The port of ``examples/custom_env.py``. Any env with ``transition`` /
 ``cost`` / ``final_cost`` over ``[..., n]`` / ``[..., m]`` tensors is a full
-citizen: derivatives come from ``torch.func`` autodiff, and bounds turn on
-control-limited DDP (``boxqp=True``).
-
-The CUDA rollout kernels run only the steps compiled into them
-(``Env.device_step``), and a user env has none (ROADMAP queue 2 item 3:
-the JAX package's generic lane adapter has no CUDA counterpart yet). With
-``use_pallas=True`` on the card such an env raises, so this example solves
-with ``use_pallas=False``, the plain PyTorch path, on any device.
+citizen: derivatives come from ``torch.func`` autodiff, bounds turn on
+control-limited DDP (``boxqp=True``), and its step, traced and compiled
+into a step functor at the first launch (``Env.generic_device_step``),
+gives it the CUDA rollout kernels on the card with no extra code
+(``use_pallas=True``), as the JAX package's generic lane adapter gives it
+the Pallas kernels on a TPU. On the CPU the solve takes the plain path.
 
 Run: python examples/torch_custom_env.py            (on the card)
      python examples/torch_custom_env.py --device cpu
@@ -63,21 +61,21 @@ def main(argv=None):
         bounds=Bounds(low=torch.full((d,), -1.0, device=device),
                       high=torch.full((d,), 1.0, device=device)),
     )
-    # no device step for a user env: the plain path (see the docstring)
-    config = ILQRConfig(atol=1e-6, max_iterations=30, boxqp=True,
-                        use_pallas=False)
-    print("use_pallas=False: a user env has no device step for the CUDA "
-          "rollout kernels (ROADMAP queue 2 item 3)")
-
     # single scenario, control-limited DDP
     x0 = torch.linspace(-1.5, 1.5, d, device=device)
-    res = ilqr.solve(env, x0, horizon=T, config=config)
+    res = ilqr.solve(env, x0, horizon=T,
+                     config=ILQRConfig(atol=1e-6, max_iterations=30,
+                                       boxqp=True))
     print(f"single solve: converged={bool(res.converged)} "
           f"cost={float(res.total_cost):.4f} "
           f"iterations={int(res.iterations)}")
     print(f"  max |u| = {float(res.actions.abs().max()):.3f} (bound 1.0)")
 
-    # a scenario batch in one batched solve
+    # a scenario batch in one batched solve: the CUDA kernels on the card,
+    # the rollouts on the env's generated step
+    config = ILQRConfig(atol=1e-6, max_iterations=30, boxqp=True,
+                        use_pallas=not cpu)
+    print(f"use_pallas={config.use_pallas}")
     x0_batch = torch.as_tensor(
         np.random.default_rng(0).uniform(-2, 2, size=(B, d)).astype("f4"),
         device=device)

@@ -27,9 +27,7 @@ def _one_torch_thread():
 
 
 @pytest.mark.parametrize("name,expect", [
-    ("torch_custom_env.py", ["batched solve",
-                             "use_pallas=False: a user env has no device "
-                             "step", "ROADMAP queue 2 item 3"]),
+    ("torch_custom_env.py", ["batched solve", "use_pallas=False"]),
     ("torch_mpc_closed_loop.py", ["closed-loop final state: [8.000, -5.000]"]),
     ("torch_distributed_solve.py", ["device(s)",
                                     "128 scenarios over 1 device(s)",

@@ -49,7 +49,9 @@ def _linear(n, m, dtype=torch.float64):
 
 
 class _NoStep(Env):
-    """An env with no device step (a user env), at any dims."""
+    """An env that opts out of the rollout kernels (``device_step()``
+    returns None, the JAX package's ``lane_functions() -> None``), at any
+    dims."""
 
     def __init__(self, n):
         self.n = n
@@ -57,6 +59,30 @@ class _NoStep(Env):
     @property
     def state_size(self):
         return self.n
+
+    def device_step(self):
+        return None
+
+
+class _Chain(Env):
+    """A user env with only the public step (``device_step()`` is its
+    generated step)."""
+
+    def __init__(self, n):
+        self.C = 0.3 * torch.eye(n, dtype=torch.float64)
+
+    @property
+    def state_size(self):
+        return self.C.shape[0]
+
+    def transition(self, x, u):
+        return x + 0.1 * (x @ self.C.T - 0.02 * x**3 + u)
+
+    def cost(self, x, u):
+        return (x * x).sum(-1) + 0.1 * (u * u).sum(-1)
+
+    def final_cost(self, x):
+        return 5.0 * (x * x).sum(-1)
 
 
 def test_rollout_rule_at_the_dim_ceiling():
@@ -74,10 +100,35 @@ def test_rollout_rule_at_the_dim_ceiling():
     assert use(_linear(2, 2), cfg, "cpu") is True
     assert use(_linear(2, 2), dataclasses.replace(cfg, use_pallas=False),
                "cuda") is False
-    # a user env below the ceiling raises on the card (queue 2 item 3)
-    with pytest.raises(NotImplementedError, match="no device step"):
-        use(_NoStep(6), cfg, "cuda")
+    # below it an env that opts out keeps the plain rollout on the card
+    # too, and a user env takes the kernels on its generated step
+    assert use(_NoStep(6), cfg, "cuda") is False
     assert use(_NoStep(6), cfg, "cpu") is False
+    assert use(_Chain(6), cfg, "cuda") is True
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_device_step_none_takes_the_plain_rollout_on_every_device(device):
+    """The JAX package's documented opt-out, ``lane_functions() -> None``,
+    sends an env to its XLA rollout on every backend. The port's
+    ``device_step() -> None`` raised on CUDA with ``use_pallas=True``; it
+    now keeps the plain rollout there too (``_use_pallas_rollout``, and the
+    split iteration in ``_use_fused_derivs``), while a direct
+    ``kernel_layout`` call still raises, naming the opt-out."""
+    cfg = ilqr.ILQRConfig(use_pallas=True)
+    fused = dataclasses.replace(cfg, fuse_derivatives=True)
+    env = _NoStep(6)
+    assert ilqr_batched._use_pallas_rollout(env, cfg, device) is False
+    assert ilqr_batched._use_fused_derivs(env, fused, device) is False
+    chain = _Chain(3)
+    X = torch.zeros(2, 4, 3, dtype=torch.float64)
+    U = torch.zeros(2, 3, 3, dtype=torch.float64)
+    policy = ilqr.backward(*ilqr.derivatives(chain, X, U),
+                           torch.zeros(2, dtype=torch.float64), cfg)[1]
+    with pytest.raises(NotImplementedError, match="device_step"):
+        rollout.kernel_layout(env, X, U, policy)
+    a = rollout.kernel_layout(chain, X, U, policy)
+    assert a["env_id"] == rollout.USER_STEP_ID and "UserStep" in a["source"]
 
 
 def _env_at(kind, n, dtype=torch.float64):

@@ -1,0 +1,125 @@
+"""User envs through the rollout kernels' path, against the JAX package.
+
+The port of ``tests/test_fuzz_envs.py``'s properties 1 and 4 for the
+generated step functor (``Env.generic_device_step``): a user env with only
+``transition``/``cost``/``final_cost`` solves with ``use_pallas=True``
+through K5's wrapper (AUTO's line search) on its generated step's layout.
+On the CPU the wrappers run their plain versions; on the card the same call
+launches the generic kernel with the generated functor. Each solve is held,
+in float64, against the JAX package's ``solve_batch(use_pallas=True)`` on
+the same env (carried across with ``interop.user_env_from_numpy``):
+identical converged and failed masks, controls within 1e-8, costs within
+1e-10 relative, and a bounded solve's controls inside the box exactly. The
+custom-env example's ``DampedChain`` runs unbounded at B=128, so that the
+JAX package runs its rollout kernels on the generic lane adapter in
+interpret mode (they take B % 128 == 0); the fuzz envs and the bounded
+chain at B=8, where the JAX package's rollouts are XLA's with either
+``use_pallas``. The bounded cases hold against its ``use_pallas=False``
+solve: its boxQP Riccati kernel in interpret mode takes 100-250 s a solve
+on a CPU, and the port's backward on the CPU is the plain one either way.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tfmpc_tpu.solvers import ilqr as jilqr
+from tfmpc_tpu_torch import Bounds
+from tfmpc_tpu_torch.models.base import USER_STEP_ID
+from tfmpc_tpu_torch.ops import rollout
+from tfmpc_tpu_torch.parallel import mesh
+from tfmpc_tpu_torch.solvers import ilqr, mpc
+
+import test_fuzz_envs
+from test_torch_env_codegen import _chain, _fuzz_envs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _bounded_chain(d):
+    """The example's chain at d with its box at +-1 in both packages."""
+    jenv, tenv = _chain(d)
+    box = np.ones(d)
+    jenv = dataclasses.replace(jenv, bounds=test_fuzz_envs.Bounds(
+        low=jnp.asarray(-box), high=jnp.asarray(box)))
+    tenv = dataclasses.replace(tenv, bounds=Bounds(
+        low=torch.as_tensor(-box), high=torch.as_tensor(box)))
+    return jenv, tenv
+
+
+# label -> (a maker of (JAX env, port env), box half-width or None, B, T,
+# the JAX solve's use_pallas)
+CASES = {
+    "damped_chain": (lambda: _chain(4), None, 128, 8, True),
+    "damped_chain_boxqp": (lambda: _bounded_chain(4), 1.0, 8, 8, False),
+    **{f"fuzz_{seed}_{n}x{m}": (
+        lambda seed=seed, n=n, m=m, b=b: _fuzz_envs(seed, n, m, b),
+        0.7 if b else None, 8, 8, not b)
+       for seed, n, m, b in test_fuzz_envs.CASES},
+}
+
+
+@pytest.mark.parametrize("label", list(CASES))
+def test_solve_batch_on_the_generated_step_matches_jax(label):
+    build, box, B, T, jax_pallas = CASES[label]
+    jenv, tenv = build()
+    n, m = tenv.state_size, tenv.action_size
+    step = tenv.device_step()
+    assert step.env_id == USER_STEP_ID and "UserStep" in step.source
+    x0 = np.random.default_rng(1000 + B).uniform(-1.5, 1.5, (B, n))
+    kw = dict(atol=1e-5, max_iterations=10, boxqp=box is not None)
+    res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=T,
+                              config=jilqr.ILQRConfig(**kw,
+                                                      use_pallas=jax_pallas))
+    before = (rollout.TRAJ_PLAIN_CALLS, rollout.COSTS_PLAIN_CALLS)
+    res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=T,
+                             config=ilqr.ILQRConfig(**kw, use_pallas=True))
+    # the line search went through K5's wrapper (AUTO's layout), on the
+    # generated step's kernel layout
+    assert rollout.TRAJ_PLAIN_CALLS > before[0]
+    assert rollout.COSTS_PLAIN_CALLS == before[1]
+    a = rollout.kernel_layout(tenv, res_t.states, res_t.actions,
+                              ilqr.backward(*ilqr.derivatives(
+                                  tenv, res_t.states, res_t.actions),
+                                  torch.zeros(B, dtype=torch.float64),
+                                  ilqr.ILQRConfig())[1])
+    assert a["env_id"] == USER_STEP_ID and a["source"] == step.source
+    for f in ("converged", "failed"):
+        np.testing.assert_array_equal(getattr(res_t, f).numpy(),
+                                      np.asarray(getattr(res_j, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(res_t.actions.numpy(),
+                               np.asarray(res_j.actions), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(res_t.total_cost.numpy(),
+                               np.asarray(res_j.total_cost), rtol=1e-10)
+    if box is not None:
+        U = res_t.actions.numpy()
+        assert U.max() <= box and U.min() >= -box
+
+
+def test_mpc_and_the_mesh_run_the_generated_step():
+    """``mpc.run`` and the one-process data-parallel mesh take a user env
+    through the same kernel path: K5's wrapper on its generated step, and
+    the mesh's solve equals ``solve_batch``'s bit for bit."""
+    _, env = _bounded_chain(3)
+    x0 = torch.as_tensor(np.random.default_rng(3).uniform(-1.5, 1.5, (4, 3)))
+    cfg = ilqr.ILQRConfig(atol=1e-6, max_iterations=10, boxqp=True,
+                          use_pallas=True)
+    before = rollout.TRAJ_PLAIN_CALLS
+    res = mpc.run(env, x0, steps=2, plan_horizon=5, config=cfg)
+    assert rollout.TRAJ_PLAIN_CALLS > before
+    assert bool(torch.isfinite(res.total_cost).all())
+    want = ilqr.solve_batch(env, x0, horizon=5, config=cfg)
+    got = mesh.solve_ilqr_sharded(env, x0, horizon=5, config=cfg,
+                                  mesh=mesh.make_mesh(devices="cpu"))
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name

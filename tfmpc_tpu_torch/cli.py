@@ -109,9 +109,10 @@ def _log_batched_trace(trace, result) -> None:
 
 def build_ilqr_config(**kwargs):
     """The solver config the commands run with: ``use_pallas`` defaults to
-    True, so the command line runs the CUDA kernels on the card. An env
-    without a device step (a user env) raises ``NotImplementedError``
-    there (ROADMAP queue 2 item 3); ``--no-pallas`` selects the plain
+    True, so the command line runs the CUDA kernels on the card. A user
+    env's rollouts run on a step functor generated from its PyTorch step
+    (``Env.generic_device_step``), and a step the generator cannot express
+    raises ``NotImplementedError``; ``--no-pallas`` selects the plain
     path."""
     from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
 
@@ -406,10 +407,10 @@ def _common(p, run, *, samples_help, seed_help="(default: 0)"):
 
 PALLAS_HELP = (
     "--pallas (the default) runs the hand-written CUDA kernels on the card "
-    "(the name is the JAX package's switch). An env without a device step "
-    "(a user env) raises NotImplementedError (ROADMAP queue 2 item 3); "
-    "there is no automatic fallback. --no-pallas selects the plain PyTorch "
-    "path.")
+    "(the name is the JAX package's switch); a user env's rollouts run on "
+    "a step functor generated from its PyTorch step, and a step the "
+    "generator cannot express raises NotImplementedError; there is no "
+    "automatic fallback. --no-pallas selects the plain PyTorch path.")
 
 
 def parser() -> argparse.ArgumentParser:

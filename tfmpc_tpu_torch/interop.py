@@ -48,6 +48,26 @@ def env_from_numpy(name: str, arrays: dict, *, device="cuda",
     return cls(**fields, bounds=bounds)
 
 
+def user_env_from_numpy(cls, arrays: dict, bounds=None, *, device="cuda",
+                        dtype=torch.float32):
+    """A user env of the dataclass ``cls`` from the JAX user env's field
+    arrays: each field of ``cls`` but ``bounds`` that ``arrays`` names
+    becomes a tensor (numpy arrays and lists) or is passed as it is (Python
+    scalars); ``bounds`` is None or ``(low, high)`` arrays of the action
+    size."""
+    t = lambda a: torch.tensor(  # noqa: E731
+        np.asarray(a), dtype=dtype, device=device)
+    fields = {}
+    for f in dataclasses.fields(cls):
+        if f.name == "bounds" or f.name not in arrays:
+            continue
+        v = arrays[f.name]
+        fields[f.name] = t(v) if isinstance(v, (np.ndarray, list)) else v
+    if bounds is not None:
+        fields["bounds"] = Bounds(low=t(bounds[0]), high=t(bounds[1]))
+    return cls(**fields)
+
+
 def navigation_from_numpy(goal, centers, decays, low=None, high=None, *,
                           device="cuda", dtype=torch.float32) -> Navigation:
     """A ``Navigation`` env from the JAX env's parameter arrays."""

@@ -7,10 +7,14 @@ leading batch dims. The generic linearization is forward-mode autodiff
 leading axis with ``torch.func.vmap``: the semantics oracle for an env's
 closed-form ``analytic_derivatives``.
 
-``device_step`` replaces the JAX package's ``lane_functions`` hook: an env
-whose step is compiled into the CUDA rollout kernels (``ops/csrc/envs.cuh``)
-names it there, and every other env keeps the plain PyTorch rollout.
-``device_derivatives`` replaces ``lane_derivatives`` in the same way.
+``device_step`` replaces the JAX package's ``lane_functions`` hook: a
+shipped env names its hand-written step functor (``ops/csrc/envs.cuh``),
+and every other env gets by default a functor generated from a trace of
+its public ``transition``/``cost``/``final_cost``
+(``generic_device_step``, ``ops/env_codegen.py``), as the JAX package's
+``lane_functions`` defaults to ``generic_lane_functions``. An env whose
+``device_step`` returns None keeps the plain PyTorch rollout.
+``device_derivatives`` replaces ``lane_derivatives``.
 """
 
 from __future__ import annotations
@@ -29,17 +33,28 @@ from tfmpc_tpu_torch.core.types import (
 )
 
 
+# The env_id of a generated step functor (``Env.generic_device_step``):
+# compiled from its ``DeviceStep.source`` into a library of its own
+# (``ops/_build.py`` ``user_library``), not selected in ``envs.cuh``.
+USER_STEP_ID = 4
+
+
 class DeviceStep(NamedTuple):
     """An env step compiled into the CUDA rollout kernels.
 
-    ``env_id`` selects the step functor in ``ops/csrc/envs.cuh``;
-    ``params`` are its parameter tensors and ``int_params`` its integer
-    sizes, in the order that functor reads them.
+    ``env_id`` selects the step functor in ``ops/csrc/envs.cuh``, or is
+    ``USER_STEP_ID`` for the functor generated in ``source``, whose
+    ``work`` a step is ``(serial, row)`` (the statements a lane runs whole,
+    ``prep`` and the stage cost, and those of one row; the launch plans
+    read it); ``params`` are its parameter tensors and ``int_params`` its
+    integer sizes, in the order that functor reads them.
     """
 
     env_id: int
     params: Tuple[torch.Tensor, ...]
     int_params: Tuple[int, ...]
+    source: Optional[str] = None
+    work: Optional[Tuple[int, int]] = None
 
 
 class Env:
@@ -155,9 +170,29 @@ class Env:
         return None
 
     def device_step(self) -> Optional[DeviceStep]:
-        """The env's step compiled into the CUDA rollout kernels, or None
-        (then the rollout kernels are not eligible for this env)."""
-        return None
+        """The env's step compiled into the CUDA rollout kernels: by
+        default ``generic_device_step()``. Return None to keep this env's
+        rollouts on the plain PyTorch path on every device (the JAX
+        package's ``lane_functions() -> None``)."""
+        return self.generic_device_step()
+
+    def generic_device_step(self, dtype=None, device=None) -> DeviceStep:
+        """A step functor generated from this env's ``transition``,
+        ``cost`` and ``final_cost`` (``ops/env_codegen.py``): traced on one
+        scenario at ``dtype`` on ``device`` (by default those of the env's
+        first floating tensor), once per env instance. Raises
+        ``NotImplementedError`` for a step it cannot express. The rollout
+        kernels trace it again at each call's own dtype."""
+        from tfmpc_tpu_torch.ops import env_codegen
+
+        if dtype is None or device is None:
+            fields = vars(self).values() if hasattr(self, "__dict__") else ()
+            t = next((v for v in fields if isinstance(v, torch.Tensor)
+                      and v.is_floating_point()), None)
+            dtype = dtype or (torch.get_default_dtype() if t is None
+                              else t.dtype)
+            device = device or ("cpu" if t is None else t.device)
+        return env_codegen.device_step(self, dtype, device)
 
     def device_derivatives(self) -> Optional[DeviceStep]:
         """The env's step functor that also has a closed-form device

@@ -8,6 +8,11 @@ build runs at the first launch, never at import, and is cached in
 rebuilds and an unchanged one loads at once. Nothing is downloaded and no
 PyTorch header is compiled (such a build takes minutes instead of seconds).
 
+A user env's generated step functor (``ops/env_codegen.py``) is compiled
+apart, one library a generated source (``user_library``): one ``nvcc`` of
+``csrc/rollout_user.cuh`` with the source as ``user_step.cuh``, cached in
+``ops/_build/user/`` under a hash of the source, the headers and the flags.
+
 Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
 """
@@ -27,6 +32,7 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+USER_DIR = BUILD_DIR / "user"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -225,10 +231,89 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(rc: int, what: str) -> None:
-    """Raise if a C entry returned a non-zero CUDA error code."""
+# the C entries of a user library (csrc/rollout_user.cuh)
+_USER_SIGNATURES = {
+    # tfmpc_rollout_generic's arguments without env
+    "tfmpc_rollout_user": [_I] * 6 + [_P] * 7 + [_I, _P, _P, _I, _P, _I]
+    + [_P] * 4 + [_I, _I, _I, _LL, _P],
+}
+
+
+def user_library_path(source: str) -> Path:
+    """Where the user library of the generated functor ``source`` lives:
+    keyed by the source, the ``csrc`` headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(source.encode())
+    for p in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return USER_DIR / h.hexdigest()[:16] / "libtfmpc_user.so"
+
+
+def build_user_libraries(sources) -> str:
+    """Build the user libraries of the generated functors ``sources`` that
+    are not built yet, one nvcc each, all started together. Returns nvcc's
+    output (ptxas lines included), then one ``nvcc wall s`` line a build;
+    raises with nvcc's text if one fails."""
+    todo = {}
+    for source in sources:
+        so = user_library_path(source)
+        if not so.exists():
+            todo[so] = source
+    if not todo:
+        return ""
+    nvcc = _nvcc()
+    cmds, tmps = [], []
+    for so, source in todo.items():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        (so.parent / "user_step.cuh").write_text(
+            "#pragma once\n" + source)
+        cu = so.parent / f"rollout_user_{so.parent.name}.cu"
+        cu.write_text('#include "rollout_user.cuh"\n')
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        tmps.append(tmp)
+        cmds.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-I",
+                     str(so.parent), "-shared", "-o", str(tmp), str(cu)])
+    try:
+        log = _run_all(cmds, USER_DIR / f"build.{os.getpid()}")
+    except BaseException:
+        for tmp in tmps:
+            tmp.unlink(missing_ok=True)
+        raise
+    for so, tmp in zip(todo, tmps):
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+    return log
+
+
+@functools.lru_cache(maxsize=None)
+def user_library(source: str) -> ctypes.CDLL:
+    """The loaded library of K2, K3 and K5 on the generated step functor
+    ``source`` (``csrc/rollout_user.cuh``), built at its first use."""
+    build_user_libraries([source])
+    lib = ctypes.CDLL(str(user_library_path(source)))
+    for name, argtypes in _USER_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    # kind, dtype, n, m, params, n_params, int_params, n_int
+    lib.tfmpc_rollout_user_max_threads.argtypes = [_I] * 4 + [_P, _I, _P,
+                                                              _I]
+    lib.tfmpc_rollout_user_max_threads.restype = ctypes.c_int
+    # as tfmpc_rollout_generic_smem_bytes
+    lib.tfmpc_rollout_user_smem_bytes.argtypes = [_I] * 8
+    lib.tfmpc_rollout_user_smem_bytes.restype = ctypes.c_longlong
+    lib.tfmpc_rollout_user_error_string.argtypes = [ctypes.c_int]
+    lib.tfmpc_rollout_user_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, what: str, lib: ctypes.CDLL | None = None) -> None:
+    """Raise if a C entry returned a non-zero CUDA error code (``lib``: a
+    user library's entry; by default the kernel library's)."""
     if rc != 0:
-        msg = library().tfmpc_error_string(rc).decode()
+        msg = (library().tfmpc_error_string(rc) if lib is None
+               else lib.tfmpc_rollout_user_error_string(rc)).decode()
         raise RuntimeError(f"{what}: kernel launch failed ({rc}: {msg})")
 
 

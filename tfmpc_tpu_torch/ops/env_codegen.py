@@ -1,0 +1,885 @@
+"""Trace a user env's PyTorch step into a step functor for the rollout kernels.
+
+Counterpart of the JAX package's ``Env.generic_lane_functions``
+(``tfmpc_tpu/models/base.py``), which vmaps an env's public ``transition``,
+``cost`` and ``final_cost`` over the lanes and traces them into the body of
+its Pallas rollout kernels. Here the three are traced on one scenario
+(``x [n]``, ``u [m]``) with ``make_fx`` in fake mode, at the call's dtype
+and dims, into a graph of plain aten ops (no ``torch.compile``, no Inductor,
+no Triton), and the graph is emitted as C++ source for a functor in the
+contract of ``csrc/envs.cuh``: ``stage_cost``, ``final_cost``, ``Pre
+prep(x)``, ``row(pre, i, x, u, x_i, u_i)``, ``param_elems()`` and
+``each_param(f)``, over ``Dims<kAnyDim>``. ``csrc/rollout_user.cuh``
+compiles it into the generic rollout kernel's K2, K3 and K5
+(``_build.user_library``).
+
+Every tensor the step reads from the env (a ``_tensor_constant`` of the
+trace) is a parameter array: a pointer the kernel copies into shared memory
+once a block, read at launch. So the source depends on the graph, the
+shapes and the dtype only, never on the parameter values, and a new env
+instance with other values reuses the build. Python scalars in the step are
+literals cast to the operation's dtype, as torch's type promotion casts
+them.
+
+The functor evaluates each node lazily at the index it is read at: row i of
+the next state computes only the elements that row depends on, pushing the
+index back through elementwise and broadcast ops, views, reductions and
+matrix products (row i of ``A v`` is one dot product). ``prep`` holds what
+every row reads whole: the nodes that depend on x but not on u and that a
+row reads at an index independent of i (navigation's lambda(x), a vector
+under a contraction), at most ``PREP_MAX_ELEMS`` values each. A node that
+depends on u and that every row reads whole (a product ``A (B u)``) is
+recomputed in every row. Reductions and products sum in index order from
+zero, ``pow`` by 2 and 3 are products, as torch computes them; the stage and
+final costs are evaluated whole.
+
+A step the functor cannot express raises ``NotImplementedError`` naming the
+op or node and the two opt-outs: an op outside ``SUPPORTED_OPS``, a
+data-dependent branch, an output of the wrong shape, an integer dtype.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+import weakref
+from typing import Dict, List, Optional
+
+import torch
+from torch.fx.experimental.proxy_tensor import make_fx
+
+from tfmpc_tpu_torch.models.base import USER_STEP_ID, DeviceStep
+
+aten = torch.ops.aten
+
+OPT_OUTS = ("run with use_pallas=False, or return None from the env's "
+            "device_step() to keep its rollouts on the plain PyTorch path")
+# the most values of one node that ``prep`` holds for the rows
+PREP_MAX_ELEMS = 64
+
+_CTYPES = {torch.float32: "float", torch.float64: "double",
+           torch.bool: "bool"}
+_ROW = "i"  # row()'s index: an index expression that names it depends on i
+
+# -- ops ----------------------------------------------------------------------
+
+# views: (node, output index) -> the index of their input
+_VIEWS = {
+    aten.unsqueeze.default, aten.squeeze.dim, aten.squeeze_.dim,
+    aten.squeeze.dims, aten.squeeze.default, aten.unsqueeze_.default,
+    aten.permute.default, aten.t.default, aten.transpose.int,
+    aten.expand.default, aten.view.default, aten._unsafe_view.default,
+    aten.reshape.default, aten.select.int, aten.slice.Tensor,
+    aten.clone.default, aten.alias.default, aten.detach.default,
+    aten.lift_fresh_copy.default,
+}
+# literal tensors: their value depends on no input
+_LITERALS = {
+    aten.zeros_like.default, aten.ones_like.default,
+    aten.full_like.default, aten.full.default, aten.zeros.default,
+    aten.ones.default, aten.scalar_tensor.default, aten.eye.default,
+    aten.new_zeros.default, aten.new_ones.default, aten.new_full.default,
+}
+_UNARY = {
+    aten.neg.default: lambda T, a: f"(-{a})",
+    aten.reciprocal.default: lambda T, a: f"({T}(1) / {a})",
+    aten.sqrt.default: lambda T, a: f"{_f('sqrt', T)}({a})",
+    aten.rsqrt.default: lambda T, a: f"({T}(1) / {_f('sqrt', T)}({a}))",
+    aten.exp.default: lambda T, a: f"{_f('exp', T)}({a})",
+    aten.expm1.default: lambda T, a: f"{_f('expm1', T)}({a})",
+    aten.log.default: lambda T, a: f"{_f('log', T)}({a})",
+    aten.log1p.default: lambda T, a: f"{_f('log1p', T)}({a})",
+    aten.sin.default: lambda T, a: f"{_f('sin', T)}({a})",
+    aten.cos.default: lambda T, a: f"{_f('cos', T)}({a})",
+    aten.tanh.default: lambda T, a: f"{_f('tanh', T)}({a})",
+    aten.abs.default: lambda T, a: f"{_f('fabs', T)}({a})",
+    aten.sigmoid.default:
+        lambda T, a: f"({T}(1) / ({T}(1) + {_f('exp', T)}(-{a})))",
+    # max(v, 0) that keeps NaN, as torch.relu does
+    aten.relu.default: lambda T, a: f"({a} < {T}(0) ? {T}(0) : {a})",
+    aten.logical_not.default: lambda T, a: f"(!{a})",
+}
+_BINARY = {
+    aten.mul.Tensor: lambda T, a, b: f"({a} * {b})",
+    aten.mul.Scalar: lambda T, a, b: f"({a} * {b})",
+    aten.div.Tensor: lambda T, a, b: f"({a} / {b})",
+    aten.div.Scalar: lambda T, a, b: f"({a} / {b})",
+    aten.pow.Tensor_Tensor: lambda T, a, b: f"{_f('pow', T)}({a}, {b})",
+    aten.pow.Scalar: lambda T, a, b: f"{_f('pow', T)}({a}, {b})",
+    # NaN if either is NaN, as torch.minimum and torch.maximum
+    aten.minimum.default:
+        lambda T, a, b: f"({a} != {a} || {a} < {b} ? {a} : {b} != {b} "
+                        f"? {b} : {b} < {a} ? {b} : {a})",
+    aten.maximum.default:
+        lambda T, a, b: f"({a} != {a} || {a} > {b} ? {a} : {b} != {b} "
+                        f"? {b} : {b} > {a} ? {b} : {a})",
+    aten.logical_and.default: lambda T, a, b: f"({a} && {b})",
+    aten.logical_or.default: lambda T, a, b: f"({a} || {b})",
+}
+_COMPARE = {}
+for _name, _sym in (("gt", ">"), ("lt", "<"), ("ge", ">="), ("le", "<="),
+                    ("eq", "=="), ("ne", "!=")):
+    for _overload in ("Tensor", "Scalar"):
+        _COMPARE[getattr(getattr(aten, _name), _overload)] = _sym
+_ADD = {aten.add.Tensor: 1, aten.add.Scalar: 1, aten.sub.Tensor: -1,
+        aten.sub.Scalar: -1}
+_CLAMP = {aten.clamp.default, aten.clamp.Tensor, aten.clamp_min.default,
+          aten.clamp_max.default}
+_WHERE = {aten.where.self, aten.where.ScalarSelf, aten.where.ScalarOther,
+          aten.where.Scalar}
+_REDUCE = {aten.sum.dim_IntList, aten.sum.default, aten.mean.dim,
+           aten.mean.default, aten.prod.dim_int, aten.prod.default,
+           aten.amax.default, aten.amin.default, aten.max.default,
+           aten.min.default}
+_MATMUL = {aten.mm.default, aten.mv.default, aten.dot.default,
+           aten.addmm.default, aten.addmv.default}
+_OTHER = {aten.pow.Tensor_Scalar, aten.rsub.Scalar, aten._to_copy.default,
+          aten.cat.default, aten.stack.default}
+
+SUPPORTED_OPS = frozenset(
+    set(_VIEWS) | set(_LITERALS) | set(_UNARY) | set(_BINARY)
+    | set(_COMPARE) | set(_ADD) | _CLAMP | _WHERE | _REDUCE | _MATMUL
+    | _OTHER)
+
+
+def _f(name: str, T: str) -> str:
+    """The C math function ``name`` for the scalar type ``T`` (``expf``
+    for float, ``exp`` for double)."""
+    return name + "f" if T == "float" else name
+
+
+def _op_name(target) -> str:
+    return str(target).replace("aten.", "aten::", 1)
+
+
+def _refuse(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the generated rollout functor cannot express it; "
+        f"{OPT_OUTS}")
+
+
+# -- index expressions --------------------------------------------------------
+# An index is an int (known when the source is emitted) or a C++ expression.
+
+def _iadd(a, b):
+    if isinstance(a, int) and isinstance(b, int):
+        return a + b
+    if a == 0:
+        return b
+    if b == 0:
+        return a
+    return f"({a} + {b})"
+
+
+def _imul(a, k: int):
+    if isinstance(a, int):
+        return a * k
+    if k == 1:
+        return a
+    if k == 0:
+        return 0
+    return f"({a} * {k})"
+
+
+def _idiv(a, k: int):
+    if isinstance(a, int):
+        return a // k
+    return a if k == 1 else f"({a} / {k})"
+
+
+def _imod(a, k: int):
+    if isinstance(a, int):
+        return a % k
+    return 0 if k == 1 else f"({a} % {k})"
+
+
+def _flat(idx, shape):
+    """The row-major offset of ``idx`` in a contiguous ``shape``."""
+    off, stride = 0, 1
+    for ix, size in zip(reversed(idx), reversed(shape)):
+        off = _iadd(off, _imul(ix, stride))
+        stride *= size
+    return off
+
+
+def _uses_row(idx) -> bool:
+    return any(isinstance(ix, str) and re.search(rf"\b{_ROW}\b", ix)
+               for ix in idx)
+
+
+def _literal(v, T: str) -> str:
+    if isinstance(v, bool) or T == "bool":
+        return "true" if v else "false"
+    v = float(v)
+    if math.isnan(v):
+        return f"({T}(0) / {T}(0))"
+    if math.isinf(v):
+        return f"({'-' if v < 0 else ''}{T}(1) / {T}(0))"
+    return f"{T}({v!r})"
+
+
+def _cast(expr: str, src: str, dst: str) -> str:
+    if src == dst:
+        return expr
+    if dst == "bool":
+        return f"({expr} != {src}(0))"
+    return f"static_cast<{dst}>({expr})"
+
+
+# -- the traced graph ---------------------------------------------------------
+
+class _Graph:
+    """The traced step: its nodes' shapes, C types and dependence on u, and
+    the parameter arrays."""
+
+    def __init__(self, gm, name: str, n: int, m: int, dtype):
+        self.gm, self.name, self.n, self.m = gm, name, n, m
+        self.S = _CTYPES[dtype]
+        nodes = list(gm.graph.nodes)
+        self.pos = {nd: k for k, nd in enumerate(nodes)}
+        self.x, self.u = [nd for nd in nodes if nd.op == "placeholder"]
+        (outs,) = [nd.args[0] for nd in nodes if nd.op == "output"]
+        self.xn, self.cost, self.final = outs
+        self._check_outputs()
+        self.shape, self.ctype, self.dep_u = {}, {}, {}
+        live = self._live()
+        self.params: List[str] = []  # get_attr targets, in graph order
+        for nd in nodes:
+            if nd not in live:
+                continue
+            val = nd.meta.get("val")
+            if not isinstance(val, torch.Tensor):
+                raise _refuse(f"{name}: node {nd.name} ({nd.target}) is not "
+                              "a tensor")
+            if val.dtype not in _CTYPES:
+                raise _refuse(f"{name}: node {nd.name} ({_op_name(nd.target)}"
+                              f") has dtype {val.dtype}")
+            self.shape[nd] = tuple(int(s) for s in val.shape)
+            self.ctype[nd] = _CTYPES[val.dtype]
+            literal = nd.op == "call_function" and nd.target in _LITERALS
+            self.dep_u[nd] = nd is self.u or (
+                not literal and any(self.dep_u[a] for a in _node_args(nd)))
+            if nd.op == "get_attr" and nd.target not in self.params:
+                self.params.append(nd.target)
+            if nd.op == "call_function" and nd.target not in SUPPORTED_OPS:
+                raise _refuse(f"{name}: aten op {_op_name(nd.target)} (node "
+                              f"{nd.name}) is not supported")
+            if nd.op == "call_function" and nd.target in (
+                    aten.squeeze_.dim, aten.unsqueeze_.default) \
+                    and len(nd.args[0].users) != 1:
+                raise _refuse(f"{name}: in-place {_op_name(nd.target)} (node "
+                              f"{nd.name}) on a tensor used elsewhere")
+        self.param_shape = {t: tuple(getattr(gm, t).shape)
+                            for t in self.params}
+        self.param_index = {t: k for k, t in enumerate(self.params)}
+        self._names: Dict[object, str] = {}
+        self._count = 0
+
+    def _check_outputs(self):
+        n, m = self.n, self.m
+        for node, want, what in ((self.xn, (n,), "transition(x [n], u [m])"),
+                                 (self.cost, (), "cost(x [n], u [m])"),
+                                 (self.final, (), "final_cost(x [n])")):
+            val = getattr(node, "meta", {}).get("val")
+            got = tuple(val.shape) if isinstance(val, torch.Tensor) else None
+            if got != want:
+                raise _refuse(f"{self.name}: {what} returned shape {got}, "
+                              f"not {want}")
+
+    def _live(self):
+        live, todo = set(), [self.xn, self.cost, self.final]
+        while todo:
+            nd = todo.pop()
+            if nd not in live:
+                live.add(nd)
+                todo.extend(_node_args(nd))
+        return live
+
+    def fresh(self, prefix: str) -> str:
+        self._count += 1
+        return f"{prefix}{self._count}"
+
+    def hoist_name(self, node) -> str:
+        if node not in self._names:
+            self._names[node] = f"h{len(self._names)}"
+        return self._names[node]
+
+    def hoistable(self, node) -> bool:
+        """A computed node that depends on no control: ``prep`` may hold
+        it for the rows."""
+        return (node.op == "call_function" and node.target not in _VIEWS
+                and node.target not in _LITERALS and not self.dep_u[node]
+                and math.prod(self.shape[node]) <= PREP_MAX_ELEMS)
+
+
+def _node_args(node):
+    """The graph nodes among ``node``'s arguments (lists included)."""
+    out = []
+    for a in list(node.args) + list(node.kwargs.values()):
+        if isinstance(a, (list, tuple)):
+            out.extend(b for b in a if isinstance(b, torch.fx.Node))
+        elif isinstance(a, torch.fx.Node):
+            out.append(a)
+    return out
+
+
+# -- emission -----------------------------------------------------------------
+
+class _Body:
+    """The statements of one method of the functor. ``mode`` is ``"scan"``
+    (row()'s first pass: finds what prep holds), ``"row"``, ``"prep"`` or
+    ``"whole"`` (the costs). ``work`` counts the statements it runs, each
+    times its loops' trip counts."""
+
+    def __init__(self, g: _Graph, mode: str, hoisted=None):
+        self.g, self.mode = g, mode
+        self.hoisted = set() if hoisted is None else hoisted
+        self.made: set = set()  # prep: the hoisted nodes already in r
+        self.lines: List[str] = []
+        self.scopes: List[dict] = [{}]
+        self.trips: List[int] = [1]  # the open scopes' trip counts
+        self.depth = 2
+        self.work = 0
+
+    def line(self, s: str):
+        self.lines.append("  " * self.depth + s)
+
+    def op(self, s: str):
+        """A statement that computes: counted in ``work``."""
+        self.line(s)
+        self.work += math.prod(self.trips)
+
+    def tmp(self, T: str, expr: str) -> str:
+        name = self.g.fresh("t")
+        self.op(f"const {T} {name} = {expr};")
+        return name
+
+    def open(self, head: str, trips: int = 1):
+        self.line(head + " {")
+        self.depth += 1
+        self.scopes.append({})
+        self.trips.append(trips)
+
+    def close(self, tail: str = "}"):
+        self.scopes.pop()
+        self.trips.pop()
+        self.depth -= 1
+        self.line(tail)
+
+    def loop(self, size: int) -> str:
+        k = self.g.fresh("k")
+        self.open(f"for (int {k} = 0; {k} < {size}; ++{k})", size)
+        return k
+
+    # the value of element ``idx`` of ``node``, as type ``T``
+    def val(self, node, idx, T: Optional[str] = None) -> str:
+        if not isinstance(node, torch.fx.Node):  # a Python scalar
+            return _literal(node, T or self.g.S)
+        idx = tuple(idx)
+        key = (node, idx)
+        expr = next((s[key] for s in reversed(self.scopes) if key in s),
+                    None)
+        if expr is None:
+            expr = self._value(node, idx)
+            self.scopes[-1][key] = expr
+        return expr if T is None else _cast(expr, self.g.ctype[node], T)
+
+    def _value(self, node, idx) -> str:
+        g = self.g
+        T = g.ctype[node]
+        if node is g.x or node is g.u:
+            return f"{'x' if node is g.x else 'u'}[{idx[0]}]"
+        if node.op == "get_attr":
+            read = f"p[{g.param_index[node.target]}]" \
+                   f"[{_flat(idx, g.shape[node])}]"
+            return _cast(read, g.S, T)
+        if self.mode == "scan" and not _uses_row(idx) and g.hoistable(node):
+            self.hoisted.add(node)
+            return _literal(0, T)
+        if self.mode == "row" and node in self.hoisted \
+                and not _uses_row(idx):
+            return f"pre.{g.hoist_name(node)}[{_flat(idx, g.shape[node])}]"
+        if self.mode == "prep" and node in self.made:
+            return f"r.{g.hoist_name(node)}[{_flat(idx, g.shape[node])}]"
+        t = node.target
+        if t in _VIEWS:
+            return self._view(node, idx)
+        if t in _LITERALS:
+            return self._literal_node(node, idx)
+        if t in _REDUCE:
+            return self._reduce(node, idx)
+        if t in _MATMUL:
+            return self._matmul(node, idx)
+        if t in (aten.cat.default, aten.stack.default):
+            return self._concat(node, idx)
+        return self.tmp(T, self._elementwise(node, idx))
+
+    def arg(self, a, idx, out_shape, T: str) -> str:
+        """Operand ``a`` of an elementwise node at the node's ``idx``,
+        broadcast and cast to ``T``."""
+        if not isinstance(a, torch.fx.Node):
+            return _literal(a, T)
+        shape = self.g.shape[a]
+        lead = len(out_shape) - len(shape)
+        sub = tuple(0 if s == 1 else idx[lead + d]
+                    for d, s in enumerate(shape))
+        return self.val(a, sub, T)
+
+    def _elementwise(self, node, idx) -> str:
+        g, t, args = self.g, node.target, node.args
+        T, shape = g.ctype[node], g.shape[node]
+        A = lambda a, ty=T: self.arg(a, idx, shape, ty)  # noqa: E731
+        if t in _UNARY:
+            return _UNARY[t](T, A(args[0]))
+        if t in _BINARY:
+            return _BINARY[t](T, A(args[0]), A(args[1]))
+        if t in _ADD:
+            alpha = node.kwargs.get("alpha", args[2] if len(args) > 2 else 1)
+            b = A(args[1])
+            if alpha != 1:
+                b = f"({_literal(alpha, T)} * {b})"
+            return f"({A(args[0])} {'+' if _ADD[t] > 0 else '-'} {b})"
+        if t is aten.rsub.Scalar:
+            alpha = node.kwargs.get("alpha", args[2] if len(args) > 2 else 1)
+            a = A(args[0])
+            if alpha != 1:
+                a = f"({_literal(alpha, T)} * {a})"
+            return f"({A(args[1])} - {a})"
+        if t in _COMPARE:
+            C = _CTYPES[torch.result_type(*(
+                a.meta["val"] if isinstance(a, torch.fx.Node) else a
+                for a in args[:2]))]
+            return f"({A(args[0], C)} {_COMPARE[t]} {A(args[1], C)})"
+        if t is aten.pow.Tensor_Scalar:
+            return self._pow(A(args[0]), args[1], T)
+        if t in _CLAMP:
+            v = self.tmp(T, A(args[0]))
+            if t is aten.clamp_min.default:
+                lo, hi = args[1], None
+            elif t is aten.clamp_max.default:
+                lo, hi = None, args[1]
+            else:
+                lo = node.kwargs.get("min", args[1] if len(args) > 1 else None)
+                hi = node.kwargs.get("max", args[2] if len(args) > 2 else None)
+            # the bound for a value past it, NaN kept (torch.clamp)
+            if lo is not None:
+                b = A(lo)
+                v = self.tmp(T, f"({v} < {b} ? {b} : {v})")
+            if hi is not None:
+                b = A(hi)
+                v = f"({v} > {b} ? {b} : {v})"
+            return v
+        if t in _WHERE:
+            return f"({A(args[0], 'bool')} ? {A(args[1])} : {A(args[2])})"
+        if t is aten._to_copy.default:
+            return A(args[0])
+        raise _refuse(f"{g.name}: aten op {_op_name(t)} (node {node.name})")
+
+    @staticmethod
+    def _pow(a: str, e, T: str) -> str:
+        """``a ** e`` for a Python scalar ``e``: products and roots where
+        torch's pow kernel takes them."""
+        if e == 2:
+            return f"({a} * {a})"
+        if e == 3:
+            return f"({a} * {a} * {a})"
+        if e == 1:
+            return a
+        if e == 0:
+            return _literal(1, T)
+        if e == 0.5:
+            return f"{_f('sqrt', T)}({a})"
+        if e == -0.5:
+            return f"({T}(1) / {_f('sqrt', T)}({a}))"
+        if e == -1:
+            return f"({T}(1) / {a})"
+        if e == -2:
+            return f"({T}(1) / ({a} * {a}))"
+        return f"{_f('pow', T)}({a}, {_literal(e, T)})"
+
+    def _literal_node(self, node, idx) -> str:
+        t, args, T = node.target, node.args, self.g.ctype[node]
+        if t in (aten.zeros_like.default, aten.zeros.default,
+                 aten.new_zeros.default):
+            return _literal(0, T)
+        if t in (aten.ones_like.default, aten.ones.default,
+                 aten.new_ones.default):
+            return _literal(1, T)
+        if t is aten.eye.default:
+            return self.tmp(T, f"({idx[0]} == {idx[1]} ? {_literal(1, T)} "
+                               f": {_literal(0, T)})")
+        if t is aten.scalar_tensor.default:
+            return _literal(args[0], T)
+        return _literal(args[1] if t is aten.full.default
+                        or t is aten.full_like.default else args[2], T)
+
+    def _view(self, node, idx) -> str:
+        g, t, args = self.g, node.target, node.args
+        src = args[0]
+        shape, ishape = g.shape[node], g.shape[src]
+        r = len(ishape)
+        if t in (aten.clone.default, aten.alias.default, aten.detach.default,
+                 aten.lift_fresh_copy.default):
+            return self.val(src, idx)
+        if t in (aten.unsqueeze.default, aten.unsqueeze_.default):
+            d = args[1] % len(shape)
+            return self.val(src, idx[:d] + idx[d + 1:])
+        if t in (aten.squeeze.dim, aten.squeeze_.dim, aten.squeeze.dims,
+                 aten.squeeze.default):
+            dims = (range(r) if t is aten.squeeze.default
+                    else [args[1]] if isinstance(args[1], int) else args[1])
+            gone = {d % r for d in dims if ishape[d % r] == 1} if r else set()
+            it = iter(idx)
+            return self.val(src, tuple(0 if d in gone else next(it)
+                                       for d in range(r)))
+        if t is aten.permute.default:
+            sub = [0] * r
+            for j, d in enumerate(args[1]):
+                sub[d % r] = idx[j]
+            return self.val(src, sub)
+        if t is aten.t.default:
+            return self.val(src, idx[::-1])
+        if t is aten.transpose.int:
+            sub = list(idx)
+            a, b = args[1] % r, args[2] % r
+            sub[a], sub[b] = idx[b], idx[a]
+            return self.val(src, sub)
+        if t is aten.expand.default:
+            lead = len(shape) - r
+            return self.val(src, tuple(0 if s == 1 else idx[lead + d]
+                                       for d, s in enumerate(ishape)))
+        if t is aten.select.int:
+            d = args[1] % r
+            return self.val(src, idx[:d] + (args[2] % ishape[d],) + idx[d:])
+        if t is aten.slice.Tensor:
+            d = args[1] % r if len(args) > 1 else 0
+            start = args[2] if len(args) > 2 and args[2] is not None else 0
+            step = args[4] if len(args) > 4 else 1
+            start = min(max(start + ishape[d] if start < 0 else start, 0),
+                        ishape[d])
+            sub = list(idx)
+            sub[d] = _iadd(start, _imul(idx[d], step))
+            return self.val(src, sub)
+        # view / reshape: through the row-major offset
+        if [s for s in shape if s != 1] == [s for s in ishape if s != 1]:
+            it = iter(ix for ix, s in zip(idx, shape) if s != 1)
+            return self.val(src, tuple(0 if s == 1 else next(it)
+                                       for s in ishape))
+        off = _flat(idx, shape)
+        if not isinstance(off, int):
+            off = self.tmp("int", off)
+        sub, stride = [], math.prod(ishape)
+        for s in ishape:
+            stride //= s
+            sub.append(_imod(_idiv(off, stride), s))
+        return self.val(src, sub)
+
+    def _reduce(self, node, idx) -> str:
+        g, t, args = self.g, node.target, node.args
+        src = args[0]
+        ishape, T = g.shape[src], g.ctype[node]
+        r = len(ishape)
+        if t in (aten.sum.default, aten.mean.default, aten.prod.default,
+                 aten.max.default, aten.min.default) or len(args) < 2 \
+                or args[1] is None or args[1] == []:
+            dims, keep = list(range(r)), False
+        else:
+            dims = [args[1]] if isinstance(args[1], int) else list(args[1])
+            dims = sorted({d % r for d in dims})
+            keep = bool(args[2]) if len(args) > 2 else \
+                bool(node.kwargs.get("keepdim", False))
+        it = iter(idx)
+        sub: list = []
+        for d in range(r):
+            if d in dims:
+                sub.append(None)
+                if keep:
+                    next(it)
+            else:
+                sub.append(next(it))
+        if t in (aten.prod.dim_int, aten.prod.default):
+            init, step = _literal(1, T), "{a} = {a} * {v};"
+        elif t in (aten.amax.default, aten.max.default):
+            init = _literal(-math.inf, T)
+            step = "{a} = ({v} != {v} || {v} > {a}) ? {v} : {a};"
+        elif t in (aten.amin.default, aten.min.default):
+            init = _literal(math.inf, T)
+            step = "{a} = ({v} != {v} || {v} < {a}) ? {v} : {a};"
+        else:
+            init, step = _literal(0, T), "{a} = {a} + {v};"
+        acc = self.g.fresh("r")
+        self.line(f"{T} {acc} = {init};")
+        for d in dims:
+            sub[d] = self.loop(ishape[d])
+        self.op(step.format(a=acc, v=self.val(src, sub, T)))
+        for _ in dims:
+            self.close()
+        if t in (aten.mean.dim, aten.mean.default):
+            count = math.prod(ishape[d] for d in dims)
+            return self.tmp(T, f"({acc} / {_literal(count, T)})")
+        return acc
+
+    def _matmul(self, node, idx) -> str:
+        g, t, args = self.g, node.target, node.args
+        T = g.ctype[node]
+        bias = None
+        if t in (aten.addmm.default, aten.addmv.default):
+            bias, args = args[0], args[1:]
+        a, b = args[0], args[1]
+        K = g.shape[a][-1]
+        acc = g.fresh("r")
+        self.line(f"{T} {acc} = {_literal(0, T)};")
+        k = self.loop(K)
+        ia = (idx[0], k) if len(g.shape[a]) == 2 else (k,)
+        ib = (k, idx[-1]) if len(g.shape[b]) == 2 else (k,)
+        self.op(f"{acc} = {acc} + {self.val(a, ia, T)} * "
+                  f"{self.val(b, ib, T)};")
+        self.close()
+        if bias is None:
+            return acc
+        beta = node.kwargs.get("beta", 1)
+        alpha = node.kwargs.get("alpha", 1)
+        bv = self.arg(bias, idx, g.shape[node], T)
+        if beta != 1:
+            bv = f"({_literal(beta, T)} * {bv})"
+        mv = acc if alpha == 1 else f"({_literal(alpha, T)} * {acc})"
+        return self.tmp(T, f"({bv} + {mv})")
+
+    def _concat(self, node, idx) -> str:
+        g, args = self.g, node.args
+        parts = list(args[0])
+        T, shape = g.ctype[node], g.shape[node]
+        d = (args[1] if len(args) > 1 else node.kwargs.get("dim", 0))
+        d %= len(shape)
+        stack = node.target is aten.stack.default
+        sizes = [1 if stack else g.shape[p][d] for p in parts]
+        # which part holds index j along d, and j's index inside it
+        def sub(j, off):
+            if stack:
+                return idx[:d] + idx[d + 1:]
+            return idx[:d] + (_iadd(j, -off) if off else j,) + idx[d + 1:]
+        j = idx[d]
+        if isinstance(j, int):
+            off = 0
+            for p, s in zip(parts, sizes):
+                if j < off + s:
+                    return self.val(p, sub(j, off), T)
+                off += s
+        out = g.fresh("c")
+        self.line(f"{T} {out};")
+        off = 0
+        for k, (p, s) in enumerate(zip(parts, sizes)):
+            if k == len(parts) - 1:
+                self.open("else")
+            else:
+                self.open(f"{'else ' if k else ''}if ({j} < {off + s})")
+            self.line(f"{out} = {self.val(p, sub(j, off), T)};")
+            self.close()
+            off += s
+        return out
+
+
+def _method(body: _Body, result: str) -> str:
+    return "\n".join(body.lines + ["    return " + result + ";"])
+
+
+def emit_source(gm, name: str, n: int, m: int, dtype):
+    """The functor source of the traced step ``gm`` (``trace_step``), its
+    parameter tensors in the order of its ``p`` array, and its work a step
+    ``(serial, row)``: the statements of ``prep`` and ``stage_cost``,
+    which a lane runs whole, and of one ``row``."""
+    g = _Graph(gm, name, n, m, dtype)
+    S = g.S
+    scan = _Body(g, "scan")
+    scan.val(g.xn, (_ROW,), S)
+    hoisted = sorted(scan.hoisted, key=g.pos.get)
+
+    row = _Body(g, "row", set(hoisted))
+    row_expr = row.val(g.xn, (_ROW,), S)
+
+    prep = _Body(g, "prep")
+    members = []
+    for node in hoisted:
+        shape, name_ = g.shape[node], g.hoist_name(node)
+        members.append(f"    {g.ctype[node]} {name_}"
+                       f"[{max(math.prod(shape), 1)}];")
+        ks = [prep.loop(s) for s in shape]
+        prep.line(f"r.{name_}[{_flat(ks, shape)}] = "
+                  f"{prep.val(node, ks)};")
+        for _ in shape:
+            prep.close()
+        prep.made.add(node)
+
+    cost = _Body(g, "whole")
+    cost_expr = cost.val(g.cost, (), S)
+    final = _Body(g, "whole")
+    final_expr = final.val(g.final, (), S)
+
+    sizes = [math.prod(g.param_shape[t]) for t in g.params]
+    each = "\n".join(f"    f(p[{k}], {s});" for k, s in enumerate(sizes))
+    desc = ", ".join(f"p[{k}] {list(g.param_shape[t])}"
+                     for k, t in enumerate(g.params)) or "none"
+    src = f"""\
+// The step of {name}, traced from its transition, cost and final_cost by
+// tfmpc_tpu_torch/ops/env_codegen.py at (n, m) = ({n}, {m}) in {S}.
+// Parameters: {desc}.
+namespace tfmpc {{
+
+struct UserStep {{
+  using S = {S};
+  static constexpr int kN = {n}, kM = {m}, kParams = {len(sizes)};
+  static constexpr int kParamElems = {sum(sizes)};
+  const S* __restrict__ p[kParams > 0 ? kParams : 1];
+  Dims<kAnyDim> dims;
+
+  __host__ __device__ int param_elems() const {{ return kParamElems; }}
+  template <class F>
+  __device__ __forceinline__ void each_param(F&& f) {{
+{each}
+  }}
+
+  // what every row reads whole
+  struct Pre {{
+{chr(10).join(members)}
+  }};
+  template <class X>
+  __device__ __forceinline__ Pre prep(const X& x) const {{
+    Pre r;
+{_method(prep, "r")}
+  }}
+
+  // row i of the next state
+  template <class X, class U>
+  __device__ __forceinline__ S row(const Pre& pre, int i, const X& x,
+                                   const U& u, S, S) const {{
+{_method(row, row_expr)}
+  }}
+
+  template <class X, class U>
+  __device__ __forceinline__ S stage_cost(const X& x, const U& u) const {{
+{_method(cost, cost_expr)}
+  }}
+
+  template <class X>
+  __device__ __forceinline__ S final_cost(const X& x) const {{
+{_method(final, final_expr)}
+  }}
+}};
+
+}}  // namespace tfmpc
+"""
+    return (src, [getattr(gm, t) for t in g.params],
+            (prep.work + cost.work, row.work))
+
+
+def trace_step(env, dtype, device):
+    """``env``'s ``transition``, ``cost`` and ``final_cost`` on one
+    scenario, traced with ``make_fx`` in fake mode: a graph module of aten
+    ops returning ``(x_next [n], cost [], final_cost [])``."""
+    n, m = env.state_size, env.action_size
+    name = type(env).__name__
+
+    def step(x, u):
+        return env.transition(x, u), env.cost(x, u), env.final_cost(x)
+
+    x = torch.zeros(n, dtype=dtype, device=device)
+    u = torch.zeros(m, dtype=dtype, device=device)
+    try:
+        with torch.no_grad():
+            return make_fx(step, tracing_mode="fake",
+                           _allow_non_fake_inputs=True)(x, u)
+    except RuntimeError as e:
+        if "data-dependent" in str(e) or "data dependent" in str(e):
+            raise _refuse(f"{name}: a data-dependent branch or value in "
+                          f"its step ({type(e).__name__}: "
+                          f"{str(e).splitlines()[0]})") from e
+        raise _refuse(f"{name}: its step could not be traced "
+                      f"({type(e).__name__}: {str(e).splitlines()[0]})") \
+            from e
+
+
+_STEPS: Dict[int, dict] = {}
+
+
+def device_step(env, dtype, device) -> DeviceStep:
+    """The generated ``DeviceStep`` of ``env`` at ``dtype`` on ``device``
+    (``Env.generic_device_step``): traced once per env instance, dtype and
+    device type, and kept while the env lives."""
+    key = (dtype, torch.device(device).type)
+    steps = _STEPS.get(id(env))
+    if steps is None:
+        steps = {}
+        try:
+            weakref.finalize(env, _STEPS.pop, id(env), None)
+            _STEPS[id(env)] = steps
+        except TypeError:  # not weakly referenceable: trace at every call
+            pass
+    if key not in steps:
+        gm = trace_step(env, dtype, device)
+        source, params, work = emit_source(
+            gm, type(env).__name__, env.state_size, env.action_size, dtype)
+        steps[key] = DeviceStep(env_id=USER_STEP_ID, params=tuple(params),
+                                int_params=(), source=source, work=work)
+    return steps[key]
+
+
+HOST_PRELUDE = """\
+// A host build of a generated step functor (g++), for tests: the CUDA
+// qualifiers compile away and Dims comes from here, not envs.cuh.
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#include <math.h>
+namespace tfmpc {
+constexpr int kAnyDim = 0;
+template <int N>
+struct Dims;
+template <>
+struct Dims<kAnyDim> {
+  int n, m;
+};
+}  // namespace tfmpc
+"""
+
+HOST_HARNESS = """\
+namespace {
+using S = tfmpc::UserStep::S;
+struct Vec {
+  const S* v;
+  S operator[](int i) const { return v[i]; }
+};
+}  // namespace
+
+// Each of B scenarios (x [B, n], u [B, m], row-major) through prep, row
+// (every i), stage_cost and final_cost: x_next [B, n], cost [B], final
+// [B]. Returns 1 for a parameter count the functor does not take.
+extern "C" int user_step_eval(const void* const* params, int n_params,
+                              const void* x, const void* u, int B,
+                              void* x_next, void* cost, void* final) {
+  using tfmpc::UserStep;
+  if (n_params != UserStep::kParams) return 1;
+  UserStep step{};
+  for (int k = 0; k < n_params; ++k)
+    step.p[k] = static_cast<const S*>(params[k]);
+  step.dims = tfmpc::Dims<tfmpc::kAnyDim>{UserStep::kN, UserStep::kM};
+  const int n = UserStep::kN, m = UserStep::kM;
+  for (int b = 0; b < B; ++b) {
+    const Vec xv{static_cast<const S*>(x) + b * n};
+    const Vec uv{static_cast<const S*>(u) + b * m};
+    const auto pre = step.prep(xv);
+    for (int i = 0; i < n; ++i)
+      static_cast<S*>(x_next)[b * n + i] =
+          step.row(pre, i, xv, uv, xv[i], i < m ? uv[i] : S(0));
+    static_cast<S*>(cost)[b] = step.stage_cost(xv, uv);
+    static_cast<S*>(final)[b] = step.final_cost(xv);
+  }
+  return 0;
+}
+"""
+
+
+def host_source(source: str) -> str:
+    """A host C++ program of the functor ``source``: ``HOST_PRELUDE``, the
+    functor, and ``user_step_eval``, which loops ``prep``, ``row``,
+    ``stage_cost`` and ``final_cost`` over a batch."""
+    return HOST_PRELUDE + source + HOST_HARNESS

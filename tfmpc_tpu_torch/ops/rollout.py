@@ -26,7 +26,11 @@ bytes), unrolled at the dims it is instantiated for (``unrolled_dims``).
 K2, K3 and K5 run every other 1 <= n, m <= ``GENERIC_DIM_MAX`` in the
 generic form (``csrc/rollout_generic.cuh``: n, m and the lanes a rollout
 at run time), and K8 every other n = m <= ``DERIVS_DIM_MAX``, counted
-under ``*_GENERIC_LAUNCHES``.
+under ``*_GENERIC_LAUNCHES``. An env without a hand-written functor runs
+K2, K3 and K5 in the generic form with a functor generated from its
+PyTorch step (``Env.generic_device_step``, ``env_codegen.py``; env id
+``USER_STEP_ID``), from a library of its own (``_build.user_library``),
+counted under ``*_USER_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ from typing import Sequence
 
 import torch
 
+from tfmpc_tpu_torch.models.base import USER_STEP_ID
 from tfmpc_tpu_torch.models.hvac import HVAC_STEP_ID
 from tfmpc_tpu_torch.models.linear import LINEAR_STEP_ID
 from tfmpc_tpu_torch.core.types import Policy
-from tfmpc_tpu_torch.ops import _build, riccati
+from tfmpc_tpu_torch.ops import _build, env_codegen, riccati
 
 COSTS_LAUNCHES = 0
 COSTS_PLAIN_CALLS = 0
@@ -58,6 +63,11 @@ COSTS_GENERIC_LAUNCHES = 0
 ALPHA_GENERIC_LAUNCHES = 0
 TRAJ_GENERIC_LAUNCHES = 0
 DERIVS_GENERIC_LAUNCHES = 0
+# launches of K2, K3 and K5 on a generated step functor (a user env,
+# csrc/rollout_user.cuh)
+COSTS_USER_LAUNCHES = 0
+ALPHA_USER_LAUNCHES = 0
+TRAJ_USER_LAUNCHES = 0
 
 # (n, m) pairs the unrolled CUDA kernels are instantiated for
 # (csrc/rollout.cuh): every env's step at the small dims (rollout.cu, K5's
@@ -114,19 +124,30 @@ ROLLOUT_PLANS = {
 # 1.28-1.38x off for reservoir-4's K2 and K5 and navigation-4's K5.
 # ``rollout_plan`` lowers D where one scenario a block does not fit the
 # shared memory (the linear env's parameters at n = m = 48 in float64 take
-# 113 KB).
+# 113 KB). A user env's generated step (``USER_STEP_ID``) takes the
+# ``"user"`` rows, or the ``"linear"`` ones where its serial work is large
+# (``plan_family``): ``--generic-sweep user`` on one H100 found the
+# ``"other"`` rows 1.19-1.52x the fastest plans at the custom-env example's
+# chain (d = 6, B=512, T=40), whose fastest plans at d = 6, 12 and 24 are
+# the ``"user"`` rows (within 5.1% of the fastest at d = 48), and the
+# ``"user"`` rows 1.07-1.77x the fastest at the (8, 3) fuzz env (its stage
+# cost's quadratic forms: serial work 0.9x its next state's), whose
+# fastest plans the ``"linear"`` rows match within 1% (PERF.md section 6).
 GENERIC_PLANS = {
     "costs": {"linear": ((2, (1, 512, 1)), (48, (4, 128, 1))),
               "other": ((4, (2, 256, 1)), (12, (4, 128, 1)),
-                        (48, (8, 128, 1)))},
+                        (48, (8, 128, 1))),
+              "user": ((48, (8, 128, 1)),)},
     "alpha": {"linear": ((2, (2, 128, 1)), (24, (8, 128, 1)),
                          (48, (16, 128, 1))),
               "other": ((4, (4, 256, 1)), (12, (16, 512, 1)),
-                        (48, (16, 128, 1)))},
+                        (48, (16, 128, 1))),
+              "user": ((48, (16, 128, 1)),)},
     "traj": {"linear": ((2, (1, 128, 1)), (24, (4, 128, 1)),
                         (48, (2, 128, 1))),
              "other": ((4, (2, 256, 1)), (12, (4, 128, 1)),
-                       (48, (8, 128, 1)))},
+                       (48, (8, 128, 1))),
+             "user": ((48, (8, 128, 1)),)},
     # K8, navigation only, n = m <= DERIVS_DIM_MAX: the fastest plans of
     # ``--generic-sweep derivs`` at chip_smoke.py phase 30's G4 (n = 4,
     # B=4096, T=100) and G5 (n = 12, B=1024, T=50) shapes
@@ -215,17 +236,36 @@ def unrolled_dims(env_id: int, n: int, m: int, kernel: str = "costs") -> bool:
     """Whether an unrolled instantiation of ``kernel`` runs the env
     ``env_id`` at (n, m): every env at the small ``KERNEL_DIMS``, the HVAC
     step alone at ``HVAC_ONLY_DIMS``; K8 (``"derivs"``) at ``DERIVS_DIMS``.
-    The generic form takes every other dim."""
+    The generic form takes every other dim, and every dim of a generated
+    step (``USER_STEP_ID``)."""
+    if env_id == USER_STEP_ID:
+        return False
     if kernel == "derivs":
         return (n, m) in DERIVS_DIMS
     return (n, m) in KERNEL_DIMS and (
         (n, m) not in HVAC_ONLY_DIMS or env_id == HVAC_STEP_ID)
 
 
-def generic_row(kernel: str, env_id: int, n: int, m: int):
+def plan_family(a):
+    """The ``GENERIC_PLANS`` family of the step of ``kernel_args`` output
+    ``a``: None (its env id's) for a hand-written step. A generated step
+    whose serial work a step (``prep`` and the stage cost, which a lane
+    computes whole) is at least half its next state's (n rows) takes the
+    ``"linear"`` rows, whose few lanes a rollout suit a step bound by its
+    serial cost, as the linear env's is; any other the ``"user"`` rows."""
+    if a["env_id"] != USER_STEP_ID:
+        return None
+    serial, row = a["work"]
+    return "linear" if 2 * serial >= a["dims"][2] * row else "user"
+
+
+def generic_row(kernel: str, env_id: int, n: int, m: int,
+                family: str | None = None):
     """``GENERIC_PLANS``' (G, blocks, D) of ``kernel`` for the env
-    ``env_id`` at (n, m)."""
-    family = "linear" if env_id == LINEAR_STEP_ID else "other"
+    ``env_id`` at (n, m), from the rows of ``family`` (by default the
+    linear env's for it, the ``"other"`` rows for the rest)."""
+    if family is None:
+        family = "linear" if env_id == LINEAR_STEP_ID else "other"
     for ceiling, row in GENERIC_PLANS[kernel][family]:
         if max(n, m) <= ceiling:
             return row
@@ -235,12 +275,13 @@ def generic_row(kernel: str, env_id: int, n: int, m: int):
 
 
 def _generic_plan(kernel, env_id, n, m, B, A, dtype, param_elems, groups,
-                  scenarios, depth, max_threads) -> RolloutPlan:
+                  scenarios, depth, max_threads,
+                  family=None) -> RolloutPlan:
     """``rollout_plan`` of the generic form: ``GENERIC_PLANS``' G and D, D
     lowered (to 1 at the least) until one scenario a block fits the shared
     memory, then the largest power of two of scenarios a block as the
     unrolled rule takes it."""
-    G, blocks, D = generic_row(kernel, env_id, n, m)
+    G, blocks, D = generic_row(kernel, env_id, n, m, family)
     G = groups or G
     per = A if kernel in EVERY_ALPHA else 1
     if G not in GENERIC_GROUPS:
@@ -268,6 +309,12 @@ def _generic_plan(kernel, env_id, n, m, B, A, dtype, param_elems, groups,
     if spb & (spb - 1) or not 1 <= spb <= TILE_MAX_SPB:
         raise ValueError(f"{spb} scenarios a block: a power of two <= "
                          f"{TILE_MAX_SPB}")
+    if not fits(spb, D) and env_id == USER_STEP_ID:
+        raise NotImplementedError(
+            f"the generated step's {param_elems} parameter values do not fit "
+            f"a {kernel} block's shared memory at (n, m) = {(n, m)} (G={G}, "
+            f"{spb} scenario(s) a block, D={D}, {SMEM_LIMIT} bytes); "
+            f"{env_codegen.OPT_OUTS}")
     if not fits(spb, D):
         raise ValueError(
             f"no generic {kernel} plan fits at (n, m) = {(n, m)}: G={G}, "
@@ -283,7 +330,8 @@ def _generic_plan(kernel, env_id, n, m, B, A, dtype, param_elems, groups,
 def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
                  dtype, param_elems: int, groups: int | None = None,
                  scenarios: int | None = None, depth: int | None = None,
-                 max_threads: int = TILE_MAX_THREADS) -> RolloutPlan:
+                 max_threads: int = TILE_MAX_THREADS,
+                 family: str | None = None) -> RolloutPlan:
     """The launch plan of K2 (``kernel="costs"``, A alphas), K3
     (``"alpha"``), K5 (``"traj"``, A alphas) or K8 (``"derivs"``) at (n, m)
     for B scenarios of the env ``env_id`` with ``param_elems`` parameter
@@ -294,8 +342,8 @@ def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
     threads (``kernel_max_threads``: the kernel's registers bound it) and
     ``SMEM_LIMIT`` shared bytes. Elsewhere up to ``GENERIC_DIM_MAX`` (K8:
     n = m <= ``DERIVS_DIM_MAX``) the generic form's plan (``generic=True``,
-    ``_generic_plan``). ``groups``, ``scenarios`` and ``depth`` override
-    the table (the sweep's plans)."""
+    ``_generic_plan``; ``family``: ``plan_family``). ``groups``,
+    ``scenarios`` and ``depth`` override the table (the sweep's plans)."""
     if kernel == "derivs" and not derivs_dims(n, m):
         raise NotImplementedError(
             f"K8 takes n = m <= {DERIVS_DIM_MAX}, got {(n, m)} (the JAX "
@@ -307,7 +355,7 @@ def rollout_plan(kernel: str, env_id: int, n: int, m: int, B: int, A: int,
                 f"the rollout kernels take 1 <= n, m <= {GENERIC_DIM_MAX}, "
                 f"got {(n, m)}")
         return _generic_plan(kernel, env_id, n, m, B, A, dtype, param_elems,
-                             groups, scenarios, depth, max_threads)
+                             groups, scenarios, depth, max_threads, family)
     G, blocks, D = ROLLOUT_PLANS[kernel][n]
     G, D = groups or G, depth or D
     if G not in (1, 2, 4, 8, 16) or not 1 <= D <= TILE_MAX_DEPTH:
@@ -345,6 +393,17 @@ def kernel_max_threads(kernel: str, a, generic: bool | None = None) -> int:
     B, T, n, m = a["dims"]
     if generic is None:
         generic = not unrolled_dims(a["env_id"], n, m, kernel)
+    if a["env_id"] == USER_STEP_ID:
+        key = (kernel, a["dtype"], a["source"])
+        if key not in _MAX_THREADS:
+            lib = _build.user_library(a["source"])
+            got = lib.tfmpc_rollout_user_max_threads(
+                KIND_CODES[kernel], _build.DTYPE_CODES[a["dtype"]], n, m,
+                *_env_pointers(a))
+            if got <= 0:
+                _build.check(-got, "rollout_user_max_threads", lib)
+            _MAX_THREADS[key] = got
+        return _MAX_THREADS[key]
     if generic:
         key = (kernel, a["dtype"], a["env_id"], "generic")
         if key not in _MAX_THREADS:
@@ -374,7 +433,8 @@ def launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
     B, T, n, m = a["dims"]
     return rollout_plan(kernel, a["env_id"], n, m, B, A, a["dtype"],
                         sum(p.numel() for p in a["params"]),
-                        max_threads=kernel_max_threads(kernel, a))
+                        max_threads=kernel_max_threads(kernel, a),
+                        family=plan_family(a))
 
 
 def generic_launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
@@ -385,7 +445,8 @@ def generic_launch_plan(a, kernel: str, A: int = 1) -> RolloutPlan:
     B, T, n, m = a["dims"]
     return _generic_plan(kernel, a["env_id"], n, m, B, A, a["dtype"],
                          sum(p.numel() for p in a["params"]), None, None,
-                         None, kernel_max_threads(kernel, a, generic=True))
+                         None, kernel_max_threads(kernel, a, generic=True),
+                         plan_family(a))
 
 
 def _plan_args(a, kernel, A=1):
@@ -483,36 +544,44 @@ def policy_from_lanes(policy_lane):
                   k=k.permute(2, 0, 1))
 
 
-def kernel_args(env, X, U, policy, policy_lane=None, derivatives=False):
+def kernel_args(env, X, U, policy, policy_lane=None, derivatives=False,
+                step=None):
     """Check that the CUDA kernels cover this call (raises if not) and lay
     its inputs out for them (``kernel_layout``)."""
     if X.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {X.device}")
-    return kernel_layout(env, X, U, policy, policy_lane, derivatives)
+    return kernel_layout(env, X, U, policy, policy_lane, derivatives, step)
 
 
-def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False):
+def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False,
+                  step=None):
     """The kernels' inputs, on the tensors' own device: ``[T, entries, B]``
     trajectories and policy, the box ``lo``/``hi [m]`` (None for an
     unbounded env), and the env step's id and parameters. A kernel-layout
     ``policy_lane = (K [T, m*n, B], k [T, m, B])`` is taken as it is
     (``policy`` is then unused). With ``derivatives``, K8's: the env's
-    ``device_derivatives`` functor at n = m <= ``DERIVS_DIM_MAX``. Raises
-    for a dtype, env or dims the kernels do not cover: an env without a
-    device step, K8 outside ``derivs_dims`` and any dim above
+    ``device_derivatives`` functor at n = m <= ``DERIVS_DIM_MAX``. A
+    generated step (``USER_STEP_ID``) is traced at the call's dtype and
+    device (``Env.generic_device_step``), its source under ``"source"``;
+    ``step`` overrides the env's (a shipped env's generated step, to hold it
+    against the hand-written one). Raises for a dtype, env or dims the
+    kernels do not cover: an env whose device step is None, K8 outside
+    ``derivs_dims`` and any dim above
     ``GENERIC_DIM_MAX`` (K2, K3 and K5 take every 1 <= n, m <= 48, and K8
     every n = m <= 12, in the generic form where no unrolled instantiation
     runs)."""
     if X.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"the CUDA kernels take float32/float64, got {X.dtype}")
-    step = env.device_derivatives() if derivatives else env.device_step()
+    if step is None:
+        step = env.device_derivatives() if derivatives else env.device_step()
+        if step is not None and step.env_id == USER_STEP_ID:
+            step = env.generic_device_step(X.dtype, X.device)
     if step is None:
         what = ("device derivatives compiled into K8" if derivatives
-                else "device step compiled into the rollout kernels")
+                else "device step compiled into the rollout kernels: its "
+                "device_step() returns None")
         raise NotImplementedError(
-            f"{type(env).__name__} has no {what}"
-            f"{'' if derivatives else ' (ROADMAP queue 2 item 3)'}; run "
-            "with use_pallas=False"
+            f"{type(env).__name__} has no {what}; run with use_pallas=False"
         )
     B, T, m = U.shape
     n = X.shape[-1]
@@ -553,6 +622,8 @@ def kernel_layout(env, X, U, policy, policy_lane=None, derivatives=False):
         hi=hi,
         params=params,
         int_params=step.int_params,
+        source=step.source,
+        work=step.work,
     )
 
 
@@ -577,15 +648,24 @@ def _launch_generic(a, kernel, plan, J, X=None, U=None, alphas=(),
                     alpha=None, kargs=None):
     """Launch the generic form's ``kernel`` (K2, K3, K5, or K8 with its
     ``D_KEYS`` output blocks ``kargs``) with ``plan`` on ``kernel_args``
-    output ``a``; returns the C entry's code."""
+    output ``a`` (a generated step's from its user library); returns the C
+    entry's code."""
     B, T, n, m = a["dims"]
     null = ctypes.c_void_p(None)
     A = len(alphas) or 1
     lin = None if kargs is None else (ctypes.c_void_p * len(D_KEYS))(
         *[kargs[key].data_ptr() for key in D_KEYS])
-    return _build.library().tfmpc_rollout_generic(
-        KIND_CODES[kernel], _build.DTYPE_CODES[a["dtype"]], a["env_id"], n,
-        m, T, B, *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
+    if a["env_id"] == USER_STEP_ID:
+        call = functools.partial(
+            _build.user_library(a["source"]).tfmpc_rollout_user,
+            KIND_CODES[kernel], _build.DTYPE_CODES[a["dtype"]])
+    else:
+        call = functools.partial(
+            _build.library().tfmpc_rollout_generic, KIND_CODES[kernel],
+            _build.DTYPE_CODES[a["dtype"]], a["env_id"])
+    return call(
+        n, m, T, B,
+        *(_build.ptr(a[key]) for key in ("xbar", "ubar", "K", "k")),
         *_bound_pointers(a),
         (ctypes.c_double * A)(*map(float, alphas)) if alphas else None, A,
         null if alpha is None else _build.ptr(alpha), *_env_pointers(a),
@@ -595,12 +675,23 @@ def _launch_generic(a, kernel, plan, J, X=None, U=None, alphas=(),
         _build.stream())
 
 
+def _check_generic(rc, what, a):
+    """``_build.check`` of a generic-form launch (a generated step's in its
+    user library)."""
+    if a["env_id"] == USER_STEP_ID:
+        _build.check(rc, f"{what} (generated step)",
+                     _build.user_library(a["source"]))
+    else:
+        _build.check(rc, f"{what} (generic)")
+
+
 def linesearch_costs_kernel(a, alphas: Sequence[float]):
     """Launch K2 on ``kernel_args`` output: raw ``J [A, B]``. The unrolled
     instantiation runs where one covers the env and dims
     (``COSTS_LAUNCHES``), the generic form elsewhere
-    (``COSTS_GENERIC_LAUNCHES``)."""
-    global COSTS_LAUNCHES, COSTS_GENERIC_LAUNCHES
+    (``COSTS_GENERIC_LAUNCHES``; on a generated step
+    ``COSTS_USER_LAUNCHES``)."""
+    global COSTS_LAUNCHES, COSTS_GENERIC_LAUNCHES, COSTS_USER_LAUNCHES
     B, T, n, m = a["dims"]
     A = len(alphas)
     if not 1 <= A <= MAX_ALPHAS:
@@ -608,9 +699,12 @@ def linesearch_costs_kernel(a, alphas: Sequence[float]):
     J = torch.empty((A, B), dtype=a["dtype"], device=a["xbar"].device)
     plan = launch_plan(a, "costs", A)
     if plan.generic:
-        _build.check(_launch_generic(a, "costs", plan, J, alphas=alphas),
-                     "linesearch_costs (generic)")
-        COSTS_GENERIC_LAUNCHES += 1
+        _check_generic(_launch_generic(a, "costs", plan, J, alphas=alphas),
+                       "linesearch_costs", a)
+        if a["env_id"] == USER_STEP_ID:
+            COSTS_USER_LAUNCHES += 1
+        else:
+            COSTS_GENERIC_LAUNCHES += 1
         return J
     rc = _build.library().tfmpc_linesearch_costs(
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
@@ -628,8 +722,9 @@ def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
     """Launch K5 on ``kernel_args`` output: raw ``(J [A, B], X [T, A*n, B],
     U [T, A*m, B])``, row ``a*n + i`` of step t holding ``x_{t+1, i}`` of
     alpha ``a`` (``a*m + c``: ``u_{t, c}``). The generic form where no
-    unrolled instantiation runs (``TRAJ_GENERIC_LAUNCHES``)."""
-    global TRAJ_LAUNCHES, TRAJ_GENERIC_LAUNCHES
+    unrolled instantiation runs (``TRAJ_GENERIC_LAUNCHES``; on a generated
+    step ``TRAJ_USER_LAUNCHES``)."""
+    global TRAJ_LAUNCHES, TRAJ_GENERIC_LAUNCHES, TRAJ_USER_LAUNCHES
     B, T, n, m = a["dims"]
     A = len(alphas)
     if not 1 <= A <= MAX_ALPHAS:
@@ -641,10 +736,13 @@ def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
     U_out = torch.empty((T, A * m, B), **opts)
     plan = launch_plan(a, "traj", A)
     if plan.generic:
-        _build.check(_launch_generic(a, "traj", plan, J, X_out, U_out,
-                                     alphas=alphas),
-                     "linesearch_costs_traj (generic)")
-        TRAJ_GENERIC_LAUNCHES += 1
+        _check_generic(_launch_generic(a, "traj", plan, J, X_out, U_out,
+                                       alphas=alphas),
+                       "linesearch_costs_traj", a)
+        if a["env_id"] == USER_STEP_ID:
+            TRAJ_USER_LAUNCHES += 1
+        else:
+            TRAJ_GENERIC_LAUNCHES += 1
         return J, X_out, U_out
     rc = _build.library().tfmpc_linesearch_costs_traj(
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,
@@ -662,8 +760,9 @@ def linesearch_costs_traj_kernel(a, alphas: Sequence[float]):
 def rollout_alpha_kernel(a, alpha):
     """Launch K3 on ``kernel_args`` output and per-lane ``alpha [B]``:
     raw ``(X [T, n, B], U [T, m, B], J [B])``. The generic form where no
-    unrolled instantiation runs (``ALPHA_GENERIC_LAUNCHES``)."""
-    global ALPHA_LAUNCHES, ALPHA_GENERIC_LAUNCHES
+    unrolled instantiation runs (``ALPHA_GENERIC_LAUNCHES``; on a generated
+    step ``ALPHA_USER_LAUNCHES``)."""
+    global ALPHA_LAUNCHES, ALPHA_GENERIC_LAUNCHES, ALPHA_USER_LAUNCHES
     B, T, n, m = a["dims"]
     opts = dict(dtype=a["dtype"], device=a["xbar"].device)
     if alpha.shape != (B,) or alpha.dtype != a["dtype"] \
@@ -675,10 +774,13 @@ def rollout_alpha_kernel(a, alpha):
     J = torch.empty((B,), **opts)
     plan = launch_plan(a, "alpha")
     if plan.generic:
-        _build.check(_launch_generic(a, "alpha", plan, J, X_out, U_out,
-                                     alpha=alpha),
-                     "rollout_alpha (generic)")
-        ALPHA_GENERIC_LAUNCHES += 1
+        _check_generic(_launch_generic(a, "alpha", plan, J, X_out, U_out,
+                                       alpha=alpha),
+                       "rollout_alpha", a)
+        if a["env_id"] == USER_STEP_ID:
+            ALPHA_USER_LAUNCHES += 1
+        else:
+            ALPHA_GENERIC_LAUNCHES += 1
         return X_out, U_out, J
     rc = _build.library().tfmpc_rollout_alpha(
         _build.DTYPE_CODES[a["dtype"]], a["env_id"], n, m, T, B,

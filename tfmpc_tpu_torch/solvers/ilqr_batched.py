@@ -36,8 +36,11 @@ linearization, dims above 12), so does this one, on every device.
 The JAX package's ``lax.while_loop``s become host loops that read one flag
 per outer iteration and one per restart round (and, for a bounded env, one
 for whether any lane stalled). With ``use_pallas=True`` on CUDA tensors the
-stages run the CUDA kernels or raise (an env without a device step, or
-dims without a kernel instantiation); nothing falls back to the plain path.
+stages run the CUDA kernels or raise (a user env whose step the functor
+generator cannot express, ``ops/env_codegen.py``); nothing falls back to
+the plain path. An env whose ``device_step()`` returns None keeps the
+plain rollout on every device, as the JAX package keeps its XLA rollout
+for ``lane_functions() -> None``.
 Where the JAX package runs its XLA route by design, the plain stages are
 the route on every device: the backward of full DDP above 12 and every
 stage above 48 (``_riccati_kernel_mode``, ``_rollout_dims_supported``);
@@ -320,23 +323,18 @@ def _rollout_dims_supported(n: int, m: int) -> bool:
 def _use_pallas_rollout(env, config: ILQRConfig, device) -> bool:
     """Whether the line search runs through K2/K3/K5's wrappers.
 
-    No with ``use_pallas=False`` or dims past ``_rollout_dims_supported``.
-    An env without a device step keeps the plain rollout on the CPU, as the
-    JAX package keeps the XLA path for an env without lane functions; on
-    CUDA with ``use_pallas`` that is an error, not a silent slow path.
+    No with ``use_pallas=False``, dims past ``_rollout_dims_supported``,
+    or an env whose ``device_step()`` returns None: that env keeps the
+    plain rollout on every device, as the JAX package keeps its XLA
+    rollout for ``lane_functions() -> None``. A user env's default
+    ``device_step()`` is its generated step, and raises
+    ``NotImplementedError`` for a step the generator cannot express;
+    ``device`` is unused (the rule is the same on every device).
     """
     if not config.use_pallas \
             or not _rollout_dims_supported(env.state_size, env.action_size):
         return False
-    if env.device_step() is None:
-        if torch.device(device).type == "cuda":
-            raise NotImplementedError(
-                f"use_pallas=True on CUDA, but {type(env).__name__} has no "
-                "device step for the rollout kernels (ROADMAP queue 2 item "
-                "3); pass use_pallas=False"
-            )
-        return False
-    return True
+    return env.device_step() is not None
 
 
 def _resolve_emit_traj(config: ILQRConfig, horizon: int, n: int,
@@ -523,10 +521,9 @@ def _use_fused_derivs(env, config: ILQRConfig, device) -> bool:
     Its TPU rule B % 128 is not copied: the kernels mask any batch. Where
     the JAX rule fuses, K8 (unrolled or generic) and the backward (the
     lane kernels, or K7 through ``riccati.riccati_backward_lanes``) run at
-    every such dim; an env with a device linearization but no device step
-    (a user env) raises ``NotImplementedError`` on a CUDA ``device``
-    (ROADMAP queue 2 item 3) and takes the split iteration on the CPU,
-    where every wrapper runs its plain version.
+    every such dim; an env whose ``device_step()`` returns None takes the
+    split iteration, as the JAX package does for ``lane_functions() ->
+    None``. ``device`` is unused (the rule is the same on every device).
     """
     if not (config.use_pallas and config.fuse_derivatives) \
             or config.parallel_backward or config.ddp:
@@ -534,15 +531,7 @@ def _use_fused_derivs(env, config: ILQRConfig, device) -> bool:
     if max(env.state_size, env.action_size) > FUSED_DIM_MAX \
             or env.device_derivatives() is None:
         return False
-    if env.device_step() is not None:
-        return True
-    if torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"fuse_derivatives=True with use_pallas=True on CUDA, but "
-            f"{type(env).__name__} has no device step (Env.device_step) "
-            "for the rollout kernels (ROADMAP queue 2 item 3); pass "
-            "fuse_derivatives=False")
-    return False
+    return env.device_step() is not None
 
 
 def _final_klayout(env, x_last):

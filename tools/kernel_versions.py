@@ -11,6 +11,7 @@ on one GPU.
         [--clocks]
     python3 tools/kernel_versions.py rollout --sweep [KIND ...]
     python3 tools/kernel_versions.py rollout --generic-sweep [KIND ...]
+    python3 tools/kernel_versions.py rollout --generic-sweep user
 
 Each PATH is another version of ``ops/csrc/row_matmul.cu`` (``p1``) or of
 ``ops/csrc/riccati_mid.cu`` (``k7``), for example an earlier one taken
@@ -103,7 +104,11 @@ at ``GENERIC_SWEEP_CASES`` (K8: ``DERIVS_GENERIC_SWEEP_CASES``) with the
 checkout's library, in float32, as device times of graph replays in turns
 (the measurement behind ``ops/rollout.py`` GENERIC_PLANS), then, with K2,
 K3 or K5, its two line-search layouts at each case with K5's footprint
-(behind ``ilqr_batched._resolve_emit_traj`` there).
+(behind ``ilqr_batched._resolve_emit_traj`` there). ``rollout
+--generic-sweep user`` times every plan of K2, K3 and K5 on a user env's
+generated step functor (``csrc/rollout_user.cuh``) at
+``USER_SWEEP_CASES`` (phase 31's shapes and the chain at d = 12 and 24),
+beside the plan ``GENERIC_PLANS`` gives it.
 """
 
 from __future__ import annotations
@@ -1114,6 +1119,12 @@ GENERIC_SWEEP_CASES = {**cs.GENERIC_KERNEL_CASES, "reservoir12": (1024, 100)}
 # G5 (12 dims, box +-1) shapes, one for each row of GENERIC_PLANS["derivs"]
 DERIVS_GENERIC_SWEEP_CASES = {
     case: (Bn, Tn) for case, Bn, Tn, _ in cs.FUSED_MID_PATHS.values()}
+# the generated step's: chip_smoke.py's phase 31 paths (the custom-env
+# example's chain at its own size, d = 6 with the box at +-1, and at d =
+# 48, and the (8, 3) fuzz env) and the chain at d = 12 and 24, so that a
+# plan is measured at max(n, m) = 6, 8, 12, 24 and 48
+USER_SWEEP_CASES = {**{case: v[:2] for case, v in cs.USER_PATHS.items()},
+                    "chain12": (512, 50), "chain24": (512, 50)}
 
 
 def generic_launcher(a, kind, plan, alphas, alpha_vec):
@@ -1171,7 +1182,7 @@ def generic_sweep_plans(kind, env_id, n, m, B, A, dtype, param_elems,
                     yield (G, spb, D), rollout._generic_plan(
                         kind, env_id, n, m, B, A, dtype, param_elems, G,
                         spb, D, max_threads)
-                except ValueError:
+                except (ValueError, NotImplementedError):
                     continue
 
 
@@ -1236,7 +1247,8 @@ def run_generic_sweep(card, kinds=("costs", "alpha", "traj")):
     GENERIC_PLANS), then, for K2, K3 or K5, the two line-search layouts on
     the generic form at each case (``generic_emit_layouts``: the
     measurement behind ``ilqr_batched._resolve_emit_traj`` at those
-    dims)."""
+    dims). ``kinds`` = ``("user",)``: K2, K3 and K5 on the generated step
+    at ``USER_SWEEP_CASES``, each beside ``GENERIC_PLANS``' plan for it."""
     import torch
 
     from tfmpc_tpu_torch.ops import rollout
@@ -1247,7 +1259,11 @@ def run_generic_sweep(card, kinds=("costs", "alpha", "traj")):
     A = len(alphas)
     cases = [(case, Bn, Tn, [k for k in kinds if k != "derivs"])
              for case, (Bn, Tn) in GENERIC_SWEEP_CASES.items()]
-    if "derivs" in kinds:
+    if "user" in kinds:
+        kinds = ("costs", "alpha", "traj")
+        cases = [(case, Bn, Tn, list(kinds))
+                 for case, (Bn, Tn) in USER_SWEEP_CASES.items()]
+    elif "derivs" in kinds:
         cases += [(case, Bn, Tn, ["derivs"])
                   for case, (Bn, Tn) in DERIVS_GENERIC_SWEEP_CASES.items()]
     for case, Bn, Tn, case_kinds in cases:
@@ -1280,6 +1296,7 @@ def run_generic_sweep(card, kinds=("costs", "alpha", "traj")):
             spread = [k for k in times if -(-Bn // k[1]) >= sms]
             best_spread = min(spread, key=times.get) if spread else None
             plan = rollout.launch_plan(a, kind, A)
+            table = times.get((plan.groups, plan.scenarios, plan.depth))
             print(f"generic {ROLLOUT_KINDS[kind][0]} {case} (B={Bn}, T={Tn}, "
                   f"(n, m) = ({n}, {m}), f32), device ms by G/scenarios a "
                   "block/depth, best of two turns: " + ", ".join(
@@ -1290,8 +1307,10 @@ def run_generic_sweep(card, kinds=("costs", "alpha", "traj")):
                   + (f"{'/'.join(map(str, best_spread))} "
                      f"{times[best_spread]:.4f}" if best_spread else "none")
                   + f"; GENERIC_PLANS' plan {plan.groups}/{plan.scenarios}/"
-                  f"{plan.depth} [{card}]")
-    if set(kinds) - {"derivs"}:
+                  f"{plan.depth}"
+                  + (f" {table:.4f} ({table / times[best]:.3f}x the "
+                     "fastest)" if table is not None else "") + f" [{card}]")
+    if set(kinds) - {"derivs"} and cases[0][0] in GENERIC_SWEEP_CASES:
         for case in GENERIC_SWEEP_CASES:
             generic_emit_layouts(case, case, card)
 
