@@ -231,7 +231,21 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     >= 0.99 converged) and the fuzz env (B=1024, T=50); then
     ``examples/torch_custom_env.py`` itself, an MPC run of its env (256
     x0, 10 steps) and its solve through the one-process data-parallel
-    mesh (``mesh.solve_ilqr_sharded``), counted.
+    mesh (``mesh.solve_ilqr_sharded``), counted;
+32. the time-sharded solves (``parallel/mesh.py``'s time axis, which runs
+    no kernel, as the JAX package forces ``use_pallas=False`` there): a
+    four-process gloo group on the one card (the exchanged elements
+    staged through the host; NCCL refuses two ranks on one device), every
+    counter zero in every rank: ``solve_lqr_time_sharded`` on a time axis
+    of 4 (n=4, m=2, T=512, float64) against ``lqr.solve(parallel=True)``
+    (actions 1e-8, total cost 1e-10 relative); the reservoir-5 boxQP T=500
+    single solve (config 4's x0, the first row of U(20, 95) from seed 0,
+    ``atol=1e-3, max_iterations=30``, f32) on
+    a time axis of 4 against the one-process parallel-backward solve (same
+    converged flag and iterations, cost 1e-5 relative); a 2x2 data x time
+    batch (reservoir-5, T=100, B=256, x0 ~ U(20, 95)) against the
+    one-process batch (same mask on >= 99% of lanes, mean cost 1e-4); the
+    ranks of each time axis bit for bit alike; the solve times printed.
 
 K5 (the emit-trajectories line search, AUTO's layout) is checked with
 the other kernels in phase 3 at the shapes of the paths that run it
@@ -3391,6 +3405,16 @@ def gloo_group(x0, horizon, config):
     """Phase 28's two processes (spawned, a free localhost port, both on
     card 0) run ``gloo_rank``; returns their reports by rank. Past
     ``G_GLOO_DEADLINE_S`` the children are killed and this raises."""
+    return spawn_group(gloo_rank, G_GLOO_WORLD, (x0, horizon, config),
+                       G_GLOO_DEADLINE_S)
+
+
+def spawn_group(target, world, args, deadline):
+    """``world`` spawned processes on a free localhost port, each running
+    ``target(rank, world, port, *args, results)``, which puts ``(rank, ok,
+    report)`` on ``results``; returns the reports by rank. Past
+    ``deadline`` seconds, or when a process dies before reporting, the
+    children are killed and this raises."""
     import queue
     import socket
 
@@ -3401,14 +3425,14 @@ def gloo_group(x0, horizon, config):
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=gloo_rank, args=(
-        rank, G_GLOO_WORLD, port, x0, horizon, config, results))
-        for rank in range(G_GLOO_WORLD)]
+    procs = [ctx.Process(target=target, args=(rank, world, port, *args,
+                                              results))
+             for rank in range(world)]
     for p in procs:
         p.start()
-    end, outs = time.monotonic() + G_GLOO_DEADLINE_S, {}
+    end, outs = time.monotonic() + deadline, {}
     try:
-        while len(outs) < G_GLOO_WORLD:
+        while len(outs) < world:
             if time.monotonic() > end:
                 raise AssertionError("the gloo group passed its deadline")
             try:
@@ -3427,7 +3451,7 @@ def gloo_group(x0, horizon, config):
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
-    return [outs[r] for r in range(G_GLOO_WORLD)]
+    return [outs[r] for r in range(world)]
 
 
 def slice_g(phase, launches_by_path, card):
@@ -4836,6 +4860,222 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
     return figures
 
 
+# -- phase 32: the time-sharded solves (the horizon over processes) ---------
+
+TIME_WORLD, TIME_DEADLINE_S = 4, 300.0
+T_LQR_TIME, LQR_TIME_SEED = 512, 0
+TIME_CFG = dict(atol=1e-3, max_iterations=30, boxqp=True)  # suite config 4
+B_TIME, T_TIME_BATCH = 256, 100
+TIME_SHARE, TIME_MEAN_COST_RTOL = 0.99, 1e-4
+
+
+def time_inputs(device):
+    """Phase 32's inputs on ``device``: the LQR problem and x0 (n=4, m=2,
+    T=512, float64, from a seeded ``torch.Generator``), reservoir-5, the
+    2x2 batch's x0 ~ U(20, 95) (seed 0) and its first row, which is suite
+    config 4's single-solve x0 (``benchmarks/suite.py:252-289``: ``x0[:1]``
+    of the same draw)."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.models.problems import make_lqr
+
+    g = torch.Generator().manual_seed(LQR_TIME_SEED)
+    problem = make_lqr(g, 4, 2, T_LQR_TIME, dtype=torch.float64,
+                       device=device)
+    x0_lqr = torch.randn(4, generator=g, dtype=torch.float64).to(device)
+    env = bounded_env("reservoir5", torch.float32)
+    x0_batch = torch.as_tensor(np.random.default_rng(0).uniform(
+        20.0, 95.0, (B_TIME, 5)).astype("float32"), device=device)
+    return problem, x0_lqr, env, x0_batch[0], x0_batch
+
+
+def time_rank(rank, world, port, results):
+    """One process of phase 32's four-process gloo group, on the one card:
+    joins the group, builds the 1x4 and 2x2 meshes, runs the three
+    time-sharded solves (counted, each timed from a barrier), and puts
+    their results, times and counters on ``results``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        import torch
+        import torch.distributed as dist
+
+        from tfmpc_tpu_torch.parallel import mesh
+        from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        device = mesh.init_multihost(
+            device="cuda", backend="gloo", rank=rank, world_size=world,
+            init_method=f"tcp://127.0.0.1:{port}")
+        try:
+            time_axis = mesh.make_mesh_2d(1, world, devices=device)
+            data_time = mesh.make_mesh_2d(2, world // 2, devices=device)
+            problem, x0_lqr, env, x0_single, x0_batch = time_inputs(device)
+            rows = B_TIME // data_time.size
+            local = x0_batch[data_time.rank * rows:
+                             (data_time.rank + 1) * rows]
+            cfg = ILQRConfig(**TIME_CFG)
+            report = {"device": str(device), "backend": dist.get_backend(),
+                      "place": (data_time.rank, data_time.time.rank)}
+            for name, run in (
+                    ("lqr", lambda: mesh.solve_lqr_time_sharded(
+                        problem, x0_lqr, mesh=time_axis)),
+                    ("t500", lambda: mesh.solve_ilqr_time_sharded(
+                        env, x0_single, horizon=T_LONG, config=cfg,
+                        mesh=time_axis)),
+                    ("batch", lambda: mesh.solve_ilqr_time_sharded(
+                        env, local, horizon=T_TIME_BATCH, config=cfg,
+                        mesh=data_time))):
+                dist.barrier()
+                t0 = time.perf_counter()
+                out, launches, plain = counted(run)
+                torch.cuda.synchronize()
+                report[name] = {
+                    "s": time.perf_counter() - t0, "launches": launches,
+                    "plain": plain,
+                    "out": [a.cpu().numpy() for a in out]}
+                if name != "lqr":
+                    report[name]["fields"] = out._fields
+            results.put((rank, True, report))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: B902 - the parent reports it and fails
+        results.put((rank, False, traceback.format_exc()))
+
+
+def slice_time(phase, card):
+    """Phase 32: the time-sharded solves (``parallel/mesh.py``), the
+    horizon split over four processes of a gloo group on the one card
+    (the elements exchanged through the host; NCCL refuses two ranks on
+    one device). No kernel runs there, by design, as in the JAX package
+    (``use_pallas=False``); the counters check it. Against this process's
+    solves on the card: the float64 LQR (time axis of 4) with
+    ``lqr.solve(parallel=True)`` (actions 1e-8, total cost 1e-10
+    relative: in float64 the gate reads the split's own rounding, not the
+    float32 composition's, which each solve takes in its own order), reservoir-5 boxQP at T=500 (time axis of 4) with the
+    one-process parallel-backward solve (same converged flag and
+    iterations, cost 1e-5 relative), and the 2x2 data x time batch with
+    the one-process batch (the same converged mask on >= 99% of lanes,
+    mean cost 1e-4 relative); the ranks of each time axis hold the same
+    result bit for bit. Returns its figures."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.solvers import ilqr, lqr
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    t0 = time.perf_counter()
+    outs = spawn_group(time_rank, TIME_WORLD, (), TIME_DEADLINE_S)
+    print(f"  gloo group of {TIME_WORLD} on {outs[0]['device']} "
+          f"({outs[0]['backend']}): {time.perf_counter() - t0:.1f} s with "
+          "its start-up")
+    for rank, out in enumerate(outs):
+        if out["place"] != (rank // 2, rank % 2):
+            raise AssertionError(f"time rank {rank}: 2x2 place "
+                                 f"{out['place']}")
+        for name in ("lqr", "t500", "batch"):
+            if any(out[name]["launches"].values()) \
+                    or any(out[name]["plain"].values()):
+                raise AssertionError(
+                    f"time-sharded {name}, rank {rank}: a kernel or a plain "
+                    f"version ran: {out[name]['launches']}, "
+                    f"{out[name]['plain']}")
+    print(f"  no kernel launched and no plain version called in any rank's "
+          f"solves (counters of {len(COUNTERS)} kernels)")
+    # the ranks of a time axis return the same solve
+    for name, groups in (("lqr", [range(TIME_WORLD)]),
+                         ("t500", [range(TIME_WORLD)]),
+                         ("batch", [(0, 1), (2, 3)])):
+        for ranks in groups:
+            first = outs[ranks[0]][name]["out"]
+            for r in ranks[1:]:
+                if not all(np.array_equal(a, b, equal_nan=True) for a, b in
+                           zip(first, outs[r][name]["out"])):
+                    raise AssertionError(f"time-sharded {name}: rank {r} "
+                                         f"differs from rank {ranks[0]}")
+
+    problem, x0_lqr, env, x0_single, x0_batch = time_inputs("cuda")
+    one_cfg = ILQRConfig(**TIME_CFG, parallel_backward=True)
+    figures = {"card": card}
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # 1. LQR in float64, time axis of 4
+    (states, actions, costs), s1 = timed(
+        lambda: lqr.solve(problem, x0_lqr, parallel=True))
+    got = outs[0]["lqr"]["out"]
+    dev = float(np.abs(got[1] - actions.cpu().numpy()).max())
+    rel = abs(float(got[2].sum()) - float(costs.sum())) \
+        / abs(float(costs.sum()))
+    print(f"  LQR n=4 m=2 T={T_LQR_TIME} f64, time axis of {TIME_WORLD}: "
+          f"actions max-abs {dev:.3e} (gate 1e-8), total cost rel diff "
+          f"{rel:.3e} (gate 1e-10); sharded {outs[0]['lqr']['s'] * 1e3:.1f} "
+          f"ms, one process {s1 * 1e3:.1f} ms [{card}]")
+    if not (dev <= 1e-8 and rel <= 1e-10):
+        raise AssertionError("time-sharded LQR disagrees with "
+                             "lqr.solve(parallel=True)")
+    figures["lqr"] = {"actions_max_abs": dev, "cost_rel": rel,
+                      "sharded_s": outs[0]["lqr"]["s"], "one_process_s": s1}
+
+    # 2. reservoir-5 boxQP T=500, the full-width path, time axis of 4
+    one, s2 = timed(lambda: ilqr.solve(env, x0_single, horizon=T_LONG,
+                                       config=one_cfg))
+    got = dict(zip(outs[0]["t500"]["fields"], outs[0]["t500"]["out"]))
+    rel = abs(float(got["total_cost"]) - float(one.total_cost)) \
+        / abs(float(one.total_cost))
+    print(f"  reservoir-5 boxQP T={T_LONG} f32 single solve, time axis of "
+          f"{TIME_WORLD}: converged {bool(got['converged'])} in "
+          f"{int(got['iterations'])} iterations (one process "
+          f"{bool(one.converged)} in {int(one.iterations)}), cost rel diff "
+          f"{rel:.3e} (gate 1e-5); sharded {outs[0]['t500']['s']:.2f} s, "
+          f"one process {s2:.2f} s [{card}]")
+    if bool(got["converged"]) != bool(one.converged) \
+            or int(got["iterations"]) != int(one.iterations) \
+            or not rel <= 1e-5:
+        raise AssertionError("time-sharded T=500 solve disagrees with the "
+                             "one-process parallel-backward solve")
+    figures["t500"] = {"converged": bool(got["converged"]),
+                       "iterations": int(got["iterations"]),
+                       "cost_rel": rel, "sharded_s": outs[0]["t500"]["s"],
+                       "one_process_s": s2}
+
+    # 3. the 2x2 data x time batch: data ranks 0 and 1 (time rank 0 each)
+    one, s3 = timed(lambda: ilqr.solve_batch(
+        env, x0_batch, horizon=T_TIME_BATCH, config=one_cfg))
+    fields = outs[0]["batch"]["fields"]
+    got = {f: np.concatenate([outs[0]["batch"]["out"][i],
+                              outs[2]["batch"]["out"][i]])
+           for i, f in enumerate(fields)}
+    same = float((got["converged"] == one.converged.cpu().numpy()).mean())
+    mean_got = float(got["total_cost"].astype("float64").mean())
+    mean_one = float(one.total_cost.double().mean())
+    rel = abs(mean_got - mean_one) / abs(mean_one)
+    print(f"  reservoir-5 boxQP T={T_TIME_BATCH} B={B_TIME} f32, 2x2 data x "
+          f"time: converged {float(got['converged'].mean()):.4f} vs "
+          f"{float(one.converged.float().mean()):.4f}, same mask on "
+          f"{same:.4f} of lanes (gate {TIME_SHARE}); mean cost {mean_got:.6f}"
+          f" vs {mean_one:.6f} (rel diff {rel:.3e}, gate "
+          f"{TIME_MEAN_COST_RTOL:g}); sharded {outs[0]['batch']['s']:.2f} s,"
+          f" one process {s3:.2f} s [{card}]")
+    if same < TIME_SHARE or not rel <= TIME_MEAN_COST_RTOL:
+        raise AssertionError("the 2x2 data x time solve disagrees with the "
+                             "one-process batch")
+    figures["batch_2x2"] = {"same_mask": same, "mean_cost_rel": rel,
+                            "sharded_s": outs[0]["batch"]["s"],
+                            "one_process_s": s3}
+    phase.done("32. time-sharded solves")
+    figures["seconds"] = phase.seconds["32. time-sharded solves"]
+    print("phase 32 figures: " + json.dumps(figures))
+    return figures
+
+
 def main() -> int:
     if not (ROOT / "tfmpc_tpu_torch").is_dir():
         raise SystemExit("chip_smoke.py: tfmpc_tpu_torch/ not found beside "
@@ -5150,6 +5390,7 @@ def main() -> int:
                         rates, card)
     user_figures = slice_user(phase, timings, errs, launches_by_path,
                               plain_s, card)
+    slice_time(phase, card)
 
     for name, value in timings.items():
         if name.endswith("_select_ms"):

@@ -13,8 +13,11 @@ takes its share of the rows:
     python examples/torch_distributed_solve.py --device cpu
     torchrun --nproc-per-node 4 examples/torch_distributed_solve.py
 
-The JAX example's data x time block (the horizon sharded over a second
-mesh axis) waits for the time-sharded solves: ROADMAP queue 1 item 1.
+Then, as the JAX example does, data and time parallelism in one solve: a
+2-D ``("data", "time")`` mesh (``make_mesh_2d``) whose time axis of two
+processes splits the parallel backward's horizon while its data axis
+splits the batch (a mesh of one process, 1x1, when run alone or on an odd
+number of processes).
 """
 
 import argparse
@@ -63,8 +66,25 @@ def main(argv=None):
         # each process's trajectories stay on its own device: nothing gathered
         print(f"rank {mesh.rank}: {result.states.shape[0]} trajectories on "
               f"{result.states.device}")
-        print("data x time (the horizon sharded too): not ported yet, "
-              "ROADMAP queue 1 item 1")
+
+        # combined data x time: the batch over the data axis and the
+        # horizon over the time axis of one 2-D mesh, in one solve
+        world = dist.get_world_size() if joined else 1
+        n_time = 2 if world % 2 == 0 else 1
+        mesh2 = pmesh.make_mesh_2d(world // n_time, n_time, devices=device)
+        rows = B // mesh2.size
+        res_dt = pmesh.solve_ilqr_time_sharded(
+            env, x0[mesh2.rank * rows:(mesh2.rank + 1) * rows], horizon=T,
+            config=ILQRConfig(atol=1e-4, max_iterations=30,
+                              parallel_backward=True),
+            mesh=mesh2,
+        )
+        stats = pmesh.summarize(res_dt, mesh2)
+        if mesh2.rank == 0 and mesh2.time.rank == 0:
+            print(f"combined data x time ({mesh2.size}x{n_time}): "
+                  f"{stats['num_converged']} of {B} converged, mean cost "
+                  f"{stats['mean_cost']:.4f}, each time rank holding its "
+                  f"data rank's {rows} whole trajectories")
     finally:
         if joined:
             dist.destroy_process_group()

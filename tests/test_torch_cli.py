@@ -199,12 +199,80 @@ def test_usage_errors(args, message):
 
 
 def test_time_workers_raises_naming_the_roadmap_item():
-    """The JAX CLI shards the horizon over its devices; the port's raises a
-    usage error naming the time-sharding item."""
+    """``--time-workers`` past the processes that can hold it: the JAX CLI's
+    usage error past its 8 devices, and the port's in one process without
+    a group, which says how to launch the processes (the group's own case
+    is ``test_time_workers_in_a_two_process_group``)."""
     for args in (["ilqr", "--env", NAV, "-T", "8"], ["lqr", "-T", "8"]):
+        rc_j, out_j = run_jax(args + ["--time-workers", "9"])
+        assert rc_j == 2 and "must be in [1, 8]" in out_j, out_j
         rc, out = run_port(args + ["--time-workers", "2"])
         assert rc == 2
-        assert "ROADMAP queue 1 item 1" in out, out
+        assert "--time-workers 2 must be in [1, 1]" in out, out
+        assert "torchrun --nproc-per-node 2 -m tfmpc_tpu_torch" in out, out
+        assert run_port(args + ["--time-workers", "0"])[0] == 2
+
+
+SHARDED = re.compile(r"converged=(True|False) iterations=(\d+) "
+                     r"total_cost=(\S+) residual=(\S+) "
+                     r"\(horizon sharded over 2 device\(s\)\)")
+DATA_X_TIME = re.compile(r"solved (\d+) scenarios on (\d+)x2 \(data x time\) "
+                         r"devices: (\d+)/(\d+) converged, mean_cost=(\S+) "
+                         r"mean_iterations=(\S+)")
+
+
+def test_time_workers_in_a_two_process_group():
+    """``lqr`` and ``ilqr --time-workers 2`` in a real two-process gloo group
+    (the horizon over both) against the JAX CLI's on its 8 devices: the
+    same exit codes and printed figures (reservoir-5 with boxQP, converged
+    and stopped after one iteration; a navigation batch, data x time, 1x2
+    here and 4x2 there, its float32 mean cost within 1e-6 relative, as the
+    summed step costs of a trajectory); rank 1 prints nothing. ``lqr`` (another
+    problem than the JAX CLI's) is held against the port's one-process
+    ``--parallel`` run."""
+    res = ["ilqr", "--env", str(REPO / "configs/reservoir.json"), "-T", "40"]
+    nav = ["ilqr", "--env", NAV, "-T", "20"]
+    argvs = [res, nav + ["--num-samples", "4"], ["lqr", "-T", "16"],
+             res + ["--max-iterations", "1"],
+             nav + ["--num-samples", "4", "--num-workers", "2"],
+             nav + ["--num-workers", "1"] + ["--time-workers", "3"],
+             nav + ["--ddp"]]
+    argvs = [a + ["--time-workers", "2"] if "--time-workers" not in a
+             else a for a in argvs]
+    outs = torch_mp.run_group(torch_mp.cli_runs, dict(argvs=[
+        a + ["--device", "cpu"] for a in argvs]))
+    assert all(out == "" for _, out, _ in outs[1])
+    runs = outs[0]
+    assert [rc for rc, _, _ in runs] == [rc for rc, _, _ in outs[1]] == \
+        [0, 0, 0, 3, 2, 2, 2]
+    jax_runs = [run_jax(a) for a in argvs[:2] + argvs[3:4]]
+    jax_runs.append(run_jax(argvs[4][:-4] + ["--num-workers", "8",
+                                             "--time-workers", "2"]))
+    assert [rc for rc, _ in jax_runs] == [0, 0, 3, 2]
+
+    for (rc, out, _), (rc_j, out_j) in zip(runs[:1] + runs[3:4],
+                                           jax_runs[:1] + jax_runs[2:3]):
+        assert figures(SHARDED, out) == figures(SHARDED, out_j)
+        # the trajectory's summed step costs: within f32 rounding
+        total = re.compile(r"Trajectory\(T=40, total_cost=(\S+)\)")
+        np.testing.assert_allclose(float(figures(total, out)[0]),
+                                   float(figures(total, out_j)[0]),
+                                   rtol=1e-6)
+    n, n_data, c, _, cost, it = figures(DATA_X_TIME, runs[1][1])
+    n_j, n_data_j, c_j, _, cost_j, it_j = figures(DATA_X_TIME, jax_runs[1][1])
+    assert (n, n_data, n_data_j) == ("4", "1", "4")
+    assert (c, it) == (c_j, it_j)
+    np.testing.assert_allclose(float(cost), float(cost_j), rtol=1e-6)
+
+    rc, one = run_port(["lqr", "-T", "16", "--parallel"])
+    total = re.compile(r"Trajectory\(T=16, total_cost=(\S+)\)")
+    np.testing.assert_allclose(float(figures(total, runs[2][1])[0]),
+                               float(figures(total, one)[0]), rtol=1e-5)
+    assert len(runs[2][1].splitlines()) == len(one.splitlines())
+    assert "exceeds the 2 processes" in runs[4][2]
+    assert "exceeds the 8 visible devices" in jax_runs[3][1]
+    assert "must be in [1, 2]" in runs[5][2]
+    assert "--ddp is incompatible" in runs[6][2]
 
 
 def test_indivisible_samples():

@@ -31,7 +31,8 @@ def _one_torch_thread():
     ("torch_mpc_closed_loop.py", ["closed-loop final state: [8.000, -5.000]"]),
     ("torch_distributed_solve.py", ["device(s)",
                                     "128 scenarios over 1 device(s)",
-                                    "ROADMAP queue 1 item 1"]),
+                                    "combined data x time (1x1): 128 of "
+                                    "128 converged"]),
     ("torch_checkpoint_resume.py", [
         "resumed to convergence",
         "max control deviation vs uninterrupted solve: 0.0e+00"]),

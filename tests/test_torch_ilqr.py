@@ -255,10 +255,18 @@ def test_config_carries_over_and_refuses_unported_options(envs):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert [f.name for f in dataclasses.fields(cfg)] == \
         [f.name for f in dataclasses.fields(jcfg)]
+    # no option is left unported: time_axis carries over too, and a
+    # parallel-backward solve with it needs an active time mesh
+    assert ilqr._NOT_PORTED == {}
     for option in (dict(time_axis="time"),
                    dict(time_axis="time", parallel_backward=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ilqr.ILQRConfig(**option)
+        jc = jilqr.ILQRConfig(**option)
+        assert dataclasses.asdict(interop.config_from_dict(
+            dataclasses.asdict(jc))) == dataclasses.asdict(jc)
+    with pytest.raises(ValueError, match="solve_ilqr_time_sharded"):
+        ilqr.solve(envs[1], torch.zeros(2, dtype=torch.float64), horizon=4,
+                   config=ilqr.ILQRConfig(time_axis="time",
+                                          parallel_backward=True))
     # the associative-scan backward cannot carry the DDP terms
     with pytest.raises(ValueError, match="parallel_backward"):
         ilqr.ILQRConfig(ddp=True, parallel_backward=True)

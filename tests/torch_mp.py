@@ -1,5 +1,6 @@
 """A real ``torch.distributed`` gloo group of CPU processes for the port's
-tests (``test_torch_mesh.py``, ``test_torch_cli.py``).
+tests (``test_torch_mesh.py``, ``test_torch_cli.py``,
+``test_torch_time_sharding.py``).
 
 ``run_group(fn, payload)`` starts ``world`` processes with
 ``torch.multiprocessing`` (spawn), each running ``fn(rank, world, port,
@@ -148,3 +149,121 @@ def cli_under_torchrun(rank, world, port, payload):
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(payload["argv"])
     return {"rc": rc, "out": out.getvalue(), "err": err.getvalue()}
+
+
+def _join(rank, world, port):
+    import torch
+
+    from tfmpc_tpu_torch.parallel import mesh
+
+    torch.set_num_threads(1)
+    return mesh.init_multihost(
+        device="cpu", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world)
+
+
+def _tensors(arrays: dict) -> dict:
+    import torch
+
+    return {k: None if v is None else torch.as_tensor(v)
+            for k, v in arrays.items()}
+
+
+def _time_case(m, case):
+    """One case of ``time_sharded`` on the mesh ``m``."""
+    import torch
+
+    from tfmpc_tpu_torch.core.types import (
+        Bounds, LinearModel, LQRProblem, QuadraticFinal, QuadraticModel)
+    from tfmpc_tpu_torch.models.registry import make_env
+    from tfmpc_tpu_torch.parallel import mesh
+    from tfmpc_tpu_torch.solvers import lqr_parallel
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    kind = case["kind"]
+    if kind == "backward":
+        policy, value = lqr_parallel.backward_parallel(
+            LQRProblem(**_tensors(case["problem"])), m.time)
+        return {"K": policy.K, "k": policy.k, "V_xx": value.V_xx,
+                "v_x": value.v_x}
+    if kind == "ilqr_backward":
+        lin = LinearModel(**_tensors(case["lin"]))
+        quad = QuadraticModel(**_tensors(case["quad"]))
+        final = QuadraticFinal(**_tensors(case["final"]))
+        mu, Ubar = torch.as_tensor(case["mu"]), torch.as_tensor(case["Ubar"])
+        out = {}
+        for name, got in (
+                ("plain", lqr_parallel.ilqr_backward_parallel(
+                    lin, quad, final, mu, time=m.time)),
+                ("boxqp", lqr_parallel.ilqr_backward_parallel_boxqp(
+                    lin, quad, final, mu, Bounds(**_tensors(case["bounds"])),
+                    Ubar, time=m.time))):
+            ok, policy, dV1, dV2 = got
+            out.update({f"{name}_ok": ok, f"{name}_K": policy.K,
+                        f"{name}_k": policy.k, f"{name}_dV1": dV1,
+                        f"{name}_dV2": dV2})
+        return out
+    if kind == "lqr":
+        states, actions, costs = mesh.solve_lqr_time_sharded(
+            LQRProblem(**_tensors(case["problem"])), case["x0"], mesh=m)
+        return {"states": states, "actions": actions, "costs": costs,
+                "block_F": mesh.shard_problem_time(
+                    LQRProblem(**_tensors(case["problem"])), m).F}
+    env = make_env(case["env"], dtype=torch.float64, device="cpu")
+    x0 = case["x0"]
+    if case.get("split_rows"):  # this data rank's rows of the batch
+        rows = x0.shape[0] // m.size
+        x0 = x0[m.rank * rows:(m.rank + 1) * rows]
+    res = mesh.solve_ilqr_time_sharded(
+        env, x0, horizon=case["horizon"], config=ILQRConfig(**case["config"]),
+        mesh=m)
+    return dict(zip(res._fields, res))
+
+
+def time_sharded(rank, world, port, payload):
+    """Join the gloo group, build ``make_mesh_2d(*shape)`` for each shape of
+    ``payload["meshes"]`` (every rank, in that order), then run each of
+    ``payload["cases"]`` on its mesh (``_time_case``). Returns each mesh's
+    (data rank, time rank, time size) and each case's tensors as numpy,
+    None off its mesh."""
+    import torch.distributed as dist
+
+    from tfmpc_tpu_torch.parallel import mesh
+
+    _join(rank, world, port)
+    try:
+        meshes = {shape: mesh.make_mesh_2d(*shape, devices="cpu")
+                  for shape in payload["meshes"]}
+        out = {"layout": {
+            shape: (m.rank, None if m.time is None else m.time.rank,
+                    None if m.time is None else m.time.size)
+            for shape, m in meshes.items()}}
+        for case in payload["cases"]:
+            m = meshes[case["mesh"]]
+            out[case["name"]] = None if m.rank is None else {
+                k: v.cpu().numpy() for k, v in _time_case(m, case).items()}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def cli_runs(rank, world, port, payload):
+    """Join the gloo group and run the command line on it for each of
+    ``payload["argvs"]``: returns each one's exit code, output and
+    errors."""
+    import torch.distributed as dist
+
+    from tfmpc_tpu_torch import cli
+
+    _join(rank, world, port)
+    try:
+        runs = []
+        for argv in payload["argvs"]:
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+            runs.append((rc, out.getvalue(), err.getvalue()))
+        return runs
+    finally:
+        dist.destroy_process_group()

@@ -13,13 +13,16 @@ is no fallback. ``ilqr`` and ``mpc`` with ``--num-samples`` > 1 go through
 the data-parallel mesh (``parallel/mesh.py``): in one process the whole
 batch on one device; launched with ``torchrun`` (one process per card),
 each process solves its rows and rank 0 prints the global figures.
-``--time-workers`` > 1 (horizon sharding) is not ported yet: ROADMAP
-queue 1 item 1.
+``lqr`` and ``ilqr`` with ``--time-workers W`` > 1 split the parallel
+backward's horizon over W processes of the group (``make_mesh_2d``); a
+batched ``ilqr`` then runs data x time, its data axis ``--num-workers`` or
+the group's size // W processes, as the JAX CLI splits its devices.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -32,8 +35,6 @@ import torch
 logger = logging.getLogger("tfmpc_tpu_torch")
 
 PROG = "tfmpc-tpu-torch"
-TIME_WORKERS_ITEM = ("the time-sharded solves are not ported yet "
-                     "(ROADMAP queue 1 item 1)")
 
 
 class UsageError(Exception):
@@ -136,11 +137,23 @@ def _save_trajectories(result, logdir, rows=None, first=0):
         for i in range(rows)]
 
 
-def _time_workers(time_workers: int) -> None:
-    if time_workers < 1:
-        raise UsageError(f"--time-workers {time_workers} must be >= 1")
-    if time_workers > 1:
-        raise UsageError(f"--time-workers {time_workers}: {TIME_WORKERS_ITEM}")
+def _time_workers(time_workers: int) -> int:
+    """The group's size, once ``--time-workers`` is within it: the
+    counterpart of the JAX CLI's "[1, visible devices]", the processes of
+    the group here (one process without a group)."""
+    import torch.distributed as dist
+
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    if not 1 <= time_workers <= world:
+        launch = "" if grouped else (
+            f"; this process has no group: launch {time_workers} "
+            f"processes, e.g. torchrun --nproc-per-node {time_workers} -m "
+            f"tfmpc_tpu_torch ...")
+        raise UsageError(
+            f"--time-workers {time_workers} must be in [1, {world}] (the "
+            f"processes of the torch.distributed group){launch}")
+    return world
 
 
 def _x0_from(x0_json, config_json, n, seed, *, sample):
@@ -201,11 +214,19 @@ def _local_rows(batch, mesh):
 def _lqr(args) -> int:
     """Generate a random LQR problem and solve it exactly."""
     from tfmpc_tpu_torch.models.problems import make_lqr
+    from tfmpc_tpu_torch.parallel import mesh as pmesh
     from tfmpc_tpu_torch.solvers import lqr as lqr_solver
     from tfmpc_tpu_torch.utils.trajectory import Trajectory
 
     _time_workers(args.time_workers)
     device = torch.device(args.device)
+    solve = functools.partial(lqr_solver.solve, parallel=args.parallel)
+    if args.time_workers > 1:
+        # the horizon split over a time axis (the parallel backward)
+        mesh = pmesh.make_mesh_2d(1, args.time_workers, devices=device)
+        if mesh.rank is None:  # a process past the time axis
+            return 0
+        solve = functools.partial(pmesh.solve_lqr_time_sharded, mesh=mesh)
     n, m = args.state_size, args.action_size
     generator = torch.Generator().manual_seed(args.seed)
     problem = make_lqr(generator, n, m, args.horizon, device=device)
@@ -213,20 +234,21 @@ def _lqr(args) -> int:
     x0 = (args.x0_scale * torch.randn(shape, generator=generator)).to(device)
     logger.info("solving LQR n=%d m=%d T=%d on %s", n, m, args.horizon,
                 device.type)
-    out = lqr_solver.solve(problem, x0, parallel=args.parallel)
+    out = solve(problem, x0)
     _check_nans("lqr", out, args.debug_nans)
+    logdir = args.logdir if _lead() else None  # every process has the solve
     if args.num_samples > 1:
         total = out[2].double().sum(dim=1)
         _echo(f"solved {args.num_samples} initial states: "
               f"mean_cost={float(total.mean()):.6f} "
               f"max_cost={float(total.max()):.6f}")
-        for p in _save_trajectories(out, args.logdir, args.num_samples):
+        for p in _save_trajectories(out, logdir, args.num_samples):
             logger.info("trajectory saved to %s", p)
         if args.logdir:
             _echo(f"{args.num_samples} trajectories saved to {args.logdir}")
         return 0
     _echo(repr(Trajectory(*out)))
-    for p in _save_trajectories(out, args.logdir):
+    for p in _save_trajectories(out, logdir):
         _echo(f"trajectory saved to {p}")
     return 0
 
@@ -252,7 +274,8 @@ def _ilqr(args) -> int:
             "(the associative-scan backward composes linear value-recursion "
             "elements; see ILQRConfig.ddp)"
         )
-    _time_workers(args.time_workers)
+    world = _time_workers(args.time_workers)
+    W = args.time_workers
     config = build_ilqr_config(
         atol=args.atol, max_iterations=args.max_iterations, boxqp=boxqp,
         use_pallas=args.pallas, parallel_backward=args.parallel_backward,
@@ -262,40 +285,63 @@ def _ilqr(args) -> int:
 
     if args.num_samples == 1:
         x0 = torch.as_tensor(x0_single, device=device)
+        solve, solve_batch = ilqr_solver.solve, ilqr_solver.solve_batch
+        sharded = ""
+        if W > 1:
+            # sequence-parallel single solve: the horizon over W processes
+            mesh = pmesh.make_mesh_2d(1, W, devices=device)
+            if mesh.rank is None:  # a process past the time axis
+                return 0
+            solve = solve_batch = functools.partial(
+                pmesh.solve_ilqr_time_sharded, mesh=mesh)
+            sharded = f" (horizon sharded over {W} device(s))"
         if trace_iters:
             # the per-iteration log lines: the trace-recording batch of one
-            batch, trace = ilqr_solver.solve_batch(
+            batch, trace = solve_batch(
                 env, x0[None], horizon=args.horizon, config=config,
                 return_trace=True,
             )
             _log_trace(trace, upto=int(batch.iterations[0]))
             result = type(batch)(*(a[0] for a in batch))
         else:
-            result = ilqr_solver.solve(env, x0, horizon=args.horizon,
-                                       config=config)
+            result = solve(env, x0, horizon=args.horizon, config=config)
         _check_nans("ilqr", result, args.debug_nans)
         _echo(repr(Trajectory.from_result(result)))
         _echo(f"converged={bool(result.converged)} "
               f"iterations={int(result.iterations)} "
               f"total_cost={float(result.total_cost):.6f} "
-              f"residual={float(result.residual):.3e}")
+              f"residual={float(result.residual):.3e}{sharded}")
         if _lead():
             for p in _save_trajectories(result, args.logdir):
                 print(f"trajectory saved to {p}")
         return 0 if bool(result.converged) else 3
 
-    mesh = _mesh(args.num_workers, device)
+    if W > 1:
+        # data x time: the processes left beside the time axis form the
+        # data axis
+        n_data = args.num_workers or max(1, world // W)
+        if n_data * W > world:
+            raise UsageError(
+                f"--num-workers {n_data} x --time-workers {W} exceeds the "
+                f"{world} processes of the torch.distributed group")
+        mesh = pmesh.make_mesh_2d(n_data, W, devices=device)
+        solve_rows = pmesh.solve_ilqr_time_sharded
+        devices = f"{n_data}x{W} (data x time) devices"
+    else:
+        mesh = _mesh(args.num_workers, device)
+        solve_rows = pmesh.solve_ilqr_sharded
+        devices = f"{mesh.size} device(s)"
     n_dev = mesh.size
     if args.num_samples % n_dev != 0:
         raise UsageError(
             f"--num-samples {args.num_samples} must be divisible by the device "
             f"count {n_dev} (pass --num-workers to change it)"
         )
-    if mesh.rank is None:  # a process past --num-workers: not on the axis
+    if mesh.rank is None:  # a process past the mesh
         return 0
     x0_local, first = _local_rows(
         _perturbed(x0_single, args.num_samples, args.seed), mesh)
-    out = pmesh.solve_ilqr_sharded(
+    out = solve_rows(
         env, x0_local, horizon=args.horizon, config=config, mesh=mesh,
         return_trace=trace_iters,
     )
@@ -304,12 +350,14 @@ def _ilqr(args) -> int:
     if trace_iters:
         _log_batched_trace(trace, result)
     stats = pmesh.summarize(result, mesh)
-    _echo(f"solved {args.num_samples} scenarios on {n_dev} device(s): "
+    _echo(f"solved {args.num_samples} scenarios on {devices}: "
           f"{stats['num_converged']}/{args.num_samples} converged, "
           f"mean_cost={stats['mean_cost']:.6f} "
           f"mean_iterations={stats['mean_iterations']:.1f}")
-    for p in _save_trajectories(result, args.logdir, x0_local.shape[0],
-                                first):
+    # the ranks of a time axis hold the same rows: its first writes them
+    logdir = args.logdir if mesh.time is None or mesh.time.rank == 0 \
+        else None
+    for p in _save_trajectories(result, logdir, x0_local.shape[0], first):
         logger.info("trajectory saved to %s", p)
     if args.logdir:
         _echo(f"{args.num_samples} trajectories saved to {args.logdir}")
@@ -405,6 +453,11 @@ def _common(p, run, *, samples_help, seed_help="(default: 0)"):
     p.set_defaults(run=run, subparser=p)
 
 
+TIME_WORKERS_HELP = (
+    "Shard the horizon over this many processes of the torch.distributed "
+    "group (the O(log T) backward's time axis; launch them with "
+    "torchrun, one a card).")
+
 PALLAS_HELP = (
     "--pallas (the default) runs the hand-written CUDA kernels on the card "
     "(the name is the JAX package's switch); a user env's rollouts run on "
@@ -446,8 +499,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--sequential", dest="parallel", action="store_false",
                    help="The sequential Riccati backward pass (default).")
     p.add_argument("--time-workers", type=int, default=1,
-                   help=f"Shard the horizon over this many devices: > 1 "
-                        f"raises, {TIME_WORKERS_ITEM}.")
+                   help=TIME_WORKERS_HELP + " Implies --parallel.")
     p.add_argument("--logdir", default=None, help="Write trajectory CSVs here.")
     _common(p, _lqr,
             samples_help="Batch of random initial states rolled under the "
@@ -489,8 +541,10 @@ def parser() -> argparse.ArgumentParser:
                         "tensors (one extra Hessian sweep per iteration; "
                         "excludes --parallel-backward).")
     p.add_argument("--time-workers", type=int, default=1,
-                   help=f"Shard the horizon over this many devices: > 1 "
-                        f"raises, {TIME_WORKERS_ITEM}.")
+                   help=TIME_WORKERS_HELP + " Forces the parallel backward "
+                        "and plain PyTorch (as the JAX CLI); with "
+                        "--num-samples the rest of the group (or "
+                        "--num-workers) is the data axis.")
     _common(p, _ilqr, samples_help="Scenario batch size (solved in one "
                                    "batched program).")
 

@@ -92,7 +92,7 @@ def lqr_problem_from_numpy(F, f, C, c, C_f=None, c_f=None, *,
 
 def config_from_dict(d: dict) -> ILQRConfig:
     """An ``ILQRConfig`` from ``dataclasses.asdict`` of the JAX config (same
-    field names; options not ported yet raise)."""
+    field names, ``time_axis`` included)."""
     return ILQRConfig(**d)
 
 

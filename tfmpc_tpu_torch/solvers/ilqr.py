@@ -32,16 +32,17 @@ from tfmpc_tpu_torch.ops.riccati import (
 )
 from tfmpc_tpu_torch.ops.rollout import closed_loop_rollout
 from tfmpc_tpu_torch.solvers.lqr_parallel import (
+    TIME_AXIS,
+    active_time_axis,
+    any_on_axis,
     ilqr_backward_parallel,
     ilqr_backward_parallel_boxqp,
 )
 
 # Options of the JAX ILQRConfig that this package does not implement yet,
-# with the value that keeps them off and the ROADMAP item that ports them.
-_NOT_PORTED = {
-    "time_axis": (None, "queue 1 item 1 (parallel/mesh.py: time-sharded "
-                  "solves)"),
-}
+# with the value that keeps them off and the ROADMAP item that ports them:
+# none since the time-sharded solves (parallel/mesh.py).
+_NOT_PORTED = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,13 +51,18 @@ class ILQRConfig:
     ``ILQRConfig``, so a config carries over 1:1 (``interop.config_from_dict``).
 
     ``use_pallas`` keeps its name and switches the solver onto the CUDA
-    kernels (``ops/``). Options this package does not implement yet raise
-    ``NotImplementedError`` when set, naming the ROADMAP item that ports
-    them; they are never silently ignored.
+    kernels (``ops/``). Every option of the JAX config is implemented; one
+    listed in ``_NOT_PORTED`` would raise ``NotImplementedError`` when set,
+    naming the ROADMAP item that ports it, never be silently ignored.
 
     ``parallel_backward=True`` runs the O(log T) associative-composition
     backward (``lqr_parallel.py``, cost-regularized with
     ``parallel_mu_floor``), with or without the kernels for the rollouts.
+    ``time_axis="time"`` splits that backward's horizon over the processes
+    of the active mesh's time axis (``parallel/mesh.py::set_mesh``, as
+    ``solve_ilqr_time_sharded`` runs it); set with ``parallel_backward`` and
+    no active time mesh, a solve raises ``ValueError``. Without
+    ``parallel_backward`` it is unused, as in the JAX package.
     ``linesearch_emit_trajectories`` picks the line search's layout on the
     kernel path: True runs K5, one rollout chain that writes every alpha's
     trajectory, and selects each lane's accepted one; False runs K2 for the
@@ -264,6 +270,25 @@ def second_derivatives(env, X, U):
     return map_fields(lambda a: a.reshape(lead + a.shape[1:]), second)
 
 
+def time_axis_of(config: ILQRConfig):
+    """The time axis a solve's parallel backward splits the horizon over:
+    None unless ``config`` sets ``time_axis`` and ``parallel_backward``, then
+    the active one (``lqr_parallel.active_time_axis``), which must exist."""
+    if config.time_axis is None or not config.parallel_backward:
+        return None
+    if config.time_axis != TIME_AXIS:
+        raise ValueError(
+            f"ILQRConfig.time_axis={config.time_axis!r}: the mesh's time "
+            f"axis is named {TIME_AXIS!r}")
+    axis = active_time_axis()
+    if axis is None:
+        raise ValueError(
+            f"ILQRConfig.time_axis={config.time_axis!r} needs an active time "
+            "mesh: solve through parallel.mesh.solve_ilqr_time_sharded, or "
+            "inside parallel.mesh.set_mesh(parallel.mesh.make_mesh_2d(...))")
+    return axis
+
+
 def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
              Ubar=None, second=None):
     """Regularized Riccati backward pass (Tassa-style ``V + mu I``).
@@ -281,7 +306,8 @@ def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
     With ``config.parallel_backward`` the pass is the O(log T) composition
     of ``lqr_parallel.py`` instead (its boxQP variant under the same
     condition), regularized on the cost with ``mu`` floored at
-    ``config.parallel_mu_floor``.
+    ``config.parallel_mu_floor``, its horizon split over the time axis of
+    ``time_axis_of(config)``.
     """
     use_boxqp = config.boxqp and bounds is not None and Ubar is not None
     if config.parallel_backward:
@@ -290,13 +316,15 @@ def backward(lin, quad, final, mu, config: ILQRConfig, bounds=None,
                 "ddp=True is incompatible with parallel_backward=True: the "
                 "associative-scan backward composes LINEAR value-recursion "
                 "elements")
+        time = time_axis_of(config)
         if use_boxqp:
             return ilqr_backward_parallel_boxqp(
                 lin, quad, final, mu, bounds, Ubar,
                 mu_floor=config.parallel_mu_floor,
-                boxqp_iters=config.boxqp_iters)
+                boxqp_iters=config.boxqp_iters, time=time)
         return ilqr_backward_parallel(lin, quad, final, mu,
-                                      mu_floor=config.parallel_mu_floor)
+                                      mu_floor=config.parallel_mu_floor,
+                                      time=time)
     if second is not None:
         if use_boxqp:
             return riccati_backward_ddp_boxqp_ref(
@@ -316,10 +344,11 @@ def backward_with_restarts(lin, quad, final, mu, delta, config: ILQRConfig,
     def attempt(mu_):
         return backward(lin, quad, final, mu_, config, bounds, Ubar, second)
 
+    time = time_axis_of(config)
     ok, policy, dV1, dV2 = attempt(mu)
     tries = 0
-    while (not bool(ok)) and bool(mu < config.mu_max) \
-            and tries < config.max_backward_restarts:
+    while tries < config.max_backward_restarts \
+            and any_on_axis((~ok) & (mu < config.mu_max), time):
         mu, delta = _increase_mu(mu, delta, config)
         ok, policy, dV1, dV2 = attempt(mu)
         tries += 1
@@ -364,7 +393,8 @@ def _iteration(env, state: _LoopState, config: ILQRConfig, alphas):
 
     # KKT stationarity (bounded envs), only where nothing was accepted: the
     # only case in which it changes the outcome
-    if env.bounds is not None and not bool(any_accepted):
+    if env.bounds is not None \
+            and not any_on_axis(any_accepted, time_axis_of(config)):
         at_optimum = at_optimum | _kkt_stationary(env, state.X[0], U_new,
                                                   config)
 
@@ -397,7 +427,10 @@ def solve(env, x0, U0=None, *, horizon: Optional[int] = None,
     """Solve one trajectory-optimization instance with iLQR.
 
     ``x0 [n]``; ``U0 [T, m]`` defaults to zeros (pass ``horizon`` instead).
+    With a split time axis (``ILQRConfig.time_axis``) every rank runs the
+    same loop on the same state, the flags it reads agreed over the axis.
     """
+    time = time_axis_of(config)
     if U0 is None:
         if horizon is None:
             raise ValueError("provide either U0 or horizon")
@@ -421,7 +454,7 @@ def solve(env, x0, U0=None, *, horizon: Optional[int] = None,
         residual=scalar(torch.inf),
     )
     while int(state.iteration) < config.max_iterations \
-            and not bool(state.converged) and not bool(state.failed):
+            and any_on_axis(~state.converged & ~state.failed, time):
         state = _iteration(env, state, config, alphas)
 
     _, costs = env.rollout(x0, state.U)

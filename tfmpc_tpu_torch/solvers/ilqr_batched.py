@@ -35,7 +35,13 @@ linearization, dims above 12), so does this one, on every device.
 
 The JAX package's ``lax.while_loop``s become host loops that read one flag
 per outer iteration and one per restart round (and, for a bounded env, one
-for whether any lane stalled). With ``use_pallas=True`` on CUDA tensors the
+for whether any lane stalled). With ``ILQRConfig.time_axis`` (the
+backward's horizon split over processes, ``parallel/mesh.py``) each of
+those flags is OR-ed over the time axis (``lqr_parallel.any_on_axis``):
+every rank holds the same state, since the backward returns the
+all-reduced ``ok``, ``dV1``, ``dV2`` and the gathered gains and the rest
+runs alike on every rank, and no rank may skip a round of the backward's
+collectives that another runs. With ``use_pallas=True`` on CUDA tensors the
 stages run the CUDA kernels or raise (a user env whose step the functor
 generator cannot express, ``ops/env_codegen.py``); nothing falls back to
 the plain path. An env whose ``device_step()`` returns None keeps the
@@ -74,7 +80,9 @@ from tfmpc_tpu_torch.solvers.ilqr import (
     derivatives,
     forward,
     second_derivatives,
+    time_axis_of,
 )
+from tfmpc_tpu_torch.solvers.lqr_parallel import any_on_axis
 
 
 class SolverState(NamedTuple):
@@ -239,11 +247,12 @@ def _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R,
     ``policy_batch_last``: the policy's fields carry the batch on their
     last axis (the kernel layout of the fused iteration).
     """
+    time = time_axis_of(config)
     ok, policy, dV1, dV2 = attempt(mu)
     tries = torch.zeros_like(mu, dtype=torch.int32)
     while True:
         needs = _lane_needs(ok, mu, tries, config)
-        if not bool(needs.any()):
+        if not any_on_axis(needs, time):
             break
         idx = torch.argsort((~needs).to(torch.uint8), stable=True)[:R]
         sel = needs[idx]                        # which gathered rows retry
@@ -276,11 +285,12 @@ def _restart_loop_compacted(attempt, attempt_sub, mu, delta, config, R,
 
 def _restart_loop(attempt, mu, delta, config: ILQRConfig,
                   policy_batch_last=False):
+    time = time_axis_of(config)
     ok, policy, dV1, dV2 = attempt(mu)
     tries = torch.zeros_like(mu, dtype=torch.int32)
     while True:
         needs = _lane_needs(ok, mu, tries, config)
-        if not bool(needs.any()):
+        if not any_on_axis(needs, time):
             break
         mu_inc, delta_inc = _increase_mu(mu, delta, config)
         mu = torch.where(needs, mu_inc, mu)
@@ -418,7 +428,7 @@ def _advance(env, state: SolverState, config: ILQRConfig, alphas, active,
     # accepted nothing: the only case in which it changes the outcome
     if env.bounds is not None:
         with record_function("ilqr.kkt"):
-            if bool((active & ~any_accepted).any()):
+            if any_on_axis(active & ~any_accepted, time_axis_of(config)):
                 stationary = _kkt_stationary(env, state.X[:, 0], U_new,
                                              config, axes=(1, 2))
                 at_optimum = at_optimum | (stationary & ~any_accepted)
@@ -692,7 +702,8 @@ def _solve_batch_impl(env, x0, U0, horizon, config: ILQRConfig,
         trace = ILQRTrace(*(torch.stack(col) for col in zip(*rows)))
     else:
         # the loop's one host sync per iteration
-        while bool(_active(state, config).any()):
+        time = time_axis_of(config)
+        while any_on_axis(_active(state, config), time):
             state, kargs, _ = iterate(state, kargs)
 
     _, costs = env.rollout(x0, state.U)

@@ -3,9 +3,10 @@
 Counterpart of ``tfmpc_tpu/solvers/lqr.py``: ``backward`` (the Riccati
 recursion, a loop over reversed t), ``forward`` (the affine policy rolled
 out) and ``solve`` (one of each; ``parallel=True`` takes the O(log T)
-backward of ``lqr_parallel.py``). Every function takes any leading batch
-dims on the problem, and ``x0`` may carry its own batch dims: the one policy
-rolls out for all of them.
+backward of ``lqr_parallel.py``, whose horizon a time axis may split over
+processes). Every function takes any leading batch dims on the problem,
+and ``x0`` may carry its own batch dims: the one policy rolls out for all
+of them.
 
 Float32 products must run in full float32: keep TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default), as
@@ -107,15 +108,22 @@ def forward(problem: LQRProblem, x0: torch.Tensor, policy: Policy):
             torch.stack(costs, dim=-1))
 
 
-def solve(problem: LQRProblem, x0: torch.Tensor, *, parallel: bool = False):
+def solve(problem: LQRProblem, x0: torch.Tensor, *, parallel: bool = False,
+          time=None):
     """Exact LQR solve, one backward and one forward pass, from ``x0 [n]``
     or a batch ``x0 [B, n]`` (the state-independent policy is computed once
     and rolled out for every row). ``parallel=True`` takes the O(log T)
-    backward of ``lqr_parallel.backward_parallel``."""
+    backward of ``lqr_parallel.backward_parallel``; ``time`` (a
+    ``lqr_parallel.TimeAxis``, with ``parallel``) splits its horizon over
+    the axis's processes, each of which passes the whole problem and gets
+    the whole trajectory (``parallel/mesh.py::solve_lqr_time_sharded``)."""
+    if time is not None and not parallel:
+        raise ValueError("a time axis splits the parallel backward: pass "
+                         "parallel=True")
     if parallel:
         from tfmpc_tpu_torch.solvers.lqr_parallel import backward_parallel
 
-        policy, _ = backward_parallel(problem)
+        policy, _ = backward_parallel(problem, time)
     else:
         policy, _ = backward(problem)
     return forward(problem, x0, policy)
