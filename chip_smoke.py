@@ -109,9 +109,12 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     T=100) and on synthetic inputs at (14, 13), (24, 24), (32, 32),
     (48, 48), (40, 33), (7, 9) and (1, 1) (B=128, T=6, box +-0.4, 4 boxQP
     iterations) and at block-ragged batches of HVAC-12 (B=1023) and HVAC-16
-    (B=513), T=20, five lanes forced indefinite each: identical ok masks and
-    the ok lanes within tolerance in float64, against the float64 plain
-    version in float32; K7 timed at each of those shapes; K7-boxQP with
+    (B=513), T=20, five lanes forced indefinite each, the boxQP variant at
+    n, m <= 12 being the small-dims kernel's K4 (``ops/riccati_small.py``,
+    the solver's route there; its plan checked block-ragged too): identical
+    ok masks and the ok lanes within tolerance in float64, against the
+    float64 plain version in float32; K7 timed at each of those shapes, the
+    small-dims K4 at E2's in turns with K7's boxQP variant; K7-boxQP with
     1, 2 and 4 warps a scenario at E1's shape and at (24, 24), (32, 32),
     (48, 48) (the launch plan's table); the clipped K2/K3 at E1's and
     E2's shapes; K7
@@ -130,7 +133,7 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     clip-only runs K7's iLQR variant/K5;
 22. E2, suite config 3c: the 12-room ring, T=100, B=1024,
     ``ILQRConfig(atol=1e-3, max_iterations=30, boxqp=True,
-    use_pallas=True)``: K7-boxQP/K5 only, >= 0.99 converged;
+    use_pallas=True)``: the small-dims K4 and K5 only, >= 0.99 converged;
 23. solves/s of E1 and E2 and a ``torch.profiler`` trace of E1;
 24. slice F (the fused iteration): K8, the materialize rollout that also
     writes the linearization, against its plain version (X, U, J and the
@@ -189,8 +192,9 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     B=512, T=50) and a random stable linear system at (48, 48) (B=512,
     T=50); and the generic form beside the unrolled kernel, in turns, at
     HVAC-6 and E1's shape (the price of generality);
-30. full DDP and K8 at every dim up to 12: K7's full-DDP variants (both,
-    ``csrc/riccati_mid_ddp.cu``) against their plain versions (K6a's and
+30. full DDP and K8 at every dim up to 12: K7's full-DDP variant
+    (``csrc/riccati_mid_ddp.cu``) and the small-dims kernel's K6b
+    (``csrc/riccati_small_ddp.cu``) against their plain versions (K6a's and
     K6b's) on the dynamics Hessians of reservoir-4, the 12-room ring,
     navigation in 12 dims and the double integrator and on synthetic ones
     at (4, 4), (12, 12), (7, 3) and (2, 1), at the block-ragged B=401,
@@ -199,9 +203,11 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     ``csrc/rollout_generic_derivs.cu``) against its plain version and the
     generic K3 (bit for bit) at navigation in 1, 4, 7 and 12 dims, one
     and two zones (>= 5% of the steps inside both), B=401, T=20; all
-    timed at their paths' shapes, K7 also in the fused iteration's layout
-    round trip (``riccati.riccati_backward_lanes``, bit for bit K7's own
-    wrapper); then six f32 solves, counted (launches of the kernels each
+    timed at their paths' shapes, the backward also in the fused
+    iteration's layout round trip (``riccati.riccati_backward_lanes``, bit
+    for bit the kernel's own wrapper: K7's iLQR variant at G4, the
+    small-dims K4 at G5, in turns with K7's boxQP variant); then six f32
+    solves, counted (launches of the kernels each
     should run, no plain version): D3 reservoir-4 with full DDP and boxQP
     (B=2048, T=100), D5 navigation in 12 dims with full DDP (B=1024,
     T=50; its first 4 scenarios also in f64 against the fp64 NumPy
@@ -367,6 +373,9 @@ MID_SYNTHETIC_DIMS = ((14, 13), (24, 24), (32, 32), (48, 48), (40, 33),
 # barriers, four a block, one in the last); T_RAGGED steps (the
 # scenario-to-team map does not depend on T)
 MID_RAGGED = (("hvac12", 1023), ("hvac16", 513))
+# the small-dims kernel against K7 on the same inputs, graph replays in
+# turns (small_vs_k7): key -> {"small_ms", "k7_ms"}
+SMALL_VS_K7 = {}
 T_RAGGED = 20
 # the lane kernels (K1/K4/K6a/K6b) at block-ragged batches, where the last
 # block's tail groups idle while its other groups run: HVAC-6 at B=2047
@@ -2079,48 +2088,93 @@ def mid_case(case, dtype):
     return label, lin, quad, final, mu, env.bounds, U, 8
 
 
+def small_vs_k7(key, launch, k7_launch, reps=5):
+    """The small-dims kernel's raw launch and K7's on the same inputs, as
+    device times of CUDA graph replays in turns (K7, small, small, K7), the
+    best of each pair; kept in ``SMALL_VS_K7[key]``, printed, and the small
+    kernel's returned."""
+    times = {"k7": [], "small": []}
+    for who in ("k7", "small", "small", "k7"):
+        times[who].append(graph_ms(launch if who == "small" else k7_launch,
+                                   reps))
+    k7_ms, small_ms = min(times["k7"]), min(times["small"])
+    SMALL_VS_K7[key] = {"small_ms": small_ms, "k7_ms": k7_ms}
+    print(f"  {key}: small-dims kernel {small_ms:.4f} ms, K7 {k7_ms:.4f} ms "
+          f"(graph replays in turns; {k7_ms / small_ms:.2f}x)")
+    return small_ms
+
+
+def boxqp_kernel(n, m):
+    """The boxQP backward's kernel at (n, m) outside the lane dims, as the
+    solver routes it: the small-dims one (``ops/riccati_small.py``) at n,
+    m <= 12, else K7's boxQP variant. Returns (name, module, wrapper, plain
+    version, raw launcher, argument order)."""
+    from tfmpc_tpu_torch.ops import riccati_mid as rm, riccati_small as rs
+
+    if rs.small_kernel_supported(n, m):
+        return ("riccati_backward_small_boxqp", rs,
+                rs.riccati_backward_small_boxqp,
+                rs.riccati_backward_small_boxqp_ref,
+                rs.riccati_backward_small_boxqp_kernel, rs.SMALL_BOXQP_ARGS)
+    return ("riccati_backward_mid_boxqp", rm, rm.riccati_backward_mid_boxqp,
+            rm.riccati_backward_mid_boxqp_ref,
+            rm.riccati_backward_mid_boxqp_kernel, rm.MID_BOXQP_ARGS)
+
+
 def check_k7(case, dtype, timings=None, errs=None, suffix=""):
-    """K7, both variants, against its plain versions on ``mid_case(case)``
-    with five lanes forced indefinite (``hold_backward``: identical ok
-    masks and the ok lanes within tolerance in float64, the boxQP's share
-    gate set by the plain version's own agreement across the card and the
-    CPU; the float32 share rule against the float64 plain version). With
-    ``timings``: the kernel, wrapper and plain times and the bounds at
-    these shapes, on the unforced inputs, under the kernels' names plus
-    ``suffix``."""
+    """K7's iLQR variant and the boxQP kernel the solver routes these dims
+    to (``boxqp_kernel``: the small-dims kernel at n, m <= 12, else K7's
+    boxQP variant) against their plain versions on ``mid_case(case)`` with
+    five lanes forced indefinite (``hold_backward``: identical ok masks and
+    the ok lanes within tolerance in float64, the boxQP's share gate set by
+    the plain version's own agreement across the card and the CPU; the
+    float32 share rule against the float64 plain version); each wrapper
+    must launch its kernel. With ``timings``: the kernel, wrapper and plain
+    times and the bounds at these shapes, on the unforced inputs, under the
+    kernels' names plus ``suffix`` (the small-dims kernel as graph replays
+    in turns with K7's boxQP variant, ``small_vs_k7``)."""
     import torch
 
     from tfmpc_tpu_torch.ops import riccati_mid as rm
 
     label, lin, quad, final, mu, bounds, U, iters = mid_case(case, dtype)
     Bn, Tn, n, m = lin.f_u.shape
+    box_name, box_mod, box_wrap, box_ref, box_launch, box_args = \
+        boxqp_kernel(n, m)
     quad_b, mu_b, bad = force_indefinite(quad, mu, m)
     args = (lin, quad_b, final, mu_b)
     args64 = (to64(lin), to64(quad_b), to64(final), mu_b.double())
     box, box64 = (bounds, U), (to64(bounds), U.double())
     for variant in ("ilqr", "boxqp"):
         if variant == "ilqr":
+            name, mod, counter = "riccati_backward_mid", rm, "MID_LAUNCHES"
             run = lambda: rm.riccati_backward_mid(*args)  # noqa: E731
             plain = lambda st: rm.riccati_backward_mid_ref(*args)  # noqa: E731
             ref64 = lambda: rm.riccati_backward_mid_ref(*args64)  # noqa: E731
         else:
-            run = lambda: rm.riccati_backward_mid_boxqp(  # noqa: E731
-                *args, *box, iters)
-            plain = lambda st: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+            name, mod = box_name, box_mod
+            counter = COUNTERS[name][1]
+            run = lambda: box_wrap(*args, *box, iters)  # noqa: E731
+            plain = lambda st: box_ref(  # noqa: E731
                 *args, *box, iters, stats=st)
-            ref64 = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
-                *args64, *box64, iters)
+            ref64 = lambda: box_ref(*args64, *box64, iters)  # noqa: E731
         plain_cpu = None
         if variant == "boxqp" and dtype == torch.float64:
-            plain_cpu = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa
+            plain_cpu = lambda: box_ref(  # noqa: E731
                 *(to_cpu(a) for a in args + box), iters)
-        err, _ = hold_backward(f"K7-{variant} {label}", dtype, run, plain,
+        before = getattr(mod, counter)
+        what = "K7-ilqr" if variant == "ilqr" else name.replace(
+            "riccati_backward_", "")
+        err, _ = hold_backward(f"{what} {label}", dtype, run, plain,
                                ref64, variant == "boxqp", bad, plain_cpu)
+        if getattr(mod, counter) != before + 1:
+            raise AssertionError(f"{what} {label}: the wrapper did not "
+                                 f"launch its kernel ({counter})")
         if timings is None:
             continue
         a = rm.mid_layout(lin, quad, final, mu, bounds, U)
         if variant == "ilqr":
-            name, work = "riccati_backward_mid", k1_work(Bn, Tn, n, m, 4)
+            work = k1_work(Bn, Tn, n, m, 4)
             kargs = [a[k] for k in rm.MID_ARGS]
             launch = lambda: rm.riccati_backward_mid_kernel(*kargs)  # noqa
             wrap = lambda: rm.riccati_backward_mid(lin, quad, final, mu)  # noqa
@@ -2128,24 +2182,28 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
                 lin, quad, final, mu)
         else:
             stats = {}
-            rm.riccati_backward_mid_boxqp_ref(lin, quad, final, mu, bounds, U,
-                                              iters, stats=stats)
-            name = "riccati_backward_mid_boxqp"
+            box_ref(lin, quad, final, mu, bounds, U, iters, stats=stats)
             work = k4_work(Bn, Tn, n, m, 4, stats["newton_iterations"])
-            kargs = [a[k] for k in rm.MID_BOXQP_ARGS]
-            launch = lambda: rm.riccati_backward_mid_boxqp_kernel(  # noqa
-                *kargs, boxqp_iters=iters)
-            wrap = lambda: rm.riccati_backward_mid_boxqp(  # noqa: E731
+            kargs = [a[k] for k in box_args]
+            launch = lambda: box_launch(*kargs, boxqp_iters=iters)  # noqa
+            wrap = lambda: box_wrap(  # noqa: E731
                 lin, quad, final, mu, bounds, U, iters)
-            ref = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+            ref = lambda: box_ref(  # noqa: E731
                 lin, quad, final, mu, bounds, U, iters)
         errs[name + suffix] = err
-        timings[name + suffix] = (cuda_ms(launch, 20), cuda_ms(wrap, 20),
-                                  cuda_ms(ref, 2), bound(*work))
+        if name == "riccati_backward_small_boxqp":
+            k7args = [a[k] for k in rm.MID_BOXQP_ARGS]
+            k_ms = small_vs_k7(
+                name + suffix, launch,
+                lambda: rm.riccati_backward_mid_boxqp_kernel(  # noqa
+                    *k7args, boxqp_iters=iters))
+        else:
+            k_ms = cuda_ms(launch, 20)
+        timings[name + suffix] = (k_ms, cuda_ms(wrap, 20), cuda_ms(ref, 2),
+                                  bound(*work))
         # the kernel computes in double: its bound at the FP64 peak too
         # (at the 67 TFLOP/s of the FP64 tensor cores it is the f32 one)
         b64, by64 = bound(*work, "float64")
-        k_ms = timings[name + suffix][0]
         print(f"  {name}{suffix}: {k_ms:.4f} ms; bound {bound(*work)[0]:.4f}"
               f" ms at the f32 peak, {b64:.4f} ms ({by64}) at the FP64 "
               f"peak: {b64 / k_ms:.4f} of it")
@@ -2153,19 +2211,27 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
 
 def check_k7_ragged(case, dtype):
     """``check_k7`` on one of ``MID_RAGGED``'s batches, after checking that
-    its plan has more than one team a block and a last block that is not
-    full (the lane forced indefinite last, ``force_indefinite``, is there)."""
-    from tfmpc_tpu_torch.ops import riccati_mid as rm
+    K7's plan, and at n <= 12 the small-dims kernel's (which runs the
+    boxQP there), have more than one scenario a block and a last block that
+    is not full (the lane forced indefinite last, ``force_indefinite``, is
+    there)."""
+    from tfmpc_tpu_torch.ops import riccati_mid as rm, riccati_small as rs
 
     name, Bn = case
     n = 16 if name == "hvac16" else 12
     plan = rm.mid_plan(n, n, Bn, dtype)
-    tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
-    print(f"  K7 {name} B={Bn} {dname(dtype)}: {plan.warps} warp(s) a team, "
-          f"{plan.scenarios} teams a block, {tail} in the last block")
-    if plan.scenarios < 2 or tail == plan.scenarios:
-        raise AssertionError(f"K7 {name} B={Bn}: the batch is not "
-                             "block-ragged under the plan")
+    plans = [("K7", plan.scenarios, f"{plan.warps} warp(s) a team, ")]
+    if rs.small_kernel_supported(n, n):
+        sp = rs.small_plan(n, n, Bn, dtype, False)
+        plans.append(("small-dims boxQP", sp.scenarios,
+                      f"{sp.groups} lanes a scenario, "))
+    for who, spb, how in plans:
+        tail = Bn - (-(-Bn // spb) - 1) * spb
+        print(f"  {who} {name} B={Bn} {dname(dtype)}: {how}{spb} scenarios "
+              f"a block, {tail} in the last block")
+        if spb < 2 or tail == spb:
+            raise AssertionError(f"{who} {name} B={Bn}: the batch is not "
+                                 "block-ragged under the plan")
     check_k7(case, dtype)
 
 
@@ -2195,6 +2261,39 @@ def print_mid_plans(lib):
             if lib_bytes != p.smem_bytes:
                 raise AssertionError(f"K7 plan at {(n, m)}: shared bytes "
                                      "disagree with the kernel's")
+
+
+def print_small_plans(lib):
+    """The small-dims kernel's launch plan at each shape phases 20 and 30
+    run it, beside the shared bytes and lanes the kernel computes for it
+    (``tfmpc_riccati_small_smem_bytes``, ``tfmpc_riccati_small_groups``),
+    which must agree."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_small as rs
+
+    shapes = [((12, 12), B_E2, False), ((12, 12), 1023, False),
+              ((7, 9), 128, False), ((1, 1), 128, False),
+              ((4, 4), 2048, True), ((12, 12), 512, True),
+              ((12, 12), 1024, False)] + [
+        (dims, DDP_MID_RAGGED[0], ddp) for dims in DDP_MID_SYNTHETIC_SCALE
+        for ddp in (False, True)]
+    for (n, m), Bn, ddp in shapes:
+        for dtype in (torch.float32, torch.float64):
+            p = rs.small_plan(n, m, Bn, dtype, ddp)
+            code = 0 if dtype == torch.float32 else 1
+            lib_bytes = lib.tfmpc_riccati_small_smem_bytes(code, int(ddp), n,
+                                                           m, p.scenarios)
+            lib_groups = lib.tfmpc_riccati_small_groups(n, m)
+            print(f"  small-dims {'K6b' if ddp else 'K4'} plan ({n}, {m}) "
+                  f"B={Bn} {dname(dtype)}: {p.groups} lanes a scenario "
+                  f"(kernel: {lib_groups}), {p.scenarios} a block, "
+                  f"{p.threads} threads, {p.smem_bytes} B shared (kernel: "
+                  f"{lib_bytes} B)")
+            if lib_bytes != p.smem_bytes or lib_groups != p.groups:
+                raise AssertionError(f"small-dims plan at {(n, m)}: lanes "
+                                     "or shared bytes disagree with the "
+                                     "kernel's")
 
 
 def k7_warps_sweep(card):
@@ -2408,14 +2507,17 @@ COUNTERS = {
                               "ALPHA_PLAIN_CALLS"),
     "linesearch_costs_traj_generic": ("rollout", "TRAJ_GENERIC_LAUNCHES",
                                       "TRAJ_PLAIN_CALLS"),
-    # K7's full-DDP variants and the generic K8 (phase 30)
+    # K7's full-DDP variant and the generic K8 (phase 30)
     "riccati_backward_mid_ddp": ("riccati_mid", "MID_DDP_LAUNCHES",
                                  "MID_DDP_PLAIN_CALLS"),
-    "riccati_backward_mid_ddp_boxqp": ("riccati_mid",
-                                       "MID_DDP_BOXQP_LAUNCHES",
-                                       "MID_DDP_BOXQP_PLAIN_CALLS"),
     "rollout_alpha_derivs_generic": ("rollout", "DERIVS_GENERIC_LAUNCHES",
                                      "DERIVS_PLAIN_CALLS"),
+    # K4 and K6b at n, m <= 12 outside the lane dims (ops/riccati_small.py)
+    "riccati_backward_small_boxqp": ("riccati_small", "SMALL_BOXQP_LAUNCHES",
+                                     "SMALL_BOXQP_PLAIN_CALLS"),
+    "riccati_backward_small_ddp_boxqp": ("riccati_small",
+                                         "SMALL_DDP_BOXQP_LAUNCHES",
+                                         "SMALL_DDP_BOXQP_PLAIN_CALLS"),
     # K2, K3 and K5 on a user env's generated step functor (phase 31)
     "linesearch_costs_user": ("rollout", "COSTS_USER_LAUNCHES",
                               "COSTS_PLAIN_CALLS"),
@@ -2437,13 +2539,25 @@ def line_search_kernels(config, horizon, n):
     return {"linesearch_costs", "rollout_alpha"}
 
 
+def backward_kernel(n, m, config, bounded):
+    """The Riccati kernel a kernel-path solve at (n, m) runs, by its
+    wrapper's (and counter's) name, as ``ilqr_batched._backward_batched``
+    routes it (``bounded``: the env has a box)."""
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+
+    mode = ilqr_batched._riccati_kernel_mode(n, m, config, "cuda")
+    box = bool(config.boxqp) and bounded
+    return ilqr_batched._BACKWARD[mode, bool(config.ddp), box].__name__
+
+
 def counted(run):
     """Run ``run()`` with every launch and plain-call counter set to 0 just
     before it; returns (result, launches, plain calls) read just after."""
-    from tfmpc_tpu_torch.ops import riccati, riccati_mid, rollout
+    from tfmpc_tpu_torch.ops import riccati, riccati_mid, riccati_small, \
+        rollout
 
     mods = {"riccati": riccati, "riccati_mid": riccati_mid,
-            "rollout": rollout}
+            "riccati_small": riccati_small, "rollout": rollout}
     for mod, launches, plain in COUNTERS.values():
         setattr(mods[mod], launches, 0)
         setattr(mods[mod], plain, 0)
@@ -3036,7 +3150,8 @@ def slice_e(phase, timings, errs, launches_by_path, plain_s, rates, card):
     res, launches, plain = counted(run_e2)
     launches_by_path["e2_hvac12"] = launches
     require_path("E2 solve", launches, plain,
-                 {"riccati_backward_mid_boxqp"} | mid_kernels)
+                 {backward_kernel(12, 12, ILQRConfig(**E2_CONFIG), True)}
+                 | mid_kernels)
     e2 = {"converged": check_result("E2", res, B_E2, 12, T_E2),
           "failed": int(res.failed.sum()),
           "mean_cost": float(res.total_cost.double().mean())}
@@ -3894,10 +4009,7 @@ def slice_generic(phase, timings, errs, launches_by_path, plain_s, card):
         n, m = env.state_size, env.action_size
         x0 = generic_x0(label, Bn, torch.float32)
         config = ILQRConfig(**cfg)
-        mode = ilqr_batched._riccati_kernel_mode(n, m, config, "cuda")
-        backward = {"lane": "riccati_backward",
-                    "mid": "riccati_backward_mid"}[mode] + (
-            "_boxqp" if config.boxqp and env.bounds is not None else "")
+        backward = backward_kernel(n, m, config, env.bounds is not None)
         emit = ilqr_batched._resolve_emit_traj(config, Tn, n, m)
         layout, other = ("emit", "two_kernel") if emit else ("two_kernel",
                                                              "emit")
@@ -4072,44 +4184,50 @@ def ddp_mid_inputs(case, dims, dtype, Bn, Tn):
 
 def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
                  errs=None, name_suffix="", timed=("ddp", "ddp_boxqp")):
-    """K7's full-DDP variants (K6a's and K6b's contracts) through their
-    wrappers, which must launch them, against their plain versions on
-    ``ddp_mid_inputs(case, dims)`` (``DDP_MID_RAGGED`` by default, the
-    plan checked to leave the last block part-full) with five lanes
-    forced indefinite: ``hold_backward``'s gates (identical ok masks and
-    the ok lanes within tolerance in float64, the boxQP variant's share
-    gate on an env's inputs set by the plain version's own agreement
-    across the card and the CPU; the float32 share rule against the
-    float64 plain version). With
-    ``timings``: kernel (graph replays), wrapper and plain times and the
-    bounds (the Hessians' bytes counted) of the ``timed`` variants on the
-    unforced inputs, under ``riccati_backward_mid_ddp[_boxqp]`` +
+    """Full DDP at n, m <= 12 outside the lane dims: K7's full-DDP variant
+    (K6a's contract) and the small-dims kernel's K6b (``ops/
+    riccati_small.py``, which the solver routes full DDP with boxQP to)
+    through their wrappers, which must launch them, against their plain
+    versions on ``ddp_mid_inputs(case, dims)`` (``DDP_MID_RAGGED`` by
+    default, each plan checked to leave the last block part-full) with
+    five lanes forced indefinite: ``hold_backward``'s gates (identical ok
+    masks and the ok lanes within tolerance in float64, the boxQP
+    variant's share gate on an env's inputs set by the plain version's own
+    agreement across the card and the CPU; the float32 share rule against
+    the float64 plain version). With ``timings``: kernel (graph replays),
+    wrapper and plain times and the bounds (the Hessians' bytes counted)
+    of the ``timed`` variants on the unforced inputs, under
+    ``riccati_backward_mid_ddp`` or ``riccati_backward_small_ddp_boxqp`` +
     ``name_suffix``."""
     import torch
 
-    from tfmpc_tpu_torch.ops import riccati_mid as rm
+    from tfmpc_tpu_torch.ops import riccati_mid as rm, riccati_small as rs
 
     n, m = dims
     Bn, Tn = (Bn, Tn) if Bn else DDP_MID_RAGGED
-    plan = rm.mid_plan(n, m, Bn, dtype)
-    tail = Bn - (plan.blocks(Bn) - 1) * plan.scenarios
     label, lin, quad, final, mu, bounds, U, second, iters = ddp_mid_inputs(
         case, dims, dtype, Bn, Tn)
-    label = f"K7-DDP {label} (n, m) = {dims} B={Bn} T={Tn}"
-    print(f"  {label} {dname(dtype)}: plan {plan.warps} warp(s) a team, "
-          f"{plan.scenarios} teams a block, {tail} in the last block")
-    if timings is None and tail == plan.scenarios:
-        raise AssertionError(f"{label}: the batch is not block-ragged")
+    label = f"DDP {label} (n, m) = {dims} B={Bn} T={Tn}"
+    plan = rm.mid_plan(n, m, Bn, dtype)
+    splan = rs.small_plan(n, m, Bn, dtype, True)
+    for who, spb, how in (
+            ("K7", plan.scenarios, f"{plan.warps} warp(s) a team"),
+            ("small-dims K6b", splan.scenarios,
+             f"{splan.groups} lanes a scenario")):
+        tail = Bn - (-(-Bn // spb) - 1) * spb
+        print(f"  {label} {dname(dtype)}: {who} plan {how}, {spb} a block, "
+              f"{tail} in the last block")
+        if timings is None and tail == spb:
+            raise AssertionError(f"{label}: the batch is not block-ragged "
+                                 f"under {who}'s plan")
     quad_b, mu_b, bad = force_indefinite(quad, mu, m)
     args = (lin, quad_b, final, mu_b)
     args64 = (to64(lin), to64(quad_b), to64(final), mu_b.double())
     box, box64 = (bounds, U), (to64(bounds), U.double())
     sec64 = to64(second)
     for variant in ("ddp", "ddp_boxqp"):
-        counter = "MID_DDP_LAUNCHES" if variant == "ddp" \
-            else "MID_DDP_BOXQP_LAUNCHES"
-        before = getattr(rm, counter)
         if variant == "ddp":
+            mod, counter = rm, "MID_DDP_LAUNCHES"
             run = lambda: rm.riccati_backward_mid_ddp(  # noqa: E731
                 *args, second)
             plain = lambda st: rm.riccati_backward_mid_ddp_ref(  # noqa
@@ -4118,21 +4236,24 @@ def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
                 *args64, sec64)
             plain_cpu = None
         else:
-            run = lambda: rm.riccati_backward_mid_ddp_boxqp(  # noqa: E731
+            mod, counter = rs, "SMALL_DDP_BOXQP_LAUNCHES"
+            run = lambda: rs.riccati_backward_small_ddp_boxqp(  # noqa: E731
                 *args, *box, second, iters)
-            plain = lambda st: rm.riccati_backward_mid_ddp_boxqp_ref(  # noqa
+            plain = lambda st: rs.riccati_backward_small_ddp_boxqp_ref(  # noqa
                 *args, *box, second, iters, stats=st)
-            ref64 = lambda: rm.riccati_backward_mid_ddp_boxqp_ref(  # noqa
+            ref64 = lambda: rs.riccati_backward_small_ddp_boxqp_ref(  # noqa
                 *args64, *box64, sec64, iters)
             plain_cpu = None
             if dtype == torch.float64 and case != "synthetic":
-                plain_cpu = lambda: rm.riccati_backward_mid_ddp_boxqp_ref(  # noqa
+                ref_cpu = rs.riccati_backward_small_ddp_boxqp_ref
+                plain_cpu = lambda: ref_cpu(  # noqa: E731
                     *(to_cpu(a) for a in args + box + (second,)), iters)
+        before = getattr(mod, counter)
         err, _ = hold_backward(f"{label} {variant}", dtype, run, plain, ref64,
                                variant == "ddp_boxqp", bad, plain_cpu)
-        if getattr(rm, counter) != before + 1:
+        if getattr(mod, counter) != before + 1:
             raise AssertionError(f"{label} {variant}: the wrapper did not "
-                                 "launch K7's DDP variant")
+                                 f"launch its kernel ({counter})")
         if timings is None or variant not in timed:
             continue
         a = rm.mid_layout(lin, quad, final, mu, bounds, U, second)
@@ -4146,20 +4267,23 @@ def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
                 lin, quad, final, mu, second)
             ref = lambda: rm.riccati_backward_mid_ddp_ref(  # noqa: E731
                 lin, quad, final, mu, second)
+            how = f"plan {plan.warps} warp(s) x " \
+                f"{rm.mid_plan(n, m, Bn, torch.float32).scenarios}"
         else:
             stats = {}
-            rm.riccati_backward_mid_ddp_boxqp_ref(lin, quad, final, mu,
-                                                  bounds, U, second, iters,
-                                                  stats=stats)
-            name = "riccati_backward_mid_ddp_boxqp"
+            rs.riccati_backward_small_ddp_boxqp_ref(
+                lin, quad, final, mu, bounds, U, second, iters, stats=stats)
+            name = "riccati_backward_small_ddp_boxqp"
             work = k6b_work(Bn, Tn, n, m, 4, stats["newton_iterations"])
-            kargs = [a[k] for k in rm.MID_DDP_BOXQP_ARGS]
-            launch = lambda: rm.riccati_backward_mid_ddp_boxqp_kernel(  # noqa
-                *kargs, boxqp_iters=iters)
-            wrap = lambda: rm.riccati_backward_mid_ddp_boxqp(  # noqa: E731
+            kargs = [a[k] for k in rs.SMALL_DDP_BOXQP_ARGS]
+            kernel = rs.riccati_backward_small_ddp_boxqp_kernel
+            launch = lambda: kernel(*kargs, boxqp_iters=iters)  # noqa: E731
+            wrap = lambda: rs.riccati_backward_small_ddp_boxqp(  # noqa: E731
                 lin, quad, final, mu, bounds, U, second, iters)
-            ref = lambda: rm.riccati_backward_mid_ddp_boxqp_ref(  # noqa
+            ref = lambda: rs.riccati_backward_small_ddp_boxqp_ref(  # noqa
                 lin, quad, final, mu, bounds, U, second, iters)
+            sp = rs.small_plan(n, m, Bn, torch.float32, True)
+            how = f"plan {sp.groups} lanes x {sp.scenarios}"
         key = name + name_suffix
         errs[key] = err
         timings[key] = (graph_ms(launch, 5), cuda_ms(wrap, 5),
@@ -4167,8 +4291,7 @@ def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
         b64, by64 = bound(*work, "float64")
         k_ms = timings[key][0]
         b_ms, b_by = timings[key][3]
-        print(f"  {key} (B={Bn}, T={Tn}, f32, plan {plan.warps} warp(s) x "
-              f"{rm.mid_plan(n, m, Bn, torch.float32).scenarios}): kernel "
+        print(f"  {key} (B={Bn}, T={Tn}, f32, {how}): kernel "
               f"{k_ms:.4f} ms (graph replays), wrapper {timings[key][1]:.4f}"
               f" ms, plain {timings[key][2]:.4f} ms; bound {b_ms:.4f} ms "
               f"({b_by}) at the f32 peak, {b64:.4f} ms ({by64}) at the FP64 "
@@ -4242,14 +4365,17 @@ def check_k8_generic(case, dtype, Bn=None, Tn=None, timings=None,
 
 
 def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
-    """K7 (iLQR, or boxQP) as the fused iteration runs it at a G4/G5
-    shape, on the blocks of a random nominal of ``phase30_env(case)`` in
-    the kernel layout: ``riccati.riccati_backward_lanes`` (K7 through the
-    layout round trip) must give K7's own wrapper's outputs on the same
-    values in the solver layout bit for bit; its largest K/k difference
-    from the plain version in float64 (K7 computes in double) on the lanes
-    ok in both is printed. Timed under ``key``: the raw launch (graph
-    replays), the kernel-layout wrapper and the plain version."""
+    """The backward as the fused iteration runs it at a G4/G5 shape (K7's
+    iLQR variant, or with ``boxqp`` the small-dims boxQP kernel), on the
+    blocks of a random nominal of ``phase30_env(case)`` in the kernel
+    layout: ``riccati.riccati_backward_lanes`` (the kernel through the
+    layout round trip) must give the kernel's own wrapper's outputs on the
+    same values in the solver layout bit for bit; its largest K/k
+    difference from the plain version in float64 (the kernels compute in
+    double) on the lanes ok in both is printed. Timed under ``key``: the
+    raw launch (graph replays; the small-dims kernel in turns with K7's
+    boxQP variant, ``small_vs_k7``), the kernel-layout wrapper and the
+    plain version."""
     import torch
 
     from tfmpc_tpu_torch.ops import riccati, riccati_mid as rm, rollout
@@ -4270,31 +4396,28 @@ def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
                       U if boxqp else None)
     args64 = (to64(lin), to64(quad), to64(final), mu.double())
     if boxqp:
-        launch = lambda: rm.riccati_backward_mid_boxqp_kernel(  # noqa: E731
-            *(a[k] for k in rm.MID_BOXQP_ARGS))
-        ref = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+        name, _, wrapper, box_ref, box_launch, box_args = boxqp_kernel(n, m)
+        launch = lambda: box_launch(*(a[k] for k in box_args))  # noqa: E731
+        ref = lambda: box_ref(  # noqa: E731
             lin, quad, final, mu, env.bounds, U)
-        ref64 = lambda: rm.riccati_backward_mid_boxqp_ref(  # noqa: E731
+        ref64 = lambda: box_ref(  # noqa: E731
             *args64, to64(env.bounds), U.double())
         stats = {}
-        rm.riccati_backward_mid_boxqp_ref(lin, quad, final, mu, env.bounds,
-                                          U, stats=stats)
+        box_ref(lin, quad, final, mu, env.bounds, U, stats=stats)
         work = k4_work(Bn, Tn, n, m, 4, stats["newton_iterations"])
+        own = lambda: wrapper(lin, quad, final, mu, env.bounds, U)  # noqa
     else:
+        name = "riccati_backward_mid"
         launch = lambda: rm.riccati_backward_mid_kernel(  # noqa: E731
             *(a[k] for k in rm.MID_ARGS))
         ref = lambda: rm.riccati_backward_mid_ref(lin, quad, final, mu)  # noqa
         ref64 = lambda: rm.riccati_backward_mid_ref(*args64)  # noqa: E731
         work = k1_work(Bn, Tn, n, m, 4)
+        own = lambda: rm.riccati_backward_mid(lin, quad, final, mu)  # noqa
     wrap = lambda: riccati.riccati_backward_lanes(ka, VT, vT, mu, box)  # noqa
     ok_k, pol_lane, dv1_k, dv2_k = wrap()
     pol_k = rollout.policy_from_lanes(pol_lane)
-    if boxqp:
-        ok_s, pol_s, dv1_s, dv2_s = rm.riccati_backward_mid_boxqp(
-            lin, quad, final, mu, env.bounds, U)
-    else:
-        ok_s, pol_s, dv1_s, dv2_s = rm.riccati_backward_mid(lin, quad, final,
-                                                            mu)
+    ok_s, pol_s, dv1_s, dv2_s = own()
     ok_p, pol_p, _, _ = ref64()
     torch.cuda.synchronize()
     same = torch.equal(ok_k, ok_s) and all(torch.equal(x, y) for x, y in (
@@ -4303,16 +4426,21 @@ def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
     both = ok_k & ok_p
     err = max(float((pol_k.K.double() - pol_p.K)[both].abs().max()),
               float((pol_k.k.double() - pol_p.k)[both].abs().max()))
-    what = f"K7-{'boxQP' if boxqp else 'iLQR'} in the kernel layout"
-    print(f"  {what}, {case} B={Bn} T={Tn} f32: equal to K7's wrapper on the "
+    what = f"{name} in the kernel layout"
+    print(f"  {what}, {case} B={Bn} T={Tn} f32: equal to its wrapper on the "
           f"solver layout bit for bit {same} (gate); ok on {int(ok_k.sum())}"
           f" lanes (plain f64 {int(ok_p.sum())}), max K/k difference from "
           f"the float64 plain version on lanes ok in both {err:.3e}")
     if not same:
-        raise AssertionError(f"{what}, {case}: not K7's own outputs")
+        raise AssertionError(f"{what}, {case}: not its wrapper's outputs")
     errs[key] = err
-    timings[key] = (graph_ms(launch, 5), cuda_ms(wrap, 5), cuda_ms(ref, 1),
-                    bound(*work))
+    if name == "riccati_backward_small_boxqp":
+        k7args = [a[k] for k in rm.MID_BOXQP_ARGS]
+        k_ms = small_vs_k7(key, launch, lambda: (  # noqa: E731
+            rm.riccati_backward_mid_boxqp_kernel(*k7args)))
+    else:
+        k_ms = graph_ms(launch, 5)
+    timings[key] = (k_ms, cuda_ms(wrap, 5), cuda_ms(ref, 1), bound(*work))
     k_ms, w_ms, p_ms, (b_ms, b_by) = timings[key]
     print(f"  {key}: kernel {k_ms:.4f} ms (graph replays), wrapper with the "
           f"layout round trip {w_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
@@ -4321,19 +4449,15 @@ def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
 
 def phase30_kinds(env, config, horizon):
     """The kernels a phase-30 solve runs, as the solver routes them: the
-    Riccati kernel (``_riccati_kernel_mode``: lane or K7, with ``ddp`` its
-    DDP variant, with boxQP on a bounded env its boxQP one), then the
-    fused iteration's K2 and K8, or the split iteration's line search (K5
-    on AUTO), each unrolled or generic."""
+    Riccati kernel (``backward_kernel``: lane, small-dims boxQP or K7, with
+    ``ddp`` its DDP variant, with boxQP on a bounded env its boxQP one),
+    then the fused iteration's K2 and K8, or the split iteration's line
+    search (K5 on AUTO), each unrolled or generic."""
     from tfmpc_tpu_torch.ops import rollout
     from tfmpc_tpu_torch.solvers import ilqr_batched
 
     n, m = env.state_size, env.action_size
-    mode = ilqr_batched._riccati_kernel_mode(n, m, config, "cuda")
-    backward = {"lane": "riccati_backward",
-                "mid": "riccati_backward_mid"}[mode] \
-        + ("_ddp" if config.ddp else "") \
-        + ("_boxqp" if config.boxqp and env.bounds is not None else "")
+    backward = backward_kernel(n, m, config, env.bounds is not None)
     if ilqr_batched._use_fused_derivs(env, config, "cuda"):
         g = "" if (n, m) in rollout.DERIVS_DIMS else "_generic"
         return {backward, "linesearch_costs" + g, "rollout_alpha_derivs" + g}
@@ -4374,10 +4498,11 @@ def d5_oracle_check(horizon):
 
 
 def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
-    """Phase 30: K7's full-DDP variants (``check_k7_ddp``) and the generic
-    K8 (``check_k8_generic``, also against the generic K3) against their
-    plain versions in float32 and float64, then timed at the paths'
-    shapes (f32), K7 at G4's and G5's shapes in the kernel layout; then
+    """Phase 30: K7's full-DDP variant and the small-dims K6b
+    (``check_k7_ddp``) and the generic K8 (``check_k8_generic``, also
+    against the generic K3) against their plain versions in float32 and
+    float64, then timed at the paths' shapes (f32), the backward at G4's
+    and G5's shapes in the kernel layout (``time_k7_lanes``); then
     each ``DDP_MID_PATHS`` solve against its plain path and each
     ``FUSED_MID_PATHS`` solve against its split-kernel solve (the same
     converged mask on >= 99% of lanes, mean cost within 1e-4), counted
@@ -4393,7 +4518,8 @@ def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
 
     figures = {"paths": {}}
     for dtype in (torch.float32, torch.float64):
-        print(f"K7's full-DDP variants vs their plain versions, {dtype}:")
+        print(f"K7's full-DDP variant and the small-dims K6b vs their plain "
+              f"versions, {dtype}:")
         for case, dims in DDP_MID_ENV_CASES:
             check_k7_ddp(case, dims, dtype)
         for dims in DDP_MID_SYNTHETIC_SCALE:
@@ -4410,13 +4536,16 @@ def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
         check_k7_ddp(case, (env.state_size, env.action_size), torch.float32,
                      Bn, Tn, timings, errs, "_" + label,
                      ("ddp_boxqp",) if box else ("ddp",))
-    for label, (case, Bn, Tn, _) in FUSED_MID_PATHS.items():
+    for label, (case, Bn, Tn, cfg) in FUSED_MID_PATHS.items():
         check_k8_generic(case, torch.float32, Bn, Tn, timings, errs,
                          "rollout_alpha_derivs_generic_" + label)
+        env = phase30_env(case, torch.float32, "cpu")
         time_k7_lanes(case, Bn, Tn, case.endswith("_box"), timings, errs,
-                      "riccati_backward_mid" + ("_boxqp" if case.endswith(
-                          "_box") else "") + "_" + label)
-    phase.done("30a. K7's DDP variants and the generic K8 vs plain versions")
+                      backward_kernel(env.state_size, env.action_size,
+                                      ILQRConfig(**cfg),
+                                      env.bounds is not None) + "_" + label)
+    phase.done("30a. the DDP backward kernels and the generic K8 vs plain "
+               "versions")
 
     runs = {}
     for label, (case, Bn, Tn, cfg) in {**DDP_MID_PATHS,
@@ -4784,10 +4913,7 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
         n, m = env.state_size, env.action_size
         x0 = user_x0(label, Bn, torch.float32)
         config = ILQRConfig(**cfg)
-        mode = ilqr_batched._riccati_kernel_mode(n, m, config, "cuda")
-        backward = {"lane": "riccati_backward",
-                    "mid": "riccati_backward_mid"}[mode] + (
-            "_boxqp" if config.boxqp and env.bounds is not None else "")
+        backward = backward_kernel(n, m, config, env.bounds is not None)
         emit = ilqr_batched._resolve_emit_traj(config, Tn, n, m)
         layout, other = ("emit", "two_kernel") if emit else ("two_kernel",
                                                              "emit")
@@ -5111,6 +5237,7 @@ def main() -> int:
     print_build_times(build_log)
     lib = _build.library()
     print_mid_plans(lib)
+    print_small_plans(lib)
     print_lane_plans(lib)
     print_rollout_plans(lib)
     print_generic_plans(lib)
@@ -5404,6 +5531,7 @@ def main() -> int:
     # name -> (source, TPU kernel it replaces, path, launch counter)
     rollout_cu = "tfmpc_tpu_torch/ops/csrc/rollout.cuh"
     mid_cu = "tfmpc_tpu_torch/ops/csrc/riccati_mid.cuh"
+    small_cu = "tfmpc_tpu_torch/ops/csrc/riccati_small.cuh"
     k7_tpu = "tfmpc_tpu/ops/riccati_mid_pallas.py:462"
     k2_tpu = "tfmpc_tpu/ops/rollout_pallas.py:647"
     k3_tpu = "tfmpc_tpu/ops/rollout_pallas.py:804"
@@ -5449,8 +5577,9 @@ def main() -> int:
                                  "riccati_backward_mid"),
         "riccati_backward_mid_boxqp": (mid_cu, k7_tpu, "e1_hvac16",
                                        "riccati_backward_mid_boxqp"),
-        "riccati_backward_mid_boxqp_hvac12": (mid_cu, k7_tpu, "e2_hvac12",
-                                              "riccati_backward_mid_boxqp"),
+        "riccati_backward_small_boxqp_hvac12": (
+            small_cu, "tfmpc_tpu/ops/riccati_pallas.py:585", "e2_hvac12",
+            "riccati_backward_small_boxqp"),
         "linesearch_costs_clipped_hvac16": (rollout_cu, k2_tpu,
                                             "e1_hvac16_two_kernel",
                                             "linesearch_costs"),
@@ -5480,22 +5609,24 @@ def main() -> int:
             sources[f"{wrapper}_generic_{label}"] = (
                 generic_cu, tpu, f"generic_{label}_{layout}",
                 f"{wrapper}_generic")
-    # phase 30: K7's DDP variants (K6a's and K6b's contracts) on the DDP
-    # paths, and on the fused ones the generic K8 and K7 in the kernel
-    # layout
-    for label, (case, _, _, cfg) in DDP_MID_PATHS.items():
-        box = cfg.get("boxqp") and phase30_env(case, torch.float32,
-                                               "cpu").bounds is not None
-        name = "riccati_backward_mid_ddp" + ("_boxqp" if box else "")
+    # phase 30: K7's DDP variant (K6a's contract) and the small-dims K6b on
+    # the DDP paths, and on the fused ones the generic K8 and the backward
+    # in the kernel layout (K7's iLQR variant, the small-dims K4)
+    tpu_of = {"riccati_backward_mid_ddp": "riccati_pallas.py:545",
+              "riccati_backward_small_ddp_boxqp": "riccati_pallas.py:564",
+              "riccati_backward_small_boxqp": "riccati_pallas.py:585"}
+    for label, (case, _, _, cfg) in {**DDP_MID_PATHS,
+                                     **FUSED_MID_PATHS}.items():
+        env = phase30_env(case, torch.float32, "cpu")
+        name = backward_kernel(env.state_size, env.action_size,
+                               ILQRConfig(**cfg), env.bounds is not None)
         sources[f"{name}_{label}"] = (
-            mid_cu, "tfmpc_tpu/ops/riccati_pallas.py:"
-            + ("564" if box else "545"), label, name)
-    for label, (case, _, _, cfg) in FUSED_MID_PATHS.items():
-        sources[f"rollout_alpha_derivs_generic_{label}"] = (
-            generic_cu, k8_tpu, label, "rollout_alpha_derivs_generic")
-        name = "riccati_backward_mid" + ("_boxqp" if case.endswith("_box")
-                                         else "")
-        sources[f"{name}_{label}"] = (mid_cu, k7_tpu, label, name)
+            small_cu if "small" in name else mid_cu,
+            "tfmpc_tpu/ops/" + tpu_of[name] if name in tpu_of else k7_tpu,
+            label, name)
+        if label in FUSED_MID_PATHS:
+            sources[f"rollout_alpha_derivs_generic_{label}"] = (
+                generic_cu, k8_tpu, label, "rollout_alpha_derivs_generic")
     # phase 31: the generated-step K2, K3 and K5 at each user path's shape:
     # K5 counted in its AUTO solve, K2 and K3 in its two-kernel solve
     user_cu = "tfmpc_tpu_torch/ops/csrc/rollout_user.cuh"
@@ -5534,6 +5665,7 @@ def main() -> int:
                       "e1_profile": e1_profile,
                       "e1": e1, "e2": e2,
                       "k7_vs_k4_hvac6_ms": k7_k4,
+                      "small_vs_k7_ms": SMALL_VS_K7,
                       "lane_g_sweep_ms": lane_sweeps,
                       **e_extra,
                       "k7_synthetic": {

@@ -1,12 +1,14 @@
 """Full DDP at every n, m <= 12 outside the lane kernels' dims: K7's
-full-DDP variants, against their plain versions and the JAX package.
+full-DDP variant and the small-dims kernel's K6b, against their plain
+versions and the JAX package.
 
 The JAX lane kernel runs full DDP at any n, m <= 12; the port runs it at
-those dims on K7's full-DDP variants (``riccati_mid.riccati_backward_mid_ddp``
-and ``riccati_backward_mid_ddp_boxqp``), whose plain versions are K6a's and
-K6b's (``riccati.riccati_backward_ddp_ref``, ``_boxqp_ref``). No CUDA
-tensor exists on the CPU, so here the wrappers run their plain versions
-(counted), and the launch plan is checked as arithmetic.
+those dims on K7's full-DDP variant (``riccati_mid.riccati_backward_mid_ddp``)
+and, with boxQP, on the small-dims kernel
+(``riccati_small.riccati_backward_small_ddp_boxqp``), whose plain versions
+are K6a's and K6b's (``riccati.riccati_backward_ddp_ref``, ``_boxqp_ref``).
+No CUDA tensor exists on the CPU, so here the wrappers run their plain
+versions (counted), and the launch plan is checked as arithmetic.
 
 - The wrappers at (4, 4), (12, 12), (7, 3) and (2, 1), on synthetic
   Hessians (f_uu != 0) from a numpy seed: the plain version's outputs bit
@@ -17,7 +19,8 @@ tensor exists on the CPU, so here the wrappers run their plain versions
   and the 12-room HVAC ring with boxQP against its XLA route
   (``use_pallas=False``: its interpret-mode kernels at B padded to 128 take
   minutes on the CPU), the double integrator against its lane kernel in
-  interpret mode. Identical converged and failed masks and iteration
+  interpret mode; the boxQP solves' backward goes through the small-dims
+  K6b wrapper, the double integrator's through K7's. Identical converged and failed masks and iteration
   counts, actions within 1e-6 and costs within 1e-9 (the tolerances of
   ``tests/test_torch_ddp.py``'s solves).
 - K7's plan at every n, m <= 12, both dtypes, fits a block: the DDP
@@ -43,7 +46,7 @@ from tfmpc_tpu_torch.core.types import (
     SecondOrderModel,
 )
 from tfmpc_tpu_torch.models.registry import make_env
-from tfmpc_tpu_torch.ops import riccati, riccati_mid
+from tfmpc_tpu_torch.ops import riccati, riccati_mid, riccati_small
 from tfmpc_tpu_torch.solvers import ilqr
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -98,8 +101,9 @@ def _synthetic(n, m, seed):
 
 def _counts():
     return (riccati_mid.MID_DDP_PLAIN_CALLS,
-            riccati_mid.MID_DDP_BOXQP_PLAIN_CALLS,
-            riccati_mid.MID_DDP_LAUNCHES, riccati_mid.MID_DDP_BOXQP_LAUNCHES)
+            riccati_small.SMALL_DDP_BOXQP_PLAIN_CALLS,
+            riccati_mid.MID_DDP_LAUNCHES,
+            riccati_small.SMALL_DDP_BOXQP_LAUNCHES)
 
 
 @pytest.mark.parametrize("boxqp", [False, True], ids=["ddp", "ddp_boxqp"])
@@ -113,12 +117,12 @@ def test_mid_ddp_wrappers_run_plain_versions_on_cpu(dims, boxqp):
     lin, quad, final, mu, bounds, U, second = _synthetic(n, m, 10 * n + m)
     before = _counts()
     if boxqp:
-        got = riccati_mid.riccati_backward_mid_ddp_boxqp(
+        got = riccati_small.riccati_backward_small_ddp_boxqp(
             lin, quad, final, mu, bounds, U, second, 4)
         want = riccati.riccati_backward_ddp_boxqp_ref(
             lin, quad, final, mu, bounds, U, second, 4)
-        keys = riccati_mid.MID_DDP_BOXQP_ARGS
-        launcher = riccati_mid.riccati_backward_mid_ddp_boxqp_kernel
+        keys = riccati_small.SMALL_DDP_BOXQP_ARGS
+        launcher = riccati_small.riccati_backward_small_ddp_boxqp_kernel
         a = riccati_mid.mid_layout(lin, quad, final, mu, bounds, U, second)
     else:
         got = riccati_mid.riccati_backward_mid_ddp(lin, quad, final, mu,
@@ -181,9 +185,10 @@ SOLVES = {
 @pytest.mark.parametrize("label", list(SOLVES))
 def test_ddp_solve_batch_at_mid_dims_matches_jax(label):
     """``solve_batch(ddp=True, use_pallas=True)`` in float64 at dims without
-    a lane instantiation: the backward goes through K7's full-DDP wrapper
-    (its plain version on the CPU), never the lane kernels', and the solve
-    matches the JAX package's with the same config."""
+    a lane instantiation: the backward goes through the small-dims K6b
+    wrapper with boxQP and K7's full-DDP wrapper without (their plain
+    versions on the CPU), never the lane kernels', and the solve matches the
+    JAX package's with the same config."""
     cfg, lohi, Bs, Ts, kw, jax_pallas = SOLVES[label]
     tenv = make_env(cfg, dtype=torch.float64, device="cpu")
     n, m = tenv.state_size, tenv.action_size

@@ -32,7 +32,7 @@ from tfmpc_tpu.solvers import ilqr as jilqr
 from tfmpc_tpu.solvers import ilqr_batched as jbatched
 from tfmpc_tpu_torch import interop
 from tfmpc_tpu_torch.models.navigation import make_navigation
-from tfmpc_tpu_torch.ops import riccati, riccati_mid, rollout
+from tfmpc_tpu_torch.ops import riccati, riccati_mid, riccati_small, rollout
 from tfmpc_tpu_torch.solvers import ilqr, ilqr_batched
 
 GOAL = [8.0, -5.0]
@@ -363,7 +363,8 @@ def _bounded_envs(name):
 def test_bounded_solve_batch_matches_jax(name, boxqp, horizon):
     """The slice as a whole: boxQP on HVAC-3 and reservoir-4 (kernel K4's
     plain version; at reservoir-4's dims (4, 4), outside K4's
-    instantiations, K7's, the same function) and clip-only bounded
+    instantiations, the small-dims kernel's, the same function) and
+    clip-only bounded
     navigation (K1's), each with the clipped line search and the KKT test,
     against the JAX package."""
     jenv, tenv, lohi = _bounded_envs(name)
@@ -380,8 +381,8 @@ def test_bounded_solve_batch_matches_jax(name, boxqp, horizon):
     assert bool(res_t.converged.any())
     assert float(res_t.actions.min()) >= float(tenv.bounds.low.min())
     assert float(res_t.actions.max()) <= float(tenv.bounds.high.max())
-    # the kernel wrappers ran their plain versions: K4's (or K7's boxQP
-    # variant) for boxqp, K1's (or K7's iLQR variant) for clip-only
+    # the kernel wrappers ran their plain versions: K4's (or the small-dims
+    # kernel's) for boxqp, K1's (or K7's iLQR variant) for clip-only
     box, plain = _backward_plain_calls()
     if boxqp:
         assert box > counts[0]
@@ -392,9 +393,10 @@ def test_bounded_solve_batch_matches_jax(name, boxqp, horizon):
 
 
 def _backward_plain_calls():
-    """Plain-version calls of the boxQP backward wrappers (K4's and K7's)
-    and of the iLQR ones (K1's and K7's)."""
-    return (riccati.BOXQP_PLAIN_CALLS + riccati_mid.MID_BOXQP_PLAIN_CALLS,
+    """Plain-version calls of the boxQP backward wrappers (K4's, the
+    small-dims kernel's and K7's) and of the iLQR ones (K1's and K7's)."""
+    return (riccati.BOXQP_PLAIN_CALLS + riccati_mid.MID_BOXQP_PLAIN_CALLS
+            + riccati_small.SMALL_BOXQP_PLAIN_CALLS,
             riccati.PLAIN_CALLS + riccati_mid.MID_PLAIN_CALLS)
 
 

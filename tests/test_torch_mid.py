@@ -342,14 +342,27 @@ def test_kernel_mode_routes_lane_mid_and_raises():
     for dims in sorted(riccati.KERNEL_DIMS):
         assert mode(*dims, cfg, "cuda") == "lane"
         assert mode(*dims, ddp, "cuda") == "lane"
-    for dims in ((12, 12), (16, 16), (14, 13), (48, 48), (4, 4), (2, 1)):
+    # boxQP at n, m <= 12 without a lane instantiation: the small-dims
+    # kernel (K4's and K6b's, ops/riccati_small.py), on every device; above
+    # 12, K7
+    for dims in ((12, 12), (4, 4), (2, 1)):
+        assert mode(*dims, cfg, "cuda") == "small"
+        assert mode(*dims, cfg, "cpu") == "small"
+    for dims in ((16, 16), (14, 13), (48, 48)):
         assert mode(*dims, cfg, "cuda") == "mid"
         assert mode(*dims, cfg, "cpu") == "mid"
-    # full DDP at n, m <= 12 without a lane instantiation, where the JAX
-    # lane kernel runs it: K7's full-DDP variants, on every device
+    # without boxQP those dims run K7's iLQR variant
+    ilqr_cfg = dataclasses.replace(cfg, boxqp=False)
+    for dims in ((12, 12), (4, 4), (2, 1), (16, 16)):
+        assert mode(*dims, ilqr_cfg, "cuda") == "mid"
+    # full DDP with boxQP at n, m <= 12 without a lane instantiation, where
+    # the JAX lane kernel runs it: the small-dims kernel's K6b, on every
+    # device; without boxQP, K7's full-DDP variant
     for dims in ((12, 12), (4, 4), (7, 3), (2, 1), (1, 12)):
-        assert mode(*dims, ddp, "cuda") == "mid"
-        assert mode(*dims, ddp, "cpu") == "mid"
+        assert mode(*dims, ddp, "cuda") == "small"
+        assert mode(*dims, ddp, "cpu") == "small"
+        assert mode(*dims, dataclasses.replace(ddp, boxqp=False),
+                    "cuda") == "mid"
     # where the JAX package runs its vmapped scan by design (DDP above 12,
     # any dims above 48), the plain backward runs on the card too
     assert mode(16, 16, ddp, "cuda") is None

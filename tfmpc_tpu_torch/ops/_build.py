@@ -65,12 +65,17 @@ _SIGNATURES = {
     + [_LL, _P],
     "tfmpc_riccati_backward_mid_boxqp": [_I] * 6 + [_P] * 18 + [_I] * 3
     + [_LL, _P],
-    # K7's full-DDP variants (riccati_mid_ddp.cu): as the two above, with
-    # fxx, fux, fuu after mu (after hi for boxQP)
+    # K7's full-DDP variant (riccati_mid_ddp.cu): as the iLQR one, with
+    # fxx, fux, fuu after mu
     "tfmpc_riccati_backward_mid_ddp": [_I] * 5 + [_P] * 18 + [_I] * 3
     + [_LL, _P],
-    "tfmpc_riccati_backward_mid_ddp_boxqp": [_I] * 6 + [_P] * 21 + [_I] * 3
-    + [_LL, _P],
+    # K4 and K6b at small dims (riccati_small.cu, riccati_small_ddp.cu):
+    # as K7's boxQP entries up to fail, then the plan (lanes a scenario,
+    # scenarios a block, shared bytes) and the stream
+    "tfmpc_riccati_backward_small_boxqp": [_I] * 6 + [_P] * 18
+    + [_I, _I, _LL, _P],
+    "tfmpc_riccati_backward_small_ddp_boxqp": [_I] * 6 + [_P] * 21
+    + [_I, _I, _LL, _P],
     # P1 (row_matmul.cu): dtype, d, B, A, M, C, tile rows, tile columns,
     # stream
     "tfmpc_row_matmul": [_I] * 3 + [_P] * 3 + [_I, _I, _P],
@@ -210,6 +215,12 @@ def library() -> ctypes.CDLL:
     # dtype, n, m, scenarios per block, stage_l
     lib.tfmpc_riccati_mid_smem_bytes.argtypes = [_I] * 5
     lib.tfmpc_riccati_mid_smem_bytes.restype = ctypes.c_longlong
+    # dtype, ddp, n, m, scenarios per block
+    lib.tfmpc_riccati_small_smem_bytes.argtypes = [_I] * 5
+    lib.tfmpc_riccati_small_smem_bytes.restype = ctypes.c_longlong
+    # n, m
+    lib.tfmpc_riccati_small_groups.argtypes = [_I] * 2
+    lib.tfmpc_riccati_small_groups.restype = ctypes.c_int
     # box, ddp, dtype, n, m, scenarios per block
     lib.tfmpc_riccati_lane_smem_bytes.argtypes = [_I] * 6
     lib.tfmpc_riccati_lane_smem_bytes.restype = ctypes.c_longlong

@@ -1,7 +1,8 @@
 // K7: the batched regularized Riccati backward pass at mid dims (any
 // 1 <= n, m <= 48, n != m allowed), plain iLQR and control-limited (boxQP)
-// variants, float32 and float64; and its full-DDP variants (K6a and K6b at
-// any n, m <= 12 outside the lane kernels' dims).
+// variants, float32 and float64; and its full-DDP variant (K6a at any n,
+// m <= 12 outside the lane kernels' dims; K6b there runs on the small-dims
+// kernel, riccati_small.cuh).
 //
 // Replaces: tfmpc_tpu/ops/riccati_mid_pallas.py:_riccati_mid_raw (adapters
 // riccati_backward_mid and riccati_backward_mid_boxqp; body _mid_kernel /
@@ -13,8 +14,8 @@
 //
 // This header holds the kernel and its launch; riccati_mid.cu instantiates
 // the iLQR and boxQP variants (and the C entries of both), and
-// riccati_mid_ddp.cu the full-DDP ones, so the parallel build compiles them
-// side by side and the iLQR and boxQP instantiations keep their code.
+// riccati_mid_ddp.cu the full-DDP iLQR one, so the parallel build compiles
+// them side by side and the iLQR and boxQP instantiations keep their code.
 //
 // Per scenario and step t = T-1 .. 0, as _mid_step: W = V f_x, W_u = V f_u;
 // Q_x, Q_u, Q_xx, Q_uu, Q_ux and the regularized QuuR, QuxR (V + mu I); the

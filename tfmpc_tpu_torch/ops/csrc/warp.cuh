@@ -1,6 +1,7 @@
 // Warp-level helpers of the kernels that give a scenario several lanes or
-// warps (riccati_mid.cu, riccati_kernel.cuh, rollout.cuh): asynchronous
-// copies into shared memory, a named barrier over a team, and warp
+// warps (riccati_mid.cu, riccati_kernel.cuh, riccati_small.cuh,
+// rollout.cuh): asynchronous copies into shared memory (one a thread, or in
+// bulk with a barrier object), a named barrier over a team, and warp
 // reductions.
 #pragma once
 
@@ -49,6 +50,55 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
     case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
+}
+
+// A shared-memory barrier object (mbarrier) and bulk copies (the TMA's
+// one-instruction copy of contiguous bytes into shared memory, completion
+// counted on the barrier in bytes).
+__device__ __forceinline__ unsigned shared_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Initialize the barrier for ``count`` arrivals a phase (one thread).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   shared_u32(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive on the barrier and expect ``bytes`` of bulk copies this phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(shared_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Copy ``bytes`` (a multiple of 16, both ends 16-byte aligned) from device
+// to shared memory, counted on ``bar`` when they land.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(shared_u32(smem)),
+      "l"(gmem), "r"(bytes), "r"(shared_u32(bar))
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity ``phase`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
+  const unsigned a = shared_u32(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(phase)
+        : "memory");
 }
 
 // Barrier ``id`` (1..15; 0 is __syncthreads') over ``threads`` threads,

@@ -13,10 +13,12 @@ tensor they run the plain PyTorch versions ``riccati_backward_ref``,
 with a launch plan (``lane_plan``: the lanes a scenario, the scenarios a
 block, the shared bytes). The fused iteration's entry,
 ``riccati_backward_lanes``, takes and returns the kernels' own ``[T,
-entries, B]`` layout and launches K1 or K4 (K7 at dims without a lane
-instantiation). ``LAUNCHES``, ``BOXQP_LAUNCHES``,
-``DDP_LAUNCHES`` and ``DDP_BOXQP_LAUNCHES`` count kernel launches and the
-matching ``*PLAIN_CALLS`` the calls that took the plain version.
+entries, B]`` layout and launches K1 or K4 (at dims without a lane
+instantiation K7's iLQR variant, or the small-dims boxQP kernel of
+``ops/riccati_small.py``, which runs K4 and K6b at the other n, m <= 12).
+``LAUNCHES``, ``BOXQP_LAUNCHES``, ``DDP_LAUNCHES`` and
+``DDP_BOXQP_LAUNCHES`` count kernel launches and the matching
+``*PLAIN_CALLS`` the calls that took the plain version.
 
 All compute, per scenario and for t = T-1 .. 0, the Q blocks from the
 linearization and the carried value function, the regularized
@@ -59,8 +61,10 @@ DDP_BOXQP_PLAIN_CALLS = 0
 # (n, m) pairs the four CUDA kernels are instantiated for (csrc/riccati*.cu,
 # one template in riccati_kernel.cuh): bounded navigation (2), the HVAC-3
 # oracle problem (3), reservoir-5 (5) and HVAC-6 (6). The solver routes
-# other dims up to 48 to K7 (ops/riccati_mid.py), and full DDP at other
-# dims up to 12 to K7's DDP variants.
+# the boxQP backward (K4, K6b) at other dims up to 12 to the small-dims
+# kernel (ops/riccati_small.py), other dims up to 48 to K7
+# (ops/riccati_mid.py), and full DDP without a box at other dims up to 12
+# to K7's DDP variant.
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
 # The launch plans (``lane_plan``). A group of G lanes owns a scenario
 # (csrc/riccati_kernel.cuh): lane l computes the columns l, l + G, ... of
@@ -579,11 +583,13 @@ def riccati_backward_ddp_boxqp(lin, quad, final, mu, bounds, Ubar, second,
 
 
 def _mid_lanes(ka, VT, vT, mu, box, boxqp_iters):
-    """K7 (iLQR, or boxQP with ``box``) on ``riccati_backward_lanes``'
-    kernel-layout tensors at dims without a lane instantiation: the blocks
-    to the solver's ``[B, T, ...]`` layout K7 takes and its policy back to
-    ``(K [T, m*n, B], k [T, m, B])``; counted as K7's launches."""
-    from tfmpc_tpu_torch.ops import riccati_mid
+    """K7's iLQR variant, or with ``box`` the small-dims boxQP kernel
+    (``ops/riccati_small.py``; K7's boxQP variant above its dims), on
+    ``riccati_backward_lanes``' kernel-layout tensors at dims without a
+    lane instantiation: the blocks to the solver's ``[B, T, ...]`` layout
+    those kernels take and the policy back to ``(K [T, m*n, B], k [T, m,
+    B])``; counted as the launched kernel's launches."""
+    from tfmpc_tpu_torch.ops import riccati_mid, riccati_small
 
     T, _, B = ka["fx"].shape
     n, m = ka["lx"].shape[1], ka["lu"].shape[1]
@@ -600,8 +606,11 @@ def _mid_lanes(ka, VT, vT, mu, box, boxqp_iters):
         out = riccati_mid.riccati_backward_mid_kernel(*ins, *final)
     else:
         ubar, lo, hi = box
-        out = riccati_mid.riccati_backward_mid_boxqp_kernel(
-            *ins, lanes(ubar, m), lo, hi, *final, boxqp_iters=boxqp_iters)
+        launch = (riccati_small.riccati_backward_small_boxqp_kernel
+                  if riccati_small.small_kernel_supported(n, m)
+                  else riccati_mid.riccati_backward_mid_boxqp_kernel)
+        out = launch(*ins, lanes(ubar, m), lo, hi, *final,
+                     boxqp_iters=boxqp_iters)
     K, k, dV1, dV2, fail = out
     return fail == 0.0, (_to_k(K, B, T, m * n), _to_k(k, B, T, m)), dV1, dV2
 
@@ -613,11 +622,11 @@ def riccati_backward_lanes(ka, VT, vT, mu, box=None, boxqp_iters: int = 8):
     B]`` and ``mu [B]``; with ``box = (ubar [T, m, B], lo [m], hi [m])``
     K4's control-limited pass, else K1's. Returns ``(ok [B], (K [T, m*n,
     B], k [T, m, B]), dV1 [B], dV2 [B])``, the policy in the layout K2 and
-    K8 take as it is. CUDA tensors launch K1 or K4 at ``KERNEL_DIMS`` and
-    K7's iLQR or boxQP variant at other dims (through the solver layout
-    and back, ``_mid_lanes``); CPU tensors run the plain version through
-    the solver layout and back (counted as the plain calls of K1's or K4's
-    wrapper).
+    K8 take as it is. CUDA tensors launch K1 or K4 at ``KERNEL_DIMS``, and
+    at other dims K7's iLQR variant or the small-dims boxQP kernel (through
+    the solver layout and back, ``_mid_lanes``); CPU tensors run the plain
+    version through the solver layout and back (counted as the plain calls
+    of K1's or K4's wrapper).
     """
     global PLAIN_CALLS, BOXQP_PLAIN_CALLS
     T, _, B = ka["fx"].shape

@@ -14,15 +14,14 @@ tensor they run the plain versions ``riccati_backward_mid_ref`` and
 versions of K1 and K4: they hold for any (n, m), and the JAX package pins
 its mid kernel to the same contract (``tests/test_riccati_mid.py``).
 
-K7's full-DDP variants run K6a's and K6b's contract (``ops/riccati.py``)
-at any ``n, m <= MID_DDP_DIM_MAX`` (12, the JAX lane kernel's DDP
-ceiling): ``riccati_backward_mid_ddp`` and ``riccati_backward_mid_ddp_boxqp``
-take the dynamics Hessians ``second`` as well, and their plain versions
-are ``riccati.riccati_backward_ddp_ref`` and
-``riccati_backward_ddp_boxqp_ref``. They are a compile-time variant of the
-same kernel (``csrc/riccati_mid_ddp.cu``) with the same launch plan: the
-Hessians are streamed from global memory, so the shared bytes do not
-change.
+K7's full-DDP variant runs K6a's contract (``ops/riccati.py``) at any
+``n, m <= MID_DDP_DIM_MAX`` (12, the JAX lane kernel's DDP ceiling):
+``riccati_backward_mid_ddp`` takes the dynamics Hessians ``second`` as
+well, and its plain version is ``riccati.riccati_backward_ddp_ref``. It
+is a compile-time variant of the same kernel (``csrc/riccati_mid_ddp.cu``)
+with the same launch plan: the Hessians are streamed from global memory,
+so the shared bytes do not change. K6b at those dims runs on the
+small-dims kernel (``ops/riccati_small.py``).
 
 The kernel clamps every Cholesky pivot at 1e-30, its boxQP's Newton
 systems included (``_chol_rows``), where the plain version lets NaN
@@ -47,10 +46,9 @@ scenario's C (``row_plan``).
 ``row_matmul_cover`` repeats P1's index map (which thread stores which
 entry), so its plans can be checked on the CPU.
 
-``MID_LAUNCHES``, ``MID_BOXQP_LAUNCHES``, ``MID_DDP_LAUNCHES``,
-``MID_DDP_BOXQP_LAUNCHES`` and ``ROW_MATMUL_LAUNCHES`` count kernel
-launches; the matching ``*_PLAIN_CALLS`` the calls that took the plain
-version.
+``MID_LAUNCHES``, ``MID_BOXQP_LAUNCHES``, ``MID_DDP_LAUNCHES`` and
+``ROW_MATMUL_LAUNCHES`` count kernel launches; the matching
+``*_PLAIN_CALLS`` the calls that took the plain version.
 """
 
 from __future__ import annotations
@@ -64,7 +62,6 @@ from tfmpc_tpu_torch.core.types import Policy
 from tfmpc_tpu_torch.ops import _build
 from tfmpc_tpu_torch.ops.riccati import (
     riccati_backward_boxqp_ref,
-    riccati_backward_ddp_boxqp_ref,
     riccati_backward_ddp_ref,
     riccati_backward_ref,
 )
@@ -75,8 +72,6 @@ MID_BOXQP_LAUNCHES = 0
 MID_BOXQP_PLAIN_CALLS = 0
 MID_DDP_LAUNCHES = 0
 MID_DDP_PLAIN_CALLS = 0
-MID_DDP_BOXQP_LAUNCHES = 0
-MID_DDP_BOXQP_PLAIN_CALLS = 0
 ROW_MATMUL_LAUNCHES = 0
 ROW_MATMUL_PLAIN_CALLS = 0
 
@@ -85,7 +80,7 @@ ROW_MATMUL_PLAIN_CALLS = 0
 # the 232,448 a block may have (csrc/riccati_mid.cuh: the team computes in
 # double for both dtypes, and l_xx, l_uu, l_ux are read in place there).
 MID_DIM_MAX = 48
-# The DDP variants' envelope (csrc/riccati_mid.cuh kMidDdpMaxDim): the JAX
+# The DDP variant's envelope (csrc/riccati_mid.cuh kMidDdpMaxDim): the JAX
 # lane kernel's DDP ceiling; above it the JAX package runs its scan, and so
 # does the solver here.
 MID_DDP_DIM_MAX = 12
@@ -110,19 +105,16 @@ ROW_SLAB = 8
 _ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 _LS_ALPHAS = 8  # ops/boxqp.py LS_ALPHAS: the candidates, and x
 
-# The plain versions: K1's, K4's, K6a's and K6b's, general in (n, m).
+# The plain versions: K1's, K4's and K6a's, general in (n, m).
 riccati_backward_mid_ref = riccati_backward_ref
 riccati_backward_mid_boxqp_ref = riccati_backward_boxqp_ref
 riccati_backward_mid_ddp_ref = riccati_backward_ddp_ref
-riccati_backward_mid_ddp_boxqp_ref = riccati_backward_ddp_boxqp_ref
 
 # Argument order of the launchers and of the C entries (the JAX kernel's:
 # first order, boxQP, DDP, final value).
 MID_ARGS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux", "mu", "VT", "vT")
 MID_BOXQP_ARGS = MID_ARGS[:8] + ("ubar", "lo", "hi") + MID_ARGS[8:]
 MID_DDP_ARGS = MID_ARGS[:8] + ("fxx", "fux", "fuu") + MID_ARGS[8:]
-MID_DDP_BOXQP_ARGS = MID_BOXQP_ARGS[:11] + ("fxx", "fux", "fuu") \
-    + MID_BOXQP_ARGS[11:]
 
 
 def mid_kernel_supported(n: int, m: int) -> bool:
@@ -229,7 +221,7 @@ def mid_layout(lin, quad, final, mu, bounds=None, Ubar=None, second=None):
 
 def _launch(entry, inputs, box, boxqp_iters=None, plan=None, ddp=False):
     """Check K7's inputs (``MID_ARGS`` order, ``MID_BOXQP_ARGS`` with
-    ``box``, the DDP orders with ``ddp``), allocate the outputs and launch
+    ``box``, ``MID_DDP_ARGS`` with ``ddp``), allocate the outputs and launch
     the C entry with ``plan`` (``mid_plan``'s for these dims, batch and
     dtype by default). Returns ``(K [B, T, m, n], k [B, T, m], dV1 [B],
     dV2 [B], fail [B])``, ``fail`` 1.0 on lanes whose PD probe failed."""
@@ -334,21 +326,6 @@ def riccati_backward_mid_ddp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu, fxx,
     return out
 
 
-def riccati_backward_mid_ddp_boxqp_kernel(fx, fu, lx, lu, lxx, luu, lux, mu,
-                                          ubar, lo, hi, fxx, fux, fuu, VT,
-                                          vT, boxqp_iters: int = 8,
-                                          plan: MidPlan | None = None):
-    """Launch K7's full-DDP boxQP variant (K6b's contract): the boxQP
-    variant's inputs plus the Hessians; outputs as
-    ``riccati_backward_mid_kernel``."""
-    global MID_DDP_BOXQP_LAUNCHES
-    out = _launch("riccati_backward_mid_ddp_boxqp",
-                  (fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, fxx, fux,
-                   fuu, VT, vT), True, boxqp_iters, plan=plan, ddp=True)
-    MID_DDP_BOXQP_LAUNCHES += 1
-    return out
-
-
 def _result(out):
     K, k, dV1, dV2, fail = out
     return fail == 0.0, Policy(K=K, k=k), dV1, dV2
@@ -394,22 +371,6 @@ def riccati_backward_mid_ddp(lin, quad, final, mu, second):
     a = mid_layout(lin, quad, final, mu, second=second)
     return _result(riccati_backward_mid_ddp_kernel(
         *(a[k] for k in MID_DDP_ARGS)))
-
-
-def riccati_backward_mid_ddp_boxqp(lin, quad, final, mu, bounds, Ubar,
-                                   second, boxqp_iters: int = 8):
-    """K7's full-DDP boxQP wrapper: the contract of
-    ``riccati.riccati_backward_ddp_boxqp`` at any n, m <=
-    ``MID_DDP_DIM_MAX``. CUDA tensors go through the CUDA kernel; CPU
-    tensors through the plain version."""
-    global MID_DDP_BOXQP_PLAIN_CALLS
-    if lin.f_x.device.type == "cpu":
-        MID_DDP_BOXQP_PLAIN_CALLS += 1
-        return riccati_backward_mid_ddp_boxqp_ref(
-            lin, quad, final, mu, bounds, Ubar, second, boxqp_iters)
-    a = mid_layout(lin, quad, final, mu, bounds, Ubar, second)
-    return _result(riccati_backward_mid_ddp_boxqp_kernel(
-        *(a[k] for k in MID_DDP_BOXQP_ARGS), boxqp_iters=boxqp_iters))
 
 
 # -- P1 ------------------------------------------------------------------------

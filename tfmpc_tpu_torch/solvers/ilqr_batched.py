@@ -10,9 +10,11 @@ scenario that is done freezes. One iteration is
 2. the Riccati backward inside the per-lane restart loop, compacted to the
    failing lanes when B > 128 (with ``use_pallas``: kernel K1, or K4 for
    ``boxqp`` on a bounded env, and with ``ddp`` K6a or K6b, which also take
-   the dynamics Hessians of step 1, at the lane kernels' dims; K7 at other
-   dims up to 48, and its full-DDP variants at other dims up to 12; with
-   ``parallel_backward``: the O(log T) composition of ``lqr_parallel.py``);
+   the dynamics Hessians of step 1, at the lane kernels' dims; K4 and K6b
+   at every other dim up to 12 on the small-dims kernel; K7 at other dims
+   up to 48, and its full-DDP variant without a box at other dims up to
+   12; with ``parallel_backward``: the O(log T) composition of
+   ``lqr_parallel.py``);
 3. the 11-alpha line search (K2), controls clipped to a bounded env's box;
 4. acceptance and the mu schedule, with the KKT stationarity test of a
    bounded env where a lane accepted nothing;
@@ -27,7 +29,8 @@ package's ``_iteration_fused``; routed by ``_use_fused_derivs``) drops step
 1 from the loop: step 5 runs K8, which also writes the linearization of
 the new trajectory in the Riccati kernels' ``[T, entries, B]`` layout, and
 the loop carries those blocks (``kargs``) into the next backward (K1, or K4
-for ``boxqp``; K7 at dims without a lane instantiation), whose policy goes
+for ``boxqp``; K7's iLQR variant or the small-dims K4 at dims without a lane
+instantiation), whose policy goes
 to K2 and K8 in that layout as it is. A solve linearizes once, along its
 initial (or resumed) trajectory (``_initial_kargs``). Where the JAX
 package takes its split iteration by design (an env without a device
@@ -68,7 +71,7 @@ import torch
 from torch.profiler import record_function
 
 from tfmpc_tpu_torch.core.types import map_fields
-from tfmpc_tpu_torch.ops import riccati, riccati_mid, rollout
+from tfmpc_tpu_torch.ops import riccati, riccati_mid, riccati_small, rollout
 from tfmpc_tpu_torch.solvers.ilqr import (
     ILQRConfig,
     ILQRResult,
@@ -116,7 +119,7 @@ def state_from_result(result: ILQRResult) -> SolverState:
 
 # The JAX package's lane kernel runs full DDP up to this dim on the TPU;
 # above it the JAX package runs its vmapped scan, and so does this one
-# (riccati_mid.MID_DDP_DIM_MAX, K7's DDP variants' ceiling, is the same).
+# (riccati_mid.MID_DDP_DIM_MAX, K7's DDP variant's ceiling, is the same).
 DDP_LANE_DIM_MAX = riccati_mid.MID_DDP_DIM_MAX
 # The JAX package's dims rule for the fused iteration
 # (tfmpc_tpu/solvers/ilqr_batched.py:_use_fused_derivs): above it, the
@@ -136,17 +139,21 @@ def _riccati_kernel_mode(n: int, m: int, config: ILQRConfig, device):
     None: the plain backward (``use_pallas=False``, or
     ``parallel_backward``, which owns the backward pass even with
     ``use_pallas``, as in the JAX package). "lane": K1/K4/K6a/K6b, for the
-    dims they are instantiated at (``riccati.KERNEL_DIMS``). "mid": K7, for
-    any other dims within ``riccati_mid.mid_kernel_supported``, and with
-    ``ddp`` its full-DDP variants at max(n, m) <= ``DDP_LANE_DIM_MAX``.
+    dims they are instantiated at (``riccati.KERNEL_DIMS``). "small": with
+    ``boxqp``, K4's and K6b's small-dims kernel (``ops/riccati_small.py``)
+    at every other max(n, m) <= ``riccati_small.SMALL_DIM_MAX``, with or
+    without ``ddp``. "mid": K7, for any other dims within
+    ``riccati_mid.mid_kernel_supported``, and with ``ddp`` (no box) its
+    full-DDP variant at max(n, m) <= ``DDP_LANE_DIM_MAX``.
 
     Where the JAX package runs its vmapped scan by design, the plain
     backward runs on every device too: full DDP at max(n, m) > 12 (its
     lane kernel stops at 12 and its mid kernel has no DDP terms) and any
-    max(n, m) > ``riccati_mid.MID_DIM_MAX``. The lane/mid boundary is the
-    port's own (the kernels' instantiations), not the JAX package's TPU
-    lane limit of 12. The route is the same on every ``device``: on the
-    CPU each wrapper runs its plain version.
+    max(n, m) > ``riccati_mid.MID_DIM_MAX``. The lane/small/mid boundaries
+    are the port's own (the kernels' instantiations and the small-dims
+    kernel's envelope, faster than K7 at every boxQP shape measured), not
+    the JAX package's TPU lane limit of 12. The route is the same on every
+    ``device``: on the CPU each wrapper runs its plain version.
     """
     if not config.use_pallas or config.parallel_backward:
         return None
@@ -155,46 +162,48 @@ def _riccati_kernel_mode(n: int, m: int, config: ILQRConfig, device):
     if not riccati_mid.mid_kernel_supported(n, m) \
             or (config.ddp and max(n, m) > DDP_LANE_DIM_MAX):
         return None
+    if config.boxqp and riccati_small.small_kernel_supported(n, m):
+        return "small"
     return "mid"
+
+
+# The backward's wrapper by (family, ddp, box), box being ``boxqp`` on a
+# bounded env. Every wrapper of a (ddp, box) pair takes the same arguments
+# (``_backward_batched``). The small-dims family holds the boxQP variants
+# only: without a box its batches run K7's.
+_BACKWARD = {
+    ("lane", False, False): riccati.riccati_backward,
+    ("lane", False, True): riccati.riccati_backward_boxqp,
+    ("lane", True, False): riccati.riccati_backward_ddp,
+    ("lane", True, True): riccati.riccati_backward_ddp_boxqp,
+    ("small", False, False): riccati_mid.riccati_backward_mid,
+    ("small", False, True): riccati_small.riccati_backward_small_boxqp,
+    ("small", True, False): riccati_mid.riccati_backward_mid_ddp,
+    ("small", True, True): riccati_small.riccati_backward_small_ddp_boxqp,
+    ("mid", False, False): riccati_mid.riccati_backward_mid,
+    ("mid", False, True): riccati_mid.riccati_backward_mid_boxqp,
+    ("mid", True, False): riccati_mid.riccati_backward_mid_ddp,
+}
 
 
 def _backward_batched(lin, quad, final, mu, config: ILQRConfig, bounds,
                       Ubar, second=None):
     """Batched regularized Riccati backward over [B] scenarios, routed by
-    ``_riccati_kernel_mode``: the lane kernels' wrappers (K4 for ``boxqp``
-    on a bounded env and K1 otherwise, or with the dynamics Hessians
-    ``second`` (``ddp``) K6b and K6a), K7's (its boxQP variant under the
-    same condition, its full-DDP variants with ``second``), or the plain
-    ``backward``. A wrapper launches its CUDA kernel on CUDA tensors and
-    runs its plain version on CPU tensors.
+    ``_riccati_kernel_mode`` and ``_BACKWARD``: the family's wrapper for
+    ``ddp`` (the dynamics Hessians ``second`` given) and the box
+    (``boxqp`` on a bounded env), or the plain ``backward``. A wrapper
+    launches its CUDA kernel on CUDA tensors and runs its plain version on
+    CPU tensors.
     """
     n, m = lin.f_x.shape[-1], lin.f_u.shape[-1]
     mode = _riccati_kernel_mode(n, m, config, lin.f_x.device)
+    if mode is None:
+        return backward(lin, quad, final, mu, config, bounds, Ubar, second)
     box = config.boxqp and bounds is not None
-    if mode == "lane":
-        if second is not None:
-            if box:
-                return riccati.riccati_backward_ddp_boxqp(
-                    lin, quad, final, mu, bounds, Ubar, second,
-                    config.boxqp_iters)
-            return riccati.riccati_backward_ddp(lin, quad, final, mu, second)
-        if box:
-            return riccati.riccati_backward_boxqp(
-                lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
-        return riccati.riccati_backward(lin, quad, final, mu)
-    if mode == "mid":
-        if second is not None:
-            if box:
-                return riccati_mid.riccati_backward_mid_ddp_boxqp(
-                    lin, quad, final, mu, bounds, Ubar, second,
-                    config.boxqp_iters)
-            return riccati_mid.riccati_backward_mid_ddp(lin, quad, final, mu,
-                                                        second)
-        if box:
-            return riccati_mid.riccati_backward_mid_boxqp(
-                lin, quad, final, mu, bounds, Ubar, config.boxqp_iters)
-        return riccati_mid.riccati_backward_mid(lin, quad, final, mu)
-    return backward(lin, quad, final, mu, config, bounds, Ubar, second)
+    ddp = second is not None
+    args = (lin, quad, final, mu) + ((bounds, Ubar) if box else ()) \
+        + ((second,) if ddp else ()) + ((config.boxqp_iters,) if box else ())
+    return _BACKWARD[mode, ddp, box](*args)
 
 
 _RESTART_SUB_BATCH = 128  # gathered-retry width of the compacted restarts
@@ -530,7 +539,8 @@ def _use_fused_derivs(env, config: ILQRConfig, device) -> bool:
     ``lane_derivatives``: navigation's); else the split iteration runs.
     Its TPU rule B % 128 is not copied: the kernels mask any batch. Where
     the JAX rule fuses, K8 (unrolled or generic) and the backward (the
-    lane kernels, or K7 through ``riccati.riccati_backward_lanes``) run at
+    lane kernels, or K7's iLQR variant or the small-dims K4 through
+    ``riccati.riccati_backward_lanes``) run at
     every such dim; an env whose ``device_step()`` returns None takes the
     split iteration, as the JAX package does for ``lane_functions() ->
     None``. ``device`` is unused (the rule is the same on every device).
@@ -561,8 +571,9 @@ def _backward_restarts_klayout(env, kargs, x_last, mu, delta,
                                config: ILQRConfig, Ubar):
     """The fused iteration's backward pass with the per-lane restarts, on
     the kernel-layout blocks ``kargs`` (``[T, entries, B]``): K1, or K4 for
-    ``boxqp`` on a bounded env (K7's variants at dims without a lane
-    instantiation), through ``riccati.riccati_backward_lanes``.
+    ``boxqp`` on a bounded env (K7's iLQR variant or the small-dims K4 at
+    dims without a lane instantiation), through
+    ``riccati.riccati_backward_lanes``.
     The final value is ``_final_klayout``'s at ``x_last [B, n]``.
     Returns ``_backward_restarts_batched``'s tuple with the policy ``(K [T,
     m*n, B], k [T, m, B])`` in the layout K2 and K8 take; the compacted

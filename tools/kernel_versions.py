@@ -12,6 +12,8 @@ on one GPU.
     python3 tools/kernel_versions.py rollout --sweep [KIND ...]
     python3 tools/kernel_versions.py rollout --generic-sweep [KIND ...]
     python3 tools/kernel_versions.py rollout --generic-sweep user
+    python3 tools/kernel_versions.py small [--sweep] [--clocks]
+        [k7ddp=PATH]
 
 Each PATH is another version of ``ops/csrc/row_matmul.cu`` (``p1``) or of
 ``ops/csrc/riccati_mid.cu`` (``k7``), for example an earlier one taken
@@ -109,6 +111,17 @@ K3 or K5, its two line-search layouts at each case with K5's footprint
 generated step functor (``csrc/rollout_user.cuh``) at
 ``USER_SWEEP_CASES`` (phase 31's shapes and the chain at d = 12 and 24),
 beside the plan ``GENERIC_PLANS`` gives it.
+
+``small`` times K4's and K6b's small-dims kernel (``ops/
+riccati_small.py``) at ``SMALL_CASES`` (D3, D4, a D4 restart round, E2,
+G5) in f32 beside K7 on the same inputs, graph replays in turns: K7's
+boxQP variant from the checkout, its full-DDP boxQP variant from PATH (a
+version of ``ops/csrc/riccati_mid_ddp.cu`` that still has it, taken with
+``git show <rev>:...`` into a copied, git-ignored place and built alone
+against the checkout's ``riccati_mid.cuh``). ``--sweep`` adds every
+``SMALL_SWEEP_THREADS`` bound of the plan (the measurement behind
+``riccati_small.SMALL_THREADS``); ``--clocks`` builds the two sources with
+``-DTFMPC_SMALL_CLOCKS`` and prints each case's phase clocks a step.
 """
 
 from __future__ import annotations
@@ -1315,11 +1328,174 @@ def run_generic_sweep(card, kinds=("costs", "alpha", "traj")):
             generic_emit_layouts(case, case, card)
 
 
+# -- K4 and K6b at small dims -------------------------------------------------
+
+# label -> (chip_smoke.py case, (n, m), B, T, full DDP): the paths that run
+# the small-dims kernel (phase 30's D3 and D4, a D4 restart round of 128
+# gathered lanes, E2, G5), chip_smoke.py's inputs at each
+SMALL_CASES = {
+    "D3": ("reservoir4", (4, 4), 2048, 100, True),
+    "D4": ("hvac12ring", (12, 12), 512, 50, True),
+    "D4 restart round": ("hvac12ring", (12, 12), 128, 50, True),
+    "E2": ("hvac12", (12, 12), 1024, 100, False),
+    "G5": ("nav12_box", (12, 12), 1024, 50, False),
+}
+SMALL_SWEEP_THREADS = (32, 64, 128, 256)
+# the phase clocks' slots (csrc/riccati_small.cuh small_clocks) in the
+# order a step runs them, and their names
+SMALL_CLOCK_ORDER = (5, 6, 7, 8, 0, 1, 2, 3, 4)
+SMALL_CLOCK_NAMES = ("wait", "f_x, f_u widened", "W, W_u", "Q blocks",
+                     "box and staging", "PD probe", "Newton iterations",
+                     "final factor, K, dV", "value update")
+SMALL_FILES = ("riccati_small.cu", "riccati_small_ddp.cu")
+
+
+def build_small(label: str, defines=()) -> ctypes.CDLL:
+    """The checkout's two small-dims sources built with ``defines`` (one
+    nvcc each, in parallel) into one library under ``OUT``; ptxas lines
+    printed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tfmpc_tpu_torch.ops import _build
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    objs = [OUT / f"small_{label}_{Path(f).stem}.o" for f in SMALL_FILES]
+
+    def one(src_obj):
+        src, obj = src_obj
+        return subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-c", "-o",
+             str(obj), str(CSRC / src)], capture_output=True, text=True)
+
+    with ThreadPoolExecutor(len(SMALL_FILES)) as ex:
+        procs = list(ex.map(one, zip(SMALL_FILES, objs)))
+    for proc in procs:
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed:\n{proc.stderr[-3000:]}")
+        cs.print_ptxas(proc.stdout + proc.stderr)
+    so = OUT / f"small_{label}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(so), *map(str, objs)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.tfmpc_riccati_backward_small_boxqp.argtypes = [_I] * 6 + [_P] * 18 \
+        + [_I, _I, _LL, _P]
+    lib.tfmpc_riccati_backward_small_ddp_boxqp.argtypes = [_I] * 6 \
+        + [_P] * 21 + [_I, _I, _LL, _P]
+    return lib
+
+
+def small_case(case, dims, Bn, Tn, ddp):
+    """chip_smoke.py's f32 inputs of a ``SMALL_CASES`` shape in the solver
+    layout (``riccati_mid.mid_layout``) and their boxQP iterations."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    if case == "hvac12":
+        _, lin, quad, final, mu, bounds, U, iters = cs.mid_case(
+            "hvac12", torch.float32)
+        second = None
+    else:
+        _, lin, quad, final, mu, bounds, U, second, iters = \
+            cs.ddp_mid_inputs(case, dims, torch.float32, Bn, Tn)
+    return rm.mid_layout(lin, quad, final, mu, bounds, U,
+                         second if ddp else None), iters
+
+
+def run_small(card, sweep=False, clocks=False, k7ddp=None):
+    """The small-dims kernel at ``SMALL_CASES`` in f32, as device times of
+    graph replays of 5 calls in turns beside K7 on the same inputs (its
+    boxQP variant from the checkout; its full-DDP boxQP variant from the
+    source ``k7ddp``, a version of ``riccati_mid_ddp.cu`` built alone
+    against the checkout's ``riccati_mid.cuh``, where given); ``sweep``:
+    also each of ``SMALL_SWEEP_THREADS`` threads a block at most (the
+    measurement behind ``riccati_small.SMALL_THREADS``); ``clocks``: the
+    kernel built with ``-DTFMPC_SMALL_CLOCKS``, its phase clocks a step
+    (thread 0 of block 0, ``SMALL_CLOCK_NAMES``) and its warp's Newton
+    iterations."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import _build, riccati_mid as rm, \
+        riccati_small as rs
+
+    k7lib = None
+    if k7ddp is not None:
+        k7lib = build("k7ddp", Path(k7ddp).resolve())
+        k7lib.tfmpc_riccati_backward_mid_ddp_boxqp.argtypes = [_I] * 6 \
+            + [_P] * 21 + [_I] * 3 + [_LL, _P]
+    clk = build_small("clocks", ("-DTFMPC_SMALL_CLOCKS",)) if clocks \
+        else None
+    for label, (case, dims, Bn, Tn, ddp) in SMALL_CASES.items():
+        n, m = dims
+        a, iters = small_case(case, dims, Bn, Tn, ddp)
+        keys = rs.SMALL_DDP_BOXQP_ARGS if ddp else rs.SMALL_BOXQP_ARGS
+        ins = [a[k] for k in keys]
+        launcher = rs.riccati_backward_small_ddp_boxqp_kernel if ddp \
+            else rs.riccati_backward_small_boxqp_kernel
+        plan = rs.small_plan(n, m, Bn, torch.float32, ddp)
+        fns = {f"small ({plan.groups} lanes x {plan.scenarios})":
+               lambda: launcher(*ins, boxqp_iters=iters)}
+        if sweep:
+            for threads in SMALL_SWEEP_THREADS:
+                p = rs.small_plan(n, m, Bn, torch.float32, ddp, threads)
+                fns[f"small, <= {threads} threads ({p.scenarios} a block)"] \
+                    = lambda p=p: launcher(*ins, boxqp_iters=iters, plan=p)
+        if not ddp:
+            fns["K7"] = lambda: rm.riccati_backward_mid_boxqp_kernel(
+                *(a[k] for k in rm.MID_BOXQP_ARGS), boxqp_iters=iters)
+        elif k7lib is not None:
+            kp = rm.mid_plan(n, m, Bn, torch.float32)
+            k7ins = [a[k] for k in rs.SMALL_DDP_BOXQP_ARGS]
+            out = launcher(*ins, boxqp_iters=iters)
+            k7out = [torch.empty_like(x) for x in out]
+
+            def k7call(k7ins=k7ins, k7out=k7out, kp=kp):
+                _build.check(k7lib.tfmpc_riccati_backward_mid_ddp_boxqp(
+                    0, n, m, Tn, Bn, iters, *map(_build.ptr, k7ins),
+                    *map(_build.ptr, k7out), kp.warps, kp.scenarios,
+                    int(kp.stage_l), kp.smem_bytes, _build.stream()),
+                    "K7 DDP boxQP")
+
+            k7call()
+            torch.cuda.synchronize()
+            ok = (out[4] == 0) & (k7out[4] == 0)
+            print(f"  {label}: K7's DDP boxQP variant, ok masks identical "
+                  f"{bool(torch.equal(out[4], k7out[4]))}, largest K/k "
+                  "difference on lanes ok in both "
+                  + str(max(float((x - y)[ok].abs().max())
+                            for x, y in zip(out[:2], k7out[:2]))))
+            fns["K7"] = k7call
+        times = in_turns(fns, lambda f: cs.graph_ms(f, 5))
+        print(f"{label}, {case} {dims} B={Bn} T={Tn}, f32, ms (graph "
+              f"replays of 5, best of two turns) [{card}]: "
+              + ", ".join(f"{k} {t:.4f}" for k, t in times.items()))
+        if clk is not None:
+            fn = getattr(clk, "tfmpc_riccati_backward_small_"
+                         + ("ddp_boxqp" if ddp else "boxqp"))
+            out = [torch.empty_like(x) for x in launcher(
+                *ins, boxqp_iters=iters)]
+            _build.check(fn(0, n, m, Tn, Bn, iters, *map(_build.ptr, ins),
+                            *map(_build.ptr, out), plan.groups,
+                            plan.scenarios, plan.smem_bytes,
+                            _build.stream()), "clocks")
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 10)()
+            getattr(clk, "tfmpc_riccati_small_"
+                    + ("ddp_clocks" if ddp else "clocks"))(buf)
+            c = [buf[i] / Tn for i in SMALL_CLOCK_ORDER] + [buf[9] / Tn]
+            print(f"  {label} phase clocks a step ("
+                  + ", ".join(SMALL_CLOCK_NAMES) + "): "
+                  + ", ".join(f"{x:.0f}" for x in c[:-1])
+                  + f"; total {sum(c[:-1]):.0f}; its warp's Newton "
+                  f"iterations {c[-1]:.2f} a step")
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) < 3 or sys.argv[1] not in ("p1", "k7", "lane",
-                                                 "rollout"):
+                                                 "rollout", "small"):
         print(__doc__)
         return 2
     if sys.argv[1] == "rollout" and sys.argv[2] not in ("--sweep",
@@ -1351,6 +1527,12 @@ def main() -> int:
     print(card)
     if sys.argv[1] == "lane":
         run_lane_sweep(card)
+        return 0
+    if sys.argv[1] == "small":
+        k7ddp = [a.partition("=")[2] for a in sys.argv[2:]
+                 if a.startswith("k7ddp=")]
+        run_small(card, "--sweep" in sys.argv, "--clocks" in sys.argv,
+                  k7ddp[0] if k7ddp else None)
         return 0
     if sys.argv[1] == "rollout" and sys.argv[2] == "--generic-sweep":
         run_generic_sweep(card, sys.argv[3:] or ("costs", "alpha", "traj"))
