@@ -109,12 +109,13 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     T=100) and on synthetic inputs at (14, 13), (24, 24), (32, 32),
     (48, 48), (40, 33), (7, 9) and (1, 1) (B=128, T=6, box +-0.4, 4 boxQP
     iterations) and at block-ragged batches of HVAC-12 (B=1023) and HVAC-16
-    (B=513), T=20, five lanes forced indefinite each, the boxQP variant at
-    n, m <= 12 being the small-dims kernel's K4 (``ops/riccati_small.py``,
-    the solver's route there; its plan checked block-ragged too): identical
-    ok masks and the ok lanes within tolerance in float64, against the
-    float64 plain version in float32; K7 timed at each of those shapes, the
-    small-dims K4 at E2's in turns with K7's boxQP variant; K7-boxQP with
+    (B=513), T=20, five lanes forced indefinite each, both variants at
+    n, m <= 12 being the small-dims kernel's K1 and K4
+    (``ops/riccati_small.py``, the solver's route there; their plans
+    checked block-ragged too): identical ok masks and the ok lanes within
+    tolerance in float64, against the float64 plain version in float32;
+    each timed at each of those shapes, the small-dims K1 and K4 in turns
+    with K7's iLQR and boxQP variants; K7-boxQP with
     1, 2 and 4 warps a scenario at E1's shape and at (24, 24), (32, 32),
     (48, 48) (the launch plan's table); the clipped K2/K3 at E1's and
     E2's shapes; K7
@@ -181,32 +182,38 @@ the CUDA toolkit. Phases, in order; any failure raises (non-zero exit):
     tolerances, identical fail masks in float64, K5 against K2 and K3 bit
     for bit) and timed, at each path's shape below and at a rectangular
     (24, 6) linear system (B=1024, T=100); then five f32 ``solve_batch``
-    paths on AUTO, counted (the routed Riccati kernel, K7 at these dims,
-    and the generic rollouts only), each against its ``use_pallas=False``
+    paths on AUTO, counted (the routed Riccati kernel: the small-dims K1
+    or K4 at n, m <= 12, K7 above; and the generic rollouts only), each
+    against its ``use_pallas=False``
     run (the same converged mask on >= 99% of lanes, mean cost within
     1e-4) and on the other line-search layout (same mask, costs within
     1e-5): the double integrator (n=2, m=1, B=4096, T=100; its controls
-    also within 1e-4 of the exact LQR in float64, ``solvers/lqr.py``),
+    also within 1e-4 of the exact LQR in float64, ``solvers/lqr.py``;
+    its backward, the small-dims K1, timed in turns with K7's iLQR variant
+    as at navigation-4's),
     reservoir-4 with boxQP (B=1024, T=100), navigation in four dims (one
     zone, B=4096, T=100), the 24-room HVAC ring with boxQP (E1's config,
     B=512, T=50) and a random stable linear system at (48, 48) (B=512,
     T=50); and the generic form beside the unrolled kernel, in turns, at
     HVAC-6 and E1's shape (the price of generality);
-30. full DDP and K8 at every dim up to 12: K7's full-DDP variant
-    (``csrc/riccati_mid_ddp.cu``) and the small-dims kernel's K6b
-    (``csrc/riccati_small_ddp.cu``) against their plain versions (K6a's and
-    K6b's) on the dynamics Hessians of reservoir-4, the 12-room ring,
-    navigation in 12 dims and the double integrator and on synthetic ones
-    at (4, 4), (12, 12), (7, 3) and (2, 1), at the block-ragged B=401,
-    T=6, five lanes forced indefinite each (phase 15's
-    gates: identical f64 ok masks); the generic K8 (kind kDerivs,
+30. full DDP and K8 at every dim up to 12: the small-dims kernel's K6a
+    and K6b (``csrc/riccati_small_ddp_ilqr.cu``,
+    ``csrc/riccati_small_ddp.cu``) against their plain versions on the
+    dynamics Hessians of reservoir-4, the 12-room ring, navigation in 12
+    dims and the double integrator and on synthetic ones at (4, 4), (12,
+    12), (7, 3) and (2, 1), at the block-ragged B=401, T=6, five lanes
+    forced indefinite each (phase 15's gates: identical f64 ok masks; each
+    with its Hessians staged and read in place, bit for bit), K7's full-DDP
+    variant (``csrc/riccati_mid_ddp.cu``, on no solver path) on the
+    synthetic ones; the generic K8 (kind kDerivs,
     ``csrc/rollout_generic_derivs.cu``) against its plain version and the
     generic K3 (bit for bit) at navigation in 1, 4, 7 and 12 dims, one
     and two zones (>= 5% of the steps inside both), B=401, T=20; all
-    timed at their paths' shapes, the backward also in the fused
-    iteration's layout round trip (``riccati.riccati_backward_lanes``, bit
-    for bit the kernel's own wrapper: K7's iLQR variant at G4, the
-    small-dims K4 at G5, in turns with K7's boxQP variant); then six f32
+    timed at their paths' shapes (the small-dims K6a in turns with K7's
+    full-DDP variant), the backward also in the fused iteration's layout
+    round trip (``riccati.riccati_backward_lanes``, bit for bit the
+    kernel's own wrapper: the small-dims K1 at G4, its K4 at G5, in turns
+    with K7's iLQR and boxQP variants); then six f32
     solves, counted (launches of the kernels each
     should run, no plain version): D3 reservoir-4 with full DDP and boxQP
     (B=2048, T=100), D5 navigation in 12 dims with full DDP (B=1024,
@@ -364,9 +371,11 @@ E2_MIN_CONVERGED = 0.99
 # K7 on synthetic inputs: the JAX release gate's cases
 # (release_check.py:342-388: B=128, T=6, box +-0.4, 4 boxQP iterations),
 # one rectangular pair of tests/test_riccati_mid.py, m > 32 with n != m
-# (a lane holds two rows), a small rectangular pair and the smallest dims
+# (a lane holds two rows), a small rectangular pair and the smallest dims;
+# at n, m <= 12 they hold the small-dims kernel, whose buckets of 16, 4, 8
+# and 2 lanes a scenario (7, 9), (4, 4), (7, 3) and (1, 1) take
 MID_SYNTHETIC_DIMS = ((14, 13), (24, 24), (32, 32), (48, 48), (40, 33),
-                      (7, 9), (1, 1))
+                      (7, 9), (4, 4), (7, 3), (1, 1))
 # K7 at block-ragged batches, where a block's tail teams return while its
 # other teams run on: HVAC-12 at B=1023 (teams of one warp, four a block,
 # three in the last) and HVAC-16 at B=513 (teams of two warps on named
@@ -2089,10 +2098,10 @@ def mid_case(case, dtype):
 
 
 def small_vs_k7(key, launch, k7_launch, reps=5):
-    """The small-dims kernel's raw launch and K7's on the same inputs, as
-    device times of CUDA graph replays in turns (K7, small, small, K7), the
-    best of each pair; kept in ``SMALL_VS_K7[key]``, printed, and the small
-    kernel's returned."""
+    """The small-dims kernel's raw launch and K7's variant of the same
+    contract on the same inputs, as device times of CUDA graph replays in
+    turns (K7, small, small, K7), the best of each pair; kept in
+    ``SMALL_VS_K7[key]``, printed, and the small kernel's returned."""
     times = {"k7": [], "small": []}
     for who in ("k7", "small", "small", "k7"):
         times[who].append(graph_ms(launch if who == "small" else k7_launch,
@@ -2121,10 +2130,27 @@ def boxqp_kernel(n, m):
             rm.riccati_backward_mid_boxqp_kernel, rm.MID_BOXQP_ARGS)
 
 
+def ilqr_kernel(n, m):
+    """The unconstrained backward's kernel at (n, m) outside the lane dims,
+    as the solver routes it: the small-dims K1 (``ops/riccati_small.py``)
+    at n, m <= 12, else K7's iLQR variant. Returns (name, module, wrapper,
+    plain version, raw launcher, argument order)."""
+    from tfmpc_tpu_torch.ops import riccati_mid as rm, riccati_small as rs
+
+    if rs.small_kernel_supported(n, m):
+        return ("riccati_backward_small", rs, rs.riccati_backward_small,
+                rs.riccati_backward_small_ref,
+                rs.riccati_backward_small_kernel, rs.SMALL_ARGS)
+    return ("riccati_backward_mid", rm, rm.riccati_backward_mid,
+            rm.riccati_backward_mid_ref, rm.riccati_backward_mid_kernel,
+            rm.MID_ARGS)
+
+
 def check_k7(case, dtype, timings=None, errs=None, suffix=""):
-    """K7's iLQR variant and the boxQP kernel the solver routes these dims
-    to (``boxqp_kernel``: the small-dims kernel at n, m <= 12, else K7's
-    boxQP variant) against their plain versions on ``mid_case(case)`` with
+    """The unconstrained and the boxQP kernel the solver routes these dims
+    to (``ilqr_kernel``, ``boxqp_kernel``: the small-dims kernel's K1 and
+    K4 at n, m <= 12, else K7's iLQR and boxQP variants) against their
+    plain versions on ``mid_case(case)`` with
     five lanes forced indefinite (``hold_backward``: identical ok masks and
     the ok lanes within tolerance in float64, the boxQP's share gate set by
     the plain version's own agreement across the card and the CPU; the
@@ -2132,7 +2158,7 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
     must launch its kernel. With ``timings``: the kernel, wrapper and plain
     times and the bounds at these shapes, on the unforced inputs, under the
     kernels' names plus ``suffix`` (the small-dims kernel as graph replays
-    in turns with K7's boxQP variant, ``small_vs_k7``)."""
+    in turns with K7's variant of the same contract, ``small_vs_k7``)."""
     import torch
 
     from tfmpc_tpu_torch.ops import riccati_mid as rm
@@ -2141,16 +2167,19 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
     Bn, Tn, n, m = lin.f_u.shape
     box_name, box_mod, box_wrap, box_ref, box_launch, box_args = \
         boxqp_kernel(n, m)
+    ilqr_name, ilqr_mod, ilqr_wrap, ilqr_ref, ilqr_launch, ilqr_args = \
+        ilqr_kernel(n, m)
     quad_b, mu_b, bad = force_indefinite(quad, mu, m)
     args = (lin, quad_b, final, mu_b)
     args64 = (to64(lin), to64(quad_b), to64(final), mu_b.double())
     box, box64 = (bounds, U), (to64(bounds), U.double())
     for variant in ("ilqr", "boxqp"):
         if variant == "ilqr":
-            name, mod, counter = "riccati_backward_mid", rm, "MID_LAUNCHES"
-            run = lambda: rm.riccati_backward_mid(*args)  # noqa: E731
-            plain = lambda st: rm.riccati_backward_mid_ref(*args)  # noqa: E731
-            ref64 = lambda: rm.riccati_backward_mid_ref(*args64)  # noqa: E731
+            name, mod = ilqr_name, ilqr_mod
+            counter = COUNTERS[name][1]
+            run = lambda: ilqr_wrap(*args)  # noqa: E731
+            plain = lambda st: ilqr_ref(*args)  # noqa: E731
+            ref64 = lambda: ilqr_ref(*args64)  # noqa: E731
         else:
             name, mod = box_name, box_mod
             counter = COUNTERS[name][1]
@@ -2163,8 +2192,9 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
             plain_cpu = lambda: box_ref(  # noqa: E731
                 *(to_cpu(a) for a in args + box), iters)
         before = getattr(mod, counter)
-        what = "K7-ilqr" if variant == "ilqr" else name.replace(
-            "riccati_backward_", "")
+        what = {"riccati_backward_mid": "K7-ilqr",
+                "riccati_backward_small": "small-ilqr"}.get(
+            name, name.replace("riccati_backward_", ""))
         err, _ = hold_backward(f"{what} {label}", dtype, run, plain,
                                ref64, variant == "boxqp", bad, plain_cpu)
         if getattr(mod, counter) != before + 1:
@@ -2175,11 +2205,10 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
         a = rm.mid_layout(lin, quad, final, mu, bounds, U)
         if variant == "ilqr":
             work = k1_work(Bn, Tn, n, m, 4)
-            kargs = [a[k] for k in rm.MID_ARGS]
-            launch = lambda: rm.riccati_backward_mid_kernel(*kargs)  # noqa
-            wrap = lambda: rm.riccati_backward_mid(lin, quad, final, mu)  # noqa
-            ref = lambda: rm.riccati_backward_mid_ref(  # noqa: E731
-                lin, quad, final, mu)
+            kargs = [a[k] for k in ilqr_args]
+            launch = lambda: ilqr_launch(*kargs)  # noqa: E731
+            wrap = lambda: ilqr_wrap(lin, quad, final, mu)  # noqa: E731
+            ref = lambda: ilqr_ref(lin, quad, final, mu)  # noqa: E731
         else:
             stats = {}
             box_ref(lin, quad, final, mu, bounds, U, iters, stats=stats)
@@ -2197,6 +2226,10 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
                 name + suffix, launch,
                 lambda: rm.riccati_backward_mid_boxqp_kernel(  # noqa
                     *k7args, boxqp_iters=iters))
+        elif name == "riccati_backward_small":
+            k7args = [a[k] for k in rm.MID_ARGS]
+            k_ms = small_vs_k7(name + suffix, launch,
+                               lambda: rm.riccati_backward_mid_kernel(*k7args))
         else:
             k_ms = cuda_ms(launch, 20)
         timings[name + suffix] = (k_ms, cuda_ms(wrap, 20), cuda_ms(ref, 2),
@@ -2212,9 +2245,9 @@ def check_k7(case, dtype, timings=None, errs=None, suffix=""):
 def check_k7_ragged(case, dtype):
     """``check_k7`` on one of ``MID_RAGGED``'s batches, after checking that
     K7's plan, and at n <= 12 the small-dims kernel's (which runs the
-    boxQP there), have more than one scenario a block and a last block that
-    is not full (the lane forced indefinite last, ``force_indefinite``, is
-    there)."""
+    backward there: its boxQP and its unconstrained plans), have more than
+    one scenario a block and a last block that is not full (the lane
+    forced indefinite last, ``force_indefinite``, is there)."""
     from tfmpc_tpu_torch.ops import riccati_mid as rm, riccati_small as rs
 
     name, Bn = case
@@ -2222,9 +2255,10 @@ def check_k7_ragged(case, dtype):
     plan = rm.mid_plan(n, n, Bn, dtype)
     plans = [("K7", plan.scenarios, f"{plan.warps} warp(s) a team, ")]
     if rs.small_kernel_supported(n, n):
-        sp = rs.small_plan(n, n, Bn, dtype, False)
-        plans.append(("small-dims boxQP", sp.scenarios,
-                      f"{sp.groups} lanes a scenario, "))
+        for box in (True, False):
+            sp = rs.small_plan(n, n, Bn, dtype, False, box=box)
+            plans.append((f"small-dims {'K4' if box else 'K1'}",
+                          sp.scenarios, f"{sp.groups} lanes a scenario, "))
     for who, spb, how in plans:
         tail = Bn - (-(-Bn // spb) - 1) * spb
         print(f"  {who} {name} B={Bn} {dname(dtype)}: {how}{spb} scenarios "
@@ -2264,28 +2298,48 @@ def print_mid_plans(lib):
 
 
 def print_small_plans(lib):
-    """The small-dims kernel's launch plan at each shape phases 20 and 30
-    run it, beside the shared bytes and lanes the kernel computes for it
-    (``tfmpc_riccati_small_smem_bytes``, ``tfmpc_riccati_small_groups``),
-    which must agree."""
+    """The small-dims kernel's launch plan at each shape phases 20, 29 and
+    30 run it, each variant's (``small_launch_plan``; for K6a the blocks
+    an SM holds under it and under the other way of reading the Hessians,
+    as the runtime gives them), beside the shared bytes and
+    lanes the kernel computes for it (``tfmpc_riccati_small_smem_bytes``,
+    ``tfmpc_riccati_small_groups``), which must agree."""
     import torch
 
-    from tfmpc_tpu_torch.ops import riccati_small as rs
+    from tfmpc_tpu_torch.ops import riccati_mid as rm, riccati_small as rs
 
-    shapes = [((12, 12), B_E2, False), ((12, 12), 1023, False),
-              ((7, 9), 128, False), ((1, 1), 128, False),
-              ((4, 4), 2048, True), ((12, 12), 512, True),
-              ((12, 12), 1024, False)] + [
-        (dims, DDP_MID_RAGGED[0], ddp) for dims in DDP_MID_SYNTHETIC_SCALE
-        for ddp in (False, True)]
-    for (n, m), Bn, ddp in shapes:
+    sms = rm._sm_count(torch.device("cuda"))
+
+    shapes = [((12, 12), B_E2, False, box) for box in (True, False)] + [
+        ((12, 12), 1023, False, box) for box in (True, False)] + [
+        (dims, 128, False, box) for dims in MID_SYNTHETIC_DIMS
+        if rs.small_kernel_supported(*dims) for box in (True, False)] + [
+        ((4, 4), 2048, True, True), ((12, 12), 512, True, True),
+        ((12, 12), 1024, False, True), ((4, 4), 4096, False, False),
+        ((2, 1), 4096, False, False), ((2, 1), 4096, True, False),
+        ((12, 12), 1024, True, False)] + [
+        (dims, DDP_MID_RAGGED[0], ddp, box) for dims in DDP_MID_SYNTHETIC_SCALE
+        for ddp in (False, True) for box in (True, False)]
+    names = {(True, False): "K4", (True, True): "K6b", (False, False): "K1",
+             (False, True): "K6a"}
+    for (n, m), Bn, ddp, box in shapes:
         for dtype in (torch.float32, torch.float64):
-            p = rs.small_plan(n, m, Bn, dtype, ddp)
+            p = rs.small_launch_plan(n, m, Bn, dtype, ddp, box, sms)
             code = 0 if dtype == torch.float32 else 1
-            lib_bytes = lib.tfmpc_riccati_small_smem_bytes(code, int(ddp), n,
-                                                           m, p.scenarios)
+            lib_bytes = lib.tfmpc_riccati_small_smem_bytes(
+                code, int(box), int(ddp), n, m, p.scenarios, int(p.stage_h))
             lib_groups = lib.tfmpc_riccati_small_groups(n, m)
-            print(f"  small-dims {'K6b' if ddp else 'K4'} plan ({n}, {m}) "
+            how = ""
+            if ddp and not box:
+                other = rs.small_plan(n, m, Bn, dtype, True, sms=sms,
+                                      box=False, stage_h=not p.stage_h)
+                how = (f"Hessians {'staged' if p.stage_h else 'in place'} "
+                       f"({rs.small_blocks_per_sm(p, n, m, dtype)} "
+                       f"block(s) an SM; "
+                       f"{'in place' if p.stage_h else 'staged'}: "
+                       f"{rs.small_blocks_per_sm(other, n, m, dtype)} "
+                       f"of {other.scenarios} scenarios), ")
+            print(f"  small-dims {names[box, ddp]} plan ({n}, {m}) {how}"
                   f"B={Bn} {dname(dtype)}: {p.groups} lanes a scenario "
                   f"(kernel: {lib_groups}), {p.scenarios} a block, "
                   f"{p.threads} threads, {p.smem_bytes} B shared (kernel: "
@@ -2512,7 +2566,12 @@ COUNTERS = {
                                  "MID_DDP_PLAIN_CALLS"),
     "rollout_alpha_derivs_generic": ("rollout", "DERIVS_GENERIC_LAUNCHES",
                                      "DERIVS_PLAIN_CALLS"),
-    # K4 and K6b at n, m <= 12 outside the lane dims (ops/riccati_small.py)
+    # K1, K6a, K4 and K6b at n, m <= 12 outside the lane dims
+    # (ops/riccati_small.py)
+    "riccati_backward_small": ("riccati_small", "SMALL_LAUNCHES",
+                               "SMALL_PLAIN_CALLS"),
+    "riccati_backward_small_ddp": ("riccati_small", "SMALL_DDP_LAUNCHES",
+                                   "SMALL_DDP_PLAIN_CALLS"),
     "riccati_backward_small_boxqp": ("riccati_small", "SMALL_BOXQP_LAUNCHES",
                                      "SMALL_BOXQP_PLAIN_CALLS"),
     "riccati_backward_small_ddp_boxqp": ("riccati_small",
@@ -3877,13 +3936,13 @@ def check_generic_kernels(case, dtype, Bn, Tn, timings=None, errs=None,
               f"ms, bound {b_ms:.4f} ms ({b_by})")
 
 
-def di_lqr_check(res32, x0, horizon, cfg=HEADLINE,
-                 backward="riccati_backward_mid"):
+def di_lqr_check(res32, x0, horizon, cfg=HEADLINE):
     """The double integrator's controls against the exact LQR
     (``solvers/lqr.py``) in float64 on its first ``DI_LQR_B`` scenarios:
     the same solve (``cfg``, at atol 1e-10) through the kernels in float64
-    (``backward`` and the generic rollouts, counted) and the f32 solve's,
-    each within ``DI_LQR_ATOL`` max-abs. Returns both deviations."""
+    (the routed backward, ``backward_kernel``, and the generic rollouts,
+    counted) and the f32 solve's, each within ``DI_LQR_ATOL`` max-abs.
+    Returns both deviations."""
     import torch
 
     from tfmpc_tpu_torch.solvers import ilqr, lqr
@@ -3896,7 +3955,8 @@ def di_lqr_check(res32, x0, horizon, cfg=HEADLINE,
     res64, launches, plain = counted(lambda: ilqr.solve_batch(
         env64, x0_64, horizon=horizon, config=config))
     require_path("double integrator f64 solve", launches, plain,
-                 {backward} | generic_kinds(config, horizon, 2, 1))
+                 {backward_kernel(2, 1, config, False)}
+                 | generic_kinds(config, horizon, 2, 1))
     dev64 = float((res64.actions - U_l).abs().max())
     dev32 = float((res32.actions[:DI_LQR_B].double() - U_l).abs().max())
     print(f"  double integrator controls vs the exact LQR in float64 "
@@ -3984,6 +4044,55 @@ def generic_vs_unrolled(card):
     return out
 
 
+def time_generic_backward(case, Bn, Tn, timings, errs, key):
+    """The unconstrained backward the solver routes a phase-29 path to
+    (``ilqr_kernel``: the small-dims K1 at the double integrator and
+    navigation-4) on the linearization of ``generic_inputs(case)`` at the
+    path's shape, mu = 0.1, held against its plain version in float32 and
+    float64 with five lanes forced indefinite (``hold_backward``: identical
+    ok masks and the ok lanes within TOL in float64; the float32 share rule
+    against the float64 plain version); the float32 hold's largest K/k
+    difference is kept under ``key`` in ``errs``. Under ``key`` in
+    ``timings``, on the unforced f32 inputs: the raw launch (graph replays
+    in turns with K7's iLQR variant, ``small_vs_k7``), the wrapper and one
+    call of the plain version, with the bound."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm
+
+    env, X, U, _ = generic_inputs(case, torch.float32, Bn, Tn)
+    n, m = env.state_size, env.action_size
+    lin, quad, final = env.analytic_derivatives(X, U)
+    mu = torch.full((Bn,), 0.1, device="cuda")
+    name, mod, wrapper, ref_fn, launcher, keys = ilqr_kernel(n, m)
+    counter = COUNTERS[name][1]
+    quad_b, mu_b, bad = force_indefinite(quad, mu, m)
+    args = (lin, quad_b, final, mu_b)
+    args64 = (to64(lin), to64(quad_b), to64(final), mu_b.double())
+    for dtype in (torch.float64, torch.float32):
+        a_k = args64 if dtype == torch.float64 else args
+        before = getattr(mod, counter)
+        err, _ = hold_backward(
+            f"{key} (B={Bn}, T={Tn})", dtype,
+            lambda: wrapper(*a_k), lambda st: ref_fn(*a_k),
+            lambda: ref_fn(*args64), False, bad)
+        if getattr(mod, counter) != before + 1:
+            raise AssertionError(f"{key}: the wrapper did not launch its "
+                                 f"kernel ({counter})")
+    errs[key] = err
+    a = rm.mid_layout(lin, quad, final, mu)
+    k7args = [a[k] for k in rm.MID_ARGS]
+    k_ms = small_vs_k7(key, lambda: launcher(*(a[k] for k in keys)),
+                       lambda: rm.riccati_backward_mid_kernel(*k7args))
+    timings[key] = (k_ms, cuda_ms(lambda: wrapper(lin, quad, final, mu), 5),
+                    cuda_ms(lambda: ref_fn(lin, quad, final, mu), 1),
+                    bound(*k1_work(Bn, Tn, n, m, 4)))
+    k_ms, w_ms, p_ms, (b_ms, b_by) = timings[key]
+    print(f"  {key} (B={Bn}, T={Tn}, f32): kernel {k_ms:.4f} ms "
+          f"(graph replays), wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+
+
 def slice_generic(phase, timings, errs, launches_by_path, plain_s, card):
     """Phase 29: the generic form of K2, K3 and K5 (csrc/
     rollout_generic.cuh) at ``GENERIC_KERNEL_CASES``' shapes against its
@@ -3991,8 +4100,9 @@ def slice_generic(phase, timings, errs, launches_by_path, plain_s, card):
     timed in f32), then each ``GENERIC_PATHS`` solve on AUTO (counted: the
     routed Riccati kernel and the generic rollouts, nothing else, no plain
     version) against its plain path and on the other line-search layout,
-    the double integrator against the exact LQR; then the generic form
-    beside the unrolled one at HVAC-6 and E1's shape. Returns its
+    the double integrator against the exact LQR, the small-dims K1 timed
+    at the paths that run it (``time_generic_backward``); then the generic
+    form beside the unrolled one at HVAC-6 and E1's shape. Returns its
     figures."""
     import torch
 
@@ -4035,6 +4145,9 @@ def slice_generic(phase, timings, errs, launches_by_path, plain_s, card):
             "auto_layout": layout}
         if label == "double_integrator":
             figures["double_integrator_vs_lqr"] = di_lqr_check(res, x0, Tn)
+        if backward == "riccati_backward_small":
+            time_generic_backward(label, Bn, Tn, timings, errs,
+                                  f"{backward}_{label}")
     figures["generic_vs_unrolled"] = generic_vs_unrolled(card)
     phase.done("29. the generic form of K2, K3 and K5")
     return figures
@@ -4182,23 +4295,66 @@ def ddp_mid_inputs(case, dims, dtype, Bn, Tn):
             second_derivatives(env, X, U), 8)
 
 
+def hessians_either_way(label, a, dims, dtype):
+    """The small-dims K6a on ``riccati_mid.mid_layout``'s tensors ``a``
+    with its Hessians staged and read in place, at the launch plan's
+    scenarios a block (``small_launch_plan`` picks one of the two by the
+    waves they take; fewer, in whole warps, where the staged ones would
+    not fit a block): the same arithmetic on the same values, so every
+    output, NaN where a lane failed, must be equal bit for bit."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati_mid as rm, riccati_small as rs
+
+    n, m = dims
+    Bn = a["mu"].shape[0]
+    plan = rs.small_launch_plan(n, m, Bn, dtype, True, False,
+                                rm._sm_count(torch.device("cuda")))
+    nbytes = functools.partial(rs.small_smem_bytes, n, m, dtype, True,
+                               box=False)
+    spb, warp = plan.scenarios, 32 // plan.groups
+    while spb > warp and nbytes(spb, stage_h=True) > rm.SMEM_LIMIT:
+        spb -= warp
+    outs = []
+    for stage_h in (True, False):
+        p = dataclasses.replace(plan, scenarios=spb,
+                                smem_bytes=nbytes(spb, stage_h=stage_h),
+                                stage_h=stage_h)
+        outs.append(rs.riccati_backward_small_ddp_kernel(
+            *(a[k] for k in rs.SMALL_DDP_ARGS), plan=p))
+    same = all(torch.equal(x.isnan(), y.isnan())
+               and torch.equal(x.nan_to_num(), y.nan_to_num())
+               for x, y in zip(*outs))
+    print(f"  {label} [{dname(dtype)}]: Hessians staged and read in place, "
+          f"{spb} scenarios a block (the plan: {plan.scenarios}, "
+          f"{'staged' if plan.stage_h else 'in place'}), outputs equal bit "
+          f"for bit {same} (gate)")
+    if not same:
+        raise AssertionError(f"{label}: the Hessians read in place give "
+                             "other outputs than staged")
+
+
 def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
                  errs=None, name_suffix="", timed=("ddp", "ddp_boxqp")):
-    """Full DDP at n, m <= 12 outside the lane dims: K7's full-DDP variant
-    (K6a's contract) and the small-dims kernel's K6b (``ops/
-    riccati_small.py``, which the solver routes full DDP with boxQP to)
-    through their wrappers, which must launch them, against their plain
-    versions on ``ddp_mid_inputs(case, dims)`` (``DDP_MID_RAGGED`` by
-    default, each plan checked to leave the last block part-full) with
-    five lanes forced indefinite: ``hold_backward``'s gates (identical ok
-    masks and the ok lanes within tolerance in float64, the boxQP
-    variant's share gate on an env's inputs set by the plain version's own
-    agreement across the card and the CPU; the float32 share rule against
-    the float64 plain version). With ``timings``: kernel (graph replays),
-    wrapper and plain times and the bounds (the Hessians' bytes counted)
-    of the ``timed`` variants on the unforced inputs, under
-    ``riccati_backward_mid_ddp`` or ``riccati_backward_small_ddp_boxqp`` +
-    ``name_suffix``."""
+    """Full DDP at n, m <= 12 outside the lane dims: the small-dims kernel's
+    K6a and K6b (``ops/riccati_small.py``, which the solver routes full
+    DDP to, without and with boxQP) through their wrappers, which must
+    launch them, against their plain versions on ``ddp_mid_inputs(case,
+    dims)`` (``DDP_MID_RAGGED`` by default, each plan checked to leave the
+    last block part-full; on the synthetic inputs there K7's full-DDP
+    variant too, on no solver path since the small-dims K6a) with five
+    lanes forced indefinite: ``hold_backward``'s gates (identical ok masks
+    and the ok lanes within tolerance in float64, the boxQP variant's
+    share gate on an env's inputs set by the plain version's own agreement
+    across the card and the CPU; the float32 share rule against the
+    float64 plain version). With ``timings``: K6a's Hessians staged and
+    read in place bit for bit where it is ``timed`` (``hessians_either_way``,
+    at the paths' shapes only), and kernel (graph replays, in
+    turns with K7's variant of the same contract where it has one,
+    ``small_vs_k7``), wrapper and plain times and the bounds (the
+    Hessians' bytes counted) of the ``timed`` variants on the unforced
+    inputs, under ``riccati_backward_small_ddp`` or
+    ``riccati_backward_small_ddp_boxqp`` + ``name_suffix``."""
     import torch
 
     from tfmpc_tpu_torch.ops import riccati_mid as rm, riccati_small as rs
@@ -4208,12 +4364,17 @@ def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
     label, lin, quad, final, mu, bounds, U, second, iters = ddp_mid_inputs(
         case, dims, dtype, Bn, Tn)
     label = f"DDP {label} (n, m) = {dims} B={Bn} T={Tn}"
-    plan = rm.mid_plan(n, m, Bn, dtype)
-    splan = rs.small_plan(n, m, Bn, dtype, True)
-    for who, spb, how in (
-            ("K7", plan.scenarios, f"{plan.warps} warp(s) a team"),
-            ("small-dims K6b", splan.scenarios,
-             f"{splan.groups} lanes a scenario")):
+    plans = []
+    sms = rm._sm_count(torch.device("cuda"))
+    for with_box in (False, True):
+        sp = rs.small_launch_plan(n, m, Bn, dtype, True, with_box, sms)
+        plans.append((f"small-dims {'K6b' if with_box else 'K6a'}",
+                      sp.scenarios, f"{sp.groups} lanes a scenario"))
+    k7_checked = case == "synthetic" and timings is None
+    if k7_checked:
+        plan = rm.mid_plan(n, m, Bn, dtype)
+        plans.append(("K7", plan.scenarios, f"{plan.warps} warp(s) a team"))
+    for who, spb, how in plans:
         tail = Bn - (-(-Bn // spb) - 1) * spb
         print(f"  {label} {dname(dtype)}: {who} plan {how}, {spb} a block, "
               f"{tail} in the last block")
@@ -4225,15 +4386,17 @@ def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
     args64 = (to64(lin), to64(quad_b), to64(final), mu_b.double())
     box, box64 = (bounds, U), (to64(bounds), U.double())
     sec64 = to64(second)
-    for variant in ("ddp", "ddp_boxqp"):
-        if variant == "ddp":
-            mod, counter = rm, "MID_DDP_LAUNCHES"
-            run = lambda: rm.riccati_backward_mid_ddp(  # noqa: E731
-                *args, second)
-            plain = lambda st: rm.riccati_backward_mid_ddp_ref(  # noqa
-                *args, second)
-            ref64 = lambda: rm.riccati_backward_mid_ddp_ref(  # noqa: E731
-                *args64, sec64)
+    for variant in ("ddp", "ddp_boxqp") + (("k7_ddp",) if k7_checked
+                                           else ()):
+        if variant in ("ddp", "k7_ddp"):
+            mod, counter, wrapper, ref_fn = (
+                (rs, "SMALL_DDP_LAUNCHES", rs.riccati_backward_small_ddp,
+                 rs.riccati_backward_small_ddp_ref) if variant == "ddp" else
+                (rm, "MID_DDP_LAUNCHES", rm.riccati_backward_mid_ddp,
+                 rm.riccati_backward_mid_ddp_ref))
+            run = lambda: wrapper(*args, second)  # noqa: E731
+            plain = lambda st: ref_fn(*args, second)  # noqa: E731
+            ref64 = lambda: ref_fn(*args64, sec64)  # noqa: E731
             plain_cpu = None
         else:
             mod, counter = rs, "SMALL_DDP_BOXQP_LAUNCHES"
@@ -4256,19 +4419,27 @@ def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
                                  f"launch its kernel ({counter})")
         if timings is None or variant not in timed:
             continue
+        if variant == "ddp":
+            hessians_either_way(f"{label} {variant}", rm.mid_layout(
+                lin, quad_b, final, mu_b, second=second), dims, dtype)
         a = rm.mid_layout(lin, quad, final, mu, bounds, U, second)
         if variant == "ddp":
-            name = "riccati_backward_mid_ddp"
+            name = "riccati_backward_small_ddp"
             work = k6a_work(Bn, Tn, n, m, 4)
-            kargs = [a[k] for k in rm.MID_DDP_ARGS]
-            launch = lambda: rm.riccati_backward_mid_ddp_kernel(  # noqa
+            kargs = [a[k] for k in rs.SMALL_DDP_ARGS]
+            launch = lambda: rs.riccati_backward_small_ddp_kernel(  # noqa
                 *kargs)
-            wrap = lambda: rm.riccati_backward_mid_ddp(  # noqa: E731
+            wrap = lambda: rs.riccati_backward_small_ddp(  # noqa: E731
                 lin, quad, final, mu, second)
-            ref = lambda: rm.riccati_backward_mid_ddp_ref(  # noqa: E731
+            ref = lambda: rs.riccati_backward_small_ddp_ref(  # noqa: E731
                 lin, quad, final, mu, second)
-            how = f"plan {plan.warps} warp(s) x " \
-                f"{rm.mid_plan(n, m, Bn, torch.float32).scenarios}"
+            k7args = [a[k] for k in rm.MID_DDP_ARGS]
+            k7 = lambda: rm.riccati_backward_mid_ddp_kernel(  # noqa: E731
+                *k7args)
+            sp = rs.small_launch_plan(n, m, Bn, torch.float32, True, False,
+                                      sms)
+            how = (f"plan {sp.groups} lanes x {sp.scenarios}, Hessians "
+                   f"{'staged' if sp.stage_h else 'in place'}")
         else:
             stats = {}
             rs.riccati_backward_small_ddp_boxqp_ref(
@@ -4282,12 +4453,15 @@ def check_k7_ddp(case, dims, dtype, Bn=None, Tn=None, timings=None,
                 lin, quad, final, mu, bounds, U, second, iters)
             ref = lambda: rs.riccati_backward_small_ddp_boxqp_ref(  # noqa
                 lin, quad, final, mu, bounds, U, second, iters)
-            sp = rs.small_plan(n, m, Bn, torch.float32, True)
+            sp = rs.small_launch_plan(n, m, Bn, torch.float32, True, True,
+                                      sms)
             how = f"plan {sp.groups} lanes x {sp.scenarios}"
         key = name + name_suffix
         errs[key] = err
-        timings[key] = (graph_ms(launch, 5), cuda_ms(wrap, 5),
-                        cuda_ms(ref, 1), bound(*work))
+        k_ms = small_vs_k7(key, launch, k7) if variant == "ddp" \
+            else graph_ms(launch, 5)
+        timings[key] = (k_ms, cuda_ms(wrap, 5), cuda_ms(ref, 1),
+                        bound(*work))
         b64, by64 = bound(*work, "float64")
         k_ms = timings[key][0]
         b_ms, b_by = timings[key][3]
@@ -4365,8 +4539,8 @@ def check_k8_generic(case, dtype, Bn=None, Tn=None, timings=None,
 
 
 def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
-    """The backward as the fused iteration runs it at a G4/G5 shape (K7's
-    iLQR variant, or with ``boxqp`` the small-dims boxQP kernel), on the
+    """The backward as the fused iteration runs it at a G4/G5 shape (the
+    small-dims K1, or with ``boxqp`` its K4), on the
     blocks of a random nominal of ``phase30_env(case)`` in the kernel
     layout: ``riccati.riccati_backward_lanes`` (the kernel through the
     layout round trip) must give the kernel's own wrapper's outputs on the
@@ -4374,8 +4548,8 @@ def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
     difference from the plain version in float64 (the kernels compute in
     double) on the lanes ok in both is printed. Timed under ``key``: the
     raw launch (graph replays; the small-dims kernel in turns with K7's
-    boxQP variant, ``small_vs_k7``), the kernel-layout wrapper and the
-    plain version."""
+    iLQR or boxQP variant, ``small_vs_k7``), the kernel-layout wrapper and
+    the plain version."""
     import torch
 
     from tfmpc_tpu_torch.ops import riccati, riccati_mid as rm, rollout
@@ -4407,13 +4581,13 @@ def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
         work = k4_work(Bn, Tn, n, m, 4, stats["newton_iterations"])
         own = lambda: wrapper(lin, quad, final, mu, env.bounds, U)  # noqa
     else:
-        name = "riccati_backward_mid"
-        launch = lambda: rm.riccati_backward_mid_kernel(  # noqa: E731
-            *(a[k] for k in rm.MID_ARGS))
-        ref = lambda: rm.riccati_backward_mid_ref(lin, quad, final, mu)  # noqa
-        ref64 = lambda: rm.riccati_backward_mid_ref(*args64)  # noqa: E731
+        name, _, wrapper, ilqr_ref, ilqr_launch, ilqr_args = ilqr_kernel(n,
+                                                                       m)
+        launch = lambda: ilqr_launch(*(a[k] for k in ilqr_args))  # noqa
+        ref = lambda: ilqr_ref(lin, quad, final, mu)  # noqa: E731
+        ref64 = lambda: ilqr_ref(*args64)  # noqa: E731
         work = k1_work(Bn, Tn, n, m, 4)
-        own = lambda: rm.riccati_backward_mid(lin, quad, final, mu)  # noqa
+        own = lambda: wrapper(lin, quad, final, mu)  # noqa: E731
     wrap = lambda: riccati.riccati_backward_lanes(ka, VT, vT, mu, box)  # noqa
     ok_k, pol_lane, dv1_k, dv2_k = wrap()
     pol_k = rollout.policy_from_lanes(pol_lane)
@@ -4438,6 +4612,10 @@ def time_k7_lanes(case, Bn, Tn, boxqp, timings, errs, key):
         k7args = [a[k] for k in rm.MID_BOXQP_ARGS]
         k_ms = small_vs_k7(key, launch, lambda: (  # noqa: E731
             rm.riccati_backward_mid_boxqp_kernel(*k7args)))
+    elif name == "riccati_backward_small":
+        k7args = [a[k] for k in rm.MID_ARGS]
+        k_ms = small_vs_k7(key, launch, lambda: (  # noqa: E731
+            rm.riccati_backward_mid_kernel(*k7args)))
     else:
         k_ms = graph_ms(launch, 5)
     timings[key] = (k_ms, cuda_ms(wrap, 5), cuda_ms(ref, 1), bound(*work))
@@ -4467,8 +4645,8 @@ def phase30_kinds(env, config, horizon):
 
 
 def d5_oracle_check(horizon):
-    """D5's first ``D5_ORACLE_B`` scenarios in float64 through K7's DDP
-    variant and the generic rollouts (counted) against the fp64 NumPy
+    """D5's first ``D5_ORACLE_B`` scenarios in float64 through the
+    small-dims K6a and the generic rollouts (counted) against the fp64 NumPy
     navigation oracle: converged, controls within 1e-4 max-abs."""
     import numpy as np
     import torch
@@ -4599,7 +4777,7 @@ def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
             "iteration": "fused" if fused else "split"}
         if label == "double_integrator_ddp":
             figures["double_integrator_ddp_vs_lqr"] = di_lqr_check(
-                res, x0, Tn, DDP_HEADLINE, "riccati_backward_mid_ddp")
+                res, x0, Tn, DDP_HEADLINE)
         if label == "d5_nav12_ddp":
             figures["d5_oracle_dev"] = d5_oracle_check(Tn)
         runs[label] = (run, Bn, Tn, solve_s)
@@ -5609,10 +5787,16 @@ def main() -> int:
             sources[f"{wrapper}_generic_{label}"] = (
                 generic_cu, tpu, f"generic_{label}_{layout}",
                 f"{wrapper}_generic")
-    # phase 30: K7's DDP variant (K6a's contract) and the small-dims K6b on
-    # the DDP paths, and on the fused ones the generic K8 and the backward
-    # in the kernel layout (K7's iLQR variant, the small-dims K4)
-    tpu_of = {"riccati_backward_mid_ddp": "riccati_pallas.py:545",
+        # the small-dims K1 at the paths it runs (counted in the emit solve)
+        if f"riccati_backward_small_{label}" in timings:
+            sources[f"riccati_backward_small_{label}"] = (
+                small_cu, "tfmpc_tpu/ops/riccati_pallas.py:520",
+                f"generic_{label}_emit", "riccati_backward_small")
+    # phase 30: the small-dims K6a and K6b on the DDP paths, and on the
+    # fused ones the generic K8 and the backward in the kernel layout (the
+    # small-dims K1 and K4)
+    tpu_of = {"riccati_backward_small": "riccati_pallas.py:520",
+              "riccati_backward_small_ddp": "riccati_pallas.py:545",
               "riccati_backward_small_ddp_boxqp": "riccati_pallas.py:564",
               "riccati_backward_small_boxqp": "riccati_pallas.py:585"}
     for label, (case, _, _, cfg) in {**DDP_MID_PATHS,

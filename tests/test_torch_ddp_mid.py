@@ -20,7 +20,9 @@ versions (counted), and the launch plan is checked as arithmetic.
   (``use_pallas=False``: its interpret-mode kernels at B padded to 128 take
   minutes on the CPU), the double integrator against its lane kernel in
   interpret mode; the boxQP solves' backward goes through the small-dims
-  K6b wrapper, the double integrator's through K7's. Identical converged and failed masks and iteration
+  K6b wrapper, the double integrator's through its K6a (K7's DDP variant
+  until the small-dims kernel had one), none through K7's. Identical
+  converged and failed masks and iteration
   counts, actions within 1e-6 and costs within 1e-9 (the tolerances of
   ``tests/test_torch_ddp.py``'s solves).
 - K7's plan at every n, m <= 12, both dtypes, fits a block: the DDP
@@ -186,8 +188,8 @@ SOLVES = {
 def test_ddp_solve_batch_at_mid_dims_matches_jax(label):
     """``solve_batch(ddp=True, use_pallas=True)`` in float64 at dims without
     a lane instantiation: the backward goes through the small-dims K6b
-    wrapper with boxQP and K7's full-DDP wrapper without (their plain
-    versions on the CPU), never the lane kernels', and the solve matches the
+    wrapper with boxQP and its K6a wrapper without (their plain versions
+    on the CPU), never K7's or the lane kernels', and the solve matches the
     JAX package's with the same config."""
     cfg, lohi, Bs, Ts, kw, jax_pallas = SOLVES[label]
     tenv = make_env(cfg, dtype=torch.float64, device="cpu")
@@ -198,15 +200,19 @@ def test_ddp_solve_batch_at_mid_dims_matches_jax(label):
     res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=Ts,
                               config=jilqr.ILQRConfig(**kw, ddp=True,
                                                       use_pallas=jax_pallas))
-    lane = (riccati.DDP_PLAIN_CALLS, riccati.DDP_BOXQP_PLAIN_CALLS)
-    before = _counts()
+    others = (riccati.DDP_PLAIN_CALLS, riccati.DDP_BOXQP_PLAIN_CALLS,
+              riccati_mid.MID_DDP_PLAIN_CALLS)
+    counts = lambda: (riccati_small.SMALL_DDP_PLAIN_CALLS,  # noqa: E731
+                      riccati_small.SMALL_DDP_BOXQP_PLAIN_CALLS)
+    before = counts()
     res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=Ts,
                              config=ilqr.ILQRConfig(**kw, ddp=True,
                                                     use_pallas=True))
-    calls = [x - y for x, y in zip(_counts(), before)]
+    calls = [x - y for x, y in zip(counts(), before)]
     boxqp = kw.get("boxqp", False) and tenv.bounds is not None
     assert calls[1 if boxqp else 0] > 0 and calls[0 if boxqp else 1] == 0
-    assert (riccati.DDP_PLAIN_CALLS, riccati.DDP_BOXQP_PLAIN_CALLS) == lane
+    assert (riccati.DDP_PLAIN_CALLS, riccati.DDP_BOXQP_PLAIN_CALLS,
+            riccati_mid.MID_DDP_PLAIN_CALLS) == others
     for f in ("converged", "failed", "iterations"):
         np.testing.assert_array_equal(getattr(res_t, f).numpy(),
                                       np.asarray(getattr(res_j, f)),

@@ -275,8 +275,9 @@ def test_fused_backward_at_mid_dims_runs_k7_on_the_card_route():
     """``riccati.riccati_backward_lanes`` at dims without a lane
     instantiation: on the CPU its plain version through the solver layout
     (counted as K1's plain calls, as at the lane dims), equal to K7's
-    wrapper on the same values; K7's launchers are the card's route there
-    and refuse CPU tensors."""
+    wrapper on the same values (the same plain version as the small-dims
+    K1's); the launcher of the card's route there (the small-dims K1
+    since it had that variant, K7's before) refuses CPU tensors."""
     _, tenv = _nav(7)
     X, U, _, _ = _k8_inputs(tenv, 6, 5, 3)
     ka = ilqr_batched._initial_kargs(tenv, X, U)

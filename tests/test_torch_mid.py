@@ -351,18 +351,20 @@ def test_kernel_mode_routes_lane_mid_and_raises():
     for dims in ((16, 16), (14, 13), (48, 48)):
         assert mode(*dims, cfg, "cuda") == "mid"
         assert mode(*dims, cfg, "cpu") == "mid"
-    # without boxQP those dims run K7's iLQR variant
+    # without boxQP those dims run the small-dims kernel's K1, above 12
+    # K7's iLQR variant
     ilqr_cfg = dataclasses.replace(cfg, boxqp=False)
-    for dims in ((12, 12), (4, 4), (2, 1), (16, 16)):
-        assert mode(*dims, ilqr_cfg, "cuda") == "mid"
-    # full DDP with boxQP at n, m <= 12 without a lane instantiation, where
-    # the JAX lane kernel runs it: the small-dims kernel's K6b, on every
-    # device; without boxQP, K7's full-DDP variant
+    for dims in ((12, 12), (4, 4), (2, 1)):
+        assert mode(*dims, ilqr_cfg, "cuda") == "small"
+    assert mode(16, 16, ilqr_cfg, "cuda") == "mid"
+    # full DDP at n, m <= 12 without a lane instantiation, where the JAX
+    # lane kernel runs it: the small-dims kernel's K6b with boxQP and its
+    # K6a without, on every device
     for dims in ((12, 12), (4, 4), (7, 3), (2, 1), (1, 12)):
         assert mode(*dims, ddp, "cuda") == "small"
         assert mode(*dims, ddp, "cpu") == "small"
         assert mode(*dims, dataclasses.replace(ddp, boxqp=False),
-                    "cuda") == "mid"
+                    "cuda") == "small"
     # where the JAX package runs its vmapped scan by design (DDP above 12,
     # any dims above 48), the plain backward runs on the card too
     assert mode(16, 16, ddp, "cuda") is None

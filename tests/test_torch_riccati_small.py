@@ -24,8 +24,10 @@ tensor exists on the CPU, so here the wrappers run their plain versions
   masks, K, k, dV1, dV2 within 1e-9 on the ok lanes;
 - one ``solve_batch`` of reservoir-4 with full DDP and boxQP at B=130 (the
   compacted restarts run) against the JAX package's solve;
-- ``ilqr_batched._BACKWARD``: the small-dims wrappers for the boxQP keys
-  of their family, every other key the wrapper it had; the fused
+- ``ilqr_batched._BACKWARD``: the small-dims wrappers for every key of
+  their family (the unconstrained ones since they have kernels of their
+  own, ``tests/test_torch_riccati_small_ilqr.py``), every other key the
+  wrapper it had; the fused
   iteration's ``riccati_backward_lanes`` with a box launches the
   small-dims K4 at n, m <= 12 and K7's boxQP variant above (the launchers
   stubbed).
@@ -92,7 +94,8 @@ def test_small_plan_fits_every_dim(dtype, ddp):
     and 2048 the plan's lanes are the smallest power of two >= max(n, m)
     (2 at least, 16 at most), its block holds at most SMALL_MAX_THREADS
     threads and SMEM_LIMIT shared bytes, its bytes are
-    ``small_smem_bytes``', and each scenario gets one group."""
+    ``small_smem_bytes``' (with the Hessians staged or in place, as the
+    plan says), and each scenario gets one group."""
     dtype = DTYPES[dtype]
     for n, m in SMALL_DIMS:
         G = riccati_small.small_groups(n, m)
@@ -103,7 +106,7 @@ def test_small_plan_fits_every_dim(dtype, ddp):
             assert plan.groups == G
             assert plan.threads <= riccati_small.SMALL_MAX_THREADS
             assert plan.smem_bytes == riccati_small.small_smem_bytes(
-                n, m, dtype, ddp, plan.scenarios)
+                n, m, dtype, ddp, plan.scenarios, stage_h=plan.stage_h)
             assert plan.smem_bytes <= riccati_mid.SMEM_LIMIT
             cover = riccati_small.small_cover(plan, Bb)
             assert cover.shape == (Bb,) and (cover == 1).all(), (n, m, Bb)
@@ -386,16 +389,18 @@ def test_reservoir4_ddp_boxqp_solve_matches_jax():
 
 def test_backward_table_routes_boxqp_at_small_dims():
     """``_BACKWARD``: the small-dims wrappers for boxQP with and without
-    full DDP in their family, K7's iLQR and DDP wrappers for its batches
-    without a box, and the lane and K7 families' wrappers as before."""
+    full DDP in their family, and for its batches without a box its own
+    K1 and K6a wrappers (K7's iLQR and DDP wrappers until the kernel had
+    those variants), and the lane and K7 families' wrappers as before."""
     table = ilqr_batched._BACKWARD
     assert table["small", False, True] is \
         riccati_small.riccati_backward_small_boxqp
     assert table["small", True, True] is \
         riccati_small.riccati_backward_small_ddp_boxqp
-    assert table["small", False, False] is riccati_mid.riccati_backward_mid
+    assert table["small", False, False] is \
+        riccati_small.riccati_backward_small
     assert table["small", True, False] is \
-        riccati_mid.riccati_backward_mid_ddp
+        riccati_small.riccati_backward_small_ddp
     lane = (riccati.riccati_backward, riccati.riccati_backward_boxqp,
             riccati.riccati_backward_ddp, riccati.riccati_backward_ddp_boxqp)
     mid = (riccati_mid.riccati_backward_mid,

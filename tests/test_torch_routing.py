@@ -182,16 +182,17 @@ def test_uncovered_rollout_dims_raise_naming_queue_2(n, kind):
 def test_ddp_at_lane_dims_without_a_kernel_raises_naming_queue_2():
     """Full DDP at n, m <= 12 outside the lane kernels' dims, where the JAX
     lane kernel runs it and the port raised until it had K7's full-DDP
-    variants (ROADMAP queue 2 item 2, done): it routes to K7's on a card,
-    every such dim, and with boxQP to the small-dims kernel's K6b; above
-    12 the plain backward, the JAX scan's route."""
+    variants (ROADMAP queue 2 item 2, done): it routes to the small-dims
+    kernel on a card, every such dim, its K6a without boxQP (K7's until
+    that kernel had the variant) and its K6b with; above 12 the plain
+    backward, the JAX scan's route."""
     ddp = ilqr.ILQRConfig(use_pallas=True, ddp=True)
     ddp_box = ilqr.ILQRConfig(use_pallas=True, ddp=True, boxqp=True)
     for n in range(1, 13):
         for m in range(1, 13):
             lane = (n, m) in riccati.KERNEL_DIMS
             assert ilqr_batched._riccati_kernel_mode(
-                n, m, ddp, "cuda") == ("lane" if lane else "mid")
+                n, m, ddp, "cuda") == ("lane" if lane else "small")
             # with boxQP the small-dims kernel's K6b (ops/riccati_small.py)
             assert ilqr_batched._riccati_kernel_mode(
                 n, m, ddp_box, "cuda") == ("lane" if lane else "small")

@@ -71,11 +71,18 @@ _SIGNATURES = {
     + [_LL, _P],
     # K4 and K6b at small dims (riccati_small.cu, riccati_small_ddp.cu):
     # as K7's boxQP entries up to fail, then the plan (lanes a scenario,
-    # scenarios a block, shared bytes) and the stream
+    # scenarios a block, Hessians staged, shared bytes) and the stream
     "tfmpc_riccati_backward_small_boxqp": [_I] * 6 + [_P] * 18
-    + [_I, _I, _LL, _P],
+    + [_I] * 3 + [_LL, _P],
     "tfmpc_riccati_backward_small_ddp_boxqp": [_I] * 6 + [_P] * 21
-    + [_I, _I, _LL, _P],
+    + [_I] * 3 + [_LL, _P],
+    # K1 and K6a at small dims (riccati_small_ilqr.cu,
+    # riccati_small_ddp_ilqr.cu): as K7's iLQR and DDP entries up to fail,
+    # then the small-dims plan and the stream
+    "tfmpc_riccati_backward_small": [_I] * 5 + [_P] * 15
+    + [_I] * 3 + [_LL, _P],
+    "tfmpc_riccati_backward_small_ddp": [_I] * 5 + [_P] * 18
+    + [_I] * 3 + [_LL, _P],
     # P1 (row_matmul.cu): dtype, d, B, A, M, C, tile rows, tile columns,
     # stream
     "tfmpc_row_matmul": [_I] * 3 + [_P] * 3 + [_I, _I, _P],
@@ -215,9 +222,14 @@ def library() -> ctypes.CDLL:
     # dtype, n, m, scenarios per block, stage_l
     lib.tfmpc_riccati_mid_smem_bytes.argtypes = [_I] * 5
     lib.tfmpc_riccati_mid_smem_bytes.restype = ctypes.c_longlong
-    # dtype, ddp, n, m, scenarios per block
-    lib.tfmpc_riccati_small_smem_bytes.argtypes = [_I] * 5
+    # dtype, box, ddp, n, m, scenarios per block, Hessians staged
+    lib.tfmpc_riccati_small_smem_bytes.argtypes = [_I] * 7
     lib.tfmpc_riccati_small_smem_bytes.restype = ctypes.c_longlong
+    # dtype, n, m, the plan (lanes a scenario, scenarios a block, Hessians
+    # staged, shared bytes): the blocks of K6a's plan an SM holds
+    lib.tfmpc_riccati_small_ddp_ilqr_blocks_per_sm.argtypes = [_I] * 6 \
+        + [_LL]
+    lib.tfmpc_riccati_small_ddp_ilqr_blocks_per_sm.restype = ctypes.c_int
     # n, m
     lib.tfmpc_riccati_small_groups.argtypes = [_I] * 2
     lib.tfmpc_riccati_small_groups.restype = ctypes.c_int

@@ -1,33 +1,40 @@
-// K4 and K6b at every 1 <= n, m <= 12 outside the lane kernels' dims: the
-// batched control-limited (boxQP) Riccati backward pass, with (kDdp) or
-// without the full-DDP terms, float32 and float64 inputs, computed in
-// double.
+// K1, K4, K6a and K6b at every 1 <= n, m <= 12 outside the lane kernels'
+// dims: the batched Riccati backward pass, unconstrained or control-limited
+// (kBox: the boxQP gains), with (kDdp) or without the full-DDP terms,
+// float32 and float64 inputs, computed in double.
 //
-// Replaces: tfmpc_tpu/ops/riccati_pallas.py:_riccati_pallas_raw with
-// boxqp_iters > 0 (adapters riccati_backward_boxqp_pallas :585 and
-// riccati_backward_ddp_boxqp_pallas :564; body _kernel /
-// _riccati_step_math's boxQP branch and DDP terms :306-324 /
+// Replaces: tfmpc_tpu/ops/riccati_pallas.py:_riccati_pallas_raw (adapters
+// riccati_backward_pallas :520, riccati_backward_ddp_pallas :545,
+// riccati_backward_boxqp_pallas :585 and riccati_backward_ddp_boxqp_pallas
+// :564; body _kernel / _riccati_step_math :260-386: its DDP terms
+// :306-324, its unconstrained branch :346-352 and its boxQP branch /
 // _boxqp_lane), which the JAX package runs at every n, m <= 12
 // (tfmpc_tpu/solvers/ilqr_batched.py lane_limit).
 //
 // This header holds the kernel and its launch; riccati_small.cu
-// instantiates the boxQP variant (K4) and riccati_small_ddp.cu the full-DDP
-// one (K6b), so the parallel build compiles them side by side.
+// instantiates the boxQP variant (K4), riccati_small_ddp.cu the full-DDP
+// boxQP one (K6b), riccati_small_ilqr.cu the unconstrained one (K1) and
+// riccati_small_ddp_ilqr.cu the full-DDP unconstrained one (K6a), so the
+// parallel build compiles them side by side.
 //
 // Per scenario and step t = T-1 .. 0, as K7 (riccati_mid.cuh): W = V f_x,
 // W_u = V f_u; Q_x, Q_u, Q_xx, Q_uu, Q_ux and the regularized QuuR, QuxR
 // (V + mu I); with kDdp the contractions t_xx = sum_p v_p f_xx[p], t_ux,
 // t_uu added to the Q blocks, and mu I_m on QuuR; the PD probe of QuuR;
+// without kBox, k = -QuuR^-1 Q_u and K = -QuuR^-1 QuxR, the n + 1
+// right-hand sides solved against the probe's own factor; with kBox
 // the projected-Newton boxQP on (QuuR, Q_u) within [lo - ubar_t, hi -
 // ubar_t] (ops/boxqp.py's constants: gradient tolerance 1e-8, alphas 2^-i
 // for i < 8, the first candidate that improves the objective by more than
 // 1e-12, a problem that converged or found nothing frozen); K rows through
-// the final free set's factor (clamped rows 0), k = x; dV1/dV2 from the
-// unregularized Q_u, Q_uu; V' = Q_xx + K^T Q_uu K + K^T Q_ux + Q_ux^T K,
+// the final free set's factor (clamped rows 0), k = x; then dV1/dV2 from
+// the unregularized Q_u, Q_uu; V' = Q_xx + K^T Q_uu K + K^T Q_ux + Q_ux^T K,
 // symmetrized, and v'. Every pivot is clamped at 1e-30 and a pivot <= 0 or
 // non-finite sets the lane's fail flag (the probe's and the final free
 // set's), as K7 does: the plain version lets NaN propagate instead, which
-// differs only on lanes whose PD probe already failed.
+// differs only on lanes whose PD probe already failed. Without kBox the
+// probe is the one factorization: no Newton step, no line search, no
+// ubar, lo or hi staged or read, and no candidates in the workspace.
 //
 // What bounds it on this card: at D4's shape (the 12-room ring, n = m =
 // 12, B = 512, T = 50, f32) a step reads 5,940 values a scenario, most of
@@ -84,7 +91,14 @@
 //   lane 0 counted on the group's mbarrier, a smaller one 16 bytes a copy
 //   by the group's lanes (cp.async), an unaligned one an element a copy.
 //   The contractions read the Hessians from the slot in ascending p, each
-//   lane its column, each entry its own accumulator.
+//   lane its column, each entry its own accumulator. Without the box
+//   (K6a), where reading the Hessians in place takes fewer waves of blocks
+//   than staging them, at the blocks an SM holds as the runtime computes
+//   them for the kernel (small_blocks_per_sm; D5: n = m = 12, B = 1024
+//   took two staged), the plan reads them in place (``stage_h`` 0;
+//   ops/riccati_small.py small_launch_plan): the group's lanes prefetch
+//   step t-1's into L2 where they would have staged them, and the
+//   contraction loads them from global memory. K6b always stages them.
 //
 // Every sum keeps K7's order where it has one (each product's entries in
 // ascending index order, the DDP terms added after the first-order terms,
@@ -95,17 +109,19 @@
 // they are read, outputs rounded once), as K7: the float32 boxQP backward
 // is ill-conditioned at HVAC-12.
 //
-// Shared memory: a scenario's workspace of small_work_doubles(G) doubles
-// (V, Q_xx then the unsymmetrized V', Q_uu, QuuR then the factor, Q_ux,
-// QuxR then K, f_x, f_u, W then A1, W_u, rows padded to L = D | 1; two
-// sets of nine candidates; six vectors; the mbarrier), then its staging
-// slot in the input type, each array padded to 16 bytes and the slot so
-// that neighbouring groups' slots start G elements apart in the bank
-// cycle (SmallStage). The workspace starts at zero and only entries inside
-// (n, m) are written, so every loop runs to D with no branch: the rows and
-// columns past n, m add 0. Layout: the solver's own [B, T, ...]
-// (scenario-major), read in place, as K7.
+// Shared memory: a scenario's workspace of small_work_doubles(G, box)
+// doubles (V, Q_xx then the unsymmetrized V', Q_uu, QuuR then the factor,
+// Q_ux, QuxR then K, f_x, f_u, W then A1, W_u, rows padded to L = D | 1;
+// with the box two sets of nine candidates; six vectors; the mbarrier),
+// then its staging slot in the input type, each array padded to 16 bytes
+// and the slot so that neighbouring groups' slots start G elements apart
+// in the bank cycle (SmallStage). The workspace starts at zero and only
+// entries inside (n, m) are written, so every loop runs to D with no
+// branch: the rows and columns past n, m add 0. Layout: the solver's own
+// [B, T, ...] (scenario-major), read in place, as K7.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "warp.cuh"
@@ -125,10 +141,11 @@ __host__ __device__ constexpr int small_dim(int G) {
 __host__ __device__ constexpr int small_ld(int G) { return small_dim(G) | 1; }
 
 // Doubles in a scenario's workspace (odd, so neighbouring groups' copies of
-// one entry fall in different banks).
-__host__ __device__ constexpr int small_work_doubles(int G) {
-  return (10 * small_dim(G) * small_ld(G) + 2 * kSmallCands * small_dim(G) +
-          6 * small_dim(G) + 1) |
+// one entry fall in different banks); the line search's candidates only
+// with the box.
+__host__ __device__ constexpr int small_work_doubles(int G, bool box = true) {
+  return (10 * small_dim(G) * small_ld(G) +
+          (box ? 2 * kSmallCands * small_dim(G) : 0) + 6 * small_dim(G) + 1) |
          1;
 }
 
@@ -160,7 +177,10 @@ constexpr int kSmallBulkMin = 512;
 struct SmallStage {
   int fx, fu, lx, lu, lxx, luu, lux, ubar, fxx, fux, fuu, elems;
   unsigned bulk = 0, vec = 0, bulk_bytes = 0;
-  SmallStage(int n, int m, size_t s_bytes, bool ddp) {
+  bool hess;  // the Hessians staged (with ddp), else read in place
+  SmallStage(int n, int m, size_t s_bytes, bool ddp, bool box = true,
+             bool stage_h = true)
+      : hess(ddp && stage_h) {
     int e = 0;
     auto take = [&](size_t count) {
       const int at = e;
@@ -177,10 +197,10 @@ struct SmallStage {
     lxx = take(nn);
     luu = take(mm);
     lux = take(nm);
-    ubar = take(m);
-    fxx = ddp ? take(nn * n) : e;
-    fux = ddp ? take(nm * n) : e;
-    fuu = ddp ? take(mm * n) : e;
+    ubar = box ? take(m) : e;
+    fxx = hess ? take(nn * n) : e;
+    fux = hess ? take(nm * n) : e;
+    fuu = hess ? take(mm * n) : e;
     // the slot's length is padded so that neighbouring groups' slots start
     // G elements apart in the 128-byte bank cycle (16 bytes at least): a
     // warp's lanes reading the same entry of their groups' slots hit
@@ -193,16 +213,21 @@ struct SmallStage {
   }
 };
 
-// A block's dynamic shared bytes: spb workspaces, then spb staging slots.
+// A block's dynamic shared bytes: spb workspaces, then spb staging slots
+// (``box``: the boxQP variants, else the unconstrained ones; ``stage_h``:
+// with ddp, the Hessians staged).
 inline long long small_smem_bytes(int n, int m, size_t s_bytes, bool ddp,
-                                  int spb) {
+                                  int spb, bool box = true,
+                                  bool stage_h = true) {
   const int G = small_groups(n, m);
   if (G == 0 || spb < 1) return -1;
-  const size_t work = (static_cast<size_t>(spb) * small_work_doubles(G) * 8 +
-                       15) / 16 * 16;
+  const size_t work =
+      (static_cast<size_t>(spb) * small_work_doubles(G, box) * 8 + 15) / 16 *
+      16;
   return static_cast<long long>(
       work + static_cast<size_t>(spb) *
-                 SmallStage(n, m, s_bytes, ddp).elems * s_bytes);
+                 SmallStage(n, m, s_bytes, ddp, box, stage_h).elems *
+                     s_bytes);
 }
 
 // Phase clocks, built only with TFMPC_SMALL_CLOCKS (tools/
@@ -210,8 +235,10 @@ inline long long small_smem_bytes(int n, int m, size_t s_bytes, bool ddp,
 // cycles of each phase of its steps, and the Newton iterations its warp
 // ran, into small_clocks: 5 the wait for the staged step, 6 f_x, f_u
 // widened, 7 W and W_u, 8 the Q blocks, 0 the box and the next staging,
-// 1 the PD probe, 2 the Newton iterations, 3 the final factor, K's solve
-// and dV, 4 the value update; 9 the iterations.
+// 1 the PD probe (without the box: the one factor, Q_u's forward
+// substitution fused in), 2 the Newton iterations (without the box: k's
+// back substitution), 3 the final factor, K's solve and dV, 4 the value
+// update; 9 the iterations.
 #ifdef TFMPC_SMALL_CLOCKS
 __device__ unsigned long long small_clocks[10];
 #define SMALL_CLOCK_START                  \
@@ -267,9 +294,26 @@ struct SmallGroup {
   }
 };
 
+// Prefetch ``count`` elements from ``p`` into L2, a 128-byte line a lane in
+// turn (the line of the last element too, for an unaligned array): with
+// the Hessians in place the contraction waits on their loads, and without
+// the prefetch a step ahead it waits longer (D5's shape on an H100).
+template <typename S, int G>
+__device__ __forceinline__ void small_prefetch(const SmallGroup<G>& g,
+                                               const S* p, int count) {
+  constexpr int kLine = 128 / static_cast<int>(sizeof(S));
+#pragma unroll 1
+  for (int e = g.lane * kLine; e < count + kLine; e += G * kLine) {
+    const S* q = p + (e < count ? e : count - 1);
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(q));
+  }
+}
+
 // Issue the copies of step bt's inputs into the group's staging slot (the
-// group's lanes take neighbouring elements).
-template <typename S, int G, bool kDdp>
+// group's lanes take neighbouring elements; ubar only with kBox; the
+// Hessians with kDdp, or where they are read in place, which only K6a
+// does, their prefetch).
+template <typename S, int G, bool kBox, bool kDdp>
 __device__ __forceinline__ void small_stage(
     const SmallGroup<G>& g, S* st, const SmallStage& o, int n, int m,
     int64_t bt, const S* fx, const S* fu, const S* lx, const S* lu,
@@ -300,11 +344,17 @@ __device__ __forceinline__ void small_stage(
   copy(4, st + o.lxx, lxx + bt * nn, nn);
   copy(5, st + o.luu, luu + bt * mm, mm);
   copy(6, st + o.lux, lux + bt * nm, nm);
-  copy(7, st + o.ubar, ubar + bt * m, m);
+  if constexpr (kBox) copy(7, st + o.ubar, ubar + bt * m, m);
   if constexpr (kDdp) {
-    copy(8, st + o.fxx, fxx + bt * nn * n, nn * n);
-    copy(9, st + o.fux, fux + bt * nm * n, nm * n);
-    copy(10, st + o.fuu, fuu + bt * mm * n, mm * n);
+    if (kBox || o.hess) {
+      copy(8, st + o.fxx, fxx + bt * nn * n, nn * n);
+      copy(9, st + o.fux, fux + bt * nm * n, nm * n);
+      copy(10, st + o.fuu, fuu + bt * mm * n, mm * n);
+    } else {
+      small_prefetch(g, fxx + bt * nn * n, nn * n);
+      small_prefetch(g, fux + bt * nm * n, nm * n);
+      small_prefetch(g, fuu + bt * mm * n, mm * n);
+    }
   }
   cp_async_commit();
 }
@@ -400,7 +450,7 @@ __device__ __forceinline__ double small_back(const SmallGroup<G>& g, int m,
   return y;
 }
 
-// ubar, lo, hi always (boxQP); fxx, fux, fuu null unless kDdp. Inputs and
+// ubar, lo, hi null unless kBox; fxx, fux, fuu null unless kDdp. Inputs and
 // outputs in the solver's layout, as K7's (riccati_mid.cuh). Group ``slot``
 // of block blockIdx.x takes scenario blockIdx.x * spb + slot.
 //
@@ -409,7 +459,7 @@ __device__ __forceinline__ double small_back(const SmallGroup<G>& g, int m,
 // entries inside (n, m) are ever written, so the rows and columns past
 // them stay 0 and add nothing (an index into a staged array is clamped
 // into it, and its value weighted by such a 0).
-template <typename S, bool kDdp, int G>
+template <typename S, bool kBox, bool kDdp, int G>
 __global__ void __launch_bounds__(kSmallMaxThreads) riccati_small_kernel(
     const S* __restrict__ fx, const S* __restrict__ fu,
     const S* __restrict__ lx, const S* __restrict__ lu,
@@ -423,7 +473,8 @@ __global__ void __launch_bounds__(kSmallMaxThreads) riccati_small_kernel(
     S* __restrict__ dV2_out, S* __restrict__ fail_out, int n, int m, int T,
     int B, int newton_iters, int spb, SmallStage so) {
   using C = double;
-  constexpr int D = small_dim(G), L = small_ld(G), W = small_work_doubles(G);
+  constexpr int D = small_dim(G), L = small_ld(G);
+  constexpr int W = small_work_doubles(G, kBox);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = static_cast<int>(threadIdx.x);
   const int slot = tid / G;
@@ -451,8 +502,8 @@ __global__ void __launch_bounds__(kSmallMaxThreads) riccati_small_kernel(
   C* Fu = w + 7 * D * L;
   C* Ws = w + 8 * D * L;  // W = V f_x, then A1 = Q_uu K
   C* Wus = w + 9 * D * L;  // W_u = V f_u
-  C* cand = w + 10 * D * L;  // [2][9][D]
-  C* vs = cand + 2 * kSmallCands * D;
+  C* cand = w + 10 * D * L;  // [2][9][D] with kBox
+  C* vs = cand + (kBox ? 2 * kSmallCands * D : 0);
   C* Qxs = vs + D;
   C* Qus = vs + 2 * D;
   C* ks = vs + 3 * D;
@@ -490,12 +541,17 @@ __global__ void __launch_bounds__(kSmallMaxThreads) riccati_small_kernel(
     vs[a] = C(vT[static_cast<int64_t>(b) * n + a]);
   }
   const C mu = C(mu_in[b]);
-  const C lo_box = uo ? C(lo_in[a]) : 0.0, hi_box = uo ? C(hi_in[a]) : 0.0;
+  C lo_box = 0.0, hi_box = 0.0;
+  if constexpr (kBox) {
+    lo_box = uo ? C(lo_in[a]) : 0.0;
+    hi_box = uo ? C(hi_in[a]) : 0.0;
+  }
   C dV1 = 0, dV2 = 0;  // every lane alike
   bool fail = false;   // every lane alike
-  small_stage<S, G, kDdp>(g, st, so, n, m, static_cast<int64_t>(b) * T + T - 1,
-                          fx, fu, lx, lu, lxx, luu, lux, ubar, fxx, fux, fuu,
-                          bar);
+  small_stage<S, G, kBox, kDdp>(g, st, so, n, m,
+                                static_cast<int64_t>(b) * T + T - 1, fx, fu,
+                                lx, lu, lxx, luu, lux, ubar, fxx, fux, fuu,
+                                bar);
 
   for (int t = T - 1; t >= 0; --t) {
     const int64_t bt = static_cast<int64_t>(b) * T + t;
@@ -596,37 +652,46 @@ __global__ void __launch_bounds__(kSmallMaxThreads) riccati_small_kernel(
     // last (the plain version's order)
     if constexpr (kDdp) {
       // a loop over p, each entry of the lane's column its own accumulator
-      // (ascending p, as the other sums)
+      // (ascending p, as the other sums); the Hessians from the staging
+      // slot, or without the box in place (one copy of the loops for each
+      // address space; K6b has only the staged one: the second copy cost
+      // its G = 2 and 4 instantiations their registers, and they spilled)
       C hx[D], hu[D];
+      auto contract = [&](const S* bxx, const S* bux, const S* buu) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) hx[i] = hu[i] = 0.0;
+        for (int i = 0; i < D; ++i) hx[i] = hu[i] = 0.0;
 #pragma unroll 1
-      for (int p = 0; p < n; ++p) {
-        const C vp = vs[p];
-        const S* hxx = sfxx + p * nn + ja;
+        for (int p = 0; p < n; ++p) {
+          const C vp = vs[p];
+          const S* hxx = bxx + p * nn + ja;
 #pragma unroll
-        for (int i = 0; i < D; ++i) {
-          const int ii = i < n ? i : n - 1;
-          hx[i] += vp * C(hxx[ii * n]);
+          for (int i = 0; i < D; ++i) {
+            const int ii = i < n ? i : n - 1;
+            hx[i] += vp * C(hxx[ii * n]);
+          }
         }
-      }
 #pragma unroll
-      for (int i = 0; i < D; ++i)
-        if (xo && i < n) Xs[i * L + a] += hx[i];
+        for (int i = 0; i < D; ++i)
+          if (xo && i < n) Xs[i * L + a] += hx[i];
 #pragma unroll
-      for (int i = 0; i < D; ++i) hx[i] = 0.0;
+        for (int i = 0; i < D; ++i) hx[i] = 0.0;
 #pragma unroll 1
-      for (int p = 0; p < n; ++p) {
-        const C vp = vs[p];
-        const S* hux = sfux + p * nm + ja;
-        const S* huu = sfuu + p * m * m + ca;
+        for (int p = 0; p < n; ++p) {
+          const C vp = vs[p];
+          const S* hux = bux + p * nm + ja;
+          const S* huu = buu + p * m * m + ca;
 #pragma unroll
-        for (int c = 0; c < D; ++c) {
-          const int cc = c < m ? c : m - 1;
-          hx[c] += vp * C(hux[cc * n]);
-          hu[c] += vp * C(huu[cc * m]);
+          for (int c = 0; c < D; ++c) {
+            const int cc = c < m ? c : m - 1;
+            hx[c] += vp * C(hux[cc * n]);
+            hu[c] += vp * C(huu[cc * m]);
+          }
         }
-      }
+      };
+      if (kBox || so.hess)
+        contract(sfxx, sfux, sfuu);
+      else
+        contract(fxx + bt * nn * n, fux + bt * nm * n, fuu + bt * m * m * n);
 #pragma unroll
       for (int c = 0; c < D; ++c) {
         if (xo && c < m) {
@@ -641,16 +706,17 @@ __global__ void __launch_bounds__(kSmallMaxThreads) riccati_small_kernel(
     }
     SMALL_CLOCK(8);
     // the step's box for entry a
-    const C ub = uo ? C(subar[a]) : 0.0;
+    const C ub = (kBox && uo) ? C(subar[a]) : 0.0;
     const C lo = lo_box - ub, hi = hi_box - ub;
     g.sync();
     // the slot is read: copy step t-1's inputs under the rest of step t
     if (t > 0)
-      small_stage<S, G, kDdp>(g, st, so, n, m, bt - 1, fx, fu, lx, lu, lxx,
-                              luu, lux, ubar, fxx, fux, fuu, bar);
+      small_stage<S, G, kBox, kDdp>(g, st, so, n, m, bt - 1, fx, fu, lx, lu,
+                                    lxx, luu, lux, ubar, fxx, fux, fuu, bar);
     SMALL_CLOCK(0);
 
-    // -- the gains: the PD probe, the boxQP, the final free set's factor
+    // -- the gains: the PD probe, then without the box k from its factor,
+    // with it the boxQP and the final free set's factor
     C H[D], LA[D], Lc[D];
     C dinv = 1.0;
 #pragma unroll
@@ -661,94 +727,111 @@ __global__ void __launch_bounds__(kSmallMaxThreads) riccati_small_kernel(
       Lc[c] = 0.0;
     }
     const C q = uo ? Qus[a] : 0.0;
-    C x = uo ? clip(0.0, lo, hi) : 0.0;
     const unsigned all = (1u << m) - 1u;
-    // one call of the factorization serves the probe (pass -1: every row
-    // free), each Newton step (its free set, the forward substitution of
-    // g_free fused in) and the final free set (``last``); a group asks for
-    // a new factor only where its set differs from the one it holds.
-    // ``fin``: the group's problem converged, found no improvement or spent
-    // its iterations (x and its free set stay); the warp iterates until
-    // every group's has, then forms the final factors
-    unsigned held = 0u, fm = all;
-    bool ffail = false, fin = false, frozen = false;
-    C gr = 0.0;  // g = q + H x at entry a
-    int par = 0;
-    for (int it = -1;; ++it) {
-      bool last = false, step = false;
-      C gm = 0.0;
-      if (it >= 0) {
-        const bool fa =
-            uo && !((x <= lo && gr > 0.0) || (x >= hi && gr < 0.0));
-        fm = g.ballot(fa);
-        gm = fa ? gr : 0.0;
-        const C gfree2 = g.sum(gm * gm);
-        fin = fin || frozen || gfree2 < 1e-16 || fm == 0u ||
-              it >= newton_iters;
-        last = g.all(fin);
-        step = !fin;
-      }
-      const bool refactor = it < 0 || ((step || last) && fm != held);
-      C y = step ? gm : 0.0;
-      small_factor<G, D>(g, m, H, fm, refactor, LA, Lc, dinv, ffail, y);
-      held = refactor ? fm : held;
-      if (it < 0) {
-        SMALL_CLOCK(1);
-        fail = fail || ffail;  // the PD probe
-        C acc = 0;
-#pragma unroll
-        for (int c = 0; c < D; ++c) acc += H[c] * g.bcast(x, c);
-        gr = q + acc;
-        continue;
-      }
-      if (last) {
-        SMALL_ITERS(it);
-        fail = fail || ffail;  // the final free set's factor
-        break;
-      }
-      // the Newton step d = -(H_ff)^-1 g_free
-      const C d = -small_back<G, D>(g, m, Lc, dinv, y);
-      // candidates clip(x + 2^-i d), i < 8, and x itself in slot 8
-      C ci[kSmallCands];
-      {
-        C alpha = 1.0;
-#pragma unroll
-        for (int i = 0; i < kSmallAlphas; ++i) {
-          ci[i] = uo ? clip(x + alpha * d, lo, hi) : 0.0;
-          alpha *= 0.5;
+    // k's entry a, and the rows K is solved on (every row without the box)
+    C x;
+    unsigned fm = all;
+    if constexpr (!kBox) {
+      // the probe's factor is the one factor: Q_u's forward substitution
+      // fused in, then its back substitution, k = -QuuR^-1 Q_u
+      bool pfail = false;
+      C y = q;
+      small_factor<G, D>(g, m, H, all, true, LA, Lc, dinv, pfail, y);
+      SMALL_CLOCK(1);
+      fail = fail || pfail;  // the PD probe
+      x = -small_back<G, D>(g, m, Lc, dinv, y);
+    } else {
+      x = uo ? clip(0.0, lo, hi) : 0.0;
+      // one call of the factorization serves the probe (pass -1: every
+      // row free), each Newton step (its free set, the forward
+      // substitution of g_free fused in) and the final free set
+      // (``last``); a group asks for a new factor only where its set
+      // differs from the one it holds. ``fin``: the group's problem
+      // converged, found no improvement or spent its iterations (x and its
+      // free set stay); the warp iterates until every group's has, then
+      // forms the final factors
+      unsigned held = 0u;
+      bool ffail = false, fin = false, frozen = false;
+      C gr = 0.0;  // g = q + H x at entry a
+      int par = 0;
+      for (int it = -1;; ++it) {
+        bool last = false, step = false;
+        C gm = 0.0;
+        if (it >= 0) {
+          const bool fa =
+              uo && !((x <= lo && gr > 0.0) || (x >= hi && gr < 0.0));
+          fm = g.ballot(fa);
+          gm = fa ? gr : 0.0;
+          const C gfree2 = g.sum(gm * gm);
+          fin = fin || frozen || gfree2 < 1e-16 || fm == 0u ||
+                it >= newton_iters;
+          last = g.all(fin);
+          step = !fin;
         }
-        ci[kSmallAlphas] = x;
-      }
-      C* cb = cand + par * kSmallCands * D;
-      if (uo) {
+        const bool refactor = it < 0 || ((step || last) && fm != held);
+        C y = step ? gm : 0.0;
+        small_factor<G, D>(g, m, H, fm, refactor, LA, Lc, dinv, ffail, y);
+        held = refactor ? fm : held;
+        if (it < 0) {
+          SMALL_CLOCK(1);
+          fail = fail || ffail;  // the PD probe
+          C acc = 0;
 #pragma unroll
-        for (int i = 0; i < kSmallCands; ++i) cb[i * D + a] = ci[i];
-      }
-      g.sync();
-      // row a of H c for the nine candidates, and their objectives
-      // 1/2 c^T H c + q^T c as sums over the group of c_a (H c / 2 + q)_a
-      C Hc[kSmallCands];
+          for (int c = 0; c < D; ++c) acc += H[c] * g.bcast(x, c);
+          gr = q + acc;
+          continue;
+        }
+        if (last) {
+          SMALL_ITERS(it);
+          fail = fail || ffail;  // the final free set's factor
+          break;
+        }
+        // the Newton step d = -(H_ff)^-1 g_free
+        const C d = -small_back<G, D>(g, m, Lc, dinv, y);
+        // candidates clip(x + 2^-i d), i < 8, and x itself in slot 8
+        C ci[kSmallCands];
+        {
+          C alpha = 1.0;
 #pragma unroll
-      for (int i = 0; i < kSmallCands; ++i) Hc[i] = 0.0;
+          for (int i = 0; i < kSmallAlphas; ++i) {
+            ci[i] = uo ? clip(x + alpha * d, lo, hi) : 0.0;
+            alpha *= 0.5;
+          }
+          ci[kSmallAlphas] = x;
+        }
+        C* cb = cand + par * kSmallCands * D;
+        if (uo) {
 #pragma unroll
-      for (int c = 0; c < D; ++c) {
+          for (int i = 0; i < kSmallCands; ++i) cb[i * D + a] = ci[i];
+        }
+        g.sync();
+        // row a of H c for the nine candidates, and their objectives 1/2
+        // c^T H c + q^T c as sums over the group of c_a (H c / 2 + q)_a
+        C Hc[kSmallCands];
 #pragma unroll
-        for (int i = 0; i < kSmallCands; ++i) Hc[i] += H[c] * cb[i * D + c];
-      }
-      int best = -1;
-      const C obj_now = g.sum(uo ? x * (0.5 * Hc[kSmallAlphas] + q) : 0.0);
+        for (int i = 0; i < kSmallCands; ++i) Hc[i] = 0.0;
 #pragma unroll
-      for (int i = kSmallAlphas - 1; i >= 0; --i) {
-        const C obj = g.sum(uo ? ci[i] * (0.5 * Hc[i] + q) : 0.0);
-        best = obj < obj_now - 1e-12 ? i : best;
-      }
-      par ^= 1;
-      if (!fin) {
-        frozen = best < 0;  // no improvement: x stays
+        for (int c = 0; c < D; ++c) {
 #pragma unroll
-        for (int i = 0; i < kSmallAlphas; ++i) {
-          x = i == best ? ci[i] : x;
-          gr = i == best ? q + Hc[i] : gr;
+          for (int i = 0; i < kSmallCands; ++i)
+            Hc[i] += H[c] * cb[i * D + c];
+        }
+        int best = -1;
+        const C obj_now =
+            g.sum(uo ? x * (0.5 * Hc[kSmallAlphas] + q) : 0.0);
+#pragma unroll
+        for (int i = kSmallAlphas - 1; i >= 0; --i) {
+          const C obj = g.sum(uo ? ci[i] * (0.5 * Hc[i] + q) : 0.0);
+          best = obj < obj_now - 1e-12 ? i : best;
+        }
+        par ^= 1;
+        if (!fin) {
+          frozen = best < 0;  // no improvement: x stays
+#pragma unroll
+          for (int i = 0; i < kSmallAlphas; ++i) {
+            x = i == best ? ci[i] : x;
+            gr = i == best ? q + Hc[i] : gr;
+          }
         }
       }
     }
@@ -862,17 +945,18 @@ __global__ void __launch_bounds__(kSmallMaxThreads) riccati_small_kernel(
 }
 
 // A launch plan (ops/riccati_small.py small_plan): lanes a scenario,
-// scenarios a block and the block's dynamic shared bytes, each of which
-// must equal what this source computes for it.
+// scenarios a block, whether the Hessians are staged (with kDdp; else read
+// in place) and the block's dynamic shared bytes, each of which must equal
+// what this source computes for it.
 struct SmallPlan {
-  int groups, spb;
+  int groups, spb, stage_h;
   long long smem_bytes;
 };
 
-template <typename S, bool kDdp, int G>
+template <typename S, bool kBox, bool kDdp, int G>
 int small_launch(int n, int m, int T, int B, int iters, const void* const* in,
                  void* const* out, const SmallPlan& p, cudaStream_t stream) {
-  auto kernel = riccati_small_kernel<S, kDdp, G>;
+  auto kernel = riccati_small_kernel<S, kBox, kDdp, G>;
   const long long bytes = p.smem_bytes;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -881,13 +965,14 @@ int small_launch(int n, int m, int T, int B, int iters, const void* const* in,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   auto P = [in](int i) { return static_cast<const S*>(in[i]); };
-  SmallStage so(n, m, sizeof(S), kDdp);
+  SmallStage so(n, m, sizeof(S), kDdp, kBox, p.stage_h != 0);
   {
     // the staged arrays' inputs, in the order of small_stage
     const int idx[11] = {0, 1, 2, 3, 4, 5, 6, 8, 11, 12, 13};
     const long long count[11] = {n * n, n * m, n, m, n * n, m * m, n * m, m,
                                  n * n * n, n * m * n, n * m * m};
-    for (int q = 0; q < (kDdp ? 11 : 8); ++q) {
+    for (int q = 0; q < (so.hess ? 11 : 8); ++q) {
+      if (q == 7 && !kBox) continue;  // no ubar
       const long long bytes = count[q] * static_cast<long long>(sizeof(S));
       if (bytes % 16 != 0 ||
           reinterpret_cast<uintptr_t>(in[idx[q]]) % 16 != 0)
@@ -909,47 +994,87 @@ int small_launch(int n, int m, int T, int B, int iters, const void* const* in,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S, bool kDdp>
-int small_dispatch(int n, int m, int T, int B, int iters,
-                   const void* const* in, void* const* out,
-                   const SmallPlan& p, cudaStream_t s) {
-  switch (p.groups) {
-    case 2: return small_launch<S, kDdp, 2>(n, m, T, B, iters, in, out, p, s);
-    case 4: return small_launch<S, kDdp, 4>(n, m, T, B, iters, in, out, p, s);
-    case 8: return small_launch<S, kDdp, 8>(n, m, T, B, iters, in, out, p, s);
-    case 16:
-      return small_launch<S, kDdp, 16>(n, m, T, B, iters, in, out, p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Call f(S(), std::integral_constant<int, G>()) at the input type of
+// ``dtype`` and the plan's lanes a scenario G (2, 4, 8 or 16).
+template <typename F>
+int small_dispatch(int dtype, int groups, F&& f) {
+  auto at = [&](auto s) {
+    switch (groups) {
+      case 2: return f(s, std::integral_constant<int, 2>());
+      case 4: return f(s, std::integral_constant<int, 4>());
+      case 8: return f(s, std::integral_constant<int, 8>());
+      case 16: return f(s, std::integral_constant<int, 16>());
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  return dtype == kFloat32 ? at(float()) : at(double());
+}
+
+// Whether ``p`` is this variant's plan at (n, m): the lanes and shared bytes
+// this source computes for it (small_groups, small_smem_bytes), a block of
+// whole warps within the kernel's threads and shared bytes, the Hessians
+// staged with the box.
+template <bool kBox, bool kDdp>
+bool small_plan_ok(int dtype, int n, int m, const SmallPlan& p) {
+  if (dtype != kFloat32 && dtype != kFloat64) return false;
+  const size_t s_bytes = dtype == kFloat64 ? 8 : 4;
+  const int G = small_groups(n, m);
+  return G != 0 && p.groups == G && p.spb >= 1 &&
+         (!kBox || p.stage_h != 0) &&
+         G * p.spb <= kSmallMaxThreads && G * p.spb % 32 == 0 &&
+         p.smem_bytes ==
+             small_smem_bytes(n, m, s_bytes, kDdp, p.spb, kBox,
+                              p.stage_h != 0) &&
+         p.smem_bytes <= static_cast<long long>(kSmallMaxSmem);
 }
 
 // in: fx, fu, lx, lu, lxx, luu, lux, mu, ubar, lo, hi, fxx, fux, fuu, VT,
-// vT (fxx, fux, fuu null without kDdp); out: K, k, dV1, dV2, fail. The
-// plan's lanes, scenarios and bytes must be this source's own for these
-// dims (small_groups, small_smem_bytes), its block whole warps, or the
-// launch is refused.
-template <bool kDdp>
+// vT (ubar, lo, hi null without kBox; fxx, fux, fuu null without kDdp);
+// out: K, k, dV1, dV2, fail. The plan must be this variant's at (n, m)
+// (small_plan_ok), or the launch is refused. ``iters`` (the boxQP's
+// Newton iterations) is read only with kBox.
+template <bool kBox, bool kDdp>
 int small_entry(int dtype, int n, int m, int T, int B, int iters,
                 const void* const* in, void* const* out, const SmallPlan& p,
                 void* stream) {
-  if (dtype != kFloat32 && dtype != kFloat64)
+  if (!small_plan_ok<kBox, kDdp>(dtype, n, m, p) || T < 1 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t s_bytes = dtype == kFloat64 ? 8 : 4;
-  const int G = small_groups(n, m);
-  if (G == 0 || T < 1 || iters < 0 || p.groups != G || p.spb < 1 ||
-      G * p.spb > kSmallMaxThreads || G * p.spb % 32 != 0 ||
-      p.smem_bytes != small_smem_bytes(n, m, s_bytes, kDdp, p.spb) ||
-      p.smem_bytes > static_cast<long long>(kSmallMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (in[8] == nullptr || in[9] == nullptr || in[10] == nullptr)
+  if (kBox && (in[8] == nullptr || in[9] == nullptr || in[10] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (kDdp && (in[11] == nullptr || in[12] == nullptr || in[13] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return small_dispatch<float, kDdp>(n, m, T, B, iters, in, out, p, s);
-  return small_dispatch<double, kDdp>(n, m, T, B, iters, in, out, p, s);
+  return small_dispatch(dtype, p.groups, [&](auto st, auto g) {
+    return small_launch<decltype(st), kBox, kDdp, decltype(g)::value>(
+        n, m, T, B, iters, in, out, p, s);
+  });
+}
+
+// The blocks of plan ``p`` that an SM holds at once, as the runtime
+// computes them for this variant's kernel (its registers, the plan's
+// threads and shared bytes): cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+// Minus the CUDA error where the query fails; minus cudaErrorInvalidValue
+// for a plan that is not this variant's at (n, m).
+template <bool kBox, bool kDdp>
+int small_blocks_per_sm(int dtype, int n, int m, const SmallPlan& p) {
+  if (!small_plan_ok<kBox, kDdp>(dtype, n, m, p))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return small_dispatch(dtype, p.groups, [&](auto st, auto g) {
+    auto kernel = riccati_small_kernel<decltype(st), kBox, kDdp,
+                                       decltype(g)::value>;
+    cudaError_t err = cudaSuccess;
+    if (p.smem_bytes > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(p.smem_bytes));
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, decltype(g)::value * p.spb,
+          static_cast<size_t>(p.smem_bytes));
+    return err == cudaSuccess ? blocks : -static_cast<int>(err);
+  });
 }
 
 }  // namespace

@@ -14,13 +14,13 @@ extern "C" int tfmpc_riccati_backward_small_ddp_boxqp(
     const void* ubar, const void* lo, const void* hi, const void* fxx,
     const void* fux, const void* fuu, const void* VT, const void* vT,
     void* K, void* k, void* dV1, void* dV2, void* fail, int groups, int spb,
-    long long smem_bytes, void* stream) {
+    int stage_h, long long smem_bytes, void* stream) {
   const void* in[] = {fx,   fu, lx, lu,  lxx, luu, lux, mu,
                       ubar, lo, hi, fxx, fux, fuu, VT,  vT};
   void* out[] = {K, k, dV1, dV2, fail};
-  const tfmpc::SmallPlan p{groups, spb, smem_bytes};
-  return tfmpc::small_entry<true>(dtype, n, m, T, B, newton_iters, in, out,
-                                  p, stream);
+  const tfmpc::SmallPlan p{groups, spb, stage_h, smem_bytes};
+  return tfmpc::small_entry<true, true>(dtype, n, m, T, B, newton_iters, in,
+                                        out, p, stream);
 }
 
 #ifdef TFMPC_SMALL_CLOCKS

@@ -14,8 +14,8 @@ with a launch plan (``lane_plan``: the lanes a scenario, the scenarios a
 block, the shared bytes). The fused iteration's entry,
 ``riccati_backward_lanes``, takes and returns the kernels' own ``[T,
 entries, B]`` layout and launches K1 or K4 (at dims without a lane
-instantiation K7's iLQR variant, or the small-dims boxQP kernel of
-``ops/riccati_small.py``, which runs K4 and K6b at the other n, m <= 12).
+instantiation the small-dims kernel of ``ops/riccati_small.py``, which
+runs K1, K4, K6a and K6b at the other n, m <= 12, or K7 above 12).
 ``LAUNCHES``, ``BOXQP_LAUNCHES``, ``DDP_LAUNCHES`` and
 ``DDP_BOXQP_LAUNCHES`` count kernel launches and the matching
 ``*PLAIN_CALLS`` the calls that took the plain version.
@@ -61,10 +61,9 @@ DDP_BOXQP_PLAIN_CALLS = 0
 # (n, m) pairs the four CUDA kernels are instantiated for (csrc/riccati*.cu,
 # one template in riccati_kernel.cuh): bounded navigation (2), the HVAC-3
 # oracle problem (3), reservoir-5 (5) and HVAC-6 (6). The solver routes
-# the boxQP backward (K4, K6b) at other dims up to 12 to the small-dims
-# kernel (ops/riccati_small.py), other dims up to 48 to K7
-# (ops/riccati_mid.py), and full DDP without a box at other dims up to 12
-# to K7's DDP variant.
+# the backward at other dims up to 12 (K1, K4, K6a, K6b) to the small-dims
+# kernel (ops/riccati_small.py) and other dims up to 48 to K7
+# (ops/riccati_mid.py).
 KERNEL_DIMS = {(2, 2), (3, 3), (5, 5), (6, 6)}
 # The launch plans (``lane_plan``). A group of G lanes owns a scenario
 # (csrc/riccati_kernel.cuh): lane l computes the columns l, l + G, ... of
@@ -583,9 +582,9 @@ def riccati_backward_ddp_boxqp(lin, quad, final, mu, bounds, Ubar, second,
 
 
 def _mid_lanes(ka, VT, vT, mu, box, boxqp_iters):
-    """K7's iLQR variant, or with ``box`` the small-dims boxQP kernel
-    (``ops/riccati_small.py``; K7's boxQP variant above its dims), on
-    ``riccati_backward_lanes``' kernel-layout tensors at dims without a
+    """The small-dims kernel's K1, or with ``box`` its K4
+    (``ops/riccati_small.py``; above its dims K7's iLQR or boxQP variant),
+    on ``riccati_backward_lanes``' kernel-layout tensors at dims without a
     lane instantiation: the blocks to the solver's ``[B, T, ...]`` layout
     those kernels take and the policy back to ``(K [T, m*n, B], k [T, m,
     B])``; counted as the launched kernel's launches."""
@@ -602,12 +601,14 @@ def _mid_lanes(ka, VT, vT, mu, box, boxqp_iters):
            lanes(ka["luu"], m, m), lanes(ka["lux"], m, n),
            mu.to(ka["fx"].dtype).contiguous())
     final = (VT.T.reshape(B, n, n).contiguous(), vT.T.contiguous())
+    small = riccati_small.small_kernel_supported(n, m)
     if box is None:
-        out = riccati_mid.riccati_backward_mid_kernel(*ins, *final)
+        launch = (riccati_small.riccati_backward_small_kernel if small
+                  else riccati_mid.riccati_backward_mid_kernel)
+        out = launch(*ins, *final)
     else:
         ubar, lo, hi = box
-        launch = (riccati_small.riccati_backward_small_boxqp_kernel
-                  if riccati_small.small_kernel_supported(n, m)
+        launch = (riccati_small.riccati_backward_small_boxqp_kernel if small
                   else riccati_mid.riccati_backward_mid_boxqp_kernel)
         out = launch(*ins, lanes(ubar, m), lo, hi, *final,
                      boxqp_iters=boxqp_iters)
@@ -623,10 +624,10 @@ def riccati_backward_lanes(ka, VT, vT, mu, box=None, boxqp_iters: int = 8):
     K4's control-limited pass, else K1's. Returns ``(ok [B], (K [T, m*n,
     B], k [T, m, B]), dV1 [B], dV2 [B])``, the policy in the layout K2 and
     K8 take as it is. CUDA tensors launch K1 or K4 at ``KERNEL_DIMS``, and
-    at other dims K7's iLQR variant or the small-dims boxQP kernel (through
-    the solver layout and back, ``_mid_lanes``); CPU tensors run the plain
-    version through the solver layout and back (counted as the plain calls
-    of K1's or K4's wrapper).
+    at other dims the small-dims kernel's K1 or K4 (K7's above n, m = 12;
+    through the solver layout and back, ``_mid_lanes``); CPU tensors run
+    the plain version through the solver layout and back (counted as the
+    plain calls of K1's or K4's wrapper).
     """
     global PLAIN_CALLS, BOXQP_PLAIN_CALLS
     T, _, B = ka["fx"].shape

@@ -10,10 +10,10 @@ scenario that is done freezes. One iteration is
 2. the Riccati backward inside the per-lane restart loop, compacted to the
    failing lanes when B > 128 (with ``use_pallas``: kernel K1, or K4 for
    ``boxqp`` on a bounded env, and with ``ddp`` K6a or K6b, which also take
-   the dynamics Hessians of step 1, at the lane kernels' dims; K4 and K6b
-   at every other dim up to 12 on the small-dims kernel; K7 at other dims
-   up to 48, and its full-DDP variant without a box at other dims up to
-   12; with ``parallel_backward``: the O(log T) composition of
+   the dynamics Hessians of step 1, at the lane kernels' dims; all four
+   at every other dim up to 12 on the small-dims kernel; K7 (iLQR and
+   boxQP) at other dims up to 48; with ``parallel_backward``: the O(log T)
+   composition of
    ``lqr_parallel.py``);
 3. the 11-alpha line search (K2), controls clipped to a bounded env's box;
 4. acceptance and the mu schedule, with the KKT stationarity test of a
@@ -29,8 +29,8 @@ package's ``_iteration_fused``; routed by ``_use_fused_derivs``) drops step
 1 from the loop: step 5 runs K8, which also writes the linearization of
 the new trajectory in the Riccati kernels' ``[T, entries, B]`` layout, and
 the loop carries those blocks (``kargs``) into the next backward (K1, or K4
-for ``boxqp``; K7's iLQR variant or the small-dims K4 at dims without a lane
-instantiation), whose policy goes
+for ``boxqp``; the small-dims K1 or K4 at other dims up to 12, K7's iLQR
+or boxQP variant above), whose policy goes
 to K2 and K8 in that layout as it is. A solve linearizes once, along its
 initial (or resumed) trajectory (``_initial_kargs``). Where the JAX
 package takes its split iteration by design (an env without a device
@@ -119,8 +119,9 @@ def state_from_result(result: ILQRResult) -> SolverState:
 
 # The JAX package's lane kernel runs full DDP up to this dim on the TPU;
 # above it the JAX package runs its vmapped scan, and so does this one
-# (riccati_mid.MID_DDP_DIM_MAX, K7's DDP variant's ceiling, is the same).
-DDP_LANE_DIM_MAX = riccati_mid.MID_DDP_DIM_MAX
+# (riccati_small.SMALL_DIM_MAX, the small-dims kernel's ceiling, is the
+# same).
+DDP_LANE_DIM_MAX = riccati_small.SMALL_DIM_MAX
 # The JAX package's dims rule for the fused iteration
 # (tfmpc_tpu/solvers/ilqr_batched.py:_use_fused_derivs): above it, the
 # split iteration. A rule of the reference's, not a tuning constant of
@@ -139,21 +140,21 @@ def _riccati_kernel_mode(n: int, m: int, config: ILQRConfig, device):
     None: the plain backward (``use_pallas=False``, or
     ``parallel_backward``, which owns the backward pass even with
     ``use_pallas``, as in the JAX package). "lane": K1/K4/K6a/K6b, for the
-    dims they are instantiated at (``riccati.KERNEL_DIMS``). "small": with
-    ``boxqp``, K4's and K6b's small-dims kernel (``ops/riccati_small.py``)
-    at every other max(n, m) <= ``riccati_small.SMALL_DIM_MAX``, with or
-    without ``ddp``. "mid": K7, for any other dims within
-    ``riccati_mid.mid_kernel_supported``, and with ``ddp`` (no box) its
-    full-DDP variant at max(n, m) <= ``DDP_LANE_DIM_MAX``.
+    dims they are instantiated at (``riccati.KERNEL_DIMS``). "small": the
+    small-dims kernel (``ops/riccati_small.py``: K1, K4, K6a, K6b) at
+    every other max(n, m) <= ``riccati_small.SMALL_DIM_MAX``, with or
+    without ``boxqp`` and ``ddp``. "mid": K7 (iLQR and boxQP) for any other
+    dims within ``riccati_mid.mid_kernel_supported``.
 
     Where the JAX package runs its vmapped scan by design, the plain
     backward runs on every device too: full DDP at max(n, m) > 12 (its
     lane kernel stops at 12 and its mid kernel has no DDP terms) and any
     max(n, m) > ``riccati_mid.MID_DIM_MAX``. The lane/small/mid boundaries
     are the port's own (the kernels' instantiations and the small-dims
-    kernel's envelope, faster than K7 at every boxQP shape measured), not
-    the JAX package's TPU lane limit of 12. The route is the same on every
-    ``device``: on the CPU each wrapper runs its plain version.
+    kernel's envelope, faster than K7 at every path's shape measured in
+    turns, PERF.md section 6), the small/mid one the JAX package's TPU
+    lane limit of 12. The route is the same on every ``device``: on the
+    CPU each wrapper runs its plain version.
     """
     if not config.use_pallas or config.parallel_backward:
         return None
@@ -162,23 +163,24 @@ def _riccati_kernel_mode(n: int, m: int, config: ILQRConfig, device):
     if not riccati_mid.mid_kernel_supported(n, m) \
             or (config.ddp and max(n, m) > DDP_LANE_DIM_MAX):
         return None
-    if config.boxqp and riccati_small.small_kernel_supported(n, m):
+    if riccati_small.small_kernel_supported(n, m):
         return "small"
     return "mid"
 
 
 # The backward's wrapper by (family, ddp, box), box being ``boxqp`` on a
 # bounded env. Every wrapper of a (ddp, box) pair takes the same arguments
-# (``_backward_batched``). The small-dims family holds the boxQP variants
-# only: without a box its batches run K7's.
+# (``_backward_batched``). ("mid", True, False), K7's full-DDP variant, is
+# on no route since the small-dims family took max(n, m) <= 12 (ROADMAP
+# list D).
 _BACKWARD = {
     ("lane", False, False): riccati.riccati_backward,
     ("lane", False, True): riccati.riccati_backward_boxqp,
     ("lane", True, False): riccati.riccati_backward_ddp,
     ("lane", True, True): riccati.riccati_backward_ddp_boxqp,
-    ("small", False, False): riccati_mid.riccati_backward_mid,
+    ("small", False, False): riccati_small.riccati_backward_small,
     ("small", False, True): riccati_small.riccati_backward_small_boxqp,
-    ("small", True, False): riccati_mid.riccati_backward_mid_ddp,
+    ("small", True, False): riccati_small.riccati_backward_small_ddp,
     ("small", True, True): riccati_small.riccati_backward_small_ddp_boxqp,
     ("mid", False, False): riccati_mid.riccati_backward_mid,
     ("mid", False, True): riccati_mid.riccati_backward_mid_boxqp,
@@ -539,7 +541,7 @@ def _use_fused_derivs(env, config: ILQRConfig, device) -> bool:
     ``lane_derivatives``: navigation's); else the split iteration runs.
     Its TPU rule B % 128 is not copied: the kernels mask any batch. Where
     the JAX rule fuses, K8 (unrolled or generic) and the backward (the
-    lane kernels, or K7's iLQR variant or the small-dims K4 through
+    lane kernels, or the small-dims K1 or K4 through
     ``riccati.riccati_backward_lanes``) run at
     every such dim; an env whose ``device_step()`` returns None takes the
     split iteration, as the JAX package does for ``lane_functions() ->
@@ -571,8 +573,8 @@ def _backward_restarts_klayout(env, kargs, x_last, mu, delta,
                                config: ILQRConfig, Ubar):
     """The fused iteration's backward pass with the per-lane restarts, on
     the kernel-layout blocks ``kargs`` (``[T, entries, B]``): K1, or K4 for
-    ``boxqp`` on a bounded env (K7's iLQR variant or the small-dims K4 at
-    dims without a lane instantiation), through
+    ``boxqp`` on a bounded env (the small-dims K1 or K4 at dims without a
+    lane instantiation), through
     ``riccati.riccati_backward_lanes``.
     The final value is ``_final_klayout``'s at ``x_last [B, n]``.
     Returns ``_backward_restarts_batched``'s tuple with the policy ``(K [T,

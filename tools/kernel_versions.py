@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time other versions of K7, P1, the lane Riccati kernels (K1, K4, K6a,
 K6b) or the rollout kernels K2, K3, K5 and K8 beside the checkout's own,
-on one GPU.
+or the small-dims Riccati kernel beside K7, on one GPU.
 
     python3 tools/kernel_versions.py p1 LABEL=PATH [LABEL=PATH ...]
     python3 tools/kernel_versions.py k7 LABEL=PATH [LABEL=PATH ...]
@@ -112,16 +112,25 @@ generated step functor (``csrc/rollout_user.cuh``) at
 ``USER_SWEEP_CASES`` (phase 31's shapes and the chain at d = 12 and 24),
 beside the plan ``GENERIC_PLANS`` gives it.
 
-``small`` times K4's and K6b's small-dims kernel (``ops/
-riccati_small.py``) at ``SMALL_CASES`` (D3, D4, a D4 restart round, E2,
-G5) in f32 beside K7 on the same inputs, graph replays in turns: K7's
-boxQP variant from the checkout, its full-DDP boxQP variant from PATH (a
-version of ``ops/csrc/riccati_mid_ddp.cu`` that still has it, taken with
-``git show <rev>:...`` into a copied, git-ignored place and built alone
-against the checkout's ``riccati_mid.cuh``). ``--sweep`` adds every
-``SMALL_SWEEP_THREADS`` bound of the plan (the measurement behind
-``riccati_small.SMALL_THREADS``); ``--clocks`` builds the two sources with
-``-DTFMPC_SMALL_CLOCKS`` and prints each case's phase clocks a step.
+``small`` times the small-dims kernel (``ops/riccati_small.py``), its
+four variants, at ``SMALL_CASES`` in f32 beside K7 on the same inputs,
+graph replays in turns: K4 and K6b at D3, D4, a D4 restart round, E2 and
+G5, K1 at G4 (also ``riccati.riccati_backward_lanes``, the fused
+iteration's layout round trip), navigation-4 split, the double
+integrator and at E2's shape without the box, K6a at the double
+integrator and D5 (and D5 at half its batch, one wave of blocks). K7's
+boxQP, iLQR and full-DDP variants come from the checkout, its full-DDP
+boxQP variant from PATH (a version of ``ops/csrc/riccati_mid_ddp.cu`` that
+still has it, taken with ``git show <rev>:...`` into a copied, git-ignored
+place and built alone against the checkout's ``riccati_mid.cuh``).
+``--sweep`` adds every ``SMALL_SWEEP_THREADS`` bound of the plan (the
+measurement behind ``riccati_small.SMALL_THREADS``); ``--clocks`` builds
+the four sources with ``-DTFMPC_SMALL_CLOCKS`` and prints each case's
+phase clocks a step. Each case also prints its plan and the waves of
+blocks B takes for K6a (``riccati_small.small_waves`` at the runtime's
+blocks an SM), which is also timed with its Hessians the other way than
+the plan takes them (staged, or read in place), at the same scenarios a
+block: the measurement behind ``small_launch_plan``'s choice.
 """
 
 from __future__ import annotations
@@ -1330,28 +1339,47 @@ def run_generic_sweep(card, kinds=("costs", "alpha", "traj")):
 
 # -- K4 and K6b at small dims -------------------------------------------------
 
-# label -> (chip_smoke.py case, (n, m), B, T, full DDP): the paths that run
-# the small-dims kernel (phase 30's D3 and D4, a D4 restart round of 128
-# gathered lanes, E2, G5), chip_smoke.py's inputs at each
+# label -> (chip_smoke.py case, (n, m), B, T, full DDP, box): the paths
+# that run the small-dims kernel (phase 30's D3 and D4, a D4 restart round
+# of 128 gathered lanes, E2, G5 with the box; G4, navigation-4 split, the
+# double integrator and D5 without), chip_smoke.py's inputs at each; K1 at
+# E2's shape and D5 at half its batch besides
 SMALL_CASES = {
-    "D3": ("reservoir4", (4, 4), 2048, 100, True),
-    "D4": ("hvac12ring", (12, 12), 512, 50, True),
-    "D4 restart round": ("hvac12ring", (12, 12), 128, 50, True),
-    "E2": ("hvac12", (12, 12), 1024, 100, False),
-    "G5": ("nav12_box", (12, 12), 1024, 50, False),
+    "D3": ("reservoir4", (4, 4), 2048, 100, True, True),
+    "D4": ("hvac12ring", (12, 12), 512, 50, True, True),
+    "D4 restart round": ("hvac12ring", (12, 12), 128, 50, True, True),
+    "E2": ("hvac12", (12, 12), 1024, 100, False, True),
+    "G5": ("nav12_box", (12, 12), 1024, 50, False, True),
+    "G4": ("nav4", (4, 4), 4096, 100, False, False),
+    "navigation-4 split": ("nav4", (4, 4), 4096, 100, False, False),
+    "double integrator": ("double_integrator", (2, 1), 4096, 100, False,
+                          False),
+    "double integrator DDP": ("double_integrator", (2, 1), 4096, 100, True,
+                              False),
+    "D5": ("nav12", (12, 12), 1024, 50, True, False),
+    "D5 at B=512": ("nav12", (12, 12), 512, 50, True, False),
+    "K1 at E2's shape": ("hvac12ring", (12, 12), 1024, 100, False, False),
 }
 SMALL_SWEEP_THREADS = (32, 64, 128, 256)
 # the phase clocks' slots (csrc/riccati_small.cuh small_clocks) in the
 # order a step runs them, and their names
 SMALL_CLOCK_ORDER = (5, 6, 7, 8, 0, 1, 2, 3, 4)
 SMALL_CLOCK_NAMES = ("wait", "f_x, f_u widened", "W, W_u", "Q blocks",
-                     "box and staging", "PD probe", "Newton iterations",
+                     "box and staging", "PD probe", "Newton iterations "
+                     "(without the box: k's back substitution)",
                      "final factor, K, dV", "value update")
-SMALL_FILES = ("riccati_small.cu", "riccati_small_ddp.cu")
+SMALL_FILES = ("riccati_small.cu", "riccati_small_ddp.cu",
+               "riccati_small_ilqr.cu", "riccati_small_ddp_ilqr.cu")
+# each variant's (box, ddp) C entry suffix: tfmpc_riccati_backward_small<s>
+# and the clocks' tfmpc_riccati_small<c>_clocks
+SMALL_ENTRIES = {(True, False): ("_boxqp", ""),
+                 (True, True): ("_ddp_boxqp", "_ddp"),
+                 (False, False): ("", "_ilqr"),
+                 (False, True): ("_ddp", "_ddp_ilqr")}
 
 
 def build_small(label: str, defines=()) -> ctypes.CDLL:
-    """The checkout's two small-dims sources built with ``defines`` (one
+    """The checkout's four small-dims sources built with ``defines`` (one
     nvcc each, in parallel) into one library under ``OUT``; ptxas lines
     printed."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1378,16 +1406,21 @@ def build_small(label: str, defines=()) -> ctypes.CDLL:
                     str(so), *map(str, objs)], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(so))
+    tail = [_I] * 3 + [_LL, _P]  # the plan and the stream
     lib.tfmpc_riccati_backward_small_boxqp.argtypes = [_I] * 6 + [_P] * 18 \
-        + [_I, _I, _LL, _P]
+        + tail
     lib.tfmpc_riccati_backward_small_ddp_boxqp.argtypes = [_I] * 6 \
-        + [_P] * 21 + [_I, _I, _LL, _P]
+        + [_P] * 21 + tail
+    lib.tfmpc_riccati_backward_small.argtypes = [_I] * 5 + [_P] * 15 + tail
+    lib.tfmpc_riccati_backward_small_ddp.argtypes = [_I] * 5 + [_P] * 18 \
+        + tail
     return lib
 
 
-def small_case(case, dims, Bn, Tn, ddp):
+def small_case(case, dims, Bn, Tn, ddp, box=True):
     """chip_smoke.py's f32 inputs of a ``SMALL_CASES`` shape in the solver
-    layout (``riccati_mid.mid_layout``) and their boxQP iterations."""
+    layout (``riccati_mid.mid_layout``; without ``box`` no ubar, lo, hi)
+    and their boxQP iterations."""
     import torch
 
     from tfmpc_tpu_torch.ops import riccati_mid as rm
@@ -1399,21 +1432,41 @@ def small_case(case, dims, Bn, Tn, ddp):
     else:
         _, lin, quad, final, mu, bounds, U, second, iters = \
             cs.ddp_mid_inputs(case, dims, torch.float32, Bn, Tn)
+    if not box:
+        bounds = U = None
     return rm.mid_layout(lin, quad, final, mu, bounds, U,
                          second if ddp else None), iters
+
+
+def round_trip(case, Bn, Tn):
+    """The fused iteration's backward without a box at a G4 shape
+    (``riccati.riccati_backward_lanes`` on ``chip_smoke.time_k7_lanes``'
+    kernel-layout blocks of a random nominal): the small-dims K1 through
+    the layout round trip."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import riccati
+    from tfmpc_tpu_torch.solvers import ilqr_batched
+
+    env, X, U, _, _ = cs.k8_generic_inputs(case, torch.float32, Bn, Tn)
+    ka = ilqr_batched._initial_kargs(env, X, U)
+    VT, vT = ilqr_batched._final_klayout(env, X[:, -1])
+    mu = torch.full((Bn,), 0.1, device="cuda")
+    return lambda: riccati.riccati_backward_lanes(ka, VT, vT, mu)
 
 
 def run_small(card, sweep=False, clocks=False, k7ddp=None):
     """The small-dims kernel at ``SMALL_CASES`` in f32, as device times of
     graph replays of 5 calls in turns beside K7 on the same inputs (its
-    boxQP variant from the checkout; its full-DDP boxQP variant from the
-    source ``k7ddp``, a version of ``riccati_mid_ddp.cu`` built alone
-    against the checkout's ``riccati_mid.cuh``, where given); ``sweep``:
-    also each of ``SMALL_SWEEP_THREADS`` threads a block at most (the
-    measurement behind ``riccati_small.SMALL_THREADS``); ``clocks``: the
-    kernel built with ``-DTFMPC_SMALL_CLOCKS``, its phase clocks a step
-    (thread 0 of block 0, ``SMALL_CLOCK_NAMES``) and its warp's Newton
-    iterations."""
+    boxQP, iLQR and full-DDP variants from the checkout; its full-DDP boxQP
+    variant from the source ``k7ddp``, a version of ``riccati_mid_ddp.cu``
+    built alone against the checkout's ``riccati_mid.cuh``, where given);
+    at G4 also the fused iteration's layout round trip (``round_trip``);
+    ``sweep``: also each of ``SMALL_SWEEP_THREADS`` threads a block at
+    most (the measurement behind ``riccati_small.SMALL_THREADS``);
+    ``clocks``: the kernel built with ``-DTFMPC_SMALL_CLOCKS``, its phase
+    clocks a step (thread 0 of block 0, ``SMALL_CLOCK_NAMES``) and its
+    warp's Newton iterations."""
     import torch
 
     from tfmpc_tpu_torch.ops import _build, riccati_mid as rm, \
@@ -1426,24 +1479,65 @@ def run_small(card, sweep=False, clocks=False, k7ddp=None):
             + [_P] * 21 + [_I] * 3 + [_LL, _P]
     clk = build_small("clocks", ("-DTFMPC_SMALL_CLOCKS",)) if clocks \
         else None
-    for label, (case, dims, Bn, Tn, ddp) in SMALL_CASES.items():
+    launchers = {
+        (True, False): (rs.riccati_backward_small_boxqp_kernel,
+                        rs.SMALL_BOXQP_ARGS),
+        (True, True): (rs.riccati_backward_small_ddp_boxqp_kernel,
+                       rs.SMALL_DDP_BOXQP_ARGS),
+        (False, False): (rs.riccati_backward_small_kernel, rs.SMALL_ARGS),
+        (False, True): (rs.riccati_backward_small_ddp_kernel,
+                        rs.SMALL_DDP_ARGS)}
+    import dataclasses
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (case, dims, Bn, Tn, ddp, box) in SMALL_CASES.items():
         n, m = dims
-        a, iters = small_case(case, dims, Bn, Tn, ddp)
-        keys = rs.SMALL_DDP_BOXQP_ARGS if ddp else rs.SMALL_BOXQP_ARGS
+        a, iters = small_case(case, dims, Bn, Tn, ddp, box)
+        launcher, keys = launchers[box, ddp]
         ins = [a[k] for k in keys]
-        launcher = rs.riccati_backward_small_ddp_boxqp_kernel if ddp \
-            else rs.riccati_backward_small_boxqp_kernel
-        plan = rs.small_plan(n, m, Bn, torch.float32, ddp)
+
+        def waves(p, n=n, m=m, Bn=Bn):
+            return rs.small_waves(p, Bn, rs.small_blocks_per_sm(
+                p, n, m, torch.float32), sms)
+
+        it = dict(boxqp_iters=iters) if box else {}
+        plan = rs.small_launch_plan(n, m, Bn, torch.float32, ddp, box, sms)
+        print(f"{label}: plan {plan.groups} lanes x {plan.scenarios} "
+              f"scenarios, {plan.smem_bytes} B shared a block"
+              + (f", Hessians {'staged' if plan.stage_h else 'in place'}, "
+                 f"{waves(plan)} wave(s) at B={Bn}" if ddp and not box
+                 else ""))
         fns = {f"small ({plan.groups} lanes x {plan.scenarios})":
-               lambda: launcher(*ins, boxqp_iters=iters)}
+               lambda: launcher(*ins, **it)}
+        if ddp and not box:
+            # the other side of small_launch_plan's choice for K6a's
+            # Hessians, at the same scenarios a block
+            other = dataclasses.replace(
+                plan, stage_h=not plan.stage_h,
+                smem_bytes=rs.small_smem_bytes(n, m, torch.float32, True,
+                                               plan.scenarios, box=box,
+                                               stage_h=not plan.stage_h))
+            fns[f"small, Hessians {'staged' if other.stage_h else 'in place'}"
+                f" ({waves(other)} wave(s))"] = \
+                lambda other=other: launcher(*ins, **it, plan=other)
         if sweep:
             for threads in SMALL_SWEEP_THREADS:
-                p = rs.small_plan(n, m, Bn, torch.float32, ddp, threads)
+                p = rs.small_plan(n, m, Bn, torch.float32, ddp, threads,
+                                  box=box, stage_h=plan.stage_h)
                 fns[f"small, <= {threads} threads ({p.scenarios} a block)"] \
-                    = lambda p=p: launcher(*ins, boxqp_iters=iters, plan=p)
-        if not ddp:
+                    = lambda p=p: launcher(*ins, **it, plan=p)
+        if label == "G4":
+            fns["small through the layout round trip"] = round_trip(
+                case, Bn, Tn)
+        if box and not ddp:
             fns["K7"] = lambda: rm.riccati_backward_mid_boxqp_kernel(
                 *(a[k] for k in rm.MID_BOXQP_ARGS), boxqp_iters=iters)
+        elif not box:
+            k7, k7keys = ((rm.riccati_backward_mid_ddp_kernel,
+                           rm.MID_DDP_ARGS) if ddp else
+                          (rm.riccati_backward_mid_kernel, rm.MID_ARGS))
+            fns["K7"] = lambda k7=k7, k7keys=k7keys: k7(
+                *(a[k] for k in k7keys))
         elif k7lib is not None:
             kp = rm.mid_plan(n, m, Bn, torch.float32)
             k7ins = [a[k] for k in rs.SMALL_DDP_BOXQP_ARGS]
@@ -1466,23 +1560,31 @@ def run_small(card, sweep=False, clocks=False, k7ddp=None):
                   + str(max(float((x - y)[ok].abs().max())
                             for x, y in zip(out[:2], k7out[:2]))))
             fns["K7"] = k7call
+        if "K7" in fns and not box:
+            out, out7 = launcher(*ins), fns["K7"]()
+            torch.cuda.synchronize()
+            ok = (out[4] == 0) & (out7[4] == 0)
+            print(f"  {label}: K7's fail mask identical "
+                  f"{bool(torch.equal(out[4], out7[4]))}, largest K/k "
+                  "difference on lanes ok in both "
+                  + str(max(float((x - y)[ok].abs().max())
+                            for x, y in zip(out[:2], out7[:2]))))
         times = in_turns(fns, lambda f: cs.graph_ms(f, 5))
         print(f"{label}, {case} {dims} B={Bn} T={Tn}, f32, ms (graph "
               f"replays of 5, best of two turns) [{card}]: "
               + ", ".join(f"{k} {t:.4f}" for k, t in times.items()))
         if clk is not None:
-            fn = getattr(clk, "tfmpc_riccati_backward_small_"
-                         + ("ddp_boxqp" if ddp else "boxqp"))
-            out = [torch.empty_like(x) for x in launcher(
-                *ins, boxqp_iters=iters)]
-            _build.check(fn(0, n, m, Tn, Bn, iters, *map(_build.ptr, ins),
+            entry, suffix = SMALL_ENTRIES[box, ddp]
+            fn = getattr(clk, "tfmpc_riccati_backward_small" + entry)
+            out = [torch.empty_like(x) for x in launcher(*ins, **it)]
+            ints = (0, n, m, Tn, Bn) + ((iters,) if box else ())
+            _build.check(fn(*ints, *map(_build.ptr, ins),
                             *map(_build.ptr, out), plan.groups,
-                            plan.scenarios, plan.smem_bytes,
-                            _build.stream()), "clocks")
+                            plan.scenarios, int(plan.stage_h),
+                            plan.smem_bytes, _build.stream()), "clocks")
             torch.cuda.synchronize()
             buf = (ctypes.c_ulonglong * 10)()
-            getattr(clk, "tfmpc_riccati_small_"
-                    + ("ddp_clocks" if ddp else "clocks"))(buf)
+            getattr(clk, f"tfmpc_riccati_small{suffix}_clocks")(buf)
             c = [buf[i] / Tn for i in SMALL_CLOCK_ORDER] + [buf[9] / Tn]
             print(f"  {label} phase clocks a step ("
                   + ", ".join(SMALL_CLOCK_NAMES) + "): "
@@ -1494,8 +1596,9 @@ def run_small(card, sweep=False, clocks=False, k7ddp=None):
 def main() -> int:
     import torch
 
-    if len(sys.argv) < 3 or sys.argv[1] not in ("p1", "k7", "lane",
-                                                 "rollout", "small"):
+    if sys.argv[1:] != ["small"] and (
+            len(sys.argv) < 3 or sys.argv[1] not in ("p1", "k7", "lane",
+                                                     "rollout", "small")):
         print(__doc__)
         return 2
     if sys.argv[1] == "rollout" and sys.argv[2] not in ("--sweep",
