@@ -178,13 +178,15 @@ GENERIC_DIMS = [(n, m) for n in range(1, 49) for m in range(1, 49)]
 def test_generic_plan_covers_each_row_once(kernel, dtype):
     """At every 1 <= n, m <= 48 (the generic form runs at the unrolled
     dims too when asked) and every G of ``GENERIC_PLANS`` (and the plan's
-    own), a block-ragged batch of 37 at up to 4 scenarios a block: each control and next-state row of
-    each live rollout is computed by exactly one lane, and no other (so
-    each K3/K5 store is made once); the groups' state columns (x_t,
-    x_{t+1} [n], u_t [m] at column tid / G of rp) are distinct per rollout
-    and lie within the block's shared bytes, which equal
-    ``generic_smem_bytes`` and fit ``SMEM_LIMIT``; the threads fit a
-    block."""
+    own), a block-ragged batch of 37 at up to 4 scenarios a block (a G
+    that fits no block is skipped: the plan rule lowers it): each control
+    and next-state row of each live rollout is computed by exactly one
+    lane, and no other (so each K3/K5 store is made once); the groups'
+    state columns (column tid / G of rp in each slot of the state ring, G
+    + 1 slots of x [n] and G of u [m], each slot padded to an odd multiple
+    of 128 bytes / G) are distinct per rollout and lie within the block's
+    shared bytes, which equal ``generic_smem_bytes`` and fit
+    ``SMEM_LIMIT``; the threads fit a block."""
     A = len(ALPHAS)
     per = A if kernel in rollout.EVERY_ALPHA else 1
     item = 4 if dtype == torch.float32 else 8
@@ -204,6 +206,9 @@ def test_generic_plan_covers_each_row_once(kernel, dtype):
                     break
                 except ValueError:
                     continue
+            else:
+                assert G != plan.groups, (n, m, G)
+                continue
             rolls, lane, roll, rp = _generic_threads(p, Bb, per)
             for rows in (m, n):  # the control rows, the next-state rows
                 assert (_row_counts(rolls, lane, G, rows, Bb, per)
@@ -213,7 +218,10 @@ def test_generic_plan_covers_each_row_once(kernel, dtype):
             ring = rollout.rollout_smem_bytes(n, m, G, p.scenarios, p.depth,
                                               pe, dtype)
             assert ring % item == 0                # the state is aligned
-            assert p.smem_bytes == ring + (2 * n + m) * rp * item
+            q = max(1, 128 // item // G)
+            sx, su = (v if (v // q) % 2 else v + q
+                      for v in (n * rp, m * rp))
+            assert p.smem_bytes == ring + ((G + 1) * sx + G * su) * item
             assert p.smem_bytes <= rollout.SMEM_LIMIT, (n, m, G)
 
 
@@ -223,7 +231,8 @@ def test_generic_plan_rule_fits_every_dim():
     env's rows of ``GENERIC_PLANS`` and the other envs' (HVAC's id), at the
     largest env's parameters (the linear step's), fits the shared memory and the threads; D is
     lowered only where one scenario a block would not fit at the table's
-    D."""
+    D, and G (the state ring grows with it) only where one would not fit
+    at the table's G."""
     A = len(ALPHAS)
     for dtype, env_id in ((torch.float32, 3), (torch.float64, 3),
                           (torch.float32, 1), (torch.float64, 1)):
@@ -236,11 +245,15 @@ def test_generic_plan_rule_fits_every_dim():
                 plan = rollout.rollout_plan(kernel, env_id, n, m, 4096, A,
                                             dtype, pe)
                 G, blocks, D = rollout.generic_row(kernel, env_id, n, m)
-                assert plan.generic and plan.groups == G
+                assert plan.generic and plan.groups <= G
                 assert plan.smem_bytes <= rollout.SMEM_LIMIT
                 assert plan.threads(per) <= rollout.TILE_MAX_THREADS
                 assert plan.depth <= D
                 if plan.depth < D:
                     assert rollout.generic_smem_bytes(
                         n, m, G, 1, plan.depth + 1, pe, dtype,
+                        per) > rollout.SMEM_LIMIT
+                if plan.groups < G:
+                    assert plan.depth == 1 and rollout.generic_smem_bytes(
+                        n, m, 2 * plan.groups, 1, 1, pe, dtype,
                         per) > rollout.SMEM_LIMIT

@@ -110,8 +110,9 @@ extern "C" int tfmpc_rollout_max_threads(int kind, int dtype, int env,
 #ifdef TFMPC_ROLLOUT_CLOCKS
 unsigned long long* tfmpc::tile_clocks = nullptr;
 
-// Where the tile kernels add their phase clocks (device, 8 counters;
-// null: nowhere). Only in the TFMPC_ROLLOUT_CLOCKS build.
+// Where the tile kernels add their phase clocks (device, 16 counters: the
+// unrolled kernel's 0-7, the generic form's 8-13; null: nowhere). Only in
+// the TFMPC_ROLLOUT_CLOCKS build.
 extern "C" void tfmpc_rollout_clocks_buffer(void* clocks) {
   tfmpc::tile_clocks = static_cast<unsigned long long*>(clocks);
 }

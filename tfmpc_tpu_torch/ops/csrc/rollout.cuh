@@ -523,7 +523,7 @@ struct TilePlan {
 };
 
 #ifdef TFMPC_ROLLOUT_CLOCKS
-// the phase-clock counters (device, 8), set by tfmpc_rollout_clocks_buffer
+// the phase-clock counters (device, 16), set by tfmpc_rollout_clocks_buffer
 extern unsigned long long* tile_clocks;
 #endif
 

@@ -21,24 +21,48 @@
 // sized at compile time: at n = m = 48 that is ~150 values a lane in
 // float32 and twice that in float64, against 255 registers a thread, and
 // an instantiation a dim (four envs at two dims took nvcc 263 s). Here the
-// dims are run-time values and the state lives in shared memory instead:
-// x_t and x_{t+1} [2][n] and u_t [m] of each rollout, rollouts side by
-// side (element i of rollout r at i * rp + r, so the groups of a warp read
-// consecutive words). Lane l of a group of G computes the control rows c =
-// l, l + G, ... < m and the next-state rows i = l, l + G, ... < n (G is a
-// run-time value, a power of two up to 32; ragged n % G leaves the last
-// lanes fewer rows), writes them there, and the group meets at a warp
-// barrier after the controls and after the next state (x_{t+1} goes to the
-// other buffer, so no lane overwrites what another still reads). Lane 0
-// computes the stage cost and the final cost, in the unrolled twin's
-// order. The rest is the unrolled tile kernel's: a block of spb scenarios
+// dims are run-time values and the state lives in shared memory instead,
+// rollouts side by side (element i of rollout r at i * rp + r, so the
+// groups of a warp read consecutive words). Lane l of a group of G
+// computes the control rows c = l, l + G, ... < m and the next-state rows
+// i = l, l + G, ... < n (G is a run-time value, a power of two up to 32;
+// ragged n % G leaves the last lanes fewer rows), writes them there, and
+// the group meets at a warp barrier after the controls and after the next
+// state. The rest is the unrolled tile kernel's: a block of spb scenarios
 // (K2, K5: times all A alphas), the last warp staging D steps of inputs
 // ahead with cp.async into D + 2 buffers (one block barrier a step), the
-// env's parameters and the box copied into shared memory once a block,
-// each lane storing its own rows of X and U. The shared bytes
-// (generic_smem_bytes) add the state's columns to the unrolled kernel's
-// sum; ops/rollout.py generic_smem_bytes mirrors it and the launch refuses
-// a plan that disagrees.
+// env's parameters and the box copied into shared memory once a block.
+//
+// What bounds it: each rollout is a chain of T dependent steps, and each
+// step a few chains of dependent shared-memory reads and FMAs a lane. The
+// stage cost is as long as the rest of the step or longer (the linear
+// step's at (48, 48): n (1 + n + m) + m (1 + m) = 7,008 terms in one sum,
+// against n (n + m) + m n = 6,912 terms of rows spread over the G lanes),
+// yet nothing in the recursion x_{t+1} = f(x_t, u_t) waits for it. So the
+// cost is off the chain: a group rolls chunks of G steps, keeping x_t and
+// u_t of each in a ring of slots (G + 1 slots of x: x_t of the chunk's
+// steps and x after them, G of u; step t0 + j reads slot j and writes
+// slots j and j + 1), then lane j takes the stage cost of step t0 + j, all
+// G at once, and the group adds them to the running sum in t order by
+// shuffles. Chunks run up and down the x slots in turn (an odd chunk from
+// slot G to slot 0), so each starts where the last ended and nothing is
+// copied. After the last chunk the lane after its last step (lane 0 where
+// the chunk is whole) takes the final cost and writes J. A step's critical
+// path is its rows over G plus a G-th of a cost, where it was its rows
+// over G plus a whole cost. Each cost is still the functor's own
+// stage_cost expression on one thread, the total Σ_t double(c_t) in t
+// order, then J = total + double(final_cost) as one expression, rounded
+// once, as the unrolled kernel writes it (nvcc may fuse a final cost's
+// last product into that sum in float64, so the final cost is computed
+// where the sum is): J is bit for bit a lane-0 sum's, as are X and U,
+// which each lane stores as it computes its rows. The ring's slots are
+// padded (generic_slot_stride) so that the cost phase's reads, lane j of
+// every group at slot j (G - j going down), fall on distinct banks. A lane
+// with several policy rows interleaves up to four (policy_rows), each in
+// its own order. The shared bytes (generic_smem_bytes) add the ring to
+// the unrolled kernel's sum, and do not grow with T; ops/rollout.py
+// generic_smem_bytes mirrors it and the launch refuses a plan that
+// disagrees.
 //
 // K8 (kDerivs) runs K3's rollout, then the linearization as the unrolled
 // kernel's derivs_tail does (generic_derivs_tail): after a block barrier
@@ -69,6 +93,37 @@ struct Column {
   __device__ __forceinline__ S operator[](int i) const { return p[i * s]; }
 };
 
+// Phase clocks of the generic form, built only with TFMPC_ROLLOUT_CLOCKS
+// (tools/kernel_versions.py rollout --clocks): each compute thread adds the
+// SM cycles of each phase of its steps to clocks[8 + phase] and 1 to
+// clocks[13]: 0 waiting at the block barrier, 1 the policy rows and their
+// U stores, 2 prep, the env rows and their X stores, 3 the stage costs and
+// their sum, 4 the final cost and J; a phase ends where the group next
+// meets, so a lane's wait for the group counts in the phase it waits on.
+// The producer warp counts as the unrolled kernel's (slots 0, 5 and 6).
+// The buffer holds 16 counters.
+#ifdef TFMPC_ROLLOUT_CLOCKS
+#define TFMPC_GENERIC_CLOCKS_BEGIN      \
+  unsigned long long gen_ph[5] = {};    \
+  long long gen_clk = clock64();
+#define TFMPC_GENERIC_PHASE(p)           \
+  {                                      \
+    const long long now = clock64();     \
+    gen_ph[p] += now - gen_clk;          \
+    gen_clk = now;                       \
+  }
+#define TFMPC_GENERIC_CLOCKS_END                                      \
+  if (a.clocks != nullptr) {                                          \
+    for (int p = 0; p < 5; ++p)                                       \
+      if (gen_ph[p]) atomicAdd(a.clocks + 8 + p, gen_ph[p]);          \
+    atomicAdd(a.clocks + 13, 1ull);                                   \
+  }
+#else
+#define TFMPC_GENERIC_CLOCKS_BEGIN
+#define TFMPC_GENERIC_PHASE(p)
+#define TFMPC_GENERIC_CLOCKS_END
+#endif
+
 // The rows of a staged step at run-time dims, TileRows' order: xbar [n],
 // ubar [m], k [m], then K transposed (row K + i*m + c holds K_ci).
 struct GenericRows {
@@ -84,15 +139,35 @@ __host__ __device__ inline int generic_compute_threads(int rollouts,
   return (rollouts * groups + kWarp - 1) / kWarp * kWarp;
 }
 
+// The values between two slots of the state ring: a slot holds a vector
+// of len values of each of the rp columns (len * rp), padded so that the
+// cost phase's reads, lane s of every group at slot s, fall on distinct
+// banks: lane (group g, slot s) reads value s * stride + g of a row, so a
+// stride that is an odd multiple of q = the values one wavefront serves
+// (128 bytes) / G spreads the warp's reads over every bank (rp is a
+// multiple of 32 / G, so len * rp is a multiple of q).
+__host__ __device__ inline int generic_slot_stride(int len, int rp,
+                                                   int groups, int itemsize) {
+  const int wave = 128 / itemsize;
+  const int q = wave > groups ? wave / groups : 1;
+  const int v = len * rp;
+  return (v / q) % 2 == 1 ? v : v + q;
+}
+
 // A generic block's dynamic shared bytes: tile_smem_bytes' parameters, box
-// and ring, then the state of every compute group (x_t, x_{t+1} [n] and
-// u_t [m] a group). ops/rollout.py generic_smem_bytes computes the same.
+// and ring, then the state ring of every compute group: G + 1 slots of x
+// [n] (x_t of a chunk's G steps and x after them) and G slots of u [m], a
+// group's column in each. ops/rollout.py generic_smem_bytes computes the
+// same.
 inline long long generic_smem_bytes(int itemsize, int n, int m, int groups,
                                     int spb, int depth, int param_elems,
                                     int rollouts) {
-  const long long cols = generic_compute_threads(rollouts, groups) / groups;
+  const int cols = generic_compute_threads(rollouts, groups) / groups;
   return tile_smem_bytes(itemsize, n, m, groups, spb, depth, param_elems) +
-         (2LL * n + m) * cols * itemsize;
+         ((groups + 1LL) * generic_slot_stride(n, cols, groups, itemsize) +
+          static_cast<long long>(groups) *
+              generic_slot_stride(m, cols, groups, itemsize)) *
+             itemsize;
 }
 
 // Copy step t's inputs of the block's scenarios into ``buf`` (rollout.cuh
@@ -147,14 +222,53 @@ __device__ __forceinline__ void generic_derivs_tail(const TileArgs<S>& a,
   }
 }
 
+// The policy rows c = c0, c0 + G, ... (kTile of them, those < m) of a
+// staged step (``in``: the scenario's column): u_c = clip((ubar_c + alpha
+// k_c) + sum_i K_ci dx_i), each row's sum in ascending i from 0, as the
+// one-row loop takes it, so each u_c is bit for bit the same; the rows
+// share each dx_i and their chains interleave. A row past m is computed on
+// row c0's inputs and dropped. emit(c, u_c) stores a row.
+template <int kTile, typename S, class X, class F>
+__device__ __forceinline__ void policy_rows(const S* in, int st,
+                                            const GenericRows& R, int n,
+                                            int m, int c0, int groups,
+                                            S alpha, const S* box, const X& x,
+                                            F&& emit) {
+  int c[kTile];
+  S acc[kTile];
+#pragma unroll
+  for (int q = 0; q < kTile; ++q) {
+    c[q] = c0 + q * groups < m ? c0 + q * groups : c0;
+    acc[q] = 0;
+  }
+  for (int i = 0; i < n; ++i) {
+    const S dx = x[i] - in[i * st];
+    const S* k = in + (R.K + i * m) * st;
+#pragma unroll
+    for (int q = 0; q < kTile; ++q) acc[q] += k[c[q] * st] * dx;
+  }
+#pragma unroll
+  for (int q = 0; q < kTile; ++q) {
+    if (q > 0 && c0 + q * groups >= m) continue;
+    const S base = in[(R.ubar + c[q]) * st] + alpha * in[(R.k + c[q]) * st];
+    emit(c[q], clip(base + acc[q], box[c[q]], box[m + c[q]]));
+  }
+}
+
+// lane ``src``'s v within the group of ``groups`` lanes
+template <typename S>
+__device__ __forceinline__ S group_value(S v, int src, int groups) {
+  return groups == 1 ? v : __shfl_sync(kFullMask, v, src, groups);
+}
+
 // The generic tile kernel of kind kKind (kCosts K2, kAlpha K3, kTraj K5,
-// kDerivs K8)
-// with the env's run-time-dim step ``env`` (its n and m) and G = ``groups``
-// lanes a rollout. Compute thread tid is lane tid % G of rollout tid / G;
-// rollout r is scenario b0 + r % spb at alpha r / spb. Rollouts past the
-// last (the compute threads are whole warps) and scenarios past B run the
-// steps on values nobody reads and store nothing; every compute thread
-// runs every step, so the warp barriers see the whole warp.
+// kDerivs K8) with the env's run-time-dim step ``env`` (its n and m) and G
+// = ``groups`` lanes a rollout. Compute thread tid is lane tid % G of
+// rollout tid / G; rollout r is scenario b0 + r % spb at alpha r / spb.
+// Rollouts past the last (the compute threads are whole warps) and
+// scenarios past B run the steps and the costs on values nobody reads and
+// store nothing; every compute thread runs every step and every chunk's
+// costs, so the warp barriers and the shuffles see the whole warp.
 template <typename S, class Env, int kKind>
 __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
                                        Env env) {
@@ -182,8 +296,10 @@ __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
   const int bufs = a.depth + 2;
   const int ncomp = nthr - kWarp;  // the compute warps' threads
   const int rp = ncomp / groups;   // the state's columns, one a group
-  S* xs = ring + bufs * step_elems;  // x_t, x_{t+1}: [2][n][rp]
-  S* us = xs + 2 * n * rp;           // u_t: [m][rp]
+  const int sx = generic_slot_stride(n, rp, groups, sizeof(S));
+  const int sy = generic_slot_stride(m, rp, groups, sizeof(S));
+  S* xs = ring + bufs * step_elems;  // x: [G + 1 slots of sx][n][rp]
+  S* us = xs + (groups + 1) * sx;    // u: [G slots of sy][m][rp]
 
   const bool producer = tid >= ncomp;
   // the producer: rollout.cuh's, at run-time dims
@@ -195,6 +311,7 @@ __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
     }
     cp_async_wait_pending(a.depth - 1);
     __syncthreads();  // step 0's inputs and the parameters have landed
+    TFMPC_TILE_CLOCKS_BEGIN
     int next = a.depth;
 #pragma unroll 1
     for (int t = 0; t < a.T; ++t) {
@@ -202,10 +319,13 @@ __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
         stage_generic_step(a, n, m, ring + next * step_elems, t + a.depth,
                            copier);
       cp_async_commit();
+      TFMPC_TILE_PHASE(0)
       cp_async_wait_pending(a.depth);  // step t's group has landed
       __syncthreads();                 // for the compute warps
+      TFMPC_TILE_PHASE(1)
       next = next + 1 == bufs ? 0 : next + 1;
     }
+    TFMPC_TILE_CLOCKS_END(5)
     if constexpr (kKind == kDerivs)
       generic_derivs_tail(a, env, b0, tid, nthr);
     return;
@@ -235,45 +355,92 @@ __global__ void rollout_generic_kernel(const TileArgs<S> a, const int groups,
   const bool stores = kKind != kCosts && live;
 
   __syncthreads();  // step 0's inputs and the parameters have landed
-  for (int i = lane; i < n; i += groups)  // x_0 = xbar_0
+  for (int i = lane; i < n; i += groups)  // x_0 = xbar_0, slot 0
     xs[i * rp + roll] = ring[i * a.stride + s];
   __syncwarp();
   double total = 0;
   int cur = 0;  // the buffer of step t
+  TFMPC_GENERIC_CLOCKS_BEGIN
+  // chunks of G steps over the G + 1 x slots, in turn up and down: step
+  // t0 + j reads x_t from slot j and writes x_{t+1} to slot j + 1 in an
+  // even chunk, from slot G - j to slot G - j - 1 in an odd one, and u_t
+  // to slot j; then lane j of the group takes the stage cost of step t0 +
+  // j. Each chunk starts where the last ended, so nothing is copied.
+  bool down = false;  // an odd chunk
 #pragma unroll 1
-  for (int t = 0; t < a.T; ++t) {
-    __syncthreads();  // step t's inputs have landed
-    const S* in = ring + cur * step_elems + s;
-    const int st = a.stride;
-    const Column<S> x{xs + (t & 1) * n * rp + roll, rp};
-    S* xn = xs + ((t + 1) & 1) * n * rp + roll;
-    const Column<S> u{us + roll, rp};
-    // the policy rows: (ubar_c + alpha k_c) + sum_i K_ci dx_i, clipped
-    for (int c = lane; c < m; c += groups) {
-      const S base = in[(R.ubar + c) * st] + alpha * in[(R.k + c) * st];
-      S acc = 0;
-      for (int i = 0; i < n; ++i)
-        acc += in[(R.K + i * m + c) * st] * (x[i] - in[i * st]);
-      const S uc = clip(base + acc, box[c], box[m + c]);
-      us[c * rp + roll] = uc;
-      if (stores) a.U[at(t, urow0 + c, urows, b, a.B)] = uc;
+  for (int t0 = 0; t0 < a.T; t0 += groups, down = !down) {
+    const int steps = a.T - t0 < groups ? a.T - t0 : groups;
+    const int dir = down ? -1 : 1;
+    const int x0 = down ? groups : 0;  // x_{t0}'s slot
+#pragma unroll 1
+    for (int j = 0; j < steps; ++j) {
+      __syncthreads();  // step t0 + j's inputs have landed
+      TFMPC_GENERIC_PHASE(0)
+      const int t = t0 + j;
+      const S* in = ring + cur * step_elems + s;
+      const int st = a.stride;
+      const Column<S> x{xs + (x0 + dir * j) * sx + roll, rp};
+      S* xn = xs + (x0 + dir * (j + 1)) * sx + roll;
+      S* uo = us + j * sy + roll;
+      const Column<S> u{uo, rp};
+      // the policy rows, up to four a pass (as many as the lane has)
+      const auto emit = [&](int c, S uc) {
+        uo[c * rp] = uc;
+        if (stores) a.U[at(t, urow0 + c, urows, b, a.B)] = uc;
+      };
+      if (m > 2 * groups) {
+        for (int c0 = lane; c0 < m; c0 += 4 * groups)
+          policy_rows<4>(in, st, R, n, m, c0, groups, alpha, box, x, emit);
+      } else if (m > groups) {
+        for (int c0 = lane; c0 < m; c0 += 2 * groups)
+          policy_rows<2>(in, st, R, n, m, c0, groups, alpha, box, x, emit);
+      } else if (lane < m) {
+        policy_rows<1>(in, st, R, n, m, lane, groups, alpha, box, x, emit);
+      }
+      __syncwarp();  // the group's u_t is whole
+      TFMPC_GENERIC_PHASE(1)
+      const auto pre = env.prep(x);
+      for (int i = lane; i < n; i += groups) {  // no u_i past m (m < n)
+        const S xi = env.row(pre, i, x, u, x[i], i < m ? u[i] : S(0));
+        xn[i * rp] = xi;
+        if (stores) a.X[at(t, xrow0 + i, xrows, b, a.B)] = xi;
+      }
+      __syncwarp();  // x_{t+1} is whole
+      TFMPC_GENERIC_PHASE(2)
+      cur = cur + 1 == bufs ? 0 : cur + 1;
     }
-    __syncwarp();  // the group's u_t is whole
-    const auto pre = env.prep(x);
-    for (int i = lane; i < n; i += groups) {  // no u_i past m (linear, m < n)
-      const S xi = env.row(pre, i, x, u, x[i], i < m ? u[i] : S(0));
-      xn[i * rp] = xi;
-      if (stores) a.X[at(t, xrow0 + i, xrows, b, a.B)] = xi;
+    // the chunk's stage costs, one a lane, off the steps' chain, added to
+    // the running sum in t order (every lane of the group keeps the sum)
+    S c = 0;
+    if (lane < steps)
+      c = env.stage_cost(Column<S>{xs + (x0 + dir * lane) * sx + roll, rp},
+                         Column<S>{us + lane * sy + roll, rp});
+    TFMPC_GENERIC_PHASE(3)
+    // four lanes' costs fetched at a time, so that only the adds are a
+    // chain (a lane past the chunk's steps is fetched and not added)
+    for (int j0 = 0; j0 < steps; j0 += 4) {
+      S v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = group_value(c, j0 + q, groups);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (j0 + q < steps) total += static_cast<double>(v[q]);
     }
-    if (lane == 0) total += static_cast<double>(env.stage_cost(x, u));
-    __syncwarp();  // x_{t+1} is whole; every read of x_t and u_t is done
-    cur = cur + 1 == bufs ? 0 : cur + 1;
+    TFMPC_GENERIC_PHASE(3)
+    if (t0 + steps == a.T) {
+      // the final cost at x_T and J on the lane after the last step's
+      // (lane 0 where the chunk is whole), the sum's last term written as
+      // the unrolled kernel writes it
+      const int fl = steps == groups ? 0 : steps;
+      if (live && lane == fl) {
+        const Column<S> x{xs + (x0 + dir * steps) * sx + roll, rp};
+        a.J[kEvery ? static_cast<int64_t>(ai) * a.B + b : b] =
+            static_cast<S>(total + static_cast<double>(env.final_cost(x)));
+      }
+      TFMPC_GENERIC_PHASE(4)
+    }
   }
-  if (live && lane == 0) {
-    const Column<S> x{xs + (a.T & 1) * n * rp + roll, rp};
-    a.J[kEvery ? static_cast<int64_t>(ai) * a.B + b : b] =
-        static_cast<S>(total + static_cast<double>(env.final_cost(x)));
-  }
+  TFMPC_GENERIC_CLOCKS_END
   if constexpr (kKind == kDerivs) generic_derivs_tail(a, env, b0, tid, nthr);
 }
 

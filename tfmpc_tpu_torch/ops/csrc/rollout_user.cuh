@@ -13,9 +13,10 @@
 // user_library compiles this file with it, one library a generated source,
 // and ops/rollout.py launches it at the generic form's plans
 // (GENERIC_PLANS). The kernel, its bound and what its design does about it
-// are rollout_generic.cuh's: the step is inlined into the rollout loop as
-// the JAX kernel inlines the traced step_fn, its parameters copied into
-// shared memory once a block.
+// are rollout_generic.cuh's: the step's prep and rows are inlined into the
+// rollout loop, as the JAX kernel inlines the traced step_fn, and its
+// stage cost into the chunk's cost phase (one lane a step, off the steps'
+// chain), its parameters copied into shared memory once a block.
 //
 // The C entries mirror rollout_generic.cu's tfmpc_rollout_generic,
 // _max_threads and _smem_bytes without the env argument; they refuse a

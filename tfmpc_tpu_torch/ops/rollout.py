@@ -45,6 +45,7 @@ import torch
 from tfmpc_tpu_torch.models.base import USER_STEP_ID
 from tfmpc_tpu_torch.models.hvac import HVAC_STEP_ID
 from tfmpc_tpu_torch.models.linear import LINEAR_STEP_ID
+from tfmpc_tpu_torch.models.navigation import NAVIGATION_STEP_ID
 from tfmpc_tpu_torch.core.types import Policy
 from tfmpc_tpu_torch.ops import _build, env_codegen, riccati
 
@@ -110,48 +111,54 @@ ROLLOUT_PLANS = {
 }
 # The generic form's plans, by kind and env family: (the largest max(n, m)
 # a row takes, (G, the blocks a launch aims at, D)), rows in ascending
-# order. G is a run-time value there (any power of two up to 32). The
-# linear step's stage cost, n^2 + nm + m^2 terms summed on lane 0 of a
-# rollout's group, is most of its step, so it runs best on few lanes a
-# rollout; the other envs' rows are most of theirs, so they take more
-# lanes as n grows. The fastest plan of ``tools/kernel_versions.py rollout
-# --generic-sweep`` on one H100 at the shapes of chip_smoke.py's phase 29
-# (the double integrator for the linear rows at 2, (24, 6) at 24, (48, 48)
-# at 48; reservoir-12 at 12, HVAC-24 for the rest; PERF.md section 6),
-# its blocks kept at other batches. The other envs' row at 4 serves
-# reservoir-4 and navigation-4, whose fastest plans differ: it is within
-# 2.1% of the fastest for both envs' K3 and navigation-4's K2, and
-# 1.28-1.38x off for reservoir-4's K2 and K5 and navigation-4's K5.
-# ``rollout_plan`` lowers D where one scenario a block does not fit the
-# shared memory (the linear env's parameters at n = m = 48 in float64 take
-# 113 KB). A user env's generated step (``USER_STEP_ID``) takes the
-# ``"user"`` rows, or the ``"linear"`` ones where its serial work is large
-# (``plan_family``): ``--generic-sweep user`` on one H100 found the
-# ``"other"`` rows 1.19-1.52x the fastest plans at the custom-env example's
-# chain (d = 6, B=512, T=40), whose fastest plans at d = 6, 12 and 24 are
-# the ``"user"`` rows (within 5.1% of the fastest at d = 48), and the
-# ``"user"`` rows 1.07-1.77x the fastest at the (8, 3) fuzz env (its stage
-# cost's quadratic forms: serial work 0.9x its next state's), whose
-# fastest plans the ``"linear"`` rows match within 1% (PERF.md section 6).
+# order. G is a run-time value there (any power of two up to 32). A group
+# rolls chunks of G steps and its G lanes then take their stage costs one
+# each (csrc/rollout_generic.cuh), so G divides both the rows and the cost
+# of a step; but the state ring grows with G (G + 1 slots of x, G of u),
+# and where it leaves fewer scenarios a block the launch takes more waves.
+# The fastest plan of ``tools/kernel_versions.py rollout --generic-sweep``
+# on one H100 at the shapes of chip_smoke.py's phase 29 and 31 (PERF.md
+# section 6): the linear rows at the double integrator (2), the (8, 3)
+# fuzz env's generated step (8, whose serial work takes the linear rows,
+# ``plan_family``), (24, 6) at 24 and (48, 48) at 48; navigation's at
+# navigation-4, the other envs' at reservoir-4 (4), reservoir-12 (12) and
+# HVAC-24 (48), navigation's above 4 the same; the generated step's at the
+# custom-env example's chain at d = 6, 12, 24 (8 lanes a rollout for K2
+# and K5) and 48 (4: at 8 one scenario less a block fits), each within
+# 0.2% of the fastest plan at its shape, its blocks kept at other
+# batches. Navigation-4 and reservoir-4 have rows of their own: their
+# fastest plans differ (G = 2 and 4 for K2 and K5), and one row for both
+# was 1.33-1.35x the fastest for one of them. ``rollout_plan`` lowers D,
+# then G, where one scenario a block does not fit the shared memory (the
+# linear env's parameters at n = m = 48 in float64 take 113 KB).
 GENERIC_PLANS = {
-    "costs": {"linear": ((2, (1, 512, 1)), (48, (4, 128, 1))),
-              "other": ((4, (2, 256, 1)), (12, (4, 128, 1)),
+    "costs": {"linear": ((2, (2, 128, 1)), (8, (4, 128, 1)),
+                         (24, (8, 128, 1)), (48, (8, 256, 1))),
+              "navigation": ((4, (2, 256, 1)), (12, (8, 256, 1)),
+                             (48, (8, 128, 1))),
+              "other": ((4, (4, 128, 1)), (12, (8, 256, 1)),
                         (48, (8, 128, 1))),
-              "user": ((48, (8, 128, 1)),)},
-    "alpha": {"linear": ((2, (2, 128, 1)), (24, (8, 128, 1)),
-                         (48, (16, 128, 1))),
-              "other": ((4, (4, 256, 1)), (12, (16, 512, 1)),
+              "user": ((24, (8, 128, 1)), (48, (4, 128, 1)))},
+    "alpha": {"linear": ((2, (4, 256, 1)), (8, (8, 256, 1)),
+                         (24, (32, 256, 1)), (48, (32, 128, 1))),
+              "navigation": ((4, (4, 512, 1)), (12, (16, 256, 1)),
+                             (48, (16, 128, 1))),
+              "other": ((4, (8, 128, 1)), (12, (16, 256, 1)),
                         (48, (16, 128, 1))),
               "user": ((48, (16, 128, 1)),)},
-    "traj": {"linear": ((2, (1, 128, 1)), (24, (4, 128, 1)),
-                        (48, (2, 128, 1))),
-             "other": ((4, (2, 256, 1)), (12, (4, 128, 1)),
+    "traj": {"linear": ((2, (2, 128, 1)), (8, (4, 128, 1)),
+                        (24, (8, 128, 1)), (48, (8, 256, 1))),
+             "navigation": ((4, (2, 128, 1)), (12, (4, 128, 1)),
+                            (48, (8, 128, 1))),
+             "other": ((4, (4, 128, 1)), (12, (4, 128, 1)),
                        (48, (8, 128, 1))),
-             "user": ((48, (8, 128, 1)),)},
+             "user": ((24, (8, 128, 1)), (48, (4, 128, 1)))},
     # K8, navigation only, n = m <= DERIVS_DIM_MAX: the fastest plans of
     # ``--generic-sweep derivs`` at chip_smoke.py phase 30's G4 (n = 4,
-    # B=4096, T=100) and G5 (n = 12, B=1024, T=50) shapes
-    "derivs": {"other": ((4, (8, 256, 1)), (12, (16, 128, 1)))},
+    # B=4096, T=100) and G5 (n = 12, B=1024, T=50) shapes, but at 256
+    # blocks for n <= 4 (5.7% off G4's fastest, 512 blocks): there its
+    # block-ragged check batch (B=401) keeps two scenarios a block
+    "derivs": {"other": ((4, (8, 256, 1)), (12, (16, 128, 2)))},
 }
 GENERIC_GROUPS = (1, 2, 4, 8, 16, 32)
 # the kinds' codes in the C entries (csrc/rollout.cuh RolloutKind)
@@ -215,15 +222,33 @@ def rollout_smem_bytes(n: int, m: int, groups: int, spb: int, depth: int,
     return (par + (depth + 2) * rows * tile_stride(spb, groups, item)) * item
 
 
+def generic_slot_stride(length: int, cols: int, groups: int,
+                        itemsize: int) -> int:
+    """The values between two slots of the generic form's state ring
+    (csrc/rollout_generic.cuh generic_slot_stride): ``length * cols``,
+    padded to an odd multiple of q = (128 bytes / itemsize) / G (at least
+    1), so that lane s of every group reading slot s hits distinct
+    banks."""
+    wave = 128 // itemsize
+    q = wave // groups if wave > groups else 1
+    v = length * cols
+    return v if (v // q) % 2 else v + q
+
+
 def generic_smem_bytes(n: int, m: int, groups: int, spb: int, depth: int,
                        param_elems: int, dtype, rollouts: int) -> int:
     """A generic block's shared bytes (csrc/rollout_generic.cuh
-    generic_smem_bytes): ``rollout_smem_bytes``, then the state of every
-    compute group, x_t and x_{t+1} [n] and u_t [m] a group, for
-    ``rollouts`` rollouts a block (spb, times A for K2 and K5)."""
-    lanes = -(-rollouts * groups // 32) * 32
+    generic_smem_bytes): ``rollout_smem_bytes``, then the state ring of
+    every compute group, G + 1 slots of x [n] and G of u [m] (a chunk of G
+    steps, whose stage costs the group's G lanes take one each), for
+    ``rollouts`` rollouts a block (spb, times A for K2 and K5). It does
+    not grow with T."""
+    item = _ITEMSIZE[dtype]
+    cols = -(-rollouts * groups // 32) * 32 // groups
     return (rollout_smem_bytes(n, m, groups, spb, depth, param_elems, dtype)
-            + (2 * n + m) * (lanes // groups) * _ITEMSIZE[dtype])
+            + ((groups + 1) * generic_slot_stride(n, cols, groups, item)
+               + groups * generic_slot_stride(m, cols, groups, item))
+            * item)
 
 
 def derivs_dims(n: int, m: int) -> bool:
@@ -263,10 +288,14 @@ def generic_row(kernel: str, env_id: int, n: int, m: int,
                 family: str | None = None):
     """``GENERIC_PLANS``' (G, blocks, D) of ``kernel`` for the env
     ``env_id`` at (n, m), from the rows of ``family`` (by default the
-    linear env's for it, the ``"other"`` rows for the rest)."""
+    linear env's for it, navigation's for it where the kind has them, the
+    ``"other"`` rows for the rest)."""
+    rows = GENERIC_PLANS[kernel]
     if family is None:
-        family = "linear" if env_id == LINEAR_STEP_ID else "other"
-    for ceiling, row in GENERIC_PLANS[kernel][family]:
+        family = {LINEAR_STEP_ID: "linear",
+                  NAVIGATION_STEP_ID: "navigation"}.get(env_id, "other")
+        family = family if family in rows else "other"
+    for ceiling, row in rows[family]:
         if max(n, m) <= ceiling:
             return row
     raise NotImplementedError(
@@ -278,44 +307,49 @@ def _generic_plan(kernel, env_id, n, m, B, A, dtype, param_elems, groups,
                   scenarios, depth, max_threads,
                   family=None) -> RolloutPlan:
     """``rollout_plan`` of the generic form: ``GENERIC_PLANS``' G and D, D
-    lowered (to 1 at the least) until one scenario a block fits the shared
-    memory, then the largest power of two of scenarios a block as the
-    unrolled rule takes it."""
+    lowered (to 1 at the least), then G halved, until one scenario a block
+    fits the threads and the shared memory (the state ring grows with G),
+    then the largest power of two of scenarios a block as the unrolled
+    rule takes it."""
     G, blocks, D = generic_row(kernel, env_id, n, m, family)
-    G = groups or G
     per = A if kernel in EVERY_ALPHA else 1
-    if G not in GENERIC_GROUPS:
-        raise ValueError(f"plan G={G}: G is a power of two <= 32")
 
-    def fits(spb, D):
+    def fits(spb, D, G):
         return (-(-spb * per * G // 32) * 32 + 32 <= max_threads
                 and generic_smem_bytes(n, m, G, spb, D, param_elems, dtype,
                                        spb * per) <= SMEM_LIMIT)
 
     if depth is None:
-        while D > 1 and not fits(1, D):
+        while D > 1 and not fits(1, D, groups or G):
             D -= 1
     else:
         D = depth
+    if groups is None:
+        while G > 1 and not fits(1, D, G):
+            G //= 2
+    else:
+        G = groups
+    if G not in GENERIC_GROUPS:
+        raise ValueError(f"plan G={G}: G is a power of two <= 32")
     if not 1 <= D <= TILE_MAX_DEPTH:
         raise ValueError(f"plan D={D}: 1 <= D <= {TILE_MAX_DEPTH}")
     if scenarios is None:
         spb = 1
         while 2 * spb <= min(-(-B // blocks), TILE_MAX_SPB) \
-                and fits(2 * spb, D):
+                and fits(2 * spb, D, G):
             spb *= 2
     else:
         spb = scenarios
     if spb & (spb - 1) or not 1 <= spb <= TILE_MAX_SPB:
         raise ValueError(f"{spb} scenarios a block: a power of two <= "
                          f"{TILE_MAX_SPB}")
-    if not fits(spb, D) and env_id == USER_STEP_ID:
+    if not fits(spb, D, G) and env_id == USER_STEP_ID:
         raise NotImplementedError(
             f"the generated step's {param_elems} parameter values do not fit "
             f"a {kernel} block's shared memory at (n, m) = {(n, m)} (G={G}, "
             f"{spb} scenario(s) a block, D={D}, {SMEM_LIMIT} bytes); "
             f"{env_codegen.OPT_OUTS}")
-    if not fits(spb, D):
+    if not fits(spb, D, G):
         raise ValueError(
             f"no generic {kernel} plan fits at (n, m) = {(n, m)}: G={G}, "
             f"{spb} scenario(s) a block, D={D} exceed {max_threads} threads "

@@ -8,7 +8,7 @@ or the small-dims Riccati kernel beside K7, on one GPU.
     python3 tools/kernel_versions.py lane LABEL=REV|DIR [LABEL=REV|DIR ...]
     python3 tools/kernel_versions.py lane --sweep
     python3 tools/kernel_versions.py rollout LABEL=REV|DIR[,-DNAME] [...]
-        [--clocks]
+        [--generic] [--clocks]
     python3 tools/kernel_versions.py rollout --sweep [KIND ...]
     python3 tools/kernel_versions.py rollout --generic-sweep [KIND ...]
     python3 tools/kernel_versions.py rollout --generic-sweep user
@@ -83,15 +83,26 @@ times both in float32 in turns as device times of graph replays of 10
 calls (and eager loops). A version whose C entries take ``block``
 launches with its own ``ops/rollout.py`` BLOCK (K5: TRAJ_BLOCK, K8:
 DERIVS_BLOCK); one whose entries take a plan with the checkout's
-``rollout_plan``. Then, at ``EMIT_CASES``, the checkout's two line-search
-layouts as the solver runs them, K5 + ``select_alpha_trajectory`` against
-K2 + K3, as device times of graph replays in turns (the measurement
-behind ``ilqr_batched._resolve_emit_traj``). ``--clocks`` also builds
+``rollout_plan``. Before those, the generic form (``run_generic_versions``):
+K2, K3 and K5 at ``GENERIC_SWEEP_CASES``, K8 at
+``DERIVS_GENERIC_SWEEP_CASES`` and, on a user env's generated step (each
+version's ``rollout_user.cuh`` built on the same generated source), at
+``USER_SWEEP_CASES``, each version launched at its own plans (its
+``rollout.py`` loaded as a module of its own, ``rollout_module``), every
+output bitwise equal to the checkout's in float64 and float32, then timed
+in turns; ``--generic`` stops there. Then, at ``EMIT_CASES``, the
+checkout's two line-search layouts as the solver runs them, K5 +
+``select_alpha_trajectory`` against K2 + K3, as device times of graph
+replays in turns (the measurement behind
+``ilqr_batched._resolve_emit_traj``). ``--clocks`` also builds
 ``tools/rollout_clocks.cu`` (the one-thread K2/K3 loop of commit 0bac190
 with clock64() between its phases) and prints, at each case, the SM
 cycles a step of load wait, policy, env step and stores; then the
 checkout's sources with their own phase clocks
-(``-DTFMPC_ROLLOUT_CLOCKS``, csrc/rollout.cuh), the same for every kind.
+(``-DTFMPC_ROLLOUT_CLOCKS``, csrc/rollout.cuh), the same for every kind,
+and the generic form's (csrc/rollout_generic.cuh) at its cases; a version
+built with that define (``LABEL=DIR,-DTFMPC_ROLLOUT_CLOCKS``) prints its
+generic form's clocks too (with ``--generic``, only the generic form's).
 ``rollout --sweep`` builds the checkout's rollout sources with every G of
 the kinds named (``costs``, ``alpha``, ``traj``, ``derivs``; all by
 default) at each dim's swept env (``-DTFMPC_ROLLOUT_ALL_G``, a mask of
@@ -602,9 +613,10 @@ def env_case(env, Bn, dtype):
 # -- the rollout kernels K2, K3, K5 and K8 -----------------------------------
 
 ROLLOUT_SOURCES = ("rollout.cu", "rollout_traj.cu", "rollout_n12.cu",
-                   "rollout_n16.cu", "rollout_derivs.cu")
-ROLLOUT_FILES = ("rollout.cuh", "envs.cuh", "common.cuh", "warp.cuh",
-                 *ROLLOUT_SOURCES)
+                   "rollout_n16.cu", "rollout_derivs.cu", "rollout_generic.cu",
+                   "rollout_generic_traj.cu", "rollout_generic_derivs.cu")
+ROLLOUT_FILES = ("rollout.cuh", "rollout_generic.cuh", "rollout_user.cuh",
+                 "envs.cuh", "common.cuh", "warp.cuh", *ROLLOUT_SOURCES)
 # label -> chip_smoke.py inputs: the table's shapes of K2, K3 and K5
 ROLLOUT_CASES = {
     "headline": ("navigation", None, None),          # B=4096, T=100
@@ -684,7 +696,103 @@ def build_rollout(label: str, src: Path, defines=()) -> ctypes.CDLL:
     print(f"{label} ({src}):")
     cs.print_ptxas(log, every_rollout=True)
     cs.print_build_times(log)
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    if hasattr(lib, "tfmpc_rollout_generic"):  # has the generic form
+        lib.tfmpc_rollout_generic.argtypes = \
+            _build._SIGNATURES["tfmpc_rollout_generic"]
+        lib.tfmpc_rollout_generic_max_threads.argtypes = [_I] * 5 + [
+            _P, _I, _P, _I]
+        lib.tfmpc_rollout_generic.restype = ctypes.c_int
+        lib.tfmpc_rollout_generic_max_threads.restype = ctypes.c_int
+    return lib
+
+
+def _user_dir(label: str, source: str) -> Path:
+    import hashlib
+
+    return OUT / "user" / label / hashlib.sha256(
+        source.encode()).hexdigest()[:16]
+
+
+def build_version_users(label: str, src: Path, sources) -> None:
+    """Build the user libraries (``csrc/rollout_user.cuh``) of the version
+    in ``src`` on the generated steps ``sources`` that are not built yet,
+    one nvcc each, all started together, as ``_build.build_user_libraries``
+    builds the checkout's (which ``label="checkout"`` takes), with ``src``
+    first on ``-I``, into ``OUT/user/label/``."""
+    from tfmpc_tpu_torch.ops import _build
+
+    if label == "checkout":
+        _build.build_user_libraries(sources)
+        return
+    cmds = []
+    for source in dict.fromkeys(sources):
+        d = _user_dir(label, source)
+        if (d / "libtfmpc_user.so").exists():
+            continue
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "user_step.cuh").write_text("#pragma once\n" + source)
+        (d / "user.cu").write_text('#include "rollout_user.cuh"\n')
+        cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-I",
+                     str(CSRC), "-I", str(d), "-shared", "-o",
+                     str(d / "libtfmpc_user.so"), str(d / "user.cu")])
+    if cmds:
+        _build._run_all(cmds, OUT / "user" / f"{label}.build")
+
+
+def version_user_library(label: str, src: Path, source: str):
+    """The user library of the version in ``src`` on the generated step
+    ``source`` (``build_version_users``); the checkout's own for
+    ``label="checkout"``."""
+    from tfmpc_tpu_torch.ops import _build
+
+    if label == "checkout":
+        return _build.user_library(source)
+    key = (label, source)
+    if key in _VERSION_USER:
+        return _VERSION_USER[key]
+    build_version_users(label, src, [source])
+    lib = ctypes.CDLL(str(_user_dir(label, source) / "libtfmpc_user.so"))
+    for name, argtypes in _build._USER_SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    lib.tfmpc_rollout_user_max_threads.argtypes = [_I] * 4 + [_P, _I, _P, _I]
+    lib.tfmpc_rollout_user_max_threads.restype = ctypes.c_int
+    lib.tfmpc_rollout_user_error_string.argtypes = [ctypes.c_int]
+    lib.tfmpc_rollout_user_error_string.restype = ctypes.c_char_p
+    _VERSION_USER[key] = lib
+    return lib
+
+
+_VERSION_USER: dict = {}
+
+
+def rollout_module(label: str, src: Path, lib):
+    """``ops/rollout.py`` of the version in ``src`` (the checkout's where
+    ``src`` has none), loaded as a module of its own whose kernels are
+    ``lib``'s and whose user libraries are the version's
+    (``version_user_library``): so a version's generic launches take its
+    own plans (``launch_plan``, its ``GENERIC_PLANS`` and shared-memory
+    sum) and its own kernels."""
+    import importlib.util
+    import types
+
+    from tfmpc_tpu_torch.ops import _build
+
+    path = src / "rollout.py"
+    if not path.exists():
+        path = ROOT / "tfmpc_tpu_torch" / "ops" / "rollout.py"
+    spec = importlib.util.spec_from_file_location(f"rollout_{label}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclass resolves its annotations
+    spec.loader.exec_module(mod)
+    proxy = types.SimpleNamespace(**vars(_build))
+    proxy.library = lambda: lib
+    proxy.user_library = lambda source: version_user_library(label, src,
+                                                             source)
+    mod._build = proxy
+    mod.version_src = src
+    return mod
 
 
 def rollout_case(case, dtype):
@@ -931,7 +1039,90 @@ def emit_layouts(label, case, card):
           f"{ms['two_kernels']:.4f} [{card}]")
 
 
-def run_rollout(versions, card, clocks=False):
+def generic_hold_cases():
+    """The generic form's cases of ``rollout LABEL=REV``: (label, (n, m)
+    case of ``chip_smoke.generic_inputs``, B, T, kinds), K2, K3 and K5 at
+    ``GENERIC_SWEEP_CASES`` and, on the generated step, at
+    ``USER_SWEEP_CASES``; K8 at ``DERIVS_GENERIC_SWEEP_CASES``."""
+    out = [(f"generic {case}", case, Bn, Tn, ("costs", "alpha", "traj"))
+           for case, (Bn, Tn) in GENERIC_SWEEP_CASES.items()]
+    out += [(f"generic {case}", case, Bn, Tn, ("derivs",))
+            for case, (Bn, Tn) in DERIVS_GENERIC_SWEEP_CASES.items()]
+    out += [(f"user {case}", case, Bn, Tn, ("costs", "alpha", "traj"))
+            for case, (Bn, Tn) in USER_SWEEP_CASES.items()]
+    return out
+
+
+def generic_case_inputs(case, Bn, Tn, kinds, dtype):
+    """(kernel_args output, alphas, alpha_vec) of a ``generic_hold_cases``
+    case."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import rollout
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    alphas = ILQRConfig().alphas_static()
+    if kinds == ("derivs",):
+        env, X, U, policy, alpha_vec = cs.k8_generic_inputs(case, dtype, Bn,
+                                                            Tn)
+        a = rollout.kernel_args(env, X, U, policy, derivatives=True)
+        return a, alphas, alpha_vec.contiguous()
+    env, X, U, policy = cs.generic_inputs(case, dtype, Bn, Tn)
+    alpha_vec = torch.as_tensor(alphas, dtype=dtype, device=X.device)[
+        torch.arange(Bn, device=X.device) % len(alphas)].contiguous()
+    return rollout.kernel_args(env, X, U, policy), alphas, alpha_vec
+
+
+def generic_calls(mod, a, kinds, alphas, alpha_vec):
+    """{"K2": call, ...}: the generic ``kinds`` on ``a`` through the
+    rollout module ``mod`` (``rollout_module``), each at that module's own
+    launch plan, into its own outputs; raises if a launch is refused."""
+    import torch
+
+    out = {}
+    for kind in kinds:
+        per = len(alphas) if kind in mod.EVERY_ALPHA else 1
+        plan = mod.launch_plan(a, kind, per)
+        call = generic_launcher(a, kind, plan, alphas, alpha_vec, mod)
+        mod._check_generic(call(), f"{mod.__name__} {kind}", a)
+        torch.cuda.synchronize()
+        out[ROLLOUT_KINDS[kind][0]] = call
+    return out
+
+
+def run_generic_versions(mods, card):
+    """The generic form of each version (``mods``: label -> its rollout
+    module, ``rollout_module``) against the checkout's (``mods
+    ["checkout"]``) at ``generic_hold_cases``: in float64 and float32 every
+    output (J, X, U; K8's seven blocks too) bitwise equal, then each kernel
+    timed in float32 in turns (``hold_and_time``), every one at its own
+    version's plan."""
+    import torch
+
+    cases = generic_hold_cases()
+    for dtype in (torch.float64, torch.float32):
+        sources = [generic_case_inputs(case, Bn, Tn, kinds, dtype)[0]["source"]
+                   for _, case, Bn, Tn, kinds in cases
+                   if case in USER_SWEEP_CASES]
+        for label, mod in mods.items():
+            build_version_users(label, mod.version_src, sources)
+    for label, case, Bn, Tn, kinds in cases:
+        for dtype in (torch.float64, torch.float32):
+            a, alphas, alpha_vec = generic_case_inputs(case, Bn, Tn, kinds,
+                                                       dtype)
+            calls = {v: generic_calls(mod, a, kinds, alphas, alpha_vec)
+                     for v, mod in mods.items()}
+            B, T, n, m = a["dims"]
+            mine = calls.pop("checkout")
+            hold_and_time(label, f"B={B}, T={T}, (n, m) = ({n}, {m})", mine,
+                          calls, dtype, card)
+
+
+def run_rollout(versions, card, clocks=False, generic_only=False):
+    """``rollout LABEL=REV ...`` (see the module's docstring); with
+    ``generic_only`` (``--generic``) the generic form alone: its holds and
+    times (``run_generic_versions``) and, with ``clocks``, its phase
+    clocks."""
     import torch
 
     # LABEL=REV|DIR[,-DNAME...]: the version built with those defines
@@ -945,6 +1136,18 @@ def run_rollout(versions, card, clocks=False):
     libs = {label: build_rollout(label, d, tuple(specs[label][1:]))
             for label, d in dirs.items()}
     checkout = build_rollout("checkout", CSRC)
+    run_generic_versions(
+        {"checkout": rollout_module("checkout", CSRC, checkout),
+         **{label: rollout_module(label, dirs[label], lib)
+            for label, lib in libs.items()}}, card)
+    if clocks:
+        for label, lib in libs.items():  # the versions built with clocks
+            if "-DTFMPC_ROLLOUT_CLOCKS" in specs[label][1:]:
+                run_generic_clocks(lib, card, rollout_module(
+                    label, dirs[label], lib), label)
+        run_rollout_clocks(card, generic_only)
+    if generic_only:
+        return
     for label, case in ROLLOUT_CASES.items():
         for dtype in (torch.float64, torch.float32):
             a, alphas, alpha_vec = rollout_inputs(case, dtype)
@@ -967,18 +1170,70 @@ def run_rollout(versions, card, clocks=False):
                 for v, lib in libs.items()}, dtype, card)
     for label, case in EMIT_CASES.items():
         emit_layouts(label, case, card)
-    if clocks:
-        run_rollout_clocks(card)
 
 
-def run_rollout_clocks(card):
+def run_generic_clocks(tiles, card, mod=None, label="checkout"):
+    """The generic form built with its phase clocks (``tiles``,
+    ``-DTFMPC_ROLLOUT_CLOCKS``; the checkout's, or the version ``label``'s
+    through its rollout module ``mod``): K2, K3 and K5 at
+    ``GENERIC_SWEEP_CASES`` and K8 at ``DERIVS_GENERIC_SWEEP_CASES``,
+    float32, each at its plan: SM cycles a step of each phase
+    (csrc/rollout_generic.cuh), the mean over the compute threads, and the
+    producer warp's."""
+    import torch
+
+    from tfmpc_tpu_torch.ops import _build
+
+    tiles.tfmpc_rollout_clocks_buffer.argtypes = [_P]
+    tiles.tfmpc_rollout_clocks_buffer.restype = None
+    mod = mod or rollout_module("clocks", CSRC, tiles)
+    names = ("barrier", "policy rows and U stores",
+             "prep, env rows and X stores", "stage costs and their sum",
+             "final cost and J")
+    for _, case, Bn, Tn, kinds in generic_hold_cases():
+        if case in USER_SWEEP_CASES:
+            continue
+        a, alphas, alpha_vec = generic_case_inputs(case, Bn, Tn, kinds,
+                                                   torch.float32)
+        for kernel, call in generic_calls(mod, a, kinds, alphas,
+                                          alpha_vec).items():
+            kind = next(k for k, v in ROLLOUT_KINDS.items()
+                        if v[0] == kernel)
+            per = len(alphas) if kind in mod.EVERY_ALPHA else 1
+            plan = mod.launch_plan(a, kind, per)
+            clk = torch.zeros(16, dtype=torch.int64, device="cuda")
+            tiles.tfmpc_rollout_clocks_buffer(_build.ptr(clk))
+            _build.check(call(), f"clocked generic {kernel} {case}")
+            torch.cuda.synchronize()
+            tiles.tfmpc_rollout_clocks_buffer(ctypes.c_void_p(None))
+            c = clk.tolist()
+            per_step = [x / c[13] / Tn for x in c[8:13]]
+            n, m = a["dims"][2:]
+            print(f"{label} generic {kernel} {case} (B={Bn}, T={Tn}, "
+                  f"(n, m) = ({n}, {m}), f32, plan G={plan.groups}, "
+                  f"{plan.scenarios} a "
+                  f"block, D={plan.depth}, with phase clocks): SM cycles a "
+                  f"step, mean over {c[13]} compute threads: " + ", ".join(
+                      f"{nm} {x:.0f}" for nm, x in zip(names, per_step))
+                  + f", total {sum(per_step):.0f}; the copying warp: issuing "
+                  f"{c[0] / c[5] / Tn:.0f}, waiting for the step and the "
+                  f"barrier {c[6] / c[5] / Tn:.0f} [{card}]")
+
+
+def run_rollout_clocks(card, generic_only=False):
     """The one-thread K2/K3 loop with phase clocks
     (tools/rollout_clocks.cu) at each of ``ROLLOUT_CASES``, float32, 128
     threads a block; then the checkout's tile kernel with its own, every
-    kind at its cases."""
+    kind at its cases; then the generic form's (``run_generic_clocks``).
+    ``generic_only``: the generic form's alone."""
     import torch
 
     from tfmpc_tpu_torch.ops import _build, rollout
+
+    tiles = build_rollout("tile_clocks", CSRC, ("-DTFMPC_ROLLOUT_CLOCKS",))
+    run_generic_clocks(tiles, card)
+    if generic_only:
+        return
 
     lib = build(f"rollout_clocks", ROOT / "tools" / "rollout_clocks.cu")
     fn = lib.tfmpc_rollout_clocks
@@ -1020,9 +1275,6 @@ def run_rollout_clocks(card):
                   + f", total {sum(per):.0f}; outputs equal to the "
                   f"checkout's kernel: {same} [{card}]")
     # the checkout's tile kernels, built with their phase clocks
-    tiles = build_rollout("tile_clocks", CSRC, ("-DTFMPC_ROLLOUT_CLOCKS",))
-    tiles.tfmpc_rollout_clocks_buffer.argtypes = [_P]
-    tiles.tfmpc_rollout_clocks_buffer.restype = None
     names = ("barrier", "policy rows", "u exchange and env rows",
              "cost, stores, x exchange")
     runs = []
@@ -1037,7 +1289,7 @@ def run_rollout_clocks(card):
     for label, calls, T in runs:
         for kernel, call in calls.items():
             B = call.outputs[0].shape[-1]
-            clk = torch.zeros(8, dtype=torch.int64, device="cuda")
+            clk = torch.zeros(16, dtype=torch.int64, device="cuda")
             tiles.tfmpc_rollout_clocks_buffer(_build.ptr(clk))
             _build.check(call(), f"clocked {kernel} {label}")
             torch.cuda.synchronize()
@@ -1149,12 +1401,15 @@ USER_SWEEP_CASES = {**{case: v[:2] for case, v in cs.USER_PATHS.items()},
                     "chain12": (512, 50), "chain24": (512, 50)}
 
 
-def generic_launcher(a, kind, plan, alphas, alpha_vec):
+def generic_launcher(a, kind, plan, alphas, alpha_vec, rollout=None):
     """A call launching the generic ``kind`` with ``plan`` on
-    ``kernel_args`` output ``a`` into its own outputs."""
+    ``kernel_args`` output ``a`` into its own outputs, through
+    ``rollout._launch_generic`` (by default the checkout's module; a
+    version's from ``rollout_module``)."""
     import torch
 
-    from tfmpc_tpu_torch.ops import rollout
+    if rollout is None:
+        from tfmpc_tpu_torch.ops import rollout
 
     B, T, n, m = a["dims"]
     A = len(alphas)
@@ -1603,14 +1858,17 @@ def main() -> int:
         return 2
     if sys.argv[1] == "rollout" and sys.argv[2] not in ("--sweep",
                                                         "--generic-sweep"):
-        args = [arg for arg in sys.argv[2:] if arg != "--clocks"]
+        args = [arg for arg in sys.argv[2:]
+                if arg not in ("--clocks", "--generic")]
         versions = [tuple(arg.partition("=")[::2]) for arg in args]
         if torch.cuda.is_available():
+            torch.backends.cuda.matmul.allow_tf32 = False
             card = cs.card_line()
             print(card)
         else:
             card = None
-        run_rollout(versions, card, clocks="--clocks" in sys.argv)
+        run_rollout(versions, card, clocks="--clocks" in sys.argv,
+                    generic_only="--generic" in sys.argv)
         return 0
     if sys.argv[1] == "lane" and sys.argv[2] != "--sweep":
         versions = [tuple(arg.partition("=")[::2]) for arg in sys.argv[2:]]

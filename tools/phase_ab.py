@@ -1,4 +1,4 @@
-"""Time ``chip_smoke.py``'s phases 20-23, 29 and 30 of one checkout.
+"""Time ``chip_smoke.py``'s phases 20-23, 29, 30 and 31 of one checkout.
 
     python tools/phase_ab.py ROOT [ROOT ...]
 
@@ -6,10 +6,10 @@ For each ROOT (a checkout of the repo, e.g. one unpacked from ``git
 archive`` of a parent commit), in the order given and each in a process of
 its own: its ``chip_smoke.py`` builds its kernels, runs what the phases
 need from phase 3 (K4 at HVAC-6, whose bound phase 20 reads), then the
-three slices, with every gate they hold, and prints one line ``AB {"root":
-..., "phase_s": {...}, "card": ...}``. Give the roots as parent, change,
-change, parent to compare two versions on one card in turns. Needs one
-CUDA card; exits non-zero if a root's run fails.
+four slices (phase 31's user envs last), with every gate they hold, and
+prints one line ``AB {"root": ..., "phase_s": {...}, "card": ...}``. Give
+the roots as parent, change, change, parent to compare two versions on one
+card in turns. Needs one CUDA card; exits non-zero if a root's run fails.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ def run_root(root: Path) -> int:
     cs.slice_e(phase, timings, errs, launches, plain_s, rates, card)
     cs.slice_generic(phase, timings, errs, launches, plain_s, card)
     cs.slice_h(phase, timings, errs, launches, plain_s, rates, card)
+    cs.slice_user(phase, timings, errs, launches, plain_s, card)
     print("AB " + json.dumps({"root": str(root), "phase_s": phase.seconds,
                               "card": card}), flush=True)
     return 0
