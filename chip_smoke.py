@@ -449,6 +449,15 @@ ZONES4 = {"center": [[3.0, -2.0, 1.0, 0.0]], "decay": [2.0]}
 # (solvers/lqr.py) on its first scenarios, through the kernels in f64
 DI_LQR_ATOL, DI_LQR_B = 1e-4, 64
 WINDOW_S = 1.0
+# the plain-path holds of the boxQP solves of phases 5, 7 and 29 and of the
+# bicycle fleet of phase 31: the plain backward runs one time step after
+# another (boxQP's projected Newton steps, the restarts of a nonconvex user
+# env), launch-bound whatever the batch (HVAC-6's plain solve took 58 s at
+# T=100, B=2048; the bicycle fleet's 97 s), so the kernel path and the
+# plain path are solved again at this horizon from the same x0, every
+# lane, and held against each other there; the counted solves keep their
+# own horizon, and every other plain hold is at its solve's
+T_PLAIN = 20
 # the windows of a solves/s median (5 until PR 13; 3 keep the script
 # inside its time limit with phase 30)
 RATE_WINDOWS = 3
@@ -615,6 +624,8 @@ def env_step_flops(env_name: str, n: int, zones: int = 1,
         # row's dot product, x^3, scalings and sums; the cost's two sums of
         # squares, a scaling and a sum
         return n * (2 * n + 8) + 4 * n + 2
+    if env_name in GRAPH_OPS_ENVS:
+        return graph_ops(env_name)
     if env_name == "fuzz":
         # the fuzz env's: each row's two dot products, tanh, scalings and
         # sums; the cost's two quadratic forms, the tanh term and the sums
@@ -741,14 +752,14 @@ def stable_linear(n, m, seed, dtype, device="cuda"):
 
 def generic_env(case, dtype, device="cuda"):
     """The env of a ``GENERIC_KERNEL_CASES`` case (or of a user env's,
-    ``chain<d>`` or ``fuzz8x3``: ``user_env``)."""
+    a ``USER_ENV_NAMES`` case: ``user_env``)."""
     import json
 
     from tfmpc_tpu_torch.models.linear import make_linear_system
     from tfmpc_tpu_torch.models.navigation import make_navigation
     from tfmpc_tpu_torch.models.registry import make_env
 
-    if case.startswith(("chain", "fuzz")):
+    if case in USER_ENV_NAMES:
         return user_env(case, dtype, device)
     if case == "double_integrator":
         kw = dict(DOUBLE_INTEGRATOR)
@@ -778,7 +789,7 @@ def generic_x0(case, Bn, dtype, device="cuda"):
     import numpy as np
     import torch
 
-    if case.startswith(("chain", "fuzz")):
+    if case in USER_ENV_NAMES:
         return user_x0(case, Bn, dtype, device)
     rng = np.random.default_rng(0)
     n = generic_env(case, dtype, "cpu").state_size
@@ -1841,14 +1852,14 @@ def print_generic_plans(lib, user=False):
     bytes the kernel computes for them
     (``tfmpc_rollout_generic_smem_bytes``), which must agree, and the most
     threads a block of the kernel can launch with; with ``user``, those of
-    ``USER_PATHS``' generated steps beside their user libraries' own sum
-    (``tfmpc_rollout_user_smem_bytes``)."""
+    ``USER_PATHS``' and ``USER_KERNEL_CASES``' generated steps beside their
+    user libraries' own sum (``tfmpc_rollout_user_smem_bytes``)."""
     import torch
 
     from tfmpc_tpu_torch.ops import _build, rollout
 
-    cases = {case: v[:2] for case, v in USER_PATHS.items()} if user \
-        else GENERIC_KERNEL_CASES
+    cases = {**{case: v[:2] for case, v in USER_PATHS.items()},
+             **USER_KERNEL_CASES} if user else GENERIC_KERNEL_CASES
     for case, (Bn, _) in cases.items():
         for dtype in (torch.float32, torch.float64):
             env = generic_env(case, dtype)
@@ -2754,6 +2765,92 @@ def hvac3_accuracy(ddp=False):
     if not cost_rel < 1e-5 or not (ddp or kkt < 5e-3):
         raise AssertionError("HVAC-3 constrained accuracy gate failed")
     return cost_rel, kkt
+
+
+def plain_hold(label, env, x0, config, horizon):
+    """The kernel path against the plain path (``agree_with_plain``),
+    both solved at ``horizon`` from ``x0``; returns the plain solve's
+    seconds."""
+    res = solver(env, x0, horizon, config)()
+    return agree_with_plain(label, res, solver(
+        env, x0, horizon, dataclasses.replace(config, use_pallas=False)),
+        what=f"plain path (use_pallas=False), both at T={horizon}")
+
+
+def slice_b(phase, launches_by_path, plain_s):
+    """Phases 5-7: the HVAC-6 and reservoir-5 solves (suite configs 3 and
+    4b, boxQP, B=2048, T=100) and bounded navigation with and without
+    boxQP, counted; each against its plain path (the boxQP ones at
+    ``T_PLAIN``) and HVAC-6 on its other line-search layout. Returns the
+    solves' closures, the boxQP config and reservoir-5's result."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    boxqp_config = ILQRConfig(**BOXQP)
+    box_kernels = {"riccati_backward_boxqp"} | line_search_kernels(
+        boxqp_config, T, 6)
+    runs = {}
+    for name, lohi in (("hvac6", (8.0, 18.0)), ("reservoir5", (20.0, 95.0))):
+        env = bounded_env(name, torch.float32)
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+            *lohi, (B_BOX, env.state_size)).astype("float32"), device="cuda")
+        runs[name] = (env, x0, solver(env, x0, T, boxqp_config))
+    env, x0_h, run_h = runs["hvac6"]
+    run_h()
+    res, launches, plain = counted(run_h)
+    launches_by_path["hvac6"] = launches
+    require_path("HVAC-6 solve", launches, plain, box_kernels)
+    conv = check_result("HVAC-6", res, B_BOX, 6)
+    print(f"  mean total cost {float(res.total_cost.double().mean()):.6f} "
+          f"vs {JAX_HVAC6_MEAN_COST} recorded by the JAX package on a TPU "
+          f"(converged {JAX_HVAC6_CONVERGED}), printed, not gated")
+    if conv < 0.99:
+        raise AssertionError(f"HVAC-6 solve converged only {conv:.4f}")
+    plain_s["hvac6"] = plain_hold("HVAC-6", env, x0_h, boxqp_config, T_PLAIN)
+    launches_by_path["hvac6_two_kernel"] = layouts_agree(
+        "HVAC-6", res, solver(env, x0_h, T, dataclasses.replace(
+            boxqp_config, linesearch_emit_trajectories=False)),
+        "riccati_backward_boxqp")
+    phase.done("5. HVAC-6")
+
+    print("HVAC-3 f64 through the kernels vs the fp64 boxQP oracle:")
+    hvac3_accuracy()
+    phase.done("6. HVAC-3 accuracy")
+
+    env, x0_r, run_r = runs["reservoir5"]
+    run_r()
+    res, launches, plain = counted(run_r)
+    launches_by_path["reservoir5"] = launches
+    require_path("reservoir-5 solve", launches, plain, box_kernels)
+    if check_result("reservoir-5", res, B_BOX, 5) < 0.99:
+        raise AssertionError("reservoir-5 solve converged < 0.99")
+    res_r5 = res
+    plain_s["reservoir5"] = plain_hold("reservoir-5", env, x0_r,
+                                       boxqp_config, T_PLAIN)
+
+    nav_b = bounded_env("nav_bounded", torch.float32)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+        -10.0, 10.0, (B_NAV_BOUNDED, N)).astype("float32"), device="cuda")
+    for boxqp, backward in ((True, "riccati_backward_boxqp"),
+                            (False, "riccati_backward")):
+        cfg = ILQRConfig(**{**HEADLINE, "boxqp": boxqp})
+        label = f"bounded navigation, boxqp={boxqp}"
+        res, launches, plain = counted(solver(nav_b, x0, T_NAV_BOUNDED,
+                                              cfg))
+        launches_by_path[f"nav_bounded_boxqp_{boxqp}"] = launches
+        require_path(label, launches, plain,
+                     {backward} | line_search_kernels(cfg, T, N))
+        check_result(label, res, B_NAV_BOUNDED, N, T_NAV_BOUNDED)
+        if boxqp:
+            plain_hold(label, nav_b, x0, cfg, T_PLAIN)
+        else:
+            agree_with_plain(label, res, solver(
+                nav_b, x0, T_NAV_BOUNDED, dataclasses.replace(
+                    cfg, use_pallas=False)))
+    phase.done("7. reservoir-5 and bounded navigation")
+    return {"runs": runs, "config": boxqp_config, "res_r5": res_r5}
 
 
 # -- slice C: long horizons --------------------------------------------------
@@ -4130,8 +4227,13 @@ def slice_generic(phase, timings, errs, launches_by_path, plain_s, card):
         require_path(f"{label} solve", launches, plain,
                      {backward} | generic_kinds(config, Tn, n, m))
         conv = check_result(label, res, Bn, n, Tn, m)
-        plain_s[f"generic_{label}"] = agree_with_plain(label, res, solver(
-            env, x0, Tn, dataclasses.replace(config, use_pallas=False)))
+        if config.boxqp:
+            plain_s[f"generic_{label}"] = plain_hold(label, env, x0, config,
+                                                     T_PLAIN)
+        else:
+            plain_s[f"generic_{label}"] = agree_with_plain(
+                label, res, solver(env, x0, Tn, dataclasses.replace(
+                    config, use_pallas=False)))
         other_cfg = dataclasses.replace(config,
                                         linesearch_emit_trajectories=not emit)
         launches_by_path[f"generic_{label}_{other}"] = layouts_agree(
@@ -4799,8 +4901,11 @@ def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
 # The user envs of phase 31, with only transition/cost/final_cost in torch:
 # the custom-env example's DampedChain at its own TPU size (d = 6, the box
 # at +-1, examples/custom_env.py) and at the dim ceiling (d = 48,
-# unbounded), and a rectangular twin of tests/test_fuzz_envs.py's
-# RandomSmoothEnv at (8, 3). Their rollouts run K2, K3 and K5 in the
+# unbounded), a rectangular twin of tests/test_fuzz_envs.py's
+# RandomSmoothEnv at (8, 3), and a fleet of kinematic bicycles (n = 4, m =
+# 2: goal distance by hypot, heading error by atan2, soft obstacles through
+# a norm over a dim and softplus, x[[0, 1]]; tests/torch_user_envs.py) at
+# the headline's size and config. Their rollouts run K2, K3 and K5 in the
 # generic form on a step functor generated from their torch step
 # (ops/env_codegen.py, csrc/rollout_user.cuh); (B, T, ILQRConfig kwargs)
 # of each path's solve.
@@ -4811,9 +4916,23 @@ USER_PATHS = {
                               use_pallas=True)),
     "fuzz8x3": (1024, 50, dict(atol=1e-5, max_iterations=30,
                                use_pallas=True)),
+    "bicycle": (B, T, HEADLINE),
 }
+# the op-coverage env (tests/torch_user_envs.py OpEnv, (8, 3)): every op of
+# the generator's four families that the bicycle does not use, some with
+# zero gradients (floor, sign, round), so kernels only, no solve: (B, T)
+USER_KERNEL_CASES = {"opcov": (1024, 50)}
 USER_MIN_CONVERGED = {"chain6": 0.99, "chain48": 0.99}
-USER_ENV_NAMES = {"chain6": "chain", "chain48": "chain", "fuzz8x3": "fuzz"}
+# the user paths whose solves/s phase 31 measures, from the counted solve
+USER_RATES = ("bicycle",)
+# the user paths held against their plain path at T_PLAIN (the bicycle's
+# plain solve took 97 s at T=100); the others at their own horizon
+USER_PLAIN_CUT = ("bicycle",)
+USER_ENV_NAMES = {"chain6": "chain", "chain48": "chain", "fuzz8x3": "fuzz",
+                  "bicycle": "bicycle", "opcov": "opcov"}
+# the user envs without a hand count of a step's operations: their
+# traced step's (``graph_ops``), each its own case
+GRAPH_OPS_ENVS = ("bicycle", "opcov")
 # shipped envs whose generated functor is held against the hand-written
 # one at the same shapes and plans: (B, T)
 GENERATED_VS_HANDWRITTEN = {"navigation2z": (1024, 100),
@@ -4823,8 +4942,9 @@ USER_MPC_B, USER_MPC_STEPS = 256, 10
 
 @functools.cache
 def user_env_class(name):
-    """The example's ``DampedChain``, or a twin of
-    ``tests/test_fuzz_envs.py``'s ``RandomSmoothEnv`` over ``[..., n]``
+    """The example's ``DampedChain``, ``tests/torch_user_envs.py``'s
+    ``KinematicBicycle`` (``bicycle``) or ``OpEnv`` (``opcov``), or a twin
+    of ``tests/test_fuzz_envs.py``'s ``RandomSmoothEnv`` over ``[..., n]``
     (the port's env contract): x' = x + dt (A x + B u + s tanh(x)), a
     quadratic plus tanh cost."""
     import runpy
@@ -4837,6 +4957,11 @@ def user_env_class(name):
     if name == "chain":
         return runpy.run_path(str(ROOT / "examples" /
                                   "torch_custom_env.py"))["DampedChain"]
+    if name in ("bicycle", "opcov"):
+        import torch_user_envs
+
+        return {"bicycle": torch_user_envs.KinematicBicycle,
+                "opcov": torch_user_envs.OpEnv}[name]
 
     @dataclasses.dataclass(frozen=True, eq=False)
     class RandomSmoothEnv(Env):
@@ -4871,14 +4996,23 @@ def user_env_class(name):
 
 
 def user_env(case, dtype, device="cuda"):
-    """The env of a ``USER_PATHS`` case: ``chain<d>`` the example's chain
-    (the box at +-1 at d = 6, as the example), ``fuzz8x3`` the fuzz twin
-    with ``test_fuzz_envs._make_env``'s values at seed 88."""
+    """The env of a ``USER_PATHS`` or ``USER_KERNEL_CASES`` case:
+    ``chain<d>`` the example's chain (the box at +-1 at d = 6, as the
+    example), ``fuzz8x3`` the fuzz twin with ``test_fuzz_envs._make_env``'s
+    values at seed 88, ``bicycle`` the fleet (``torch_user_envs.BICYCLE``),
+    ``opcov`` the op-coverage env (``torch_user_envs.op_arrays()``)."""
     import numpy as np
     import torch
 
     from tfmpc_tpu_torch import Bounds, interop
 
+    if case in ("bicycle", "opcov"):
+        import torch_user_envs
+
+        arrays = torch_user_envs.BICYCLE if case == "bicycle" \
+            else torch_user_envs.op_arrays()
+        return interop.user_env_from_numpy(user_env_class(case), arrays,
+                                           device=device, dtype=dtype)
     if case.startswith("chain"):
         d = int(case[len("chain"):])
         C = (-2.0 * np.eye(d) + np.eye(d, k=1) + np.eye(d, k=-1)) * 0.3
@@ -4903,6 +5037,49 @@ def user_env(case, dtype, device="cuda"):
                                        device=device, dtype=dtype)
 
 
+@functools.cache
+def graph_ops(case: str) -> int:
+    """The least operations of one step of the generated step of a user
+    case's env (f32), traced once: each
+    element of each computed node of its traced step (transition, stage
+    and final cost) once; a product 2K an element, a reduction or a norm
+    two an input element, a cdist three an element per coordinate, max
+    over a dim one an input element; views, index maps, splits and
+    literals none."""
+    import math
+    import operator
+
+    import torch
+
+    from tfmpc_tpu_torch.ops import env_codegen as ec
+
+    aten = torch.ops.aten
+    free = ec._VIEWS | ec._INDEX_MAPS | ec._LITERALS | {
+        aten.split_with_sizes.default, aten.split.Tensor, aten.unbind.int,
+        operator.getitem}
+    size = lambda a: math.prod(a.meta["val"].shape)  # noqa: E731
+    ops = 0
+    env = user_env(case, torch.float32, "cpu")
+    for nd in ec.trace_step(env, torch.float32, "cpu").graph.nodes:
+        if nd.op != "call_function" or nd.target in free:
+            continue
+        t = nd.target
+        if t in ec._MATMUL:
+            a = nd.args[1] if t in (aten.addmm.default,
+                                    aten.addmv.default) else nd.args[0]
+            ops += 2 * a.meta["val"].shape[-1] * size(nd)
+        elif t is aten._cdist_forward.default:
+            ops += 3 * nd.args[0].meta["val"].shape[-1] * size(nd)
+        elif t in (aten.max.dim, aten.min.dim):
+            ops += size(nd.args[0])
+        elif t in ec._REDUCE or t in ec._NORMS or t in ec._MOMENTS \
+                or t is aten.trace.default:
+            ops += 2 * size(nd.args[0])
+        else:
+            ops += size(nd)
+    return ops
+
+
 def user_kinds(config, horizon, n, m):
     """The generated-step rollout kernels a kernel-path solve of a user env
     runs (AUTO resolved as the solver resolves it)."""
@@ -4915,12 +5092,18 @@ def user_kinds(config, horizon, n, m):
 
 def user_x0(case, Bn, dtype, device="cuda"):
     """A solve's initial states, ``default_rng(0)``: U(-2, 2) for the
-    chain (the example's), U(-1.5, 1.5) for the fuzz env."""
+    chain (the example's), U(-1.5, 1.5) for the fuzz and op-coverage envs,
+    ``torch_user_envs.bicycle_x0`` for the fleet."""
     import numpy as np
     import torch
 
-    n = 8 if case == "fuzz8x3" else int(case[len("chain"):])
-    lo = 1.5 if case == "fuzz8x3" else 2.0
+    if case == "bicycle":
+        import torch_user_envs
+
+        return torch.as_tensor(torch_user_envs.bicycle_x0(Bn).astype("f4"),
+                               dtype=dtype, device=device)
+    n = 8 if case in ("fuzz8x3", "opcov") else int(case[len("chain"):])
+    lo = 1.5 if case in ("fuzz8x3", "opcov") else 2.0
     x0 = np.random.default_rng(0).uniform(-lo, lo, (Bn, n)).astype("f4")
     return torch.as_tensor(x0, dtype=dtype, device=device)
 
@@ -5038,17 +5221,19 @@ def generated_vs_handwritten(card):
 
 def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
     """Phase 31: user envs on the generated step functor. Builds the user
-    libraries of ``USER_PATHS``' envs (f32 and f64) and of the generated
-    functors of navigation, HVAC-6 and reservoir-5 (f32), one nvcc each,
-    all started together; holds the generated K2, K3 and K5 against their
-    plain versions at each path's shape (``check_user_kernels``, timed in
+    libraries of ``USER_PATHS``' and ``USER_KERNEL_CASES``' envs (f32 and
+    f64) and of the generated functors of navigation, HVAC-6 and
+    reservoir-5 (f32), one nvcc each, all started together; holds the
+    generated K2, K3 and K5 against their plain versions at each path's
+    shape and the op-coverage env's (``check_generic_kernels``, timed in
     f32) and against the hand-written functors
     (``generated_vs_handwritten``); then each ``USER_PATHS`` solve on AUTO,
     counted (the routed Riccati kernel and the generated-step rollouts
-    only, no plain version), against its plain path and on the other
-    line-search layout; then the example script itself, an MPC run of the
-    example's env and its solve through the one-process data-parallel
-    mesh, counted. Returns its figures."""
+    only, no plain version), against its plain path (the bicycle's through
+    ``plain_hold`` at ``T_PLAIN``, ``USER_PLAIN_CUT``) and on the
+    other line-search layout, the bicycle fleet's solves/s; then the example
+    script itself, an MPC run of the example's env and its solve through
+    the one-process data-parallel mesh, counted. Returns its figures."""
     import runpy
 
     import torch
@@ -5057,10 +5242,14 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
     from tfmpc_tpu_torch.solvers import ilqr_batched
     from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
 
-    figures = {"paths": {}}
+    figures = {"paths": {}, "kernel_cases": {}}
+    kernel_cases = {**{case: v[:2] for case, v in USER_PATHS.items()},
+                    **USER_KERNEL_CASES}
+    print("  operations a step (traced graph): "
+          f"{ {case: graph_ops(case) for case in GRAPH_OPS_ENVS} }")
     sources = {(case, dname(dtype)): user_env(case, dtype, "cpu")
                .generic_device_step(dtype, "cpu").source
-               for case in USER_PATHS
+               for case in kernel_cases
                for dtype in (torch.float32, torch.float64)}
     for case in GENERATED_VS_HANDWRITTEN:
         env = handwritten_inputs(case, torch.float32, 2, 2)[0]
@@ -5077,11 +5266,21 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
           " s")
     print_ptxas(log)
     print_build_times(log)
+    figures["nvcc_s"] = {
+        line.split("nvcc wall s ")[1].split(":")[0]: float(
+            line.rsplit(":", 1)[1]) for line in log.splitlines()
+        if line.startswith("nvcc wall s ")}
     print_generic_plans(None, user=True)
-    for case, (Bn, Tn, _) in USER_PATHS.items():
+    for case, (Bn, Tn) in kernel_cases.items():
         for dtype in (torch.float32, torch.float64):
             f32 = (timings, errs) if dtype == torch.float32 else ()
             check_generic_kernels(case, dtype, Bn, Tn, *f32, form="user")
+    for case in USER_KERNEL_CASES:
+        figures["kernel_cases"][case] = {
+            k: {"ms": v[0], "wrapper_ms": v[1], "plain_ms": v[2],
+                "bound_ms": v[3][0], "bound_by": v[3][1],
+                "max_abs_err": errs[k], "launches": 1}
+            for k, v in timings.items() if k.endswith(f"_user_{case}")}
     print("generated vs hand-written functors, f32:")
     figures["generated_vs_handwritten"] = generated_vs_handwritten(card)
     phase.done("31a. the generated-step kernels vs plain versions")
@@ -5099,7 +5298,9 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
               f"f32, AUTO's layout {layout}:")
         run = solver(env, x0, Tn, config)
         run()
+        t0 = time.perf_counter()
         res, launches, plain = counted(run)
+        solve_s = time.perf_counter() - t0
         launches_by_path[f"user_{label}_{layout}"] = launches
         require_path(f"{label} solve", launches, plain,
                      {backward} | user_kinds(config, Tn, n, m))
@@ -5107,8 +5308,12 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
         floor = USER_MIN_CONVERGED.get(label)
         if floor is not None and conv < floor:
             raise AssertionError(f"{label}: converged {conv:.4f} < {floor}")
-        plain_s[f"user_{label}"] = agree_with_plain(label, res, solver(
-            env, x0, Tn, dataclasses.replace(config, use_pallas=False)))
+        if label in USER_PLAIN_CUT:
+            plain_s[f"user_{label}"] = plain_hold(label, env, x0, config,
+                                                  T_PLAIN)
+        else:
+            plain_s[f"user_{label}"] = agree_with_plain(label, res, solver(
+                env, x0, Tn, dataclasses.replace(config, use_pallas=False)))
         other_cfg = dataclasses.replace(config,
                                         linesearch_emit_trajectories=not emit)
         launches_by_path[f"user_{label}_{other}"] = layouts_agree(
@@ -5126,6 +5331,11 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
             "mean_iterations": float(res.iterations.float().mean()),
             "mean_cost": float(res.total_cost.double().mean()),
             "auto_layout": layout}
+        if label in USER_RATES:
+            figures["paths"][label]["solves_per_s"] = Bn / solve_s
+            print(f"  solves/s, {label}, kernels, T={Tn} B={Bn} f32: "
+                  f"{Bn / solve_s:.1f} (B over the counted solve's "
+                  f"{solve_s:.2f} s) [{card}]")
 
     example = runpy.run_path(str(ROOT / "examples" / "torch_custom_env.py"))
     print("examples/torch_custom_env.py on the card:")
@@ -5484,69 +5694,10 @@ def main() -> int:
     nav_split = (run_nav, res, x0_np)
     phase.done("4. navigation headline")
 
-    # -- 5. the HVAC-6 solve (slice B's main path) ----------------------------
-    boxqp_config = ILQRConfig(**BOXQP)
-    box_kernels = {"riccati_backward_boxqp"} | line_search_kernels(
-        boxqp_config, T, 6)
-    plain_box = dataclasses.replace(boxqp_config, use_pallas=False)
-    runs = {}
-    for name, lohi in (("hvac6", (8.0, 18.0)), ("reservoir5", (20.0, 95.0))):
-        env = bounded_env(name, torch.float32)
-        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
-            *lohi, (B_BOX, env.state_size)).astype("float32"), device="cuda")
-        runs[name] = (env, x0, solver(env, x0, T, boxqp_config),
-                      solver(env, x0, T, plain_box))
-    env, x0_h, run_h, run_h_plain = runs["hvac6"]
-    run_h()
-    res, launches, plain = counted(run_h)
-    launches_by_path["hvac6"] = launches
-    require_path("HVAC-6 solve", launches, plain, box_kernels)
-    conv = check_result("HVAC-6", res, B_BOX, 6)
-    print(f"  mean total cost {float(res.total_cost.double().mean()):.6f} "
-          f"vs {JAX_HVAC6_MEAN_COST} recorded by the JAX package on a TPU "
-          f"(converged {JAX_HVAC6_CONVERGED}), printed, not gated")
-    if conv < 0.99:
-        raise AssertionError(f"HVAC-6 solve converged only {conv:.4f}")
-    plain_s["hvac6"] = agree_with_plain("HVAC-6", res, run_h_plain)
-    launches_by_path["hvac6_two_kernel"] = layouts_agree(
-        "HVAC-6", res, solver(env, x0_h, T, dataclasses.replace(
-            boxqp_config, linesearch_emit_trajectories=False)),
-        "riccati_backward_boxqp")
-    phase.done("5. HVAC-6")
-
-    # -- 6. constrained accuracy vs the fp64 oracle ---------------------------
-    print("HVAC-3 f64 through the kernels vs the fp64 boxQP oracle:")
-    hvac3_accuracy()
-    phase.done("6. HVAC-3 accuracy")
-
-    # -- 7. reservoir-5 and bounded navigation --------------------------------
-    env, _, run_r, run_r_plain = runs["reservoir5"]
-    run_r()
-    res, launches, plain = counted(run_r)
-    launches_by_path["reservoir5"] = launches
-    require_path("reservoir-5 solve", launches, plain, box_kernels)
-    if check_result("reservoir-5", res, B_BOX, 5) < 0.99:
-        raise AssertionError("reservoir-5 solve converged < 0.99")
-    res_r5 = res
-    plain_s["reservoir5"] = agree_with_plain("reservoir-5", res, run_r_plain)
-
-    nav_b = bounded_env("nav_bounded", torch.float32)
-    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
-        -10.0, 10.0, (B_NAV_BOUNDED, N)).astype("float32"), device="cuda")
-    for boxqp, backward in ((True, "riccati_backward_boxqp"),
-                            (False, "riccati_backward")):
-        cfg = ILQRConfig(**{**HEADLINE, "boxqp": boxqp})
-        label = f"bounded navigation, boxqp={boxqp}"
-        res, launches, plain = counted(solver(nav_b, x0, T_NAV_BOUNDED,
-                                              cfg))
-        launches_by_path[f"nav_bounded_boxqp_{boxqp}"] = launches
-        require_path(label, launches, plain,
-                     {backward} | line_search_kernels(cfg, T, N))
-        check_result(label, res, B_NAV_BOUNDED, N, T_NAV_BOUNDED)
-        agree_with_plain(label, res, solver(
-            nav_b, x0, T_NAV_BOUNDED, dataclasses.replace(cfg,
-                                                          use_pallas=False)))
-    phase.done("7. reservoir-5 and bounded navigation")
+    b = slice_b(phase, launches_by_path, plain_s)
+    runs, boxqp_config, res_r5 = b["runs"], b["config"], b["res_r5"]
+    x0_h, run_h, run_r = runs["hvac6"][1], runs["hvac6"][2], \
+        runs["reservoir5"][2]
 
     # -- 8. timing and the profile --------------------------------------------
     rates = {}
@@ -5555,10 +5706,16 @@ def main() -> int:
                            ("reservoir5", run_r, B_BOX)):
         w = solves_per_s(run, Bn)
         rates[label] = sorted(w)[len(w) // 2]
+        # the boxQP solves' plain holds ran at T_PLAIN: their seconds, not
+        # a rate beside the kernels' at T
+        plain_txt = (f"one plain solve {plain_s[label]:.2f} s "
+                     f"({Bn / plain_s[label]:.1f} solves/s)"
+                     if label == "navigation" else
+                     f"the plain hold's solve at T={T_PLAIN} "
+                     f"{plain_s[label]:.2f} s")
         print(f"solves/s, {label}, kernels, T={T} B={Bn} f32: median "
-              f"{rates[label]:.1f}, windows {[round(x, 1) for x in w]}; one "
-              f"plain solve {plain_s[label]:.2f} s ({Bn / plain_s[label]:.1f}"
-              f" solves/s) [{card}]")
+              f"{rates[label]:.1f}, windows {[round(x, 1) for x in w]}; "
+              f"{plain_txt} [{card}]")
     hvac6_profile = print_profile("HVAC-6", run_h, card)
     phase.done("8. solves/s and the HVAC-6 profile")
 

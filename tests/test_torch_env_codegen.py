@@ -14,12 +14,20 @@ compared (the functor sums in index order, torch and XLA in their own).
 Cases: the custom-env example's ``DampedChain``, a twin of
 ``tests/test_fuzz_envs.py``'s ``RandomSmoothEnv`` at (3, 2), (5, 5) and
 (8, 3), and the public steps of navigation (two zones), HVAC-6,
-reservoir-5 and a linear system at (24, 6); an env of the other supported
-ops against its own step. Then the refusals (an unsupported op, a
-data-dependent branch, a wrong output shape, each naming the opt-outs, and
-a solve that raises instead of falling back) and that the source depends on
-the graph, dims and dtype, not on the parameter values. Only the g++ cases
-skip, and only where g++ is absent.
+reservoir-5 and a linear system at (24, 6); one env for each family of ops
+the generator widened to (``tests/torch_user_envs.py``: elementwise,
+reductions and scans, index maps, nodes with several outputs, and all four
+together, the op-coverage env of ``chip_smoke.py`` phase 31), the probe env
+and the kinematic bicycle fleet; an env of the other supported ops against
+its own step. Then torch's semantics where C's or JAX's differ (round half
+to even, remainder's sign, sign and heaviside at NaN, nan_to_num's
+defaults, softplus's threshold) at the inputs that show them, ops traced
+through ``torch._decomp``, the refusals (a sort, a linear solve, a random
+op, a random index, integer values in the arithmetic, a data-dependent
+branch, a wrong output shape, each naming the opt-outs, and a solve that
+raises instead of falling back) and that the source depends on the graph,
+dims and dtype, not on the parameter values. Only the g++ cases skip, and only where g++
+is absent.
 """
 
 import ctypes
@@ -31,11 +39,16 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
+import jax.scipy.special as jsp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from tfmpc_tpu import Env as JaxEnv
+from tfmpc_tpu.core.types import pytree_dataclass
 from tfmpc_tpu.models.registry import make_env as jax_make_env
 from tfmpc_tpu_torch import Bounds, Env, interop
 from tfmpc_tpu_torch.models.base import USER_STEP_ID
@@ -44,6 +57,7 @@ from tfmpc_tpu_torch.ops import env_codegen
 from tfmpc_tpu_torch.solvers import ilqr
 
 import test_fuzz_envs
+import torch_user_envs as tue
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLE = runpy.run_path(str(ROOT / "examples" / "torch_custom_env.py"))
@@ -107,7 +121,12 @@ class OpsEnv(Env):
         cat = torch.cat([x[1:], x[:1]])
         v = x.reshape(1, n).t().reshape(n) + x.view(1, n).expand(2, n)[1]
         f = torch.full((n,), 0.25, dtype=x.dtype) * torch.exp(-u * u)
-        return (x + 0.05 * (y + z + w + cat - v + f) + 0.01 * s
+        # a roll of the flattened tensor; indices on dims that are not
+        # adjacent (their dim leads)
+        r = torch.roll(torch.outer(x, u), 3).sum(-1)
+        c = x[:, None, None] * u[None, :, None] * x[None, None, :]
+        g = c[[0, 2], :, [1, 3]].sum(0)
+        return (x + 0.05 * (y + z + w + cat - v + f + r + g) + 0.01 * s
                 + torch.log(1.0 + u ** 2) * torch.sqrt(torch.abs(u) + 1.0))
 
     def cost(self, x, u):
@@ -122,7 +141,34 @@ class OpsEnv(Env):
 
 class Unsupported(RandomSmoothEnv):
     def transition(self, x, u):
-        return x + 0.1 * torch.cumsum(u, dim=-1)
+        return x + 0.1 * torch.sort(x, dim=-1).values
+
+
+class LinearSolve(RandomSmoothEnv):
+    def transition(self, x, u):
+        return x + 0.1 * torch.linalg.solve(self.Q + torch.eye(
+            x.shape[-1], dtype=x.dtype), x)
+
+
+class RandomStep(RandomSmoothEnv):
+    def transition(self, x, u):
+        return x + 0.1 * torch.rand_like(x)
+
+
+class RandomIndex(RandomSmoothEnv):
+    def transition(self, x, u):
+        return x + 0.1 * x[torch.randint(0, x.shape[-1], x.shape)]
+
+
+class IntegerArithmetic(RandomSmoothEnv):
+    def transition(self, x, u):
+        return x + 0.1 * torch.argmax(x, dim=-1, keepdim=True).to(x.dtype)
+
+
+class MaxIndexAsValue(RandomSmoothEnv):
+    def transition(self, x, u):
+        return x + 0.1 * torch.max(x, dim=-1, keepdim=True).indices.to(
+            x.dtype)
 
 
 class Branchy(RandomSmoothEnv):
@@ -191,6 +237,223 @@ def _registry(name, **over):
             make_env(cfg, dtype=torch.float64, device="cpu"))
 
 
+# -- JAX twins of tests/torch_user_envs.py's envs, over one scenario -----------
+
+def _j_softplus(x, beta=1.0, threshold=20.0):
+    """torch's softplus: x past the threshold, else log1p(exp(beta x)) /
+    beta."""
+    return jnp.where(x * beta > threshold, x,
+                     jnp.log1p(jnp.exp(x * beta)) / beta)
+
+
+def _j_elementwise(env, x, u):
+    t, s = jnp.tanh(x), 1.0 + x * x
+    u3 = jnp.concatenate([u, u, u[:2]])
+    smooth = jnp.stack([
+        jnp.arctan2(x[0], 1.0 + u[0] ** 2) + jnp.arctan(x[1]),
+        jnp.tan(0.5 * t[2]) + jnp.sinh(0.5 * x[3]) - jnp.cosh(0.3 * x[4]),
+        jnp.arcsin(0.9 * t[5]) + jnp.arccos(0.8 * t[6]) + jnp.arcsinh(x[7]),
+        jnp.arccosh(s[0]) + jnp.arctanh(0.7 * t[1]) + jsp.erf(x[2])
+        - jsp.erfc(x[3]),
+        jnp.hypot(x[4], u[1]) + jnp.exp2(0.5 * x[5]) - jnp.log2(s[6])
+        + jnp.log10(s[7]),
+        _j_softplus(x[0], 2.0, 1.5) + jax.nn.gelu(x[1], approximate=False)
+        + jax.nn.gelu(x[2], approximate=True),
+        jax.nn.silu(x[3]) + jax.nn.elu(x[4], alpha=0.7)
+        + jax.nn.leaky_relu(x[5], 0.2),
+        jnp.clip(x[6], -0.6, 0.8) + jnp.nan_to_num(x[7])])
+    jumps = (jnp.floor(2.0 * x) + jnp.ceil(x - u3) + jnp.trunc(3.0 * x)
+             + jnp.round(2.0 * x) + jnp.sign(x - 0.1)
+             + jnp.heaviside(x, env.c) + jnp.fmod(3.0 * x, 0.7)
+             + jnp.remainder(3.0 * x, 0.7) + jnp.remainder(2.0 * x, -0.9)
+             + jnp.where(x > 0.5, 0.25, 2.0 * x))
+    return smooth + tue.JUMP * jumps
+
+
+def _j_pnorm(v, p, axis=None):
+    a = jnp.abs(v)
+    return (a ** p).sum(axis) ** (1.0 / p)
+
+
+def _j_reductions(env, x, u):
+    M = x[:, None] * x[None, :4] + env.W[:, :4]
+    diff = x.reshape(4, 2)[:, None, :] - env.W[:3, :2][None]
+    d2 = jnp.sqrt((diff * diff).sum(-1))
+    d1 = jnp.abs(diff).sum(-1)
+    d3 = _j_pnorm(diff, 3.0, -1)
+    norms = jnp.stack([
+        jnp.linalg.norm(x), jnp.abs(x - u.sum()).sum(), jnp.abs(x).max(),
+        jnp.abs(x).min(), _j_pnorm(x, 3.0), _j_pnorm(M, -1.5),
+        jnp.sqrt((M * M).sum(0)).sum(),
+        tue.JUMP * (jax.nn.relu(x) != 0).sum()])
+    square = M[:4] @ M[4:].T
+    return (norms + jax.nn.softmax(x) - jax.nn.log_softmax(0.5 * x)
+            + jax.nn.logsumexp(M, axis=-1).sum() + jax.nn.logsumexp(M)
+            + 0.1 * jnp.cumsum(x) + 0.1 * jnp.cumprod(jnp.tanh(x))
+            + 0.1 * jnp.cumsum(M, axis=0).sum(-1)
+            + 0.1 * (jnp.trace(square) + jnp.trace(M) - jnp.trace(M[:2]))
+            + jnp.concatenate([d2.sum(-1), d1.sum(0), d3[:, 0]])[:8])
+
+
+def _j_index_maps(env, x, u):
+    M = x[:, None] * env.W
+    pad = jnp.pad(x[2:7], (2, 1), constant_values=0.25)
+    crop = jnp.tile(jnp.pad(M, ((1, 0), (0, 0)))[:-1, 2:-2][3], 2)
+    v3 = jnp.cross(x[:3], jnp.concatenate([u[1:], x[4:5]]))
+    prod = jnp.einsum("bij,bjk->bik", x.reshape(2, 2, 2),
+                      env.W[:2, :4].reshape(2, 2, 2)).reshape(-1)
+    D = jnp.diag(x[:3], k=1) + jnp.diag(u, k=1)
+    return (pad + crop + x[::-1] + jnp.roll(x, 3)
+            + jnp.roll(M, (1, -2), axis=(0, 1))[0]
+            + jnp.concatenate([v3, jnp.diagonal(M, -1)[:5]]) + prod
+            + jnp.diagonal(D, 1).sum()
+            + x[jnp.array([3, 0, 7, 7, 1, 2, 6, 5])] + x[::-1]
+            + M[jnp.array([0, 2, 4, 6, 1, 3, 5, 7]),
+                jnp.array([1, 1, 0, 0, 2, 2, 3, 3])])
+
+
+def _j_multi_output(env, x, u):
+    M = x.reshape(2, 4)
+    return (jnp.concatenate([M.max(-1), M.min(0), x[:2]])
+            + jnp.concatenate([x[3:], u]) + jnp.tile(x[:4], 2) * x[4:].sum()
+            + jnp.tile(M[1], 2))
+
+
+_J_FAMILIES = {"elementwise": _j_elementwise, "reductions": _j_reductions,
+               "index_maps": _j_index_maps, "multi_output": _j_multi_output}
+
+
+def _jax_op_env(families):
+    @pytree_dataclass
+    class JaxOpEnv(JaxEnv):
+        W: jnp.ndarray
+        c: jnp.ndarray
+
+        @property
+        def state_size(self):
+            return 8
+
+        @property
+        def action_size(self):
+            return 3
+
+        def _y(self, x, u):
+            return sum(_J_FAMILIES[f](self, x, u) for f in families)
+
+        def transition(self, x, u):
+            y = self._y(x, u)
+            return x + 0.05 * y / (1.0 + jnp.abs(y))
+
+        def cost(self, x, u):
+            return x @ x + 0.1 * (u @ u)
+
+        def final_cost(self, x):
+            return 2.0 * (x @ x)
+
+    return JaxOpEnv
+
+
+@pytree_dataclass
+class JaxProbeEnv(JaxEnv):
+    """``torch_user_envs.ProbeEnv``'s twin."""
+
+    W: jnp.ndarray
+    w: jnp.ndarray
+    g: jnp.ndarray
+
+    @property
+    def state_size(self):
+        return self.W.shape[0]
+
+    @property
+    def action_size(self):
+        return self.W.shape[1]
+
+    def transition(self, x, u):
+        p = jnp.pad(x[:-1], (1, 0), constant_values=0.5)
+        y = jnp.einsum("ij,j->i", self.W, u) \
+            - 0.3 * jnp.arctan2(x, 1.0 + p * p) \
+            + 0.2 * (jax.nn.softmax(x) - jnp.cumsum(x) / x.shape[-1])
+        return x + 0.1 * y + 0.01 * jnp.floor(self.w) * jnp.sign(x) * x * x
+
+    def _distance(self, x):
+        return jnp.linalg.norm(jnp.pad(x - self.g, (0, 1),
+                                       constant_values=1.0))
+
+    def cost(self, x, u):
+        return (self._distance(x) ** 2 + 0.1 * (u @ u)
+                + 0.05 * _j_softplus(x, 2.0).sum() + 0.01 * jsp.erf(x).sum())
+
+    def final_cost(self, x):
+        return 5.0 * self._distance(x) ** 2
+
+
+@pytree_dataclass
+class JaxBicycle(JaxEnv):
+    """``torch_user_envs.KinematicBicycle``'s twin at its default
+    weights."""
+
+    goal: jnp.ndarray
+    obstacles: jnp.ndarray
+    radii: jnp.ndarray
+    R: jnp.ndarray
+
+    @property
+    def state_size(self):
+        return 4
+
+    @property
+    def action_size(self):
+        return 2
+
+    def transition(self, x, u):
+        step = 0.1 * x[3]
+        return jnp.stack([
+            x[0] + step * jnp.cos(x[2]), x[1] + step * jnp.sin(x[2]),
+            x[2] + step / 2.7 * jnp.tan(0.5 * jnp.tanh(u[1])),
+            x[3] + 0.1 * u[0]])
+
+    def _to_goal(self, x):
+        return jnp.hypot(self.goal[0] - x[0], self.goal[1] - x[1])
+
+    def cost(self, x, u):
+        e = jnp.arctan2(self.goal[1] - x[1], self.goal[0] - x[0]) - x[2]
+        e = jnp.arctan2(jnp.sin(e), jnp.cos(e))
+        # x[:2]: a constant index array would be a constant the Pallas
+        # kernel captures, which it refuses
+        gap = self.radii - jnp.linalg.norm(x[:2][None] - self.obstacles,
+                                           axis=-1)
+        return (0.02 * self._to_goal(x) + 0.02 * e * e
+                + 0.05 * _j_softplus(gap).sum() + u @ self.R @ u
+                + 0.01 * (x[3] - 4.0) ** 2)
+
+    def final_cost(self, x):
+        return 0.5 * self._to_goal(x) + x[3] ** 2
+
+
+def _twins(jax_cls, torch_cls, arrays, **fields):
+    """A JAX env and its port twin on the same float64 arrays."""
+    jenv = jax_cls(**{k: jnp.asarray(np.asarray(v, np.float64))
+                      for k, v in arrays.items()})
+    tenv = interop.user_env_from_numpy(torch_cls, arrays,
+                                       dtype=torch.float64, device="cpu")
+    return jenv, dataclasses.replace(tenv, **fields)
+
+
+def _op_env(*families):
+    families = families or tuple(tue.FAMILIES)
+    return _twins(_jax_op_env(families), tue.OpEnv, tue.op_arrays(),
+                  families=families)
+
+
+def _probe():
+    return _twins(JaxProbeEnv, tue.ProbeEnv, tue.probe_arrays())
+
+
+def _bicycle():
+    return _twins(JaxBicycle, tue.KinematicBicycle, tue.BICYCLE)
+
+
 # label -> (a maker of (JAX env, port env), the inputs' range)
 CASES = {
     "damped_chain": (lambda: _chain(6), (-2.0, 2.0)),
@@ -201,6 +464,11 @@ CASES = {
     "hvac6": (lambda: _registry("hvac"), (15.0, 28.0)),
     "reservoir5": (lambda: _registry("reservoir"), (0.0, 100.0)),
     "linear24x6": (lambda: _registry("linear"), (-1.0, 1.0)),
+    **{f"ops_{f}": (lambda f=f: _op_env(f), (-1.5, 1.5))
+       for f in tue.FAMILIES},
+    "ops_coverage": (_op_env, (-1.5, 1.5)),
+    "probe": (_probe, (-1.5, 1.5)),
+    "bicycle": (_bicycle, (-5.0, 5.0)),
 }
 
 
@@ -314,6 +582,169 @@ def test_supported_ops_match_the_torch_step(host_build):
     _close(final, per(env.final_cost, x), "final")
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TrapEnv(Env):
+    """Ops whose C or JAX counterpart differs from torch at some inputs:
+    the next state holds those where JAX agrees with torch, the stage cost
+    ``sign`` and ``heaviside``, which are 0 at NaN in torch (NaN in
+    JAX)."""
+
+    c: torch.Tensor   # [8]
+
+    @property
+    def state_size(self):
+        return 8
+
+    @property
+    def action_size(self):
+        return 1
+
+    def transition(self, x, u):
+        v = x.unbind(-1)
+        return torch.stack([
+            torch.round(v[0]), torch.remainder(v[1], 0.7),
+            torch.fmod(v[2], 0.7), torch.nan_to_num(v[3]),
+            torch.nan_to_num(v[4], nan=1.5, posinf=2.0, neginf=-3.0),
+            F.hardtanh(v[5]), F.softplus(v[6], beta=2.0, threshold=1.0),
+            torch.remainder(v[7], -0.7)], dim=-1)
+
+    def cost(self, x, u):
+        return (torch.sign(x) + torch.heaviside(x, self.c)).sum(-1)
+
+    def final_cost(self, x):
+        return (torch.round(x, decimals=1)
+                + torch.round(7.0 * x, decimals=-1)).sum(-1)
+
+
+@pytree_dataclass
+class JaxTrapEnv(JaxEnv):
+    c: jnp.ndarray
+
+    @property
+    def state_size(self):
+        return 8
+
+    @property
+    def action_size(self):
+        return 1
+
+    def transition(self, x, u):
+        return jnp.stack([
+            jnp.round(x[0]), jnp.remainder(x[1], 0.7), jnp.fmod(x[2], 0.7),
+            jnp.nan_to_num(x[3]),
+            jnp.nan_to_num(x[4], nan=1.5, posinf=2.0, neginf=-3.0),
+            jnp.clip(x[5], -1.0, 1.0), _j_softplus(x[6], 2.0, 1.0),
+            jnp.remainder(x[7], -0.7)])
+
+    def cost(self, x, u):
+        return (jnp.sign(x) + jnp.heaviside(x, self.c)).sum()
+
+    def final_cost(self, x):
+        return (jnp.round(x * 10.0) / 10.0
+                + jnp.round(7.0 * x / 10.0) * 10.0).sum()
+
+
+NAN, INF = float("nan"), float("inf")
+# half-integers, negative dividends, NaN, +-inf, zeros of either sign and
+# the softplus threshold (beta x = 1) on either side
+TRAP_X = [
+    [2.5, -1.3, -1.3, NAN, NAN, NAN, 0.5, -1.3],
+    [0.5, -0.6, -0.6, INF, INF, INF, 0.5 - 1e-12, 1.3],
+    [-0.5, 1.3, 1.3, -INF, -INF, -INF, 0.5 + 1e-12, -0.35],
+    [1.5, -0.7, -0.7, 1.0, 1.0, 0.3, -2.0, 0.7],
+    [-2.5, 0.0, -0.0, -0.0, 2.0, -5.0, 30.0, -2.1],
+    [3.5, -2.45, -2.45, -1e300, NAN, 1.0, 0.25, 0.0],
+    [-1.5, 0.35, 0.35, 1e300, -INF, -1.0, -30.0, 1.05],
+]
+
+
+def test_torch_semantics_where_c_or_jax_differ(host_build):
+    """round to even, remainder with the divisor's sign, fmod with the
+    dividend's, nan_to_num's finfo defaults and options, hardtanh keeping
+    NaN, softplus's threshold, round to decimals: the functor against the
+    torch step and the JAX twin (NaN where both give NaN); sign and
+    heaviside, 0 at NaN in torch, against torch only (against JAX on the
+    rows without NaN)."""
+    c = np.linspace(0.1, 0.8, 8)
+    tenv = TrapEnv(c=torch.as_tensor(c))
+    jenv = JaxTrapEnv(c=jnp.asarray(c))
+    x = torch.tensor(TRAP_X, dtype=torch.float64)
+    u = torch.zeros(x.shape[0], 1, dtype=torch.float64)
+    step = tenv.generic_device_step(torch.float64, "cpu")
+    xn, cost, final = _host_step(host_build(step.source), step, x, u)
+    exact = dict(rtol=1e-15, atol=0, equal_nan=True)
+    np.testing.assert_allclose(xn, tenv.transition(x, u), **exact)
+    np.testing.assert_allclose(cost, tenv.cost(x, u), **exact)
+    np.testing.assert_allclose(final, tenv.final_cost(x), rtol=1e-12,
+                               equal_nan=True)
+    assert torch.equal(xn[:, 0], torch.tensor([2.0, 0.0, -0.0, 2.0, -2.0,
+                                               4.0, -2.0],
+                                              dtype=torch.float64))
+    assert not bool(cost.isnan().any())   # sign, heaviside at NaN: 0
+    _, step_fn, final_fn = jenv.generic_lane_functions()
+    jx, ju = jnp.asarray(x.numpy().T), jnp.asarray(u.numpy().T)
+    jxn, jcost = step_fn(jenv, jx, ju)
+    np.testing.assert_allclose(xn.numpy().T, jxn, **exact)
+    rows = ~x.isnan().any(-1).numpy()
+    np.testing.assert_allclose(cost.numpy()[rows], np.asarray(jcost)[rows],
+                               **exact)
+    np.testing.assert_allclose(final, final_fn(jenv, jx), rtol=1e-12,
+                               equal_nan=True)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DecomposedOpsEnv(Env):
+    """Ops outside ``SUPPORTED_OPS`` that ``torch._decomp`` decomposes
+    into supported ones, beside ``std`` and ``var`` (supported, two
+    passes), on one scenario (``torch.dist`` reduces every dim)."""
+
+    W: torch.Tensor   # [n, n]
+
+    @property
+    def state_size(self):
+        return self.W.shape[0]
+
+    def transition(self, x, u):
+        return x + 0.1 * (torch.xlogy(x * x, 1.0 + u * u)
+                          + torch.logaddexp(x, u) + torch.lerp(x, u, 0.3)
+                          + F.hardswish(x) + F.mish(u)
+                          + torch.addcmul(x, x, u, value=0.5)
+                          + x.std(-1, keepdim=True))
+
+    def cost(self, x, u):
+        return torch.var(x @ self.W, -1) + torch.dist(x, u) \
+            + torch.frac(3.0 * x).sum(-1) \
+            + (torch.diag(torch.outer(x, u)) * torch.diag(x)[1]).sum(-1)
+
+    def final_cost(self, x):
+        return (x * x).sum(-1)
+
+
+def test_decomposed_ops_match_the_torch_step(host_build):
+    """An op outside ``SUPPORTED_OPS`` that ``torch._decomp`` decomposes is
+    traced through its decomposition; the source's header names it (and
+    not ``std``/``var``, which the functor computes itself), and the
+    functor equals the torch step."""
+    n = 5
+    rng = np.random.default_rng(7)
+    env = DecomposedOpsEnv(W=torch.as_tensor(rng.standard_normal((n, n))))
+    step = env.generic_device_step(torch.float64, "cpu")
+    header = step.source.splitlines()[3]
+    for op in ("aten::xlogy", "aten::logaddexp", "aten::lerp",
+               "aten::hardswish", "aten::mish", "aten::addcmul", "aten::dist",
+               "aten::frac", "aten::diagonal_copy"):
+        assert op in header, (op, header)
+    assert "aten::std" not in header and "aten::var" not in header
+    x = torch.as_tensor(rng.uniform(-1.5, 1.5, (B, n)))
+    u = torch.as_tensor(rng.uniform(-1.0, 1.0, (B, n)))
+    xn, cost, final = _host_step(host_build(step.source), step, x, u)
+    per = lambda f, *a: torch.stack([f(*(v[b] for v in a))  # noqa: E731
+                                     for b in range(B)])
+    _close(xn, per(env.transition, x, u), "x_next")
+    _close(cost, per(env.cost, x, u), "cost")
+    _close(final, per(env.final_cost, x), "final")
+
+
 def test_source_depends_on_graph_dims_and_dtype_not_values():
     _, a = _chain(6)
     _, b = _chain(6, coupling_seed=3)
@@ -332,7 +763,12 @@ def test_source_depends_on_graph_dims_and_dtype_not_values():
 
 
 @pytest.mark.parametrize("cls,what", [
-    (Unsupported, "aten::cumsum"),
+    (Unsupported, "aten::sort"),
+    (LinearSolve, "aten::_linalg_solve_ex"),
+    (RandomStep, "aten::rand"),
+    (RandomIndex, "aten::randint.*random ops"),
+    (IntegerArithmetic, "aten::argmax.*integer values"),
+    (MaxIndexAsValue, "aten::max.*integer values"),
     (Branchy, "data-dependent"),
     (WideCost, "returned shape"),
 ])
@@ -356,7 +792,7 @@ def test_a_solve_raises_instead_of_falling_back():
                          for f in dataclasses.fields(tenv)})
     x0 = torch.zeros(2, 3, dtype=torch.float64)
     cfg = ilqr.ILQRConfig(max_iterations=2, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="aten::cumsum"):
+    with pytest.raises(NotImplementedError, match="aten::sort"):
         ilqr.solve_batch(env, x0, horizon=3, config=cfg)
     res = ilqr.solve_batch(env, x0, horizon=3,
                            config=dataclasses.replace(cfg, use_pallas=False))

@@ -17,6 +17,12 @@ chain at B=8, where the JAX package's rollouts are XLA's with either
 ``use_pallas``. The bounded cases hold against its ``use_pallas=False``
 solve: its boxQP Riccati kernel in interpret mode takes 100-250 s a solve
 on a CPU, and the port's backward on the CPU is the plain one either way.
+Two envs whose steps use the ops the generator widened to
+(``tests/torch_user_envs.py``) solve the same way at B=128, T=8: the probe
+env (``atan2``, ``softmax``, ``cumsum``, ``einsum``, ``pad``, ``sign``,
+``floor``, ``vector_norm``, ``softplus``, ``erf``), whose generated step
+was refused before, and the kinematic bicycle fleet of ``chip_smoke.py``
+phase 31.
 """
 
 import dataclasses
@@ -34,7 +40,8 @@ from tfmpc_tpu_torch.parallel import mesh
 from tfmpc_tpu_torch.solvers import ilqr, mpc
 
 import test_fuzz_envs
-from test_torch_env_codegen import _chain, _fuzz_envs
+import torch_user_envs as tue
+from test_torch_env_codegen import _bicycle, _chain, _fuzz_envs, _probe
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,10 +79,32 @@ CASES = {
 def test_solve_batch_on_the_generated_step_matches_jax(label):
     build, box, B, T, jax_pallas = CASES[label]
     jenv, tenv = build()
-    n, m = tenv.state_size, tenv.action_size
+    x0 = np.random.default_rng(1000 + B).uniform(-1.5, 1.5,
+                                                 (B, tenv.state_size))
+    _hold_against_jax(jenv, tenv, x0, box, T, jax_pallas)
+
+
+def test_probe_env_solves_on_its_generated_step_as_jax_does():
+    """The repair: the probe env's step was refused (``NotImplementedError``
+    on every device, the CPU included); its ``use_pallas=True`` solve now
+    equals the JAX package's, whose kernels run it in interpret mode."""
+    jenv, tenv = _probe()
+    x0 = np.random.default_rng(3).uniform(-1.5, 1.5, (128, 3))
+    _hold_against_jax(jenv, tenv, x0, None, 8, True)
+
+
+def test_bicycle_fleet_solve_matches_jax():
+    """The kinematic bicycle fleet (``hypot``, ``atan2``, constant indexing,
+    ``vector_norm`` over the obstacles, ``softplus``): its
+    ``use_pallas=True`` solve against the JAX package's."""
+    jenv, tenv = _bicycle()
+    _hold_against_jax(jenv, tenv, tue.bicycle_x0(128), None, 8, True)
+
+
+def _hold_against_jax(jenv, tenv, x0, box, T, jax_pallas):
+    B, n = x0.shape
     step = tenv.device_step()
     assert step.env_id == USER_STEP_ID and "UserStep" in step.source
-    x0 = np.random.default_rng(1000 + B).uniform(-1.5, 1.5, (B, n))
     kw = dict(atol=1e-5, max_iterations=10, boxqp=box is not None)
     res_j = jilqr.solve_batch(jenv, jnp.asarray(x0), horizon=T,
                               config=jilqr.ILQRConfig(**kw,

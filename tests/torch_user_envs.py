@@ -1,0 +1,323 @@
+"""User envs whose steps use the ops of the generated step functor's
+families, in PyTorch only (``chip_smoke.py`` imports this module on the
+card, where there is no JAX; the tests hold each against a JAX twin).
+
+- ``ProbeEnv`` (3, 2): a step through ``atan2``, ``softmax``, ``cumsum``,
+  ``einsum``, ``pad``, ``sign``, ``floor``, ``vector_norm``, ``softplus``
+  and ``erf``, which the generator refused before it took these ops.
+- ``KinematicBicycle`` (4, 2): a fleet of kinematic bicycles (p_x, p_y,
+  heading, speed; acceleration, steering) driven to a goal around eight
+  soft obstacles: ``split``, ``tan``, ``hypot``, ``atan2``, constant
+  indexing, ``vector_norm`` over a dim and ``softplus`` in its step.
+- ``OpEnv``: a step that sums, for each family it names, a vector of that
+  family's ops (``FAMILIES``): elementwise, reductions and scans, index
+  maps, nodes with several outputs. With all four at (8, 3) it is the
+  op-coverage env: every op of the four families that the bicycle does
+  not use. Ops whose value jumps (floor, round, sign, ...) enter with a
+  small weight, so that a rounding difference that moves one across a
+  jump moves the rollout by less than a float32 comparison's tolerance.
+
+Every step takes states ``[..., n]`` and controls ``[..., m]`` with any
+leading batch dims (the port's env contract); ``torch.trace``, which has
+no batch form, is mapped with ``torch.vmap``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tfmpc_tpu_torch import Env
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProbeEnv(Env):
+    """x' = x + 0.1 (W u - 0.3 atan2(x, 1 + p^2) + 0.2 (softmax(x) -
+    cumsum(x) / n)) + 0.01 floor(w) sign(x) x^2, p = x shifted right by
+    one (a pad of 0.5); the cost a smooth distance to ``g`` (the norm of
+    (x - g, 1)) plus controls, softplus and erf terms."""
+
+    W: torch.Tensor   # [n, m]
+    w: torch.Tensor   # [n]
+    g: torch.Tensor   # [n]
+
+    @property
+    def state_size(self):
+        return self.W.shape[0]
+
+    @property
+    def action_size(self):
+        return self.W.shape[1]
+
+    def transition(self, x, u):
+        n = x.shape[-1]
+        p = F.pad(x[..., :-1], (1, 0), value=0.5)
+        y = torch.einsum("ij,...j->...i", self.W, u) \
+            - 0.3 * torch.atan2(x, 1.0 + p * p) \
+            + 0.2 * (torch.softmax(x, dim=-1) - torch.cumsum(x, dim=-1) / n)
+        return x + 0.1 * y + 0.01 * torch.floor(self.w) * torch.sign(x) * x * x
+
+    def _distance(self, x):
+        return torch.linalg.vector_norm(F.pad(x - self.g, (0, 1), value=1.0),
+                                        dim=-1)
+
+    def cost(self, x, u):
+        return (self._distance(x) ** 2 + 0.1 * (u * u).sum(-1)
+                + 0.05 * F.softplus(x, beta=2.0).sum(-1)
+                + 0.01 * torch.erf(x).sum(-1))
+
+    def final_cost(self, x):
+        return 5.0 * self._distance(x) ** 2
+
+
+def probe_arrays(seed: int = 0, n: int = 3, m: int = 2) -> dict:
+    """``ProbeEnv``'s fields, float64, from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return dict(W=rng.standard_normal((n, m)), w=rng.uniform(0.5, 2.5, n),
+                g=rng.uniform(-1.0, 1.0, n))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KinematicBicycle(Env):
+    """The kinematic bicycle, dt = 0.1, wheelbase 2.7: p += dt v (cos th,
+    sin th), th += dt v / 2.7 tan(0.5 tanh(delta)), v += dt a. Stage cost:
+    w_goal |goal - p| (``hypot``) + w_head wrap(atan2(goal - p) - th)^2 +
+    w_obs sum_k softplus(kappa (r_k - |p - O_k|)) + u R u + w_v (v -
+    v_ref)^2, with p = x[[0, 1]]; final cost w_final |goal - p| + v^2."""
+
+    goal: torch.Tensor        # [2]
+    obstacles: torch.Tensor   # [K, 2]
+    radii: torch.Tensor       # [K]
+    R: torch.Tensor           # [2, 2]
+    dt: float = 0.1
+    wheelbase: float = 2.7
+    # weights that keep a solve's total cost ~1e2, where float32 resolves
+    # the headline config's atol of 1e-4
+    kappa: float = 1.0
+    w_goal: float = 0.02
+    w_head: float = 0.02
+    w_obs: float = 0.05
+    w_v: float = 0.01
+    v_ref: float = 4.0
+    w_final: float = 0.5
+
+    @property
+    def state_size(self):
+        return 4
+
+    @property
+    def action_size(self):
+        return 2
+
+    # each quantity a [..., 1] slice: under torch.func.jacfwd a 0-d tensor
+    # times a Python float gives float64 tangents on a float32 env
+    def transition(self, x, u):
+        px, py, th, v = x.split(1, dim=-1)
+        a, delta = u.split(1, dim=-1)
+        step = self.dt * v
+        return torch.cat([
+            px + step * torch.cos(th),
+            py + step * torch.sin(th),
+            th + step / self.wheelbase * torch.tan(0.5 * torch.tanh(delta)),
+            v + self.dt * a], dim=-1)
+
+    def _to_goal(self, x):
+        d = self.goal - x[..., :2]
+        return torch.hypot(d[..., :1], d[..., 1:])
+
+    def cost(self, x, u):
+        p = x[..., [0, 1]]
+        d = self.goal - p
+        e = torch.atan2(d[..., 1:], d[..., :1]) - x[..., 2:3]
+        e = torch.atan2(torch.sin(e), torch.cos(e))
+        gap = self.radii - torch.linalg.vector_norm(
+            p[..., None, :] - self.obstacles, dim=-1)
+        obstacles = F.softplus(self.kappa * gap).sum(-1, keepdim=True)
+        return (self.w_goal * self._to_goal(x) + self.w_head * e * e
+                + self.w_obs * obstacles
+                + ((u @ self.R) * u).sum(-1, keepdim=True)
+                + self.w_v * (x[..., 3:] - self.v_ref) ** 2).squeeze(-1)
+
+    def final_cost(self, x):
+        return (self.w_final * self._to_goal(x)
+                + x[..., 3:] ** 2).squeeze(-1)
+
+
+# the bicycle fleet's goal, eight obstacles between the start box and the
+# goal, their radii, and R
+BICYCLE = dict(
+    goal=[60.0, 4.0],
+    obstacles=[[10.0, -3.0], [14.0, 3.5], [20.0, 0.0], [26.0, -4.5],
+               [30.0, 4.0], [36.0, -1.0], [42.0, 5.0], [48.0, -3.5]],
+    radii=[1.5, 2.0, 1.8, 2.2, 1.6, 2.4, 1.7, 2.0],
+    R=[[0.2, 0.0], [0.0, 2.0]])
+
+
+def bicycle_x0(B: int, seed: int = 0) -> np.ndarray:
+    """The fleet's initial states, ``default_rng(seed)``: p in [-5, 5]^2,
+    heading in [-0.5, 0.5], speed in [1, 5]."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.uniform(-5.0, 5.0, (B, 2)),
+                           rng.uniform(-0.5, 0.5, (B, 1)),
+                           rng.uniform(1.0, 5.0, (B, 1))], axis=1)
+
+
+# -- the op families ----------------------------------------------------------
+# Each returns a vector [..., 8] of x [..., 8], u [..., 3] and the env's
+# parameters; jumps (floor, ceil, trunc, round, sign, heaviside, fmod,
+# remainder, masked_fill on a comparison) are weighted by JUMP.
+
+JUMP = 1e-3
+
+
+def _trace(M):
+    if M.dim() == 2:
+        return torch.trace(M)
+    return torch.vmap(torch.trace)(M.flatten(0, -3)).reshape(M.shape[:-2])
+
+
+def elementwise(env, x, u):
+    t = torch.tanh(x)
+    s = 1.0 + x * x
+    u3 = torch.cat([u, u, u[..., :2]], dim=-1)
+    smooth = torch.stack([
+        torch.atan2(x[..., 0], 1.0 + u[..., 0] ** 2) + torch.atan(x[..., 1]),
+        torch.tan(0.5 * t[..., 2]) + torch.sinh(0.5 * x[..., 3])
+        - torch.cosh(0.3 * x[..., 4]),
+        torch.asin(0.9 * t[..., 5]) + torch.acos(0.8 * t[..., 6])
+        + torch.asinh(x[..., 7]),
+        torch.acosh(s[..., 0]) + torch.atanh(0.7 * t[..., 1])
+        + torch.erf(x[..., 2]) - torch.erfc(x[..., 3]),
+        torch.hypot(x[..., 4], u[..., 1]) + torch.exp2(0.5 * x[..., 5])
+        - torch.log2(s[..., 6]) + torch.log10(s[..., 7]),
+        F.softplus(x[..., 0], beta=2.0, threshold=1.5)
+        + F.gelu(x[..., 1]) + F.gelu(x[..., 2], approximate="tanh"),
+        F.silu(x[..., 3]) + F.elu(x[..., 4], alpha=0.7)
+        + F.leaky_relu(x[..., 5], 0.2),
+        F.hardtanh(x[..., 6], -0.6, 0.8) + torch.nan_to_num(x[..., 7])],
+        dim=-1)
+    jumps = (torch.floor(2.0 * x) + torch.ceil(x - u3) + torch.trunc(3.0 * x)
+             + torch.round(2.0 * x) + torch.sign(x - 0.1)
+             + torch.heaviside(x, env.c) + torch.fmod(3.0 * x, 0.7)
+             + torch.remainder(3.0 * x, 0.7)
+             + torch.remainder(2.0 * x, -0.9)
+             + (2.0 * x).masked_fill(x > 0.5, 0.25))
+    return smooth + JUMP * jumps
+
+
+def reductions(env, x, u):
+    M = x[..., :, None] * x[..., None, :4] + env.W[:, :4]   # [..., 8, 4]
+    pts = x.reshape(x.shape[:-1] + (4, 2))
+    centers = env.W[:3, :2]
+    d2 = torch.cdist(pts, centers)                           # [..., 4, 3]
+    d1 = torch.cdist(pts, centers, p=1.0)
+    d3 = torch.cdist(pts, centers, p=3.0)
+    norms = torch.stack([
+        torch.linalg.vector_norm(x, dim=-1),
+        torch.linalg.vector_norm(x - u.sum(-1, keepdim=True), ord=1.0,
+                                 dim=-1),
+        torch.linalg.vector_norm(x, ord=float("inf"), dim=-1),
+        torch.linalg.vector_norm(x, ord=float("-inf"), dim=-1),
+        torch.linalg.vector_norm(x, ord=3.0, dim=-1),
+        torch.linalg.vector_norm(M, ord=-1.5, dim=(-2, -1)),
+        torch.linalg.vector_norm(M, dim=-2, keepdim=True).sum((-2, -1)),
+        JUMP * torch.linalg.vector_norm(torch.relu(x), ord=0, dim=-1)],
+        dim=-1)
+    # traces of a square, a tall ([8, 4]) and a wide ([2, 4]) matrix
+    square = M[..., :4, :] @ M[..., 4:, :].mT                # [..., 4, 4]
+    return (norms + torch.softmax(x, dim=-1)
+            - torch.log_softmax(0.5 * x, dim=-1)
+            + torch.logsumexp(M, dim=-1).sum(-1, keepdim=True)
+            + torch.logsumexp(M, dim=(-2, -1), keepdim=True)[..., 0]
+            + 0.1 * torch.cumsum(x, dim=-1)
+            + 0.1 * torch.cumprod(torch.tanh(x), dim=-1)
+            + 0.1 * torch.cumsum(M, dim=-2).sum(-1)
+            + 0.1 * (_trace(square) + _trace(M)
+                     - _trace(M[..., :2, :]))[..., None]
+            + torch.cat([d2.sum(-1), d1.sum(-2), d3[..., 0]], dim=-1)[..., :8])
+
+
+def index_maps(env, x, u):
+    M = x[..., :, None] * env.W                              # [..., 8, 8]
+    pad = F.pad(x[..., 2:7], (2, 1), value=0.25)             # [..., 8]
+    crop = F.pad(M, (-2, -2, 1, -1))[..., 3, :].repeat(
+        *([1] * (x.dim() - 1)), 2)                           # [..., 8]
+    v3 = torch.linalg.cross(x[..., :3], torch.cat([u[..., 1:], x[..., 4:5]],
+                                                  dim=-1))
+    A = x[..., :8].reshape(x.shape[:-1] + (2, 2, 2))
+    Bm = env.W[:2, :4].reshape(2, 2, 2)
+    prod = torch.einsum("...bij,bjk->...bik", A, Bm).flatten(-3)   # bmm
+    diag = torch.diag_embed(x[..., :3], offset=1)            # [..., 4, 4]
+    diag2 = torch.diag_embed(u, offset=-1, dim1=-1, dim2=-2)  # [..., 4, 4]
+    return (pad + crop + torch.flip(x, dims=[-1])
+            + torch.roll(x, 3, dims=-1) + torch.roll(M, (1, -2), (-2, -1))[
+                ..., 0, :]
+            + torch.cat([v3, torch.diagonal(M, -1, dim1=-2, dim2=-1)[
+                ..., :5]], dim=-1)
+            + prod + torch.tile(torch.diagonal(diag + diag2, 1, -2, -1)
+                                .sum(-1, keepdim=True), (8,))
+            + x[..., [3, 0, 7, 7, 1, 2, 6, 5]]
+            + x[..., torch.arange(7, -1, -1)]
+            + M[..., [0, 2, 4, 6, 1, 3, 5, 7], [1, 1, 0, 0, 2, 2, 3, 3]])
+
+
+def multi_output(env, x, u):
+    M = x.reshape(x.shape[:-1] + (2, 4))
+    hi = torch.max(M, dim=-1).values                         # [..., 2]
+    lo = torch.min(M, dim=-2, keepdim=True)[0][..., 0, :]    # [..., 4]
+    head, tail = torch.split(x, [3, 5], dim=-1)
+    a, b = torch.chunk(x, 2, dim=-1)
+    rows = M.unbind(-2)
+    return torch.cat([hi, lo, head[..., :2]], dim=-1) \
+        + torch.cat([tail, u], dim=-1) + a.repeat(
+            *([1] * (x.dim() - 1)), 2) * b.sum(-1, keepdim=True) \
+        + rows[1].repeat(*([1] * (x.dim() - 1)), 2)
+
+
+FAMILIES = {"elementwise": elementwise, "reductions": reductions,
+            "index_maps": index_maps, "multi_output": multi_output}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class OpEnv(Env):
+    """x' = x + 0.05 y / (1 + |y|), y the sum of ``families``' vectors
+    (each [..., 8]): bounded steps that stay sensitive to y where it is
+    large (tanh saturates: the reductions' y is 18-57 at the tests'
+    inputs, where tanh' < 1e-15); cost |x|^2 + 0.1 |u|^2, final cost 2
+    |x|^2 (y in the stage cost would have one lane compute all of it each
+    step)."""
+
+    W: torch.Tensor   # [8, 8]
+    c: torch.Tensor   # [8]
+    families: tuple = tuple(FAMILIES)
+
+    @property
+    def state_size(self):
+        return 8
+
+    @property
+    def action_size(self):
+        return 3
+
+    def _y(self, x, u):
+        return sum(FAMILIES[f](self, x, u) for f in self.families)
+
+    def transition(self, x, u):
+        y = self._y(x, u)
+        return x + 0.05 * y / (1.0 + torch.abs(y))
+
+    def cost(self, x, u):
+        return (x * x).sum(-1) + 0.1 * (u * u).sum(-1)
+
+    def final_cost(self, x):
+        return 2.0 * (x * x).sum(-1)
+
+
+def op_arrays(seed: int = 8) -> dict:
+    """``OpEnv``'s fields, float64, from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return dict(W=0.5 * rng.standard_normal((8, 8)),
+                c=rng.uniform(0.0, 1.0, 8))

@@ -13,39 +13,58 @@ prep(x)``, ``row(pre, i, x, u, x_i, u_i)``, ``param_elems()`` and
 compiles it into the generic rollout kernel's K2, K3 and K5
 (``_build.user_library``).
 
-Every tensor the step reads from the env (a ``_tensor_constant`` of the
-trace) is a parameter array: a pointer the kernel copies into shared memory
-once a block, read at launch. So the source depends on the graph, the
-shapes and the dtype only, never on the parameter values, and a new env
-instance with other values reuses the build. Python scalars in the step are
-literals cast to the operation's dtype, as torch's type promotion casts
-them.
+Every float tensor the step reads from the env (a ``_tensor_constant`` of
+the trace) is a parameter array: a pointer the kernel copies into shared
+memory once a block, read at launch. So the source depends on the graph,
+the shapes and the dtype, not on the parameter values, and a new env
+instance with other values reuses the build. Two kinds of value are
+literals in the source instead: Python scalars in the step, cast to the
+operation's dtype as torch's type promotion casts them, and the integer
+tensors that index a tensor with a constant list (``x[[0, 2, 1]]``,
+``x[..., torch.arange(2)]``), evaluated when the source is emitted. An env
+whose constant indices change gets another source.
 
 The functor evaluates each node lazily at the index it is read at: row i of
 the next state computes only the elements that row depends on, pushing the
-index back through elementwise and broadcast ops, views, reductions and
-matrix products (row i of ``A v`` is one dot product). ``prep`` holds what
-every row reads whole: the nodes that depend on x but not on u and that a
-row reads at an index independent of i (navigation's lambda(x), a vector
-under a contraction), at most ``PREP_MAX_ELEMS`` values each. A node that
-depends on u and that every row reads whole (a product ``A (B u)``) is
-recomputed in every row. Reductions and products sum in index order from
-zero, ``pow`` by 2 and 3 are products, as torch computes them; the stage and
-final costs are evaluated whole.
+index back through elementwise and broadcast ops, views and index maps
+(pads, flips, rolls, repeats, diagonals, constant indexing, splits),
+reductions, scans and matrix products (row i of ``A v`` is one dot
+product). ``prep`` holds what every row reads whole: the nodes that depend
+on x but not on u and that a row reads at an index independent of i
+(navigation's lambda(x), a vector under a contraction), at most
+``PREP_MAX_ELEMS`` values each. A node that depends on u and that every
+row reads whole (a product ``A (B u)``) is recomputed in every row.
+Reductions, scans and products sum in index order from zero, ``pow`` by 2
+and 3 are products, as torch computes them; each op keeps torch's
+semantics where C's differ (``round`` to even, ``remainder`` with the
+divisor's sign, ``sign(NaN) = 0``, the NaN that ``max``, ``clamp`` and the
+norms propagate); the stage and final costs are evaluated whole.
 
-A step the functor cannot express raises ``NotImplementedError`` naming the
-op or node and the two opt-outs: an op outside ``SUPPORTED_OPS``, a
-data-dependent branch, an output of the wrong shape, an integer dtype.
+An op outside ``SUPPORTED_OPS`` that ``torch._decomp`` decomposes is traced
+again through its decomposition, which keeps torch's semantics by
+construction: the activations (``softplus`` with its threshold, ``gelu``,
+``silu``, ``elu``, ``leaky_relu``, ``hardtanh``), ``_softmax``,
+``_log_softmax`` and ``logsumexp`` (shifted by its max, 0 where that max
+is infinite), ``xlogy``, ``logaddexp``, ``lerp``, ``addcmul``,
+``hardswish``, ``mish``, ``dist``, ``frac``, ...; the source's header
+names the ops that went that way. A step the functor cannot express raises
+``NotImplementedError`` naming the op or node and the two opt-outs: any
+other op (sorts, linear solves and factorizations, random ops), a
+data-dependent branch, an output of the wrong shape, an integer value in
+the arithmetic (an index output of ``max(x, dim)`` read as a value
+included).
 """
 
 from __future__ import annotations
 
 import math
+import operator
 import re
 import weakref
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
+from torch._decomp import decomposition_table, get_decompositions
 from torch.fx.experimental.proxy_tensor import make_fx
 
 from tfmpc_tpu_torch.models.base import USER_STEP_ID, DeviceStep
@@ -98,6 +117,21 @@ _UNARY = {
     # max(v, 0) that keeps NaN, as torch.relu does
     aten.relu.default: lambda T, a: f"({a} < {T}(0) ? {T}(0) : {a})",
     aten.logical_not.default: lambda T, a: f"(!{a})",
+    # round half to even, as torch.round
+    aten.round.default: lambda T, a: f"{_f('rint', T)}({a})",
+    # 0 at 0 and at NaN, as torch.sign
+    aten.sign.default:
+        lambda T, a: f"({a} > {T}(0) ? {T}(1) : {a} < {T}(0) ? {T}(-1) "
+                     f": {T}(0))",
+}
+for _name in ("atan", "tan", "sinh", "cosh", "asin", "acos", "asinh", "acosh",
+              "atanh", "erf", "erfc", "exp2", "log2", "log10", "floor",
+              "ceil", "trunc"):
+    _UNARY[getattr(aten, _name).default] = \
+        lambda T, a, _name=_name: f"{_f(_name, T)}({a})"
+# bool of a float operand, read at its own type (decompositions use it)
+_PREDICATES = {
+    aten.isnan.default: lambda T, a: f"({a} != {a})",
 }
 _BINARY = {
     aten.mul.Tensor: lambda T, a, b: f"({a} * {b})",
@@ -115,7 +149,21 @@ _BINARY = {
                         f"? {b} : {b} > {a} ? {b} : {a})",
     aten.logical_and.default: lambda T, a, b: f"({a} && {b})",
     aten.logical_or.default: lambda T, a, b: f"({a} || {b})",
+    aten.atan2.default: lambda T, a, b: f"{_f('atan2', T)}({a}, {b})",
+    aten.hypot.default: lambda T, a, b: f"{_f('hypot', T)}({a}, {b})",
+    # the dividend's sign, as torch.fmod
+    aten.fmod.Tensor: lambda T, a, b: f"{_f('fmod', T)}({a}, {b})",
+    aten.fmod.Scalar: lambda T, a, b: f"{_f('fmod', T)}({a}, {b})",
+    # 0 at NaN, as torch.heaviside
+    aten.heaviside.default:
+        lambda T, a, b: f"({a} == {T}(0) ? {b} : {a} > {T}(0) ? {T}(1) "
+                        f": {T}(0))",
 }
+# the divisor's sign, as torch.remainder: fmod moved by the divisor
+_REMAINDER = {aten.remainder.Tensor, aten.remainder.Scalar}
+# elementwise ops with scalar options (read in ``_Body._options``)
+_OPTIONS = {aten.nan_to_num.default, aten.round.decimals,
+            aten.masked_fill.Scalar, aten.masked_fill.Tensor}
 _COMPARE = {}
 for _name, _sym in (("gt", ">"), ("lt", "<"), ("ge", ">="), ("le", "<="),
                     ("eq", "=="), ("ne", "!=")):
@@ -131,15 +179,32 @@ _REDUCE = {aten.sum.dim_IntList, aten.sum.default, aten.mean.dim,
            aten.mean.default, aten.prod.dim_int, aten.prod.default,
            aten.amax.default, aten.amin.default, aten.max.default,
            aten.min.default}
+# reductions and scans over dims, each with its own arithmetic
+_NORMS = {aten.linalg_vector_norm.default}
+_SCANS = {aten.cumsum.default: "+", aten.cumprod.default: "*"}
+_MOMENTS = {aten.var.correction, aten.std.correction}
+_OTHER_REDUCE = {aten.trace.default, aten._cdist_forward.default} | _MOMENTS
 _MATMUL = {aten.mm.default, aten.mv.default, aten.dot.default,
-           aten.addmm.default, aten.addmv.default}
+           aten.addmm.default, aten.addmv.default, aten.bmm.default}
+# index maps: each element of the output is one element of the input (or
+# a literal outside it), or, for the cross product, a few
+_INDEX_MAPS = {aten.constant_pad_nd.default, aten.flip.default,
+               aten.roll.default, aten.repeat.default,
+               aten.diagonal.default, aten.diag_embed.default,
+               aten.index.Tensor}
+# nodes with more than one output, read only through ``operator.getitem``
+# (the values of max/min over a dim, never their indices)
+_MULTI = {aten.max.dim, aten.min.dim, aten.split_with_sizes.default,
+          aten.split.Tensor, aten.unbind.int}
 _OTHER = {aten.pow.Tensor_Scalar, aten.rsub.Scalar, aten._to_copy.default,
-          aten.cat.default, aten.stack.default}
+          aten.cat.default, aten.stack.default, aten.linalg_cross.default,
+          operator.getitem}
 
 SUPPORTED_OPS = frozenset(
-    set(_VIEWS) | set(_LITERALS) | set(_UNARY) | set(_BINARY)
-    | set(_COMPARE) | set(_ADD) | _CLAMP | _WHERE | _REDUCE | _MATMUL
-    | _OTHER)
+    set(_VIEWS) | set(_LITERALS) | set(_UNARY) | set(_PREDICATES)
+    | set(_BINARY) | _REMAINDER | _OPTIONS | set(_COMPARE) | set(_ADD)
+    | _CLAMP | _WHERE | _REDUCE | _NORMS | set(_SCANS)
+    | _OTHER_REDUCE | _MATMUL | _INDEX_MAPS | _MULTI | _OTHER)
 
 
 def _f(name: str, T: str) -> str:
@@ -244,16 +309,32 @@ class _Graph:
         self.shape, self.ctype, self.dep_u = {}, {}, {}
         live = self._live()
         self.params: List[str] = []  # get_attr targets, in graph order
+        # integer tensors that only index: their values, evaluated here
+        self.consts: Dict[object, torch.Tensor] = {}
         for nd in nodes:
             if nd not in live:
                 continue
             val = nd.meta.get("val")
+            if nd.op == "call_function" and nd.target in _MULTI:
+                self._check_multi(nd, live)
+                self.dep_u[nd] = any(self.dep_u[a] for a in _node_args(nd))
+                continue
+            integer = isinstance(val, torch.Tensor) \
+                and val.dtype not in _CTYPES
+            if nd.op == "call_function" and nd.target not in SUPPORTED_OPS \
+                    and not integer:
+                raise _refuse(f"{name}: aten op {_op_name(nd.target)} (node "
+                              f"{nd.name}) is not supported")
             if not isinstance(val, torch.Tensor):
                 raise _refuse(f"{name}: node {nd.name} ({nd.target}) is not "
                               "a tensor")
             if val.dtype not in _CTYPES:
-                raise _refuse(f"{name}: node {nd.name} ({_op_name(nd.target)}"
-                              f") has dtype {val.dtype}")
+                self._index_constant(nd, val, live)
+                continue
+            if nd.op == "call_function" and nd.target is operator.getitem \
+                    and nd.args[0].target not in _MULTI:
+                raise _refuse(f"{name}: node {nd.name} reads an output of "
+                              f"{_op_name(nd.args[0].target)}")
             self.shape[nd] = tuple(int(s) for s in val.shape)
             self.ctype[nd] = _CTYPES[val.dtype]
             literal = nd.op == "call_function" and nd.target in _LITERALS
@@ -274,6 +355,57 @@ class _Graph:
         self.param_index = {t: k for k, t in enumerate(self.params)}
         self._names: Dict[object, str] = {}
         self._count = 0
+
+    def _check_multi(self, nd, live):
+        """A node with several outputs: every user an ``operator.getitem``
+        (the integer outputs, if read, are refused as integer values)."""
+        for user in nd.users:
+            if user in live and not (user.op == "call_function"
+                                     and user.target is operator.getitem):
+                raise _refuse(f"{self.name}: {_op_name(nd.target)} (node "
+                              f"{nd.name}) is read whole by {user.name}")
+
+    def _index_constant(self, nd, val, live):
+        """An integer node: allowed where it depends on no input, draws
+        no random numbers and is read only as the index of
+        ``aten::index.Tensor`` (or by another such node); its value is
+        evaluated now."""
+        op = _op_name(nd.target)
+        if nd.target is operator.getitem:
+            op = f"output {nd.args[1]} of {_op_name(nd.args[0].target)}"
+        what = f"{self.name}: node {nd.name} ({op}) has dtype {val.dtype}"
+        if val.is_floating_point() or val.is_complex():
+            raise _refuse(what)
+        self.dep_u[nd] = False
+        if torch.Tag.nondeterministic_seeded in getattr(nd.target, "tags",
+                                                        ()):
+            raise _refuse(f"{what}: random ops are not supported (a draw "
+                          "evaluated once would be every step's)")
+        if nd.op not in ("get_attr", "call_function") or any(
+                a not in self.consts for a in _node_args(nd)):
+            raise _refuse(f"{what}, computed from the state or the controls:"
+                          " integer values are not supported in the "
+                          "arithmetic")
+        for user in nd.users:
+            uval = user.meta.get("val")
+            index = user.target is aten.index.Tensor and user.args[0] is not nd
+            integer = isinstance(uval, torch.Tensor) \
+                and uval.dtype not in _CTYPES
+            if user in live and not (index or integer):
+                raise _refuse(f"{what}, read by {user.name} "
+                              f"({_op_name(user.target)}): integer values are "
+                              "supported only as constant indices")
+        if nd.op == "get_attr":
+            self.consts[nd] = getattr(self.gm, nd.target).detach().cpu()
+            return
+        sub = lambda a: self.consts[a] if isinstance(  # noqa: E731
+            a, torch.fx.Node) else a
+        args_ = [[sub(b) for b in a] if isinstance(a, (list, tuple)) else
+                 sub(a) for a in nd.args]
+        kwargs = {k: sub(v) for k, v in nd.kwargs.items()}
+        if "device" in kwargs:
+            kwargs["device"] = "cpu"
+        self.consts[nd] = nd.target(*args_, **kwargs).detach().cpu()
 
     def _check_outputs(self):
         n, m = self.n, self.m
@@ -306,10 +438,37 @@ class _Graph:
 
     def hoistable(self, node) -> bool:
         """A computed node that depends on no control: ``prep`` may hold
-        it for the rows."""
-        return (node.op == "call_function" and node.target not in _VIEWS
-                and node.target not in _LITERALS and not self.dep_u[node]
+        it for the rows (a view or an index map only moves what it reads)."""
+        t = node.target
+        moves = t in _VIEWS or t in _LITERALS or t in _INDEX_MAPS or (
+            t is operator.getitem and node.args[0].target not in (
+                aten.max.dim, aten.min.dim))
+        return (node.op == "call_function" and not moves
+                and not self.dep_u[node]
                 and math.prod(self.shape[node]) <= PREP_MAX_ELEMS)
+
+
+class _Elems(NamedTuple):
+    """Elements computed at an index (``at(sub)``) over ``shape``: what a
+    fold reads where no node holds it (cdist's row differences)."""
+
+    shape: tuple
+    at: Callable
+
+
+def _opt(node, k: int, name: str, default):
+    """Argument ``k`` of ``node``, or its keyword ``name``."""
+    if len(node.args) > k:
+        return node.args[k]
+    return node.kwargs.get(name, default)
+
+
+def _dims(dim, r: int):
+    """The sorted dims a reduction's ``dim`` argument names (all for
+    None or [])."""
+    if dim is None or (isinstance(dim, (list, tuple)) and len(dim) == 0):
+        return list(range(r))
+    return sorted({d % r for d in ([dim] if isinstance(dim, int) else dim)})
 
 
 def _node_args(node):
@@ -366,10 +525,27 @@ class _Body:
         self.depth -= 1
         self.line(tail)
 
-    def loop(self, size: int) -> str:
+    def loop(self, size: int, end=None) -> str:
+        """A loop over 0..size-1, or over 0..end-1 for an ``end`` at most
+        ``size`` (counted in ``work`` as ``size`` trips)."""
         k = self.g.fresh("k")
-        self.open(f"for (int {k} = 0; {k} < {size}; ++{k})", size)
+        self.open(f"for (int {k} = 0; {k} < {size if end is None else end}; "
+                  f"++{k})", size)
         return k
+
+    def select(self, T: str, cond: str, inside, outside: str) -> str:
+        """``cond ? inside() : outside``, with ``inside()``'s statements
+        run only under ``cond`` (it may read an index that is valid only
+        there)."""
+        out = self.g.fresh("c")
+        self.line(f"{T} {out};")
+        self.open(f"if ({cond})")
+        self.line(f"{out} = {inside()};")
+        self.close()
+        self.open("else")
+        self.line(f"{out} = {outside};")
+        self.close()
+        return out
 
     # the value of element ``idx`` of ``node``, as type ``T``
     def val(self, node, idx, T: Optional[str] = None) -> str:
@@ -404,14 +580,34 @@ class _Body:
         t = node.target
         if t in _VIEWS:
             return self._view(node, idx)
+        if t is operator.getitem:
+            return self._getitem(node, idx)
+        if t in _INDEX_MAPS:
+            return self._index_map(node, idx)
         if t in _LITERALS:
             return self._literal_node(node, idx)
         if t in _REDUCE:
             return self._reduce(node, idx)
+        if t in _NORMS:
+            return self._norm(node, idx)
+        if t in _SCANS:
+            return self._scan(node, idx)
+        if t in _MOMENTS:
+            return self._moments(node, idx)
+        if t is aten.trace.default:  # the diagonal's sum, in order
+            src = node.args[0]
+            # min(rows, cols) terms, as torch.trace: loop the shorter dim
+            d = 0 if g.shape[src][0] <= g.shape[src][1] else 1
+            return self.fold(src, [None, None], [d], T, _literal(0, T),
+                             "{a} = {a} + {v};", tie={1 - d: d})
+        if t is aten._cdist_forward.default:
+            return self._cdist(node, idx)
         if t in _MATMUL:
             return self._matmul(node, idx)
         if t in (aten.cat.default, aten.stack.default):
             return self._concat(node, idx)
+        if t is aten.linalg_cross.default:
+            return self._cross(node, idx)
         return self.tmp(T, self._elementwise(node, idx))
 
     def arg(self, a, idx, out_shape, T: str) -> str:
@@ -431,8 +627,18 @@ class _Body:
         A = lambda a, ty=T: self.arg(a, idx, shape, ty)  # noqa: E731
         if t in _UNARY:
             return _UNARY[t](T, A(args[0]))
+        if t in _PREDICATES:
+            return _PREDICATES[t](g.ctype[args[0]],
+                                  A(args[0], g.ctype[args[0]]))
         if t in _BINARY:
             return _BINARY[t](T, A(args[0]), A(args[1]))
+        if t in _REMAINDER:
+            a, b = A(args[0]), A(args[1])
+            r = self.tmp(T, f"{_f('fmod', T)}({a}, {b})")
+            return (f"({r} != {T}(0) && (({b} < {T}(0)) != ({r} < {T}(0))) "
+                    f"? {r} + {b} : {r})")
+        if t in _OPTIONS:
+            return self._options(node, A)
         if t in _ADD:
             alpha = node.kwargs.get("alpha", args[2] if len(args) > 2 else 1)
             b = A(args[1])
@@ -474,6 +680,31 @@ class _Body:
         if t is aten._to_copy.default:
             return A(args[0])
         raise _refuse(f"{g.name}: aten op {_op_name(t)} (node {node.name})")
+
+    def _options(self, node, A) -> str:
+        """The elementwise ops with scalar options, in torch's arithmetic."""
+        t, T = node.target, self.g.ctype[node]
+        lit = lambda v: _literal(v, T)  # noqa: E731
+        if t in (aten.masked_fill.Scalar, aten.masked_fill.Tensor):
+            return f"({A(node.args[1], 'bool')} ? {A(node.args[2])} " \
+                   f": {A(node.args[0])})"
+        a = A(node.args[0])
+        if t is aten.nan_to_num.default:
+            info = torch.finfo(node.meta["val"].dtype)
+            nan, pos, neg = (_opt(node, k, name, None) for k, name in (
+                (1, "nan"), (2, "posinf"), (3, "neginf")))
+            return (f"({a} != {a} ? {lit(0 if nan is None else nan)} : "
+                    f"{a} == {lit(math.inf)} ? "
+                    f"{lit(info.max if pos is None else pos)} : "
+                    f"{a} == {lit(-math.inf)} ? "
+                    f"{lit(info.min if neg is None else neg)} : {a})")
+        # round(x, decimals): as torch, through a power of ten
+        decimals = _opt(node, 1, "decimals", 0)
+        ten = lit(10.0 ** abs(decimals))
+        rint = _f("rint", T)
+        if decimals < 0:
+            return f"({rint}({a} / {ten}) * {ten})"
+        return f"({rint}({a} * {ten}) / {ten})"
 
     @staticmethod
     def _pow(a: str, e, T: str) -> str:
@@ -565,29 +796,35 @@ class _Body:
             it = iter(ix for ix, s in zip(idx, shape) if s != 1)
             return self.val(src, tuple(0 if s == 1 else next(it)
                                        for s in ishape))
-        off = _flat(idx, shape)
-        if not isinstance(off, int):
-            off = self.tmp("int", off)
-        sub, stride = [], math.prod(ishape)
-        for s in ishape:
-            stride //= s
-            sub.append(_imod(_idiv(off, stride), s))
-        return self.val(src, sub)
+        return self.val(src, self._unflat(_flat(idx, shape), ishape))
 
-    def _reduce(self, node, idx) -> str:
-        g, t, args = self.g, node.target, node.args
-        src = args[0]
-        ishape, T = g.shape[src], g.ctype[node]
-        r = len(ishape)
-        if t in (aten.sum.default, aten.mean.default, aten.prod.default,
-                 aten.max.default, aten.min.default) or len(args) < 2 \
-                or args[1] is None or args[1] == []:
-            dims, keep = list(range(r)), False
-        else:
-            dims = [args[1]] if isinstance(args[1], int) else list(args[1])
-            dims = sorted({d % r for d in dims})
-            keep = bool(args[2]) if len(args) > 2 else \
-                bool(node.kwargs.get("keepdim", False))
+    def fold(self, src, sub, dims, T: str, init: str, step: str,
+             end=None, tie=None) -> str:
+        """An accumulator over ``src[sub]`` with ``sub[d]`` looped for each
+        d in ``dims``, in index order: ``step`` (a format of the
+        accumulator ``{a}`` and the element ``{v}``) from ``init``; ``src``
+        is a node or ``_Elems``, elements computed at the index. ``end``
+        bounds the one loop at an index expression; ``tie`` reads dim e at
+        dim d's loop index (``{e: d}``, a diagonal)."""
+        computed = isinstance(src, _Elems)
+        shape = src.shape if computed else self.g.shape[src]
+        acc = self.g.fresh("r")
+        self.line(f"{T} {acc} = {init};")
+        sub = list(sub)
+        for d in dims:
+            sub[d] = self.loop(shape[d], end)
+        for e, d in (tie or {}).items():
+            sub[e] = sub[d]
+        v = src.at(sub) if computed else self.val(src, sub, T)
+        self.op(step.format(a=acc, v=v))
+        for _ in dims:
+            self.close()
+        return acc
+
+    @staticmethod
+    def _reduced(idx, r: int, dims, keep: bool) -> list:
+        """The input index of an output ``idx`` of a reduction over
+        ``dims``: None at the reduced dims."""
         it = iter(idx)
         sub: list = []
         for d in range(r):
@@ -597,27 +834,126 @@ class _Body:
                     next(it)
             else:
                 sub.append(next(it))
+        return sub
+
+    @staticmethod
+    def _max_step(larger: bool, f=lambda v: v) -> str:
+        """A max (or min) step of ``f(v)`` that keeps a NaN, as torch."""
+        v = f("{v}")
+        return (f"{{a}} = ({v} != {v} || {v} {'>' if larger else '<'} {{a}})"
+                f" ? {v} : {{a}};")
+
+    def _reduce(self, node, idx) -> str:
+        g, t, args = self.g, node.target, node.args
+        src = args[0]
+        ishape, T = g.shape[src], g.ctype[node]
+        r = len(ishape)
+        if t in (aten.sum.default, aten.mean.default, aten.prod.default,
+                 aten.max.default, aten.min.default) or len(args) < 2:
+            dims, keep = list(range(r)), False
+        else:
+            dims = _dims(args[1], r)
+            keep = bool(_opt(node, 2, "keepdim", False))
+        sub = self._reduced(idx, r, dims, keep)
         if t in (aten.prod.dim_int, aten.prod.default):
             init, step = _literal(1, T), "{a} = {a} * {v};"
         elif t in (aten.amax.default, aten.max.default):
-            init = _literal(-math.inf, T)
-            step = "{a} = ({v} != {v} || {v} > {a}) ? {v} : {a};"
+            init, step = _literal(-math.inf, T), self._max_step(True)
         elif t in (aten.amin.default, aten.min.default):
-            init = _literal(math.inf, T)
-            step = "{a} = ({v} != {v} || {v} < {a}) ? {v} : {a};"
+            init, step = _literal(math.inf, T), self._max_step(False)
         else:
             init, step = _literal(0, T), "{a} = {a} + {v};"
-        acc = self.g.fresh("r")
-        self.line(f"{T} {acc} = {init};")
-        for d in dims:
-            sub[d] = self.loop(ishape[d])
-        self.op(step.format(a=acc, v=self.val(src, sub, T)))
-        for _ in dims:
-            self.close()
+        acc = self.fold(src, sub, dims, T, init, step)
         if t in (aten.mean.dim, aten.mean.default):
             count = math.prod(ishape[d] for d in dims)
             return self.tmp(T, f"({acc} / {_literal(count, T)})")
         return acc
+
+    def _pnorm(self, src, sub, dims, T: str, p: float) -> str:
+        """The ``p``-norm of ``src`` over ``dims`` as torch's norm kernels
+        compute it: sqrt of the sum of squares at 2, the sum of |v| at 1,
+        the count of nonzeros at 0, the largest (smallest) |v| at +inf
+        (-inf), else (sum |v|^p)^(1/p)."""
+        fabs = lambda v: f"{_f('fabs', T)}({v})"  # noqa: E731
+        if p == 2:
+            acc = self.fold(src, sub, dims, T, _literal(0, T),
+                            "{a} = {a} + {v} * {v};")
+            return self.tmp(T, f"{_f('sqrt', T)}({acc})")
+        if p == 1:
+            return self.fold(src, sub, dims, T, _literal(0, T),
+                             f"{{a}} = {{a}} + {fabs('{v}')};")
+        if p == 0:
+            return self.fold(src, sub, dims, T, _literal(0, T),
+                             f"{{a}} = {{a}} + ({{v}} != {T}(0) ? {T}(1) "
+                             f": {T}(0));")
+        if math.isinf(p):
+            return self.fold(src, sub, dims, T, _literal(max(-p, 0), T),
+                             self._max_step(p > 0, fabs))
+        acc = self.fold(src, sub, dims, T, _literal(0, T),
+                        f"{{a}} = {{a}} + {_f('pow', T)}({fabs('{v}')}, "
+                        f"{_literal(p, T)});")
+        return self.tmp(T, f"{_f('pow', T)}({acc}, {_literal(1.0 / p, T)})")
+
+    def _norm(self, node, idx) -> str:
+        """``linalg_vector_norm(x, ord, dim, keepdim)``."""
+        src, T = node.args[0], self.g.ctype[node]
+        r = len(self.g.shape[src])
+        dims = _dims(_opt(node, 2, "dim", None), r)
+        sub = self._reduced(idx, r, dims, bool(_opt(node, 3, "keepdim",
+                                                    False)))
+        return self._pnorm(src, sub, dims, T, float(_opt(node, 1, "ord", 2)))
+
+    def _moments(self, node, idx) -> str:
+        """``var``/``std`` over dims: the squared deviations from the mean
+        summed in order (two passes), over N - correction."""
+        src, T = node.args[0], self.g.ctype[node]
+        ishape = self.g.shape[src]
+        dims = _dims(_opt(node, 1, "dim", None), len(ishape))
+        sub = self._reduced(idx, len(ishape), dims,
+                            bool(node.kwargs.get("keepdim", False)))
+        count = math.prod(ishape[d] for d in dims)
+        correction = node.kwargs.get("correction")
+        correction = 1 if correction is None else correction
+        total = self.fold(src, sub, dims, T, _literal(0, T),
+                          "{a} = {a} + {v};")
+        mean = self.tmp(T, f"({total} / {_literal(count, T)})")
+        acc = self.fold(src, sub, dims, T, _literal(0, T),
+                        f"{{a}} = {{a}} + ({{v}} - {mean}) * ({{v}} - "
+                        f"{mean});")
+        var = self.tmp(T, f"({acc} / {_literal(count - correction, T)})")
+        if node.target is aten.std.correction:
+            return self.tmp(T, f"{_f('sqrt', T)}({var})")
+        return var
+
+    def _scan(self, node, idx) -> str:
+        """``cumsum``/``cumprod``: element j along the dim folds 0..j in
+        order."""
+        src, T = node.args[0], self.g.ctype[node]
+        d = node.args[1] % len(self.g.shape[src])
+        sub = list(idx)
+        sub[d] = None
+        op = _SCANS[node.target]
+        return self.fold(src, sub, [d], T, _literal(1 if op == "*" else 0, T),
+                         f"{{a}} = {{a}} {op} {{v}};", end=_iadd(idx[d], 1))
+
+    def _cdist(self, node, idx) -> str:
+        """``_cdist_forward(x1 [..., P, M], x2 [..., R, M], p)``: the p-norm
+        of each row difference, the batch dims broadcast."""
+        g = self.g
+        a, b, p = node.args[0], node.args[1], float(node.args[2])
+        T = g.ctype[node]
+        batch = idx[:-2]
+
+        def rows(x, i, k):
+            shape = g.shape[x][:-2]
+            lead = len(batch) - len(shape)
+            return tuple(0 if s == 1 else batch[lead + d]
+                         for d, s in enumerate(shape)) + (i, k)
+
+        diff = _Elems((g.shape[a][-1],), lambda sub: self.tmp(
+            T, f"({self.val(a, rows(a, idx[-2], sub[0]), T)} - "
+               f"{self.val(b, rows(b, idx[-1], sub[0]), T)})"))
+        return self._pnorm(diff, [None], [0], T, p)
 
     def _matmul(self, node, idx) -> str:
         g, t, args = self.g, node.target, node.args
@@ -630,8 +966,11 @@ class _Body:
         acc = g.fresh("r")
         self.line(f"{T} {acc} = {_literal(0, T)};")
         k = self.loop(K)
-        ia = (idx[0], k) if len(g.shape[a]) == 2 else (k,)
-        ib = (k, idx[-1]) if len(g.shape[b]) == 2 else (k,)
+        if t is aten.bmm.default:  # a batch of matrix products
+            ia, ib = (idx[0], idx[1], k), (idx[0], k, idx[2])
+        else:
+            ia = (idx[0], k) if len(g.shape[a]) == 2 else (k,)
+            ib = (k, idx[-1]) if len(g.shape[b]) == 2 else (k,)
         self.op(f"{acc} = {acc} + {self.val(a, ia, T)} * "
                   f"{self.val(b, ib, T)};")
         self.close()
@@ -644,6 +983,180 @@ class _Body:
             bv = f"({_literal(beta, T)} * {bv})"
         mv = acc if alpha == 1 else f"({_literal(alpha, T)} * {acc})"
         return self.tmp(T, f"({bv} + {mv})")
+
+    def _unflat(self, off, shape) -> list:
+        """The index in ``shape`` of the row-major offset ``off``."""
+        if not isinstance(off, int):
+            off = self.tmp("int", off)
+        sub, stride = [], math.prod(shape)
+        for s in shape:
+            stride //= s
+            sub.append(_imod(_idiv(off, stride), s))
+        return sub
+
+    def _lookup(self, values: List[int], flat):
+        """``values[flat]`` for an index known when the source is emitted
+        or computed at run time: an affine expression where the values are
+        one, else a chain of conditionals."""
+        if isinstance(flat, int):
+            return values[flat]
+        step = values[1] - values[0] if len(values) > 1 else 0
+        if all(v == values[0] + k * step for k, v in enumerate(values)):
+            return _iadd(values[0], _imul(flat, step))
+        f = self.tmp("int", flat)
+        chain = str(values[-1])
+        for k in range(len(values) - 2, -1, -1):
+            chain = f"({f} == {k} ? {values[k]} : {chain})"
+        return self.tmp("int", chain)
+
+    def _getitem(self, node, idx) -> str:
+        """An output of a node with several: a split's part, an unbound
+        slice, or the values of max/min over a dim."""
+        g = self.g
+        parent, k = node.args
+        t, src = parent.target, parent.args[0]
+        T, ishape = g.ctype[node], g.shape[src]
+        r = len(ishape)
+        if t is aten.unbind.int:
+            d = _opt(parent, 1, "dim", 0) % r
+            return self.val(src, idx[:d] + (k,) + idx[d:])
+        if t in (aten.split_with_sizes.default, aten.split.Tensor):
+            d = _opt(parent, 2, "dim", 0) % r
+            size = parent.args[1]
+            off = sum(size[:k]) if t is aten.split_with_sizes.default \
+                else k * size
+            sub = list(idx)
+            sub[d] = _iadd(idx[d], off)
+            return self.val(src, sub)
+        d = parent.args[1] % r
+        sub = self._reduced(idx, r, [d], bool(_opt(parent, 2, "keepdim",
+                                                   False)))
+        larger = t is aten.max.dim
+        return self.fold(src, sub, [d], T,
+                         _literal(-math.inf if larger else math.inf, T),
+                         self._max_step(larger))
+
+    def _index_map(self, node, idx) -> str:
+        """Pads, flips, rolls, repeats, diagonals and constant indexing:
+        the input's element at a mapped index (or a literal outside it)."""
+        g, t, args = self.g, node.target, node.args
+        src = args[0]
+        T, shape, ishape = g.ctype[node], g.shape[node], g.shape[src]
+        r = len(ishape)
+        if t is aten.index.Tensor:
+            return self._index(node, idx)
+        if t is aten.flip.default:
+            sub = list(idx)
+            for d in {d % r for d in args[1]}:
+                sub[d] = _iadd(ishape[d] - 1, _imul(idx[d], -1))
+            return self.val(src, sub)
+        if t is aten.roll.default:
+            shifts = list(args[1])
+            dims = list(_opt(node, 2, "dims", []))
+            if not dims:  # the flattened tensor, rolled
+                size = math.prod(ishape)
+                off = _imod(_iadd(_flat(idx, ishape), -shifts[0] % size),
+                            size)
+                return self.val(src, self._unflat(off, ishape))
+            sub = list(idx)
+            for s, d in zip(shifts, dims):
+                d %= r
+                sub[d] = _imod(_iadd(sub[d], -s % ishape[d]), ishape[d])
+            return self.val(src, sub)
+        if t is aten.repeat.default:
+            lead = len(shape) - r
+            return self.val(src, tuple(_imod(idx[lead + d], s)
+                                       for d, s in enumerate(ishape)))
+        if t is aten.diagonal.default:
+            off = _opt(node, 1, "offset", 0)
+            d1 = _opt(node, 2, "dim1", 0) % r
+            d2 = _opt(node, 3, "dim2", 1) % r
+            sub = [None] * r
+            for d, ix in zip([d for d in range(r) if d not in (d1, d2)],
+                             idx[:-1]):
+                sub[d] = ix
+            sub[d1] = _iadd(idx[-1], max(-off, 0))
+            sub[d2] = _iadd(idx[-1], max(off, 0))
+            return self.val(src, sub)
+        if t is aten.diag_embed.default:
+            off = _opt(node, 1, "offset", 0)
+            R = len(shape)
+            d1 = _opt(node, 2, "dim1", -2) % R
+            d2 = _opt(node, 3, "dim2", -1) % R
+            a, b = idx[d1], idx[d2]
+            sub = tuple(idx[d] for d in range(R) if d not in (d1, d2)) \
+                + ((a if off >= 0 else b),)
+            if isinstance(a, int) and isinstance(b, int):
+                return self.val(src, sub) if b - a == off \
+                    else _literal(0, T)
+            return self.select(T, f"{_iadd(b, _imul(a, -1))} == {off}",
+                               lambda: self.val(src, sub, T),
+                               _literal(0, T))
+        # constant_pad_nd: pads (or crops) from the last dim back
+        pad, value = list(args[1]), _opt(node, 2, "value", 0)
+        sub, conds = list(idx), []
+        for k in range(len(pad) // 2):
+            d = r - 1 - k
+            before, after = pad[2 * k], pad[2 * k + 1]
+            sub[d] = j = _iadd(idx[d], -before)
+            if isinstance(j, int):
+                if not 0 <= j < ishape[d]:
+                    return _literal(value, T)
+                continue
+            if before > 0:
+                conds.append(f"{j} >= 0")
+            if after > 0:
+                conds.append(f"{j} < {ishape[d]}")
+        if not conds:
+            return self.val(src, sub)
+        return self.select(T, " && ".join(conds),
+                           lambda: self.val(src, sub, T), _literal(value, T))
+
+    def _index(self, node, idx) -> str:
+        """``index.Tensor(x, indices)`` with constant index tensors (None
+        for a dim taken whole), torch's advanced indexing: the indices
+        broadcast together; their dims replace the indexed ones where
+        those are adjacent, else lead."""
+        g = self.g
+        src, indices = node.args[0], list(node.args[1])
+        ishape = g.shape[src]
+        r = len(ishape)
+        pos = [d for d, ix in enumerate(indices) if ix is not None]
+        tables = [g.consts[indices[d]] for d in pos]
+        bshape = tuple(torch.broadcast_shapes(*(t.shape for t in tables)))
+        nb = len(bshape)
+        if pos == list(range(pos[0], pos[-1] + 1)):
+            bidx = idx[pos[0]:pos[0] + nb]
+            other = list(idx[:pos[0]]) + list(idx[pos[0] + nb:])
+        else:
+            bidx, other = idx[:nb], list(idx[nb:])
+        sub = [None] * r
+        for d, ix in zip([d for d in range(r) if d not in pos], other):
+            sub[d] = ix
+        flat = _flat(bidx, bshape)
+        for d, table in zip(pos, tables):
+            values = table.expand(bshape).reshape(-1).tolist()
+            if any(not -ishape[d] <= v < ishape[d] for v in values):
+                raise _refuse(f"{g.name}: node {node.name} indexes dim {d} "
+                              f"of size {ishape[d]} at {values}")
+            sub[d] = self._lookup([v % ishape[d] for v in values], flat)
+        return self.val(src, sub)
+
+    def _cross(self, node, idx) -> str:
+        """``linalg_cross(a, b, dim)``: element k is a_{k+1} b_{k+2} -
+        a_{k+2} b_{k+1} (indices mod 3), the operands broadcast."""
+        a, b = node.args[0], node.args[1]
+        T, shape = self.g.ctype[node], self.g.shape[node]
+        d = _opt(node, 2, "dim", -1) % len(shape)
+
+        def at(x, c):
+            ix = list(idx)
+            ix[d] = c
+            return self.arg(x, ix, shape, T)
+
+        c1, c2 = (_imod(_iadd(idx[d], s), 3) for s in (1, 2))
+        return self.tmp(T, f"({at(a, c1)} * {at(b, c2)} - "
+                           f"{at(a, c2)} * {at(b, c1)})")
 
     def _concat(self, node, idx) -> str:
         g, args = self.g, node.args
@@ -719,10 +1232,12 @@ def emit_source(gm, name: str, n: int, m: int, dtype):
     each = "\n".join(f"    f(p[{k}], {s});" for k, s in enumerate(sizes))
     desc = ", ".join(f"p[{k}] {list(g.param_shape[t])}"
                      for k, t in enumerate(g.params)) or "none"
+    decomposed = ", ".join(getattr(gm, "decomposed", ())) or "none"
     src = f"""\
 // The step of {name}, traced from its transition, cost and final_cost by
 // tfmpc_tpu_torch/ops/env_codegen.py at (n, m) = ({n}, {m}) in {S}.
 // Parameters: {desc}.
+// Traced through torch._decomp: {decomposed}.
 namespace tfmpc {{
 
 struct UserStep {{
@@ -775,7 +1290,9 @@ struct UserStep {{
 def trace_step(env, dtype, device):
     """``env``'s ``transition``, ``cost`` and ``final_cost`` on one
     scenario, traced with ``make_fx`` in fake mode: a graph module of aten
-    ops returning ``(x_next [n], cost [], final_cost [])``."""
+    ops returning ``(x_next [n], cost [], final_cost [])``. An op outside
+    ``SUPPORTED_OPS`` that ``torch._decomp`` decomposes is traced again
+    through its decomposition; ``gm.decomposed`` names those ops."""
     n, m = env.state_size, env.action_size
     name = type(env).__name__
 
@@ -784,10 +1301,17 @@ def trace_step(env, dtype, device):
 
     x = torch.zeros(n, dtype=dtype, device=device)
     u = torch.zeros(m, dtype=dtype, device=device)
+    table: dict = {}
     try:
         with torch.no_grad():
-            return make_fx(step, tracing_mode="fake",
-                           _allow_non_fake_inputs=True)(x, u)
+            while True:
+                gm = make_fx(step, tracing_mode="fake",
+                             decomposition_table=table,
+                             _allow_non_fake_inputs=True)(x, u)
+                more = _decomposable(gm) - set(table)
+                if not more:
+                    break
+                table.update(get_decompositions(list(more)))
     except RuntimeError as e:
         if "data-dependent" in str(e) or "data dependent" in str(e):
             raise _refuse(f"{name}: a data-dependent branch or value in "
@@ -796,6 +1320,23 @@ def trace_step(env, dtype, device):
         raise _refuse(f"{name}: its step could not be traced "
                       f"({type(e).__name__}: {str(e).splitlines()[0]})") \
             from e
+    gm.decomposed = sorted({_op_name(op) for op in table})
+    return gm
+
+
+def _decomposable(gm) -> set:
+    """The ops of ``gm`` outside ``SUPPORTED_OPS`` that compute floats and
+    that ``torch._decomp`` decomposes."""
+    out = set()
+    for nd in gm.graph.nodes:
+        val = nd.meta.get("val")
+        floats = isinstance(val, torch.Tensor) and val.is_floating_point() \
+            or isinstance(val, (tuple, list))
+        if nd.op == "call_function" and floats \
+                and nd.target not in SUPPORTED_OPS \
+                and nd.target in decomposition_table:
+            out.add(nd.target)
+    return out
 
 
 _STEPS: Dict[int, dict] = {}

@@ -1,28 +1,93 @@
-"""Time ``chip_smoke.py``'s phases 20-23, 29, 30 and 31 of one checkout.
+"""Time slices of ``chip_smoke.py``'s phases in one checkout or several.
 
-    python tools/phase_ab.py ROOT [ROOT ...]
+    python tools/phase_ab.py [--slices b,e,generic,h,user] ROOT [ROOT ...]
 
 For each ROOT (a checkout of the repo, e.g. one unpacked from ``git
 archive`` of a parent commit), in the order given and each in a process of
-its own: its ``chip_smoke.py`` builds its kernels, runs what the phases
-need from phase 3 (K4 at HVAC-6, whose bound phase 20 reads), then the
-four slices (phase 31's user envs last), with every gate they hold, and
-prints one line ``AB {"root": ..., "phase_s": {...}, "card": ...}``. Give
-the roots as parent, change, change, parent to compare two versions on one
-card in turns. Needs one CUDA card; exits non-zero if a root's run fails.
+its own: its ``chip_smoke.py`` builds its kernels, runs what the slices
+need (K4 at HVAC-6, whose bound phase 20 reads, for ``e``), then the
+slices named, in this order,
+with every gate they hold: ``b`` phases 5-7 (HVAC-6, reservoir-5, bounded
+navigation), ``e`` phases 20-23, ``generic`` phase 29, ``h`` phase 30,
+``user`` phase 31 (default: all five). It prints one line ``AB {"root":
+..., "phase_s": {...}, "card": ...}``. Give the roots as parent, change,
+change, parent to compare two versions on one card in turns. Needs one
+CUDA card; exits non-zero if a root's run fails.
+
+A checkout whose ``main()`` still runs phases 5-7 inline (no ``slice_b``)
+runs them here as that ``main()`` did: the same solves and holds, each
+plain-path hold at the solve's own horizon.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+SLICES = ("b", "e", "generic", "h", "user")
 
-def run_root(root: Path) -> int:
-    """The phases of ``root``'s ``chip_smoke.py`` in this process."""
+
+def inline_slice_b(cs, phase, launches, plain_s):
+    """Phases 5-7 of a ``chip_smoke.py`` that runs them inline in
+    ``main()``, through that module's helpers."""
+    import numpy as np
+    import torch
+
+    from tfmpc_tpu_torch.solvers.ilqr import ILQRConfig
+
+    config = ILQRConfig(**cs.BOXQP)
+    kernels = {"riccati_backward_boxqp"} | cs.line_search_kernels(
+        config, cs.T, 6)
+    plain_cfg = dataclasses.replace(config, use_pallas=False)
+    for step, (name, lohi) in (("5. HVAC-6", ("hvac6", (8.0, 18.0))),
+                               ("7. reservoir-5 and bounded navigation",
+                                ("reservoir5", (20.0, 95.0)))):
+        env = cs.bounded_env(name, torch.float32)
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+            *lohi, (cs.B_BOX, env.state_size)).astype("float32"),
+            device="cuda")
+        run = cs.solver(env, x0, cs.T, config)
+        run()
+        res, launches[name], plain = cs.counted(run)
+        cs.require_path(name, launches[name], plain, kernels)
+        cs.check_result(name, res, cs.B_BOX, env.state_size)
+        plain_s[name] = cs.agree_with_plain(name, res, cs.solver(
+            env, x0, cs.T, plain_cfg))
+        if name == "hvac6":
+            cs.layouts_agree(name, res, cs.solver(env, x0, cs.T, (
+                dataclasses.replace(config,
+                                    linesearch_emit_trajectories=False))),
+                "riccati_backward_boxqp")
+            phase.done(step)
+            cs.hvac3_accuracy()
+            phase.done("6. HVAC-3 accuracy")
+            continue
+        nav_b = cs.bounded_env("nav_bounded", torch.float32)
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+            -10.0, 10.0, (cs.B_NAV_BOUNDED, cs.N)).astype("float32"),
+            device="cuda")
+        for boxqp, backward in ((True, "riccati_backward_boxqp"),
+                                (False, "riccati_backward")):
+            cfg = ILQRConfig(**{**cs.HEADLINE, "boxqp": boxqp})
+            res, counts, plain = cs.counted(cs.solver(nav_b, x0,
+                                                      cs.T_NAV_BOUNDED, cfg))
+            cs.require_path(f"bounded navigation {boxqp}", counts, plain,
+                            {backward} | cs.line_search_kernels(cfg, cs.T,
+                                                                cs.N))
+            cs.agree_with_plain(f"bounded navigation {boxqp}", res,
+                                cs.solver(nav_b, x0, cs.T_NAV_BOUNDED,
+                                          dataclasses.replace(
+                                              cfg, use_pallas=False)))
+        phase.done(step)
+
+
+def run_root(root: Path, slices) -> int:
+    """The slices of ``root``'s ``chip_smoke.py`` in this process."""
     sys.path.insert(0, str(root))
     sys.path.insert(0, str(root / "tests"))
     import chip_smoke as cs
@@ -41,27 +106,44 @@ def run_root(root: Path) -> int:
     _build.library()
     print(f"build {time.perf_counter() - t0:.1f} s")
     timings, errs, launches, plain_s, rates = {}, {}, {}, {}, {}
-    cs.check_k4("hvac6", torch.float32, timings, errs)
+    if "e" in slices:
+        cs.check_k4("hvac6", torch.float32, timings, errs)
     phase = cs.Phases(time.perf_counter())
-    cs.slice_e(phase, timings, errs, launches, plain_s, rates, card)
-    cs.slice_generic(phase, timings, errs, launches, plain_s, card)
-    cs.slice_h(phase, timings, errs, launches, plain_s, rates, card)
-    cs.slice_user(phase, timings, errs, launches, plain_s, card)
+    if "b" in slices:
+        if hasattr(cs, "slice_b"):
+            cs.slice_b(phase, launches, plain_s)
+        else:
+            inline_slice_b(cs, phase, launches, plain_s)
+    if "e" in slices:
+        cs.slice_e(phase, timings, errs, launches, plain_s, rates, card)
+    if "generic" in slices:
+        cs.slice_generic(phase, timings, errs, launches, plain_s, card)
+    if "h" in slices:
+        cs.slice_h(phase, timings, errs, launches, plain_s, rates, card)
+    if "user" in slices:
+        cs.slice_user(phase, timings, errs, launches, plain_s, card)
     print("AB " + json.dumps({"root": str(root), "phase_s": phase.seconds,
+                              "total_s": sum(phase.seconds.values()),
                               "card": card}), flush=True)
     return 0
 
 
 def main() -> int:
-    if len(sys.argv) < 2:
-        print(__doc__)
-        return 2
-    if sys.argv[1] == "--one":
-        return run_root(Path(sys.argv[2]).resolve())
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--slices", default=",".join(SLICES))
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("roots", nargs="+")
+    args = ap.parse_args()
+    slices = args.slices.split(",")
+    if any(s not in SLICES for s in slices):
+        ap.error(f"--slices: each of {', '.join(SLICES)}")
+    if args.one:
+        return run_root(Path(args.roots[0]).resolve(), slices)
     rc = 0
-    for root in map(str, (Path(r).resolve() for r in sys.argv[1:])):
+    for root in map(str, (Path(r).resolve() for r in args.roots)):
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--one", root], cwd=root)
+                               "--one", "--slices", args.slices, root],
+                              cwd=root)
         print(f"phase_ab.py: {root} exit {proc.returncode}", flush=True)
         rc = rc or proc.returncode
     return rc
