@@ -625,7 +625,7 @@ def env_step_flops(env_name: str, n: int, zones: int = 1,
         # squares, a scaling and a sum
         return n * (2 * n + 8) + 4 * n + 2
     if env_name in GRAPH_OPS_ENVS:
-        return graph_ops(env_name)
+        return graph_ops(env_name)[0]
     if env_name == "fuzz":
         # the fuzz env's: each row's two dot products, tanh, scalings and
         # sums; the cost's two quadratic forms, the tanh term and the sums
@@ -644,13 +644,21 @@ def rollout_work(Bn, Tn, n, m, itemsize, env_name, n_params, lanes, bounded,
     bytes_ = itemsize * (Bn * Tn * per_step_in + out + n_params
                          + (2 * m if bounded else 0)
                          + (Bn if writes_traj else 0))
-    return bytes_, Bn * lanes * Tn * rollout_step_flops(n, m, env_name,
-                                                        bounded)
+    return bytes_, Bn * lanes * (Tn * rollout_step_flops(n, m, env_name,
+                                                         bounded)
+                                 + final_flops(env_name))
 
 
 def rollout_step_flops(n, m, env_name, bounded):
     return n + m * (2 + 2 * n) + (2 * m if bounded else 0) \
         + env_step_flops(env_name, n, m=m) + 1
+
+
+def final_flops(env_name) -> int:
+    """The operations that only the final cost needs, once a rollout: a
+    traced env's (``graph_ops``); the hand counts leave the final cost
+    out."""
+    return graph_ops(env_name)[1] if env_name in GRAPH_OPS_ENVS else 0
 
 
 def traj_work(Bn, Tn, n, m, itemsize, env_name, n_params, A, bounded):
@@ -659,7 +667,8 @@ def traj_work(Bn, Tn, n, m, itemsize, env_name, n_params, A, bounded):
     bytes_ = itemsize * (Bn * Tn * (n + m + m * n + m)
                          + Bn * A * (Tn * (n + m) + 1) + n_params
                          + (2 * m if bounded else 0))
-    return bytes_, Bn * A * Tn * rollout_step_flops(n, m, env_name, bounded)
+    return bytes_, Bn * A * (Tn * rollout_step_flops(n, m, env_name, bounded)
+                             + final_flops(env_name))
 
 
 def bound(bytes_, flops, dtype_name="float32"):
@@ -4904,8 +4913,11 @@ def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
 # unbounded), a rectangular twin of tests/test_fuzz_envs.py's
 # RandomSmoothEnv at (8, 3), and a fleet of kinematic bicycles (n = 4, m =
 # 2: goal distance by hypot, heading error by atan2, soft obstacles through
-# a norm over a dim and softplus, x[[0, 1]]; tests/torch_user_envs.py) at
-# the headline's size and config. Their rollouts run K2, K3 and K5 in the
+# a norm over a dim and softplus, x[[0, 1]]; tests/torch_user_envs.py) and
+# Spong's two-link arm (n = 4, m = 2: its accelerations a linalg.solve of
+# the mass matrix M(q), factored in prep; topk(largest=False) of its
+# obstacle distances), both at the headline's size and config. Their
+# rollouts run K2, K3 and K5 in the
 # generic form on a step functor generated from their torch step
 # (ops/env_codegen.py, csrc/rollout_user.cuh); (B, T, ILQRConfig kwargs)
 # of each path's solve.
@@ -4917,22 +4929,28 @@ USER_PATHS = {
     "fuzz8x3": (1024, 50, dict(atol=1e-5, max_iterations=30,
                                use_pallas=True)),
     "bicycle": (B, T, HEADLINE),
+    "arm": (B, T, HEADLINE),
 }
 # the op-coverage env (tests/torch_user_envs.py OpEnv, (8, 3)): every op of
-# the generator's four families that the bicycle does not use, some with
-# zero gradients (floor, sign, round), so kernels only, no solve: (B, T)
+# the generator's six families that the bicycle and the arm do not use,
+# some with zero gradients (floor, sign, round), so kernels only, no
+# solve: (B, T)
 USER_KERNEL_CASES = {"opcov": (1024, 50)}
 USER_MIN_CONVERGED = {"chain6": 0.99, "chain48": 0.99}
 # the user paths whose solves/s phase 31 measures, from the counted solve
-USER_RATES = ("bicycle",)
+USER_RATES = ("bicycle", "arm")
 # the user paths held against their plain path at T_PLAIN (the bicycle's
 # plain solve took 97 s at T=100); the others at their own horizon
-USER_PLAIN_CUT = ("bicycle",)
+USER_PLAIN_CUT = ("bicycle", "arm")
 USER_ENV_NAMES = {"chain6": "chain", "chain48": "chain", "fuzz8x3": "fuzz",
-                  "bicycle": "bicycle", "opcov": "opcov"}
+                  "bicycle": "bicycle", "arm": "arm", "opcov": "opcov"}
 # the user envs without a hand count of a step's operations: their
 # traced step's (``graph_ops``), each its own case
-GRAPH_OPS_ENVS = ("bicycle", "opcov")
+GRAPH_OPS_ENVS = ("bicycle", "arm", "opcov")
+# the arm's autodiff linearization on the card against a per-point
+# torch.autograd.functional reference: (B, T) points in float64, and the
+# tolerance relative to each field's largest value
+ARM_DERIVS_BT, ARM_DERIVS_TOL = (16, 4), 1e-10
 # shipped envs whose generated functor is held against the hand-written
 # one at the same shapes and plans: (B, T)
 GENERATED_VS_HANDWRITTEN = {"navigation2z": (1024, 100),
@@ -4943,7 +4961,8 @@ USER_MPC_B, USER_MPC_STEPS = 256, 10
 @functools.cache
 def user_env_class(name):
     """The example's ``DampedChain``, ``tests/torch_user_envs.py``'s
-    ``KinematicBicycle`` (``bicycle``) or ``OpEnv`` (``opcov``), or a twin
+    ``KinematicBicycle`` (``bicycle``), ``TwoLinkArm`` (``arm``) or
+    ``OpEnv`` (``opcov``), or a twin
     of ``tests/test_fuzz_envs.py``'s ``RandomSmoothEnv`` over ``[..., n]``
     (the port's env contract): x' = x + dt (A x + B u + s tanh(x)), a
     quadratic plus tanh cost."""
@@ -4957,10 +4976,11 @@ def user_env_class(name):
     if name == "chain":
         return runpy.run_path(str(ROOT / "examples" /
                                   "torch_custom_env.py"))["DampedChain"]
-    if name in ("bicycle", "opcov"):
+    if name in ("bicycle", "arm", "opcov"):
         import torch_user_envs
 
         return {"bicycle": torch_user_envs.KinematicBicycle,
+                "arm": torch_user_envs.TwoLinkArm,
                 "opcov": torch_user_envs.OpEnv}[name]
 
     @dataclasses.dataclass(frozen=True, eq=False)
@@ -5000,17 +5020,19 @@ def user_env(case, dtype, device="cuda"):
     ``chain<d>`` the example's chain (the box at +-1 at d = 6, as the
     example), ``fuzz8x3`` the fuzz twin with ``test_fuzz_envs._make_env``'s
     values at seed 88, ``bicycle`` the fleet (``torch_user_envs.BICYCLE``),
-    ``opcov`` the op-coverage env (``torch_user_envs.op_arrays()``)."""
+    ``arm`` the two-link arm (``torch_user_envs.ARM``), ``opcov`` the
+    op-coverage env (``torch_user_envs.op_arrays()``)."""
     import numpy as np
     import torch
 
     from tfmpc_tpu_torch import Bounds, interop
 
-    if case in ("bicycle", "opcov"):
+    if case in ("bicycle", "arm", "opcov"):
         import torch_user_envs
 
-        arrays = torch_user_envs.BICYCLE if case == "bicycle" \
-            else torch_user_envs.op_arrays()
+        arrays = {"bicycle": torch_user_envs.BICYCLE,
+                  "arm": torch_user_envs.ARM}.get(case) \
+            or torch_user_envs.op_arrays()
         return interop.user_env_from_numpy(user_env_class(case), arrays,
                                            device=device, dtype=dtype)
     if case.startswith("chain"):
@@ -5038,14 +5060,19 @@ def user_env(case, dtype, device="cuda"):
 
 
 @functools.cache
-def graph_ops(case: str) -> int:
-    """The least operations of one step of the generated step of a user
-    case's env (f32), traced once: each
-    element of each computed node of its traced step (transition, stage
-    and final cost) once; a product 2K an element, a reduction or a norm
-    two an input element, a cdist three an element per coordinate, max
-    over a dim one an input element; views, index maps, splits and
-    literals none."""
+def graph_ops(case: str) -> tuple:
+    """The least operations of the generated step of a user case's env
+    (f32), traced once: ``(step, final)``, those of a step's transition
+    and stage cost, and those that only the final cost needs, which a
+    rollout evaluates once. Each element of each computed node once; a
+    product 2K an element, a reduction or a norm two an input element, a
+    cdist three an element per coordinate, max over a dim one an input
+    element; an LU factor of an n x n matrix 2n^3/3, a Cholesky factor
+    n^3/3, the substitutions 2n^2 a right-hand side column (n^2 for one
+    triangle), a determinant n more, an inverse 2n^3; of a slice of L, a
+    sort ceil(log2 L!) comparisons, a top-k L - 1 + (k - 1) ceil(log2 L),
+    a k-th value or median L - 1; views, index maps, splits and literals
+    none."""
     import math
     import operator
 
@@ -5058,26 +5085,150 @@ def graph_ops(case: str) -> int:
         aten.split_with_sizes.default, aten.split.Tensor, aten.unbind.int,
         operator.getitem}
     size = lambda a: math.prod(a.meta["val"].shape)  # noqa: E731
-    ops = 0
-    env = user_env(case, torch.float32, "cpu")
-    for nd in ec.trace_step(env, torch.float32, "cpu").graph.nodes:
-        if nd.op != "call_function" or nd.target in free:
-            continue
+
+    def needs(outs):
+        seen, todo = set(), list(outs)
+        while todo:
+            nd = todo.pop()
+            if isinstance(nd, torch.fx.Node) and nd not in seen:
+                seen.add(nd)
+                todo.extend(nd.all_input_nodes)
+        return seen
+
+    def count(nd) -> int:
         t = nd.target
         if t in ec._MATMUL:
             a = nd.args[1] if t in (aten.addmm.default,
                                     aten.addmv.default) else nd.args[0]
-            ops += 2 * a.meta["val"].shape[-1] * size(nd)
-        elif t is aten._cdist_forward.default:
-            ops += 3 * nd.args[0].meta["val"].shape[-1] * size(nd)
-        elif t in (aten.max.dim, aten.min.dim):
-            ops += size(nd.args[0])
-        elif t in ec._REDUCE or t in ec._NORMS or t in ec._MOMENTS \
+            return 2 * a.meta["val"].shape[-1] * size(nd)
+        if t is aten._cdist_forward.default:
+            return 3 * nd.args[0].meta["val"].shape[-1] * size(nd)
+        if t in (aten.max.dim, aten.min.dim):
+            return size(nd.args[0])
+        if t in ec._LINALG_MULTI or t in ec._LINALG:
+            return linalg_ops(nd)
+        if t in ec._SORTS_MULTI or t in ec._SORTS:
+            x = nd.args[0].meta["val"]
+            L = x.numel() if t is aten.median.default or x.dim() == 0 else \
+                x.shape[(nd.args[1] if t is aten.median.dim else
+                         ec._opt(nd, 2 if t in (aten.topk.default,
+                                                aten.kthvalue.default)
+                                 else 1, "dim", -1)) % x.dim()]
+            slices, lg = x.numel() // max(L, 1), math.ceil(math.log2(max(L,
+                                                                         1)))
+            if t in (aten.sort.default, aten.sort.stable):
+                return slices * math.ceil(math.lgamma(L + 1) / math.log(2))
+            if t is aten.topk.default:
+                return slices * (L - 1 + (nd.args[1] - 1) * lg)
+            return slices * (L - 1)
+        if t in ec._REDUCE or t in ec._NORMS or t in ec._MOMENTS \
                 or t is aten.trace.default:
-            ops += 2 * size(nd.args[0])
-        else:
-            ops += size(nd)
-    return ops
+            return 2 * size(nd.args[0])
+        return size(nd)
+
+    graph = ec.trace_step(user_env(case, torch.float32, "cpu"),
+                          torch.float32, "cpu").graph
+    outs = next(nd for nd in graph.nodes if nd.op == "output").args[0]
+    step = needs(outs[:2])
+    final = needs(outs[2:]) - step
+    ops = [0, 0]
+    for nd in graph.nodes:
+        if nd.op != "call_function" or nd.target in free \
+                or nd.meta.get("val") is None \
+                or not (nd in step or nd in final):
+            continue
+        ops[nd in final] += count(nd)
+    return tuple(ops)
+
+
+def linalg_ops(nd) -> int:
+    """The least operations of a linear-algebra node of a traced step
+    (``graph_ops``)."""
+    import torch
+
+    aten = torch.ops.aten
+    t = nd.target
+    mat = nd.args[1 if t is aten.cholesky_solve.default else 0]
+    n = mat.meta["val"].shape[-1]
+    lu, chol = 2 * n ** 3 // 3, n ** 3 // 3
+
+    def columns(b):
+        shape = b.meta["val"].shape
+        return 1 if len(shape) == 1 else shape[-1]
+
+    if t is aten._linalg_solve_ex.default:
+        return lu + 2 * n * n * columns(nd.args[1])
+    if t is aten.linalg_inv_ex.default:
+        return 2 * n ** 3
+    if t in (aten._linalg_det.default, aten._linalg_slogdet.default):
+        return lu + n
+    if t is aten.linalg_lu_factor_ex.default:
+        return lu
+    if t is aten.linalg_cholesky_ex.default:
+        return chol
+    if t is aten.linalg_solve_triangular.default:
+        return n * n * columns(nd.args[1])
+    return 2 * n * n * columns(nd.args[0] if t is aten.cholesky_solve.default
+                               else nd.args[2])
+
+
+def arm_derivative_hold(card, device="cuda"):
+    """The two-link arm's ``ilqr.derivatives`` on the card in float64 at
+    ``ARM_DERIVS_BT`` points against a per-point ``torch.autograd.
+    functional`` reference (gate: within ``ARM_DERIVS_TOL`` of each
+    field's largest value), and beside it, ungated, the nested
+    ``torch.func.vmap(jacfwd)`` form the port used before, whose batching
+    rules torch 2.13 gets wrong on the CPU for ``linalg.solve``: is the
+    fault on the card too? Returns the errors."""
+    import numpy as np
+    import torch
+    from torch.autograd.functional import hessian, jacobian
+    from torch.func import jacfwd, vmap
+
+    import torch_user_envs
+    from tfmpc_tpu_torch.solvers import ilqr
+
+    Bn, Tn = ARM_DERIVS_BT
+    env = user_env("arm", torch.float64, device)
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(np.stack([torch_user_envs.arm_x0(Bn, seed=1 + t)
+                                  for t in range(Tn + 1)], 1),
+                        device=device)
+    U = torch.as_tensor(rng.uniform(-5.0, 5.0, (Bn, Tn, 2)), device=device)
+    lin, quad, final = ilqr.derivatives(env, X, U)
+    x, u, xT = X[:, :-1].reshape(-1, 4), U.reshape(-1, 2), X[:, -1]
+    ref = {"f_x": [], "f_u": [], "l_x": [], "l_u": [], "l_xx": [],
+           "l_uu": [], "l_ux": [], "final l_x": [], "final l_xx": []}
+    for p in range(x.shape[0]):
+        fx, fu = jacobian(env.transition, (x[p], u[p]))
+        gx, gu = jacobian(env.cost, (x[p], u[p]))
+        (hxx, hxu), (hux, huu) = hessian(env.cost, (x[p], u[p]))
+        for k, v in zip(("f_x", "f_u", "l_x", "l_u", "l_xx", "l_uu", "l_ux"),
+                        (fx, fu, gx, gu, hxx, huu, hux)):
+            ref[k].append(v)
+    for p in range(xT.shape[0]):
+        ref["final l_x"].append(jacobian(env.final_cost, xT[p]))
+        ref["final l_xx"].append(hessian(env.final_cost, xT[p]))
+    got = {"f_x": lin.f_x, "f_u": lin.f_u, "l_x": quad.l_x, "l_u": quad.l_u,
+           "l_xx": quad.l_xx, "l_uu": quad.l_uu, "l_ux": quad.l_ux,
+           "final l_x": final.l_x, "final l_xx": final.l_xx}
+    errs = {}
+    for k, v in got.items():
+        want = torch.stack(ref[k])
+        errs[k] = float((v.reshape(want.shape) - want).abs().max()
+                        / max(1.0, float(want.abs().max())))
+    worst = max(errs.values())
+    old_x, old_u = vmap(jacfwd(env.transition, argnums=(0, 1)))(x, u)
+    old = max(float((old_x - torch.stack(ref["f_x"])).abs().max()),
+              float((old_u - torch.stack(ref["f_u"])).abs().max()))
+    print(f"  arm derivatives, f64, {x.shape[0]} points: largest error "
+          f"relative to each field's largest value {worst:.3e} (gate "
+          f"{ARM_DERIVS_TOL:g}) {errs}; the nested vmap(jacfwd) form's f_x/"
+          f"f_u max abs err {old:.3e} (not gated) [{card}]")
+    if not worst <= ARM_DERIVS_TOL:
+        raise AssertionError("the arm's derivatives disagree with the "
+                             "per-point reference on the card")
+    return {"errors": errs, "nested_vmap_jacfwd_err": old}
 
 
 def user_kinds(config, horizon, n, m):
@@ -5093,15 +5244,16 @@ def user_kinds(config, horizon, n, m):
 def user_x0(case, Bn, dtype, device="cuda"):
     """A solve's initial states, ``default_rng(0)``: U(-2, 2) for the
     chain (the example's), U(-1.5, 1.5) for the fuzz and op-coverage envs,
-    ``torch_user_envs.bicycle_x0`` for the fleet."""
+    ``torch_user_envs.bicycle_x0`` for the fleet and ``arm_x0`` for the
+    arm."""
     import numpy as np
     import torch
 
-    if case == "bicycle":
+    if case in ("bicycle", "arm"):
         import torch_user_envs
 
-        return torch.as_tensor(torch_user_envs.bicycle_x0(Bn).astype("f4"),
-                               dtype=dtype, device=device)
+        x0 = getattr(torch_user_envs, f"{case}_x0")(Bn)
+        return torch.as_tensor(x0.astype("f4"), dtype=dtype, device=device)
     n = 8 if case in ("fuzz8x3", "opcov") else int(case[len("chain"):])
     lo = 1.5 if case in ("fuzz8x3", "opcov") else 2.0
     x0 = np.random.default_rng(0).uniform(-lo, lo, (Bn, n)).astype("f4")
@@ -5231,7 +5383,9 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
     counted (the routed Riccati kernel and the generated-step rollouts
     only, no plain version), against its plain path (the bicycle's through
     ``plain_hold`` at ``T_PLAIN``, ``USER_PLAIN_CUT``) and on the
-    other line-search layout, the bicycle fleet's solves/s; then the example
+    other line-search layout, the bicycle fleet's and the arm's solves/s,
+    and the arm's linearization against a per-point reference
+    (``arm_derivative_hold``); then the example
     script itself, an MPC run of the example's env and its solve through
     the one-process data-parallel mesh, counted. Returns its figures."""
     import runpy
@@ -5283,6 +5437,7 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
             for k, v in timings.items() if k.endswith(f"_user_{case}")}
     print("generated vs hand-written functors, f32:")
     figures["generated_vs_handwritten"] = generated_vs_handwritten(card)
+    figures["arm_derivatives"] = arm_derivative_hold(card)
     phase.done("31a. the generated-step kernels vs plain versions")
 
     for label, (Bn, Tn, cfg) in USER_PATHS.items():

@@ -2,10 +2,11 @@
 
 Inputs are drawn with numpy from a seed and handed to both packages:
 
-- ``Env.get_second_order_transition`` (nested ``jacfwd``) against the JAX
-  env's on navigation (f_xx and f_ux), HVAC-3 (bilinear: f_ux only) and
-  reservoir-3 (evaporation: f_xx only), single and batched, within 1e-12
-  (both are forward-mode autodiff of the same float64 expressions);
+- ``Env.get_second_order_transition`` (reverse over reverse) against the
+  JAX env's (``jacfwd`` of ``jacfwd``) on navigation (f_xx and f_ux),
+  HVAC-3 (bilinear: f_ux only) and reservoir-3 (evaporation: f_xx only),
+  single and batched, within 1e-12 (autodiff of the same float64
+  expressions);
 - the plain versions of K6a and K6b (``riccati_backward_ddp_ref``,
   ``riccati_backward_ddp_boxqp_ref``) against the JAX package's vmapped
   scan ``ilqr.backward(..., second=...)``, the reference its own DDP

@@ -16,16 +16,19 @@ Cases: the custom-env example's ``DampedChain``, a twin of
 (8, 3), and the public steps of navigation (two zones), HVAC-6,
 reservoir-5 and a linear system at (24, 6); one env for each family of ops
 the generator widened to (``tests/torch_user_envs.py``: elementwise,
-reductions and scans, index maps, nodes with several outputs, and all four
-together, the op-coverage env of ``chip_smoke.py`` phase 31), the probe env
-and the kinematic bicycle fleet; an env of the other supported ops against
-its own step. Then torch's semantics where C's or JAX's differ (round half
-to even, remainder's sign, sign and heaviside at NaN, nan_to_num's
-defaults, softplus's threshold) at the inputs that show them, ops traced
-through ``torch._decomp``, the refusals (a sort, a linear solve, a random
-op, a random index, integer values in the arithmetic, a data-dependent
-branch, a wrong output shape, each naming the opt-outs, and a solve that
-raises instead of falling back) and that the source depends on the graph,
+reductions and scans, index maps, nodes with several outputs, linear
+algebra, sorts, and all six together, the op-coverage env of
+``chip_smoke.py`` phase 31), the probe env, the kinematic bicycle fleet and
+the two-link arm; an env of the other supported ops against its own step.
+Then torch's semantics where C's or JAX's differ (round half to even,
+remainder's sign, sign and heaviside at NaN, nan_to_num's defaults,
+softplus's threshold; NaN, infinities and tied signed zeros in sorts,
+singular and indefinite matrices) at the inputs that show them, ops traced
+through ``torch._decomp``, the refusals (a sort's indices, an
+eigendecomposition, a random op, a random index, integer values in the
+arithmetic, a data-dependent branch, a wrong output shape, each naming the
+opt-outs, and a solve that raises instead of falling back) and that the
+source depends on the graph,
 dims and dtype, not on the parameter values. Only the g++ cases skip, and only where g++
 is absent.
 """
@@ -41,6 +44,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.linalg as jsl
 import jax.scipy.special as jsp
 import numpy as np
 import pytest
@@ -140,14 +144,37 @@ class OpsEnv(Env):
 
 
 class Unsupported(RandomSmoothEnv):
+    """A sort's indices read as values (its values are supported)."""
+
     def transition(self, x, u):
-        return x + 0.1 * torch.sort(x, dim=-1).values
+        return x + 0.1 * torch.argsort(x, dim=-1).to(x.dtype)
 
 
 class LinearSolve(RandomSmoothEnv):
+    """An eigendecomposition (solves and factorizations are supported)."""
+
     def transition(self, x, u):
-        return x + 0.1 * torch.linalg.solve(self.Q + torch.eye(
-            x.shape[-1], dtype=x.dtype), x)
+        S = self.Q + self.Q.mT + x[..., :, None] * x[..., None, :]
+        return x + 0.1 * torch.linalg.eigh(S).eigenvalues
+
+
+class BigSolve(RandomSmoothEnv):
+    """A solve of a 9x9 matrix, past the functor's local arrays."""
+
+    def transition(self, x, u):
+        t = torch.tanh(torch.cat([x, x, x], -1))
+        M = 3.0 * torch.eye(9, dtype=x.dtype, device=x.device) \
+            + t[..., :, None] * t[..., None, :]
+        return x + 0.1 * torch.linalg.solve(M, t)[..., :3]
+
+
+class RightSolve(RandomSmoothEnv):
+    """X A = B (``left=False``)."""
+
+    def transition(self, x, u):
+        A = self.Q + 3.0 * torch.eye(3, dtype=x.dtype, device=x.device)
+        return x + 0.1 * torch.linalg.solve(A, x[..., None, :],
+                                            left=False)[..., 0, :]
 
 
 class RandomStep(RandomSmoothEnv):
@@ -266,8 +293,11 @@ def _j_elementwise(env, x, u):
              + jnp.round(2.0 * x) + jnp.sign(x - 0.1)
              + jnp.heaviside(x, env.c) + jnp.fmod(3.0 * x, 0.7)
              + jnp.remainder(3.0 * x, 0.7) + jnp.remainder(2.0 * x, -0.9)
-             + jnp.where(x > 0.5, 0.25, 2.0 * x))
-    return smooth + tue.JUMP * jumps
+             + jnp.where(x > 0.5, 0.25, 2.0 * x)
+             + jnp.copysign(x, u3 - 0.1) + jnp.copysign(x, -1.0)
+             + jnp.sign(x - 0.2))
+    finite = jnp.isfinite(x).astype(x.dtype) - jnp.isinf(x).astype(x.dtype)
+    return smooth + tue.JUMP * jumps + 0.1 * finite
 
 
 def _j_pnorm(v, p, axis=None):
@@ -319,8 +349,45 @@ def _j_multi_output(env, x, u):
             + jnp.tile(M[1], 2))
 
 
+def _j_linalg(env, x, u):
+    a, b = jnp.tanh(x[:4]), jnp.tanh(x[4:])
+    eye = jnp.eye(4, dtype=x.dtype)
+    G = 3.0 * eye + 0.3 * a[:, None] * b[None, :] + 0.1 * u[0] * env.W[:4, :4]
+    V = env.W[4:, :4]
+    S = 3.0 * eye + 0.3 * a[:, None] * a[None, :] \
+        + 0.1 * jax.nn.sigmoid(u[1]) * (V @ V.T)
+    rhs = jnp.stack([x[:4], x[4:]], -1)
+    L = jnp.linalg.cholesky(S)
+    U = L.T
+    sign, logabs = jnp.linalg.slogdet(G)
+    head = (jnp.linalg.solve(G, rhs).sum(-1) + jnp.linalg.inv(S) @ x[:4]
+            + jsl.cho_solve((L, True), rhs)[:, 0]
+            + jsl.cho_solve((U, False), rhs)[:, 1]
+            + 0.1 * (L @ x[4:]) + 0.1 * (U @ x[:4]))
+    tail = (jsl.lu_solve(jsl.lu_factor(G), rhs)[:, 1]
+            + jsl.solve_triangular(jnp.tril(G), rhs, lower=True)[:, 0]
+            + jsl.solve_triangular(G, rhs, lower=False,
+                                   unit_diagonal=True)[:, 1]
+            + jsl.solve_triangular(G, x[4:], trans="T", lower=False)
+            + 0.1 * jnp.triu(G, 1).sum(0))
+    scalars = 0.01 * (jnp.linalg.det(G) - 81.0) + 0.1 * logabs + 0.1 * sign
+    return jnp.concatenate([head, tail]) + scalars
+
+
+def _j_sorts(env, x, u):
+    M = x.reshape(2, 4)
+    sx, sm = jnp.sort(x), jnp.sort(M, axis=-1)
+    top = jnp.concatenate([jax.lax.top_k(x, 3)[0],
+                           jax.lax.top_k(M, 2)[0].reshape(-1), sx[2:3]])
+    lows = jnp.tile(sm[:, 1] + sm[:, 1], 4)   # kthvalue 2, lower median
+    return (sx + jnp.sort(x * u[0])[::-1]
+            + jnp.sort(M, axis=0)[::-1].reshape(-1) + top + lows
+            + 2.0 * sx[3])
+
+
 _J_FAMILIES = {"elementwise": _j_elementwise, "reductions": _j_reductions,
-               "index_maps": _j_index_maps, "multi_output": _j_multi_output}
+               "index_maps": _j_index_maps, "multi_output": _j_multi_output,
+               "linalg": _j_linalg, "sorts": _j_sorts}
 
 
 def _jax_op_env(families):
@@ -431,6 +498,56 @@ class JaxBicycle(JaxEnv):
         return 0.5 * self._to_goal(x) + x[3] ** 2
 
 
+@pytree_dataclass
+class JaxArm(JaxEnv):
+    """``torch_user_envs.TwoLinkArm``'s twin at its default weights."""
+
+    target: jnp.ndarray
+    obstacles: jnp.ndarray
+    R: jnp.ndarray
+
+    @property
+    def state_size(self):
+        return 4
+
+    @property
+    def action_size(self):
+        return 2
+
+    def transition(self, x, u):
+        q, dq = x[:2], x[2:]
+        c2 = jnp.cos(q[1])
+        m11 = 0.5 * 0.5 + (1.0 + 0.5 * 0.5 + 2.0 * 0.5 * c2) + 2.0 / 12.0
+        m12 = (0.5 * 0.5 + 0.5 * c2) + 1.0 / 12.0
+        m22 = 0.5 * 0.5 + 1.0 / 12.0 + 0.0 * c2
+        M = jnp.stack([jnp.stack([m11, m12]), jnp.stack([m12, m22])])
+        h = 0.5 * jnp.sin(q[1])
+        coriolis = jnp.stack([-h * (2.0 * dq[0] * dq[1] + dq[1] * dq[1]),
+                              h * dq[0] * dq[0]])
+        g2 = 0.5 * 9.81 * jnp.cos(q[0] + q[1])
+        g1 = 1.5 * 9.81 * jnp.cos(q[0]) + g2
+        ddq = jnp.linalg.solve(M, u - coriolis - jnp.stack([g1, g2])
+                               - 0.1 * dq)
+        dq = dq + 0.02 * ddq
+        return jnp.concatenate([q + 0.02 * dq, dq])
+
+    def _tip(self, x):
+        a, b = x[0], x[0] + x[1]
+        return jnp.stack([jnp.cos(a) + jnp.cos(b), jnp.sin(a) + jnp.sin(b)])
+
+    def cost(self, x, u):
+        p = self._tip(x)
+        e, dq = p - self.target, x[2:]
+        d = jnp.linalg.norm(p[None] - self.obstacles, axis=-1)
+        near = jnp.sort(d)[:2]
+        return (0.1 * (e @ e) + 1e-2 * (dq @ dq) + u @ self.R @ u
+                + 0.5 * _j_softplus(4.0 * (0.25 - near)).sum())
+
+    def final_cost(self, x):
+        e, dq = self._tip(x) - self.target, x[2:]
+        return 10.0 * (e @ e) + dq @ dq
+
+
 def _twins(jax_cls, torch_cls, arrays, **fields):
     """A JAX env and its port twin on the same float64 arrays."""
     jenv = jax_cls(**{k: jnp.asarray(np.asarray(v, np.float64))
@@ -454,6 +571,10 @@ def _bicycle():
     return _twins(JaxBicycle, tue.KinematicBicycle, tue.BICYCLE)
 
 
+def _arm():
+    return _twins(JaxArm, tue.TwoLinkArm, tue.ARM)
+
+
 # label -> (a maker of (JAX env, port env), the inputs' range)
 CASES = {
     "damped_chain": (lambda: _chain(6), (-2.0, 2.0)),
@@ -469,6 +590,7 @@ CASES = {
     "ops_coverage": (_op_env, (-1.5, 1.5)),
     "probe": (_probe, (-1.5, 1.5)),
     "bicycle": (_bicycle, (-5.0, 5.0)),
+    "arm": (_arm, (-1.5, 1.5)),
 }
 
 
@@ -693,6 +815,136 @@ def test_torch_semantics_where_c_or_jax_differ(host_build):
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class SortTrapEnv(Env):
+    """Sorts where NaN, infinities and signed zeros show torch's order:
+    the next state the stable ascending sort, the stage cost the NaN that
+    ``topk``, ``kthvalue`` and ``median`` take or propagate, the final cost
+    the sign bits of the stable descending sort (``copysign``), which a
+    tie between 0.0 and -0.0 moves."""
+
+    w: torch.Tensor   # [6]
+
+    @property
+    def state_size(self):
+        return 6
+
+    @property
+    def action_size(self):
+        return 1
+
+    def transition(self, x, u):
+        return torch.sort(x, dim=-1, stable=True).values
+
+    def cost(self, x, u):
+        return (torch.topk(x, 2).values.sum(-1)
+                + torch.topk(x, 2, largest=False).values.sum(-1)
+                + torch.kthvalue(x, 2).values + torch.median(x, -1).values)
+
+    def final_cost(self, x):
+        d = torch.sort(x, dim=-1, descending=True, stable=True).values
+        return (self.w * torch.copysign(torch.ones_like(d), d)).sum(-1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SingularEnv(Env):
+    """A solve, a determinant and a Cholesky factor of M = x as a 2x2
+    matrix, at matrices that are singular or not positive definite."""
+
+    b: torch.Tensor   # [2]
+
+    @property
+    def state_size(self):
+        return 4
+
+    @property
+    def action_size(self):
+        return 1
+
+    def _parts(self, x):
+        M = x.reshape(x.shape[:-1] + (2, 2))
+        S = 0.5 * (M + M.mT)
+        return M, S
+
+    def transition(self, x, u):
+        M, S = self._parts(x)
+        return torch.cat([torch.linalg.solve(M, self.b),
+                          torch.linalg.det(M)[..., None],
+                          torch.linalg.cholesky(S)[..., 1, 1:]], -1)
+
+    def cost(self, x, u):
+        return (x * x).sum(-1)
+
+    def final_cost(self, x):
+        return (x * x).sum(-1)
+
+
+SORT_X = [
+    [0.0, -0.0, 1.0, -0.0, 0.0, -1.0],
+    [NAN, 1.0, -2.0, NAN, 0.5, 0.0],
+    [3.0, 3.0, -0.0, 0.0, INF, -INF],
+    [-0.0, 2.0, 0.0, NAN, -0.0, 2.0],
+    [0.25, -1.5, 0.75, 2.5, -0.5, 1.25],
+]
+# singular (and positive semidefinite), not positive definite, regular,
+# zero
+SINGULAR_X = [[1.0, 2.0, 2.0, 4.0], [1.0, 3.0, 3.0, 1.0],
+              [2.0, 0.5, 0.3, 1.5], [0.0, 0.0, 0.0, 0.0]]
+
+
+def test_sorts_and_solves_at_nan_ties_and_singular_input(host_build):
+    """The sort family on the host build against torch's step bit for bit:
+    NaN sorts last ascending and first descending, ``topk``, ``kthvalue``
+    and ``median`` take or propagate it as torch does, and a stable sort
+    keeps ties (0.0 and -0.0) in their input order, so the sign bits
+    agree. Linear algebra at a singular or indefinite matrix: the kernel
+    cannot raise, so where torch's step raises (``LinAlgError``) the
+    functor gives what the arithmetic gives (a non-finite solve, a
+    Cholesky pivot that is NaN or not positive); the determinant is torch's
+    at every input (0 where singular); the regular rows equal torch's."""
+    w = torch.tensor([1.0, 2.0, 4.0, 8.0, 16.0, 32.0], dtype=torch.float64)
+    env = SortTrapEnv(w=w)
+    x = torch.tensor(SORT_X, dtype=torch.float64)
+    u = torch.zeros(x.shape[0], 1, dtype=torch.float64)
+    step = env.generic_device_step(torch.float64, "cpu")
+    xn, cost, final = _host_step(host_build(step.source), step, x, u)
+    want = env.transition(x, u)
+    assert torch.equal(xn.isnan(), want.isnan())
+    ok = ~want.isnan()
+    assert torch.equal(xn[ok], want[ok])
+    assert torch.equal(torch.signbit(xn[ok]), torch.signbit(want[ok]))
+    np.testing.assert_array_equal(cost.numpy(), env.cost(x, u).numpy())
+    assert torch.equal(final, env.final_cost(x))
+    assert bool(cost[1].isnan()) and bool(cost[3].isnan())
+    assert bool(torch.isfinite(cost[[0, 4]]).all())
+
+    env = SingularEnv(b=torch.tensor([1.0, -1.0], dtype=torch.float64))
+    x = torch.tensor(SINGULAR_X, dtype=torch.float64)
+    u = torch.zeros(x.shape[0], 1, dtype=torch.float64)
+    step = env.generic_device_step(torch.float64, "cpu")
+    xn, _, _ = _host_step(host_build(step.source), step, x, u)
+    raised = []
+    for r in range(x.shape[0]):
+        M, S = env._parts(x[r])
+        assert torch.equal(xn[r, 2], torch.linalg.det(M)), r
+        try:
+            want = torch.linalg.solve(M, env.b)
+        except torch.linalg.LinAlgError:
+            raised.append((r, "solve"))
+            assert not bool(torch.isfinite(xn[r, :2]).all()), r
+        else:
+            _close(xn[r, :2], want, f"solve row {r}")
+        try:
+            want = torch.linalg.cholesky(S)[1, 1]
+        except torch.linalg.LinAlgError:
+            raised.append((r, "cholesky"))
+            assert not bool(xn[r, 3] > 0), r
+        else:
+            _close(xn[r, 3], want, f"cholesky row {r}")
+    assert raised == [(0, "solve"), (0, "cholesky"), (1, "cholesky"),
+                      (3, "solve"), (3, "cholesky")]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class DecomposedOpsEnv(Env):
     """Ops outside ``SUPPORTED_OPS`` that ``torch._decomp`` decomposes
     into supported ones, beside ``std`` and ``var`` (supported, two
@@ -763,8 +1015,10 @@ def test_source_depends_on_graph_dims_and_dtype_not_values():
 
 
 @pytest.mark.parametrize("cls,what", [
-    (Unsupported, "aten::sort"),
-    (LinearSolve, "aten::_linalg_solve_ex"),
+    (Unsupported, "aten::sort.*integer values"),
+    (LinearSolve, "aten::_linalg_eigh"),
+    (BigSolve, "aten::_linalg_solve_ex.*shape \\[9, 9\\]"),
+    (RightSolve, "left=False"),
     (RandomStep, "aten::rand"),
     (RandomIndex, "aten::randint.*random ops"),
     (IntegerArithmetic, "aten::argmax.*integer values"),

@@ -231,20 +231,17 @@ def test_compacted_kernel_layout_restarts_match_split(n_bad):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_final_value_matches_autodiff_bit_for_bit(case, dtype):
     """The fused backward's final value (``_final_klayout``, the env's
-    closed form) equals ``get_quadratic_final_cost`` under ``vmap``
-    (autodiff, as the JAX package's fused path takes it) bit for bit, in
-    the kernel layout."""
+    closed form) equals ``get_quadratic_final_cost`` at the batch of
+    points (autodiff, as the JAX package's fused path takes it under
+    ``vmap``) bit for bit, in the kernel layout."""
     goal, zones = CASES[case]
     env = make_navigation(goal, zones, dtype=dtype, device="cpu")
     n = env.state_size
     x = torch.as_tensor(np.random.default_rng(11).uniform(-6, 6, (64, n)),
                         dtype=dtype)
     VT, vT = ilqr_batched._final_klayout(env, x)
-    def final_fields(xi):
-        f = env.get_quadratic_final_cost(xi)
-        return f.l_x, f.l_xx
-
-    l_x, l_xx = torch.func.vmap(final_fields)(x)
+    final = env.get_quadratic_final_cost(x, batch=True)
+    l_x, l_xx = final.l_x, final.l_xx
     assert VT.dtype == vT.dtype == dtype
     assert torch.equal(VT, l_xx.reshape(-1, n * n).T)
     assert torch.equal(vT, l_x.T)

@@ -121,7 +121,7 @@ def test_analytic_derivatives_match_jax(zones):
 
 @pytest.mark.parametrize("zones", sorted(ZONES))
 def test_autodiff_linearization_matches_jax(zones):
-    """The generic torch.func route (jacfwd / grad) against the JAX
+    """The generic autograd route (``models/base.py``) against the JAX
     autodiff methods, and against the port's own closed form."""
     jenv, tenv = _envs(ZONES[zones])
     x, u = _points(3, (32,))

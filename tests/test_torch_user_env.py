@@ -21,8 +21,10 @@ Two envs whose steps use the ops the generator widened to
 (``tests/torch_user_envs.py``) solve the same way at B=128, T=8: the probe
 env (``atan2``, ``softmax``, ``cumsum``, ``einsum``, ``pad``, ``sign``,
 ``floor``, ``vector_norm``, ``softplus``, ``erf``), whose generated step
-was refused before, and the kinematic bicycle fleet of ``chip_smoke.py``
-phase 31.
+was refused before, the kinematic bicycle fleet of ``chip_smoke.py``
+phase 31, and the two-link arm of the same phase (a linear solve and a
+``topk``), whose step was refused and whose linearization was wrong
+before.
 """
 
 import dataclasses
@@ -41,7 +43,8 @@ from tfmpc_tpu_torch.solvers import ilqr, mpc
 
 import test_fuzz_envs
 import torch_user_envs as tue
-from test_torch_env_codegen import _bicycle, _chain, _fuzz_envs, _probe
+from test_torch_env_codegen import (_arm, _bicycle, _chain, _fuzz_envs,
+                                    _probe)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,6 +104,29 @@ def test_bicycle_fleet_solve_matches_jax():
     _hold_against_jax(jenv, tenv, tue.bicycle_x0(128), None, 8, True)
 
 
+def test_two_link_arm_solve_matches_jax():
+    """The two-link arm (``torch.linalg.solve`` of its mass matrix,
+    ``topk(largest=False)`` of its obstacle distances): its
+    ``use_pallas=True`` solve, on the generated step with the factor of
+    M(q) in ``prep``, against the JAX package's, whose kernels run it in
+    interpret mode; before the linearization's repair its derivatives
+    were wrong and its step refused."""
+    jenv, tenv = _arm()
+    x0 = tue.arm_x0(128)
+    res_j = _hold_against_jax(jenv, tenv, x0, None, 8, True)
+    # the plain path, whose linearization is the same autodiff
+    res_t = ilqr.solve_batch(tenv, torch.as_tensor(x0), horizon=8,
+                             config=ilqr.ILQRConfig(atol=1e-5,
+                                                    max_iterations=10))
+    for f in ("converged", "failed"):
+        np.testing.assert_array_equal(getattr(res_t, f).numpy(),
+                                      np.asarray(getattr(res_j, f)))
+    np.testing.assert_allclose(res_t.actions.numpy(),
+                               np.asarray(res_j.actions), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(res_t.total_cost.numpy(),
+                               np.asarray(res_j.total_cost), rtol=1e-10)
+
+
 def _hold_against_jax(jenv, tenv, x0, box, T, jax_pallas):
     B, n = x0.shape
     step = tenv.device_step()
@@ -133,6 +159,7 @@ def _hold_against_jax(jenv, tenv, x0, box, T, jax_pallas):
     if box is not None:
         U = res_t.actions.numpy()
         assert U.max() <= box and U.min() >= -box
+    return res_j
 
 
 def test_mpc_and_the_mesh_run_the_generated_step():

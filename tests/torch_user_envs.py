@@ -9,11 +9,14 @@ card, where there is no JAX; the tests hold each against a JAX twin).
   heading, speed; acceleration, steering) driven to a goal around eight
   soft obstacles: ``split``, ``tan``, ``hypot``, ``atan2``, constant
   indexing, ``vector_norm`` over a dim and ``softplus`` in its step.
+- ``TwoLinkArm`` (4, 2): Spong's planar two-link arm, its accelerations
+  a ``torch.linalg.solve`` of the mass matrix, reaching a target around six
+  point obstacles through ``topk(largest=False)`` of their distances.
 - ``OpEnv``: a step that sums, for each family it names, a vector of that
   family's ops (``FAMILIES``): elementwise, reductions and scans, index
-  maps, nodes with several outputs. With all four at (8, 3) it is the
-  op-coverage env: every op of the four families that the bicycle does
-  not use. Ops whose value jumps (floor, round, sign, ...) enter with a
+  maps, nodes with several outputs, linear algebra, sorts. With all six at
+  (8, 3) it is the op-coverage env: every op of the six families that the
+  bicycle and the arm do not use. Ops whose value jumps (floor, round, sign, ...) enter with a
   small weight, so that a rounding difference that moves one across a
   jump moves the rollout by less than a float32 comparison's tolerance.
 
@@ -112,8 +115,6 @@ class KinematicBicycle(Env):
     def action_size(self):
         return 2
 
-    # each quantity a [..., 1] slice: under torch.func.jacfwd a 0-d tensor
-    # times a Python float gives float64 tangents on a float32 env
     def transition(self, x, u):
         px, py, th, v = x.split(1, dim=-1)
         a, delta = u.split(1, dim=-1)
@@ -165,6 +166,113 @@ def bicycle_x0(B: int, seed: int = 0) -> np.ndarray:
                            rng.uniform(1.0, 5.0, (B, 1))], axis=1)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TwoLinkArm(Env):
+    """Spong's planar two-link arm (q1, q2 from the x axis, gravity along
+    -y; dq1, dq2; torques u): M(q) ddq = u - C(q, dq) dq - G(q) - 0.1 dq,
+    solved with ``torch.linalg.solve``, then semi-implicit Euler at dt =
+    0.02. m1 = m2 = 1, l1 = l2 = 1, lc = 0.5, I = 1/12, g = 9.81. Stage
+    cost: w_goal |p(q) - target|^2 + w_dq |dq|^2 + u R u + w_obs sum
+    softplus(kappa (radius - d)) over the two smallest distances d from
+    the end effector p(q) to the six point obstacles (``topk(largest=
+    False)``); final cost 10 |p(q) - target|^2 + |dq|^2."""
+
+    target: torch.Tensor      # [2]
+    obstacles: torch.Tensor   # [6, 2]
+    R: torch.Tensor           # [2, 2]
+    dt: float = 0.02
+    # weights that keep a solve's total cost ~1e2 or less, where float32
+    # resolves the headline config's atol of 1e-4
+    w_goal: float = 0.1
+    w_dq: float = 1e-2
+    w_obs: float = 0.5
+    kappa: float = 4.0
+    radius: float = 0.25
+
+    m1 = m2 = 1.0
+    l1 = l2 = 1.0
+    lc = 0.5
+    inertia = 1.0 / 12.0
+    gravity = 9.81
+    damping = 0.1
+
+    @property
+    def state_size(self):
+        return 4
+
+    @property
+    def action_size(self):
+        return 2
+
+    def _accel(self, q, dq, u):
+        q1, q2 = q[..., 0], q[..., 1]
+        d1, d2 = dq[..., 0], dq[..., 1]
+        m2, l1, lc, i = self.m2, self.l1, self.lc, self.inertia
+        c2 = torch.cos(q2)
+        m11 = self.m1 * lc * lc + m2 * (l1 * l1 + lc * lc
+                                        + 2.0 * l1 * lc * c2) + 2.0 * i
+        m12 = m2 * (lc * lc + l1 * lc * c2) + i
+        m22 = (m2 * lc * lc + i) * torch.ones_like(q2)
+        M = torch.stack([torch.stack([m11, m12], -1),
+                         torch.stack([m12, m22], -1)], -2)
+        h = m2 * l1 * lc * torch.sin(q2)
+        coriolis = torch.stack([-h * (2.0 * d1 * d2 + d2 * d2), h * d1 * d1],
+                               -1)
+        g2 = m2 * lc * self.gravity * torch.cos(q1 + q2)
+        g1 = (self.m1 * lc + m2 * l1) * self.gravity * torch.cos(q1) + g2
+        rhs = u - coriolis - torch.stack([g1, g2], -1) - self.damping * dq
+        return torch.linalg.solve(M, rhs)
+
+    def transition(self, x, u):
+        q, dq = x[..., :2], x[..., 2:]
+        dq = dq + self.dt * self._accel(q, dq, u)
+        return torch.cat([q + self.dt * dq, dq], -1)
+
+    def _tip(self, x):
+        a, b = x[..., 0], x[..., 0] + x[..., 1]
+        return torch.stack([self.l1 * torch.cos(a) + self.l2 * torch.cos(b),
+                            self.l1 * torch.sin(a) + self.l2 * torch.sin(b)],
+                           -1)
+
+    def cost(self, x, u):
+        p = self._tip(x)
+        e, dq = p - self.target, x[..., 2:]
+        d = torch.linalg.vector_norm(p[..., None, :] - self.obstacles, dim=-1)
+        near = torch.topk(d, 2, dim=-1, largest=False).values
+        return (self.w_goal * (e * e).sum(-1) + self.w_dq * (dq * dq).sum(-1)
+                + ((u @ self.R) * u).sum(-1)
+                + self.w_obs * F.softplus(self.kappa * (self.radius - near))
+                .sum(-1))
+
+    def final_cost(self, x):
+        e, dq = self._tip(x) - self.target, x[..., 2:]
+        return 10.0 * (e * e).sum(-1) + (dq * dq).sum(-1)
+
+
+# the arm's target, raised to the side of its hanging rest, six obstacles
+# around the reach, and R
+ARM = dict(
+    target=[0.8, -1.5],
+    obstacles=[[0.5, -1.9], [1.0, -1.1], [0.2, -1.4], [1.3, -1.6],
+               [0.6, -0.9], [-0.3, -1.8]],
+    R=[[1e-2, 0.0], [0.0, 2e-2]])
+
+
+def arm_x0(B: int, seed: int = 0) -> np.ndarray:
+    """The arm's initial states, ``default_rng(seed)``: near its hanging
+    rest, q1 in -pi/2 + [-0.3, 0.3], q2 in [-0.3, 0.3], dq in [-0.2,
+    0.2]^2. (Started near the target above the horizontal, the arm falls
+    under the kernel checks' random controls and policy and its rollouts
+    are chaotic: float32 against float64 on the same inputs, five of
+    45,056 line-search costs moved past 1e-3 + 1e-3 |J|, and a one-ulp
+    change of x0 nine.)"""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.uniform(-np.pi / 2 - 0.3, -np.pi / 2 + 0.3,
+                                       (B, 1)),
+                           rng.uniform(-0.3, 0.3, (B, 1)),
+                           rng.uniform(-0.2, 0.2, (B, 2))], axis=1)
+
+
 # -- the op families ----------------------------------------------------------
 # Each returns a vector [..., 8] of x [..., 8], u [..., 3] and the env's
 # parameters; jumps (floor, ceil, trunc, round, sign, heaviside, fmod,
@@ -204,8 +312,12 @@ def elementwise(env, x, u):
              + torch.heaviside(x, env.c) + torch.fmod(3.0 * x, 0.7)
              + torch.remainder(3.0 * x, 0.7)
              + torch.remainder(2.0 * x, -0.9)
-             + (2.0 * x).masked_fill(x > 0.5, 0.25))
-    return smooth + JUMP * jumps
+             + (2.0 * x).masked_fill(x > 0.5, 0.25)
+             + torch.copysign(x, u3 - 0.1) + torch.copysign(x, -1.0)
+             + torch.sgn(x - 0.2))
+    # 1 where x is finite (every input): isinf and isfinite as values
+    finite = torch.isfinite(x).to(x.dtype) - torch.isinf(x).to(x.dtype)
+    return smooth + JUMP * jumps + 0.1 * finite
 
 
 def reductions(env, x, u):
@@ -277,8 +389,70 @@ def multi_output(env, x, u):
         + rows[1].repeat(*([1] * (x.dim() - 1)), 2)
 
 
+def _per_scenario(fn, x):
+    """``fn`` of one scenario's ``x [8]`` over any leading batch dims (for
+    the ops that reduce every dim)."""
+    if x.dim() == 1:
+        return fn(x)
+    return torch.vmap(fn)(x.flatten(0, -2)).reshape(x.shape[:-1])
+
+
+def linalg(env, x, u):
+    """Solves, factorizations and determinants of 4x4 matrices of the
+    state: a general one, 3 I + 0.3 tanh(x_:4) tanh(x_4:)^T + 0.1 u_0 W, and
+    a symmetric positive definite one, 3 I + 0.3 tanh(x_:4) tanh(x_:4)^T +
+    0.1 sigmoid(u_1) V V^T (what the arm's vector solve does not use)."""
+    a, b = torch.tanh(x[..., :4]), torch.tanh(x[..., 4:])
+    eye = torch.eye(4, dtype=x.dtype, device=x.device)
+    G = 3.0 * eye + 0.3 * a[..., :, None] * b[..., None, :] \
+        + 0.1 * u[..., :1, None] * env.W[:4, :4]
+    V = env.W[4:, :4]
+    S = 3.0 * eye + 0.3 * a[..., :, None] * a[..., None, :] \
+        + 0.1 * torch.sigmoid(u[..., 1:2, None]) * (V @ V.mT)
+    rhs = torch.stack([x[..., :4], x[..., 4:]], -1)           # [..., 4, 2]
+    L = torch.linalg.cholesky(S)
+    U = torch.linalg.cholesky(S, upper=True)
+    LU, pivots = torch.linalg.lu_factor(G)
+    sign, logabs = torch.linalg.slogdet(G)
+    head = (torch.linalg.solve(G, rhs).sum(-1)
+            + (torch.linalg.inv(S) @ x[..., :4, None])[..., 0]
+            + torch.cholesky_solve(rhs, L)[..., 0]
+            + torch.cholesky_solve(rhs, U, upper=True)[..., 1]
+            + 0.1 * (L @ x[..., 4:, None])[..., 0]
+            + 0.1 * (U @ x[..., :4, None])[..., 0])
+    tail = (torch.linalg.lu_solve(LU, pivots, rhs)[..., 1]
+            + torch.linalg.solve_triangular(torch.tril(G), rhs,
+                                            upper=False)[..., 0]
+            + torch.linalg.solve_triangular(G, rhs, upper=True,
+                                            unitriangular=True)[..., 1]
+            + torch.linalg.solve_triangular(G, x[..., None, 4:], upper=True,
+                                            left=False)[..., 0, :]
+            + 0.1 * torch.triu(G, 1).sum(-2))
+    scalars = 0.01 * (torch.linalg.det(G) - 81.0) + 0.1 * logabs + 0.1 * sign
+    return torch.cat([head, tail], -1) + scalars[..., None]
+
+
+def sorts(env, x, u):
+    """Sorted values along a dim (ascending, descending and stable),
+    ``topk`` (largest), ``kthvalue``, ``median`` over every element and
+    over a dim (the lower median): continuous in x, so no jump weight."""
+    M = x.reshape(x.shape[:-1] + (2, 4))
+    top = torch.cat([torch.topk(x, 3).values,
+                     torch.topk(M, 2, dim=-1).values.flatten(-2),
+                     torch.kthvalue(x, 3).values[..., None]], -1)
+    lows = (torch.kthvalue(M, 2, dim=-1, keepdim=True).values
+            + torch.median(M, dim=-1, keepdim=True).values).flatten(-2)
+    return (torch.sort(x, dim=-1).values
+            + torch.sort(x * u[..., :1], descending=True, stable=True).values
+            + torch.sort(M, dim=-2, descending=True).values.flatten(-2)
+            + top + lows.repeat(*([1] * (x.dim() - 1)), 4)
+            + (_per_scenario(torch.median, x)
+               + torch.median(x, dim=-1).values)[..., None])
+
+
 FAMILIES = {"elementwise": elementwise, "reductions": reductions,
-            "index_maps": index_maps, "multi_output": multi_output}
+            "index_maps": index_maps, "multi_output": multi_output,
+            "linalg": linalg, "sorts": sorts}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

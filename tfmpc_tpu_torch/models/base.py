@@ -2,10 +2,30 @@
 
 Counterpart of ``tfmpc_tpu/models/base.py``. ``transition``, ``cost`` and
 ``final_cost`` take states ``[..., n]`` and controls ``[..., m]`` with any
-leading batch dims. The generic linearization is forward-mode autodiff
-(``torch.func.jacfwd``, Hessians as ``jacfwd`` of ``grad``) mapped over a
-leading axis with ``torch.func.vmap``: the semantics oracle for an env's
-closed-form ``analytic_derivatives``.
+leading batch dims. The generic linearization is ``torch.autograd`` on
+the env's own batched call at all the points at once, each point repeated
+so that its copies take the unit cotangents of one reverse pass
+(``_derive``; the copies are independent points, as the points are):
+Jacobians one reverse pass, Hessians reverse over reverse, two
+(``create_graph``), also under ``torch.inference_mode``. It is the semantics oracle for an env's closed-form
+``analytic_derivatives``, and gives what the JAX package's ``vmap(jacfwd)``
+gives at each point, the points being independent under the env contract.
+
+It is not ``torch.func``'s ``vmap(jacfwd)``, nor any ``torch.func``
+transform: on torch 2.13 they give wrong derivatives, without an error,
+through the LU-based ops (``linalg.solve``, ``linalg.det``, ``slogdet``,
+``lu_factor`` + ``lu_solve``). Under two ``vmap`` levels (``jacfwd`` is a
+``vmap`` over the directions) their batching rules are wrong on the CPU
+(Jacobians off by up to 5e2 and Hessians by 6e5 on well-conditioned 3x3
+matrices; on an H100 the two-link arm's came out right); forward over
+forward (``jvp`` of ``jvp``) drops the tangent of the LU factors that
+their forward formulas reuse, wrong at one point unmapped; and the
+backward of ``det`` under any ``torch.func`` transform takes its SVD
+formula, NaN where the matrix has repeated singular values (``3 I`` plus
+a rank-one term). ``inv``, ``cholesky``, ``cholesky_solve`` and
+``solve_triangular`` came out right either way. Plain autograd has none
+of these faults, and it keeps a float32 env's derivatives float32 where
+``jacfwd`` made them float64 (a 0-d tensor times a Python float).
 
 ``device_step`` replaces the JAX package's ``lane_functions`` hook: a
 shipped env names its hand-written step functor (``ops/csrc/envs.cuh``),
@@ -22,7 +42,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.func import grad, jacfwd, vmap
 
 from tfmpc_tpu_torch.core.types import (
     Bounds,
@@ -37,6 +56,72 @@ from tfmpc_tpu_torch.core.types import (
 # compiled from its ``DeviceStep.source`` into a library of its own
 # (``ops/_build.py`` ``user_library``), not selected in ``envs.cuh``.
 USER_STEP_ID = 4
+
+
+# the most (point, copy) pairs that one reverse pass of the linearization
+# takes: more points go in chunks, which bounds the graph's memory. On an
+# H100 the full-DDP navigation-12 solve (288 copies a point, 51,200 points)
+# ran as fast in one chunk (2^24) as in four, within its run-to-run spread,
+# and slower in fifteen (2^20; ``tools/phase_ab.py --max-copies``)
+MAX_COPIES = 1 << 22
+
+
+def _grads(out, inputs, create_graph=False):
+    """The gradients of ``out.sum()`` with respect to ``inputs``: zero for
+    an input it does not read, and all zero where ``out`` reads none (the
+    points of ``out`` independent, these are each point's own)."""
+    if not out.requires_grad:
+        return tuple(torch.zeros_like(a) for a in inputs)
+    return torch.autograd.grad(out.sum(), inputs, retain_graph=True,
+                               create_graph=create_graph, allow_unused=True,
+                               materialize_grads=True)
+
+
+def _unit(k: int, reps: int, like, each: int = 1):
+    """Row j of the identity for the copies ``[reps, k, each]`` (copy
+    (j, e) of a point takes row j), flattened to ``[reps * k * each, k]``."""
+    eye = torch.eye(k, dtype=like.dtype, device=like.device)
+    return eye.repeat_interleave(each, dim=0).repeat(reps, 1)
+
+
+def _derive(fn, args, k: int, second: bool = False):
+    """``fn(*args)`` at each point (``[P, k]``, or ``[P]`` for a scalar
+    ``fn`` with k = 1), its first derivatives ``[P, k, K]`` over the
+    concatenated ``args [P, d]`` (K values) and, if ``second``, its second
+    ``[P, k, K, K]``. Each point is repeated as leaves, the copies
+    independent points as the points are: copy a (copy (a, b) for
+    ``second``) takes output a's unit cotangent in one reverse pass, and
+    differentiates component b of that gradient in a second (reverse over
+    reverse). Autograd records under ``torch.inference_mode`` too, so a
+    caller there gets the same derivatives and not zeros."""
+    K = sum(a.shape[-1] for a in args)
+    each = K if second else 1
+    with torch.inference_mode(False), torch.enable_grad():
+        copies = tuple(a.detach().repeat_interleave(k * each, dim=0)
+                       .requires_grad_(True) for a in args)
+        out = fn(*copies)
+        o = out.reshape(len(out), -1)                # [P * k * each, k]
+        reps = len(o) // (k * each)
+        g = torch.cat(_grads(o * _unit(k, reps, o, each), copies,
+                             create_graph=second), dim=-1)
+        H = torch.cat(_grads(g * _unit(K, reps * k, g), copies),
+                      dim=-1) if second else None
+    value = out.detach()[::k * each]
+    first = g.detach()[::each].reshape(-1, k, K)
+    return (value, first) if H is None else (value, first,
+                                             H.reshape(-1, k, K, K))
+
+
+def _by_chunks(derive, copies: int, *args):
+    """``derive(*args)`` over chunks of the points of at most
+    ``MAX_COPIES`` (point, copy) pairs each, its outputs (tensors over the
+    points) concatenated."""
+    P = args[0].shape[0]
+    step = max(1, MAX_COPIES // copies)
+    if P <= step:
+        return derive(*args)
+    parts = [derive(*(a[i:i + step] for a in args)) for i in range(0, P, step)]
+    return tuple(torch.cat(part, dim=0) for part in zip(*parts))
 
 
 class DeviceStep(NamedTuple):
@@ -86,59 +171,61 @@ class Env:
         return self.state_size
 
     # -- autodiff linearization ---------------------------------------------
+    # each at points x [P, n], u [P, m]
     def _linear(self, x, u):
-        f_x, f_u = jacfwd(self.transition, argnums=(0, 1))(x, u)
-        return self.transition(x, u), f_x, f_u
+        """``(f, f_x, f_u)``."""
+        n = x.shape[-1]
+        f, J = _by_chunks(lambda *a: _derive(self.transition, a, n), n, x, u)
+        return f, J[..., :n], J[..., n:]
 
     def _quadratic(self, x, u):
-        grad_x = grad(self.cost, argnums=0)
-        grad_u = grad(self.cost, argnums=1)
-        return (
-            self.cost(x, u),
-            grad_x(x, u),
-            grad_u(x, u),
-            jacfwd(grad_x, argnums=0)(x, u),
-            jacfwd(grad_u, argnums=1)(x, u),
-            jacfwd(grad_u, argnums=0)(x, u),
-        )
+        """``(l, l_x, l_u, l_xx, l_uu, l_ux)``."""
+        n = x.shape[-1]
+        l, g, H = _by_chunks(lambda *a: _derive(self.cost, a, 1, True),
+                             n + u.shape[-1], x, u)
+        g, H = g[:, 0], H[:, 0]
+        return (l, g[:, :n], g[:, n:], H[:, :n, :n], H[:, n:, n:],
+                H[:, n:, :n])
+
+    def _final(self, x):
+        """``(l, l_x, l_xx)`` of the final cost."""
+        l, g, H = _by_chunks(lambda *a: _derive(self.final_cost, a, 1, True),
+                             x.shape[-1], x)
+        return l, g[:, 0], H[:, 0]
+
+    def _second_order(self, x, u):
+        """``(f_xx, f_ux, f_uu)``."""
+        n = x.shape[-1]
+        H = _by_chunks(lambda *a: _derive(self.transition, a, n, True),
+                       n * (n + u.shape[-1]), x, u)[2]    # [P, a, b, c]
+        return H[..., :n, :n], H[..., n:, :n], H[..., n:, n:]
+
+    def _points(self, fn, batch, *args):
+        out = fn(*args) if batch else fn(*(a[None] for a in args))
+        return out if batch else tuple(a[0] for a in out)
 
     def get_linear_transition(self, x, u, batch: bool = False) -> LinearModel:
         """First-order model of the dynamics at ``(x, u)``; ``batch=True``
         maps over a leading axis."""
-        fn = vmap(self._linear) if batch else self._linear
-        return LinearModel(*fn(x, u))
+        return LinearModel(*self._points(self._linear, batch, x, u))
 
     def get_quadratic_cost(self, x, u, batch: bool = False) -> QuadraticModel:
         """Second-order model of the stage cost at ``(x, u)``."""
-        fn = vmap(self._quadratic) if batch else self._quadratic
-        return QuadraticModel(*fn(x, u))
-
-    def _second_order(self, x, u):
-        jac_x = jacfwd(self.transition, argnums=0)
-        jac_u = jacfwd(self.transition, argnums=1)
-        return (
-            jacfwd(jac_x, argnums=0)(x, u),   # [n, n, n]
-            jacfwd(jac_u, argnums=0)(x, u),   # [n, m, n]
-            jacfwd(jac_u, argnums=1)(x, u),   # [n, m, m]
-        )
+        return QuadraticModel(*self._points(self._quadratic, batch, x, u))
 
     def get_second_order_transition(self, x, u,
                                     batch: bool = False) -> SecondOrderModel:
-        """Second derivatives of the dynamics at ``(x, u)`` (full DDP), by
-        forward-over-forward autodiff; ``batch=True`` maps over a leading
-        axis."""
-        fn = vmap(self._second_order) if batch else self._second_order
-        # torch.func returns a lazy ZeroTensor for a derivative that is zero
-        # everywhere (f_uu of every shipped env); clone() materializes it
-        return SecondOrderModel(*(a.clone() for a in fn(x, u)))
+        """Second derivatives of the dynamics at ``(x, u)`` (full DDP);
+        ``batch=True`` maps over a leading axis."""
+        return SecondOrderModel(*(
+            a.contiguous() for a in self._points(self._second_order, batch,
+                                                 x, u)))
 
-    def get_quadratic_final_cost(self, x) -> QuadraticFinal:
-        """Second-order model of the final cost at ``x``."""
-        return QuadraticFinal(
-            l=self.final_cost(x),
-            l_x=grad(self.final_cost)(x),
-            l_xx=jacfwd(grad(self.final_cost))(x),
-        )
+    def get_quadratic_final_cost(self, x, batch: bool = False
+                                 ) -> QuadraticFinal:
+        """Second-order model of the final cost at ``x``; ``batch=True``
+        maps over a leading axis."""
+        return QuadraticFinal(*self._points(self._final, batch, x))
 
     # -- rollout -----------------------------------------------------------
     def rollout(self, x0: torch.Tensor, U: torch.Tensor):

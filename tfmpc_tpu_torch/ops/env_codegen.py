@@ -40,6 +40,21 @@ semantics where C's differ (``round`` to even, ``remainder`` with the
 divisor's sign, ``sign(NaN) = 0``, the NaN that ``max``, ``clamp`` and the
 norms propagate); the stage and final costs are evaluated whole.
 
+Linear algebra on one square matrix of the step (at most 8x8) and sorts
+along a dim (at most PREP_MAX_ELEMS values) are read whole
+(``_Body.whole``): a short loop fills a local array once a method, before
+the loops and branches that read it. Solves, inverses and determinants go
+through an LU factor with partial pivoting as LAPACK's getf2 takes it
+(``lu_factor``/``lu_solve`` too), ``cholesky``/``cholesky_solve`` through
+a Cholesky factor column by column, and ``solve_triangular`` substitutes
+directly; the factor of a matrix that depends on x and not on u is
+``prep``'s, so each row does only the substitutions. A kernel cannot
+raise: where torch's step raises for a singular or indefinite matrix
+(``_linalg_check_errors``, dropped here), the functor gives what the
+arithmetic gives, inf or NaN. Sorts keep their float values: element k of
+a slice is its element of stable rank k, NaN the largest, an O(L^2)
+count (``sort``, ``topk``, ``kthvalue``, ``median``).
+
 An op outside ``SUPPORTED_OPS`` that ``torch._decomp`` decomposes is traced
 again through its decomposition, which keeps torch's semantics by
 construction: the activations (``softplus`` with its threshold, ``gelu``,
@@ -49,10 +64,11 @@ is infinite), ``xlogy``, ``logaddexp``, ``lerp``, ``addcmul``,
 ``hardswish``, ``mish``, ``dist``, ``frac``, ...; the source's header
 names the ops that went that way. A step the functor cannot express raises
 ``NotImplementedError`` naming the op or node and the two opt-outs: any
-other op (sorts, linear solves and factorizations, random ops), a
+other op (eigen- and singular-value decompositions, random ops), a
 data-dependent branch, an output of the wrong shape, an integer value in
-the arithmetic (an index output of ``max(x, dim)`` read as a value
-included).
+the arithmetic (an index output of ``max(x, dim)`` or of a sort read as a
+value included), a batch of matrices or right-hand sides within the step,
+``solve(left=False)``, a matrix or sort beyond the local arrays' size.
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ PREP_MAX_ELEMS = 64
 
 _CTYPES = {torch.float32: "float", torch.float64: "double",
            torch.bool: "bool"}
+_DTYPES = {"float": torch.float32, "double": torch.float64}
 _ROW = "i"  # row()'s index: an index expression that names it depends on i
 
 # -- ops ----------------------------------------------------------------------
@@ -124,6 +141,7 @@ _UNARY = {
         lambda T, a: f"({a} > {T}(0) ? {T}(1) : {a} < {T}(0) ? {T}(-1) "
                      f": {T}(0))",
 }
+_UNARY[aten.sgn.default] = _UNARY[aten.sign.default]   # sign, for reals
 for _name in ("atan", "tan", "sinh", "cosh", "asin", "acos", "asinh", "acosh",
               "atanh", "erf", "erfc", "exp2", "log2", "log10", "floor",
               "ceil", "trunc"):
@@ -132,6 +150,10 @@ for _name in ("atan", "tan", "sinh", "cosh", "asin", "acos", "asinh", "acosh",
 # bool of a float operand, read at its own type (decompositions use it)
 _PREDICATES = {
     aten.isnan.default: lambda T, a: f"({a} != {a})",
+    aten.isinf.default:
+        lambda T, a: f"({_f('fabs', T)}({a}) == {_literal(math.inf, T)})",
+    aten.isfinite.default:
+        lambda T, a: f"({_f('fabs', T)}({a}) < {_literal(math.inf, T)})",
 }
 _BINARY = {
     aten.mul.Tensor: lambda T, a, b: f"({a} * {b})",
@@ -151,6 +173,10 @@ _BINARY = {
     aten.logical_or.default: lambda T, a, b: f"({a} || {b})",
     aten.atan2.default: lambda T, a, b: f"{_f('atan2', T)}({a}, {b})",
     aten.hypot.default: lambda T, a, b: f"{_f('hypot', T)}({a}, {b})",
+    aten.copysign.Tensor:
+        lambda T, a, b: f"{_f('copysign', T)}({a}, {b})",
+    aten.copysign.Scalar:
+        lambda T, a, b: f"{_f('copysign', T)}({a}, {b})",
     # the dividend's sign, as torch.fmod
     aten.fmod.Tensor: lambda T, a, b: f"{_f('fmod', T)}({a}, {b})",
     aten.fmod.Scalar: lambda T, a, b: f"{_f('fmod', T)}({a}, {b})",
@@ -192,10 +218,34 @@ _INDEX_MAPS = {aten.constant_pad_nd.default, aten.flip.default,
                aten.roll.default, aten.repeat.default,
                aten.diagonal.default, aten.diag_embed.default,
                aten.index.Tensor}
+# the triangles of a matrix: index maps with a literal 0 outside
+_TRIANGLES = {aten.tril.default: "<=", aten.triu.default: ">="}
+# nodes read whole (``_Body.whole``): each is a short loop that fills a
+# local array of at most PREP_MAX_ELEMS values, once a method. Linear
+# algebra on one matrix of the step (2-D, at most 8x8): solves, inverses,
+# determinants and the triangular solves on an LU factor with partial
+# pivoting or a Cholesky factor; ``(op, outputs read)``
+_LINALG_MULTI = {
+    aten._linalg_solve_ex.default: (0,), aten.linalg_inv_ex.default: (0,),
+    aten._linalg_det.default: (0,), aten._linalg_slogdet.default: (0, 1),
+    aten.linalg_cholesky_ex.default: (0,),
+    aten.linalg_lu_factor_ex.default: (0, 1),   # 1: the pivots, for lu_solve
+}
+_LINALG = {aten.cholesky_solve.default, aten.linalg_lu_solve.default,
+           aten.linalg_solve_triangular.default}
+# sorts along a dim, their float values only: element k is the input of
+# stable rank k (NaN sorts as the largest)
+_SORTS_MULTI = {aten.sort.default: (0,), aten.sort.stable: (0,),
+                aten.topk.default: (0,), aten.kthvalue.default: (0,),
+                aten.median.dim: (0,)}
+_SORTS = {aten.median.default}
+_WHOLE_MULTI = {**_LINALG_MULTI, **_SORTS_MULTI}
+_WHOLE = set(_WHOLE_MULTI) | _LINALG | _SORTS
 # nodes with more than one output, read only through ``operator.getitem``
-# (the values of max/min over a dim, never their indices)
+# (the values of max/min over a dim, never their indices; the float outputs
+# of the nodes read whole)
 _MULTI = {aten.max.dim, aten.min.dim, aten.split_with_sizes.default,
-          aten.split.Tensor, aten.unbind.int}
+          aten.split.Tensor, aten.unbind.int} | set(_WHOLE_MULTI)
 _OTHER = {aten.pow.Tensor_Scalar, aten.rsub.Scalar, aten._to_copy.default,
           aten.cat.default, aten.stack.default, aten.linalg_cross.default,
           operator.getitem}
@@ -204,7 +254,8 @@ SUPPORTED_OPS = frozenset(
     set(_VIEWS) | set(_LITERALS) | set(_UNARY) | set(_PREDICATES)
     | set(_BINARY) | _REMAINDER | _OPTIONS | set(_COMPARE) | set(_ADD)
     | _CLAMP | _WHERE | _REDUCE | _NORMS | set(_SCANS)
-    | _OTHER_REDUCE | _MATMUL | _INDEX_MAPS | _MULTI | _OTHER)
+    | _OTHER_REDUCE | _MATMUL | _INDEX_MAPS | set(_TRIANGLES) | _MULTI
+    | _WHOLE | _OTHER)
 
 
 def _f(name: str, T: str) -> str:
@@ -318,6 +369,8 @@ class _Graph:
             if nd.op == "call_function" and nd.target in _MULTI:
                 self._check_multi(nd, live)
                 self.dep_u[nd] = any(self.dep_u[a] for a in _node_args(nd))
+                if nd.target in _WHOLE_MULTI:
+                    self._check_whole(nd)
                 continue
             integer = isinstance(val, torch.Tensor) \
                 and val.dtype not in _CTYPES
@@ -329,12 +382,23 @@ class _Graph:
                 raise _refuse(f"{name}: node {nd.name} ({nd.target}) is not "
                               "a tensor")
             if val.dtype not in _CTYPES:
+                if self._pivots(nd, live):
+                    self.dep_u[nd] = self.dep_u[nd.args[0]]
+                    continue
                 self._index_constant(nd, val, live)
                 continue
             if nd.op == "call_function" and nd.target is operator.getitem \
                     and nd.args[0].target not in _MULTI:
                 raise _refuse(f"{name}: node {nd.name} reads an output of "
                               f"{_op_name(nd.args[0].target)}")
+            if nd.op == "call_function" and nd.target is operator.getitem \
+                    and nd.args[1] not in _WHOLE_MULTI.get(
+                        nd.args[0].target, (nd.args[1],)):
+                raise _refuse(f"{name}: node {nd.name} reads output "
+                              f"{nd.args[1]} of "
+                              f"{_op_name(nd.args[0].target)}")
+            if nd.op == "call_function" and nd.target in _WHOLE:
+                self._check_whole(nd)
             self.shape[nd] = tuple(int(s) for s in val.shape)
             self.ctype[nd] = _CTYPES[val.dtype]
             literal = nd.op == "call_function" and nd.target in _LITERALS
@@ -364,6 +428,58 @@ class _Graph:
                                      and user.target is operator.getitem):
                 raise _refuse(f"{self.name}: {_op_name(nd.target)} (node "
                               f"{nd.name}) is read whole by {user.name}")
+
+    def _pivots(self, nd, live) -> bool:
+        """The pivots of ``lu_factor``, read only as ``lu_solve``'s: the
+        one integer value computed from the state that a step may hold."""
+        return (nd.target is operator.getitem
+                and nd.args[0].target is aten.linalg_lu_factor_ex.default
+                and nd.args[1] == 1
+                and all(user.target is aten.linalg_lu_solve.default
+                        and user.args[1] is nd and user.args[0] is not nd
+                        and user.args[2] is not nd
+                        for user in nd.users if user in live))
+
+    def _check_whole(self, nd):
+        """A node read whole: its matrices 2-D, square where factored, and
+        each operand and output at most PREP_MAX_ELEMS values (the local
+        arrays of ``_Body.whole``); the options the functor cannot take
+        refused."""
+        t, what = nd.target, f"{self.name}: {_op_name(nd.target)} (node " \
+                             f"{nd.name})"
+        shapes = [tuple(a.meta["val"].shape) for a in _node_args(nd)
+                  if isinstance(a.meta.get("val"), torch.Tensor)
+                  and a.meta["val"].is_floating_point()]
+        for shape in shapes:
+            if math.prod(shape) > PREP_MAX_ELEMS:
+                raise _refuse(f"{what} reads a tensor of shape "
+                              f"{list(shape)}: the functor holds at most "
+                              f"{PREP_MAX_ELEMS} values of one (an 8x8 "
+                              "matrix)")
+        if t in _SORTS_MULTI or t in _SORTS:
+            if t is aten.topk.default and not _opt(nd, 4, "sorted", True):
+                raise _refuse(f"{what}: topk(sorted=False), whose order is "
+                              "torch's implementation's")
+            return
+        mat = nd.args[1 if t is aten.cholesky_solve.default else 0]
+        shape = tuple(mat.meta["val"].shape)
+        if len(shape) != 2 or shape[0] != shape[1]:
+            raise _refuse(f"{what}: a matrix of shape {list(shape)} (the "
+                          "functor solves and factors one square matrix of "
+                          "the step, not a batch)")
+        rhs = {aten._linalg_solve_ex.default: 1, aten.cholesky_solve.default: 0,
+               aten.linalg_lu_solve.default: 2,
+               aten.linalg_solve_triangular.default: 1}.get(t)
+        if rhs is not None and len(nd.args[rhs].meta["val"].shape) > 2:
+            raise _refuse(f"{what}: a batch of right-hand sides of shape "
+                          f"{list(nd.args[rhs].meta['val'].shape)}")
+        if t is aten._linalg_solve_ex.default and not _opt(nd, 2, "left",
+                                                           True):
+            raise _refuse(f"{what}: solve(left=False)")
+        if t is aten.linalg_lu_solve.default and (
+                not _opt(nd, 3, "left", True) or _opt(nd, 4, "adjoint",
+                                                      False)):
+            raise _refuse(f"{what}: lu_solve(left=False or adjoint=True)")
 
     def _index_constant(self, nd, val, live):
         """An integer node: allowed where it depends on no input, draws
@@ -438,14 +554,27 @@ class _Graph:
 
     def hoistable(self, node) -> bool:
         """A computed node that depends on no control: ``prep`` may hold
-        it for the rows (a view or an index map only moves what it reads)."""
+        it for the rows (a view or an index map only moves what it reads;
+        the outputs of a factorization are its factor's, which ``prep``
+        holds instead, ``whole``)."""
         t = node.target
-        moves = t in _VIEWS or t in _LITERALS or t in _INDEX_MAPS or (
-            t is operator.getitem and node.args[0].target not in (
-                aten.max.dim, aten.min.dim))
+        moves = t in _VIEWS or t in _LITERALS or t in _INDEX_MAPS \
+            or t in _TRIANGLES or (
+                t is operator.getitem and node.args[0].target in (
+                    aten.split_with_sizes.default, aten.split.Tensor,
+                    aten.unbind.int, aten.linalg_lu_factor_ex.default,
+                    aten.linalg_cholesky_ex.default))
         return (node.op == "call_function" and not moves
                 and not self.dep_u[node]
                 and math.prod(self.shape[node]) <= PREP_MAX_ELEMS)
+
+    @staticmethod
+    def read_whole(node) -> bool:
+        """A node whose every element is computed with the others
+        (``_Body.whole``): ``prep`` holds it whatever index a row reads."""
+        return node.target in _WHOLE or (
+            node.target is operator.getitem
+            and node.args[0].target in _WHOLE_MULTI)
 
 
 class _Elems(NamedTuple):
@@ -497,6 +626,9 @@ class _Body:
         self.lines: List[str] = []
         self.scopes: List[dict] = [{}]
         self.trips: List[int] = [1]  # the open scopes' trip counts
+        self.opened: List[int] = []  # the open scopes' first lines
+        self.wholes: dict = {}       # whole()'s arrays, by key
+        self._if_at: dict = {}       # the last if's line, by depth
         self.depth = 2
         self.work = 0
 
@@ -514,6 +646,13 @@ class _Body:
         return name
 
     def open(self, head: str, trips: int = 1):
+        # an else's scope opens where its if's did (whole() emits before)
+        if head.startswith("else"):
+            self.opened.append(self._if_at[self.depth])
+        else:
+            self.opened.append(len(self.lines))
+            if head.startswith("if"):
+                self._if_at[self.depth] = len(self.lines)
         self.line(head + " {")
         self.depth += 1
         self.scopes.append({})
@@ -522,8 +661,17 @@ class _Body:
     def close(self, tail: str = "}"):
         self.scopes.pop()
         self.trips.pop()
+        self.opened.pop()
         self.depth -= 1
         self.line(tail)
+
+    def loop_range(self, lo, hi, trips: int, down: bool = False) -> str:
+        """A loop over lo..hi-1 (index expressions), or hi-1 down to lo."""
+        k = self.g.fresh("k")
+        head = f"for (int {k} = {hi}; {k}-- > {lo};)" if down else \
+            f"for (int {k} = {lo}; {k} < {hi}; ++{k})"
+        self.open(head, trips)
+        return k
 
     def loop(self, size: int, end=None) -> str:
         """A loop over 0..size-1, or over 0..end-1 for an ``end`` at most
@@ -569,19 +717,23 @@ class _Body:
             read = f"p[{g.param_index[node.target]}]" \
                    f"[{_flat(idx, g.shape[node])}]"
             return _cast(read, g.S, T)
-        if self.mode == "scan" and not _uses_row(idx) and g.hoistable(node):
+        anywhere = not _uses_row(idx) or g.read_whole(node)
+        if self.mode == "scan" and anywhere and g.hoistable(node):
             self.hoisted.add(node)
             return _literal(0, T)
-        if self.mode == "row" and node in self.hoisted \
-                and not _uses_row(idx):
+        if self.mode == "row" and node in self.hoisted and anywhere:
             return f"pre.{g.hoist_name(node)}[{_flat(idx, g.shape[node])}]"
         if self.mode == "prep" and node in self.made:
             return f"r.{g.hoist_name(node)}[{_flat(idx, g.shape[node])}]"
         t = node.target
         if t in _VIEWS:
             return self._view(node, idx)
+        if g.read_whole(node):
+            return self._whole_element(node, idx)
         if t is operator.getitem:
             return self._getitem(node, idx)
+        if t in _TRIANGLES:
+            return self._triangle(node, idx)
         if t in _INDEX_MAPS:
             return self._index_map(node, idx)
         if t in _LITERALS:
@@ -1191,6 +1343,370 @@ class _Body:
             off += s
         return out
 
+    # -- nodes read whole ---------------------------------------------------
+
+    def whole(self, key, into=None) -> tuple:
+        """The local arrays that hold the whole of ``key``: a node read
+        whole (``_Graph.read_whole``; then ``(array, flat)``, ``flat(k,
+        idx)`` the offset of element ``idx`` of output k), or the factor
+        ``(kind, A, upper)`` of a matrix node A (``(factor, pivots)``,
+        ``_factor``). Emitted once a method, before its outermost open
+        scope (they read their operands whole, at indices of their own
+        loops), so that a loop or a branch reads them without computing
+        them again. ``prep`` holds the factor of a matrix that depends on
+        no control, and the rows read it there; ``into`` names the arrays
+        to fill (``prep``'s members) instead of local ones."""
+        if key in self.wholes:
+            return self.wholes[key]
+        g = self.g
+        if isinstance(key, tuple) and not g.dep_u[key[1]]:
+            name = g.hoist_name(key)
+            if self.mode == "scan":
+                self.hoisted.add(key)
+            if self.mode in ("scan", "row") and key in self.hoisted:
+                return f"pre.{name}", f"pre.{name}p"
+            if self.mode == "prep" and key in self.made:
+                return f"r.{name}", f"r.{name}p"
+        at = self.opened[0] if self.opened else len(self.lines)
+        tail, self.lines = self.lines[at:], self.lines[:at]
+        saved = self.scopes, self.trips, self.opened, self.depth, self._if_at
+        self.scopes, self.trips, self.opened, self.depth, self._if_at = \
+            self.scopes[:1], [1], [], 2, {}
+        if isinstance(key, tuple):
+            arrays = self._factor(*key, into)
+        elif key.target in _LINALG_MULTI or key.target in _LINALG:
+            arrays = self._linalg(key)
+        else:
+            arrays = self._sort(key)
+        self.scopes, self.trips, self.opened, self.depth, self._if_at = saved
+        shift = len(self.lines) - at
+        self.opened = [k + shift for k in self.opened]
+        self._if_at = {d: k + shift if k >= at else k
+                       for d, k in self._if_at.items()}
+        self.lines += tail
+        self.wholes[key] = arrays
+        return arrays
+
+    def array(self, T: str, size: int) -> str:
+        name = self.g.fresh("a")
+        self.line(f"{T} {name}[{max(size, 1)}];")
+        return name
+
+    def fill(self, node, shape, T: str, at=lambda ks: ks) -> str:
+        """A local array of ``node``'s elements over ``shape``, row-major:
+        element ``ks`` is ``node``'s at ``at(ks)``."""
+        a = self.array(T, math.prod(shape))
+        ks = [self.loop(s) for s in shape]
+        self.op(f"{a}[{_flat(ks, shape)}] = {self.val(node, at(ks), T)};")
+        for _ in shape:
+            self.close()
+        return a
+
+    def _whole_element(self, node, idx) -> str:
+        k = 0
+        if node.target is operator.getitem:
+            node, k = node.args
+        if node.target in (aten.linalg_lu_factor_ex.default,
+                           aten.linalg_cholesky_ex.default):
+            lu = node.target is aten.linalg_lu_factor_ex.default
+            upper = not lu and bool(_opt(node, 1, "upper", False))
+            a = self.whole(("lu" if lu else "chol", node.args[0], upper))[0]
+            return f"{a}[{_flat(idx[::-1] if upper else idx, self.g.shape[node.args[0]])}]"
+        a, flat = self.whole(node)
+        return f"{a}[{flat(k, idx)}]"
+
+    def _factor(self, kind, A, upper, into):
+        """The factor of A [n, n] in a local array (row-major): ``"lu"``,
+        LU with partial pivoting as LAPACK's getf2 (the first largest |a|
+        of the column, its row swapped whole, the column below scaled by
+        the pivot's reciprocal, not at a zero pivot, so that a singular
+        matrix keeps its zero and a solve divides by it), the unit lower
+        factor below the diagonal and U on and above it, and the pivots;
+        ``"chol"``, the lower Cholesky factor column by column as potf2
+        (of A's upper triangle transposed where ``upper``; NaN where A is
+        not positive definite), zeros above."""
+        g = self.g
+        T, n = g.ctype[A], g.shape[A][0]
+        fabs = _f("fabs", T)
+        if into is None:
+            a = self.array(T, n * n)
+            p = self.array("int", n) if kind == "lu" else None
+        else:
+            a, p = into
+        E = lambda i, j: f"{a}[{i} * {n} + {j}]"  # noqa: E731
+        ks = [self.loop(n), self.loop(n)]
+        self.op(f"{E(*ks)} = {self.val(A, ks[::-1] if upper else ks, T)};")
+        self.close()
+        self.close()
+        if kind == "lu":
+            k = self.loop(n)
+            q, big = g.fresh("q"), g.fresh("m")
+            self.op(f"int {q} = {k};")
+            self.op(f"{T} {big} = {fabs}({E(k, k)});")
+            i = self.loop_range(f"{k} + 1", n, n)
+            v = self.tmp(T, f"{fabs}({E(i, k)})")
+            self.op(f"if ({v} > {big}) {{ {big} = {v}; {q} = {i}; }}")
+            self.close()
+            self.op(f"{p}[{k}] = {q};")
+            self.open(f"if ({q} != {k})")
+            j = self.loop(n)
+            held = self.tmp(T, E(k, j))
+            self.op(f"{E(k, j)} = {E(q, j)};")
+            self.op(f"{E(q, j)} = {held};")
+            self.close()
+            self.close()
+            d = self.tmp(T, E(k, k))
+            tiny = _literal(torch.finfo(_DTYPES[T]).tiny, T)
+            self.open(f"if ({fabs}({d}) >= {tiny})")
+            r = self.tmp(T, f"{T}(1) / {d}")
+            i = self.loop_range(f"{k} + 1", n, n)
+            self.op(f"{E(i, k)} = {E(i, k)} * {r};")
+            self.close()
+            self.close()
+            self.open(f"else if ({d} != {T}(0))")
+            i = self.loop_range(f"{k} + 1", n, n)
+            self.op(f"{E(i, k)} = {E(i, k)} / {d};")
+            self.close()
+            self.close()
+            i = self.loop_range(f"{k} + 1", n, n)
+            j = self.loop_range(f"{k} + 1", n, n)
+            self.op(f"{E(i, j)} = {E(i, j)} - {E(i, k)} * {E(k, j)};")
+            self.close()
+            self.close()
+            self.close()
+            return a, p
+        j = self.loop(n)
+        s = g.fresh("s")
+        self.op(f"{T} {s} = {E(j, j)};")
+        k = self.loop_range(0, j, n)
+        self.op(f"{s} = {s} - {E(j, k)} * {E(j, k)};")
+        self.close()
+        d = self.tmp(T, f"{_f('sqrt', T)}({s})")
+        self.op(f"{E(j, j)} = {d};")
+        r = self.tmp(T, f"{T}(1) / {d}")
+        i = self.loop_range(f"{j} + 1", n, n)
+        s = g.fresh("s")
+        self.op(f"{T} {s} = {E(i, j)};")
+        k = self.loop_range(0, j, n)
+        self.op(f"{s} = {s} - {E(i, k)} * {E(j, k)};")
+        self.close()
+        self.op(f"{E(i, j)} = {s} * {r};")
+        self.close()
+        i = self.loop_range(0, j, n)
+        self.op(f"{E(i, j)} = {T}(0);")
+        self.close()
+        self.close()
+        return a, None
+
+    def _substitute(self, a, x, n: int, C: int, T: str, lower: bool,
+                    unit: bool = False, transposed: bool = False):
+        """Solve with the triangle of ``a`` [n, n] in place over each of the
+        C columns of ``x`` [n, C]: forward (``lower``, from the first row)
+        or back, each row's terms in the order LAPACK's trsm takes them;
+        ``transposed`` reads the triangle's transpose; ``unit`` takes its
+        diagonal as 1."""
+        A = (lambda i, j: f"{a}[{j} * {n} + {i}]") if transposed else \
+            (lambda i, j: f"{a}[{i} * {n} + {j}]")
+        c = self.loop(C)
+        i = self.loop_range(0, n, n, down=not lower)
+        s = self.g.fresh("s")
+        X = lambda r: f"{x}[{r} * {C} + {c}]"  # noqa: E731
+        self.op(f"{T} {s} = {X(i)};")
+        j = self.loop_range(0, i, n) if lower else \
+            self.loop_range(f"{i} + 1", n, n, down=not transposed)
+        self.op(f"{s} = {s} - {A(i, j)} * {X(j)};")
+        self.close()
+        self.op(f"{X(i)} = {s};" if unit else f"{X(i)} = {s} / {A(i, i)};")
+        self.close()
+        self.close()
+
+    def _pivot_rows(self, p, x, n: int, C: int, T: str):
+        """The LU factor's row swaps, in order, on ``x`` [n, C]."""
+        k = self.loop(n)
+        q = self.tmp("int", f"{p}[{k}]")
+        self.open(f"if ({q} != {k})")
+        c = self.loop(C)
+        held = self.tmp(T, f"{x}[{k} * {C} + {c}]")
+        self.op(f"{x}[{k} * {C} + {c}] = {x}[{q} * {C} + {c}];")
+        self.op(f"{x}[{q} * {C} + {c}] = {held};")
+        self.close()
+        self.close()
+        self.close()
+
+    def _linalg(self, node):
+        """Solves, inverses, determinants: ``(array, flat)``."""
+        g, t, args = self.g, node.target, node.args
+        val = node.meta["val"]
+        T = _CTYPES[(val[0] if isinstance(val, (list, tuple)) else val).dtype]
+        if t in (aten._linalg_det.default, aten._linalg_slogdet.default):
+            n = g.shape[args[0]][0]
+            a, p = self.whole(("lu", args[0], False))
+            swaps = g.fresh("s")
+            self.op(f"int {swaps} = 0;")
+            k = self.loop(n)
+            self.op(f"{swaps} = {swaps} + ({p}[{k}] != {k} ? 1 : 0);")
+            self.close()
+            sign = f"({swaps} % 2 ? {T}(-1) : {T}(1))"
+            out = self.array(T, 2)
+            diag = _Elems((n,), lambda sub: f"{a}[{sub[0]} * {n} + {sub[0]}]")
+            fold = lambda init, step: self.fold(  # noqa: E731
+                diag, [None], [0], T, _literal(init, T), step)
+            if t is aten._linalg_det.default:   # sign times prod(diag)
+                d = fold(1, "{a} = {a} * {v};")
+                self.op(f"{out}[0] = {sign} * {d};")
+            else:   # prod(sgn(diag)) times sign; sum(log|diag|)
+                d = fold(1, f"{{a}} = {{a}} * "
+                            f"{_UNARY[aten.sign.default](T, '{v}')};")
+                self.op(f"{out}[0] = {d} * {sign};")
+                la = fold(0, f"{{a}} = {{a}} + {_f('log', T)}("
+                             f"{_f('fabs', T)}({{v}}));")
+                self.op(f"{out}[1] = {la};")
+            return out, lambda k, idx: k
+        if t in (aten._linalg_solve_ex.default, aten.linalg_inv_ex.default):
+            A = args[0]
+            n = g.shape[A][0]
+            a, p = self.whole(("lu", A, False))
+            if t is aten.linalg_inv_ex.default:   # solve(A, I)
+                x, C, shape = self.array(T, n * n), n, (n, n)
+                ks = [self.loop(n), self.loop(n)]
+                self.op(f"{x}[{ks[0]} * {n} + {ks[1]}] = ({ks[0]} == {ks[1]}"
+                        f" ? {T}(1) : {T}(0));")
+                self.close()
+                self.close()
+            else:
+                shape = g.shape[args[1]]
+                C = shape[1] if len(shape) == 2 else 1
+                x = self.fill(args[1], (n, C), T,
+                              at=lambda ks: ks if len(shape) == 2 else ks[:1])
+            self._pivot_rows(p, x, n, C, T)
+            self._substitute(a, x, n, C, T, lower=True, unit=True)
+            self._substitute(a, x, n, C, T, lower=False)
+            return x, lambda k, idx: _flat(idx, shape)
+        if t is aten.linalg_lu_solve.default:
+            LU, piv, B = args[:3]
+            n, shape = g.shape[LU][0], g.shape[B]
+            a = self.fill(LU, (n, n), T)
+            p = self.whole(("lu", piv.args[0].args[0], False))[1]
+            x = self.fill(B, shape, T)
+            self._pivot_rows(p, x, n, shape[1], T)
+            self._substitute(a, x, n, shape[1], T, lower=True, unit=True)
+            self._substitute(a, x, n, shape[1], T, lower=False)
+            return x, lambda k, idx: _flat(idx, shape)
+        if t is aten.cholesky_solve.default:   # L L^T x = b
+            B, L = args[0], args[1]
+            upper = bool(_opt(node, 2, "upper", False))
+            n, shape = g.shape[L][0], g.shape[B]
+            a = self.fill(L, (n, n), T, at=lambda ks: ks[::-1] if upper
+                          else ks)
+            x = self.fill(B, shape, T)
+            self._substitute(a, x, n, shape[1], T, lower=True)
+            self._substitute(a, x, n, shape[1], T, lower=False,
+                             transposed=True)
+            return x, lambda k, idx: _flat(idx, shape)
+        # solve_triangular(A, B, upper, left, unitriangular); X A = B as
+        # A^T X^T = B^T
+        A, B = args[0], args[1]
+        upper = bool(node.kwargs.get("upper", args[2] if len(args) > 2
+                                     else False))
+        left = bool(node.kwargs.get("left", True))
+        unit = bool(node.kwargs.get("unitriangular", False))
+        n, shape = g.shape[A][0], g.shape[B]
+        flip = (lambda ks: ks) if left else (lambda ks: ks[::-1])
+        a = self.fill(A, (n, n), T, at=flip)
+        C = shape[1] if left else shape[0]
+        x = self.fill(B, (n, C), T, at=flip)
+        self._substitute(a, x, n, C, T, lower=upper != left, unit=unit)
+        return x, lambda k, idx: _flat(flip(idx), (n, C))
+
+    def _sort(self, node):
+        """``sort``/``topk``/``kthvalue``/``median`` values along a dim:
+        element k of a slice is its element of stable rank k, NaN the
+        largest (first in a descending sort), an O(L^2) count a slice of
+        L; ``median`` the lower median, NaN where the slice holds one.
+        ``(array, flat)``, the array over the input's shape with the dim
+        cut to the values kept."""
+        g, t = self.g, node.target
+        X = node.args[0]
+        T, ishape = g.ctype[X], g.shape[X]
+        if t is aten.median.default:   # every element, flattened
+            ishape, read = (math.prod(ishape),), \
+                (lambda ks: self._unflat(ks[0], g.shape[X]))
+        else:
+            read = lambda ks: ks  # noqa: E731
+        r = len(ishape)
+        dim = {aten.topk.default: (2, -1), aten.kthvalue.default: (2, -1),
+               aten.median.dim: (1, None)}.get(t, (1, -1))
+        d = 0 if t is aten.median.default else \
+            _opt(node, dim[0], "dim", dim[1]) % max(r, 1)
+        L = ishape[d] if r else 1
+        descending, keep, rank = False, L, None
+        if t in (aten.sort.default, aten.sort.stable):
+            descending = bool(_opt(node, 2, "descending", False))
+        elif t is aten.topk.default:
+            descending = bool(_opt(node, 3, "largest", True))
+            keep = node.args[1]
+        elif t is aten.kthvalue.default:
+            keep, rank = 1, node.args[1] - 1
+        else:
+            keep, rank = 1, (L - 1) // 2
+        shape = tuple(keep if e == d else s for e, s in enumerate(ishape))
+        out = self.array(T, math.prod(shape))
+        ks = [None] * r
+        for e in range(r):
+            if e != d:
+                ks[e] = self.loop(ishape[e])
+        v = self.array(T, L)
+        ks[d] = self.loop(L)
+        self.op(f"{v}[{ks[d]}] = {self.val(X, read(ks) if r else (), T)};")
+        self.close()
+        ahead = (lambda a, b: f"({a} > {b} || ({a} != {a} && {b} == {b}))") \
+            if descending else \
+            (lambda a, b: f"({a} < {b} || ({b} != {b} && {a} == {a}))")
+        j = self.loop(L)
+        n_ahead = g.fresh("q")
+        self.op(f"int {n_ahead} = 0;")
+        l = self.loop(L)
+        a, b = f"{v}[{l}]", f"{v}[{j}]"
+        self.op(f"{n_ahead} = {n_ahead} + ({ahead(a, b)} || ({l} < {j} && "
+                f"!{ahead(b, a)}) ? 1 : 0);")
+        self.close()
+        pos = list(ks)
+        if rank is None:
+            pos[d] = n_ahead
+            put = f"{out}[{_flat(pos, shape)}] = {v}[{j}];"
+            self.op(put if keep == L else f"if ({n_ahead} < {keep}) {put}")
+        else:
+            pos[d] = 0
+            self.op(f"if ({n_ahead} == {rank}) {out}[{_flat(pos, shape)}] = "
+                    f"{v}[{j}];")
+        self.close()
+        if t in (aten.median.dim, aten.median.default):   # NaN if any
+            k = self.loop(L)
+            self.op(f"if ({v}[{k}] != {v}[{k}]) {out}[{_flat(pos, shape)}] "
+                    f"= {v}[{k}];")
+            self.close()
+        for e in range(r):
+            if e != d:
+                self.close()
+        if t is aten.median.default:
+            return out, lambda k, idx: 0
+        if rank is not None and not _opt(node, dim[0] + 1, "keepdim", False):
+            return out, lambda k, idx: _flat(idx[:d] + (0,) + idx[d:], shape)
+        return out, lambda k, idx: _flat(idx, shape)
+
+    def _triangle(self, node, idx) -> str:
+        """``tril``/``triu(A, diagonal)``: A's element where j - i is on the
+        kept side of ``diagonal``, else 0."""
+        T, src = self.g.ctype[node], node.args[0]
+        k = _opt(node, 1, "diagonal", 0)
+        diff = _iadd(idx[-1], _imul(idx[-2], -1))
+        cmp = _TRIANGLES[node.target]
+        if isinstance(diff, int):
+            keep = diff <= k if cmp == "<=" else diff >= k
+            return self.val(src, idx) if keep else _literal(0, T)
+        return self.select(T, f"{diff} {cmp} {k}",
+                           lambda: self.val(src, idx, T), _literal(0, T))
+
 
 def _method(body: _Body, result: str) -> str:
     return "\n".join(body.lines + ["    return " + result + ";"])
@@ -1205,7 +1721,9 @@ def emit_source(gm, name: str, n: int, m: int, dtype):
     S = g.S
     scan = _Body(g, "scan")
     scan.val(g.xn, (_ROW,), S)
-    hoisted = sorted(scan.hoisted, key=g.pos.get)
+    # a factor (kind, A, upper) after its matrix A
+    hoisted = sorted(scan.hoisted, key=lambda h: g.pos[h[1]] + 0.5
+                     if isinstance(h, tuple) else g.pos[h])
 
     row = _Body(g, "row", set(hoisted))
     row_expr = row.val(g.xn, (_ROW,), S)
@@ -1213,7 +1731,17 @@ def emit_source(gm, name: str, n: int, m: int, dtype):
     prep = _Body(g, "prep")
     members = []
     for node in hoisted:
-        shape, name_ = g.shape[node], g.hoist_name(node)
+        name_ = g.hoist_name(node)
+        if isinstance(node, tuple):   # a factor and the LU pivots
+            kind, A, _ = node
+            n_ = g.shape[A][0]
+            members.append(f"    {g.ctype[A]} {name_}[{n_ * n_}];")
+            if kind == "lu":
+                members.append(f"    int {name_}p[{n_}];")
+            prep.whole(node, into=(f"r.{name_}", f"r.{name_}p"))
+            prep.made.add(node)
+            continue
+        shape = g.shape[node]
         members.append(f"    {g.ctype[node]} {name_}"
                        f"[{max(math.prod(shape), 1)}];")
         ks = [prep.loop(s) for s in shape]

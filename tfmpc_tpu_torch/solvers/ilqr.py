@@ -21,9 +21,8 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
-from torch.func import vmap
 
-from tfmpc_tpu_torch.core.types import QuadraticFinal, map_fields
+from tfmpc_tpu_torch.core.types import map_fields
 from tfmpc_tpu_torch.ops.riccati import (
     riccati_backward_boxqp_ref,
     riccati_backward_ddp_boxqp_ref,
@@ -221,10 +220,12 @@ def _kkt_stationary(env, x0, U, config, axes=None):
     ``||U - clip(U - dJ/dU)||_inf`` below ``_kkt_threshold``, per lane over
     ``axes``. The gradient is ``torch.autograd.grad`` of the summed total
     cost; scenarios are independent, so each lane's gradient is that of
-    its own cost (``jax.grad`` of ``env.total_cost`` in the JAX package)."""
-    with torch.enable_grad():
-        U_ = U.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(env.total_cost(x0.detach(), U_).sum(), U_)
+    its own cost (``jax.grad`` of ``env.total_cost`` in the JAX package),
+    recorded under ``torch.inference_mode`` too."""
+    with torch.inference_mode(False), torch.enable_grad():
+        U_ = U.detach().clone().requires_grad_(True)
+        J = env.total_cost(x0.detach().clone(), U_)
+        (g,) = torch.autograd.grad(J.sum(), U_)
     pg = U - env.clip(U - g)
     return _absmax(pg, axes) < _kkt_threshold(config, g, env.bounds, axes)
 
@@ -232,7 +233,8 @@ def _kkt_stationary(env, x0, U, config, axes=None):
 def derivatives(env, X, U):
     """Linearize the dynamics and quadratize the costs along ``X [..., T+1,
     n]``, ``U [..., T, m]`` (any leading batch dims): the env's closed-form
-    ``analytic_derivatives`` where provided, else ``vmap(jacfwd)``."""
+    ``analytic_derivatives`` where provided, else ``torch.autograd`` at
+    all the points at once (``models/base.py``)."""
     analytic = env.analytic_derivatives(X, U)
     if analytic is not None:
         return analytic
@@ -245,12 +247,8 @@ def derivatives(env, X, U):
         X[..., :-1, :].reshape(-1, n), U.reshape(-1, m), batch=True
     )
 
-    def final_fields(x):
-        f = env.get_quadratic_final_cost(x)
-        return f.l, f.l_x, f.l_xx
-
     xT = X[..., -1, :]
-    final = QuadraticFinal(*vmap(final_fields)(xT.reshape(-1, n)))
+    final = env.get_quadratic_final_cost(xT.reshape(-1, n), batch=True)
     return (
         map_fields(lambda a: a.reshape(lead + a.shape[1:]), lin),
         map_fields(lambda a: a.reshape(lead + a.shape[1:]), quad),

@@ -1,6 +1,7 @@
 """Time slices of ``chip_smoke.py``'s phases in one checkout or several.
 
-    python tools/phase_ab.py [--slices b,e,generic,h,user] ROOT [ROOT ...]
+    python tools/phase_ab.py [--slices b,e,generic,h,user]
+        [--max-copies N[,N ...]] ROOT [ROOT ...]
 
 For each ROOT (a checkout of the repo, e.g. one unpacked from ``git
 archive`` of a parent commit), in the order given and each in a process of
@@ -11,8 +12,12 @@ with every gate they hold: ``b`` phases 5-7 (HVAC-6, reservoir-5, bounded
 navigation), ``e`` phases 20-23, ``generic`` phase 29, ``h`` phase 30,
 ``user`` phase 31 (default: all five). It prints one line ``AB {"root":
 ..., "phase_s": {...}, "card": ...}``. Give the roots as parent, change,
-change, parent to compare two versions on one card in turns. Needs one
-CUDA card; exits non-zero if a root's run fails.
+change, parent to compare two versions on one card in turns. With
+``--max-copies`` each root runs once for each value given, in that order,
+with ``tfmpc_tpu_torch.models.base.MAX_COPIES`` (the most (point, copy)
+pairs of one reverse pass of the autodiff linearization) set to it; the
+AB line names it. Needs one CUDA card; exits non-zero if a root's run
+fails.
 
 A checkout whose ``main()`` still runs phases 5-7 inline (no ``slice_b``)
 runs them here as that ``main()`` did: the same solves and holds, each
@@ -86,12 +91,17 @@ def inline_slice_b(cs, phase, launches, plain_s):
         phase.done(step)
 
 
-def run_root(root: Path, slices) -> int:
+def run_root(root: Path, slices, max_copies=None) -> int:
     """The slices of ``root``'s ``chip_smoke.py`` in this process."""
     sys.path.insert(0, str(root))
     sys.path.insert(0, str(root / "tests"))
     import chip_smoke as cs
     import torch
+
+    from tfmpc_tpu_torch.models import base
+
+    if max_copies is not None:
+        base.MAX_COPIES = max_copies
 
     if not torch.cuda.is_available():
         raise SystemExit("phase_ab.py: no CUDA device available")
@@ -122,7 +132,9 @@ def run_root(root: Path, slices) -> int:
         cs.slice_h(phase, timings, errs, launches, plain_s, rates, card)
     if "user" in slices:
         cs.slice_user(phase, timings, errs, launches, plain_s, card)
-    print("AB " + json.dumps({"root": str(root), "phase_s": phase.seconds,
+    print("AB " + json.dumps({"root": str(root),
+                              "max_copies": getattr(base, "MAX_COPIES", None),
+                              "phase_s": phase.seconds,
                               "total_s": sum(phase.seconds.values()),
                               "card": card}), flush=True)
     return 0
@@ -131,21 +143,26 @@ def run_root(root: Path, slices) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slices", default=",".join(SLICES))
+    ap.add_argument("--max-copies", default="")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="+")
     args = ap.parse_args()
     slices = args.slices.split(",")
     if any(s not in SLICES for s in slices):
         ap.error(f"--slices: each of {', '.join(SLICES)}")
+    copies = [int(v) for v in args.max_copies.split(",") if v]
     if args.one:
-        return run_root(Path(args.roots[0]).resolve(), slices)
+        return run_root(Path(args.roots[0]).resolve(), slices,
+                        copies[0] if copies else None)
     rc = 0
     for root in map(str, (Path(r).resolve() for r in args.roots)):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--one", "--slices", args.slices, root],
-                              cwd=root)
-        print(f"phase_ab.py: {root} exit {proc.returncode}", flush=True)
-        rc = rc or proc.returncode
+        for extra in ([["--max-copies", str(v)] for v in copies] or [[]]):
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--one",
+                 "--slices", args.slices, *extra, root], cwd=root)
+            print(f"phase_ab.py: {root} {' '.join(extra)} exit "
+                  f"{proc.returncode}", flush=True)
+            rc = rc or proc.returncode
     return rc
 
 
