@@ -4916,9 +4916,12 @@ def slice_h(phase, timings, errs, launches_by_path, plain_s, rates, card):
 # a norm over a dim and softplus, x[[0, 1]]; tests/torch_user_envs.py) and
 # Spong's two-link arm (n = 4, m = 2: its accelerations a linalg.solve of
 # the mass matrix M(q), factored in prep; topk(largest=False) of its
-# obstacle distances), both at the headline's size and config. Their
-# rollouts run K2, K3 and K5 in the
-# generic form on a step functor generated from their torch step
+# obstacle distances), both at the headline's size and config, and a
+# tabulated hydro cascade (n = m = 4: four reservoirs in a chain, surface
+# area, forebay and tailwater levels 33-knot tables read at bucketize
+# indices; releases boxed in [0, q_max], so boxQP on the small-dims K4) at
+# the headline's size and config with boxqp. Their rollouts run K2, K3 and
+# K5 in the generic form on a step functor generated from their torch step
 # (ops/env_codegen.py, csrc/rollout_user.cuh); (B, T, ILQRConfig kwargs)
 # of each path's solve.
 USER_PATHS = {
@@ -4930,23 +4933,37 @@ USER_PATHS = {
                                use_pallas=True)),
     "bicycle": (B, T, HEADLINE),
     "arm": (B, T, HEADLINE),
+    "cascade": (B, T, dict(HEADLINE, boxqp=True)),
 }
 # the op-coverage env (tests/torch_user_envs.py OpEnv, (8, 3)): every op of
 # the generator's six families that the bicycle and the arm do not use,
 # some with zero gradients (floor, sign, round), so kernels only, no
-# solve: (B, T)
-USER_KERNEL_CASES = {"opcov": (1024, 50)}
-USER_MIN_CONVERGED = {"chain6": 0.99, "chain48": 0.99}
+# solve; and the integer-coverage env (OpEnv with the integers family
+# alone, (8, 3)): every integer op the cascade does not use (argmin and
+# argmax at a tie and at NaN, max's indices, argsort into gather,
+# searchsorted with right, floor().long(), floor_divide and remainder of
+# negatives, index_select, one_hot, an index out of range, clamped), with
+# jumps where an index moves, kernels only: (B, T)
+USER_KERNEL_CASES = {"opcov": (1024, 50), "intcov": (1024, 50)}
+USER_MIN_CONVERGED = {"chain6": 0.99, "chain48": 0.99, "cascade": 0.90}
+# the user paths whose solve must leave no lane failed
+USER_NO_FAILED = ("cascade",)
 # the user paths whose solves/s phase 31 measures, from the counted solve
 USER_RATES = ("bicycle", "arm")
 # the user paths held against their plain path at T_PLAIN (the bicycle's
 # plain solve took 97 s at T=100); the others at their own horizon
-USER_PLAIN_CUT = ("bicycle", "arm")
+USER_PLAIN_CUT = ("bicycle", "arm", "cascade")
 USER_ENV_NAMES = {"chain6": "chain", "chain48": "chain", "fuzz8x3": "fuzz",
-                  "bicycle": "bicycle", "arm": "arm", "opcov": "opcov"}
+                  "bicycle": "bicycle", "arm": "arm", "opcov": "opcov",
+                  "cascade": "cascade", "intcov": "intcov"}
 # the user envs without a hand count of a step's operations: their
 # traced step's (``graph_ops``), each its own case
-GRAPH_OPS_ENVS = ("bicycle", "arm", "opcov")
+GRAPH_OPS_ENVS = ("bicycle", "arm", "opcov", "cascade", "intcov")
+# the torch_user_envs classes of the user cases that are not the chain's
+# or the fuzz env's
+USER_ENV_CLASSES = {"bicycle": "KinematicBicycle", "arm": "TwoLinkArm",
+                    "opcov": "OpEnv", "cascade": "HydroCascade",
+                    "intcov": "OpEnv"}
 # the arm's autodiff linearization on the card against a per-point
 # torch.autograd.functional reference: (B, T) points in float64, and the
 # tolerance relative to each field's largest value
@@ -4961,8 +4978,9 @@ USER_MPC_B, USER_MPC_STEPS = 256, 10
 @functools.cache
 def user_env_class(name):
     """The example's ``DampedChain``, ``tests/torch_user_envs.py``'s
-    ``KinematicBicycle`` (``bicycle``), ``TwoLinkArm`` (``arm``) or
-    ``OpEnv`` (``opcov``), or a twin
+    ``KinematicBicycle`` (``bicycle``), ``TwoLinkArm`` (``arm``),
+    ``HydroCascade`` (``cascade``) or ``OpEnv`` (``opcov``, ``intcov``), or
+    a twin
     of ``tests/test_fuzz_envs.py``'s ``RandomSmoothEnv`` over ``[..., n]``
     (the port's env contract): x' = x + dt (A x + B u + s tanh(x)), a
     quadratic plus tanh cost."""
@@ -4976,12 +4994,10 @@ def user_env_class(name):
     if name == "chain":
         return runpy.run_path(str(ROOT / "examples" /
                                   "torch_custom_env.py"))["DampedChain"]
-    if name in ("bicycle", "arm", "opcov"):
+    if name in USER_ENV_CLASSES:
         import torch_user_envs
 
-        return {"bicycle": torch_user_envs.KinematicBicycle,
-                "arm": torch_user_envs.TwoLinkArm,
-                "opcov": torch_user_envs.OpEnv}[name]
+        return getattr(torch_user_envs, USER_ENV_CLASSES[name])
 
     @dataclasses.dataclass(frozen=True, eq=False)
     class RandomSmoothEnv(Env):
@@ -5020,21 +5036,27 @@ def user_env(case, dtype, device="cuda"):
     ``chain<d>`` the example's chain (the box at +-1 at d = 6, as the
     example), ``fuzz8x3`` the fuzz twin with ``test_fuzz_envs._make_env``'s
     values at seed 88, ``bicycle`` the fleet (``torch_user_envs.BICYCLE``),
-    ``arm`` the two-link arm (``torch_user_envs.ARM``), ``opcov`` the
-    op-coverage env (``torch_user_envs.op_arrays()``)."""
+    ``arm`` the two-link arm (``torch_user_envs.ARM``), ``cascade`` the
+    hydro cascade with its box (``torch_user_envs.cascade_arrays()``),
+    ``opcov`` the op-coverage env and ``intcov`` the integer-coverage env
+    (``torch_user_envs.op_arrays()``)."""
     import numpy as np
     import torch
 
     from tfmpc_tpu_torch import Bounds, interop
 
-    if case in ("bicycle", "arm", "opcov"):
+    if case in USER_ENV_CLASSES:
         import torch_user_envs
 
-        arrays = {"bicycle": torch_user_envs.BICYCLE,
-                  "arm": torch_user_envs.ARM}.get(case) \
-            or torch_user_envs.op_arrays()
-        return interop.user_env_from_numpy(user_env_class(case), arrays,
-                                           device=device, dtype=dtype)
+        arrays, box = {"bicycle": (torch_user_envs.BICYCLE, None),
+                       "arm": (torch_user_envs.ARM, None)}.get(case) or (
+            torch_user_envs.cascade_arrays() if case == "cascade"
+            else (torch_user_envs.op_arrays(), None))
+        env = interop.user_env_from_numpy(user_env_class(case), arrays, box,
+                                          device=device, dtype=dtype)
+        if case == "intcov":
+            env = dataclasses.replace(env, families=("integers",))
+        return env
     if case.startswith("chain"):
         d = int(case[len("chain"):])
         C = (-2.0 * np.eye(d) + np.eye(d, k=1) + np.eye(d, k=-1)) * 0.3
@@ -5067,7 +5089,9 @@ def graph_ops(case: str) -> tuple:
     rollout evaluates once. Each element of each computed node once; a
     product 2K an element, a reduction or a norm two an input element, a
     cdist three an element per coordinate, max over a dim one an input
-    element; an LU factor of an n x n matrix 2n^3/3, a Cholesky factor
+    element, an argmax or argmin over L values L - 1, a bucketize or
+    searchsorted in L sorted values ceil(log2 L), a gather or a read at an
+    index none (its bytes only); an LU factor of an n x n matrix 2n^3/3, a Cholesky factor
     n^3/3, the substitutions 2n^2 a right-hand side column (n^2 for one
     triangle), a determinant n more, an inverse 2n^3; of a slice of L, a
     sort ceil(log2 L!) comparisons, a top-k L - 1 + (k - 1) ceil(log2 L),
@@ -5081,7 +5105,7 @@ def graph_ops(case: str) -> tuple:
     from tfmpc_tpu_torch.ops import env_codegen as ec
 
     aten = torch.ops.aten
-    free = ec._VIEWS | ec._INDEX_MAPS | ec._LITERALS | {
+    free = ec._VIEWS | ec._INDEX_MAPS | ec._LITERALS | ec._GATHER | {
         aten.split_with_sizes.default, aten.split.Tensor, aten.unbind.int,
         operator.getitem}
     size = lambda a: math.prod(a.meta["val"].shape)  # noqa: E731
@@ -5105,6 +5129,15 @@ def graph_ops(case: str) -> tuple:
             return 3 * nd.args[0].meta["val"].shape[-1] * size(nd)
         if t in (aten.max.dim, aten.min.dim):
             return size(nd.args[0])
+        if t in ec._ARG_EXTREME:   # L - 1 comparisons an output element
+            x = nd.args[0].meta["val"]
+            dim = ec._opt(nd, 1, "dim", None)
+            L = x.numel() if dim is None or x.dim() == 0 else x.shape[dim]
+            return size(nd) * max(L - 1, 0)
+        if t in ec._SEARCH:   # a binary search an element
+            seq = nd.args[1 if t is aten.bucketize.Tensor else 0]
+            L = seq.meta["val"].shape[-1]
+            return size(nd) * math.ceil(math.log2(max(L, 1)))
         if t in ec._LINALG_MULTI or t in ec._LINALG:
             return linalg_ops(nd)
         if t in ec._SORTS_MULTI or t in ec._SORTS:
@@ -5126,8 +5159,11 @@ def graph_ops(case: str) -> tuple:
             return 2 * size(nd.args[0])
         return size(nd)
 
-    graph = ec.trace_step(user_env(case, torch.float32, "cpu"),
-                          torch.float32, "cpu").graph
+    env = user_env(case, torch.float32, "cpu")
+    # the step as its generated functor traces it (the integer-coverage
+    # env's reads out of range as written)
+    graph = ec.trace_step(getattr(env, "_as_written", env), torch.float32,
+                          "cpu").graph
     outs = next(nd for nd in graph.nodes if nd.op == "output").args[0]
     step = needs(outs[:2])
     final = needs(outs[2:]) - step
@@ -5244,18 +5280,19 @@ def user_kinds(config, horizon, n, m):
 def user_x0(case, Bn, dtype, device="cuda"):
     """A solve's initial states, ``default_rng(0)``: U(-2, 2) for the
     chain (the example's), U(-1.5, 1.5) for the fuzz and op-coverage envs,
-    ``torch_user_envs.bicycle_x0`` for the fleet and ``arm_x0`` for the
-    arm."""
+    ``torch_user_envs.bicycle_x0`` for the fleet, ``arm_x0`` for the arm
+    and ``cascade_x0`` for the cascade."""
     import numpy as np
     import torch
 
-    if case in ("bicycle", "arm"):
+    if case in ("bicycle", "arm", "cascade"):
         import torch_user_envs
 
         x0 = getattr(torch_user_envs, f"{case}_x0")(Bn)
         return torch.as_tensor(x0.astype("f4"), dtype=dtype, device=device)
-    n = 8 if case in ("fuzz8x3", "opcov") else int(case[len("chain"):])
-    lo = 1.5 if case in ("fuzz8x3", "opcov") else 2.0
+    covers = ("fuzz8x3", "opcov", "intcov")
+    n = 8 if case in covers else int(case[len("chain"):])
+    lo = 1.5 if case in covers else 2.0
     x0 = np.random.default_rng(0).uniform(-lo, lo, (Bn, n)).astype("f4")
     return torch.as_tensor(x0, dtype=dtype, device=device)
 
@@ -5381,9 +5418,11 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
     f32) and against the hand-written functors
     (``generated_vs_handwritten``); then each ``USER_PATHS`` solve on AUTO,
     counted (the routed Riccati kernel and the generated-step rollouts
-    only, no plain version), against its plain path (the bicycle's through
-    ``plain_hold`` at ``T_PLAIN``, ``USER_PLAIN_CUT``) and on the
-    other line-search layout, the bicycle fleet's and the arm's solves/s,
+    only, no plain version; the cascade >= 0.90 converged and 0 failed),
+    against its plain path (the bicycle's, the arm's and the cascade's
+    through ``plain_hold`` at ``T_PLAIN``, ``USER_PLAIN_CUT``) and on the
+    other line-search layout, the bicycle fleet's, the arm's and the
+    cascade's solves/s,
     and the arm's linearization against a per-point reference
     (``arm_derivative_hold``); then the example
     script itself, an MPC run of the example's env and its solve through
@@ -5463,6 +5502,9 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
         floor = USER_MIN_CONVERGED.get(label)
         if floor is not None and conv < floor:
             raise AssertionError(f"{label}: converged {conv:.4f} < {floor}")
+        if label in USER_NO_FAILED and bool(res.failed.any()):
+            raise AssertionError(f"{label}: {int(res.failed.sum())} lanes "
+                                 "failed")
         if label in USER_PLAIN_CUT:
             plain_s[f"user_{label}"] = plain_hold(label, env, x0, config,
                                                   T_PLAIN)
@@ -5486,7 +5528,8 @@ def slice_user(phase, timings, errs, launches_by_path, plain_s, card):
             "mean_iterations": float(res.iterations.float().mean()),
             "mean_cost": float(res.total_cost.double().mean()),
             "auto_layout": layout}
-        if label in USER_RATES:
+        # the cascade's from the counted solve too, beside USER_RATES'
+        if label in USER_RATES or label == "cascade":
             figures["paths"][label]["solves_per_s"] = Bn / solve_s
             print(f"  solves/s, {label}, kernels, T={Tn} B={Bn} f32: "
                   f"{Bn / solve_s:.1f} (B over the counted solve's "

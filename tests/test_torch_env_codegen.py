@@ -19,18 +19,22 @@ the generator widened to (``tests/torch_user_envs.py``: elementwise,
 reductions and scans, index maps, nodes with several outputs, linear
 algebra, sorts, and all six together, the op-coverage env of
 ``chip_smoke.py`` phase 31), the probe env, the kinematic bicycle fleet and
-the two-link arm; an env of the other supported ops against its own step.
-Then torch's semantics where C's or JAX's differ (round half to even,
-remainder's sign, sign and heaviside at NaN, nan_to_num's defaults,
-softplus's threshold; NaN, infinities and tied signed zeros in sorts,
-singular and indefinite matrices) at the inputs that show them, ops traced
-through ``torch._decomp``, the refusals (a sort's indices, an
-eigendecomposition, a random op, a random index, integer values in the
-arithmetic, a data-dependent branch, a wrong output shape, each naming the
-opt-outs, and a solve that raises instead of falling back) and that the
-source depends on the graph,
-dims and dtype, not on the parameter values. Only the g++ cases skip, and only where g++
-is absent.
+the two-link arm, the tabulated hydro cascade and the integers family;
+an env of the other supported ops against its own step. Then torch's
+semantics where C's or JAX's differ (round half to even, remainder's
+sign, sign and heaviside at NaN, nan_to_num's defaults, softplus's
+threshold; NaN, infinities and tied signed zeros in sorts, singular and
+indefinite matrices; integer indices negative and out of range, ties and
+NaN in argmax, a value exactly at a knot, negative floor divisions and
+remainders, NaN and infinities cast to integers) at the inputs that show
+them, the integer patterns a user's step reads (two of them refused at
+trace time before, ``ScalarIndexMode``), the steps refused as integer
+values before, ops traced through ``torch._decomp``, the refusals (an
+eigendecomposition, a random op, a random index, ``searchsorted`` with a
+sorter, a data-dependent shape or branch, a wrong output shape, each
+naming the opt-outs, and a solve that raises instead of falling back) and
+that the source depends on the graph, dims and dtype, not on the parameter
+values. Only the g++ cases skip, and only where g++ is absent.
 """
 
 import ctypes
@@ -50,6 +54,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from torch.fx.experimental.proxy_tensor import make_fx
 
 from tfmpc_tpu import Env as JaxEnv
 from tfmpc_tpu.core.types import pytree_dataclass
@@ -143,8 +148,9 @@ class OpsEnv(Env):
             + torch.tanh(x).amin(dim=-1)
 
 
-class Unsupported(RandomSmoothEnv):
-    """A sort's indices read as values (its values are supported)."""
+class SortIndicesAsValues(RandomSmoothEnv):
+    """A sort's indices read as values (refused before the integer
+    family)."""
 
     def transition(self, x, u):
         return x + 0.1 * torch.argsort(x, dim=-1).to(x.dtype)
@@ -196,6 +202,22 @@ class MaxIndexAsValue(RandomSmoothEnv):
     def transition(self, x, u):
         return x + 0.1 * torch.max(x, dim=-1, keepdim=True).indices.to(
             x.dtype)
+
+
+class SorterSearch(RandomSmoothEnv):
+    """``searchsorted`` with a ``sorter``."""
+
+    def transition(self, x, u):
+        k = torch.searchsorted(self.s, x.contiguous(),
+                               sorter=torch.argsort(self.s))
+        return x + 0.1 * k.to(x.dtype)
+
+
+class NonzeroShape(RandomSmoothEnv):
+    """``nonzero``, whose output's shape depends on the values."""
+
+    def transition(self, x, u):
+        return x + 0.1 * torch.nonzero(x > 0).sum().to(x.dtype)
 
 
 class Branchy(RandomSmoothEnv):
@@ -385,9 +407,52 @@ def _j_sorts(env, x, u):
             + 2.0 * sx[3])
 
 
+def _j_integers(env, x, u):
+    """``torch_user_envs.integers``' twin: JAX's ``x[i]`` wraps a negative
+    index and clamps one out of range, as the functor does."""
+    W, t = env.W, jnp.tanh(x)
+    knots = 2.4 * jnp.cumsum(env.c) / env.c.sum() - 1.2
+    kb = jnp.searchsorted(knots, x)
+    kr = jnp.searchsorted(knots, x, side="right").astype(jnp.int32)
+    ks = jnp.searchsorted(knots, x, side="right")
+    kl = kb.astype(jnp.int32)
+    a = jnp.floor(2.5 * x).astype(jnp.int64)
+    b = (3.0 * x).astype(jnp.int32)
+    arith = (jnp.floor_divide(a, 3) + jnp.floor_divide(a, -2)
+             + jax.lax.div(b, jnp.int32(2)) + jnp.remainder(a, 3)
+             + jnp.remainder(a, -3) + jnp.fmod(b, 3) - 2 * a + jnp.abs(-b)
+             + jnp.clip(a, -2, 2) * jnp.minimum(kb, ks) + jnp.maximum(kr, kl)
+             + jnp.where(a > b, a, b) + (kb == kl) + (a - kr) // 2)
+    fdiv = jnp.trunc(x / -0.9) + jnp.floor_divide(x, 0.6)
+    v = jnp.concatenate([x[:2], x[:2], jnp.where(x[5:6] > 0, jnp.nan, x[5:6]),
+                         t[6:]])
+    finite = jnp.concatenate([x[:2], x[:2], x[5:6], t[6:]])
+    M = x.reshape(2, 4)
+    hi, lo = jnp.argmax(M, -1), jnp.argmin(M, 0)
+    med = jnp.argsort(M, -1, stable=True)[:, 1]      # the lower median's
+    order = jnp.argsort(x, stable=True)
+    picks = jnp.stack([
+        finite[jnp.argmax(v)], finite[jnp.argmin(v)], M[0, hi[0]],
+        M[1, hi[1]], M[lo[0], 0], M[lo[1], 1], x[jnp.argmax(M.reshape(-1))],
+        x[order[3]]])
+    rows = (W[jnp.minimum(kb, 7), jnp.arange(8)] + W[:, a % 8].sum(0)
+            + (jax.nn.one_hot(jnp.minimum(kl, 7), 8, dtype=x.dtype)
+               * W[0]).sum(-1))
+    near = order[:3]
+    rank = (x[jnp.argsort(x * u[0], stable=True)]
+            + W[1][jnp.concatenate([near, near, near[:2]])]
+            + M[0, med[0]] + M[1, med[1]])
+    q = jnp.floor(6.0 * x[0]).astype(jnp.int64)
+    odd = jnp.stack([W[2][q], x[-1 - q], x[(a % 8)[0]],
+                     (kb - kr).astype(x.dtype).sum()])
+    return 0.1 * t + tue.JUMP * (picks + arith.astype(x.dtype) + fdiv + rows
+                                 + rank + jnp.concatenate([odd, odd]))
+
+
 _J_FAMILIES = {"elementwise": _j_elementwise, "reductions": _j_reductions,
                "index_maps": _j_index_maps, "multi_output": _j_multi_output,
-               "linalg": _j_linalg, "sorts": _j_sorts}
+               "linalg": _j_linalg, "sorts": _j_sorts,
+               "integers": _j_integers}
 
 
 def _jax_op_env(families):
@@ -548,19 +613,80 @@ class JaxArm(JaxEnv):
         return 10.0 * (e @ e) + dq @ dq
 
 
-def _twins(jax_cls, torch_cls, arrays, **fields):
-    """A JAX env and its port twin on the same float64 arrays."""
+@pytree_dataclass
+class JaxCascade(JaxEnv):
+    """``torch_user_envs.HydroCascade``'s twin at its default weights."""
+
+    s_knots: jnp.ndarray
+    area: jnp.ndarray
+    forebay: jnp.ndarray
+    q_knots: jnp.ndarray
+    tailwater: jnp.ndarray
+    inflow: jnp.ndarray
+    s_max: jnp.ndarray
+    target: jnp.ndarray
+    bounds: Optional[test_fuzz_envs.Bounds] = None
+
+    @property
+    def state_size(self):
+        return 4
+
+    @property
+    def action_size(self):
+        return 4
+
+    @staticmethod
+    def _interp(knots, values, i, v):
+        k = jnp.searchsorted(knots[i, 1:-1], v)
+        s0, s1 = knots[i, k], knots[i, k + 1]
+        a0, a1 = values[i, k], values[i, k + 1]
+        return a0 + (a1 - a0) * (v - s0) / (s1 - s0)
+
+    def transition(self, x, u):
+        out = []
+        for i in range(4):
+            up = u[i - 1] if i else 0.0
+            area = self._interp(self.s_knots, self.area, i, x[i])
+            out.append(x[i] + 1.0 * (self.inflow[i] + up - u[i]
+                                     - 0.01 * area))
+        return jnp.stack(out)
+
+    def cost(self, x, u):
+        revenue = 0.0
+        for i in range(4):
+            head = self._interp(self.s_knots, self.forebay, i, x[i]) \
+                - self._interp(self.q_knots, self.tailwater, i, u[i])
+            revenue = revenue + u[i] * head
+        d = x - self.target
+        spill = _j_softplus(20.0 * (x - self.s_max)).sum() / 20.0
+        return -0.5 * 0.9 * revenue + 0.5 * (d @ d) + 2.0 * spill
+
+    def final_cost(self, x):
+        d = x - self.target
+        return 5.0 * (d @ d)
+
+
+def _twins(jax_cls, torch_cls, arrays, bounds=None, **fields):
+    """A JAX env and its port twin on the same float64 arrays (and box)."""
     jenv = jax_cls(**{k: jnp.asarray(np.asarray(v, np.float64))
                       for k, v in arrays.items()})
-    tenv = interop.user_env_from_numpy(torch_cls, arrays,
+    if bounds is not None:
+        jenv = dataclasses.replace(jenv, bounds=test_fuzz_envs.Bounds(
+            low=jnp.asarray(bounds[0]), high=jnp.asarray(bounds[1])))
+    tenv = interop.user_env_from_numpy(torch_cls, arrays, bounds,
                                        dtype=torch.float64, device="cpu")
     return jenv, dataclasses.replace(tenv, **fields)
 
 
 def _op_env(*families):
-    families = families or tuple(tue.FAMILIES)
+    families = families or tue.OPCOV_FAMILIES
     return _twins(_jax_op_env(families), tue.OpEnv, tue.op_arrays(),
                   families=families)
+
+
+def _cascade():
+    return _twins(JaxCascade, tue.HydroCascade, *tue.cascade_arrays())
+
 
 
 def _probe():
@@ -591,6 +717,7 @@ CASES = {
     "probe": (_probe, (-1.5, 1.5)),
     "bicycle": (_bicycle, (-5.0, 5.0)),
     "arm": (_arm, (-1.5, 1.5)),
+    "cascade": (_cascade, (0.0, 1.3)),
 }
 
 
@@ -944,6 +1071,361 @@ def test_sorts_and_solves_at_nan_ties_and_singular_input(host_build):
                       (3, "solve"), (3, "cholesky")]
 
 
+# -- integer values and indices computed at run time -------------------------
+
+# the integer patterns a user's step reads (each a vector [..., 4] of x [...,
+# 4], u [..., 2] and the parameters vals [8], knots [7], W [4, 8]): a table
+# read at a 0-d ``bucketize`` index and a weight at a 0-d ``argmin`` (both
+# refused at trace time before: torch's indexing called ``.item()``), a
+# kept-dim ``bucketize`` index, ``searchsorted``, ``floor().long()`` as an
+# index, ``argmin(keepdim=True)`` into ``gather``, ``argsort`` into
+# ``gather`` and ``take_along_dim``, ``one_hot`` of ``bucketize``,
+# ``x.long() % 3`` read as a value, and a float floor division; each
+# beside its JAX twin over one scenario
+PATTERNS = {
+    "bucketize_0d": (
+        lambda e, x, u: e.vals[torch.bucketize(x[..., 0], e.knots)][
+            ..., None] * x,
+        lambda e, x, u: e.vals[jnp.searchsorted(e.knots, x[0])] * x),
+    "argmin_0d": (
+        lambda e, x, u: e.vals[((x[..., :, None] - e.W[:, :4]) ** 2).sum(
+            -1).argmin(-1)][..., None] + x,
+        lambda e, x, u: e.vals[((x[:, None] - e.W[:, :4]) ** 2).sum(
+            -1).argmin()] + x),
+    "bucketize_kept_dim": (
+        lambda e, x, u: e.vals[torch.bucketize(x[..., :1], e.knots)] * x,
+        lambda e, x, u: e.vals[jnp.searchsorted(e.knots, x[:1])] * x),
+    "searchsorted": (
+        lambda e, x, u: e.vals[torch.searchsorted(e.knots, x.contiguous(),
+                                                  right=True)],
+        lambda e, x, u: e.vals[jnp.searchsorted(e.knots, x, side="right")]),
+    "floor_long_index": (
+        lambda e, x, u: e.vals[((x + 1.9) * 2.0).floor().long()],
+        lambda e, x, u: e.vals[jnp.floor((x + 1.9) * 2.0).astype(int)]),
+    "argmin_gather": (
+        lambda e, x, u: torch.gather(x, -1, (x * u.sum(-1, keepdim=True))
+                                     .argmin(-1, keepdim=True)) * x,
+        lambda e, x, u: x[jnp.argmin(x * u.sum())] * x),
+    "argsort_gather": (
+        lambda e, x, u: torch.gather(x, -1, torch.argsort(x * u[..., :1],
+                                                          dim=-1))
+        + torch.take_along_dim(e.W[:, 0].expand_as(x), torch.argsort(x),
+                               dim=-1),
+        lambda e, x, u: x[jnp.argsort(x * u[0], stable=True)]
+        + e.W[:, 0][jnp.argsort(x, stable=True)]),
+    "one_hot": (
+        lambda e, x, u: F.one_hot(torch.bucketize(x, e.knots), 8).to(x.dtype)
+        @ e.vals,
+        lambda e, x, u: jax.nn.one_hot(jnp.searchsorted(e.knots, x), 8,
+                                       dtype=x.dtype) @ e.vals),
+    "long_remainder": (
+        lambda e, x, u: ((3.0 * x).long() % 3).to(x.dtype) + x,
+        lambda e, x, u: ((3.0 * x).astype(int) % 3).astype(x.dtype) + x),
+    # a float floor division (torch's autograd has no derivative for it)
+    "float_floor_divide": (
+        lambda e, x, u: x // 0.7 + torch.floor_divide(x, -0.45) * u[..., :1],
+        lambda e, x, u: x // 0.7 + jnp.floor_divide(x, -0.45) * u[0]),
+}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PatternEnv(Env):
+    """x' = x + 0.1 y + 0.05 [u, u], y a ``PATTERNS`` vector; cost |x|^2
+    + |y|^2, final cost |x|^2."""
+
+    vals: torch.Tensor    # [8]
+    knots: torch.Tensor   # [7]
+    W: torch.Tensor       # [4, 8]
+    pattern: str = "bucketize_0d"
+
+    @property
+    def state_size(self):
+        return 4
+
+    @property
+    def action_size(self):
+        return 2
+
+    def _y(self, x, u):
+        return PATTERNS[self.pattern][0](self, x, u)
+
+    def transition(self, x, u):
+        return x + 0.1 * self._y(x, u) + 0.05 * torch.cat([u, u], -1)
+
+    def cost(self, x, u):
+        y = self._y(x, u)
+        return (x * x).sum(-1) + (y * y).sum(-1)
+
+    def final_cost(self, x):
+        return (x * x).sum(-1)
+
+
+def _jax_pattern_env(pattern):
+    @pytree_dataclass
+    class JaxPatternEnv(JaxEnv):
+        vals: jnp.ndarray
+        knots: jnp.ndarray
+        W: jnp.ndarray
+
+        @property
+        def state_size(self):
+            return 4
+
+        @property
+        def action_size(self):
+            return 2
+
+        def _y(self, x, u):
+            return PATTERNS[pattern][1](self, x, u)
+
+        def transition(self, x, u):
+            return x + 0.1 * self._y(x, u) + 0.05 * jnp.concatenate([u, u])
+
+        def cost(self, x, u):
+            y = self._y(x, u)
+            return x @ x + y @ y
+
+        def final_cost(self, x):
+            return x @ x
+
+    return JaxPatternEnv
+
+
+def _pattern_twins(pattern):
+    rng = np.random.default_rng(21)
+    arrays = dict(vals=rng.standard_normal(8),
+                  knots=np.linspace(-1.2, 1.2, 7),
+                  W=rng.standard_normal((4, 8)))
+    return _twins(_jax_pattern_env(pattern), PatternEnv, arrays,
+                  pattern=pattern)
+
+
+def _against_torch_and_jax(jenv, tenv, x, u, host_build, tol=TOL):
+    """The host build of ``tenv``'s generated step against the torch step
+    and the JAX twin's ``generic_lane_functions`` step at x, u."""
+    step = tenv.generic_device_step(torch.float64, "cpu")
+    xn, cost, final = _host_step(host_build(step.source), step, x, u)
+    _close(xn, tenv.transition(x, u), "x_next vs torch")
+    _close(cost, tenv.cost(x, u), "cost vs torch")
+    _close(final, tenv.final_cost(x), "final vs torch")
+    _, step_fn, final_fn = jenv.generic_lane_functions()
+    jx, ju = jnp.asarray(x.numpy().T), jnp.asarray(u.numpy().T)
+    jxn, jcost = step_fn(jenv, jx, ju)
+    _close(xn.numpy().T, jxn, "x_next vs JAX")
+    _close(cost, jcost, "cost vs JAX")
+    _close(final, final_fn(jenv, jx), "final vs JAX")
+    return step
+
+
+@pytest.mark.parametrize("pattern", list(PATTERNS))
+def test_integer_patterns_yield_a_generated_step(pattern, host_build):
+    """Each pattern the generator refused (two at trace time, seven as
+    integer values, and a float floor division) gives a generated step
+    equal to the torch step and the JAX step, at inputs that put x on
+    either side of every knot."""
+    jenv, tenv = _pattern_twins(pattern)
+    rng = np.random.default_rng(list(PATTERNS).index(pattern))
+    x = torch.as_tensor(rng.uniform(-1.5, 1.5, (B, 4)))
+    u = torch.as_tensor(rng.uniform(-1.0, 1.0, (B, 2)))
+    step = _against_torch_and_jax(jenv, tenv, x, u, host_build)
+    assert ("int64_t" in step.source) == (pattern != "float_floor_divide")
+
+
+def test_scalar_index_mode_matches_eager_indexing():
+    """``ScalarIndexMode`` reads at 0-d integer tensors as torch's indexing
+    reads at the ints they hold (negative ones included), bit for bit, and
+    lets a trace take them: ``T[r, i]``, ``T[i, 1:]``, ``T[..., i]``,
+    ``T[i, j]``, ``T[:, None, i]``, a slice read at ``j``, and ``v[i]``."""
+    T3 = torch.as_tensor(np.random.default_rng(4).standard_normal((4, 6, 5)))
+    v = T3[0, 0]
+
+    def f(i, j):
+        return torch.cat([T3[2, i].reshape(-1), T3[i, 1:].reshape(-1),
+                          T3[..., i].reshape(-1), T3[i, j].reshape(-1),
+                          T3[:, None, i].reshape(-1), v[1:][j].reshape(-1),
+                          v[i].reshape(-1)])
+
+    for i, j in ((1, 2), (-1, -3), (3, 0)):
+        ti, tj = torch.tensor(i), torch.tensor(j)
+        want = f(ti, tj)
+        with env_codegen.ScalarIndexMode():
+            got = f(ti, tj)
+        assert torch.equal(got, want), (i, j)
+    gm = make_fx(lambda i: f(i, torch.tensor(2)), tracing_mode="fake",
+                 _allow_non_fake_inputs=True)
+    with pytest.raises(RuntimeError, match="data-dependent"):
+        gm(torch.tensor(1))
+    with env_codegen.ScalarIndexMode():
+        traced_f = make_fx(lambda i: f(i, torch.tensor(2)),
+                           tracing_mode="fake",
+                           _allow_non_fake_inputs=True)(torch.tensor(1))
+    assert any(nd.target is torch.ops.aten.index.Tensor
+               for nd in traced_f.graph.nodes)
+
+
+@pytree_dataclass
+class SortIndicesTwin(test_fuzz_envs.RandomSmoothEnv):
+    def transition(self, x, u):
+        return x + 0.1 * jnp.argsort(x, stable=True).astype(x.dtype)
+
+
+@pytree_dataclass
+class ArgmaxTwin(test_fuzz_envs.RandomSmoothEnv):
+    def transition(self, x, u):
+        return x + 0.1 * jnp.argmax(x).astype(x.dtype)
+
+
+@pytest.mark.parametrize("cls,jcls", [
+    (SortIndicesAsValues, SortIndicesTwin),
+    (IntegerArithmetic, ArgmaxTwin),
+    (MaxIndexAsValue, ArgmaxTwin),
+], ids=["SortIndicesAsValues", "IntegerArithmetic", "MaxIndexAsValue"])
+def test_former_integer_refusals_match_torch_and_jax(cls, jcls, host_build):
+    """The steps ``test_refusals_name_the_cause_and_the_opt_outs`` refused
+    as integer values (a sort's indices, ``argmax`` and max's indices read
+    as values) now generate a step equal to torch's and JAX's."""
+    jenv, tenv = _fuzz_envs(11, 3, 3)
+    env = cls(**{f.name: getattr(tenv, f.name)
+                 for f in dataclasses.fields(tenv)})
+    jenv = jcls(**{f.name: getattr(jenv, f.name)
+                   for f in dataclasses.fields(jenv)})
+    rng = np.random.default_rng(31)
+    x = torch.as_tensor(rng.uniform(-1.5, 1.5, (B, 3)))
+    u = torch.as_tensor(rng.uniform(-1.0, 1.0, (B, 3)))
+    _against_torch_and_jax(jenv, env, x, u, host_build)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class IntTrapEnv(Env):
+    """Integer ops at the inputs where their edges show: x_0 an index of
+    ``v`` (negative, out of range on either side), x_1 against the knots
+    (exactly at one, with and without ``right``), argmax/argmin of (x_2,
+    x_3, x_2, x_3) (a tie; NaN), floor division and remainders of x_4 as an
+    integer (negative), x_5 to int64 and int32 (negative, NaN, +-inf, past
+    int32)."""
+
+    v: torch.Tensor       # [6]
+    knots: torch.Tensor   # [5]
+
+    @property
+    def state_size(self):
+        return 8
+
+    @property
+    def action_size(self):
+        return 1
+
+    def transition(self, x, u):
+        e = x.unbind(-1)
+        w = torch.stack([e[2], e[3], e[2], e[3]], -1)
+        k = e[4].long()
+        return torch.stack([
+            self.v[e[0].long()],
+            torch.bucketize(e[1], self.knots).to(x.dtype),
+            torch.bucketize(e[1], self.knots, right=True).to(x.dtype),
+            (torch.argmax(w, -1) + 10 * torch.argmin(w, -1)).to(x.dtype),
+            (torch.floor_divide(k, -3) + 10 * torch.div(
+                k, 4, rounding_mode="floor")).to(x.dtype),
+            (torch.remainder(k, 3) + 10 * torch.remainder(k, -4)
+             + 100 * torch.fmod(k, 3)).to(x.dtype),
+            e[5].long().to(x.dtype), e[5].int().to(x.dtype)], -1)
+
+    def cost(self, x, u):
+        return (x * x).sum(-1)
+
+    def final_cost(self, x):
+        return (x * x).sum(-1)
+
+
+@pytree_dataclass
+class JaxIntTrapEnv(JaxEnv):
+    v: jnp.ndarray
+    knots: jnp.ndarray
+
+    @property
+    def state_size(self):
+        return 8
+
+    @property
+    def action_size(self):
+        return 1
+
+    def transition(self, x, u):
+        w = jnp.stack([x[2], x[3], x[2], x[3]])
+        k = x[4].astype(jnp.int64)
+        return jnp.stack([
+            self.v[x[0].astype(jnp.int64)],
+            jnp.searchsorted(self.knots, x[1]).astype(x.dtype),
+            jnp.searchsorted(self.knots, x[1], side="right").astype(x.dtype),
+            (jnp.argmax(w) + 10 * jnp.argmin(w)).astype(x.dtype),
+            (jnp.floor_divide(k, -3) + 10 * jnp.floor_divide(k, 4))
+            .astype(x.dtype),
+            (jnp.remainder(k, 3) + 10 * jnp.remainder(k, -4)
+             + 100 * jnp.fmod(k, 3)).astype(x.dtype),
+            x[5].astype(jnp.int64).astype(x.dtype),
+            x[5].astype(jnp.int32).astype(x.dtype)])
+
+    def cost(self, x, u):
+        return x @ x
+
+    def final_cost(self, x):
+        return x @ x
+
+
+# x_0: in range, negative, out of range above and below, truncated toward
+# 0; x_1: at a knot, between, past both ends, NaN; x_2, x_3: a tie, NaN;
+# x_4: negative dividends; x_5: negative, NaN, +-inf, past int32
+INT_X = [
+    [2.0, 0.5, 1.0, 1.0, -7.0, -2.7, 0, 0],
+    [-1.0, -0.5, 0.5, 2.0, 7.0, 2.7, 0, 0],
+    [7.0, 1.0, NAN, 1.0, -6.0, NAN, 0, 0],
+    [-9.0, 0.2, 1.0, NAN, -1.0, INF, 0, 0],
+    [9.0, -3.0, 2.0, 2.0, 0.0, -INF, 0, 0],
+    [0.7, 3.0, -1.0, -1.0, -8.9, 3e9, 0, 0],
+    [-0.7, NAN, 0.0, -0.0, 5.5, -3e9, 0, 0],
+]
+INT_KNOTS = [-1.0, -0.5, 0.0, 0.5, 1.0]
+
+
+def test_integer_edges_match_torch_and_jax(host_build):
+    """The integer family at its edges, the functor against torch bit for
+    bit where torch computes the step (an index out of range raises there;
+    a NaN or an infinity cast to an integer gives the type's least value,
+    as torch's CPU casts) and against JAX's twin (its ``x[i]`` wraps a
+    negative index and clamps one out of range, as the functor does; its
+    casts of NaN and infinities differ, so x_5's rows are held against
+    torch only)."""
+    v = np.arange(6) * 1.5 - 2.0
+    tenv = IntTrapEnv(v=torch.as_tensor(v),
+                      knots=torch.tensor(INT_KNOTS, dtype=torch.float64))
+    jenv = JaxIntTrapEnv(v=jnp.asarray(v), knots=jnp.asarray(INT_KNOTS))
+    x = torch.tensor(INT_X, dtype=torch.float64)
+    u = torch.zeros(x.shape[0], 1, dtype=torch.float64)
+    step = tenv.generic_device_step(torch.float64, "cpu")
+    xn, _, _ = _host_step(host_build(step.source), step, x, u)
+    inside = (x[:, 0] > -7) & (x[:, 0] < 6)
+    for r in range(x.shape[0]):
+        row = x[r:r + 1]
+        if bool(inside[r]):
+            want = tenv.transition(row, u[:1])[0]
+        else:   # torch raises; the rest of the row without x_0
+            with pytest.raises(IndexError):
+                tenv.transition(row, u[:1])
+            want = tenv.transition(torch.cat([row[:, :1] * 0, row[:, 1:]],
+                                             -1), u[:1])[0]
+            want[0] = xn[r, 0]
+        assert torch.equal(xn[r], want), (r, xn[r], want)
+    assert torch.equal(xn[:, 0], torch.as_tensor(v[[2, 5, 5, 0, 5, 0, 0]]))
+    assert xn[2, 6] == xn[3, 6] == xn[4, 6] == -2.0 ** 63
+    assert xn[2, 7] == xn[5, 7] == xn[6, 7] == -2.0 ** 31
+    _, step_fn, _ = jenv.generic_lane_functions()
+    jxn = np.asarray(step_fn(jenv, jnp.asarray(x.numpy().T),
+                             jnp.asarray(u.numpy().T))[0]).T
+    np.testing.assert_array_equal(xn[:, :6].numpy(), jxn[:, :6])
+    finite = torch.isfinite(x[:, 5]) & (x[:, 5].abs() < 2 ** 31)
+    np.testing.assert_array_equal(xn[finite, 6:].numpy(), jxn[finite, 6:])
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class DecomposedOpsEnv(Env):
     """Ops outside ``SUPPORTED_OPS`` that ``torch._decomp`` decomposes
@@ -1015,14 +1497,13 @@ def test_source_depends_on_graph_dims_and_dtype_not_values():
 
 
 @pytest.mark.parametrize("cls,what", [
-    (Unsupported, "aten::sort.*integer values"),
     (LinearSolve, "aten::_linalg_eigh"),
     (BigSolve, "aten::_linalg_solve_ex.*shape \\[9, 9\\]"),
     (RightSolve, "left=False"),
     (RandomStep, "aten::rand"),
     (RandomIndex, "aten::randint.*random ops"),
-    (IntegerArithmetic, "aten::argmax.*integer values"),
-    (MaxIndexAsValue, "aten::max.*integer values"),
+    (SorterSearch, "aten::searchsorted.*sorter"),
+    (NonzeroShape, "data-dependent shape"),
     (Branchy, "data-dependent"),
     (WideCost, "returned shape"),
 ])
@@ -1042,11 +1523,11 @@ def test_a_solve_raises_instead_of_falling_back():
     refuses raises, on the CPU as on the card; ``use_pallas=False`` solves
     it on the plain path."""
     _, tenv = _fuzz_envs(11, 3, 3)
-    env = Unsupported(**{f.name: getattr(tenv, f.name)
+    env = LinearSolve(**{f.name: getattr(tenv, f.name)
                          for f in dataclasses.fields(tenv)})
     x0 = torch.zeros(2, 3, dtype=torch.float64)
     cfg = ilqr.ILQRConfig(max_iterations=2, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="aten::sort"):
+    with pytest.raises(NotImplementedError, match="aten::_linalg_eigh"):
         ilqr.solve_batch(env, x0, horizon=3, config=cfg)
     res = ilqr.solve_batch(env, x0, horizon=3,
                            config=dataclasses.replace(cfg, use_pallas=False))

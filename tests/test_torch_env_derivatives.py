@@ -22,7 +22,9 @@ and ``topk`` values. Each goes into the next state, the stage cost (so
 that the cost's Hessians differentiate through it) and the final cost.
 """
 
+import contextlib
 import dataclasses
+from pathlib import Path
 from typing import Optional
 
 import jax
@@ -37,7 +39,13 @@ from tfmpc_tpu.core.types import pytree_dataclass
 from tfmpc_tpu.solvers import ilqr as jilqr
 from tfmpc_tpu_torch import Bounds, Env, interop
 from tfmpc_tpu_torch.models import base
+from tfmpc_tpu_torch.models.registry import load_env
 from tfmpc_tpu_torch.solvers import ilqr
+
+import torch_user_envs as tue
+from test_torch_env_codegen import _cascade, _op_env
+
+ROOT = Path(__file__).resolve().parents[1]
 
 N, M = 3, 2
 B, T = 16, 4
@@ -241,6 +249,45 @@ def test_second_derivatives_match_jax(op):
                want.reshape((B, T) + want.shape[1:]), f"{op} {f}")
 
 
+# user envs whose steps read tables and vectors at indices computed from
+# the state (``tests/torch_user_envs.py``; JAX twins in
+# ``test_torch_env_codegen``): label -> (maker, x range, u range)
+USER_ENVS = {
+    "cascade": (_cascade, (0.2, 1.2), (0.0, 0.2)),
+    "integers": (lambda: _op_env("integers"), (-1.5, 1.5), (-1.0, 1.0)),
+}
+
+
+@pytest.mark.parametrize("label", list(USER_ENVS))
+def test_integer_user_env_derivatives_match_jax(label):
+    """The hydro cascade's and the integer family's linearization (f, f_x,
+    f_u, l and its derivatives, the final cost's) and dynamics Hessians
+    against the JAX package's: zero through the integer paths (an index
+    has no derivative), the gathered values' own derivatives through the
+    reads."""
+    build, xr, ur = USER_ENVS[label]
+    jenv, tenv = build()
+    n, m = tenv.state_size, tenv.action_size
+    rng = np.random.default_rng(list(USER_ENVS).index(label))
+    X, U = rng.uniform(*xr, (B, T + 1, n)), rng.uniform(*ur, (B, T, m))
+    tX, tU = torch.as_tensor(X), torch.as_tensor(U)
+    ours = ilqr.derivatives(tenv, tX, tU)
+    theirs = jax.jit(jax.vmap(lambda x, u: jilqr.derivatives(jenv, x, u)))(
+        jnp.asarray(X), jnp.asarray(U))
+    for model, jmodel in zip(ours, theirs):
+        for f in model.__dataclass_fields__:
+            _close(getattr(model, f).numpy(), getattr(jmodel, f),
+                   f"{label} {type(model).__name__}.{f}")
+    second = ilqr.second_derivatives(tenv, tX, tU)
+    jsecond = jax.jit(lambda x, u: jenv.get_second_order_transition(
+        x, u, batch=True))(jnp.asarray(X[:, :-1].reshape(-1, n)),
+                           jnp.asarray(U.reshape(-1, m)))
+    for f in ("f_xx", "f_ux", "f_uu"):
+        want = np.asarray(getattr(jsecond, f))
+        _close(getattr(second, f).numpy(),
+               want.reshape((B, T) + want.shape[1:]), f"{label} {f}")
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ScalarTimesFloat(Env):
     """A float32 env over 0-d elements times Python floats (``unbind``),
@@ -311,10 +358,47 @@ def test_chunked_derivatives_match_unchunked(op, monkeypatch):
                 _close(got, getattr(jmodel, f), f"{op} chunked vs JAX {f}")
 
 
+def _inference_cases():
+    """label -> (a maker of the env, x0, horizon, config, the points of its
+    derivatives (X, U) or None): the lu twin bounded, HVAC with its box
+    through ``load_env`` (closed-form derivatives: its solve's KKT test
+    takes the gradient), the two-link arm without and with ``ddp``."""
+    _, lu, X, U = _twins("lu")
+    X, U = torch.as_tensor(X), torch.as_tensor(U)
+    box = np.full(M, 0.5)
+    boxqp = ilqr.ILQRConfig(atol=1e-6, max_iterations=10, boxqp=True)
+    arm_cfg = ilqr.ILQRConfig(atol=1e-5, max_iterations=5)
+    rng = np.random.default_rng(7)
+    aX = torch.as_tensor(np.stack([tue.arm_x0(4, seed=t) for t in
+                                   range(T + 1)], 1))
+    aU = torch.as_tensor(rng.uniform(-3.0, 3.0, (4, T, 2)))
+    arm = lambda: interop.user_env_from_numpy(  # noqa: E731
+        tue.TwoLinkArm, tue.ARM, dtype=torch.float64, device="cpu")
+    return {
+        "lu": (lambda: dataclasses.replace(
+            _twins("lu")[1], bounds=Bounds(low=-torch.as_tensor(box),
+                                           high=torch.as_tensor(box))),
+               X[:, 0], T, boxqp, (X, U)),
+        "hvac": (lambda: load_env(ROOT / "configs" / "hvac.json",
+                                  dtype=torch.float64, device="cpu"),
+                 None, 8, ilqr.ILQRConfig(atol=1e-5, max_iterations=10,
+                                          use_pallas=False), None),
+        "arm": (arm, torch.as_tensor(tue.arm_x0(16)), T, arm_cfg, (aX, aU)),
+        "arm_ddp": (arm, torch.as_tensor(tue.arm_x0(16)), T,
+                    dataclasses.replace(arm_cfg, ddp=True), (aX, aU)),
+    }
+
+
 def test_derivatives_under_inference_mode():
     """Under ``torch.inference_mode`` the autodiff linearization, the
     dynamics Hessians and a bounded solve (whose KKT test takes a
-    gradient) give what they give outside it, not zeros."""
+    gradient) give what they give outside it, not zeros; and an env built
+    under it, whose parameters are inference tensors that autograd cannot
+    save for backward (``base.autograd_env`` clones them, once a solve),
+    gives, inside it and outside, bit for bit what the same env built
+    outside gives: the lu twin with a box, HVAC with its box through
+    ``load_env`` (x0 = 20, B = 16, T = 8), the two-link arm without and
+    with ``ddp=True``."""
     _, tenv, X, U = _twins("lu")
     X, U = torch.as_tensor(X), torch.as_tensor(U)
     box = torch.full((M,), 0.5, dtype=torch.float64)
@@ -337,3 +421,35 @@ def test_derivatives_under_inference_mode():
     for f in ("converged", "failed", "actions", "total_cost"):
         torch.testing.assert_close(getattr(got_res, f), getattr(want_res, f),
                                    rtol=0, atol=0, msg=f)
+
+    def outputs(env, x0, horizon, cfg, points):
+        if x0 is None:
+            x0 = torch.full((16, env.state_size), 20.0, dtype=torch.float64)
+        res = ilqr.solve_batch(env, x0, horizon=horizon, config=cfg)
+        out = {f"solve {f}": getattr(res, f) for f in (
+            "converged", "failed", "actions", "total_cost", "iterations")}
+        if points is not None:
+            models = (*ilqr.derivatives(env, *points),
+                      ilqr.second_derivatives(env, *points))
+            for model in models:
+                for f in model.__dataclass_fields__:
+                    out[f"{type(model).__name__}.{f}"] = getattr(model, f)
+        return out
+
+    for label, (make, x0, horizon, cfg, points) in _inference_cases().items():
+        env = make()
+        with torch.inference_mode():
+            built = make()
+        params = [v for v in vars(built).values()
+                  if isinstance(v, torch.Tensor) and v.is_floating_point()]
+        assert params and all(v.is_inference() for v in params), label
+        want = outputs(env, x0, horizon, cfg, points)
+        for mode in (contextlib.nullcontext, torch.inference_mode):
+            with mode():
+                got = outputs(built, x0, horizon, cfg, points)
+            assert all(v.is_inference() for v in params), label  # unchanged
+            for k, v in want.items():
+                assert torch.equal(got[k], v), (label, mode.__name__, k)
+        if label == "hvac":
+            assert want["solve total_cost"].mean() == got[
+                "solve total_cost"].mean()

@@ -24,7 +24,9 @@ env (``atan2``, ``softmax``, ``cumsum``, ``einsum``, ``pad``, ``sign``,
 was refused before, the kinematic bicycle fleet of ``chip_smoke.py``
 phase 31, and the two-link arm of the same phase (a linear solve and a
 ``topk``), whose step was refused and whose linearization was wrong
-before.
+before; and the tabulated hydro cascade of the same phase (its tables read
+at ``bucketize`` indices), whose step was refused, at B=128, T=8 against
+the JAX package's ``use_pallas=False`` solve.
 """
 
 import dataclasses
@@ -43,8 +45,8 @@ from tfmpc_tpu_torch.solvers import ilqr, mpc
 
 import test_fuzz_envs
 import torch_user_envs as tue
-from test_torch_env_codegen import (_arm, _bicycle, _chain, _fuzz_envs,
-                                    _probe)
+from test_torch_env_codegen import (_arm, _bicycle, _cascade, _chain,
+                                    _fuzz_envs, _probe)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -127,7 +129,87 @@ def test_two_link_arm_solve_matches_jax():
                                np.asarray(res_j.total_cost), rtol=1e-10)
 
 
+def test_hydro_cascade_solve_matches_jax():
+    """The tabulated hydro cascade (``bucketize`` of 33-knot tables, the
+    knots and values read at that index, releases boxed in [0, q_max],
+    n = m = 4), B=128, T=8, f64, ``use_pallas=True`` on its generated step,
+    against the JAX package's ``use_pallas=False`` solve (its boxQP Riccati
+    kernel in interpret mode takes 100-250 s a solve here).
+
+    Iteration by iteration: from each of the port's iterates, one
+    iteration of the port and one of the JAX package (resumed from the
+    same state) give identical converged and failed masks, controls
+    within 1e-8 and costs within 1e-10; chained, the port's iterations
+    are its whole solve bit for bit. Whole solves: identical masks, and
+    the same gates on every lane whose solve took the JAX solve's path
+    (its cost after each iteration within 1e-10). A lane can part: where
+    a release is pushed to its bound q_max, ubar + (q_max - ubar) lands
+    on q_max or one ulp below it, and the boxQP (the same projected Newton
+    in both packages, from 0 inside [lo, hi]) stalls at the one-ulp gap,
+    so the two packages' arithmetic orders (torch's and XLA's) send the
+    lane along different paths to different converged points (3 of the
+    128 lanes here, their costs within 4e-6 of each other); at least 9 in
+    10 lanes must keep the JAX solve's path."""
+    from tfmpc_tpu.solvers import ilqr_batched as jib
+    from tfmpc_tpu_torch.solvers import ilqr_batched as tib
+
+    jenv, tenv = _cascade()
+    x0, T, iters = tue.cascade_x0(128), 8, 10
+    kw = dict(atol=1e-5, boxqp=True)
+    one = ilqr.ILQRConfig(**kw, max_iterations=1, use_pallas=True)
+    jone = jilqr.ILQRConfig(**kw, max_iterations=1, use_pallas=False)
+    before = rollout.TRAJ_PLAIN_CALLS
+    state = tib._initial_state(tenv, torch.as_tensor(x0), None, T, one)
+    for it in range(iters):
+        start = state._replace(iteration=torch.zeros_like(state.iteration))
+        ours = ilqr.solve_batch(tenv, None, config=one, init_state=start)
+        theirs = jilqr.solve_batch(jenv, None, config=jone,
+                                   init_state=jib.SolverState(*(
+                                       jnp.asarray(v.numpy()) for v in start)))
+        _gates(ours, theirs, f"iteration {it}")
+        state = tib.state_from_result(ours)._replace(
+            iteration=state.iteration + 1)
+    assert rollout.TRAJ_PLAIN_CALLS > before
+    a = rollout.kernel_layout(tenv, state.X, state.U, ilqr.backward(
+        *ilqr.derivatives(tenv, state.X, state.U),
+        torch.zeros(len(x0), dtype=torch.float64), ilqr.ILQRConfig())[1])
+    assert a["env_id"] == USER_STEP_ID
+    assert a["source"] == tenv.device_step().source
+
+    res_t, trace_t = ilqr.solve_batch(
+        tenv, torch.as_tensor(x0), horizon=T, return_trace=True,
+        config=ilqr.ILQRConfig(**kw, max_iterations=iters, use_pallas=True))
+    assert torch.equal(res_t.actions, state.U)
+    assert torch.equal(res_t.total_cost, state.J)
+    res_j, trace_j = jilqr.solve_batch(
+        jenv, jnp.asarray(x0), horizon=T, return_trace=True,
+        config=jilqr.ILQRConfig(**kw, max_iterations=iters,
+                                use_pallas=False))
+    same = (np.abs(trace_t.J.numpy() - np.asarray(trace_j.J))
+            <= 1e-10 * np.abs(np.asarray(trace_j.J))).all(0)
+    _gates(res_t, res_j, "whole solves", lanes=same)
+    assert same.mean() >= 0.9, np.nonzero(~same)
+    lo, hi = tenv.bounds.low, tenv.bounds.high
+    assert bool(((res_t.actions >= lo) & (res_t.actions <= hi)).all())
+
+
+def _gates(res_t, res_j, what, lanes=slice(None)):
+    """Identical converged and failed masks, and on ``lanes`` controls
+    within 1e-8 and costs within 1e-10 relative."""
+    for f in ("converged", "failed"):
+        np.testing.assert_array_equal(getattr(res_t, f).numpy(),
+                                      np.asarray(getattr(res_j, f)),
+                                      err_msg=f"{what} {f}")
+    np.testing.assert_allclose(res_t.actions.numpy()[lanes],
+                               np.asarray(res_j.actions)[lanes], rtol=0,
+                               atol=1e-8, err_msg=what)
+    np.testing.assert_allclose(res_t.total_cost.numpy()[lanes],
+                               np.asarray(res_j.total_cost)[lanes],
+                               rtol=1e-10, err_msg=what)
+
+
 def _hold_against_jax(jenv, tenv, x0, box, T, jax_pallas):
+    """``box``: whether the env is bounded (its half-width, or True)."""
     B, n = x0.shape
     step = tenv.device_step()
     assert step.env_id == USER_STEP_ID and "UserStep" in step.source
@@ -157,8 +239,8 @@ def _hold_against_jax(jenv, tenv, x0, box, T, jax_pallas):
     np.testing.assert_allclose(res_t.total_cost.numpy(),
                                np.asarray(res_j.total_cost), rtol=1e-10)
     if box is not None:
-        U = res_t.actions.numpy()
-        assert U.max() <= box and U.min() >= -box
+        U, lo, hi = res_t.actions, tenv.bounds.low, tenv.bounds.high
+        assert bool(((U >= lo) & (U <= hi)).all())
     return res_j
 
 

@@ -12,13 +12,20 @@ card, where there is no JAX; the tests hold each against a JAX twin).
 - ``TwoLinkArm`` (4, 2): Spong's planar two-link arm, its accelerations
   a ``torch.linalg.solve`` of the mass matrix, reaching a target around six
   point obstacles through ``topk(largest=False)`` of their distances.
+- ``HydroCascade`` (4, 4): four reservoirs in a chain, each release
+  flowing into the next, its surface area, forebay and tailwater levels
+  33-knot tables read by piecewise-linear interpolation (``bucketize`` of
+  the interior knots, the knots and values read at that 0-d index),
+  releases boxed in [0, q_max].
 - ``OpEnv``: a step that sums, for each family it names, a vector of that
   family's ops (``FAMILIES``): elementwise, reductions and scans, index
-  maps, nodes with several outputs, linear algebra, sorts. With all six at
-  (8, 3) it is the op-coverage env: every op of the six families that the
-  bicycle and the arm do not use. Ops whose value jumps (floor, round, sign, ...) enter with a
-  small weight, so that a rounding difference that moves one across a
-  jump moves the rollout by less than a float32 comparison's tolerance.
+  maps, nodes with several outputs, linear algebra, sorts, integers. With
+  the first six at (8, 3) it is the op-coverage env: every op of those
+  families that the bicycle and the arm do not use; with the integers
+  family alone, the integer-coverage env. Ops whose value jumps (floor,
+  round, sign, an index, ...) enter with a small weight, so that a
+  rounding difference that moves one across a jump moves the rollout by
+  less than a float32 comparison's tolerance.
 
 Every step takes states ``[..., n]`` and controls ``[..., m]`` with any
 leading batch dims (the port's env contract); ``torch.trace``, which has
@@ -28,12 +35,15 @@ no batch form, is mapped with ``torch.vmap``.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tfmpc_tpu_torch import Env
+from tfmpc_tpu_torch import Bounds, Env
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -273,6 +283,113 @@ def arm_x0(B: int, seed: int = 0) -> np.ndarray:
                            rng.uniform(-0.2, 0.2, (B, 2))], axis=1)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class HydroCascade(Env):
+    """Four reservoirs in a cascade, one step a period of dt: storage s_i'
+    = s_i + dt (inflow_i + q_{i-1} - q_i - evap area_i(s_i)), q_{-1} = 0.
+    Stage cost: sum_i [-price eta q_i (forebay_i(s_i) - tailwater_i(q_i))
+    + w (s_i - target_i)^2 + w_spill softplus(kappa (s_i - s_max_i)) /
+    kappa]; final cost w_final sum_i (s_i - target_i)^2. Surface area and
+    forebay level are tables over 33 storage knots, the tailwater level one
+    over 33 release knots (``s_knots``, ``q_knots``: [4, 33] each, a row a
+    reservoir), interpolated piecewise-linearly, written for one scenario
+    as a JAX user writes it: the segment is ``bucketize`` of the interior
+    knots, and the knots and values are read at that 0-d index (with any
+    leading batch dims the same code indexes by a tensor)."""
+
+    s_knots: torch.Tensor     # [4, 33]
+    area: torch.Tensor        # [4, 33]
+    forebay: torch.Tensor     # [4, 33]
+    q_knots: torch.Tensor     # [4, 33]
+    tailwater: torch.Tensor   # [4, 33]
+    inflow: torch.Tensor      # [4]
+    s_max: torch.Tensor       # [4]
+    target: torch.Tensor      # [4]
+    bounds: Optional[Bounds] = None
+    dt: float = 1.0
+    evap: float = 0.01
+    # weights that keep a solve's total cost ~1e2 or less, where float32
+    # resolves the headline config's atol of 1e-4
+    price: float = 0.5
+    eta: float = 0.9
+    w: float = 0.5
+    w_spill: float = 2.0
+    kappa: float = 20.0
+    w_final: float = 5.0
+
+    @property
+    def state_size(self):
+        return 4
+
+    @property
+    def action_size(self):
+        return 4
+
+    @staticmethod
+    def _interp(knots, values, i, v):
+        """Row i of the table ``values`` at v, linear between its knots
+        (and past the end knots, on the end segments)."""
+        k = torch.bucketize(v.contiguous(), knots[i, 1:-1])
+        s0, s1 = knots[i, k], knots[i, k + 1]
+        a0, a1 = values[i, k], values[i, k + 1]
+        return a0 + (a1 - a0) * (v - s0) / (s1 - s0)
+
+    def transition(self, x, u):
+        out = []
+        for i in range(4):
+            up = u[..., i - 1] if i else 0.0
+            area = self._interp(self.s_knots, self.area, i, x[..., i])
+            out.append(x[..., i] + self.dt * (self.inflow[i] + up - u[..., i]
+                                              - self.evap * area))
+        return torch.stack(out, -1)
+
+    def _storage(self, x):
+        d = x - self.target
+        return (d * d).sum(-1)
+
+    def cost(self, x, u):
+        revenue = 0.0
+        for i in range(4):
+            head = self._interp(self.s_knots, self.forebay, i, x[..., i]) \
+                - self._interp(self.q_knots, self.tailwater, i, u[..., i])
+            revenue = revenue + u[..., i] * head
+        spill = F.softplus(self.kappa * (x - self.s_max)).sum(-1) / self.kappa
+        return (-self.price * self.eta * revenue + self.w * self._storage(x)
+                + self.w_spill * spill)
+
+    def final_cost(self, x):
+        return self.w_final * self._storage(x)
+
+
+def cascade_arrays() -> tuple:
+    """``HydroCascade``'s tables and its box (0, q_max), float64: storage
+    knots over [0, 1.5 s_max], release knots over [0, 1.5 q_max]; area
+    (0.5 + 0.7 sqrt(s / s_max)) s_max, forebay 1 + 0.8 (s / s_max)^0.6,
+    tailwater 0.05 + 0.3 (q / q_max)^0.5 (monotone and concave, so the
+    kinks are mild); inflows that q_max passes on down the chain."""
+    s_max = np.array([1.0, 0.8, 1.2, 0.9])
+    q_max = np.array([0.08, 0.12, 0.16, 0.2])
+    grid = np.linspace(0.0, 1.5, 33)
+    s_knots, q_knots = grid * s_max[:, None], grid * q_max[:, None]
+    arrays = dict(
+        s_knots=s_knots,
+        area=(0.5 + 0.7 * np.sqrt(grid))[None] * s_max[:, None],
+        forebay=np.broadcast_to(1.0 + 0.8 * grid ** 0.6, (4, 33)).copy(),
+        q_knots=q_knots,
+        tailwater=np.broadcast_to(0.05 + 0.3 * np.sqrt(grid),
+                                  (4, 33)).copy(),
+        inflow=np.array([0.03, 0.02, 0.025, 0.015]),
+        s_max=s_max, target=0.6 * s_max)
+    return arrays, (np.zeros(4), q_max)
+
+
+def cascade_x0(B: int, seed: int = 0) -> np.ndarray:
+    """The cascade's initial storages, ``default_rng(seed)``: each in
+    [0.3, 0.9] s_max."""
+    s_max = cascade_arrays()[0]["s_max"]
+    return np.random.default_rng(seed).uniform(0.3, 0.9, (B, 4)) * s_max
+
+
 # -- the op families ----------------------------------------------------------
 # Each returns a vector [..., 8] of x [..., 8], u [..., 3] and the env's
 # parameters; jumps (floor, ceil, trunc, round, sign, heaviside, fmod,
@@ -450,9 +567,106 @@ def sorts(env, x, u):
                + torch.median(x, dim=-1).values)[..., None])
 
 
+def _each(fn, *args):
+    """``fn`` of one scenario's arguments (each ``[..., k]``) over any
+    leading batch dims (for an op whose index is one scenario's:
+    ``index_select``, a flattened ``argmax``)."""
+    if args[0].dim() == 1:
+        return fn(*args)
+    lead = args[0].shape[:-1]
+    out = torch.vmap(fn)(*(a.reshape(-1, a.shape[-1]) for a in args))
+    return out.reshape(lead + out.shape[1:])
+
+
+def _read(env, v, k):
+    """``v[..., k]`` at a 0-d (per scenario) index k as the generated
+    functor and JAX's ``x[i]`` read it: negative k wraps, k still out of
+    range is clamped into it. With ``env.raw_index`` (the step traced into
+    the functor) the read is ``v[k]`` itself, which the functor clamps; in
+    eager torch, which raises out of range, the clamp is written out."""
+    if v.dim() == 1 and env.raw_index:
+        return v[k]
+    L = v.shape[-1]
+    k = torch.where(k < 0, k + L, k).clamp(0, L - 1)
+    return torch.gather(v, -1, k[..., None])[..., 0] if v.dim() > 1 \
+        else v[k]
+
+
+def integers(env, x, u):
+    """Integer values and indices computed at run time: ``bucketize``
+    (``right``, ``out_int32``) and ``searchsorted`` (``side``) of sorted
+    knots from the parameters, float to int casts, integer arithmetic
+    (floor and truncating divisions, remainders, wrapping add, mul, neg,
+    abs, comparisons, clamp, min/max, where), floor and truncating
+    divisions of floats, ``argmax``/``argmin`` at a
+    tie (a value twice) and at a NaN (on half the inputs), flattened and
+    over a dim, the indices of max/min over a dim and of sorts (``argsort``,
+    ``topk``, ``kthvalue``, ``median``), reads at those indices (advanced
+    indexing with a constant index and a None slot, ``gather``,
+    ``index_select``, ``take_along_dim``, ``one_hot``, a negative index
+    and one out of range, ``_read``); all but a smooth 0.1 tanh(x)
+    weighted by JUMP (an index jumps)."""
+    W, t = env.W, torch.tanh(x)
+    knots = 2.4 * torch.cumsum(env.c, -1) / env.c.sum() - 1.2     # [8]
+    xc = x.contiguous()
+    kb = torch.bucketize(xc, knots)                                # 0..8
+    kr = torch.bucketize(xc, knots, right=True, out_int32=True)
+    ks = torch.searchsorted(knots, xc, side="right")
+    kl = torch.searchsorted(knots, xc, out_int32=True)
+    a = torch.floor(2.5 * x).long()                                # -4..3
+    b = (3.0 * x).to(torch.int32)                                  # trunc
+    arith = (torch.floor_divide(a, 3) + torch.div(a, -2, rounding_mode="floor")
+             + torch.div(b, 2, rounding_mode="trunc") + torch.remainder(a, 3)
+             + torch.remainder(a, -3) + torch.fmod(b, 3) - 2 * a + (-b).abs()
+             + torch.clamp(a, -2, 2) * torch.minimum(kb, ks)
+             + torch.maximum(kr, kl) + torch.where(a > b, a, b)
+             + (kb == kl) + (a - kr) // 2)
+    fdiv = (torch.div(x, -0.9, rounding_mode="trunc")
+            + torch.div(x, 0.6, rounding_mode="floor"))
+    # a tie (x_0, x_1 twice) and a NaN where x_5 > 0
+    nan = torch.where(x[..., 5:6] > 0, torch.full_like(x[..., 5:6], math.nan),
+                      x[..., 5:6])
+    v = torch.cat([x[..., :2], x[..., :2], nan, t[..., 6:]], -1)   # [..., 7]
+    finite = torch.cat([x[..., :2], x[..., :2], x[..., 5:6], t[..., 6:]], -1)
+    M = x.reshape(x.shape[:-1] + (2, 4))
+    hi = torch.max(M, dim=-1).indices                              # [..., 2]
+    lo = torch.min(M, dim=-2, keepdim=True).indices             # [..., 1, 4]
+    med = torch.median(M, dim=-1).indices                          # [..., 2]
+    picks = torch.cat([
+        torch.gather(finite, -1, torch.argmax(v, -1, keepdim=True)),
+        torch.gather(finite, -1, torch.argmin(v, -1, keepdim=True)),
+        torch.gather(M, -1, hi[..., None])[..., 0],
+        torch.gather(M, -2, lo)[..., 0, :2],
+        _each(lambda y: torch.gather(y, 0, torch.argmax(y.reshape(2, 4))[
+            None]), x),
+        torch.take_along_dim(x, torch.kthvalue(x, 4, keepdim=True).indices,
+                             dim=-1)], -1)                         # [..., 8]
+    rows = (W[torch.clamp(kb, max=7), torch.arange(8, device=x.device)]
+            + W[:, torch.remainder(a, 8)].sum(0)
+            + (F.one_hot(torch.clamp(kl, max=7).long(), 8).to(x.dtype)
+               * W[0]).sum(-1))
+    near = torch.topk(x, 3, largest=False).indices
+    rank = (torch.gather(x, -1, torch.argsort(x * u[..., :1], dim=-1))
+            + torch.take_along_dim(W[1].expand_as(x), torch.cat(
+                [near, near, near[..., :2]], -1), dim=-1)
+            + torch.gather(M, -1, med[..., None])[..., 0].sum(
+                -1, keepdim=True))
+    q = torch.floor(6.0 * x[..., 0]).long()                        # -9..8
+    odd = torch.stack([
+        _read(env, W[2], q), _read(env, x, -1 - q),
+        _each(lambda y, k: torch.index_select(y, 0, k), x,
+              torch.remainder(a, 8))[..., 0],
+        (kb.to(x.dtype) - kr.to(x.dtype)).sum(-1)], -1)
+    return 0.1 * t + JUMP * (picks + arith.to(x.dtype) + fdiv + rows + rank
+                             + torch.cat([odd, odd], -1))
+
+
 FAMILIES = {"elementwise": elementwise, "reductions": reductions,
             "index_maps": index_maps, "multi_output": multi_output,
-            "linalg": linalg, "sorts": sorts}
+            "linalg": linalg, "sorts": sorts, "integers": integers}
+# the op-coverage env's families (the integer-coverage env's is "integers")
+OPCOV_FAMILIES = ("elementwise", "reductions", "index_maps", "multi_output",
+                  "linalg", "sorts")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -466,7 +680,23 @@ class OpEnv(Env):
 
     W: torch.Tensor   # [8, 8]
     c: torch.Tensor   # [8]
-    families: tuple = tuple(FAMILIES)
+    families: tuple = OPCOV_FAMILIES
+    # the integers family's reads as written, out of range included
+    # (``_read``): the step that its generated functor traces
+    raw_index: bool = False
+
+    @functools.cached_property
+    def _as_written(self):
+        return dataclasses.replace(self, raw_index=True)
+
+    def generic_device_step(self, dtype=None, device=None):
+        """The functor generated from the step as written: with the
+        integers family, from its twin whose reads out of range are
+        ``v[k]`` itself (eager torch raises there; this env's own step
+        clamps as the functor does, so that its plain rollouts run)."""
+        if self.raw_index or "integers" not in self.families:
+            return super().generic_device_step(dtype, device)
+        return self._as_written.generic_device_step(dtype, device)
 
     @property
     def state_size(self):

@@ -7,7 +7,9 @@ the env's own batched call at all the points at once, each point repeated
 so that its copies take the unit cotangents of one reverse pass
 (``_derive``; the copies are independent points, as the points are):
 Jacobians one reverse pass, Hessians reverse over reverse, two
-(``create_graph``), also under ``torch.inference_mode``. It is the semantics oracle for an env's closed-form
+(``create_graph``), also under ``torch.inference_mode``, and for an env
+built under it (``autograd_env``: its inference tensors cloned, once a
+solve). It is the semantics oracle for an env's closed-form
 ``analytic_derivatives``, and gives what the JAX package's ``vmap(jacfwd)``
 gives at each point, the points being independent under the env contract.
 
@@ -39,7 +41,9 @@ its public ``transition``/``cost``/``final_cost``
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import contextlib
+import copy
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -112,6 +116,47 @@ def _derive(fn, args, k: int, second: bool = False):
                                              H.reshape(-1, k, K, K))
 
 
+# the copy of each env that ``autograd_env`` returns while a solve runs
+# (``autograd_env_once``), by the env's id
+_SOLVE_COPIES: Dict[int, object] = {}
+
+
+def autograd_env(env):
+    """``env`` for an autograd pass: itself, or, where some of its
+    floating-point tensor fields are inference tensors (the env was built
+    under ``torch.inference_mode``; autograd cannot save them for
+    backward), a shallow copy whose such fields are clones made outside
+    inference mode. The env passed in is not changed. While
+    ``autograd_env_once(env)`` holds, the copy it made is returned."""
+    held = _SOLVE_COPIES.get(id(env))
+    if held is not None:
+        return held
+    fields = {k: v for k, v in getattr(env, "__dict__", {}).items()
+              if isinstance(v, torch.Tensor) and v.is_floating_point()
+              and v.is_inference()}
+    if not fields:
+        return env
+    out = copy.copy(env)
+    with torch.inference_mode(False):
+        for k, v in fields.items():
+            object.__setattr__(out, k, v.clone())
+    return out
+
+
+@contextlib.contextmanager
+def autograd_env_once(env):
+    """Within: ``autograd_env(env)`` returns one copy, made on entry (a
+    solve's, so that its autograd passes clone the fields once)."""
+    if id(env) in _SOLVE_COPIES:
+        yield
+        return
+    _SOLVE_COPIES[id(env)] = autograd_env(env)
+    try:
+        yield
+    finally:
+        del _SOLVE_COPIES[id(env)]
+
+
 def _by_chunks(derive, copies: int, *args):
     """``derive(*args)`` over chunks of the points of at most
     ``MAX_COPIES`` (point, copy) pairs each, its outputs (tensors over the
@@ -171,17 +216,17 @@ class Env:
         return self.state_size
 
     # -- autodiff linearization ---------------------------------------------
-    # each at points x [P, n], u [P, m]
+    # each at points x [P, n], u [P, m], on ``autograd_env(self)``
     def _linear(self, x, u):
         """``(f, f_x, f_u)``."""
-        n = x.shape[-1]
-        f, J = _by_chunks(lambda *a: _derive(self.transition, a, n), n, x, u)
+        n, step = x.shape[-1], autograd_env(self).transition
+        f, J = _by_chunks(lambda *a: _derive(step, a, n), n, x, u)
         return f, J[..., :n], J[..., n:]
 
     def _quadratic(self, x, u):
         """``(l, l_x, l_u, l_xx, l_uu, l_ux)``."""
-        n = x.shape[-1]
-        l, g, H = _by_chunks(lambda *a: _derive(self.cost, a, 1, True),
+        n, cost = x.shape[-1], autograd_env(self).cost
+        l, g, H = _by_chunks(lambda *a: _derive(cost, a, 1, True),
                              n + u.shape[-1], x, u)
         g, H = g[:, 0], H[:, 0]
         return (l, g[:, :n], g[:, n:], H[:, :n, :n], H[:, n:, n:],
@@ -189,14 +234,15 @@ class Env:
 
     def _final(self, x):
         """``(l, l_x, l_xx)`` of the final cost."""
-        l, g, H = _by_chunks(lambda *a: _derive(self.final_cost, a, 1, True),
+        final = autograd_env(self).final_cost
+        l, g, H = _by_chunks(lambda *a: _derive(final, a, 1, True),
                              x.shape[-1], x)
         return l, g[:, 0], H[:, 0]
 
     def _second_order(self, x, u):
         """``(f_xx, f_ux, f_uu)``."""
-        n = x.shape[-1]
-        H = _by_chunks(lambda *a: _derive(self.transition, a, n, True),
+        n, step = x.shape[-1], autograd_env(self).transition
+        H = _by_chunks(lambda *a: _derive(step, a, n, True),
                        n * (n + u.shape[-1]), x, u)[2]    # [P, a, b, c]
         return H[..., :n, :n], H[..., n:, :n], H[..., n:, n:]
 

@@ -22,7 +22,10 @@
 // _max_threads and _smem_bytes without the env argument; they refuse a
 // call at other dims or another dtype than the functor's, a parameter
 // count it does not take, integer parameters, and K8 (a user env has no
-// device linearization).
+// device linearization). A generated functor takes none: the env's float
+// tensors are its parameters (tables included), and its integer tensors
+// depend on no input, so ops/env_codegen.py writes them as literals of the
+// source; the integers it computes from the state are its own values.
 #include "rollout_generic.cuh"
 #include "user_step.cuh"
 

@@ -19,10 +19,10 @@ memory once a block, read at launch. So the source depends on the graph,
 the shapes and the dtype, not on the parameter values, and a new env
 instance with other values reuses the build. Two kinds of value are
 literals in the source instead: Python scalars in the step, cast to the
-operation's dtype as torch's type promotion casts them, and the integer
-tensors that index a tensor with a constant list (``x[[0, 2, 1]]``,
-``x[..., torch.arange(2)]``), evaluated when the source is emitted. An env
-whose constant indices change gets another source.
+operation's dtype as torch's type promotion casts them, and integer
+tensors that depend on no input (a constant index list, ``x[[0, 2, 1]]``,
+an ``arange``, an integer tensor of the env), evaluated when the source is
+emitted. An env whose integer constants change gets another source.
 
 The functor evaluates each node lazily at the index it is read at: row i of
 the next state computes only the elements that row depends on, pushing the
@@ -55,6 +55,25 @@ arithmetic gives, inf or NaN. Sorts keep their float values: element k of
 a slice is its element of stable rank k, NaN the largest, an O(L^2)
 count (``sort``, ``topk``, ``kthvalue``, ``median``).
 
+Integer values computed from the state or the controls (int64 and int32,
+``int64_t``/``int32_t``) are nodes like the floats, computed at the index
+they are read at: ``argmax``/``argmin`` and the indices of max/min over a
+dim (the first extreme, NaN the extreme), of sorts (each element's stable
+rank), ``bucketize``/``searchsorted`` (torch's binary search), float to
+integer casts (toward zero; NaN, the infinities and values past the
+type's range give its least value, as torch's CPU casts), integer
+arithmetic as torch's (wrapping; floor division and ``remainder`` with
+the divisor's sign; a division or remainder by zero, which raises in
+torch, gives 0), comparisons, ``clamp``, ``where``. Reads at indices
+computed at run time (``index.Tensor`` with run-time index tensors
+broadcast among constant ones and None slots, ``gather``,
+``index_select``) wrap a negative index and clamp one still out of range
+into the dim, as JAX's ``x[i]`` does: torch raises there, a kernel
+cannot. A step written for one scenario reads at 0-d integer tensors
+(``vals[torch.bucketize(x[0], knots)]``), where torch's indexing calls
+``.item()``: ``trace_step`` traces under ``ScalarIndexMode``, which reads
+there through a 1-element index instead, the same values.
+
 An op outside ``SUPPORTED_OPS`` that ``torch._decomp`` decomposes is traced
 again through its decomposition, which keeps torch's semantics by
 construction: the activations (``softplus`` with its threshold, ``gelu``,
@@ -64,10 +83,10 @@ is infinite), ``xlogy``, ``logaddexp``, ``lerp``, ``addcmul``,
 ``hardswish``, ``mish``, ``dist``, ``frac``, ...; the source's header
 names the ops that went that way. A step the functor cannot express raises
 ``NotImplementedError`` naming the op or node and the two opt-outs: any
-other op (eigen- and singular-value decompositions, random ops), a
-data-dependent branch, an output of the wrong shape, an integer value in
-the arithmetic (an index output of ``max(x, dim)`` or of a sort read as a
-value included), a batch of matrices or right-hand sides within the step,
+other op (eigen- and singular-value decompositions, random ops, random
+indices included), a data-dependent branch or shape (``nonzero``, a mask),
+an output of the wrong shape or dtype, ``searchsorted`` with a
+``sorter``, a batch of matrices or right-hand sides within the step,
 ``solve(left=False)``, a matrix or sort beyond the local arrays' size.
 """
 
@@ -81,7 +100,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 from torch._decomp import decomposition_table, get_decompositions
+from torch._subclasses.fake_tensor import DynamicOutputShapeException
 from torch.fx.experimental.proxy_tensor import make_fx
+from torch.overrides import TorchFunctionMode
 
 from tfmpc_tpu_torch.models.base import USER_STEP_ID, DeviceStep
 
@@ -93,8 +114,11 @@ OPT_OUTS = ("run with use_pallas=False, or return None from the env's "
 PREP_MAX_ELEMS = 64
 
 _CTYPES = {torch.float32: "float", torch.float64: "double",
-           torch.bool: "bool"}
+           torch.bool: "bool", torch.int64: "int64_t", torch.int32: "int32_t"}
 _DTYPES = {"float": torch.float32, "double": torch.float64}
+# the integer C types, each with the unsigned type its wrapping arithmetic
+# goes through and its least value
+_INTS = {"int64_t": ("uint64_t", -2 ** 63), "int32_t": ("uint32_t", -2 ** 31)}
 _ROW = "i"  # row()'s index: an index expression that names it depends on i
 
 # -- ops ----------------------------------------------------------------------
@@ -233,29 +257,56 @@ _LINALG_MULTI = {
 }
 _LINALG = {aten.cholesky_solve.default, aten.linalg_lu_solve.default,
            aten.linalg_solve_triangular.default}
-# sorts along a dim, their float values only: element k is the input of
-# stable rank k (NaN sorts as the largest)
-_SORTS_MULTI = {aten.sort.default: (0,), aten.sort.stable: (0,),
-                aten.topk.default: (0,), aten.kthvalue.default: (0,),
-                aten.median.dim: (0,)}
+# sorts along a dim: element k of the values is the input of stable rank k
+# (NaN sorts as the largest), and of the indices that input's index
+_SORTS_MULTI = {aten.sort.default: (0, 1), aten.sort.stable: (0, 1),
+                aten.topk.default: (0, 1), aten.kthvalue.default: (0, 1),
+                aten.median.dim: (0, 1)}
 _SORTS = {aten.median.default}
 _WHOLE_MULTI = {**_LINALG_MULTI, **_SORTS_MULTI}
 _WHOLE = set(_WHOLE_MULTI) | _LINALG | _SORTS
 # nodes with more than one output, read only through ``operator.getitem``
-# (the values of max/min over a dim, never their indices; the float outputs
-# of the nodes read whole)
+# (the values and indices of max/min over a dim; the outputs of the nodes
+# read whole that ``_WHOLE_MULTI`` names)
 _MULTI = {aten.max.dim, aten.min.dim, aten.split_with_sizes.default,
           aten.split.Tensor, aten.unbind.int} | set(_WHOLE_MULTI)
 _OTHER = {aten.pow.Tensor_Scalar, aten.rsub.Scalar, aten._to_copy.default,
           aten.cat.default, aten.stack.default, aten.linalg_cross.default,
           operator.getitem}
+# ops that compute integers: the index of the first largest (smallest)
+# element, NaN the extreme; binary searches as torch's (the count of the
+# sorted values below, or not above, each value); reads at indices
+# computed at run time (negative ones wrap, ones out of range are clamped
+# into it, as JAX's ``x[i]``); rounding divisions (of floats too)
+_ARG_EXTREME = {aten.argmax.default: True, aten.argmin.default: False}
+_SEARCH = {aten.bucketize.Tensor, aten.searchsorted.Tensor}
+_GATHER = {aten.gather.default, aten.index_select.default}
+_DIVIDE = {aten.floor_divide.default, aten.floor_divide.Scalar,
+           aten.div.Tensor_mode, aten.div.Scalar_mode}
+_INTEGER = set(_ARG_EXTREME) | _SEARCH | _GATHER | _DIVIDE
 
 SUPPORTED_OPS = frozenset(
     set(_VIEWS) | set(_LITERALS) | set(_UNARY) | set(_PREDICATES)
     | set(_BINARY) | _REMAINDER | _OPTIONS | set(_COMPARE) | set(_ADD)
     | _CLAMP | _WHERE | _REDUCE | _NORMS | set(_SCANS)
     | _OTHER_REDUCE | _MATMUL | _INDEX_MAPS | set(_TRIANGLES) | _MULTI
-    | _WHOLE | _OTHER)
+    | _WHOLE | _OTHER | _INTEGER)
+# the ops whose emitter computes an integer output in integer arithmetic
+# (wrapping as torch's; a division by zero, which raises in torch, gives
+# 0); any other op with an integer output is refused
+_INT_OPS = frozenset(
+    set(_VIEWS) | set(_LITERALS) | _INDEX_MAPS | set(_TRIANGLES) | _WHERE
+    | _CLAMP | _REMAINDER | _INTEGER | set(_ADD) | {
+        aten.neg.default, aten.abs.default, aten.sign.default,
+        aten.sgn.default, aten.relu.default, aten.floor.default,
+        aten.ceil.default, aten.round.default, aten.trunc.default,
+        aten.mul.Tensor, aten.mul.Scalar, aten.rsub.Scalar,
+        aten.minimum.default, aten.maximum.default, aten.fmod.Tensor,
+        aten.fmod.Scalar, aten.masked_fill.Scalar, aten.masked_fill.Tensor,
+        aten.sum.dim_IntList, aten.sum.default, aten.amax.default,
+        aten.amin.default, aten.max.default, aten.min.default,
+        aten.cumsum.default, aten._to_copy.default, aten.cat.default,
+        aten.stack.default, operator.getitem})
 
 
 def _f(name: str, T: str) -> str:
@@ -326,6 +377,12 @@ def _uses_row(idx) -> bool:
 def _literal(v, T: str) -> str:
     if isinstance(v, bool) or T == "bool":
         return "true" if v else "false"
+    if T in _INTS:   # an infinity is the type's bound (a max's start)
+        least = _INTS[T][1]
+        if isinstance(v, float) and math.isinf(v):
+            v = least if v < 0 else -least - 1
+        v = int(v)
+        return f"({T}({v + 1}) - 1)" if v == least else f"{T}({v})"
     v = float(v)
     if math.isnan(v):
         return f"({T}(0) / {T}(0))"
@@ -339,7 +396,22 @@ def _cast(expr: str, src: str, dst: str) -> str:
         return expr
     if dst == "bool":
         return f"({expr} != {src}(0))"
+    if dst in _INTS and src in _DTYPES:
+        # toward zero; NaN, the infinities and values past the type's range
+        # give its least value, as torch's CPU casts
+        least = _INTS[dst][1]
+        return (f"({expr} >= {float(least)!r} && {expr} < {float(-least)!r} "
+                f"? static_cast<{dst}>({expr}) : {_literal(least, dst)})")
     return f"static_cast<{dst}>({expr})"
+
+
+def _wrap(T: str, a: str, op: str, b: str) -> str:
+    """``a op b`` in the integer type ``T``, wrapping as torch's integer
+    arithmetic does (through the unsigned type: C's signed overflow is
+    undefined)."""
+    U = _INTS[T][0]
+    return (f"static_cast<{T}>(static_cast<{U}>({a}) {op} "
+            f"static_cast<{U}>({b}))")
 
 
 # -- the traced graph ---------------------------------------------------------
@@ -360,33 +432,51 @@ class _Graph:
         self.shape, self.ctype, self.dep_u = {}, {}, {}
         live = self._live()
         self.params: List[str] = []  # get_attr targets, in graph order
-        # integer tensors that only index: their values, evaluated here
+        # integer tensors that depend on no input: their values, evaluated
+        # here (literals in the source)
         self.consts: Dict[object, torch.Tensor] = {}
         for nd in nodes:
             if nd not in live:
                 continue
             val = nd.meta.get("val")
+            if isinstance(val, torch.Tensor) and not all(
+                    isinstance(d, int) for d in val.shape):
+                raise _refuse(f"{name}: node {nd.name} "
+                              f"({_op_name(nd.target)}) has a data-dependent "
+                              f"shape {list(val.shape)}")
             if nd.op == "call_function" and nd.target in _MULTI:
                 self._check_multi(nd, live)
                 self.dep_u[nd] = any(self.dep_u[a] for a in _node_args(nd))
                 if nd.target in _WHOLE_MULTI:
                     self._check_whole(nd)
                 continue
-            integer = isinstance(val, torch.Tensor) \
-                and val.dtype not in _CTYPES
-            if nd.op == "call_function" and nd.target not in SUPPORTED_OPS \
-                    and not integer:
+            integer = isinstance(val, torch.Tensor) and not (
+                val.is_floating_point() or val.is_complex()
+                or val.dtype == torch.bool)
+            if integer and self._integer_constant(nd, val):
+                continue
+            if nd.op == "call_function" and nd.target not in SUPPORTED_OPS:
                 raise _refuse(f"{name}: aten op {_op_name(nd.target)} (node "
                               f"{nd.name}) is not supported")
             if not isinstance(val, torch.Tensor):
                 raise _refuse(f"{name}: node {nd.name} ({nd.target}) is not "
                               "a tensor")
-            if val.dtype not in _CTYPES:
-                if self._pivots(nd, live):
-                    self.dep_u[nd] = self.dep_u[nd.args[0]]
-                    continue
-                self._index_constant(nd, val, live)
+            if nd.op == "call_function" and nd.target is operator.getitem \
+                    and nd.args[0].target is aten.linalg_lu_factor_ex.default \
+                    and nd.args[1] == 1:
+                if not self._pivots(nd, live):
+                    raise _refuse(f"{name}: node {nd.name} reads the pivots "
+                                  "of aten::linalg_lu_factor_ex other than "
+                                  "as lu_solve's")
+                self.dep_u[nd] = self.dep_u[nd.args[0]]
                 continue
+            if val.dtype not in _CTYPES or integer and (
+                    nd.op == "call_function" and nd.target not in _INT_OPS):
+                raise _refuse(f"{name}: node {nd.name} "
+                              f"({_op_name(nd.target)}) has dtype "
+                              f"{val.dtype}: the functor computes float32, "
+                              "float64 and bool values, and int64 and int32 "
+                              "ones through the ops of its integer family")
             if nd.op == "call_function" and nd.target is operator.getitem \
                     and nd.args[0].target not in _MULTI:
                 raise _refuse(f"{name}: node {nd.name} reads an output of "
@@ -481,47 +571,39 @@ class _Graph:
                                                       False)):
             raise _refuse(f"{what}: lu_solve(left=False or adjoint=True)")
 
-    def _index_constant(self, nd, val, live):
-        """An integer node: allowed where it depends on no input, draws
-        no random numbers and is read only as the index of
-        ``aten::index.Tensor`` (or by another such node); its value is
-        evaluated now."""
-        op = _op_name(nd.target)
-        if nd.target is operator.getitem:
-            op = f"output {nd.args[1]} of {_op_name(nd.args[0].target)}"
-        what = f"{self.name}: node {nd.name} ({op}) has dtype {val.dtype}"
-        if val.is_floating_point() or val.is_complex():
-            raise _refuse(what)
-        self.dep_u[nd] = False
+    def _integer_constant(self, nd, val) -> bool:
+        """An integer node that depends on no input (an integer tensor of
+        the env, an ``arange``, or an op of such nodes only): its value is
+        evaluated now, and read as literals (``consts``). False for one
+        computed from the state, the controls or a float parameter, which
+        the functor computes. Random integers are refused: a draw evaluated
+        once would be every step's."""
         if torch.Tag.nondeterministic_seeded in getattr(nd.target, "tags",
                                                         ()):
-            raise _refuse(f"{what}: random ops are not supported (a draw "
-                          "evaluated once would be every step's)")
+            raise _refuse(f"{self.name}: node {nd.name} "
+                          f"({_op_name(nd.target)}) has dtype {val.dtype}: "
+                          "random ops are not supported (a draw evaluated "
+                          "once would be every step's)")
         if nd.op not in ("get_attr", "call_function") or any(
                 a not in self.consts for a in _node_args(nd)):
-            raise _refuse(f"{what}, computed from the state or the controls:"
-                          " integer values are not supported in the "
-                          "arithmetic")
-        for user in nd.users:
-            uval = user.meta.get("val")
-            index = user.target is aten.index.Tensor and user.args[0] is not nd
-            integer = isinstance(uval, torch.Tensor) \
-                and uval.dtype not in _CTYPES
-            if user in live and not (index or integer):
-                raise _refuse(f"{what}, read by {user.name} "
-                              f"({_op_name(user.target)}): integer values are "
-                              "supported only as constant indices")
+            return False
         if nd.op == "get_attr":
-            self.consts[nd] = getattr(self.gm, nd.target).detach().cpu()
-            return
-        sub = lambda a: self.consts[a] if isinstance(  # noqa: E731
-            a, torch.fx.Node) else a
-        args_ = [[sub(b) for b in a] if isinstance(a, (list, tuple)) else
-                 sub(a) for a in nd.args]
-        kwargs = {k: sub(v) for k, v in nd.kwargs.items()}
-        if "device" in kwargs:
-            kwargs["device"] = "cpu"
-        self.consts[nd] = nd.target(*args_, **kwargs).detach().cpu()
+            value = getattr(self.gm, nd.target).detach().cpu()
+        else:
+            sub = lambda a: self.consts[a] if isinstance(  # noqa: E731
+                a, torch.fx.Node) else a
+            args_ = [[sub(b) for b in a] if isinstance(a, (list, tuple)) else
+                     sub(a) for a in nd.args]
+            kwargs = {k: sub(v) for k, v in nd.kwargs.items()}
+            if "device" in kwargs:
+                kwargs["device"] = "cpu"
+            value = nd.target(*args_, **kwargs).detach().cpu()
+        self.consts[nd] = value
+        self.dep_u[nd] = False
+        self.shape[nd] = tuple(value.shape)
+        # read as a value at its own type (a literal of the values)
+        self.ctype[nd] = _CTYPES.get(value.dtype, "int64_t")
+        return True
 
     def _check_outputs(self):
         n, m = self.n, self.m
@@ -533,6 +615,9 @@ class _Graph:
             if got != want:
                 raise _refuse(f"{self.name}: {what} returned shape {got}, "
                               f"not {want}")
+            if not val.is_floating_point():
+                raise _refuse(f"{self.name}: {what} returned dtype "
+                              f"{val.dtype}, not a floating-point one")
 
     def _live(self):
         live, todo = set(), [self.xn, self.cost, self.final]
@@ -559,7 +644,7 @@ class _Graph:
         holds instead, ``whole``)."""
         t = node.target
         moves = t in _VIEWS or t in _LITERALS or t in _INDEX_MAPS \
-            or t in _TRIANGLES or (
+            or t in _TRIANGLES or t in _GATHER or node in self.consts or (
                 t is operator.getitem and node.args[0].target in (
                     aten.split_with_sizes.default, aten.split.Tensor,
                     aten.unbind.int, aten.linalg_lu_factor_ex.default,
@@ -717,6 +802,12 @@ class _Body:
             read = f"p[{g.param_index[node.target]}]" \
                    f"[{_flat(idx, g.shape[node])}]"
             return _cast(read, g.S, T)
+        if node in g.consts:   # an integer constant read as a value
+            values = g.consts[node].reshape(-1).tolist()
+            flat = _flat(idx, g.shape[node])
+            if isinstance(flat, int):
+                return _literal(values[flat], T)
+            return self._lookup(values, flat, T)
         anywhere = not _uses_row(idx) or g.read_whole(node)
         if self.mode == "scan" and anywhere and g.hoistable(node):
             self.hoisted.add(node)
@@ -760,6 +851,18 @@ class _Body:
             return self._concat(node, idx)
         if t is aten.linalg_cross.default:
             return self._cross(node, idx)
+        if t in _ARG_EXTREME:
+            src, r = node.args[0], len(g.shape[node.args[0]])
+            dim = _opt(node, 1, "dim", None)
+            dims = list(range(r)) if dim is None else [dim % max(r, 1)]
+            sub = self._reduced(idx, r, dims, bool(_opt(node, 2, "keepdim",
+                                                        False)))
+            return self._arg_extreme(src, sub, dims if r else [],
+                                     _ARG_EXTREME[t])
+        if t in _SEARCH:   # int32 for ``out_int32``
+            return _cast(self._search(node, idx), "int64_t", T)
+        if t in _GATHER:
+            return self._gather(node, idx)
         return self.tmp(T, self._elementwise(node, idx))
 
     def arg(self, a, idx, out_shape, T: str) -> str:
@@ -777,6 +880,14 @@ class _Body:
         g, t, args = self.g, node.target, node.args
         T, shape = g.ctype[node], g.shape[node]
         A = lambda a, ty=T: self.arg(a, idx, shape, ty)  # noqa: E731
+        if t in _DIVIDE:
+            return self._divide(node, A)
+        if T in _INTS and (t in _ADD or t in _REMAINDER or t in (
+                aten.neg.default, aten.abs.default, aten.mul.Tensor,
+                aten.mul.Scalar, aten.rsub.Scalar, aten.fmod.Tensor,
+                aten.fmod.Scalar, aten.floor.default, aten.ceil.default,
+                aten.round.default, aten.trunc.default)):
+            return self._integer_arithmetic(node, A)
         if t in _UNARY:
             return _UNARY[t](T, A(args[0]))
         if t in _PREDICATES:
@@ -857,6 +968,73 @@ class _Body:
         if decimals < 0:
             return f"({rint}({a} / {ten}) * {ten})"
         return f"({rint}({a} * {ten}) / {ten})"
+
+    def _integer_arithmetic(self, node, A) -> str:
+        """Integer add, sub, mul, neg, abs, remainder and fmod as torch
+        computes them: wrapping, a remainder with the divisor's sign (fmod's
+        with the dividend's), 0 for a remainder by 0, which raises in torch;
+        floor, ceil, round and trunc keep an integer."""
+        t, args, T = node.target, node.args, self.g.ctype[node]
+        zero = _literal(0, T)
+        if t in (aten.floor.default, aten.ceil.default, aten.round.default,
+                 aten.trunc.default):
+            return A(args[0])
+        if t is aten.neg.default:
+            return _wrap(T, zero, "-", A(args[0]))
+        if t is aten.abs.default:
+            a = self.tmp(T, A(args[0]))
+            return f"({a} < {zero} ? {_wrap(T, zero, '-', a)} : {a})"
+        if t in (aten.mul.Tensor, aten.mul.Scalar):
+            return _wrap(T, A(args[0]), "*", A(args[1]))
+        if t in _ADD or t is aten.rsub.Scalar:
+            alpha = node.kwargs.get("alpha", args[2] if len(args) > 2 else 1)
+            a, b = A(args[0]), A(args[1])
+            if t is aten.rsub.Scalar:
+                a, b = b, a
+            if alpha != 1:
+                b = _wrap(T, _literal(alpha, T), "*", b)
+            return _wrap(T, a, "+" if _ADD.get(t, -1) > 0 else "-", b)
+        a, b = self.tmp(T, A(args[0])), self.tmp(T, A(args[1]))
+        r = self.tmp(T, f"({b} == {zero} || {b} == {_literal(-1, T)} ? "
+                        f"{zero} : {a} % {b})")
+        if t in _REMAINDER:
+            return (f"({r} != {zero} && (({r} < {zero}) != ({b} < {zero})) "
+                    f"? {r} + {b} : {r})")
+        return r
+
+    def _divide(self, node, A) -> str:
+        """``floor_divide`` and ``div`` with ``rounding_mode``, as torch's
+        ``div_floor_integer``/``div_floor_floating`` and truncations: an
+        integer quotient by 0 is 0 (torch's kernels' value; its CPU
+        raises), a float one IEEE's."""
+        t, args, T = node.target, node.args, self.g.ctype[node]
+        if t in (aten.floor_divide.default, aten.floor_divide.Scalar):
+            mode = "floor"
+        else:
+            mode = node.kwargs.get("rounding_mode")
+        a, b = self.tmp(T, A(args[0])), self.tmp(T, A(args[1]))
+        if mode is None:
+            return f"({a} / {b})"
+        zero = _literal(0, T)
+        if T in _INTS:
+            q = self.tmp(T, f"({b} == {zero} ? {zero} : {b} == "
+                            f"{_literal(-1, T)} ? {_wrap(T, zero, '-', a)} "
+                            f": {a} / {b})")
+            if mode == "trunc":
+                return q
+            return (f"({b} != {zero} && {b} != {_literal(-1, T)} && {a} % "
+                    f"{b} != {zero} && (({a} < {zero}) != ({b} < {zero})) ? "
+                    f"{q} - 1 : {q})")
+        if mode == "trunc":
+            return f"{_f('trunc', T)}({a} / {b})"
+        mod = self.tmp(T, f"{_f('fmod', T)}({a}, {b})")
+        div = self.tmp(T, f"({a} - {mod}) / {b}")
+        div = self.tmp(T, f"({mod} != {zero} && (({b} < {zero}) != ({mod} < "
+                          f"{zero})) ? {div} - {T}(1) : {div})")
+        low = self.tmp(T, f"{_f('floor', T)}({div})")
+        return (f"({b} == {zero} ? {a} / {b} : {div} != {zero} ? ({div} - "
+                f"{low} > {T}(0.5) ? {low} + {T}(1) : {low}) : "
+                f"{_f('copysign', T)}({zero}, {a} / {b}))")
 
     @staticmethod
     def _pow(a: str, e, T: str) -> str:
@@ -1146,24 +1324,116 @@ class _Body:
             sub.append(_imod(_idiv(off, stride), s))
         return sub
 
-    def _lookup(self, values: List[int], flat):
+    def _lookup(self, values: list, flat, T: str = "int"):
         """``values[flat]`` for an index known when the source is emitted
         or computed at run time: an affine expression where the values are
-        one, else a chain of conditionals."""
+        one (integer indices), else a chain of conditionals of literals of
+        type ``T``."""
         if isinstance(flat, int):
-            return values[flat]
+            return values[flat] if T == "int" else _literal(values[flat], T)
         step = values[1] - values[0] if len(values) > 1 else 0
-        if all(v == values[0] + k * step for k, v in enumerate(values)):
+        if T == "int" and all(v == values[0] + k * step
+                              for k, v in enumerate(values)):
             return _iadd(values[0], _imul(flat, step))
         f = self.tmp("int", flat)
-        chain = str(values[-1])
+        lit = (lambda v: str(v)) if T == "int" else (  # noqa: E731
+            lambda v: _literal(v, T))
+        chain = lit(values[-1])
         for k in range(len(values) - 2, -1, -1):
-            chain = f"({f} == {k} ? {values[k]} : {chain})"
-        return self.tmp("int", chain)
+            chain = f"({f} == {k} ? {lit(values[k])} : {chain})"
+        return self.tmp(T, chain)
+
+    def _index_at(self, index, sub, size: int):
+        """Element ``sub`` of the integer node ``index``, an index into a
+        dim of ``size``: negative values wrap, and values still outside
+        0..size-1 are clamped into it, as JAX's ``x[i]`` (torch raises;
+        a kernel cannot). Constant indices are checked here instead."""
+        g = self.g
+        if index in g.consts:
+            values = g.consts[index].reshape(-1).tolist()
+            if any(not -size <= v < size for v in values):
+                raise _refuse(f"{g.name}: node {index.name} indexes a dim "
+                              f"of size {size} at {values}")
+            return self._lookup([v % size for v in values],
+                                _flat(sub, g.shape[index]))
+        v = self.tmp("int64_t", self.val(index, sub, "int64_t"))
+        w = self.tmp("int64_t", f"({v} < 0 ? {v} + {size} : {v})")
+        return self.tmp("int", f"({w} < 0 ? 0 : {w} > {size - 1} ? "
+                               f"{size - 1} : static_cast<int>({w}))")
+
+    def _arg_extreme(self, src, sub, dims, larger: bool) -> str:
+        """The index of the first largest (smallest) element of ``src``
+        over ``dims`` at ``sub`` (row-major over those dims, as torch's
+        ``argmax`` flattens), a NaN the extreme (the first one), as
+        torch's ``argmax``/``argmin`` and max/min's indices."""
+        g = self.g
+        T, shape = g.ctype[src], g.shape[src]
+        best, at = g.fresh("m"), g.fresh("j")
+        self.line(f"{T} {best} = "
+                  f"{_literal(-math.inf if larger else math.inf, T)};")
+        self.line(f"int64_t {at} = 0;")
+        sub = list(sub)
+        for d in dims:
+            sub[d] = self.loop(shape[d])
+        flat = _flat([sub[d] for d in dims], [shape[d] for d in dims])
+        v = self.val(src, sub)
+        self.op(f"if (!({best} != {best}) && ({v} != {v} || {v} "
+                f"{'>' if larger else '<'} {best})) {{ {best} = {v}; "
+                f"{at} = {flat}; }}")
+        for _ in dims:
+            self.close()
+        return at
+
+    def _search(self, node, idx) -> str:
+        """``bucketize(v, boundaries, right)`` and ``searchsorted(seq, v,
+        right or side)`` (1-D sequences, or one a row of v's leading dims):
+        torch's binary search, the count of the sorted values below v (not
+        above v with ``right``), NaN past them all."""
+        g = self.g
+        if node.target is aten.bucketize.Tensor:
+            v, seq = node.args[0], node.args[1]
+            row = ()
+        else:
+            seq, v = node.args[0], node.args[1]
+            if node.kwargs.get("sorter") is not None:
+                raise _refuse(f"{g.name}: aten::searchsorted (node "
+                              f"{node.name}) with a sorter")
+            row = tuple(idx[:-1]) if len(g.shape[seq]) > 1 else ()
+        right = bool(node.kwargs.get("right", False)) \
+            or node.kwargs.get("side") == "right"
+        C = _CTYPES[torch.promote_types(v.meta["val"].dtype,
+                                        seq.meta["val"].dtype)]
+        x = self.tmp(C, self.val(v, idx, C))
+        L = g.shape[seq][-1]
+        lo, hi = g.fresh("lo"), g.fresh("hi")
+        self.line(f"int64_t {lo} = 0, {hi} = {L};")
+        self.open(f"while ({lo} < {hi})", max(1, math.ceil(math.log2(L + 1))))
+        mid = self.tmp("int64_t", f"{lo} + (({hi} - {lo}) >> 1)")
+        b = self.val(seq, row + (mid,), C)
+        self.op(f"if (!({b} {'>' if right else '>='} {x})) {lo} = {mid} + 1;"
+                f" else {hi} = {mid};")
+        self.close()
+        return lo
+
+    def _gather(self, node, idx) -> str:
+        """``gather(src, dim, index)``: the source at the index's element
+        along dim; ``index_select(src, dim, index)``: at the index's
+        element of idx[dim] (what ``take_along_dim`` decomposes into)."""
+        g = self.g
+        src, d, index = node.args[0], node.args[1], node.args[2]
+        r = len(g.shape[src])
+        if r == 0:
+            return self.val(src, ())
+        d %= r
+        at = tuple(idx) if node.target is aten.gather.default else \
+            ((idx[d],) if len(g.shape[index]) else ())
+        sub = list(idx)
+        sub[d] = self._index_at(index, at, g.shape[src][d])
+        return self.val(src, sub)
 
     def _getitem(self, node, idx) -> str:
         """An output of a node with several: a split's part, an unbound
-        slice, or the values of max/min over a dim."""
+        slice, or the values or indices of max/min over a dim."""
         g = self.g
         parent, k = node.args
         t, src = parent.target, parent.args[0]
@@ -1180,11 +1450,13 @@ class _Body:
             sub = list(idx)
             sub[d] = _iadd(idx[d], off)
             return self.val(src, sub)
-        d = parent.args[1] % r
+        d = parent.args[1] % max(r, 1)
         sub = self._reduced(idx, r, [d], bool(_opt(parent, 2, "keepdim",
                                                    False)))
         larger = t is aten.max.dim
-        return self.fold(src, sub, [d], T,
+        if k == 1:
+            return self._arg_extreme(src, sub, [d] if r else [], larger)
+        return self.fold(src, sub, [d] if r else [], T,
                          _literal(-math.inf if larger else math.inf, T),
                          self._max_step(larger))
 
@@ -1265,17 +1537,18 @@ class _Body:
                            lambda: self.val(src, sub, T), _literal(value, T))
 
     def _index(self, node, idx) -> str:
-        """``index.Tensor(x, indices)`` with constant index tensors (None
-        for a dim taken whole), torch's advanced indexing: the indices
-        broadcast together; their dims replace the indexed ones where
-        those are adjacent, else lead."""
+        """``index.Tensor(x, indices)`` (None for a dim taken whole),
+        torch's advanced indexing: the indices broadcast together; their
+        dims replace the indexed ones where those are adjacent, else lead.
+        An index tensor is a constant (its values literals) or computed at
+        run time (``_index_at``)."""
         g = self.g
         src, indices = node.args[0], list(node.args[1])
         ishape = g.shape[src]
         r = len(ishape)
         pos = [d for d, ix in enumerate(indices) if ix is not None]
-        tables = [g.consts[indices[d]] for d in pos]
-        bshape = tuple(torch.broadcast_shapes(*(t.shape for t in tables)))
+        bshape = tuple(torch.broadcast_shapes(*(g.shape[indices[d]]
+                                                for d in pos)))
         nb = len(bshape)
         if pos == list(range(pos[0], pos[-1] + 1)):
             bidx = idx[pos[0]:pos[0] + nb]
@@ -1285,13 +1558,12 @@ class _Body:
         sub = [None] * r
         for d, ix in zip([d for d in range(r) if d not in pos], other):
             sub[d] = ix
-        flat = _flat(bidx, bshape)
-        for d, table in zip(pos, tables):
-            values = table.expand(bshape).reshape(-1).tolist()
-            if any(not -ishape[d] <= v < ishape[d] for v in values):
-                raise _refuse(f"{g.name}: node {node.name} indexes dim {d} "
-                              f"of size {ishape[d]} at {values}")
-            sub[d] = self._lookup([v % ishape[d] for v in values], flat)
+        for d in pos:
+            shape = g.shape[indices[d]]
+            lead = nb - len(shape)
+            at = tuple(0 if s == 1 else bidx[lead + j]
+                       for j, s in enumerate(shape))
+            sub[d] = self._index_at(indices[d], at, ishape[d])
         return self.val(src, sub)
 
     def _cross(self, node, idx) -> str:
@@ -1413,6 +1685,8 @@ class _Body:
             a = self.whole(("lu" if lu else "chol", node.args[0], upper))[0]
             return f"{a}[{_flat(idx[::-1] if upper else idx, self.g.shape[node.args[0]])}]"
         a, flat = self.whole(node)
+        if isinstance(a, dict):   # an array an output (a sort's)
+            a = a[k]
         return f"{a}[{flat(k, idx)}]"
 
     def _factor(self, kind, A, upper, into):
@@ -1619,12 +1893,13 @@ class _Body:
         return x, lambda k, idx: _flat(flip(idx), (n, C))
 
     def _sort(self, node):
-        """``sort``/``topk``/``kthvalue``/``median`` values along a dim:
-        element k of a slice is its element of stable rank k, NaN the
+        """``sort``/``topk``/``kthvalue``/``median`` along a dim: element k
+        of a slice's values is its element of stable rank k, NaN the
         largest (first in a descending sort), an O(L^2) count a slice of
-        L; ``median`` the lower median, NaN where the slice holds one.
-        ``(array, flat)``, the array over the input's shape with the dim
-        cut to the values kept."""
+        L, and of its indices that element's index; ``median`` the lower
+        median, NaN (the first) where the slice holds one. ``({0: values,
+        1: indices}, flat)``, arrays over the input's shape with the dim cut
+        to the values kept."""
         g, t = self.g, node.target
         X = node.args[0]
         T, ishape = g.ctype[X], g.shape[X]
@@ -1651,6 +1926,7 @@ class _Body:
             keep, rank = 1, (L - 1) // 2
         shape = tuple(keep if e == d else s for e, s in enumerate(ishape))
         out = self.array(T, math.prod(shape))
+        at = self.array("int64_t", math.prod(shape))
         ks = [None] * r
         for e in range(r):
             if e != d:
@@ -1671,28 +1947,29 @@ class _Body:
                 f"!{ahead(b, a)}) ? 1 : 0);")
         self.close()
         pos = list(ks)
-        if rank is None:
-            pos[d] = n_ahead
-            put = f"{out}[{_flat(pos, shape)}] = {v}[{j}];"
-            self.op(put if keep == L else f"if ({n_ahead} < {keep}) {put}")
+        pos[d] = n_ahead if rank is None else 0
+        o = _flat(pos, shape)
+        put = f"{{ {out}[{o}] = {v}[{j}]; {at}[{o}] = {j}; }}"
+        if rank is not None:
+            self.op(f"if ({n_ahead} == {rank}) {put}")
         else:
-            pos[d] = 0
-            self.op(f"if ({n_ahead} == {rank}) {out}[{_flat(pos, shape)}] = "
-                    f"{v}[{j}];")
+            self.op(put if keep == L else f"if ({n_ahead} < {keep}) {put}")
         self.close()
-        if t in (aten.median.dim, aten.median.default):   # NaN if any
+        if t in (aten.median.dim, aten.median.default):   # the first NaN
             k = self.loop(L)
-            self.op(f"if ({v}[{k}] != {v}[{k}]) {out}[{_flat(pos, shape)}] "
-                    f"= {v}[{k}];")
+            self.op(f"if ({v}[{k}] != {v}[{k}] && {out}[{o}] == {out}[{o}]) "
+                    f"{{ {out}[{o}] = {v}[{k}]; {at}[{o}] = {k}; }}")
             self.close()
         for e in range(r):
             if e != d:
                 self.close()
+        arrays = {0: out, 1: at}
         if t is aten.median.default:
-            return out, lambda k, idx: 0
+            return arrays, lambda k, idx: 0
         if rank is not None and not _opt(node, dim[0] + 1, "keepdim", False):
-            return out, lambda k, idx: _flat(idx[:d] + (0,) + idx[d:], shape)
-        return out, lambda k, idx: _flat(idx, shape)
+            return arrays, lambda k, idx: _flat(idx[:d] + (0,) + idx[d:],
+                                                shape)
+        return arrays, lambda k, idx: _flat(idx, shape)
 
     def _triangle(self, node, idx) -> str:
         """``tril``/``triu(A, diagonal)``: A's element where j - i is on the
@@ -1766,6 +2043,7 @@ def emit_source(gm, name: str, n: int, m: int, dtype):
 // tfmpc_tpu_torch/ops/env_codegen.py at (n, m) = ({n}, {m}) in {S}.
 // Parameters: {desc}.
 // Traced through torch._decomp: {decomposed}.
+#include <stdint.h>
 namespace tfmpc {{
 
 struct UserStep {{
@@ -1831,7 +2109,7 @@ def trace_step(env, dtype, device):
     u = torch.zeros(m, dtype=dtype, device=device)
     table: dict = {}
     try:
-        with torch.no_grad():
+        with torch.no_grad(), ScalarIndexMode():
             while True:
                 gm = make_fx(step, tracing_mode="fake",
                              decomposition_table=table,
@@ -1841,6 +2119,9 @@ def trace_step(env, dtype, device):
                     break
                 table.update(get_decompositions(list(more)))
     except RuntimeError as e:
+        if isinstance(e, DynamicOutputShapeException):
+            raise _refuse(f"{name}: a data-dependent shape in its step "
+                          f"({type(e).__name__}: {e})") from e
         if "data-dependent" in str(e) or "data dependent" in str(e):
             raise _refuse(f"{name}: a data-dependent branch or value in "
                           f"its step ({type(e).__name__}: "
@@ -1853,18 +2134,60 @@ def trace_step(env, dtype, device):
 
 
 def _decomposable(gm) -> set:
-    """The ops of ``gm`` outside ``SUPPORTED_OPS`` that compute floats and
-    that ``torch._decomp`` decomposes."""
+    """The ops of ``gm`` outside ``SUPPORTED_OPS`` that compute tensors
+    and that ``torch._decomp`` decomposes."""
     out = set()
     for nd in gm.graph.nodes:
         val = nd.meta.get("val")
-        floats = isinstance(val, torch.Tensor) and val.is_floating_point() \
-            or isinstance(val, (tuple, list))
-        if nd.op == "call_function" and floats \
+        if nd.op == "call_function" \
+                and isinstance(val, (torch.Tensor, tuple, list)) \
                 and nd.target not in SUPPORTED_OPS \
                 and nd.target in decomposition_table:
             out.add(nd.target)
     return out
+
+
+def _scalar_index(i) -> bool:
+    return isinstance(i, torch.Tensor) and i.dim() == 0 and not (
+        i.is_floating_point() or i.is_complex() or i.dtype == torch.bool)
+
+
+class ScalarIndexMode(TorchFunctionMode):
+    """Reads a tensor at 0-d integer tensors (``v[i]``, ``T[r, i]``, as
+    a step written for one scenario indexes) through ``aten::index.Tensor``
+    instead of ``.item()``, which a trace cannot take: torch's indexing
+    selects at such an index as at the Python int it holds, so each is a
+    1-element index followed by a squeeze, on its dim, before the rest of
+    the index applies (other indices, slices, None, Ellipsis), which gives
+    the same values."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.__getitem__:
+            v, index = args
+            items = index if isinstance(index, tuple) else (index,)
+            if any(_scalar_index(i) for i in items):
+                return self._select(v, items)
+        return func(*args, **(kwargs or {}))
+
+    @staticmethod
+    def _select(v, items):
+        spans = sum(1 for i in items
+                    if i is not None and i is not Ellipsis
+                    and not isinstance(i, bool))
+        d, picks, rest = 0, [], []
+        for i in items:
+            if i is Ellipsis:
+                d += v.dim() - spans
+            elif i is not None and not isinstance(i, bool):
+                if _scalar_index(i):
+                    picks.append((d, i))
+                    d += 1
+                    continue
+                d += 1
+            rest.append(i)
+        for d, i in reversed(picks):
+            v = aten.index.Tensor(v, [None] * d + [i.reshape(1)]).squeeze(d)
+        return v[tuple(rest)] if rest else v
 
 
 _STEPS: Dict[int, dict] = {}

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from tfmpc_tpu_torch.core.types import map_fields
+from tfmpc_tpu_torch.models.base import autograd_env, autograd_env_once
 from tfmpc_tpu_torch.ops.riccati import (
     riccati_backward_boxqp_ref,
     riccati_backward_ddp_boxqp_ref,
@@ -221,10 +222,11 @@ def _kkt_stationary(env, x0, U, config, axes=None):
     ``axes``. The gradient is ``torch.autograd.grad`` of the summed total
     cost; scenarios are independent, so each lane's gradient is that of
     its own cost (``jax.grad`` of ``env.total_cost`` in the JAX package),
-    recorded under ``torch.inference_mode`` too."""
+    recorded under ``torch.inference_mode`` too, and on an env built under
+    it through ``autograd_env``."""
     with torch.inference_mode(False), torch.enable_grad():
         U_ = U.detach().clone().requires_grad_(True)
-        J = env.total_cost(x0.detach().clone(), U_)
+        J = autograd_env(env).total_cost(x0.detach().clone(), U_)
         (g,) = torch.autograd.grad(J.sum(), U_)
     pg = U - env.clip(U - g)
     return _absmax(pg, axes) < _kkt_threshold(config, g, env.bounds, axes)
@@ -451,9 +453,10 @@ def solve(env, x0, U0=None, *, horizon: Optional[int] = None,
         failed=scalar(False, torch.bool),
         residual=scalar(torch.inf),
     )
-    while int(state.iteration) < config.max_iterations \
-            and any_on_axis(~state.converged & ~state.failed, time):
-        state = _iteration(env, state, config, alphas)
+    with autograd_env_once(env):
+        while int(state.iteration) < config.max_iterations \
+                and any_on_axis(~state.converged & ~state.failed, time):
+            state = _iteration(env, state, config, alphas)
 
     _, costs = env.rollout(x0, state.U)
     return ILQRResult(

@@ -71,6 +71,7 @@ import torch
 from torch.profiler import record_function
 
 from tfmpc_tpu_torch.core.types import map_fields
+from tfmpc_tpu_torch.models.base import autograd_env_once
 from tfmpc_tpu_torch.ops import riccati, riccati_mid, riccati_small, rollout
 from tfmpc_tpu_torch.solvers.ilqr import (
     ILQRConfig,
@@ -684,6 +685,15 @@ def _initial_state(env, x0, U0, horizon, config: ILQRConfig) -> SolverState:
 def _solve_batch_impl(env, x0, U0, horizon, config: ILQRConfig,
                       init_state: Optional[SolverState] = None,
                       return_trace: bool = False):
+    # an env built under torch.inference_mode: its autograd passes' copy,
+    # made once a solve (models/base.py autograd_env)
+    with autograd_env_once(env):
+        return _solve_batch_loop(env, x0, U0, horizon, config, init_state,
+                                 return_trace)
+
+
+def _solve_batch_loop(env, x0, U0, horizon, config, init_state,
+                      return_trace):
     if init_state is not None:
         state = init_state
         x0 = state.X[:, 0]
